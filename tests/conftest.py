@@ -143,3 +143,8 @@ except ImportError:
         "test_sharding.py",
         "test_substrate.py",
     ]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
