@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and drives replicated hypergraph partitioning
-(``partition_with_replication``) through them.  Phases, in order; any
-failure propagates and the exit code is nonzero:
+with ``nvcc`` and drives its two paths through them: replicated
+hypergraph partitioning (``partition_with_replication``) and serving
+``hymba-1.5b`` (``launch.serve.serve``).  Phases, in order; any failure
+propagates and the exit code is nonzero:
 
-1. build the kernels; print the build time and the card's name and
-   power limit;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the partitioning path gives it (exact equality), and time both;
+1. build the kernels, one ``nvcc`` per source, all started together;
+   print the build time and the card's name and power limit;
+2. hold each kernel against its plain PyTorch version on the card and
+   time both: the gain kernels at the shapes the partitioning path gives
+   them (exact equality), attention and the selective scan at hymba's
+   serving shapes, in bf16 and in f32 (tolerances at ``MODEL_TOL``), with
+   TF32 off for the f32 products of the plain versions;
 3. the device-resident pass on ``large_row_net(8192)``, P = 8:
    ``fm_refine`` then ``replicate_local_search`` on CUDA against the host
    (numpy) path -- equal masks and cost, counter bounds; then one FM pass
@@ -19,11 +23,23 @@ failure propagates and the exit code is nonzero:
 4. the per-front path on an MoE expert-placement instance (float weights,
    128 experts): ``partition_with_replication`` on CUDA against numpy;
 5. full size: ``partition_with_replication(large_row_net(32768))``, P = 8,
-   on CUDA, with its time, costs, counters and peak device memory.
+   on CUDA, with its time, costs, counters and peak device memory;
+6. serve ``hymba-1.5b`` at full width and depth: 4 prompts of 2048
+   tokens, 32 new tokens each, in bf16; prefill seconds, decode ms per
+   token, tokens/s, peak memory and launches per counter (each of the four
+   model kernels must launch).  Then the same weights in f32 through the
+   kernels and through the plain versions (``ops.force("ref")``): prefill
+   and three teacher-forced decode steps agree within ``F32_LOGIT_TOL``
+   of the largest logit; the bf16 gap is reported.
 
-Launch counts are reset just before each driven run (phases 3-5) and read
-just after; the kernel line reports those of phases 4 and 5, the
-``partition_with_replication`` runs.  The min-cover kernel has two counts:
+Launch counts are reset just before each driven run (phases 3-6) and read
+just after; the kernel line reports those of phases 4 and 5 (the
+``partition_with_replication`` runs) for the gain kernels and of phase 6's
+serve run for the model kernels.  The attention kernel counts
+``flash_attention`` (no window, no positions: the Pallas kernel's role)
+apart from ``attention_masked``, the scan ``mamba_scan`` (from zeros)
+apart from ``mamba_step`` (decode, from a state); each count is timed at
+its commonest shape on the path.  The min-cover kernel has two counts:
 ``min_cover_lambdas`` where it prices a front (the Pallas kernel's role)
 and ``min_cover_apply`` where the device pass recomputes the lambdas of a
 committed move's edges; each is timed at its own commonest shape.  A
@@ -39,6 +55,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,17 +66,41 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit non-tensor rate (data sheet, fp32)
 OPS_PER_ELEM = 3               # compare, select, min per loaded element
 
+BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate (data sheet)
+F32_FLOPS_PER_S = 67e12        # fp32 rate outside the tensor cores
+SCAN_OPS_PER_ELEM = 6          # per (t, d, n): dt*A, exp, two products and
+                               # an add for the state, one FMA for y
+
 # file:line of the Pallas kernel each CUDA kernel replaces
 REPLACES = {
     "front_dlam": "src/repro/kernels/gain.py:78",
     "min_cover_lambdas": "src/repro/kernels/gain.py:53",
     "min_cover_apply": "src/repro/kernels/gain.py:53",
+    "flash_attention": "src/repro/kernels/flash_attention.py:25",
+    "attention_masked": "src/repro/kernels/flash_attention.py:25",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:24",
+    "mamba_step": "src/repro/kernels/mamba_scan.py:24",
 }
 # launch counter -> the kernel it counts
 KERNEL_OF = {"front_dlam": "front_dlam",
              "min_cover_lambdas": "min_cover_lambdas",
-             "min_cover_apply": "min_cover_lambdas"}
-SOURCE = "src/repro_torch/kernels/csrc/gain.cu"
+             "min_cover_apply": "min_cover_lambdas",
+             "flash_attention": "flash_attention",
+             "attention_masked": "flash_attention",
+             "mamba_scan": "mamba_scan",
+             "mamba_step": "mamba_scan"}
+# kernel -> its source, the name of its library in _build
+SOURCES = {"front_dlam": "gain", "min_cover_lambdas": "gain",
+           "flash_attention": "flash_attention", "mamba_scan": "mamba_scan"}
+MODEL_COUNTERS = ("flash_attention", "attention_masked", "mamba_scan",
+                  "mamba_step")
+# kernel vs plain version: tests/test_kernels.py's bounds, f32 relaxed from
+# 2e-6 to 1e-5 for the summation order on the card
+MODEL_TOL = {("attn", "float32"): 1e-5, ("attn", "bfloat16"): 2e-2,
+             ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2}
+# phase 6: the f32 kernel path against the f32 plain path, as a share of
+# the largest |logit|
+F32_LOGIT_TOL = 1e-3
 
 
 T0 = time.perf_counter()
@@ -194,6 +235,280 @@ def check_kernel(kernel: str, R: int, P: int, seed: int) -> dict:
             "call_ms": time_ms(run), "plain_call_ms": time_ms(plain)}
 
 
+def rel_ok(got, want, tol: float) -> tuple[bool, float]:
+    """``|got - want| <= tol + tol * |want|`` everywhere (the rule of
+    ``assert_allclose`` with rtol = atol = tol), and the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return ok, float(diff.max())
+
+
+# (name, counter, B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions,
+# on the path): hymba's prefill (global and window 1024) and decode
+# (linear cache of 2080 at position 2060, full ring of 1024), a ring whose
+# left slots are still padding, a non-causal shape, and MLA's 192/128 dims
+ATTN_CASES = [
+    ("prefill", "flash_attention", 4, 2048, 2048, 25, 5, 64, 64, True, 0,
+     None, True),
+    ("prefill_window", "attention_masked", 4, 2048, 2048, 25, 5, 64, 64,
+     True, 1024, None, True),
+    ("decode_global", "attention_masked", 4, 1, 2080, 25, 5, 64, 64, True,
+     0, "linear", True),
+    ("decode_window", "attention_masked", 4, 1, 1024, 25, 5, 64, 64, True,
+     0, "ring", True),
+    ("decode_ring_pads", "attention_masked", 4, 1, 1024, 25, 5, 64, 64,
+     True, 0, "ring_pads", False),
+    ("noncausal", "flash_attention", 2, 1024, 1024, 25, 5, 64, 64, False, 0,
+     None, False),
+    ("hd192_v128", "flash_attention", 1, 1024, 1024, 16, 16, 192, 128, True,
+     0, None, False),
+]
+# (name, counter, B, S, di, N, with a state, on the path)
+SCAN_CASES = [
+    ("prefill", "mamba_scan", 4, 2048, 3200, 16, False, True),
+    ("decode", "mamba_step", 4, 1, 3200, 16, True, True),
+]
+
+
+def attn_key(q, k, v, window: int) -> tuple:
+    return (tuple(q.shape), tuple(k.shape), v.shape[-1], window)
+
+
+def check_attention(case, dtype_name: str, seed: int) -> dict:
+    """The attention kernel against its plain version on one case; timed
+    with the plain version and SDPA (``library_ms``) where on the path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (name, counter, B, Sq, Sk, H, KV, hd, hdv, causal, window, pos,
+     on_path) = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, hdv), generator=g, device=dev).to(dtype)
+    qp = kp = None
+    if pos is not None:
+        at = {"linear": 2060, "ring": 2060, "ring_pads": 700}[pos]
+        qp = torch.full((B, Sq), at, dtype=torch.int32, device=dev)
+        first = 0 if pos == "linear" else at - Sk + 1
+        kp = torch.arange(first, first + Sk, dtype=torch.int32,
+                          device=dev).expand(B, Sk).contiguous()
+    kw = dict(causal=causal, window=window, q_pos=qp, k_pos=kp)
+
+    def run():
+        return ops.attention(q, k, v, **kw)
+
+    def plain():
+        return ref.attention_ref(q, k, v, **kw)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    tol = MODEL_TOL[("attn", dtype_name)]
+    ok, err = rel_ok(got, want, tol)
+    if not ok:
+        raise AssertionError(f"attention {name} {dtype_name}: kernel != "
+                             f"plain within {tol} (max abs err {err})")
+    # the bound: the pairs the mask leaves, 2 (hd + hd_v) FLOPs per pair
+    # and q head; q, k, v (and positions) read once, o written once
+    qpos = qp if qp is not None else torch.arange(
+        Sq, device=dev).expand(B, Sq)
+    kpos = kp if kp is not None else torch.arange(
+        Sk, device=dev).expand(B, Sk)
+    keep = kpos[:, None, :] >= 0
+    if causal:
+        keep = keep & (qpos[:, :, None] >= kpos[:, None, :])
+    if window:
+        keep = keep & (qpos[:, :, None] - kpos[:, None, :] < window)
+    pairs = int(keep.sum())
+    flops = 2 * H * pairs * (hd + hdv)
+    nbytes = got.element_size() * (q.numel() + k.numel() + v.numel()
+                                   + got.numel())
+    if qp is not None:
+        nbytes += 4 * (qp.numel() + kp.numel())
+    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"case": name, "counter": counter, "dtype": dtype_name,
+           "shape": [B, Sq, Sk, H, KV, hd, hdv], "window": window,
+           "key": attn_key(q, k, v, window),
+           "max_abs_err": err, "tol": tol, "ms": graph_ms(run, 10, 5),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    if on_path:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None if (pos is None and not window) else keep[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+        row.update(call_ms=time_ms(run, 10), plain_ms=graph_ms(plain, 2, 2),
+                   library_ms=graph_ms(library, 10, 5))
+    return row
+
+
+def check_scan(case, dtype_name: str, seed: int) -> dict:
+    """The scan kernel against its plain version at one shape, timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    name, counter, B, S, di, N, state, on_path = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    u = rnd(B, S, di).to(dtype)
+    dt = F.softplus(rnd(B, S, di)).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(di, N).contiguous()
+    Bc, Cc = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype)
+    D = rnd(di)
+    h0 = rnd(B, di, N) if state else None
+
+    def run():
+        return ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
+
+    def plain():
+        return ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=h0)
+    (y, last), (y_ref, last_ref) = run(), plain()
+    torch.cuda.synchronize()
+    tol = MODEL_TOL[("scan", dtype_name)]
+    ok_y, err_y = rel_ok(y, y_ref, tol)
+    ok_h, err_h = rel_ok(last, last_ref, tol)
+    if not (ok_y and ok_h):
+        raise AssertionError(f"scan {name} {dtype_name}: kernel != plain "
+                             f"within {tol} (max abs err y {err_y}, "
+                             f"state {err_h})")
+    nbytes = (u.element_size() * (3 * B * S * di + 2 * B * S * N)
+              + 4 * (di * N + di + B * di * N * (2 if state else 1)))
+    ops_n = SCAN_OPS_PER_ELEM * B * S * di * N
+    t_ops = ops_n / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"case": name, "counter": counter, "dtype": dtype_name,
+           "shape": [B, S, di, N], "key": ((B, S, di), N),
+           "max_abs_err": max(err_y, err_h),
+           "tol": tol, "ms": graph_ms(run, 10, 5),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ops": ops_n, "bytes": nbytes}
+    if on_path:
+        row.update(call_ms=time_ms(run, 10), plain_ms=graph_ms(plain, 1, 2),
+                   library_ms=None)
+    return row
+
+
+class ModelShapes:
+    """Counts the model kernels' launches of a driven run by (counter,
+    shape key, dtype), to time each counter at its commonest shape."""
+
+    def __init__(self) -> None:
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import mamba_scan as ms
+        self.shapes: Counter = Counter()
+        real_fa, real_ms = fa.flash_attention, ms.mamba_scan
+
+        def attention(q, k, v, *, window=0, q_pos=None, k_pos=None, **kw):
+            plain = window == 0 and q_pos is None and k_pos is None
+            self.shapes[("flash_attention" if plain else "attention_masked",
+                         attn_key(q, k, v, window), str(q.dtype))] += 1
+            return real_fa(q, k, v, window=window, q_pos=q_pos,
+                           k_pos=k_pos, **kw)
+
+        def scan(u, dt, A, Bc, Cc, D, init_state=None):
+            self.shapes[("mamba_scan" if init_state is None else
+                         "mamba_step", (tuple(u.shape), A.shape[1]),
+                         str(u.dtype))] += 1
+            return real_ms(u, dt, A, Bc, Cc, D, init_state=init_state)
+
+        fa.flash_attention, ms.mamba_scan = attention, scan
+
+    def commonest(self, counter: str) -> tuple:
+        return max(((key, dt) for (c, key, dt) in self.shapes
+                    if c == counter),
+                   key=lambda kd: self.shapes[(counter,) + kd])
+
+
+def expected_serve_launches(cfg, G: int) -> dict:
+    """What one serve run launches: each global layer's prefill attention
+    is plain, each windowed layer's and every decode call masked; the SSM
+    mixer runs twice per layer in prefill (block, then cache) and once per
+    layer and decode step."""
+    n = cfg.n_layers
+    n_window = sum(s.n_layers for s in cfg.segments if s.sliding_window)
+    return {"flash_attention": n - n_window,
+            "attention_masked": n_window + (G - 1) * n,
+            "mamba_scan": 2 * n, "mamba_step": (G - 1) * n}
+
+
+def logits_through(model, prompts, forced, which: str, max_len: int):
+    """Prefill logits and those of ``forced`` teacher-forced decode steps,
+    every kernel call sent to ``which`` ("cuda" or "ref")."""
+    import torch
+    from repro_torch.kernels import ops
+    S = prompts.shape[1]
+    ops.force(which)
+    try:
+        with torch.inference_mode():
+            logits, caches = model.prefill({"tokens": prompts}, max_len)
+            out = [logits]
+            for i in range(forced.shape[1]):
+                logits, caches = model.decode_step(forced[:, i:i + 1],
+                                                   caches, S + i)
+                out.append(logits)
+        torch.cuda.synchronize()
+    finally:
+        ops.force(None)
+    return torch.cat(out, dim=1)
+
+
+def decode_profile(model, prompts, forced, max_len: int) -> dict:
+    """Where a decode step's time goes: after an unprofiled prefill, the
+    ``forced`` decode steps run plain (wall time) and again under
+    ``torch.profiler`` (device activity only): device busy time by kernel
+    name and its share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        _, caches0 = model.prefill({"tokens": prompts}, max_len)
+
+        def steps():
+            caches = caches0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(forced.shape[1]):
+                _, caches = model.decode_step(forced[:, i:i + 1], caches,
+                                              S + i)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        steps()
+        wall = steps()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    n = forced.shape[1]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[6b] {n} decode steps: {1e3 * wall / n:.4f} ms/step wall; device "
+        f"busy {1e3 * busy / n:.4f} ms/step = {busy / wall:.4f} of it; "
+        f"launches/step {sum(e.count for e in kern) / n:.1f}; by kernel "
+        f"(name: count, ms): " + "; ".join(
+            f"{e.key[:50]}: {e.count}, {e.self_device_time_total / 1e3:.3f}"
+            for e in top))
+    if busy == 0:
+        return {"ms_per_step": sig(1e3 * wall / n), "busy": "not measured"}
+    return {"ms_per_step": sig(1e3 * wall / n),
+            "busy_ms_per_step": sig(1e3 * busy / n),
+            "busy_share": sig(busy / wall),
+            "launches_per_step": sig(sum(e.count for e in kern) / n)}
+
+
 class Recorder:
     """Observes a driven run: the device passes it attached and the shape
     of every kernel launch (launch counts stay in ``ops.launches``)."""
@@ -325,9 +640,12 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    _build.load("gain")
+    libs = sorted(set(SOURCES.values()))
+    with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
+        list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
-    log(f"[1] built and loaded {_build._lib_path('gain').name} in "
+    log(f"[1] built and loaded "
+        f"{', '.join(_build._lib_path(n).name for n in libs)} in "
         f"{build_s:.2f} s")
     summary: dict = {"build_s": sig(build_s)}
     card = card_line()
@@ -353,6 +671,29 @@ def main() -> int:
         row = check_kernel(kernel, R, p, seed=i)
         timed[(kernel, R, 1 << p)] = row
         log("    " + json.dumps(row))
+
+    # the model kernels at hymba's shapes; the f32 plain versions run their
+    # products in full f32 (TF32 off for matmuls and cuDNN alike)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[2] attention and scan vs plain versions (TF32 off)")
+    model_rows: list = []
+    for i, case in enumerate(ATTN_CASES):
+        for dtype_name in ("bfloat16", "float32"):
+            model_rows.append(check_attention(case, dtype_name, seed=100 + i))
+            log("    " + json.dumps(model_rows[-1]))
+    for i, case in enumerate(SCAN_CASES):
+        for dtype_name in ("bfloat16", "float32"):
+            model_rows.append(check_scan(case, dtype_name, seed=200 + i))
+            log("    " + json.dumps(model_rows[-1]))
+    summary["p2_model"] = {
+        f"{r['case']}/{r['dtype'][:4]}": [
+            sig(r["ms"]), sig(r["bound_ms"]),
+            sig(r["plain_ms"]) if "plain_ms" in r else None,
+            sig(r["library_ms"]) if r.get("library_ms") else None,
+            sig(r["max_abs_err"])]
+        for r in model_rows}
+    torch.cuda.empty_cache()
 
     rec = Recorder()
 
@@ -453,6 +794,67 @@ def main() -> int:
                      **c5, "syncs_per_commit": sig(c5["syncs"] / max(
                          c5["commits"], 1)), "peak_B": peak}
 
+    # ------------------------------------------------ 6. serve hymba-1.5b
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    cfg = get_config("hymba-1.5b")
+    B6, S6, G6 = 4, 2048, 32
+    shapes6 = ModelShapes()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, B6, S6, G6, device="cuda", seed=0)
+    peak6 = torch.cuda.max_memory_allocated()
+    l6 = {c: res.launches[c] for c in MODEL_COUNTERS}
+    if res.tokens.shape != (B6, G6) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"bad generated tokens {res.tokens.shape}")
+    for c in MODEL_COUNTERS:
+        if l6[c] == 0:
+            raise AssertionError(f"{c} never launched while serving")
+    want6 = expected_serve_launches(cfg, G6)
+    if l6 != want6:
+        raise AssertionError(f"serve launched {l6}, expected {want6}")
+    log(f"[6] serve {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, bf16): {B6} prompts x {S6} tokens, {G6} new each; "
+        f"prefill {res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} "
+        f"ms/token, {res.tokens_per_s:.2f} tok/s, max_memory_allocated "
+        f"{peak6} B; launches {l6}; sample {res.tokens[0][:8].tolist()}")
+    # the same weights through the kernels and through the plain versions:
+    # prefill and three teacher-forced decode steps, f32 asserted
+    prompts6 = torch.from_numpy(make_prompts(cfg, B6, S6, 0)).cuda()
+    forced = torch.from_numpy(res.tokens[:, :3]).cuda()
+    gaps = {}
+    for dtype_name in ("float32", "bfloat16"):
+        model = make_model(cfg.with_(dtype=dtype_name), device="cuda",
+                           seed=0)
+        kern = logits_through(model, prompts6, forced, "cuda", S6 + G6)
+        plain = logits_through(model, prompts6, forced, "ref", S6 + G6)
+        if dtype_name == "bfloat16":
+            summary["p6b"] = decode_profile(model, prompts6, forced,
+                                            S6 + G6)
+        del model
+        torch.cuda.empty_cache()
+        scale = float(plain.abs().max())
+        gap = float((kern - plain).abs().max())
+        if not (torch.isfinite(kern).all() and kern.shape == (B6, 4,
+                                                              cfg.vocab)):
+            raise AssertionError(f"{dtype_name} logits not finite or "
+                                 f"misshapen: {tuple(kern.shape)}")
+        gaps[dtype_name] = (gap, scale)
+        log(f"[6] {dtype_name} kernel path vs plain path, prefill + 3 "
+            f"decode steps: max |diff| {gap:.6g}, max |logit| {scale:.6g}, "
+            f"ratio {gap / scale:.6g}")
+    gap32, scale32 = gaps["float32"]
+    if not gap32 <= F32_LOGIT_TOL * scale32:
+        raise AssertionError(f"f32 kernel path off the plain path by "
+                             f"{gap32} > {F32_LOGIT_TOL} x {scale32}")
+    summary["p6"] = {
+        "prefill_s": sig(res.prefill_s), "ms_per_token": sig(
+            res.ms_per_token), "tok_s": sig(res.tokens_per_s),
+        "peak_B": peak6, "launches": l6,
+        "f32_gap": sig(gap32 / scale32),
+        "bf16_gap": sig(gaps["bfloat16"][0] / gaps["bfloat16"][1])}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -460,6 +862,8 @@ def main() -> int:
         f"{dict(shapes_all.most_common(12))}")
     kernels = []
     for name, kernel in KERNEL_OF.items():
+        if name in MODEL_COUNTERS:
+            continue
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         # time each count's kernel at its most frequent shape on the path
@@ -473,12 +877,34 @@ def main() -> int:
         errs = [r["max_abs_err"] for (k, _, _), r in timed.items()
                 if k == kernel]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{SOURCES[kernel]}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(errs), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": [R, M], "call_ms": row["call_ms"]})
+    log(f"model kernel launch shapes (counter, key, dtype): count, phase "
+        f"6: {dict(shapes6.shapes.most_common(12))}")
+    for name in MODEL_COUNTERS:
+        key, dt = shapes6.commonest(name)
+        rows = [r for r in model_rows if r["counter"] == name
+                and r["dtype"] == dt.removeprefix("torch.")
+                and "plain_ms" in r and r["key"] == key]
+        if not rows:
+            raise AssertionError(f"{name}: its commonest shape {key} {dt} "
+                                 f"was not timed in phase 2")
+        row = rows[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{SOURCES[KERNEL_OF[name]]}.cu",
+            "replaces": REPLACES[name], "launches": l6[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "dtype": row["dtype"],
+            "call_ms": row["call_ms"]})
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -1,15 +1,18 @@
 """Carry the JAX package's state across to the port.
 
-This system's "weights" are its instances: a hypergraph's CSR arrays and
-weights.  Partitions need no conversion: both packages take them as int64
-numpy arrays of processor-subset masks (bit p set = a replica on
-processor p).
+The partitioner's "weights" are its instances: a hypergraph's CSR arrays
+and weights.  Partitions need no conversion: both packages take them as
+int64 numpy arrays of processor-subset masks (bit p set = a replica on
+processor p).  The serving model's weights are a JAX parameter pytree,
+handed over with numpy leaves (``model_state_from_jax``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.hypergraph import Hypergraph
+from .models.config import ModelConfig
 
 
 def hypergraph_from_arrays(n: int, xpins, pins, omega, mu,
@@ -42,3 +45,45 @@ def hypergraph_from_arrays(n: int, xpins, pins, omega, mu,
     return Hypergraph.from_csr(n, xpins, pins, omega=omega, mu=mu,
                                name=name or "hypergraph")
 
+
+
+def _tensor(a) -> torch.Tensor:
+    """A copy of numpy array ``a`` as a tensor.  A bfloat16 array (the
+    ``ml_dtypes`` dtype that ``np.asarray`` gives a JAX bf16 array, which
+    ``torch.from_numpy`` refuses) goes through its bits, so it is exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _leaves(sub, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", sub
+
+
+def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
+    """A state dict for ``models.model.Model(cfg)`` from the JAX package's
+    ``Model(cfg).init`` pytree with numpy leaves.
+
+    Each segment's stacked ``(n_layers, ...)`` leaves are cut into one
+    tensor per layer (``segments.<i>.<j>.<path>``); dtypes are kept, and
+    ``Model.load_state_dict(..., strict=True)`` takes the result."""
+    state = {name: _tensor(params[name])
+             for name in ("embed", "final_ln", "lm_head") if name in params}
+    if len(params["segments"]) != len(cfg.segments):
+        raise ValueError(f"{len(params['segments'])} parameter segments for "
+                         f"{len(cfg.segments)} config segments")
+    for i, (seg, sp) in enumerate(zip(cfg.segments, params["segments"])):
+        for path, leaf in _leaves(sp):
+            arr = np.asarray(leaf)
+            if arr.shape[:1] != (seg.n_layers,):
+                raise ValueError(f"segments[{i}].{path} has shape "
+                                 f"{arr.shape}, not ({seg.n_layers}, ...)")
+            for j in range(seg.n_layers):
+                state[f"segments.{i}.{j}.{path}"] = _tensor(arr[j])
+    return state

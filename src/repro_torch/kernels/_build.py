@@ -24,12 +24,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launchers, per source: (rows, pc, [lam_old,] out, R, M,
-# stream) -> cudaError_t as int
+_F = ctypes.c_float
+# C signatures of the launchers, per source; each returns cudaError_t as int
 SIGNATURES = {
+    # (rows, pc, [lam_old,] out, R, M, stream)
     "gain": {
         "repro_min_cover": (_P, _P, _P, _I, _I, _P),
         "repro_front_dlam": (_P, _P, _P, _P, _I, _I, _P),
+    },
+    # (q, k, v, o, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal, window,
+    #  scale, is_bf16, stream)
+    "flash_attention": {
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _I, _P),
+    },
+    # (u, dt, A, Bc, Cc, D, init, y, last, B, S, di, N, is_bf16, stream)
+    "mamba_scan": {
+        "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _P),
     },
 }
 

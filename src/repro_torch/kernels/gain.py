@@ -28,18 +28,7 @@ from .ref import _NO_COVER, front_dlam_ref, min_cover_ref
 
 __all__ = ["_NO_COVER", "front_dlam", "min_cover", "min_cover_lambdas"]
 
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{name} must be a CUDA tensor on {device}, "
-                         f"got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_INT32 = (torch.int32,)
 
 
 def _launch(kernel: str, rows_perm: torch.Tensor, pc: torch.Tensor,
@@ -49,11 +38,11 @@ def _launch(kernel: str, rows_perm: torch.Tensor, pc: torch.Tensor,
         raise ValueError(f"rows_perm must be (R, M), got {tuple(rows_perm.shape)}")
     R, M = rows_perm.shape
     dev = rows_perm.device
-    _check("rows_perm", rows_perm, (R, M), dev)
-    _check("pc", pc, (M,), dev)
+    ops.check("rows_perm", rows_perm, (R, M), _INT32, dev)
+    ops.check("pc", pc, (M,), _INT32, dev)
     ptrs = [rows_perm.data_ptr(), pc.data_ptr()]
     if lam_old is not None:
-        _check("lam_old", lam_old, (R,), dev)
+        ops.check("lam_old", lam_old, (R,), _INT32, dev)
         ptrs.append(lam_old.data_ptr())
     out = torch.empty(R, dtype=torch.int32, device=dev)
     lib = load("gain")

@@ -8,18 +8,30 @@ to the plain version.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with ``reset_launches`` and reads them afterwards to show
-which kernels its path went through.  ``min_cover_apply`` counts the
-min-cover kernel's launches from the device pass's applies (the reference
-does that step in plain jnp), ``min_cover_lambdas`` those that price a front.
+which kernels its path went through.  A kernel that also serves calls the
+JAX package sends to its jnp reference counts those apart:
+``min_cover_apply`` counts the min-cover kernel's launches from the device
+pass's applies, ``min_cover_lambdas`` those that price a front;
+``attention_masked`` the attention kernel's launches with a window or
+explicit positions, ``flash_attention`` the plain (causal) ones;
+``mamba_step`` the scan's launches from a given state (decode),
+``mamba_scan`` those from zeros.
+
+``attention`` and ``mamba_scan`` are the model's entry points to the two
+model kernels, with the signatures of the JAX package's ``ops``.
 """
 from __future__ import annotations
 
 import torch
 
+from . import ref
+
 _FORCE: str | None = None  # None = by device, 'cuda' | 'ref'
 
 launches: dict[str, int] = {"front_dlam": 0, "min_cover_lambdas": 0,
-                             "min_cover_apply": 0}
+                             "min_cover_apply": 0, "flash_attention": 0,
+                             "attention_masked": 0, "mamba_scan": 0,
+                             "mamba_step": 0}
 
 
 def force(which: str | None) -> None:
@@ -38,3 +50,43 @@ def use_kernel(t: torch.Tensor) -> bool:
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with
+    one of ``dtypes`` and the given shape: what a kernel's launcher takes."""
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be {names}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              q_pos: torch.Tensor | None = None,
+              k_pos: torch.Tensor | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """GQA attention, (B, Sq, H, hd) x (B, Sk, KV, hd[_v]) -> (B, Sq, H,
+    hd_v): the CUDA kernel for a CUDA ``q``, else ``ref.attention_ref``."""
+    if use_kernel(q):
+        from .flash_attention import flash_attention  # imports ops
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_pos=q_pos, k_pos=k_pos, scale=scale)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_pos=q_pos, k_pos=k_pos, scale=scale)
+
+
+def mamba_scan(u, dt, A, Bc, Cc, D, init_state=None):
+    """Mamba-1 selective scan -> (y, last state): the CUDA kernel for a
+    CUDA ``u``, else ``ref.mamba_scan_ref``."""
+    if use_kernel(u):
+        from .mamba_scan import mamba_scan as kernel_scan  # imports ops
+        return kernel_scan(u, dt, A, Bc, Cc, D, init_state=init_state)
+    return ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=init_state)

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-They define what each kernel computes.  A wrapper in ``gain`` takes them
-for tensors that lie on the CPU (the tests), and the smoke run on the card
-holds each kernel against them on the same inputs.
+They define what each kernel computes.  The dispatchers (``gain``'s
+wrappers, ``ops.attention``, ``ops.mamba_scan``) take them for tensors that
+lie on the CPU (the tests), and the smoke run on the card holds each kernel
+against them on the same inputs.  The attention and scan versions are the
+twins of the JAX package's jnp references, argument for argument.
 """
 from __future__ import annotations
 
@@ -24,3 +26,63 @@ def front_dlam_ref(rows_perm: torch.Tensor, pc: torch.Tensor,
     the masked min of ``min_cover_ref``."""
     lam = min_cover_ref(rows_perm, pc)
     return (lam - 1).clamp_min(0) - (lam_old - 1).clamp_min(0)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_pos: torch.Tensor | None = None,
+                  k_pos: torch.Tensor | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """GQA attention: q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV,
+    hd_v) -> (B, Sq, H, hd_v) in q's dtype.
+
+    ``q_pos``/``k_pos`` are (B, Sq)/(B, Sk) absolute positions (default
+    ``arange``); ``k_pos < 0`` is padding, ``causal`` keeps
+    ``q_pos >= k_pos`` and ``window > 0`` keeps ``q_pos - k_pos < window``.
+    Masked scores are -1e30, the softmax is f32, and ``p`` is cast to v's
+    dtype before the PV product, as in the JAX reference."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=q.device).expand(B, Sq)
+    if k_pos is None:
+        k_pos = torch.arange(Sk, device=q.device).expand(B, Sk)
+    qf = q.reshape(B, Sq, KV, G, hd).float()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * scale
+    qp = q_pos[:, None, None, :, None]
+    kp = k_pos[:, None, None, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (qp >= kp)
+    if window:
+        mask = mask & ((qp - kp) < window)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+                   init_state: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan, ``h <- exp(dt*A) h + (dt*u) B_t`` and
+    ``y_t = h.C_t + D*u_t`` in f32.  u/dt (B, S, di), A (di, N) f32, Bc/Cc
+    (B, S, N), D (di,) f32, ``init_state`` (B, di, N) f32 or zeros.
+    Returns y (B, S, di) in u's dtype and the last state (B, di, N) f32."""
+    B, S, di = u.shape
+    N = A.shape[1]
+    h = (torch.zeros((B, di, N), dtype=torch.float32, device=u.device)
+         if init_state is None else init_state.float())
+    uf, dtf = u.float(), dt.float()
+    dA = torch.exp(dtf[..., None] * A[None, None])                # (B,S,di,N)
+    dBu = (dtf * uf)[..., None] * Bc.float()[:, :, None, :]       # (B,S,di,N)
+    Cf = Cc.float()
+    ys = []
+    for t in range(S):
+        h = dA[:, t] * h + dBu[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + uf * D[None, None]
+    return y.to(u.dtype), h

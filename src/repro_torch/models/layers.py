@@ -1,0 +1,193 @@
+"""Transformer / SSM layers of the serving path, as functions over
+parameter dictionaries (name -> tensor, one layer's worth).
+
+The twins of the JAX package's ``models/layers.py`` for GQA attention and
+the Mamba-1 mixer, with its numerics: norms and rotary embeddings in f32,
+cast back to the working dtype at the same places.  Attention and the scan
+go through ``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain
+versions for CPU ones).  Caches are functional: each call returns new
+tensors and leaves the old ones as they were.  MLA and cross-attention are
+not ported yet (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ModelConfig, Segment
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w).to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, hd); pos: (B, S) absolute positions."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = pos[..., None].float() * freqs                  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------- attention
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def n_q_heads(cfg: ModelConfig) -> int:
+    """Physical q-head count (optionally padded per kv group; pad heads
+    are masked to zero)."""
+    return cfg.n_heads_padded or cfg.n_heads
+
+
+def head_mask(cfg: ModelConfig, dtype, device=None) -> torch.Tensor | None:
+    Hp = n_q_heads(cfg)
+    if Hp == cfg.n_heads:
+        return None
+    g_pad = Hp // cfg.n_kv_heads
+    g_real = cfg.n_heads // cfg.n_kv_heads
+    mask = (torch.arange(Hp, device=device) % g_pad) < g_real
+    return mask.to(dtype)[None, None, :, None]
+
+
+def gqa_project(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, n_q_heads(cfg), hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def _attend_out(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, S = out.shape[:2]
+    hm = head_mask(cfg, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm
+    return out.reshape(B, S, n_q_heads(cfg) * cfg.hd) @ p["wo"]
+
+
+def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, seg: Segment):
+    """Full-sequence attention (prefill)."""
+    B, S, _ = x.shape
+    q, k, v = gqa_project(p, x, cfg)
+    pos = _positions(B, S, x.device)
+    q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=seg.causal,
+                        window=seg.sliding_window)
+    return _attend_out(p, out, cfg)
+
+
+def gqa_init_cache(cfg: ModelConfig, seg: Segment, B: int, max_len: int,
+                   dtype, device=None) -> dict:
+    L = max_len if not seg.sliding_window else min(seg.sliding_window, max_len)
+    shape = (B, L, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_prefill_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      seg: Segment, max_len: int) -> dict:
+    """The decode cache of a prefilled sequence: a ring of the last W keys
+    (left-padded with zeros while shorter) for a sliding window, else a
+    linear cache where position i lives at index i."""
+    B, S, _ = x.shape
+    _, k, v = gqa_project(p, x, cfg)
+    k = rope(k, _positions(B, S, x.device), cfg.rope_theta)
+    if seg.sliding_window:
+        W = min(seg.sliding_window, max_len)
+
+        def fit(t):
+            return (t[:, -W:] if S >= W
+                    else F.pad(t, (0, 0, 0, 0, W - S, 0)))
+    else:
+        def fit(t):
+            return F.pad(t, (0, 0, 0, 0, 0, max_len - S))
+    return {"k": fit(k).contiguous(), "v": fit(v).contiguous()}
+
+
+def gqa_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                         seg: Segment, cache: dict, pos: int):
+    """x: (B, 1, D); ``pos`` (a Python int, never read from the device):
+    the index of the new token."""
+    B = x.shape[0]
+    q, k_new, v_new = gqa_project(p, x, cfg)
+    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, pos_b, cfg.rope_theta)
+    k_new = rope(k_new, pos_b, cfg.rope_theta)
+    if seg.sliding_window:
+        W = cache["k"].shape[1]
+        k = torch.cat([cache["k"][:, 1:], k_new], dim=1)
+        v = torch.cat([cache["v"][:, 1:], v_new], dim=1)
+        k_pos = torch.arange(pos - W + 1, pos + 1, dtype=torch.int32,
+                             device=x.device)
+    else:
+        k = cache["k"].slice_scatter(k_new, dim=1, start=pos, end=pos + 1)
+        v = cache["v"].slice_scatter(v_new, dim=1, start=pos, end=pos + 1)
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    k_pos = k_pos.expand(B, -1).contiguous()
+    out = ops.attention(q, k, v, causal=True, window=0, q_pos=pos_b,
+                        k_pos=k_pos)
+    return _attend_out(p, out, cfg), {"k": k, "v": v}
+
+
+# --------------------------------------------------------------------- mamba
+
+def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: dict | None = None):
+    """Mamba-1 mixer.  x: (B, S, D).  state: {'conv': (B, d_conv-1, di),
+    'ssm': (B, di, N)} for stepwise decode (S == 1)."""
+    B, S, _ = x.shape
+    di, N, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    xz = x @ p["in_proj"]
+    u, z = xz[..., :di], xz[..., di:]
+    # depthwise causal conv along S: the JAX window-gather einsum, as a sum
+    # of shifted slices with f32 products and sums, rounded once
+    if state is None:
+        u_pad = F.pad(u, (0, 0, cfg.d_conv - 1, 0))
+        new_conv = u_pad[:, -(cfg.d_conv - 1):] if cfg.d_conv > 1 else None
+    else:
+        u_pad = torch.cat([state["conv"], u], dim=1)
+        new_conv = u_pad[:, -(cfg.d_conv - 1):]
+    w = p["conv_w"].float()
+    acc = u_pad[:, 0:S].float() * w[0]
+    for j in range(1, cfg.d_conv):
+        acc = acc + u_pad[:, j:j + S].float() * w[j]
+    u_conv = F.silu(acc.to(x.dtype) + p["conv_b"])
+    # input-dependent SSM parameters
+    xproj = u_conv @ p["x_proj"]
+    dt = F.softplus(xproj[..., :r] @ p["dt_proj"] + p["dt_bias"])
+    Bc = xproj[..., r:r + N].contiguous()
+    Cc = xproj[..., r + N:].contiguous()
+    A = -torch.exp(p["A_log"].float())
+    init = state["ssm"] if state is not None else None
+    y, last = ops.mamba_scan(u_conv, dt, A, Bc, Cc, p["ssm_D"],
+                             init_state=init)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"]
+    new_conv = None if new_conv is None else new_conv.contiguous()
+    return out, {"conv": new_conv, "ssm": last}
+
+
+def mamba_init_cache(cfg: ModelConfig, B: int, dtype, device=None) -> dict:
+    return {
+        "conv": torch.zeros((B, cfg.d_conv - 1, cfg.d_inner), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }

@@ -1,0 +1,291 @@
+"""The serving model: dense GQA decoders, Mamba-1 and the parallel
+attention + SSM hybrid, with the JAX package's ``Model`` semantics.
+
+``forward`` and ``logits_fn`` run the full sequence; ``init_cache``,
+``prefill`` and ``decode_step`` serve.  Parameters live in one submodule
+per layer (``segments.<i>.<j>.<group>.<name>``, an ``nn.ModuleList`` per
+segment): the JAX package's stacked scan over layers is a Python loop
+here.  ``convert.model_state_from_jax`` unstacks a JAX parameter pytree
+into this layout.  Parameters are initialized from an explicit
+``torch.Generator`` with the JAX package's shapes, dtypes and constants
+(the random numbers differ: a test hands both packages the same weights
+through the converter).  Nothing here has a backward kernel yet, so
+parameters do not require grad.
+
+Caches are, per segment, a list of per-layer dicts: ``k``/``v`` (B, L,
+KV, hd) for attention and ``mamba`` = {``conv``: (B, d_conv-1, di),
+``ssm``: (B, di, N) f32} for the SSM mixer.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers as L
+from .config import ModelConfig, Segment
+
+_KINDS = ("dense", "hybrid", "mamba")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for the parts of the JAX model that
+    the port does not have yet, naming the ROADMAP item that ports them."""
+    for seg in cfg.segments:
+        if seg.kind == "moe":
+            raise NotImplementedError(
+                "segment kind 'moe': ported with the MoE path (ROADMAP "
+                "Queue 1 item 1)")
+        if seg.kind == "vision_group" or seg.cross_attn:
+            raise NotImplementedError(
+                "segment kind 'vision_group' (cross-attention): ROADMAP "
+                "Queue 1 item 3")
+        if seg.kind not in _KINDS:
+            raise ValueError(f"unknown segment kind {seg.kind!r}")
+        if seg.attn == "mla":
+            raise NotImplementedError("attn='mla': ROADMAP Queue 1 item 2")
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            "mtp_depth > 0 (multi-token prediction): ROADMAP Queue 1 item 2")
+
+
+class Params(nn.Module):
+    """One group of parameters, indexed by name like the JAX pytree's
+    dicts; a nested dict becomes a child group."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            if isinstance(t, dict):
+                self.add_module(name, Params(t))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class _Init:
+    """Draws a model's weights from one generator, in a fixed order, with
+    the JAX package's ``_init``: normal / sqrt(fan-in) in f32, then cast."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 dtype: torch.dtype):
+        self.cfg, self.gen, self.device, self.dtype = cfg, gen, device, dtype
+
+    def normal(self, shape, scale_dim) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.device)
+        return (x * scale_dim ** -0.5).to(self.dtype)
+
+    def ones(self, n: int) -> torch.Tensor:
+        return torch.ones(n, dtype=torch.float32, device=self.device)
+
+    def zeros(self, n: int) -> torch.Tensor:
+        return torch.zeros(n, dtype=self.dtype, device=self.device)
+
+    def attn(self) -> dict:
+        cfg = self.cfg
+        D, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+        Hp = L.n_q_heads(cfg)
+        return {"wq": self.normal((D, Hp * hd), D),
+                "wk": self.normal((D, KV * hd), D),
+                "wv": self.normal((D, KV * hd), D),
+                "wo": self.normal((Hp * hd, D), Hp * hd)}
+
+    def mlp(self, d_ff: int) -> dict:
+        D = self.cfg.d_model
+        return {"w_gate": self.normal((D, d_ff), D),
+                "w_up": self.normal((D, d_ff), D),
+                "w_down": self.normal((d_ff, D), d_ff)}
+
+    def mamba(self) -> dict:
+        cfg = self.cfg
+        D, di, N, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+        A = torch.arange(1, N + 1, dtype=torch.float32,
+                         device=self.device).expand(di, N)
+        return {"in_proj": self.normal((D, 2 * di), D),
+                "conv_w": self.normal((cfg.d_conv, di), cfg.d_conv),
+                "conv_b": self.zeros(di),
+                "A_log": torch.log(A).contiguous(),
+                "ssm_D": self.ones(di),
+                "x_proj": self.normal((di, r + 2 * N), di),
+                "dt_proj": self.normal((r, di), r),
+                "dt_bias": self.zeros(di),
+                "out_proj": self.normal((di, D), di)}
+
+    def layer(self, seg: Segment) -> dict:
+        D = self.cfg.d_model
+        if seg.kind == "mamba":
+            return {"ln1": self.ones(D), "mamba": self.mamba()}
+        p = {"ln1": self.ones(D), "ln2": self.ones(D), "attn": self.attn()}
+        if seg.kind == "hybrid":
+            p["mamba"] = self.mamba()
+        p["mlp"] = self.mlp(self.cfg.d_ff)
+        return p
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, *,
+                 device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        """``generator`` draws every weight, on ``device`` (default: seed 0
+        there); a CUDA ``device`` raises without a CUDA device."""
+        super().__init__()
+        _check_supported(cfg)
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Model on device 'cuda', but no CUDA device is available; "
+                "pass device='cpu' for the plain PyTorch versions")
+        self.cfg = cfg
+        self.device = dev
+        self.dtype = getattr(torch, cfg.dtype)
+        gen = (generator if generator is not None
+               else torch.Generator(device=dev).manual_seed(0))
+        ini = _Init(cfg, gen, dev, self.dtype)
+        D, V = cfg.d_model, cfg.vocab
+        self.embed = nn.Parameter(ini.normal((V, D), D), requires_grad=False)
+        self.final_ln = nn.Parameter(ini.ones(D), requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(ini.normal((D, V), D),
+                                        requires_grad=False)
+        self.segments = nn.ModuleList(
+            nn.ModuleList(Params(ini.layer(seg)) for _ in range(seg.n_layers))
+            for seg in cfg.segments)
+
+    # ------------------------------------------------------------ forward
+    def _mixer(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
+        """Attention and/or SSM part of one layer (full sequence)."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        parts = []
+        if seg.attn == "gqa":
+            parts.append(L.gqa_attention(lp["attn"], h, cfg, seg))
+        if seg.kind in ("mamba", "hybrid"):
+            parts.append(L.mamba_mixer(lp["mamba"], h, cfg)[0])
+        out = parts[0]
+        for extra in parts[1:]:
+            out = out + extra
+        return out
+
+    def _block(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
+        if seg.kind == "mamba":
+            h = L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps)
+            return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0]
+        x = x + self._mixer(lp, x, seg)
+        return x + L.swiglu(lp["mlp"],
+                            L.rmsnorm(x, lp["ln2"], self.cfg.norm_eps))
+
+    def _embed_inputs(self, batch: dict) -> torch.Tensor:
+        if self.cfg.frame_input:
+            return batch["frames"].to(self.dtype)
+        return F.embedding(batch["tokens"], self.embed)
+
+    def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and head, accumulated in f32 (B, S, V)."""
+        x = L.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return x.float() @ head.float()
+
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence hidden states and the (zero) auxiliary loss."""
+        x = self._embed_inputs(batch)
+        for seg, layers in zip(self.cfg.segments, self.segments):
+            for lp in layers:
+                x = self._block(lp, x, seg)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, batch: dict):
+        raise NotImplementedError(
+            "Model.loss (training, backward kernels): ROADMAP Queue 1 item 4")
+
+    def route_trace(self, batch: dict):
+        raise NotImplementedError(
+            "Model.route_trace needs MoE segments: ROADMAP Queue 1 item 1")
+
+    # -------------------------------------------------------------- serve
+    def init_cache(self, B: int, max_len: int) -> list:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        caches = []
+        for seg in cfg.segments:
+            def one():
+                c: dict = {}
+                if seg.attn == "gqa" and seg.kind != "mamba":
+                    c.update(L.gqa_init_cache(cfg, seg, B, max_len, dt, dev))
+                if seg.kind in ("mamba", "hybrid"):
+                    c["mamba"] = L.mamba_init_cache(cfg, B, dt, dev)
+                return c
+            caches.append([one() for _ in range(seg.n_layers)])
+        return caches
+
+    def prefill(self, batch: dict, max_len: int):
+        """Run the full prompt; return (last-token logits (B, 1, V) f32,
+        caches).  As in the JAX package, each layer's cache is built by a
+        second pass over its input (``_prefill_layer_cache``), so the SSM
+        mixer runs twice per layer."""
+        x = self._embed_inputs(batch)
+        caches = []
+        for seg, layers in zip(self.cfg.segments, self.segments):
+            seg_caches = []
+            for lp in layers:
+                y = self._block(lp, x, seg)
+                seg_caches.append(self._prefill_layer_cache(lp, x, seg,
+                                                            max_len))
+                x = y
+            caches.append(seg_caches)
+        return self.logits_fn(x[:, -1:]), caches
+
+    def _prefill_layer_cache(self, lp, x_in: torch.Tensor, seg: Segment,
+                             max_len: int) -> dict:
+        cfg = self.cfg
+        c: dict = {}
+        h = L.rmsnorm(x_in, lp["ln1"], cfg.norm_eps)
+        if seg.attn == "gqa" and seg.kind != "mamba":
+            c.update(L.gqa_prefill_cache(lp["attn"], h, cfg, seg, max_len))
+        if seg.kind in ("mamba", "hybrid"):
+            c["mamba"] = L.mamba_mixer(lp["mamba"], h, cfg)[1]
+        return c
+
+    def decode_step(self, token: torch.Tensor, caches: list, pos: int):
+        """One token (B, 1) for the whole batch at position ``pos`` (a
+        Python int); returns (logits (B, 1, V) f32, new caches)."""
+        if self.cfg.frame_input:
+            x = token.to(self.dtype)
+        else:
+            x = F.embedding(token, self.embed)
+        new_caches = []
+        for seg, layers, seg_cache in zip(self.cfg.segments, self.segments,
+                                          caches):
+            nc = []
+            for lp, c in zip(layers, seg_cache):
+                x, c = self._decode_block(lp, x, seg, c, pos)
+                nc.append(c)
+            new_caches.append(nc)
+        return self.logits_fn(x), new_caches
+
+    def _decode_block(self, lp, x: torch.Tensor, seg: Segment, cache: dict,
+                      pos: int):
+        cfg = self.cfg
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        if seg.kind == "mamba":
+            y, st = L.mamba_mixer(lp["mamba"], h, cfg, state=cache["mamba"])
+            return x + y, {"mamba": st}
+        new_cache = dict(cache)
+        parts = []
+        if seg.attn == "gqa":
+            y, nc = L.gqa_attention_decode(lp["attn"], h, cfg, seg, cache, pos)
+            new_cache.update(nc)
+            parts.append(y)
+        if seg.kind == "hybrid":
+            y, st = L.mamba_mixer(lp["mamba"], h, cfg, state=cache["mamba"])
+            new_cache["mamba"] = st
+            parts.append(y)
+        out = parts[0]
+        for extra in parts[1:]:
+            out = out + extra
+        x = x + out
+        y = L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        return x + y, new_cache
+

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the device-resident pass on CUDA against the host path.
+version, the device-resident pass on CUDA against the host path, and the
+serving model's kernel path against its plain path.
 
 These tests need a CUDA device and skip without one; they import nothing
 of JAX, so they run on a machine with the card alone:
@@ -15,7 +16,9 @@ torch.set_num_threads(1)
 from repro_torch.core.partition import heuristic as th  # noqa: E402
 from repro_torch.core.partition.engine import _tables  # noqa: E402
 from repro_torch.datagen import large_row_net  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels import front_pass, gain, ops, ref  # noqa: E402
+from repro_torch.launch.serve import make_model, serve  # noqa: E402
 
 
 @pytest.fixture
@@ -46,8 +49,9 @@ def test_kernels_match_plain_versions(cuda, P, R):
     lam = gain.min_cover(rows_t, pc_t)
     dl = gain.front_dlam(rows_t, pc_t, lam_old)
     torch.cuda.synchronize()
-    assert ops.launches == {"front_dlam": 1, "min_cover_lambdas": 1,
-                            "min_cover_apply": 0}
+    assert {k: ops.launches[k] for k in (
+        "front_dlam", "min_cover_lambdas", "min_cover_apply")} == {
+        "front_dlam": 1, "min_cover_lambdas": 1, "min_cover_apply": 0}
     assert torch.equal(lam, ref.min_cover_ref(rows_t, pc_t))
     assert torch.equal(dl, ref.front_dlam_ref(rows_t, pc_t, lam_old))
     assert bool((lam[::7] == gain._NO_COVER).all())
@@ -79,3 +83,158 @@ def test_device_pass_on_cuda_matches_host_path(cuda, monkeypatch):
     b = th.partition_with_replication(hg, 4, 0.05, frontier="numpy")
     for ra, rb in zip(a, b):
         assert np.array_equal(ra.masks, rb.masks) and ra.cost == rb.cost
+
+
+# ------------------------------------------------------ attention and scan
+# f32 1e-5 (the summation order differs from the plain version's), bf16
+# 2e-2 for attention and 3e-2 for the scan: tests/test_kernels.py's bounds.
+_ATOL = {torch.float32: {"attn": 1e-5, "scan": 1e-5},
+         torch.bfloat16: {"attn": 2e-2, "scan": 3e-2}}
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 products in full f32 for the plain versions."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+ATTN_CASES = [
+    # (B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions)
+    (2, 70, 70, 6, 2, 16, 16, True, 0, None),        # ragged tiles, G = 3
+    (1, 33, 90, 5, 5, 64, 64, False, 0, None),       # not causal, Sq != Sk
+    (2, 130, 130, 5, 1, 32, 32, True, 24, None),     # sliding window, G = 5
+    (2, 1, 150, 10, 2, 64, 64, True, 0, "linear"),   # decode, linear cache
+    (2, 1, 64, 10, 2, 64, 64, True, 0, "ring"),      # decode, ring with pads
+    (1, 40, 40, 4, 2, 192, 128, True, 0, None),      # hd 192, hd_v 128
+]
+
+
+def _attn_inputs(case, dtype, dev):
+    B, Sq, Sk, H, KV, hd, hdv, causal, window, kind = case
+    g = torch.Generator(device=dev).manual_seed(Sq * 7 + Sk)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, KV, hdv), generator=g, device=dev).to(dtype)
+    qp = kp = None
+    if kind == "linear":                  # new token at Sk - 9, future slots
+        qp = torch.full((B, 1), Sk - 9, dtype=torch.int32, device=dev)
+        kp = torch.arange(Sk, dtype=torch.int32, device=dev).expand(
+            B, Sk).contiguous()
+    elif kind == "ring":                  # 20 of Sk slots filled so far
+        qp = torch.full((B, 1), 19, dtype=torch.int32, device=dev)
+        kp = torch.arange(19 - Sk + 1, 20, dtype=torch.int32,
+                          device=dev).expand(B, Sk).contiguous()
+    return q, k, v, dict(causal=causal, window=window, q_pos=qp, k_pos=kp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_kernel_matches_plain_version(cuda, no_tf32, case, dtype):
+    q, k, v, kw = _attn_inputs(case, dtype, cuda)
+    ops.reset_launches()
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    plain = kw["window"] == 0 and kw["q_pos"] is None
+    assert ops.launches["flash_attention"] == int(plain)
+    assert ops.launches["attention_masked"] == int(not plain)
+    want = ref.attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = _ATOL[dtype]["attn"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _scan_inputs(B, S, di, N, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    u = rnd(B, S, di).to(dtype)
+    dt = (rnd(B, S, di).abs() * 0.1).to(dtype)
+    A = -rnd(di, N).abs() - 0.1
+    Bc, Cc = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype)
+    return u, dt, A, Bc, Cc, rnd(di)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N,state", [
+    (2, 100, 70, 4, False), (1, 256, 64, 16, False),
+    (3, 1, 96, 16, True), (2, 37, 40, 4, True)])
+def test_scan_kernel_matches_plain_version(cuda, B, S, di, N, state, dtype):
+    u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di)
+    h0 = (torch.randn((B, di, N), device=cuda) if state else None)
+    ops.reset_launches()
+    y, last = ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
+    torch.cuda.synchronize()
+    assert ops.launches["mamba_step" if state else "mamba_scan"] == 1
+    y_ref, last_ref = ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=h0)
+    tol = _ATOL[dtype]["scan"]
+    assert y.dtype == dtype and last.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(last, last_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_model_kernel_wrappers_reject_bad_inputs(cuda):
+    u, dt, A, Bc, Cc, D = _scan_inputs(1, 8, 32, 4, torch.float32, cuda, 0)
+    xproj = torch.randn((1, 8, 12), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_scan(u, dt, A, xproj[..., 4:8], Cc, D)   # a strided slice
+    with pytest.raises(ValueError, match="float32"):
+        ops.mamba_scan(u, dt.bfloat16(), A, Bc, Cc, D)
+    with pytest.raises(ValueError, match="float32"):
+        ops.mamba_scan(u, dt, A.double(), Bc, Cc, D)
+    q = torch.randn((1, 4, 2, 8), device=cuda)
+    k = torch.randn((1, 4, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="int32"):
+        ops.attention(q, k, k, q_pos=torch.zeros((1, 4), dtype=torch.int64,
+                                                 device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b",
+                                  "smollm-135m"])
+def test_model_kernel_path_matches_plain_path(cuda, no_tf32, arch):
+    """Reduced configs in f32: prefill and two decode steps through the
+    kernels against the same model through the plain versions."""
+    cfg = reduce_config(get_config(arch)).with_(dtype="float32")
+    model = make_model(cfg, device=cuda, seed=4)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    runs = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        try:
+            with torch.no_grad():
+                logits, caches = model.prefill({"tokens": tokens[:, :20]}, 26)
+                out = [logits]
+                for i in range(2):
+                    logits, caches = model.decode_step(
+                        tokens[:, 20 + i:21 + i], caches, 20 + i)
+                    out.append(logits)
+        finally:
+            ops.force(None)
+        runs[which] = torch.cat(out, dim=1)
+    scale = runs["ref"].abs().max().item()
+    assert (runs["cuda"] - runs["ref"]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_serve_on_cuda_counts_every_model_kernel(cuda):
+    res = serve(reduce_config(get_config("hymba-1.5b")), 2, 20, 3,
+                device=cuda, seed=0)
+    # 5 segments of one layer: 3 global, 2 sliding-window; 2 decode steps
+    assert res.launches["flash_attention"] == 3
+    assert res.launches["attention_masked"] == 2 + 2 * 5
+    assert res.launches["mamba_scan"] == 2 * 5       # block + cache pass
+    assert res.launches["mamba_step"] == 2 * 5       # G - 1 = 2 steps

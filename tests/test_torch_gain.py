@@ -97,8 +97,8 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     rows = torch.from_numpy(_rows(rng, 64, 16))
     ops.reset_launches()
     gain.min_cover(rows, torch.from_numpy(pc))
-    assert ops.launches == {"front_dlam": 0, "min_cover_lambdas": 0,
-                            "min_cover_apply": 0}
+    assert "min_cover_lambdas" in ops.launches
+    assert not any(ops.launches.values())
 
 
 def test_forced_kernel_rejects_cpu_tensors():

@@ -1,0 +1,230 @@
+"""The port's serving model (``repro_torch.models``) against the JAX
+package's ``Model`` on reduced configs, on the CPU.
+
+Both run the same weights: the JAX ``Model.init`` pytree, carried across by
+``repro_torch.convert.model_state_from_jax``.  In f32, prefill logits,
+every layer's cache, one decode step and its caches agree within 1e-5:
+the algorithms are the same.  In bf16 the two frameworks round at other
+places (JAX's ``silu`` of a bf16 tensor differs from PyTorch's by one ulp
+in 39 % of the elements, ``softplus`` in 16 %), and the one-ulp steps
+(2^-8) compound over the layers, so bf16 holds the logits of prefill and
+of the decode step within 6e-2 of the largest logit: the looser of the
+bf16 tolerances of ``tests/test_models_smoke.py`` (the worst measured here
+is 2.2 %, reduced hymba).  Then the port's own checks: decode matches a
+teacher-forced forward, and the serve loop.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import reduce_config as jreduce_config  # noqa: E402
+from repro.models.model import Model as JModel  # noqa: E402
+from repro.parallel import sharding  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.convert import model_state_from_jax  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+
+ARCHS = ["hymba-1.5b", "falcon-mamba-7b", "smollm-135m"]
+B = 2
+
+
+@pytest.fixture(autouse=True)
+def _no_mesh(monkeypatch):
+    """A ``Trainer`` run earlier in this worker leaves a mesh active in
+    the JAX package; the reference model must run without one."""
+    monkeypatch.setattr(sharding, "_ACTIVE_MESH", None)
+
+
+def _to_np(x):
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _pair(arch: str, dtype: str, seed: int = 0):
+    """The reduced config in both packages, the JAX model and params, and
+    the port's model holding the same weights."""
+    jcfg = jreduce_config(jget_config(arch)).with_(dtype=dtype)
+    cfg = reduce_config(get_config(arch)).with_(dtype=dtype)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jm = JModel(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed)))
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(model_state_from_jax(cfg, params), strict=True)
+    return cfg, jm, params, model
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _to_np(want), rtol=tol, atol=tol)
+
+
+def _check_caches(tcaches, jcaches, cfg, tol):
+    assert len(tcaches) == len(jcaches) == len(cfg.segments)
+    for seg, tseg, jseg in zip(cfg.segments, tcaches, jcaches):
+        assert len(tseg) == seg.n_layers
+        for j, tc in enumerate(tseg):
+            names = sorted(tc)
+            assert names == sorted(jseg)
+            for name in names:
+                if name == "mamba":
+                    for part in ("conv", "ssm"):
+                        _close(tc["mamba"][part], jseg["mamba"][part][j], tol)
+                else:
+                    _close(tc[name], jseg[name][j], tol)
+
+
+def _check_logits(got, want, dtype):
+    want = _to_np(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+    else:
+        err = np.abs(_np(got) - want).max()
+        assert err <= 6e-2 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,S", [(a, 20) for a in ARCHS]
+                         + [("hymba-1.5b", 10)])
+def test_prefill_and_decode_match_jax(arch, S, dtype):
+    """hymba's reduced window is 16: S = 20 fills the ring cache, S = 10
+    leaves it left-padded (k_pos < 0 in decode)."""
+    cfg, jm, params, model = _pair(arch, dtype)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    max_len = S + 4
+    jlogits, jcaches = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t},
+                                                       max_len))(
+        params, jnp.asarray(tokens[:, :S]))
+    with torch.no_grad():
+        logits, caches = model.prefill(
+            {"tokens": torch.from_numpy(tokens[:, :S])}, max_len)
+    assert logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.float32
+    _check_logits(logits, jlogits, dtype)
+    if dtype == "float32":
+        _check_caches(caches, jcaches, cfg, 1e-5)
+
+    jstep, jnew = jax.jit(lambda p, t, c: jm.decode_step(
+        p, t, c, jnp.int32(S)))(params, jnp.asarray(tokens[:, S:]), jcaches)
+    with torch.no_grad():
+        step, new = model.decode_step(torch.from_numpy(tokens[:, S:]),
+                                      caches, S)
+    _check_logits(step, jstep, dtype)
+    if dtype == "float32":
+        _check_caches(new, jnew, cfg, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_prefill(arch):
+    """Greedy decode over the same tokens equals teacher-forced logits
+    (the port alone, as ``test_models_smoke.test_decode_matches_prefill``
+    checks the JAX model)."""
+    S = 32
+    cfg = reduce_config(get_config(arch))
+    model = Model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(1))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32))
+    with torch.no_grad():
+        x, aux = model({"tokens": tokens})
+        full = model.logits_fn(x)
+        last, caches = model.prefill({"tokens": tokens[:, :S - 1]}, S + 4)
+        step, _ = model.decode_step(tokens[:, S - 1:], caches, S - 1)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(last[:, 0].numpy(), full[:, S - 2].numpy(),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(step[:, 0].numpy(), full[:, S - 1].numpy(),
+                               rtol=6e-2, atol=5e-2)
+
+
+def test_converter_is_bit_exact_in_bf16():
+    cfg, _, params, model = _pair("hymba-1.5b", "bfloat16")
+    state = model.state_dict()
+    want = params["segments"][1]["mamba"]["in_proj"][0]
+    got = state["segments.1.0.mamba.in_proj"]
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy(),
+                          want.view(np.int16))
+    assert state["segments.0.0.mamba.A_log"].dtype == torch.float32
+    assert np.array_equal(state["embed"].view(torch.int16).numpy(),
+                          params["embed"].view(np.int16))
+
+
+def test_port_init_has_the_reference_constants():
+    cfg = reduce_config(get_config("hymba-1.5b"))
+    model = Model(cfg, device="cpu")
+    lp = model.segments[0][0]
+    N = cfg.ssm_state
+    assert torch.equal(lp["mamba"]["A_log"][3],
+                       torch.log(torch.arange(1, N + 1, dtype=torch.float32)))
+    for t in (lp["mamba"]["ssm_D"], lp["ln1"], lp["ln2"], model.final_ln):
+        assert t.dtype == torch.float32 and bool((t == 1).all())
+    for t in (lp["mamba"]["conv_b"], lp["mamba"]["dt_bias"]):
+        assert t.dtype == torch.bfloat16 and bool((t == 0).all())
+    assert lp["attn"]["wq"].dtype == torch.bfloat16
+    assert hasattr(model, "lm_head")                  # hymba: no tied head
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_serve_on_cpu_reduced_hymba():
+    cfg = reduce_config(get_config("hymba-1.5b"))
+    a = serve(cfg, 2, 20, 4, device="cpu", seed=3)
+    b = serve(cfg, 2, 20, 4, device="cpu", seed=3)
+    assert a.tokens.shape == (2, 4)
+    assert ((a.tokens >= 0) & (a.tokens < cfg.vocab)).all()
+    assert np.array_equal(a.tokens, b.tokens)
+    assert a.prefill_s > 0 and a.decode_s > 0
+    assert set(a.launches) == set(ops.launches)
+    assert not any(a.launches.values())               # CPU: plain versions
+
+
+@pytest.mark.parametrize("arch,needs", [
+    ("olmoe-1b-7b", "MoE path"), ("deepseek-v3-671b", "item 2"),
+    ("llama-3.2-vision-11b", "vision_group")])
+def test_unported_parts_raise(arch, needs):
+    with pytest.raises(NotImplementedError, match=needs):
+        Model(reduce_config(get_config(arch)), device="cpu")
+
+
+def test_model_loss_waits_for_training():
+    model = Model(reduce_config(get_config("smollm-135m")), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.loss({})
+
+
+def test_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(reduce_config(get_config("smollm-135m")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(reduce_config(get_config("smollm-135m")), 1, 4, 2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_parameter_count(arch):
+    """The port holds every parameter of the JAX ``Model.init``; the
+    config's ``param_count`` (a copy of the JAX one) leaves out each Mamba
+    layer's ``conv_b`` and ``dt_bias`` (ROADMAP Queue 3 c)."""
+    cfg = reduce_config(get_config(arch))
+    model = Model(cfg, device="cpu")
+    n_ssm = sum(s.n_layers for s in cfg.segments
+                if s.kind in ("mamba", "hybrid"))
+    assert sum(p.numel() for p in model.parameters()) == (
+        cfg.param_count() + 2 * cfg.d_inner * n_ssm)
+    full = get_config("hymba-1.5b")
+    assert full.param_count() + 2 * full.d_inner * full.n_layers == \
+        1_662_161_600

@@ -36,6 +36,9 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout)
-    assert "repro_torch.kernels.front_pass" in got["modules"]
+    for name in ("kernels.front_pass", "kernels.flash_attention",
+                 "kernels.mamba_scan", "models.model", "launch.serve",
+                 "configs.registry"):
+        assert f"repro_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 15          # every module was imported
     assert got["bad"] == [], f"the port pulled in {got['bad']}"
