@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and drives its two paths through them: replicated
-hypergraph partitioning (``partition_with_replication``) and serving
-``hymba-1.5b`` (``launch.serve.serve``).  Phases, in order; any failure
+with ``nvcc`` and drives its three paths through them: replicated
+hypergraph partitioning (``partition_with_replication``), serving
+``hymba-1.5b`` and serving ``olmoe-1b-7b`` with replicated expert
+placement (``launch.serve.serve``).  Phases, in order; any failure
 propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -14,8 +15,9 @@ propagates and the exit code is nonzero:
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the gain kernels at the shapes the partitioning path gives
    them (exact equality), attention and the selective scan at hymba's
-   serving shapes, in bf16 and in f32 (tolerances at ``MODEL_TOL``), with
-   TF32 off for the f32 products of the plain versions;
+   and olmoe's serving shapes and the grouped matmul at olmoe's, in bf16
+   and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
+   products of the plain versions;
 3. the device-resident pass on ``large_row_net(8192)``, P = 8:
    ``fm_refine`` then ``replicate_local_search`` on CUDA against the host
    (numpy) path -- equal masks and cost, counter bounds; then one FM pass
@@ -30,19 +32,36 @@ propagates and the exit code is nonzero:
    model kernels must launch).  Then the same weights in f32 through the
    kernels and through the plain versions (``ops.force("ref")``): prefill
    and three teacher-forced decode steps agree within ``F32_LOGIT_TOL``
-   of the largest logit; the bf16 gap is reported.
+   of the largest logit; the bf16 gap is reported;
+7. serve ``olmoe-1b-7b`` at full width and depth with
+   ``placement="replicated"`` (4 prompts of 2048 tokens, 32 new tokens
+   each, bf16): the placement's lambda-costs and min-cover launches,
+   prefill seconds, decode ms per token, tokens/s, peak memory, launches
+   per counter (exactly as expected: three grouped products per MoE layer
+   and call) and one device->host copy per profiled decode step.  Then
+   the same weights in f32: each layer's MoE block on the same input
+   through the kernel and the plain version within ``MODEL_TOL`` (the
+   routing is then identical, so this isolates the kernel), and prefill
+   plus three teacher-forced decode steps within ``F32_LOGIT_TOL`` (if a
+   router near-tie breaks that, the run counts the top-k choices on which
+   the two paths' route traces differ and reports them with the gap).
+   Last, the serving benchmark's SMOKE drift replay through the online
+   controller on CUDA and on the host path: equal totals, commits and
+   migration bytes.
 
-Launch counts are reset just before each driven run (phases 3-6) and read
+Launch counts are reset just before each driven run (phases 3-7) and read
 just after; the kernel line reports those of phases 4 and 5 (the
-``partition_with_replication`` runs) for the gain kernels and of phase 6's
-serve run for the model kernels.  The attention kernel counts
-``flash_attention`` (no window, no positions: the Pallas kernel's role)
-apart from ``attention_masked``, the scan ``mamba_scan`` (from zeros)
-apart from ``mamba_step`` (decode, from a state); each count is timed at
-its commonest shape on the path.  The min-cover kernel has two counts:
+``partition_with_replication`` runs) for the gain kernels and those of the
+serve runs of phases 6 and 7, summed, for the model kernels.  The
+attention kernel counts ``flash_attention`` (no window, no positions: the
+Pallas kernel's role) apart from ``attention_masked``, the scan
+``mamba_scan`` (from zeros) apart from ``mamba_step`` (decode, from a
+state); each count is timed at its commonest shape on the path.  The min-cover kernel has two counts:
 ``min_cover_lambdas`` where it prices a front (the Pallas kernel's role)
 and ``min_cover_apply`` where the device pass recomputes the lambdas of a
-committed move's edges; each is timed at its own commonest shape.  A
+committed move's edges; each is timed at its own commonest shape.  The
+grouped matmul is timed at its commonest shape (decode) and at olmoe's
+prefill shape.  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -80,6 +99,7 @@ REPLACES = {
     "attention_masked": "src/repro/kernels/flash_attention.py:25",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:24",
     "mamba_step": "src/repro/kernels/mamba_scan.py:24",
+    "grouped_matmul": "src/repro/kernels/moe_gmm.py:23",
 }
 # launch counter -> the kernel it counts
 KERNEL_OF = {"front_dlam": "front_dlam",
@@ -88,16 +108,19 @@ KERNEL_OF = {"front_dlam": "front_dlam",
              "flash_attention": "flash_attention",
              "attention_masked": "flash_attention",
              "mamba_scan": "mamba_scan",
-             "mamba_step": "mamba_scan"}
+             "mamba_step": "mamba_scan",
+             "grouped_matmul": "grouped_matmul"}
 # kernel -> its source, the name of its library in _build
 SOURCES = {"front_dlam": "gain", "min_cover_lambdas": "gain",
-           "flash_attention": "flash_attention", "mamba_scan": "mamba_scan"}
+           "flash_attention": "flash_attention", "mamba_scan": "mamba_scan",
+           "grouped_matmul": "moe_gmm"}
 MODEL_COUNTERS = ("flash_attention", "attention_masked", "mamba_scan",
-                  "mamba_step")
+                  "mamba_step", "grouped_matmul")
 # kernel vs plain version: tests/test_kernels.py's bounds, f32 relaxed from
 # 2e-6 to 1e-5 for the summation order on the card
 MODEL_TOL = {("attn", "float32"): 1e-5, ("attn", "bfloat16"): 2e-2,
-             ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2}
+             ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2,
+             ("gmm", "float32"): 1e-5, ("gmm", "bfloat16"): 3e-2}
 # phase 6: the f32 kernel path against the f32 plain path, as a share of
 # the largest |logit|
 F32_LOGIT_TOL = 1e-3
@@ -262,11 +285,26 @@ ATTN_CASES = [
      None, False),
     ("hd192_v128", "flash_attention", 1, 1024, 1024, 16, 16, 192, 128, True,
      0, None, False),
+    # olmoe: prefill, and decode on a linear cache of 2048 + 32
+    ("olmoe_prefill", "flash_attention", 4, 2048, 2048, 16, 16, 128, 128,
+     True, 0, None, True),
+    ("olmoe_decode", "attention_masked", 4, 1, 2080, 16, 16, 128, 128, True,
+     0, "linear", True),
 ]
 # (name, counter, B, S, di, N, with a state, on the path)
 SCAN_CASES = [
     ("prefill", "mamba_scan", 4, 2048, 3200, 16, False, True),
     ("decode", "mamba_step", 4, 1, 3200, 16, True, True),
+]
+# (name, G, C, D, F, on the path): olmoe's expert products, 64 slots --
+# gate/up (D 2048 -> F 1024) and down (1024 -> 2048) -- at decode (C = 1)
+# and prefill (C = 2560), and one odd shape
+GMM_CASES = [
+    ("decode_gate_up", 64, 1, 2048, 1024, True),
+    ("decode_down", 64, 1, 1024, 2048, True),
+    ("prefill_gate_up", 64, 2560, 2048, 1024, True),
+    ("prefill_down", 64, 2560, 1024, 2048, True),
+    ("odd", 8, 37, 96, 80, False),
 ]
 
 
@@ -400,6 +438,53 @@ def check_scan(case, dtype_name: str, seed: int) -> dict:
     return row
 
 
+def check_gmm(case, dtype_name: str, seed: int) -> dict:
+    """The grouped-matmul kernel against its plain version at one shape;
+    timed with the plain version and ``torch.bmm`` (``library_ms``) where
+    on the path."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    name, G, C, D, F, on_path = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((G * C, D), generator=g, device=dev).to(dtype)
+    w = (torch.randn((G, D, F), generator=g, device=dev)
+         * D ** -0.5).to(dtype)
+
+    def run():
+        return ops.grouped_matmul_aligned(x, w, C)
+
+    def plain():
+        return ref.grouped_matmul_aligned_ref(x, w, C)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    tol = MODEL_TOL[("gmm", dtype_name)]
+    ok, err = rel_ok(got, want, tol)
+    if not ok:
+        raise AssertionError(f"grouped_matmul {name} {dtype_name}: kernel "
+                             f"!= plain within {tol} (max abs err {err})")
+    flops = 2 * G * C * D * F
+    nbytes = got.element_size() * (x.numel() + w.numel() + got.numel())
+    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    n = 10 if C < 64 else 2      # a prefill-shaped call takes milliseconds
+    row = {"case": name, "counter": "grouped_matmul", "dtype": dtype_name,
+           "shape": [G, C, D, F], "key": (G, C, D, F),
+           "max_abs_err": err, "tol": tol, "ms": graph_ms(run, n, 2),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    if on_path:
+        xv = x.view(G, C, D)
+
+        def library():
+            return torch.bmm(xv, w)
+        row.update(call_ms=time_ms(run, n), plain_ms=graph_ms(plain, n, 2),
+                   library_ms=graph_ms(library, n, 2))
+    return row
+
+
 class ModelShapes:
     """Counts the model kernels' launches of a driven run by (counter,
     shape key, dtype), to time each counter at its commonest shape."""
@@ -407,8 +492,10 @@ class ModelShapes:
     def __init__(self) -> None:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import mamba_scan as ms
+        from repro_torch.kernels import moe_gmm as mg
         self.shapes: Counter = Counter()
-        real_fa, real_ms = fa.flash_attention, ms.mamba_scan
+        real_fa, real_ms, real_mg = (fa.flash_attention, ms.mamba_scan,
+                                     mg.grouped_matmul)
 
         def attention(q, k, v, *, window=0, q_pos=None, k_pos=None, **kw):
             plain = window == 0 and q_pos is None and k_pos is None
@@ -423,12 +510,19 @@ class ModelShapes:
                          str(u.dtype))] += 1
             return real_ms(u, dt, A, Bc, Cc, D, init_state=init_state)
 
-        fa.flash_attention, ms.mamba_scan = attention, scan
+        def gmm(x, w, capacity):
+            self.shapes[("grouped_matmul", (w.shape[0], capacity)
+                         + tuple(w.shape[1:]), str(x.dtype))] += 1
+            return real_mg(x, w, capacity)
 
-    def commonest(self, counter: str) -> tuple:
-        return max(((key, dt) for (c, key, dt) in self.shapes
-                    if c == counter),
-                   key=lambda kd: self.shapes[(counter,) + kd])
+        fa.flash_attention, ms.mamba_scan = attention, scan
+        mg.grouped_matmul = gmm
+
+
+def commonest(shapes: Counter, counter: str) -> tuple:
+    """The (shape key, dtype) a counter launched most often."""
+    return max(((key, dt) for (c, key, dt) in shapes if c == counter),
+               key=lambda kd: shapes[(counter,) + kd])
 
 
 def expected_serve_launches(cfg, G: int) -> dict:
@@ -438,9 +532,13 @@ def expected_serve_launches(cfg, G: int) -> dict:
     layer and decode step."""
     n = cfg.n_layers
     n_window = sum(s.n_layers for s in cfg.segments if s.sliding_window)
+    n_ssm = sum(s.n_layers for s in cfg.segments
+                if s.kind in ("mamba", "hybrid"))
+    n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
     return {"flash_attention": n - n_window,
             "attention_masked": n_window + (G - 1) * n,
-            "mamba_scan": 2 * n, "mamba_step": (G - 1) * n}
+            "mamba_scan": 2 * n_ssm, "mamba_step": (G - 1) * n_ssm,
+            "grouped_matmul": 3 * n_moe * G}
 
 
 def logits_through(model, prompts, forced, which: str, max_len: int):
@@ -464,11 +562,14 @@ def logits_through(model, prompts, forced, which: str, max_len: int):
     return torch.cat(out, dim=1)
 
 
-def decode_profile(model, prompts, forced, max_len: int) -> dict:
+def decode_profile(model, prompts, forced, max_len: int,
+                   tag: str = "6b") -> dict:
     """Where a decode step's time goes: after an unprofiled prefill, the
     ``forced`` decode steps run plain (wall time) and again under
     ``torch.profiler`` (device activity only): device busy time by kernel
-    name and its share of the wall time."""
+    name and its share of the wall time, and the copies between host and
+    device per step.  Each step reads its greedy token on the host, as the
+    serve loop does (its one device->host copy)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -481,8 +582,9 @@ def decode_profile(model, prompts, forced, max_len: int) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(forced.shape[1]):
-                _, caches = model.decode_step(forced[:, i:i + 1], caches,
-                                              S + i)
+                logits, caches = model.decode_step(forced[:, i:i + 1],
+                                                   caches, S + i)
+                logits[:, -1].argmax(dim=-1).cpu()
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -495,10 +597,13 @@ def decode_profile(model, prompts, forced, max_len: int) -> dict:
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     n = forced.shape[1]
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[6b] {n} decode steps: {1e3 * wall / n:.4f} ms/step wall; device "
-        f"busy {1e3 * busy / n:.4f} ms/step = {busy / wall:.4f} of it; "
-        f"launches/step {sum(e.count for e in kern) / n:.1f}; by kernel "
-        f"(name: count, ms): " + "; ".join(
+    d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
+    h2d = sum(e.count for e in kern if e.key.startswith("Memcpy HtoD"))
+    log(f"[{tag}] {n} decode steps: {1e3 * wall / n:.4f} ms/step wall; "
+        f"device busy {1e3 * busy / n:.4f} ms/step = {busy / wall:.4f} of "
+        f"it; launches/step {sum(e.count for e in kern) / n:.1f}; "
+        f"device->host copies/step {d2h / n:.2f}, host->device "
+        f"{h2d / n:.2f}; by kernel (name: count, ms): " + "; ".join(
             f"{e.key[:50]}: {e.count}, {e.self_device_time_total / 1e3:.3f}"
             for e in top))
     if busy == 0:
@@ -506,7 +611,8 @@ def decode_profile(model, prompts, forced, max_len: int) -> dict:
     return {"ms_per_step": sig(1e3 * wall / n),
             "busy_ms_per_step": sig(1e3 * busy / n),
             "busy_share": sig(busy / wall),
-            "launches_per_step": sig(sum(e.count for e in kern) / n)}
+            "launches_per_step": sig(sum(e.count for e in kern) / n),
+            "d2h_per_step": sig(d2h / n), "h2d_per_step": sig(h2d / n)}
 
 
 class Recorder:
@@ -614,6 +720,63 @@ def where_time_goes(hg, P, cap, m0) -> dict:
     return out | {"busy_s": sig(busy), "busy_share": sig(busy / wall)}
 
 
+def moe_layer_check(model, prompts) -> list:
+    """Each MoE layer's block on one input through the kernel and through
+    the plain version (f32, within ``MODEL_TOL``): the prompts' hidden
+    state (a2a, the prefill path) and its last token (tp, decode).  Both
+    run the same router on the same input, so the routing is identical and
+    only the grouped products differ.  The layers advance on the kernel's
+    output.  Returns the max abs error per layer and mode."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import moe_apply
+    cfg = model.cfg
+    tol = MODEL_TOL[("gmm", "float32")]
+    errs = []
+    with torch.inference_mode():
+        x = model._embed_inputs({"tokens": prompts})
+        for seg, layers in zip(cfg.segments, model.segments):
+            for j, lp in enumerate(layers):
+                x = x + model._mixer(lp, x, seg)
+                h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+                for mode, hin in (("a2a", h), ("tp", h[:, -1:])):
+                    got, _ = moe_apply(lp["moe"], hin, cfg, model.plan, mode)
+                    ops.force("ref")
+                    try:
+                        want, _ = moe_apply(lp["moe"], hin, cfg, model.plan,
+                                            mode)
+                    finally:
+                        ops.force(None)
+                    ok, err = rel_ok(got, want, tol)
+                    if not ok:
+                        raise AssertionError(
+                            f"MoE layer {j} ({mode}): kernel path != plain "
+                            f"path within {tol} (max abs err {err})")
+                    errs.append(err)
+                    if mode == "a2a":
+                        y = got
+                x = x + y
+    return errs
+
+
+def route_flips(model, prompts) -> int:
+    """Router choices on which the route traces through the kernels and
+    through the plain versions differ."""
+    import torch
+    from repro_torch.kernels import ops
+    traces = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        try:
+            with torch.inference_mode():
+                traces[which] = model.route_trace({"tokens": prompts})
+        finally:
+            ops.force(None)
+    return int(sum((a != b).sum() for a, b in zip(traces["cuda"],
+                                                  traces["ref"])))
+
+
 def check_result(hg, P, eps, res) -> None:
     """Valid, balanced masks whose recomputed cost is the reported one."""
     from repro_torch.core.partition.cost import is_valid, partition_cost
@@ -686,8 +849,12 @@ def main() -> int:
         for dtype_name in ("bfloat16", "float32"):
             model_rows.append(check_scan(case, dtype_name, seed=200 + i))
             log("    " + json.dumps(model_rows[-1]))
+    for i, case in enumerate(GMM_CASES):
+        for dtype_name in ("bfloat16", "float32"):
+            model_rows.append(check_gmm(case, dtype_name, seed=300 + i))
+            log("    " + json.dumps(model_rows[-1]))
     summary["p2_model"] = {
-        f"{r['case']}/{r['dtype'][:4]}": [
+        f"{r['counter']}:{r['case']}/{r['dtype'][:4]}": [
             sig(r["ms"]), sig(r["bound_ms"]),
             sig(r["plain_ms"]) if "plain_ms" in r else None,
             sig(r["library_ms"]) if r.get("library_ms") else None,
@@ -799,16 +966,17 @@ def main() -> int:
     from repro_torch.launch.serve import make_model, make_prompts, serve
     cfg = get_config("hymba-1.5b")
     B6, S6, G6 = 4, 2048, 32
-    shapes6 = ModelShapes()
+    shapes = ModelShapes()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, B6, S6, G6, device="cuda", seed=0)
     peak6 = torch.cuda.max_memory_allocated()
+    shapes6 = Counter(shapes.shapes)
     l6 = {c: res.launches[c] for c in MODEL_COUNTERS}
     if res.tokens.shape != (B6, G6) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
         raise AssertionError(f"bad generated tokens {res.tokens.shape}")
-    for c in MODEL_COUNTERS:
+    for c in MODEL_COUNTERS[:4]:       # hymba runs all but the MoE kernel
         if l6[c] == 0:
             raise AssertionError(f"{c} never launched while serving")
     want6 = expected_serve_launches(cfg, G6)
@@ -855,6 +1023,107 @@ def main() -> int:
         "f32_gap": sig(gap32 / scale32),
         "bf16_gap": sig(gaps["bfloat16"][0] / gaps["bfloat16"][1])}
 
+    # ----------------------------------------- 7. serve olmoe-1b-7b (MoE)
+    from repro_torch.core.placement import SMOKE, drift_replay
+    t7 = time.perf_counter()
+    cfg7 = get_config("olmoe-1b-7b")
+    B7, S7, G7 = 4, 2048, 32
+    shapes.shapes.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res7 = serve(cfg7, B7, S7, G7, device="cuda", seed=0,
+                 placement="replicated")
+    peak7 = torch.cuda.max_memory_allocated()
+    shapes7 = Counter(shapes.shapes)
+    l7 = {c: res7.launches[c] for c in MODEL_COUNTERS}
+    if res7.tokens.shape != (B7, G7) or not (
+            (res7.tokens >= 0) & (res7.tokens < cfg7.vocab)).all():
+        raise AssertionError(f"bad generated tokens {res7.tokens.shape}")
+    want7 = expected_serve_launches(cfg7, G7)
+    if l7 != want7:
+        raise AssertionError(f"olmoe serve launched {l7}, expected {want7}")
+    pl = res7.placement
+    log(f"[7] placement over {pl['n_shards']} shards from the prompts' "
+        f"router trace ({pl['seconds']:.3f} s): lambda-cost "
+        f"{pl['lambda_cost_no_repl']} -> {pl['lambda_cost_repl']} with "
+        f"replication, local fraction {pl['local_fraction_no_repl']:.4f} -> "
+        f"{pl['local_fraction_repl']:.4f}; launches while planning "
+        f"{pl['launches']}")
+    log(f"[7] serve {cfg7.name} ({cfg7.n_layers} layers, d_model "
+        f"{cfg7.d_model}, {cfg7.n_experts} experts top-{cfg7.top_k}, bf16): "
+        f"{B7} prompts x {S7} tokens, {G7} new each; prefill "
+        f"{res7.prefill_s:.4f} s, decode {res7.ms_per_token:.4f} ms/token, "
+        f"{res7.tokens_per_s:.2f} tok/s, max_memory_allocated {peak7} B; "
+        f"launches {l7}; sample {res7.tokens[0][:8].tolist()}")
+    prompts7 = torch.from_numpy(make_prompts(cfg7, B7, S7, 0)).cuda()
+    forced7 = torch.from_numpy(res7.tokens[:, :3]).cuda()
+    model = make_model(cfg7, device="cuda", seed=0)
+    summary["p7b"] = decode_profile(model, prompts7, forced7, S7 + G7,
+                                    tag="7b")
+    if summary["p7b"].get("d2h_per_step") != 1:
+        raise AssertionError(f"decode is not one device->host copy a step: "
+                             f"{summary['p7b']}")
+    kern = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
+    plain = logits_through(model, prompts7, forced7, "ref", S7 + G7)
+    gap16, scale16 = (float((kern - plain).abs().max()),
+                      float(plain.abs().max()))
+    del model, kern, plain
+    torch.cuda.empty_cache()
+    model = make_model(cfg7.with_(dtype="float32"), device="cuda", seed=0)
+    layer_errs = moe_layer_check(model, prompts7)
+    log(f"[7] f32 MoE block per layer on one input, kernel vs plain: max "
+        f"abs err {max(layer_errs):.6g} (a2a and tp, {len(layer_errs)} "
+        f"checks within {MODEL_TOL[('gmm', 'float32')]})")
+    kern = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
+    plain = logits_through(model, prompts7, forced7, "ref", S7 + G7)
+    if not (torch.isfinite(kern).all()
+            and kern.shape == (B7, 4, cfg7.vocab)):
+        raise AssertionError(f"f32 logits not finite or misshapen: "
+                             f"{tuple(kern.shape)}")
+    gap32, scale32 = (float((kern - plain).abs().max()),
+                      float(plain.abs().max()))
+    flips = None
+    if not gap32 <= F32_LOGIT_TOL * scale32:
+        flips = route_flips(model, prompts7)
+        log(f"[7] f32 logits off by {gap32} > {F32_LOGIT_TOL} x {scale32}; "
+            f"the route traces differ in {flips} top-k choices")
+        if flips == 0:
+            raise AssertionError("f32 kernel path off the plain path with "
+                                 "identical routing")
+    del model, kern, plain
+    torch.cuda.empty_cache()
+    log(f"[7] kernel path vs plain path, prefill + 3 decode steps: f32 max "
+        f"|diff| {gap32:.6g} of max |logit| {scale32:.6g} (ratio "
+        f"{gap32 / scale32:.6g}); bf16 {gap16:.6g} of {scale16:.6g} (ratio "
+        f"{gap16 / scale16:.6g})")
+    replay = {}
+    for drift in (0.8, 0.0):
+        t0 = time.perf_counter()
+        on_card = drift_replay(**SMOKE, drift_rate=drift, device="cuda")
+        s_card = time.perf_counter() - t0
+        host = drift_replay(**SMOKE, drift_rate=drift, frontier="numpy")
+        if on_card["policies"] != host["policies"]:
+            raise AssertionError(f"drift {drift}: the replay on CUDA "
+                                 f"{on_card['policies']} != host "
+                                 f"{host['policies']}")
+        pol = on_card["policies"]
+        replay[drift] = [pol[k]["comm_cost"] for k in pol] + [
+            pol["online_replicated"]["commits"],
+            pol["online_replicated"]["migration_bytes"]]
+        log(f"[7] SMOKE drift replay, drift {drift}: {pol}, equal on CUDA "
+            f"({s_card:.2f} s) and the host path")
+    s7 = time.perf_counter() - t7
+    log(f"[7] phase 7 took {s7:.2f} s")
+    summary["p7"] = {
+        "prefill_s": sig(res7.prefill_s), "ms_per_token": sig(
+            res7.ms_per_token), "tok_s": sig(res7.tokens_per_s),
+        "peak_B": peak7, "launches": l7,
+        "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
+        "plan_launches": pl["launches"]["min_cover_lambdas"],
+        "layer_err": sig(max(layer_errs)), "f32_gap": sig(gap32 / scale32),
+        "route_flips": flips, "bf16_gap": sig(gap16 / scale16),
+        "replay": {str(k): v for k, v in replay.items()}, "s": sig(s7)}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -884,10 +1153,11 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": [R, M], "call_ms": row["call_ms"]})
-    log(f"model kernel launch shapes (counter, key, dtype): count, phase "
-        f"6: {dict(shapes6.shapes.most_common(12))}")
+    shapes_model = shapes6 + shapes7
+    log(f"model kernel launch shapes (counter, key, dtype): count, phases "
+        f"6+7: {dict(shapes_model.most_common(14))}")
     for name in MODEL_COUNTERS:
-        key, dt = shapes6.commonest(name)
+        key, dt = commonest(shapes_model, name)
         rows = [r for r in model_rows if r["counter"] == name
                 and r["dtype"] == dt.removeprefix("torch.")
                 and "plain_ms" in r and r["key"] == key]
@@ -899,12 +1169,17 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/"
                       f"{SOURCES[KERNEL_OF[name]]}.cu",
-            "replaces": REPLACES[name], "launches": l6[name],
+            "replaces": REPLACES[name], "launches": l6[name] + l7[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"],
             "call_ms": row["call_ms"]})
+        if name == "grouped_matmul":      # also olmoe's prefill shape
+            pre = next(r for r in model_rows if r["case"] ==
+                       "prefill_gate_up" and r["dtype"] == row["dtype"])
+            kernels[-1].update({f"prefill_{k}": pre[k] for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")})
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -43,6 +43,10 @@ SIGNATURES = {
         "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _P),
     },
+    # (x, w, y, G, C, D, F, is_bf16, stream)
+    "moe_gmm": {
+        "repro_grouped_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 

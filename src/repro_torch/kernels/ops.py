@@ -15,10 +15,13 @@ pass's applies, ``min_cover_lambdas`` those that price a front;
 ``attention_masked`` the attention kernel's launches with a window or
 explicit positions, ``flash_attention`` the plain (causal) ones;
 ``mamba_step`` the scan's launches from a given state (decode),
-``mamba_scan`` those from zeros.
+``mamba_scan`` those from zeros; ``grouped_matmul`` the expert-FFN
+products.
 
-``attention`` and ``mamba_scan`` are the model's entry points to the two
-model kernels, with the signatures of the JAX package's ``ops``.
+``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
+model's entry points to the three model kernels, with the signatures of
+the JAX package's ``ops``; ``grouped_matmul`` (ragged groups) is always
+the plain version, as there.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ _FORCE: str | None = None  # None = by device, 'cuda' | 'ref'
 launches: dict[str, int] = {"front_dlam": 0, "min_cover_lambdas": 0,
                              "min_cover_apply": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
-                             "mamba_step": 0}
+                             "mamba_step": 0, "grouped_matmul": 0}
 
 
 def force(which: str | None) -> None:
@@ -90,3 +93,19 @@ def mamba_scan(u, dt, A, Bc, Cc, D, init_state=None):
         from .mamba_scan import mamba_scan as kernel_scan  # imports ops
         return kernel_scan(u, dt, A, Bc, Cc, D, init_state=init_state)
     return ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=init_state)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """Ragged groups: always ``ref.grouped_matmul_ref``."""
+    return ref.grouped_matmul_ref(x, w, group_sizes)
+
+
+def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
+                           capacity: int) -> torch.Tensor:
+    """Block-aligned groups, x (G * capacity, D) x w (G, D, F): the CUDA
+    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``."""
+    if use_kernel(x):
+        from .moe_gmm import grouped_matmul as kernel_gmm  # imports ops
+        return kernel_gmm(x, w, capacity)
+    return ref.grouped_matmul_aligned_ref(x, w, capacity)

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the CUDA kernels.
 
 They define what each kernel computes.  The dispatchers (``gain``'s
-wrappers, ``ops.attention``, ``ops.mamba_scan``) take them for tensors that
-lie on the CPU (the tests), and the smoke run on the card holds each kernel
-against them on the same inputs.  The attention and scan versions are the
-twins of the JAX package's jnp references, argument for argument.
+wrappers, ``ops.attention``, ``ops.mamba_scan``,
+``ops.grouped_matmul_aligned``) take them for tensors that lie on the CPU
+(the tests), and the smoke run on the card holds each kernel against them
+on the same inputs.  The attention, scan and grouped-matmul versions are
+the twins of the JAX package's jnp references, argument for argument.
 """
 from __future__ import annotations
 
@@ -86,3 +87,28 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = torch.stack(ys, dim=1) + uf * D[None, None]
     return y.to(u.dtype), h
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal product: x (T, D) rows sorted by group, w (G, D, F),
+    ``group_sizes`` (G,) summing to T; row t multiplies the weight of its
+    group.  f32 accumulation, the result in x's dtype."""
+    T = x.shape[0]
+    ends = torch.cumsum(group_sizes, dim=0)
+    row = torch.arange(T, device=x.device)
+    gid = (row[:, None] >= ends[None, :]).sum(dim=1)      # group of each row
+    return torch.einsum("td,tdf->tf", x.float(),
+                        w[gid].float()).to(x.dtype)
+
+
+def grouped_matmul_aligned_ref(x: torch.Tensor, w: torch.Tensor,
+                               capacity: int) -> torch.Tensor:
+    """The block-aligned layout of the MoE dispatch buffers: x (G *
+    capacity, D), group g's rows times w[g] (D, F) -> (G * capacity, F),
+    as the einsum ``scd,sdf->scf`` with f32 accumulation, cast to x's
+    dtype."""
+    G, D, F = w.shape
+    xs = x.reshape(G, capacity, D).float()
+    y = torch.einsum("scd,sdf->scf", xs, w.float())
+    return y.reshape(G * capacity, F).to(x.dtype)

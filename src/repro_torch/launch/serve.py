@@ -1,16 +1,27 @@
 """Batched serving launcher: one prefill, then greedy decode, on one device.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --requests 4 --prompt-len 2048 --gen 32 [--reduced --layers N] \\
-        [--device cpu]
+        [--device cpu] [--replicated-placement | --online-placement \\
+        --epochs E]
 
-The twin of the JAX package's ``launch/serve.py`` without the mesh and
-without the expert-placement flags (they need the MoE path, which the port
-does not have yet).  Weights come from a seeded ``torch.Generator`` and
-prompts from a seeded numpy generator, as the JAX launcher serves from
-seeded random init.  ``serve`` runs the loop -- one ``prefill``, then
-``G - 1`` greedy ``decode_step``s, one host read per token -- and returns
-the tokens, the timings and the kernel launch counts of the run.
+The twin of the JAX package's ``launch/serve.py`` on a one-device mesh.
+Weights come from a seeded ``torch.Generator`` and prompts from a seeded
+numpy generator, as the JAX launcher serves from seeded random init.
+``serve`` runs the loop -- one ``prefill``, then ``G - 1`` greedy
+``decode_step``s, one host read per token -- and returns the tokens, the
+timings and the kernel launch counts of the run.
+
+For an MoE model the placement flags plan where the experts go, as the
+JAX launcher does: ``--replicated-placement`` profiles the router on the
+prompts (``Model.route_trace``) and plans a replicated placement with
+hypergraph partitioning; ``--online-placement`` feeds ``--epochs`` epochs
+of router traffic to the ``OnlineController``.  Both plan for two shards
+(the JAX launcher's ``max(n_shards, 2)``) and report the plan's costs;
+with one card (a model axis under 2) serving keeps the one-shard round
+robin, as there.  The controller prices a migration at 1 MiB per expert,
+the JAX launcher's figure (it reads a config field that does not exist:
+ROADMAP Queue 3 d).
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, list_archs, reduce_config
+from ..core.placement import OnlineController, plan_expert_placement
 from ..kernels import ops
 from ..models.config import ModelConfig
 from ..models.model import Model
@@ -33,6 +45,7 @@ class ServeResult:
     prefill_s: float             # prompt in, first token read on the host
     decode_s: float              # the G - 1 decode steps
     launches: dict               # kernel launches of the run, per counter
+    placement: dict | None = None  # what the placement flag planned
 
     @property
     def ms_per_token(self) -> float:
@@ -66,16 +79,84 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+_N_SHARDS = 1   # the model axis: one card
+
+
+def _replicated_placement(model: Model, tokens: torch.Tensor) -> dict:
+    """Plan a replicated placement from the router's choices on the
+    prompts (the first MoE segment's layers, as the JAX launcher)."""
+    cfg = model.cfg
+    trace = model.route_trace({"tokens": tokens})[0].reshape(
+        -1, cfg.top_k).cpu().numpy()
+    res = plan_expert_placement(
+        np.sort(trace, axis=1), cfg.n_experts, max(_N_SHARDS, 2),
+        kappa0=min(1000, 8 * len(trace)), device=model.device)
+    return {"kind": "replicated", "n_shards": res.plan.n_shards,
+            "lambda_cost_no_repl": res.lambda_cost_no_repl,
+            "lambda_cost_repl": res.lambda_cost_repl,
+            "local_fraction_no_repl": res.local_fraction_no_repl,
+            "local_fraction_repl": res.local_fraction_repl}
+
+
+def _online_placement(model: Model, rng: np.random.Generator, B: int,
+                      S: int, epochs: int) -> dict:
+    """Feed ``epochs`` epochs of router traffic (fresh prompts each) to
+    the online controller, as the JAX launcher does."""
+    cfg = model.cfg
+    n_sh = max(_N_SHARDS, 2)
+    slots = cfg.n_experts // n_sh + max(2, cfg.n_experts // (4 * n_sh))
+    ctrl = OnlineController(cfg.n_experts, n_sh, slots,
+                            kappa0=min(1000, 8 * B * S), warmup_epochs=2,
+                            bytes_per_expert=1 << 20, device=model.device)
+    reports = []
+    for epoch in range(epochs):
+        prompts = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        traces = model.route_trace(
+            {"tokens": torch.from_numpy(prompts).to(model.device)})
+        chunk = np.sort(traces[0].reshape(-1, cfg.top_k).cpu().numpy(),
+                        axis=1)
+        rep = ctrl.step(chunk)
+        reports.append({"epoch": epoch, "planned": rep.plan is not None,
+                        "cost_keep": rep.cost_keep,
+                        "cost_new": rep.cost_new,
+                        "containment": rep.containment,
+                        "committed": rep.committed,
+                        "migration_bytes": rep.migration_bytes})
+    return {"kind": "online", "n_shards": n_sh, "epochs": reports,
+            "commits": ctrl.n_commits,
+            "migration_bytes": ctrl.total_migration_bytes}
+
+
 @torch.inference_mode()
 def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
-          device: str | torch.device = "cuda", seed: int = 0) -> ServeResult:
+          device: str | torch.device = "cuda", seed: int = 0,
+          placement: str | None = None, epochs: int = 6) -> ServeResult:
     """Serve ``B`` random prompts of ``S`` tokens, ``G`` new tokens each
-    (greedy), from weights and prompts drawn from ``seed``.  The launch
-    counts are reset just before the prefill, so the result's are this
-    run's."""
+    (greedy), from weights and prompts drawn from ``seed``.
+
+    ``placement`` (an MoE model): ``None``, ``"replicated"`` or
+    ``"online"`` (``epochs`` epochs of traffic); it is planned before the
+    prefill, and its report, with the kernel launches the planning made,
+    is the result's ``placement``.  The launch counts are reset just
+    before the prefill, so the result's are the served run's."""
+    if placement not in (None, "replicated", "online"):
+        raise ValueError(f"placement must be None, 'replicated' or "
+                         f"'online', got {placement!r}")
     model = make_model(cfg, device=device, seed=seed)
     dev = model.device
-    tokens = torch.from_numpy(make_prompts(cfg, B, S, seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    report = None
+    if placement is not None and cfg.n_experts:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if placement == "replicated":
+            report = _replicated_placement(model, tokens)
+        else:
+            report = _online_placement(model, rng, B, S, epochs)
+        report["seconds"] = time.perf_counter() - t0
+        report["launches"] = dict(ops.launches)
     ops.reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
@@ -90,7 +171,7 @@ def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
     t2 = time.perf_counter()
     return ServeResult(tokens=torch.cat(out, dim=1).numpy(),
                        prefill_s=t1 - t0, decode_s=t2 - t1,
-                       launches=dict(ops.launches))
+                       launches=dict(ops.launches), placement=report)
 
 
 def main() -> None:
@@ -102,13 +183,39 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--replicated-placement", action="store_true")
+    ap.add_argument("--online-placement", action="store_true",
+                    help="drift-aware epoch controller instead of a "
+                         "one-shot warmup plan")
+    ap.add_argument("--epochs", type=int, default=6,
+                    help="router-traffic epochs for --online-placement")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg, layers_per_segment=args.layers)
     B, S, G = args.requests, args.prompt_len, args.gen
-    res = serve(cfg, B, S, G, device=args.device)
+    placement = ("online" if args.online_placement else
+                 "replicated" if args.replicated_placement else None)
+    res = serve(cfg, B, S, G, device=args.device, placement=placement,
+                epochs=args.epochs)
+    rep = res.placement
+    if rep is not None and rep["kind"] == "replicated":
+        print(f"[serve] placement: lambda-cost "
+              f"{rep['lambda_cost_no_repl']:.1f} -> "
+              f"{rep['lambda_cost_repl']:.1f} with replication; local "
+              f"fraction {rep['local_fraction_no_repl']:.2f} -> "
+              f"{rep['local_fraction_repl']:.2f}")
+    elif rep is not None:
+        for ep in rep["epochs"]:
+            if not ep["planned"]:
+                print(f"[serve] epoch {ep['epoch']}: warming up accumulator")
+            else:
+                print(f"[serve] epoch {ep['epoch']}: cost "
+                      f"{ep['cost_keep']:.1f} -> {ep['cost_new']:.1f}, "
+                      f"containment {ep['containment']:.2f}, " + (
+                          f"migrated {ep['migration_bytes'] >> 20} MiB"
+                          if ep["committed"] else "kept placement"))
     print(f"[serve] {B} requests, prompt {S}, generated {G} tokens each "
           f"on {args.device}: prefill {res.prefill_s:.3f}s, decode "
           f"{res.ms_per_token:.2f} ms/token ({res.tokens_per_s:.1f} tok/s)")

@@ -1,5 +1,6 @@
-"""The serving model: dense GQA decoders, Mamba-1 and the parallel
-attention + SSM hybrid, with the JAX package's ``Model`` semantics.
+"""The serving model: dense GQA decoders, Mamba-1, the parallel
+attention + SSM hybrid and MoE decoders, with the JAX package's ``Model``
+semantics.
 
 ``forward`` and ``logits_fn`` run the full sequence; ``init_cache``,
 ``prefill`` and ``decode_step`` serve.  Parameters live in one submodule
@@ -15,6 +16,12 @@ parameters do not require grad.
 Caches are, per segment, a list of per-layer dicts: ``k``/``v`` (B, L,
 KV, hd) for attention and ``mamba`` = {``conv``: (B, d_conv-1, di),
 ``ssm``: (B, di, N) f32} for the SSM mixer.
+
+MoE layers route through the model's ``PlacementPlan`` (default: the
+one-shard round robin).  The FFN's ``mode`` follows the JAX package's
+serve path on a one-device mesh: ``prefill`` and ``forward`` run the a2a
+slot path, ``decode_step`` the tp slot path, and ``route_trace`` the dense
+reference (``models.moe``).
 """
 from __future__ import annotations
 
@@ -24,18 +31,15 @@ from torch import nn
 
 from . import layers as L
 from .config import ModelConfig, Segment
+from .moe import PlacementPlan, moe_apply, round_robin_plan, router_topk
 
-_KINDS = ("dense", "hybrid", "mamba")
+_KINDS = ("dense", "hybrid", "mamba", "moe")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for the parts of the JAX model that
     the port does not have yet, naming the ROADMAP item that ports them."""
     for seg in cfg.segments:
-        if seg.kind == "moe":
-            raise NotImplementedError(
-                "segment kind 'moe': ported with the MoE path (ROADMAP "
-                "Queue 1 item 1)")
         if seg.kind == "vision_group" or seg.cross_attn:
             raise NotImplementedError(
                 "segment kind 'vision_group' (cross-attention): ROADMAP "
@@ -65,6 +69,9 @@ class Params(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
 
 class _Init:
     """Draws a model's weights from one generator, in a fixed order, with
@@ -74,10 +81,10 @@ class _Init:
                  dtype: torch.dtype):
         self.cfg, self.gen, self.device, self.dtype = cfg, gen, device, dtype
 
-    def normal(self, shape, scale_dim) -> torch.Tensor:
+    def normal(self, shape, scale_dim, dtype=None) -> torch.Tensor:
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
-        return (x * scale_dim ** -0.5).to(self.dtype)
+        return (x * scale_dim ** -0.5).to(dtype or self.dtype)
 
     def ones(self, n: int) -> torch.Tensor:
         return torch.ones(n, dtype=torch.float32, device=self.device)
@@ -115,6 +122,17 @@ class _Init:
                 "dt_bias": self.zeros(di),
                 "out_proj": self.normal((di, D), di)}
 
+    def moe(self) -> dict:
+        cfg = self.cfg
+        D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        out = {"router": self.normal((D, E), D, torch.float32),
+               "e_gate": self.normal((E, D, F_), D),
+               "e_up": self.normal((E, D, F_), D),
+               "e_down": self.normal((E, F_, D), F_)}
+        if cfg.n_shared_experts:
+            out.update(self.mlp(cfg.n_shared_experts * F_))
+        return out
+
     def layer(self, seg: Segment) -> dict:
         D = self.cfg.d_model
         if seg.kind == "mamba":
@@ -122,18 +140,25 @@ class _Init:
         p = {"ln1": self.ones(D), "ln2": self.ones(D), "attn": self.attn()}
         if seg.kind == "hybrid":
             p["mamba"] = self.mamba()
-        p["mlp"] = self.mlp(self.cfg.d_ff)
+        if seg.kind == "moe":
+            p["moe"] = self.moe()
+        else:
+            p["mlp"] = self.mlp(self.cfg.d_ff)
         return p
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, *,
-                 device: str | torch.device = "cuda",
+    def __init__(self, cfg: ModelConfig, plan: PlacementPlan | None = None,
+                 *, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         """``generator`` draws every weight, on ``device`` (default: seed 0
-        there); a CUDA ``device`` raises without a CUDA device."""
+        there); a CUDA ``device`` raises without a CUDA device.  ``plan``
+        places the experts (default: ``round_robin_plan(E, 1)``)."""
         super().__init__()
         _check_supported(cfg)
+        self.plan = plan
+        if cfg.n_experts and plan is None:
+            self.plan = round_robin_plan(cfg.n_experts, 1)
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -170,13 +195,21 @@ class Model(nn.Module):
             out = out + extra
         return out
 
-    def _block(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
+    def _ffn(self, lp, x: torch.Tensor, seg: Segment, mode: str):
+        """The FFN part of one layer and its aux loss (None but for MoE)."""
+        h = L.rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
+        if seg.kind == "moe":
+            return moe_apply(lp["moe"], h, self.cfg, self.plan, mode)
+        return L.swiglu(lp["mlp"], h), None
+
+    def _block(self, lp, x: torch.Tensor, seg: Segment, mode: str):
+        """One layer: (output, aux loss or None)."""
         if seg.kind == "mamba":
             h = L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps)
-            return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0]
+            return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0], None
         x = x + self._mixer(lp, x, seg)
-        return x + L.swiglu(lp["mlp"],
-                            L.rmsnorm(x, lp["ln2"], self.cfg.norm_eps))
+        y, aux = self._ffn(lp, x, seg, mode)
+        return x + y, aux
 
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         if self.cfg.frame_input:
@@ -189,21 +222,44 @@ class Model(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x.float() @ head.float()
 
-    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence hidden states and the (zero) auxiliary loss."""
+    def forward(self, batch: dict, mode: str = "a2a"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence hidden states and the summed auxiliary (router
+        load-balancing) loss of the MoE layers."""
         x = self._embed_inputs(batch)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg, layers in zip(self.cfg.segments, self.segments):
             for lp in layers:
-                x = self._block(lp, x, seg)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = self._block(lp, x, seg, mode)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        return x, aux_total
 
     def loss(self, batch: dict):
         raise NotImplementedError(
             "Model.loss (training, backward kernels): ROADMAP Queue 1 item 4")
 
-    def route_trace(self, batch: dict):
-        raise NotImplementedError(
-            "Model.route_trace needs MoE segments: ROADMAP Queue 1 item 1")
+    def route_trace(self, batch: dict) -> list:
+        """Replay the forward pass (dense FFNs) collecting each MoE layer's
+        router choices: one (L, T, top_k) int64 tensor per MoE segment, the
+        placement planner's input.  As in the JAX package, the router sees
+        the post-mixer hidden state and the mixer runs twice per layer."""
+        cfg = self.cfg
+        x = self._embed_inputs(batch)
+        traces = []
+        for seg, layers in zip(cfg.segments, self.segments):
+            idxs = []
+            for lp in layers:
+                if seg.kind == "moe":
+                    hh = L.rmsnorm(x + self._mixer(lp, x, seg), lp["ln2"],
+                                   cfg.norm_eps)
+                    idxs.append(router_topk(lp["moe"]["router"],
+                                            hh.reshape(-1, cfg.d_model),
+                                            cfg)[1])
+                x, _ = self._block(lp, x, seg, "dense")
+            if seg.kind == "moe":
+                traces.append(torch.stack(idxs))
+        return traces
 
     # -------------------------------------------------------------- serve
     def init_cache(self, B: int, max_len: int) -> list:
@@ -230,7 +286,7 @@ class Model(nn.Module):
         for seg, layers in zip(self.cfg.segments, self.segments):
             seg_caches = []
             for lp in layers:
-                y = self._block(lp, x, seg)
+                y, _ = self._block(lp, x, seg, "a2a")
                 seg_caches.append(self._prefill_layer_cache(lp, x, seg,
                                                             max_len))
                 x = y
@@ -286,6 +342,6 @@ class Model(nn.Module):
         for extra in parts[1:]:
             out = out + extra
         x = x + out
-        y = L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        y, _ = self._ffn(lp, x, seg, "tp")
         return x + y, new_cache
 

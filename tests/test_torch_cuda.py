@@ -17,7 +17,8 @@ from repro_torch.core.partition import heuristic as th  # noqa: E402
 from repro_torch.core.partition.engine import _tables  # noqa: E402
 from repro_torch.datagen import large_row_net  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
-from repro_torch.kernels import front_pass, gain, ops, ref  # noqa: E402
+from repro_torch.kernels import (front_pass, gain, moe_gmm,  # noqa: E402
+                                 ops, ref)
 from repro_torch.launch.serve import make_model, serve  # noqa: E402
 
 
@@ -238,3 +239,86 @@ def test_serve_on_cuda_counts_every_model_kernel(cuda):
     assert res.launches["attention_masked"] == 2 + 2 * 5
     assert res.launches["mamba_scan"] == 2 * 5       # block + cache pass
     assert res.launches["mamba_step"] == 2 * 5       # G - 1 = 2 steps
+
+
+# ----------------------------------------------------------- grouped matmul
+# f32 1e-5 (the summation order differs from the plain version's), bf16
+# 3e-2: tests/test_kernels.py's bounds.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,D,F", [
+    (8, 1, 256, 128), (2, 3, 1100, 24), (3, 5, 33, 7),      # decode path
+    (5, 37, 96, 80), (4, 128, 64, 40), (3, 37, 33, 7)])     # wide paths
+def test_grouped_matmul_kernel_matches_plain_version(cuda, no_tf32, G, C,
+                                                     D, F, dtype):
+    """C <= 16 takes the decode path (D = 1100 spans three K chunks of
+    512), larger C the tiled paths (tensor cores for bf16); D = 33, F = 7
+    take the unvectorized loads."""
+    g = torch.Generator(device=cuda).manual_seed(G * C + D)
+    x = torch.randn((G * C, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((G, D, F), generator=g, device=cuda)
+         / D ** 0.5).to(dtype)
+    ops.reset_launches()
+    got = ops.grouped_matmul_aligned(x, w, C)
+    torch.cuda.synchronize()
+    assert ops.launches["grouped_matmul"] == 1
+    want = ref.grouped_matmul_aligned_ref(x, w, C)
+    assert got.dtype == dtype and got.shape == (G * C, F)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_rejects_bad_inputs(cuda):
+    x = torch.randn((6, 8), device=cuda)
+    w = torch.randn((2, 8, 5), device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_gmm.grouped_matmul(x.cpu(), w, 3)
+    with pytest.raises(ValueError, match="float32"):
+        moe_gmm.grouped_matmul(x, w.bfloat16(), 3)
+    with pytest.raises(ValueError, match="shape"):
+        moe_gmm.grouped_matmul(x, torch.randn((2, 7, 5), device=cuda), 3)
+    with pytest.raises(ValueError, match="shape"):
+        moe_gmm.grouped_matmul(x, w, 2)                  # 6 rows != 2 x 2
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.grouped_matmul(x, w.transpose(1, 2).contiguous()
+                               .transpose(1, 2), 3)
+
+
+@pytest.mark.cuda
+def test_olmoe_kernel_path_matches_plain_path(cuda, no_tf32):
+    """Reduced olmoe in f32: prefill (a2a) and two decode steps (tp)
+    through the kernels against the plain versions."""
+    cfg = reduce_config(get_config("olmoe-1b-7b")).with_(dtype="float32")
+    model = make_model(cfg, device=cuda, seed=4)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    runs = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            with torch.no_grad():
+                logits, caches = model.prefill({"tokens": tokens[:, :20]}, 26)
+                out = [logits]
+                for i in range(2):
+                    logits, caches = model.decode_step(
+                        tokens[:, 20 + i:21 + i], caches, 20 + i)
+                    out.append(logits)
+        finally:
+            ops.force(None)
+        runs[which] = torch.cat(out, dim=1)
+        if which == "cuda":       # one MoE layer, three products per call
+            assert ops.launches["grouped_matmul"] == 3 * 3
+    scale = runs["ref"].abs().max().item()
+    assert (runs["cuda"] - runs["ref"]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_serve_olmoe_on_cuda_with_placement(cuda):
+    res = serve(reduce_config(get_config("olmoe-1b-7b")), 2, 20, 3,
+                device=cuda, seed=0, placement="replicated")
+    assert res.launches["grouped_matmul"] == 3 * 3      # 1 layer, 3 calls
+    assert res.launches["flash_attention"] == 1
+    assert res.launches["attention_masked"] == 2
+    assert res.placement["lambda_cost_repl"] <= \
+        res.placement["lambda_cost_no_repl"]

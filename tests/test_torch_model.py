@@ -12,6 +12,12 @@ of the decode step within 6e-2 of the largest logit: the looser of the
 bf16 tolerances of ``tests/test_models_smoke.py`` (the worst measured here
 is 2.2 %, reduced hymba).  Then the port's own checks: decode matches a
 teacher-forced forward, and the serve loop.
+
+The MoE model (reduced olmoe) serves through the slot paths, which the
+JAX package runs only under a mesh: its prefill and decode step are held
+against the JAX ``Model`` under a one-device mesh with Auto axes, its
+``forward(mode="dense")`` against the JAX forward without a mesh (the
+dense reference), and its router trace id for id.
 """
 import dataclasses
 
@@ -24,6 +30,7 @@ pytest.importorskip("jax")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduce_config as jreduce_config  # noqa: E402
@@ -192,7 +199,7 @@ def test_serve_on_cpu_reduced_hymba():
 
 
 @pytest.mark.parametrize("arch,needs", [
-    ("olmoe-1b-7b", "MoE path"), ("deepseek-v3-671b", "item 2"),
+    ("deepseek-v3-671b", "item 2"),
     ("llama-3.2-vision-11b", "vision_group")])
 def test_unported_parts_raise(arch, needs):
     with pytest.raises(NotImplementedError, match=needs):
@@ -228,3 +235,110 @@ def test_parameter_count(arch):
     full = get_config("hymba-1.5b")
     assert full.param_count() + 2 * full.d_inner * full.n_layers == \
         1_662_161_600
+
+
+# ---------------------------------------------------------------- MoE model
+def _one_device_mesh():
+    sharding.set_active_mesh(jax.make_mesh(
+        (1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_olmoe_prefill_and_decode_match_jax_slot_path(dtype):
+    """Prefill (a2a) and two decode steps (tp, capacity 1 per expert at
+    B = 2: colliding choices drop) against the JAX model on a one-device
+    mesh."""
+    cfg, jm, params, model = _pair("olmoe-1b-7b", dtype)
+    S = 16
+    tokens = np.random.default_rng(6).integers(
+        0, cfg.vocab, (B, S + 2)).astype(np.int32)
+    max_len = S + 4
+    _one_device_mesh()
+    try:
+        jlogits, jcaches = jax.jit(lambda p, t: jm.prefill(
+            p, {"tokens": t}, max_len))(params, jnp.asarray(tokens[:, :S]))
+        jsteps = []
+        for i in range(2):
+            jstep, jcaches = jax.jit(lambda p, t, c, i=i: jm.decode_step(
+                p, t, c, jnp.int32(S + i)))(
+                params, jnp.asarray(tokens[:, S + i:S + i + 1]), jcaches)
+            jsteps.append(jstep)
+    finally:
+        sharding._ACTIVE_MESH = None
+    with torch.no_grad():
+        logits, caches = model.prefill(
+            {"tokens": torch.from_numpy(tokens[:, :S])}, max_len)
+        _check_logits(logits, jlogits, dtype)
+        for i in range(2):
+            step, caches = model.decode_step(
+                torch.from_numpy(tokens[:, S + i:S + i + 1]), caches, S + i)
+            _check_logits(step, jsteps[i], dtype)
+    if dtype == "float32":
+        _check_caches(caches, jcaches, cfg, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_olmoe_dense_forward_and_route_trace_match_jax(dtype):
+    cfg, jm, params, model = _pair("olmoe-1b-7b", dtype, seed=2)
+    tokens = np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, 24)).astype(np.int32)
+    jx, jaux = jm.forward(params, {"tokens": jnp.asarray(tokens)})
+    jtrace = jm.route_trace(params, {"tokens": jnp.asarray(tokens)})
+    batch = {"tokens": torch.from_numpy(tokens)}
+    with torch.no_grad():
+        x, aux = model(batch, mode="dense")
+        trace = model.route_trace(batch)
+    _check_logits(x, jx, dtype)
+    np.testing.assert_allclose(float(aux), float(jaux),
+                               rtol=1e-5 if dtype == "float32" else 6e-2)
+    assert len(trace) == len(jtrace) == 1
+    assert trace[0].shape == (1, B * 24, cfg.top_k)
+    assert np.array_equal(trace[0].numpy(), np.asarray(jtrace[0]))
+
+
+def test_converter_carries_the_moe_weights():
+    cfg, _, params, model = _pair("olmoe-1b-7b", "bfloat16")
+    state = model.state_dict()
+    jmoe = params["segments"][0]["moe"]
+    for name in ("router", "e_gate", "e_up", "e_down"):
+        got = state[f"segments.0.0.moe.{name}"]
+        want = jmoe[name][0]
+        assert tuple(got.shape) == want.shape
+        if name == "router":
+            assert got.dtype == torch.float32
+            assert np.array_equal(got.numpy(), want)
+        else:
+            assert got.dtype == torch.bfloat16
+            assert np.array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+    assert not any(k.endswith("mlp.w_gate") for k in state)
+
+
+def test_olmoe_parameter_count_and_default_plan():
+    cfg = reduce_config(get_config("olmoe-1b-7b"))
+    model = Model(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    assert model.plan.n_shards == 1
+    assert model.plan.slot_expert == (tuple(range(cfg.n_experts)),)
+    full = get_config("olmoe-1b-7b")
+    assert full.param_count() == 6_919_096_320     # 13.8 GB in bf16
+
+
+@pytest.mark.parametrize("placement", ["replicated", "online"])
+def test_serve_on_cpu_reduced_olmoe_with_placement(placement):
+    cfg = reduce_config(get_config("olmoe-1b-7b"))
+    a = serve(cfg, 2, 20, 4, device="cpu", seed=3, placement=placement,
+              epochs=3)
+    b = serve(cfg, 2, 20, 4, device="cpu", seed=3)
+    assert np.array_equal(a.tokens, b.tokens)   # serving keeps one shard
+    assert a.tokens.shape == (2, 4) and b.placement is None
+    assert not any(a.launches.values())          # CPU: plain versions
+    rep = a.placement
+    assert rep["kind"] == placement and rep["n_shards"] == 2
+    assert not any(rep["launches"].values())
+    if placement == "replicated":
+        assert rep["lambda_cost_repl"] <= rep["lambda_cost_no_repl"]
+        assert rep["local_fraction_repl"] >= rep["local_fraction_no_repl"]
+    else:
+        assert [e["planned"] for e in rep["epochs"]] == [False, True, True]
+        assert rep["commits"] == 0 and rep["migration_bytes"] == 0

@@ -37,8 +37,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout)
     for name in ("kernels.front_pass", "kernels.flash_attention",
-                 "kernels.mamba_scan", "models.model", "launch.serve",
-                 "configs.registry"):
+                 "kernels.mamba_scan", "kernels.moe_gmm", "models.model",
+                 "models.moe", "launch.serve", "configs.registry",
+                 "core.placement.expert_placement", "core.placement.online",
+                 "core.placement.replay"):
         assert f"repro_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 15          # every module was imported
     assert got["bad"] == [], f"the port pulled in {got['bad']}"
