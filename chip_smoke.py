@@ -11,13 +11,17 @@ placement (``launch.serve.serve``).  Phases, in order; any failure
 propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
-   print the build time and the card's name and power limit;
+   print the build time, what ``ptxas`` reports for the two newest
+   attention kernels (registers, shared memory, spills) and the card's
+   name and power limit;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the gain kernels at the shapes the partitioning path gives
    them (exact equality), attention and the selective scan at hymba's
    and olmoe's serving shapes and the grouped matmul at olmoe's, in bf16
    and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
-   products of the plain versions;
+   products of the plain versions.  Each attention row names its route
+   (``flash_attention.route``: ``prefill_tc``, ``decode_split`` or
+   ``cuda_core``) and asserts that the call took it;
 3. the device-resident pass on ``large_row_net(8192)``, P = 8:
    ``fm_refine`` then ``replicate_local_search`` on CUDA against the host
    (numpy) path -- equal masks and cost, counter bounds; then one FM pass
@@ -28,11 +32,14 @@ propagates and the exit code is nonzero:
    on CUDA, with its time, costs, counters and peak device memory;
 6. serve ``hymba-1.5b`` at full width and depth: 4 prompts of 2048
    tokens, 32 new tokens each, in bf16; prefill seconds, decode ms per
-   token, tokens/s, peak memory and launches per counter (each of the four
-   model kernels must launch).  Then the same weights in f32 through the
-   kernels and through the plain versions (``ops.force("ref")``): prefill
-   and three teacher-forced decode steps agree within ``F32_LOGIT_TOL``
-   of the largest logit; the bf16 gap is reported;
+   token, tokens/s, peak memory, launches per counter (each of the four
+   model kernels must launch) and per attention route (bf16 serving runs
+   ``prefill_tc`` and ``decode_split`` only).  Then the same weights in
+   f32 through the kernels (prefill on ``cuda_core``, decode on
+   ``decode_split``) and through the plain versions
+   (``ops.force("ref")``): prefill and three teacher-forced decode steps
+   agree within ``F32_LOGIT_TOL`` of the largest logit; the bf16 gap is
+   reported;
 7. serve ``olmoe-1b-7b`` at full width and depth with
    ``placement="replicated"`` (4 prompts of 2048 tokens, 32 new tokens
    each, bf16): the placement's lambda-costs and min-cover launches,
@@ -53,8 +60,11 @@ Launch counts are reset just before each driven run (phases 3-7) and read
 just after; the kernel line reports those of phases 4 and 5 (the
 ``partition_with_replication`` runs) for the gain kernels and those of the
 serve runs of phases 6 and 7, summed, for the model kernels.  The
-attention kernel counts ``flash_attention`` (no window, no positions: the
-Pallas kernel's role) apart from ``attention_masked``, the scan
+attention kernels count ``flash_attention`` (no window, no positions: the
+Pallas kernel's role) apart from ``attention_masked``, and the line has
+one entry per (count, route) the serve runs took, plus one for the
+``cuda_core`` route with the launches of phase 6's f32 kernel path (the
+bf16 runs never take it); the scan
 ``mamba_scan`` (from zeros) apart from ``mamba_step`` (decode, from a
 state); each count is timed at its commonest shape on the path.  The min-cover kernel has two counts:
 ``min_cover_lambdas`` where it prices a front (the Pallas kernel's role)
@@ -114,6 +124,14 @@ KERNEL_OF = {"front_dlam": "front_dlam",
 SOURCES = {"front_dlam": "gain", "min_cover_lambdas": "gain",
            "flash_attention": "flash_attention", "mamba_scan": "mamba_scan",
            "grouped_matmul": "moe_gmm"}
+# attention route -> its source
+ATTN_SOURCES = {"prefill_tc": "attention_prefill_tc",
+                "decode_split": "attention_decode",
+                "cuda_core": "flash_attention"}
+# the (count, route) pairs of the bf16 serving runs, each a kernel-line entry
+ATTN_PATH = (("flash_attention", "prefill_tc"),
+             ("attention_masked", "prefill_tc"),
+             ("attention_masked", "decode_split"))
 MODEL_COUNTERS = ("flash_attention", "attention_masked", "mamba_scan",
                   "mamba_step", "grouped_matmul")
 # kernel vs plain version: tests/test_kernels.py's bounds, f32 relaxed from
@@ -313,10 +331,12 @@ def attn_key(q, k, v, window: int) -> tuple:
 
 
 def check_attention(case, dtype_name: str, seed: int) -> dict:
-    """The attention kernel against its plain version on one case; timed
-    with the plain version and SDPA (``library_ms``) where on the path."""
+    """The attention kernel of the case's route against the plain version;
+    timed with the plain version and SDPA (``library_ms``) where on the
+    path."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     (name, counter, B, Sq, Sk, H, KV, hd, hdv, causal, window, pos,
      on_path) = case
@@ -340,8 +360,15 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
 
     def plain():
         return ref.attention_ref(q, k, v, **kw)
+    route = fa.route(dtype, B, Sq, Sk, H, KV, hd, hdv, window,
+                     pos is not None)
+    ops.reset_launches()
     got, want = run(), plain()
     torch.cuda.synchronize()
+    taken = {r: c for r, c in ops.route_launches.items() if c}
+    if taken != {route: 1}:
+        raise AssertionError(f"attention {name} {dtype_name}: routes "
+                             f"{taken}, expected {route}")
     tol = MODEL_TOL[("attn", dtype_name)]
     ok, err = rel_ok(got, want, tol)
     if not ok:
@@ -353,7 +380,7 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
         Sq, device=dev).expand(B, Sq)
     kpos = kp if kp is not None else torch.arange(
         Sk, device=dev).expand(B, Sk)
-    keep = kpos[:, None, :] >= 0
+    keep = (kpos[:, None, :] >= 0).expand(B, Sq, Sk)
     if causal:
         keep = keep & (qpos[:, :, None] >= kpos[:, None, :])
     if window:
@@ -366,7 +393,8 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
         nbytes += 4 * (qp.numel() + kp.numel())
     rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"case": name, "counter": counter, "dtype": dtype_name,
+    row = {"case": name, "counter": counter, "route": route,
+           "dtype": dtype_name,
            "shape": [B, Sq, Sk, H, KV, hd, hdv], "window": window,
            "key": attn_key(q, k, v, window),
            "max_abs_err": err, "tol": tol, "ms": graph_ms(run, 10, 5),
@@ -487,20 +515,29 @@ def check_gmm(case, dtype_name: str, seed: int) -> dict:
 
 class ModelShapes:
     """Counts the model kernels' launches of a driven run by (counter,
-    shape key, dtype), to time each counter at its commonest shape."""
+    shape key, dtype), to time each counter at its commonest shape, and
+    the attention calls by (counter, route, shape key, dtype) in
+    ``routes``."""
 
     def __init__(self) -> None:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import mamba_scan as ms
         from repro_torch.kernels import moe_gmm as mg
         self.shapes: Counter = Counter()
+        self.routes: Counter = Counter()
         real_fa, real_ms, real_mg = (fa.flash_attention, ms.mamba_scan,
                                      mg.grouped_matmul)
 
         def attention(q, k, v, *, window=0, q_pos=None, k_pos=None, **kw):
             plain = window == 0 and q_pos is None and k_pos is None
-            self.shapes[("flash_attention" if plain else "attention_masked",
-                         attn_key(q, k, v, window), str(q.dtype))] += 1
+            counter = "flash_attention" if plain else "attention_masked"
+            key, dt = attn_key(q, k, v, window), str(q.dtype)
+            self.shapes[(counter, key, dt)] += 1
+            B, Sq, H, hd = q.shape
+            route = fa.route(q.dtype, B, Sq, k.shape[1], H, k.shape[2], hd,
+                             v.shape[3], window,
+                             q_pos is not None or k_pos is not None)
+            self.routes[(counter, route, key, dt)] += 1
             return real_fa(q, k, v, window=window, q_pos=q_pos,
                            k_pos=k_pos, **kw)
 
@@ -520,9 +557,30 @@ class ModelShapes:
 
 
 def commonest(shapes: Counter, counter: str) -> tuple:
-    """The (shape key, dtype) a counter launched most often."""
-    return max(((key, dt) for (c, key, dt) in shapes if c == counter),
-               key=lambda kd: shapes[(counter,) + kd])
+    """The (shape key, dtype) a counter launched most often; ``counter``
+    may be a (counter, route) pair for ``ModelShapes.routes``."""
+    head = counter if isinstance(counter, tuple) else (counter,)
+    n = len(head)
+    return max((k[n:] for k in shapes if k[:n] == head),
+               key=lambda kd: shapes[head + kd])
+
+
+def ptxas_summary(log: str) -> list:
+    """``nvcc -Xptxas -v`` output, one line per kernel: its name (the
+    template arguments kept), registers, shared memory and spills."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d+(\w+?_kernel)"
+                      r"(\w*)'", line)
+        if m:
+            name = m.group(1) + m.group(2)[:40]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def expected_serve_launches(cfg, G: int) -> dict:
@@ -777,6 +835,17 @@ def route_flips(model, prompts) -> int:
                                                   traces["ref"])))
 
 
+def check_routes(routes: dict, launches: dict, model: str) -> None:
+    """A bf16 serve run's attention calls all took the two Hopper routes,
+    each at least once."""
+    calls = launches["flash_attention"] + launches["attention_masked"]
+    if (sum(routes.values()) != calls or routes["cuda_core"]
+            or routes["prefill_tc"] < launches["flash_attention"]
+            or not routes["prefill_tc"] or not routes["decode_split"]):
+        raise AssertionError(f"{model} serve: attention routes {routes} "
+                             f"for {calls} calls")
+
+
 def check_result(hg, P, eps, res) -> None:
     """Valid, balanced masks whose recomputed cost is the reported one."""
     from repro_torch.core.partition.cost import is_valid, partition_cost
@@ -803,13 +872,17 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    libs = sorted(set(SOURCES.values()))
+    libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values()))
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
     log(f"[1] built and loaded "
         f"{', '.join(_build._lib_path(n).name for n in libs)} in "
         f"{build_s:.2f} s")
+    for n in _build.PTXAS_REPORT:
+        for line in ptxas_summary(_build.build_log.get(n, "")) or [
+                "(loaded from an earlier build: no ptxas report)"]:
+            log(f"[1] ptxas {n}: {line}")
     summary: dict = {"build_s": sig(build_s)}
     card = card_line()
     log(f"card: {card}")
@@ -971,8 +1044,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, B6, S6, G6, device="cuda", seed=0)
     peak6 = torch.cuda.max_memory_allocated()
-    shapes6 = Counter(shapes.shapes)
+    r6 = dict(ops.route_launches)
+    shapes6, routes6 = Counter(shapes.shapes), Counter(shapes.routes)
     l6 = {c: res.launches[c] for c in MODEL_COUNTERS}
+    check_routes(r6, l6, "hymba")
     if res.tokens.shape != (B6, G6) or not (
             (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
         raise AssertionError(f"bad generated tokens {res.tokens.shape}")
@@ -986,7 +1061,8 @@ def main() -> int:
         f"{cfg.d_model}, bf16): {B6} prompts x {S6} tokens, {G6} new each; "
         f"prefill {res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} "
         f"ms/token, {res.tokens_per_s:.2f} tok/s, max_memory_allocated "
-        f"{peak6} B; launches {l6}; sample {res.tokens[0][:8].tolist()}")
+        f"{peak6} B; launches {l6}; attention routes {r6}; sample "
+        f"{res.tokens[0][:8].tolist()}")
     # the same weights through the kernels and through the plain versions:
     # prefill and three teacher-forced decode steps, f32 asserted
     prompts6 = torch.from_numpy(make_prompts(cfg, B6, S6, 0)).cuda()
@@ -995,7 +1071,14 @@ def main() -> int:
     for dtype_name in ("float32", "bfloat16"):
         model = make_model(cfg.with_(dtype=dtype_name), device="cuda",
                            seed=0)
+        ops.reset_launches()
         kern = logits_through(model, prompts6, forced, "cuda", S6 + G6)
+        if dtype_name == "float32":   # f32 prefill takes cuda_core
+            r6_f32 = dict(ops.route_launches)
+            log(f"[6] f32 kernel path, prefill + 3 decode steps: attention "
+                f"routes {r6_f32}")
+            if not (r6_f32["cuda_core"] and r6_f32["decode_split"]):
+                raise AssertionError(f"f32 attention routes {r6_f32}")
         plain = logits_through(model, prompts6, forced, "ref", S6 + G6)
         if dtype_name == "bfloat16":
             summary["p6b"] = decode_profile(model, prompts6, forced,
@@ -1019,7 +1102,8 @@ def main() -> int:
     summary["p6"] = {
         "prefill_s": sig(res.prefill_s), "ms_per_token": sig(
             res.ms_per_token), "tok_s": sig(res.tokens_per_s),
-        "peak_B": peak6, "launches": l6,
+        "peak_B": peak6, "launches": l6, "routes": r6,
+        "f32_routes": r6_f32,
         "f32_gap": sig(gap32 / scale32),
         "bf16_gap": sig(gaps["bfloat16"][0] / gaps["bfloat16"][1])}
 
@@ -1029,13 +1113,16 @@ def main() -> int:
     cfg7 = get_config("olmoe-1b-7b")
     B7, S7, G7 = 4, 2048, 32
     shapes.shapes.clear()
+    shapes.routes.clear()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res7 = serve(cfg7, B7, S7, G7, device="cuda", seed=0,
                  placement="replicated")
     peak7 = torch.cuda.max_memory_allocated()
-    shapes7 = Counter(shapes.shapes)
+    r7 = dict(ops.route_launches)
+    shapes7, routes7 = Counter(shapes.shapes), Counter(shapes.routes)
     l7 = {c: res7.launches[c] for c in MODEL_COUNTERS}
+    check_routes(r7, l7, "olmoe")
     if res7.tokens.shape != (B7, G7) or not (
             (res7.tokens >= 0) & (res7.tokens < cfg7.vocab)).all():
         raise AssertionError(f"bad generated tokens {res7.tokens.shape}")
@@ -1054,7 +1141,8 @@ def main() -> int:
         f"{B7} prompts x {S7} tokens, {G7} new each; prefill "
         f"{res7.prefill_s:.4f} s, decode {res7.ms_per_token:.4f} ms/token, "
         f"{res7.tokens_per_s:.2f} tok/s, max_memory_allocated {peak7} B; "
-        f"launches {l7}; sample {res7.tokens[0][:8].tolist()}")
+        f"launches {l7}; attention routes {r7}; sample "
+        f"{res7.tokens[0][:8].tolist()}")
     prompts7 = torch.from_numpy(make_prompts(cfg7, B7, S7, 0)).cuda()
     forced7 = torch.from_numpy(res7.tokens[:, :3]).cuda()
     model = make_model(cfg7, device="cuda", seed=0)
@@ -1117,7 +1205,7 @@ def main() -> int:
     summary["p7"] = {
         "prefill_s": sig(res7.prefill_s), "ms_per_token": sig(
             res7.ms_per_token), "tok_s": sig(res7.tokens_per_s),
-        "peak_B": peak7, "launches": l7,
+        "peak_B": peak7, "launches": l7, "routes": r7,
         "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
         "plan_launches": pl["launches"]["min_cover_lambdas"],
         "layer_err": sig(max(layer_errs)), "f32_gap": sig(gap32 / scale32),
@@ -1156,30 +1244,84 @@ def main() -> int:
     shapes_model = shapes6 + shapes7
     log(f"model kernel launch shapes (counter, key, dtype): count, phases "
         f"6+7: {dict(shapes_model.most_common(14))}")
-    for name in MODEL_COUNTERS:
-        key, dt = commonest(shapes_model, name)
-        rows = [r for r in model_rows if r["counter"] == name
+    def timed_row(counter, key, dt, route=None):
+        rows = [r for r in model_rows if r["counter"] == counter
                 and r["dtype"] == dt.removeprefix("torch.")
-                and "plain_ms" in r and r["key"] == key]
+                and "plain_ms" in r and r["key"] == key
+                and route in (None, r.get("route"))]
         if not rows:
-            raise AssertionError(f"{name}: its commonest shape {key} {dt} "
-                                 f"was not timed in phase 2")
-        row = rows[0]
+            raise AssertionError(f"{counter} {route}: its commonest shape "
+                                 f"{key} {dt} was not timed in phase 2")
+        return rows[0]
+
+    def row_fields(row):
+        return {"max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": row["shape"], "dtype": row["dtype"],
+                "call_ms": row["call_ms"]}
+
+    def second(case, dtype, prefix):   # another path shape of a kernel
+        r = next(r for r in model_rows if r["case"] == case
+                 and r["dtype"] == dtype)
+        return {f"{prefix}_{k}": r[k] for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}
+
+    # attention: one entry per (count, route) of the bf16 serve runs, and
+    # cuda_core with the launches of phase 6's f32 kernel path.  In those
+    # runs every plain call is a prefill (prefill_tc) and every decode call
+    # masked (decode_split), so the serve counts split by route as below
+    # (``ModelShapes`` also sees the placement planner's calls: it only
+    # picks the commonest shape)
+    routes_model = routes6 + routes7
+    log(f"attention calls by (counter, route, key, dtype), phases 6+7, "
+        f"planner included: {dict(routes_model)}")
+    n_plain = l6["flash_attention"] + l7["flash_attention"]
+    by_route = {
+        ("flash_attention", "prefill_tc"): n_plain,
+        ("attention_masked", "prefill_tc"):
+            r6["prefill_tc"] + r7["prefill_tc"] - n_plain,
+        ("attention_masked", "decode_split"):
+            r6["decode_split"] + r7["decode_split"]}
+    for counter, route in ATTN_PATH:
+        key, dt = commonest(routes_model, (counter, route))
+        row = timed_row(counter, key, dt, route)
+        kernels.append({
+            "name": f"{counter}:{route}", "route": "cuda",
+            "attn_route": route,
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{ATTN_SOURCES[route]}.cu",
+            "replaces": REPLACES[counter],
+            "launches": by_route[(counter, route)], **row_fields(row)})
+        if (counter, route) == ("flash_attention", "prefill_tc"):
+            kernels[-1].update(second("prefill", row["dtype"], "hymba"))
+        if route == "decode_split":
+            kernels[-1].update(second("olmoe_decode", row["dtype"],
+                                      "olmoe"))
+    row = next(r for r in model_rows if r["case"] == "prefill"
+               and r["dtype"] == "float32")
+    kernels.append({
+        "name": "attention:cuda_core", "route": "cuda",
+        "attn_route": "cuda_core",
+        "source": f"src/repro_torch/kernels/csrc/"
+                  f"{ATTN_SOURCES['cuda_core']}.cu",
+        "replaces": REPLACES["flash_attention"],
+        "launches": r6_f32["cuda_core"],
+        "launches_from": "phase 6, f32 kernel path", **row_fields(row)})
+    for name in MODEL_COUNTERS:
+        if name in ("flash_attention", "attention_masked"):
+            continue
+        key, dt = commonest(shapes_model, name)
+        row = timed_row(name, key, dt)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/"
                       f"{SOURCES[KERNEL_OF[name]]}.cu",
             "replaces": REPLACES[name], "launches": l6[name] + l7[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "dtype": row["dtype"],
-            "call_ms": row["call_ms"]})
+            **row_fields(row)})
         if name == "grouped_matmul":      # also olmoe's prefill shape
-            pre = next(r for r in model_rows if r["case"] ==
-                       "prefill_gate_up" and r["dtype"] == row["dtype"])
-            kernels[-1].update({f"prefill_{k}": pre[k] for k in (
-                "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")})
+            kernels[-1].update(second("prefill_gate_up", row["dtype"],
+                                      "prefill"))
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {
@@ -1188,8 +1330,9 @@ def main() -> int:
     compact = (",", ":")
     log("summary " + json.dumps(summary, separators=compact))
     log(f"card: {card}")
-    log(json.dumps({"kernels": kernels}, separators=compact))
-    log("kernels: " + ", ".join(dict.fromkeys(KERNEL_OF.values())))
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}, separators=compact), flush=True)
+    log("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

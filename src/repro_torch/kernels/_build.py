@@ -47,7 +47,23 @@ SIGNATURES = {
     "moe_gmm": {
         "repro_grouped_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    # (q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, stream)
+    "attention_prefill_tc": {
+        "repro_attention_prefill_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _F, _P),
+    },
+    # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
+    #  window, scale, is_bf16, splits, chunk, stream)
+    "attention_decode": {
+        "repro_attention_decode_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                         _I, _I, _P),
+    },
 }
+# sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
+# shared memory and spills, kept per source in ``build_log``
+PTXAS_REPORT = ("attention_prefill_tc", "attention_decode")
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -62,9 +78,14 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + (("-Xptxas", "-v") if name in PTXAS_REPORT else ())
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(_flags(name)).encode()
+    key = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
@@ -76,12 +97,13 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {out.name}:\n"
                                    f"{proc.stdout}{proc.stderr}")
+            build_log[name] = proc.stdout + proc.stderr
             os.replace(tmp, out)   # atomic: a concurrent loader sees all
         finally:
             tmp.unlink(missing_ok=True)

@@ -1,13 +1,29 @@
-"""GQA attention on the card: the wrapper of ``csrc/flash_attention.cu``.
+"""GQA attention on the card: the wrappers of the three attention kernels
+and the choice between them.
 
-The kernel replaces the JAX package's Pallas ``flash_attention`` and also
-computes the masks (sliding window, explicit query and key positions,
+The kernels replace the JAX package's Pallas ``flash_attention`` and also
+compute the masks (sliding window, explicit query and key positions,
 padded keys) that the JAX ``ops.attention`` sends to its jnp reference, so
-every attention call of the serving path runs on it.  ``ops.attention``
-dispatches here for CUDA tensors; ``ref.attention_ref`` is the plain
-version.
+every attention call of the serving path runs on one of them.
+``ops.attention`` dispatches here for CUDA tensors; ``ref.attention_ref``
+is the plain version.  Routes, chosen by ``route`` from the shapes alone:
+
+- ``decode_split`` (``csrc/attention_decode.cu``): at most
+  ``DECODE_ROWS`` (query, head) rows per (batch, kv head), f32 or bf16 --
+  split-K over the cache, ``plan_splits`` blocks per (batch, kv head),
+  then a log-sum-exp combine;
+- ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, hd = hd_v in
+  {64, 128}, no explicit positions -- wgmma on the tensor cores, K/V by
+  TMA;
+- ``cuda_core`` (``csrc/flash_attention.cu``): everything else (f32
+  prefill, other head dims, positions with many rows) on CUDA cores.
+
+A kernel that fails to build or launch raises; no route falls back to
+another or to the plain version.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,6 +31,59 @@ from . import ops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
+TC_HEAD_DIMS = (64, 128)
+MAX_SPLITS = 64         # the decode kernel's combine holds this many
+
+
+def _pieces_ok(dim: int, itemsize: int) -> bool:
+    """``dim`` is 16-byte pieces times a power of two <= 32: what a lane
+    group of the decode kernel reads per key."""
+    vec = 16 // itemsize
+    n = dim // vec
+    return dim % vec == 0 and 1 <= n <= 32 and n & (n - 1) == 0
+
+
+def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
+          hd_v: int, window: int, has_positions: bool) -> str:
+    """The kernel an attention call of these shapes goes to (see the module
+    docstring); a pure function of the shapes."""
+    itemsize = dtype.itemsize
+    if (Sq * (H // KV) <= DECODE_ROWS and _pieces_ok(hd, itemsize)
+            and _pieces_ok(hd_v, itemsize)):
+        return "decode_split"
+    if (dtype == torch.bfloat16 and hd == hd_v and hd in TC_HEAD_DIMS
+            and not has_positions):
+        return "prefill_tc"
+    return "cuda_core"
+
+
+def plan_splits(B: int, KV: int, Sk: int, rows: int,
+                sm_count: int) -> tuple[int, int]:
+    """(splits, chunk) of the decode kernel's grid: split s reads keys
+    ``[s * chunk, min((s + 1) * chunk, Sk))``, every key exactly once and no
+    split empty.  Aims at four blocks per SM over the B * KV (batch, kv
+    head) pairs with one row, two with more: a block keeps each row's
+    query and accumulator in registers, so with five rows (hymba's G) only
+    three fit on an SM, and a second wave costs more than fewer, longer
+    splits.  At least ``max(16, 64 // rows)`` keys per split (fewer rows do
+    less work per key), chunks a multiple of 16."""
+    min_keys = max(16, 64 // max(rows, 1))
+    per_sm = 4 if rows <= 1 else 2
+    want = _cdiv(per_sm * sm_count, max(B * KV, 1))
+    splits = max(1, min(want, _cdiv(Sk, min_keys), MAX_SPLITS))
+    chunk = 16 * _cdiv(_cdiv(Sk, splits), 16)
+    return _cdiv(Sk, chunk), chunk
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,7 +96,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq)/(B, Sk) int32.  Returns (B, Sq, H, hd_v) in q's dtype.
 
     Counts as ``flash_attention`` without a window and positions (the
-    Pallas kernel's role), else as ``attention_masked``."""
+    Pallas kernel's role), else as ``attention_masked``; and once in
+    ``ops.route_launches`` under its route."""
     from ._build import load
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, S, heads, head_dim)")
@@ -49,17 +119,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k_pos is not None:
         ops.check("k_pos", k_pos, (B, Sk), (torch.int32,), dev)
     scale = scale if scale is not None else hd ** -0.5
+    which = route(q.dtype, B, Sq, Sk, H, KV, hd, hd_v, window,
+                  q_pos is not None or k_pos is not None)
+    if which != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"route {which} needs 16-byte aligned q, k and v")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
-    fn = load("flash_attention").repro_flash_attention
+    qp = None if q_pos is None else q_pos.data_ptr()
+    kp = None if k_pos is None else k_pos.data_ptr()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if q_pos is None else q_pos.data_ptr(),
-                 None if k_pos is None else k_pos.data_ptr(),
-                 B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
-                 float(scale), int(q.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        if which == "decode_split":
+            rows = Sq * (H // KV)
+            splits, chunk = plan_splits(B, KV, Sk, rows, sm_count(dev.index))
+            ws = torch.empty(B * KV * splits * rows * (hd_v + 2),
+                             dtype=torch.float32, device=dev)
+            err = load("attention_decode").repro_attention_decode_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,
+                kp, ws.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v, int(causal),
+                int(window), float(scale), is_bf16, splits, chunk, stream)
+        elif which == "prefill_tc":
+            err = load("attention_prefill_tc").repro_attention_prefill_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Sk, H, KV, hd, int(causal), int(window), float(scale),
+                stream)
+        else:
+            err = load("flash_attention").repro_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,
+                kp, B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
+                float(scale), is_bf16, stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"attention ({which}) launch failed: CUDA error "
+                           f"{err}")
     plain = window == 0 and q_pos is None and k_pos is None
     ops.launches["flash_attention" if plain else "attention_masked"] += 1
+    ops.route_launches[which] += 1
     return out

@@ -16,7 +16,9 @@ pass's applies, ``min_cover_lambdas`` those that price a front;
 explicit positions, ``flash_attention`` the plain (causal) ones;
 ``mamba_step`` the scan's launches from a given state (decode),
 ``mamba_scan`` those from zeros; ``grouped_matmul`` the expert-FFN
-products.
+products.  ``route_launches`` counts the attention calls again by the
+kernel that took them (``flash_attention.route``); ``reset_launches``
+zeroes both.
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
@@ -35,6 +37,8 @@ launches: dict[str, int] = {"front_dlam": 0, "min_cover_lambdas": 0,
                              "min_cover_apply": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0}
+route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
+                                  "cuda_core": 0}
 
 
 def force(which: str | None) -> None:
@@ -51,8 +55,9 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:

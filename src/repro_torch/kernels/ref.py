@@ -65,6 +65,63 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, splits: int, chunk: int, causal: bool = True,
+                        window: int = 0, q_pos: torch.Tensor | None = None,
+                        k_pos: torch.Tensor | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """The split-and-combine arithmetic of the ``decode_split`` kernel in
+    plain PyTorch, for the tests only (never on a path): split s of each
+    (batch, kv head) takes keys ``[s * chunk, (s + 1) * chunk)``; a split
+    where no row of its (batch, kv head) has a live key gives m = -inf,
+    l = 0; else, per row, m its largest score (masked -1e30), l and acc the
+    sums of exp(score - m) and of their products with v.  The combine
+    weighs split s by exp(m_s - M), M the largest m, and divides by the
+    weighed l clamped at 1e-30 (0 where every split is dead).  Arguments
+    as ``attention_ref``; f32 arithmetic, the result in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, hdv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=q.device).expand(B, Sq)
+    if k_pos is None:
+        k_pos = torch.arange(Sk, device=q.device).expand(B, Sk)
+    qf = q.reshape(B, Sq, KV, G, hd).float()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * scale
+    qp = q_pos[:, None, None, :, None]
+    kp = k_pos[:, None, None, None, :]
+    live = kp >= 0
+    if causal:
+        live = live & (qp >= kp)
+    if window:
+        live = live & ((qp - kp) < window)
+    live = live.expand_as(logits)
+    logits = torch.where(live, logits, torch.full_like(logits, -1e30))
+    vf = v.float()
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        sl = slice(s * chunk, min((s + 1) * chunk, Sk))
+        lg = logits[..., sl]
+        any_live = live[..., sl].flatten(2).any(dim=2)[..., None, None]
+        m = torch.where(any_live, lg.amax(dim=-1),
+                        torch.full_like(lg[..., 0], -torch.inf))
+        p = torch.where(any_live[..., None], torch.exp(lg - m[..., None]),
+                        torch.zeros_like(lg))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgqs,bskh->bkgqh", p, vf[:, sl]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    M = m.amax(dim=0)
+    dead = M == -torch.inf
+    w = torch.where(m == -torch.inf, torch.zeros_like(m),
+                    torch.exp(m - torch.where(dead, 0.0, M)))
+    den = (w * l).sum(dim=0).clamp_min(1e-30)
+    out = (w[..., None] * acc).sum(dim=0) / den[..., None]
+    out = torch.where(dead[..., None], torch.zeros_like(out), out)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv).to(q.dtype)
+
+
 def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
                    init_state: torch.Tensor | None = None

@@ -106,18 +106,47 @@ def no_tf32():
 
 
 ATTN_CASES = [
-    # (B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions)
-    (2, 70, 70, 6, 2, 16, 16, True, 0, None),        # ragged tiles, G = 3
-    (1, 33, 90, 5, 5, 64, 64, False, 0, None),       # not causal, Sq != Sk
-    (2, 130, 130, 5, 1, 32, 32, True, 24, None),     # sliding window, G = 5
-    (2, 1, 150, 10, 2, 64, 64, True, 0, "linear"),   # decode, linear cache
-    (2, 1, 64, 10, 2, 64, 64, True, 0, "ring"),      # decode, ring with pads
-    (1, 40, 40, 4, 2, 192, 128, True, 0, None),      # hd 192, hd_v 128
+    # (B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions, routes):
+    # routes is the kernel ``flash_attention.route`` picks in f32 and bf16
+    (2, 70, 70, 6, 2, 16, 16, True, 0, None,         # ragged tiles, G = 3
+     ("cuda_core", "cuda_core")),
+    (1, 33, 90, 5, 5, 64, 64, False, 0, None,        # not causal, Sq != Sk
+     ("cuda_core", "prefill_tc")),
+    (2, 130, 130, 5, 1, 32, 32, True, 24, None,      # sliding window, G = 5
+     ("cuda_core", "cuda_core")),
+    (2, 1, 150, 10, 2, 64, 64, True, 0, "linear",    # decode, linear cache
+     ("decode_split", "decode_split")),
+    (2, 1, 64, 10, 2, 64, 64, True, 0, "ring",       # decode, ring with pads
+     ("decode_split", "decode_split")),
+    (1, 40, 40, 4, 2, 192, 128, True, 0, None,       # hd 192, hd_v 128
+     ("cuda_core", "cuda_core")),
+    # the tensor-core prefill: Sq and Sk not multiples of 64, G 5 and 1
+    (2, 200, 200, 10, 2, 64, 64, True, 0, None,
+     ("cuda_core", "prefill_tc")),
+    (1, 150, 150, 4, 4, 128, 128, True, 0, None,
+     ("cuda_core", "prefill_tc")),
+    (1, 77, 190, 6, 6, 128, 128, False, 0, None,
+     ("cuda_core", "prefill_tc")),
+    # window edges inside a key tile
+    (2, 300, 300, 5, 1, 64, 64, True, 100, None,
+     ("cuda_core", "prefill_tc")),
+    (1, 260, 260, 2, 2, 128, 128, True, 70, None,
+     ("cuda_core", "prefill_tc")),
+    # split-K decode: G 1 and 5 at hd 128, a window, and a ring of 1000
+    # slots with 20 filled, so that its first splits are all padding
+    (2, 1, 333, 4, 4, 128, 128, True, 0, "linear",
+     ("decode_split", "decode_split")),
+    (1, 1, 517, 10, 2, 128, 128, True, 0, "linear",
+     ("decode_split", "decode_split")),
+    (2, 1, 300, 8, 8, 64, 64, True, 50, "linear",
+     ("decode_split", "decode_split")),
+    (2, 1, 1000, 4, 2, 64, 64, True, 0, "ring",
+     ("decode_split", "decode_split")),
 ]
 
 
 def _attn_inputs(case, dtype, dev):
-    B, Sq, Sk, H, KV, hd, hdv, causal, window, kind = case
+    B, Sq, Sk, H, KV, hd, hdv, causal, window, kind, _ = case
     g = torch.Generator(device=dev).manual_seed(Sq * 7 + Sk)
     q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
@@ -145,10 +174,38 @@ def test_attention_kernel_matches_plain_version(cuda, no_tf32, case, dtype):
     plain = kw["window"] == 0 and kw["q_pos"] is None
     assert ops.launches["flash_attention"] == int(plain)
     assert ops.launches["attention_masked"] == int(not plain)
+    taken = case[-1][dtype == torch.bfloat16]
+    assert ops.route_launches == {r: int(r == taken)
+                                  for r in ops.route_launches}
     want = ref.attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == want.shape
     tol = _ATOL[dtype]["attn"]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_fully_masked_rows_are_zero(cuda, dtype):
+    """A (batch, kv head) whose keys are all padding reads no split and
+    writes 0; its neighbour, with live keys, matches the plain version."""
+    B, Sk, H, KV, hd = 2, 300, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    qp = torch.full((B, 1), Sk - 1, dtype=torch.int32, device=cuda)
+    kp = torch.arange(Sk, dtype=torch.int32, device=cuda).repeat(B, 1)
+    kp[0] = -1                                     # batch row 0: all padding
+    ops.reset_launches()
+    got = ops.attention(q, k, v, causal=True, q_pos=qp, k_pos=kp)
+    torch.cuda.synchronize()
+    assert ops.route_launches["decode_split"] == 1
+    assert bool((got[0] == 0).all())
+    want = ref.attention_ref(q[1:], k[1:], v[1:], causal=True, q_pos=qp[1:],
+                             k_pos=kp[1:].contiguous())
+    tol = _ATOL[dtype]["attn"]
+    torch.testing.assert_close(got[1:].float(), want.float(), rtol=tol,
+                               atol=tol)
 
 
 def _scan_inputs(B, S, di, N, dtype, dev, seed):
