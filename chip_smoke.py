@@ -11,9 +11,9 @@ placement (``launch.serve.serve``).  Phases, in order; any failure
 propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
-   print the build time, what ``ptxas`` reports for the two newest
-   attention kernels (registers, shared memory, spills) and the card's
-   name and power limit;
+   print the build time, what ``ptxas`` reports for the attention and
+   grouped-matmul kernels (registers, shared memory, spills) and the
+   card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the gain kernels at the shapes the partitioning path gives
    them (exact equality), attention and the selective scan at hymba's
@@ -21,7 +21,12 @@ propagates and the exit code is nonzero:
    and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
    products of the plain versions.  Each attention row names its route
    (``flash_attention.route``: ``prefill_tc``, ``decode_split`` or
-   ``cuda_core``) and asserts that the call took it;
+   ``cuda_core``) and asserts that the call took it, as each grouped-matmul
+   row does with ``moe_gmm.route`` (``gmm_tc``, ``gmv``, ``cuda_core``).
+   The grouped matmul also runs fill-aware: slot fills from a seeded
+   uniform top-8 routing (4 x 2048 tokens for prefill, 4 for decode), rows
+   past each fill exact zeros, the bound counted over the live rows and
+   slots, ``torch.bmm`` timed on the full buffers;
 3. the device-resident pass on ``large_row_net(8192)``, P = 8:
    ``fm_refine`` then ``replicate_local_search`` on CUDA against the host
    (numpy) path -- equal masks and cost, counter bounds; then one FM pass
@@ -45,7 +50,8 @@ propagates and the exit code is nonzero:
    each, bf16): the placement's lambda-costs and min-cover launches,
    prefill seconds, decode ms per token, tokens/s, peak memory, launches
    per counter (exactly as expected: three grouped products per MoE layer
-   and call) and one device->host copy per profiled decode step.  Then
+   and call, prefill on ``gmm_tc`` and decode on ``gmv``, never
+   ``cuda_core``) and one device->host copy per profiled decode step.  Then
    the same weights in f32: each layer's MoE block on the same input
    through the kernel and the plain version within ``MODEL_TOL`` (the
    routing is then identical, so this isolates the kernel), and prefill
@@ -64,14 +70,15 @@ attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, plus one for the
 ``cuda_core`` route with the launches of phase 6's f32 kernel path (the
-bf16 runs never take it); the scan
-``mamba_scan`` (from zeros) apart from ``mamba_step`` (decode, from a
-state); each count is timed at its commonest shape on the path.  The min-cover kernel has two counts:
-``min_cover_lambdas`` where it prices a front (the Pallas kernel's role)
-and ``min_cover_apply`` where the device pass recomputes the lambdas of a
-committed move's edges; each is timed at its own commonest shape.  The
-grouped matmul is timed at its commonest shape (decode) and at olmoe's
-prefill shape.  A
+bf16 runs never take it); the grouped matmul likewise has one entry per
+route of the serve runs (``gmm_tc``, ``gmv``) timed at its fill-aware
+case, and one for ``cuda_core`` with the launches of phase 7's f32
+checks; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
+(decode, from a state); each count is timed at its commonest shape on the
+path.  The min-cover kernel has two counts: ``min_cover_lambdas`` where
+it prices a front (the Pallas kernel's role) and ``min_cover_apply``
+where the device pass recomputes the lambdas of a committed move's edges;
+each is timed at its own commonest shape.  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -124,6 +131,10 @@ KERNEL_OF = {"front_dlam": "front_dlam",
 SOURCES = {"front_dlam": "gain", "min_cover_lambdas": "gain",
            "flash_attention": "flash_attention", "mamba_scan": "mamba_scan",
            "grouped_matmul": "moe_gmm"}
+# grouped-matmul route -> its source; the routes of the bf16 serve runs
+GMM_SOURCES = {"gmm_tc": "moe_gmm_tc", "gmv": "moe_gmm",
+               "cuda_core": "moe_gmm"}
+GMM_PATH = ("gmm_tc", "gmv")
 # attention route -> its source
 ATTN_SOURCES = {"prefill_tc": "attention_prefill_tc",
                 "decode_split": "attention_decode",
@@ -314,16 +325,22 @@ SCAN_CASES = [
     ("prefill", "mamba_scan", 4, 2048, 3200, 16, False, True),
     ("decode", "mamba_step", 4, 1, 3200, 16, True, True),
 ]
-# (name, G, C, D, F, on the path): olmoe's expert products, 64 slots --
-# gate/up (D 2048 -> F 1024) and down (1024 -> 2048) -- at decode (C = 1)
-# and prefill (C = 2560), and one odd shape
+# (name, G, C, D, F, on the path, routed tokens): olmoe's expert
+# products, 64 slots -- gate/up (D 2048 -> F 1024) and down (1024 ->
+# 2048) -- at decode (C = 1) and prefill (C = 2560), and one odd shape;
+# the ``_fill`` cases hand the kernel the slot fills of that many tokens
+# routed top-8 uniformly at random (None: every row live)
 GMM_CASES = [
-    ("decode_gate_up", 64, 1, 2048, 1024, True),
-    ("decode_down", 64, 1, 1024, 2048, True),
-    ("prefill_gate_up", 64, 2560, 2048, 1024, True),
-    ("prefill_down", 64, 2560, 1024, 2048, True),
-    ("odd", 8, 37, 96, 80, False),
+    ("decode_gate_up", 64, 1, 2048, 1024, True, None),
+    ("decode_down", 64, 1, 1024, 2048, True, None),
+    ("prefill_gate_up", 64, 2560, 2048, 1024, True, None),
+    ("prefill_down", 64, 2560, 1024, 2048, True, None),
+    ("odd", 8, 37, 96, 80, False, None),
+    ("prefill_gate_up_fill", 64, 2560, 2048, 1024, True, 4 * 2048),
+    ("prefill_down_fill", 64, 2560, 1024, 2048, True, 4 * 2048),
+    ("decode_fill", 64, 1, 2048, 1024, True, 4),
 ]
+GMM_TOP_K = 8
 
 
 def attn_key(q, k, v, window: int) -> tuple:
@@ -466,39 +483,76 @@ def check_scan(case, dtype_name: str, seed: int) -> dict:
     return row
 
 
-def check_gmm(case, dtype_name: str, seed: int) -> dict:
-    """The grouped-matmul kernel against its plain version at one shape;
-    timed with the plain version and ``torch.bmm`` (``library_ms``) where
-    on the path."""
+def uniform_fills(G: int, C: int, tokens: int, seed: int):
+    """(G,) int32 slot fills of ``tokens`` tokens that each pick
+    ``GMM_TOP_K`` distinct slots uniformly at random (a seeded router),
+    each fill clamped to the capacity ``C`` as the dispatch does."""
     import torch
-    from repro_torch.kernels import ops, ref
-    name, G, C, D, F, on_path = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.rand((tokens, G), generator=g, device=dev).topk(
+        GMM_TOP_K, dim=1).indices.reshape(-1)
+    counts = torch.zeros(G, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    return counts.clamp(max=C).to(torch.int32)
+
+
+def check_gmm(case, dtype_name: str, seed: int) -> dict:
+    """The grouped-matmul kernel of the case's route against its plain
+    version at one shape, with the case's fills (rows past a fill exact
+    zeros); timed with the plain version and ``torch.bmm`` on the full
+    buffers (``library_ms``) where on the path."""
+    import torch
+    from repro_torch.kernels import moe_gmm, ops, ref
+    name, G, C, D, F, on_path, tokens = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((G * C, D), generator=g, device=dev).to(dtype)
     w = (torch.randn((G, D, F), generator=g, device=dev)
          * D ** -0.5).to(dtype)
+    fills = None if tokens is None else uniform_fills(G, C, tokens, seed)
 
     def run():
-        return ops.grouped_matmul_aligned(x, w, C)
+        return ops.grouped_matmul_aligned(x, w, C, fills)
 
     def plain():
-        return ref.grouped_matmul_aligned_ref(x, w, C)
+        return ref.grouped_matmul_aligned_ref(x, w, C, fills)
+    route = moe_gmm.route(dtype, C, D, F)
+    ops.reset_launches()
     got, want = run(), plain()
     torch.cuda.synchronize()
+    taken = {r: c for r, c in ops.gmm_route_launches.items() if c}
+    if taken != {route: 1}:
+        raise AssertionError(f"grouped_matmul {name} {dtype_name}: routes "
+                             f"{taken}, expected {route}")
     tol = MODEL_TOL[("gmm", dtype_name)]
     ok, err = rel_ok(got, want, tol)
     if not ok:
         raise AssertionError(f"grouped_matmul {name} {dtype_name}: kernel "
                              f"!= plain within {tol} (max abs err {err})")
-    flops = 2 * G * C * D * F
-    nbytes = got.element_size() * (x.numel() + w.numel() + got.numel())
+    live_rows, live_slots = G * C, G
+    if fills is not None:
+        past = torch.arange(C, device=dev)[None, :] >= fills[:, None]
+        if not bool((got.view(G, C, F)[past] == 0).all()):
+            raise AssertionError(f"grouped_matmul {name} {dtype_name}: rows "
+                                 "past the fills are not exact zeros")
+        live_rows = int(fills.sum())
+        live_slots = int((fills > 0).sum())
+    # the live rows' products; x's live rows and the live slots' weights
+    # read once (and the fills), every output row written once
+    flops = 2 * live_rows * D * F
+    nbytes = got.element_size() * (live_rows * D + live_slots * D * F
+                                   + got.numel())
+    if fills is not None:
+        nbytes += 4 * G
     rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
     t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     n = 10 if C < 64 else 2      # a prefill-shaped call takes milliseconds
-    row = {"case": name, "counter": "grouped_matmul", "dtype": dtype_name,
-           "shape": [G, C, D, F], "key": (G, C, D, F),
+    row = {"case": name, "counter": "grouped_matmul", "route": route,
+           "dtype": dtype_name, "shape": [G, C, D, F], "key": (G, C, D, F),
+           "fill": fills is not None, "live_rows": live_rows,
+           "live_slots": live_slots,
            "max_abs_err": err, "tol": tol, "ms": graph_ms(run, n, 2),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -516,8 +570,8 @@ def check_gmm(case, dtype_name: str, seed: int) -> dict:
 class ModelShapes:
     """Counts the model kernels' launches of a driven run by (counter,
     shape key, dtype), to time each counter at its commonest shape, and
-    the attention calls by (counter, route, shape key, dtype) in
-    ``routes``."""
+    the attention and grouped-matmul calls by (counter, route, shape key,
+    dtype) in ``routes``."""
 
     def __init__(self) -> None:
         from repro_torch.kernels import flash_attention as fa
@@ -547,10 +601,12 @@ class ModelShapes:
                          str(u.dtype))] += 1
             return real_ms(u, dt, A, Bc, Cc, D, init_state=init_state)
 
-        def gmm(x, w, capacity):
-            self.shapes[("grouped_matmul", (w.shape[0], capacity)
-                         + tuple(w.shape[1:]), str(x.dtype))] += 1
-            return real_mg(x, w, capacity)
+        def gmm(x, w, capacity, fills=None):
+            key = (w.shape[0], capacity) + tuple(w.shape[1:])
+            self.shapes[("grouped_matmul", key, str(x.dtype))] += 1
+            route = mg.route(x.dtype, capacity, *w.shape[1:])
+            self.routes[("grouped_matmul", route, key, str(x.dtype))] += 1
+            return real_mg(x, w, capacity, fills)
 
         fa.flash_attention, ms.mamba_scan = attention, scan
         mg.grouped_matmul = gmm
@@ -567,7 +623,8 @@ def commonest(shapes: Counter, counter: str) -> tuple:
 
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` output, one line per kernel: its name (the
-    template arguments kept), registers, shared memory and spills."""
+    template arguments kept), registers, shared memory and spills; and
+    every warning (e.g. wgmma serialized by ptxas) as it is."""
     import re
     out, name, spill = [], None, ""
     for line in log.splitlines():
@@ -575,6 +632,8 @@ def ptxas_summary(log: str) -> list:
                       r"(\w*)'", line)
         if m:
             name = m.group(1) + m.group(2)[:40]
+        elif "warning" in line.lower():
+            out.append(line.strip())
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -846,6 +905,17 @@ def check_routes(routes: dict, launches: dict, model: str) -> None:
                              f"for {calls} calls")
 
 
+def check_gmm_routes(routes: dict, launches: dict, n_moe: int,
+                     G: int) -> None:
+    """A bf16 serve run's grouped products: prefill (three per MoE layer)
+    on ``gmm_tc``, every decode step's on ``gmv``, none on ``cuda_core``."""
+    want = {"gmv": 3 * n_moe * (G - 1), "gmm_tc": 3 * n_moe, "cuda_core": 0}
+    if (routes != want
+            or sum(routes.values()) != launches["grouped_matmul"]):
+        raise AssertionError(f"serve: grouped-matmul routes {routes}, "
+                             f"expected {want}")
+
+
 def check_result(hg, P, eps, res) -> None:
     """Valid, balanced masks whose recomputed cost is the reported one."""
     from repro_torch.core.partition.cost import is_valid, partition_cost
@@ -872,7 +942,8 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
-    libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values()))
+    libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values())
+                  | set(GMM_SOURCES.values()))
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
@@ -1045,6 +1116,9 @@ def main() -> int:
     res = serve(cfg, B6, S6, G6, device="cuda", seed=0)
     peak6 = torch.cuda.max_memory_allocated()
     r6 = dict(ops.route_launches)
+    if any(ops.gmm_route_launches.values()):
+        raise AssertionError(f"hymba ran grouped products: "
+                             f"{ops.gmm_route_launches}")
     shapes6, routes6 = Counter(shapes.shapes), Counter(shapes.routes)
     l6 = {c: res.launches[c] for c in MODEL_COUNTERS}
     check_routes(r6, l6, "hymba")
@@ -1120,9 +1194,12 @@ def main() -> int:
                  placement="replicated")
     peak7 = torch.cuda.max_memory_allocated()
     r7 = dict(ops.route_launches)
+    g7 = dict(ops.gmm_route_launches)
     shapes7, routes7 = Counter(shapes.shapes), Counter(shapes.routes)
     l7 = {c: res7.launches[c] for c in MODEL_COUNTERS}
     check_routes(r7, l7, "olmoe")
+    n_moe7 = sum(sg.n_layers for sg in cfg7.segments if sg.kind == "moe")
+    check_gmm_routes(g7, l7, n_moe7, G7)
     if res7.tokens.shape != (B7, G7) or not (
             (res7.tokens >= 0) & (res7.tokens < cfg7.vocab)).all():
         raise AssertionError(f"bad generated tokens {res7.tokens.shape}")
@@ -1141,8 +1218,8 @@ def main() -> int:
         f"{B7} prompts x {S7} tokens, {G7} new each; prefill "
         f"{res7.prefill_s:.4f} s, decode {res7.ms_per_token:.4f} ms/token, "
         f"{res7.tokens_per_s:.2f} tok/s, max_memory_allocated {peak7} B; "
-        f"launches {l7}; attention routes {r7}; sample "
-        f"{res7.tokens[0][:8].tolist()}")
+        f"launches {l7}; attention routes {r7}; grouped-matmul routes "
+        f"{g7}; sample {res7.tokens[0][:8].tolist()}")
     prompts7 = torch.from_numpy(make_prompts(cfg7, B7, S7, 0)).cuda()
     forced7 = torch.from_numpy(res7.tokens[:, :3]).cuda()
     model = make_model(cfg7, device="cuda", seed=0)
@@ -1158,11 +1235,17 @@ def main() -> int:
     del model, kern, plain
     torch.cuda.empty_cache()
     model = make_model(cfg7.with_(dtype="float32"), device="cuda", seed=0)
+    ops.reset_launches()
     layer_errs = moe_layer_check(model, prompts7)
     log(f"[7] f32 MoE block per layer on one input, kernel vs plain: max "
         f"abs err {max(layer_errs):.6g} (a2a and tp, {len(layer_errs)} "
         f"checks within {MODEL_TOL[('gmm', 'float32')]})")
     kern = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
+    g7_f32 = dict(ops.gmm_route_launches)     # the f32 checks' products
+    log(f"[7] f32 checks (MoE blocks, prefill + 3 decode steps): "
+        f"grouped-matmul routes {g7_f32}")
+    if not (g7_f32["cuda_core"] and g7_f32["gmv"]) or g7_f32["gmm_tc"]:
+        raise AssertionError(f"f32 grouped-matmul routes {g7_f32}")
     plain = logits_through(model, prompts7, forced7, "ref", S7 + G7)
     if not (torch.isfinite(kern).all()
             and kern.shape == (B7, 4, cfg7.vocab)):
@@ -1205,7 +1288,8 @@ def main() -> int:
     summary["p7"] = {
         "prefill_s": sig(res7.prefill_s), "ms_per_token": sig(
             res7.ms_per_token), "tok_s": sig(res7.tokens_per_s),
-        "peak_B": peak7, "launches": l7, "routes": r7,
+        "peak_B": peak7, "launches": l7, "routes": r7, "gmm_routes": g7,
+        "f32_gmm_routes": g7_f32,
         "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
         "plan_launches": pl["launches"]["min_cover_lambdas"],
         "layer_err": sig(max(layer_errs)), "f32_gap": sig(gap32 / scale32),
@@ -1244,11 +1328,12 @@ def main() -> int:
     shapes_model = shapes6 + shapes7
     log(f"model kernel launch shapes (counter, key, dtype): count, phases "
         f"6+7: {dict(shapes_model.most_common(14))}")
-    def timed_row(counter, key, dt, route=None):
+    def timed_row(counter, key, dt, route=None, fill=False):
         rows = [r for r in model_rows if r["counter"] == counter
                 and r["dtype"] == dt.removeprefix("torch.")
                 and "plain_ms" in r and r["key"] == key
-                and route in (None, r.get("route"))]
+                and route in (None, r.get("route"))
+                and r.get("fill", False) == fill]
         if not rows:
             raise AssertionError(f"{counter} {route}: its commonest shape "
                                  f"{key} {dt} was not timed in phase 2")
@@ -1308,9 +1393,7 @@ def main() -> int:
         "replaces": REPLACES["flash_attention"],
         "launches": r6_f32["cuda_core"],
         "launches_from": "phase 6, f32 kernel path", **row_fields(row)})
-    for name in MODEL_COUNTERS:
-        if name in ("flash_attention", "attention_masked"):
-            continue
+    for name in ("mamba_scan", "mamba_step"):
         key, dt = commonest(shapes_model, name)
         row = timed_row(name, key, dt)
         kernels.append({
@@ -1319,9 +1402,34 @@ def main() -> int:
                       f"{SOURCES[KERNEL_OF[name]]}.cu",
             "replaces": REPLACES[name], "launches": l6[name] + l7[name],
             **row_fields(row)})
-        if name == "grouped_matmul":      # also olmoe's prefill shape
-            kernels[-1].update(second("prefill_gate_up", row["dtype"],
-                                      "prefill"))
+    # grouped matmul: one entry per route of the bf16 serve runs, timed at
+    # the fill-aware case of its commonest path shape (the path hands the
+    # kernel the slot fills), the full buffers beside it; and cuda_core
+    # with the launches of phase 7's f32 checks
+    gmm_launches = dict(g7, cuda_core=g7_f32["cuda_core"])
+    for route in GMM_PATH + ("cuda_core",):
+        if route == "cuda_core":
+            key, dt = (64, 2560, 2048, 1024), "float32"
+        else:
+            key, dt = commonest(routes_model, ("grouped_matmul", route))
+        row = timed_row("grouped_matmul", key, dt, route, fill=True)
+        full = timed_row("grouped_matmul", key, dt, route)
+        kernels.append({
+            "name": f"grouped_matmul:{route}", "route": "cuda",
+            "gmm_route": route,
+            "source": f"src/repro_torch/kernels/csrc/{GMM_SOURCES[route]}.cu",
+            "replaces": REPLACES["grouped_matmul"],
+            "launches": gmm_launches[route], **row_fields(row),
+            "live_rows": row["live_rows"], "live_slots": row["live_slots"],
+            **{f"full_{k}": full[k] for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}})
+        if route == "cuda_core":
+            kernels[-1]["launches_from"] = "phase 7, f32 checks"
+        elif route == "gmm_tc":           # also the down product's shape
+            kernels[-1].update(second("prefill_down_fill", row["dtype"],
+                                      "down"))
+            kernels[-1].update(second("prefill_down", row["dtype"],
+                                      "down_full"))
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -43,9 +43,14 @@ SIGNATURES = {
         "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _P),
     },
-    # (x, w, y, G, C, D, F, is_bf16, stream)
+    # (x, w, y, fills, G, C, D, F, is_bf16, decode, stream)
     "moe_gmm": {
-        "repro_grouped_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "repro_grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P),
+    },
+    # (x, w, y, fills, G, C, D, F, ctas, stream)
+    "moe_gmm_tc": {
+        "repro_grouped_matmul_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     # (q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, stream)
     "attention_prefill_tc": {
@@ -62,7 +67,8 @@ SIGNATURES = {
 }
 # sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
 # shared memory and spills, kept per source in ``build_log``
-PTXAS_REPORT = ("attention_prefill_tc", "attention_decode")
+PTXAS_REPORT = ("attention_prefill_tc", "attention_decode", "moe_gmm_tc",
+                "moe_gmm")
 build_log: dict[str, str] = {}
 
 

@@ -1,5 +1,6 @@
 // Grouped matmul of the MoE expert FFN for NVIDIA Hopper (sm_90a), loaded
-// through ctypes.
+// through ctypes: the routes ``gmv`` (decode) and ``cuda_core`` of
+// ``kernels/moe_gmm.py``; bf16 prefill takes ``gmm_tc`` (moe_gmm_tc.cu).
 //
 // What it replaces: src/repro/kernels/moe_gmm.py::_kernel (the Pallas TPU
 // kernel behind ``grouped_matmul``).  The rows come in the block-aligned
@@ -7,38 +8,42 @@
 // rows, group g's rows multiply w[g] (D, F):
 //     y[g * C + r, :] = x[g * C + r, :] @ w[g]          (f32 accumulation)
 // x and w contiguous, both f32 or both bf16; y (G * C, F) in x's dtype.
-// Any C, D, F >= 1: the TPU kernel's ``capacity % block_rows == 0`` goes
-// away because a block's row tile never leaves its group (grid.z = group)
-// and the ragged edges are masked.
+// ``fills`` (G int32, or null for all C): rows r >= fills[g] of group g
+// are written as exact zeros and cost no product (the rows the dispatch
+// pads a slot with).  Any C, D, F >= 1: the TPU kernel's ``capacity %
+// block_rows == 0`` goes away because a block's row tile never leaves its
+// group (grid.z = group) and the ragged edges are masked.
 //
 // Bound on the card.  Decode (C = 1, G = 64, D = 2048, F = 1024 in bf16)
-// reads every slot's weights once for a handful of rows: 268 MB, 80 us at
-// 3.35 TB/s; the bytes bound it.  Prefill (C = 2560) is 687 GFLOP a call:
-// 0.69 ms at the 989 TFLOP/s bf16 tensor-core rate; the operations bound it.
+// reads every live slot's weights once for a handful of rows: 268 MB with
+// every slot live, 80 us at 3.35 TB/s; the bytes bound it.
 //
-// Design, simple first.  Per block an output tile of one group; global
-// loads are 16-byte pieces (4 f32 or 8 bf16) where D and F allow, and
-// several are in flight per thread while the previous ones are used.
-// Three paths:
-//  * decode (C <= 16, ``gmv_kernel``): w streams from device memory
-//    straight into registers, each weight used once for a 4-row tile of
-//    x held in shared memory; 8 warps split K and meet in shared memory
-//    at the end.  CUDA-core FMAs in f32;
-//  * prefill in bf16 (C > 16, D and F multiples of 8,
-//    ``gmm_wmma_kernel``): tensor cores through wmma 16x16x16 bf16
-//    fragments with f32 accumulators, a 128 x 128 tile of 8 warps, x and
-//    w tiles staged in shared memory per K chunk of 32;
-//  * otherwise (f32, or ragged D/F, ``gmm_kernel``): CUDA-core FMAs in
-//    f32, a 128 x 128 tile of 256 threads with 8 x 8 accumulators each,
-//    tiles staged in shared memory as f32 per K chunk of 8.
-// The f32 paths never touch the tensor cores, so no TF32 either.  wgmma
-// with TMA and skipping row tiles past a slot's fill are later work.
+// Design.  Global loads are 16-byte pieces (4 f32 or 8 bf16) where D and F
+// allow; two paths:
+//  * decode (C <= 16, ``gmv_kernel``): a block takes ROWS rows (1 where
+//    C = 1, else 4) of one slot and 64 bf16 (32 f32) columns, so a slot's
+//    weights spread over 16-32 blocks and a few live slots still fill the
+//    card; a slot whose fill is 0 writes its zeros and never reads w[g].
+//    w streams from device memory straight into registers, each weight
+//    used once per row: 8 lanes of a warp cover the columns (128-byte
+//    rows) and the 32 lane groups of the block split K, each with 4
+//    pieces in flight; with 64 registers four blocks fit an SM, ~64 KB in
+//    flight against HBM's latency.  x is read beside w, no staging and no
+//    barrier before the reduction.  (Of 2-32 lanes on the columns, 2-16
+//    pieces in flight and x staged in shared memory or not, this measured
+//    fastest on the card, full and at a decode fill.)  Partial sums meet
+//    in a fixed order (shuffles within a warp, then shared memory), so
+//    results are deterministic.  CUDA-core FMAs in f32;
+//  * otherwise (f32 prefill, or ragged D/F, ``gmm_kernel``): CUDA-core
+//    FMAs in f32, a 128 x 128 tile of 256 threads with 8 x 8 accumulators
+//    each, tiles staged in shared memory as f32 per K chunk of 8; a row
+//    tile past its group's fill writes zeros and exits.
+// The f32 paths never touch the tensor cores, so no TF32 either.
 // Launches go on the caller's stream and never synchronise; the launcher
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -50,6 +55,21 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// the live rows of group g: fills[g] clamped to [0, C], or C without fills
+__device__ __forceinline__ int group_fill(const int* fills, int g, int C) {
+  return fills == nullptr ? C : min(max(fills[g], 0), C);
+}
+
+// zeros over rows [r0, min(r0 + rows, C)) and columns [n0, min(n0 + cols,
+// F)) of group g's output: a tile past the group's fill
+template <typename T>
+__device__ void zero_tile(T* yg, int r0, int rows, int n0, int cols, int C,
+                          int F) {
+  const int nr = min(rows, C - r0), nc = min(cols, F - n0);
+  for (int i = threadIdx.x; i < nr * nc; i += blockDim.x)
+    store(yg + static_cast<size_t>(r0 + i / nc) * F + n0 + i % nc, 0.f);
 }
 
 // a piece: the 16 bytes at p (16-byte aligned) as f32, 4 or 8 elements
@@ -95,7 +115,8 @@ __device__ __forceinline__ void fetch_piece(const T* p, int valid,
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool VEC>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ y, int C, int D, int F) {
+           T* __restrict__ y, const int* __restrict__ fills, int C, int D,
+           int F) {
   constexpr int NTX = BN / TN;               // threads along the columns
   constexpr int NTY = BM / TM;               // threads along the rows
   constexpr int NT = NTX * NTY;
@@ -116,6 +137,12 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int n0 = blockIdx.x * BN;
   const T* xg = x + static_cast<size_t>(g) * C * D;
   const T* wg = w + static_cast<size_t>(g) * D * F;
+  T* yg = y + static_cast<size_t>(g) * C * F;
+  const int fill = group_fill(fills, g, C);
+  if (r0 >= fill) {                          // a dead tile: zeros, no loads
+    zero_tile(yg, r0, BM, n0, BN, C, F);
+    return;
+  }
 
   float xr[XV][L], wr[WV][L];
   auto fetch = [&](int k0) {
@@ -123,7 +150,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < XV; ++j) {
       const int idx = tid + j * NT;
       const int r = idx / (BK / L), k = k0 + (idx % (BK / L)) * L;
-      const bool ok = idx < XVECS && r0 + r < C && k < D;
+      const bool ok = idx < XVECS && r0 + r < fill && k < D;
       fetch_piece<VEC>(ok ? xg + static_cast<size_t>(r0 + r) * D + k : xg,
                        ok ? D - k : 0, xr[j]);
     }
@@ -185,7 +212,6 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
   }
 
-  T* yg = y + static_cast<size_t>(g) * C * F;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = r0 + ty + i * NTY;
@@ -193,201 +219,119 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * NTX;
-      if (n < F) store(yg + static_cast<size_t>(r) * F + n, acc[i][j]);
+      if (n < F)
+        store(yg + static_cast<size_t>(r) * F + n, r < fill ? acc[i][j] : 0.f);
     }
   }
 }
 
-// The decode path (C <= 16): a product of a 4-row tile with w, w read
-// straight into registers, no staging.  Lane l of each warp owns the
-// piece of columns n0 + l * L .. + L; the 8 warps split K (warp j takes
-// rows j, j + 8, ...), each with 8 pieces in flight, and the x rows come
-// from shared memory (one broadcast per row and k).  The warps' partial
-// sums meet in shared memory at the end, in a fixed order.
-constexpr int kGvRows = 4, kGvWarps = 8, kGvKC = 512, kGvUnroll = 8;
+// The decode path (C <= 16): a product of a ROWS-row tile with BN =
+// kGvLanesN pieces of columns of w, read straight into registers with no
+// staging and no barrier before the reduction.  Lane l of a warp owns the
+// piece n0 + (l % kGvLanesN) * L .. + L; the block's lane groups split K,
+// group j taking rows j, j + kGvKLanes, ..., each with kGvUnroll pieces in
+// flight, and load the x values of their rows beside them (the lanes of a
+// group read the same address: one broadcast, from L2 after the first
+// block).  The partial sums meet first within a warp (shuffles over the
+// lane bits above the column lanes), then over the 8 warps in shared
+// memory, in a fixed order.
+constexpr int kGvThreads = 256, kGvLanesN = 8, kGvUnroll = 4;
+constexpr int kGvKLanes = kGvThreads / kGvLanesN;   // lane groups on K
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kGvWarps * 32)
+template <typename T, int ROWS, bool VEC>
+__global__ void __launch_bounds__(kGvThreads, ROWS == 1 ? 3 : 2)
 gmv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ y, int C, int D, int F) {
+           T* __restrict__ y, const int* __restrict__ fills, int C, int D,
+           int F) {
   constexpr int L = Piece<T>::kLen;
-  constexpr int BN = 32 * L;                 // columns per block
-  __shared__ float xs[kGvRows][kGvKC];       // a K chunk of the x rows
-  __shared__ float red[kGvWarps][kGvRows][BN];
+  constexpr int BN = kGvLanesN * L;          // columns per block
+  constexpr int WARPS = kGvThreads / 32;
+  __shared__ float red[WARPS][ROWS][BN];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nl = tid % kGvLanesN, kl = tid / kGvLanesN;
   const int g = blockIdx.z;
-  const int r0 = blockIdx.y * kGvRows, n0 = blockIdx.x * BN;
-  const int n = n0 + lane * L;
+  const int r0 = blockIdx.y * ROWS, n0 = blockIdx.x * BN;
+  const int n = n0 + nl * L;
   const T* xg = x + static_cast<size_t>(g) * C * D;
   const T* wg = w + static_cast<size_t>(g) * D * F;
+  T* yg = y + static_cast<size_t>(g) * C * F;
+  const int fill = group_fill(fills, g, C);
+  if (r0 >= fill) {                          // an empty slot: w is not read
+    zero_tile(yg, r0, ROWS, n0, BN, C, F);
+    return;
+  }
+  const int rows = min(ROWS, fill - r0);     // live rows of the tile
 
-  float acc[kGvRows][L];
+  float acc[ROWS][L];
 #pragma unroll
-  for (int r = 0; r < kGvRows; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
     for (int i = 0; i < L; ++i) acc[r][i] = 0.f;
 
-  for (int kc = 0; kc < D; kc += kGvKC) {
-    const int klen = min(kGvKC, D - kc);
-    __syncthreads();                         // the last chunk is read
-    for (int i = tid; i < kGvRows * kGvKC; i += kGvWarps * 32) {
-      const int r = i / kGvKC, k = i % kGvKC;
-      xs[r][k] = (r0 + r < C && k < klen)
-                     ? to_f32(xg[static_cast<size_t>(r0 + r) * D + kc + k])
-                     : 0.f;
+  for (int k = kl; k < D; k += kGvKLanes * kGvUnroll) {
+    float wv[kGvUnroll][L], xv[kGvUnroll][ROWS];
+#pragma unroll
+    for (int u = 0; u < kGvUnroll; ++u) {
+      const int kk = k + u * kGvKLanes;
+      const bool ok = kk < D && n < F;
+      fetch_piece<VEC>(ok ? wg + static_cast<size_t>(kk) * F + n : wg,
+                       ok ? F - n : 0, wv[u]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        xv[u][r] = kk < D && r < rows
+                       ? to_f32(xg[static_cast<size_t>(r0 + r) * D + kk])
+                       : 0.f;
     }
-    __syncthreads();
-    for (int k = warp; k < klen; k += kGvWarps * kGvUnroll) {
-      float wv[kGvUnroll][L];
 #pragma unroll
-      for (int u = 0; u < kGvUnroll; ++u) {
-        const int kk = k + u * kGvWarps;
-        const bool ok = kk < klen && n < F;
-        fetch_piece<VEC>(ok ? wg + static_cast<size_t>(kc + kk) * F + n : wg,
-                         ok ? F - n : 0, wv[u]);
-      }
+    for (int u = 0; u < kGvUnroll; ++u)
 #pragma unroll
-      for (int u = 0; u < kGvUnroll; ++u) {
-        const int kk = k + u * kGvWarps;
-        if (kk < klen) {
+      for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-          for (int r = 0; r < kGvRows; ++r) {
-            const float xv = xs[r][kk];
-#pragma unroll
-            for (int i = 0; i < L; ++i)
-              acc[r][i] = fmaf(xv, wv[u][i], acc[r][i]);
-          }
-        }
-      }
-    }
+        for (int i = 0; i < L; ++i)
+          acc[r][i] = fmaf(xv[u][r], wv[u][i], acc[r][i]);
   }
 
+  // the lane groups of a warp, then the 8 warps, in a fixed order
 #pragma unroll
-  for (int r = 0; r < kGvRows; ++r)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int i = 0; i < L; ++i) red[warp][r][lane * L + i] = acc[r][i];
+    for (int i = 0; i < L; ++i) {
+      float v = acc[r][i];
+#pragma unroll
+      for (int off = kGvLanesN; off < 32; off <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < kGvLanesN) red[warp][r][nl * L + i] = v;
+    }
   __syncthreads();
-  T* yg = y + static_cast<size_t>(g) * C * F;
-  for (int o = tid; o < kGvRows * BN; o += kGvWarps * 32) {
+  for (int o = tid; o < ROWS * BN; o += kGvThreads) {
     const int r = o / BN, c = o % BN;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kGvWarps; ++j) sum += red[j][r][c];
+    for (int j = 0; j < WARPS; ++j) sum += red[j][r][c];
     if (r0 + r < C && n0 + c < F)
-      store(yg + static_cast<size_t>(r0 + r) * F + n0 + c, sum);
+      store(yg + static_cast<size_t>(r0 + r) * F + n0 + c,
+            r < rows ? sum : 0.f);
   }
 }
 
-// The wide bf16 path on tensor cores: wmma 16x16x16 bf16 fragments with
-// f32 accumulators.  A block of 8 warps computes a 128 x 128 tile of one
-// group, each warp 32 x 64 (2 x 4 fragments); K is walked in chunks of 32,
-// x and w tiles staged in shared memory as bf16 (rows padded by 8 against
-// bank conflicts), the next chunk's 16-byte loads held in registers during
-// the products.  Each accumulator fragment leaves through a per-warp f32
-// staging tile, cast to bf16 and masked at the ragged edges.  Needs D and
-// F multiples of 8 and 16-byte aligned pointers.
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 32, kTcPad = 8;
-
-__global__ void __launch_bounds__(256)
-gmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ y, int C, int D, int F) {
-  namespace wm = nvcuda::wmma;
-  __shared__ __align__(32) __nv_bfloat16 xs[kTcBM][kTcBK + kTcPad];
-  __shared__ __align__(32) __nv_bfloat16 ws[kTcBK][kTcBN + kTcPad];
-  __shared__ __align__(32) float stage[8][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;    // 4 x 2 warps of 32 x 64
-  const int g = blockIdx.z;
-  const int r0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  const __nv_bfloat16* xg = x + static_cast<size_t>(g) * C * D;
-  const __nv_bfloat16* wg = w + static_cast<size_t>(g) * D * F;
-
-  // each tile is 512 pieces of 8 bf16: two per thread
-  uint4 xr[2], wrg[2];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = tid + j * 256;
-      const int r = idx / (kTcBK / 8), kx = k0 + (idx % (kTcBK / 8)) * 8;
-      xr[j] = (r0 + r < C && kx < D)
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        xg + static_cast<size_t>(r0 + r) * D + kx))
-                  : zero;
-      const int kw = k0 + idx / (kTcBN / 8), n = n0 + (idx % (kTcBN / 8)) * 8;
-      wrg[j] = (kw < D && n < F)
-                   ? __ldg(reinterpret_cast<const uint4*>(
-                         wg + static_cast<size_t>(kw) * F + n))
-                   : zero;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = tid + j * 256;
-      *reinterpret_cast<uint4*>(
-          &xs[idx / (kTcBK / 8)][(idx % (kTcBK / 8)) * 8]) = xr[j];
-      *reinterpret_cast<uint4*>(
-          &ws[idx / (kTcBN / 8)][(idx % (kTcBN / 8)) * 8]) = wrg[j];
-    }
-  };
-
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[i][j], 0.f);
-
-  fetch(0);
-  for (int k0 = 0; k0 < D; k0 += kTcBK) {
-    stash();
-    __syncthreads();
-    if (k0 + kTcBK < D) fetch(k0 + kTcBK);   // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < kTcBK; kk += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, wm::row_major>
-          a[2];
-      wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, wm::row_major>
-          b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wm::load_matrix_sync(a[i], &xs[wr * 32 + i * 16][kk], kTcBK + kTcPad);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wm::load_matrix_sync(b[j], &ws[kk][wc * 64 + j * 16], kTcBN + kTcPad);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wm::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  __nv_bfloat16* yg = y + static_cast<size_t>(g) * C * F;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wm::store_matrix_sync(stage[warp], acc[i][j], 16, wm::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = r0 + wr * 32 + i * 16 + e / 16;
-        const int n = n0 + wc * 64 + j * 16 + e % 16;
-        if (r < C && n < F)
-          store(yg + static_cast<size_t>(r) * F + n, stage[warp][e]);
-      }
-      __syncwarp();
-    }
-  }
+template <typename T, int ROWS>
+void launch_gmv(const T* x, const T* w, T* y, const int* fills, int G, int C,
+                int D, int F, bool vec, cudaStream_t stream) {
+  constexpr int BN = kGvLanesN * Piece<T>::kLen;
+  const dim3 grid((F + BN - 1) / BN, (C + ROWS - 1) / ROWS, G);
+  if (vec)
+    gmv_kernel<T, ROWS, true><<<grid, kGvThreads, 0, stream>>>(
+        x, w, y, fills, C, D, F);
+  else
+    gmv_kernel<T, ROWS, false><<<grid, kGvThreads, 0, stream>>>(
+        x, w, y, fills, C, D, F);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* w, void* y, int G, int C,
-                     int D, int F, cudaStream_t stream) {
+cudaError_t dispatch(const void* x, const void* w, void* y, const int* fills,
+                     int G, int C, int D, int F, bool decode,
+                     cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
@@ -395,46 +339,38 @@ cudaError_t dispatch(const void* x, const void* w, void* y, int G, int C,
   const bool vec = D % L == 0 && F % L == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (C <= 16) {   // decode: 4-row tiles, 32 pieces of columns a block
-    const dim3 grid((F + 32 * L - 1) / (32 * L),
-                    (C + kGvRows - 1) / kGvRows, G);
-    if (vec)
-      gmv_kernel<T, true><<<grid, kGvWarps * 32, 0, stream>>>(
-          xt, wt, yt, C, D, F);
+  if (decode) {
+    if (C == 1)
+      launch_gmv<T, 1>(xt, wt, yt, fills, G, C, D, F, vec, stream);
     else
-      gmv_kernel<T, false><<<grid, kGvWarps * 32, 0, stream>>>(
-          xt, wt, yt, C, D, F);
+      launch_gmv<T, 4>(xt, wt, yt, fills, G, C, D, F, vec, stream);
     return cudaGetLastError();
   }
-  if constexpr (sizeof(T) == 2) {   // wide bf16: tensor cores (wmma)
-    if (vec) {
-      const dim3 grid((F + kTcBN - 1) / kTcBN, (C + kTcBM - 1) / kTcBM, G);
-      gmm_wmma_kernel<<<grid, 256, 0, stream>>>(xt, wt, yt, C, D, F);
-      return cudaGetLastError();
-    }
-  }
-  // wide on CUDA cores: 128 x 128, 256 threads of 8 x 8
+  // 128 x 128 tiles, 256 threads of 8 x 8
   const dim3 grid((F + 127) / 128, (C + 127) / 128, G);
   if (vec)
     gmm_kernel<T, 128, 128, 8, 8, 8, true><<<grid, 256, 0, stream>>>(
-        xt, wt, yt, C, D, F);
+        xt, wt, yt, fills, C, D, F);
   else
     gmm_kernel<T, 128, 128, 8, 8, 8, false><<<grid, 256, 0, stream>>>(
-        xt, wt, yt, C, D, F);
+        xt, wt, yt, fills, C, D, F);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (G*C, D), w (G, D, F) -> y (G*C, F); the wrapper checks the shapes,
-// G <= 65535 and the row-tile count.
+// x (G*C, D), w (G, D, F) -> y (G*C, F); ``fills`` null or G int32;
+// ``decode`` picks the gmv path (C <= 16), else the CUDA-core tiles.  The
+// wrapper checks the shapes, G <= 65535 and the row-tile count.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* y,
-                                    int G, int C, int D, int F, int is_bf16,
+                                    const void* fills, int G, int C, int D,
+                                    int F, int is_bf16, int decode,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (G == 0 || C == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  const int* f = static_cast<const int*>(fills);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(x, w, y, G, C, D, F, s)
-              : dispatch<float>(x, w, y, G, C, D, F, s);
+      is_bf16 ? dispatch<__nv_bfloat16>(x, w, y, f, G, C, D, F, decode != 0, s)
+              : dispatch<float>(x, w, y, f, G, C, D, F, decode != 0, s);
   return static_cast<int>(err);
 }

@@ -1,30 +1,64 @@
-"""Grouped matmul of the MoE expert FFN on the card: the wrapper of
-``csrc/moe_gmm.cu``.
+"""Grouped matmul of the MoE expert FFN on the card: the wrappers of the
+three grouped-matmul kernels and the choice between them.
 
-The kernel replaces the JAX package's Pallas ``grouped_matmul``: rows in
+The kernels replace the JAX package's Pallas ``grouped_matmul``: rows in
 the block-aligned layout of the dispatch buffers, ``y[g*C + r] = x[g*C + r]
-@ w[g]``, accumulated in f32.  It takes any capacity ``C`` (the TPU
-kernel wanted ``C`` a multiple of its row block): decode gives C = 1 and
-takes a path that streams the weights, prefill a tiled one (tensor cores
-in bf16).
+@ w[g]``, accumulated in f32.  They take any capacity ``C`` (the TPU
+kernel wanted ``C`` a multiple of its row block), and an optional
+``fills`` (G,) int32: rows ``r >= fills[g]`` of group g come out as exact
+zeros and cost no product, the rows the dispatch pads a slot with.
 ``ops.grouped_matmul_aligned`` dispatches here for CUDA tensors;
-``ref.grouped_matmul_aligned_ref`` is the plain version.
+``ref.grouped_matmul_aligned_ref`` is the plain version.  Routes, chosen
+by ``route`` from the dtype and the shapes alone:
+
+- ``gmv`` (``csrc/moe_gmm.cu``): ``C <= DECODE_ROWS``, f32 or bf16 --
+  decode, bound by the weight bytes; a slot with no live row reads none;
+- ``gmm_tc`` (``csrc/moe_gmm_tc.cu``): bf16, ``C > DECODE_ROWS``, D and F
+  multiples of 8 (TMA's 16-byte strides) -- wgmma on the tensor cores,
+  tiles by TMA, dead row tiles skipped;
+- ``cuda_core`` (``csrc/moe_gmm.cu``): the rest (f32 prefill, ragged D or
+  F) on CUDA cores.
+
+A kernel that fails to build or launch raises; no route falls back to
+another or to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ops
+from .flash_attention import sm_count
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID = 65535          # grid.y and grid.z of a launch
-_ROWS_PER_TILE = {True: 4, False: 128}   # C <= 16 (decode path), else
+DECODE_ROWS = 16           # the largest capacity of the ``gmv`` route
+_GMV_ROWS = 4              # rows per block of ``gmv`` (at most)
+_CORE_TILE = 128           # rows per block of ``cuda_core``
+_TC_TILE = (128, 256)      # the output tile of ``gmm_tc``
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   capacity: int) -> torch.Tensor:
+def route(dtype, C: int, D: int, F: int) -> str:
+    """The kernel a grouped product of these shapes goes to (see the module
+    docstring); a pure function of the dtype and the shapes."""
+    if C <= DECODE_ROWS:
+        return "gmv"
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        return "gmm_tc"
+    return "cuda_core"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
+                   fills: torch.Tensor | None = None) -> torch.Tensor:
     """x (G * capacity, D) and w (G, D, F) on one CUDA device, contiguous,
-    both f32 or both bf16.  Returns (G * capacity, F) in x's dtype."""
+    both f32 or both bf16; ``fills`` None or (G,) int32 on the same
+    device.  Returns (G * capacity, F) in x's dtype.
+
+    Counts as ``grouped_matmul`` and once in ``ops.gmm_route_launches``
+    under its route."""
     from ._build import load
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError("x must be (G * capacity, D) and w (G, D, F)")
@@ -35,15 +69,37 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     dev = x.device
     ops.check("x", x, (G * C, D), _DTYPES, dev)
     ops.check("w", w, (G, D, F), (x.dtype,), dev)
-    if G > _MAX_GRID or -(-C // _ROWS_PER_TILE[C <= 16]) > _MAX_GRID:
-        raise ValueError(f"{G} groups of capacity {C}: over the grid limit")
+    if fills is not None:
+        ops.check("fills", fills, (G,), (torch.int32,), dev)
+    which = route(x.dtype, C, D, F)
+    if which == "gmm_tc":
+        tiles = G * _cdiv(C, _TC_TILE[0]) * _cdiv(F, _TC_TILE[1])
+        if tiles >= 2 ** 31:
+            raise ValueError(f"{tiles} output tiles: over the index range")
+        if any(t.data_ptr() % 16 for t in (x, w)):
+            raise ValueError("route gmm_tc needs 16-byte aligned x and w")
+    else:
+        rows = _GMV_ROWS if which == "gmv" else _CORE_TILE
+        if G > _MAX_GRID or _cdiv(C, rows) > _MAX_GRID:
+            raise ValueError(f"{G} groups of capacity {C}: over the grid "
+                             "limit")
     out = torch.empty((G * C, F), dtype=x.dtype, device=dev)
-    fn = load("moe_gmm").repro_grouped_matmul
+    fp = None if fills is None else fills.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), G, C, D, F,
-                 int(x.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        if which == "gmm_tc":
+            ctas = min(tiles, sm_count(dev.index))
+            err = load("moe_gmm_tc").repro_grouped_matmul_tc(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), fp, G, C, D, F,
+                ctas, stream)
+        else:
+            fn = load("moe_gmm").repro_grouped_matmul
+            err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), fp, G, C, D,
+                     F, int(x.dtype == torch.bfloat16), int(which == "gmv"),
+                     stream)
     if err:
-        raise RuntimeError(f"grouped_matmul launch failed: CUDA error {err}")
+        raise RuntimeError(f"grouped_matmul ({which}) launch failed: CUDA "
+                           f"error {err}")
     ops.launches["grouped_matmul"] += 1
+    ops.gmm_route_launches[which] += 1
     return out

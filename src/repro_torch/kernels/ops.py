@@ -17,8 +17,9 @@ explicit positions, ``flash_attention`` the plain (causal) ones;
 ``mamba_step`` the scan's launches from a given state (decode),
 ``mamba_scan`` those from zeros; ``grouped_matmul`` the expert-FFN
 products.  ``route_launches`` counts the attention calls again by the
-kernel that took them (``flash_attention.route``); ``reset_launches``
-zeroes both.
+kernel that took them (``flash_attention.route``), ``gmm_route_launches``
+the grouped products by theirs (``moe_gmm.route``); ``reset_launches``
+zeroes all three.
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
@@ -39,6 +40,7 @@ launches: dict[str, int] = {"front_dlam": 0, "min_cover_lambdas": 0,
                              "mamba_step": 0, "grouped_matmul": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "cuda_core": 0}
+gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "cuda_core": 0}
 
 
 def force(which: str | None) -> None:
@@ -55,7 +57,7 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    for counts in (launches, route_launches):
+    for counts in (launches, route_launches, gmm_route_launches):
         for name in counts:
             counts[name] = 0
 
@@ -107,10 +109,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
-                           capacity: int) -> torch.Tensor:
+                           capacity: int,
+                           fills: torch.Tensor | None = None) -> torch.Tensor:
     """Block-aligned groups, x (G * capacity, D) x w (G, D, F): the CUDA
-    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``."""
+    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``.
+    ``fills`` (G,) int32: rows at or past ``fills[g]`` of group g come out
+    as exact zeros (and the kernel skips their work)."""
     if use_kernel(x):
         from .moe_gmm import grouped_matmul as kernel_gmm  # imports ops
-        return kernel_gmm(x, w, capacity)
-    return ref.grouped_matmul_aligned_ref(x, w, capacity)
+        return kernel_gmm(x, w, capacity, fills)
+    return ref.grouped_matmul_aligned_ref(x, w, capacity, fills)

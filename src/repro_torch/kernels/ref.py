@@ -160,12 +160,20 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def grouped_matmul_aligned_ref(x: torch.Tensor, w: torch.Tensor,
-                               capacity: int) -> torch.Tensor:
+                               capacity: int,
+                               fills: torch.Tensor | None = None
+                               ) -> torch.Tensor:
     """The block-aligned layout of the MoE dispatch buffers: x (G *
     capacity, D), group g's rows times w[g] (D, F) -> (G * capacity, F),
     as the einsum ``scd,sdf->scf`` with f32 accumulation, cast to x's
-    dtype."""
+    dtype.  With ``fills`` (G,) integer, row r of group g is an exact zero
+    where ``r >= fills[g]``, whatever x holds there; the other rows are
+    unchanged."""
     G, D, F = w.shape
     xs = x.reshape(G, capacity, D).float()
     y = torch.einsum("scd,sdf->scf", xs, w.float())
+    if fills is not None:
+        rows = torch.arange(capacity, device=x.device)
+        live = rows[None, :] < fills[:, None]
+        y = torch.where(live[..., None], y, 0.0)
     return y.reshape(G * capacity, F).to(x.dtype)

@@ -12,7 +12,10 @@ fills static-capacity (n_slots, capacity, D) buffers, first come first
 served in (token, choice) order, and a choice past its slot's capacity is
 dropped (buffer row -1).  The expert FFN runs its three products on those
 buffers through ``ops.grouped_matmul_aligned``: the grouped-matmul kernel
-for CUDA tensors, three launches per call.  Nothing here reads the device
+for CUDA tensors, three launches per call.  The slot paths hand it each
+slot's fill (``slot_fills``), so the kernel skips the zero rows that pad a
+slot past its kept choices: their products are zeros either way, and the
+combine never reads them.  Nothing here reads the device
 from the host: capacities are Python ints computed from shapes, and the
 dispatch uses no ``nonzero`` or boolean-mask indexing.
 
@@ -198,6 +201,18 @@ def sort_dispatch(xt: torch.Tensor, slot_ids: torch.Tensor,
     return xin, buf_of.reshape(T, k)
 
 
+def slot_fills(slot_ids: torch.Tensor, keep: torch.Tensor, n_slots: int,
+               capacity: int) -> torch.Tensor:
+    """(n_slots,) int32: the buffer rows of each slot that ``sort_dispatch``
+    fills, ``min(kept choices, capacity)``; choices with ``keep`` False are
+    not counted.  A scatter-add on the device: ``torch.bincount`` on CUDA
+    reads its input's maximum on the host."""
+    flat = torch.where(keep, slot_ids, n_slots).reshape(-1)
+    counts = torch.zeros(n_slots + 1, dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return counts[:n_slots].clamp(max=capacity)
+
+
 def combine_from_buffers(yout_flat: torch.Tensor, buf_of: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     """yout_flat (rows, D); buf_of (T, k) row ids (-1: dropped); w (T, k).
@@ -211,14 +226,18 @@ def combine_from_buffers(yout_flat: torch.Tensor, buf_of: torch.Tensor,
 
 
 def _expert_ffn(e_gate: torch.Tensor, e_up: torch.Tensor,
-                e_down: torch.Tensor, xin: torch.Tensor) -> torch.Tensor:
+                e_down: torch.Tensor, xin: torch.Tensor,
+                fills: torch.Tensor | None = None) -> torch.Tensor:
     """xin (n_slots, C, D) -> (n_slots, C, D) through each slot's SwiGLU:
-    three grouped products, each one kernel launch on the card."""
+    three grouped products, each one kernel launch on the card.  With
+    ``fills`` (``slot_fills``) the rows of slot g at or past ``fills[g]``
+    come out as zeros without being computed; on dispatch buffers, whose
+    such rows are zero, that is the same result."""
     S, C, D = xin.shape
     x2 = xin.reshape(S * C, D)
-    g = ops.grouped_matmul_aligned(x2, e_gate, C)
-    u = ops.grouped_matmul_aligned(x2, e_up, C)
-    y = ops.grouped_matmul_aligned(F.silu(g) * u, e_down, C)
+    g = ops.grouped_matmul_aligned(x2, e_gate, C, fills)
+    u = ops.grouped_matmul_aligned(x2, e_up, C, fills)
+    y = ops.grouped_matmul_aligned(F.silu(g) * u, e_down, C, fills)
     return y.reshape(S, C, D)
 
 
@@ -265,9 +284,11 @@ def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
     xt = x.reshape(-1, D)
     w, idx, aux = router_topk(p["router"], xt, cfg)
     keep = torch.ones_like(idx, dtype=torch.bool)       # slot = expert
-    xin, buf_of = sort_dispatch(xt, idx, keep, plan.slots_per_shard, cap)
+    n_slots = plan.slots_per_shard
+    xin, buf_of = sort_dispatch(xt, idx, keep, n_slots, cap)
+    fills = slot_fills(idx, keep, n_slots, cap)
     yout = _expert_ffn(p["e_gate_slots"], p["e_up_slots"],
-                       p["e_down_slots"], xin)
+                       p["e_down_slots"], xin, fills)
     y = combine_from_buffers(yout.reshape(-1, D), buf_of, w)
     y = y.reshape(B, S, D)
     if "w_gate" in p:
@@ -288,10 +309,11 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
     xt = x.reshape(-1, D)
     w, idx, aux = router_topk(p["router"], xt, cfg)
     is_local = torch.ones_like(idx, dtype=torch.bool)   # slot = expert
-    xin_l, buf_l = sort_dispatch(xt, idx, is_local, plan.slots_per_shard,
-                                 cap_local)
+    n_slots = plan.slots_per_shard
+    xin_l, buf_l = sort_dispatch(xt, idx, is_local, n_slots, cap_local)
+    fills = slot_fills(idx, is_local, n_slots, cap_local)
     yout_l = _expert_ffn(p["e_gate_slots"], p["e_up_slots"],
-                         p["e_down_slots"], xin_l)
+                         p["e_down_slots"], xin_l, fills)
     y = combine_from_buffers(yout_l.reshape(-1, D), buf_l, w)
     y = y.reshape(B, S, D)
     if "w_gate" in p:

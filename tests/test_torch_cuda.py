@@ -301,28 +301,52 @@ def test_serve_on_cuda_counts_every_model_kernel(cuda):
 # ----------------------------------------------------------- grouped matmul
 # f32 1e-5 (the summation order differs from the plain version's), bf16
 # 3e-2: tests/test_kernels.py's bounds.
+def _gmm_fills(kind, G, C, cuda):
+    """None, or per group a fill of 0, C and one that ends inside a row
+    tile (of ``gmm_tc``'s 128 rows where C > 128), in turn."""
+    if kind is None:
+        return None
+    partial = C - 5 if C > 128 else max(1, C // 2 + 3)
+    cycle = [0, C, partial]
+    return torch.tensor([cycle[g % 3] for g in range(G)],
+                        dtype=torch.int32, device=cuda)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("fills", [None, "edges"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,C,D,F", [
     (8, 1, 256, 128), (2, 3, 1100, 24), (3, 5, 33, 7),      # decode path
-    (5, 37, 96, 80), (4, 128, 64, 40), (3, 37, 33, 7)])     # wide paths
+    (5, 37, 96, 80), (4, 128, 64, 40), (3, 37, 33, 7),      # wide paths
+    (3, 200, 64, 256), (1, 37, 40, 24), (2, 300, 24, 264),  # gmm_tc edges
+    (3, 130, 136, 520)])
 def test_grouped_matmul_kernel_matches_plain_version(cuda, no_tf32, G, C,
-                                                     D, F, dtype):
-    """C <= 16 takes the decode path (D = 1100 spans three K chunks of
-    512), larger C the tiled paths (tensor cores for bf16); D = 33, F = 7
-    take the unvectorized loads."""
+                                                     D, F, dtype, fills):
+    """C <= 16 takes ``gmv`` (D = 1100 spans rows past a lane group's
+    unroll), larger C ``gmm_tc`` in bf16 with D and F multiples of 8 (C
+    200, 37, 300 and 130 leave a partial row tile, G = 1, D = 8 x odd, F =
+    24 a partial column box) and ``cuda_core`` otherwise; D = 33, F = 7
+    take the unvectorized loads.  With fills, the x rows past each fill
+    hold random values and must still come out as exact zeros."""
     g = torch.Generator(device=cuda).manual_seed(G * C + D)
     x = torch.randn((G * C, D), generator=g, device=cuda).to(dtype)
     w = (torch.randn((G, D, F), generator=g, device=cuda)
          / D ** 0.5).to(dtype)
+    fl = _gmm_fills(fills, G, C, cuda)
     ops.reset_launches()
-    got = ops.grouped_matmul_aligned(x, w, C)
+    got = ops.grouped_matmul_aligned(x, w, C, fl)
     torch.cuda.synchronize()
     assert ops.launches["grouped_matmul"] == 1
-    want = ref.grouped_matmul_aligned_ref(x, w, C)
+    route = moe_gmm.route(dtype, C, D, F)
+    assert {k: v for k, v in ops.gmm_route_launches.items() if v} == {
+        route: 1}
+    want = ref.grouped_matmul_aligned_ref(x, w, C, fl)
     assert got.dtype == dtype and got.shape == (G * C, F)
     tol = 1e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if fl is not None:
+        past = torch.arange(C, device=cuda)[None, :] >= fl[:, None]
+        assert bool((got.view(G, C, F)[past] == 0).all())
 
 
 @pytest.mark.cuda
@@ -340,6 +364,22 @@ def test_grouped_matmul_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         moe_gmm.grouped_matmul(x, w.transpose(1, 2).contiguous()
                                .transpose(1, 2), 3)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_rejects_bad_fills_and_misaligned_tc_inputs(cuda):
+    x = torch.randn((2 * 40, 16), device=cuda).bfloat16()
+    w = torch.randn((2, 16, 24), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="int32"):
+        moe_gmm.grouped_matmul(x, w, 40, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        moe_gmm.grouped_matmul(x, w, 40, torch.ones(
+            3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_gmm.grouped_matmul(x, w, 40, torch.ones(2, dtype=torch.int32))
+    xs = torch.empty(2 * 40 * 16 + 1, device=cuda).bfloat16()[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gmm.grouped_matmul(xs.view(2 * 40, 16), w, 40)
 
 
 @pytest.mark.cuda

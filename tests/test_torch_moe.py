@@ -30,7 +30,7 @@ from repro.kernels.moe_gmm import grouped_matmul as pallas_gmm  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.parallel import sharding  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import moe_gmm, ops, ref  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
@@ -218,6 +218,128 @@ def test_sort_dispatch_matches_jax(case):
     assert dropped[~keep].all()
 
 
+@pytest.mark.parametrize("case", DISPATCH_CASES)
+def test_slot_fills_count_the_rows_sort_dispatch_fills(case):
+    """``slot_fills`` is, slot by slot, the number of buffer rows that a
+    kept choice maps to in the JAX package's ``sort_dispatch``: dropped
+    choices (not kept, or past the capacity) are not counted."""
+    T, k, n_slots, cap, skew, keep_share = case
+    rng = np.random.default_rng(T * 100 + k + 1)
+    if skew:
+        slots = rng.choice([0, 1, 1, 0, 2], size=(T, k))
+    else:
+        slots = rng.integers(0, n_slots, size=(T, k))
+    keep = rng.random((T, k)) < keep_share
+    _, jbuf = jmoe.sort_dispatch(jnp.zeros((T, 4), jnp.float32),
+                                 jnp.asarray(slots), jnp.asarray(keep),
+                                 n_slots, cap)
+    rows = np.asarray(jbuf)
+    rows = rows[rows >= 0]
+    assert len(np.unique(rows)) == len(rows)       # one row per choice
+    want = np.bincount(rows // cap, minlength=n_slots)
+    got = moe.slot_fills(torch.from_numpy(slots), torch.from_numpy(keep),
+                         n_slots, cap)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+# (slot of each of the 21 choices, capacity, block_rows): slot 0 empty,
+# slot 1 over capacity (fill = C), slot 2 a fill that is not a multiple of
+# the row block, slot 3 short of one block
+FILL_CASES = [
+    ([1] * 10 + [2] * 7 + [3] * 3 + [1], 8, 4),
+    ([1] * 16 + [2] * 3 + [3] * 2, 16, 8),
+]
+
+
+def _dispatch_buffers(slots, cap, dtype, seed):
+    """Dispatch buffers (4 slots of ``cap`` rows, D 16) and their fills
+    from one choice per token; each package gets the same buffers."""
+    rng = np.random.default_rng(seed)
+    T = len(slots)
+    sl = torch.tensor(slots, dtype=torch.int64)[:, None]
+    keep = torch.ones_like(sl, dtype=torch.bool)
+    xt = torch.from_numpy(rng.normal(size=(T, 16)).astype(np.float32))
+    xin, _ = moe.sort_dispatch(xt, sl, keep, 4, cap)
+    fills = moe.slot_fills(sl, keep, 4, cap)
+    x, jx = _pair(xin.reshape(4 * cap, 16).numpy(), dtype)
+    return x, jx, fills
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FILL_CASES)
+def test_fill_aware_ref_matches_pallas_on_dispatch_buffers(case, dtype):
+    """On dispatch buffers the fill-aware plain version equals the Pallas
+    kernel (interpret mode) without fills: the rows past a fill are zero,
+    and so are their products."""
+    slots, cap, br = case
+    x, jx, fills = _dispatch_buffers(slots, cap, dtype, seed=cap)
+    assert fills.tolist()[0] == 0 and fills.tolist()[1] == cap
+    assert fills.tolist()[2] % br and fills.tolist()[3] < br
+    rng = np.random.default_rng(cap + 1)
+    w, jw = _pair(rng.normal(size=(4, 16, 24)), dtype)
+    want = pallas_gmm(jx, jw, cap, block_rows=br, block_cols=8, block_k=16,
+                      interpret=True)
+    got = ref.grouped_matmul_aligned_ref(x, w, cap, fills)
+    assert got.dtype == x.dtype and got.shape == (4 * cap, 24)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fill_aware_ref_zeroes_rows_past_the_fill(dtype):
+    """For any x the plain version with fills equals the Pallas kernel on
+    x whose rows past the fills are zeroed, and those rows are exact
+    zeros."""
+    G, C, D, F = 4, 8, 16, 24
+    rng = np.random.default_rng(21)
+    xa = rng.normal(size=(G * C, D))
+    fills = np.array([0, C, 5, 3], np.int32)
+    past = np.arange(C)[None, :] >= fills[:, None]          # (G, C)
+    xz = np.where(past.reshape(-1, 1), 0.0, xa)
+    x, _ = _pair(xa, dtype)
+    _, jxz = _pair(xz, dtype)
+    w, jw = _pair(rng.normal(size=(G, D, F)), dtype)
+    got = ref.grouped_matmul_aligned_ref(x, w, C, torch.from_numpy(fills))
+    want = pallas_gmm(jxz, jw, C, block_rows=4, block_cols=8, block_k=16,
+                      interpret=True)
+    assert bool((got.reshape(G, C, F)[torch.from_numpy(past)] == 0).all())
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_grouped_matmul_fills_dispatch_on_cpu():
+    """With fills a CPU tensor still takes the plain version, no route is
+    counted, and ``reset_launches`` zeroes the route counts."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.normal(size=(6, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(2, 8, 5)).astype(np.float32))
+    fills = torch.tensor([1, 3], dtype=torch.int32)
+    ops.gmm_route_launches["gmv"] = 5
+    ops.reset_launches()
+    got = ops.grouped_matmul_aligned(x, w, 3, fills)
+    assert torch.equal(got, ref.grouped_matmul_aligned_ref(x, w, 3, fills))
+    assert not any(ops.gmm_route_launches.values())
+    assert ops.launches["grouped_matmul"] == 0
+    assert bool((got[1:3] == 0).all()) and bool((got[0] != 0).all())
+
+
+@pytest.mark.parametrize("dtype,C,D,F,want", [
+    ("bfloat16", 1, 2048, 1024, "gmv"),          # olmoe decode gate/up
+    ("bfloat16", 1, 1024, 2048, "gmv"),          # olmoe decode down
+    ("float32", 1, 2048, 1024, "gmv"),
+    ("bfloat16", 2560, 2048, 1024, "gmm_tc"),    # olmoe prefill gate/up
+    ("bfloat16", 2560, 1024, 2048, "gmm_tc"),    # olmoe prefill down
+    ("float32", 2560, 2048, 1024, "cuda_core"),  # f32 prefill
+    ("bfloat16", 16, 64, 64, "gmv"),
+    ("bfloat16", 17, 40, 24, "gmm_tc"),
+    ("bfloat16", 37, 33, 80, "cuda_core"),       # D not a multiple of 8
+    ("bfloat16", 37, 96, 7, "cuda_core"),        # F not a multiple of 8
+])
+def test_gmm_route_is_a_function_of_dtype_and_shapes(dtype, C, D, F, want):
+    assert moe_gmm.route(getattr(torch, dtype), C, D, F) == want
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_combine_from_buffers_matches_jax(dtype):
     rng = np.random.default_rng(15)
@@ -274,6 +396,49 @@ def test_slot_paths_match_jax(one_device_mesh, mode, S, dtype):
                                                    mode))(jp, jx)
     _close(y, jy, dtype)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+def test_expert_ffn_with_fills_equals_without_on_dispatch_buffers():
+    """f32: the three fill-aware products give exactly the products of
+    the full buffers, the rows past each fill being zero either way."""
+    cfg, _ = _cfgs()
+    rng = np.random.default_rng(23)
+    tp, _ = _moe_params(cfg, rng, "float32")
+    E = cfg.n_experts
+    slots = torch.from_numpy(rng.integers(0, E, size=(9, 2)))
+    keep = torch.ones_like(slots, dtype=torch.bool)
+    xt = torch.from_numpy(rng.normal(size=(9, cfg.d_model)).astype(
+        np.float32))
+    xin, _ = moe.sort_dispatch(xt, slots, keep, E, 3)
+    fills = moe.slot_fills(slots, keep, E, 3)
+    assert 0 < int(fills.sum()) < E * 3
+    args = (tp["e_gate"], tp["e_up"], tp["e_down"], xin)
+    assert torch.equal(moe._expert_ffn(*args, fills),
+                       moe._expert_ffn(*args))
+
+
+@pytest.mark.parametrize("mode,S", [("a2a", 12), ("tp", 1), ("tp", 3)])
+def test_slot_paths_same_with_and_without_fills(monkeypatch, mode, S):
+    """f32: the slot paths hand ``_expert_ffn`` each slot's fill; without
+    it (every row computed) the outputs are exactly the same."""
+    cfg, _ = _cfgs()
+    rng = np.random.default_rng(24)
+    tp, _ = _moe_params(cfg, rng, "float32")
+    x = torch.from_numpy(rng.normal(size=(4, S, cfg.d_model)).astype(
+        np.float32))
+    plan = moe.round_robin_plan(cfg.n_experts, 1)
+    seen = []
+    real = moe._expert_ffn
+
+    def record(*a):
+        seen.append(a[-1])
+        return real(*a)
+    monkeypatch.setattr(moe, "_expert_ffn", record)
+    y, aux = moe.moe_apply(tp, x, cfg, plan, mode)
+    assert len(seen) == 1 and seen[0].dtype == torch.int32
+    monkeypatch.setattr(moe, "_expert_ffn", lambda *a: real(*a[:4]))
+    y0, aux0 = moe.moe_apply(tp, x, cfg, plan, mode)
+    assert torch.equal(y, y0) and float(aux) == float(aux0)
 
 
 def test_multi_shard_plans_wait_for_item_10():
