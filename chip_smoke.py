@@ -15,8 +15,13 @@ propagates and the exit code is nonzero:
    grouped-matmul kernels (registers, shared memory, spills) and the
    card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card and
-   time both: the gain kernels at the shapes the partitioning path gives
-   them (exact equality), attention and the selective scan at hymba's
+   time both: the min-cover kernel at the shapes the per-front path gives
+   it, and the device pass's fused find (``front_find``) at phase 3's
+   block shape -- 1, 8 and 64 active blocks, P 4 and 8, FM and
+   replication, one queued move to apply, with the pass's feasibility and
+   with none (a scan of every block) -- both exactly equal (the triple and
+   the buffers after the apply), the find timed beside its bound and an
+   empty cooperative launch on its grid (the latency floor); attention and the selective scan at hymba's
    and olmoe's serving shapes and the grouped matmul at olmoe's, in bf16
    and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
    products of the plain versions.  Each attention row names its route
@@ -29,12 +34,15 @@ propagates and the exit code is nonzero:
    slots, ``torch.bmm`` timed on the full buffers;
 3. the device-resident pass on ``large_row_net(8192)``, P = 8:
    ``fm_refine`` then ``replicate_local_search`` on CUDA against the host
-   (numpy) path -- equal masks and cost, counter bounds; then one FM pass
-   timed plain and under ``torch.profiler`` (where the time goes);
+   (numpy) path -- equal masks and cost, counter bounds, one find launch
+   and one read per find; then one FM pass timed plain and under
+   ``torch.profiler`` (where the time goes: one device->host read per
+   find, no PyTorch index, gather or scatter kernel);
 4. the per-front path on an MoE expert-placement instance (float weights,
    128 experts): ``partition_with_replication`` on CUDA against numpy;
 5. full size: ``partition_with_replication(large_row_net(32768))``, P = 8,
-   on CUDA, with its time, costs, counters and peak device memory;
+   on CUDA, with its time, costs, counters (one find launch and one read
+   per find), the queue and active blocks per find and peak device memory;
 6. serve ``hymba-1.5b`` at full width and depth: 4 prompts of 2048
    tokens, 32 new tokens each, in bf16; prefill seconds, decode ms per
    token, tokens/s, peak memory, launches per counter (each of the four
@@ -75,10 +83,11 @@ route of the serve runs (``gmm_tc``, ``gmv``) timed at its fill-aware
 case, and one for ``cuda_core`` with the launches of phase 7's f32
 checks; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
 (decode, from a state); each count is timed at its commonest shape on the
-path.  The min-cover kernel has two counts: ``min_cover_lambdas`` where
-it prices a front (the Pallas kernel's role) and ``min_cover_apply``
-where the device pass recomputes the lambdas of a committed move's edges;
-each is timed at its own commonest shape.  A
+path.  ``min_cover_lambdas`` (the per-front path) is timed at its
+commonest shape; ``front_find`` (the device pass's finds, which also take
+the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
+FM case nearest the path's median count of active blocks, with
+``path_ms``, its device time per launch in phase 3b's profile.  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -107,11 +116,11 @@ F32_FLOPS_PER_S = 67e12        # fp32 rate outside the tensor cores
 SCAN_OPS_PER_ELEM = 6          # per (t, d, n): dt*A, exp, two products and
                                # an add for the state, one FMA for y
 
-# file:line of the Pallas kernel each CUDA kernel replaces
+# file:line of the Pallas kernel each CUDA kernel replaces; the fused find
+# also takes the min-cover kernel's apply role (FIND_ALSO_REPLACES)
 REPLACES = {
-    "front_dlam": "src/repro/kernels/gain.py:78",
+    "front_find": "src/repro/kernels/gain.py:78",
     "min_cover_lambdas": "src/repro/kernels/gain.py:53",
-    "min_cover_apply": "src/repro/kernels/gain.py:53",
     "flash_attention": "src/repro/kernels/flash_attention.py:25",
     "attention_masked": "src/repro/kernels/flash_attention.py:25",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:24",
@@ -119,16 +128,16 @@ REPLACES = {
     "grouped_matmul": "src/repro/kernels/moe_gmm.py:23",
 }
 # launch counter -> the kernel it counts
-KERNEL_OF = {"front_dlam": "front_dlam",
+FIND_ALSO_REPLACES = "src/repro/kernels/gain.py:53"
+KERNEL_OF = {"front_find": "front_find",
              "min_cover_lambdas": "min_cover_lambdas",
-             "min_cover_apply": "min_cover_lambdas",
              "flash_attention": "flash_attention",
              "attention_masked": "flash_attention",
              "mamba_scan": "mamba_scan",
              "mamba_step": "mamba_scan",
              "grouped_matmul": "grouped_matmul"}
 # kernel -> its source, the name of its library in _build
-SOURCES = {"front_dlam": "gain", "min_cover_lambdas": "gain",
+SOURCES = {"front_find": "front_find", "min_cover_lambdas": "gain",
            "flash_attention": "flash_attention", "mamba_scan": "mamba_scan",
            "grouped_matmul": "moe_gmm"}
 # grouped-matmul route -> its source; the routes of the bf16 serve runs
@@ -224,7 +233,7 @@ def bound_ms(kernel: str, R: int, M: int) -> tuple[float, str]:
     """Least time for the work: each input read once, each output written
     once, over the memory rate; the masked-min operations over the
     32-bit rate.  The larger wins."""
-    nbytes = 4 * (R * M + M + R) + (4 * R if kernel == "front_dlam" else 0)
+    nbytes = 4 * (R * M + M + R)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEM * R * M / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -249,28 +258,20 @@ def kernel_inputs(R: int, P: int, seed: int):
     rows *= (torch.rand((R, M), generator=g, device=dev) > 0.05)
     rows[::7] = 1
     pc = torch.from_numpy(popcount_pc(P)).to(dev)
-    lam_old = torch.randint(0, P + 2, (R,), generator=g, device=dev,
-                            dtype=torch.int32)
-    return rows, pc, lam_old
+    return rows, pc
 
 
 def check_kernel(kernel: str, R: int, P: int, seed: int) -> dict:
     """Kernel against plain version at (R, 2^P): exact, then timed."""
     import torch
     from repro_torch.kernels import gain, ref
-    rows, pc, lam_old = kernel_inputs(R, P, seed)
-    if kernel == "front_dlam":
-        def run():
-            return gain.front_dlam(rows, pc, lam_old)
+    rows, pc = kernel_inputs(R, P, seed)
 
-        def plain():
-            return ref.front_dlam_ref(rows, pc, lam_old)
-    else:
-        def run():
-            return gain.min_cover(rows, pc)
+    def run():
+        return gain.min_cover(rows, pc)
 
-        def plain():
-            return ref.min_cover_ref(rows, pc)
+    def plain():
+        return ref.min_cover_ref(rows, pc)
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max().item())
@@ -285,6 +286,122 @@ def check_kernel(kernel: str, R: int, P: int, seed: int) -> dict:
     return {"kernel": kernel, "R": R, "M": 1 << P, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "call_ms": time_ms(run), "plain_call_ms": time_ms(plain)}
+
+
+def find_pass(hg, P: int, rep: bool, masks: np.ndarray, cap: float,
+              seed: int):
+    """A device pass on the card over ``hg`` from ``masks`` (for replication
+    with a second replica on every tenth node), its blocks cut for a
+    seeded visit order."""
+    from repro_torch.core.partition import PartitionState
+    from repro_torch.kernels import front_pass
+    rng = np.random.default_rng(seed)
+    masks = masks.copy()
+    if rep:
+        extra = rng.random(hg.n) < 0.1
+        masks[extra] |= 1 << rng.integers(0, P, size=int(extra.sum()))
+    st = PartitionState(hg, P, masks=masks)
+    dev = front_pass.attach(st, cap, device="cuda")
+    if dev is None:
+        raise AssertionError("the device pass did not attach")
+    dev._build_blocks(rng.permutation(hg.n))
+    return dev
+
+
+def find_bound(dev, blocks, pos: int, queue) -> tuple[float, str, dict]:
+    """Least time for one find from position 0: the bytes of every (node,
+    edge) uncov row the scan must price -- the positions of ``blocks`` up
+    to the event ``pos`` (all of them when there is none) -- with each
+    row's mu and lambda and the nodes' index, mask and feasibility entries,
+    plus the applied rows (read and written) and the work list, over the
+    memory rate; the masked-min operations (``OPS_PER_ELEM`` per column and
+    candidate) over the 32-bit rate.  The larger wins."""
+    P, M = dev.P, dev.nsub
+    poss = np.concatenate([np.arange(dev._bounds[b], dev._bounds[b + 1])
+                           for b in blocks]) if len(blocks) else np.zeros(0)
+    poss = poss[poss <= pos].astype(np.int64)
+    rows = int(dev.deg[dev._perm[poss]].sum())
+    nodes = len(poss)
+    applied = sum(int(dev.deg[v]) for v, old, new in queue if old != new)
+    nbytes = (rows * (4 * M + 12) + nodes * (16 + P)
+              + applied * (8 * M + 8) + 4 * (3 * len(queue) + 2 * len(blocks)
+                                              + 1) + 12)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_ELEM * rows * M * P / INT32_OPS_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound + ({"rows": rows, "nodes": nodes, "bytes": nbytes},)
+
+
+def check_find(dev, rep: bool, k: int, full_scan: bool, seed: int) -> dict:
+    """The fused find against its plain version on the pass's buffers: the
+    first ``k`` blocks active, one queued move (node v to another
+    processor, or a replica added), with the pass's feasibility or, for
+    ``full_scan``, none (no move fits, so FM scans every block).  Exact
+    equality of the triple and of uncov, lambdas and masks after the apply;
+    then both timed on alternating queues (the move, then its reversal), the
+    kernel as pure launches of pre-uploaded work lists in a CUDA graph, and
+    one eager call through the wrapper."""
+    import torch
+    from repro_torch.kernels import front_find as ff
+    rng = np.random.default_rng(seed)
+    P, n = dev.P, dev.n
+    blocks = np.arange(min(k, dev._nb))
+    x = dev._inputs()
+    if full_scan:
+        x.fits = torch.zeros_like(x.fits)
+    v = int(dev._perm[int(rng.integers(0, n))])
+    old = int(dev.state.masks[v])
+    unset = [q for q in range(P) if not (old >> q) & 1]
+    if rep:        # a replica added (or, on a full mask, one dropped)
+        new = old | (1 << unset[0]) if unset else old & (old - 1)
+    else:          # moved to the next processor
+        new = 1 << (old.bit_length() % P)
+    fwd, back = [(v, old, new)], [(v, new, old)]
+    kw = dict(rep=rep, start_pos=0, resume_p=-1, maxrep=P + 1)
+
+    def clone(t):
+        return ff.FindInputs(**{**t.__dict__, "uncov": t.uncov.clone(),
+                                "lam": t.lam.clone(), "masks": t.masks.clone()})
+    xk, xr = clone(x), clone(x)
+    got = ff.front_find(xk, fwd, blocks, **kw)
+    want = ff.front_find_ref(xr, fwd, blocks, **kw)
+    torch.cuda.synchronize()
+    same = got.tolist() == want.tolist() and all(
+        torch.equal(getattr(xk, f), getattr(xr, f))
+        for f in ("uncov", "lam", "masks"))
+    err = max(int((getattr(xk, f).long() - getattr(xr, f).long()).abs().max())
+              for f in ("uncov", "lam", "masks"))
+    err = max(err, max(abs(a - b) for a, b in zip(got.tolist(),
+                                                  want.tolist())))
+    if not same:
+        raise AssertionError(f"front_find P={P} rep={rep} k={k}: kernel "
+                             f"{got.tolist()} != plain {want.tolist()} "
+                             f"(max abs err {err})")
+    pos = got.tolist()[0]
+    # timing: the buffers go back and forth between the two states
+    work = [ff.upload_work(ff.pack_work(q, blocks, x.bounds_host),
+                           x.uncov.device).clone() for q in (fwd, back)]
+
+    def pair():
+        for w in work:
+            ff.launch(xk, w, 1, len(blocks), **kw)
+
+    def call_pair():
+        for q in (fwd, back):
+            ff.front_find(xk, q, blocks, **kw)
+
+    def plain_pair():
+        for q in (fwd, back):
+            ff.front_find_ref(xr, q, blocks, **kw)
+    ms = graph_ms(pair, launches=10) / 2
+    empty_ms = graph_ms(lambda: ff.empty_launch(P, rep, xk.uncov.device),
+                        launches=10)
+    b, by, work_of = find_bound(dev, blocks, pos, fwd)
+    return {"kernel": "front_find", "P": P, "rep": rep, "blocks": len(blocks),
+            "full_scan": full_scan, "triple": got.tolist(), **work_of,
+            "max_abs_err": err, "ms": ms, "empty_ms": empty_ms,
+            "plain_ms": time_ms(plain_pair, iters=5) / 2, "bound_ms": b,
+            "bound_by": by, "call_ms": time_ms(call_pair) / 2}
 
 
 def rel_ok(got, want, tol: float) -> tuple[bool, float]:
@@ -737,10 +854,12 @@ class Recorder:
     of every kernel launch (launch counts stay in ``ops.launches``)."""
 
     def __init__(self) -> None:
-        from repro_torch.kernels import front_pass, gain
+        from repro_torch.kernels import front_find, front_pass, gain
         self.passes: list = []
         self.shapes: Counter = Counter()   # (counter, R, M) -> launches
+        self.finds: Counter = Counter()    # (queued, active blocks) -> finds
         real_attach, real_launch = front_pass.attach, gain._launch
+        real_find = front_find.launch
 
         def attach(*a, **kw):
             dev = real_attach(*a, **kw)
@@ -748,16 +867,32 @@ class Recorder:
                 self.passes.append(dev)
             return dev
 
-        def launch(kernel, rows_perm, pc, lam_old, count_as):
-            self.shapes[(count_as,) + tuple(rows_perm.shape)] += 1
-            return real_launch(kernel, rows_perm, pc, lam_old, count_as)
+        def launch(rows_perm, pc):
+            self.shapes[("min_cover_lambdas",) + tuple(rows_perm.shape)] += 1
+            return real_launch(rows_perm, pc)
+
+        def find(x, work, Q, NA, **kw):
+            self.finds[(Q, NA)] += 1
+            return real_find(x, work, Q, NA, **kw)
 
         front_pass.attach, gain._launch = attach, launch
+        front_find.launch = find
 
     def reset(self) -> None:
         from repro_torch.kernels import ops
         self.passes.clear()
+        self.finds.clear()
         ops.reset_launches()
+
+    def find_shape(self) -> dict:
+        """Queued mutations and active blocks per find launch of the run."""
+        n = sum(self.finds.values())
+        q = [k[0] for k, c in self.finds.items() for _ in range(c)]
+        na = sorted(k[1] for k, c in self.finds.items() for _ in range(c))
+        return {"launches": n, "max_queue": max(q, default=0),
+                "mean_queue": sig(sum(q) / max(n, 1)),
+                "median_blocks": na[len(na) // 2] if na else 0,
+                "max_blocks": max(na, default=0)}
 
     def counters(self) -> dict:
         keys = ("commits", "finds", "syncs", "pass_scans",
@@ -765,15 +900,19 @@ class Recorder:
         return {k: sum(getattr(d, k) for d in self.passes) for k in keys}
 
 
-def check_bounds(passes, *, fused: bool) -> None:
+def check_bounds(passes, launches: dict) -> None:
+    """The device passes of one run: ``commits <= finds <= commits +
+    pass_scans``, one read per find, no apply outside a find, and one
+    launch of the fused find per find."""
     for d in passes:
         if not d.commits <= d.finds <= d.commits + d.pass_scans:
             raise AssertionError(f"finds bound broken: {vars_of(d)}")
-        if d.syncs < d.finds:
-            raise AssertionError(f"syncs < finds: {vars_of(d)}")
-        if fused and d.apply_dispatches:
-            raise AssertionError(f"pure sweep dispatched applies: "
+        if d.syncs != d.finds or d.apply_dispatches:
+            raise AssertionError(f"syncs != finds or a standalone apply: "
                                  f"{vars_of(d)}")
+    finds = sum(d.finds for d in passes)
+    if not finds or launches["front_find"] != finds or launches["front_apply"]:
+        raise AssertionError(f"{finds} finds, launches {launches}")
 
 
 def vars_of(d) -> dict:
@@ -824,17 +963,34 @@ def where_time_goes(hg, P, cap, m0) -> dict:
     if busy == 0:
         log("[3b] device busy time: not measured (no device events)")
         return out | {"busy_s": "not measured"}
-    # every device -> host copy is a blocking read the pass must count
+    # every device -> host copy is a blocking read the pass must count: one
+    # per find; and the pass runs the fused find and copies, nothing else
+    # of PyTorch's (no index, gather or scatter kernel)
     reads = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
-    if reads != counts["syncs"]:
+    if not reads == counts["syncs"] == counts["finds"]:
         raise AssertionError(f"{reads} device->host copies, but the pass "
-                             f"counted {counts['syncs']} syncs")
+                             f"counted {counts['syncs']} syncs and "
+                             f"{counts['finds']} finds")
+    torch_ops = [e.key for e in kern if any(
+        w in e.key.lower() for w in ("index", "gather", "scatter"))]
+    if torch_ops:
+        raise AssertionError(f"the pass ran PyTorch kernels {torch_ops}")
+    found = [e for e in kern if "front_find_kernel" in e.key]
+    launches = sum(e.count for e in found)
+    if launches != counts["finds"]:
+        raise AssertionError(f"{launches} find launches for "
+                             f"{counts['finds']} finds")
+    find_ms = sum(e.self_device_time_total for e in found) / 1e3
     log(f"[3b] device busy {busy:.4f} s = {busy / wall:.4f} of the "
         f"unprofiled pass; {reads} device->host reads; by kernel (name: "
         f"count, ms): " + "; ".join(
             f"{e.key[:60]}: {e.count}, {e.self_device_time_total / 1e3:.3f}"
             for e in top))
-    return out | {"busy_s": sig(busy), "busy_share": sig(busy / wall)}
+    return out | {"busy_s": sig(busy), "busy_share": sig(busy / wall),
+                  "find_ms_per_launch": sig(find_ms / launches),
+                  "h2d_per_find": sig(sum(
+                      e.count for e in kern
+                      if e.key.startswith("Memcpy HtoD")) / launches)}
 
 
 def moe_layer_check(model, prompts) -> list:
@@ -926,6 +1082,29 @@ def check_result(hg, P, eps, res) -> None:
         raise AssertionError(f"reported cost {res.cost} != recomputed {cost}")
 
 
+def find_entry(find_rows: list, launches: int, shape: dict,
+               p3b: dict) -> dict:
+    """The fused find's kernel-line entry: timed at phase 2's P = 8 FM case
+    (the pass's feasibility, an event to find) whose count of active blocks
+    is nearest the path's median, with the device time per launch that
+    phase 3b's profile measured on the path beside it."""
+    med = max(shape["median_blocks"], 1)
+    row = min((r for r in find_rows if r["P"] == 8 and not r["rep"]
+               and not r["full_scan"]),
+              key=lambda r: abs(np.log(r["blocks"] / med)))
+    return {"name": "front_find", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{SOURCES['front_find']}.cu",
+            "replaces": REPLACES["front_find"],
+            "also_replaces": FIND_ALSO_REPLACES, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in find_rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": [row["P"], row["blocks"]],
+            "call_ms": row["call_ms"], "empty_ms": row["empty_ms"],
+            "path_ms": p3b.get("find_ms_per_launch", "not measured")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -961,23 +1140,41 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # -------------------------------------------- 2. kernels vs plain
-    # front_dlam sees chunks of 1, 2, 4, ... row blocks (R_blk rows each);
     # min_cover_lambdas sees per-front chunks of up to _CHUNK_ELEMS / 2^P
-    # rows, and the device pass's applies one row per incident edge.
+    # rows; the fused find sees phase 3's blocks (R_blk rows each), the
+    # active ones from the current position on.
     timed: dict = {}
     hg8 = large_row_net(8192, seed=8192)
-    P = 8
+    P, eps = 8, 0.05
     dmax = int(np.diff(hg8.xinc).max())
     r_blk = max(front_pass._R_BLK_MIN, front_pass._pow2(P * dmax))
-    shapes = [("front_dlam", r_blk * k, p) for p in (4, 8)
-              for k in (1, 8, 64)]
-    shapes += [("min_cover_lambdas", r, p) for p in (4, 8)
-               for r in (dmax, 4096, 15625, r_blk * 64)]
+    shapes = [("min_cover_lambdas", r, p) for p in (4, 8)
+              for r in (dmax, 4096, 15625, r_blk * 64)]
     log(f"[2] kernels vs plain versions (R_blk = {r_blk} at P = 8)")
     for i, (kernel, R, p) in enumerate(shapes):
         row = check_kernel(kernel, R, p, seed=i)
         timed[(kernel, R, 1 << p)] = row
         log("    " + json.dumps(row))
+    find_rows: list = []
+    for p in (4, 8):
+        m0p = greedy_initial(hg8, p, eps, np.random.default_rng(0))
+        for rep in (False, True):
+            dev = find_pass(hg8, p, rep, m0p, capacity(hg8, p, eps) + 1e-9,
+                            seed=p + rep)
+            try:
+                for k in (1, 8, 64):
+                    for full in (False, True):
+                        find_rows.append(check_find(dev, rep, k, full,
+                                                    seed=len(find_rows)))
+                        log("    " + json.dumps(find_rows[-1]))
+            finally:
+                dev.detach()
+    summary["p2_find"] = {
+        f"P{r['P']}{'rep' if r['rep'] else 'fm'}k{r['blocks']}"
+        f"{'full' if r['full_scan'] else ''}": [
+            sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
+            sig(r["empty_ms"]), r["rows"]] for r in find_rows}
+    torch.cuda.empty_cache()
 
     # the model kernels at hymba's shapes; the f32 plain versions run their
     # products in full f32 (TF32 off for matmuls and cuDNN alike)
@@ -1009,7 +1206,6 @@ def main() -> int:
     rec = Recorder()
 
     # ------------------------------------ 3. device pass vs host path
-    eps = 0.05
     cap = capacity(hg8, P, eps) + 1e-9
     m0 = greedy_initial(hg8, P, eps, np.random.default_rng(0))
     out = {}
@@ -1031,10 +1227,7 @@ def main() -> int:
         raise AssertionError("device pass differs from the host path")
     if len(fmp) != 1 or len(allp) != 2:
         raise AssertionError(f"device pass did not attach: {len(allp)}")
-    check_bounds(fmp, fused=True)
-    check_bounds(allp, fused=False)
-    if lt["front_dlam"] == 0:
-        raise AssertionError("front_dlam never launched in phase 3")
+    check_bounds(allp, lt)
     check_result(hg8, P, eps, rn)
     log(f"[3] large_row_net(8192) P=8: fm+rep cost {rt.cost} equal on "
         f"cuda ({st_:.2f} s) and numpy ({sn:.2f} s); launches {lt}; "
@@ -1088,22 +1281,22 @@ def main() -> int:
     s5 = time.perf_counter() - t0
     l5 = dict(ops.launches)
     c5 = rec.counters()
+    find5 = rec.find_shape()
     peak = torch.cuda.max_memory_allocated()
     shapes5 = Counter(rec.shapes)
     check_result(hg5, P, eps, b5)
     check_result(hg5, P, eps, r5)
-    check_bounds(rec.passes, fused=False)
+    check_bounds(rec.passes, l5)
     if not r5.cost <= b5.cost:
         raise AssertionError("replication made the cost worse")
-    if l5["front_dlam"] == 0:
-        raise AssertionError("front_dlam never launched in phase 5")
     log(f"[5] large_row_net({n5}) P=8: {s5:.2f} s, base cost {b5.cost}, "
         f"replicated cost {r5.cost}, device passes {len(rec.passes)}, "
-        f"{c5}, syncs/commit {c5['syncs'] / max(c5['commits'], 1):.3f}, "
+        f"{c5}, syncs/commit {c5['syncs'] / max(c5['commits'], 1):.4f}, "
+        f"find launches {find5}, "
         f"launches {l5}, max_memory_allocated {peak} B")
     summary["p5"] = {"n": n5, "s": sig(s5), "base": b5.cost, "rep": r5.cost,
                      **c5, "syncs_per_commit": sig(c5["syncs"] / max(
-                         c5["commits"], 1)), "peak_B": peak}
+                         c5["commits"], 1)), "peak_B": peak, "finds": find5}
 
     # ------------------------------------------------ 6. serve hymba-1.5b
     from repro_torch.configs import get_config
@@ -1307,6 +1500,10 @@ def main() -> int:
             continue
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+        if name == "front_find":
+            kernels.append(find_entry(find_rows, launches[name], find5,
+                                      summary["p3b"]))
+            continue
         # time each count's kernel at its most frequent shape on the path
         (_, R, M), _ = max(((s, c) for s, c in shapes_all.items()
                             if s[0] == name), key=lambda sc: sc[1])

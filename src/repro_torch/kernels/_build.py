@@ -27,10 +27,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the launchers, per source; each returns cudaError_t as int
 SIGNATURES = {
-    # (rows, pc, [lam_old,] out, R, M, stream)
+    # (rows, pc, out, R, M, stream)
     "gain": {
         "repro_min_cover": (_P, _P, _P, _I, _I, _P),
-        "repro_front_dlam": (_P, _P, _P, _P, _I, _I, _P),
+    },
+    # (uncov, lam, masks, mu, colsub, pc, fits, xinc, inc_edges, perm,
+    #  bounds, work, scratch, out, n, P, rep, Q, NA, start_pos, resume_p,
+    #  maxrep, stream); the empty launch: (P, rep, stream)
+    "front_find": {
+        "repro_front_find": (_P,) * 14 + (_I,) * 8 + (_P,),
+        "repro_front_find_empty": (_I, _I, _P),
     },
     # (q, k, v, o, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal, window,
     #  scale, is_bf16, stream)
@@ -68,7 +74,7 @@ SIGNATURES = {
 # sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
 # shared memory and spills, kept per source in ``build_log``
 PTXAS_REPORT = ("attention_prefill_tc", "attention_decode", "moe_gmm_tc",
-                "moe_gmm")
+                "moe_gmm", "front_find")
 build_log: dict[str, str] = {}
 
 

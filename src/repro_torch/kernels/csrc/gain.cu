@@ -1,25 +1,21 @@
-// Min-cover gain kernels for NVIDIA Hopper (sm_90a), loaded through ctypes.
+// Min-cover kernel for NVIDIA Hopper (sm_90a), loaded through ctypes.
 //
-// What they replace (the JAX package's Pallas TPU kernels):
-//   * repro_min_cover  <- src/repro/kernels/gain.py::_pallas_call
-//                         (``min_cover_lambdas``, the per-front path);
-//   * repro_front_dlam <- src/repro/kernels/gain.py::_pallas_dlam_call
-//                         (``front_dlam``, the device-resident find program).
+// What it replaces: src/repro/kernels/gain.py::_pallas_call
+// (``min_cover_lambdas``, the per-front path).  The device pass's find and
+// its applies run in ``front_find.cu`` instead.
 //
-// Both reduce one uncov row per (candidate, edge) pair: ``rows`` is (R, M)
+// It reduces one uncov row per (candidate, edge) pair: ``rows`` is (R, M)
 // int32 in popcount-column order (column 0 is the empty subset), ``pc`` the
 // (M,) popcounts with the no-cover sentinel 127 at column 0.  Per row
 //     lam = min over columns c of (rows[r, c] == 0 ? pc[c] : 127)
-// -- the masked-min formulation of the Pallas kernels.  The subsets with no
+// -- the masked-min formulation of the Pallas kernel.  The subsets with no
 // uncovered pin always include the full processor set, so the first zero in
 // popcount order equals this minimum; the kernel keeps the masked min and
-// never stops at the first zero.  front_dlam additionally emits
-//     relu(lam - 1) - relu(lam_old[r] - 1).
+// never stops at the first zero.
 //
 // Bound on the card: the work is a handful of integer operations per loaded
-// element, so both kernels are memory-bound.  Bytes moved are R*M*4 (rows)
-// + M*4 (pc) + R*4 (lam out) for min_cover and R*M*4 + M*4 + R*8 (lam_old
-// in, dlam out) for front_dlam, over the HBM rate (3.35 TB/s on an H100 SXM).
+// element, so the kernel is memory-bound.  Bytes moved are R*M*4 (rows)
+// + M*4 (pc) + R*4 (lam out), over the HBM rate (3.35 TB/s on an H100 SXM).
 //
 // Design: one warp per row, eight rows per 256-thread block.  The lanes
 // stride over the M columns, so each step of the warp loads 128 contiguous
@@ -29,7 +25,7 @@
 // (P <= 4) the upper lanes idle.  The row index is uniform across a warp,
 // so the early exit past the last row never splits a warp before the
 // full-mask shuffles.  Launches go on the caller's stream and never
-// synchronise; each launcher returns cudaGetLastError().
+// synchronise; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -65,17 +61,6 @@ min_cover_kernel(const int* __restrict__ rows, const int* __restrict__ pc,
   if (lane == 0) out[r] = lam;
 }
 
-__global__ void __launch_bounds__(kThreads)
-front_dlam_kernel(const int* __restrict__ rows, const int* __restrict__ pc,
-                  const int* __restrict__ lam_old, int* __restrict__ out,
-                  int R, int M) {
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarpSize);
-  const int lane = threadIdx.x % kWarpSize;
-  if (r >= R) return;
-  const int lam = row_min_cover(rows + static_cast<size_t>(r) * M, pc, M, lane);
-  if (lane == 0) out[r] = max(lam - 1, 0) - max(lam_old[r] - 1, 0);
-}
-
 unsigned grid_for(int R) {
   return static_cast<unsigned>((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -89,16 +74,5 @@ extern "C" int repro_min_cover(const void* rows, const void* pc, void* out,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rows), static_cast<const int*>(pc),
       static_cast<int*>(out), R, M);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_front_dlam(const void* rows, const void* pc,
-                                const void* lam_old, void* out, int R, int M,
-                                void* stream) {
-  if (R <= 0) return 0;
-  front_dlam_kernel<<<grid_for(R), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const int*>(pc),
-      static_cast<const int*>(lam_old), static_cast<int*>(out), R, M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,13 @@
 
 The engine's state stays resident on the device across an entire
 refinement pass: an int32 mirror of ``uncov`` (columns in popcount order),
-the edge lambdas and the node masks.  The whole per-visit pipeline -- row
-gather, popcount-ordered masked-min lambda pricing (the ``front_dlam``
-CUDA kernel), integer cost reduction, winner argmin -- runs on the device,
-and the host reads back one (position, kind, processor) triple per
-committed move, applies the move to both the host engine and the device
-mirror, and re-enters the scan at the next position.
+the edge lambdas and the node masks.  The whole per-visit pipeline -- the
+queued applies, row pricing by popcount-ordered masked min, integer cost
+sums, winner selection -- is one ``front_find`` call: on the card one
+launch of the hand-written kernel in ``csrc/front_find.cu``.  The host
+reads back one (position, kind, processor) triple per committed move,
+applies the move to the host engine (which queues it for the device
+mirror), and re-enters the scan at the next position.
 
 Correctness contract (property-tested against the numpy frontier path):
 
@@ -17,42 +18,41 @@ Correctness contract (property-tested against the numpy frontier path):
     ``delta <= -1``;  drop ``delta <= 1e-12``  <=>  ``delta <= 0``), and
     ``argmin``/``argmax`` pick the first extremum on both sides -- so the
     committed trajectory equals the numpy frontier path's, move for move.
-    Integer sums make the ``index_add_`` segment sums order-free, so the
-    card's atomics are exact.  Non-integer weights take the per-front path.
+    Integer sums are order-free, so the card's parallel sums are exact.
+    Non-integer weights take the per-front path.
   * **Feasibility stays on the host.**  Capacity tests compare float64
     loads exactly as ``PartitionState.fits`` does; the host uploads the
     (n + 1, P) feasibility mask whenever a load changed, so no device
     float compare can flip a knife-edge decision.
-  * **The scan.**  Candidate fronts are the flat (pair, edge) expansion --
-    for each visited node, P candidate masks x its incident edges -- packed
-    into fixed blocks (``R_blk`` rows, ``R_blk // P`` node slots, a node
-    never split) in visit order.  A block is active when one of its nodes
-    was boundary at pass start or was dirtied by a committed move; the host
-    knows which, so a find evaluates only the active blocks from the
-    current position on, in chunks of 1, 2, 4, ... blocks (capped at
-    ``_CHUNK_BYTES`` of materialized rows).  Each chunk is one batched
-    gather, one kernel launch, one segment sum and one masked argmin,
-    ending in one blocking read; the find stops at the first chunk with an
-    event.  State does not change inside a find, so this gives the first
-    hit of a block-by-block scan exactly.
+  * **The scan.**  The pass's visit order is cut into blocks of whole
+    nodes (at most ``R_blk`` (node, q, edge) rows and ``R_blk // P`` nodes
+    each).  A block is active when one of its nodes was boundary at pass
+    start or was dirtied by a committed move; the host knows which, and a
+    find evaluates the active blocks from the current position on.  State
+    does not change inside a find, so the first event over them is the
+    first hit of a block-by-block scan.  On the card that is one launch
+    over all of them; the plain version on the CPU takes them in chunks of
+    1, 2, 4, ... blocks (capped at ``_CHUNK_BYTES`` of materialized rows),
+    one read per chunk, stopping at the first chunk with an event.
   * **Counters.**  ``syncs`` counts blocking reads, ``finds`` the finds
     that read at least one chunk (a find with no active block left reads
     nothing), ``commits`` the committed moves and ``pass_scans`` the
     passes.  ``commits <= finds <= commits + pass_scans`` and
-    ``syncs >= finds`` hold.
+    ``syncs >= finds`` hold; on the card ``syncs == finds``.
   * **Queued applies.**  The engine hook *queues* mutations; the next find
-    applies the newest one on the device before its scan, on the same
-    stream and with no read.  Older entries -- only possible after host-
-    side phases that mutate without a following find (the replication
-    edge-guided phase) -- go out as standalone applies, counted in
-    ``apply_dispatches``: zero across any pure FM / node-sweep pass.
+    applies the whole queue ahead of its scan, in the same launch.  A find
+    with no active block leaves the queue for the next one.  ``flush``
+    applies it with no find (tests, detach-and-inspect), counted in
+    ``apply_dispatches``: zero on the partitioning path.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .gain import _NO_COVER, front_dlam, min_cover
+from . import ops
+from .front_find import FindInputs, front_find
+from .gain import _NO_COVER
 
 # Below this node count the per-front numpy path wins (device dispatch and
 # block padding dominate); tests monkeypatch it to exercise the device path
@@ -63,7 +63,6 @@ _R_BLK_MIN = 2048
 _INT32_BUDGET = 2 ** 30  # headroom below int32 max for any partial sum
 # cap on the int32 candidate rows one find chunk materializes
 _CHUNK_BYTES = 256 << 20
-_BIG = int(np.iinfo(np.int32).max)
 
 
 def _integer_valued(a: np.ndarray) -> bool:
@@ -118,10 +117,12 @@ def attach(state, cap: float, *, device: str | torch.device = "cuda",
 class DevicePartitionPass:
     """Device mirror of a ``PartitionState`` plus the pass pipeline.
 
-    Columns of ``uncov``/``contrib`` are stored pre-permuted in popcount
-    order (column 0 = subset 0), so lambda pricing is a pure masked min
-    with no per-call gather.  A dummy edge row E (mu 0, all-zero uncov) and
-    a dummy node row n (infeasible everywhere) absorb all padding.
+    Columns of ``uncov`` are stored pre-permuted in popcount order (column
+    0 = subset 0), so lambda pricing is a pure masked min with no per-call
+    gather; the row a pin adds is computed from each column's subset
+    (``_colsub``), so no contrib table goes to the device.  A dummy edge row
+    E (mu 0, all-zero uncov) and a dummy node row n (infeasible everywhere)
+    keep the JAX package's buffer shapes.
     """
 
     def __init__(self, state, cap: float, *,
@@ -141,6 +142,7 @@ class DevicePartitionPass:
         max_rows = self.P * max(self.Dmax, 1)
         self.R_blk = max(_R_BLK_MIN, _pow2(max_rows))
         self.B_blk = self.R_blk // self.P
+        # chunks of the plain version's find (the card scans in one launch)
         self._chunk_max = max(1, _CHUNK_BYTES // (self.R_blk * self.nsub * 4))
         # column permutation: subset 0 first, then popcount order
         self.colmap = np.concatenate(
@@ -148,35 +150,28 @@ class DevicePartitionPass:
         pc_p = np.concatenate(
             ([_NO_COVER], np.asarray(state._order_pc, dtype=np.int64)))
         self._pc = self._up(pc_p.astype(np.int32))
-        self._contrib = self._up(
-            np.ascontiguousarray(state._contrib[:, self.colmap],
-                                 dtype=np.int32))
-        self._popcnt = self._up(np.asarray(state.popcnt, dtype=np.int32))
-        prim = np.maximum(
-            np.array([int(m).bit_length() - 1 for m in range(self.nsub)],
-                     dtype=np.int32), 0)
-        self._prim = self._up(prim)
+        self._colsub = self._up(self.colmap.astype(np.int32))
         mu_i = np.zeros(self.E + 1, dtype=np.int32)
         mu_i[:self.E] = np.rint(state.mu).astype(np.int32)
         self._mu = self._up(mu_i)
-        self._inc_edges = self._up(self.inc_edges_np)
-        self._qbits = self._up((1 << np.arange(self.P)).astype(np.int32))
-        self._allq = self._up(np.arange(self.P, dtype=np.int32))
+        self._xinc = self._up(self.xinc.astype(np.int32))
+        self._inc_edges = self._up(self.inc_edges_np.astype(np.int32))
         self._owner = np.repeat(np.arange(self.n), self.deg)  # bnd scatter
         # mutation queue: host applies are *deferred*; the next find applies
-        # the newest one before its scan
+        # the whole queue before its scan
         self._pending: list[tuple[int, int, int]] = []
         self._refresh_from_host()
         self._fits = np.zeros((self.n + 1, self.P), dtype=bool)
         self._fits_t = None
         self._last_loads = None
         self._dirty = np.zeros(self.n, dtype=bool)
+        self._build_blocks(np.arange(self.n, dtype=np.int64))
         # instrumentation (sync = blocking device->host read)
         self.syncs = 0
         self.finds = 0
         self.commits = 0
         self.pass_scans = 0
-        self.apply_dispatches = 0  # standalone applies dispatched
+        self.apply_dispatches = 0  # flushes of the queue with no find
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> a device tensor that owns its memory."""
@@ -214,155 +209,44 @@ class DevicePartitionPass:
         """
         self._pending.append((int(v), int(old), int(new)))
 
-    def _apply_now(self, v: int, old: int, new: int) -> None:
-        """Add the contrib difference to v's incident uncov rows, then
-        recompute their lambdas from the updated rows."""
-        lo, hi = int(self.xinc[v]), int(self.xinc[v + 1])
-        if hi > lo and old != new:
-            e_win = self._inc_edges[lo:hi]   # distinct edges: plain index_put_
-            self._uncov[e_win] += self._contrib[new] - self._contrib[old]
-            self._lam[e_win] = min_cover(self._uncov[e_win], self._pc,
-                                         count_as="min_cover_apply")
-        self._masks[v] = new
-
     def flush(self) -> None:
-        """Dispatch every queued mutation as a standalone apply."""
+        """Apply the whole queue now, with no scan and no read: on the card
+        one launch of the find kernel, counted as ``front_apply``."""
+        if not self._pending:
+            return
         pending, self._pending = self._pending, []
-        for v, old, new in pending:
-            self._apply_now(v, old, new)
-            self.apply_dispatches += 1
+        front_find(self._inputs(), pending, np.zeros(0, dtype=np.int64),
+                   rep=False, start_pos=self.n, resume_p=-1, maxrep=0,
+                   count_as="front_apply")
+        self.apply_dispatches += 1
 
-    # ------------------------------------------------------- find pipeline
-    def _eval_blocks(self, bs: np.ndarray, rep: bool, fits: torch.Tensor,
-                     start_pos: int, resume_p: int,
-                     maxrep: int) -> torch.Tensor:
-        """First event over blocks ``bs`` (visit order) as a device triple
-        (pos, kind, q); pos = n when none of them holds an event."""
-        P, B, nsub, n = self.P, self.B_blk, self.nsub, self.n
-        k = len(bs)
-        bs_t = torch.from_numpy(bs).to(self.device)
-        edges = self._blk_edge[bs_t]            # (k, R_blk)
-        pairs = self._blk_pair[bs_t]            # (k, R_blk)
-        nodes = self._blk_node[bs_t]            # (k, B_blk)
-        poss = self._blk_pos[bs_t].reshape(-1)  # (k * B_blk,)
-        m_old = self._masks[nodes]              # (k, B_blk)
-        qof = pairs % P
-        m_row = torch.gather(m_old, 1, pairs // P)
-        lam_old = self._lam[edges].reshape(-1)
-        mu_row = self._mu[edges].reshape(-1)
-        seg = (torch.arange(k, device=self.device)[:, None] * (B * P)
-               + pairs).reshape(-1)
-        in_win = ((poss >= start_pos) & (poss < n)).reshape(k, B)
-        fits_n = fits[nodes]                    # (k, B_blk, P)
-
-        def deltas_for(cand_row):
-            rows = self._uncov[edges]
-            rows += self._contrib[cand_row]
-            rows -= self._contrib[m_row]
-            terms = front_dlam(rows.reshape(-1, nsub), self._pc,
-                               lam_old) * mu_row
-            out = torch.zeros(k * B * P, dtype=torch.int32,
-                              device=self.device)
-            return out.index_add_(0, seg, terms).reshape(k, B, P)
-
-        def first(mask):
-            # sel stays a 1-element tensor and is read with ``take``:
-            # indexing with a 0-dim tensor would read it on the host
-            flat = mask.reshape(-1)
-            sel = flat.to(torch.int32).argmax().reshape(1)  # first True
-            return sel, flat.take(sel)
-
-        if not rep:
-            # FM: candidate masks 1 << q, primary excluded
-            d_move = deltas_for(self._qbits[qof])
-            feas = fits_n & (self._allq != self._prim[m_old][..., None])
-            masked = torch.where(feas, d_move, _BIG)
-            bestq = masked.argmin(dim=2)
-            bestd = masked.gather(2, bestq[..., None])[..., 0]
-            sel, found = first((bestd <= -1) & in_win)
-            pos = torch.where(found, poss.take(sel), n)
-            q = torch.where(found, bestq.take(sel), 0)
-            return torch.cat([pos, torch.zeros_like(pos), q])
-
-        # replication: add step then drop step, host visit order
-        kk = self._popcnt[m_old]
-        unset = ((m_old[..., None] >> self._allq) & 1) == 0
-        d_add = deltas_for(m_row | self._qbits[qof])
-        feas_add = fits_n & unset & (kk < maxrep)[..., None]
-        masked = torch.where(feas_add, d_add, _BIG)
-        bestq = masked.argmin(dim=2)
-        bestd = masked.gather(2, bestq[..., None])[..., 0]
-        if resume_p >= 0:
-            add_sup = (poss == start_pos).reshape(k, B)
-        else:
-            add_sup = torch.zeros_like(in_win)
-        has_add = (bestd <= -1) & in_win & ~add_sup
-        d_drop = deltas_for(m_row & ~self._qbits[qof])
-        minp = torch.where(add_sup, resume_p, 0)
-        elig_drop = (~unset & (kk > 1)[..., None] & (d_drop <= 0)
-                     & (self._allq >= minp[..., None]) & in_win[..., None])
-        dropp = elig_drop.to(torch.int32).argmax(dim=2)
-        has_drop = elig_drop.gather(2, dropp[..., None])[..., 0]
-        sel, found = first(has_add | has_drop)
-        add_sel = has_add.take(sel)
-        kind = (~add_sel).long()                 # 0 = add, 1 = drop
-        q = torch.where(add_sel, bestq.take(sel), dropp.take(sel))
-        return torch.cat([torch.where(found, poss.take(sel), n), kind,
-                          torch.where(found, q, 0)])
+    def _inputs(self) -> FindInputs:
+        return FindInputs(
+            uncov=self._uncov, lam=self._lam, masks=self._masks, mu=self._mu,
+            colsub=self._colsub, pc=self._pc, xinc=self._xinc,
+            inc_edges=self._inc_edges, perm=self._perm_t,
+            bounds=self._bounds_t, bounds_host=self._bounds,
+            fits=self._fits_now())
 
     # ------------------------------------------------------- block builder
     def _build_blocks(self, perm: np.ndarray) -> None:
-        """Pack the pass's flat (pair, edge) expansion into device blocks."""
+        """Cut the visit order ``perm`` into blocks of whole nodes, at most
+        ``R_blk`` (node, q, edge) rows and ``B_blk`` nodes each, and put the
+        order and the block bounds on the device."""
         P, R_blk, B_blk = self.P, self.R_blk, self.B_blk
+        self._perm = np.asarray(perm, dtype=np.int64)
         n = len(perm)
-        deg = self.deg[perm]
-        d = np.maximum(deg, 1)
-        rpn = P * d
-        cum = np.cumsum(rpn)
+        cum = np.cumsum(P * np.maximum(self.deg[self._perm], 1))
         bounds = [0]
         while bounds[-1] < n:
             i = bounds[-1]
             base = int(cum[i - 1]) if i else 0
             j = int(np.searchsorted(cum, base + R_blk, side="right"))
             bounds.append(min(max(j, i + 1), i + B_blk, n))
-        NB = len(bounds) - 1
-        bounds = np.asarray(bounds, dtype=np.int64)
-        total = int(cum[-1])
-        owner = np.repeat(np.arange(n, dtype=np.int64), rpn)
-        starts = cum - rpn
-        off = np.arange(total, dtype=np.int64) - starts[owner]
-        q = off // d[owner]
-        eoff = off % d[owner]
-        vo = perm[owner]
-        has = deg[owner] > 0
-        if len(self.inc_edges_np):
-            src = np.minimum(self.xinc[vo] + eoff,
-                             len(self.inc_edges_np) - 1)
-            edges = np.where(has, self.inc_edges_np[src], self.E)
-        else:
-            edges = np.full(total, self.E, dtype=np.int64)
-        blk_of = np.searchsorted(bounds, owner, side="right") - 1
-        pair = (owner - bounds[blk_of]) * P + q
-        rows_at = np.concatenate(([0], cum))[bounds]
-        blk_edge = np.full((NB, R_blk), self.E, dtype=np.int64)
-        # padding rows funnel into the last (slot, q) segment; their edge is
-        # the dummy E (mu 0), so they add exact zeros wherever they land
-        blk_pair = np.full((NB, R_blk), B_blk * P - 1, dtype=np.int64)
-        blk_node = np.full((NB, B_blk), self.n, dtype=np.int64)
-        blk_pos = np.full((NB, B_blk), self.n, dtype=np.int64)
-        for b in range(NB):
-            r0, r1 = int(rows_at[b]), int(rows_at[b + 1])
-            blk_edge[b, :r1 - r0] = edges[r0:r1]
-            blk_pair[b, :r1 - r0] = pair[r0:r1]
-            i0, i1 = int(bounds[b]), int(bounds[b + 1])
-            blk_node[b, :i1 - i0] = perm[i0:i1]
-            blk_pos[b, :i1 - i0] = np.arange(i0, i1)
-        self._bounds = bounds
-        self._nb = NB
-        self._blk_edge = self._up(blk_edge)
-        self._blk_pair = self._up(blk_pair)
-        self._blk_node = self._up(blk_node)
-        self._blk_pos = self._up(blk_pos)
+        self._bounds = np.asarray(bounds, dtype=np.int64)
+        self._nb = len(bounds) - 1
+        self._perm_t = self._up(self._perm.astype(np.int32))
+        self._bounds_t = self._up(self._bounds.astype(np.int32))
 
     # --------------------------------------------------------- host helpers
     def _boundary_start(self, rep: bool) -> np.ndarray:
@@ -409,28 +293,27 @@ class DevicePartitionPass:
 
     def _call_find(self, rep: bool, b0: int, start_pos: int, resume_p: int,
                    maxrep: int, bnd_start: np.ndarray):
-        # apply the newest queued mutation ahead of the scan; older queue
-        # entries -- only possible after host-side phases between passes --
-        # go out as standalone applies
-        if self._pending:
-            *older, newest = self._pending
-            self._pending = older
-            self.flush()
-            self._apply_now(*newest)
-        fits = self._fits_now()
         blocks = np.flatnonzero(self._active_blocks(bnd_start)[b0:]) + b0
-        if len(blocks):
-            self.finds += 1
-        i, k = 0, 1
-        while i < len(blocks):
-            out = self._eval_blocks(blocks[i:i + k], rep, fits, start_pos,
-                                    resume_p, maxrep)
+        if not len(blocks):
+            return self.n, 0, 0      # nothing to scan: the queue waits
+        self.finds += 1
+        x = self._inputs()
+        queue, self._pending = self._pending, []
+        if ops.use_kernel(self._uncov):
+            chunks = [blocks]        # one launch, one read
+        else:
+            sizes = [1]
+            while sum(sizes) < len(blocks):
+                sizes.append(min(2 * sizes[-1], self._chunk_max))
+            chunks = np.split(blocks, np.cumsum(sizes)[:-1])
+        for part in chunks:
+            out = front_find(x, queue, part, rep=rep, start_pos=start_pos,
+                             resume_p=resume_p, maxrep=maxrep)
+            queue = []
             pos, kind, q = out.tolist()   # THE host sync of this chunk
             self.syncs += 1
             if pos < self.n:
                 return pos, kind, q
-            i += k
-            k = min(2 * k, self._chunk_max)
         return self.n, 0, 0
 
     def _block_of(self, pos: int) -> int:
@@ -448,10 +331,9 @@ class DevicePartitionPass:
 
     def fm_pass(self, perm: np.ndarray) -> bool:
         st = self.state
-        self._perm = np.asarray(perm, dtype=np.int64)
         self._dirty[:] = False
         bnd = self._boundary_start(rep=False)
-        self._build_blocks(self._perm)
+        self._build_blocks(perm)
         pos, improved = 0, False
         while pos < self.n:
             fpos, _, q = self._call_find(False, self._block_of(pos), pos, -1,
@@ -476,10 +358,9 @@ class DevicePartitionPass:
         (the edge-guided phase stays on the host engine; its mutations reach
         the device through the engine hook)."""
         st = self.state
-        self._perm = np.asarray(perm, dtype=np.int64)
         self._dirty[:] = False
         bnd = self._boundary_start(rep=True)
-        self._build_blocks(self._perm)
+        self._build_blocks(perm)
         maxrep = self.P + 1 if max_replicas is None else int(max_replicas)
         pos, resume_p, improved = 0, -1, False
         while pos < self.n:

@@ -3,9 +3,12 @@
 The frontier layer's hot reduction is: given ``uncov`` rows (one per
 (candidate, edge) pair, ``2^P`` processor-subset columns), find each row's
 minimum-popcount subset with zero uncovered pins -- ``lambda_e`` under the
-candidate mask.  ``engine._lambda_from_rows`` does it on the host; here it
-runs as hand-written CUDA kernels (``csrc/gain.cu``) on CUDA tensors and as
-the plain PyTorch versions of ``ref`` on CPU tensors (``ops.use_kernel``).
+candidate mask.  ``engine._lambda_from_rows`` does it on the host; here
+``min_cover`` runs as a hand-written CUDA kernel (``csrc/gain.cu``) on CUDA
+tensors and as the plain PyTorch version of ``ref`` on CPU tensors
+(``ops.use_kernel``).  ``front_dlam``, the cost delta of each row, is the
+plain version alone: the device pass prices its candidate rows inside the
+fused find (``front_find``).
 
 Because the subsets with ``uncov == 0`` always include the full processor
 set (every assigned pin is covered by *some* processor), the first zero in
@@ -31,8 +34,7 @@ __all__ = ["_NO_COVER", "front_dlam", "min_cover", "min_cover_lambdas"]
 _INT32 = (torch.int32,)
 
 
-def _launch(kernel: str, rows_perm: torch.Tensor, pc: torch.Tensor,
-            lam_old: torch.Tensor | None, count_as: str) -> torch.Tensor:
+def _launch(rows_perm: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     from ._build import load
     if rows_perm.dim() != 2:
         raise ValueError(f"rows_perm must be (R, M), got {tuple(rows_perm.shape)}")
@@ -40,30 +42,21 @@ def _launch(kernel: str, rows_perm: torch.Tensor, pc: torch.Tensor,
     dev = rows_perm.device
     ops.check("rows_perm", rows_perm, (R, M), _INT32, dev)
     ops.check("pc", pc, (M,), _INT32, dev)
-    ptrs = [rows_perm.data_ptr(), pc.data_ptr()]
-    if lam_old is not None:
-        ops.check("lam_old", lam_old, (R,), _INT32, dev)
-        ptrs.append(lam_old.data_ptr())
     out = torch.empty(R, dtype=torch.int32, device=dev)
-    lib = load("gain")
-    fn = lib.repro_front_dlam if kernel == "front_dlam" else lib.repro_min_cover
     with torch.cuda.device(dev):
-        err = fn(*ptrs, out.data_ptr(), R, M,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = load("gain").repro_min_cover(
+            rows_perm.data_ptr(), pc.data_ptr(), out.data_ptr(), R, M,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    ops.launches[count_as] += 1
+        raise RuntimeError(f"min_cover_lambdas launch failed: CUDA error {err}")
+    ops.launches["min_cover_lambdas"] += 1
     return out
 
 
-def min_cover(rows_perm: torch.Tensor, pc: torch.Tensor, *,
-              count_as: str = "min_cover_lambdas") -> torch.Tensor:
-    """(R,) int32 masked-min lambda per row of an (R, M) int32 tensor.
-
-    ``count_as`` names the launch counter (``ops.launches``): the device
-    pass's applies count apart from the per-front pricing."""
+def min_cover(rows_perm: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+    """(R,) int32 masked-min lambda per row of an (R, M) int32 tensor."""
     if ops.use_kernel(rows_perm):
-        return _launch("min_cover_lambdas", rows_perm, pc, None, count_as)
+        return _launch(rows_perm, pc)
     return min_cover_ref(rows_perm, pc)
 
 
@@ -75,10 +68,13 @@ def front_dlam(rows_perm: torch.Tensor, pc: torch.Tensor,
     popcount-column order (column 0 = subset 0), ``pc`` the (M,) popcounts
     with a ``_NO_COVER`` sentinel at column 0, ``lam_old`` the (R,) current
     edge lambdas.  Returns the (R,) int32 ``relu(lam_new-1)-relu(lam_old-1)``
-    terms.
+    terms.  CPU tensors only: on the card the device pass prices its rows
+    inside the fused find (``front_find``), and no kernel takes this role
+    alone.
     """
     if ops.use_kernel(rows_perm):
-        return _launch("front_dlam", rows_perm, pc, lam_old, "front_dlam")
+        raise ValueError("front_dlam has no kernel of its own: a CUDA tensor "
+                         "goes through front_find.front_find")
     return front_dlam_ref(rows_perm, pc, lam_old)
 
 

@@ -8,11 +8,13 @@ to the plain version.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with ``reset_launches`` and reads them afterwards to show
-which kernels its path went through.  A kernel that also serves calls the
-JAX package sends to its jnp reference counts those apart:
-``min_cover_apply`` counts the min-cover kernel's launches from the device
-pass's applies, ``min_cover_lambdas`` those that price a front;
-``attention_masked`` the attention kernel's launches with a window or
+which kernels its path went through.  ``front_find`` counts the device
+pass's finds (``front_find.cu``, the queued applies folded in) and
+``front_apply`` that kernel's launches that only apply the queue
+(``DevicePartitionPass.flush``, off the partitioning path);
+``min_cover_lambdas`` the min-cover kernel's, which price a front.  A
+kernel that also serves calls the JAX package sends to its jnp reference
+counts those apart: ``attention_masked`` the attention kernel's launches with a window or
 explicit positions, ``flash_attention`` the plain (causal) ones;
 ``mamba_step`` the scan's launches from a given state (decode),
 ``mamba_scan`` those from zeros; ``grouped_matmul`` the expert-FFN
@@ -34,8 +36,8 @@ from . import ref
 
 _FORCE: str | None = None  # None = by device, 'cuda' | 'ref'
 
-launches: dict[str, int] = {"front_dlam": 0, "min_cover_lambdas": 0,
-                             "min_cover_apply": 0, "flash_attention": 0,
+launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
+                             "min_cover_lambdas": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,

@@ -17,8 +17,8 @@ from repro_torch.core.partition import heuristic as th  # noqa: E402
 from repro_torch.core.partition.engine import _tables  # noqa: E402
 from repro_torch.datagen import large_row_net  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
-from repro_torch.kernels import (front_pass, gain, moe_gmm,  # noqa: E402
-                                 ops, ref)
+from repro_torch.kernels import (front_find, front_pass,  # noqa: E402
+                                 gain, moe_gmm, ops, ref)
 from repro_torch.launch.serve import make_model, serve  # noqa: E402
 
 
@@ -34,9 +34,75 @@ def _pc(P):
     return np.concatenate(([gain._NO_COVER], order_pc)).astype(np.int32)
 
 
+# ------------------------------------------------------ the fused find
+def _find_case(P, seed, device, *, rep=False, queue=1, n=300, m=420,
+               r_blk_min=16):
+    """A random device pass on ``device`` in a pass's middle: random masks
+    (several bits for replication), 20 isolated nodes, small row blocks (many
+    of them), random feasibility, and ``queue`` host mutations queued for
+    the next find (several share edges, and one node mutates twice).  Returns
+    the pass, the kernel's inputs, a copy of the mutable buffers for the
+    plain version, the queue and the active blocks."""
+    from repro_torch.core.hypergraph import Hypergraph
+    from repro_torch.core.partition import PartitionState
+    rng = np.random.default_rng(seed)
+    live = n - 20
+    edges = [tuple(sorted(rng.choice(live, size=int(rng.integers(2, 7)),
+                                     replace=False).tolist()))
+             for _ in range(m)]
+    hg = Hypergraph(n=n, edges=edges, omega=np.ones(n),
+                    mu=rng.integers(1, 6, size=m).astype(float))
+    if rep:
+        masks = rng.integers(1, 1 << P, size=n)
+    else:
+        masks = 1 << rng.integers(0, P, size=n)
+    st = PartitionState(hg, P, masks=masks.astype(np.int64))
+    saved = front_pass.DEVICE_MIN_NODES, front_pass._R_BLK_MIN
+    front_pass.DEVICE_MIN_NODES, front_pass._R_BLK_MIN = 1, r_blk_min
+    try:
+        dev = front_pass.attach(st, 1e9, device=device)
+    finally:
+        front_pass.DEVICE_MIN_NODES, front_pass._R_BLK_MIN = saved
+    assert dev is not None
+    dev._build_blocks(rng.permutation(n))
+    v = int(hg.edges[0][0])
+    u = int(hg.edges[0][1])                       # shares edge 0 with v
+    nodes = [v, u, v] + rng.integers(0, n, size=3).tolist()
+    for w in nodes[:queue]:
+        st.apply(w, int(1 << rng.integers(0, P)) | (
+            int(st.masks[w]) if rep else 0))
+        st.commit()
+    x = dev._inputs()
+    fits = rng.random((n + 1, P)) < 0.8
+    fits[n] = False
+    x.fits = torch.from_numpy(fits).to(device)
+    y = front_find.FindInputs(**{**x.__dict__, "uncov": x.uncov.clone(),
+                                 "lam": x.lam.clone(),
+                                 "masks": x.masks.clone()})
+    queue_ = list(dev._pending)
+    dev._pending.clear()
+    active = np.flatnonzero(rng.random(dev._nb) < 0.7)
+    return dev, x, y, queue_, active
+
+
+def _run_find_case(x, y, queue, blocks, *, rep, start_pos, resume_p,
+                   maxrep):
+    kw = dict(rep=rep, start_pos=start_pos, resume_p=resume_p,
+              maxrep=maxrep)
+    got = front_find.front_find(x, queue, blocks, **kw)
+    want = front_find.front_find_ref(y, queue, blocks, **kw)
+    torch.cuda.synchronize()
+    assert got.tolist() == want.tolist()
+    for name in ("uncov", "lam", "masks"):
+        assert torch.equal(getattr(x, name), getattr(y, name)), name
+    return got.tolist()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,R", [(4, 2048), (8, 2048 * 9 + 5), (2, 1)])
 def test_kernels_match_plain_versions(cuda, P, R):
+    """The min-cover kernel and the fused find against their plain versions;
+    ``front_dlam`` has no kernel of its own and refuses a CUDA tensor."""
     rng = np.random.default_rng(300 + P)
     M = 1 << P
     rows = (rng.random((R, M)) > 0.1).astype(np.int32) * rng.integers(
@@ -46,16 +112,45 @@ def test_kernels_match_plain_versions(cuda, P, R):
     pc_t = torch.from_numpy(_pc(P)).to(cuda)
     lam_old = torch.from_numpy(
         rng.integers(0, P + 2, size=R).astype(np.int32)).to(cuda)
+    _, x, y, queue, blocks = _find_case(P, 300 + P, cuda)
     ops.reset_launches()
     lam = gain.min_cover(rows_t, pc_t)
-    dl = gain.front_dlam(rows_t, pc_t, lam_old)
-    torch.cuda.synchronize()
+    _run_find_case(x, y, queue, blocks, rep=False, start_pos=0, resume_p=-1,
+                   maxrep=0)
     assert {k: ops.launches[k] for k in (
-        "front_dlam", "min_cover_lambdas", "min_cover_apply")} == {
-        "front_dlam": 1, "min_cover_lambdas": 1, "min_cover_apply": 0}
+        "front_find", "front_apply", "min_cover_lambdas")} == {
+        "front_find": 1, "front_apply": 0, "min_cover_lambdas": 1}
     assert torch.equal(lam, ref.min_cover_ref(rows_t, pc_t))
-    assert torch.equal(dl, ref.front_dlam_ref(rows_t, pc_t, lam_old))
     assert bool((lam[::7] == gain._NO_COVER).all())
+    with pytest.raises(ValueError, match="front_find"):
+        gain.front_dlam(rows_t, pc_t, lam_old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queue", [0, 1, 4])
+@pytest.mark.parametrize("mode", ["fm", "rep"])
+@pytest.mark.parametrize("P", [2, 4, 8, 12])
+def test_front_find_matches_plain_version(cuda, P, mode, queue):
+    """Equal triples and equal buffers after the apply, over many small
+    blocks: from the first active block, from a start position inside the
+    list (the blocks before it hold no position in the window), with the
+    replication resume protocol and a replica cap, and over no block at all
+    (the apply alone)."""
+    rep = mode == "rep"
+    dev, x, y, q, blocks = _find_case(P, 17 * P + queue, cuda, rep=rep,
+                                      queue=queue, n=120 if P == 12 else 300)
+    assert dev._nb > 8
+    mid = int(dev._bounds[blocks[len(blocks) // 2]]) + 1
+    cases = [(0, -1, P + 1), (mid, -1, P + 1), (mid, 1, 2)]
+    for i, (start, resume, maxrep) in enumerate(cases):
+        _run_find_case(x, y, q if i == 0 else [], blocks, rep=rep,
+                       start_pos=start, resume_p=resume, maxrep=maxrep)
+    # the apply alone, then a scan past every block: no event
+    _run_find_case(x, y, [(0, int(x.masks[0]), 1)], blocks[:0], rep=rep,
+                   start_pos=0, resume_p=-1, maxrep=P + 1)
+    got = _run_find_case(x, y, [], blocks, rep=rep, start_pos=dev.n,
+                         resume_p=-1, maxrep=P + 1)
+    assert got == [dev.n, 0, 0]
 
 
 @pytest.mark.cuda
@@ -75,12 +170,28 @@ def test_wrapper_rejects_bad_inputs(cuda):
 @pytest.mark.cuda
 def test_device_pass_on_cuda_matches_host_path(cuda, monkeypatch):
     monkeypatch.setattr(front_pass, "DEVICE_MIN_NODES", 1)
+    passes = []
+    real_attach = front_pass.attach
+
+    def attach(*a, **kw):
+        d = real_attach(*a, **kw)
+        passes.append(d)
+        return d
+
+    monkeypatch.setattr(front_pass, "attach", attach)
     hg = large_row_net(1024, seed=1024)
     ops.reset_launches()
     a = th.partition_with_replication(hg, 4, 0.05, frontier="torch",
                                       device=cuda)
-    assert ops.launches["front_dlam"] > 0
-    assert ops.launches["min_cover_apply"] > 0
+    passes = [d for d in passes if d is not None]
+    finds = sum(d.finds for d in passes)
+    assert passes and finds > 0
+    # one launch and one read per find; the queue always rides a find
+    assert ops.launches["front_find"] == finds
+    assert ops.launches["front_apply"] == 0
+    for d in passes:
+        assert d.syncs == d.finds and d.apply_dispatches == 0
+        assert d.commits <= d.finds <= d.commits + d.pass_scans
     b = th.partition_with_replication(hg, 4, 0.05, frontier="numpy")
     for ra, rb in zip(a, b):
         assert np.array_equal(ra.masks, rb.masks) and ra.cost == rb.cost

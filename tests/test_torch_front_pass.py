@@ -72,21 +72,21 @@ def small_device_floors(r_blk_min=None):
 
 
 @contextlib.contextmanager
-def count_dlam():
-    """Count the port's ``front_dlam`` calls from the find (on CPU tensors
-    the wrapper launches nothing, so the launch counter stays 0)."""
+def count_finds():
+    """Count the port's ``front_find`` calls from the device pass (on CPU
+    tensors the wrapper launches nothing, so the launch counter stays 0)."""
     calls = []
-    real = front_pass.front_dlam
+    real = front_pass.front_find
 
-    def spy(*a):
-        calls.append(a[0].shape[0])
-        return real(*a)
+    def spy(*a, **kw):
+        calls.append(len(a[2]))
+        return real(*a, **kw)
 
-    front_pass.front_dlam = spy
+    front_pass.front_find = spy
     try:
         yield calls
     finally:
-        front_pass.front_dlam = real
+        front_pass.front_find = real
 
 
 def _fm_pair(hg, P, eps, seed):
@@ -97,7 +97,7 @@ def _fm_pair(hg, P, eps, seed):
     stb = PartitionState(thg, P, masks=mb)
     jh.fm_refine(hg, ma, P, eps, np.random.default_rng(seed), state=sta,
                  frontier="jax")
-    with count_dlam() as calls:
+    with count_finds() as calls:
         th.fm_refine(thg, mb, P, eps, np.random.default_rng(seed), state=stb,
                      frontier="torch", device=CPU)
     assert calls, "the port's device pass did not run"
@@ -129,7 +129,7 @@ def test_rep_device_bit_identical(seed, max_replicas):
     hg = int_hypergraph(rng)
     P = int(rng.integers(2, 6))
     m0 = jh.greedy_initial(hg, P, 0.3, np.random.default_rng(seed + 1000))
-    with small_device_floors(), count_dlam() as calls:
+    with small_device_floors(), count_finds() as calls:
         ra = jh.replicate_local_search(hg, m0.copy(), P, 0.3, seed=seed,
                                        max_replicas=max_replicas,
                                        frontier="jax")

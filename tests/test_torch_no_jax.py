@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout)
-    for name in ("kernels.front_pass", "kernels.flash_attention",
+    for name in ("kernels.front_pass", "kernels.front_find",
+                 "kernels.flash_attention",
                  "kernels.mamba_scan", "kernels.moe_gmm", "models.model",
                  "models.moe", "launch.serve", "configs.registry",
                  "core.placement.expert_placement", "core.placement.online",
