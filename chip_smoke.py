@@ -11,9 +11,9 @@ placement (``launch.serve.serve``).  Phases, in order; any failure
 propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
-   print the build time, what ``ptxas`` reports for the attention and
-   grouped-matmul kernels (registers, shared memory, spills) and the
-   card's name and power limit;
+   print the build time, what ``ptxas`` reports for the find, attention,
+   grouped-matmul and scan kernels (registers, shared memory, spills) and
+   the card's name, power limit, maximum SM clock and SM count;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the min-cover kernel at the shapes the per-front path gives
    it, and the device pass's fused find (``front_find``) at phase 3's
@@ -24,7 +24,13 @@ propagates and the exit code is nonzero:
    empty cooperative launch on its grid (the latency floor); attention and the selective scan at hymba's
    and olmoe's serving shapes and the grouped matmul at olmoe's, in bf16
    and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
-   products of the plain versions.  Each attention row names its route
+   products of the plain versions.  The scan's bound is the larger of its
+   bytes and its arithmetic at the card's maximum SM clock (phase 1
+   prints it): the recurrence's FMA-pipe instructions and one exp2 per
+   (t, d, n), the exps split between the special-function unit and an
+   emulation on the FMA pipe so that both pipes finish together
+   (``scan_bound``); the decode step is timed beside an empty launch on
+   its grid.  Each attention row names its route
    (``flash_attention.route``: ``prefill_tc``, ``decode_split`` or
    ``cuda_core``) and asserts that the call took it, as each grouped-matmul
    row does with ``moe_gmm.route`` (``gmm_tc``, ``gmv``, ``cuda_core``).
@@ -47,12 +53,14 @@ propagates and the exit code is nonzero:
    tokens, 32 new tokens each, in bf16; prefill seconds, decode ms per
    token, tokens/s, peak memory, launches per counter (each of the four
    model kernels must launch) and per attention route (bf16 serving runs
-   ``prefill_tc`` and ``decode_split`` only).  Then the same weights in
-   f32 through the kernels (prefill on ``cuda_core``, decode on
-   ``decode_split``) and through the plain versions
-   (``ops.force("ref")``): prefill and three teacher-forced decode steps
-   agree within ``F32_LOGIT_TOL`` of the largest logit; the bf16 gap is
-   reported;
+   ``prefill_tc`` and ``decode_split`` only), and the scan's share of the
+   prefill.  Then prefill and three teacher-forced decode steps (seeded
+   tokens, the same in every run): of the f32 model through the kernels
+   (prefill on ``cuda_core``, decode on ``decode_split``) and through the
+   plain versions (``ops.force("ref")``), within ``F32_LOGIT_TOL`` of the
+   largest logit; of the bf16 model through both; and of the bf16 model's
+   weights, cast to f32, through the plain versions, from which each bf16
+   path's distance is reported (weight rounding left out);
 7. serve ``olmoe-1b-7b`` at full width and depth with
    ``placement="replicated"`` (4 prompts of 2048 tokens, 32 new tokens
    each, bf16): the placement's lambda-costs and min-cover launches,
@@ -60,12 +68,14 @@ propagates and the exit code is nonzero:
    per counter (exactly as expected: three grouped products per MoE layer
    and call, prefill on ``gmm_tc`` and decode on ``gmv``, never
    ``cuda_core``) and one device->host copy per profiled decode step.  Then
-   the same weights in f32: each layer's MoE block on the same input
-   through the kernel and the plain version within ``MODEL_TOL`` (the
-   routing is then identical, so this isolates the kernel), and prefill
-   plus three teacher-forced decode steps within ``F32_LOGIT_TOL`` (if a
-   router near-tie breaks that, the run counts the top-k choices on which
-   the two paths' route traces differ and reports them with the gap).
+   the f32 model: each layer's MoE block on the same input through the
+   kernel and the plain version within ``MODEL_TOL`` (the routing is then
+   identical, so this isolates the kernel), and prefill plus three
+   teacher-forced decode steps within ``F32_LOGIT_TOL`` (if a router
+   near-tie breaks that, the run counts the top-k choices on which the
+   two paths' route traces differ and reports them with the gap); the
+   bf16 paths' distances from the f32 plain path at the bf16 weights as
+   in phase 6.
    Last, the serving benchmark's SMOKE drift replay through the online
    controller on CUDA and on the host path: equal totals, commits and
    migration bytes.
@@ -82,8 +92,11 @@ bf16 runs never take it); the grouped matmul likewise has one entry per
 route of the serve runs (``gmm_tc``, ``gmv``) timed at its fill-aware
 case, and one for ``cuda_core`` with the launches of phase 7's f32
 checks; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
-(decode, from a state); each count is timed at its commonest shape on the
-path.  ``min_cover_lambdas`` (the per-front path) is timed at its
+(decode, from a state), each with its bound's terms
+(``bound_terms_ms``, the exps' share on the special-function unit
+``exp_sfu_share``) and the step with an empty launch's time
+(``empty_ms``); each count is timed at its commonest shape on the path.
+``min_cover_lambdas`` (the per-front path) is timed at its
 commonest shape; ``front_find`` (the device pass's finds, which also take
 the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
 FM case nearest the path's median count of active blocks, with
@@ -113,8 +126,20 @@ OPS_PER_ELEM = 3               # compare, select, min per loaded element
 
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate (data sheet)
 F32_FLOPS_PER_S = 67e12        # fp32 rate outside the tensor cores
-SCAN_OPS_PER_ELEM = 6          # per (t, d, n): dt*A, exp, two products and
-                               # an add for the state, one FMA for y
+# issue rates per clock per SM (CUDA C Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): f32 add/multiply/FMA on
+# the FMA pipe, and exp2 (MUFU.EX2) on the special-function unit
+FMA_PER_CLK_PER_SM = 128
+EXP_PER_CLK_PER_SM = 16
+SCAN_FMA_PER_ELEM = 4          # per (t, d, n): dt * A, (dt * u) * B, the
+                               # state's FMA and y's FMA
+EXP_EMULATED_FMA = 10          # FMA-pipe instructions of one exp2 off the
+                               # special-function unit: 3 to split y into
+                               # j + f (add and subtract 1.5 * 2^23, f =
+                               # y - j), 6 Horner FMAs of a degree-6
+                               # polynomial for 2^f on [-1/2, 1/2] (f32
+                               # accuracy), 1 IMAD adding j << 23 into its
+                               # exponent
 
 # file:line of the Pallas kernel each CUDA kernel replaces; the fused find
 # also takes the min-cover kernel's apply role (FIND_ALSO_REPLACES)
@@ -182,6 +207,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = out.stdout.strip().splitlines()[0].split()[0]
+    return float(mhz) * 1e6
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -394,7 +428,9 @@ def check_find(dev, rep: bool, k: int, full_scan: bool, seed: int) -> dict:
         for q in (fwd, back):
             ff.front_find_ref(xr, q, blocks, **kw)
     ms = graph_ms(pair, launches=10) / 2
-    empty_ms = graph_ms(lambda: ff.empty_launch(P, rep, xk.uncov.device),
+    grid = ff.find_grid(P, rep, xk.uncov.device)
+    empty_ms = graph_ms(lambda: ff.empty_launch(grid, ff.THREADS,
+                                                xk.uncov.device, True),
                         launches=10)
     b, by, work_of = find_bound(dev, blocks, pos, fwd)
     return {"kernel": "front_find", "P": P, "rep": rep, "blocks": len(blocks),
@@ -548,10 +584,41 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
     return row
 
 
-def check_scan(case, dtype_name: str, seed: int) -> dict:
-    """The scan kernel against its plain version at one shape, timed."""
+def scan_bound(B: int, S: int, di: int, N: int, esize: int, state: bool,
+               clock_hz: float, sms: int) -> dict:
+    """Least time for a scan: the larger of its bytes (u, dt and y once, Bc
+    and Cc once, A, D and the states once) over the memory rate and its
+    arithmetic on ``sms`` SMs at ``clock_hz``.  The arithmetic is
+    ``SCAN_FMA_PER_ELEM`` FMA-pipe instructions and one exp2 per (t, d, n),
+    a share x of the exps on the special-function unit and the rest
+    emulated on the FMA pipe (``EXP_EMULATED_FMA`` each), x chosen so that
+    the two pipes finish together.  ``bound_terms_ms`` also holds the FMA
+    pipe's time without exps (a lower floor) and the exps' time all on the
+    unit (not a floor: some of them can move)."""
+    nbytes = (esize * (3 * B * S * di + 2 * B * S * N)
+              + 4 * (di * N + di + B * di * N * (2 if state else 1)))
+    exps = B * S * di * N
+    per_s = sms * clock_hz
+    sfu = exps / (EXP_PER_CLK_PER_SM * per_s)
+    fma = SCAN_FMA_PER_ELEM * exps / (FMA_PER_CLK_PER_SM * per_s)
+    emul = EXP_EMULATED_FMA * exps / (FMA_PER_CLK_PER_SM * per_s)
+    share = min(1.0, (fma + emul) / (sfu + emul))   # sfu*x = fma + emul(1-x)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fma_pipe": fma * 1e3, "exps_sfu": sfu * 1e3,
+             "arithmetic": max(fma, share * sfu) * 1e3}
+    by = "bytes" if terms["bytes"] >= terms["arithmetic"] else "operations"
+    return {"bound_ms": max(terms["bytes"], terms["arithmetic"]),
+            "bound_by": by, "bound_terms_ms": terms,
+            "exp_sfu_share": share, "bytes": nbytes, "exps": exps}
+
+
+def check_scan(case, dtype_name: str, seed: int, clock_hz: float,
+               sms: int) -> dict:
+    """The scan kernel against its plain version at one shape, timed; the
+    decode step (S = 1) also beside an empty launch on its grid."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import front_find as ff
     from repro_torch.kernels import ops, ref
     name, counter, B, S, di, N, state, on_path = case
     dtype = getattr(torch, dtype_name)
@@ -573,8 +640,13 @@ def check_scan(case, dtype_name: str, seed: int) -> dict:
 
     def plain():
         return ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=h0)
+    ops.reset_launches()
     (y, last), (y_ref, last_ref) = run(), plain()
     torch.cuda.synchronize()
+    taken = {c: n for c, n in ops.launches.items() if n}
+    if taken != {counter: 1}:
+        raise AssertionError(f"scan {name} {dtype_name}: launches {taken}, "
+                             f"expected {counter}")
     tol = MODEL_TOL[("scan", dtype_name)]
     ok_y, err_y = rel_ok(y, y_ref, tol)
     ok_h, err_h = rel_ok(last, last_ref, tol)
@@ -582,18 +654,16 @@ def check_scan(case, dtype_name: str, seed: int) -> dict:
         raise AssertionError(f"scan {name} {dtype_name}: kernel != plain "
                              f"within {tol} (max abs err y {err_y}, "
                              f"state {err_h})")
-    nbytes = (u.element_size() * (3 * B * S * di + 2 * B * S * N)
-              + 4 * (di * N + di + B * di * N * (2 if state else 1)))
-    ops_n = SCAN_OPS_PER_ELEM * B * S * di * N
-    t_ops = ops_n / F32_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     row = {"case": name, "counter": counter, "dtype": dtype_name,
            "shape": [B, S, di, N], "key": ((B, S, di), N),
            "max_abs_err": max(err_y, err_h),
            "tol": tol, "ms": graph_ms(run, 10, 5),
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "ops": ops_n, "bytes": nbytes}
+           **scan_bound(B, S, di, N, u.element_size(), state, clock_hz,
+                        sms)}
+    if S == 1:     # the step kernel's grid: N / min(N, 4) lanes a channel
+        lanes = B * di * (N // min(N, 4))
+        row["empty_ms"] = graph_ms(
+            lambda: ff.empty_launch(-(-lanes // 256), 256, dev), 10, 5)
     if on_path:
         row.update(call_ms=time_ms(run, 10), plain_ms=graph_ms(plain, 1, 2),
                    library_ms=None)
@@ -738,6 +808,19 @@ def commonest(shapes: Counter, counter: str) -> tuple:
                key=lambda kd: shapes[head + kd])
 
 
+def kernel_name(mangled: str) -> str:
+    """A mangled entry name (after ``_Z``) as its last name component --
+    anonymous namespaces dropped -- with its template arguments, cut to 40
+    characters."""
+    import re
+    rest = mangled[1:] if mangled.startswith("N") else mangled
+    name = ""
+    while (m := re.match(r"(\d+)", rest)):
+        n = int(m.group(1))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    return name + rest[:40]
+
+
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` output, one line per kernel: its name (the
     template arguments kept), registers, shared memory and spills; and
@@ -745,10 +828,9 @@ def ptxas_summary(log: str) -> list:
     import re
     out, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?\d+(\w+?_kernel)"
-                      r"(\w*)'", line)
+        m = re.search(r"Compiling entry function '_Z(\w+)'", line)
         if m:
-            name = m.group(1) + m.group(2)[:40]
+            name = kernel_name(m.group(1))
         elif "warning" in line.lower():
             out.append(line.strip())
         elif "spill" in line:
@@ -794,6 +876,35 @@ def logits_through(model, prompts, forced, which: str, max_len: int):
     finally:
         ops.force(None)
     return torch.cat(out, dim=1)
+
+
+def round_weights(model32, model16) -> bool:
+    """Overwrite the f32 ``model32``'s weights with the bf16 ``model16``'s,
+    cast: the f32 reference of the bf16 paths, with the weights' rounding
+    left out.  Returns whether ``make_model`` drew ``model32``'s own
+    weights as those the bf16 model rounds (checked on the embedding,
+    before the copy)."""
+    import torch
+    same_draw = bool(torch.equal(model32.embed.to(model16.embed.dtype),
+                                 model16.embed))
+    p16 = dict(model16.named_parameters())
+    with torch.no_grad():
+        for name, p in model32.named_parameters():
+            p.copy_(p16[name])
+    return same_draw
+
+
+def bf16_errors(kern16, plain16, plain32) -> dict:
+    """The bf16 kernel path's and bf16 plain path's max |diff| from the f32
+    plain path at the same weights, as shares of its largest |logit|; and
+    the kernel path's against the plain path's in bf16 (``bf16_gap``, the
+    share of the bf16 plain path's largest |logit|)."""
+    scale = float(plain32.abs().max())
+    err_k = float((kern16.float() - plain32).abs().max()) / scale
+    err_p = float((plain16.float() - plain32).abs().max()) / scale
+    gap = float((kern16 - plain16).abs().max()) / float(plain16.abs().max())
+    return {"bf16_kernel_err": sig(err_k), "bf16_plain_err": sig(err_p),
+            "bf16_err_ratio": sig(err_k / err_p), "bf16_gap": sig(gap)}
 
 
 def decode_profile(model, prompts, forced, max_len: int,
@@ -1135,7 +1246,13 @@ def main() -> int:
             log(f"[1] ptxas {n}: {line}")
     summary: dict = {"build_s": sig(build_s)}
     card = card_line()
-    log(f"card: {card}")
+    clock_hz = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"card: {card}; max SM clock {clock_hz / 1e6:.0f} MHz, {sms} SMs "
+        f"(the scan's arithmetic bound: per SM and clock "
+        f"{FMA_PER_CLK_PER_SM} FMA-pipe instructions, {EXP_PER_CLK_PER_SM} "
+        f"exps on the special-function unit)")
+    summary["max_sm_clock_mhz"], summary["sms"] = clock_hz / 1e6, sms
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -1188,7 +1305,8 @@ def main() -> int:
             log("    " + json.dumps(model_rows[-1]))
     for i, case in enumerate(SCAN_CASES):
         for dtype_name in ("bfloat16", "float32"):
-            model_rows.append(check_scan(case, dtype_name, seed=200 + i))
+            model_rows.append(check_scan(case, dtype_name, seed=200 + i,
+                                         clock_hz=clock_hz, sms=sms))
             log("    " + json.dumps(model_rows[-1]))
     for i, case in enumerate(GMM_CASES):
         for dtype_name in ("bfloat16", "float32"):
@@ -1330,49 +1448,67 @@ def main() -> int:
         f"ms/token, {res.tokens_per_s:.2f} tok/s, max_memory_allocated "
         f"{peak6} B; launches {l6}; attention routes {r6}; sample "
         f"{res.tokens[0][:8].tolist()}")
-    # the same weights through the kernels and through the plain versions:
-    # prefill and three teacher-forced decode steps, f32 asserted
+    # the scan's share of the prefill: its launches at phase 2's device time
+    scan_row = next(r for r in model_rows if r["case"] == "prefill"
+                    and r["counter"] == "mamba_scan"
+                    and r["dtype"] == "bfloat16")
+    scan_ms = l6["mamba_scan"] * scan_row["ms"]
+    log(f"[6] the scan in prefill: {l6['mamba_scan']} launches x "
+        f"{scan_row['ms']:.6g} ms (phase 2, device time) = {scan_ms:.6g} ms "
+        f"of {1e3 * res.prefill_s:.6g} ms")
+    # prefill and three teacher-forced decode steps.  The f32 model (its
+    # own draw) through the kernels and through the plain versions, within
+    # F32_LOGIT_TOL; then its weights overwritten by the bf16 model's, cast,
+    # through the plain versions: the reference each bf16 path is held to
     prompts6 = torch.from_numpy(make_prompts(cfg, B6, S6, 0)).cuda()
-    forced = torch.from_numpy(res.tokens[:, :3]).cuda()
-    gaps = {}
-    for dtype_name in ("float32", "bfloat16"):
-        model = make_model(cfg.with_(dtype=dtype_name), device="cuda",
-                           seed=0)
-        ops.reset_launches()
-        kern = logits_through(model, prompts6, forced, "cuda", S6 + G6)
-        if dtype_name == "float32":   # f32 prefill takes cuda_core
-            r6_f32 = dict(ops.route_launches)
-            log(f"[6] f32 kernel path, prefill + 3 decode steps: attention "
-                f"routes {r6_f32}")
-            if not (r6_f32["cuda_core"] and r6_f32["decode_split"]):
-                raise AssertionError(f"f32 attention routes {r6_f32}")
-        plain = logits_through(model, prompts6, forced, "ref", S6 + G6)
-        if dtype_name == "bfloat16":
-            summary["p6b"] = decode_profile(model, prompts6, forced,
-                                            S6 + G6)
-        del model
-        torch.cuda.empty_cache()
-        scale = float(plain.abs().max())
-        gap = float((kern - plain).abs().max())
-        if not (torch.isfinite(kern).all() and kern.shape == (B6, 4,
-                                                              cfg.vocab)):
-            raise AssertionError(f"{dtype_name} logits not finite or "
-                                 f"misshapen: {tuple(kern.shape)}")
-        gaps[dtype_name] = (gap, scale)
-        log(f"[6] {dtype_name} kernel path vs plain path, prefill + 3 "
-            f"decode steps: max |diff| {gap:.6g}, max |logit| {scale:.6g}, "
-            f"ratio {gap / scale:.6g}")
-    gap32, scale32 = gaps["float32"]
+    # forced tokens drawn apart from the serve run, so that runs on other
+    # kernels hold their paths to the same inputs
+    forced = torch.from_numpy(make_prompts(cfg, B6, 3, 1)).cuda()
+    model32 = make_model(cfg.with_(dtype="float32"), device="cuda", seed=0)
+    ops.reset_launches()
+    kern32 = logits_through(model32, prompts6, forced, "cuda", S6 + G6)
+    r6_f32 = dict(ops.route_launches)     # f32 prefill takes cuda_core
+    log(f"[6] f32 kernel path, prefill + 3 decode steps: attention routes "
+        f"{r6_f32}")
+    if not (r6_f32["cuda_core"] and r6_f32["decode_split"]):
+        raise AssertionError(f"f32 attention routes {r6_f32}")
+    plain32 = logits_through(model32, prompts6, forced, "ref", S6 + G6)
+    model = make_model(cfg, device="cuda", seed=0)
+    same_draw = round_weights(model32, model)
+    ref32 = logits_through(model32, prompts6, forced, "ref", S6 + G6)
+    del model32
+    torch.cuda.empty_cache()
+    kern16 = logits_through(model, prompts6, forced, "cuda", S6 + G6)
+    plain16 = logits_through(model, prompts6, forced, "ref", S6 + G6)
+    summary["p6b"] = decode_profile(model, prompts6, forced, S6 + G6)
+    del model
+    torch.cuda.empty_cache()
+    for name, kern in (("float32", kern32), ("bfloat16", kern16)):
+        if not (torch.isfinite(kern).all()
+                and kern.shape == (B6, 4, cfg.vocab)):
+            raise AssertionError(f"{name} logits not finite or misshapen: "
+                                 f"{tuple(kern.shape)}")
+    gap32, scale32 = (float((kern32 - plain32).abs().max()),
+                      float(plain32.abs().max()))
     if not gap32 <= F32_LOGIT_TOL * scale32:
         raise AssertionError(f"f32 kernel path off the plain path by "
                              f"{gap32} > {F32_LOGIT_TOL} x {scale32}")
+    errs6 = bf16_errors(kern16, plain16, ref32)
+    log(f"[6] f32 kernel path vs plain path, prefill + 3 decode steps: max "
+        f"|diff| {gap32:.6g}, max |logit| {scale32:.6g}, ratio "
+        f"{gap32 / scale32:.6g}")
+    log(f"[6] bf16 paths against the f32 plain path at the bf16 weights "
+        f"(make_model draws the f32 weights the bf16 model rounds: "
+        f"{same_draw}), shares of its largest |logit|: kernel "
+        f"{errs6['bf16_kernel_err']}, plain {errs6['bf16_plain_err']} "
+        f"(ratio {errs6['bf16_err_ratio']}); kernel vs plain in bf16 "
+        f"{errs6['bf16_gap']}")
     summary["p6"] = {
         "prefill_s": sig(res.prefill_s), "ms_per_token": sig(
             res.ms_per_token), "tok_s": sig(res.tokens_per_s),
         "peak_B": peak6, "launches": l6, "routes": r6,
-        "f32_routes": r6_f32,
-        "f32_gap": sig(gap32 / scale32),
-        "bf16_gap": sig(gaps["bfloat16"][0] / gaps["bfloat16"][1])}
+        "f32_routes": r6_f32, "f32_gap": sig(gap32 / scale32), **errs6,
+        "same_draw": same_draw, "scan_prefill_ms": sig(scan_ms)}
 
     # ----------------------------------------- 7. serve olmoe-1b-7b (MoE)
     from repro_torch.core.placement import SMOKE, drift_replay
@@ -1414,52 +1550,62 @@ def main() -> int:
         f"launches {l7}; attention routes {r7}; grouped-matmul routes "
         f"{g7}; sample {res7.tokens[0][:8].tolist()}")
     prompts7 = torch.from_numpy(make_prompts(cfg7, B7, S7, 0)).cuda()
-    forced7 = torch.from_numpy(res7.tokens[:, :3]).cuda()
-    model = make_model(cfg7, device="cuda", seed=0)
-    summary["p7b"] = decode_profile(model, prompts7, forced7, S7 + G7,
-                                    tag="7b")
-    if summary["p7b"].get("d2h_per_step") != 1:
-        raise AssertionError(f"decode is not one device->host copy a step: "
-                             f"{summary['p7b']}")
-    kern = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
-    plain = logits_through(model, prompts7, forced7, "ref", S7 + G7)
-    gap16, scale16 = (float((kern - plain).abs().max()),
-                      float(plain.abs().max()))
-    del model, kern, plain
-    torch.cuda.empty_cache()
-    model = make_model(cfg7.with_(dtype="float32"), device="cuda", seed=0)
+    forced7 = torch.from_numpy(make_prompts(cfg7, B7, 3, 1)).cuda()
+    # as in phase 6: the f32 model's own draw through both paths, gated;
+    # then the bf16 model's weights, cast, through the plain versions
+    model32 = make_model(cfg7.with_(dtype="float32"), device="cuda", seed=0)
     ops.reset_launches()
-    layer_errs = moe_layer_check(model, prompts7)
+    layer_errs = moe_layer_check(model32, prompts7)
     log(f"[7] f32 MoE block per layer on one input, kernel vs plain: max "
         f"abs err {max(layer_errs):.6g} (a2a and tp, {len(layer_errs)} "
         f"checks within {MODEL_TOL[('gmm', 'float32')]})")
-    kern = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
+    kern = logits_through(model32, prompts7, forced7, "cuda", S7 + G7)
     g7_f32 = dict(ops.gmm_route_launches)     # the f32 checks' products
     log(f"[7] f32 checks (MoE blocks, prefill + 3 decode steps): "
         f"grouped-matmul routes {g7_f32}")
     if not (g7_f32["cuda_core"] and g7_f32["gmv"]) or g7_f32["gmm_tc"]:
         raise AssertionError(f"f32 grouped-matmul routes {g7_f32}")
-    plain = logits_through(model, prompts7, forced7, "ref", S7 + G7)
-    if not (torch.isfinite(kern).all()
-            and kern.shape == (B7, 4, cfg7.vocab)):
-        raise AssertionError(f"f32 logits not finite or misshapen: "
-                             f"{tuple(kern.shape)}")
+    plain = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
     gap32, scale32 = (float((kern - plain).abs().max()),
                       float(plain.abs().max()))
     flips = None
     if not gap32 <= F32_LOGIT_TOL * scale32:
-        flips = route_flips(model, prompts7)
+        flips = route_flips(model32, prompts7)
         log(f"[7] f32 logits off by {gap32} > {F32_LOGIT_TOL} x {scale32}; "
             f"the route traces differ in {flips} top-k choices")
         if flips == 0:
             raise AssertionError("f32 kernel path off the plain path with "
                                  "identical routing")
-    del model, kern, plain
+    del plain
+    model = make_model(cfg7, device="cuda", seed=0)
+    same_draw7 = round_weights(model32, model)
+    ref32 = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
+    del model32
     torch.cuda.empty_cache()
-    log(f"[7] kernel path vs plain path, prefill + 3 decode steps: f32 max "
+    summary["p7b"] = decode_profile(model, prompts7, forced7, S7 + G7,
+                                    tag="7b")
+    if summary["p7b"].get("d2h_per_step") != 1:
+        raise AssertionError(f"decode is not one device->host copy a step: "
+                             f"{summary['p7b']}")
+    kern16 = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
+    plain16 = logits_through(model, prompts7, forced7, "ref", S7 + G7)
+    del model
+    for name, k in (("float32", kern), ("bfloat16", kern16)):
+        if not (torch.isfinite(k).all() and k.shape == (B7, 4, cfg7.vocab)):
+            raise AssertionError(f"{name} logits not finite or misshapen: "
+                                 f"{tuple(k.shape)}")
+    errs7 = bf16_errors(kern16, plain16, ref32)
+    del kern, kern16, plain16, ref32
+    torch.cuda.empty_cache()
+    log(f"[7] f32 kernel path vs plain path, prefill + 3 decode steps: max "
         f"|diff| {gap32:.6g} of max |logit| {scale32:.6g} (ratio "
-        f"{gap32 / scale32:.6g}); bf16 {gap16:.6g} of {scale16:.6g} (ratio "
-        f"{gap16 / scale16:.6g})")
+        f"{gap32 / scale32:.6g})")
+    log(f"[7] bf16 paths against the f32 plain path at the bf16 weights "
+        f"(make_model draws the f32 weights the bf16 model rounds: "
+        f"{same_draw7}), shares of its largest |logit|: kernel "
+        f"{errs7['bf16_kernel_err']}, plain {errs7['bf16_plain_err']} "
+        f"(ratio {errs7['bf16_err_ratio']}); kernel vs plain in bf16 "
+        f"{errs7['bf16_gap']}")
     replay = {}
     for drift in (0.8, 0.0):
         t0 = time.perf_counter()
@@ -1486,7 +1632,7 @@ def main() -> int:
         "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
         "plan_launches": pl["launches"]["min_cover_lambdas"],
         "layer_err": sig(max(layer_errs)), "f32_gap": sig(gap32 / scale32),
-        "route_flips": flips, "bf16_gap": sig(gap16 / scale16),
+        "route_flips": flips, **errs7, "same_draw": same_draw7,
         "replay": {str(k): v for k, v in replay.items()}, "s": sig(s7)}
 
     # ----------------------------------------------------- kernel line
@@ -1598,7 +1744,10 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/"
                       f"{SOURCES[KERNEL_OF[name]]}.cu",
             "replaces": REPLACES[name], "launches": l6[name] + l7[name],
-            **row_fields(row)})
+            **row_fields(row), "bound_terms_ms": row["bound_terms_ms"],
+            "exp_sfu_share": row["exp_sfu_share"]})
+        if "empty_ms" in row:
+            kernels[-1]["empty_ms"] = row["empty_ms"]
     # grouped matmul: one entry per route of the bf16 serve runs, timed at
     # the fill-aware case of its commonest path shape (the path hands the
     # kernel the slot fills), the full buffers beside it; and cuda_core

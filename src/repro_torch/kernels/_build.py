@@ -33,10 +33,12 @@ SIGNATURES = {
     },
     # (uncov, lam, masks, mu, colsub, pc, fits, xinc, inc_edges, perm,
     #  bounds, work, scratch, out, n, P, rep, Q, NA, start_pos, resume_p,
-    #  maxrep, stream); the empty launch: (P, rep, stream)
+    #  maxrep, stream); the find's cooperative grid: (P, rep); an empty
+    #  kernel: (grid, block, cooperative, stream)
     "front_find": {
         "repro_front_find": (_P,) * 14 + (_I,) * 8 + (_P,),
-        "repro_front_find_empty": (_I, _I, _P),
+        "repro_front_find_grid": (_I, _I),
+        "repro_empty_launch": (_I, _I, _I, _P),
     },
     # (q, k, v, o, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal, window,
     #  scale, is_bf16, stream)
@@ -74,7 +76,7 @@ SIGNATURES = {
 # sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
 # shared memory and spills, kept per source in ``build_log``
 PTXAS_REPORT = ("attention_prefill_tc", "attention_decode", "moe_gmm_tc",
-                "moe_gmm", "front_find")
+                "moe_gmm", "front_find", "mamba_scan")
 build_log: dict[str, str] = {}
 
 

@@ -86,6 +86,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -472,39 +474,42 @@ int coop_grid(const void* kernel) {
 }
 
 template <int P, bool REP>
-int launch(FindArgs a, bool empty, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&front_find_kernel<P, REP>);
+int find_grid() {
   static int grid = 0;   // per instance, fixed for the process's device
-  if (grid == 0) grid = coop_grid(kernel);
+  if (grid == 0)
+    grid = coop_grid(reinterpret_cast<const void*>(&front_find_kernel<P, REP>));
+  return grid;
+}
+
+template <int P, bool REP>
+int launch(FindArgs a, cudaStream_t stream) {
+  const int grid = find_grid<P, REP>();
   if (grid == 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
   void* args[] = {&a};
-  if (empty) {
-    return static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(&empty_kernel), dim3(grid),
-        dim3(kThreads), nullptr, 0, stream));
-  }
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(kThreads), args, 0, stream);
+      reinterpret_cast<const void*>(&front_find_kernel<P, REP>), dim3(grid),
+      dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool REP>
-int dispatch(int P, FindArgs a, bool empty, cudaStream_t s) {
+// ``f(std::integral_constant<int, P>{})`` for P in 1..12, else ``bad``
+template <typename F>
+int dispatch(int P, F&& f, int bad) {
   switch (P) {
-    case 1: return launch<1, REP>(a, empty, s);
-    case 2: return launch<2, REP>(a, empty, s);
-    case 3: return launch<3, REP>(a, empty, s);
-    case 4: return launch<4, REP>(a, empty, s);
-    case 5: return launch<5, REP>(a, empty, s);
-    case 6: return launch<6, REP>(a, empty, s);
-    case 7: return launch<7, REP>(a, empty, s);
-    case 8: return launch<8, REP>(a, empty, s);
-    case 9: return launch<9, REP>(a, empty, s);
-    case 10: return launch<10, REP>(a, empty, s);
-    case 11: return launch<11, REP>(a, empty, s);
-    case 12: return launch<12, REP>(a, empty, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    default: return bad;
   }
 }
 
@@ -541,13 +546,37 @@ extern "C" int repro_front_find(void* uncov, void* lam, void* masks,
   a.resume_p = resume_p;
   a.maxrep = maxrep;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return rep ? dispatch<true>(P, a, false, s) : dispatch<false>(P, a, false, s);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (rep) {
+    return dispatch(
+        P, [&](auto p) { return launch<decltype(p)::value, true>(a, s); },
+        bad);
+  }
+  return dispatch(
+      P, [&](auto p) { return launch<decltype(p)::value, false>(a, s); }, bad);
 }
 
-// An empty kernel launched cooperatively on the grid of the find for (P,
-// rep): the launch-latency floor beside the find's time.
-extern "C" int repro_front_find_empty(int P, int rep, void* stream) {
-  FindArgs a{};
+// The cooperative grid of the find for (P, rep), in CTAs of 256 threads;
+// 0 if it cannot run.
+extern "C" int repro_front_find_grid(int P, int rep) {
+  if (rep)
+    return dispatch(
+        P, [](auto p) { return find_grid<decltype(p)::value, true>(); }, 0);
+  return dispatch(
+      P, [](auto p) { return find_grid<decltype(p)::value, false>(); }, 0);
+}
+
+// An empty kernel on ``grid`` CTAs of ``block`` threads, launched
+// cooperatively if asked: the launch-latency floor beside a kernel's time
+// (the find's, the scan's decode step's).
+extern "C" int repro_empty_launch(int grid, int block, int cooperative,
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return rep ? dispatch<true>(P, a, true, s) : dispatch<false>(P, a, true, s);
+  if (cooperative) {
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(&empty_kernel), dim3(grid), dim3(block),
+        nullptr, 0, s));
+  }
+  empty_kernel<<<grid, block, 0, s>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,7 @@ __all__ = ["FindInputs", "front_find", "front_find_ref", "launch",
            "pack_work", "upload_work"]
 
 _BIG = int(np.iinfo(np.int32).max)
+THREADS = 256                      # per CTA of the find (csrc kThreads)
 _INT32 = (torch.int32,)
 
 
@@ -284,13 +285,26 @@ def front_find(x: FindInputs, queue, blocks: np.ndarray, *, rep: bool,
                           resume_p=resume_p, maxrep=maxrep)
 
 
-def empty_launch(P: int, rep: bool, device: torch.device) -> None:
-    """An empty cooperative launch on the grid of the find for (P, rep):
-    the launch-latency floor the smoke run prints beside the find."""
+def find_grid(P: int, rep: bool, device: torch.device) -> int:
+    """The cooperative grid of the find for (P, rep) on ``device``, in CTAs
+    of ``THREADS`` threads."""
     from ._build import load
     with torch.cuda.device(device):
-        err = load("front_find").repro_front_find_empty(
-            P, int(rep), torch.cuda.current_stream(device).cuda_stream)
+        grid = load("front_find").repro_front_find_grid(P, int(rep))
+    if grid <= 0:
+        raise RuntimeError(f"the find for P={P} cannot run cooperatively")
+    return grid
+
+
+def empty_launch(grid: int, block: int, device: torch.device,
+                 cooperative: bool = False) -> None:
+    """An empty kernel on ``grid`` CTAs of ``block`` threads (a cooperative
+    launch if asked): the launch-latency floor that the smoke run prints
+    beside a kernel of the same grid, the find's or another source's."""
+    from ._build import load
+    with torch.cuda.device(device):
+        err = load("front_find").repro_empty_launch(
+            grid, block, int(cooperative),
+            torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"empty launch failed: CUDA error {err}")
-

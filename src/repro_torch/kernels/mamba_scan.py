@@ -2,9 +2,9 @@
 
 The kernel replaces the JAX package's Pallas ``mamba_scan`` and also takes
 the initial state that the JAX ``ops.mamba_scan`` sends to its jnp
-reference, so the decode step runs it too (S = 1).  ``ops.mamba_scan``
-dispatches here for CUDA tensors; ``ref.mamba_scan_ref`` is the plain
-version.
+reference, so the decode step runs it too (S = 1, the source's step
+kernel).  ``ops.mamba_scan`` dispatches here for CUDA tensors;
+``ref.mamba_scan_ref`` is the plain version.
 """
 from __future__ import annotations
 
@@ -59,3 +59,4 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     ops.launches["mamba_scan" if init_state is None else "mamba_step"] += 1
     return y, last
+

@@ -319,30 +319,67 @@ def test_decode_split_fully_masked_rows_are_zero(cuda, dtype):
                                atol=tol)
 
 
-def _scan_inputs(B, S, di, N, dtype, dev, seed):
+def _scan_inputs(B, S, di, N, dtype, dev, seed, dt_kind="small"):
+    """``dt_kind`` "small": dt = |normal| / 10 and A = -|normal| - 0.1 (long
+    memories); "large": dt = softplus(normal) * 4 and the models' A = -(1,
+    ..., N), so that the larger states' exps underflow."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
     u = rnd(B, S, di).to(dtype)
-    dt = (rnd(B, S, di).abs() * 0.1).to(dtype)
-    A = -rnd(di, N).abs() - 0.1
+    if dt_kind == "large":
+        dt = (torch.nn.functional.softplus(rnd(B, S, di)) * 4).to(dtype)
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=dev).expand(di, N).contiguous()
+    else:
+        dt = (rnd(B, S, di).abs() * 0.1).to(dtype)
+        A = -rnd(di, N).abs() - 0.1
     Bc, Cc = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype)
     return u, dt, A, Bc, Cc, rnd(di)
 
 
+# (B, S, di, N, with a state, dt kind): the prefill kernel stages 16 steps
+# at a time, and a warp (a block) holds 32 / (N / 4) channels, 8 at
+# N = 16; rows that are not 16-byte aligned take the element-wise path;
+# S = 1 takes the step kernel
+SCAN_CASES = [
+    (2, 100, 70, 4, False, "small"), (1, 256, 64, 16, False, "small"),
+    (3, 1, 96, 16, True, "small"), (2, 37, 40, 4, True, "small"),
+    # di not a multiple of the channel tile: element-wise (70, 3204) and
+    # 16-byte (3208 at N = 8, 16 channels a warp)
+    (2, 100, 70, 16, False, "small"), (2, 64, 3204, 16, False, "small"),
+    (2, 64, 3208, 8, False, "small"),
+    # S below, equal to and not a multiple of the chunk
+    (2, 5, 128, 16, False, "small"), (2, 16, 128, 16, True, "small"),
+    (2, 100, 128, 16, False, "small"),
+    # every state size
+    *[(2, 70, 96, n, False, "small") for n in (1, 2, 4, 8, 16)],
+    (2, 1, 96, 8, True, "small"), (2, 1, 96, 1, True, "small"),
+    # a long sequence
+    (1, 4096, 128, 16, False, "small"),
+    # large dt: exps underflow
+    (2, 100, 128, 16, False, "large"), (2, 1, 128, 16, True, "large"),
+    # B = 1
+    (1, 100, 192, 8, True, "small"),
+    # the decode step at hymba's shape
+    (4, 1, 3200, 16, True, "large"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,di,N,state", [
-    (2, 100, 70, 4, False), (1, 256, 64, 16, False),
-    (3, 1, 96, 16, True), (2, 37, 40, 4, True)])
-def test_scan_kernel_matches_plain_version(cuda, B, S, di, N, state, dtype):
-    u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di)
+@pytest.mark.parametrize("B,S,di,N,state,dt_kind", SCAN_CASES)
+def test_scan_kernel_matches_plain_version(cuda, B, S, di, N, state, dt_kind,
+                                           dtype):
+    u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di,
+                                       dt_kind)
     h0 = (torch.randn((B, di, N), device=cuda) if state else None)
     ops.reset_launches()
     y, last = ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
     torch.cuda.synchronize()
     assert ops.launches["mamba_step" if state else "mamba_scan"] == 1
+    assert sum(ops.launches.values()) == 1
     y_ref, last_ref = ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=h0)
     tol = _ATOL[dtype]["scan"]
     assert y.dtype == dtype and last.dtype == torch.float32

@@ -19,11 +19,16 @@ from repro.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 SHAPES_SCAN = [
-    # (B, S, di, N, chunk), as tests/test_kernels.py
+    # (B, S, di, N, chunk), as tests/test_kernels.py; then N = 1 and N = 8,
+    # and (a sixth entry True) large dt with the models' A, where the exps
+    # of the larger states underflow
     (1, 8, 4, 2, 4),
     (2, 16, 8, 4, 8),
     (1, 32, 16, 4, 8),
     (2, 64, 8, 16, 16),
+    (2, 16, 8, 1, 8),
+    (1, 32, 16, 8, 8),
+    (2, 32, 8, 16, 8, True),
 ]
 _TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
@@ -37,16 +42,25 @@ def _to_torch(a):
 
 def _inputs(shape, dtype, seed):
     """u, dt, A, Bc, Cc, D as tests/test_kernels.py draws them, for JAX
-    and (bit for bit) for torch."""
+    and (bit for bit) for torch; with ``shape[5]`` True, dt =
+    softplus(normal) * 4 and the models' A = -(1, ..., N), so that
+    exp(dt * A) reaches below 1e-38."""
     B, S, di, N = shape[:4]
+    big_dt = len(shape) > 5 and shape[5]
     rng = np.random.default_rng(seed)
 
     def rand(s, dt):
         return jnp.asarray(rng.normal(size=s).astype(np.float32), dt)
 
     u = rand((B, S, di), dtype)
-    dt = jnp.abs(rand((B, S, di), dtype)) * 0.1
-    A = -jnp.abs(rand((di, N), jnp.float32)) - 0.1
+    if big_dt:
+        x = rng.normal(size=(B, S, di)).astype(np.float32)
+        dt = jnp.asarray(np.logaddexp(0, x).astype(np.float32) * 4, dtype)
+        A = -jnp.broadcast_to(jnp.arange(1, N + 1, dtype=jnp.float32),
+                              (di, N))
+    else:
+        dt = jnp.abs(rand((B, S, di), dtype)) * 0.1
+        A = -jnp.abs(rand((di, N), jnp.float32)) - 0.1
     Bc = rand((B, S, N), dtype)
     Cc = rand((B, S, N), dtype)
     D = rand((di,), jnp.float32)
@@ -72,10 +86,13 @@ def test_mamba_scan_ref_matches_pallas_kernel(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 1, 8, 4), (1, 12, 16, 16)])
+@pytest.mark.parametrize("shape", [(2, 1, 8, 4), (1, 12, 16, 16),
+                                   (2, 1, 8, 1), (1, 12, 16, 8),
+                                   (2, 5, 8, 16, 0, True)])
 def test_mamba_scan_ref_with_state_matches_reference(shape, dtype):
-    """A decode step (S = 1) and a chunk, each from a given state."""
-    B, S, di, N = shape
+    """A decode step (S = 1) and a chunk, each from a given state; N = 1
+    and 8, and large dt (``_inputs``)."""
+    B, S, di, N = shape[:4]
     jx, tx = _inputs(shape, getattr(jnp, dtype), 7 + S)
     h0 = np.random.default_rng(S).normal(size=(B, di, N)).astype(np.float32)
     y, last = jref.mamba_scan_reference(*jx, init_state=jnp.asarray(h0))
