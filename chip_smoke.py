@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and drives its three paths through them: replicated
-hypergraph partitioning (``partition_with_replication``), serving
-``hymba-1.5b`` and serving ``olmoe-1b-7b`` with replicated expert
-placement (``launch.serve.serve``).  Phases, in order; any failure
+with ``nvcc`` and drives its paths through them: replicated hypergraph
+partitioning (``partition_with_replication``, flat and as a multilevel
+V-cycle), serving ``hymba-1.5b`` and serving ``olmoe-1b-7b`` with
+replicated expert placement (``launch.serve.serve``), and BSP scheduling
+with replication, whose window pricers run as int32 PyTorch programs on
+the card (``kernels.front_pass.DeviceScheduleWindows``).  Phases, in order; any failure
 propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -78,11 +80,32 @@ propagates and the exit code is nonzero:
    in phase 6.
    Last, the serving benchmark's SMOKE drift replay through the online
    controller on CUDA and on the host path: equal totals, commits and
-   migration bytes.
+   migration bytes;
+8. the V-cycle: ``partition_with_replication(large_row_net(16384),
+   multilevel=True, workers=None)``, P = 8, with ``frontier="torch"`` on
+   CUDA and ``frontier="numpy"``: equal base and replicated masks and
+   costs; per level on the card (levels of at least ``DEVICE_MIN_NODES``
+   nodes) commits, finds, reads and find launches, reads = finds =
+   launches, each pass released; ``min_cover_lambdas`` launched on the
+   coarse levels; the level sizes, both times and peak device memory.
+   Then heavy-pin matching on a 2-worker pool forked after CUDA is up:
+   byte-identical to serial, the pool not failed;
+9. scheduling with replication: on ``sptrsv_dag(6000, band=48)`` and
+   ``psdd_dag(500 leaves, depth 16)`` at P = 8, g = 4, L = 20,
+   ``hill_climb`` of the list schedule with ``backend="torch"`` on CUDA
+   and ``backend="numpy"``, then ``advanced_heuristic``: equal
+   assignments, comms and costs, and the replicated cost against the
+   baseline; then ``multilevel_schedule(large_sptrsv_dag(16384))`` on
+   both backends, equal, with window reads on the card (the engine-scale
+   hill climbs price no window long enough for the device).  The window
+   programs are then timed on the V-cycle's schedule: the host's time
+   per priced window, and under ``torch.profiler`` the kernels one
+   launches and their device time.
 
-Launch counts are reset just before each driven run (phases 3-7) and read
-just after; the kernel line reports those of phases 4 and 5 (the
-``partition_with_replication`` runs) for the gain kernels and those of the
+Launch counts are reset just before each driven run (phases 3-8) and read
+just after; the kernel line reports those of phases 4 and 5 (the flat
+``partition_with_replication`` runs) for the gain kernels, with phase 8's
+beside them (``vcycle_launches``), and those of the
 serve runs of phases 6 and 7, summed, for the model kernels.  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
@@ -969,6 +992,7 @@ class Recorder:
         self.passes: list = []
         self.shapes: Counter = Counter()   # (counter, R, M) -> launches
         self.finds: Counter = Counter()    # (queued, active blocks) -> finds
+        self.level_finds: Counter = Counter()  # level's n -> find launches
         real_attach, real_launch = front_pass.attach, gain._launch
         real_find = front_find.launch
 
@@ -984,6 +1008,8 @@ class Recorder:
 
         def find(x, work, Q, NA, **kw):
             self.finds[(Q, NA)] += 1
+            if kw.get("count_as", "front_find") == "front_find":
+                self.level_finds[x.n] += 1
             return real_find(x, work, Q, NA, **kw)
 
         front_pass.attach, gain._launch = attach, launch
@@ -993,6 +1019,7 @@ class Recorder:
         from repro_torch.kernels import ops
         self.passes.clear()
         self.finds.clear()
+        self.level_finds.clear()
         ops.reset_launches()
 
     def find_shape(self) -> dict:
@@ -1214,6 +1241,331 @@ def find_entry(find_rows: list, launches: int, shape: dict,
             "library_ms": None, "shape": [row["P"], row["blocks"]],
             "call_ms": row["call_ms"], "empty_ms": row["empty_ms"],
             "path_ms": p3b.get("find_ms_per_launch", "not measured")}
+
+
+def check_levels(passes, level_finds: Counter, launches: dict) -> dict:
+    """The V-cycle's device passes by level (its node count): commits,
+    finds, syncs and pass scans, and the level's find launches, which
+    must equal its finds and its reads; every pass released."""
+    levels: dict = {}
+    for d in passes:
+        row = levels.setdefault(d.n, Counter())
+        row["passes"] += 1
+        for k in ("commits", "finds", "syncs", "pass_scans"):
+            row[k] += getattr(d, k)
+        if d.state.device is not None:
+            raise AssertionError(f"a device pass at n={d.n} was not "
+                                 f"released")
+    for lv, row in levels.items():
+        row["launches"] = level_finds[lv]
+        if not row["finds"] == row["syncs"] == row["launches"]:
+            raise AssertionError(f"level n={lv}: {dict(row)}")
+    if sum(level_finds.values()) != launches["front_find"]:
+        raise AssertionError("a find launch outside the V-cycle's passes")
+    return levels
+
+
+def vcycle_phase(rec: Recorder, P: int, eps: float, n: int,
+                 device: str = "cuda") -> dict:
+    """Phase 8: ``partition_with_replication(large_row_net(n), multilevel=
+    True, workers=None)`` with ``frontier="torch"`` on the card and with
+    ``frontier="numpy"``: equal base and replicated masks and costs; on
+    the card, per level, one find launch and one read per find, and the
+    min-cover kernel on the coarse levels.  Then the pool forks after the
+    card is up: sharded heavy-pin matching byte-identical to serial."""
+    import torch
+    from repro_torch.core.partition import multilevel as ml
+    from repro_torch.core.partition.heuristic import (
+        partition_with_replication)
+    from repro_torch.core.partition.parallel import ParallelContext
+    from repro_torch.datagen import large_row_net
+    from repro_torch.kernels import front_pass, ops
+
+    hg = large_row_net(n, seed=n)
+    sizes: list = []
+    real_build = ml.build_levels
+
+    def build(*a, **kw):
+        out = real_build(*a, **kw)
+        sizes.append([lv.n for lv in out[0]])
+        return out
+
+    runs = {}
+    ml.build_levels = build
+    try:
+        for frontier in ("torch", "numpy"):
+            rec.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            base, rep = partition_with_replication(
+                hg, P, eps, multilevel=True, workers=None, frontier=frontier,
+                device=device)
+            torch.cuda.synchronize()
+            runs[frontier] = {
+                "base": base, "rep": rep, "s": time.perf_counter() - t0,
+                "launches": dict(ops.launches), "passes": list(rec.passes),
+                "level_finds": Counter(rec.level_finds),
+                "peak_B": torch.cuda.max_memory_allocated()}
+    finally:
+        ml.build_levels = real_build
+    t, h = runs["torch"], runs["numpy"]
+    for a, b in ((t["base"], h["base"]), (t["rep"], h["rep"])):
+        if not (np.array_equal(a.masks, b.masks) and a.cost == b.cost):
+            raise AssertionError("the V-cycle on the card differs from the "
+                                 "host path")
+    if h["passes"] or any(h["launches"].values()):
+        raise AssertionError(f"the numpy V-cycle used the card: "
+                             f"{h['launches']}")
+    for res in (t["base"], t["rep"]):
+        check_result(hg, P, eps, res)
+    if not t["rep"].cost <= t["base"].cost:
+        raise AssertionError("replication made the V-cycle's cost worse")
+    check_bounds(t["passes"], t["launches"])
+    levels = check_levels(t["passes"], t["level_finds"], t["launches"])
+    if min(levels, default=0) < front_pass.DEVICE_MIN_NODES:
+        raise AssertionError(f"device pass below the floor: {list(levels)}")
+    if t["launches"]["min_cover_lambdas"] == 0:
+        raise AssertionError("min_cover_lambdas never launched on the "
+                             "coarse levels")
+    stops = ml._refinement_schedule(len(sizes[0]),
+                                    ml.MultilevelOptions().refine_every)
+    log(f"[8] V-cycle on large_row_net({n}) P={P}: levels {sizes[0]}, "
+        f"refined at n {[sizes[0][i] for i in stops]}; base cost "
+        f"{t['base'].cost}, replicated {t['rep'].cost}, equal on cuda "
+        f"({t['s']:.2f} s) and numpy ({h['s']:.2f} s); launches "
+        f"{t['launches']}; per level on the card (n: counts) "
+        + "; ".join(f"{lv}: {dict(row)}" for lv, row in sorted(levels.items(),
+                                                              reverse=True))
+        + f"; max_memory_allocated {t['peak_B']} B")
+
+    # the pool, forked after the card is up: its workers run numpy only
+    cap = (min(ml.MultilevelOptions().cluster_cap_frac, 0.5 * eps)
+           * float(hg.omega.sum()) / P)
+    t0 = time.perf_counter()
+    with ParallelContext(2) as ctx:
+        cm_p, nc_p = ml.heavy_pin_matching(hg, cap, np.random.default_rng(0),
+                                           ctx=ctx)
+        failed, method = ctx.failed, ctx.start_method
+    s_pool = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cm_s, nc_s = ml.heavy_pin_matching(hg, cap, np.random.default_rng(0))
+    s_serial = time.perf_counter() - t0
+    if failed or nc_p != nc_s or cm_p.tobytes() != cm_s.tobytes():
+        raise AssertionError(f"pooled matching ({method}): failed={failed}, "
+                             f"{nc_p} clusters against {nc_s} serial")
+    log(f"[8] heavy_pin_matching on a 2-worker pool ({method}, after CUDA "
+        f"init): {nc_p} clusters, byte-identical to serial; "
+        f"{s_pool:.2f} s pooled, {s_serial:.2f} s serial")
+    return {"n": n, "levels": sizes[0],
+            "refined_at": [sizes[0][i] for i in stops],
+            "cuda_s": sig(t["s"]), "numpy_s": sig(h["s"]),
+            "base": t["base"].cost, "rep": t["rep"].cost,
+            "launches": {k: v for k, v in t["launches"].items() if v},
+            "per_level": {str(lv): dict(row) for lv, row in levels.items()},
+            "peak_B": t["peak_B"], "pool": method,
+            "pool_s": sig(s_pool), "serial_match_s": sig(s_serial)}
+
+
+def window_probe(sched, device: str = "cuda", calls: int = 50) -> dict:
+    """Each window program of ``DeviceScheduleWindows`` on one state of
+    ``sched``: the longest comm window, the longest compute window and the
+    node move touching the most supersteps (the floor on touched steps
+    lowered so that the move takes the device fold).  Per priced window:
+    the host's time for the whole call (``call_ms``, its read included)
+    and, under ``torch.profiler``, the kernels it launches and their
+    device time (``device_ms``), copies apart.  Each result is held
+    against the numpy front."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.frontier import schedule_front as sf
+    from repro_torch.core.schedule import list_sched
+    from repro_torch.kernels import front_pass
+
+    def width(lo_hi):
+        return lo_hi[1] - lo_hi[0] + 1
+
+    (v, dst) = max(sorted(sched.comms),
+                   key=lambda k: width(list_sched._comm_window(sched, *k)))
+    lo, hi = list_sched._comm_window(sched, v, dst)
+    ts_c = np.arange(lo, hi + 1)
+    single = [u for u in range(sched.inst.dag.n)
+              if len(sched.assign[u]) == 1]
+    comp = [(u, next(iter(sched.assign[u]))) for u in single
+            if (u, next(iter(sched.assign[u]))) not in sched.comms]
+    (u, p) = max(comp, key=lambda k: width(list_sched._comp_window(sched,
+                                                                   *k)))
+    lo2, hi2 = list_sched._comp_window(sched, u, p)
+    ts_p = np.arange(lo2, hi2 + 1)
+    w = max(single, key=lambda k: len(front_pass._node_move_cells(sched, k)))
+    T = len(front_pass._node_move_cells(sched, w))
+    win = front_pass.DeviceScheduleWindows(sched, device=device)
+    progs = {
+        "comm": (lambda: win.price_comm_moves(v, dst, ts_c),
+                 lambda: sf.price_comm_moves(sched, v, dst, ts_c), len(ts_c)),
+        "comp": (lambda: win.price_comp_moves(u, p, ts_p),
+                 lambda: sf.price_comp_moves(sched, u, p, ts_p), len(ts_p)),
+        "node": (lambda: win.price_node_moves(w),
+                 lambda: sf.price_node_moves(sched, w), T)}
+    saved = front_pass.DEVICE_MIN_STEPS
+    front_pass.DEVICE_MIN_STEPS = 1
+    out = {}
+    try:
+        for kind, (dev, host, size) in progs.items():
+            if not np.array_equal(dev(), host()):
+                raise AssertionError(f"{kind} window differs from numpy")
+            for _ in range(5):
+                dev()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                dev()
+            call_ms = (time.perf_counter() - t0) / calls * 1e3
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                host()
+            host_ms = (time.perf_counter() - t0) / calls * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    dev()
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+            kern = [e for e in ev if not e.key.startswith("Memcpy")]
+            copies = sum(e.count for e in ev if e.key.startswith("Memcpy"))
+            dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+            out[kind] = {
+                "size": size, "call_ms": sig(call_ms),
+                "numpy_ms": sig(host_ms),
+                "launches_per_window": sig(sum(e.count for e in kern)
+                                           / calls) if kern else
+                "not measured",
+                "device_ms": sig(dev_ms / calls) if kern else
+                "not measured",
+                "copies_per_window": sig(copies / calls)}
+    finally:
+        front_pass.DEVICE_MIN_STEPS = saved
+    return out
+
+
+def schedule_phase(P: int, g: float, L: float, n_ml: int,
+                   device: str = "cuda") -> dict:
+    """Phase 9: scheduling with replication on the card.  On the engine-
+    scale pair (``sptrsv_6000``, ``psdd_2035``): ``hill_climb`` of the
+    list schedule, then ``advanced_heuristic``, with ``backend="torch"``
+    on the card and ``backend="numpy"`` -- equal assignments, comms and
+    costs; then ``multilevel_schedule`` on ``large_sptrsv_dag(n_ml)`` on
+    both.  The windows priced on the card are counted (syncs, refreshes,
+    launches per program), and must be some."""
+    import torch
+    from repro_torch.core.schedule import (BspInstance, advanced_heuristic,
+                                           bspg_schedule, hill_climb,
+                                           multilevel_schedule)
+    from repro_torch.datagen import large_sptrsv_dag, psdd_dag, sptrsv_dag
+    from repro_torch.kernels import front_pass
+
+    wins: list = []
+    sizes: dict = {"comm": [], "comp": []}   # window lengths priced
+    Real = front_pass.DeviceScheduleWindows
+
+    class Counted(Real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            wins.append(self)
+
+        def price_comm_moves(self, v, dst, ts):
+            sizes["comm"].append(len(ts))
+            return super().price_comm_moves(v, dst, ts)
+
+        def price_comp_moves(self, v, p, ts):
+            sizes["comp"].append(len(ts))
+            return super().price_comp_moves(v, p, ts)
+
+    def counts() -> dict:
+        out = Counter()
+        for w in wins:
+            out["windows"] += 1
+            out["syncs"] += w.syncs
+            out["refreshes"] += w.refreshes
+            for k, c in w.launches.items():
+                out[f"{k}_launches"] += c
+        for k, got in sizes.items():
+            if got:
+                out[f"{k}_len_median"] = int(np.median(got))
+                out[f"{k}_len_max"] = max(got)
+            got.clear()
+        return dict(out)
+
+    def same(a, b) -> bool:
+        return (a.current_cost() == b.current_cost() and a.assign == b.assign
+                and a.comms == b.comms)
+
+    out: dict = {}
+    front_pass.DeviceScheduleWindows = Counted
+    try:
+        for name, dag in (("sptrsv_6000", sptrsv_dag(n=6000, band=48,
+                                                     seed=0)),
+                          ("psdd_2035", psdd_dag(n_leaves=500, depth=16,
+                                                 seed=0))):
+            inst = BspInstance(dag, P=P, g=g, L=L)
+            res = {}
+            for backend in ("torch", "numpy"):
+                wins.clear()
+                t0 = time.perf_counter()
+                hc = hill_climb(bspg_schedule(inst, seed=0), seed=0,
+                                backend=backend, device=device)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                adv = advanced_heuristic(hc.copy())
+                t2 = time.perf_counter()
+                res[backend] = (hc, adv, t1 - t0, t2 - t1, counts())
+            (hc, adv, s_hc, s_adv, c), (hcn, advn, s_hcn, s_advn, cn) = \
+                res["torch"], res["numpy"]
+            if not (same(hc, hcn) and same(adv, advn)):
+                raise AssertionError(f"{name}: the schedule on the card "
+                                     f"differs from the host path's")
+            if cn or not c.get("windows"):
+                raise AssertionError(f"{name}: windows {c} / {cn}")
+            if adv.validate():
+                raise AssertionError(f"{name}: invalid replicated schedule")
+            base_c, rep_c = hc.current_cost(), adv.current_cost()
+            log(f"[9] {name} (n={dag.n}) P={P} g={g} L={L}: hill_climb "
+                f"cost {base_c} on cuda ({s_hc:.3f} s) and numpy "
+                f"({s_hcn:.3f} s); advanced_heuristic {rep_c} "
+                f"({s_adv:.3f} s after the card's climb, {s_advn:.3f} s "
+                f"after numpy's): {100 * (1 - rep_c / base_c):.2f} % "
+                f"below the baseline; windows on the card {c}")
+            out[name] = {"n": dag.n, "base": base_c, "rep": rep_c,
+                         "reduction_pct": sig(100 * (1 - rep_c / base_c)),
+                         "hc_cuda_s": sig(s_hc), "hc_numpy_s": sig(s_hcn),
+                         "adv_s": [sig(s_adv), sig(s_advn)], "windows": c}
+        dag = large_sptrsv_dag(n=n_ml, band=48, seed=0)
+        inst = BspInstance(dag, P=P, g=g, L=L)
+        res = {}
+        for backend in ("torch", "numpy"):
+            wins.clear()
+            t0 = time.perf_counter()
+            sched = multilevel_schedule(inst, seed=0, backend=backend,
+                                        device=device)
+            torch.cuda.synchronize()
+            res[backend] = (sched, time.perf_counter() - t0, counts())
+        (mt, s_t, c), (mn, s_n, cn) = res["torch"], res["numpy"]
+    finally:
+        front_pass.DeviceScheduleWindows = Real
+    if not same(mt, mn):
+        raise AssertionError("multilevel_schedule on the card differs from "
+                             "the host path's")
+    if cn or not c.get("syncs"):
+        raise AssertionError(f"multilevel_schedule: no window priced on "
+                             f"the card ({c}; numpy {cn})")
+    if mt.validate():
+        raise AssertionError("multilevel_schedule: invalid schedule")
+    log(f"[9] multilevel_schedule on large_sptrsv_dag({n_ml}): cost "
+        f"{mt.current_cost()} ({mt.S} supersteps) on cuda ({s_t:.2f} s) and "
+        f"numpy ({s_n:.2f} s); windows on the card {c}")
+    out["ml"] = {"n": n_ml, "cost": mt.current_cost(), "S": mt.S,
+                 "cuda_s": sig(s_t), "numpy_s": sig(s_n), "windows": c}
+    out["probe"] = window_probe(mt, device)
+    log(f"[9] window programs on the V-cycle's schedule: {out['probe']}")
+    return out
 
 
 def main() -> int:
@@ -1635,6 +1987,17 @@ def main() -> int:
         "route_flips": flips, **errs7, "same_draw": same_draw7,
         "replay": {str(k): v for k, v in replay.items()}, "s": sig(s7)}
 
+    # ------------------------------------------------ 8. the V-cycle
+    t8 = time.perf_counter()
+    summary["p8"] = vcycle_phase(rec, P, eps, n=16384)
+    log(f"[8] phase 8 took {time.perf_counter() - t8:.2f} s")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ 9. scheduling with replication
+    t9 = time.perf_counter()
+    summary["p9"] = schedule_phase(P=8, g=4.0, L=20.0, n_ml=16384)
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.2f} s")
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -1668,6 +2031,9 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": [R, M], "call_ms": row["call_ms"]})
+    # the partition kernels' launches on the V-cycle's path (phase 8)
+    for k in kernels:
+        k["vcycle_launches"] = summary["p8"]["launches"].get(k["name"], 0)
     shapes_model = shapes6 + shapes7
     log(f"model kernel launch shapes (counter, key, dtype): count, phases "
         f"6+7: {dict(shapes_model.most_common(14))}")

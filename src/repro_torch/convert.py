@@ -1,7 +1,7 @@
 """Carry the JAX package's state across to the port.
 
-The partitioner's "weights" are its instances: a hypergraph's CSR arrays
-and weights.  Partitions need no conversion: both packages take them as
+The partitioner's and the scheduler's "weights" are their instances: a
+hypergraph's CSR arrays and weights, a DAG's edge arrays and weights.  Partitions need no conversion: both packages take them as
 int64 numpy arrays of processor-subset masks (bit p set = a replica on
 processor p).  The serving model's weights are a JAX parameter pytree,
 handed over with numpy leaves (``model_state_from_jax``).
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.hypergraph import Hypergraph
+from .core.hypergraph import Dag, Hypergraph
 from .models.config import ModelConfig
 
 
@@ -45,6 +45,24 @@ def hypergraph_from_arrays(n: int, xpins, pins, omega, mu,
     return Hypergraph.from_csr(n, xpins, pins, omega=omega, mu=mu,
                                name=name or "hypergraph")
 
+
+def dag_from_arrays(n: int, src, dst, omega, mu,
+                    name: str | None = None) -> Dag:
+    """The port's ``Dag`` from flat edge arrays (``src``/``dst`` as the
+    reference's ``Dag.edge_src``/``.edge_dst`` give them) and the node
+    weights ``omega``/``mu``.  Edges are range-checked and deduplicated
+    by ``Dag.from_arrays``; the arrays are copied, so the two packages
+    never share a buffer.  Raises on a cycle."""
+    omega = np.array(omega, dtype=np.float64)
+    mu = np.array(mu, dtype=np.float64)
+    if omega.shape != (n,) or mu.shape != (n,):
+        raise ValueError(f"omega and mu must be ({n},), got {omega.shape} "
+                         f"and {mu.shape}")
+    dag = Dag.from_arrays(n, np.array(src, dtype=np.int64),
+                          np.array(dst, dtype=np.int64), omega=omega, mu=mu,
+                          name=name or "dag")
+    dag.topo_order()   # raises ValueError on a directed cycle
+    return dag
 
 
 def _tensor(a) -> torch.Tensor:

@@ -1,3 +1,3 @@
-from .hypergraph import Hypergraph, connected_components
+from .hypergraph import Dag, Hypergraph, connected_components
 
-__all__ = ["Hypergraph", "connected_components"]
+__all__ = ["Dag", "Hypergraph", "connected_components"]

@@ -1,12 +1,12 @@
-"""Hypergraph data structure for partitioning.
+"""Hypergraph and DAG data structures for partitioning / scheduling.
 
 These mirror the paper's Section 3 definitions:
   * a hypergraph is (V, E) with each e in E a subset of V; a (v, e) pair with
     v in e is a *pin*;
   * node weights ``omega`` express compute cost, hyperedge weights ``mu``
-    express communicated data size (both default to 1).
-
-The scheduling side's ``Dag`` is not part of this package yet.
+    express communicated data size (both default to 1);
+  * a DAG is a directed acyclic graph with node compute weights ``omega``
+    and node communication weights ``mu`` (size of a node's output value).
 """
 from __future__ import annotations
 
@@ -414,6 +414,229 @@ def _collapse_ids_dict(cp: np.ndarray, xk: np.ndarray,
             groups[key] = idx
         ids[j] = idx
     return ids
+
+
+def connected_components(hg: Hypergraph) -> list[list[int]]:
+    parent = list(range(hg.n))
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for e in hg.edges:
+        for v in e[1:]:
+            ra, rb = find(e[0]), find(v)
+            if ra != rb:
+                parent[ra] = rb
+    comps: dict[int, list[int]] = {}
+    for v in range(hg.n):
+        comps.setdefault(find(v), []).append(v)
+    return list(comps.values())
+
+
+@dataclasses.dataclass
+class Dag:
+    """Computational DAG.  ``parents[v]`` / ``children[v]`` are index lists."""
+
+    n: int
+    edge_list: list[tuple[int, int]]
+    omega: np.ndarray | None = None  # compute weight per node
+    mu: np.ndarray | None = None     # communication weight (output size) per node
+    name: str = "dag"
+
+    def __post_init__(self) -> None:
+        if self.omega is None:
+            self.omega = np.ones(self.n, dtype=np.float64)
+        else:
+            self.omega = np.asarray(self.omega, dtype=np.float64)
+        if self.mu is None:
+            self.mu = np.ones(self.n, dtype=np.float64)
+        else:
+            self.mu = np.asarray(self.mu, dtype=np.float64)
+        self.parents: list[list[int]] = [[] for _ in range(self.n)]
+        self.children: list[list[int]] = [[] for _ in range(self.n)]
+        seen = set()
+        for (u, v) in self.edge_list:
+            if (u, v) in seen:
+                continue
+            seen.add((u, v))
+            if not (0 <= u < self.n and 0 <= v < self.n):
+                raise ValueError(f"edge ({u},{v}) out of range")
+            self.parents[v].append(u)
+            self.children[u].append(v)
+        self._topo: list[int] | None = None
+        self._csr: tuple[np.ndarray, ...] | None = None
+
+    @property
+    def num_edges(self) -> int:
+        return sum(len(c) for c in self.children)
+
+    # pickling (spawn-start workers): drop the lazy CSR/topo caches -- they
+    # rebuild deterministically and would otherwise double the payload
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_csr"] = None
+        state["_topo"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._csr = None
+        self._topo = None
+
+    # ------------------------------------------------------------- CSR layout
+    # Cached flat views of the (deduplicated) edge relation; the multilevel
+    # scheduling coarsener iterates these arrays instead of the python
+    # adjacency lists.  ``edge_list``/``parents``/``children`` must not be
+    # mutated after construction (build a new Dag instead).
+    #   * ``edge_src``/``edge_dst``: all edges, sorted by (src, dst);
+    #   * parents CSR: ``par_arr[xpar[v] : xpar[v+1]]`` (sorted parent ids).
+    @staticmethod
+    def _edge_csr(n: int, src: np.ndarray,
+                  dst: np.ndarray) -> tuple[np.ndarray, ...]:
+        """(src, dst) sorted by (src, dst) plus the parents CSR -- the one
+        layout both constructors seed, so CSR bytes never depend on which
+        constructor built the Dag."""
+        order = np.lexsort((dst, src))
+        src, dst = src[order], dst[order]
+        xpar = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(dst, minlength=n), out=xpar[1:])
+        par_arr = src[np.lexsort((src, dst))]
+        return src, dst, xpar, par_arr
+
+    def _build_csr(self) -> tuple[np.ndarray, ...]:
+        if self._csr is not None:
+            return self._csr
+        m = self.num_edges
+        src = np.fromiter((u for u in range(self.n)
+                           for _ in self.children[u]),
+                          dtype=np.int64, count=m)
+        dst = np.fromiter((v for u in range(self.n)
+                           for v in self.children[u]),
+                          dtype=np.int64, count=m)
+        self._csr = self._edge_csr(self.n, src, dst)
+        return self._csr
+
+    @property
+    def edge_src(self) -> np.ndarray:
+        return self._build_csr()[0]
+
+    @property
+    def edge_dst(self) -> np.ndarray:
+        return self._build_csr()[1]
+
+    @property
+    def xpar(self) -> np.ndarray:
+        return self._build_csr()[2]
+
+    @property
+    def par_arr(self) -> np.ndarray:
+        return self._build_csr()[3]
+
+    @classmethod
+    def from_arrays(cls, n: int, src: np.ndarray, dst: np.ndarray,
+                    omega: np.ndarray | None = None,
+                    mu: np.ndarray | None = None,
+                    name: str = "dag") -> "Dag":
+        """Vectorized constructor from flat edge arrays (streaming datagen,
+        ``contract``).  Deduplicates, range-checks and builds the adjacency
+        lists via one sort + split instead of the per-edge python loop of
+        ``__post_init__`` -- n = 100k DAGs construct in well under a second.
+        """
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        if len(src) and (src.min() < 0 or src.max() >= n
+                         or dst.min() < 0 or dst.max() >= n):
+            raise ValueError("edge endpoint out of range")
+        key = np.unique(src * np.int64(n) + dst)   # dedup + (src, dst) sort
+        src, dst = key // n, key % n
+        d = cls.__new__(cls)
+        d.n = n
+        d.name = name
+        d.omega = (np.ones(n, dtype=np.float64) if omega is None
+                   else np.asarray(omega, dtype=np.float64))
+        d.mu = (np.ones(n, dtype=np.float64) if mu is None
+                else np.asarray(mu, dtype=np.float64))
+        d.edge_list = list(zip(src.tolist(), dst.tolist()))
+        ch_counts = np.bincount(src, minlength=n)
+        d.children = [a.tolist()
+                      for a in np.split(dst, np.cumsum(ch_counts)[:-1])]
+        d._csr = cls._edge_csr(n, src, dst)
+        par_arr, xpar = d._csr[3], d._csr[2]
+        d.parents = [a.tolist()
+                     for a in np.split(par_arr, xpar[1:-1])]
+        d._topo = None
+        return d
+
+    # --------------------------------------------------- contraction layer
+    # Multilevel scheduling support: ``contract`` collapses clusters
+    # of a cluster map into single coarse nodes, fully vectorized over the
+    # edge arrays.  Unlike ``Hypergraph.contract`` there is no edge
+    # prolongation map to return -- fine communications are re-derived
+    # canonically from the expanded assignment (``Schedule.from_projection``)
+    # rather than projected, because one coarse comm stands for one comm per
+    # boundary member at the fine level.
+    def contract(self, cmap: np.ndarray, nc: int | None = None) -> "Dag":
+        """Contract clusters of nodes into single coarse nodes.
+
+        ``cmap[v]`` is the coarse id of fine node v.  Coarse compute
+        weights are the cluster sums of ``omega``; the coarse communication
+        weight is the sum of ``mu`` over the cluster's *boundary* members
+        (nodes with at least one child outside the cluster) -- exactly the
+        values a consumer on another processor would need delivered.
+        Intra-cluster edges vanish; parallel cross edges collapse.
+
+        The coarse graph must remain acyclic -- contracting an arbitrary
+        cluster map can create cycles, so callers must use an
+        acyclicity-safe clustering (same-topological-level matching or
+        unique-parent funnels, see ``core.schedule.multilevel``).  The
+        contraction *validates* this eagerly and raises ``ValueError``
+        (from the topological sort) on a cyclic cluster map.
+        """
+        cmap = np.asarray(cmap, dtype=np.int64)
+        if cmap.shape != (self.n,):
+            raise ValueError("cmap must have shape (n,)")
+        if nc is None:
+            nc = int(cmap.max()) + 1 if self.n else 0
+        if self.n and (cmap.min() < 0 or cmap.max() >= nc):
+            raise ValueError("cmap out of range")
+        omega_c = np.bincount(cmap, weights=self.omega, minlength=nc)
+        src, dst = self.edge_src, self.edge_dst
+        cu, cv = cmap[src], cmap[dst]
+        cross = cu != cv
+        boundary = np.unique(src[cross])   # members with an external child
+        mu_c = np.bincount(cmap[boundary], weights=self.mu[boundary],
+                           minlength=nc)
+        coarse = Dag.from_arrays(nc, cu[cross], cv[cross], omega=omega_c,
+                                 mu=mu_c, name=f"{self.name}_c")
+        coarse.topo_order()   # raises on a cycle-creating cluster map
+        return coarse
+
+    def topo_order(self) -> list[int]:
+        if self._topo is not None:
+            return self._topo
+        indeg = [len(p) for p in self.parents]
+        stack = [v for v in range(self.n) if indeg[v] == 0]
+        order: list[int] = []
+        while stack:
+            v = stack.pop()
+            order.append(v)
+            for c in self.children[v]:
+                indeg[c] -= 1
+                if indeg[c] == 0:
+                    stack.append(c)
+        if len(order) != self.n:
+            raise ValueError("graph has a directed cycle")
+        self._topo = order
+        return order
+
+    def sources(self) -> list[int]:
+        return [v for v in range(self.n) if not self.parents[v]]
+
+    def sinks(self) -> list[int]:
+        return [v for v in range(self.n) if not self.children[v]]
 
 
 def connected_components(hg: Hypergraph) -> list[list[int]]:

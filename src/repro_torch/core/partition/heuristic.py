@@ -468,6 +468,7 @@ def partition_with_replication(
     seed: int = 0,
     frontier: str | None = None,
     multilevel: bool = False,
+    workers: int | None = None,
     device: str | torch.device = "cuda",
 ):
     """End-to-end entry: returns (non_repl_result, repl_result).
@@ -475,8 +476,16 @@ def partition_with_replication(
     Small instances are solved exactly (both with and without replication,
     i.e. the paper's base-ILP vs ILP/D or ILP/R comparison) regardless of
     ``multilevel``; larger ones use the heuristic + replication local
-    search.  ``multilevel=True`` (the V-cycle) is not ported yet and
-    raises on that heuristic path.  ``device`` as in ``fm_refine``.
+    search.  ``multilevel=True`` routes that *heuristic* path through the
+    V-cycle driver (``multilevel.partition_with_replication_multilevel``)
+    -- required for production-scale instances (n ~ 10^4-10^5), same
+    semantics as the flat search (never-worse cost, identical validity).
+    ``workers=W`` (multilevel only) runs the V-cycle's coarsening scores
+    and refinement shards on a W-process shared-memory pool
+    (``core.partition.parallel``, numpy in the workers); cost stays
+    never-worse -- the parallel reconciliation accepts improving moves
+    only -- but the refinement trajectory may diverge from serial.
+    ``device`` as in ``fm_refine``.
     """
     from .exact import exact_partition
 
@@ -487,9 +496,10 @@ def partition_with_replication(
                               ub_masks=base.masks)
         return base, rep
     if multilevel:
-        raise NotImplementedError(
-            "multilevel=True: the V-cycle is not ported yet (ROADMAP.md, "
-            "Queue 1: multilevel and parallel V-cycles)")
+        from .multilevel import partition_with_replication_multilevel
+        return partition_with_replication_multilevel(
+            hg, P, eps, mode=mode, seed=seed, frontier=frontier,
+            workers=workers, device=device)
     base = partition_heuristic(hg, P, eps, seed=seed, frontier=frontier,
                                device=device)
     max_replicas = 2 if mode == "dup" else None

@@ -44,6 +44,12 @@ Correctness contract (property-tested against the numpy frontier path):
     with no active block leaves the queue for the next one.  ``flush``
     applies it with no find (tests, detach-and-inspect), counted in
     ``apply_dispatches``: zero on the partitioning path.
+
+The schedule side (``DeviceScheduleWindows``) keeps a BSP schedule's
+per-superstep rows on the device and prices comm and compute re-timing
+windows and compound node moves with plain int32 PyTorch ops (no
+hand-written kernel), one host read per priced window; decisions stay on
+the host (``list_sched._best_window_move``).
 """
 from __future__ import annotations
 
@@ -384,3 +390,236 @@ class DevicePartitionPass:
         else:
             self.pass_scans += 1
         return improved
+
+
+# ==========================================================================
+# Schedule side
+# ==========================================================================
+
+# Minimum touched-superstep count for the device node-move fold; below it
+# the numpy front prices the move (tests lower it to reach the device path
+# on small instances).
+DEVICE_MIN_STEPS = 8
+
+
+def schedule_device_supported(sched) -> bool:
+    """Integer contract check: the int32 window programs are bit-identical
+    to the float64 numpy fronts only for integral weights/parameters."""
+    inst = sched.inst
+    return (_integer_valued(inst.dag.mu) and _integer_valued(inst.dag.omega)
+            and float(inst.L) == int(inst.L) and float(inst.g) == int(inst.g))
+
+
+class DeviceScheduleWindows:
+    """Device mirror of the schedule's per-superstep rows.
+
+    Holds ``sent``/``recv``/``work`` (S, P), the top-2 triples and the step
+    costs as one padded int32 tensor on ``device`` (one upload per
+    refresh), refreshed lazily after each commit (``mark_dirty``).  The
+    window pricers return the same float64 deltas as
+    ``schedule_front.price_comm_moves`` / ``price_comp_moves`` /
+    ``price_node_moves`` -- integer device arithmetic plus the host's exact
+    float64 scalar terms -- so every decision matches the numpy fronts.
+    The programs are plain int32 PyTorch ops; on CPU tensors the same code
+    runs on the CPU.
+
+    Counters: ``syncs`` the blocking device->host reads (one per priced
+    window), ``refreshes`` the uploads of the rows, ``launches`` the window
+    programs run, per program (``comm``, ``comp``, ``node``).
+    """
+
+    def __init__(self, sched, *, device: str | torch.device) -> None:
+        self.device = torch.device(device)
+        self.sched = sched
+        self.P = sched.inst.P
+        self.L = int(sched.inst.L)
+        self.g = int(sched.inst.g)
+        self._dirty = True
+        self._arange: dict[int, torch.Tensor] = {}
+        self.syncs = 0
+        self.refreshes = 0
+        self.launches = {"comm": 0, "comp": 0, "node": 0}
+
+    def mark_dirty(self) -> None:
+        self._dirty = True
+
+    def _refresh(self) -> None:
+        """Upload the rows: columns ``sent | recv | work`` (P each), the
+        sent, recv and work top-2 triples (3 each) and the step cost."""
+        s = self.sched
+        S, P = s.S, self.P
+        self.Sp = _pow2(S)
+        rows = np.zeros((self.Sp, 3 * P + 10), dtype=np.int32)
+        for i, ll in enumerate((s.sent, s.recv, s.work)):
+            rows[:S, i * P:(i + 1) * P] = np.asarray(ll[:S])
+        for i, tt in enumerate((s._stop, s._rtop, s._wtop)):
+            rows[:S, 3 * P + 3 * i:3 * P + 3 * i + 3] = np.asarray(tt[:S])
+        rows[:S, 3 * P + 9] = np.asarray(s._scost[:S])
+        self._rows = torch.from_numpy(rows).to(self.device)
+        self._dirty = False
+        self.refreshes += 1
+
+    def _gather(self, lo: int, Wp: int) -> torch.Tensor:
+        """Rows ``lo .. lo + Wp - 1``, the index clamped into the padded
+        table (as ``jnp.clip`` clamps it in the JAX program)."""
+        ar = self._arange.get(Wp)
+        if ar is None:
+            ar = torch.arange(Wp, dtype=torch.int64, device=self.device)
+            self._arange[Wp] = ar
+        return self._rows[(ar + lo).clamp_(0, self.Sp - 1)]
+
+    def _step_cost(self, w1: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return torch.where(h >= 1, w1 + self.L + self.g * h, w1)
+
+    def _top(self, rows: torch.Tensor, i: int) -> tuple:
+        o = 3 * self.P + 3 * i
+        return rows[:, o], rows[:, o + 1], rows[:, o + 2]
+
+    def _comm_window(self, lo: int, Wp: int, src: int, dst: int,
+                     mu: int) -> torch.Tensor:
+        """Step-cost deltas of adding ``mu`` to ``sent[t, src]`` and
+        ``recv[t, dst]`` for t in the window, int32 (Wp,)."""
+        P = self.P
+        r = self._gather(lo, Wp)
+        s1, s_arg, s2 = self._top(r, 0)
+        r1, r_arg, r2 = self._top(r, 1)
+        s_alt = torch.where(s_arg == src, s2, s1)
+        s_new = r[:, src] + mu
+        r_alt = torch.where(r_arg == dst, r2, r1)
+        r_new = r[:, P + dst] + mu
+        h = torch.maximum(torch.maximum(s_alt, s_new),
+                          torch.maximum(r_alt, r_new))
+        return self._step_cost(self._top(r, 2)[0], h) - r[:, 3 * P + 9]
+
+    def _comp_window(self, lo: int, Wp: int, p: int,
+                     om: int) -> torch.Tensor:
+        """Step-cost deltas of adding ``om`` to ``work[t, p]`` for t in the
+        window, int32 (Wp,)."""
+        P = self.P
+        r = self._gather(lo, Wp)
+        w1, w_arg, w2 = self._top(r, 2)
+        w_alt = torch.where(w_arg == p, w2, w1)
+        w_new = r[:, 2 * P + p] + om
+        h = torch.maximum(self._top(r, 0)[0], self._top(r, 1)[0])
+        return (self._step_cost(torch.maximum(w_alt, w_new), h)
+                - r[:, 3 * P + 9])
+
+    def _read(self, out: torch.Tensor, n: int) -> np.ndarray:
+        got = out[:n].cpu().numpy().astype(np.float64)  # THE host sync
+        self.syncs += 1
+        return got
+
+    def price_comm_moves(self, v: int, dst: int, ts: np.ndarray) -> np.ndarray:
+        """Device twin of ``schedule_front.price_comm_moves``."""
+        if self._dirty:
+            self._refresh()
+        sched = self.sched
+        src, s = sched.comms[(v, dst)]
+        mu = sched.inst.dag.mu[v]
+        d0 = sched._comm_step_delta(s, src, dst, -mu)
+        ts = np.asarray(ts, dtype=np.int64)
+        lo, W = int(ts[0]), len(ts)
+        out = self._comm_window(lo, _pow2(W), int(src), int(dst), int(mu))
+        self.launches["comm"] += 1
+        deltas = d0 + self._read(out, W)
+        deltas[ts == s] = 0.0
+        return deltas
+
+    def price_comp_moves(self, v: int, p: int, ts: np.ndarray) -> np.ndarray:
+        """Device twin of ``schedule_front.price_comp_moves``."""
+        if self._dirty:
+            self._refresh()
+        sched = self.sched
+        s = sched.assign[v][p]
+        om = sched.inst.dag.omega[v]
+        w1_minus = sched._kind_max_if("work", s, p, -om)
+        d_s = sched._step_cost(w1_minus, sched.h_of(s)) - sched._scost[s]
+        ts = np.asarray(ts, dtype=np.int64)
+        lo, W = int(ts[0]), len(ts)
+        out = self._comp_window(lo, _pow2(W), int(p), int(om))
+        self.launches["comp"] += 1
+        deltas = d_s + self._read(out, W)
+        deltas[ts == s] = 0.0
+        return deltas
+
+    def _node_fold(self, cells: torch.Tensor) -> torch.Tensor:
+        """Fold the (Tp, P, P) work/sent/recv delta cells (candidate q x
+        processor) of ``cells`` -- column 0 the touched step, then the
+        three flattened matrices -- against the step rows: the summed
+        step-cost delta per candidate, int32 (P,)."""
+        P = self.P
+        Tp = cells.shape[0]
+        r = self._rows[cells[:, 0].long()]
+        d = cells[:, 1:].view(Tp, 3, P, P)
+        w1 = (r[:, None, 2 * P:3 * P] + d[:, 0]).amax(dim=2)
+        s1 = (r[:, None, 0:P] + d[:, 1]).amax(dim=2)
+        r1 = (r[:, None, P:2 * P] + d[:, 2]).amax(dim=2)
+        step = self._step_cost(w1, torch.maximum(s1, r1))
+        return (step - r[:, 3 * P + 9, None]).sum(dim=0, dtype=torch.int32)
+
+    def price_node_moves(self, v: int) -> np.ndarray:
+        """Device twin of ``schedule_front.price_node_moves``: the
+        per-superstep (P x P) delta matrices fold on the device in one
+        program.  Takes the numpy front when few supersteps are touched."""
+        from ..core.frontier.schedule_front import price_node_moves
+        sched = self.sched
+        P = self.P
+        (p, _), = sched.assign[v].items()
+        cells = _node_move_cells(sched, v)
+        if len(cells) < DEVICE_MIN_STEPS:
+            return price_node_moves(sched, v)
+        if self._dirty:
+            self._refresh()
+        steps = sorted(cells)
+        # padded rows fold step 0 with zero deltas, which adds exactly 0
+        packed = np.zeros((_pow2(len(steps)), 1 + 3 * P * P), dtype=np.int32)
+        for i, t in enumerate(steps):
+            packed[i, 0] = t
+            packed[i, 1:] = np.concatenate([c.ravel() for c in cells[t]])
+        out = self._node_fold(torch.from_numpy(packed).to(self.device))
+        self.launches["node"] += 1
+        deltas = self._read(out, P)
+        deltas[p] = 0.0
+        return deltas
+
+
+def _node_move_cells(sched, v: int) -> dict:
+    """Per-superstep (work, sent, recv) (P, P) int delta matrices of the
+    compound node move -- the same cells ``price_node_moves`` accumulates,
+    in the same fill order (int32; caller guarantees integral weights)."""
+    P = sched.inst.P
+    (p, s), = sched.assign[v].items()
+    dag = sched.inst.dag
+    mu, om = int(dag.mu[v]), int(dag.omega[v])
+    allq = np.arange(P)
+    cells: dict[int, list] = {}
+
+    def at(t):
+        got = cells.get(t)
+        if got is None:
+            got = [np.zeros((P, P), dtype=np.int32) for _ in range(3)]
+            cells[t] = got
+        return got
+
+    for dst in sorted(sched.src_index.get((v, p), ())):
+        _, t = sched.comms[(v, dst)]
+        _, se, r = at(t)
+        se[:, p] -= mu
+        r[dst, dst] -= mu
+        keep = allq != dst
+        se[allq[keep], allq[keep]] += mu
+    for q in range(P):
+        c0 = sched.comms.get((v, q))
+        if c0 is not None and c0[0] != p:
+            src0, t0 = c0
+            at(t0)[1][q, src0] -= mu
+            at(t0)[2][q, q] -= mu
+    w = at(s)[0]
+    w[:, p] -= om
+    w[allq, allq] += om
+    uses_p = sched.uses_on(v, p)
+    if uses_p:
+        tf = min(uses_p) - 1
+        at(tf)[1][allq, allq] += mu
+        at(tf)[2][:, p] += mu
+    return cells

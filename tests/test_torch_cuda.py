@@ -567,3 +567,99 @@ def test_serve_olmoe_on_cuda_with_placement(cuda):
     assert res.launches["attention_masked"] == 2
     assert res.placement["lambda_cost_repl"] <= \
         res.placement["lambda_cost_no_repl"]
+
+
+# ------------------------------------------- the V-cycle and the pool
+@pytest.mark.cuda
+def test_vcycle_on_cuda_matches_host_path(cuda, monkeypatch):
+    """``partition_with_replication(multilevel=True)`` with the floors
+    lowered so that every level of at least 512 nodes runs the device
+    pass and the coarser ones the min-cover kernel: the host path's masks
+    and costs, one launch and one read per find."""
+    from repro_torch.core.frontier import partition_front
+    monkeypatch.setattr(front_pass, "DEVICE_MIN_NODES", 512)
+    monkeypatch.setattr(partition_front, "_DEVICE_MIN_ROWS", 256)
+    passes = []
+    real_attach = front_pass.attach
+
+    def attach(*a, **kw):
+        d = real_attach(*a, **kw)
+        if d is not None:
+            passes.append(d)
+        return d
+
+    monkeypatch.setattr(front_pass, "attach", attach)
+    hg = large_row_net(2048, seed=1)
+    ops.reset_launches()
+    a = th.partition_with_replication(hg, 4, 0.05, multilevel=True,
+                                      frontier="torch", device=cuda)
+    launches = dict(ops.launches)
+    b = th.partition_with_replication(hg, 4, 0.05, multilevel=True,
+                                      frontier="numpy")
+    for ra, rb in zip(a, b):
+        assert np.array_equal(ra.masks, rb.masks) and ra.cost == rb.cost
+    assert passes and len({d.n for d in passes}) >= 2   # several levels
+    assert launches["front_find"] == sum(d.finds for d in passes) > 0
+    assert launches["min_cover_lambdas"] > 0
+    for d in passes:
+        assert d.syncs == d.finds and d.apply_dispatches == 0
+        assert d.state.device is None
+
+
+@pytest.mark.cuda
+def test_pool_forks_after_cuda_is_up(cuda):
+    """The pool forks after the card is initialised; its workers run
+    numpy only, so the sharded matching is byte-identical to serial."""
+    from repro_torch.core.partition.multilevel import heavy_pin_matching
+    from repro_torch.core.partition.parallel import ParallelContext
+    torch.ones(1, device=cuda).sum().item()       # CUDA is up
+    hg = large_row_net(1200, seed=1)
+    with ParallelContext(2, start_method="fork", min_nodes=64) as ctx:
+        cm_p, nc_p = heavy_pin_matching(hg, 50.0, np.random.default_rng(7),
+                                        ctx=ctx)
+        assert not ctx.failed
+    cm_s, nc_s = heavy_pin_matching(hg, 50.0, np.random.default_rng(7))
+    assert nc_p == nc_s and cm_p.tobytes() == cm_s.tobytes()
+
+
+# ------------------------------------------------- schedule windows
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_schedule_windows_on_cuda_match_numpy(cuda, monkeypatch, seed):
+    """Every window and node move priced on the card equals the numpy
+    fronts, and a whole ``hill_climb`` on the card leaves the host path's
+    schedule."""
+    from repro_torch.core.frontier import device_windows, schedule_front
+    from repro_torch.core.schedule import (BspInstance, bspg_schedule,
+                                           list_sched)
+    from repro_torch.datagen import sptrsv_dag
+    monkeypatch.setattr(front_pass, "DEVICE_MIN_STEPS", 1)
+    dag = sptrsv_dag(n=400, band=16, seed=seed)
+    inst = BspInstance(dag, P=4, g=2.0, L=4.0)
+    s = bspg_schedule(inst, seed=seed)
+    win = device_windows(s, "torch", cuda)
+    assert win is not None
+    for (v, dst) in sorted(s.comms):
+        lo, hi = list_sched._comm_window(s, v, dst)
+        if hi >= lo:
+            ts = np.arange(lo, hi + 1)
+            assert np.array_equal(win.price_comm_moves(v, dst, ts),
+                                  schedule_front.price_comm_moves(
+                                      s, v, dst, ts))
+    for v in range(dag.n):
+        (p, _), = s.assign[v].items()
+        if (v, p) not in s.comms:
+            lo, hi = list_sched._comp_window(s, v, p)
+            if hi >= lo:
+                ts = np.arange(lo, hi + 1)
+                assert np.array_equal(win.price_comp_moves(v, p, ts),
+                                      schedule_front.price_comp_moves(
+                                          s, v, p, ts))
+        assert np.array_equal(win.price_node_moves(v),
+                              schedule_front.price_node_moves(s, v))
+    assert win.syncs == sum(win.launches.values()) > 0
+    a = list_sched.hill_climb(s.copy(), seed=seed, backend="torch",
+                              device=cuda)
+    b = list_sched.hill_climb(s.copy(), seed=seed, backend="numpy")
+    assert a.current_cost() == b.current_cost()
+    assert a.assign == b.assign and a.comms == b.comms
