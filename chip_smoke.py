@@ -9,13 +9,17 @@ partitioning (``partition_with_replication``, flat and as a multilevel
 V-cycle), serving ``hymba-1.5b`` and serving ``olmoe-1b-7b`` with
 replicated expert placement (``launch.serve.serve``), and BSP scheduling
 with replication, whose window pricers run as int32 PyTorch programs on
-the card (``kernels.front_pass.DeviceScheduleWindows``).  Phases, in order; any failure
-propagates and the exit code is nonzero:
+the card (``kernels.front_pass.DeviceScheduleWindows``), and
+``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``).  Phases,
+in order; any failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
    print the build time, what ``ptxas`` reports for the find, attention,
-   grouped-matmul and scan kernels (registers, shared memory, spills) and
-   the card's name, power limit, maximum SM clock and SM count;
+   grouped-matmul and scan kernels (registers, shared memory, spills), the
+   tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of every
+   instantiation of the general routes' kernels (``cuobjdump -sass``; each
+   must have some) and the card's name, power limit, maximum SM clock and
+   SM count;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the min-cover kernel at the shapes the per-front path gives
    it, and the device pass's fused find (``front_find``) at phase 3's
@@ -23,10 +27,14 @@ propagates and the exit code is nonzero:
    replication, one queued move to apply, with the pass's feasibility and
    with none (a scan of every block) -- both exactly equal (the triple and
    the buffers after the apply), the find timed beside its bound and an
-   empty cooperative launch on its grid (the latency floor); attention and the selective scan at hymba's
-   and olmoe's serving shapes and the grouped matmul at olmoe's, in bf16
-   and in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
-   products of the plain versions.  The scan's bound is the larger of its
+   empty cooperative launch on its grid (the latency floor); attention
+   and the selective scan at hymba's and olmoe's serving shapes and
+   hubert's encoder call, and the grouped matmul at olmoe's, in bf16 and
+   in f32 (tolerances at ``MODEL_TOL``), with TF32 off for the f32
+   products of the plain versions.  The bounds count operations at 989
+   TFLOP/s in bf16, at 165 TFLOP/s for the general routes' f32 calls
+   (3xTF32: three products at the TF32 rate) and at 67 TFLOP/s for the
+   other f32 calls (CUDA cores).  The scan's bound is the larger of its
    bytes and its arithmetic at the card's maximum SM clock (phase 1
    prints it): the recurrence's FMA-pipe instructions and one exp2 per
    (t, d, n), the exps split between the special-function unit and an
@@ -34,8 +42,8 @@ propagates and the exit code is nonzero:
    (``scan_bound``); the decode step is timed beside an empty launch on
    its grid.  Each attention row names its route
    (``flash_attention.route``: ``prefill_tc``, ``decode_split`` or
-   ``cuda_core``) and asserts that the call took it, as each grouped-matmul
-   row does with ``moe_gmm.route`` (``gmm_tc``, ``gmv``, ``cuda_core``).
+   ``general``) and asserts that the call took it, as each grouped-matmul
+   row does with ``moe_gmm.route`` (``gmm_tc``, ``gmv``, ``general``).
    The grouped matmul also runs fill-aware: slot fills from a seeded
    uniform top-8 routing (4 x 2048 tokens for prefill, 4 for decode), rows
    past each fill exact zeros, the bound counted over the live rows and
@@ -58,7 +66,7 @@ propagates and the exit code is nonzero:
    ``prefill_tc`` and ``decode_split`` only), and the scan's share of the
    prefill.  Then prefill and three teacher-forced decode steps (seeded
    tokens, the same in every run): of the f32 model through the kernels
-   (prefill on ``cuda_core``, decode on ``decode_split``) and through the
+   (prefill on ``general``, decode on ``decode_split``) and through the
    plain versions (``ops.force("ref")``), within ``F32_LOGIT_TOL`` of the
    largest logit; of the bf16 model through both; and of the bf16 model's
    weights, cast to f32, through the plain versions, from which each bf16
@@ -69,7 +77,7 @@ propagates and the exit code is nonzero:
    prefill seconds, decode ms per token, tokens/s, peak memory, launches
    per counter (exactly as expected: three grouped products per MoE layer
    and call, prefill on ``gmm_tc`` and decode on ``gmv``, never
-   ``cuda_core``) and one device->host copy per profiled decode step.  Then
+   ``general``) and one device->host copy per profiled decode step.  Then
    the f32 model: each layer's MoE block on the same input through the
    kernel and the plain version within ``MODEL_TOL`` (the routing is then
    identical, so this isolates the kernel), and prefill plus three
@@ -100,9 +108,17 @@ propagates and the exit code is nonzero:
    hill climbs price no window long enough for the device).  The window
    programs are then timed on the V-cycle's schedule: the host's time
    per priced window, and under ``torch.profiler`` the kernels one
-   launches and their device time.
+   launches and their device time;
+10. ``hubert-xlarge``'s encoder at full width and depth (48 non-causal
+   layers, d_model 1280, bf16, seeded weights) over 8 clips of 1500
+   frames (30 s at 50 frames/s) drawn with numpy: one forward's launches
+   (48 attention calls, all on the general route, nothing else), the
+   median of 3 timed forwards after it, peak memory and the attention
+   calls' share (phase 2's device time); the f32 model's kernel path
+   against its plain path within ``F32_LOGIT_TOL``, and the bf16 paths'
+   distances from the f32 plain path at the bf16 weights as in phase 6.
 
-Launch counts are reset just before each driven run (phases 3-8) and read
+Launch counts are reset just before each driven run (phases 3-8, 10) and read
 just after; the kernel line reports those of phases 4 and 5 (the flat
 ``partition_with_replication`` runs) for the gain kernels, with phase 8's
 beside them (``vcycle_launches``), and those of the
@@ -110,10 +126,12 @@ serve runs of phases 6 and 7, summed, for the model kernels.  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, plus one for the
-``cuda_core`` route with the launches of phase 6's f32 kernel path (the
-bf16 runs never take it); the grouped matmul likewise has one entry per
+``general`` route with the launches of phase 6's f32 kernel path and of
+phase 10 (the bf16 serve runs never take it), timed at hymba's f32
+prefill with olmoe's f32 prefill, hubert's call and MLA's bf16 shape
+beside it; the grouped matmul likewise has one entry per
 route of the serve runs (``gmm_tc``, ``gmv``) timed at its fill-aware
-case, and one for ``cuda_core`` with the launches of phase 7's f32
+case, and one for ``general`` with the launches of phase 7's f32
 checks; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
 (decode, from a state), each with its bound's terms
 (``bound_terms_ms``, the exps' share on the special-function unit
@@ -149,6 +167,10 @@ OPS_PER_ELEM = 3               # compare, select, min per loaded element
 
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate (data sheet)
 F32_FLOPS_PER_S = 67e12        # fp32 rate outside the tensor cores
+# an f32-accurate product on the tensor cores: three TF32 products (3xTF32)
+# at the dense TF32 rate (data sheet, 495 TFLOP/s); the bound of the
+# general routes' f32 calls, which run that way
+F32_TC_FLOPS_PER_S = 495e12 / 3
 # issue rates per clock per SM (CUDA C Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0): f32 add/multiply/FMA on
 # the FMA pipe, and exp2 (MUFU.EX2) on the special-function unit
@@ -190,12 +212,12 @@ SOURCES = {"front_find": "front_find", "min_cover_lambdas": "gain",
            "grouped_matmul": "moe_gmm"}
 # grouped-matmul route -> its source; the routes of the bf16 serve runs
 GMM_SOURCES = {"gmm_tc": "moe_gmm_tc", "gmv": "moe_gmm",
-               "cuda_core": "moe_gmm"}
+               "general": "moe_gmm"}
 GMM_PATH = ("gmm_tc", "gmv")
 # attention route -> its source
 ATTN_SOURCES = {"prefill_tc": "attention_prefill_tc",
                 "decode_split": "attention_decode",
-                "cuda_core": "flash_attention"}
+                "general": "flash_attention"}
 # the (count, route) pairs of the bf16 serving runs, each a kernel-line entry
 ATTN_PATH = (("flash_attention", "prefill_tc"),
              ("attention_masked", "prefill_tc"),
@@ -463,6 +485,12 @@ def check_find(dev, rep: bool, k: int, full_scan: bool, seed: int) -> dict:
             "bound_by": by, "call_ms": time_ms(call_pair) / 2}
 
 
+def f32_rate(route: str) -> float:
+    """The peak an f32 call of ``route`` is bounded by: the general routes
+    multiply on the tensor cores in 3xTF32, the others on the CUDA cores."""
+    return F32_TC_FLOPS_PER_S if route == "general" else F32_FLOPS_PER_S
+
+
 def rel_ok(got, want, tol: float) -> tuple[bool, float]:
     """``|got - want| <= tol + tol * |want|`` everywhere (the rule of
     ``assert_allclose`` with rtol = atol = tol), and the max abs error."""
@@ -472,9 +500,12 @@ def rel_ok(got, want, tol: float) -> tuple[bool, float]:
 
 
 # (name, counter, B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions,
-# on the path): hymba's prefill (global and window 1024) and decode
-# (linear cache of 2080 at position 2060, full ring of 1024), a ring whose
-# left slots are still padding, a non-causal shape, and MLA's 192/128 dims
+# timed beside the plain version and SDPA): hymba's prefill (global and
+# window 1024) and decode (linear cache of 2080 at position 2060, full
+# ring of 1024), a ring whose left slots are still padding, a non-causal
+# shape, MLA's 192/128 dims (the prefill of the next module to port),
+# olmoe's prefill and decode and hubert's encoder call.  Every path
+# shape is timed
 ATTN_CASES = [
     ("prefill", "flash_attention", 4, 2048, 2048, 25, 5, 64, 64, True, 0,
      None, True),
@@ -489,12 +520,16 @@ ATTN_CASES = [
     ("noncausal", "flash_attention", 2, 1024, 1024, 25, 5, 64, 64, False, 0,
      None, False),
     ("hd192_v128", "flash_attention", 1, 1024, 1024, 16, 16, 192, 128, True,
-     0, None, False),
+     0, None, True),
     # olmoe: prefill, and decode on a linear cache of 2048 + 32
     ("olmoe_prefill", "flash_attention", 4, 2048, 2048, 16, 16, 128, 128,
      True, 0, None, True),
     ("olmoe_decode", "attention_masked", 4, 1, 2080, 16, 16, 128, 128, True,
      0, "linear", True),
+    # hubert-xlarge's encoder (phase 10): 8 clips of 1500 frames, 16 heads
+    # of 80, non-causal
+    ("hubert", "flash_attention", 8, 1500, 1500, 16, 16, 80, 80, False, 0,
+     None, True),
 ]
 # (name, counter, B, S, di, N, with a state, on the path)
 SCAN_CASES = [
@@ -523,16 +558,12 @@ def attn_key(q, k, v, window: int) -> tuple:
     return (tuple(q.shape), tuple(k.shape), v.shape[-1], window)
 
 
-def check_attention(case, dtype_name: str, seed: int) -> dict:
-    """The attention kernel of the case's route against the plain version;
-    timed with the plain version and SDPA (``library_ms``) where on the
-    path."""
+def attention_inputs(case, dtype_name: str, seed: int) -> tuple:
+    """The case's q, k, v on the card, drawn from ``seed``, and the keyword
+    arguments of ``ops.attention`` (mask and positions)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
     (name, counter, B, Sq, Sk, H, KV, hd, hdv, causal, window, pos,
-     on_path) = case
+     timed) = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -546,15 +577,38 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
         first = 0 if pos == "linear" else at - Sk + 1
         kp = torch.arange(first, first + Sk, dtype=torch.int32,
                           device=dev).expand(B, Sk).contiguous()
-    kw = dict(causal=causal, window=window, q_pos=qp, k_pos=kp)
+    return q, k, v, dict(causal=causal, window=window, q_pos=qp, k_pos=kp)
+
+
+def attention_case_route(case, dtype_name: str) -> str:
+    """The attention route ``kernels/flash_attention.py::route`` gives the
+    case."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    (_, _, B, Sq, Sk, H, KV, hd, hdv, _, window, pos, _) = case
+    return fa.route(getattr(torch, dtype_name), B, Sq, Sk, H, KV, hd, hdv,
+                    window, pos is not None)
+
+
+def check_attention(case, dtype_name: str, seed: int) -> dict:
+    """The attention kernel of the case's route against the plain version;
+    timed with the plain version and SDPA (``library_ms``) where the case
+    says so."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    (name, counter, B, Sq, Sk, H, KV, hd, hdv, causal, window, pos,
+     timed) = case
+    dev = torch.device("cuda")
+    q, k, v, kw = attention_inputs(case, dtype_name, seed)
+    qp, kp = kw["q_pos"], kw["k_pos"]
 
     def run():
         return ops.attention(q, k, v, **kw)
 
     def plain():
         return ref.attention_ref(q, k, v, **kw)
-    route = fa.route(dtype, B, Sq, Sk, H, KV, hd, hdv, window,
-                     pos is not None)
+    route = attention_case_route(case, dtype_name)
     ops.reset_launches()
     got, want = run(), plain()
     torch.cuda.synchronize()
@@ -584,7 +638,7 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
                                    + got.numel())
     if qp is not None:
         nbytes += 4 * (qp.numel() + kp.numel())
-    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
+    rate = f32_rate(route) if dtype_name == "float32" else BF16_FLOPS_PER_S
     t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     row = {"case": name, "counter": counter, "route": route,
            "dtype": dtype_name,
@@ -594,7 +648,7 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes}
-    if on_path:
+    if timed:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = None if (pos is None and not window) else keep[:, None]
 
@@ -707,6 +761,21 @@ def uniform_fills(G: int, C: int, tokens: int, seed: int):
     return counts.clamp(max=C).to(torch.int32)
 
 
+def gmm_inputs(case, dtype_name: str, seed: int) -> tuple:
+    """The case's x (G*C, D) and w (G, D, F) on the card, drawn from
+    ``seed``, and its slot fills (None: every row live)."""
+    import torch
+    name, G, C, D, F, on_path, tokens = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((G * C, D), generator=g, device=dev).to(dtype)
+    w = (torch.randn((G, D, F), generator=g, device=dev)
+         * D ** -0.5).to(dtype)
+    fills = None if tokens is None else uniform_fills(G, C, tokens, seed)
+    return x, w, fills
+
+
 def check_gmm(case, dtype_name: str, seed: int) -> dict:
     """The grouped-matmul kernel of the case's route against its plain
     version at one shape, with the case's fills (rows past a fill exact
@@ -717,11 +786,7 @@ def check_gmm(case, dtype_name: str, seed: int) -> dict:
     name, G, C, D, F, on_path, tokens = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((G * C, D), generator=g, device=dev).to(dtype)
-    w = (torch.randn((G, D, F), generator=g, device=dev)
-         * D ** -0.5).to(dtype)
-    fills = None if tokens is None else uniform_fills(G, C, tokens, seed)
+    x, w, fills = gmm_inputs(case, dtype_name, seed)
 
     def run():
         return ops.grouped_matmul_aligned(x, w, C, fills)
@@ -756,7 +821,7 @@ def check_gmm(case, dtype_name: str, seed: int) -> dict:
                                    + got.numel())
     if fills is not None:
         nbytes += 4 * G
-    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
+    rate = f32_rate(route) if dtype_name == "float32" else BF16_FLOPS_PER_S
     t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     n = 10 if C < 64 else 2      # a prefill-shaped call takes milliseconds
     row = {"case": name, "counter": "grouped_matmul", "route": route,
@@ -842,6 +907,26 @@ def kernel_name(mangled: str) -> str:
         n = int(m.group(1))
         name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
     return name + rest[:40]
+
+
+def tc_instructions(lib: Path) -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) per kernel in the
+    SASS of a built library, as ``cuobjdump -sass`` lists it, keyed by the
+    kernel's name with its template arguments (``kernel_name``)."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : _Z(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
 
 
 def ptxas_summary(log: str) -> list:
@@ -1192,7 +1277,7 @@ def check_routes(routes: dict, launches: dict, model: str) -> None:
     """A bf16 serve run's attention calls all took the two Hopper routes,
     each at least once."""
     calls = launches["flash_attention"] + launches["attention_masked"]
-    if (sum(routes.values()) != calls or routes["cuda_core"]
+    if (sum(routes.values()) != calls or routes["general"]
             or routes["prefill_tc"] < launches["flash_attention"]
             or not routes["prefill_tc"] or not routes["decode_split"]):
         raise AssertionError(f"{model} serve: attention routes {routes} "
@@ -1202,8 +1287,8 @@ def check_routes(routes: dict, launches: dict, model: str) -> None:
 def check_gmm_routes(routes: dict, launches: dict, n_moe: int,
                      G: int) -> None:
     """A bf16 serve run's grouped products: prefill (three per MoE layer)
-    on ``gmm_tc``, every decode step's on ``gmv``, none on ``cuda_core``."""
-    want = {"gmv": 3 * n_moe * (G - 1), "gmm_tc": 3 * n_moe, "cuda_core": 0}
+    on ``gmm_tc``, every decode step's on ``gmv``, none on ``general``."""
+    want = {"gmv": 3 * n_moe * (G - 1), "gmm_tc": 3 * n_moe, "general": 0}
     if (routes != want
             or sum(routes.values()) != launches["grouped_matmul"]):
         raise AssertionError(f"serve: grouped-matmul routes {routes}, "
@@ -1568,6 +1653,115 @@ def schedule_phase(P: int, g: float, L: float, n_ml: int,
     return out
 
 
+def encoder_logits(model, frames, which: str):
+    """``Model.forward`` then ``logits_fn`` over ``frames`` (an encoder's
+    entry points), every kernel call sent to ``which`` ("cuda" or
+    "ref")."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.force(which)
+    try:
+        with torch.inference_mode():
+            x, _ = model({"frames": frames})
+            logits = model.logits_fn(x)
+        torch.cuda.synchronize()
+    finally:
+        ops.force(None)
+    return logits
+
+
+def hubert_inputs(B: int, S: int) -> tuple:
+    """hubert-xlarge's config, ``B`` clips of ``S`` frames drawn with numpy
+    from a seed (on the card), and its bf16 model from seeded weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_model
+    cfg = get_config("hubert-xlarge")
+    frames = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)).cuda()
+    return cfg, frames, make_model(cfg, device="cuda", seed=0)
+
+
+def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
+    """Phase 10: hubert-xlarge's encoder at full width and depth (48
+    non-causal layers of 16 heads of 80, d_model 1280, bf16, seeded
+    weights) over ``B`` clips of ``S`` frames drawn with numpy (the feature
+    extractor is a stub, as in the JAX package).  One forward's launches
+    (every attention call on the general route, nothing else), its time
+    (the median of ``reps`` forwards after that one), the f32 model's
+    kernel path against its plain path within ``F32_LOGIT_TOL`` of the
+    largest logit, and the bf16 paths' distances from the f32 plain path
+    at the bf16 weights."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, frames, model = hubert_inputs(B, S)
+    n = cfg.n_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    ops.reset_launches()
+    kern16 = encoder_logits(model, frames, "cuda")     # also the warm-up
+    launches = {c: k for c, k in ops.launches.items() if k}
+    routes = dict(ops.route_launches)
+    if (routes != {r: n if r == "general" else 0 for r in routes}
+            or launches != {"flash_attention": n}
+            or any(ops.gmm_route_launches.values())):
+        raise AssertionError(f"hubert forward: launches {launches}, "
+                             f"attention routes {routes}, expected {n} on "
+                             "general")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        encoder_logits(model, frames, "cuda")
+        times.append(time.perf_counter() - t0)
+    # the general route's launches of the bf16 forwards, the counted one
+    # and the timed ones
+    general16 = ops.route_launches["general"]
+    peak = torch.cuda.max_memory_allocated()
+    plain16 = encoder_logits(model, frames, "ref")
+    # the f32 model (its own draw) through the kernels and the plain
+    # versions, gated; then the bf16 weights, cast, through the plain ones
+    model32 = make_model(cfg.with_(dtype="float32"), device="cuda", seed=0)
+    ops.reset_launches()
+    kern32 = encoder_logits(model32, frames, "cuda")
+    routes32 = dict(ops.route_launches)
+    plain32 = encoder_logits(model32, frames, "ref")
+    for name, lg in (("float32", kern32), ("bfloat16", kern16)):
+        if not (torch.isfinite(lg).all() and lg.shape == (B, S, cfg.vocab)):
+            raise AssertionError(f"hubert {name} logits not finite or "
+                                 f"misshapen: {tuple(lg.shape)}")
+    gap, scale = (float((kern32 - plain32).abs().max()),
+                  float(plain32.abs().max()))
+    if routes32["general"] != n or not gap <= F32_LOGIT_TOL * scale:
+        raise AssertionError(f"hubert f32 kernel path: routes {routes32}, "
+                             f"off the plain path by {gap} > "
+                             f"{F32_LOGIT_TOL} x {scale}")
+    del kern32, plain32
+    same_draw = round_weights(model32, model)
+    ref32 = encoder_logits(model32, frames, "ref")
+    errs = bf16_errors(kern16, plain16, ref32)
+    del model32, model, kern16, plain16, ref32
+    torch.cuda.empty_cache()
+    med = sorted(times)[len(times) // 2]
+    log(f"[10] {cfg.name} encoder ({n} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters, bf16): {B} clips x {S} frames; forward + "
+        f"logits {med:.6g} s (median of {reps}: "
+        f"{[round(t, 6) for t in times]}), max_memory_allocated {peak} B; "
+        f"launches {launches}; attention routes {routes}")
+    log(f"[10] f32 kernel path vs plain path: max |diff| {gap:.6g} of max "
+        f"|logit| {scale:.6g} (ratio {gap / scale:.6g}); bf16 paths against "
+        f"the f32 plain path at the bf16 weights (same draw: {same_draw}): "
+        f"kernel {errs['bf16_kernel_err']}, plain {errs['bf16_plain_err']} "
+        f"(ratio {errs['bf16_err_ratio']}); kernel vs plain in bf16 "
+        f"{errs['bf16_gap']}")
+    return {"B": B, "S": S, "params": n_params, "forward_s": sig(med),
+            "forward_runs_s": [sig(t) for t in times], "peak_B": peak,
+            "launches": launches, "routes": routes, "f32_routes": routes32,
+            "general_launches_bf16": general16,
+            "f32_gap": sig(gap / scale), **errs, "same_draw": same_draw}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1597,6 +1791,19 @@ def main() -> int:
                 "(loaded from an earlier build: no ptxas report)"]:
             log(f"[1] ptxas {n}: {line}")
     summary: dict = {"build_s": sig(build_s)}
+    # the general routes' kernels run on the tensor cores: every
+    # instantiation's SASS holds HMMA instructions (bf16 and 3xTF32)
+    summary["p1_tc_sass"] = {}
+    for lib, prefix in (("flash_attention", "flash_kernel"),
+                        ("moe_gmm", "gmm_kernel")):
+        counts = {n: c for n, c in tc_instructions(
+            _build._lib_path(lib)).items() if n.startswith(prefix)}
+        log(f"[1] tensor-core instructions (HMMA/HGMMA) in {lib}'s SASS: "
+            f"{counts}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"{lib}: an instantiation without tensor-"
+                                 f"core instructions: {counts}")
+        summary["p1_tc_sass"].update(counts)
     card = card_line()
     clock_hz = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1819,10 +2026,10 @@ def main() -> int:
     model32 = make_model(cfg.with_(dtype="float32"), device="cuda", seed=0)
     ops.reset_launches()
     kern32 = logits_through(model32, prompts6, forced, "cuda", S6 + G6)
-    r6_f32 = dict(ops.route_launches)     # f32 prefill takes cuda_core
+    r6_f32 = dict(ops.route_launches)     # f32 prefill takes general
     log(f"[6] f32 kernel path, prefill + 3 decode steps: attention routes "
         f"{r6_f32}")
-    if not (r6_f32["cuda_core"] and r6_f32["decode_split"]):
+    if not (r6_f32["general"] and r6_f32["decode_split"]):
         raise AssertionError(f"f32 attention routes {r6_f32}")
     plain32 = logits_through(model32, prompts6, forced, "ref", S6 + G6)
     model = make_model(cfg, device="cuda", seed=0)
@@ -1913,9 +2120,10 @@ def main() -> int:
         f"checks within {MODEL_TOL[('gmm', 'float32')]})")
     kern = logits_through(model32, prompts7, forced7, "cuda", S7 + G7)
     g7_f32 = dict(ops.gmm_route_launches)     # the f32 checks' products
+    r7_f32 = dict(ops.route_launches)         # and their attention calls
     log(f"[7] f32 checks (MoE blocks, prefill + 3 decode steps): "
         f"grouped-matmul routes {g7_f32}")
-    if not (g7_f32["cuda_core"] and g7_f32["gmv"]) or g7_f32["gmm_tc"]:
+    if not (g7_f32["general"] and g7_f32["gmv"]) or g7_f32["gmm_tc"]:
         raise AssertionError(f"f32 grouped-matmul routes {g7_f32}")
     plain = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
     gap32, scale32 = (float((kern - plain).abs().max()),
@@ -1980,7 +2188,7 @@ def main() -> int:
         "prefill_s": sig(res7.prefill_s), "ms_per_token": sig(
             res7.ms_per_token), "tok_s": sig(res7.tokens_per_s),
         "peak_B": peak7, "launches": l7, "routes": r7, "gmm_routes": g7,
-        "f32_gmm_routes": g7_f32,
+        "f32_gmm_routes": g7_f32, "f32_routes": r7_f32,
         "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
         "plan_launches": pl["launches"]["min_cover_lambdas"],
         "layer_err": sig(max(layer_errs)), "f32_gap": sig(gap32 / scale32),
@@ -1997,6 +2205,19 @@ def main() -> int:
     t9 = time.perf_counter()
     summary["p9"] = schedule_phase(P=8, g=4.0, L=20.0, n_ml=16384)
     log(f"[9] phase 9 took {time.perf_counter() - t9:.2f} s")
+
+    # ------------------------------------- 10. hubert-xlarge's encoder
+    t10 = time.perf_counter()
+    summary["p10"] = hubert_phase(B=8, S=1500)
+    hub_row = next(r for r in model_rows if r["case"] == "hubert"
+                   and r["dtype"] == "bfloat16")
+    n10 = summary["p10"]["launches"]["flash_attention"]
+    attn_ms = n10 * hub_row["ms"]
+    summary["p10"]["attention_ms"] = sig(attn_ms)
+    log(f"[10] attention in the forward: {n10} launches x "
+        f"{hub_row['ms']:.6g} ms (phase 2, device time) = {attn_ms:.6g} ms "
+        f"of {1e3 * summary['p10']['forward_s']:.6g} ms")
+    log(f"[10] phase 10 took {time.perf_counter() - t10:.2f} s")
 
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
@@ -2062,7 +2283,7 @@ def main() -> int:
             "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}
 
     # attention: one entry per (count, route) of the bf16 serve runs, and
-    # cuda_core with the launches of phase 6's f32 kernel path.  In those
+    # general's two below.  In the serve
     # runs every plain call is a prefill (prefill_tc) and every decode call
     # masked (decode_split), so the serve counts split by route as below
     # (``ModelShapes`` also sees the placement planner's calls: it only
@@ -2092,16 +2313,31 @@ def main() -> int:
         if route == "decode_split":
             kernels[-1].update(second("olmoe_decode", row["dtype"],
                                       "olmoe"))
-    row = next(r for r in model_rows if r["case"] == "prefill"
-               and r["dtype"] == "float32")
-    kernels.append({
-        "name": "attention:cuda_core", "route": "cuda",
-        "attn_route": "cuda_core",
-        "source": f"src/repro_torch/kernels/csrc/"
-                  f"{ATTN_SOURCES['cuda_core']}.cu",
-        "replaces": REPLACES["flash_attention"],
-        "launches": r6_f32["cuda_core"],
-        "launches_from": "phase 6, f32 kernel path", **row_fields(row)})
+    # the general route, one entry per dtype, each timed at hubert's call:
+    # its commonest shape in either dtype (48 calls a forward; the f32
+    # paths of phases 6 and 7 make 32 and 16 in all)
+    p10 = summary["p10"]
+    for dt, launched, where, seconds in (
+            ("bfloat16", p10["general_launches_bf16"],
+             "phase 10, the bf16 forwards (counted and timed)",
+             (("hd192_v128", "hd192_v128"),)),
+            ("float32", r6_f32["general"] + r7_f32["general"]
+             + p10["f32_routes"]["general"],
+             "the f32 kernel paths of phases 6, 7 and 10",
+             (("prefill", "hymba"), ("olmoe_prefill", "olmoe"),
+              ("hd192_v128", "hd192_v128")))):
+        row = next(r for r in model_rows if r["case"] == "hubert"
+                   and r["dtype"] == dt)
+        kernels.append({
+            "name": "attention:general" + ("" if dt == "bfloat16"
+                                           else ":f32"),
+            "route": "cuda", "attn_route": "general",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{ATTN_SOURCES['general']}.cu",
+            "replaces": REPLACES["flash_attention"], "launches": launched,
+            "launches_from": where, **row_fields(row)})
+        for case, prefix in seconds:
+            kernels[-1].update(second(case, dt, prefix))
     for name in ("mamba_scan", "mamba_step"):
         key, dt = commonest(shapes_model, name)
         row = timed_row(name, key, dt)
@@ -2116,11 +2352,11 @@ def main() -> int:
             kernels[-1]["empty_ms"] = row["empty_ms"]
     # grouped matmul: one entry per route of the bf16 serve runs, timed at
     # the fill-aware case of its commonest path shape (the path hands the
-    # kernel the slot fills), the full buffers beside it; and cuda_core
+    # kernel the slot fills), the full buffers beside it; and general
     # with the launches of phase 7's f32 checks
-    gmm_launches = dict(g7, cuda_core=g7_f32["cuda_core"])
-    for route in GMM_PATH + ("cuda_core",):
-        if route == "cuda_core":
+    gmm_launches = dict(g7, general=g7_f32["general"])
+    for route in GMM_PATH + ("general",):
+        if route == "general":
             key, dt = (64, 2560, 2048, 1024), "float32"
         else:
             key, dt = commonest(routes_model, ("grouped_matmul", route))
@@ -2135,7 +2371,7 @@ def main() -> int:
             "live_rows": row["live_rows"], "live_slots": row["live_slots"],
             **{f"full_{k}": full[k] for k in (
                 "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}})
-        if route == "cuda_core":
+        if route == "general":
             kernels[-1]["launches_from"] = "phase 7, f32 checks"
         elif route == "gmm_tc":           # also the down product's shape
             kernels[-1].update(second("prefill_down_fill", row["dtype"],

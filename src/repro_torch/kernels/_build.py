@@ -75,8 +75,8 @@ SIGNATURES = {
 }
 # sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
 # shared memory and spills, kept per source in ``build_log``
-PTXAS_REPORT = ("attention_prefill_tc", "attention_decode", "moe_gmm_tc",
-                "moe_gmm", "front_find", "mamba_scan")
+PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
+                "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan")
 build_log: dict[str, str] = {}
 
 
@@ -97,7 +97,10 @@ def _flags(name: str) -> tuple:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers go into every source's key: an edited header
+    # rebuilds the sources that may include it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     flags = " ".join(_flags(name)).encode()
     key = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"

@@ -1,5 +1,5 @@
 // Grouped matmul of the MoE expert FFN for NVIDIA Hopper (sm_90a), loaded
-// through ctypes: the routes ``gmv`` (decode) and ``cuda_core`` of
+// through ctypes: the routes ``gmv`` (decode) and ``general`` of
 // ``kernels/moe_gmm.py``; bf16 prefill takes ``gmm_tc`` (moe_gmm_tc.cu).
 //
 // What it replaces: src/repro/kernels/moe_gmm.py::_kernel (the Pallas TPU
@@ -16,7 +16,12 @@
 //
 // Bound on the card.  Decode (C = 1, G = 64, D = 2048, F = 1024 in bf16)
 // reads every live slot's weights once for a handful of rows: 268 MB with
-// every slot live, 80 us at 3.35 TB/s; the bytes bound it.
+// every slot live, 80 us at 3.35 TB/s; the bytes bound it.  The general
+// route's f32 prefill (C = 2560, D 2048 -> F 1024, 64 slots) does 687
+// GFLOP with every row live against 2.5 GB: operations bound it, at 165
+// TFLOP/s for an f32-accurate product on the tensor cores (three TF32
+// products at 495 TFLOP/s; 4.17 ms).  The kernel this route replaces ran
+// f32 FMAs on the CUDA cores (67 TFLOP/s, 19.1 ms reached).
 //
 // Design.  Global loads are 16-byte pieces (4 f32 or 8 bf16) where D and F
 // allow; two paths:
@@ -34,17 +39,20 @@
 //    fastest on the card, full and at a decode fill.)  Partial sums meet
 //    in a fixed order (shuffles within a warp, then shared memory), so
 //    results are deterministic.  CUDA-core FMAs in f32;
-//  * otherwise (f32 prefill, or ragged D/F, ``gmm_kernel``): CUDA-core
-//    FMAs in f32, a 128 x 128 tile of 256 threads with 8 x 8 accumulators
-//    each, tiles staged in shared memory as f32 per K chunk of 8; a row
+//  * otherwise (f32 prefill, or ragged D/F, ``gmm_kernel``): mma.sync on
+//    the tensor cores, 3xTF32 for f32 (tc_mma.cuh: within ~1e-6 of an f32
+//    product; one TF32 product would not hold the f32 tolerance) and
+//    m16n8k16 for bf16; a 128 x 128 tile of 8 warps, each 64 x 32, x and
+//    w tiles of 32 along D by cp.async into a ring of 3 stages; a row
 //    tile past its group's fill writes zeros and exits.
-// The f32 paths never touch the tensor cores, so no TF32 either.
 // Launches go on the caller's stream and never synchronise; the launcher
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_mma.cuh"
 
 namespace {
 
@@ -110,119 +118,199 @@ __device__ __forceinline__ void fetch_piece(const T* p, int valid,
   }
 }
 
-// The tiled CUDA-core path (f32, or D/F not a multiple of a piece): a
-// (BM x BN) tile per block, TM x TN f32 accumulators per thread.
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool VEC>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+// The general path (f32, or D/F not a multiple of 8): a kBM x kBN output
+// tile per block, 8 warps as 2 (rows) x 4 (columns) of 64 x 32, on the
+// tensor cores: 3xTF32 m16n8k8 for f32, m16n8k16 for bf16.  x and w tiles
+// of kBK along D come by cp.async (16-byte pieces, VEC) into a ring of
+// kStages stages (3 in bf16, 4 in f32), the next tiles in flight while
+// one is multiplied; ragged edges and rows past the fill are zero-filled.
+// f32: each stage's products (12 MMAs per 16 x 8 tile) go into a fresh
+// tensor-core accumulator that is then added to an f32 sum on the CUDA
+// cores -- the tensor cores truncate each MMA's sum, which over D = 2048
+// in one chain left the result ~1e-4 off (tc_mma.cuh) -- at 128 more
+// registers a thread, so one block of 8 warps per SM.  w's tile is (kBK, kBN)
+// with F contiguous: MN-major for the B operand, so f32's B fragments are
+// scalar shared loads (row stride kBN + 8 words: 8 mod 32, the four k rows
+// of a fragment on distinct banks) and bf16's come transposed by
+// ldmatrix.trans.  Without VEC, element by element.
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kGmmThreads = 256;
+
+template <typename T>
+struct GmmLayout {
+  static constexpr int kStages = sizeof(T) == 4 ? 4 : 3;
+  // x rows: kBK + 4 f32 (fragment loads at 4 mod 32 words apart) or + 8
+  // bf16 (80 bytes: ldmatrix's 8 rows on distinct 16-byte bank groups)
+  static constexpr int SA = kBK + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int SB = kBN + 8;
+  static constexpr int kA = kBM * SA, kB = kBK * SB;   // one stage
+  static constexpr size_t kBytes = sizeof(T) * kStages * (kA + kB);
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kGmmThreads, sizeof(T) == 4 ? 1 : 2)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
            T* __restrict__ y, const int* __restrict__ fills, int C, int D,
            int F) {
-  constexpr int NTX = BN / TN;               // threads along the columns
-  constexpr int NTY = BM / TM;               // threads along the rows
-  constexpr int NT = NTX * NTY;
-  constexpr int L = Piece<T>::kLen;          // elements per piece
-  constexpr int XVECS = BM * BK / L;         // pieces per tile
-  constexpr int WVECS = BK * BN / L;
-  constexpr int XV = (XVECS + NT - 1) / NT;  // pieces per thread
-  constexpr int WV = (WVECS + NT - 1) / NT;
-  static_assert(BK % L == 0 && BN % L == 0, "tiles hold whole pieces");
+  using Lay = GmmLayout<T>;
+  constexpr int SA = Lay::SA, SB = Lay::SB, kStages = Lay::kStages;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int L = Piece<T>::kLen;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);      // [kStages][kBM][SA]
+  T* Bs = As + kStages * Lay::kA;              // [kStages][kBK][SB]
 
-  __shared__ float xs[BK][BM + 4];           // x tile, transposed
-  __shared__ __align__(16) float ws[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % NTX, ty = tid / NTX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;    // the warp's 64 x 32 tile
   const int g = blockIdx.z;
-  const int r0 = blockIdx.y * BM;            // row tile within the group
-  const int n0 = blockIdx.x * BN;
+  const int r0 = blockIdx.y * kBM;           // row tile within the group
+  const int n0 = blockIdx.x * kBN;
   const T* xg = x + static_cast<size_t>(g) * C * D;
   const T* wg = w + static_cast<size_t>(g) * D * F;
   T* yg = y + static_cast<size_t>(g) * C * F;
   const int fill = group_fill(fills, g, C);
   if (r0 >= fill) {                          // a dead tile: zeros, no loads
-    zero_tile(yg, r0, BM, n0, BN, C, F);
+    zero_tile(yg, r0, kBM, n0, kBN, C, F);
     return;
   }
 
-  float xr[XV][L], wr[WV][L];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < XV; ++j) {
-      const int idx = tid + j * NT;
-      const int r = idx / (BK / L), k = k0 + (idx % (BK / L)) * L;
-      const bool ok = idx < XVECS && r0 + r < fill && k < D;
-      fetch_piece<VEC>(ok ? xg + static_cast<size_t>(r0 + r) * D + k : xg,
-                       ok ? D - k : 0, xr[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < WV; ++j) {
-      const int idx = tid + j * NT;
-      const int k = k0 + idx / (BN / L), n = n0 + (idx % (BN / L)) * L;
-      const bool ok = idx < WVECS && k < D && n < F;
-      fetch_piece<VEC>(ok ? wg + static_cast<size_t>(k) * F + n : wg,
-                       ok ? F - n : 0, wr[j]);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int j = 0; j < XV; ++j) {
-      const int idx = tid + j * NT;
-      if (idx < XVECS) {
-        const int r = idx / (BK / L), c = (idx % (BK / L)) * L;
-#pragma unroll
-        for (int i = 0; i < L; ++i) xs[c + i][r] = xr[j][i];
+  auto load = [&](int kt, int st) {
+    const int k0 = kt * kBK;
+    T* a = As + st * Lay::kA;
+    T* bt = Bs + st * Lay::kB;
+    if (VEC) {
+      for (int i = tid; i < kBM * (kBK / L); i += kGmmThreads) {
+        const int r = i / (kBK / L), c = (i % (kBK / L)) * L;
+        const bool ok = r0 + r < fill && k0 + c < D;
+        tc::cp_async16(a + r * SA + c,
+                       ok ? xg + static_cast<size_t>(r0 + r) * D + k0 + c : xg,
+                       ok);
       }
-    }
-#pragma unroll
-    for (int j = 0; j < WV; ++j) {
-      const int idx = tid + j * NT;
-      if (idx < WVECS) {
-        const int kk = idx / (BN / L), c = (idx % (BN / L)) * L;
-#pragma unroll
-        for (int i = 0; i < L; i += 4)
-          *reinterpret_cast<float4*>(&ws[kk][c + i]) = make_float4(
-              wr[j][i], wr[j][i + 1], wr[j][i + 2], wr[j][i + 3]);
+      for (int i = tid; i < kBK * (kBN / L); i += kGmmThreads) {
+        const int kk = i / (kBN / L), c = (i % (kBN / L)) * L;
+        const bool ok = k0 + kk < D && n0 + c < F;
+        tc::cp_async16(bt + kk * SB + c,
+                       ok ? wg + static_cast<size_t>(k0 + kk) * F + n0 + c : wg,
+                       ok);
+      }
+    } else {
+      for (int i = tid; i < kBM * kBK; i += kGmmThreads) {
+        const int r = i / kBK, c = i % kBK;
+        const bool ok = r0 + r < fill && k0 + c < D;
+        a[r * SA + c] = ok ? xg[static_cast<size_t>(r0 + r) * D + k0 + c]
+                           : T(0.f);
+      }
+      for (int i = tid; i < kBK * kBN; i += kGmmThreads) {
+        const int kk = i / kBN, c = i % kBN;
+        const bool ok = k0 + kk < D && n0 + c < F;
+        bt[kk * SB + c] = ok ? wg[static_cast<size_t>(k0 + kk) * F + n0 + c]
+                             : T(0.f);
       }
     }
   };
 
-  float acc[TM][TN];
+  // [m tile][n tile][fragment]: the tensor-core accumulators, and in f32
+  // the sum of the stages' (``tot``)
+  float acc[4][4][4], tot[4][4][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = tot[mi][ni][e] = 0.f;
 
-  fetch(0);
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    stash();
-    __syncthreads();
-    if (k0 + BK < D) fetch(k0 + BK);         // in flight during the FMAs
+  const int nk = (D + kBK - 1) / kBK;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + i * NTY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[kk][tx + j * NTX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    tc::cp_async_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_async_wait<kStages - 2>();        // tile kt has arrived
+    __syncthreads();                         // and tile kt - 1 is done with
+    if (kt + kStages - 1 < nk)
+      load(kt + kStages - 1, (kt + kStages - 1) % kStages);
+    tc::cp_async_commit();
+    const T* a = As + (kt % kStages) * Lay::kA + (wm * 64) * SA;
+    const T* bt = Bs + (kt % kStages) * Lay::kB + wn * 32;
+    if constexpr (kF32) {
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 8) {
+        // the four n tiles' B fragments split once, then one m tile's A
+        // fragment at a time (fewer live registers than all four A's)
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const float* p = bt + (ks + t4) * SB + ni * 8 + g8;
+          tc::split_tf32(p[0], bh[ni][0], bl[ni][0]);
+          tc::split_tf32(p[4 * SB], bh[ni][1], bl[ni][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const float* p = a + (mi * 16 + g8) * SA + ks + t4;
+          uint32_t ah[4], al[4];
+          tc::split_tf32(p[0], ah[0], al[0]);
+          tc::split_tf32(p[8 * SA], ah[1], al[1]);
+          tc::split_tf32(p[4], ah[2], al[2]);
+          tc::split_tf32(p[8 * SA + 4], ah[3], al[3]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            tc::mma_3xtf32(acc[mi][ni], ah, al, bh[ni], bl[ni]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[mi][ni][e] += acc[mi][ni][e];
+            acc[mi][ni][e] = 0.f;
+          }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 16) {
+        uint32_t af[4][4];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+          tc::ldmatrix_x4(af[mi], a + (mi * 16 + lane % 16) * SA + ks +
+                                      (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(
+              bf, bt + (ks + ((lane / 8) % 2) * 8 + lane % 8) * SB +
+                      np * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            tc::mma_bf16(acc[mi][2 * np], af[mi], bf);
+            tc::mma_bf16(acc[mi][2 * np + 1], af[mi], bf + 2);
+          }
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty + i * NTY;
-    if (r >= C) continue;
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * NTX;
-      if (n < F)
-        store(yg + static_cast<size_t>(r) * F + n, r < fill ? acc[i][j] : 0.f);
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + wm * 64 + mi * 16 + g8 + (e >= 2 ? 8 : 0);
+      if (r >= C) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + wn * 32 + ni * 8 + 2 * t4 + (e & 1);
+        float val;
+        if constexpr (kF32)
+          val = tot[mi][ni][e];
+        else
+          val = acc[mi][ni][e];
+        if (n < F)
+          store(yg + static_cast<size_t>(r) * F + n, r < fill ? val : 0.f);
+      }
     }
-  }
 }
 
 // The decode path (C <= 16): a product of a ROWS-row tile with BN =
@@ -346,21 +434,32 @@ cudaError_t dispatch(const void* x, const void* w, void* y, const int* fills,
       launch_gmv<T, 4>(xt, wt, yt, fills, G, C, D, F, vec, stream);
     return cudaGetLastError();
   }
-  // 128 x 128 tiles, 256 threads of 8 x 8
-  const dim3 grid((F + 127) / 128, (C + 127) / 128, G);
-  if (vec)
-    gmm_kernel<T, 128, 128, 8, 8, 8, true><<<grid, 256, 0, stream>>>(
-        xt, wt, yt, fills, C, D, F);
-  else
-    gmm_kernel<T, 128, 128, 8, 8, 8, false><<<grid, 256, 0, stream>>>(
-        xt, wt, yt, fills, C, D, F);
+  // 128 x 128 tiles of 8 warps on the tensor cores; the shared-memory
+  // limit raised once per instantiation, at its first launch (not again
+  // inside a CUDA-graph capture).  bf16 comes here only with D or F ragged
+  // (``moe_gmm.route``; the rest takes gmm_tc), so its tiles are built
+  // without VEC alone
+  constexpr bool kVecTiles = sizeof(T) == 4;
+  const bool vt = kVecTiles && vec;
+  auto kernel = vt ? gmm_kernel<T, kVecTiles> : gmm_kernel<T, false>;
+  static bool limit_set[2] = {false, false};
+  if (!limit_set[vt]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(GmmLayout<T>::kBytes));
+    if (err != cudaSuccess) return err;
+    limit_set[vt] = true;
+  }
+  const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, G);
+  kernel<<<grid, kGmmThreads, GmmLayout<T>::kBytes, stream>>>(xt, wt, yt,
+                                                              fills, C, D, F);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (G*C, D), w (G, D, F) -> y (G*C, F); ``fills`` null or G int32;
-// ``decode`` picks the gmv path (C <= 16), else the CUDA-core tiles.  The
+// ``decode`` picks the gmv path (C <= 16), else the tensor-core tiles.  The
 // wrapper checks the shapes, G <= 65535 and the row-tile count.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* y,
                                     const void* fills, int G, int C, int D,

@@ -15,8 +15,10 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
 - ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, hd = hd_v in
   {64, 128}, no explicit positions -- wgmma on the tensor cores, K/V by
   TMA;
-- ``cuda_core`` (``csrc/flash_attention.cu``): everything else (f32
-  prefill, other head dims, positions with many rows) on CUDA cores.
+- ``general`` (``csrc/flash_attention.cu``): everything else -- f32
+  prefill, other head dims (any up to ``MAX_HEAD_DIM``, hd and hd_v
+  unequal), positions with many rows -- on the tensor cores (mma.sync:
+  bf16, or 3xTF32 for f32, near f32 accuracy), K/V tiles by cp.async.
 
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
@@ -55,7 +57,7 @@ def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
     if (dtype == torch.bfloat16 and hd == hd_v and hd in TC_HEAD_DIMS
             and not has_positions):
         return "prefill_tc"
-    return "cuda_core"
+    return "general"
 
 
 def plan_splits(B: int, KV: int, Sk: int, rows: int,
@@ -121,7 +123,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else hd ** -0.5
     which = route(q.dtype, B, Sq, Sk, H, KV, hd, hd_v, window,
                   q_pos is not None or k_pos is not None)
-    if which != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if which != "general" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"route {which} needs 16-byte aligned q, k and v")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
     qp = None if q_pos is None else q_pos.data_ptr()

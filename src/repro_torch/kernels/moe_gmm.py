@@ -16,8 +16,10 @@ by ``route`` from the dtype and the shapes alone:
 - ``gmm_tc`` (``csrc/moe_gmm_tc.cu``): bf16, ``C > DECODE_ROWS``, D and F
   multiples of 8 (TMA's 16-byte strides) -- wgmma on the tensor cores,
   tiles by TMA, dead row tiles skipped;
-- ``cuda_core`` (``csrc/moe_gmm.cu``): the rest (f32 prefill, ragged D or
-  F) on CUDA cores.
+- ``general`` (``csrc/moe_gmm.cu``): the rest (f32 prefill, ragged D or
+  F) on the tensor cores -- mma.sync, 3xTF32 for f32 (near f32 accuracy),
+  tiles by cp.async where D and F allow 16-byte pieces; dead row tiles
+  skipped.
 
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
@@ -33,7 +35,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID = 65535          # grid.y and grid.z of a launch
 DECODE_ROWS = 16           # the largest capacity of the ``gmv`` route
 _GMV_ROWS = 4              # rows per block of ``gmv`` (at most)
-_CORE_TILE = 128           # rows per block of ``cuda_core``
+_GENERAL_TILE = 128        # rows per block of ``general``
 _TC_TILE = (128, 256)      # the output tile of ``gmm_tc``
 
 
@@ -44,7 +46,7 @@ def route(dtype, C: int, D: int, F: int) -> str:
         return "gmv"
     if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
         return "gmm_tc"
-    return "cuda_core"
+    return "general"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -79,7 +81,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
         if any(t.data_ptr() % 16 for t in (x, w)):
             raise ValueError("route gmm_tc needs 16-byte aligned x and w")
     else:
-        rows = _GMV_ROWS if which == "gmv" else _CORE_TILE
+        rows = _GMV_ROWS if which == "gmv" else _GENERAL_TILE
         if G > _MAX_GRID or _cdiv(C, rows) > _MAX_GRID:
             raise ValueError(f"{G} groups of capacity {C}: over the grid "
                              "limit")

@@ -41,8 +41,8 @@ launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
-                                  "cuda_core": 0}
-gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "cuda_core": 0}
+                                  "general": 0}
+gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
 
 
 def force(which: str | None) -> None:

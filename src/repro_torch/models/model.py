@@ -42,15 +42,18 @@ def _check_supported(cfg: ModelConfig) -> None:
     for seg in cfg.segments:
         if seg.kind == "vision_group" or seg.cross_attn:
             raise NotImplementedError(
-                "segment kind 'vision_group' (cross-attention): ROADMAP "
-                "Queue 1 item 3")
+                "segment kind 'vision_group': ROADMAP Queue 1, "
+                "\"Cross-attention\"")
         if seg.kind not in _KINDS:
             raise ValueError(f"unknown segment kind {seg.kind!r}")
         if seg.attn == "mla":
-            raise NotImplementedError("attn='mla': ROADMAP Queue 1 item 2")
+            raise NotImplementedError(
+                "attn='mla': ROADMAP Queue 1, \"MLA and multi-token "
+                "prediction\"")
     if cfg.mtp_depth:
         raise NotImplementedError(
-            "mtp_depth > 0 (multi-token prediction): ROADMAP Queue 1 item 2")
+            "mtp_depth > 0: ROADMAP Queue 1, \"MLA and multi-token "
+            "prediction\"")
 
 
 class Params(nn.Module):
@@ -237,7 +240,8 @@ class Model(nn.Module):
 
     def loss(self, batch: dict):
         raise NotImplementedError(
-            "Model.loss (training, backward kernels): ROADMAP Queue 1 item 4")
+            "Model.loss (backward kernels): ROADMAP Queue 1, \"Loss and "
+            "training\"")
 
     def route_trace(self, batch: dict) -> list:
         """Replay the forward pass (dense FFNs) collecting each MoE layer's

@@ -24,7 +24,7 @@ reference (every expert on every token, gated); ``"tp"`` (decode) and
 ``"a2a"`` (prefill) are the slot paths.  The JAX package runs those two
 under ``shard_map`` over the mesh's ``model`` axis; the port serves on one
 card, as the JAX launcher does on a one-device mesh, so only a plan with
-one shard is taken.  Several shards wait for ROADMAP Queue 1 item 10.
+one shard is taken.  Several shards wait for ROADMAP Queue 1, "Distribution".
 """
 from __future__ import annotations
 
@@ -267,7 +267,8 @@ def _one_shard(plan: PlacementPlan) -> None:
     if plan.n_shards != 1:
         raise NotImplementedError(
             f"a plan over {plan.n_shards} shards: the multi-shard slot "
-            "paths (experts over several cards) are ROADMAP Queue 1 item 10")
+            "paths (experts over several cards): ROADMAP Queue 1, "
+            "\"Distribution\"")
     if plan.local_slot[0] != tuple(range(plan.n_experts)):
         raise ValueError("a one-shard plan must hold expert e in slot e")
 

@@ -41,7 +41,7 @@ def test_route_of_the_serving_shapes(name):
         assert fa.route(torch.bfloat16, B, S, S, H, KV, hd, hd, window,
                         False) == "prefill_tc"
         assert fa.route(torch.float32, B, S, S, H, KV, hd, hd, window,
-                        False) == "cuda_core"
+                        False) == "general"
         # decode: a linear cache of max_len or a ring of the window
         Sk = min(window, max_len) if window else max_len
         for dtype in (torch.float32, torch.bfloat16):
@@ -50,19 +50,33 @@ def test_route_of_the_serving_shapes(name):
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    ((1, 40, 40, 4, 2, 192, 128, 0, False), torch.bfloat16, "cuda_core"),
-    ((2, 70, 70, 6, 2, 16, 16, 0, False), torch.bfloat16, "cuda_core"),
-    ((2, 9, 20, 4, 2, 64, 64, 6, True), torch.bfloat16, "cuda_core"),
+    ((1, 40, 40, 4, 2, 192, 128, 0, False), torch.bfloat16, "general"),
+    ((2, 70, 70, 6, 2, 16, 16, 0, False), torch.bfloat16, "general"),
+    ((2, 9, 20, 4, 2, 64, 64, 6, True), torch.bfloat16, "general"),
     ((2, 3, 90, 10, 2, 64, 64, 0, True), torch.bfloat16, "decode_split"),
-    ((2, 4, 90, 10, 2, 64, 64, 0, False), torch.float32, "cuda_core"),
-    ((1, 1, 90, 4, 4, 256, 256, 0, True), torch.float32, "cuda_core"),
+    ((2, 4, 90, 10, 2, 64, 64, 0, False), torch.float32, "general"),
+    ((1, 1, 90, 4, 4, 256, 256, 0, True), torch.float32, "general"),
     ((1, 1, 90, 4, 4, 256, 256, 0, True), torch.bfloat16, "decode_split"),
-    ((1, 1, 90, 4, 4, 96, 96, 0, True), torch.bfloat16, "cuda_core"),
+    ((1, 1, 90, 4, 4, 96, 96, 0, True), torch.bfloat16, "general"),
 ])
 def test_route_of_other_shapes(shape, dtype, want):
     """Many rows with positions, odd head dims and f32 past 512 bytes a
-    row stay on the CUDA-core kernel."""
+    row stay on the general kernel."""
     assert fa.route(dtype, *shape) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hubert_encoder_takes_the_general_route(dtype):
+    """hubert-xlarge's full-size encoder call (8 clips of 30 s at 50
+    frames/s, 16 heads of 80, non-causal) has head dims that the
+    tensor-core prefill does not take: every one of its layers runs on the
+    general route, in both dtypes."""
+    cfg = get_config("hubert-xlarge")
+    H, KV, hd, windows = _attn_shapes("hubert-xlarge")
+    assert (H, KV, hd, windows) == (16, 16, 80, [0])
+    assert not cfg.segments[0].causal
+    assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0,
+                    False) == "general"
 
 
 @pytest.mark.parametrize("Sk", [1, 63, 1024, 2080])

@@ -220,29 +220,29 @@ ATTN_CASES = [
     # (B, Sq, Sk, H, KV, hd, hd_v, causal, window, positions, routes):
     # routes is the kernel ``flash_attention.route`` picks in f32 and bf16
     (2, 70, 70, 6, 2, 16, 16, True, 0, None,         # ragged tiles, G = 3
-     ("cuda_core", "cuda_core")),
+     ("general", "general")),
     (1, 33, 90, 5, 5, 64, 64, False, 0, None,        # not causal, Sq != Sk
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     (2, 130, 130, 5, 1, 32, 32, True, 24, None,      # sliding window, G = 5
-     ("cuda_core", "cuda_core")),
+     ("general", "general")),
     (2, 1, 150, 10, 2, 64, 64, True, 0, "linear",    # decode, linear cache
      ("decode_split", "decode_split")),
     (2, 1, 64, 10, 2, 64, 64, True, 0, "ring",       # decode, ring with pads
      ("decode_split", "decode_split")),
     (1, 40, 40, 4, 2, 192, 128, True, 0, None,       # hd 192, hd_v 128
-     ("cuda_core", "cuda_core")),
+     ("general", "general")),
     # the tensor-core prefill: Sq and Sk not multiples of 64, G 5 and 1
     (2, 200, 200, 10, 2, 64, 64, True, 0, None,
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     (1, 150, 150, 4, 4, 128, 128, True, 0, None,
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     (1, 77, 190, 6, 6, 128, 128, False, 0, None,
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     # window edges inside a key tile
     (2, 300, 300, 5, 1, 64, 64, True, 100, None,
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     (1, 260, 260, 2, 2, 128, 128, True, 70, None,
-     ("cuda_core", "prefill_tc")),
+     ("general", "prefill_tc")),
     # split-K decode: G 1 and 5 at hd 128, a window, and a ring of 1000
     # slots with 20 filled, so that its first splits are all padding
     (2, 1, 333, 4, 4, 128, 128, True, 0, "linear",
@@ -253,6 +253,28 @@ ATTN_CASES = [
      ("decode_split", "decode_split")),
     (2, 1, 1000, 4, 2, 64, 64, True, 0, "ring",
      ("decode_split", "decode_split")),
+    # the general route on the tensor cores: hd 40 and 20 (not a multiple
+    # of 16; 20 loads element by element in bf16), 18 (element by element
+    # in f32 too), hubert's 80 (non-causal, and with a window), 256, MLA's
+    # 192/128 non-causal, ragged Sq and Sk
+    (2, 37, 70, 4, 2, 40, 40, True, 0, None, ("general", "general")),
+    (1, 50, 50, 2, 2, 20, 20, True, 0, None, ("general", "general")),
+    (1, 33, 40, 2, 1, 18, 18, False, 0, None, ("general", "general")),
+    (1, 100, 150, 4, 4, 80, 80, False, 0, None, ("general", "general")),
+    (2, 90, 90, 6, 2, 80, 80, True, 33, None, ("general", "general")),
+    (1, 70, 130, 2, 1, 256, 256, True, 0, None, ("general", "general")),
+    (1, 65, 65, 4, 4, 192, 128, False, 0, None, ("general", "general")),
+    # positions with more than 16 rows per (batch, kv head): a chunk of
+    # queries at the end of a cache whose first keys are padding
+    (2, 24, 100, 6, 2, 64, 64, True, 0, "chunk", ("general", "general")),
+    (1, 20, 96, 4, 4, 128, 128, True, 40, "chunk", ("general", "general")),
+    # grids of at least 2 x 132 blocks of 128 rows, where the general
+    # kernel takes two m tiles per warp: hubert's dims with ragged keys,
+    # GQA with a window edge, MLA's dims, positions
+    (4, 640, 700, 16, 16, 80, 80, False, 0, None, ("general", "general")),
+    (3, 600, 600, 20, 4, 48, 48, True, 200, None, ("general", "general")),
+    (2, 1100, 1100, 16, 16, 192, 128, True, 0, None, ("general", "general")),
+    (4, 600, 700, 16, 16, 64, 64, True, 0, "chunk", ("general", "general")),
 ]
 
 
@@ -271,6 +293,11 @@ def _attn_inputs(case, dtype, dev):
         qp = torch.full((B, 1), 19, dtype=torch.int32, device=dev)
         kp = torch.arange(19 - Sk + 1, 20, dtype=torch.int32,
                           device=dev).expand(B, Sk).contiguous()
+    elif kind == "chunk":                 # queries at the cache's last Sq
+        qp = torch.arange(Sk - Sq, Sk, dtype=torch.int32, device=dev).expand(
+            B, Sq).contiguous()
+        kp = torch.arange(Sk, dtype=torch.int32, device=dev).repeat(B, 1)
+        kp[0, :5] = -1                    # batch row 0: 5 padded slots
     return q, k, v, dict(causal=causal, window=window, q_pos=qp, k_pos=kp)
 
 
@@ -467,14 +494,17 @@ def _gmm_fills(kind, G, C, cuda):
     (8, 1, 256, 128), (2, 3, 1100, 24), (3, 5, 33, 7),      # decode path
     (5, 37, 96, 80), (4, 128, 64, 40), (3, 37, 33, 7),      # wide paths
     (3, 200, 64, 256), (1, 37, 40, 24), (2, 300, 24, 264),  # gmm_tc edges
-    (3, 130, 136, 520)])
+    (3, 130, 136, 520),
+    (2, 260, 96, 136), (2, 129, 200, 130), (1, 300, 72, 264)])  # general
 def test_grouped_matmul_kernel_matches_plain_version(cuda, no_tf32, G, C,
                                                      D, F, dtype, fills):
     """C <= 16 takes ``gmv`` (D = 1100 spans rows past a lane group's
     unroll), larger C ``gmm_tc`` in bf16 with D and F multiples of 8 (C
     200, 37, 300 and 130 leave a partial row tile, G = 1, D = 8 x odd, F =
-    24 a partial column box) and ``cuda_core`` otherwise; D = 33, F = 7
-    take the unvectorized loads.  With fills, the x rows past each fill
+    24 a partial column box) and ``general`` otherwise (C 260, 129 and 300
+    cross row tiles, D 96, 200 and 72 end inside a 32-deep stage, F 136,
+    130 and 264 inside a column tile); D = 33, F = 7 and F = 130 (f32) take
+    the unvectorized loads.  With fills, the x rows past each fill
     hold random values and must still come out as exact zeros."""
     g = torch.Generator(device=cuda).manual_seed(G * C + D)
     x = torch.randn((G * C, D), generator=g, device=cuda).to(dtype)

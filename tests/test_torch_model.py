@@ -157,6 +157,29 @@ def test_decode_matches_prefill(arch):
                                rtol=6e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hubert_encoder_matches_jax(dtype):
+    """hubert-xlarge, reduced (one non-causal layer of 4 heads of 16,
+    d_model 64): ``forward`` then ``logits_fn`` over the same numpy frames
+    (the feature extractor is a stub in both packages) against the JAX
+    ``Model``, within 1e-5 of the largest logit in f32 and 6e-2 in bf16."""
+    cfg, jm, params, model = _pair("hubert-xlarge", dtype)
+    assert cfg.frame_input and not cfg.segments[0].causal
+    S = 24
+    frames = np.random.default_rng(8).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    jx, _ = jm.forward(params, {"frames": jnp.asarray(frames)})
+    want = _to_np(jm.logits_fn(params, jx))
+    with torch.no_grad():
+        x, aux = model({"frames": torch.from_numpy(frames)})
+        got = model.logits_fn(x)
+    assert got.shape == (B, S, cfg.vocab) and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    tol = 1e-5 if dtype == "float32" else 6e-2
+    err = np.abs(_np(got) - want).max()
+    assert err <= tol * np.abs(want).max(), err
+
+
 def test_converter_is_bit_exact_in_bf16():
     cfg, _, params, model = _pair("hymba-1.5b", "bfloat16")
     state = model.state_dict()
@@ -199,8 +222,8 @@ def test_serve_on_cpu_reduced_hymba():
 
 
 @pytest.mark.parametrize("arch,needs", [
-    ("deepseek-v3-671b", "item 2"),
-    ("llama-3.2-vision-11b", "vision_group")])
+    ("deepseek-v3-671b", "MLA and multi-token prediction"),
+    ("llama-3.2-vision-11b", "Cross-attention")])
 def test_unported_parts_raise(arch, needs):
     with pytest.raises(NotImplementedError, match=needs):
         Model(reduce_config(get_config(arch)), device="cpu")

@@ -330,11 +330,11 @@ def test_grouped_matmul_fills_dispatch_on_cpu():
     ("float32", 1, 2048, 1024, "gmv"),
     ("bfloat16", 2560, 2048, 1024, "gmm_tc"),    # olmoe prefill gate/up
     ("bfloat16", 2560, 1024, 2048, "gmm_tc"),    # olmoe prefill down
-    ("float32", 2560, 2048, 1024, "cuda_core"),  # f32 prefill
+    ("float32", 2560, 2048, 1024, "general"),    # f32 prefill
     ("bfloat16", 16, 64, 64, "gmv"),
     ("bfloat16", 17, 40, 24, "gmm_tc"),
-    ("bfloat16", 37, 33, 80, "cuda_core"),       # D not a multiple of 8
-    ("bfloat16", 37, 96, 7, "cuda_core"),        # F not a multiple of 8
+    ("bfloat16", 37, 33, 80, "general"),         # D not a multiple of 8
+    ("bfloat16", 37, 96, 7, "general"),          # F not a multiple of 8
 ])
 def test_gmm_route_is_a_function_of_dtype_and_shapes(dtype, C, D, F, want):
     assert moe_gmm.route(getattr(torch, dtype), C, D, F) == want
@@ -447,7 +447,7 @@ def test_multi_shard_plans_wait_for_item_10():
     tp, _ = _moe_params(cfg, rng, "float32")
     x = torch.zeros((1, 2, cfg.d_model))
     for mode in ("tp", "a2a"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="Distribution"):
             moe.moe_apply(tp, x, cfg, moe.round_robin_plan(8, 2), mode)
     with pytest.raises(ValueError, match="mode"):
         moe.moe_apply(tp, x, cfg, moe.round_robin_plan(8, 1), "ep")
