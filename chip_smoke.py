@@ -9,8 +9,10 @@ partitioning (``partition_with_replication``, flat and as a multilevel
 V-cycle), serving ``hymba-1.5b`` and serving ``olmoe-1b-7b`` with
 replicated expert placement (``launch.serve.serve``), and BSP scheduling
 with replication, whose window pricers run as int32 PyTorch programs on
-the card (``kernels.front_pass.DeviceScheduleWindows``), and
-``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``).  Phases,
+the card (``kernels.front_pass.DeviceScheduleWindows``),
+``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``) and
+serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths.
+Phases,
 in order; any failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -81,9 +83,9 @@ in order; any failure propagates and the exit code is nonzero:
    the f32 model: each layer's MoE block on the same input through the
    kernel and the plain version within ``MODEL_TOL`` (the routing is then
    identical, so this isolates the kernel), and prefill plus three
-   teacher-forced decode steps within ``F32_LOGIT_TOL`` (if a router
-   near-tie breaks that, the run counts the top-k choices on which the
-   two paths' route traces differ and reports them with the gap); the
+   teacher-forced decode steps within ``F32_LOGIT_TOL`` (the run counts
+   the top-k choices on which the two paths' routers differ, and a gap
+   past the tolerance fails unless some differ: a router near-tie); the
    bf16 paths' distances from the f32 plain path at the bf16 weights as
    in phase 6.
    Last, the serving benchmark's SMOKE drift replay through the online
@@ -116,23 +118,40 @@ in order; any failure propagates and the exit code is nonzero:
    median of 3 timed forwards after it, peak memory and the attention
    calls' share (phase 2's device time); the f32 model's kernel path
    against its plain path within ``F32_LOGIT_TOL``, and the bf16 paths'
-   distances from the f32 plain path at the bf16 weights as in phase 6.
+   distances from the f32 plain path at the bf16 weights as in phase 6;
+11. serve ``deepseek-v3-671b`` at its published widths (d_model 7168, 128
+   heads, MLA head dims 128 + 64 and 128, 256 experts of 2048 top-8 and
+   one shared, vocabulary 129,280) with its depth cut to 3 dense + 2 MoE
+   MLA layers and MTP 1 (27.3 B parameters, 54.6 GB in bf16), seeded
+   weights, phase 6's traffic, the one-shard round-robin placement:
+   prefill seconds, decode ms per token, tokens/s, peak memory, launches
+   exactly as expected (5 prefill attention calls on ``prefill_tc``, none
+   in MLA decode, which is plain PyTorch as in the JAX package; 192
+   grouped products, prefill on ``gmm_tc`` and decode on ``gmv``) and a
+   decode profile.  Then at 1 dense + 1 MoE layer over one prompt (the
+   plain attention's f32 scores of four would not fit beside 58.5 GB of
+   f32 weights): the bf16 model through both paths (logits kept on the
+   host; the two models do not fit together), the f32 model's kernel
+   path against its plain path within ``F32_LOGIT_TOL`` (a router
+   near-tie counted from both paths' router choices), and the bf16
+   paths' distances from the f32 plain path at the bf16 weights.
 
-Launch counts are reset just before each driven run (phases 3-8, 10) and read
-just after; the kernel line reports those of phases 4 and 5 (the flat
-``partition_with_replication`` runs) for the gain kernels, with phase 8's
-beside them (``vcycle_launches``), and those of the
-serve runs of phases 6 and 7, summed, for the model kernels.  The
+Launch counts are reset just before each driven run (phases 3-8, 10, 11)
+and read just after; the kernel line reports those of phases 4 and 5 (the
+flat ``partition_with_replication`` runs) for the gain kernels, with phase
+8's beside them (``vcycle_launches``), and those of the serve runs of
+phases 6, 7 and 11, summed, for the model kernels.  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, plus one for the
 ``general`` route with the launches of phase 6's f32 kernel path and of
-phase 10 (the bf16 serve runs never take it), timed at hymba's f32
-prefill with olmoe's f32 prefill, hubert's call and MLA's bf16 shape
-beside it; the grouped matmul likewise has one entry per
-route of the serve runs (``gmm_tc``, ``gmv``) timed at its fill-aware
-case, and one for ``general`` with the launches of phase 7's f32
-checks; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
+phase 10 (the bf16 serve runs never take it), timed at hubert's call
+with hymba's, olmoe's, MLA's and deepseek's f32 prefill beside it (the
+``prefill_tc`` entry has hymba's, deepseek's and MLA's 16-head bf16
+shapes beside its commonest); the grouped matmul likewise has one entry
+per route of the serve runs (``gmm_tc``, ``gmv``) timed at its
+fill-aware case, deepseek's beside it, and one for ``general`` with the
+launches of the f32 checks of phases 7 and 11; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
 (decode, from a state), each with its bound's terms
 (``bound_terms_ms``, the exps' share on the special-function unit
 ``exp_sfu_share``) and the step with an empty launch's time
@@ -503,9 +522,9 @@ def rel_ok(got, want, tol: float) -> tuple[bool, float]:
 # timed beside the plain version and SDPA): hymba's prefill (global and
 # window 1024) and decode (linear cache of 2080 at position 2060, full
 # ring of 1024), a ring whose left slots are still padding, a non-causal
-# shape, MLA's 192/128 dims (the prefill of the next module to port),
-# olmoe's prefill and decode and hubert's encoder call.  Every path
-# shape is timed
+# shape, MLA's 192/128 dims at 16 heads (``prefill_tc`` in bf16,
+# ``general`` in f32), olmoe's prefill and decode, hubert's encoder call
+# and deepseek-v3's MLA prefill (phase 11).  Every path shape is timed
 ATTN_CASES = [
     ("prefill", "flash_attention", 4, 2048, 2048, 25, 5, 64, 64, True, 0,
      None, True),
@@ -530,6 +549,10 @@ ATTN_CASES = [
     # of 80, non-causal
     ("hubert", "flash_attention", 8, 1500, 1500, 16, 16, 80, 80, False, 0,
      None, True),
+    # deepseek-v3 (phase 11): 4 prompts of 2048, 128 heads, q/k head dim
+    # 128 + 64, v head dim 128, causal
+    ("deepseek_prefill", "flash_attention", 4, 2048, 2048, 128, 128, 192,
+     128, True, 0, None, True),
 ]
 # (name, counter, B, S, di, N, with a state, on the path)
 SCAN_CASES = [
@@ -538,9 +561,11 @@ SCAN_CASES = [
 ]
 # (name, G, C, D, F, on the path, routed tokens): olmoe's expert
 # products, 64 slots -- gate/up (D 2048 -> F 1024) and down (1024 ->
-# 2048) -- at decode (C = 1) and prefill (C = 2560), and one odd shape;
-# the ``_fill`` cases hand the kernel the slot fills of that many tokens
-# routed top-8 uniformly at random (None: every row live)
+# 2048) -- at decode (C = 1) and prefill (C = 2560), one odd shape, and
+# deepseek-v3's (phase 11), 256 slots -- gate/up (7168 -> 2048) and down
+# (2048 -> 7168) -- at decode (C = 1) and prefill (C = 640); the ``_fill``
+# cases hand the kernel the slot fills of that many tokens routed top-8
+# uniformly at random (None: every row live)
 GMM_CASES = [
     ("decode_gate_up", 64, 1, 2048, 1024, True, None),
     ("decode_down", 64, 1, 1024, 2048, True, None),
@@ -550,6 +575,13 @@ GMM_CASES = [
     ("prefill_gate_up_fill", 64, 2560, 2048, 1024, True, 4 * 2048),
     ("prefill_down_fill", 64, 2560, 1024, 2048, True, 4 * 2048),
     ("decode_fill", 64, 1, 2048, 1024, True, 4),
+    ("ds_decode_gate_up", 256, 1, 7168, 2048, True, None),
+    ("ds_prefill_gate_up", 256, 640, 7168, 2048, True, None),
+    ("ds_prefill_down", 256, 640, 2048, 7168, True, None),
+    ("ds_prefill_gate_up_fill", 256, 640, 7168, 2048, True, 4 * 2048),
+    ("ds_prefill_down_fill", 256, 640, 2048, 7168, True, 4 * 2048),
+    ("ds_decode_fill", 256, 1, 7168, 2048, True, 4),
+    ("ds_decode_down_fill", 256, 1, 2048, 7168, True, 4),
 ]
 GMM_TOP_K = 8
 
@@ -951,16 +983,19 @@ def ptxas_summary(log: str) -> list:
 
 def expected_serve_launches(cfg, G: int) -> dict:
     """What one serve run launches: each global layer's prefill attention
-    is plain, each windowed layer's and every decode call masked; the SSM
+    is plain, each windowed layer's and every GQA decode call masked (MLA
+    decodes in plain PyTorch, as the JAX package does in jnp); the SSM
     mixer runs twice per layer in prefill (block, then cache) and once per
     layer and decode step."""
-    n = cfg.n_layers
-    n_window = sum(s.n_layers for s in cfg.segments if s.sliding_window)
-    n_ssm = sum(s.n_layers for s in cfg.segments
-                if s.kind in ("mamba", "hybrid"))
-    n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
-    return {"flash_attention": n - n_window,
-            "attention_masked": n_window + (G - 1) * n,
+    def layers(pred):
+        return sum(s.n_layers for s in cfg.segments if pred(s))
+    n_attn = layers(lambda s: s.attn != "none" and s.kind != "mamba")
+    n_gqa = layers(lambda s: s.attn == "gqa" and s.kind != "mamba")
+    n_window = layers(lambda s: s.sliding_window)
+    n_ssm = layers(lambda s: s.kind in ("mamba", "hybrid"))
+    n_moe = layers(lambda s: s.kind == "moe")
+    return {"flash_attention": n_attn - n_window,
+            "attention_masked": n_window + (G - 1) * n_gqa,
             "mamba_scan": 2 * n_ssm, "mamba_step": (G - 1) * n_ssm,
             "grouped_matmul": 3 * n_moe * G}
 
@@ -1256,21 +1291,32 @@ def moe_layer_check(model, prompts) -> list:
     return errs
 
 
-def route_flips(model, prompts) -> int:
-    """Router choices on which the route traces through the kernels and
-    through the plain versions differ."""
-    import torch
-    from repro_torch.kernels import ops
-    traces = {}
-    for which in ("cuda", "ref"):
-        ops.force(which)
-        try:
-            with torch.inference_mode():
-                traces[which] = model.route_trace({"tokens": prompts})
-        finally:
-            ops.force(None)
-    return int(sum((a != b).sum() for a, b in zip(traces["cuda"],
-                                                  traces["ref"])))
+class RouterLog:
+    """While active, records the top-k experts of every router call of the
+    MoE slot paths (``models.moe.router_topk``), on the host: the routing
+    of a run, to count where two runs route apart."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._real = moe.router_topk
+
+        def topk(router_w, x, cfg):
+            w, idx, aux = self._real(router_w, x, cfg)
+            self.calls.append(idx.cpu())
+            return w, idx, aux
+        moe.router_topk = topk
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+        moe.router_topk = self._real
+
+    def flips(self, other: "RouterLog") -> int:
+        return int(sum((a != b).sum() for a, b in zip(self.calls,
+                                                      other.calls)))
 
 
 def check_routes(routes: dict, launches: dict, model: str) -> None:
@@ -1762,6 +1808,160 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
             "f32_gap": sig(gap / scale), **errs, "same_draw": same_draw}
 
 
+# phase 11: deepseek-v3-671b at its published widths, cut in depth only
+# to (dense, MoE) MLA layers: the served cut (54.6 GB of bf16 weights; a
+# third MoE layer would need 77.6 GB) and the f32 gate's (58.5 GB of f32
+# weights), with MTP depth 1 (built, not run by serving)
+DS_SERVE_DEPTH = (3, 2)
+DS_GATE_DEPTH = (1, 1)
+
+
+def deepseek_config(dense: int, moe: int, dtype: str = "bfloat16"):
+    """deepseek-v3-671b with only its depth cut: ``dense`` + ``moe`` MLA
+    layers of the published 3 + 58."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Segment
+    return get_config("deepseek-v3-671b").with_(
+        segments=(Segment("dense", dense, attn="mla"),
+                  Segment("moe", moe, attn="mla")), dtype=dtype)
+
+
+def deepseek_phase(shapes: "ModelShapes", B: int, S: int, G: int,
+                   B_gate: int) -> dict:
+    """Phase 11: serve deepseek-v3 at its published widths (d_model 7168,
+    128 heads, MLA q/kv ranks 1536/512, head dims 128 + 64 and 128, 256
+    experts of 2048 top-8 and one shared, vocabulary 129,280), depth cut to
+    ``DS_SERVE_DEPTH``, bf16, seeded weights: ``B`` prompts of ``S``
+    tokens, ``G`` new each, one-shard round-robin placement.  Launches
+    exactly as expected (each layer's prefill attention on ``prefill_tc``,
+    no attention kernel in MLA decode, the grouped products on ``gmm_tc``
+    and ``gmv``); a decode profile of the same cut.  Then, at
+    ``DS_GATE_DEPTH`` over ``B_gate`` prompts: the bf16 model through the
+    kernels and the plain versions (logits kept on the host), then the f32
+    model (its own draw) through both, within ``F32_LOGIT_TOL`` of the
+    largest logit (a router near-tie counted as in phase 7, from the
+    routers' choices on both paths), then its weights rounded to the bf16
+    model's, through the plain versions: each bf16 path's distance."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    cfg = deepseek_config(*DS_SERVE_DEPTH)
+    n_layers, n_moe = sum(DS_SERVE_DEPTH), DS_SERVE_DEPTH[1]
+    cut = (f"depth {DS_SERVE_DEPTH[0]} dense + {DS_SERVE_DEPTH[1]} MoE of "
+           f"the published 3 + 58 layers, MTP 1; widths as published")
+    shapes.shapes.clear()
+    shapes.routes.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, B, S, G, device="cuda", seed=0)
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(ops.route_launches)
+    gmm = dict(ops.gmm_route_launches)
+    shapes11, routes11 = Counter(shapes.shapes), Counter(shapes.routes)
+    launches = {c: res.launches[c] for c in MODEL_COUNTERS}
+    want = expected_serve_launches(cfg, G)
+    want_routes = {"decode_split": 0, "prefill_tc": n_layers, "general": 0}
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"deepseek serve launched {launches}, routes "
+                             f"{routes}; expected {want}, {want_routes}")
+    check_gmm_routes(gmm, launches, n_moe, G)
+    if res.tokens.shape != (B, G) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"bad generated tokens {res.tokens.shape}")
+    log(f"[11] serve {cfg.name} ({cut}; d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_experts} experts top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared, bf16): {B} prompts x {S} tokens, "
+        f"{G} new each; prefill {res.prefill_s:.4f} s, decode "
+        f"{res.ms_per_token:.4f} ms/token, {res.tokens_per_s:.2f} tok/s, "
+        f"max_memory_allocated {peak} B; launches {launches}; attention "
+        f"routes {routes}; grouped-matmul routes {gmm}; sample "
+        f"{res.tokens[0][:8].tolist()}")
+    served = {"prefill_s": sig(res.prefill_s),
+              "ms_per_token": sig(res.ms_per_token),
+              "tok_s": sig(res.tokens_per_s)}
+    del res
+    prompts = torch.from_numpy(make_prompts(cfg, B, S, 0)).cuda()
+    forced = torch.from_numpy(make_prompts(cfg, B, 3, 1)).cuda()
+    torch.cuda.empty_cache()
+    model = make_model(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    profile = decode_profile(model, prompts, forced, S + G, tag="11b")
+    del model
+    torch.cuda.empty_cache()
+
+    # the f32 gate and the bf16 distances, at the gate's depth; the bf16
+    # and the f32 model do not fit the card together
+    cfg_g = deepseek_config(*DS_GATE_DEPTH)
+    pg, fg = prompts[:B_gate], forced[:B_gate]
+    model16 = make_model(cfg_g, device="cuda", seed=0)
+    kern16 = logits_through(model16, pg, fg, "cuda", S + G).cpu()
+    plain16 = logits_through(model16, pg, fg, "ref", S + G).cpu()
+    dtypes16 = {n: p.dtype for n, p in model16.named_parameters()}
+    probe16 = model16.embed[:256].cpu()
+    del model16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model32 = make_model(cfg_g.with_(dtype="float32"), device="cuda", seed=0)
+    n_gate = sum(p.numel() for p in model32.parameters())
+    ops.reset_launches()
+    with RouterLog() as rk:
+        kern32 = logits_through(model32, pg, fg, "cuda", S + G)
+    routes32 = dict(ops.route_launches)
+    gmm32 = dict(ops.gmm_route_launches)
+    with RouterLog() as rp:
+        plain32 = logits_through(model32, pg, fg, "ref", S + G)
+    peak32 = torch.cuda.max_memory_allocated()
+    flips = rk.flips(rp)
+    n_gl = sum(DS_GATE_DEPTH)
+    want32 = ({"decode_split": 0, "prefill_tc": 0, "general": n_gl},
+              {"gmv": 3 * 3, "gmm_tc": 0, "general": 3})
+    if (routes32, gmm32) != want32:
+        raise AssertionError(f"deepseek f32 routes {routes32}, grouped "
+                             f"{gmm32}; expected {want32}")
+    for name, lg in (("float32", kern32), ("bfloat16", kern16)):
+        if not (torch.isfinite(lg).all()
+                and lg.shape == (B_gate, 4, cfg.vocab)):
+            raise AssertionError(f"deepseek {name} logits not finite or "
+                                 f"misshapen: {tuple(lg.shape)}")
+    gap, scale = (float((kern32 - plain32).abs().max()),
+                  float(plain32.abs().max()))
+    if not gap <= F32_LOGIT_TOL * scale:
+        log(f"[11] f32 logits off by {gap} > {F32_LOGIT_TOL} x {scale}; "
+            f"the routers' choices differ in {flips} top-k choices")
+        if flips == 0:
+            raise AssertionError("deepseek f32 kernel path off the plain "
+                                 "path with identical routing")
+    del kern32, plain32
+    # the bf16 model's weights, cast: model32's own, rounded in place
+    same_draw = bool(torch.equal(
+        model32.embed[:256].to(torch.bfloat16).cpu(), probe16))
+    with torch.no_grad():
+        for n, p in model32.named_parameters():
+            if dtypes16[n] == torch.bfloat16:
+                p.copy_(p.to(torch.bfloat16))
+    ref32 = logits_through(model32, pg, fg, "ref", S + G).cpu()
+    del model32
+    torch.cuda.empty_cache()
+    errs = bf16_errors(kern16, plain16, ref32)
+    log(f"[11] gate at depth {DS_GATE_DEPTH[0]} dense + {DS_GATE_DEPTH[1]} "
+        f"MoE ({n_gate} parameters, f32; max_memory_allocated {peak32} B), "
+        f"{B_gate} prompt(s) of {S} tokens, prefill + 3 decode steps: f32 "
+        f"kernel path vs plain path max |diff| {gap:.6g} of max |logit| "
+        f"{scale:.6g} (ratio {gap / scale:.6g}), routers apart in {flips} "
+        f"top-k choices; attention routes {routes32}, grouped {gmm32}")
+    log(f"[11] bf16 paths against the f32 plain path at the bf16 weights "
+        f"(same draw: {same_draw}): kernel {errs['bf16_kernel_err']}, plain "
+        f"{errs['bf16_plain_err']} (ratio {errs['bf16_err_ratio']}); kernel "
+        f"vs plain in bf16 {errs['bf16_gap']}")
+    return {"cut": cut, "params": n_params, "B": B, "S": S, "G": G,
+            **served, "peak_B": peak, "launches": launches, "routes": routes,
+            "gmm_routes": gmm, "profile": profile, "gate_params": n_gate,
+            "gate_B": B_gate, "gate_peak_B": peak32, "f32_routes": routes32,
+            "f32_gmm_routes": gmm32, "f32_gap": sig(gap / scale),
+            "route_flips": flips, **errs, "same_draw": same_draw,
+            "shapes": shapes11, "model_routes": routes11}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2118,21 +2318,22 @@ def main() -> int:
     log(f"[7] f32 MoE block per layer on one input, kernel vs plain: max "
         f"abs err {max(layer_errs):.6g} (a2a and tp, {len(layer_errs)} "
         f"checks within {MODEL_TOL[('gmm', 'float32')]})")
-    kern = logits_through(model32, prompts7, forced7, "cuda", S7 + G7)
+    with RouterLog() as rk:
+        kern = logits_through(model32, prompts7, forced7, "cuda", S7 + G7)
     g7_f32 = dict(ops.gmm_route_launches)     # the f32 checks' products
     r7_f32 = dict(ops.route_launches)         # and their attention calls
     log(f"[7] f32 checks (MoE blocks, prefill + 3 decode steps): "
         f"grouped-matmul routes {g7_f32}")
     if not (g7_f32["general"] and g7_f32["gmv"]) or g7_f32["gmm_tc"]:
         raise AssertionError(f"f32 grouped-matmul routes {g7_f32}")
-    plain = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
+    with RouterLog() as rp:
+        plain = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
     gap32, scale32 = (float((kern - plain).abs().max()),
                       float(plain.abs().max()))
-    flips = None
+    flips = rk.flips(rp)
     if not gap32 <= F32_LOGIT_TOL * scale32:
-        flips = route_flips(model32, prompts7)
         log(f"[7] f32 logits off by {gap32} > {F32_LOGIT_TOL} x {scale32}; "
-            f"the route traces differ in {flips} top-k choices")
+            f"the routers' choices differ in {flips} top-k choices")
         if flips == 0:
             raise AssertionError("f32 kernel path off the plain path with "
                                  "identical routing")
@@ -2219,6 +2420,21 @@ def main() -> int:
         f"of {1e3 * summary['p10']['forward_s']:.6g} ms")
     log(f"[10] phase 10 took {time.perf_counter() - t10:.2f} s")
 
+    # ------------------------------------------- 11. serve deepseek-v3
+    t11 = time.perf_counter()
+    p11 = deepseek_phase(shapes, B=4, S=2048, G=32, B_gate=1)
+    shapes11, routes11 = p11.pop("shapes"), p11.pop("model_routes")
+    l11, r11, g11 = p11["launches"], p11["routes"], p11["gmm_routes"]
+    ds_row = next(r for r in model_rows if r["case"] == "deepseek_prefill"
+                  and r["dtype"] == "bfloat16")
+    p11["attention_ms"] = sig(l11["flash_attention"] * ds_row["ms"])
+    log(f"[11] prefill attention: {l11['flash_attention']} launches x "
+        f"{ds_row['ms']:.6g} ms (phase 2, device time) = "
+        f"{p11['attention_ms']:.6g} ms of {1e3 * p11['prefill_s']:.6g} ms")
+    p11["s"] = sig(time.perf_counter() - t11)
+    summary["p11"] = p11
+    log(f"[11] phase 11 took {p11['s']:.2f} s")
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -2255,9 +2471,9 @@ def main() -> int:
     # the partition kernels' launches on the V-cycle's path (phase 8)
     for k in kernels:
         k["vcycle_launches"] = summary["p8"]["launches"].get(k["name"], 0)
-    shapes_model = shapes6 + shapes7
+    shapes_model = shapes6 + shapes7 + shapes11
     log(f"model kernel launch shapes (counter, key, dtype): count, phases "
-        f"6+7: {dict(shapes_model.most_common(14))}")
+        f"6, 7, 11: {dict(shapes_model.most_common(14))}")
     def timed_row(counter, key, dt, route=None, fill=False):
         rows = [r for r in model_rows if r["counter"] == counter
                 and r["dtype"] == dt.removeprefix("torch.")
@@ -2288,16 +2504,18 @@ def main() -> int:
     # masked (decode_split), so the serve counts split by route as below
     # (``ModelShapes`` also sees the placement planner's calls: it only
     # picks the commonest shape)
-    routes_model = routes6 + routes7
-    log(f"attention calls by (counter, route, key, dtype), phases 6+7, "
-        f"planner included: {dict(routes_model)}")
-    n_plain = l6["flash_attention"] + l7["flash_attention"]
+    routes_model = routes6 + routes7 + routes11
+    log(f"attention calls by (counter, route, key, dtype), phases 6, 7, "
+        f"11, planner included: {dict(routes_model)}")
+    n_plain = (l6["flash_attention"] + l7["flash_attention"]
+               + l11["flash_attention"])
     by_route = {
         ("flash_attention", "prefill_tc"): n_plain,
         ("attention_masked", "prefill_tc"):
-            r6["prefill_tc"] + r7["prefill_tc"] - n_plain,
+            r6["prefill_tc"] + r7["prefill_tc"] + r11["prefill_tc"]
+            - n_plain,
         ("attention_masked", "decode_split"):
-            r6["decode_split"] + r7["decode_split"]}
+            r6["decode_split"] + r7["decode_split"] + r11["decode_split"]}
     for counter, route in ATTN_PATH:
         key, dt = commonest(routes_model, (counter, route))
         row = timed_row(counter, key, dt, route)
@@ -2310,22 +2528,26 @@ def main() -> int:
             "launches": by_route[(counter, route)], **row_fields(row)})
         if (counter, route) == ("flash_attention", "prefill_tc"):
             kernels[-1].update(second("prefill", row["dtype"], "hymba"))
+            kernels[-1].update(second("deepseek_prefill", row["dtype"],
+                                      "deepseek"))
+            kernels[-1].update(second("hd192_v128", row["dtype"],
+                                      "hd192_v128"))
         if route == "decode_split":
             kernels[-1].update(second("olmoe_decode", row["dtype"],
                                       "olmoe"))
     # the general route, one entry per dtype, each timed at hubert's call:
     # its commonest shape in either dtype (48 calls a forward; the f32
-    # paths of phases 6 and 7 make 32 and 16 in all)
+    # paths of phases 6, 7 and 11 make 32, 16 and 2 in all)
     p10 = summary["p10"]
     for dt, launched, where, seconds in (
             ("bfloat16", p10["general_launches_bf16"],
-             "phase 10, the bf16 forwards (counted and timed)",
-             (("hd192_v128", "hd192_v128"),)),
+             "phase 10, the bf16 forwards (counted and timed)", ()),
             ("float32", r6_f32["general"] + r7_f32["general"]
-             + p10["f32_routes"]["general"],
-             "the f32 kernel paths of phases 6, 7 and 10",
+             + p10["f32_routes"]["general"] + p11["f32_routes"]["general"],
+             "the f32 kernel paths of phases 6, 7, 10 and 11",
              (("prefill", "hymba"), ("olmoe_prefill", "olmoe"),
-              ("hd192_v128", "hd192_v128")))):
+              ("hd192_v128", "hd192_v128"),
+              ("deepseek_prefill", "deepseek")))):
         row = next(r for r in model_rows if r["case"] == "hubert"
                    and r["dtype"] == dt)
         kernels.append({
@@ -2352,9 +2574,12 @@ def main() -> int:
             kernels[-1]["empty_ms"] = row["empty_ms"]
     # grouped matmul: one entry per route of the bf16 serve runs, timed at
     # the fill-aware case of its commonest path shape (the path hands the
-    # kernel the slot fills), the full buffers beside it; and general
-    # with the launches of phase 7's f32 checks
-    gmm_launches = dict(g7, general=g7_f32["general"])
+    # kernel the slot fills), the full buffers and deepseek's shapes beside
+    # it; and general with the launches of the f32 checks of phases 7 and
+    # 11
+    gmm_launches = {r: g7[r] + g11[r] for r in g7}
+    gmm_launches["general"] = (g7_f32["general"]
+                               + p11["f32_gmm_routes"]["general"])
     for route in GMM_PATH + ("general",):
         if route == "general":
             key, dt = (64, 2560, 2048, 1024), "float32"
@@ -2372,12 +2597,23 @@ def main() -> int:
             **{f"full_{k}": full[k] for k in (
                 "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}})
         if route == "general":
-            kernels[-1]["launches_from"] = "phase 7, f32 checks"
+            kernels[-1]["launches_from"] = "phases 7 and 11, f32 checks"
+            kernels[-1].update(second("ds_prefill_gate_up_fill",
+                                      row["dtype"], "deepseek"))
         elif route == "gmm_tc":           # also the down product's shape
             kernels[-1].update(second("prefill_down_fill", row["dtype"],
                                       "down"))
             kernels[-1].update(second("prefill_down", row["dtype"],
                                       "down_full"))
+            kernels[-1].update(second("ds_prefill_gate_up_fill",
+                                      row["dtype"], "deepseek"))
+            kernels[-1].update(second("ds_prefill_down_fill", row["dtype"],
+                                      "deepseek_down"))
+        else:
+            kernels[-1].update(second("ds_decode_fill", row["dtype"],
+                                      "deepseek"))
+            kernels[-1].update(second("ds_decode_down_fill", row["dtype"],
+                                      "deepseek_down"))
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time the general routes' kernels of another commit beside this
-checkout's, on one GPU, in one process.
+"""Time some routes' kernels of another commit beside this checkout's, on
+one GPU, in one process.
 
     git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu \\
         > build/parent/flash_attention.cu
     git show <commit>:src/repro_torch/kernels/csrc/moe_gmm.cu \\
         > build/parent/moe_gmm.cu
     python3 probe_parent_kernels.py --parent build/parent
+    python3 probe_parent_kernels.py --parent build/parent --routes gmm_tc
 
-Both sources must keep the C entry points of ``kernels/_build.py``'s
-``SIGNATURES``.  The parent's sources build into ``build/repro_torch/``
-beside this checkout's, and the wrappers' ``_build.load`` is swapped for
-one that hands out either library.  The cases are ``chip_smoke``'s
-(``ATTN_CASES``, ``GMM_CASES``, with its seeds and inputs) that route to
-``general``; each runs with the parent's library, this checkout's, this
-checkout's again and the parent's (``chip_smoke.graph_ms``: device time
-per call in CUDA-graph replay), and so does hubert-xlarge's encoder
-forward as phase 10 sets it up (``chip_smoke.hubert_inputs``: 8 clips of
-1500 frames, bf16, seeded weights; ``Model.forward`` then ``logits_fn``:
-the median of 3 forwards after a warm-up, host clock).
+``--routes`` (default ``general``) names the attention and grouped-matmul
+routes to probe; the sources of those routes (``chip_smoke.ATTN_SOURCES``,
+``GMM_SOURCES``) are the ones taken from ``--parent``, and must keep the
+C entry points of ``kernels/_build.py``'s ``SIGNATURES``.  The parent's
+sources build into ``build/repro_torch/`` beside this checkout's, and the
+wrappers' ``_build.load`` is swapped for one that hands out either
+library.  The cases are ``chip_smoke``'s (``ATTN_CASES``, ``GMM_CASES``,
+with its seeds and inputs) that take one of the routes; each runs with
+the parent's library, this checkout's, this checkout's again and the
+parent's (``chip_smoke.graph_ms``: device time per call in CUDA-graph
+replay).  With ``general`` among the routes, so does hubert-xlarge's
+encoder forward as phase 10 sets it up (``chip_smoke.hubert_inputs``: 8
+clips of 1500 frames, bf16, seeded weights; ``Model.forward`` then
+``logits_fn``: the median of 3 forwards after a warm-up, host clock).
 Each kernel's result is held against the plain version
 (``chip_smoke.MODEL_TOL``: a miss is reported, not raised), and the two
 kernels' hubert logits against each other (their largest difference, a
@@ -65,8 +69,10 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, required=True,
-                    help="directory with the other commit's "
-                         "flash_attention.cu and moe_gmm.cu")
+                    help="directory with the other commit's sources of "
+                         "the probed routes")
+    ap.add_argument("--routes", nargs="+", default=["general"],
+                    help="attention and grouped-matmul routes to probe")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -74,7 +80,10 @@ def main() -> int:
     from repro_torch.kernels import _build, moe_gmm, ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mine = {n: _build.load(n) for n in ("flash_attention", "moe_gmm")}
+    routes = set(args.routes)
+    sources = ({cs.ATTN_SOURCES[r] for r in routes & set(cs.ATTN_SOURCES)}
+               | {cs.GMM_SOURCES[r] for r in routes & set(cs.GMM_SOURCES)})
+    mine = {n: _build.load(n) for n in sorted(sources)}
     parent = {n: build_parent(args.parent / f"{n}.cu") for n in mine}
     real_load = _build.load
     libs = {"mine": mine, "parent": parent}
@@ -99,10 +108,10 @@ def main() -> int:
             ok, err = cs.rel_ok(run(), want, tol)
             out[f"{w}_err"] = [err, ok]
         return out
-    # chip_smoke's cases on the general routes, with its seeds
+    # chip_smoke's cases on the probed routes, with its seeds
     for i, case in enumerate(cs.ATTN_CASES):
         for dt in ("bfloat16", "float32"):
-            if cs.attention_case_route(case, dt) != "general":
+            if cs.attention_case_route(case, dt) not in routes:
                 continue
             q, k, v, kw = cs.attention_inputs(case, dt, seed=100 + i)
             times = turns(lambda: ops.attention(q, k, v, **kw),
@@ -114,7 +123,7 @@ def main() -> int:
     for i, case in enumerate(cs.GMM_CASES):
         name, G, C, D, F = case[:5]
         for dt in ("bfloat16", "float32"):
-            if moe_gmm.route(getattr(torch, dt), C, D, F) != "general":
+            if moe_gmm.route(getattr(torch, dt), C, D, F) not in routes:
                 continue
             x, w_, fills = cs.gmm_inputs(case, dt, seed=300 + i)
             times = turns(
@@ -125,6 +134,9 @@ def main() -> int:
             print(name, dt, times, flush=True)
             del x, w_
     torch.cuda.empty_cache()
+    if "general" not in routes:
+        print(json.dumps(res), flush=True)
+        return 0
     _, frames, model = cs.hubert_inputs(8, 1500)
     fw = {w: [] for w in libs}
     logits = {}

@@ -89,8 +89,11 @@ def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
     ``Model(cfg).init`` pytree with numpy leaves.
 
     Each segment's stacked ``(n_layers, ...)`` leaves are cut into one
-    tensor per layer (``segments.<i>.<j>.<path>``); dtypes are kept, and
-    ``Model.load_state_dict(..., strict=True)`` takes the result."""
+    tensor per layer (``segments.<i>.<j>.<path>``), MLA's weights among
+    them; each multi-token prediction depth d (the ``mtp`` list) becomes
+    ``mtp.<d>.<path>``, its one-layer ``block`` unstacked.  Dtypes are
+    kept, and ``Model.load_state_dict(..., strict=True)`` takes the
+    result."""
     state = {name: _tensor(params[name])
              for name in ("embed", "final_ln", "lm_head") if name in params}
     if len(params["segments"]) != len(cfg.segments):
@@ -104,4 +107,17 @@ def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
                                  f"{arr.shape}, not ({seg.n_layers}, ...)")
             for j in range(seg.n_layers):
                 state[f"segments.{i}.{j}.{path}"] = _tensor(arr[j])
+    mtp = params.get("mtp", [])
+    if len(mtp) != cfg.mtp_depth:
+        raise ValueError(f"{len(mtp)} mtp depths for mtp_depth "
+                         f"{cfg.mtp_depth}")
+    for d, mp in enumerate(mtp):
+        for path, leaf in _leaves(mp):
+            arr = np.asarray(leaf)
+            if path.startswith("block."):
+                if arr.shape[:1] != (1,):
+                    raise ValueError(f"mtp[{d}].{path} has shape "
+                                     f"{arr.shape}, not (1, ...)")
+                arr = arr[0]
+            state[f"mtp.{d}.{path}"] = _tensor(arr)
     return state

@@ -60,10 +60,10 @@ SIGNATURES = {
     "moe_gmm_tc": {
         "repro_grouped_matmul_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
-    # (q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, stream)
+    # (q, k, v, o, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale, stream)
     "attention_prefill_tc": {
         "repro_attention_prefill_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _F, _P),
+                                       _I, _I, _I, _I, _F, _P),
     },
     # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
     #  window, scale, is_bf16, splits, chunk, stream)

@@ -10,14 +10,15 @@
 // arange(Sq) and arange(Sk): ``causal`` keeps q >= k, ``window > 0`` keeps
 // q - k < window.  Explicit positions go to the other routes.
 //
-// q (B, Sq, H, HD), k and v (B, Sk, KV, HD), o (B, Sq, H, HD), contiguous
-// bf16, HD in {64, 128}, 16-byte aligned; the kv head of q head h is
-// h / (H / KV).  Any Sq, Sk >= 1.
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o (B, Sq, H,
+// HDV), contiguous bf16, 16-byte aligned, (HD, HDV) one of (64, 64),
+// (128, 128) and MLA's (192, 128); the kv head of q head h is h / (H /
+// KV).  Any Sq, Sk >= 1.
 //
-// Bound on the card: Sq = Sk = 2048 does 2 * 2 * HD FLOPs per live (query,
-// key, head) against 2 bytes per element of q, k, v and o read or written
-// once: hundreds of FLOPs per byte, far above the H100's ~295, so it is
-// bound by the bf16 tensor-core rate (989 TFLOP/s).
+// Bound on the card: Sq = Sk = 2048 does 2 * (HD + HDV) FLOPs per live
+// (query, key, head) against 2 bytes per element of q, k, v and o read or
+// written once: hundreds of FLOPs per byte, far above the H100's ~295, so
+// it is bound by the bf16 tensor-core rate (989 TFLOP/s).
 //
 // Design.
 //  * A block takes 128 queries of one q head of one batch row: two
@@ -25,14 +26,19 @@
 //    G heads that share it hit the same lines in L2.  The q tiles run in
 //    reverse order, so the heaviest causal tiles start first.
 //  * K and V tiles of 128 keys come in by TMA (4-D tensor maps over
-//    (HD, heads, S, B), 64-column boxes with 128-byte swizzle; a 256-byte
-//    row of HD 128 is two boxes) into a three-stage ring with a "full"
-//    and an "empty" mbarrier per stage: thread 0 starts the copy of tile
-//    t + 2 before the block waits for tile t, so the copies overlap the
-//    products, and each warpgroup frees a stage by arriving on its "empty"
-//    barrier, so the two warpgroups drift apart instead of meeting at a
-//    block-wide barrier per tile.  Q comes in once the same way.  Keys and
-//    queries past Sk and Sq are zero-filled by TMA.
+//    (head dim, heads, S, B), 64-column boxes with 128-byte swizzle; a
+//    256-byte row of HD 128 is two boxes) into a ring of stages with a
+//    "full" and an "empty" mbarrier per stage: thread 0 starts the copy of
+//    tile t + stages - 1 before the block waits for tile t, so the copies
+//    overlap the products, and each warpgroup frees a stage by arriving on
+//    its "empty" barrier, so the two warpgroups drift apart instead of
+//    meeting at a block-wide barrier per tile.  Q comes in once the same
+//    way.  Keys and queries past Sk and Sq are zero-filled by TMA.  Three
+//    stages at HD <= 128; two at MLA's (192, 128), whose Q (48 KB) and
+//    three stages of K (48 KB) and V (32 KB) would need 289 KB of the 227
+//    a block may have: two take 209 KB and keep 128-key tiles, so both
+//    products keep the shapes of the other instantiations (n128 scores,
+//    one wgmma per 16 keys of V).
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 //    (K-major).  The online softmax runs in registers on the accumulator
 //    layout (each thread holds two rows; a row spans a quad), with f32
@@ -74,8 +80,6 @@ namespace {
 constexpr int kBQ = 128;            // queries per block: two warpgroups
 constexpr int kBK = 128;            // keys per tile
 constexpr int kThreads = 256;
-constexpr int kStages = 3;          // K/V ring
-constexpr int kAhead = 2;           // tiles in flight ahead of the one in use
 constexpr int kBox = 64;            // columns per TMA box: 128 bytes of bf16
 constexpr int kBoxBytes = kBox * 2;
 constexpr float kMasked = -1e30f;   // the Pallas kernel's NEG_INF
@@ -250,10 +254,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int HD>
+// O += P V for a v head dim of HDV columns
+template <int HDV>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
                                          uint64_t desc_b) {
-  if constexpr (HD == 64) {
+  static_assert(HDV == 64 || HDV == 128, "v head dim 64 or 128");
+  if constexpr (HDV == 64) {
     wgmma_rs_n64(d, a, desc_b);
   } else {
     wgmma_rs_n128(d, a, desc_b);
@@ -271,27 +277,34 @@ __device__ __forceinline__ bool live(int qi, int kj, int causal, int window) {
 
 // ------------------------------------------------------------------ kernel
 
-template <int HD>
+// the shared-memory plan of q/k head dim HD and v head dim HDV
+template <int HD, int HDV>
 struct Layout {
   static constexpr int kChunks = HD / kBox;                 // boxes per row
+  static constexpr int kVChunks = HDV / kBox;
   static constexpr int kQChunk = kBQ * kBoxBytes;           // 16 KB
   static constexpr int kKVChunk = kBK * kBoxBytes;          // 16 KB
   static constexpr int kQBytes = kChunks * kQChunk;
-  static constexpr int kTileBytes = kChunks * kKVChunk;     // one K or V
-  static constexpr int kStageBytes = 2 * kTileBytes;        // K and V
+  static constexpr int kKBytes = kChunks * kKVChunk;        // one K tile
+  static constexpr int kVBytes = kVChunks * kKVChunk;       // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kStages = HD > 128 ? 2 : 3;          // K/V ring
+  static constexpr int kAhead = kStages - 1;  // tiles in flight ahead
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes;
+  static_assert(kSmem <= 232448, "over a block's shared memory");
 };
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
                   int KV, int causal, int window, float scale_log2) {
-  using L = Layout<HD>;
+  using L = Layout<HD, HDV>;
+  constexpr int kStages = L::kStages, kAhead = L::kAhead;
   constexpr int kSN = kBK / 8;     // n8 column blocks of S
-  constexpr int kON = HD / 8;      // n8 column blocks of O
+  constexpr int kON = HDV / 8;     // n8 column blocks of O
   extern __shared__ uint8_t smem_raw[];
   // Q; per stage "full" (its copy landed) and "empty" (both warpgroups
   // are done with it)
@@ -316,15 +329,16 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto bar_empty = [&](int s) { return smem_u32(&bars[1 + kStages + s]); };
   auto load_tile = [&](int t, int s) {
     const uint32_t k_dst = kv_s + s * L::kStageBytes;
-    const uint32_t v_dst = k_dst + L::kTileBytes;
+    const uint32_t v_dst = k_dst + L::kKBytes;
     mbar_expect_tx(bar_kv(s), L::kStageBytes);
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
+    for (int c = 0; c < L::kChunks; ++c)
       tma_load(k_dst + c * L::kKVChunk, &tm_k, bar_kv(s), c * kBox, kvh,
                t * kBK, b);
+#pragma unroll
+    for (int c = 0; c < L::kVChunks; ++c)
       tma_load(v_dst + c * L::kKVChunk, &tm_v, bar_kv(s), c * kBox, kvh,
                t * kBK, b);
-    }
   };
 
   if (tid == 0) {
@@ -355,9 +369,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int c_lane = 2 * (lane % 4);          // column within an n8 block
   const int wg_first = q0 + wg * 64, wg_last = wg_first + 63;
 
-  float acc[HD / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
   float m0 = kMasked, m1 = kMasked;   // running max, base 2
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the sum
 
@@ -375,7 +389,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     mbar_wait(bar_kv(s), (i / kStages) & 1);
     const uint32_t k_s = kv_s + s * L::kStageBytes;
-    const uint32_t v_s = k_s + L::kTileBytes;
+    const uint32_t v_s = k_s + L::kKBytes;
 
     // S = Q K^T over HD / 16 steps: 32 bytes along the swizzled row, a new
     // box every four steps
@@ -456,11 +470,11 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_pv<HD>(acc, pf[kk], smem_desc(v_s + kk * 16 * kBoxBytes,
-                                          L::kKVChunk, 1024));
+      wgmma_pv<HDV>(acc, pf[kk], smem_desc(v_s + kk * 16 * kBoxBytes,
+                                           L::kKVChunk, 1024));
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs<HD / 2>(acc);
+    fence_regs<HDV / 2>(acc);
     if (tid % 128 == 0) mbar_arrive(bar_empty(s));
   }
 
@@ -475,11 +489,11 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int col = 8 * j + c_lane;
     if (r0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + ((static_cast<size_t>(b) * Sq + r0) * H + h) * HD + col) =
+          o + ((static_cast<size_t>(b) * Sq + r0) * H + h) * HDV + col) =
           __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
     if (r1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + ((static_cast<size_t>(b) * Sq + r1) * H + h) * HD + col) =
+          o + ((static_cast<size_t>(b) * Sq + r1) * H + h) * HDV + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
 }
@@ -513,7 +527,7 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// the 4-D map of a (B, S, heads, HD) bf16 tensor as (HD, heads, S, B), with
+// the 4-D map of a (B, S, heads, hd) bf16 tensor as (hd, heads, S, B), with
 // boxes of 64 columns by ``rows`` positions of one head
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
               int hd, int rows) {
@@ -534,27 +548,28 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int causal, int window, float scale,
            cudaStream_t stream) {
+  using L = Layout<HD, HDV>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, H, HD, kBQ) ||
       !make_map(&tk, k, B, Sk, KV, HD, kBK) ||
-      !make_map(&tv, v, B, Sk, KV, HD, kBK))
+      !make_map(&tv, v, B, Sk, KV, HDV, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   // raise the shared-memory limit once, at the first launch: not again
   // inside a CUDA-graph capture
   static bool limit_set = false;
   if (!limit_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Layout<HD>::kSmem);
+        prefill_tc_kernel<HD, HDV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     limit_set = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  prefill_tc_kernel<HD><<<grid, kThreads, Layout<HD>::kSmem, stream>>>(
+  prefill_tc_kernel<HD, HDV><<<grid, kThreads, L::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal,
       window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -565,8 +580,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" int repro_attention_prefill_tc(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int Sq, int Sk, int H, int KV,
-                                          int hd, int causal, int window,
-                                          float scale, void* stream) {
+                                          int hd, int hdv, int causal,
+                                          int window, float scale,
+                                          void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
@@ -575,9 +591,14 @@ extern "C" int repro_attention_prefill_tc(const void* q, const void* k,
   if (KV <= 0 || H % KV != 0 || (align & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, s);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (hd == 64 && hdv == 64)
+    return launch<64, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                          scale, s);
+  if (hd == 128 && hdv == 128)
+    return launch<128, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                            scale, s);
+  if (hd == 192 && hdv == 128)
+    return launch<192, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                            scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,10 +36,15 @@
 //    rows; D and F edges are zero-filled the same way.
 //  * Persistent, over the live tiles only: one CTA per SM takes every
 //    gridDim-th tile of the live ones (first row below fills[g]) in
-//    group-major order (column tiles of a row tile next to each other),
-//    so the CTAs stay within a few groups of each other and each expert's
-//    w[g] is reused from L2 by all its live row tiles, and no CTA gets
-//    more than one live tile over its share.  The producer already fills
+//    group-major order, the row tiles of a column tile next to each
+//    other, so the CTAs stay within a few groups of each other and the
+//    live row tiles that read one column slab of w[g] run side by side,
+//    in step along K, and share it in L2; no CTA gets more than one live
+//    tile over its share.  (With the column tiles of a row tile next to
+//    each other instead, the readers of a slab were nt tiles apart: at
+//    deepseek-v3's 256 experts, whose w[g] is 29 MB, the slabs fell out
+//    of L2 between them, and the down product at F = 7168 ran 1.9x
+//    slower on the card; olmoe's were unchanged.)  The producer already fills
 //    the ring for the next tile while the warpgroups store this one.  A
 //    partly filled tile computes in full and writes zeros from fills[g]
 //    on.
@@ -225,8 +230,9 @@ struct Tile {
   int g, m, n;
 };
 
-// The live (``live``) or dead tiles in group-major order: ``seek(j, t)``
-// gives the j-th, or false past the last.  Calls come with increasing j,
+// The live (``live``) or dead tiles in group-major order, the row tiles
+// of a column tile next to each other: ``seek(j, t)`` gives the j-th, or
+// false past the last.  Calls come with increasing j,
 // so the group only moves forward, reading each fill once.
 struct Walk {
   const int* fills;
@@ -241,7 +247,8 @@ struct Walk {
       count = (live ? lm : mt - lm) * nt;
     }
     const int k = j - first;
-    t = {g, (live ? 0 : lm) + k / nt, k % nt};
+    const int rows = live ? lm : mt - lm;         // g's row tiles walked
+    t = {g, (live ? 0 : lm) + k % rows, k / rows};
     return true;
   }
 };

@@ -12,9 +12,9 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
   ``DECODE_ROWS`` (query, head) rows per (batch, kv head), f32 or bf16 --
   split-K over the cache, ``plan_splits`` blocks per (batch, kv head),
   then a log-sum-exp combine;
-- ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, hd = hd_v in
-  {64, 128}, no explicit positions -- wgmma on the tensor cores, K/V by
-  TMA;
+- ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, (hd, hd_v) in
+  ``TC_HEAD_DIMS`` -- (64, 64), (128, 128) and MLA's (192, 128) -- no
+  explicit positions -- wgmma on the tensor cores, K/V by TMA;
 - ``general`` (``csrc/flash_attention.cu``): everything else -- f32
   prefill, other head dims (any up to ``MAX_HEAD_DIM``, hd and hd_v
   unequal), positions with many rows -- on the tensor cores (mma.sync:
@@ -34,7 +34,7 @@ from . import ops
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (hd, hd_v)
 MAX_SPLITS = 64         # the decode kernel's combine holds this many
 
 
@@ -54,7 +54,7 @@ def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
     if (Sq * (H // KV) <= DECODE_ROWS and _pieces_ok(hd, itemsize)
             and _pieces_ok(hd_v, itemsize)):
         return "decode_split"
-    if (dtype == torch.bfloat16 and hd == hd_v and hd in TC_HEAD_DIMS
+    if (dtype == torch.bfloat16 and (hd, hd_v) in TC_HEAD_DIMS
             and not has_positions):
         return "prefill_tc"
     return "general"
@@ -143,8 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         elif which == "prefill_tc":
             err = load("attention_prefill_tc").repro_attention_prefill_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                Sq, Sk, H, KV, hd, int(causal), int(window), float(scale),
-                stream)
+                Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
+                float(scale), stream)
         else:
             err = load("flash_attention").repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,

@@ -1,13 +1,15 @@
 """Transformer / SSM layers of the serving path, as functions over
 parameter dictionaries (name -> tensor, one layer's worth).
 
-The twins of the JAX package's ``models/layers.py`` for GQA attention and
-the Mamba-1 mixer, with its numerics: norms and rotary embeddings in f32,
-cast back to the working dtype at the same places.  Attention and the scan
-go through ``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain
-versions for CPU ones).  Caches are functional: each call returns new
-tensors and leaves the old ones as they were.  MLA and cross-attention are
-not ported yet (ROADMAP Queue 1).
+The twins of the JAX package's ``models/layers.py`` for GQA attention,
+multi-head latent attention (MLA) and the Mamba-1 mixer, with its
+numerics: norms and rotary embeddings in f32, cast back to the working
+dtype at the same places.  Prefill attention and the scan go through
+``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain versions for
+CPU ones); MLA's decode step is plain PyTorch, as the JAX package's is jnp
+outside its attention op.  Caches are functional: each call returns new
+tensors and leaves the old ones as they were.  Cross-attention is not
+ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -144,6 +146,121 @@ def gqa_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = ops.attention(q, k, v, causal=True, window=0, q_pos=pos_b,
                         k_pos=k_pos)
     return _attend_out(p, out, cfg), {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------- MLA
+
+def _mla_dims(cfg: ModelConfig):
+    return (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+            cfg.qk_rope_head_dim, cfg.v_head_dim)
+
+
+def mla_project_q(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The queries through their low-rank path: (q_nope, q_rope), each
+    (B, S, H, ...)."""
+    B, S, _ = x.shape
+    _, _, nope, rp, _ = _mla_dims(cfg)
+    ql = rmsnorm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = (ql @ p["wq_b"]).reshape(B, S, cfg.n_heads, nope + rp)
+    return q[..., :nope], q[..., nope:]
+
+
+def mla_latent(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The compressed kv latent (normed) and the decoupled rope key before
+    rotation: the cached quantities."""
+    kvr = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    ckv = rmsnorm(kv[..., :kvr], p["kv_ln"], cfg.norm_eps)
+    return ckv, kv[..., kvr:]
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  seg: Segment) -> torch.Tensor:
+    """Full-sequence MLA (prefill): the latent expanded to per-head keys
+    (nope part, plus the one rope key shared by every head) and values,
+    then one attention call at head dims (nope + rope, v) with the scale
+    of the q/k head dim.  q, k and v are made contiguous, as the kernels
+    take them."""
+    B, S, _ = x.shape
+    _, _, nope, rp, vh = _mla_dims(cfg)
+    H = cfg.n_heads
+    q_nope, q_rope = mla_project_q(p, x, cfg)
+    ckv, k_rope = mla_latent(p, x, cfg)
+    pos = _positions(B, S, x.device)
+    q_rope = rope(q_rope, pos, cfg.rope_theta)
+    k_rope = rope(k_rope[:, :, None, :], pos, cfg.rope_theta)  # one head
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vh)
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rp)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = kv[..., nope:].contiguous()
+    out = ops.attention(q, k, v, causal=seg.causal,
+                        scale=(nope + rp) ** -0.5)
+    return out.reshape(B, S, H * vh) @ p["mla_wo"]
+
+
+def mla_init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
+                   device=None) -> dict:
+    return {"ckv": torch.zeros((B, max_len, cfg.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((B, max_len, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_prefill_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      max_len: int) -> dict:
+    """The decode cache of a prefilled sequence: the latent and the rotated
+    rope key, position i at index i, zero past the prompt."""
+    B, S, _ = x.shape
+    ckv, k_rope = mla_latent(p, x, cfg)
+    k_rope = rope(k_rope[:, :, None, :], _positions(B, S, x.device),
+                  cfg.rope_theta)[:, :, 0, :]
+    pad = (0, 0, 0, max_len - S)
+    return {"ckv": F.pad(ckv, pad).contiguous(),
+            "kr": F.pad(k_rope, pad).contiguous()}
+
+
+def mla_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                         cache: dict, pos: int, absorb: bool = True):
+    """x: (B, 1, D); ``pos`` (a Python int): the index of the new token.
+    The cache is written out of place, as ``gqa_attention_decode`` does.
+    Scores are f32 (bf16 products, f32 sums), the softmax weights go back
+    to x's dtype before the value product.  ``absorb`` folds the key
+    up-projection into the query and attends in the latent space; else
+    every cached latent is expanded to full keys and values."""
+    B = x.shape[0]
+    _, kvr, nope, rp, vh = _mla_dims(cfg)
+    H = cfg.n_heads
+    q_nope, q_rope = mla_project_q(p, x, cfg)                  # (B, 1, H, *)
+    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = rope(q_rope, pos_b, cfg.rope_theta)
+    ckv_new, kr_new = mla_latent(p, x, cfg)
+    kr_new = rope(kr_new[:, :, None, :], pos_b, cfg.rope_theta)[:, :, 0, :]
+    ckv = cache["ckv"].slice_scatter(ckv_new, dim=1, start=pos, end=pos + 1)
+    kr = cache["kr"].slice_scatter(kr_new, dim=1, start=pos, end=pos + 1)
+    Sk = ckv.shape[1]
+    live = torch.arange(Sk, device=x.device) <= pos
+    scale = (nope + rp) ** -0.5
+    wkv_b = p["wkv_b"].reshape(kvr, H, nope + vh)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    if absorb:
+        q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)  # (B, 1, H, kvr)
+        s = torch.einsum("bqhr,bsr->bhqs", q_eff.float(), ckv.float())
+        s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+        s = torch.where(live, s * scale, -1e30)
+        pattn = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", pattn, ckv)        # latent ctx
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    else:
+        kv = (ckv @ p["wkv_b"]).reshape(B, Sk, H, nope + vh)
+        k = torch.cat([kv[..., :nope],
+                       kr[:, :, None, :].expand(B, Sk, H, rp)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        s = torch.einsum("bqhn,bshn->bhqs", q.float(), k.float())
+        s = torch.where(live, s * scale, -1e30)
+        pattn = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqs,bshv->bqhv", pattn, kv[..., nope:])
+    out = out.reshape(B, 1, H * vh)
+    return out @ p["mla_wo"], {"ckv": ckv, "kr": kr}
 
 
 # --------------------------------------------------------------------- mamba

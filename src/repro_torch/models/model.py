@@ -1,6 +1,6 @@
 """The serving model: dense GQA decoders, Mamba-1, the parallel
-attention + SSM hybrid and MoE decoders, with the JAX package's ``Model``
-semantics.
+attention + SSM hybrid, MoE decoders and MLA + MoE with multi-token
+prediction (deepseek-v3), with the JAX package's ``Model`` semantics.
 
 ``forward`` and ``logits_fn`` run the full sequence; ``init_cache``,
 ``prefill`` and ``decode_step`` serve.  Parameters live in one submodule
@@ -14,8 +14,14 @@ through the converter).  Nothing here has a backward kernel yet, so
 parameters do not require grad.
 
 Caches are, per segment, a list of per-layer dicts: ``k``/``v`` (B, L,
-KV, hd) for attention and ``mamba`` = {``conv``: (B, d_conv-1, di),
+KV, hd) for GQA attention, ``ckv`` (B, L, kv_lora_rank) and ``kr`` (B, L,
+rope head dim) for MLA, and ``mamba`` = {``conv``: (B, d_conv-1, di),
 ``ssm``: (B, di, N) f32} for the SSM mixer.
+
+The multi-token prediction module (``mtp``, one entry per depth: ``proj``,
+``ln`` and a one-layer dense ``block`` with the last segment's attention)
+has the JAX package's weights and ``_mtp_loss``, forward only; serving
+does not run it.
 
 MoE layers route through the model's ``PlacementPlan`` (default: the
 one-shard round robin).  The FFN's ``mode`` follows the JAX package's
@@ -46,14 +52,6 @@ def _check_supported(cfg: ModelConfig) -> None:
                 "\"Cross-attention\"")
         if seg.kind not in _KINDS:
             raise ValueError(f"unknown segment kind {seg.kind!r}")
-        if seg.attn == "mla":
-            raise NotImplementedError(
-                "attn='mla': ROADMAP Queue 1, \"MLA and multi-token "
-                "prediction\"")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            "mtp_depth > 0: ROADMAP Queue 1, \"MLA and multi-token "
-            "prediction\"")
 
 
 class Params(nn.Module):
@@ -85,9 +83,11 @@ class _Init:
         self.cfg, self.gen, self.device, self.dtype = cfg, gen, device, dtype
 
     def normal(self, shape, scale_dim, dtype=None) -> torch.Tensor:
+        # scaled in place: one f32 draw beside the cast, not two (an
+        # expert tensor of deepseek-v3 is 15 GB in f32)
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
-        return (x * scale_dim ** -0.5).to(dtype or self.dtype)
+        return x.mul_(scale_dim ** -0.5).to(dtype or self.dtype)
 
     def ones(self, n: int) -> torch.Tensor:
         return torch.ones(n, dtype=torch.float32, device=self.device)
@@ -95,9 +95,19 @@ class _Init:
     def zeros(self, n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=self.dtype, device=self.device)
 
-    def attn(self) -> dict:
+    def attn(self, kind: str = "gqa") -> dict:
         cfg = self.cfg
         D, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+        if kind == "mla":
+            qr, kvr, nope, rp, vh = L._mla_dims(cfg)
+            H = cfg.n_heads
+            return {"wq_a": self.normal((D, qr), D),
+                    "q_ln": self.ones(qr),
+                    "wq_b": self.normal((qr, H * (nope + rp)), qr),
+                    "wkv_a": self.normal((D, kvr + rp), D),
+                    "kv_ln": self.ones(kvr),
+                    "wkv_b": self.normal((kvr, H * (nope + vh)), kvr),
+                    "mla_wo": self.normal((H * vh, D), H * vh)}
         Hp = L.n_q_heads(cfg)
         return {"wq": self.normal((D, Hp * hd), D),
                 "wk": self.normal((D, KV * hd), D),
@@ -140,7 +150,8 @@ class _Init:
         D = self.cfg.d_model
         if seg.kind == "mamba":
             return {"ln1": self.ones(D), "mamba": self.mamba()}
-        p = {"ln1": self.ones(D), "ln2": self.ones(D), "attn": self.attn()}
+        p = {"ln1": self.ones(D), "ln2": self.ones(D),
+             "attn": self.attn(seg.attn)}
         if seg.kind == "hybrid":
             p["mamba"] = self.mamba()
         if seg.kind == "moe":
@@ -148,6 +159,24 @@ class _Init:
         else:
             p["mlp"] = self.mlp(self.cfg.d_ff)
         return p
+
+    def mtp(self) -> dict:
+        """One depth of multi-token prediction: the JAX package's
+        ``_init_mtp``."""
+        D = self.cfg.d_model
+        return {"proj": self.normal((2 * D, D), 2 * D), "ln": self.ones(D),
+                "block": self.layer(_mtp_segment(self.cfg))}
+
+
+def _mtp_segment(cfg: ModelConfig) -> Segment:
+    """The segment of an MTP block: one dense layer with the last
+    segment's attention."""
+    return Segment("dense", 1, attn=cfg.segments[-1].attn)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 
 
 class Model(nn.Module):
@@ -182,6 +211,9 @@ class Model(nn.Module):
         self.segments = nn.ModuleList(
             nn.ModuleList(Params(ini.layer(seg)) for _ in range(seg.n_layers))
             for seg in cfg.segments)
+        if cfg.mtp_depth:
+            self.mtp = nn.ModuleList(Params(ini.mtp())
+                                     for _ in range(cfg.mtp_depth))
 
     # ------------------------------------------------------------ forward
     def _mixer(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
@@ -189,7 +221,9 @@ class Model(nn.Module):
         cfg = self.cfg
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         parts = []
-        if seg.attn == "gqa":
+        if seg.attn == "mla":
+            parts.append(L.mla_attention(lp["attn"], h, cfg, seg))
+        elif seg.attn == "gqa":
             parts.append(L.gqa_attention(lp["attn"], h, cfg, seg))
         if seg.kind in ("mamba", "hybrid"):
             parts.append(L.mamba_mixer(lp["mamba"], h, cfg)[0])
@@ -243,6 +277,26 @@ class Model(nn.Module):
             "Model.loss (backward kernels): ROADMAP Queue 1, \"Loss and "
             "training\"")
 
+    def _mtp_loss(self, x: torch.Tensor, batch: dict) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction, forward only: each depth d
+        predicts token t + 2 + d from (h_t, embed(token_{t+1+d})); the mean
+        over depths of its cross-entropy (f32).  ``x``: the final hidden
+        states of ``forward``."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        seg = _mtp_segment(cfg)
+        h = x
+        for d, mp in enumerate(self.mtp):
+            nxt = F.embedding(tokens[:, d + 1:], self.embed)
+            hcat = torch.cat([L.rmsnorm(h[:, :nxt.shape[1]], mp["ln"],
+                                        cfg.norm_eps), nxt], dim=-1)
+            hm, _ = self._block(mp["block"], hcat @ mp["proj"], seg, "a2a")
+            lg = self.logits_fn(hm)
+            total = total + _xent(lg[:, :-1], labels[:, d + 1:][:, 1:])
+            h = hm
+        return total / cfg.mtp_depth
+
     def route_trace(self, batch: dict) -> list:
         """Replay the forward pass (dense FFNs) collecting each MoE layer's
         router choices: one (L, T, top_k) int64 tensor per MoE segment, the
@@ -274,6 +328,8 @@ class Model(nn.Module):
                 c: dict = {}
                 if seg.attn == "gqa" and seg.kind != "mamba":
                     c.update(L.gqa_init_cache(cfg, seg, B, max_len, dt, dev))
+                elif seg.attn == "mla":
+                    c.update(L.mla_init_cache(cfg, B, max_len, dt, dev))
                 if seg.kind in ("mamba", "hybrid"):
                     c["mamba"] = L.mamba_init_cache(cfg, B, dt, dev)
                 return c
@@ -304,6 +360,8 @@ class Model(nn.Module):
         h = L.rmsnorm(x_in, lp["ln1"], cfg.norm_eps)
         if seg.attn == "gqa" and seg.kind != "mamba":
             c.update(L.gqa_prefill_cache(lp["attn"], h, cfg, seg, max_len))
+        elif seg.attn == "mla":
+            c.update(L.mla_prefill_cache(lp["attn"], h, cfg, max_len))
         if seg.kind in ("mamba", "hybrid"):
             c["mamba"] = L.mamba_mixer(lp["mamba"], h, cfg)[1]
         return c
@@ -334,7 +392,12 @@ class Model(nn.Module):
             return x + y, {"mamba": st}
         new_cache = dict(cache)
         parts = []
-        if seg.attn == "gqa":
+        if seg.attn == "mla":
+            y, nc = L.mla_attention_decode(lp["attn"], h, cfg, cache, pos,
+                                           absorb=cfg.mla_absorb)
+            new_cache.update(nc)
+            parts.append(y)
+        elif seg.attn == "gqa":
             y, nc = L.gqa_attention_decode(lp["attn"], h, cfg, seg, cache, pos)
             new_cache.update(nc)
             parts.append(y)

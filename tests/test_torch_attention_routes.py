@@ -50,7 +50,7 @@ def test_route_of_the_serving_shapes(name):
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
-    ((1, 40, 40, 4, 2, 192, 128, 0, False), torch.bfloat16, "general"),
+    ((1, 40, 40, 4, 2, 192, 128, 0, False), torch.float32, "general"),
     ((2, 70, 70, 6, 2, 16, 16, 0, False), torch.bfloat16, "general"),
     ((2, 9, 20, 4, 2, 64, 64, 6, True), torch.bfloat16, "general"),
     ((2, 3, 90, 10, 2, 64, 64, 0, True), torch.bfloat16, "decode_split"),
@@ -58,10 +58,15 @@ def test_route_of_the_serving_shapes(name):
     ((1, 1, 90, 4, 4, 256, 256, 0, True), torch.float32, "general"),
     ((1, 1, 90, 4, 4, 256, 256, 0, True), torch.bfloat16, "decode_split"),
     ((1, 1, 90, 4, 4, 96, 96, 0, True), torch.bfloat16, "general"),
+    ((1, 40, 40, 4, 2, 192, 128, 0, False), torch.bfloat16, "prefill_tc"),
+    ((1, 40, 40, 4, 2, 192, 128, 0, True), torch.bfloat16, "general"),
+    ((1, 40, 40, 4, 4, 128, 192, 0, False), torch.bfloat16, "general"),
+    ((1, 40, 40, 4, 4, 192, 192, 0, False), torch.bfloat16, "general"),
 ])
 def test_route_of_other_shapes(shape, dtype, want):
     """Many rows with positions, odd head dims and f32 past 512 bytes a
-    row stay on the general kernel."""
+    row stay on the general kernel; bf16 at MLA's head dims (192, 128),
+    GQA or not, takes the tensor-core prefill."""
     assert fa.route(dtype, *shape) == want
 
 
@@ -77,6 +82,20 @@ def test_hubert_encoder_takes_the_general_route(dtype):
     assert not cfg.segments[0].causal
     assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0,
                     False) == "general"
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "prefill_tc"),
+                                        (torch.float32, "general")])
+def test_deepseek_prefill_route(dtype, want):
+    """deepseek-v3's MLA prefill at the smoke's traffic (4 prompts of 2048
+    tokens, 128 heads, q/k head dim 128 + 64, v head dim 128): bf16 on the
+    tensor-core prefill, f32 on the general kernel; its decode step calls
+    no attention kernel."""
+    cfg = get_config("deepseek-v3-671b")
+    hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    assert (cfg.n_heads, hd, cfg.v_head_dim) == (128, 192, 128)
+    assert fa.route(dtype, 4, 2048, 2048, cfg.n_heads, cfg.n_heads, hd,
+                    cfg.v_head_dim, 0, False) == want
 
 
 @pytest.mark.parametrize("Sk", [1, 63, 1024, 2080])

@@ -230,7 +230,7 @@ ATTN_CASES = [
     (2, 1, 64, 10, 2, 64, 64, True, 0, "ring",       # decode, ring with pads
      ("decode_split", "decode_split")),
     (1, 40, 40, 4, 2, 192, 128, True, 0, None,       # hd 192, hd_v 128
-     ("general", "general")),
+     ("general", "prefill_tc")),
     # the tensor-core prefill: Sq and Sk not multiples of 64, G 5 and 1
     (2, 200, 200, 10, 2, 64, 64, True, 0, None,
      ("general", "prefill_tc")),
@@ -263,7 +263,7 @@ ATTN_CASES = [
     (1, 100, 150, 4, 4, 80, 80, False, 0, None, ("general", "general")),
     (2, 90, 90, 6, 2, 80, 80, True, 33, None, ("general", "general")),
     (1, 70, 130, 2, 1, 256, 256, True, 0, None, ("general", "general")),
-    (1, 65, 65, 4, 4, 192, 128, False, 0, None, ("general", "general")),
+    (1, 65, 65, 4, 4, 192, 128, False, 0, None, ("general", "prefill_tc")),
     # positions with more than 16 rows per (batch, kv head): a chunk of
     # queries at the end of a cache whose first keys are padding
     (2, 24, 100, 6, 2, 64, 64, True, 0, "chunk", ("general", "general")),
@@ -273,8 +273,19 @@ ATTN_CASES = [
     # GQA with a window edge, MLA's dims, positions
     (4, 640, 700, 16, 16, 80, 80, False, 0, None, ("general", "general")),
     (3, 600, 600, 20, 4, 48, 48, True, 200, None, ("general", "general")),
-    (2, 1100, 1100, 16, 16, 192, 128, True, 0, None, ("general", "general")),
+    (2, 1100, 1100, 16, 16, 192, 128, True, 0, None,
+     ("general", "prefill_tc")),
     (4, 600, 700, 16, 16, 64, 64, True, 0, "chunk", ("general", "general")),
+    # MLA's head dims (192, 128) on the tensor-core prefill (two stages of
+    # 128-key tiles): Sq and Sk not multiples of the tile, KV = H and GQA,
+    # causal and not, a window edge; and with positions on the general
+    # route in bf16 too
+    (1, 200, 200, 4, 4, 192, 128, True, 0, None, ("general", "prefill_tc")),
+    (2, 77, 190, 6, 2, 192, 128, False, 0, None, ("general", "prefill_tc")),
+    (2, 333, 333, 8, 2, 192, 128, True, 0, None, ("general", "prefill_tc")),
+    (1, 300, 300, 4, 4, 192, 128, True, 70, None,
+     ("general", "prefill_tc")),
+    (1, 30, 90, 4, 4, 192, 128, True, 0, "chunk", ("general", "general")),
 ]
 
 
@@ -319,6 +330,30 @@ def test_attention_kernel_matches_plain_version(cuda, no_tf32, case, dtype):
     assert got.dtype == dtype and got.shape == want.shape
     tol = _ATOL[dtype]["attn"]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_prefill_tc_takes_mla_head_dims(cuda, no_tf32):
+    """deepseek-v3's prefill head dims (q/k 192, v 128) at 128 heads:
+    ``route`` sends bf16 to the tensor-core prefill and f32 to the
+    general kernel, and each call launches its route's kernel once."""
+    from repro_torch.kernels import flash_attention as fa
+    shape = (1, 256, 256, 128, 128, 192, 128, 0, False)
+    assert fa.route(torch.bfloat16, *shape) == "prefill_tc"
+    assert fa.route(torch.float32, *shape) == "general"
+    case = (1, 256, 256, 128, 128, 192, 128, True, 0, None, None)
+    for dtype, taken in ((torch.bfloat16, "prefill_tc"),
+                         (torch.float32, "general")):
+        q, k, v, kw = _attn_inputs(case, dtype, cuda)
+        ops.reset_launches()
+        got = ops.attention(q, k, v, scale=192 ** -0.5, **kw)
+        torch.cuda.synchronize()
+        assert ops.route_launches == {r: int(r == taken)
+                                      for r in ops.route_launches}
+        want = ref.attention_ref(q, k, v, scale=192 ** -0.5, **kw)
+        tol = _ATOL[dtype]["attn"]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
@@ -586,6 +621,68 @@ def test_olmoe_kernel_path_matches_plain_path(cuda, no_tf32):
             assert ops.launches["grouped_matmul"] == 3 * 3
     scale = runs["ref"].abs().max().item()
     assert (runs["cuda"] - runs["ref"]).abs().max().item() <= 1e-4 * scale
+
+
+def _deepseek_small(mla_dims: bool, dtype: str):
+    """reduce_config("deepseek-v3-671b") (one dense and one MoE layer, MLA,
+    MTP 1), with deepseek's own MLA head dims (nope 128, rope 64, v 128)
+    at 4 heads where ``mla_dims``."""
+    cfg = reduce_config(get_config("deepseek-v3-671b")).with_(dtype=dtype)
+    if mla_dims:
+        cfg = cfg.with_(d_model=256, qk_nope_head_dim=128,
+                        qk_rope_head_dim=64, v_head_dim=128,
+                        q_lora_rank=96, kv_lora_rank=64)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mla_dims", [False, True])
+def test_deepseek_kernel_path_matches_plain_path(cuda, no_tf32, mla_dims):
+    """A small-width deepseek-v3 in f32: prefill (MLA attention on the
+    general route, MoE a2a) and two decode steps (MLA decode in plain
+    PyTorch, MoE tp) through the kernels against the plain versions."""
+    cfg = _deepseek_small(mla_dims, "float32")
+    model = make_model(cfg, device=cuda, seed=4)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    runs = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            with torch.no_grad():
+                logits, caches = model.prefill({"tokens": tokens[:, :20]}, 26)
+                out = [logits]
+                for i in range(2):
+                    logits, caches = model.decode_step(
+                        tokens[:, 20 + i:21 + i], caches, 20 + i)
+                    out.append(logits)
+        finally:
+            ops.force(None)
+        runs[which] = torch.cat(out, dim=1)
+        if which == "cuda":
+            assert ops.launches["flash_attention"] == 2      # prefill only
+            assert ops.launches["attention_masked"] == 0
+            assert ops.route_launches["general"] == 2
+            assert ops.launches["grouped_matmul"] == 3 * 3   # 1 MoE layer
+    scale = runs["ref"].abs().max().item()
+    assert (runs["cuda"] - runs["ref"]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_serve_deepseek_on_cuda_takes_prefill_tc(cuda):
+    """bf16 serving at deepseek's MLA head dims: each layer's prefill
+    attention on ``prefill_tc``, no attention kernel in decode, three
+    grouped products per MoE layer and call (prefill ``gmm_tc``, decode
+    ``gmv``)."""
+    res = serve(_deepseek_small(True, "bfloat16"), 2, 20, 3, device=cuda,
+                seed=0)
+    assert res.tokens.shape == (2, 3)
+    assert res.launches["flash_attention"] == 2
+    assert res.launches["attention_masked"] == 0
+    assert ops.route_launches == {"prefill_tc": 2, "decode_split": 0,
+                                  "general": 0}
+    assert res.launches["grouped_matmul"] == 3 * 3
+    assert ops.gmm_route_launches == {"gmm_tc": 3, "gmv": 6, "general": 0}
 
 
 @pytest.mark.cuda

@@ -222,7 +222,6 @@ def test_serve_on_cpu_reduced_hymba():
 
 
 @pytest.mark.parametrize("arch,needs", [
-    ("deepseek-v3-671b", "MLA and multi-token prediction"),
     ("llama-3.2-vision-11b", "Cross-attention")])
 def test_unported_parts_raise(arch, needs):
     with pytest.raises(NotImplementedError, match=needs):
