@@ -10,9 +10,10 @@ V-cycle), serving ``hymba-1.5b`` and serving ``olmoe-1b-7b`` with
 replicated expert placement (``launch.serve.serve``), and BSP scheduling
 with replication, whose window pricers run as int32 PyTorch programs on
 the card (``kernels.front_pass.DeviceScheduleWindows``),
-``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``) and
-serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths.
-Phases,
+``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``),
+serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths and
+serving ``llama-3.2-vision-11b`` (cross-attention) at full width and
+depth.  Phases,
 in order; any failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -134,21 +135,38 @@ in order; any failure propagates and the exit code is nonzero:
    host; the two models do not fit together), the f32 model's kernel
    path against its plain path within ``F32_LOGIT_TOL`` (a router
    near-tie counted from both paths' router choices), and the bf16
-   paths' distances from the f32 plain path at the bf16 weights.
+   paths' distances from the f32 plain path at the bf16 weights;
+12. serve ``llama-3.2-vision-11b`` at the registry's full width and depth
+   (8 groups of 1 cross-attention + 4 self-attention sub-layers, d_model
+   4096, 32/8 heads of 128, d_ff 14336, vocabulary 128,256; 9,775,157,256
+   parameters, 19.6 GB in bf16), seeded weights, each group's gate set to
+   a seeded value with |tanh(gate)| in [0.4, 0.8] (the init's zero gates
+   would hide cross-attention), 4 prompts of 2048 tokens with the
+   launcher's 1024 stub image tokens each, 32 new tokens, bf16: prefill
+   seconds, decode ms per token, tokens/s, peak memory, launches exactly
+   as expected (80 prefill calls on ``prefill_tc``: every sub-layer
+   twice, block and cache pass; 1,240 decode calls on ``decode_split``,
+   the 248 cross ones unmasked without positions, so counted as
+   ``flash_attention``) and a decode profile.  Then the f32 model (39.1
+   GB, built after the bf16 one is freed) through the kernels and the
+   plain versions, prefill and three teacher-forced decode steps of all
+   four prompts, within ``F32_LOGIT_TOL``, and the bf16 paths' distances
+   from the f32 plain path at the bf16 weights.
 
-Launch counts are reset just before each driven run (phases 3-8, 10, 11)
+Launch counts are reset just before each driven run (phases 3-8, 10-12)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
-phases 6, 7 and 11, summed, for the model kernels.  The
+phases 6, 7, 11 and 12, summed, for the model kernels.  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, plus one for the
 ``general`` route with the launches of phase 6's f32 kernel path and of
 phase 10 (the bf16 serve runs never take it), timed at hubert's call
-with hymba's, olmoe's, MLA's and deepseek's f32 prefill beside it (the
-``prefill_tc`` entry has hymba's, deepseek's and MLA's 16-head bf16
-shapes beside its commonest); the grouped matmul likewise has one entry
+with hymba's, olmoe's, MLA's, deepseek's and llama-vision's f32 prefill
+beside it (the ``prefill_tc`` entry has hymba's, olmoe's, deepseek's,
+MLA's 16-head and llama-vision's cross bf16 shapes beside its
+commonest); the grouped matmul likewise has one entry
 per route of the serve runs (``gmm_tc``, ``gmv``) timed at its
 fill-aware case, deepseek's beside it, and one for ``general`` with the
 launches of the f32 checks of phases 7 and 11; the scan ``mamba_scan`` (from zeros) apart from ``mamba_step``
@@ -240,7 +258,8 @@ ATTN_SOURCES = {"prefill_tc": "attention_prefill_tc",
 # the (count, route) pairs of the bf16 serving runs, each a kernel-line entry
 ATTN_PATH = (("flash_attention", "prefill_tc"),
              ("attention_masked", "prefill_tc"),
-             ("attention_masked", "decode_split"))
+             ("attention_masked", "decode_split"),
+             ("flash_attention", "decode_split"))
 MODEL_COUNTERS = ("flash_attention", "attention_masked", "mamba_scan",
                   "mamba_step", "grouped_matmul")
 # kernel vs plain version: tests/test_kernels.py's bounds, f32 relaxed from
@@ -523,8 +542,9 @@ def rel_ok(got, want, tol: float) -> tuple[bool, float]:
 # window 1024) and decode (linear cache of 2080 at position 2060, full
 # ring of 1024), a ring whose left slots are still padding, a non-causal
 # shape, MLA's 192/128 dims at 16 heads (``prefill_tc`` in bf16,
-# ``general`` in f32), olmoe's prefill and decode, hubert's encoder call
-# and deepseek-v3's MLA prefill (phase 11).  Every path shape is timed
+# ``general`` in f32), olmoe's prefill and decode, hubert's encoder call,
+# deepseek-v3's MLA prefill (phase 11) and llama-3.2-vision's four calls
+# (phase 12).  Every path shape is timed
 ATTN_CASES = [
     ("prefill", "flash_attention", 4, 2048, 2048, 25, 5, 64, 64, True, 0,
      None, True),
@@ -553,6 +573,18 @@ ATTN_CASES = [
     # 128 + 64, v head dim 128, causal
     ("deepseek_prefill", "flash_attention", 4, 2048, 2048, 128, 128, 192,
      128, True, 0, None, True),
+    # llama-3.2-vision-11b (phase 12): 4 prompts of 2048 and 1024 image
+    # tokens, 32 q heads over 8 kv heads of 128: the self prefill
+    # (causal), the cross prefill (non-causal), the self decode (linear
+    # cache of 2048 + 32) and the cross decode (non-causal, no positions)
+    ("vision_prefill", "flash_attention", 4, 2048, 2048, 32, 8, 128, 128,
+     True, 0, None, True),
+    ("vision_cross_prefill", "flash_attention", 4, 2048, 1024, 32, 8, 128,
+     128, False, 0, None, True),
+    ("vision_decode", "attention_masked", 4, 1, 2080, 32, 8, 128, 128, True,
+     0, "linear", True),
+    ("vision_cross_decode", "flash_attention", 4, 1, 1024, 32, 8, 128, 128,
+     False, 0, None, True),
 ]
 # (name, counter, B, S, di, N, with a state, on the path)
 SCAN_CASES = [
@@ -986,21 +1018,39 @@ def expected_serve_launches(cfg, G: int) -> dict:
     is plain, each windowed layer's and every GQA decode call masked (MLA
     decodes in plain PyTorch, as the JAX package does in jnp); the SSM
     mixer runs twice per layer in prefill (block, then cache) and once per
-    layer and decode step."""
+    layer and decode step.  A vision group runs its cross and self
+    sub-layers' prefill attention twice (block, then the cache pass's
+    replay), all plain; in decode its cross call is plain (no positions)
+    and its self calls masked."""
     def layers(pred):
         return sum(s.n_layers for s in cfg.segments if pred(s))
-    n_attn = layers(lambda s: s.attn != "none" and s.kind != "mamba")
-    n_gqa = layers(lambda s: s.attn == "gqa" and s.kind != "mamba")
+
+    def plain(s):
+        return s.kind not in ("mamba", "vision_group")
+    n_attn = layers(lambda s: s.attn != "none" and plain(s))
+    n_gqa = layers(lambda s: s.attn == "gqa" and plain(s))
     n_window = layers(lambda s: s.sliding_window)
     n_ssm = layers(lambda s: s.kind in ("mamba", "hybrid"))
     n_moe = layers(lambda s: s.kind == "moe")
-    return {"flash_attention": n_attn - n_window,
-            "attention_masked": n_window + (G - 1) * n_gqa,
+    n_cross = layers(lambda s: s.kind == "vision_group")
+    n_self = sum(s.n_layers * (s.sub_layers - 1) for s in cfg.segments
+                 if s.kind == "vision_group")
+    return {"flash_attention": n_attn - n_window + 2 * (n_cross + n_self)
+            + (G - 1) * n_cross,
+            "attention_masked": n_window + (G - 1) * (n_gqa + n_self),
             "mamba_scan": 2 * n_ssm, "mamba_step": (G - 1) * n_ssm,
             "grouped_matmul": 3 * n_moe * G}
 
 
-def logits_through(model, prompts, forced, which: str, max_len: int):
+def prompt_batch(prompts, images=None) -> dict:
+    """The prefill batch: the prompts, and a vision model's image
+    embeddings."""
+    return {"tokens": prompts} if images is None else {
+        "tokens": prompts, "image_embeds": images}
+
+
+def logits_through(model, prompts, forced, which: str, max_len: int,
+                   images=None):
     """Prefill logits and those of ``forced`` teacher-forced decode steps,
     every kernel call sent to ``which`` ("cuda" or "ref")."""
     import torch
@@ -1009,7 +1059,8 @@ def logits_through(model, prompts, forced, which: str, max_len: int):
     ops.force(which)
     try:
         with torch.inference_mode():
-            logits, caches = model.prefill({"tokens": prompts}, max_len)
+            logits, caches = model.prefill(prompt_batch(prompts, images),
+                                           max_len)
             out = [logits]
             for i in range(forced.shape[1]):
                 logits, caches = model.decode_step(forced[:, i:i + 1],
@@ -1051,7 +1102,7 @@ def bf16_errors(kern16, plain16, plain32) -> dict:
 
 
 def decode_profile(model, prompts, forced, max_len: int,
-                   tag: str = "6b") -> dict:
+                   tag: str = "6b", images=None) -> dict:
     """Where a decode step's time goes: after an unprofiled prefill, the
     ``forced`` decode steps run plain (wall time) and again under
     ``torch.profiler`` (device activity only): device busy time by kernel
@@ -1063,7 +1114,7 @@ def decode_profile(model, prompts, forced, max_len: int,
     from torch.profiler import ProfilerActivity, profile
     S = prompts.shape[1]
     with torch.inference_mode():
-        _, caches0 = model.prefill({"tokens": prompts}, max_len)
+        _, caches0 = model.prefill(prompt_batch(prompts, images), max_len)
 
         def steps():
             caches = caches0
@@ -1962,6 +2013,189 @@ def deepseek_phase(shapes: "ModelShapes", B: int, S: int, G: int,
             "shapes": shapes11, "model_routes": routes11}
 
 
+# phase 12: llama-3.2-vision-11b at the registry's full width and depth;
+# the JAX init's leaves hold VISION_PARAMS parameters (``param_count``
+# prices two norms per group too many: ROADMAP Queue 3 f)
+VISION_PARAMS = 9_775_157_256
+VISION_GATE_TANH = (0.4, 0.8)
+
+
+def vision_gates(n: int, seed: int) -> list:
+    """``n`` gate values drawn from ``seed``, |tanh(gate)| uniform in
+    ``VISION_GATE_TANH`` with random signs, each an f32 value."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(*VISION_GATE_TANH, n) * rng.choice((-1.0, 1.0), n)
+    return [float(np.float32(np.arctanh(x))) for x in t]
+
+
+def set_gates(model, gates) -> None:
+    """Each vision group's cross-attention gate, in order, to ``gates``."""
+    import torch
+    groups = [lp for seg, layers in zip(model.cfg.segments, model.segments)
+              if seg.kind == "vision_group" for lp in layers]
+    if len(groups) != len(gates):
+        raise ValueError(f"{len(gates)} gates for {len(groups)} groups")
+    with torch.no_grad():
+        for lp, g in zip(groups, gates):
+            lp["cross"]["gate"].fill_(g)
+
+
+class GatedModels:
+    """While active, every model ``launch.serve.make_model`` draws (the
+    one ``serve`` serves among them) gets ``gates``."""
+
+    def __init__(self, gates) -> None:
+        self.gates = gates
+
+    def __enter__(self):
+        from repro_torch.launch import serve as sv
+        self._real = sv.make_model
+
+        def make(*a, **kw):
+            model = self._real(*a, **kw)
+            set_gates(model, self.gates)
+            return model
+        sv.make_model = make
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.launch import serve as sv
+        sv.make_model = self._real
+
+
+def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
+    """Phase 12: serve llama-3.2-vision-11b at full width and depth, bf16,
+    seeded weights and gates (``vision_gates``): ``B`` prompts of ``S``
+    tokens with the launcher's stub image embeddings, ``G`` new each.
+    Launches exactly as expected, every attention call on ``prefill_tc``
+    or ``decode_split``; a decode profile.  Then the bf16 model through
+    the kernels and the plain versions (logits kept on the host), the f32
+    model (its own draw, the same gates) through both within
+    ``F32_LOGIT_TOL`` of the largest logit, and its weights rounded to
+    the bf16 model's through the plain versions: each bf16 path's
+    distance."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (draw_batch, make_model,
+                                          make_prompts, serve)
+    cfg = get_config("llama-3.2-vision-11b")
+    n_groups = sum(sg.n_layers for sg in cfg.segments)
+    gates = vision_gates(n_groups, seed=12)
+    log(f"[12] gates {gates}; tanh "
+        f"{[round(math.tanh(g), 6) for g in gates]}")
+    shapes.shapes.clear()
+    shapes.routes.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with GatedModels(gates):
+        res = serve(cfg, B, S, G, device="cuda", seed=0)
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(ops.route_launches)
+    gmm = dict(ops.gmm_route_launches)
+    shapes12, routes12 = Counter(shapes.shapes), Counter(shapes.routes)
+    launches = {c: res.launches[c] for c in MODEL_COUNTERS}
+    want = expected_serve_launches(cfg, G)
+    n_attn = cfg.n_layers           # every sub-layer attends, cross or self
+    want_routes = {"decode_split": (G - 1) * n_attn,
+                   "prefill_tc": 2 * n_attn, "general": 0}
+    if launches != want or routes != want_routes or any(gmm.values()):
+        raise AssertionError(f"vision serve launched {launches}, routes "
+                             f"{routes}, grouped {gmm}; expected {want}, "
+                             f"{want_routes}, none")
+    cross_decode = sum(c for k, c in routes12.items()
+                       if k[:2] == ("flash_attention", "decode_split"))
+    if cross_decode != (G - 1) * n_groups:
+        raise AssertionError(f"{cross_decode} unmasked decode calls, "
+                             f"expected {(G - 1) * n_groups}")
+    if res.tokens.shape != (B, G) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"bad generated tokens {res.tokens.shape}")
+    log(f"[12] serve {cfg.name} ({n_groups} groups, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, {cfg.n_image_tokens} image tokens, bf16): {B} prompts x "
+        f"{S} tokens, {G} new each; prefill {res.prefill_s:.4f} s, decode "
+        f"{res.ms_per_token:.4f} ms/token, {res.tokens_per_s:.2f} tok/s, "
+        f"max_memory_allocated {peak} B; launches {launches}; attention "
+        f"routes {routes}, {cross_decode} of the decode calls unmasked "
+        f"(cross); sample {res.tokens[0][:8].tolist()}")
+    served = {"prefill_s": sig(res.prefill_s),
+              "ms_per_token": sig(res.ms_per_token),
+              "tok_s": sig(res.tokens_per_s)}
+    del res
+    batch = draw_batch(cfg, np.random.default_rng(0), B, S)  # serve's draw
+    prompts = torch.from_numpy(batch["tokens"]).cuda()
+    images = torch.from_numpy(batch["image_embeds"]).cuda()
+    forced = torch.from_numpy(make_prompts(cfg, B, 3, 1)).cuda()
+    torch.cuda.empty_cache()
+    model = make_model(cfg, device="cuda", seed=0)
+    set_gates(model, gates)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VISION_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {VISION_PARAMS}")
+    profile = decode_profile(model, prompts, forced, S + G, tag="12b",
+                             images=images)
+    kern16 = logits_through(model, prompts, forced, "cuda", S + G,
+                            images).cpu()
+    plain16 = logits_through(model, prompts, forced, "ref", S + G,
+                             images).cpu()
+    dtypes16 = {n: p.dtype for n, p in model.named_parameters()}
+    probe16 = model.embed[:256].cpu()
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model32 = make_model(cfg.with_(dtype="float32"), device="cuda", seed=0)
+    set_gates(model32, gates)
+    ops.reset_launches()
+    kern32 = logits_through(model32, prompts, forced, "cuda", S + G, images)
+    routes32 = dict(ops.route_launches)
+    want32 = {"decode_split": 3 * n_attn, "prefill_tc": 0,
+              "general": 2 * n_attn}
+    if routes32 != want32:
+        raise AssertionError(f"vision f32 routes {routes32}, expected "
+                             f"{want32}")
+    plain32 = logits_through(model32, prompts, forced, "ref", S + G, images)
+    peak32 = torch.cuda.max_memory_allocated()
+    for name, lg in (("float32", kern32), ("bfloat16", kern16)):
+        if not (torch.isfinite(lg).all() and lg.shape == (B, 4, cfg.vocab)):
+            raise AssertionError(f"vision {name} logits not finite or "
+                                 f"misshapen: {tuple(lg.shape)}")
+    gap, scale = (float((kern32 - plain32).abs().max()),
+                  float(plain32.abs().max()))
+    if not gap <= F32_LOGIT_TOL * scale:
+        raise AssertionError(f"vision f32 kernel path off the plain path by "
+                             f"{gap} > {F32_LOGIT_TOL} x {scale}")
+    del kern32, plain32
+    # the bf16 model's weights, cast: model32's own, rounded in place
+    same_draw = bool(torch.equal(
+        model32.embed[:256].to(torch.bfloat16).cpu(), probe16))
+    with torch.no_grad():
+        for n, p in model32.named_parameters():
+            if dtypes16[n] == torch.bfloat16:
+                p.copy_(p.to(torch.bfloat16))
+    ref32 = logits_through(model32, prompts, forced, "ref", S + G,
+                           images).cpu()
+    del model32
+    torch.cuda.empty_cache()
+    errs = bf16_errors(kern16, plain16, ref32)
+    log(f"[12] f32 model ({n_params} parameters; max_memory_allocated "
+        f"{peak32} B), {B} prompts of {S} tokens, prefill + 3 decode steps: "
+        f"kernel path vs plain path max |diff| {gap:.6g} of max |logit| "
+        f"{scale:.6g} (ratio {gap / scale:.6g}); attention routes {routes32}")
+    log(f"[12] bf16 paths against the f32 plain path at the bf16 weights "
+        f"(same draw: {same_draw}): kernel {errs['bf16_kernel_err']}, plain "
+        f"{errs['bf16_plain_err']} (ratio {errs['bf16_err_ratio']}); kernel "
+        f"vs plain in bf16 {errs['bf16_gap']}")
+    return {"params": n_params, "B": B, "S": S, "G": G, **served,
+            "peak_B": peak, "launches": launches, "routes": routes,
+            "cross_decode": cross_decode, "profile": profile,
+            "gates": gates, "gate_peak_B": peak32, "f32_routes": routes32,
+            "f32_gap": sig(gap / scale), **errs, "same_draw": same_draw,
+            "shapes": shapes12, "model_routes": routes12}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2435,6 +2669,27 @@ def main() -> int:
     summary["p11"] = p11
     log(f"[11] phase 11 took {p11['s']:.2f} s")
 
+    # --------------------------------- 12. serve llama-3.2-vision-11b
+    t12 = time.perf_counter()
+    p12 = vision_phase(shapes, B=4, S=2048, G=32)
+    shapes12, routes12 = p12.pop("shapes"), p12.pop("model_routes")
+    l12, r12 = p12["launches"], p12["routes"]
+    # the prefill calls at phase 2's device times: self and cross
+    vis_ms = {c: next(r["ms"] for r in model_rows if r["case"] == c
+                      and r["dtype"] == "bfloat16")
+              for c in ("vision_prefill", "vision_cross_prefill")}
+    n_cross = 2 * sum(sg.n_layers for sg in get_config(
+        "llama-3.2-vision-11b").segments)
+    p12["attention_ms"] = sig(n_cross * vis_ms["vision_cross_prefill"] + (
+        r12["prefill_tc"] - n_cross) * vis_ms["vision_prefill"])
+    log(f"[12] prefill attention: {r12['prefill_tc'] - n_cross} self x "
+        f"{vis_ms['vision_prefill']:.6g} ms + {n_cross} cross x "
+        f"{vis_ms['vision_cross_prefill']:.6g} ms (phase 2, device time) = "
+        f"{p12['attention_ms']:.6g} ms of {1e3 * p12['prefill_s']:.6g} ms")
+    p12["s"] = sig(time.perf_counter() - t12)
+    summary["p12"] = p12
+    log(f"[12] phase 12 took {p12['s']:.2f} s")
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -2471,9 +2726,9 @@ def main() -> int:
     # the partition kernels' launches on the V-cycle's path (phase 8)
     for k in kernels:
         k["vcycle_launches"] = summary["p8"]["launches"].get(k["name"], 0)
-    shapes_model = shapes6 + shapes7 + shapes11
+    shapes_model = shapes6 + shapes7 + shapes11 + shapes12
     log(f"model kernel launch shapes (counter, key, dtype): count, phases "
-        f"6, 7, 11: {dict(shapes_model.most_common(14))}")
+        f"6, 7, 11, 12: {dict(shapes_model.most_common(14))}")
     def timed_row(counter, key, dt, route=None, fill=False):
         rows = [r for r in model_rows if r["counter"] == counter
                 and r["dtype"] == dt.removeprefix("torch.")
@@ -2499,23 +2754,26 @@ def main() -> int:
             "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}
 
     # attention: one entry per (count, route) of the bf16 serve runs, and
-    # general's two below.  In the serve
-    # runs every plain call is a prefill (prefill_tc) and every decode call
-    # masked (decode_split), so the serve counts split by route as below
-    # (``ModelShapes`` also sees the placement planner's calls: it only
-    # picks the commonest shape)
-    routes_model = routes6 + routes7 + routes11
+    # general's two below.  In the serve runs every plain call is a
+    # prefill (prefill_tc) but phase 12's cross decode calls (decode_split,
+    # counted there), and every masked decode call decode_split, so the
+    # serve counts split by route as below (``ModelShapes`` also sees the
+    # placement planner's calls: it only picks the commonest shape)
+    routes_model = routes6 + routes7 + routes11 + routes12
     log(f"attention calls by (counter, route, key, dtype), phases 6, 7, "
-        f"11, planner included: {dict(routes_model)}")
+        f"11, 12, planner included: {dict(routes_model)}")
+    plain_decode = p12["cross_decode"]
     n_plain = (l6["flash_attention"] + l7["flash_attention"]
-               + l11["flash_attention"])
+               + l11["flash_attention"] + l12["flash_attention"]
+               - plain_decode)
+    serve_routes = [r6, r7, r11, r12]
     by_route = {
         ("flash_attention", "prefill_tc"): n_plain,
+        ("flash_attention", "decode_split"): plain_decode,
         ("attention_masked", "prefill_tc"):
-            r6["prefill_tc"] + r7["prefill_tc"] + r11["prefill_tc"]
-            - n_plain,
+            sum(r["prefill_tc"] for r in serve_routes) - n_plain,
         ("attention_masked", "decode_split"):
-            r6["decode_split"] + r7["decode_split"] + r11["decode_split"]}
+            sum(r["decode_split"] for r in serve_routes) - plain_decode}
     for counter, route in ATTN_PATH:
         key, dt = commonest(routes_model, (counter, route))
         row = timed_row(counter, key, dt, route)
@@ -2527,27 +2785,33 @@ def main() -> int:
             "replaces": REPLACES[counter],
             "launches": by_route[(counter, route)], **row_fields(row)})
         if (counter, route) == ("flash_attention", "prefill_tc"):
-            kernels[-1].update(second("prefill", row["dtype"], "hymba"))
-            kernels[-1].update(second("deepseek_prefill", row["dtype"],
-                                      "deepseek"))
-            kernels[-1].update(second("hd192_v128", row["dtype"],
-                                      "hd192_v128"))
-        if route == "decode_split":
+            for case, prefix in (("prefill", "hymba"),
+                                 ("olmoe_prefill", "olmoe"),
+                                 ("deepseek_prefill", "deepseek"),
+                                 ("hd192_v128", "hd192_v128"),
+                                 ("vision_cross_prefill", "vision_cross")):
+                kernels[-1].update(second(case, row["dtype"], prefix))
+        if (counter, route) == ("attention_masked", "decode_split"):
             kernels[-1].update(second("olmoe_decode", row["dtype"],
                                       "olmoe"))
+            kernels[-1].update(second("decode_window", row["dtype"],
+                                      "hymba"))
     # the general route, one entry per dtype, each timed at hubert's call:
     # its commonest shape in either dtype (48 calls a forward; the f32
-    # paths of phases 6, 7 and 11 make 32, 16 and 2 in all)
+    # paths of phases 6, 7, 11 and 12 make 32, 16, 2 and 80 in all)
     p10 = summary["p10"]
     for dt, launched, where, seconds in (
             ("bfloat16", p10["general_launches_bf16"],
              "phase 10, the bf16 forwards (counted and timed)", ()),
             ("float32", r6_f32["general"] + r7_f32["general"]
-             + p10["f32_routes"]["general"] + p11["f32_routes"]["general"],
-             "the f32 kernel paths of phases 6, 7, 10 and 11",
+             + p10["f32_routes"]["general"] + p11["f32_routes"]["general"]
+             + p12["f32_routes"]["general"],
+             "the f32 kernel paths of phases 6, 7, 10, 11 and 12",
              (("prefill", "hymba"), ("olmoe_prefill", "olmoe"),
               ("hd192_v128", "hd192_v128"),
-              ("deepseek_prefill", "deepseek")))):
+              ("deepseek_prefill", "deepseek"),
+              ("vision_prefill", "vision"),
+              ("vision_cross_prefill", "vision_cross")))):
         row = next(r for r in model_rows if r["case"] == "hubert"
                    and r["dtype"] == dt)
         kernels.append({

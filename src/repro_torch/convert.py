@@ -89,11 +89,13 @@ def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
     ``Model(cfg).init`` pytree with numpy leaves.
 
     Each segment's stacked ``(n_layers, ...)`` leaves are cut into one
-    tensor per layer (``segments.<i>.<j>.<path>``), MLA's weights among
-    them; each multi-token prediction depth d (the ``mtp`` list) becomes
-    ``mtp.<d>.<path>``, its one-layer ``block`` unstacked.  Dtypes are
-    kept, and ``Model.load_state_dict(..., strict=True)`` takes the
-    result."""
+    tensor per layer (``segments.<i>.<j>.<path>``), MLA's weights and a
+    vision group's ``cross`` leaves among them; a vision group's ``self``
+    leaves, ``(n_layers, sub_layers - 1, ...)``, are cut on both axes into
+    ``segments.<i>.<j>.self.<k>.<path>``.  Each multi-token prediction
+    depth d (the ``mtp`` list) becomes ``mtp.<d>.<path>``, its one-layer
+    ``block`` unstacked.  Dtypes are kept, and
+    ``Model.load_state_dict(..., strict=True)`` takes the result."""
     state = {name: _tensor(params[name])
              for name in ("embed", "final_ln", "lm_head") if name in params}
     if len(params["segments"]) != len(cfg.segments):
@@ -102,11 +104,20 @@ def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
     for i, (seg, sp) in enumerate(zip(cfg.segments, params["segments"])):
         for path, leaf in _leaves(sp):
             arr = np.asarray(leaf)
-            if arr.shape[:1] != (seg.n_layers,):
+            sub = (seg.kind == "vision_group" and path.startswith("self."))
+            lead = (seg.n_layers,) + ((seg.sub_layers - 1,) if sub else ())
+            if arr.shape[:len(lead)] != lead:
+                want = ", ".join(map(str, lead))
                 raise ValueError(f"segments[{i}].{path} has shape "
-                                 f"{arr.shape}, not ({seg.n_layers}, ...)")
+                                 f"{arr.shape}, not ({want}, ...)")
             for j in range(seg.n_layers):
-                state[f"segments.{i}.{j}.{path}"] = _tensor(arr[j])
+                if not sub:
+                    state[f"segments.{i}.{j}.{path}"] = _tensor(arr[j])
+                    continue
+                rest = path.removeprefix("self.")
+                for k in range(lead[1]):
+                    state[f"segments.{i}.{j}.self.{k}.{rest}"] = \
+                        _tensor(arr[j, k])
     mtp = params.get("mtp", [])
     if len(mtp) != cfg.mtp_depth:
         raise ValueError(f"{len(mtp)} mtp depths for mtp_depth "

@@ -7,7 +7,10 @@
 
 The twin of the JAX package's ``launch/serve.py`` on a one-device mesh.
 Weights come from a seeded ``torch.Generator`` and prompts from a seeded
-numpy generator, as the JAX launcher serves from seeded random init.
+numpy generator, as the JAX launcher serves from seeded random init; a
+vision model (``llama-3.2-vision-11b``) also gets the launcher's stub
+image embeddings, drawn from the same generator right after the prompts
+(``draw_batch``).
 ``serve`` runs the loop -- one ``prefill``, then ``G - 1`` greedy
 ``decode_step``s, one host read per token -- and returns the tokens, the
 timings and the kernel launch counts of the run.
@@ -72,6 +75,18 @@ def make_prompts(cfg: ModelConfig, B: int, S: int,
                  seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def draw_batch(cfg: ModelConfig, rng: np.random.Generator, B: int,
+               S: int) -> dict:
+    """The JAX launcher's draws from ``rng``, in its order: ``tokens`` (B,
+    S) int32, then for a vision model ``image_embeds`` (B, N, D), standard
+    normals in f32 (the model casts them to its dtype)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.n_image_tokens:
+        batch["image_embeds"] = rng.normal(
+            size=(B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _sync(device: torch.device) -> None:
@@ -145,8 +160,9 @@ def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
     model = make_model(cfg, device=device, seed=seed)
     dev = model.device
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    batch = {name: torch.from_numpy(a).to(dev)
+             for name, a in draw_batch(cfg, rng, B, S).items()}
+    tokens = batch["tokens"]
     report = None
     if placement is not None and cfg.n_experts:
         ops.reset_launches()
@@ -160,7 +176,7 @@ def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
     ops.reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill({"tokens": tokens}, max_len=S + G)
+    logits, caches = model.prefill(batch, max_len=S + G)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     out = [tok.cpu()]
     t1 = time.perf_counter()

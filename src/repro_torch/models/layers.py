@@ -2,14 +2,13 @@
 parameter dictionaries (name -> tensor, one layer's worth).
 
 The twins of the JAX package's ``models/layers.py`` for GQA attention,
-multi-head latent attention (MLA) and the Mamba-1 mixer, with its
-numerics: norms and rotary embeddings in f32, cast back to the working
-dtype at the same places.  Prefill attention and the scan go through
+multi-head latent attention (MLA), cross-attention and the Mamba-1 mixer,
+with its numerics: norms and rotary embeddings in f32, cast back to the
+working dtype at the same places.  Prefill attention and the scan go through
 ``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain versions for
 CPU ones); MLA's decode step is plain PyTorch, as the JAX package's is jnp
 outside its attention op.  Caches are functional: each call returns new
-tensors and leaves the old ones as they were.  Cross-attention is not
-ported yet (ROADMAP Queue 1).
+tensors and leaves the old ones as they were.
 """
 from __future__ import annotations
 
@@ -261,6 +260,38 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
         out = torch.einsum("bhqs,bshv->bqhv", pattn, kv[..., nope:])
     out = out.reshape(B, 1, H * vh)
     return out @ p["mla_wo"], {"ckv": ckv, "kr": kr}
+
+
+# ---------------------------------------------------------------- cross-attn
+
+def cross_kv(p: dict, img: torch.Tensor, cfg: ModelConfig):
+    """The keys and values of the (stub) image embeddings img (B, N, D):
+    each (B, N, KV, hd), without rope; the decode cache of a vision
+    group's cross-attention."""
+    B, N, _ = img.shape
+    k = (img @ p["cross_wk"]).reshape(B, N, cfg.n_kv_heads, cfg.hd)
+    v = (img @ p["cross_wv"]).reshape(B, N, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Text queries x (B, S, D) against image keys and values, no mask and
+    no positions (the ``n_heads`` query heads: no head mask); the output
+    scaled by ``tanh(gate)`` in x's dtype."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["cross_wq"]).reshape(B, S, cfg.n_heads, hd)
+    out = ops.attention(q, k, v, causal=False)
+    out = out.reshape(B, S, cfg.n_heads * hd) @ p["cross_wo"]
+    return torch.tanh(p["gate"]).to(out.dtype) * out
+
+
+def cross_attention(p: dict, x: torch.Tensor, img: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Text queries attend to (stub) image embeddings; tanh-gated
+    residual."""
+    return cross_attend(p, x, *cross_kv(p, img, cfg), cfg)
 
 
 # --------------------------------------------------------------------- mamba

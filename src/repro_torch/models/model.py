@@ -1,13 +1,18 @@
 """The serving model: dense GQA decoders, Mamba-1, the parallel
-attention + SSM hybrid, MoE decoders and MLA + MoE with multi-token
-prediction (deepseek-v3), with the JAX package's ``Model`` semantics.
+attention + SSM hybrid, MoE decoders, MLA + MoE with multi-token
+prediction (deepseek-v3) and cross-attention vision groups
+(llama-3.2-vision), with the JAX package's ``Model`` semantics.
 
 ``forward`` and ``logits_fn`` run the full sequence; ``init_cache``,
 ``prefill`` and ``decode_step`` serve.  Parameters live in one submodule
 per layer (``segments.<i>.<j>.<group>.<name>``, an ``nn.ModuleList`` per
 segment): the JAX package's stacked scan over layers is a Python loop
-here.  ``convert.model_state_from_jax`` unstacks a JAX parameter pytree
-into this layout.  Parameters are initialized from an explicit
+here.  A vision group (segment kind ``vision_group``) holds ``cross``
+(the cross-attention sub-layer: norms, the f32 scalar ``gate``,
+``cross_w{q,k,v,o}`` and its MLP) and ``self``, one submodule per
+self-attention sub-layer (``segments.<i>.<j>.self.<k>.attn.wq``).
+``convert.model_state_from_jax`` unstacks a JAX parameter pytree into this
+layout.  Parameters are initialized from an explicit
 ``torch.Generator`` with the JAX package's shapes, dtypes and constants
 (the random numbers differ: a test hands both packages the same weights
 through the converter).  Nothing here has a backward kernel yet, so
@@ -16,7 +21,12 @@ parameters do not require grad.
 Caches are, per segment, a list of per-layer dicts: ``k``/``v`` (B, L,
 KV, hd) for GQA attention, ``ckv`` (B, L, kv_lora_rank) and ``kr`` (B, L,
 rope head dim) for MLA, and ``mamba`` = {``conv``: (B, d_conv-1, di),
-``ssm``: (B, di, N) f32} for the SSM mixer.
+``ssm``: (B, di, N) f32} for the SSM mixer; a vision group's is
+{``cross``: {``ck``, ``cv``} (B, N, KV, hd), the image keys and values,
+``self``: one linear ``k``/``v`` cache per sub-layer}.  The image
+embeddings (``batch["image_embeds"]``, (B, N, D), cast to the model dtype)
+enter ``forward`` and ``prefill``; decode reads their cached keys and
+values.
 
 The multi-token prediction module (``mtp``, one entry per depth: ``proj``,
 ``ln`` and a one-layer dense ``block`` with the last segment's attention)
@@ -31,6 +41,8 @@ reference (``models.moe``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,30 +51,36 @@ from . import layers as L
 from .config import ModelConfig, Segment
 from .moe import PlacementPlan, moe_apply, round_robin_plan, router_topk
 
-_KINDS = ("dense", "hybrid", "mamba", "moe")
+_KINDS = ("dense", "hybrid", "mamba", "moe", "vision_group")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of the JAX model that
-    the port does not have yet, naming the ROADMAP item that ports them."""
+    """Raise ``ValueError`` for a segment kind the JAX model does not
+    have."""
     for seg in cfg.segments:
-        if seg.kind == "vision_group" or seg.cross_attn:
-            raise NotImplementedError(
-                "segment kind 'vision_group': ROADMAP Queue 1, "
-                "\"Cross-attention\"")
         if seg.kind not in _KINDS:
             raise ValueError(f"unknown segment kind {seg.kind!r}")
 
 
+def _self_segment(seg: Segment) -> Segment:
+    """The segment of a vision group's self-attention sub-layers: dense
+    layers with the group's attention and mask."""
+    return dataclasses.replace(seg, kind="dense", n_layers=1, sub_layers=1,
+                               cross_attn=False)
+
+
 class Params(nn.Module):
     """One group of parameters, indexed by name like the JAX pytree's
-    dicts; a nested dict becomes a child group."""
+    dicts; a nested dict becomes a child group, a list of dicts an
+    ``nn.ModuleList`` of them."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
             if isinstance(t, dict):
                 self.add_module(name, Params(t))
+            elif isinstance(t, list):
+                self.add_module(name, nn.ModuleList(Params(x) for x in t))
             else:
                 self.register_parameter(
                     name, nn.Parameter(t, requires_grad=False))
@@ -146,10 +164,29 @@ class _Init:
             out.update(self.mlp(cfg.n_shared_experts * F_))
         return out
 
+    def cross(self) -> dict:
+        """A vision group's cross-attention sub-layer; its gate is an f32
+        zero, so a fresh model's cross-attention adds nothing."""
+        cfg = self.cfg
+        D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        return {"ln1": self.ones(D), "ln2": self.ones(D),
+                "gate": torch.zeros((), dtype=torch.float32,
+                                    device=self.device),
+                "cross_wq": self.normal((D, H * hd), D),
+                "cross_wk": self.normal((D, KV * hd), D),
+                "cross_wv": self.normal((D, KV * hd), D),
+                "cross_wo": self.normal((H * hd, D), H * hd),
+                "mlp": self.mlp(cfg.d_ff)}
+
     def layer(self, seg: Segment) -> dict:
         D = self.cfg.d_model
         if seg.kind == "mamba":
             return {"ln1": self.ones(D), "mamba": self.mamba()}
+        if seg.kind == "vision_group":    # no norms of its own
+            sub = _self_segment(seg)
+            return {"cross": self.cross(),
+                    "self": [self.layer(sub)
+                             for _ in range(seg.sub_layers - 1)]}
         p = {"ln1": self.ones(D), "ln2": self.ones(D),
              "attn": self.attn(seg.attn)}
         if seg.kind == "hybrid":
@@ -239,19 +276,49 @@ class Model(nn.Module):
             return moe_apply(lp["moe"], h, self.cfg, self.plan, mode)
         return L.swiglu(lp["mlp"], h), None
 
-    def _block(self, lp, x: torch.Tensor, seg: Segment, mode: str):
-        """One layer: (output, aux loss or None)."""
+    def _block(self, lp, x: torch.Tensor, seg: Segment, mode: str,
+               img: torch.Tensor | None = None):
+        """One layer, or one vision group (its cross sub-layer against the
+        image embeddings ``img``, then its self sub-layers): (output, aux
+        loss or None)."""
         if seg.kind == "mamba":
             h = L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps)
             return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0], None
+        if seg.kind == "vision_group":
+            x = self._cross_block(lp["cross"], x, img=img)
+            sub = _self_segment(seg)
+            for sp in lp["self"]:
+                x, _ = self._block(sp, x, sub, mode)
+            return x, None
         x = x + self._mixer(lp, x, seg)
         y, aux = self._ffn(lp, x, seg, mode)
         return x + y, aux
+
+    def _cross_block(self, cp, x: torch.Tensor, *,
+                     img: torch.Tensor | None = None,
+                     kv: tuple | None = None) -> torch.Tensor:
+        """A vision group's cross-attention sub-layer against the image
+        embeddings ``img``, or their keys and values ``kv``, then its
+        MLP."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, cp["ln1"], cfg.norm_eps)
+        if kv is None:
+            x = x + L.cross_attention(cp, h, img, cfg)
+        else:
+            x = x + L.cross_attend(cp, h, *kv, cfg)
+        return x + L.swiglu(cp["mlp"], L.rmsnorm(x, cp["ln2"], cfg.norm_eps))
 
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         if self.cfg.frame_input:
             return batch["frames"].to(self.dtype)
         return F.embedding(batch["tokens"], self.embed)
+
+    def _image_embeds(self, batch: dict) -> torch.Tensor | None:
+        img = batch.get("image_embeds")
+        if img is None and self.cfg.n_image_tokens:
+            raise ValueError(f"{self.cfg.name} attends to "
+                             "batch['image_embeds'], (B, N, d_model)")
+        return None if img is None else img.to(self.dtype)
 
     def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head, accumulated in f32 (B, S, V)."""
@@ -264,10 +331,11 @@ class Model(nn.Module):
         """Full-sequence hidden states and the summed auxiliary (router
         load-balancing) loss of the MoE layers."""
         x = self._embed_inputs(batch)
+        img = self._image_embeds(batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg, layers in zip(self.cfg.segments, self.segments):
             for lp in layers:
-                x, aux = self._block(lp, x, seg, mode)
+                x, aux = self._block(lp, x, seg, mode, img)
                 if aux is not None:
                     aux_total = aux_total + aux
         return x, aux_total
@@ -326,7 +394,14 @@ class Model(nn.Module):
         for seg in cfg.segments:
             def one():
                 c: dict = {}
-                if seg.attn == "gqa" and seg.kind != "mamba":
+                if seg.kind == "vision_group":
+                    shape = (B, cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd)
+                    c["cross"] = {n: torch.zeros(shape, dtype=dt, device=dev)
+                                  for n in ("ck", "cv")}
+                    c["self"] = [L.gqa_init_cache(cfg, seg, B, max_len, dt,
+                                                  dev)
+                                 for _ in range(seg.sub_layers - 1)]
+                elif seg.attn == "gqa" and seg.kind != "mamba":
                     c.update(L.gqa_init_cache(cfg, seg, B, max_len, dt, dev))
                 elif seg.attn == "mla":
                     c.update(L.mla_init_cache(cfg, B, max_len, dt, dev))
@@ -340,22 +415,37 @@ class Model(nn.Module):
         """Run the full prompt; return (last-token logits (B, 1, V) f32,
         caches).  As in the JAX package, each layer's cache is built by a
         second pass over its input (``_prefill_layer_cache``), so the SSM
-        mixer runs twice per layer."""
+        mixer runs twice per layer and a vision group's every sub-layer
+        twice."""
         x = self._embed_inputs(batch)
+        img = self._image_embeds(batch)
         caches = []
         for seg, layers in zip(self.cfg.segments, self.segments):
             seg_caches = []
             for lp in layers:
-                y, _ = self._block(lp, x, seg, "a2a")
+                y, _ = self._block(lp, x, seg, "a2a", img)
                 seg_caches.append(self._prefill_layer_cache(lp, x, seg,
-                                                            max_len))
+                                                            max_len, img))
                 x = y
             caches.append(seg_caches)
         return self.logits_fn(x[:, -1:]), caches
 
     def _prefill_layer_cache(self, lp, x_in: torch.Tensor, seg: Segment,
-                             max_len: int) -> dict:
+                             max_len: int,
+                             img: torch.Tensor | None = None) -> dict:
         cfg = self.cfg
+        if seg.kind == "vision_group":
+            # the image keys and values; each self sub-layer's cache from
+            # a replay of the group up to it
+            cp, sub = lp["cross"], _self_segment(seg)
+            ck, cv = L.cross_kv(cp, img, cfg)
+            x = self._cross_block(cp, x_in, kv=(ck, cv))
+            self_caches = []
+            for sp in lp["self"]:
+                self_caches.append(self._prefill_layer_cache(sp, x, sub,
+                                                             max_len))
+                x, _ = self._block(sp, x, sub, "a2a")
+            return {"cross": {"ck": ck, "cv": cv}, "self": self_caches}
         c: dict = {}
         h = L.rmsnorm(x_in, lp["ln1"], cfg.norm_eps)
         if seg.attn == "gqa" and seg.kind != "mamba":
@@ -386,6 +476,16 @@ class Model(nn.Module):
     def _decode_block(self, lp, x: torch.Tensor, seg: Segment, cache: dict,
                       pos: int):
         cfg = self.cfg
+        if seg.kind == "vision_group":
+            # the cross query against the cached image keys and values,
+            # which stay as they are
+            cc = cache["cross"]
+            x = self._cross_block(lp["cross"], x, kv=(cc["ck"], cc["cv"]))
+            sub, self_caches = _self_segment(seg), []
+            for sp, c in zip(lp["self"], cache["self"]):
+                x, c = self._decode_block(sp, x, sub, c, pos)
+                self_caches.append(c)
+            return x, {"cross": cache["cross"], "self": self_caches}
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if seg.kind == "mamba":
             y, st = L.mamba_mixer(lp["mamba"], h, cfg, state=cache["mamba"])

@@ -33,7 +33,8 @@ def _attn_shapes(name):
     return H, cfg.n_kv_heads, cfg.hd, windows
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "olmoe-1b-7b",
+                                  "llama-3.2-vision-11b"])
 def test_route_of_the_serving_shapes(name):
     H, KV, hd, windows = _attn_shapes(name)
     B, S, max_len = 4, 2048, 2048 + 32
@@ -98,6 +99,22 @@ def test_deepseek_prefill_route(dtype, want):
                     cfg.v_head_dim, 0, False) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vision_cross_routes(dtype):
+    """llama-3.2-vision's cross-attention at the smoke's traffic (4
+    prompts of 2048 tokens against 1024 image tokens, 32 q heads over 8 kv
+    heads of 128, no mask, no positions): prefill on the tensor-core
+    kernel in bf16 (the general kernel in f32), and the decode step's
+    query on ``decode_split`` in both dtypes."""
+    cfg = get_config("llama-3.2-vision-11b")
+    H, KV, hd, N = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_image_tokens
+    assert (H, KV, hd, N) == (32, 8, 128, 1024)
+    prefill = "prefill_tc" if dtype == torch.bfloat16 else "general"
+    assert fa.route(dtype, 4, 2048, N, H, KV, hd, hd, 0, False) == prefill
+    assert fa.route(dtype, 4, 1, N, H, KV, hd, hd, 0, False) == \
+        "decode_split"
+
+
 @pytest.mark.parametrize("Sk", [1, 63, 1024, 2080])
 @pytest.mark.parametrize("B,KV,rows", [(4, 16, 1), (4, 5, 5), (1, 1, 16)])
 def test_split_plan_covers_every_key_once(Sk, B, KV, rows):
@@ -113,7 +130,9 @@ def test_split_plan_covers_every_key_once(Sk, B, KV, rows):
 
 @pytest.mark.parametrize("name,Sk", [("olmoe-1b-7b", 2080),
                                      ("hymba-1.5b", 1024),
-                                     ("hymba-1.5b", 2080)])
+                                     ("hymba-1.5b", 2080),
+                                     ("llama-3.2-vision-11b", 1024),
+                                     ("llama-3.2-vision-11b", 2080)])
 def test_split_plan_fills_the_card(name, Sk):
     H, KV, _, _ = _attn_shapes(name)
     B = 4

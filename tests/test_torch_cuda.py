@@ -286,6 +286,14 @@ ATTN_CASES = [
     (1, 300, 300, 4, 4, 192, 128, True, 70, None,
      ("general", "prefill_tc")),
     (1, 30, 90, 4, 4, 192, 128, True, 0, "chunk", ("general", "general")),
+    # llama-3.2-vision's calls: a cross decode (non-causal, no positions:
+    # every key counts), and the tensor-core prefill at GQA group 4, hd
+    # 128, causal with Sq = Sk and cross (non-causal, Sk not a multiple of
+    # the 128-key tile)
+    (2, 1, 100, 8, 2, 128, 128, False, 0, None,
+     ("decode_split", "decode_split")),
+    (1, 200, 200, 8, 2, 128, 128, True, 0, None, ("general", "prefill_tc")),
+    (2, 150, 70, 8, 2, 128, 128, False, 0, None, ("general", "prefill_tc")),
 ]
 
 
@@ -506,6 +514,77 @@ def test_serve_on_cuda_counts_every_model_kernel(cuda):
     assert res.launches["attention_masked"] == 2 + 2 * 5
     assert res.launches["mamba_scan"] == 2 * 5       # block + cache pass
     assert res.launches["mamba_step"] == 2 * 5       # G - 1 = 2 steps
+
+
+def _vision_small(dtype, wide_heads=False):
+    """Reduced llama-3.2-vision (two groups of 1 cross + 2 self
+    sub-layers, 8 image tokens); ``wide_heads``: 8/2 heads of 128, the
+    full model's head dim and GQA group."""
+    cfg = reduce_config(get_config("llama-3.2-vision-11b"),
+                        layers_per_segment=2).with_(dtype=dtype)
+    if wide_heads:
+        cfg = cfg.with_(d_model=256, n_heads=8, n_kv_heads=2, head_dim=128)
+    return cfg
+
+
+def _set_gates(model, gates=(0.7, -0.45)):
+    with torch.no_grad():
+        for lp, g in zip(model.segments[0], gates):
+            lp["cross"]["gate"].fill_(g)
+
+
+@pytest.mark.cuda
+def test_vision_kernel_path_matches_plain_path(cuda, no_tf32):
+    """Reduced llama-3.2-vision in f32, nonzero gates: prefill (self and
+    cross attention on the general route) and two decode steps (cross
+    decode without positions and self decode on ``decode_split``) through
+    the kernels against the plain versions."""
+    cfg = _vision_small("float32")
+    model = make_model(cfg, device=cuda, seed=4)
+    _set_gates(model)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    img = torch.randn((2, cfg.n_image_tokens, cfg.d_model), device=cuda)
+    runs = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            with torch.no_grad():
+                logits, caches = model.prefill(
+                    {"tokens": tokens[:, :20], "image_embeds": img}, 26)
+                out = [logits]
+                for i in range(2):
+                    logits, caches = model.decode_step(
+                        tokens[:, 20 + i:21 + i], caches, 20 + i)
+                    out.append(logits)
+        finally:
+            ops.force(None)
+        runs[which] = torch.cat(out, dim=1)
+        if which == "cuda":
+            # prefill: 2 groups x 3 sub-layers, twice (block, cache pass);
+            # decode: 2 cross calls and 4 self calls a step
+            assert ops.launches["flash_attention"] == 12 + 2 * 2
+            assert ops.launches["attention_masked"] == 2 * 4
+            assert ops.route_launches == {"general": 12, "decode_split": 12,
+                                          "prefill_tc": 0}
+    scale = runs["ref"].abs().max().item()
+    assert (runs["cuda"] - runs["ref"]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_serve_vision_on_cuda_launches_per_route(cuda):
+    """bf16 serving at the full model's head dim and GQA group: every
+    prefill call (self and cross, twice per sub-layer) on ``prefill_tc``,
+    every decode call on ``decode_split``, the cross ones unmasked."""
+    res = serve(_vision_small("bfloat16", wide_heads=True), 2, 20, 3,
+                device=cuda, seed=0)
+    assert res.tokens.shape == (2, 3)
+    assert res.launches["flash_attention"] == 12 + 2 * 2
+    assert res.launches["attention_masked"] == 2 * 4
+    assert ops.route_launches == {"prefill_tc": 12, "decode_split": 12,
+                                  "general": 0}
+    assert not any(res.launches[c] for c in ("mamba_scan", "mamba_step",
+                                             "grouped_matmul"))
 
 
 # ----------------------------------------------------------- grouped matmul

@@ -221,11 +221,14 @@ def test_serve_on_cpu_reduced_hymba():
     assert not any(a.launches.values())               # CPU: plain versions
 
 
-@pytest.mark.parametrize("arch,needs", [
-    ("llama-3.2-vision-11b", "Cross-attention")])
-def test_unported_parts_raise(arch, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        Model(reduce_config(get_config(arch)), device="cpu")
+def test_unknown_segment_kind_raises():
+    """Every registry model builds; a segment kind the JAX model does not
+    have raises ``ValueError``."""
+    cfg = reduce_config(get_config("smollm-135m"))
+    bad = cfg.with_(segments=(dataclasses.replace(cfg.segments[0],
+                                                  kind="conv"),))
+    with pytest.raises(ValueError, match="unknown segment kind 'conv'"):
+        Model(bad, device="cpu")
 
 
 def test_model_loss_waits_for_training():
