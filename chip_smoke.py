@@ -11,9 +11,10 @@ replicated expert placement (``launch.serve.serve``), and BSP scheduling
 with replication, whose window pricers run as int32 PyTorch programs on
 the card (``kernels.front_pass.DeviceScheduleWindows``),
 ``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``),
-serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths and
+serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths,
 serving ``llama-3.2-vision-11b`` (cross-attention) at full width and
-depth.  Phases,
+depth, and training ``hymba-1.5b`` at full width and depth through the
+backward kernels (``train.step``).  Phases,
 in order; any failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -151,9 +152,36 @@ in order; any failure propagates and the exit code is nonzero:
    GB, built after the bf16 one is freed) through the kernels and the
    plain versions, prefill and three teacher-forced decode steps of all
    four prompts, within ``F32_LOGIT_TOL``, and the bf16 paths' distances
-   from the f32 plain path at the bf16 weights.
+   from the f32 plain path at the bf16 weights;
+13. training ``hymba-1.5b``.  (a) Each backward kernel against autograd
+   of its plain version at hymba's training shapes, in bf16 and f32,
+   within ``GRAD_TOL`` of each gradient's largest entry: attention (4,
+   2048², 25/5, 64), causal and with window 1024, timed beside its bound
+   (six products of 2 hd FLOPs per live pair and head at 989 or 165
+   TFLOP/s, or its bytes), the plain backward (``attention_bwd_ref``) and
+   SDPA's forward + backward (its forward alone beside it); the scan (4,
+   2048, 3200, 16) beside its bound (``scan_bound`` with 13 FMA-pipe
+   instructions and 2 exps per (t, d, n)) and its plain backward.  (b)
+   Five training steps at full width and depth, bf16, remat "full", 4 x
+   2048 tokens from ``SyntheticTokenStream(seed=0)``, AdamW as
+   ``launch/train.py`` sets it (lr 3e-4, one warm-up step, 5 steps), the
+   step run directly (not through ``Trainer.run``'s retries): losses
+   (finite), seconds per step (median of steps 2-5), tokens/s, peak
+   memory, and each step's launches exactly as expected (every forward
+   kernel twice -- forward and recompute -- one backward kernel each,
+   all attention on ``prefill_tc``, nothing else); then one more step
+   split by CUDA events (forward, backward with the recompute, AdamW) and
+   by kernel under ``torch.profiler``.  (c) The f32 model at full width
+   and depth, 2 x 2048 tokens: the loss and every gradient through the
+   kernels and through the plain versions (losses within 1e-5 relative,
+   each leaf within ``GRAD_TOL`` f32 of its largest entry, the worst
+   reported), then one AdamW step from each, the parameters compared
+   (at most 1e-5 of them more than lr / 10 apart: a first AdamW step
+   moves each parameter by about lr times its gradient's sign, which the
+   two paths share except where a gradient is near 0; an H100 read 2,998
+   of 1.66e9).
 
-Launch counts are reset just before each driven run (phases 3-8, 10-12)
+Launch counts are reset just before each driven run (phases 3-8, 10-13)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
@@ -178,7 +206,11 @@ launches of the f32 checks of phases 7 and 11; the scan ``mamba_scan`` (from zer
 commonest shape; ``front_find`` (the device pass's finds, which also take
 the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
 FM case nearest the path's median count of active blocks, with
-``path_ms``, its device time per launch in phase 3b's profile.  A
+``path_ms``, its device time per launch in phase 3b's profile.  The two
+backward kernels (``attention_bwd``, ``mamba_scan_bwd``) carry phase
+13b's launches and phase 13a's times (bf16, the windowed attention call
+first, the others beside it); the forward kernels also carry their
+training launches (``train_launches``).  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -726,7 +758,9 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
 
 
 def scan_bound(B: int, S: int, di: int, N: int, esize: int, state: bool,
-               clock_hz: float, sms: int) -> dict:
+               clock_hz: float, sms: int,
+               fma_per_elem: int = SCAN_FMA_PER_ELEM, exp_per_elem: int = 1,
+               nbytes: int | None = None) -> dict:
     """Least time for a scan: the larger of its bytes (u, dt and y once, Bc
     and Cc once, A, D and the states once) over the memory rate and its
     arithmetic on ``sms`` SMs at ``clock_hz``.  The arithmetic is
@@ -735,13 +769,15 @@ def scan_bound(B: int, S: int, di: int, N: int, esize: int, state: bool,
     emulated on the FMA pipe (``EXP_EMULATED_FMA`` each), x chosen so that
     the two pipes finish together.  ``bound_terms_ms`` also holds the FMA
     pipe's time without exps (a lower floor) and the exps' time all on the
-    unit (not a floor: some of them can move)."""
-    nbytes = (esize * (3 * B * S * di + 2 * B * S * N)
-              + 4 * (di * N + di + B * di * N * (2 if state else 1)))
-    exps = B * S * di * N
+    unit (not a floor: some of them can move).  The backward's bound passes
+    its own counts per (t, d, n) and its bytes."""
+    if nbytes is None:
+        nbytes = (esize * (3 * B * S * di + 2 * B * S * N)
+                  + 4 * (di * N + di + B * di * N * (2 if state else 1)))
+    exps = exp_per_elem * B * S * di * N
     per_s = sms * clock_hz
     sfu = exps / (EXP_PER_CLK_PER_SM * per_s)
-    fma = SCAN_FMA_PER_ELEM * exps / (FMA_PER_CLK_PER_SM * per_s)
+    fma = fma_per_elem * B * S * di * N / (FMA_PER_CLK_PER_SM * per_s)
     emul = EXP_EMULATED_FMA * exps / (FMA_PER_CLK_PER_SM * per_s)
     share = min(1.0, (fma + emul) / (sfu + emul))   # sfu*x = fma + emul(1-x)
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2196,6 +2232,402 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
             "shapes": shapes12, "model_routes": routes12}
 
 
+# ------------------------------------------------- 13. training hymba
+# the backward kernels against autograd of their plain versions: max
+# |kernel - reference| over the largest |reference| of each gradient.
+# bf16: the kernels round P and dS (attention) and every gradient (both)
+# to bf16, 8 bits, and the reference rounds at other places; f32: 3xTF32
+# products summed in another order (attention), ex2.approx exps in the
+# scan's recurrence -- near f32 accuracy, a few 1e-6 of the largest entry
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd")
+# what each backward kernel stands for: the gradient of the Pallas kernel,
+# which the JAX package cannot differentiate (ROADMAP Queue 3 g)
+BWD_REPLACES = {"attention_bwd": "src/repro/kernels/flash_attention.py:25",
+                "mamba_scan_bwd": "src/repro/kernels/mamba_scan.py:24"}
+# (name, B, S, H, KV, hd, window): hymba's training attention, causal
+BWD_ATTN_CASES = [("train_global", 4, 2048, 25, 5, 64, 0),
+                  ("train_window", 4, 2048, 25, 5, 64, 1024)]
+BWD_SCAN_CASE = (4, 2048, 3200, 16)
+# per (t, d, n) of the scan's backward at the least: one forward
+# recurrence for the states (dt * A, x * B, the state's FMA) and the
+# reverse walk (dt * A, g's FMA, dBc, dCc, the sum with B, h - x B, g times
+# it, its sums into ddt and dA, a g) -- 13 FMA-pipe instructions -- and
+# two exps (a_t in each direction)
+SCAN_BWD_FMA_PER_ELEM = 13
+SCAN_BWD_EXP_PER_ELEM = 2
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
+GATE_B = 2
+
+
+def grad_gap(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
+    """The attention backward kernel against autograd of the plain version
+    at hymba's training shapes; timed beside its bound, the plain
+    version's backward (``attention_bwd_ref``) and SDPA's forward and
+    backward (``library_ms``; its forward alone beside it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import attention_bwd
+    name, B, S, H, KV, hd, window = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    kw = dict(causal=True, window=window)
+    scale = hd ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.attention_ref(*leaves, **kw).backward(do)
+    want = [t.grad for t in leaves]
+    del leaves
+    with torch.no_grad():
+        o = ops.attention(q, k, v, **kw)
+
+    def run():
+        return attention_bwd(q, k, v, o, do, scale=scale, **kw)
+
+    def plain():
+        return ref.attention_bwd_ref(q, k, v, o, do, scale=scale, **kw)
+    got = run()
+    torch.cuda.synchronize()
+    errs = {n: grad_gap(a, b) for n, a, b in zip("qkv", got, want)}
+    tol = GRAD_TOL[dtype_name]
+    if max(errs.values()) > tol:
+        raise AssertionError(f"attention backward {name} {dtype_name}: "
+                             f"{errs} past {tol}")
+    del got, want
+    # the bound: per live pair and q head, the five products and the LSE's
+    # score product, 2 hd FLOPs each; q, k, v, o, do read once, dq, dk, dv
+    # written once
+    i = torch.arange(S, device=dev)
+    keep = i[:, None] >= i[None, :]
+    if window:
+        keep &= (i[:, None] - i[None, :]) < window
+    pairs = B * int(keep.sum())
+    flops = 6 * 2 * hd * H * pairs
+    nbytes = q.element_size() * (4 * q.numel()
+                                 + 2 * (k.numel() + v.numel()))
+    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else \
+        F32_TC_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(
+        x is not do) for x in (q, k, v, do))
+    mask = keep if window else None
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    def library():
+        library_fwd().backward(dot)
+    with torch.no_grad():
+        lib_fwd = time_ms(library_fwd, 5)
+    row = {"case": name, "dtype": dtype_name,
+           "shape": [B, S, S, H, KV, hd, hd], "window": window,
+           "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
+           "ms": graph_ms(run, 5, 3), "call_ms": time_ms(run, 5),
+           "plain_ms": graph_ms(plain, 1, 2),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes, "pairs": pairs,
+           "library_ms": time_ms(library, 5), "library_fwd_ms": lib_fwd}
+    with torch.no_grad():
+        row["fwd_ms"] = graph_ms(lambda: ops.attention(q, k, v, **kw), 5, 3)
+    return row
+
+
+def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
+                   sms: int) -> dict:
+    """The scan's backward kernel against autograd of the plain version at
+    hymba's training shape, timed beside its bound and the plain
+    version's backward (``mamba_scan_bwd_ref``); no library call computes
+    it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    B, S, di, N = BWD_SCAN_CASE
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    u = rnd(B, S, di).to(dtype)
+    dt = F.softplus(rnd(B, S, di) - 2).to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(di, N).contiguous()
+    Bc, Cc, D = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype), rnd(di)
+    dy = rnd(B, S, di).to(dtype)
+    ins = (u, dt, A, Bc, Cc, D)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ref.mamba_scan_ref(*leaves)[0].backward(dy)
+    want = [t.grad for t in leaves]
+    del leaves
+
+    def run():
+        return mamba_scan_bwd(*ins, dy)
+
+    def plain():
+        return ref.mamba_scan_bwd_ref(*ins, dy)
+    got = run()
+    torch.cuda.synchronize()
+    names = ("du", "ddt", "dA", "dBc", "dCc", "dD")
+    errs = {n: grad_gap(a, b) for n, a, b in zip(names, got, want)}
+    tol = GRAD_TOL[dtype_name]
+    if max(errs.values()) > tol:
+        raise AssertionError(f"scan backward {dtype_name}: {errs} past "
+                             f"{tol}")
+    del got, want
+    esize = u.element_size()
+    nbytes = (esize * (5 * B * S * di + 4 * B * S * N)
+              + 4 * (2 * di * N + 2 * di))
+    bound = scan_bound(B, S, di, N, esize, False, clock_hz, sms,
+                       fma_per_elem=SCAN_BWD_FMA_PER_ELEM,
+                       exp_per_elem=SCAN_BWD_EXP_PER_ELEM, nbytes=nbytes)
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    return {"case": "train", "dtype": dtype_name, "shape": [B, S, di, N],
+            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
+            "ms": graph_ms(run, 3, 3), "call_ms": time_ms(run, 3),
+            "plain_ms": 1e3 * (time.perf_counter() - t0),
+            "library_ms": None, **bound}
+
+
+def expected_train_launches(cfg) -> dict:
+    """One training step's launches with remat "full": every layer's
+    forward kernels twice (the forward and its recompute in the backward
+    pass), one backward kernel each; nothing else."""
+    from repro_torch.kernels import ops
+    want = {c: 0 for c in ops.launches}
+    for seg in cfg.segments:
+        n = seg.n_layers
+        if seg.attn == "gqa":
+            want["attention_masked" if seg.sliding_window
+                 else "flash_attention"] += 2 * n
+            want["attention_bwd"] += n
+        if seg.kind in ("mamba", "hybrid"):
+            want["mamba_scan"] += 2 * n
+            want["mamba_scan_bwd"] += n
+    return want
+
+
+def train_step_split(ts, state, batch) -> dict:
+    """One more step, its phases timed with CUDA events (the loss's
+    forward, the backward pass with its recompute, AdamW) and its kernels
+    under ``torch.profiler``: device time by kind."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    params = ts._bind(state["params"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for p in params.values():
+            p.grad = None
+        ev[0].record()
+        loss, _ = ts.model.loss(batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        ts.update(state, params)
+        ev[3].record()
+        torch.cuda.synchronize()
+    phases = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(
+        ("forward_ms", "backward_ms", "adamw_ms"))}
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kinds = {"attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
+             "scan_fwd": ("scan_kernel",),
+             "attention_bwd": ("dq_kernel", "dkv_kernel"),
+             "scan_bwd": ("scan_bwd_kernel", "finish_kernel"),
+             "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_")}
+    by = {k: 0.0 for k in kinds}
+    by["other"] = 0.0
+    for e in kern:
+        for k, keys in kinds.items():
+            if k in ("attention_fwd", "scan_fwd") and "bwd" in e.key:
+                continue
+            if any(x in e.key for x in keys):
+                by[k] += e.self_device_time_total / 1e3
+                break
+        else:
+            by["other"] += e.self_device_time_total / 1e3
+    busy = sum(by.values())
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    return {**{k: sig(v) for k, v in phases.items()},
+            "device_ms": {k: sig(v) for k, v in by.items()},
+            "busy_ms": sig(busy),
+            "busy_share": sig(busy / sum(phases.values())) if busy else
+            "not measured",
+            "top": [[e.key[:60], e.count, sig(e.self_device_time_total / 1e3)]
+                    for e in top]}
+
+
+def train_phase(clock_hz: float, sms: int) -> dict:
+    """13a, 13b and 13c (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    out: dict = {"attn_rows": [], "scan_rows": []}
+    # 13a: the backward kernels at hymba's training shapes
+    for i, case in enumerate(BWD_ATTN_CASES):
+        for dt in ("bfloat16", "float32"):
+            out["attn_rows"].append(check_attention_bwd(case, dt, 400 + i))
+            log("    " + json.dumps(out["attn_rows"][-1]))
+            torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        out["scan_rows"].append(check_scan_bwd(dt, 500, clock_hz, sms))
+        log("    " + json.dumps(out["scan_rows"][-1]))
+        torch.cuda.empty_cache()
+
+    # 13b: hymba-1.5b at full width and depth, bf16, remat "full"
+    cfg = get_config("hymba-1.5b")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ts = build_train_step(cfg, opt, device="cuda")
+    state = ts.init_state(0)
+    n_params = sum(p.numel() for p in state["params"].values())
+    stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    want = expected_train_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step = [], [], []
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        before = dict(ops.launches)
+        batch = batch_to(stream.next_batch(), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        per_step.append({c: ops.launches[c] - before[c] for c in before})
+    launches = dict(ops.launches)
+    routes = dict(ops.route_launches)
+    gmm_routes = dict(ops.gmm_route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"train step {i} launched {got}, expected "
+                                 f"{want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses {losses}")
+    n_attn = TRAIN_STEPS * (want["flash_attention"]
+                            + want["attention_masked"])
+    if routes != {"prefill_tc": n_attn, "decode_split": 0, "general": 0} \
+            or any(gmm_routes.values()):
+        raise AssertionError(f"bf16 training took routes {routes}, "
+                             f"grouped products {gmm_routes}")
+    med = float(np.median(seconds[1:]))
+    log(f"[13b] train {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, bf16, remat "
+        f"{cfg.remat}): {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
+        f"tokens, losses {losses}, seconds {seconds}; median of steps 2-"
+        f"{TRAIN_STEPS} {med:.6g} s/step, {TRAIN_B * TRAIN_S / med:.6g} "
+        f"tokens/s; max_memory_allocated {peak} B; launches per step "
+        f"{per_step[0]}; routes {routes}")
+    batch = batch_to(stream.next_batch(), "cuda")
+    split = train_step_split(ts, state, batch)
+    log(f"[13b] one more step, split: {json.dumps(split)}")
+    out.update(losses=[sig(x) for x in losses],
+               step_s=[sig(x) for x in seconds], median_step_s=sig(med),
+               tokens_per_s=sig(TRAIN_B * TRAIN_S / med), peak_B=peak,
+               n_params=n_params, launches=launches,
+               per_step_launches=per_step[0], routes=routes, split=split)
+    del ts, state, met, batch
+    torch.cuda.empty_cache()
+
+    # 13c: the f32 model, one backward through the kernels and one through
+    # the plain versions, then one AdamW step from each (the start and the
+    # kernel path's result kept on the host)
+    cfg32 = cfg.with_(dtype="float32")
+    ts = build_train_step(cfg32, opt, device="cuda")
+    state = ts.init_state(0)
+    batch = batch_to(SyntheticTokenStream(
+        cfg32, DataConfig(GATE_B, TRAIN_S, seed=0)).next_batch(), "cuda")
+    start = {n: p.detach().cpu() for n, p in state["params"].items()}
+    gate: dict = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            params, met = ts.grads(state, batch)
+            torch.cuda.synchronize()
+            gate[f"{which}_s"] = time.perf_counter() - t0
+        finally:
+            ops.force(None)
+        gate[f"{which}_launches"] = {c: n for c, n in ops.launches.items()
+                                     if n}
+        gate[f"{which}_loss"] = float(met["loss"])
+        if which == "cuda":
+            grads_k = {n: p.grad.clone() for n, p in params.items()}
+        else:
+            gaps = {n: grad_gap(p.grad, grads_k[n])
+                    for n, p in params.items()}
+            del grads_k
+        ts.update(state, params)
+        if which == "cuda":
+            after_k = {n: p.detach().cpu() for n, p in params.items()}
+            o = state["opt"]
+            with torch.no_grad():        # back to the same start
+                o["step"].zero_()
+                for n, p in params.items():
+                    p.copy_(start[n])
+                    o["master"][n].copy_(p)
+                    o["m"][n].zero_()
+                    o["v"][n].zero_()
+    rel_loss = abs(gate["cuda_loss"] - gate["ref_loss"]) / abs(
+        gate["ref_loss"])
+    worst = max(gaps, key=gaps.get)
+    off, total, max_moved = 0, 0, 0.0
+    for n, p in params.items():
+        d = (p.detach() - after_k[n].to(p.device)).abs()
+        off += int((d > opt.lr / 10).sum())
+        total += d.numel()
+        max_moved = max(max_moved, float(d.max()))
+    gate.update(rel_loss=rel_loss, worst_leaf=worst,
+                worst_gap=gaps[worst], params_off=off, params=total,
+                max_param_gap_over_lr=max_moved / opt.lr)
+    want32 = expected_train_launches(cfg32)
+    if gate["cuda_launches"] != {c: n for c, n in want32.items() if n}:
+        raise AssertionError(f"f32 kernel path launched "
+                             f"{gate['cuda_launches']}, expected {want32}")
+    if gate["ref_launches"]:
+        raise AssertionError(f"plain path launched {gate['ref_launches']}")
+    log(f"[13c] f32 {cfg.name}, {GATE_B} x {TRAIN_S} tokens: loss kernels "
+        f"{gate['cuda_loss']!r}, plain {gate['ref_loss']!r} (relative gap "
+        f"{rel_loss:.3g}); worst gradient leaf {worst}: {gaps[worst]:.3g} "
+        f"of its largest |grad|; after one AdamW step {off} of {total} "
+        f"parameters differ by more than lr / 10 (max {max_moved / opt.lr:.3g}"
+        f" lr); kernel path {gate['cuda_s']:.3f} s, plain "
+        f"{gate['ref_s']:.3f} s; launches {gate['cuda_launches']}")
+    if not rel_loss <= 1e-5:
+        raise AssertionError(f"f32 losses differ by {rel_loss}")
+    if not gaps[worst] <= GRAD_TOL["float32"]:
+        raise AssertionError(f"f32 gradient {worst} off by {gaps[worst]}")
+    if not off <= 1e-5 * total:
+        raise AssertionError(f"{off} of {total} parameters off after AdamW")
+    out["gate"] = {k: (sig(v) if isinstance(v, float) else v)
+                   for k, v in gate.items()}
+    del ts, state, params, start, after_k
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2213,7 +2645,7 @@ def main() -> int:
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
     libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values())
-                  | set(GMM_SOURCES.values()))
+                  | set(GMM_SOURCES.values()) | set(BWD_KERNELS))
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
@@ -2690,6 +3122,20 @@ def main() -> int:
     summary["p12"] = p12
     log(f"[12] phase 12 took {p12['s']:.2f} s")
 
+    # ------------------------------------------ 13. training hymba-1.5b
+    t13 = time.perf_counter()
+    p13 = train_phase(clock_hz, sms)
+    p13["s"] = sig(time.perf_counter() - t13)
+    log(f"[13] phase 13 took {p13['s']:.2f} s")
+    summary["p13"] = {k: v for k, v in p13.items()
+                      if k not in ("attn_rows", "scan_rows")}
+    summary["p13"]["bwd"] = {
+        f"{r['case']}/{r['dtype'][:4]}": [
+            sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
+            sig(r["library_ms"]) if r.get("library_ms") else None,
+            sig(r["max_abs_err"])]
+        for r in p13["attn_rows"] + p13["scan_rows"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -2878,6 +3324,43 @@ def main() -> int:
                                       "deepseek"))
             kernels[-1].update(second("ds_decode_down_fill", row["dtype"],
                                       "deepseek_down"))
+    # the backward kernels: the launches of phase 13b's five steps, timed
+    # at hymba's training shapes in bf16 (the windowed attention call, 29
+    # of 32 a step; the global one beside it), f32 beside
+    for name, rows in (("attention_bwd", p13["attn_rows"]),
+                       ("mamba_scan_bwd", p13["scan_rows"])):
+        row = next(r for r in rows if r["dtype"] == "bfloat16"
+                   and r.get("window", 1024) == 1024)
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/"
+                           f"{name}.cu",
+                 "replaces": BWD_REPLACES[name],
+                 "launches": p13["launches"][name],
+                 "launches_from": "phase 13b, 5 training steps",
+                 **row_fields(row),
+                 "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        for r in rows:
+            if r is row:
+                continue
+            tag = "_".join(x for x in (
+                {0: "global", 1024: "window"}.get(r.get("window"), ""),
+                "f32" if r["dtype"] == "float32" else "") if x)
+            entry.update({f"{tag}_{k}": r.get(k) for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")})
+        if name == "mamba_scan_bwd":
+            entry.update(bound_terms_ms=row["bound_terms_ms"],
+                         exp_sfu_share=row["exp_sfu_share"])
+        else:
+            entry["library_fwd_ms"] = row["library_fwd_ms"]
+            entry["fwd_ms"] = row["fwd_ms"]
+        kernels.append(entry)
+    # the forward kernels' launches in training (phase 13b) beside the
+    # serve runs' counts above
+    for k in kernels:
+        c = k["name"].split(":")[0]
+        if c in ("flash_attention", "attention_masked", "mamba_scan") and \
+                k.get("attn_route", "prefill_tc") == "prefill_tc":
+            k["train_launches"] = p13["launches"][c]
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -4,7 +4,8 @@ The partitioner's and the scheduler's "weights" are their instances: a
 hypergraph's CSR arrays and weights, a DAG's edge arrays and weights.  Partitions need no conversion: both packages take them as
 int64 numpy arrays of processor-subset masks (bit p set = a replica on
 processor p).  The serving model's weights are a JAX parameter pytree,
-handed over with numpy leaves (``model_state_from_jax``).
+handed over with numpy leaves (``model_state_from_jax``); a training
+state adds the JAX package's AdamW state (``train_state_from_jax``).
 """
 from __future__ import annotations
 
@@ -132,3 +133,20 @@ def model_state_from_jax(cfg: ModelConfig, params: dict) -> dict:
                 arr = arr[0]
             state[f"mtp.{d}.{path}"] = _tensor(arr)
     return state
+
+
+def train_state_from_jax(cfg: ModelConfig, params: dict, opt_state: dict,
+                         device: str | torch.device = "cpu") -> dict:
+    """A training state for ``train.step`` from the JAX package's
+    parameters and its ``optim.adamw`` state (step, master, m, v), all
+    with numpy leaves: ``{"params": ..., "opt": {"step", "master", "m",
+    "v"}}``, each tree keyed like ``Model(cfg).named_parameters()``
+    (``model_state_from_jax``), dtypes kept, on ``device``.  A JAX run
+    continues in the port from its step."""
+    def tree(t):
+        return {n: x.to(device) for n, x in model_state_from_jax(cfg,
+                                                                 t).items()}
+    return {"params": tree(params),
+            "opt": {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                         dtype=torch.int32, device=device),
+                    **{k: tree(opt_state[k]) for k in ("master", "m", "v")}}}

@@ -65,6 +65,16 @@ SIGNATURES = {
         "repro_attention_prefill_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _P),
     },
+    # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd,
+    #  causal, window, scale, is_bf16, stream)
+    "attention_bwd": {
+        "repro_attention_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+    },
+    # (u, dt, A, Bc, Cc, D, dy, du, ddt, dA, dBc, dCc, dD, ckpt, part,
+    #  dA_part, dD_part, B, S, di, N, chunk, is_bf16, stream)
+    "mamba_scan_bwd": {
+        "repro_mamba_scan_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
+    },
     # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
     #  window, scale, is_bf16, splits, chunk, stream)
     "attention_decode": {
@@ -76,7 +86,8 @@ SIGNATURES = {
 # sources built with ``-Xptxas -v``: ptxas reports each kernel's registers,
 # shared memory and spills, kept per source in ``build_log``
 PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
-                "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan")
+                "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan",
+                "attention_bwd", "mamba_scan_bwd")
 build_log: dict[str, str] = {}
 
 

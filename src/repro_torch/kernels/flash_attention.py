@@ -22,6 +22,13 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
 
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
+
+Training: ``attention_train`` runs the forward above through
+``_Attention``, an autograd Function whose backward is
+``csrc/attention_bwd.cu`` (``attention_bwd``), for the calls the training
+path makes -- no explicit positions, (hd, hd_v) in ``BWD_HEAD_DIMS``, f32
+or bf16, causal or not, any window -- and raises for any other call that
+needs a gradient.  ``ref.attention_bwd_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ MAX_HEAD_DIM = 256
 DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
 TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (hd, hd_v)
 MAX_SPLITS = 64         # the decode kernel's combine holds this many
+BWD_HEAD_DIMS = (64, 128)   # hd = hd_v of the backward kernel
 
 
 def _pieces_ok(dim: int, itemsize: int) -> bool:
@@ -157,3 +165,104 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ops.launches["flash_attention" if plain else "attention_masked"] += 1
     ops.route_launches[which] += 1
     return out
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int, has_positions: bool) -> None:
+    """Raise unless the backward kernel takes a call of these shapes:
+    no positions, hd = hd_v in ``BWD_HEAD_DIMS``, f32 or bf16, and every
+    query row keeps a key (a window can empty the rows past Sk + window)."""
+    if has_positions:
+        raise RuntimeError("attention with explicit positions has no "
+                           "backward kernel")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be (B, S, heads, head_dim)")
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if hd != hd_v or hd not in BWD_HEAD_DIMS:
+        raise RuntimeError(f"attention head dims ({hd}, {hd_v}) have no "
+                           f"backward kernel: it takes hd = hd_v in "
+                           f"{BWD_HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise RuntimeError(f"attention in {q.dtype} has no backward kernel")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and q.shape[1] - window >= k.shape[1]:
+        raise RuntimeError(f"window {window} leaves query rows past "
+                           f"{k.shape[1] + window - 1} without a key")
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                  window: int, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention without positions: q, o, do (B, Sq, H,
+    hd), k, v (B, Sk, KV, hd), contiguous and 16-byte aligned on one CUDA
+    device, all f32 or all bf16, hd in ``BWD_HEAD_DIMS``; o the forward's
+    output.  The gradients come out in q's dtype.  Counts as
+    ``attention_bwd``."""
+    from ._build import load
+    _check_bwd(q, k, v, window, False)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    ops.check("q", q, (B, Sq, H, hd), _DTYPES, dev)
+    for name, t in (("k", k), ("v", v)):
+        ops.check(name, t, (B, Sk, KV, hd), (q.dtype,), dev)
+    for name, t in (("o", o), ("do", do)):
+        ops.check(name, t, (B, Sq, H, hd), (q.dtype,), dev)
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} q heads do not split over {KV} kv heads")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the attention backward needs 16-byte aligned "
+                         "q, k, v, o and do")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(dev):
+        err = load("attention_bwd").repro_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
+            int(causal), int(window), float(scale),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention backward launch failed: CUDA error "
+                           f"{err}")
+    ops.launches["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """``flash_attention`` forward (its route unchanged), ``attention_bwd``
+    backward; saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(),
+                                   causal=causal, window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_pos: torch.Tensor | None = None,
+                    k_pos: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """``flash_attention`` with a gradient: raises before anything runs
+    where the backward kernel does not take the call (``_check_bwd``)."""
+    _check_bwd(q, k, v, window, q_pos is not None or k_pos is not None)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _Attention.apply(q, k, v, causal, window, scale)

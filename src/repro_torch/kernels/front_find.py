@@ -276,6 +276,7 @@ def front_find(x: FindInputs, queue, blocks: np.ndarray, *, rep: bool,
     ``front_find_ref``.  Returns the (3,) int32 triple on the buffers'
     device; reading it is the caller's one device->host read."""
     if ops.use_kernel(x.uncov):
+        ops.no_backward("front_find", x.uncov, x.lam)
         work = upload_work(pack_work(queue, blocks, x.bounds_host),
                            x.uncov.device)
         return launch(x, work, len(queue), len(blocks), rep=rep,

@@ -56,6 +56,7 @@ def _launch(rows_perm: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
 def min_cover(rows_perm: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     """(R,) int32 masked-min lambda per row of an (R, M) int32 tensor."""
     if ops.use_kernel(rows_perm):
+        ops.no_backward("min_cover_lambdas", rows_perm, pc)
         return _launch(rows_perm, pc)
     return min_cover_ref(rows_perm, pc)
 

@@ -5,6 +5,11 @@ the initial state that the JAX ``ops.mamba_scan`` sends to its jnp
 reference, so the decode step runs it too (S = 1, the source's step
 kernel).  ``ops.mamba_scan`` dispatches here for CUDA tensors;
 ``ref.mamba_scan_ref`` is the plain version.
+
+Training: ``mamba_scan_train`` runs the scan from zeros through
+``_MambaScan``, an autograd Function whose backward is
+``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``); ``ref.mamba_scan_bwd_ref``
+is its plain version.  The scan from a state has no backward.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from . import ops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 STATE_SIZES = (1, 2, 4, 8, 16)
+BWD_CHUNK = 16     # steps between the backward's checkpoints (its kT)
 
 
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -60,3 +66,78 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ops.launches["mamba_scan" if init_state is None else "mamba_step"] += 1
     return y, last
 
+
+def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+                   dy: torch.Tensor) -> tuple:
+    """The gradients (du, ddt, dA, dBc, dCc, dD) of the scan from zeros,
+    ``y`` (B, S, di) given ``dy``: inputs as ``mamba_scan`` takes them
+    (no ``init_state``), ``dy`` in u's dtype.  du, ddt, dBc and dCc come
+    out in u's dtype, dA and dD in f32.  Deterministic: the sums over
+    channels and batch rows run in a fixed order.  Counts as
+    ``mamba_scan_bwd``."""
+    from ._build import load
+    if u.dim() != 3 or A.dim() != 2:
+        raise ValueError("u must be (B, S, di) and A (di, N)")
+    B, S, di = u.shape
+    N = A.shape[1]
+    dev = u.device
+    ops.check("u", u, (B, S, di), _DTYPES, dev)
+    for name, t, shape in (("dt", dt, (B, S, di)), ("Bc", Bc, (B, S, N)),
+                           ("Cc", Cc, (B, S, N)), ("dy", dy, (B, S, di))):
+        ops.check(name, t, shape, (u.dtype,), dev)
+    ops.check("A", A, (di, N), (torch.float32,), dev)
+    ops.check("D", D, (di,), (torch.float32,), dev)
+    if N not in STATE_SIZES:
+        raise ValueError(f"state size {N} not in {STATE_SIZES}")
+    if S == 0:
+        raise ValueError("the sequence must hold at least one step")
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dBc, dCc = torch.empty_like(Bc), torch.empty_like(Cc)
+    dA = torch.empty((di, N), dtype=torch.float32, device=dev)
+    dD = torch.empty((di,), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ckpt = torch.empty((B, -(-S // BWD_CHUNK), N, di), **f32)
+    part = torch.empty((-(-di // 32), B, S, 2 * N), **f32)
+    dA_part = torch.empty((B, di, N), **f32)
+    dD_part = torch.empty((B, di), **f32)
+    with torch.cuda.device(dev):
+        err = load("mamba_scan_bwd").repro_mamba_scan_bwd(
+            *(t.data_ptr() for t in (u, dt, A, Bc, Cc, D, dy, du, ddt, dA,
+                                     dBc, dCc, dD, ckpt, part, dA_part,
+                                     dD_part)),
+            B, S, di, N, BWD_CHUNK, int(u.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mamba_scan backward launch failed: CUDA error "
+                           f"{err}")
+    ops.launches["mamba_scan_bwd"] += 1
+    return du, ddt, dA, dBc, dCc, dD
+
+
+class _MambaScan(torch.autograd.Function):
+    """``mamba_scan`` from zeros forward, ``mamba_scan_bwd`` backward; the
+    last state is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bc, Cc, D):
+        y, last = mamba_scan(u, dt, A, Bc, Cc, D)
+        ctx.save_for_backward(u, dt, A, Bc, Cc, D)
+        ctx.mark_non_differentiable(last)
+        ctx.set_materialize_grads(False)
+        return y, last
+
+    @staticmethod
+    def backward(ctx, dy, dlast):
+        if dlast is not None:
+            raise RuntimeError("the scan's last state has no gradient")
+        if dy is None:
+            return (None,) * 6
+        return mamba_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def mamba_scan_train(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mamba_scan`` from zeros with a gradient: (y, last state)."""
+    return _MambaScan.apply(u, dt, A, Bc, Cc, D)

@@ -21,12 +21,23 @@ explicit positions, ``flash_attention`` the plain (causal) ones;
 products.  ``route_launches`` counts the attention calls again by the
 kernel that took them (``flash_attention.route``), ``gmm_route_launches``
 the grouped products by theirs (``moe_gmm.route``); ``reset_launches``
-zeroes all three.
+zeroes all three.  ``attention_bwd`` and ``mamba_scan_bwd`` count the
+launches of the two backward kernels (the training path's gradients).
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
 the JAX package's ``ops``; ``grouped_matmul`` (ragged groups) is always
 the plain version, as there.
+
+Gradients: a kernel call that needs one (grad mode on and an input that
+requires grad) goes through the autograd Function of its kernel, whose
+backward is a kernel too: attention without explicit positions
+(``flash_attention.attention_train``) and the scan from zeros
+(``mamba_scan.mamba_scan_train``).  Every other kernel call that needs a
+gradient raises (``no_backward``) before its inputs are checked: its
+launcher writes outputs that autograd cannot see, which would silently
+send no gradient into its inputs.  The plain versions are differentiated
+by autograd as they stand.
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ _FORCE: str | None = None  # None = by device, 'cuda' | 'ref'
 launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
                              "min_cover_lambdas": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
-                             "mamba_step": 0, "grouped_matmul": 0}
+                             "mamba_step": 0, "grouped_matmul": 0,
+                             "attention_bwd": 0, "mamba_scan_bwd": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "general": 0}
 gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
@@ -64,6 +76,23 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` (None skipped) requires
+    grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(name: str, *tensors) -> None:
+    """Raise where a call of kernel ``name`` would need a gradient: it has
+    no backward kernel."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: no backward kernel for this call, and an input "
+            f"requires grad; run it under torch.no_grad(), or on the plain "
+            f"versions (CPU tensors, or ops.force('ref'))")
+
+
 def check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with
     one of ``dtypes`` and the given shape: what a kernel's launcher takes."""
@@ -86,21 +115,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               k_pos: torch.Tensor | None = None,
               scale: float | None = None) -> torch.Tensor:
     """GQA attention, (B, Sq, H, hd) x (B, Sk, KV, hd[_v]) -> (B, Sq, H,
-    hd_v): the CUDA kernel for a CUDA ``q``, else ``ref.attention_ref``."""
+    hd_v): the CUDA kernel for a CUDA ``q``, else ``ref.attention_ref``;
+    where a gradient is needed, the kernel's autograd Function."""
     if use_kernel(q):
-        from .flash_attention import flash_attention  # imports ops
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               q_pos=q_pos, k_pos=k_pos, scale=scale)
+        from . import flash_attention as fa  # imports ops
+        if needs_grad(q, k, v):
+            return fa.attention_train(q, k, v, causal=causal, window=window,
+                                      q_pos=q_pos, k_pos=k_pos, scale=scale)
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_pos=q_pos, k_pos=k_pos, scale=scale)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
                              q_pos=q_pos, k_pos=k_pos, scale=scale)
 
 
 def mamba_scan(u, dt, A, Bc, Cc, D, init_state=None):
     """Mamba-1 selective scan -> (y, last state): the CUDA kernel for a
-    CUDA ``u``, else ``ref.mamba_scan_ref``."""
+    CUDA ``u``, else ``ref.mamba_scan_ref``; where a gradient is needed
+    (from zeros only), the kernel's autograd Function."""
     if use_kernel(u):
-        from .mamba_scan import mamba_scan as kernel_scan  # imports ops
-        return kernel_scan(u, dt, A, Bc, Cc, D, init_state=init_state)
+        from . import mamba_scan as ms  # imports ops
+        if needs_grad(u, dt, A, Bc, Cc, D, init_state):
+            if init_state is not None:
+                no_backward("mamba_scan from a state", u, dt, A, Bc, Cc, D,
+                            init_state)
+            return ms.mamba_scan_train(u, dt, A, Bc, Cc, D)
+        return ms.mamba_scan(u, dt, A, Bc, Cc, D, init_state=init_state)
     return ref.mamba_scan_ref(u, dt, A, Bc, Cc, D, init_state=init_state)
 
 
@@ -119,5 +158,6 @@ def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
     as exact zeros (and the kernel skips their work)."""
     if use_kernel(x):
         from .moe_gmm import grouped_matmul as kernel_gmm  # imports ops
+        no_backward("grouped_matmul", x, w)
         return kernel_gmm(x, w, capacity, fills)
     return ref.grouped_matmul_aligned_ref(x, w, capacity, fills)

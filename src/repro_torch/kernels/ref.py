@@ -6,6 +6,9 @@ wrappers, ``ops.attention``, ``ops.mamba_scan``,
 (the tests), and the smoke run on the card holds each kernel against them
 on the same inputs.  The attention, scan and grouped-matmul versions are
 the twins of the JAX package's jnp references, argument for argument.
+``attention_bwd_ref`` and ``mamba_scan_bwd_ref`` spell out the backward
+kernels' arithmetic for the tests (no path runs them: the plain versions'
+gradients come from autograd).
 """
 from __future__ import annotations
 
@@ -137,13 +140,105 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     uf, dtf = u.float(), dt.float()
     dA = torch.exp(dtf[..., None] * A[None, None])                # (B,S,di,N)
     dBu = (dtf * uf)[..., None] * Bc.float()[:, :, None, :]       # (B,S,di,N)
-    Cf = Cc.float()
+    # per-step views by unbind: under autograd their gradients gather in
+    # one stack, where indexing step t would scatter each into a zero
+    # tensor of the full (B, S, di, N) shape
+    dAs, dBus, Cs = dA.unbind(1), dBu.unbind(1), Cc.float().unbind(1)
     ys = []
     for t in range(S):
-        h = dA[:, t] * h + dBu[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+        h = dAs[t] * h + dBus[t]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cs[t]))
     y = torch.stack(ys, dim=1) + uf * D[None, None]
     return y.to(u.dtype), h
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                      window: int, scale: float
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of ``csrc/attention_bwd.cu`` in plain PyTorch, for
+    the tests only: (dq, dk, dv) of ``attention_ref`` without positions,
+    from its output ``o`` and the output's gradient ``do``.  In f32: the
+    row log-sum-exp of the masked scores, ``P = exp(S - lse)`` (masked
+    pairs exactly 0), ``delta = rowsum(do * o)``, ``dS = P * (dP -
+    delta)``; dK and dV summed over each kv head's G query heads.  The
+    gradients come out in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.reshape(B, Sq, KV, G, hd).float()
+    dof = do.reshape(B, Sq, KV, G, -1).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live = live & (qp >= kp)
+    if window:
+        live = live & (qp - kp < window)
+    s = torch.where(live, s, -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = (dof * o.reshape(B, Sq, KV, G, -1).float()).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dof)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def mamba_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor, chunk: int = 16) -> tuple:
+    """The arithmetic of ``csrc/mamba_scan_bwd.cu`` in plain PyTorch, for
+    the tests only: the gradients (du, ddt, dA, dBc, dCc, dD) of
+    ``mamba_scan_ref`` from zeros given ``dy``, in f32.  The recurrence runs
+    forward keeping the state at every ``chunk`` boundary; then each chunk,
+    last first, recomputes its states from its checkpoint and walks its
+    steps backwards carrying ``g = dL/dh_t = dy_t C_t + exp(dt_{t+1} A)
+    g_{t+1}``, with ``exp(dt_t A) h_{t-1}`` taken as ``h_t - dt_t u_t
+    B_t``.  du, ddt, dBc, dCc come out in u's dtype, dA and dD in f32."""
+    Bn, S, di = u.shape
+    uf, dtf, dyf = u.float(), dt.float(), dy.float()
+    Bf, Cf = Bc.float(), Cc.float()
+    x = dtf * uf                                               # (B, S, di)
+
+    def step(h, t):
+        return (torch.exp(dtf[:, t, :, None] * A) * h
+                + x[:, t, :, None] * Bf[:, t, None, :])
+    h = torch.zeros((Bn, di, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    starts = list(range(0, S, chunk))
+    ckpt = []
+    for c0 in starts:
+        ckpt.append(h)
+        for t in range(c0, min(c0 + chunk, S)):
+            h = step(h, t)
+    ag = torch.zeros_like(h)
+    dA = torch.zeros_like(A)
+    du, ddt = torch.zeros_like(uf), torch.zeros_like(uf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    for c0, h in reversed(list(zip(starts, ckpt))):
+        hs = []
+        for t in range(c0, min(c0 + chunk, S)):
+            h = step(h, t)
+            hs.append(h)
+        for t in reversed(range(c0, min(c0 + chunk, S))):
+            g = dyf[:, t, :, None] * Cf[:, t, None, :] + ag
+            hn = hs[t - c0]
+            dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hn)
+            dB[:, t] = torch.einsum("bdn,bd->bn", g, x[:, t])
+            s1 = (g * Bf[:, t, None, :]).sum(-1)
+            gha = g * (hn - x[:, t, :, None] * Bf[:, t, None, :])
+            du[:, t] = dyf[:, t] * D + s1 * dtf[:, t]
+            ddt[:, t] = s1 * uf[:, t] + (gha * A).sum(-1)
+            dA = dA + (gha * dtf[:, t, :, None]).sum(0)
+            ag = torch.exp(dtf[:, t, :, None] * A) * g
+    dD = (dyf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddt.to(u.dtype), dA, dB.to(u.dtype),
+            dC.to(u.dtype), dD)
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,

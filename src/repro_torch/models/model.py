@@ -15,8 +15,8 @@ self-attention sub-layer (``segments.<i>.<j>.self.<k>.attn.wq``).
 layout.  Parameters are initialized from an explicit
 ``torch.Generator`` with the JAX package's shapes, dtypes and constants
 (the random numbers differ: a test hands both packages the same weights
-through the converter).  Nothing here has a backward kernel yet, so
-parameters do not require grad.
+through the converter).  Parameters do not require grad: serving never
+takes a gradient, and training (``train.step``) turns them on.
 
 Caches are, per segment, a list of per-layer dicts: ``k``/``v`` (B, L,
 KV, hd) for GQA attention, ``ckv`` (B, L, kv_lora_rank) and ``kr`` (B, L,
@@ -30,8 +30,15 @@ values.
 
 The multi-token prediction module (``mtp``, one entry per depth: ``proj``,
 ``ln`` and a one-layer dense ``block`` with the last segment's attention)
-has the JAX package's weights and ``_mtp_loss``, forward only; serving
-does not run it.
+has the JAX package's weights and ``_mtp_loss``; serving does not run it,
+``loss`` does.
+
+``loss`` is the JAX package's training loss.  Where a gradient is taken,
+``cfg.remat`` recomputes each layer in the backward pass as the JAX
+package's ``jax.checkpoint`` does: ``"full"`` saves only the layer's input
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also the outputs
+of its matrix products (selective checkpointing), ``"none"`` keeps every
+activation.
 
 MoE layers route through the model's ``PlacementPlan`` (default: the
 one-shard round robin).  The FFN's ``mode`` follows the JAX package's
@@ -42,10 +49,12 @@ reference (``models.moe``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .config import ModelConfig, Segment
@@ -211,6 +220,17 @@ def _mtp_segment(cfg: ModelConfig) -> Segment:
     return Segment("dense", 1, attn=cfg.segments[-1].attn)
 
 
+# the outputs ``remat="dots"`` saves: the matrix products'
+# (jax.checkpoint_policies.checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
@@ -333,23 +353,60 @@ class Model(nn.Module):
         x = self._embed_inputs(batch)
         img = self._image_embeds(batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat != "none" and torch.is_grad_enabled()
         for seg, layers in zip(self.cfg.segments, self.segments):
             for lp in layers:
-                x, aux = self._block(lp, x, seg, mode, img)
+                if remat and any(p.requires_grad for p in lp.parameters()):
+                    x, aux = self._remat_block(lp, x, seg, mode, img)
+                else:
+                    x, aux = self._block(lp, x, seg, mode, img)
                 if aux is not None:
                     aux_total = aux_total + aux
         return x, aux_total
 
-    def loss(self, batch: dict):
-        raise NotImplementedError(
-            "Model.loss (backward kernels): ROADMAP Queue 1, \"Loss and "
-            "training\"")
+    def _remat_block(self, lp, x: torch.Tensor, seg: Segment, mode: str,
+                     img: torch.Tensor | None):
+        """``_block`` recomputed in the backward pass: all of it
+        (``remat="full"``) or all but its matrix products (``"dots"``)."""
+        kw = {}
+        if self.cfg.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        elif self.cfg.remat != "full":
+            raise ValueError(f"unknown remat {self.cfg.remat!r}")
+        return ckpt.checkpoint(self._block, lp, x, seg, mode, img,
+                               use_reentrant=False, **kw)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The JAX package's training loss: the mean next-token
+        cross-entropy (f32; frame classification against ``labels`` as
+        they stand for a frame-input or non-causal model), plus
+        ``router_aux_coef`` times the MoE layers' load-balancing loss, plus
+        ``mtp_loss_weight`` times the multi-token prediction loss.  Returns
+        (total, metrics: ``ce``, ``aux``, ``mtp_ce`` with MTP, ``loss``)."""
+        cfg = self.cfg
+        x, aux = self.forward(batch, mode="a2a")
+        logits = self.logits_fn(x)
+        labels = batch["labels"]
+        if cfg.frame_input or not all(s.causal for s in cfg.segments):
+            tgt, lg = labels, logits
+        else:
+            tgt, lg = labels[:, 1:], logits[:, :-1]
+        ce = _xent(lg, tgt)
+        total = ce + cfg.router_aux_coef * aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth:
+            mtp_ce = self._mtp_loss(x, batch)
+            total = total + cfg.mtp_loss_weight * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = total
+        return total, metrics
 
     def _mtp_loss(self, x: torch.Tensor, batch: dict) -> torch.Tensor:
-        """DeepSeek-V3 multi-token prediction, forward only: each depth d
-        predicts token t + 2 + d from (h_t, embed(token_{t+1+d})); the mean
-        over depths of its cross-entropy (f32).  ``x``: the final hidden
-        states of ``forward``."""
+        """DeepSeek-V3 multi-token prediction: each depth d predicts token
+        t + 2 + d from (h_t, embed(token_{t+1+d})); the mean over depths of
+        its cross-entropy (f32).  ``x``: the final hidden states of
+        ``forward``."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         total = torch.zeros((), dtype=torch.float32, device=x.device)

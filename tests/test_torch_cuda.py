@@ -869,3 +869,195 @@ def test_schedule_windows_on_cuda_match_numpy(cuda, monkeypatch, seed):
     b = list_sched.hill_climb(s.copy(), seed=seed, backend="numpy")
     assert a.current_cost() == b.current_cost()
     assert a.assign == b.assign and a.comms == b.comms
+
+
+# ------------------------------------------------------ backward kernels
+# max |kernel - reference| over the largest |reference| of each gradient:
+# bf16 rounds P and dS (attention) and the outputs to bf16 (8 bits); f32
+# runs 3xTF32 products and sums in another order (attention), or the same
+# recurrence with ex2.approx exps (scan)
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _grad_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window): ragged tiles, GQA, windows that
+# end inside a tile, non-causal with Sq != Sk, and hymba's shapes
+BWD_ATTN_CASES = [
+    (2, 100, 100, 6, 2, 64, True, 0),
+    (2, 150, 150, 5, 1, 64, True, 40),
+    (1, 77, 130, 4, 4, 128, False, 0),
+    (2, 130, 130, 4, 2, 128, True, 0),
+    (1, 200, 200, 8, 2, 128, False, 33),
+    (4, 2048, 2048, 25, 5, 64, True, 0),
+    (4, 2048, 2048, 25, 5, 64, True, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", BWD_ATTN_CASES)
+def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
+                                                    H, KV, hd, causal,
+                                                    window, dtype):
+    """The kernel's (dq, dk, dv) against ``attention_bwd_ref`` on the same
+    o and do, and against autograd of ``attention_ref``; and the autograd
+    Function's gradients (forward on its usual route) against autograd of
+    the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + H + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    do = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref = ref.attention_ref(*leaves, **kw)
+    o_ref.backward(do)
+    want = [t.grad for t in leaves]
+    o = ops.attention(q, k, v, **kw)
+    from repro_torch.kernels.flash_attention import attention_bwd
+    ops.reset_launches()
+    got = attention_bwd(q, k, v, o, do, scale=hd ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["attention_bwd"] == 1
+    plain = ref.attention_bwd_ref(q, k, v, o, do, scale=hd ** -0.5, **kw)
+    tol = GRAD_TOL[dtype]
+    for name, a, b, c in zip("qkv", got, plain, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert _grad_gap(a, b) <= tol, (name, _grad_gap(a, b))
+        assert _grad_gap(a, c) <= tol, (name, _grad_gap(a, c))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    ops.attention(*leaves, **kw).backward(do)
+    assert ops.launches["attention_bwd"] == 1
+    for t, c in zip(leaves, want):
+        assert _grad_gap(t.grad, c) <= tol
+
+
+# (B, S, di, N): ragged chunks and channel blocks, every state size, and
+# hymba's shape
+BWD_SCAN_CASES = [
+    (2, 37, 70, 4), (1, 100, 64, 16), (2, 16, 33, 16),
+    *[(2, 45, 40, n) for n in (1, 2, 8)],
+    (4, 2048, 3200, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N", BWD_SCAN_CASES)
+def test_scan_bwd_kernel_matches_plain_version(cuda, B, S, di, N, dtype):
+    """The scan's gradients through the autograd Function against autograd
+    of ``mamba_scan_ref``, and the kernel against ``mamba_scan_bwd_ref``;
+    the model's dt (softplus) and A (-1 .. -N)."""
+    u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di,
+                                       "large")
+    dt = (dt / 4).to(dtype)
+    dy = torch.randn((B, S, di), device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (u, dt, A, Bc, Cc, D)]
+    y_ref, _ = ref.mamba_scan_ref(*leaves)
+    y_ref.backward(dy)
+    want = [t.grad for t in leaves]
+    leaves = [t.clone().requires_grad_() for t in (u, dt, A, Bc, Cc, D)]
+    ops.reset_launches()
+    y, _ = ops.mamba_scan(*leaves)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert ops.launches["mamba_scan"] == 1
+    assert ops.launches["mamba_scan_bwd"] == 1
+    tol = GRAD_TOL[dtype]
+    for i, (t, c) in enumerate(zip(leaves, want)):
+        assert t.grad.dtype == c.dtype
+        assert _grad_gap(t.grad, c) <= tol, (i, _grad_gap(t.grad, c))
+    if S <= 100:
+        from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+        got = mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy)
+        plain = ref.mamba_scan_bwd_ref(u, dt, A, Bc, Cc, D, dy)
+        for i, (a, b) in enumerate(zip(got, plain)):
+            assert _grad_gap(a, b) <= tol, (i, _grad_gap(a, b))
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad(cuda):
+    u, dt, A, Bc, Cc, D = _scan_inputs(1, 8, 32, 4, torch.float32, cuda, 0)
+    h0 = torch.zeros((1, 32, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.mamba_scan(u.requires_grad_(), dt, A, Bc, Cc, D, init_state=h0)
+    q = torch.randn((1, 20, 2, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 20, 1, 64), device=cuda)
+    pos = torch.arange(20, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(RuntimeError, match="explicit positions"):
+        ops.attention(q, k, k, q_pos=pos, k_pos=pos)
+    q32 = torch.randn((1, 20, 2, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="head dims"):
+        ops.attention(q32, q32[:, :, :1].detach(), q32[:, :, :1].detach())
+    x = torch.randn((2 * 4, 16), device=cuda, requires_grad=True)
+    w = torch.randn((2, 16, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.grouped_matmul_aligned(x, w, 4)
+    with torch.no_grad():      # no gradient needed: the kernels run
+        ops.grouped_matmul_aligned(x, w, 4)
+        ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
+
+
+def _train_small(arch: str, dtype: str):
+    """Reduced config with head dim 64 (the backward kernel's)."""
+    return reduce_config(get_config(arch)).with_(dtype=dtype, head_dim=64,
+                                                 remat="full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "smollm-135m"])
+def test_train_step_kernel_path_matches_plain_path(cuda, no_tf32, arch):
+    """One f32 training step of a reduced model through the kernels and
+    through the plain versions, from the same weights: equal losses,
+    gradients within GRAD_TOL, and the launches the path makes.  After
+    the AdamW step (whose first update is about lr * sign(grad)) the
+    parameters differ by more than lr / 10 only where a tiny gradient's
+    sign differs: in at most 5 elements (an H100 read 0 for hymba, 1 for
+    smollm)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    cfg = _train_small(arch, "float32")
+    batch = batch_to(SyntheticTokenStream(cfg, DataConfig(2, 80)).next_batch(),
+                     cuda)
+    grads, losses, params = {}, {}, {}
+    lr = 1e-3
+    for which in ("cuda", "ref"):
+        ts = build_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=1),
+                              device=cuda)
+        st = ts.init_state(5)
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            loss, _ = ts.model.loss(batch)
+            loss.backward()
+        finally:
+            ops.force(None)
+        counts = dict(ops.launches)
+        losses[which] = float(loss.detach())
+        grads[which] = {n: p.grad.clone() for n, p in st["params"].items()}
+        from repro_torch.optim.adamw import apply_updates
+        apply_updates(ts.opt_cfg, st["opt"], grads[which], st["params"])
+        params[which] = {n: p.detach().clone()
+                         for n, p in st["params"].items()}
+        if which == "cuda":
+            n_attn = cfg.n_layers
+            n_scan = sum(s.n_layers for s in cfg.segments
+                         if s.kind in ("hybrid", "mamba"))
+            assert counts["attention_bwd"] == n_attn
+            assert counts["mamba_scan_bwd"] == n_scan
+            assert (counts["flash_attention"] + counts["attention_masked"]
+                    == 2 * n_attn)                           # and recompute
+            assert counts["mamba_scan"] == 2 * n_scan        # and recompute
+    assert abs(losses["cuda"] - losses["ref"]) <= 1e-5 * abs(losses["ref"])
+    for n, g in grads["ref"].items():
+        assert _grad_gap(grads["cuda"][n], g) <= GRAD_TOL[torch.float32], n
+    off = sum(int(((params["cuda"][n] - p).abs() > lr / 10).sum())
+              for n, p in params["ref"].items())
+    total = sum(p.numel() for p in params["ref"].values())
+    assert off <= 5, (off, total)

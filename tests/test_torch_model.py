@@ -231,12 +231,6 @@ def test_unknown_segment_kind_raises():
         Model(bad, device="cpu")
 
 
-def test_model_loss_waits_for_training():
-    model = Model(reduce_config(get_config("smollm-135m")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss({})
-
-
 def test_cuda_default_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "core.schedule.engine", "core.schedule.reference",
                  "core.schedule.exact", "core.schedule.list_sched",
                  "core.schedule.replication", "core.schedule.multilevel",
-                 "core.frontier.schedule_front", "datagen.dags"):
+                 "core.frontier.schedule_front", "datagen.dags",
+                 "optim.adamw", "data.pipeline", "checkpoint.checkpointer",
+                 "train.step", "runtime.trainer", "launch.train"):
         assert f"repro_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 26          # every module was imported
     assert got["bad"] == [], f"the port pulled in {got['bad']}"
