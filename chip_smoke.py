@@ -13,8 +13,9 @@ the card (``kernels.front_pass.DeviceScheduleWindows``),
 ``hubert-xlarge``'s encoder (``Model.forward``, ``logits_fn``),
 serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths,
 serving ``llama-3.2-vision-11b`` (cross-attention) at full width and
-depth, and training ``hymba-1.5b`` at full width and depth through the
-backward kernels (``train.step``).  Phases,
+depth, training ``hymba-1.5b`` at full width and depth through the
+backward kernels (``train.step``), and training ``olmoe-1b-7b`` at full
+width, cut in depth, through the grouped matmul's backward.  Phases,
 in order; any failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -179,9 +180,39 @@ in order; any failure propagates and the exit code is nonzero:
    (at most 1e-5 of them more than lr / 10 apart: a first AdamW step
    moves each parameter by about lr times its gradient's sign, which the
    two paths share except where a gradient is near 0; an H100 read 2,998
-   of 1.66e9).
+   of 1.66e9);
+14. training ``olmoe-1b-7b``.  (a) The grouped matmul's backward kernels
+   (``moe_gmm_bwd.cu``: dx and dw) against the plain backward
+   (``grouped_matmul_aligned_bwd_ref``) and autograd of the plain forward
+   at olmoe's training shapes -- 64 slots of C = 2560, gate/up (2048 ->
+   1024) and down (1024 -> 2048), at the fills of 4 x 2048 tokens routed
+   top-8 uniformly and with every row live -- in bf16 and f32 within
+   ``GRAD_TOL``, dx and dw bit-equal over two runs; dx and dw timed apart
+   and together beside their bounds (2 x live rows x D x F FLOPs a product
+   at 989 or 165 TFLOP/s, or the bytes), the plain backward and
+   ``torch.bmm`` on the full buffers (dY W^T, X^T dY).  Then the attention
+   backward at olmoe's (4, 2048², 16/16, 128), causal, as in 13a.  (b)
+   olmoe-1b-7b at its published widths, depth cut to
+   ``OLMOE_TRAIN_LAYERS`` of 16 layers: five bf16 steps as in 13b, each
+   step's launches exactly as expected (per layer 2 ``flash_attention``
+   on ``prefill_tc``, 1 ``attention_bwd``, 6 ``grouped_matmul`` on
+   ``gmm_tc``, 3 ``grouped_matmul_bwd``), every layer's recompute routed
+   as its forward (the routers recorded on the card), then the split
+   step; the choices each layer dropped in the first step, and the MoE
+   gathers at the routing of its layers that dropped the fewest and the
+   most (``check_gathers``):
+   ``sort_dispatch`` and ``combine_from_buffers`` whole, their gathers as
+   embedding lookups and as indexing, outputs bit-equal, gradients
+   within ``GRAD_TOL``, each timed with and without the backward.  (c)
+   The f32 model at ``OLMOE_GATE_LAYERS`` layers, 2 x 2048
+   tokens: the loss and every gradient through the kernels and through
+   the plain versions, the plain run's routers replaying the kernel run's
+   choices (``RouterLog``'s replay; a near-tie would otherwise send a
+   token's gradient to another expert): losses within 1e-5 relative, each
+   leaf within ``GRAD_TOL`` f32, the worst leaf and the choices the plain
+   routers would have flipped reported.
 
-Launch counts are reset just before each driven run (phases 3-8, 10-13)
+Launch counts are reset just before each driven run (phases 3-8, 10-14)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
@@ -206,11 +237,15 @@ launches of the f32 checks of phases 7 and 11; the scan ``mamba_scan`` (from zer
 commonest shape; ``front_find`` (the device pass's finds, which also take
 the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
 FM case nearest the path's median count of active blocks, with
-``path_ms``, its device time per launch in phase 3b's profile.  The two
-backward kernels (``attention_bwd``, ``mamba_scan_bwd``) carry phase
-13b's launches and phase 13a's times (bf16, the windowed attention call
-first, the others beside it); the forward kernels also carry their
-training launches (``train_launches``).  A
+``path_ms``, its device time per launch in phase 3b's profile.  The
+attention and scan backward kernels (``attention_bwd``,
+``mamba_scan_bwd``) carry the launches of phases 13b and 14b and phase
+13a's times (bf16, the windowed attention call first, the others and
+olmoe's head dim 128 from phase 14a beside it); ``grouped_matmul_bwd``
+carries phase 14b's launches and phase 14a's times (bf16 gate/up at the
+fills, dx and dw apart beside the call; the down product, f32 and every
+row live beside it); the forward kernels also carry their training
+launches (``train_launches``).  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -1380,19 +1415,35 @@ def moe_layer_check(model, prompts) -> list:
 
 class RouterLog:
     """While active, records the top-k experts of every router call of the
-    MoE slot paths (``models.moe.router_topk``), on the host: the routing
-    of a run, to count where two runs route apart."""
+    MoE slot paths (``models.moe.router_topk``), on the device (no read
+    that would stall the host): the routing of a run, to count where two
+    runs route apart.  With
+    ``replay`` (another run's log), call i routes to that log's call i
+    instead, weighted by this call's own probabilities (the router's
+    arithmetic, ``moe.router_topk``, with the experts given), while its
+    own top k is still recorded."""
 
-    def __init__(self) -> None:
+    def __init__(self, replay: "RouterLog | None" = None) -> None:
         self.calls: list = []
+        self.replay = replay
 
     def __enter__(self):
+        import torch
+        import torch.nn.functional as F
         from repro_torch.models import moe
         self._real = moe.router_topk
 
         def topk(router_w, x, cfg):
             w, idx, aux = self._real(router_w, x, cfg)
-            self.calls.append(idx.cpu())
+            own = idx
+            if self.replay is not None:
+                idx = self.replay.calls[len(self.calls)]
+                probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+                w = probs.gather(-1, idx)
+                w = (w / w.sum(dim=-1, keepdim=True)).to(x.dtype)
+                ce = F.one_hot(idx, cfg.n_experts).float().sum(1).mean(0)
+                aux = cfg.n_experts * (probs.mean(dim=0) * ce).sum()
+            self.calls.append(own.clone())
             return w, idx, aux
         moe.router_topk = topk
         return self
@@ -2240,11 +2291,12 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
 # products summed in another order (attention), ex2.approx exps in the
 # scan's recurrence -- near f32 accuracy, a few 1e-6 of the largest entry
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd")
+BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd")
 # what each backward kernel stands for: the gradient of the Pallas kernel,
 # which the JAX package cannot differentiate (ROADMAP Queue 3 g)
 BWD_REPLACES = {"attention_bwd": "src/repro/kernels/flash_attention.py:25",
-                "mamba_scan_bwd": "src/repro/kernels/mamba_scan.py:24"}
+                "mamba_scan_bwd": "src/repro/kernels/mamba_scan.py:24",
+                "grouped_matmul_bwd": "src/repro/kernels/moe_gmm.py:23"}
 # (name, B, S, H, KV, hd, window): hymba's training attention, causal
 BWD_ATTN_CASES = [("train_global", 4, 2048, 25, 5, 64, 0),
                   ("train_window", 4, 2048, 25, 5, 64, 1024)]
@@ -2407,7 +2459,8 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
 def expected_train_launches(cfg) -> dict:
     """One training step's launches with remat "full": every layer's
     forward kernels twice (the forward and its recompute in the backward
-    pass), one backward kernel each; nothing else."""
+    pass), one backward kernel each -- an MoE layer's three grouped
+    products twice and one backward call each; nothing else."""
     from repro_torch.kernels import ops
     want = {c: 0 for c in ops.launches}
     for seg in cfg.segments:
@@ -2419,6 +2472,9 @@ def expected_train_launches(cfg) -> dict:
         if seg.kind in ("mamba", "hybrid"):
             want["mamba_scan"] += 2 * n
             want["mamba_scan_bwd"] += n
+        if seg.kind == "moe":
+            want["grouped_matmul"] += 6 * n
+            want["grouped_matmul_bwd"] += 3 * n
     return want
 
 
@@ -2450,6 +2506,8 @@ def train_step_split(ts, state, batch) -> dict:
              "scan_fwd": ("scan_kernel",),
              "attention_bwd": ("dq_kernel", "dkv_kernel"),
              "scan_bwd": ("scan_bwd_kernel", "finish_kernel"),
+             "gmm_fwd": ("gmm_tc_kernel", "gmm_kernel", "gmv_kernel"),
+             "gmm_bwd": ("dx_kernel", "dw_kernel"),
              "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_")}
     by = {k: 0.0 for k in kinds}
     by["other"] = 0.0
@@ -2471,6 +2529,94 @@ def train_step_split(ts, state, batch) -> dict:
             "not measured",
             "top": [[e.key[:60], e.count, sig(e.self_device_time_total / 1e3)]
                     for e in top]}
+
+
+def train_steps(cfg, opt, tag: str) -> dict:
+    """``TRAIN_STEPS`` bf16 training steps of ``cfg`` at ``TRAIN_B`` x
+    ``TRAIN_S`` tokens from ``SyntheticTokenStream(seed=0)``, the step run
+    directly (not through ``Trainer.run``'s retries): losses (finite),
+    seconds per step, peak memory, each step's launches exactly as
+    ``expected_train_launches`` says (all attention on ``prefill_tc``, all
+    grouped products on ``gmm_tc``); then one more step split
+    (``train_step_split``).  Each step's MoE routers are recorded on the
+    card, and the recompute of every MoE layer (remat "full") must route
+    as its forward did: ``torch.utils.checkpoint`` compares only the
+    recomputed tensors' shapes.  A model with experts also returns the
+    first step's routing (``routing``: each MoE layer's (T, k) experts,
+    on the card)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import batch_to, build_train_step
+    ts = build_train_step(cfg, opt, device="cuda")
+    state = ts.init_state(0)
+    n_params = sum(p.numel() for p in state["params"].values())
+    stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    want = expected_train_launches(cfg)
+    n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, per_step = [], [], []
+    log_r = RouterLog()
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS):
+        before = dict(ops.launches)
+        batch = batch_to(stream.next_batch(), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with log_r:
+            state, met = ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        per_step.append({c: ops.launches[c] - before[c] for c in before})
+        # the forward's layers 0..L-1, then the recompute's L-1..0
+        calls, log_r.calls = log_r.calls, []
+        if step == 0:
+            routing = calls[:n_moe]
+        if len(calls) != 2 * n_moe or any(
+                not torch.equal(calls[i], calls[-1 - i])
+                for i in range(n_moe)):
+            raise AssertionError(f"train step {step}: the recompute routed "
+                                 f"apart from the forward ({len(calls)} "
+                                 f"router calls)")
+    launches = dict(ops.launches)
+    routes = dict(ops.route_launches)
+    gmm_routes = dict(ops.gmm_route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"train step {i} launched {got}, expected "
+                                 f"{want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses {losses}")
+    n_attn = TRAIN_STEPS * (want["flash_attention"]
+                            + want["attention_masked"])
+    n_gmm = TRAIN_STEPS * want["grouped_matmul"]
+    if routes != {"prefill_tc": n_attn, "decode_split": 0, "general": 0} \
+            or gmm_routes != {"gmv": 0, "gmm_tc": n_gmm, "general": 0}:
+        raise AssertionError(f"bf16 training took routes {routes}, "
+                             f"grouped products {gmm_routes}")
+    med = float(np.median(seconds[1:]))
+    log(f"[{tag}] train {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} parameters, bf16, remat "
+        f"{cfg.remat}): {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
+        f"tokens, losses {losses}, seconds {seconds}; median of steps 2-"
+        f"{TRAIN_STEPS} {med:.6g} s/step, {TRAIN_B * TRAIN_S / med:.6g} "
+        f"tokens/s; max_memory_allocated {peak} B; launches per step "
+        f"{per_step[0]}; routes {routes}, grouped products {gmm_routes}")
+    batch = batch_to(stream.next_batch(), "cuda")
+    split = train_step_split(ts, state, batch)
+    log(f"[{tag}] one more step, split: {json.dumps(split)}")
+    out = dict(losses=[sig(x) for x in losses],
+               step_s=[sig(x) for x in seconds], median_step_s=sig(med),
+               tokens_per_s=sig(TRAIN_B * TRAIN_S / med), peak_B=peak,
+               n_params=n_params, launches=launches,
+               per_step_launches=per_step[0], routes=routes,
+               gmm_routes=gmm_routes, split=split)
+    if n_moe:
+        out["routing"] = routing
+    return out
 
 
 def train_phase(clock_hz: float, sms: int) -> dict:
@@ -2496,58 +2642,7 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     # 13b: hymba-1.5b at full width and depth, bf16, remat "full"
     cfg = get_config("hymba-1.5b")
     opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
-    ts = build_train_step(cfg, opt, device="cuda")
-    state = ts.init_state(0)
-    n_params = sum(p.numel() for p in state["params"].values())
-    stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
-    want = expected_train_launches(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, seconds, per_step = [], [], []
-    ops.reset_launches()
-    for step in range(TRAIN_STEPS):
-        before = dict(ops.launches)
-        batch = batch_to(stream.next_batch(), "cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, met = ts.step_fn(state, batch)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        losses.append(float(met["loss"]))
-        per_step.append({c: ops.launches[c] - before[c] for c in before})
-    launches = dict(ops.launches)
-    routes = dict(ops.route_launches)
-    gmm_routes = dict(ops.gmm_route_launches)
-    peak = torch.cuda.max_memory_allocated()
-    for i, got in enumerate(per_step):
-        if got != want:
-            raise AssertionError(f"train step {i} launched {got}, expected "
-                                 f"{want}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training losses {losses}")
-    n_attn = TRAIN_STEPS * (want["flash_attention"]
-                            + want["attention_masked"])
-    if routes != {"prefill_tc": n_attn, "decode_split": 0, "general": 0} \
-            or any(gmm_routes.values()):
-        raise AssertionError(f"bf16 training took routes {routes}, "
-                             f"grouped products {gmm_routes}")
-    med = float(np.median(seconds[1:]))
-    log(f"[13b] train {cfg.name} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params} parameters, bf16, remat "
-        f"{cfg.remat}): {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
-        f"tokens, losses {losses}, seconds {seconds}; median of steps 2-"
-        f"{TRAIN_STEPS} {med:.6g} s/step, {TRAIN_B * TRAIN_S / med:.6g} "
-        f"tokens/s; max_memory_allocated {peak} B; launches per step "
-        f"{per_step[0]}; routes {routes}")
-    batch = batch_to(stream.next_batch(), "cuda")
-    split = train_step_split(ts, state, batch)
-    log(f"[13b] one more step, split: {json.dumps(split)}")
-    out.update(losses=[sig(x) for x in losses],
-               step_s=[sig(x) for x in seconds], median_step_s=sig(med),
-               tokens_per_s=sig(TRAIN_B * TRAIN_S / med), peak_B=peak,
-               n_params=n_params, launches=launches,
-               per_step_launches=per_step[0], routes=routes, split=split)
-    del ts, state, met, batch
+    out.update(train_steps(cfg, opt, "13b"))
     torch.cuda.empty_cache()
 
     # 13c: the f32 model, one backward through the kernels and one through
@@ -2624,6 +2719,316 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     out["gate"] = {k: (sig(v) if isinstance(v, float) else v)
                    for k, v in gate.items()}
     del ts, state, params, start, after_k
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------ 14. training olmoe
+# olmoe-1b-7b at its published widths, cut in depth only: 9 of its 16 MoE
+# layers (3,982,137,344 parameters, 63.7 GB of training state at 16 B a
+# parameter -- bf16 parameters and gradients, f32 master, m and v; 10
+# layers, 70.4 GB, leave too little beside the logits and the MoE
+# buffers), and 2 in the f32 gate (20.9 GB of state)
+OLMOE_TRAIN_LAYERS = 9
+OLMOE_GATE_LAYERS = 2
+# (name, G, C, D, F, on the path, routed tokens): the expert products of
+# olmoe's training step, 64 slots of C = 2560 (``a2a_capacities`` at 4 x
+# 2048 tokens, top 8) -- gate/up (D 2048 -> F 1024) and down (1024 ->
+# 2048) -- at the fills of 4 x 2048 tokens routed top-8 uniformly at
+# random, and with every row live (None)
+BWD_GMM_CASES = [
+    ("train_gate_up_fill", 64, 2560, 2048, 1024, True, 8192),
+    ("train_down_fill", 64, 2560, 1024, 2048, True, 8192),
+    ("train_gate_up", 64, 2560, 2048, 1024, True, None),
+    ("train_down", 64, 2560, 1024, 2048, True, None),
+]
+# olmoe's training attention (B, S, H, KV, hd, window): causal, 16 heads
+# of 128, no GQA
+OLMOE_BWD_ATTN_CASE = ("olmoe_train", 4, 2048, 16, 16, 128, 0)
+
+
+def olmoe_config(layers: int, dtype: str = "bfloat16"):
+    """olmoe-1b-7b with only its depth cut: ``layers`` of its 16 MoE
+    layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Segment
+    return get_config("olmoe-1b-7b").with_(
+        segments=(Segment("moe", layers),), dtype=dtype)
+
+
+def check_gmm_bwd(case, dtype_name: str, seed: int) -> dict:
+    """The grouped-matmul backward kernels against the plain backward
+    (``grouped_matmul_aligned_bwd_ref``) and autograd of the plain forward
+    at one of olmoe's training shapes with the case's fills (dx rows past
+    a fill exact zeros); dx and dw bit-equal over two runs.  Timed: dx and
+    dw apart and together (one backward call), each beside its bound (2 x
+    live rows x D x F FLOPs at 989 or 165 TFLOP/s, or its bytes: the live
+    rows of x and dy and the live slots' weights read once, the outputs
+    written once), the plain backward, and ``torch.bmm`` on the full
+    buffers: dY W^T and X^T dY (``library_ms``, their sum)."""
+    import torch
+    from repro_torch.kernels import moe_gmm, ref
+    name, G, C, D, F, _, tokens = case
+    dtype = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    x, w, fills = gmm_inputs(case, dtype_name, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((G * C, F), generator=g, device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    ref.grouped_matmul_aligned_ref(*leaves, C, fills).backward(dy)
+    want = [t.grad for t in leaves]
+    del leaves
+    got = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills)
+    again = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills)
+    plain_out = ref.grouped_matmul_aligned_bwd_ref(x, w, dy, C, fills)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = {}
+    for n, a, b, c in zip(("dx", "dw"), got, plain_out, want):
+        errs[n] = grad_gap(a, b)
+        errs[f"{n}_autograd"] = grad_gap(a, c)
+    tol = GRAD_TOL[dtype_name]
+    if not repeat or max(errs.values()) > tol:
+        raise AssertionError(f"grouped_matmul backward {name} {dtype_name}: "
+                             f"{errs} past {tol}, or two runs differ "
+                             f"(bit-equal: {repeat})")
+    live_rows, live_slots = G * C, G
+    if fills is not None:
+        past = torch.arange(C, device=dev)[None, :] >= fills[:, None]
+        if not bool((got[0].view(G, C, D)[past] == 0).all()):
+            raise AssertionError(f"grouped_matmul backward {name} "
+                                 f"{dtype_name}: dx rows past the fills "
+                                 "are not exact zeros")
+        live_rows = int(fills.sum())
+        live_slots = int((fills > 0).sum())
+    del got, again, plain_out, want
+    esize = x.element_size()
+    rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else \
+        F32_TC_FLOPS_PER_S
+    flops = 2 * live_rows * D * F
+    extra = 0 if fills is None else 4 * G
+    terms = {"dx": esize * (live_rows * F + live_slots * D * F + G * C * D),
+             "dw": esize * (live_rows * (D + F) + G * D * F)}
+    bounds = {}
+    for n, nbytes in terms.items():
+        t_ops = flops / rate * 1e3
+        t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
+        bounds[n] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    xv, dyv = x.view(G, C, D), dy.view(G, C, F)
+
+    def run():
+        return moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills)
+
+    def run_dx():
+        return moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills, need_dw=False)
+
+    def run_dw():
+        return moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills, need_dx=False)
+
+    def plain():
+        return ref.grouped_matmul_aligned_bwd_ref(x, w, dy, C, fills)
+
+    def lib_dx():
+        return torch.bmm(dyv, w.transpose(1, 2))
+
+    def lib_dw():
+        return torch.bmm(xv.transpose(1, 2), dyv)
+    row = {"case": name, "dtype": dtype_name, "shape": [G, C, D, F],
+           "fill": fills is not None, "live_rows": live_rows,
+           "live_slots": live_slots, "max_abs_err": max(errs.values()),
+           "errs": errs, "tol": tol, "bit_equal": repeat,
+           "ms": graph_ms(run, 3, 2), "dx_ms": graph_ms(run_dx, 3, 2),
+           "dw_ms": graph_ms(run_dw, 3, 2), "call_ms": time_ms(run, 3),
+           "bound_ms": bounds["dx"][0] + bounds["dw"][0],
+           "dx_bound_ms": bounds["dx"][0], "dw_bound_ms": bounds["dw"][0],
+           "bound_by": bounds["dx"][1], "flops_per_product": flops,
+           "bytes": terms, "plain_ms": graph_ms(plain, 1, 2),
+           "library_dx_ms": graph_ms(lib_dx, 3, 2),
+           "library_dw_ms": graph_ms(lib_dw, 3, 2)}
+    row["library_ms"] = row["library_dx_ms"] + row["library_dw_ms"]
+    return row
+
+
+class _IndexingF:
+    """``torch.nn.functional`` with ``embedding`` as indexing,
+    ``weight[idx]``: set as ``models.moe.F``, the dispatch's and the
+    combine's gathers run as they did before they became embedding
+    lookups."""
+
+    def __getattr__(self, name):
+        import torch.nn.functional
+        return getattr(torch.nn.functional, name)
+
+    @staticmethod
+    def embedding(idx, weight, padding_idx=None):
+        return weight[idx]
+
+
+def check_gathers(slots, n_slots: int, capacity: int, seed: int) -> dict:
+    """``moe.sort_dispatch`` and ``moe.combine_from_buffers`` whole, bf16,
+    at one layer's routing of phase 14b (``slots``, (T, 8) experts; a
+    slot's choices past ``capacity`` dropped, their number reported): with
+    their gathers as embedding lookups, as the package runs them, and as
+    indexing (``_IndexingF``).  The outputs bit-equal, the gradients within
+    ``GRAD_TOL``; each function timed (eager, CUDA events) without and
+    with its backward.  Indexing's backward sums the gradients that one
+    row takes from many reads one after another: the dispatch's empty row
+    (every empty buffer row), the combine's row 0 (every dropped
+    choice)."""
+    import torch
+    from repro_torch.models import moe
+    T, k = slots.shape
+    D, dev = 2048, slots.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, rand=torch.randn):
+        return rand(shape, generator=g, device=dev).bfloat16()
+    keep = torch.ones_like(slots, dtype=torch.bool)
+    xt, yout = draw(T, D), draw(n_slots * capacity, D)
+    w = draw(T, k, rand=torch.rand)
+    _, buf_of = moe.sort_dispatch(xt, slots, keep, n_slots, capacity)
+    out = {"case": "gathers", "shape": [T, k, n_slots, capacity, D],
+           "dropped": int((buf_of < 0).sum())}
+    cases = {
+        "dispatch": (lambda x: moe.sort_dispatch(
+            x, slots, keep, n_slots, capacity)[0], xt,
+            draw(n_slots, capacity, D)),
+        "combine": (lambda y: moe.combine_from_buffers(y, buf_of, w), yout,
+                    draw(T, D))}
+    real = moe.F
+    for case, (fn, inp, grad) in cases.items():
+        res = {}
+        for name, funcs in (("embedding", real), ("indexing", _IndexingF())):
+            moe.F = funcs
+            try:
+                x = inp.clone().requires_grad_()
+                y = fn(x)
+                y.backward(grad)
+                res[name] = (y.detach(), x.grad)
+                with torch.no_grad():
+                    out[f"{case}_{name}_fwd_ms"] = time_ms(lambda: fn(inp),
+                                                           10)
+
+                def both():
+                    x.grad = None
+                    fn(x).backward(grad)
+                out[f"{case}_{name}_fwd_bwd_ms"] = time_ms(both, 3)
+            finally:
+                moe.F = real
+        equal = torch.equal(res["embedding"][0], res["indexing"][0])
+        gap = grad_gap(res["embedding"][1], res["indexing"][1])
+        if not equal or gap > GRAD_TOL["bfloat16"]:
+            raise AssertionError(f"{case}: outputs equal {equal}, gradient "
+                                 f"off by {gap}")
+        out[f"{case}_grad_gap"] = gap
+    return out
+
+
+def moe_train_phase() -> dict:
+    """14a, 14b and 14c (see the module docstring)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    out: dict = {"gmm_rows": [], "attn_rows": []}
+    # 14a: the grouped-matmul backward at olmoe's training shapes, and the
+    # attention backward at its head dim 128
+    for i, case in enumerate(BWD_GMM_CASES):
+        for dt in ("bfloat16", "float32"):
+            out["gmm_rows"].append(check_gmm_bwd(case, dt, 600 + i))
+            log("    " + json.dumps(out["gmm_rows"][-1]))
+            torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        out["attn_rows"].append(check_attention_bwd(OLMOE_BWD_ATTN_CASE, dt,
+                                                    700))
+        log("    " + json.dumps(out["attn_rows"][-1]))
+        torch.cuda.empty_cache()
+
+    # 14b: olmoe-1b-7b at full width, OLMOE_TRAIN_LAYERS of 16 layers; the
+    # choices each layer dropped in the first step's forward (a slot's
+    # past the capacity), and the MoE gathers at the routing of the layers
+    # that dropped the fewest and the most
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    cfg = olmoe_config(OLMOE_TRAIN_LAYERS)
+    out.update(train_steps(cfg, opt, "14b"))
+    torch.cuda.empty_cache()
+    routing = out.pop("routing")
+    T, E = TRAIN_B * TRAIN_S, cfg.n_experts
+    cap = moe.a2a_capacities(moe.round_robin_plan(E, 1), T, cfg.top_k)[0]
+    out["dropped"] = [int((torch.bincount(r.flatten(), minlength=E) - cap)
+                          .clamp(min=0).sum()) for r in routing]
+    log(f"[14b] choices dropped per layer in the first step's forward, of "
+        f"{T * cfg.top_k} (capacity {cap} a slot): {out['dropped']}")
+    out["gathers"] = []
+    for i in sorted({int(np.argmin(out["dropped"])),
+                     int(np.argmax(out["dropped"]))}):
+        out["gathers"].append(check_gathers(routing[i], E, cap, 800))
+        out["gathers"][-1]["layer"] = i
+        log("    " + json.dumps(out["gathers"][-1]))
+        if out["gathers"][-1]["dropped"] != out["dropped"][i]:
+            raise AssertionError(f"layer {i}: sort_dispatch dropped "
+                                 f"{out['gathers'][-1]['dropped']} choices")
+    del routing
+    torch.cuda.empty_cache()
+
+    # 14c: the f32 model at OLMOE_GATE_LAYERS layers, one backward through
+    # the kernels and one through the plain versions, the plain run's
+    # routers replaying the kernel run's choices (a near-tie would send a
+    # token's gradient to another expert)
+    cfg32 = olmoe_config(OLMOE_GATE_LAYERS, "float32")
+    ts = build_train_step(cfg32, opt, device="cuda")
+    state = ts.init_state(0)
+    batch = batch_to(SyntheticTokenStream(
+        cfg32, DataConfig(GATE_B, TRAIN_S, seed=0)).next_batch(), "cuda")
+    gate: dict = {}
+    logs: dict = {}
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            with RouterLog(replay=logs.get("cuda")) as logs[which]:
+                t0 = time.perf_counter()
+                params, met = ts.grads(state, batch)
+                torch.cuda.synchronize()
+            gate[f"{which}_s"] = time.perf_counter() - t0
+        finally:
+            ops.force(None)
+        gate[f"{which}_launches"] = {c: n for c, n in ops.launches.items()
+                                     if n}
+        gate[f"{which}_loss"] = float(met["loss"])
+        if which == "cuda":
+            grads_k = {n: p.grad.clone() for n, p in params.items()}
+    gaps = {n: grad_gap(p.grad, grads_k[n]) for n, p in params.items()}
+    rel_loss = abs(gate["cuda_loss"] - gate["ref_loss"]) / abs(
+        gate["ref_loss"])
+    worst = max(gaps, key=gaps.get)
+    flips = logs["ref"].flips(logs["cuda"])
+    gate.update(rel_loss=rel_loss, worst_leaf=worst, worst_gap=gaps[worst],
+                router_calls=len(logs["cuda"].calls), router_flips=flips)
+    want32 = expected_train_launches(cfg32)
+    if gate["cuda_launches"] != {c: n for c, n in want32.items() if n}:
+        raise AssertionError(f"f32 kernel path launched "
+                             f"{gate['cuda_launches']}, expected {want32}")
+    if gate["ref_launches"]:
+        raise AssertionError(f"plain path launched {gate['ref_launches']}")
+    log(f"[14c] f32 {cfg32.name} at {cfg32.n_layers} layers, {GATE_B} x "
+        f"{TRAIN_S} tokens, routing replayed: loss kernels "
+        f"{gate['cuda_loss']!r}, plain {gate['ref_loss']!r} (relative gap "
+        f"{rel_loss:.3g}); worst gradient leaf {worst}: {gaps[worst]:.3g} "
+        f"of its largest |grad|; the plain routers would have flipped "
+        f"{flips} choices over {len(logs['cuda'].calls)} calls; kernel "
+        f"path {gate['cuda_s']:.3f} s, plain {gate['ref_s']:.3f} s; "
+        f"launches {gate['cuda_launches']}")
+    if not rel_loss <= 1e-5:
+        raise AssertionError(f"f32 losses differ by {rel_loss}")
+    if not gaps[worst] <= GRAD_TOL["float32"]:
+        raise AssertionError(f"f32 gradient {worst} off by {gaps[worst]}")
+    out["gate"] = {k: (sig(v) if isinstance(v, float) else v)
+                   for k, v in gate.items()}
+    del ts, state, params, grads_k, logs
     torch.cuda.empty_cache()
     return out
 
@@ -3136,6 +3541,20 @@ def main() -> int:
             sig(r["max_abs_err"])]
         for r in p13["attn_rows"] + p13["scan_rows"]}
 
+    # --------------------------------------- 14. training olmoe-1b-7b
+    t14 = time.perf_counter()
+    p14 = moe_train_phase()
+    p14["s"] = sig(time.perf_counter() - t14)
+    log(f"[14] phase 14 took {p14['s']:.2f} s")
+    summary["p14"] = {k: v for k, v in p14.items()
+                      if k not in ("gmm_rows", "attn_rows")}
+    summary["p14"]["bwd"] = {
+        f"{r['case']}/{r['dtype'][:4]}": [
+            sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
+            sig(r["library_ms"]), sig(r["max_abs_err"])]
+        + ([sig(r["dx_ms"]), sig(r["dw_ms"])] if "dx_ms" in r else [])
+        for r in p14["gmm_rows"] + p14["attn_rows"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -3324,9 +3743,13 @@ def main() -> int:
                                       "deepseek"))
             kernels[-1].update(second("ds_decode_down_fill", row["dtype"],
                                       "deepseek_down"))
-    # the backward kernels: the launches of phase 13b's five steps, timed
-    # at hymba's training shapes in bf16 (the windowed attention call, 29
-    # of 32 a step; the global one beside it), f32 beside
+    # the backward kernels: the launches of the training steps of phases
+    # 13b and 14b, timed at hymba's training shapes in bf16 (the windowed
+    # attention call, 29 of 32 a step; the global one, f32 and olmoe's head
+    # dim 128 from phase 14a beside it)
+    def tagged(r, tag):
+        return {f"{tag}_{k}": r.get(k) for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}
     for name, rows in (("attention_bwd", p13["attn_rows"]),
                        ("mamba_scan_bwd", p13["scan_rows"])):
         row = next(r for r in rows if r["dtype"] == "bfloat16"
@@ -3335,8 +3758,10 @@ def main() -> int:
                  "source": f"src/repro_torch/kernels/csrc/"
                            f"{name}.cu",
                  "replaces": BWD_REPLACES[name],
-                 "launches": p13["launches"][name],
-                 "launches_from": "phase 13b, 5 training steps",
+                 "launches": (p13["launches"][name]
+                              + p14["launches"][name]),
+                 "launches_from": "phases 13b and 14b, 5 training steps "
+                                  "each",
                  **row_fields(row),
                  "max_abs_err": max(r["max_abs_err"] for r in rows)}
         for r in rows:
@@ -3345,22 +3770,54 @@ def main() -> int:
             tag = "_".join(x for x in (
                 {0: "global", 1024: "window"}.get(r.get("window"), ""),
                 "f32" if r["dtype"] == "float32" else "") if x)
-            entry.update({f"{tag}_{k}": r.get(k) for k in (
-                "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")})
+            entry.update(tagged(r, tag))
         if name == "mamba_scan_bwd":
             entry.update(bound_terms_ms=row["bound_terms_ms"],
                          exp_sfu_share=row["exp_sfu_share"])
         else:
             entry["library_fwd_ms"] = row["library_fwd_ms"]
             entry["fwd_ms"] = row["fwd_ms"]
+            for r in p14["attn_rows"]:
+                tag = "olmoe" + ("_f32" if r["dtype"] == "float32" else "")
+                entry.update(tagged(r, tag))
+                entry[f"{tag}_max_abs_err"] = r["max_abs_err"]
         kernels.append(entry)
-    # the forward kernels' launches in training (phase 13b) beside the
-    # serve runs' counts above
+    # the grouped matmul's backward: phase 14b's launches (one per call,
+    # dx and dw), timed at the bf16 gate/up product at the fills (dx and dw
+    # apart beside it), the down product, f32 and every row live beside
+    rows = p14["gmm_rows"]
+    row = next(r for r in rows if r["dtype"] == "bfloat16"
+               and r["case"] == "train_gate_up_fill")
+    entry = {"name": "grouped_matmul_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+             "replaces": BWD_REPLACES["grouped_matmul_bwd"],
+             "launches": p14["launches"]["grouped_matmul_bwd"],
+             "launches_from": "phase 14b, 5 training steps",
+             **row_fields(row),
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "live_rows": row["live_rows"]}
+    for k in ("dx_ms", "dw_ms", "dx_bound_ms", "dw_bound_ms",
+              "library_dx_ms", "library_dw_ms"):
+        entry[k] = row[k]
+    for r in rows:
+        if r is row:
+            continue
+        tag = "_".join(x for x in (
+            "down" if "down" in r["case"] else "",
+            "full" if not r["fill"] else "",
+            "f32" if r["dtype"] == "float32" else "") if x)
+        entry.update(tagged(r, tag))
+        entry[f"{tag}_dx_ms"], entry[f"{tag}_dw_ms"] = r["dx_ms"], r["dw_ms"]
+    kernels.append(entry)
+    # the forward kernels' launches in training (phases 13b and 14b)
+    # beside the serve runs' counts above
     for k in kernels:
         c = k["name"].split(":")[0]
         if c in ("flash_attention", "attention_masked", "mamba_scan") and \
                 k.get("attn_route", "prefill_tc") == "prefill_tc":
-            k["train_launches"] = p13["launches"][c]
+            k["train_launches"] = p13["launches"][c] + p14["launches"][c]
+        if k["name"] == "grouped_matmul:gmm_tc":
+            k["train_launches"] = p14["launches"]["grouped_matmul"]
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -70,6 +70,11 @@ SIGNATURES = {
     "attention_bwd": {
         "repro_attention_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
     },
+    # (x, w, dy, dx, dw, fills, G, C, D, F, is_bf16, stream); dx or dw
+    # null skips its product
+    "moe_gmm_bwd": {
+        "repro_grouped_matmul_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    },
     # (u, dt, A, Bc, Cc, D, dy, du, ddt, dA, dBc, dCc, dD, ckpt, part,
     #  dA_part, dD_part, B, S, di, N, chunk, is_bf16, stream)
     "mamba_scan_bwd": {
@@ -87,7 +92,7 @@ SIGNATURES = {
 # shared memory and spills, kept per source in ``build_log``
 PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
                 "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan",
-                "attention_bwd", "mamba_scan_bwd")
+                "attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd")
 build_log: dict[str, str] = {}
 
 

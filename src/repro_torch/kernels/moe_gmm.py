@@ -23,6 +23,13 @@ by ``route`` from the dtype and the shapes alone:
 
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
+
+Training: ``grouped_matmul_train`` runs the forward above through
+``_GroupedMatmul``, an autograd Function whose backward is
+``csrc/moe_gmm_bwd.cu`` (``grouped_matmul_bwd``: dX by ``dx_kernel``, dW
+by ``dw_kernel``, fill-aware, no atomics), for f32 or bf16 with D and F
+multiples of 8, and raises for any other call that needs a gradient.
+``ref.grouped_matmul_aligned_bwd_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ DECODE_ROWS = 16           # the largest capacity of the ``gmv`` route
 _GMV_ROWS = 4              # rows per block of ``gmv`` (at most)
 _GENERAL_TILE = 128        # rows per block of ``general``
 _TC_TILE = (128, 256)      # the output tile of ``gmm_tc``
+_BWD_TILE = 128            # the output tiles of ``moe_gmm_bwd.cu``, square
 
 
 def route(dtype, C: int, D: int, F: int) -> str:
@@ -105,3 +113,86 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
     ops.launches["grouped_matmul"] += 1
     ops.gmm_route_launches[which] += 1
     return out
+
+
+def _check_bwd(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless the backward kernel takes a product of these: f32 or
+    bf16, x (rows, D) and w (G, D, F) with D and F multiples of 8."""
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError("x must be (G * capacity, D) and w (G, D, F)")
+    if x.dtype not in _DTYPES:
+        raise RuntimeError(f"grouped_matmul in {x.dtype} has no backward "
+                           "kernel")
+    D, F = w.shape[1:]
+    if D % 8 or F % 8:
+        raise RuntimeError(f"grouped_matmul with D = {D}, F = {F} has no "
+                           "backward kernel: it takes multiples of 8")
+
+
+def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                       capacity: int, fills: torch.Tensor | None = None,
+                       need_dx: bool = True, need_dw: bool = True
+                       ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(dx, dw) of ``grouped_matmul``: x (G * capacity, D), w (G, D, F),
+    dy (G * capacity, F), contiguous and 16-byte aligned on one CUDA
+    device, all f32 or all bf16, D and F multiples of 8; ``fills`` None or
+    (G,) int32.  Launches only the products asked for (the other comes
+    back None).  Counts once as ``grouped_matmul_bwd``."""
+    from ._build import load
+    _check_bwd(x, w)
+    G, D, F = w.shape
+    C = int(capacity)
+    if C < 1 or G > _MAX_GRID or _cdiv(max(C, D), _BWD_TILE) > _MAX_GRID:
+        raise ValueError(f"{G} groups of capacity {C}, D = {D}: over the "
+                         "grid limit")
+    dev = x.device
+    ops.check("x", x, (G * C, D), _DTYPES, dev)
+    ops.check("w", w, (G, D, F), (x.dtype,), dev)
+    ops.check("dy", dy, (G * C, F), (x.dtype,), dev)
+    if fills is not None:
+        ops.check("fills", fills, (G,), (torch.int32,), dev)
+    if any(t.data_ptr() % 16 for t in (x, w, dy)):
+        raise ValueError("the grouped-matmul backward needs 16-byte aligned "
+                         "x, w and dy")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    with torch.cuda.device(dev):
+        err = load("moe_gmm_bwd").repro_grouped_matmul_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            None if dx is None else dx.data_ptr(),
+            None if dw is None else dw.data_ptr(),
+            None if fills is None else fills.data_ptr(), G, C, D, F,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"grouped_matmul backward launch failed: CUDA "
+                           f"error {err}")
+    ops.launches["grouped_matmul_bwd"] += 1
+    return dx, dw
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``grouped_matmul`` forward (its route unchanged),
+    ``grouped_matmul_bwd`` backward; saves x, w and the fills."""
+
+    @staticmethod
+    def forward(ctx, x, w, capacity: int, fills):
+        ctx.save_for_backward(x, w, fills)
+        ctx.capacity = capacity
+        return grouped_matmul(x, w, capacity, fills)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, fills = ctx.saved_tensors
+        dx, dw = grouped_matmul_bwd(x, w, dy.contiguous(), ctx.capacity,
+                                    fills, ctx.needs_input_grad[0],
+                                    ctx.needs_input_grad[1])
+        return dx, dw, None, None
+
+
+def grouped_matmul_train(x: torch.Tensor, w: torch.Tensor, capacity: int,
+                         fills: torch.Tensor | None = None) -> torch.Tensor:
+    """``grouped_matmul`` with a gradient: raises before anything runs
+    where the backward kernel does not take the product (``_check_bwd``)."""
+    _check_bwd(x, w)
+    return _GroupedMatmul.apply(x, w, capacity, fills)

@@ -22,7 +22,9 @@ products.  ``route_launches`` counts the attention calls again by the
 kernel that took them (``flash_attention.route``), ``gmm_route_launches``
 the grouped products by theirs (``moe_gmm.route``); ``reset_launches``
 zeroes all three.  ``attention_bwd`` and ``mamba_scan_bwd`` count the
-launches of the two backward kernels (the training path's gradients).
+launches of the attention and scan backward kernels (the training path's
+gradients), ``grouped_matmul_bwd`` the grouped matmul's backward calls
+(one per call, whichever of its two products it launches).
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
@@ -32,8 +34,9 @@ the plain version, as there.
 Gradients: a kernel call that needs one (grad mode on and an input that
 requires grad) goes through the autograd Function of its kernel, whose
 backward is a kernel too: attention without explicit positions
-(``flash_attention.attention_train``) and the scan from zeros
-(``mamba_scan.mamba_scan_train``).  Every other kernel call that needs a
+(``flash_attention.attention_train``), the scan from zeros
+(``mamba_scan.mamba_scan_train``) and the block-aligned grouped matmul
+(``moe_gmm.grouped_matmul_train``).  Every other kernel call that needs a
 gradient raises (``no_backward``) before its inputs are checked: its
 launcher writes outputs that autograd cannot see, which would silently
 send no gradient into its inputs.  The plain versions are differentiated
@@ -51,7 +54,8 @@ launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
                              "min_cover_lambdas": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0,
-                             "attention_bwd": 0, "mamba_scan_bwd": 0}
+                             "attention_bwd": 0, "mamba_scan_bwd": 0,
+                             "grouped_matmul_bwd": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "general": 0}
 gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
@@ -153,11 +157,13 @@ def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
                            capacity: int,
                            fills: torch.Tensor | None = None) -> torch.Tensor:
     """Block-aligned groups, x (G * capacity, D) x w (G, D, F): the CUDA
-    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``.
-    ``fills`` (G,) int32: rows at or past ``fills[g]`` of group g come out
-    as exact zeros (and the kernel skips their work)."""
+    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``;
+    where a gradient is needed, the kernel's autograd Function.  ``fills``
+    (G,) int32: rows at or past ``fills[g]`` of group g come out as exact
+    zeros (and the kernel skips their work)."""
     if use_kernel(x):
-        from .moe_gmm import grouped_matmul as kernel_gmm  # imports ops
-        no_backward("grouped_matmul", x, w)
-        return kernel_gmm(x, w, capacity, fills)
+        from . import moe_gmm  # imports ops
+        if needs_grad(x, w):
+            return moe_gmm.grouped_matmul_train(x, w, capacity, fills)
+        return moe_gmm.grouped_matmul(x, w, capacity, fills)
     return ref.grouped_matmul_aligned_ref(x, w, capacity, fills)

@@ -6,9 +6,10 @@ wrappers, ``ops.attention``, ``ops.mamba_scan``,
 (the tests), and the smoke run on the card holds each kernel against them
 on the same inputs.  The attention, scan and grouped-matmul versions are
 the twins of the JAX package's jnp references, argument for argument.
-``attention_bwd_ref`` and ``mamba_scan_bwd_ref`` spell out the backward
-kernels' arithmetic for the tests (no path runs them: the plain versions'
-gradients come from autograd).
+``attention_bwd_ref``, ``mamba_scan_bwd_ref`` and
+``grouped_matmul_aligned_bwd_ref`` spell out the backward kernels'
+arithmetic for the tests (no path runs them: the plain versions' gradients
+come from autograd).
 """
 from __future__ import annotations
 
@@ -272,3 +273,26 @@ def grouped_matmul_aligned_ref(x: torch.Tensor, w: torch.Tensor,
         live = rows[None, :] < fills[:, None]
         y = torch.where(live[..., None], y, 0.0)
     return y.reshape(G * capacity, F).to(x.dtype)
+
+
+def grouped_matmul_aligned_bwd_ref(x: torch.Tensor, w: torch.Tensor,
+                                   dy: torch.Tensor, capacity: int,
+                                   fills: torch.Tensor | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``grouped_matmul_aligned_ref`` for the output gradient
+    dy (G * capacity, F): ``dx[g, r] = dy[g, r] @ w[g]^T`` and ``dw[g] =
+    sum_r x[g, r]^T dy[g, r]``, two einsums in f32 cast to x's dtype.  With
+    ``fills``, the rows at or past ``fills[g]`` send nothing into dw,
+    whatever x and dy hold there, and their dx rows are exact zeros (the
+    forward's output there is a constant zero)."""
+    G, D, F = w.shape
+    dys = dy.reshape(G, capacity, F).float()
+    xs = x.reshape(G, capacity, D).float()
+    if fills is not None:       # dead rows zeroed in both: nothing at all
+        rows = torch.arange(capacity, device=dy.device)
+        live = (rows[None, :] < fills[:, None])[..., None]
+        dys = torch.where(live, dys, 0.0)
+        xs = torch.where(live, xs, 0.0)
+    dx = torch.einsum("scf,sdf->scd", dys, w.float())
+    dw = torch.einsum("scd,scf->sdf", xs, dys)
+    return dx.reshape(G * capacity, D).to(x.dtype), dw.to(x.dtype)

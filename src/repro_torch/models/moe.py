@@ -196,7 +196,11 @@ def sort_dispatch(xt: torch.Tensor, slot_ids: torch.Tensor,
     token_of_row = torch.full((dump + 1,), T, dtype=torch.int64, device=dev)
     token_of_row.scatter_(0, buf_sorted, order // k)
     src = torch.cat([xt, xt.new_zeros(1, D)])      # row T: an empty row
-    xin = src[token_of_row[:-1]].reshape(n_slots, capacity, D)
+    # the gather as an embedding lookup whose padding row (the empty row)
+    # takes no gradient: indexing's backward would sum the gradients of
+    # all the empty rows into that row, one after another on the card
+    xin = F.embedding(token_of_row[:-1], src, padding_idx=T)
+    xin = xin.reshape(n_slots, capacity, D)
     buf_of = torch.where(buf_flat < dump, buf_flat, -1)
     return xin, buf_of.reshape(T, k)
 
@@ -219,7 +223,10 @@ def combine_from_buffers(yout_flat: torch.Tensor, buf_of: torch.Tensor,
     The gate-weighted sum over each token's kept choices, (T, D), summed
     in f32 and cast to yout's dtype."""
     kept = (buf_of >= 0)[..., None]
-    gathered = yout_flat[buf_of.clamp(min=0)]                    # (T, k, D)
+    # every dropped choice reads row 0 and sends it a zero gradient; as an
+    # embedding lookup the backward sums a row's many gradients in
+    # parallel pieces, where indexing's sums them one after another
+    gathered = F.embedding(buf_of.clamp(min=0), yout_flat)      # (T, k, D)
     gathered = torch.where(kept, gathered, 0)
     return torch.einsum("tkd,tk->td", gathered.float(),
                         w.float()).to(yout_flat.dtype)

@@ -11,8 +11,8 @@ rounded to bf16, 8 bits).
 
 The guard: a kernel call that needs a gradient and has no backward kernel
 raises before anything runs, so a CPU tensor under ``ops.force("cuda")``
-shows the message; a call the attention backward takes goes on to the
-kernel's input checks.
+shows the message; a call the attention, scan or grouped-matmul backward
+takes goes into its autograd Function, on to the kernel's input checks.
 """
 import numpy as np
 import pytest
@@ -120,10 +120,11 @@ def test_guard_raises_for_kernels_without_backward(forced_cuda):
     with pytest.raises(RuntimeError, match="no backward kernel"):
         ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
     x, w = _t(rng, 8, 16).requires_grad_(), _t(rng, 2, 16, 4)
-    with pytest.raises(RuntimeError, match="grouped_matmul: no backward"):
-        ops.grouped_matmul_aligned(x, w, 4)
     with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.grouped_matmul_aligned(x.detach(), w.requires_grad_(), 4)
+        ops.grouped_matmul_aligned(x, w, 4)           # F = 4: not a multiple
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.grouped_matmul_aligned(x.detach().half(),
+                                   w.half().requires_grad_(), 4)
 
 
 def test_guard_lets_calls_the_backward_takes_reach_the_kernel(forced_cuda):
@@ -138,6 +139,11 @@ def test_guard_lets_calls_the_backward_takes_reach_the_kernel(forced_cuda):
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.mamba_scan(u, _t(rng, 1, 8, 6), -torch.ones(6, 4),
                        _t(rng, 1, 8, 4), _t(rng, 1, 8, 4), torch.ones(6))
+    x, w = _t(rng, 8, 16), _t(rng, 2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.grouped_matmul_aligned(x.requires_grad_(), w, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.grouped_matmul_aligned(x.detach(), w.requires_grad_(), 4)
     # no gradient needed: the forward kernels as before
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -160,7 +166,9 @@ def test_plain_versions_differentiate_on_the_cpu():
 
 
 def test_backward_counters_exist_and_reset():
-    assert {"attention_bwd", "mamba_scan_bwd"} <= set(ops.launches)
+    assert {"attention_bwd", "mamba_scan_bwd",
+            "grouped_matmul_bwd"} <= set(ops.launches)
     ops.launches["attention_bwd"] = 3
+    ops.launches["grouped_matmul_bwd"] = 2
     ops.reset_launches()
     assert not any(ops.launches.values())

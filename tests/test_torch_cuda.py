@@ -995,12 +995,87 @@ def test_kernels_without_backward_raise_under_grad(cuda):
     with pytest.raises(RuntimeError, match="head dims"):
         ops.attention(q32, q32[:, :, :1].detach(), q32[:, :, :1].detach())
     x = torch.randn((2 * 4, 16), device=cuda, requires_grad=True)
-    w = torch.randn((2, 16, 8), device=cuda)
+    w = torch.randn((2, 16, 4), device=cuda)
     with pytest.raises(RuntimeError, match="no backward kernel"):
-        ops.grouped_matmul_aligned(x, w, 4)
+        ops.grouped_matmul_aligned(x, w, 4)           # F = 4: not a multiple
     with torch.no_grad():      # no gradient needed: the kernels run
         ops.grouped_matmul_aligned(x, w, 4)
         ops.mamba_scan(u, dt, A, Bc, Cc, D, init_state=h0)
+
+
+# (G, C, D, F): row tiles that end inside a group (C 200, 300, 37), D and F
+# that end inside a 128-wide tile and a 32-deep stage (136, 72, 40, 24)
+BWD_GMM_CASES = [(3, 200, 64, 136), (4, 130, 136, 72), (2, 300, 256, 128),
+                 (5, 37, 40, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fills", [None, "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,C,D,F", BWD_GMM_CASES)
+def test_grouped_matmul_bwd_kernel_matches_plain_version(cuda, no_tf32, G, C,
+                                                         D, F, dtype, fills):
+    """The kernels' (dx, dw) against ``grouped_matmul_aligned_bwd_ref`` and
+    against autograd of the plain forward, with x and dy random past the
+    fills (dx exact zeros there, nothing into dw); the autograd Function's
+    gradients against autograd of the plain version; dw bit-equal over two
+    runs; one product alone where only one is asked for."""
+    g = torch.Generator(device=cuda).manual_seed(G * C + D + F)
+    x = torch.randn((G * C, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((G, D, F), generator=g, device=cuda)
+         / D ** 0.5).to(dtype)
+    dy = torch.randn((G * C, F), generator=g, device=cuda).to(dtype)
+    fl = _gmm_fills(fills, G, C, cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    ref.grouped_matmul_aligned_ref(*leaves, C, fl).backward(dy)
+    want = [t.grad for t in leaves]
+    ops.reset_launches()
+    got = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl)
+    again = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl)
+    torch.cuda.synchronize()
+    assert ops.launches["grouped_matmul_bwd"] == 2
+    plain = ref.grouped_matmul_aligned_bwd_ref(x, w, dy, C, fl)
+    tol = GRAD_TOL[dtype]
+    for name, a, b, c in zip(("dx", "dw"), got, plain, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert _grad_gap(a, b) <= tol, (name, _grad_gap(a, b))
+        assert _grad_gap(a, c) <= tol, (name, _grad_gap(a, c))
+    assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+    if fl is not None:
+        past = torch.arange(C, device=cuda)[None, :] >= fl[:, None]
+        assert bool((got[0].view(G, C, D)[past] == 0).all())
+        assert bool((got[1][fl == 0] == 0).all())
+    dx_only = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl, need_dw=False)
+    dw_only = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl, need_dx=False)
+    assert dx_only[1] is None and torch.equal(dx_only[0], got[0])
+    assert dw_only[0] is None and torch.equal(dw_only[1], got[1])
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    ops.reset_launches()
+    ops.grouped_matmul_aligned(*leaves, C, fl).backward(dy)
+    assert ops.launches["grouped_matmul"] == 1
+    assert ops.launches["grouped_matmul_bwd"] == 1
+    for t, c in zip(leaves, want):
+        assert _grad_gap(t.grad, c) <= tol
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_bwd_rejects_bad_inputs(cuda):
+    x = torch.randn((2 * 40, 16), device=cuda)
+    w = torch.randn((2, 16, 24), device=cuda)
+    dy = torch.randn((2 * 40, 24), device=cuda)
+    with pytest.raises(RuntimeError, match="multiples of 8"):
+        moe_gmm.grouped_matmul_bwd(x[:, :12].contiguous(), w[:, :12], dy, 40)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        moe_gmm.grouped_matmul_bwd(x.half(), w.half(), dy.half(), 40)
+    with pytest.raises(ValueError, match="shape"):
+        moe_gmm.grouped_matmul_bwd(x, w, dy[:40], 40)
+    with pytest.raises(ValueError, match="float32"):
+        moe_gmm.grouped_matmul_bwd(x, w, dy.bfloat16(), 40)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        moe_gmm.grouped_matmul_bwd(x, w, dy.cpu(), 40)
+    xs = torch.empty(2 * 40 * 16 + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gmm.grouped_matmul_bwd(xs.view(2 * 40, 16), w, dy, 40)
 
 
 def _train_small(arch: str, dtype: str):

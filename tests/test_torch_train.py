@@ -136,15 +136,25 @@ def test_model_loss_matches_jax(arch):
 
 
 # ------------------------------------------------------------- gradients
+MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
+
+
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_gradients_match_jax(arch, remat):
     """Every gradient leaf against ``jax.grad`` of the JAX loss, with the
-    layers recomputed in the backward pass or not."""
+    layers recomputed in the backward pass or not; the MoE models through
+    the slot path (the grouped matmul's gradient), which JAX runs under a
+    one-device mesh."""
     cfg, jm, params, model = _pair(arch, remat)
     batch = _batches(cfg, 1, seed=3)[0]
-    jgrads = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(
-        params, jax.tree.map(jnp.asarray, batch))
+    if cfg.n_experts:
+        _one_device_mesh()
+    try:
+        jgrads = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(
+            params, jax.tree.map(jnp.asarray, batch))
+    finally:
+        sharding._ACTIVE_MESH = None
     want = model_state_from_jax(cfg, jax.tree.map(np.asarray, jgrads))
     loss, _ = model.loss(batch_to(batch, "cpu"))
     loss.backward()
@@ -249,12 +259,15 @@ def _jax_step(jm, jcfg):
     return jax.jit(step)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["olmoe-1b-7b"])
 def test_three_steps_from_a_jax_state_track_jax(arch):
     """JAX trains two steps; its state (parameters and AdamW's step,
     master, m, v) crosses over with ``train_state_from_jax``, and both
-    packages take three more steps on the same batches."""
+    packages take three more steps on the same batches (olmoe's JAX steps
+    under a one-device mesh, as its slot path needs)."""
     cfg, jm, params, _ = _pair(arch)
+    if cfg.n_experts:
+        _one_device_mesh()
     ocfg = dict(lr=3e-3, warmup_steps=2, total_steps=10)
     jcfg = jadamw.AdamWConfig(**ocfg)
     step = _jax_step(jm, jcfg)
