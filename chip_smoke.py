@@ -23,8 +23,11 @@ in order; any failure propagates and the exit code is nonzero:
    grouped-matmul and scan kernels (registers, shared memory, spills), the
    tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of every
    instantiation of the general routes' kernels (``cuobjdump -sass``; each
-   must have some) and the card's name, power limit, maximum SM clock and
-   SM count;
+   must have some), the wgmma instructions (``HGMMA``) of the bf16
+   backward routes' kernels (``attention_bwd_tc.cu``,
+   ``moe_gmm_bwd_tc.cu``; each must have some, and ptxas must report no
+   spills) and the card's name, power limit, maximum SM clock and SM
+   count;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the min-cover kernel at the shapes the per-front path gives
    it, and the device pass's fused find (``front_find``) at phase 3's
@@ -157,10 +160,17 @@ in order; any failure propagates and the exit code is nonzero:
 13. training ``hymba-1.5b``.  (a) Each backward kernel against autograd
    of its plain version at hymba's training shapes, in bf16 and f32,
    within ``GRAD_TOL`` of each gradient's largest entry: attention (4,
-   2048², 25/5, 64), causal and with window 1024, timed beside its bound
-   (six products of 2 hd FLOPs per live pair and head at 989 or 165
-   TFLOP/s, or its bytes), the plain backward (``attention_bwd_ref``) and
-   SDPA's forward + backward (its forward alone beside it); the scan (4,
+   2048², 25/5, 64), causal and with window 1024, on its backward route
+   (``tc``, ``attention_bwd_tc.cu``, from the forward's LSE in bf16;
+   ``general``, ``attention_bwd.cu``, in f32; asserted, two runs
+   bit-equal), timed beside its bound (five products of 2 hd FLOPs per
+   live pair and head with the LSE given, six where ``general``
+   recomputes it, at 989 or 165 TFLOP/s, or its bytes; the six-product
+   figure beside the bf16 row's), the plain backward
+   (``attention_bwd_ref``), SDPA's forward + backward (its forward alone
+   and its backward alone beside it), the PR 22 kernel's bf16
+   instantiation called directly ("before") and the ``prefill_tc``
+   forward with and without the LSE written, in turns; the scan (4,
    2048, 3200, 16) beside its bound (``scan_bound`` with 13 FMA-pipe
    instructions and 2 exps per (t, d, n)) and its plain backward.  (b)
    Five training steps at full width and depth, bf16, remat "full", 4 x
@@ -170,33 +180,40 @@ in order; any failure propagates and the exit code is nonzero:
    (finite), seconds per step (median of steps 2-5), tokens/s, peak
    memory, and each step's launches exactly as expected (every forward
    kernel twice -- forward and recompute -- one backward kernel each,
-   all attention on ``prefill_tc``, nothing else); then one more step
+   all attention on ``prefill_tc``, every attention backward call on
+   ``tc`` (``ops.bwd_route_launches``), nothing else); then one more step
    split by CUDA events (forward, backward with the recompute, AdamW) and
    by kernel under ``torch.profiler``.  (c) The f32 model at full width
    and depth, 2 x 2048 tokens: the loss and every gradient through the
    kernels and through the plain versions (losses within 1e-5 relative,
    each leaf within ``GRAD_TOL`` f32 of its largest entry, the worst
-   reported), then one AdamW step from each, the parameters compared
+   reported; every backward call on ``general``), then one AdamW step
+   from each, the parameters compared
    (at most 1e-5 of them more than lr / 10 apart: a first AdamW step
    moves each parameter by about lr times its gradient's sign, which the
    two paths share except where a gradient is near 0; an H100 read 2,998
    of 1.66e9);
-14. training ``olmoe-1b-7b``.  (a) The grouped matmul's backward kernels
-   (``moe_gmm_bwd.cu``: dx and dw) against the plain backward
+14. training ``olmoe-1b-7b``.  (a) The grouped matmul's backward on its
+   route (``tc``, ``moe_gmm_bwd_tc.cu``, in bf16; ``general``,
+   ``moe_gmm_bwd.cu``, in f32; asserted), dx and dw, against the plain
+   backward
    (``grouped_matmul_aligned_bwd_ref``) and autograd of the plain forward
    at olmoe's training shapes -- 64 slots of C = 2560, gate/up (2048 ->
    1024) and down (1024 -> 2048), at the fills of 4 x 2048 tokens routed
    top-8 uniformly and with every row live -- in bf16 and f32 within
    ``GRAD_TOL``, dx and dw bit-equal over two runs; dx and dw timed apart
    and together beside their bounds (2 x live rows x D x F FLOPs a product
-   at 989 or 165 TFLOP/s, or the bytes), the plain backward and
-   ``torch.bmm`` on the full buffers (dY W^T, X^T dY).  Then the attention
+   at 989 or 165 TFLOP/s, or the bytes), the plain backward,
+   ``torch.bmm`` on the full buffers (dY W^T, X^T dY) and, in bf16, the
+   PR 23 kernels' bf16 instantiation called directly ("before").  Then
+   the attention
    backward at olmoe's (4, 2048², 16/16, 128), causal, as in 13a.  (b)
    olmoe-1b-7b at its published widths, depth cut to
    ``OLMOE_TRAIN_LAYERS`` of 16 layers: five bf16 steps as in 13b, each
    step's launches exactly as expected (per layer 2 ``flash_attention``
-   on ``prefill_tc``, 1 ``attention_bwd``, 6 ``grouped_matmul`` on
-   ``gmm_tc``, 3 ``grouped_matmul_bwd``), every layer's recompute routed
+   on ``prefill_tc``, 1 ``attention_bwd`` on ``tc``, 6
+   ``grouped_matmul`` on ``gmm_tc``, 3 ``grouped_matmul_bwd`` on ``tc``),
+   every layer's recompute routed
    as its forward (the routers recorded on the card), then the split
    step; the choices each layer dropped in the first step, and the MoE
    gathers at the routing of its layers that dropped the fewest and the
@@ -209,8 +226,9 @@ in order; any failure propagates and the exit code is nonzero:
    the plain versions, the plain run's routers replaying the kernel run's
    choices (``RouterLog``'s replay; a near-tie would otherwise send a
    token's gradient to another expert): losses within 1e-5 relative, each
-   leaf within ``GRAD_TOL`` f32, the worst leaf and the choices the plain
-   routers would have flipped reported.
+   leaf within ``GRAD_TOL`` f32, every backward call on ``general``, the
+   worst leaf and the choices the plain routers would have flipped
+   reported.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-14)
 and read just after; the kernel line reports those of phases 4 and 5 (the
@@ -244,7 +262,11 @@ attention and scan backward kernels (``attention_bwd``,
 olmoe's head dim 128 from phase 14a beside it); ``grouped_matmul_bwd``
 carries phase 14b's launches and phase 14a's times (bf16 gate/up at the
 fills, dx and dw apart beside the call; the down product, f32 and every
-row live beside it); the forward kernels also carry their training
+row live beside it).  The attention and grouped-matmul backward entries
+name the bf16 route's wgmma source (``tc``) and time it, with the PR
+22/23 kernel's bf16 times ("before") and the f32 ``general`` rows (the
+same source, ``general_source``) beside; the forward kernels also carry
+their training
 launches (``train_launches``).  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
@@ -254,6 +276,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1035,7 +1058,6 @@ def kernel_name(mangled: str) -> str:
     """A mangled entry name (after ``_Z``) as its last name component --
     anonymous namespaces dropped -- with its template arguments, cut to 40
     characters."""
-    import re
     rest = mangled[1:] if mangled.startswith("N") else mangled
     name = ""
     while (m := re.match(r"(\d+)", rest)):
@@ -1044,11 +1066,11 @@ def kernel_name(mangled: str) -> str:
     return name + rest[:40]
 
 
-def tc_instructions(lib: Path) -> dict:
-    """Tensor-core instructions (``HMMA``, ``HGMMA``) per kernel in the
-    SASS of a built library, as ``cuobjdump -sass`` lists it, keyed by the
-    kernel's name with its template arguments (``kernel_name``)."""
-    import re
+def tc_instructions(lib: Path, pattern: str = r"\bHG?MMA\.") -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``; ``pattern`` picks
+    which) per kernel in the SASS of a built library, as ``cuobjdump
+    -sass`` lists it, keyed by the kernel's name with its template
+    arguments (``kernel_name``)."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -1059,7 +1081,7 @@ def tc_instructions(lib: Path) -> dict:
         if m:
             name = kernel_name(m.group(1))
             counts[name] = 0
-        elif name and re.search(r"\bHG?MMA\.", line):
+        elif name and re.search(pattern, line):
             counts[name] += 1
     return counts
 
@@ -1068,13 +1090,12 @@ def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` output, one line per kernel: its name (the
     template arguments kept), registers, shared memory and spills; and
     every warning (e.g. wgmma serialized by ptxas) as it is."""
-    import re
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z(\w+)'", line)
         if m:
             name = kernel_name(m.group(1))
-        elif "warning" in line.lower():
+        elif "warning" in line.lower() or "Performance Loss" in line:
             out.append(line.strip())
         elif "spill" in line:
             spill = line.strip()
@@ -2291,7 +2312,13 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
 # products summed in another order (attention), ex2.approx exps in the
 # scan's recurrence -- near f32 accuracy, a few 1e-6 of the largest entry
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd")
+BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
+               "attention_bwd_tc", "moe_gmm_bwd_tc")
+# the wgmma kernels of the bf16 backward routes (``tc``), each with the
+# prefix of its kernels' names: phase 1 holds their SASS to HGMMA
+# instructions and their ptxas report to no spills
+BWD_TC_SOURCES = {"attention_bwd_tc": ("dq_kernel", "dkv_kernel"),
+                  "moe_gmm_bwd_tc": ("gmm_bwd_tc_kernel",)}
 # what each backward kernel stands for: the gradient of the Pallas kernel,
 # which the JAX package cannot differentiate (ROADMAP Queue 3 g)
 BWD_REPLACES = {"attention_bwd": "src/repro/kernels/flash_attention.py:25",
@@ -2319,14 +2346,23 @@ def grad_gap(got, want) -> float:
 
 
 def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
-    """The attention backward kernel against autograd of the plain version
-    at hymba's training shapes; timed beside its bound, the plain
-    version's backward (``attention_bwd_ref``) and SDPA's forward and
-    backward (``library_ms``; its forward alone beside it)."""
+    """The attention backward on its route (``flash_attention.bwd_route``:
+    ``tc`` in bf16, from the forward's LSE, which ``prefill_tc`` writes;
+    ``general`` in f32) against autograd of the plain version at a
+    training shape, two runs bit-equal, the route asserted.  Timed beside
+    its bound (five products per live pair and head with the LSE given,
+    six where ``general`` recomputes it; the six-product figure beside the
+    ``tc`` row's), the plain backward (``attention_bwd_ref``) and SDPA's
+    forward and backward (``library_ms``; its forward alone and its
+    backward alone, the pair less the forward, beside it).  In bf16 also
+    the PR 22 kernel's bf16 instantiation (``attention_bwd.cu``, which
+    the ``general`` route keeps for f32), called directly, as "before";
+    and the forward on ``prefill_tc`` with the LSE written and without it,
+    in turns."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import attention_bwd
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     name, B, S, H, KV, hd, window = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -2336,40 +2372,55 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
     do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     kw = dict(causal=True, window=window)
     scale = hd ** -0.5
+    route = fa.bwd_route(dtype, S, S, hd, hd, window, False)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref.attention_ref(*leaves, **kw).backward(do)
     want = [t.grad for t in leaves]
     del leaves
+    lse = None
     with torch.no_grad():
-        o = ops.attention(q, k, v, **kw)
+        if route == "tc":
+            o, lse = fa.flash_attention(q, k, v, scale=scale,
+                                        return_lse=True, **kw)
+        else:
+            o = ops.attention(q, k, v, **kw)
 
     def run():
-        return attention_bwd(q, k, v, o, do, scale=scale, **kw)
+        return fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
 
     def plain():
-        return ref.attention_bwd_ref(q, k, v, o, do, scale=scale, **kw)
-    got = run()
+        return ref.attention_bwd_ref(q, k, v, o, do, scale=scale, lse=lse,
+                                     **kw)
+    ops.reset_launches()
+    got, again = run(), run()
     torch.cuda.synchronize()
+    routes = dict(ops.bwd_route_launches)
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = {n: grad_gap(a, b) for n, a, b in zip("qkv", got, want)}
     tol = GRAD_TOL[dtype_name]
-    if max(errs.values()) > tol:
+    if (routes[f"attention_{route}"] != 2 or sum(routes.values()) != 2
+            or not repeat or max(errs.values()) > tol):
         raise AssertionError(f"attention backward {name} {dtype_name}: "
-                             f"{errs} past {tol}")
-    del got, want
-    # the bound: per live pair and q head, the five products and the LSE's
-    # score product, 2 hd FLOPs each; q, k, v, o, do read once, dq, dk, dv
-    # written once
+                             f"{errs} past {tol}, routes {routes} (want 2 "
+                             f"on {route}), or two runs differ (bit-equal: "
+                             f"{repeat})")
+    del got, again, want
+    # the bound: per live pair and q head, 2 hd FLOPs for each of S, dP,
+    # dQ, dK and dV, and for S once more where the route recomputes the
+    # LSE; q, k, v, o, do read once, dq, dk, dv written once
     i = torch.arange(S, device=dev)
     keep = i[:, None] >= i[None, :]
     if window:
         keep &= (i[:, None] - i[None, :]) < window
     pairs = B * int(keep.sum())
-    flops = 6 * 2 * hd * H * pairs
+    products = 5 if route == "tc" else 6
     nbytes = q.element_size() * (4 * q.numel()
                                  + 2 * (k.numel() + v.numel()))
     rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else \
         F32_TC_FLOPS_PER_S
-    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_op = 2 * hd * H * pairs / rate * 1e3      # one product
+    t_ops = products * t_op
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(
         x is not do) for x in (q, k, v, do))
     mask = keep if window else None
@@ -2383,17 +2434,45 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
         library_fwd().backward(dot)
     with torch.no_grad():
         lib_fwd = time_ms(library_fwd, 5)
-    row = {"case": name, "dtype": dtype_name,
+    row = {"case": name, "dtype": dtype_name, "bwd_route": route,
            "shape": [B, S, S, H, KV, hd, hd], "window": window,
            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
-           "ms": graph_ms(run, 5, 3), "call_ms": time_ms(run, 5),
-           "plain_ms": graph_ms(plain, 1, 2),
+           "bit_equal": repeat, "ms": graph_ms(run, 5, 3),
+           "call_ms": time_ms(run, 5), "plain_ms": graph_ms(plain, 1, 2),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes, "pairs": pairs,
-           "library_ms": time_ms(library, 5), "library_fwd_ms": lib_fwd}
+           "products": products, "bound6_ms": max(6 * t_op, t_bytes),
+           "flops": products * 2 * hd * H * pairs, "bytes": nbytes,
+           "pairs": pairs, "library_ms": time_ms(library, 5),
+           "library_fwd_ms": lib_fwd}
+    row["library_bwd_ms"] = row["library_ms"] - lib_fwd
+    if route == "tc":
+        # before: the PR 22 kernel's bf16 instantiation, which recomputes
+        # the LSE into its own scratch
+        old = _build.load("attention_bwd").repro_attention_bwd
+        scratch = torch.empty((2, B, H, S), dtype=torch.float32, device=dev)
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+
+        def before():
+            err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      do.data_ptr(), *(t.data_ptr() for t in outs),
+                      scratch[0].data_ptr(), scratch[1].data_ptr(), B, S, S,
+                      H, KV, hd, 1, window, scale, 1,
+                      torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"attention_bwd.cu bf16: CUDA error {err}")
+        row["before_ms"] = graph_ms(before, 5, 3)
     with torch.no_grad():
-        row["fwd_ms"] = graph_ms(lambda: ops.attention(q, k, v, **kw), 5, 3)
+        fwd = [lambda: fa.flash_attention(q, k, v, scale=scale, **kw),
+               lambda: fa.flash_attention(q, k, v, scale=scale,
+                                          return_lse=True, **kw)]
+        if route == "tc":       # in turns: without, with, with, without
+            t = [graph_ms(fwd[j], 5, 3) for j in (0, 1, 1, 0)]
+            row["fwd_ms"], row["fwd_lse_ms"] = (t[0] + t[3]) / 2, \
+                (t[1] + t[2]) / 2
+        else:
+            row["fwd_ms"] = graph_ms(lambda: ops.attention(q, k, v, **kw),
+                                     5, 3)
     return row
 
 
@@ -2478,6 +2557,20 @@ def expected_train_launches(cfg) -> dict:
     return want
 
 
+def expected_bwd_routes(cfg) -> dict:
+    """One training step's backward calls by route
+    (``ops.bwd_route_launches``): every attention and grouped-matmul
+    backward call on the wgmma kernels (``tc``) in bf16, on ``general`` in
+    f32."""
+    from repro_torch.kernels import ops
+    want = expected_train_launches(cfg)
+    tag = "tc" if cfg.dtype == "bfloat16" else "general"
+    out = {c: 0 for c in ops.bwd_route_launches}
+    out[f"attention_{tag}"] = want["attention_bwd"]
+    out[f"gmm_{tag}"] = want["grouped_matmul_bwd"]
+    return out
+
+
 def train_step_split(ts, state, batch) -> dict:
     """One more step, its phases timed with CUDA events (the loss's
     forward, the backward pass with its recompute, AdamW) and its kernels
@@ -2502,7 +2595,13 @@ def train_step_split(ts, state, batch) -> dict:
         ("forward_ms", "backward_ms", "adamw_ms"))}
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    kinds = {"attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
+    # the wgmma backward kernels (attention_bwd_tc.cu's dq_kernel<HD> and
+    # dkv_kernel<HD>, moe_gmm_bwd_tc.cu's) first: the general routes'
+    # kernels of the same names take (T, HD, ...) template arguments
+    kinds = {"attention_bwd_tc": ("dq_kernel<64>", "dq_kernel<128>",
+                                  "dkv_kernel<64>", "dkv_kernel<128>"),
+             "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
+             "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
              "scan_fwd": ("scan_kernel",),
              "attention_bwd": ("dq_kernel", "dkv_kernel"),
              "scan_bwd": ("scan_bwd_kernel", "finish_kernel"),
@@ -2553,6 +2652,8 @@ def train_steps(cfg, opt, tag: str) -> dict:
     n_params = sum(p.numel() for p in state["params"].values())
     stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
     want = expected_train_launches(cfg)
+    want_bwd = {c: TRAIN_STEPS * n
+                for c, n in expected_bwd_routes(cfg).items()}
     n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2583,6 +2684,7 @@ def train_steps(cfg, opt, tag: str) -> dict:
     launches = dict(ops.launches)
     routes = dict(ops.route_launches)
     gmm_routes = dict(ops.gmm_route_launches)
+    bwd_routes = dict(ops.bwd_route_launches)
     peak = torch.cuda.max_memory_allocated()
     for i, got in enumerate(per_step):
         if got != want:
@@ -2597,6 +2699,9 @@ def train_steps(cfg, opt, tag: str) -> dict:
             or gmm_routes != {"gmv": 0, "gmm_tc": n_gmm, "general": 0}:
         raise AssertionError(f"bf16 training took routes {routes}, "
                              f"grouped products {gmm_routes}")
+    if bwd_routes != want_bwd:
+        raise AssertionError(f"bf16 training's backward calls took routes "
+                             f"{bwd_routes}, expected {want_bwd}")
     med = float(np.median(seconds[1:]))
     log(f"[{tag}] train {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params} parameters, bf16, remat "
@@ -2604,7 +2709,8 @@ def train_steps(cfg, opt, tag: str) -> dict:
         f"tokens, losses {losses}, seconds {seconds}; median of steps 2-"
         f"{TRAIN_STEPS} {med:.6g} s/step, {TRAIN_B * TRAIN_S / med:.6g} "
         f"tokens/s; max_memory_allocated {peak} B; launches per step "
-        f"{per_step[0]}; routes {routes}, grouped products {gmm_routes}")
+        f"{per_step[0]}; routes {routes}, grouped products {gmm_routes}, "
+        f"backward calls {bwd_routes}")
     batch = batch_to(stream.next_batch(), "cuda")
     split = train_step_split(ts, state, batch)
     log(f"[{tag}] one more step, split: {json.dumps(split)}")
@@ -2613,7 +2719,7 @@ def train_steps(cfg, opt, tag: str) -> dict:
                tokens_per_s=sig(TRAIN_B * TRAIN_S / med), peak_B=peak,
                n_params=n_params, launches=launches,
                per_step_launches=per_step[0], routes=routes,
-               gmm_routes=gmm_routes, split=split)
+               gmm_routes=gmm_routes, bwd_routes=bwd_routes, split=split)
     if n_moe:
         out["routing"] = routing
     return out
@@ -2667,6 +2773,8 @@ def train_phase(clock_hz: float, sms: int) -> dict:
             ops.force(None)
         gate[f"{which}_launches"] = {c: n for c, n in ops.launches.items()
                                      if n}
+        gate[f"{which}_bwd_routes"] = {c: n for c, n in
+                                       ops.bwd_route_launches.items() if n}
         gate[f"{which}_loss"] = float(met["loss"])
         if which == "cuda":
             grads_k = {n: p.grad.clone() for n, p in params.items()}
@@ -2701,6 +2809,11 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     if gate["cuda_launches"] != {c: n for c, n in want32.items() if n}:
         raise AssertionError(f"f32 kernel path launched "
                              f"{gate['cuda_launches']}, expected {want32}")
+    bwd32 = {c: n for c, n in expected_bwd_routes(cfg32).items() if n}
+    if gate["cuda_bwd_routes"] != bwd32 or gate["ref_bwd_routes"]:
+        raise AssertionError(f"f32 backward calls took routes "
+                             f"{gate['cuda_bwd_routes']} (plain path: "
+                             f"{gate['ref_bwd_routes']}), expected {bwd32}")
     if gate["ref_launches"]:
         raise AssertionError(f"plain path launched {gate['ref_launches']}")
     log(f"[13c] f32 {cfg.name}, {GATE_B} x {TRAIN_S} tokens: loss kernels "
@@ -2757,17 +2870,21 @@ def olmoe_config(layers: int, dtype: str = "bfloat16"):
 
 
 def check_gmm_bwd(case, dtype_name: str, seed: int) -> dict:
-    """The grouped-matmul backward kernels against the plain backward
+    """The grouped-matmul backward on its route (``moe_gmm.bwd_route``:
+    ``tc`` in bf16, ``general`` in f32) against the plain backward
     (``grouped_matmul_aligned_bwd_ref``) and autograd of the plain forward
     at one of olmoe's training shapes with the case's fills (dx rows past
-    a fill exact zeros); dx and dw bit-equal over two runs.  Timed: dx and
-    dw apart and together (one backward call), each beside its bound (2 x
-    live rows x D x F FLOPs at 989 or 165 TFLOP/s, or its bytes: the live
-    rows of x and dy and the live slots' weights read once, the outputs
-    written once), the plain backward, and ``torch.bmm`` on the full
-    buffers: dY W^T and X^T dY (``library_ms``, their sum)."""
+    a fill exact zeros); dx and dw bit-equal over two runs, the route
+    asserted.  Timed: dx and dw apart and together (one backward call),
+    each beside its bound (2 x live rows x D x F FLOPs at 989 or 165
+    TFLOP/s, or its bytes: the live rows of x and dy and the live slots'
+    weights read once, the outputs written once), the plain backward, and
+    ``torch.bmm`` on the full buffers: dY W^T and X^T dY (``library_ms``,
+    their sum).  In bf16 also the PR 23 kernels' bf16 instantiation
+    (``moe_gmm_bwd.cu``, which the ``general`` route keeps for f32),
+    called directly, as "before": dx, dw and both."""
     import torch
-    from repro_torch.kernels import moe_gmm, ref
+    from repro_torch.kernels import _build, moe_gmm, ops, ref
     name, G, C, D, F, _, tokens = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -2778,20 +2895,25 @@ def check_gmm_bwd(case, dtype_name: str, seed: int) -> dict:
     ref.grouped_matmul_aligned_ref(*leaves, C, fills).backward(dy)
     want = [t.grad for t in leaves]
     del leaves
+    route = moe_gmm.bwd_route(dtype, D, F)
+    ops.reset_launches()
     got = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills)
     again = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fills)
     plain_out = ref.grouped_matmul_aligned_bwd_ref(x, w, dy, C, fills)
     torch.cuda.synchronize()
+    routes = dict(ops.bwd_route_launches)
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = {}
     for n, a, b, c in zip(("dx", "dw"), got, plain_out, want):
         errs[n] = grad_gap(a, b)
         errs[f"{n}_autograd"] = grad_gap(a, c)
     tol = GRAD_TOL[dtype_name]
-    if not repeat or max(errs.values()) > tol:
+    if (routes[f"gmm_{route}"] != 2 or sum(routes.values()) != 2
+            or not repeat or max(errs.values()) > tol):
         raise AssertionError(f"grouped_matmul backward {name} {dtype_name}: "
-                             f"{errs} past {tol}, or two runs differ "
-                             f"(bit-equal: {repeat})")
+                             f"{errs} past {tol}, routes {routes} (want 2 "
+                             f"on {route}), or two runs differ (bit-equal: "
+                             f"{repeat})")
     live_rows, live_slots = G * C, G
     if fills is not None:
         past = torch.arange(C, device=dev)[None, :] >= fills[:, None]
@@ -2834,7 +2956,8 @@ def check_gmm_bwd(case, dtype_name: str, seed: int) -> dict:
 
     def lib_dw():
         return torch.bmm(xv.transpose(1, 2), dyv)
-    row = {"case": name, "dtype": dtype_name, "shape": [G, C, D, F],
+    row = {"case": name, "dtype": dtype_name, "bwd_route": route,
+           "shape": [G, C, D, F],
            "fill": fills is not None, "live_rows": live_rows,
            "live_slots": live_slots, "max_abs_err": max(errs.values()),
            "errs": errs, "tol": tol, "bit_equal": repeat,
@@ -2847,6 +2970,21 @@ def check_gmm_bwd(case, dtype_name: str, seed: int) -> dict:
            "library_dx_ms": graph_ms(lib_dx, 3, 2),
            "library_dw_ms": graph_ms(lib_dw, 3, 2)}
     row["library_ms"] = row["library_dx_ms"] + row["library_dw_ms"]
+    if route == "tc":
+        old = _build.load("moe_gmm_bwd").repro_grouped_matmul_bwd
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        fp = None if fills is None else fills.data_ptr()
+
+        def before(need_dx=True, need_dw=True):
+            err = old(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                      dx.data_ptr() if need_dx else None,
+                      dw.data_ptr() if need_dw else None, fp, G, C, D, F, 1,
+                      torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"moe_gmm_bwd.cu bf16: CUDA error {err}")
+        row["before_ms"] = graph_ms(before, 3, 2)
+        row["before_dx_ms"] = graph_ms(lambda: before(need_dw=False), 3, 2)
+        row["before_dw_ms"] = graph_ms(lambda: before(need_dx=False), 3, 2)
     return row
 
 
@@ -2998,6 +3136,8 @@ def moe_train_phase() -> dict:
             ops.force(None)
         gate[f"{which}_launches"] = {c: n for c, n in ops.launches.items()
                                      if n}
+        gate[f"{which}_bwd_routes"] = {c: n for c, n in
+                                       ops.bwd_route_launches.items() if n}
         gate[f"{which}_loss"] = float(met["loss"])
         if which == "cuda":
             grads_k = {n: p.grad.clone() for n, p in params.items()}
@@ -3012,6 +3152,11 @@ def moe_train_phase() -> dict:
     if gate["cuda_launches"] != {c: n for c, n in want32.items() if n}:
         raise AssertionError(f"f32 kernel path launched "
                              f"{gate['cuda_launches']}, expected {want32}")
+    bwd32 = {c: n for c, n in expected_bwd_routes(cfg32).items() if n}
+    if gate["cuda_bwd_routes"] != bwd32 or gate["ref_bwd_routes"]:
+        raise AssertionError(f"f32 backward calls took routes "
+                             f"{gate['cuda_bwd_routes']} (plain path: "
+                             f"{gate['ref_bwd_routes']}), expected {bwd32}")
     if gate["ref_launches"]:
         raise AssertionError(f"plain path launched {gate['ref_launches']}")
     log(f"[14c] f32 {cfg32.name} at {cfg32.n_layers} layers, {GATE_B} x "
@@ -3075,6 +3220,27 @@ def main() -> int:
             raise AssertionError(f"{lib}: an instantiation without tensor-"
                                  f"core instructions: {counts}")
         summary["p1_tc_sass"].update(counts)
+    # the bf16 backward routes run on wgmma: HGMMA in every kernel's SASS,
+    # and no spills in ptxas's report
+    for lib, prefixes in BWD_TC_SOURCES.items():
+        counts = {n: c for n, c in tc_instructions(
+            _build._lib_path(lib), r"\bHGMMA\.").items()
+            if n.startswith(prefixes)}
+        log(f"[1] wgmma instructions (HGMMA) in {lib}'s SASS: {counts}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"{lib}: a kernel without HGMMA "
+                                 f"instructions: {counts}")
+        summary["p1_tc_sass"].update(counts)
+        report = _build.build_log.get(lib)
+        if report is None:
+            log(f"[1] {lib} was loaded from an earlier build: no ptxas "
+                f"report to hold to no spills")
+            continue
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             report)]
+        if not spills or any(spills):
+            raise AssertionError(f"{lib}: ptxas reports spill stores "
+                                 f"{spills}")
     card = card_line()
     clock_hz = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3538,7 +3704,8 @@ def main() -> int:
         f"{r['case']}/{r['dtype'][:4]}": [
             sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
             sig(r["library_ms"]) if r.get("library_ms") else None,
-            sig(r["max_abs_err"])]
+            sig(r["max_abs_err"]),
+            sig(r["before_ms"]) if "before_ms" in r else None]
         for r in p13["attn_rows"] + p13["scan_rows"]}
 
     # --------------------------------------- 14. training olmoe-1b-7b
@@ -3551,7 +3718,8 @@ def main() -> int:
     summary["p14"]["bwd"] = {
         f"{r['case']}/{r['dtype'][:4]}": [
             sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
-            sig(r["library_ms"]), sig(r["max_abs_err"])]
+            sig(r["library_ms"]), sig(r["max_abs_err"]),
+            sig(r["before_ms"]) if "before_ms" in r else None]
         + ([sig(r["dx_ms"]), sig(r["dw_ms"])] if "dx_ms" in r else [])
         for r in p14["gmm_rows"] + p14["attn_rows"]}
 
@@ -3747,16 +3915,22 @@ def main() -> int:
     # 13b and 14b, timed at hymba's training shapes in bf16 (the windowed
     # attention call, 29 of 32 a step; the global one, f32 and olmoe's head
     # dim 128 from phase 14a beside it)
+    # the attention and grouped-matmul entries carry the bf16 route's
+    # (``tc``) kernel and times, the PR 22/23 kernel's bf16 times as
+    # "before" and the f32 (``general``) rows beside them
     def tagged(r, tag):
         return {f"{tag}_{k}": r.get(k) for k in (
-            "ms", "bound_ms", "plain_ms", "library_ms", "call_ms")}
+            "ms", "bound_ms", "plain_ms", "library_ms", "call_ms",
+            "before_ms", "bound6_ms") if k in r}
+    bwd_sources = {"attention_bwd": ("attention_bwd_tc", "attention_bwd"),
+                   "mamba_scan_bwd": ("mamba_scan_bwd", None)}
     for name, rows in (("attention_bwd", p13["attn_rows"]),
                        ("mamba_scan_bwd", p13["scan_rows"])):
         row = next(r for r in rows if r["dtype"] == "bfloat16"
                    and r.get("window", 1024) == 1024)
+        src, general = bwd_sources[name]
         entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/kernels/csrc/"
-                           f"{name}.cu",
+                 "source": f"src/repro_torch/kernels/csrc/{src}.cu",
                  "replaces": BWD_REPLACES[name],
                  "launches": (p13["launches"][name]
                               + p14["launches"][name]),
@@ -3764,6 +3938,16 @@ def main() -> int:
                                   "each",
                  **row_fields(row),
                  "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        if general:
+            entry.update(
+                general_source=f"src/repro_torch/kernels/csrc/{general}.cu",
+                bwd_route_launches={
+                    k: p13["bwd_routes"].get(k, 0) + p14["bwd_routes"].get(
+                        k, 0) for k in p13["bwd_routes"]
+                    if k.startswith("attention")},
+                before_ms=row["before_ms"], bound6_ms=row["bound6_ms"],
+                library_bwd_ms=row["library_bwd_ms"],
+                fwd_lse_ms=row["fwd_lse_ms"])
         for r in rows:
             if r is row:
                 continue
@@ -3789,15 +3973,20 @@ def main() -> int:
     row = next(r for r in rows if r["dtype"] == "bfloat16"
                and r["case"] == "train_gate_up_fill")
     entry = {"name": "grouped_matmul_bwd", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+             "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd_tc.cu",
+             "general_source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
              "replaces": BWD_REPLACES["grouped_matmul_bwd"],
              "launches": p14["launches"]["grouped_matmul_bwd"],
              "launches_from": "phase 14b, 5 training steps",
+             "bwd_route_launches": {k: n for k, n in
+                                    p14["bwd_routes"].items()
+                                    if k.startswith("gmm")},
              **row_fields(row),
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "live_rows": row["live_rows"]}
     for k in ("dx_ms", "dw_ms", "dx_bound_ms", "dw_bound_ms",
-              "library_dx_ms", "library_dw_ms"):
+              "library_dx_ms", "library_dw_ms", "before_ms", "before_dx_ms",
+              "before_dw_ms"):
         entry[k] = row[k]
     for r in rows:
         if r is row:
@@ -3808,6 +3997,9 @@ def main() -> int:
             "f32" if r["dtype"] == "float32" else "") if x)
         entry.update(tagged(r, tag))
         entry[f"{tag}_dx_ms"], entry[f"{tag}_dw_ms"] = r["dx_ms"], r["dw_ms"]
+        for k in ("before_dx_ms", "before_dw_ms"):
+            if k in r:
+                entry[f"{tag}_{k}"] = r[k]
     kernels.append(entry)
     # the forward kernels' launches in training (phases 13b and 14b)
     # beside the serve runs' counts above

@@ -60,10 +60,10 @@ SIGNATURES = {
     "moe_gmm_tc": {
         "repro_grouped_matmul_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
-    # (q, k, v, o, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale, stream)
+    # (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale,
+    #  stream); lse null or (B, H, Sq) f32
     "attention_prefill_tc": {
-        "repro_attention_prefill_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, _F, _P),
+        "repro_attention_prefill_tc": (_P,) * 5 + (_I,) * 9 + (_F, _P),
     },
     # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd,
     #  causal, window, scale, is_bf16, stream)
@@ -74,6 +74,16 @@ SIGNATURES = {
     # null skips its product
     "moe_gmm_bwd": {
         "repro_grouped_matmul_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    },
+    # (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H,
+    #  KV, hd, causal, window, scale, stream)
+    "attention_bwd_tc": {
+        "repro_attention_bwd_tc": (_P,) * 11 + (_I,) * 8 + (_F, _P),
+    },
+    # (x, w, dy, dx, dw, fills, G, C, D, F, ctas, stream); dx or dw null
+    # skips its product
+    "moe_gmm_bwd_tc": {
+        "repro_grouped_matmul_bwd_tc": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     # (u, dt, A, Bc, Cc, D, dy, du, ddt, dA, dBc, dCc, dD, ckpt, part,
     #  dA_part, dD_part, B, S, di, N, chunk, is_bf16, stream)
@@ -92,7 +102,8 @@ SIGNATURES = {
 # shared memory and spills, kept per source in ``build_log``
 PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
                 "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan",
-                "attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd")
+                "attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
+                "attention_bwd_tc", "moe_gmm_bwd_tc")
 build_log: dict[str, str] = {}
 
 

@@ -13,7 +13,11 @@
 // q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o (B, Sq, H,
 // HDV), contiguous bf16, 16-byte aligned, (HD, HDV) one of (64, 64),
 // (128, 128) and MLA's (192, 128); the kv head of q head h is h / (H /
-// KV).  Any Sq, Sk >= 1.
+// KV).  Any Sq, Sk >= 1.  ``lse`` null, or (B, H, Sq) f32: each row's
+// log-sum-exp of its masked scores times scale, in log2 units (m + log2(l)
+// of the online softmax below), which the training path's backward
+// (attention_bwd_tc.cu) takes instead of recomputing it; serving passes
+// null and does the same work as without it.
 //
 // Bound on the card: Sq = Sk = 2048 does 2 * (HD + HDV) FLOPs per live
 // (query, key, head) against 2 bytes per element of q, k, v and o read or
@@ -299,8 +303,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                  int KV, int causal, int window, float scale_log2) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int Sq, int Sk, int H, int KV, int causal, int window,
+                  float scale_log2) {
   using L = Layout<HD, HDV>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
   constexpr int kSN = kBK / 8;     // n8 column blocks of S
@@ -484,6 +489,11 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    const size_t row = (static_cast<size_t>(b) * H + h) * Sq;
+    if (r0 < Sq) lse[row + r0] = m0 + log2f(fmaxf(l0, 1e-30f));
+    if (r1 < Sq) lse[row + r1] = m1 + log2f(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int j = 0; j < kON; ++j) {
     const int col = 8 * j + c_lane;
@@ -549,9 +559,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int HD, int HDV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int causal, int window,
+           float scale, cudaStream_t stream) {
   using L = Layout<HD, HDV>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, H, HD, kBQ) ||
@@ -570,35 +580,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   prefill_tc_kernel<HD, HDV><<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV, causal,
       window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale,
+// stream); ``lse`` null or (B, H, Sq) f32
 extern "C" int repro_attention_prefill_tc(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Sq, int Sk, int H, int KV,
-                                          int hd, int hdv, int causal,
-                                          int window, float scale,
-                                          void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int B, int Sq, int Sk, int H,
+                                          int KV, int hd, int hdv,
+                                          int causal, int window,
+                                          float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
-                          reinterpret_cast<uintptr_t>(o);
+                          reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(lse);
   if (KV <= 0 || H % KV != 0 || (align & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 64 && hdv == 64)
-    return launch<64, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                          scale, s);
+    return launch<64, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                          window, scale, s);
   if (hd == 128 && hdv == 128)
-    return launch<128, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            scale, s);
+    return launch<128, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                            window, scale, s);
   if (hd == 192 && hdv == 128)
-    return launch<192, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            scale, s);
+    return launch<192, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                            window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,11 +24,21 @@ A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
 
 Training: ``attention_train`` runs the forward above through
-``_Attention``, an autograd Function whose backward is
-``csrc/attention_bwd.cu`` (``attention_bwd``), for the calls the training
-path makes -- no explicit positions, (hd, hd_v) in ``BWD_HEAD_DIMS``, f32
-or bf16, causal or not, any window -- and raises for any other call that
-needs a gradient.  ``ref.attention_bwd_ref`` is its plain version.
+``_Attention``, an autograd Function whose backward is ``attention_bwd``,
+for the calls the training path makes -- no explicit positions, hd = hd_v
+in ``BWD_HEAD_DIMS``, f32 or bf16, causal or not, any window -- and raises
+for any other call that needs a gradient.  Backward routes, chosen by
+``bwd_route`` from the dtype and the shapes alone:
+
+- ``tc`` (``csrc/attention_bwd_tc.cu``): bf16 -- wgmma on the tensor cores,
+  tiles by TMA, from the forward's row log-sum-exp, which the forward's
+  ``prefill_tc`` writes beside its output (``flash_attention(...,
+  return_lse=True)``; ``_Attention`` saves it);
+- ``general`` (``csrc/attention_bwd.cu``): f32 -- mma.sync in 3xTF32; it
+  recomputes the log-sum-exp.
+
+``ref.attention_bwd_ref`` is their plain version, ``ref.attention_lse_ref``
+the log-sum-exp's.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ MAX_HEAD_DIM = 256
 DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
 TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (hd, hd_v)
 MAX_SPLITS = 64         # the decode kernel's combine holds this many
-BWD_HEAD_DIMS = (64, 128)   # hd = hd_v of the backward kernel
+BWD_HEAD_DIMS = (64, 128)   # hd = hd_v of the backward kernels
+_BWD_TC_PAD = 128           # the tc backward's scratch rows: Sq rounded up
 
 
 def _pieces_ok(dim: int, itemsize: int) -> bool:
@@ -55,16 +66,24 @@ def _pieces_ok(dim: int, itemsize: int) -> bool:
 
 
 def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
-          hd_v: int, window: int, has_positions: bool) -> str:
+          hd_v: int, window: int, has_positions: bool,
+          with_lse: bool = False) -> str:
     """The kernel an attention call of these shapes goes to (see the module
-    docstring); a pure function of the shapes."""
+    docstring); a pure function of the shapes.  ``with_lse``: the call
+    also wants the row log-sum-exp, which only ``prefill_tc`` writes (a
+    training forward: any number of rows goes there); raises where that
+    route does not take the call."""
     itemsize = dtype.itemsize
-    if (Sq * (H // KV) <= DECODE_ROWS and _pieces_ok(hd, itemsize)
-            and _pieces_ok(hd_v, itemsize)):
+    if (not with_lse and Sq * (H // KV) <= DECODE_ROWS
+            and _pieces_ok(hd, itemsize) and _pieces_ok(hd_v, itemsize)):
         return "decode_split"
     if (dtype == torch.bfloat16 and (hd, hd_v) in TC_HEAD_DIMS
             and not has_positions):
         return "prefill_tc"
+    if with_lse:
+        raise ValueError("only the prefill_tc route writes the log-sum-exp: "
+                         "bf16, no positions, (hd, hd_v) in "
+                         f"{TC_HEAD_DIMS}")
     return "general"
 
 
@@ -100,10 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_pos: torch.Tensor | None = None,
                     k_pos: torch.Tensor | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, return_lse: bool = False):
     """q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) on one
     CUDA device, contiguous, all f32 or all bf16; ``q_pos``/``k_pos``
-    (B, Sq)/(B, Sk) int32.  Returns (B, Sq, H, hd_v) in q's dtype.
+    (B, Sq)/(B, Sk) int32.  Returns (B, Sq, H, hd_v) in q's dtype; with
+    ``return_lse``, (that, the (B, H, Sq) f32 row log-sum-exp in log2
+    units, as ``ref.attention_lse_ref``), from ``prefill_tc`` alone.
 
     Counts as ``flash_attention`` without a window and positions (the
     Pallas kernel's role), else as ``attention_masked``; and once in
@@ -130,10 +151,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ops.check("k_pos", k_pos, (B, Sk), (torch.int32,), dev)
     scale = scale if scale is not None else hd ** -0.5
     which = route(q.dtype, B, Sq, Sk, H, KV, hd, hd_v, window,
-                  q_pos is not None or k_pos is not None)
+                  q_pos is not None or k_pos is not None, return_lse)
     if which != "general" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"route {which} needs 16-byte aligned q, k and v")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     qp = None if q_pos is None else q_pos.data_ptr()
     kp = None if k_pos is None else k_pos.data_ptr()
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -150,9 +173,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 int(window), float(scale), is_bf16, splits, chunk, stream)
         elif which == "prefill_tc":
             err = load("attention_prefill_tc").repro_attention_prefill_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
-                float(scale), stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV,
+                hd, hd_v, int(causal), int(window), float(scale), stream)
         else:
             err = load("flash_attention").repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,
@@ -164,44 +187,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain = window == 0 and q_pos is None and k_pos is None
     ops.launches["flash_attention" if plain else "attention_masked"] += 1
     ops.route_launches[which] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: int, has_positions: bool) -> None:
-    """Raise unless the backward kernel takes a call of these shapes:
-    no positions, hd = hd_v in ``BWD_HEAD_DIMS``, f32 or bf16, and every
-    query row keeps a key (a window can empty the rows past Sk + window)."""
+def bwd_route(dtype, Sq: int, Sk: int, hd: int, hd_v: int, window: int,
+              has_positions: bool) -> str:
+    """The backward kernel an attention call of these shapes goes to (see
+    the module docstring): ``"tc"`` for bf16, ``"general"`` for f32; a pure
+    function of the dtype and the shapes.  Raises for a call that neither
+    takes: explicit positions, hd != hd_v or not in ``BWD_HEAD_DIMS``,
+    another dtype, or a window that leaves query rows past ``Sk + window
+    - 1`` without a key."""
     if has_positions:
         raise RuntimeError("attention with explicit positions has no "
                            "backward kernel")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k and v must be (B, S, heads, head_dim)")
-    hd, hd_v = q.shape[-1], v.shape[-1]
     if hd != hd_v or hd not in BWD_HEAD_DIMS:
         raise RuntimeError(f"attention head dims ({hd}, {hd_v}) have no "
                            f"backward kernel: it takes hd = hd_v in "
                            f"{BWD_HEAD_DIMS}")
-    if q.dtype not in _DTYPES:
-        raise RuntimeError(f"attention in {q.dtype} has no backward kernel")
+    if dtype not in _DTYPES:
+        raise RuntimeError(f"attention in {dtype} has no backward kernel")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if window and q.shape[1] - window >= k.shape[1]:
+    if window and Sq - window >= Sk:
         raise RuntimeError(f"window {window} leaves query rows past "
-                           f"{k.shape[1] + window - 1} without a key")
+                           f"{Sk + window - 1} without a key")
+    return "tc" if dtype == torch.bfloat16 else "general"
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int, has_positions: bool) -> str:
+    """``bwd_route`` of a call of these tensors (raising where no backward
+    kernel takes it)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be (B, S, heads, head_dim)")
+    return bwd_route(q.dtype, q.shape[1], k.shape[1], q.shape[-1],
+                     v.shape[-1], window, has_positions)
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, do: torch.Tensor, *, causal: bool,
-                  window: int, scale: float
+                  window: int, scale: float, lse: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention without positions: q, o, do (B, Sq, H,
     hd), k, v (B, Sk, KV, hd), contiguous and 16-byte aligned on one CUDA
     device, all f32 or all bf16, hd in ``BWD_HEAD_DIMS``; o the forward's
-    output.  The gradients come out in q's dtype.  Counts as
-    ``attention_bwd``."""
+    output; ``lse`` the forward's (B, H, Sq) f32 row log-sum-exp (log2
+    units), which the ``tc`` route (bf16) requires and ``general`` (f32,
+    which recomputes it) does not take.  The gradients come out in q's
+    dtype.  Counts as ``attention_bwd`` and once in
+    ``ops.bwd_route_launches`` under its route."""
+    which = _check_bwd(q, k, v, window, False)
+    if (which == "tc") != (lse is not None):
+        raise ValueError("the tc attention backward (bf16) needs the "
+                         "forward's log-sum-exp, and general (f32) "
+                         "recomputes it: pass lse exactly for bf16")
+    dq, dk, dv = _bwd_launch(which, q, k, v, o, do, lse, causal, window,
+                             scale)
+    ops.launches["attention_bwd"] += 1
+    ops.bwd_route_launches[f"attention_{which}"] += 1
+    return dq, dk, dv
+
+
+def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
+                scale: float):
+    """Check the tensors and launch route ``which``'s backward kernel."""
     from ._build import load
-    _check_bwd(q, k, v, window, False)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dev = q.device
@@ -210,6 +261,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ops.check(name, t, (B, Sk, KV, hd), (q.dtype,), dev)
     for name, t in (("o", o), ("do", do)):
         ops.check(name, t, (B, Sq, H, hd), (q.dtype,), dev)
+    if lse is not None:
+        ops.check("lse", lse, (B, H, Sq), (torch.float32,), dev)
     if KV == 0 or H % KV:
         raise ValueError(f"{H} q heads do not split over {KV} kv heads")
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
@@ -218,41 +271,54 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = load("attention_bwd").repro_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
-            int(causal), int(window), float(scale),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if which == "tc":
+            pad = B * H * _cdiv(Sq, _BWD_TC_PAD) * _BWD_TC_PAD
+            scratch = torch.empty(2 * pad, dtype=torch.float32, device=dev)
+            err = load("attention_bwd_tc").repro_attention_bwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), scratch.data_ptr(), scratch[pad:].data_ptr(),
+                B, Sq, Sk, H, KV, hd, int(causal), int(window), float(scale),
+                stream)
+        else:
+            lse_s = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            delta = torch.empty_like(lse_s)
+            err = load("attention_bwd").repro_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse_s.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
+                int(causal), int(window), float(scale), 0, stream)
     if err:
-        raise RuntimeError(f"attention backward launch failed: CUDA error "
-                           f"{err}")
-    ops.launches["attention_bwd"] += 1
+        raise RuntimeError(f"attention backward ({which}) launch failed: "
+                           f"CUDA error {err}")
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
-    """``flash_attention`` forward (its route unchanged), ``attention_bwd``
-    backward; saves q, k, v and the output."""
+    """``flash_attention`` forward, ``attention_bwd`` backward; saves q, k,
+    v, the output and, where the backward's route is ``tc``, the forward's
+    row log-sum-exp (the forward then runs on ``prefill_tc``, which writes
+    it; otherwise on its usual route)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        o = flash_attention(q, k, v, causal=causal, window=window,
-                            scale=scale)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.args = (causal, window, scale)
+        kw = dict(causal=causal, window=window, scale=scale)
+        lse = None
+        if _check_bwd(q, k, v, window, False) == "tc":
+            o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        else:
+            o = flash_attention(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        causal, window, scale = ctx.args
-        dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(),
-                                   causal=causal, window=window, scale=scale)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), lse=lse,
+                                   **ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -26,10 +26,17 @@ another or to the plain version.
 
 Training: ``grouped_matmul_train`` runs the forward above through
 ``_GroupedMatmul``, an autograd Function whose backward is
-``csrc/moe_gmm_bwd.cu`` (``grouped_matmul_bwd``: dX by ``dx_kernel``, dW
-by ``dw_kernel``, fill-aware, no atomics), for f32 or bf16 with D and F
-multiples of 8, and raises for any other call that needs a gradient.
-``ref.grouped_matmul_aligned_bwd_ref`` is its plain version.
+``grouped_matmul_bwd`` (dX and dW, fill-aware, no atomics), for f32 or
+bf16 with D and F multiples of 8, and raises for any other call that needs
+a gradient.  Backward routes, chosen by ``bwd_route`` from the dtype and
+the shapes alone:
+
+- ``tc`` (``csrc/moe_gmm_bwd_tc.cu``): bf16 -- ``gmm_tc``'s wgmma tile and
+  persistent walk, tiles by TMA, with the operand layouts of the two
+  gradients;
+- ``general`` (``csrc/moe_gmm_bwd.cu``): f32 -- mma.sync in 3xTF32.
+
+``ref.grouped_matmul_aligned_bwd_ref`` is their plain version.
 """
 from __future__ import annotations
 
@@ -115,18 +122,26 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
     return out
 
 
-def _check_bwd(x: torch.Tensor, w: torch.Tensor) -> None:
-    """Raise unless the backward kernel takes a product of these: f32 or
-    bf16, x (rows, D) and w (G, D, F) with D and F multiples of 8."""
-    if x.dim() != 2 or w.dim() != 3:
-        raise ValueError("x must be (G * capacity, D) and w (G, D, F)")
-    if x.dtype not in _DTYPES:
-        raise RuntimeError(f"grouped_matmul in {x.dtype} has no backward "
+def bwd_route(dtype, D: int, F: int) -> str:
+    """The backward kernel a grouped product of these shapes goes to (see
+    the module docstring): ``"tc"`` for bf16, ``"general"`` for f32; a pure
+    function of the dtype and the shapes.  Raises for a product that
+    neither takes: another dtype, or D or F not a multiple of 8."""
+    if dtype not in _DTYPES:
+        raise RuntimeError(f"grouped_matmul in {dtype} has no backward "
                            "kernel")
-    D, F = w.shape[1:]
     if D % 8 or F % 8:
         raise RuntimeError(f"grouped_matmul with D = {D}, F = {F} has no "
                            "backward kernel: it takes multiples of 8")
+    return "tc" if dtype == torch.bfloat16 else "general"
+
+
+def _check_bwd(x: torch.Tensor, w: torch.Tensor) -> str:
+    """``bwd_route`` of a product of these tensors (raising where no
+    backward kernel takes it)."""
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError("x must be (G * capacity, D) and w (G, D, F)")
+    return bwd_route(x.dtype, *w.shape[1:])
 
 
 def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -137,12 +152,23 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dy (G * capacity, F), contiguous and 16-byte aligned on one CUDA
     device, all f32 or all bf16, D and F multiples of 8; ``fills`` None or
     (G,) int32.  Launches only the products asked for (the other comes
-    back None).  Counts once as ``grouped_matmul_bwd``."""
+    back None).  Counts once as ``grouped_matmul_bwd`` and once in
+    ``ops.bwd_route_launches`` under its route."""
+    which = _check_bwd(x, w)
+    dx, dw = _bwd_launch(which, x, w, dy, int(capacity), fills, need_dx,
+                         need_dw)
+    ops.launches["grouped_matmul_bwd"] += 1
+    ops.bwd_route_launches[f"gmm_{which}"] += 1
+    return dx, dw
+
+
+def _bwd_launch(which: str, x, w, dy, C: int, fills, need_dx: bool,
+                need_dw: bool):
+    """Check the tensors and launch route ``which``'s backward kernels."""
     from ._build import load
-    _check_bwd(x, w)
     G, D, F = w.shape
-    C = int(capacity)
-    if C < 1 or G > _MAX_GRID or _cdiv(max(C, D), _BWD_TILE) > _MAX_GRID:
+    if C < 1 or (which == "general" and (
+            G > _MAX_GRID or _cdiv(max(C, D), _BWD_TILE) > _MAX_GRID)):
         raise ValueError(f"{G} groups of capacity {C}, D = {D}: over the "
                          "grid limit")
     dev = x.device
@@ -156,18 +182,21 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                          "x, w and dy")
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
-    with torch.cuda.device(dev):
-        err = load("moe_gmm_bwd").repro_grouped_matmul_bwd(
-            x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+    ptrs = (x.data_ptr(), w.data_ptr(), dy.data_ptr(),
             None if dx is None else dx.data_ptr(),
             None if dw is None else dw.data_ptr(),
-            None if fills is None else fills.data_ptr(), G, C, D, F,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if fills is None else fills.data_ptr(), G, C, D, F)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if which == "tc":
+            err = load("moe_gmm_bwd_tc").repro_grouped_matmul_bwd_tc(
+                *ptrs, sm_count(dev.index), stream)
+        else:
+            err = load("moe_gmm_bwd").repro_grouped_matmul_bwd(*ptrs, 0,
+                                                               stream)
     if err:
-        raise RuntimeError(f"grouped_matmul backward launch failed: CUDA "
-                           f"error {err}")
-    ops.launches["grouped_matmul_bwd"] += 1
+        raise RuntimeError(f"grouped_matmul backward ({which}) launch "
+                           f"failed: CUDA error {err}")
     return dx, dw
 
 

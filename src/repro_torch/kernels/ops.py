@@ -21,10 +21,15 @@ explicit positions, ``flash_attention`` the plain (causal) ones;
 products.  ``route_launches`` counts the attention calls again by the
 kernel that took them (``flash_attention.route``), ``gmm_route_launches``
 the grouped products by theirs (``moe_gmm.route``); ``reset_launches``
-zeroes all three.  ``attention_bwd`` and ``mamba_scan_bwd`` count the
-launches of the attention and scan backward kernels (the training path's
-gradients), ``grouped_matmul_bwd`` the grouped matmul's backward calls
-(one per call, whichever of its two products it launches).
+zeroes these and ``bwd_route_launches`` below.  ``attention_bwd`` and
+``mamba_scan_bwd`` count the launches of the attention and scan backward
+kernels (the training path's gradients), ``grouped_matmul_bwd`` the
+grouped matmul's backward calls (one per call, whichever of its two
+products it launches); ``bwd_route_launches`` counts the attention and
+grouped-matmul backward calls again by the route that took them
+(``flash_attention.bwd_route``, ``moe_gmm.bwd_route``):
+``attention_tc``/``gmm_tc`` the bf16 wgmma kernels,
+``attention_general``/``gmm_general`` the f32 ones.
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
@@ -59,6 +64,9 @@ launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "general": 0}
 gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
+bwd_route_launches: dict[str, int] = {"attention_tc": 0,
+                                      "attention_general": 0, "gmm_tc": 0,
+                                      "gmm_general": 0}
 
 
 def force(which: str | None) -> None:
@@ -75,7 +83,8 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    for counts in (launches, route_launches, gmm_route_launches):
+    for counts in (launches, route_launches, gmm_route_launches,
+                   bwd_route_launches):
         for name in counts:
             counts[name] = 0
 

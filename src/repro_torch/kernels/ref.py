@@ -8,14 +8,16 @@ on the same inputs.  The attention, scan and grouped-matmul versions are
 the twins of the JAX package's jnp references, argument for argument.
 ``attention_bwd_ref``, ``mamba_scan_bwd_ref`` and
 ``grouped_matmul_aligned_bwd_ref`` spell out the backward kernels'
-arithmetic for the tests (no path runs them: the plain versions' gradients
-come from autograd).
+arithmetic for the tests, ``attention_lse_ref`` the row log-sum-exp the
+attention forward hands its backward (no path runs them: the plain
+versions' gradients come from autograd).
 """
 from __future__ import annotations
 
 import torch
 
 _NO_COVER = 127  # > any popcount for P <= 12; also pc[0], the empty subset
+_LOG2E = 1.4426950408889634   # the LSE the attention kernels exchange: log2
 
 
 def min_cover_ref(rows_perm: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
@@ -153,17 +155,52 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(u.dtype), h
 
 
+def _live(Sq: int, Sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """(Sq, Sk) bool: the (query, key) pairs that attention without
+    positions keeps."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        live = live & (qp >= kp)
+    if window:
+        live = live & (qp - kp < window)
+    return live
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                      window: int, scale: float) -> torch.Tensor:
+    """The row log-sum-exp that ``csrc/attention_prefill_tc.cu`` writes
+    beside its output and ``csrc/attention_bwd_tc.cu`` takes, for the tests
+    only: (B, H, Sq) f32, ``log2(sum_k 2^(s_qk * scale * log2(e)))`` over
+    the unmasked keys of each row -- the natural log-sum-exp of the scaled
+    scores times log2(e), **in log2 units**, so that ``P = 2^(S * scale *
+    log2(e) - lse)``.  q (B, Sq, H, hd), k (B, Sk, KV, hd), no positions;
+    masked scores are -1e30, as in ``attention_ref``."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qf = q.reshape(B, Sq, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * scale
+    s = torch.where(_live(Sq, Sk, causal, window, q.device), s,
+                    torch.full_like(s, -1e30))
+    return (torch.logsumexp(s, dim=-1) * _LOG2E).reshape(B, H, Sq)
+
+
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *, causal: bool,
-                      window: int, scale: float
+                      window: int, scale: float,
+                      lse: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The arithmetic of ``csrc/attention_bwd.cu`` in plain PyTorch, for
-    the tests only: (dq, dk, dv) of ``attention_ref`` without positions,
-    from its output ``o`` and the output's gradient ``do``.  In f32: the
-    row log-sum-exp of the masked scores, ``P = exp(S - lse)`` (masked
-    pairs exactly 0), ``delta = rowsum(do * o)``, ``dS = P * (dP -
-    delta)``; dK and dV summed over each kv head's G query heads.  The
-    gradients come out in q's dtype."""
+    """The arithmetic of the attention backward kernels
+    (``csrc/attention_bwd.cu``, ``csrc/attention_bwd_tc.cu``) in plain
+    PyTorch, for the tests only: (dq, dk, dv) of ``attention_ref`` without
+    positions, from its output ``o`` and the output's gradient ``do``.  In
+    f32: ``P = exp(S - lse)`` (masked pairs exactly 0), the row
+    log-sum-exp of the masked scores recomputed, or ``lse`` (B, H, Sq) as
+    ``attention_lse_ref`` gives it (log2 units) where given; ``delta =
+    rowsum(do * o)``, ``dS = P * (dP - delta)``; dK and dV summed over each
+    kv head's G query heads.  The gradients come out in q's dtype."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -171,15 +208,13 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.reshape(B, Sq, KV, G, -1).float()
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        live = live & (qp >= kp)
-    if window:
-        live = live & (qp - kp < window)
+    live = _live(Sq, Sk, causal, window, q.device)
     s = torch.where(live, s, -torch.inf)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if lse is None:
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    else:
+        ln = lse.float().reshape(B, KV, G, Sq)[..., None] / _LOG2E
+        p = torch.exp(s - ln)
     delta = (dof * o.reshape(B, Sq, KV, G, -1).float()).sum(-1)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])

@@ -168,7 +168,12 @@ def test_plain_versions_differentiate_on_the_cpu():
 def test_backward_counters_exist_and_reset():
     assert {"attention_bwd", "mamba_scan_bwd",
             "grouped_matmul_bwd"} <= set(ops.launches)
+    assert set(ops.bwd_route_launches) == {
+        "attention_tc", "attention_general", "gmm_tc", "gmm_general"}
     ops.launches["attention_bwd"] = 3
     ops.launches["grouped_matmul_bwd"] = 2
+    ops.bwd_route_launches["attention_tc"] = 3
+    ops.bwd_route_launches["gmm_general"] = 1
     ops.reset_launches()
     assert not any(ops.launches.values())
+    assert not any(ops.bwd_route_launches.values())

@@ -885,15 +885,21 @@ def _grad_gap(got, want) -> float:
 
 
 # (B, Sq, Sk, H, KV, hd, causal, window): ragged tiles, GQA, windows that
-# end inside a tile, non-causal with Sq != Sk, and hymba's shapes
+# end inside a tile, non-causal with Sq != Sk, Sq and Sk off the tc
+# kernels' 128- and 64-row tiles (190, 333), and hymba's and olmoe's
+# training shapes
 BWD_ATTN_CASES = [
     (2, 100, 100, 6, 2, 64, True, 0),
     (2, 150, 150, 5, 1, 64, True, 40),
     (1, 77, 130, 4, 4, 128, False, 0),
     (2, 130, 130, 4, 2, 128, True, 0),
     (1, 200, 200, 8, 2, 128, False, 33),
+    (2, 190, 190, 3, 3, 64, True, 0),
+    (1, 333, 333, 4, 1, 128, True, 100),
+    (1, 190, 333, 2, 1, 64, False, 70),
     (4, 2048, 2048, 25, 5, 64, True, 0),
     (4, 2048, 2048, 25, 5, 64, True, 1024),
+    (4, 2048, 2048, 16, 16, 128, True, 0),
 ]
 
 
@@ -903,27 +909,44 @@ BWD_ATTN_CASES = [
 def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
                                                     H, KV, hd, causal,
                                                     window, dtype):
-    """The kernel's (dq, dk, dv) against ``attention_bwd_ref`` on the same
-    o and do, and against autograd of ``attention_ref``; and the autograd
-    Function's gradients (forward on its usual route) against autograd of
+    """The kernel's (dq, dk, dv) on its route (``tc`` in bf16, from the
+    forward's LSE; ``general`` in f32) against ``attention_bwd_ref`` on the
+    same o and do, and against autograd of ``attention_ref``, bit-equal
+    over two runs; and the autograd Function's gradients (forward on its
+    usual route, ``prefill_tc`` with the LSE in bf16) against autograd of
     the plain version."""
+    from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(Sq + H + hd)
     q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
     do = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window)
+    scale = hd ** -0.5
+    route = fa.bwd_route(dtype, Sq, Sk, hd, hd, window, False)
+    assert route == ("tc" if dtype == torch.bfloat16 else "general")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o_ref = ref.attention_ref(*leaves, **kw)
     o_ref.backward(do)
     want = [t.grad for t in leaves]
-    o = ops.attention(q, k, v, **kw)
-    from repro_torch.kernels.flash_attention import attention_bwd
+    lse = None
+    if route == "tc":
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        # writing the LSE leaves prefill_tc's output as it was
+        assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+        lse_want = ref.attention_lse_ref(q, k, scale=scale, **kw)
+        assert float((lse - lse_want).abs().max()) <= 1e-3
+    else:
+        o = ops.attention(q, k, v, **kw)
     ops.reset_launches()
-    got = attention_bwd(q, k, v, o, do, scale=hd ** -0.5, **kw)
+    got = fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
+    again = fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
     torch.cuda.synchronize()
-    assert ops.launches["attention_bwd"] == 1
-    plain = ref.attention_bwd_ref(q, k, v, o, do, scale=hd ** -0.5, **kw)
+    assert ops.launches["attention_bwd"] == 2
+    assert ops.bwd_route_launches[f"attention_{route}"] == 2
+    assert sum(ops.bwd_route_launches.values()) == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = ref.attention_bwd_ref(q, k, v, o, do, scale=scale, lse=lse, **kw)
     tol = GRAD_TOL[dtype]
     for name, a, b, c in zip("qkv", got, plain, want):
         assert a.dtype == dtype and a.shape == c.shape
@@ -933,6 +956,7 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
     ops.reset_launches()
     ops.attention(*leaves, **kw).backward(do)
     assert ops.launches["attention_bwd"] == 1
+    assert ops.bwd_route_launches[f"attention_{route}"] == 1
     for t, c in zip(leaves, want):
         assert _grad_gap(t.grad, c) <= tol
 
@@ -1004,37 +1028,63 @@ def test_kernels_without_backward_raise_under_grad(cuda):
 
 
 # (G, C, D, F): row tiles that end inside a group (C 200, 300, 37), D and F
-# that end inside a 128-wide tile and a 32-deep stage (136, 72, 40, 24)
+# that end inside a 128-wide tile and a 32-deep stage (136, 72, 40, 24),
+# and olmoe's training shape with its fills
 BWD_GMM_CASES = [(3, 200, 64, 136), (4, 130, 136, 72), (2, 300, 256, 128),
-                 (5, 37, 40, 24)]
+                 (5, 37, 40, 24), (64, 2560, 2048, 1024)]
+
+
+def _bwd_fills(kind, G, C, cuda):
+    """``_gmm_fills``, or "nan": per group a fill of 1, 64 k + 1 or C in
+    turn (the tc route's 64-row stages end one row into a stage), with x
+    and dy NaN past them."""
+    if kind != "nan":
+        return _gmm_fills(kind, G, C, cuda)
+    cycle = [1, min(C, 64 * (1 + C // 128) + 1), C]
+    return torch.tensor([cycle[g % 3] for g in range(G)], dtype=torch.int32,
+                        device=cuda)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fills", [None, "edges"])
+@pytest.mark.parametrize("fills", [None, "edges", "nan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,C,D,F", BWD_GMM_CASES)
 def test_grouped_matmul_bwd_kernel_matches_plain_version(cuda, no_tf32, G, C,
                                                          D, F, dtype, fills):
-    """The kernels' (dx, dw) against ``grouped_matmul_aligned_bwd_ref`` and
-    against autograd of the plain forward, with x and dy random past the
-    fills (dx exact zeros there, nothing into dw); the autograd Function's
-    gradients against autograd of the plain version; dw bit-equal over two
+    """The kernels' (dx, dw) on their route (``tc`` in bf16, ``general`` in
+    f32) against ``grouped_matmul_aligned_bwd_ref`` and against autograd of
+    the plain forward, with x and dy random (or NaN) past the fills (dx
+    exact zeros there, nothing into dw); the autograd Function's gradients
+    against autograd of the plain version; dx and dw bit-equal over two
     runs; one product alone where only one is asked for."""
     g = torch.Generator(device=cuda).manual_seed(G * C + D + F)
     x = torch.randn((G * C, D), generator=g, device=cuda).to(dtype)
     w = (torch.randn((G, D, F), generator=g, device=cuda)
          / D ** 0.5).to(dtype)
     dy = torch.randn((G * C, F), generator=g, device=cuda).to(dtype)
-    fl = _gmm_fills(fills, G, C, cuda)
-    leaves = [t.clone().requires_grad_() for t in (x, w)]
-    ref.grouped_matmul_aligned_ref(*leaves, C, fl).backward(dy)
+    fl = _bwd_fills(fills, G, C, cuda)
+    route = moe_gmm.bwd_route(dtype, D, F)
+    assert route == ("tc" if dtype == torch.bfloat16 else "general")
+    # the references run where the rows past the fills are zeros: autograd
+    # would carry NaN there into dw as 0 * NaN
+    x0, dy0 = x.clone(), dy.clone()
+    if fills == "nan":
+        past = torch.arange(C, device=cuda)[None, :] >= fl[:, None]
+        x.view(G, C, D)[past] = float("nan")
+        dy.view(G, C, F)[past] = float("nan")
+        x0.view(G, C, D)[past] = 0
+        dy0.view(G, C, F)[past] = 0
+    leaves = [t.clone().requires_grad_() for t in (x0, w)]
+    ref.grouped_matmul_aligned_ref(*leaves, C, fl).backward(dy0)
     want = [t.grad for t in leaves]
     ops.reset_launches()
     got = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl)
     again = moe_gmm.grouped_matmul_bwd(x, w, dy, C, fl)
     torch.cuda.synchronize()
     assert ops.launches["grouped_matmul_bwd"] == 2
-    plain = ref.grouped_matmul_aligned_bwd_ref(x, w, dy, C, fl)
+    assert ops.bwd_route_launches[f"gmm_{route}"] == 2
+    assert sum(ops.bwd_route_launches.values()) == 2
+    plain = ref.grouped_matmul_aligned_bwd_ref(x0, w, dy0, C, fl)
     tol = GRAD_TOL[dtype]
     for name, a, b, c in zip(("dx", "dw"), got, plain, want):
         assert a.dtype == dtype and a.shape == c.shape
@@ -1054,6 +1104,7 @@ def test_grouped_matmul_bwd_kernel_matches_plain_version(cuda, no_tf32, G, C,
     ops.grouped_matmul_aligned(*leaves, C, fl).backward(dy)
     assert ops.launches["grouped_matmul"] == 1
     assert ops.launches["grouped_matmul_bwd"] == 1
+    assert ops.bwd_route_launches[f"gmm_{route}"] == 1
     for t, c in zip(leaves, want):
         assert _grad_gap(t.grad, c) <= tol
 
