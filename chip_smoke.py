@@ -171,8 +171,11 @@ in order; any failure propagates and the exit code is nonzero:
    and its backward alone beside it), the PR 22 kernel's bf16
    instantiation called directly ("before") and the ``prefill_tc``
    forward with and without the LSE written, in turns; the scan (4,
-   2048, 3200, 16) beside its bound (``scan_bound`` with 13 FMA-pipe
-   instructions and 2 exps per (t, d, n)) and its plain backward.  (b)
+   2048, 3200, 16) on the plan's segments (``mamba_scan.bwd_plan``),
+   two runs bit-equal, beside its bound (``scan_bound`` with 13 FMA-pipe
+   instructions and 2 exps per (t, d, n)) and its plain backward, with
+   its segment count and each pass's device time (pass 1, pass 2, the
+   finish) from a ``torch.profiler`` trace of whole calls.  (b)
    Five training steps at full width and depth, bf16, remat "full", 4 x
    2048 tokens from ``SyntheticTokenStream(seed=0)``, AdamW as
    ``launch/train.py`` sets it (lr 3e-4, one warm-up step, 5 steps), the
@@ -2335,6 +2338,9 @@ BWD_SCAN_CASE = (4, 2048, 3200, 16)
 # two exps (a_t in each direction)
 SCAN_BWD_FMA_PER_ELEM = 13
 SCAN_BWD_EXP_PER_ELEM = 2
+# the scan backward's kernels (``csrc/mamba_scan_bwd.cu``) by pass
+SCAN_BWD_PASSES = {"pass1": "seg_fwd_kernel", "pass2": "seg_bwd_kernel",
+                   "finish": "finish_kernel"}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 GATE_B = 2
 
@@ -2476,16 +2482,12 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
     return row
 
 
-def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
-                   sms: int) -> dict:
-    """The scan's backward kernel against autograd of the plain version at
-    hymba's training shape, timed beside its bound and the plain
-    version's backward (``mamba_scan_bwd_ref``); no library call computes
-    it."""
+def scan_bwd_inputs(dtype_name: str, seed: int) -> tuple:
+    """The scan backward's inputs at ``BWD_SCAN_CASE`` on the card, from
+    ``seed``: ((u, dt, A, Bc, Cc, D), dy); A is -(1 .. N) on every
+    channel, as Mamba initialises it."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
     B, S, di, N = BWD_SCAN_CASE
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -2499,18 +2501,34 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
                       device=dev).expand(di, N).contiguous()
     Bc, Cc, D = rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype), rnd(di)
     dy = rnd(B, S, di).to(dtype)
-    ins = (u, dt, A, Bc, Cc, D)
+    return (u, dt, A, Bc, Cc, D), dy
+
+
+def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
+                   sms: int) -> dict:
+    """The scan's backward kernel against autograd of the plain version at
+    hymba's training shape, two runs bit-equal, timed beside its bound and
+    the plain version's backward (``mamba_scan_bwd_ref`` on the kernel's
+    segments); no library call computes it.  Beside: its segment count
+    and each pass's device time (``scan_bwd_pass_ms``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import mamba_scan as ms
+    B, S, di, N = BWD_SCAN_CASE
+    ins, dy = scan_bwd_inputs(dtype_name, seed)
+    u = ins[0]
     leaves = [t.clone().requires_grad_() for t in ins]
     ref.mamba_scan_ref(*leaves)[0].backward(dy)
     want = [t.grad for t in leaves]
     del leaves
+    plan = ms.bwd_plan(B, S, di, N)
 
     def run():
-        return mamba_scan_bwd(*ins, dy)
+        return ms.mamba_scan_bwd(*ins, dy)
 
     def plain():
-        return ref.mamba_scan_bwd_ref(*ins, dy)
-    got = run()
+        return ref.mamba_scan_bwd_ref(*ins, dy, segment=plan["seg_len"])
+    got, again = run(), run()
     torch.cuda.synchronize()
     names = ("du", "ddt", "dA", "dBc", "dCc", "dD")
     errs = {n: grad_gap(a, b) for n, a, b in zip(names, got, want)}
@@ -2518,21 +2536,61 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
     if max(errs.values()) > tol:
         raise AssertionError(f"scan backward {dtype_name}: {errs} past "
                              f"{tol}")
-    del got, want
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"scan backward {dtype_name}: two runs "
+                             f"differ")
+    del got, again, want
     esize = u.element_size()
     nbytes = (esize * (5 * B * S * di + 4 * B * S * N)
               + 4 * (2 * di * N + 2 * di))
     bound = scan_bound(B, S, di, N, esize, False, clock_hz, sms,
                        fma_per_elem=SCAN_BWD_FMA_PER_ELEM,
                        exp_per_elem=SCAN_BWD_EXP_PER_ELEM, nbytes=nbytes)
+    row = {"case": "train", "dtype": dtype_name, "shape": [B, S, di, N],
+           "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
+           "bit_equal": True, "segments": plan["nseg"],
+           "segment_steps": plan["seg_len"], "ms": graph_ms(run, 3, 3),
+           "call_ms": time_ms(run, 3)}
+    row["pass_ms"] = scan_bwd_pass_ms(run, 10)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain()
     torch.cuda.synchronize()
-    return {"case": "train", "dtype": dtype_name, "shape": [B, S, di, N],
-            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
-            "ms": graph_ms(run, 3, 3), "call_ms": time_ms(run, 3),
-            "plain_ms": 1e3 * (time.perf_counter() - t0),
+    return {**row, "plain_ms": 1e3 * (time.perf_counter() - t0),
             "library_ms": None, **bound}
+
+
+def scan_bwd_pass_ms(fn, reps: int) -> dict:
+    """Each pass of the scan's backward (``SCAN_BWD_PASSES``): its device
+    time per call, from ``reps`` whole calls of ``fn`` under
+    ``torch.profiler``, keyed by kernel name.  Each pass launches one
+    kernel a call, so its time is the mean over the launches the trace
+    holds: the trace can miss some (on the H100 it kept none of a
+    profile's first launches after other work had run), and a pass still
+    missing after three profiles is "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    us = {k: 0.0 for k in SCAN_BWD_PASSES}
+    n = {k: 0 for k in SCAN_BWD_PASSES}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for k, name in SCAN_BWD_PASSES.items():
+                if name in e.key:
+                    us[k] += e.self_device_time_total
+                    n[k] += e.count
+        if all(n.values()):
+            break
+    return {k: sig(us[k] / 1e3 / n[k]) if n[k] else "not measured"
+            for k in SCAN_BWD_PASSES}
 
 
 def expected_train_launches(cfg) -> dict:
@@ -2604,7 +2662,7 @@ def train_step_split(ts, state, batch) -> dict:
              "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
              "scan_fwd": ("scan_kernel",),
              "attention_bwd": ("dq_kernel", "dkv_kernel"),
-             "scan_bwd": ("scan_bwd_kernel", "finish_kernel"),
+             "scan_bwd": tuple(SCAN_BWD_PASSES.values()),
              "gmm_fwd": ("gmm_tc_kernel", "gmm_kernel", "gmv_kernel"),
              "gmm_bwd": ("dx_kernel", "dw_kernel"),
              "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_")}
@@ -3956,8 +4014,9 @@ def main() -> int:
                 "f32" if r["dtype"] == "float32" else "") if x)
             entry.update(tagged(r, tag))
         if name == "mamba_scan_bwd":
-            entry.update(bound_terms_ms=row["bound_terms_ms"],
-                         exp_sfu_share=row["exp_sfu_share"])
+            entry.update({k: row[k] for k in (
+                "bound_terms_ms", "exp_sfu_share", "segments",
+                "segment_steps", "pass_ms")})
         else:
             entry["library_fwd_ms"] = row["library_fwd_ms"]
             entry["fwd_ms"] = row["fwd_ms"]

@@ -85,10 +85,12 @@ SIGNATURES = {
     "moe_gmm_bwd_tc": {
         "repro_grouped_matmul_bwd_tc": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
-    # (u, dt, A, Bc, Cc, D, dy, du, ddt, dA, dBc, dCc, dD, ckpt, part,
-    #  dA_part, dD_part, B, S, di, N, chunk, is_bf16, stream)
+    # (u, dt, A, Bc, Cc, D, dy, du, ddt, dA, dBc, dCc, dD, ckpt, cumdt,
+    #  hend, gsum, dtsum, part, dA_part, dD_part, B, S, di, N, chunk,
+    #  seg_len, is_bf16, stream); the scratch as
+    #  ``mamba_scan.bwd_plan`` shapes it
     "mamba_scan_bwd": {
-        "repro_mamba_scan_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
+        "repro_mamba_scan_bwd": (_P,) * 21 + (_I,) * 7 + (_P,),
     },
     # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
     #  window, scale, is_bf16, splits, chunk, stream)

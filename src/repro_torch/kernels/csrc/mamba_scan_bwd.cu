@@ -15,44 +15,78 @@
 //     du_t = dy_t D + dt_t sum_n g_t B_t
 //     ddt_t = u_t sum_n g_t B_t + sum_n g_t (a_t h_{t-1}) A
 //     dA += sum_{b,t} g_t (a_t h_{t-1}) dt_t,  dD += sum_{b,t} dy_t u_t
-// with a_t h_{t-1} taken as h_t - x_t B_t.
+// with g_t (a_t h_{t-1}) taken as (a_t g_t) h_{t-1}, a_t g_t being the
+// carry into step t - 1.
 //
 // u, dt, dy (B, S, di) and Bc, Cc (B, S, N), contiguous, all f32 or all
 // bf16; A (di, N), D (di,) f32.  du, ddt (B, S, di) and dBc, dCc (B, S, N)
-// come out in u's dtype, dA (di, N) and dD (di,) in f32.  Scratch (f32):
-// the checkpoints (B, S / kT, N, di), the per-block partial sums of dBc
-// and dCc (di / 32, B, S, 2N), and per batch row dA (B, di, N) and dD
-// (B, di).
+// come out in u's dtype, dA (di, N) and dD (di,) in f32.  Scratch, all f32,
+// shapes from ``mamba_scan.py::bwd_plan``: the local checkpoints (B, S /
+// kT, di, N) and the dt summed from the segment's start to each (B, S /
+// kT, di); the segment summaries hend, gsum (B, nseg, di, N) and dtsum (B,
+// nseg, di); the partial sums of dBc and dCc per 32-channel block (di / 32,
+// B, S, 2N); dA and dD per (batch row, segment) (B, nseg, di, N), (B, nseg,
+// di).
 //
 // Bound on the card: the larger of the bytes (u, dt, dy, du and ddt once;
 // Bc, Cc, dBc and dCc once; A, D, dA and dD once) and the least
 // arithmetic: per (t, d, n) one forward recurrence for the states and the
-// reverse walk, 13 FMA-pipe instructions and two exps -- which bind, as
-// the forward scan's exps do.  This kernel recomputes each chunk's states
-// once more (three exps).
+// reverse walk, 13 FMA-pipe instructions and two exps -- which bind.  At
+// hymba's training shape (4, 2048, 3200, 16) in bf16: 0.184 ms (the bytes
+// alone 0.079 ms).
 //
-// Design, deterministic (no atomics):
-// * scan_bwd_kernel: a block holds 32 channels of one batch row; a
-//   channel's N states are spread over G = N / K lanes, K = min(N, 4)
-//   states a lane (at N = 16: 4 lanes a channel, 8 channels a warp, 4
-//   warps), so hymba's shape runs 1,600 warps.  Every lane of a block
-//   reads the same Bc and Cc.  The block stages each chunk of kT = 16
-//   steps (u, dt, dy of its channels and Bc, Cc, converted to f32) into
-//   shared memory with coalesced loads, so a dependent global load is paid
-//   once a chunk, not once a step.  It runs the recurrence forward and
-//   writes the state at every chunk boundary; then walks the chunks in
-//   reverse: each chunk's states are recomputed from its checkpoint into
-//   shared memory, and its steps are walked backwards carrying g.  Per
-//   step the G lanes of a channel sum their terms of du and ddt by
-//   shuffles, and the warp's channels sum their 2N contributions to dBc
-//   and dCc by a butterfly reduce-scatter (7 shuffles at N = 16: lane j of
-//   a state group ends with one value); the warps' sums meet in shared
-//   memory, and each chunk writes du, ddt and one partial of dBc and dCc
-//   per (block, b, t) with coalesced stores.  dA and dD stay in registers
-//   over the sequence.
-// * finish_kernel sums the partials over the di / 32 blocks (dBc, dCc) and
-//   dA and dD over the batch rows, in a fixed order.
-// The softplus of dt and A = -exp(A_log) stay outside, under autograd.
+// Design.  Both recurrences are linear, so the sequence is cut into nseg
+// segments of L steps (a multiple of kT = 8; 8 segments of 256 steps at
+// hymba's shape, ``mamba_scan.bwd_plan``) that run in parallel, one block
+// per (32 channels, batch row, segment) in each pass:
+// * seg_fwd_kernel (pass 1): the forward recurrence over the segment from
+//   h = 0, writing the local state and the dt summed so far at every
+//   chunk boundary, and the segment's summaries: its local end state
+//   hend, Sum dt (whose exp is the segment's decay: prod_t a_t =
+//   exp(A Sum dt)), and gsum = sum_t (prod_{k <= t} a_k) dy_t C_t, the
+//   carry a_{t0} g_{t0} that the segment sends to the one before it when
+//   nothing comes from behind it.  The product runs from the segment's
+//   first step: the carry out of a segment holds the decay of its own
+//   first step.  One exp per (t, d, n), shared by the state and the
+//   product.
+// * seg_bwd_kernel (pass 2): each lane first folds the summaries in a
+//   fixed order -- those before its segment into the true start state
+//   (h <- exp(A Sum dt_j) h + hend_j), those after it into the true carry
+//   (G <- gsum_j + exp(A Sum dt_j) G) -- then walks the segment's chunks
+//   in reverse: the chunk's start state is the checkpoint fixed up, h_loc
+//   + exp(A Sum dt) h_start (one exp per chunk); the chunk's kT steps are
+//   recomputed with their states and decays kept in registers, then
+//   walked backwards carrying a_t g_t.  One exp per (t, d, n): the walk
+//   reuses the recompute's decays.
+// * finish_kernel sums the dBc and dCc partials over the di / 32 blocks
+//   and dA and dD over the (batch row, segment) partials, in a fixed order.
+// Inside a block: the block stages each chunk of u, dt, dy (kT x 32) and
+// Bc, Cc (kT x N) by cp.async, a 16-byte piece a thread, into a ring of
+// three buffers two chunks ahead of the compute, and converts it to f32
+// (dt, dt * u, u, dy, B, C) once for all its warps.  A lane holds KC = 2
+// adjacent channels and K = 2 states of each (at N = 16: 8 lanes a
+// channel pair, 8 channels a warp, 4 warps; small N take fewer), so the
+// sums over the channels (dBc, dCc) start in the lane and end in a
+// butterfly reduce-scatter over the warp's channel groups (3 shuffles a
+// step at N = 16), and the block's warps meet in shared memory; the sums
+// over a channel's states (for du and ddt) go to shared memory per step
+// (padded against bank conflicts, ``SpLayout``) and are added, with du
+// and ddt written, in a pass over the chunk after it.  The chunk's kT
+// steps run unrolled, states and decays in registers (at most 128 a
+// thread: four blocks an SM).  Steps past S and channels past di are
+// zeros, which leave the states and carries as they are.  Every exp is
+// one MUFU.EX2 of dt A log2(e) + 1, non-negative where the decay is near
+// 1 (``decay``).  Deterministic: no atomics, every sum in a fixed order.
+//
+// What holds it back (H100, hymba's shape in bf16, PERF.md section 7):
+// 0.88 ms against the 0.184 ms bound -- pass 1 0.23, pass 2 0.60, the
+// finish 0.04.  Timing probes built apart from this source found pass 2
+// 0.25 ms faster without its walk, 0.13 ms faster without the pass that
+// writes du, ddt and the dBc/dCc partials, and only 0.02 and 0.01 ms
+// faster without the exps or the butterfly.  Beyond the
+// bound's 263 MB the kernel moves the checkpoints (210 MB written, read
+// back) and the partials (105 MB written, read back): about 1.05 GB in
+// all, 0.31 ms at the card's 3.35 TB/s.
 // Launches go on the caller's stream and never synchronise; the launcher
 // returns cudaGetLastError().
 
@@ -63,17 +97,49 @@
 
 namespace {
 
-constexpr int kT = 16;                // steps per checkpointed chunk
+constexpr int kT = 8;                 // steps per checkpointed chunk
+constexpr int kStages = 3;            // staging ring of a block
+constexpr int kChannels = 32;         // channels of a block
 constexpr int kFinishThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+template <typename T>
+__device__ __forceinline__ T zero() {
+  T z;
+  store(&z, 0.f);
+  return z;
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// V consecutive floats, as one vector load or store where V allows (the
+// caller keeps them aligned)
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
+  if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
 }
 
 // 2^x, one MUFU.EX2; subnormal results flush to 0
@@ -82,6 +148,53 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// exp(dt * A) from a2 = A * log2(e), as 2^(y + 1) / 2 with y = dt * a2:
+// the special-function unit truncates the fraction of a negative argument,
+// so ex2 of y itself comes out 1-2 ulp low for most y in (-1, 0) -- a bias
+// that a state with a long memory accumulates step after step (see
+// mamba_scan.cu::decay2).  dt = 0 gives exactly 1.
+__device__ __forceinline__ float decay(float dt, float a2) {
+  return 0.5f * ex2(fmaf(dt, a2, 1.f));
+}
+
+// 16 bytes global -> shared, the first ``src_bytes`` of them read and the
+// rest zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all_but_two_newest() {
+  asm volatile("cp.async.wait_group 2;\n" ::);
+}
+
+
+__host__ __device__ constexpr int log2i(int v) {
+  return v <= 1 ? 0 : 1 + log2i(v / 2);
+}
+
+// how a block's 32 channels and N states spread over its lanes: a lane
+// holds KC adjacent channels and K states of each; the G lanes of a
+// channel group hold its N states; a warp holds CG groups
+template <int N>
+struct Shape {
+  static constexpr int K = N < 2 ? N : 2;          // states a lane
+  static constexpr int G = N / K;                  // lanes a channel group
+  static constexpr int CG = 32 / G;                // groups a warp
+  static constexpr int KC = N < 4 ? 1 : 2;         // channels a lane
+  static constexpr int CW = CG * KC;               // channels a warp
+  static constexpr int W = kChannels / CW;         // warps a block
+  static constexpr int kThreads = 32 * W;
+  // the walk's dBc/dCc values: 2K, each summed over the lane's channels,
+  // then over the warp's CG groups
+  static constexpr int V = 2 * K;
+  static_assert(V <= CG && CW <= kChannels, "a shape the lanes hold");
+};
 
 struct Args {
   const void* u;
@@ -97,35 +210,133 @@ struct Args {
   void* dBc;
   void* dCc;
   float* dD;
-  float* ckpt;      // (B, nC, N, di)
-  float* part;      // (di / 32, B, S, 2N)
-  float* dA_part;   // (B, di, N)
-  float* dD_part;   // (B, di)
-  int B, S, di;
+  float* ckpt;      // (B, nC, di, N): local state at each chunk's start
+  float* cumdt;     // (B, nC, di): dt summed from the segment's start
+  float* hend;      // (B, nseg, di, N): local end state of each segment
+  float* gsum;      // (B, nseg, di, N): carry out of each segment, alone
+  float* dtsum;     // (B, nseg, di): dt summed over each segment
+  float* part;      // (di / 32, B, S, 2N): dBc, dCc per 32-channel block
+  float* dA_part;   // (B, nseg, di, N)
+  float* dD_part;   // (B, nseg, di)
+  int B, S, di, L, nseg;
 };
 
-__host__ __device__ constexpr int log2i(int v) {
-  return v <= 1 ? 0 : 1 + log2i(v / 2);
+// pass 2's per-step sums over each lane's states, 2 KC floats a lane
+// (s1, s2 of each channel): [W][kT][CG][G] entries, padded (4 floats a
+// group, 16 a warp) so that the chunk pass, whose threads read one
+// channel's G entries each, meets no more than two to a bank
+template <int N>
+struct SpLayout {
+  using C = Shape<N>;
+  static constexpr int kEntry = 2 * C::KC;
+  static constexpr int kGroup = C::G * kEntry + 4;
+  static constexpr int kRow = C::CG * kGroup;          // one warp's step
+  static constexpr int kWarp = kT * kRow + 16;
+  static constexpr int kFloats = C::W * kWarp;
+  __host__ __device__ static constexpr int at(int w, int t, int cg, int g) {
+    return w * kWarp + t * kRow + cg * kGroup + g * kEntry;
+  }
+};
+
+// shared memory of a block, in bytes, and its pieces' offsets: the
+// staging ring (u, dt, dy as [kT][32], Bc, Cc as [kT][N], in T); the f32
+// chunk (dt, x = dt * u, u, dy as [kT][32], B, C as [kT][N]); pass 2's
+// per-step sums over each lane's states (``SpLayout``) and the warps'
+// dBc/dCc sums [W][kT][2N]
+template <typename T, int N>
+struct Smem {
+  static constexpr int kStage =
+      (3 * kT * kChannels + 2 * kT * N) * static_cast<int>(sizeof(T));
+  static constexpr int kF32 = kStages * kStage;
+  static constexpr int kSp = kF32 + (4 * kT * kChannels + 2 * kT * N) * 4;
+  static constexpr int kRed = kSp + SpLayout<N>::kFloats * 4;
+  static constexpr int kFwd = kSp;
+  static constexpr int kBwd = kRed + Shape<N>::W * kT * 2 * N * 4;
+};
+
+struct Tile {      // ``steps`` steps from ``t0`` of row ``b``, 32 channels
+  int b, t0, steps, S, di, d0;
+  __device__ size_t row(int t) const {
+    return (static_cast<size_t>(b) * S + t0 + t) * di + d0;
+  }
+};
+
+// issue the loads of a chunk into a staging buffer (VEC: cp.async, one
+// 16-byte piece a thread at a time, else plain loads and stores), by the
+// block's threads; steps past ``c.steps`` are zeros
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void stage(unsigned char* st, const Args& a,
+                                      const Tile& c, int tid) {
+  constexpr int kThreads = Shape<N>::kThreads;
+  T* us = reinterpret_cast<T*>(st);
+  T* Bs = us + 3 * kT * kChannels;
+  // u, dt, dy (m = 0, 1, 2) and Bc, Cc (m = 0, 1)
+  auto src = [&](int m) {
+    return static_cast<const T*>(m == 0 ? a.u : m == 1 ? a.dt : a.dy);
+  };
+  auto bsrc = [&](int m) {
+    return static_cast<const T*>(m == 0 ? a.Bc : a.Cc);
+  };
+  const size_t bc0 = (static_cast<size_t>(c.b) * c.S + c.t0) * N;
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T);    // elements per piece
+    constexpr int RP = kChannels / E;    // pieces per row
+    constexpr int kRows = 3 * kT * RP;
+    constexpr int kBC = kT * N / E;      // pieces of each of Bc and Cc
+    for (int i = tid; i < kRows + 2 * kBC; i += kThreads) {
+      if (i < kRows) {
+        const int m = i / (kT * RP), r = i % (kT * RP);
+        const int t = r / RP, ch = (r % RP) * E;
+        const bool ok = t < c.steps && c.d0 + ch < c.di;  // whole: E | di
+        cp_async16(us + (m * kT + t) * kChannels + ch,
+                   src(m) + (ok ? c.row(t) + ch : 0), ok ? 16 : 0);
+      } else {
+        // the chunk's kT x N values of Bc (Cc) are one contiguous range
+        const int m = (i - kRows) / kBC, e0 = ((i - kRows) % kBC) * E;
+        const int n = max(0, min(E, c.steps * N - e0));
+        cp_async16(Bs + m * kT * N + e0, bsrc(m) + (n ? bc0 + e0 : 0),
+                   n * static_cast<int>(sizeof(T)));
+      }
+    }
+  } else {
+    for (int i = tid; i < 3 * kT * kChannels; i += kThreads) {
+      const int m = i / (kT * kChannels), r = i % (kT * kChannels);
+      const int t = r / kChannels, ch = r % kChannels;
+      const bool ok = t < c.steps && c.d0 + ch < c.di;
+      us[i] = ok ? src(m)[c.row(t) + ch] : zero<T>();
+    }
+    for (int i = tid; i < 2 * kT * N; i += kThreads) {
+      const int m = i / (kT * N), r = i % (kT * N);
+      Bs[i] = r < c.steps * N ? bsrc(m)[bc0 + r] : zero<T>();
+    }
+  }
 }
 
-constexpr int kChannels = 32;         // channels of a block
+// a staged chunk to f32, two values a thread at a time: dt, x = dt * u
+// (the product the reference rounds), u, dy, B, C
+template <typename T, int N>
+__device__ __forceinline__ void convert(const unsigned char* st, float* f,
+                                        int tid) {
+  constexpr int kThreads = Shape<N>::kThreads;
+  constexpr int R = kT * kChannels;
+  const T* us = reinterpret_cast<const T*>(st);
+  const T* dts = us + R;
+  const T* dys = dts + R;
+  const T* Bs = dys + R;
+  for (int o = 2 * tid; o < R; o += 2 * kThreads) {
+    const float2 d = load2(dts + o), x = load2(us + o);
+    *reinterpret_cast<float2*>(f + o) = d;
+    *reinterpret_cast<float2*>(f + R + o) = make_float2(d.x * x.x,
+                                                        d.y * x.y);
+    *reinterpret_cast<float2*>(f + 2 * R + o) = x;
+    *reinterpret_cast<float2*>(f + 3 * R + o) = load2(dys + o);
+  }
+  // Bc and Cc are adjacent in both layouts
+  for (int o = 2 * tid; o < 2 * kT * N; o += 2 * kThreads)
+    *reinterpret_cast<float2*>(f + 4 * R + o) = load2(Bs + o);
+}
 
-// how a channel's N states spread over a warp's lanes
-template <int N>
-struct Shape {
-  static constexpr int K = N < 4 ? N : 4;        // states a lane
-  static constexpr int G = N / K;                // lanes a channel
-  static constexpr int CW = 32 / G;              // channels a warp
-  static constexpr int W = kChannels / CW;       // warps a block
-  // shared memory, f32: the staged chunk (u, dt, dy [kT][32]; Bc, Cc
-  // [kT][N]), its states [kT][32][N], the warps' partials of dBc and dCc
-  // [W][kT][2N], du and ddt [kT][32]
-  static constexpr size_t kBytes =
-      4 * static_cast<size_t>(5 * kT * kChannels + 2 * kT * N +
-                              kT * kChannels * N + W * kT * 2 * N);
-};
-
-// V values a lane summed over the channels of its warp (the lanes
+// V values a lane summed over its warp's channel groups (the lanes
 // c * G + g of one state group g; V a power of two <= 32 / G): lane
 // c * G + g returns the sum of value c / (32 / G / V).  The first log2 V
 // levels of the butterfly halve the values each lane carries; the rest
@@ -151,180 +362,344 @@ __device__ __forceinline__ float reduce_channels(float (&v)[V], int lane) {
   return x;
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(128) scan_bwd_kernel(Args a) {
+// the segment of blockIdx.z: its first step, its end and its chunks
+struct Segment {
+  int t0, end, nc;
+  __device__ explicit Segment(const Args& a) {
+    t0 = blockIdx.z * a.L;
+    end = min(a.S, t0 + a.L);
+    nc = (end - t0 + kT - 1) / kT;
+  }
+  // chunk c of the segment, of batch row b
+  __device__ Tile tile(const Args& a, int b, int c) const {
+    return Tile{b, t0 + c * kT, min(kT, end - t0 - c * kT), a.S, a.di,
+                static_cast<int>(blockIdx.x) * kChannels};
+  }
+};
+
+// a thread's place in its block: its lane's KC adjacent channels (from c0
+// in the block, d0 in the tensor) and states g * K ..
+template <int N>
+struct Lane {
   using C = Shape<N>;
-  constexpr int K = C::K, G = C::G, CW = C::CW, W = C::W, V = 2 * K;
-  constexpr int kThreads = 32 * W;
-  extern __shared__ __align__(16) float sm[];
-  float* su = sm;                          // [kT][32]
-  float* sdt = su + kT * kChannels;
-  float* sdy = sdt + kT * kChannels;
-  float* sdu = sdy + kT * kChannels;
-  float* sddt = sdu + kT * kChannels;
-  float* sB = sddt + kT * kChannels;       // [kT][N]
-  float* sC = sB + kT * N;
-  float* hs = sC + kT * N;                 // [kT][32][N]
-  float* red = hs + kT * kChannels * N;    // [W][kT][2N]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int cw = lane / G, g = lane % G;
-  const int ch = warp * CW + cw;           // the lane's channel in the block
-  const int blk = blockIdx.x, b = blockIdx.y;
-  const int S = a.S, di = a.di;
-  const int d0 = blk * kChannels, d = d0 + ch;
-  const bool ok = d < di;
-  const int nC = (S + kT - 1) / kT;
-  const T* u = static_cast<const T*>(a.u);
-  const T* dt = static_cast<const T*>(a.dt);
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* Bc = static_cast<const T*>(a.Bc);
-  const T* Cc = static_cast<const T*>(a.Cc);
-  float A2[K], Af[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    Af[k] = ok ? a.A[static_cast<size_t>(d) * N + g * K + k] : 0.f;
-    A2[k] = Af[k] * kLog2e;
+  int tid, warp, lane, g, c0, d0;
+  __device__ Lane() {
+    tid = threadIdx.x;
+    warp = tid / 32;
+    lane = tid % 32;
+    g = lane % C::G;
+    c0 = warp * C::CW + (lane / C::G) * C::KC;
+    d0 = blockIdx.x * kChannels + c0;
   }
-  const float Dd = ok ? a.D[d] : 0.f;
-  auto ckpt = [&](int c, int k) -> float& {
-    return a.ckpt[((static_cast<size_t>(b) * nC + c) * N + g * K + k) * di +
-                  d];
-  };
-  // chunk c of the block's inputs to shared memory (f32, zeros past the
-  // ends); dy and Cc only for the reverse walk
-  auto stage = [&](int c, bool rev) {
-    const int t0 = c * kT;
-    for (int i = tid; i < kT * kChannels; i += kThreads) {
-      const int t = t0 + i / kChannels, dd = d0 + i % kChannels;
-      const bool live = t < S && dd < di;
-      const size_t off = (static_cast<size_t>(b) * S + t) * di + dd;
-      su[i] = live ? to_f32(u[off]) : 0.f;
-      sdt[i] = live ? to_f32(dt[off]) : 0.f;
-      if (rev) sdy[i] = live ? to_f32(dy[off]) : 0.f;
-    }
-    for (int i = tid; i < kT * N; i += kThreads) {
-      const bool live = t0 + i / N < S;
-      const size_t off = (static_cast<size_t>(b) * S + t0) * N + i;
-      sB[i] = live ? to_f32(Bc[off]) : 0.f;
-      if (rev) sC[i] = live ? to_f32(Cc[off]) : 0.f;
-    }
-  };
-  // one step of the recurrence, the chunk's step tt
-  auto step = [&](float (&h)[K], int tt) {
-    const float dd = sdt[tt * kChannels + ch];
-    const float x = dd * su[tt * kChannels + ch];
-    const float* Bt = sB + tt * N + g * K;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      h[k] = fmaf(ex2(dd * A2[k]), h[k], x * Bt[k]);
-  };
+};
 
-  // forward: the state before every chunk
-  float h[K];
+// pass 1: the segment from zeros -- local checkpoints and the summaries
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(Shape<N>::kThreads)
+seg_fwd_kernel(Args a) {
+  using C = Shape<N>;
+  using M = Smem<T, N>;
+  constexpr int K = C::K, KC = C::KC, R = kT * kChannels;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Lane<N> ln;
+  const int b = blockIdx.y;
+  const Segment sg(a);
+  const int nC = (a.S + kT - 1) / kT;
+  float* f = reinterpret_cast<float*>(smem + M::kF32);
+  const float* dtf = f;
+  const float* xf = f + R;
+  const float* gyf = f + 3 * R;
+  const float* Bf = f + 4 * R;
+  const float* Cf = Bf + kT * N;
+
+  bool on[KC];
+  float a2[KC][K], h[KC][K], q[KC][K], gs[KC][K], cum[KC];
 #pragma unroll
-  for (int k = 0; k < K; ++k) h[k] = 0.f;
-  for (int c = 0; c < nC; ++c) {
-    if (ok) {
+  for (int e = 0; e < KC; ++e) {
+    on[e] = ln.d0 + e < a.di;
+    cum[e] = 0.f;
 #pragma unroll
-      for (int k = 0; k < K; ++k) ckpt(c, k) = h[k];
+    for (int k = 0; k < K; ++k) {
+      a2[e][k] = on[e] ? a.A[static_cast<size_t>(ln.d0 + e) * N + ln.g * K +
+                             k] * kLog2e : 0.f;
+      h[e][k] = gs[e][k] = 0.f;
+      q[e][k] = 1.f;
     }
-    stage(c, false);
-    __syncthreads();
-    const int steps = min(kT, S - c * kT);
-    for (int tt = 0; tt < steps; ++tt) step(h, tt);
-    __syncthreads();
   }
-
-  // reverse, chunk by chunk
-  float ag[K], dA[K];
+  auto ring = [&](int i) { return smem + (i % kStages) * M::kStage; };
+  stage<T, N, VEC>(ring(0), a, sg.tile(a, b, 0), ln.tid);
+  cp_async_commit();
+  if (sg.nc > 1) stage<T, N, VEC>(ring(1), a, sg.tile(a, b, 1), ln.tid);
+  cp_async_commit();
+  for (int i = 0; i < sg.nc; ++i) {
+    if (i + 2 < sg.nc)
+      stage<T, N, VEC>(ring(i + 2), a, sg.tile(a, b, i + 2), ln.tid);
+    cp_async_commit();
+    cp_async_wait_all_but_two_newest();
+    __syncthreads();   // chunk i staged; chunk i - 1's f32 read
+    convert<T, N>(ring(i), f, ln.tid);
+    __syncthreads();
+    if (i > 0) {       // the first chunk's local state is zero
+      const size_t c = static_cast<size_t>(b) * nC + sg.t0 / kT + i;
 #pragma unroll
-  for (int k = 0; k < K; ++k) ag[k] = dA[k] = 0.f;
-  float dDs = 0.f;
+      for (int e = 0; e < KC; ++e) {
+        if (!on[e]) continue;
+        store_v<K>(a.ckpt + (c * a.di + ln.d0 + e) * N + ln.g * K, h[e]);
+        if (ln.g == 0) a.cumdt[c * a.di + ln.d0 + e] = cum[e];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      float dtv[KC], xv[KC], gy[KC], bv[K], cv[K];
+      load_v<KC>(dtf + t * kChannels + ln.c0, dtv);
+      load_v<KC>(xf + t * kChannels + ln.c0, xv);
+      load_v<KC>(gyf + t * kChannels + ln.c0, gy);
+      load_v<K>(Bf + t * N + ln.g * K, bv);
+      load_v<K>(Cf + t * N + ln.g * K, cv);
+#pragma unroll
+      for (int e = 0; e < KC; ++e) {
+        cum[e] += dtv[e];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float av = decay(dtv[e], a2[e][k]);
+          h[e][k] = fmaf(av, h[e][k], xv[e] * bv[k]);
+          q[e][k] *= av;
+          gs[e][k] = fmaf(q[e][k], gy[e] * cv[k], gs[e][k]);
+        }
+      }
+    }
+  }
+  const size_t o = (static_cast<size_t>(b) * a.nseg + blockIdx.z) * a.di;
+#pragma unroll
+  for (int e = 0; e < KC; ++e) {
+    if (!on[e]) continue;
+    const size_t oe = o + ln.d0 + e;
+    store_v<K>(a.hend + oe * N + ln.g * K, h[e]);
+    store_v<K>(a.gsum + oe * N + ln.g * K, gs[e]);
+    if (ln.g == 0) a.dtsum[oe] = cum[e];
+  }
+}
+
+// pass 2: the summaries folded into the segment's true start state and
+// carry, then its chunks in reverse
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(Shape<N>::kThreads,
+                                  512 / Shape<N>::kThreads)
+seg_bwd_kernel(Args a) {
+  using C = Shape<N>;
+  using M = Smem<T, N>;
+  using SP = SpLayout<N>;
+  constexpr int K = C::K, G = C::G, KC = C::KC, CW = C::CW, W = C::W;
+  constexpr int V = C::V, kDup = C::CG / V;   // lanes holding each sum
+  constexpr int R = kT * kChannels, kThreads = C::kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Lane<N> ln;
+  const int b = blockIdx.y, blk = blockIdx.x, blk0 = blk * kChannels;
+  const Segment sg(a);
+  const int nC = (a.S + kT - 1) / kT;
+  float* f = reinterpret_cast<float*>(smem + M::kF32);
+  const float* dtf = f;
+  const float* xf = f + R;
+  const float* uf = f + 2 * R;
+  const float* gyf = f + 3 * R;
+  const float* Bf = f + 4 * R;
+  const float* Cf = Bf + kT * N;
+  float* sp = reinterpret_cast<float*>(smem + M::kSp);
+  float* red = reinterpret_cast<float*>(smem + M::kRed);  // [W][kT][2N]
   T* du = static_cast<T*>(a.du);
   T* ddt = static_cast<T*>(a.ddt);
-  constexpr int kDup = CW / V;              // lanes holding each value
-  for (int c = nC - 1; c >= 0; --c) {
-    const int t0 = c * kT, steps = min(kT, S - t0);
+
+  bool on[KC];
+  float A2[KC][K], Af[KC][K], hs[KC][K], ag[KC][K], dA[KC][K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) h[k] = ok ? ckpt(c, k) : 0.f;
-    stage(c, true);
-    __syncthreads();
-    for (int tt = 0; tt < steps; ++tt) {
-      step(h, tt);
+  for (int e = 0; e < KC; ++e) {
+    on[e] = ln.d0 + e < a.di;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      Af[e][k] = on[e] ? a.A[static_cast<size_t>(ln.d0 + e) * N + ln.g * K +
+                             k] : 0.f;
+      A2[e][k] = Af[e][k] * kLog2e;
+      hs[e][k] = ag[e][k] = dA[e][k] = 0.f;
+    }
+  }
+  // the true start state and carry from the other segments' summaries
+  const size_t row = static_cast<size_t>(b) * a.nseg;
+#pragma unroll
+  for (int e = 0; e < KC; ++e) {
+    if (!on[e]) continue;
+    for (int j = 0; j < static_cast<int>(blockIdx.z); ++j) {
+      const size_t o = (row + j) * a.di + ln.d0 + e;
+      const float sd = a.dtsum[o];
+      float he[K];
+      load_v<K>(a.hend + o * N + ln.g * K, he);
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        hs[(tt * kChannels + ch) * N + g * K + k] = h[k];
+        hs[e][k] = fmaf(decay(sd, A2[e][k]), hs[e][k], he[k]);
     }
-    for (int tt = steps - 1; tt >= 0; --tt) {
-      const float uu = su[tt * kChannels + ch], dd = sdt[tt * kChannels + ch];
-      const float gy = sdy[tt * kChannels + ch];
-      const float x = dd * uu;
-      const float* Bt = sB + tt * N + g * K;
-      const float* Ct = sC + tt * N + g * K;
-      const float* ht = hs + (tt * kChannels + ch) * N + g * K;
-      float vals[V];
+    for (int j = a.nseg - 1; j > static_cast<int>(blockIdx.z); --j) {
+      const size_t o = (row + j) * a.di + ln.d0 + e;
+      const float sd = a.dtsum[o];
+      float ge[K];
+      load_v<K>(a.gsum + o * N + ln.g * K, ge);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        ag[e][k] = fmaf(decay(sd, A2[e][k]), ag[e][k], ge[k]);
+    }
+  }
+
+  // the chunk pass's channel: the thread's column of the block's tile
+  const int pc = ln.tid % kChannels;
+  const int pw = pc / CW, pg = (pc % CW) / KC, pe = pc % KC;
+  const float Dd = blk0 + pc < a.di ? a.D[blk0 + pc] : 0.f;
+  float dDs = 0.f;
+  const int last = sg.nc - 1;
+  auto tile = [&](int i) {     // the i-th chunk walked: the last first
+    return sg.tile(a, b, last - i);
+  };
+  auto ring = [&](int i) { return smem + (i % kStages) * M::kStage; };
+  // the local checkpoint of the i-th chunk walked, loaded one chunk ahead
+  float ck[KC][K], cd[KC];
+  auto load_ckpt = [&](int i) {
+    const int c = last - i;
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      cd[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) ck[e][k] = 0.f;
+      if (c > 0 && on[e]) {
+        const size_t o = (static_cast<size_t>(b) * nC + sg.t0 / kT + c) *
+                         a.di + ln.d0 + e;
+        load_v<K>(a.ckpt + o * N + ln.g * K, ck[e]);
+        cd[e] = a.cumdt[o];
+      }
+    }
+  };
+  load_ckpt(0);
+  stage<T, N, VEC>(ring(0), a, tile(0), ln.tid);
+  cp_async_commit();
+  if (sg.nc > 1) stage<T, N, VEC>(ring(1), a, tile(1), ln.tid);
+  cp_async_commit();
+  for (int i = 0; i < sg.nc; ++i) {
+    const Tile tl = tile(i);
+    if (i + 2 < sg.nc) stage<T, N, VEC>(ring(i + 2), a, tile(i + 2), ln.tid);
+    cp_async_commit();
+    cp_async_wait_all_but_two_newest();
+    __syncthreads();   // chunk i staged; chunk i - 1's f32, sp and red read
+    convert<T, N>(ring(i), f, ln.tid);
+    __syncthreads();
+
+    // the chunk's states h_{-1} .. h_{kT-1} and decays, recomputed
+    float H[kT + 1][KC][K], Dc[kT][KC][K];
+#pragma unroll
+    for (int e = 0; e < KC; ++e)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        H[0][e][k] = fmaf(decay(cd[e], A2[e][k]), hs[e][k], ck[e][k]);
+    if (i + 1 < sg.nc) load_ckpt(i + 1);
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      float dtv[KC], xv[KC], bv[K];
+      load_v<KC>(dtf + t * kChannels + ln.c0, dtv);
+      load_v<KC>(xf + t * kChannels + ln.c0, xv);
+      load_v<K>(Bf + t * N + ln.g * K, bv);
+#pragma unroll
+      for (int e = 0; e < KC; ++e)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          Dc[t][e][k] = decay(dtv[e], A2[e][k]);
+          H[t + 1][e][k] = fmaf(Dc[t][e][k], H[t][e][k], xv[e] * bv[k]);
+        }
+    }
+    // the walk back: g_t = dy_t C_t + (a_{t+1} g_{t+1}), the carry ag
+#pragma unroll
+    for (int t = kT - 1; t >= 0; --t) {
+      float dtv[KC], xv[KC], gy[KC], bv[K], cv[K];
+      load_v<KC>(dtf + t * kChannels + ln.c0, dtv);
+      load_v<KC>(xf + t * kChannels + ln.c0, xv);
+      load_v<KC>(gyf + t * kChannels + ln.c0, gy);
+      load_v<K>(Bf + t * N + ln.g * K, bv);
+      load_v<K>(Cf + t * N + ln.g * K, cv);
+      float vals[V], s[2 * KC];
+#pragma unroll
+      for (int e = 0; e < KC; ++e) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float gn = fmaf(gy[e], cv[k], ag[e][k]);
+          // dBc and dCc, summed over the lane's channels
+          vals[k] = e ? fmaf(gn, xv[e], vals[k]) : gn * xv[e];
+          vals[K + k] = e ? fmaf(gy[e], H[t + 1][e][k], vals[K + k])
+                          : gy[e] * H[t + 1][e][k];
+          s1 = fmaf(gn, bv[k], s1);
+          ag[e][k] = Dc[t][e][k] * gn;
+          const float gha = ag[e][k] * H[t][e][k];   // g_t (a_t h_{t-1})
+          s2 = fmaf(gha, Af[e][k], s2);
+          dA[e][k] = fmaf(gha, dtv[e], dA[e][k]);
+        }
+        s[2 * e] = s1;
+        s[2 * e + 1] = s2;
+      }
+      float* spt = sp + SP::at(ln.warp, t, ln.lane / G, ln.g);
+      if constexpr (KC == 2)
+        *reinterpret_cast<float4*>(spt) = make_float4(s[0], s[1], s[2], s[3]);
+      else
+        *reinterpret_cast<float2*>(spt) = make_float2(s[0], s[1]);
+      const float sum = reduce_channels<V, G>(vals, ln.lane);
+      const int cg = ln.lane / G;
+      if (cg % kDup == 0) {
+        const int v = cg / kDup;
+        const int j = v < K ? ln.g * K + v : N + ln.g * K + v - K;
+        red[(ln.warp * kT + t) * 2 * N + j] = sum;
+      }
+    }
+    __syncthreads();   // every warp's sums of the chunk in sp and red
+    // du and ddt: each channel's sums over its G lanes
+    for (int p = ln.tid; p < R; p += kThreads) {
+      const int t = p / kChannels;
+      const float* s = sp + SP::at(pw, t, pg, 0) + 2 * pe;
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float Bn = Bt[k];
-        const float gn = fmaf(gy, Ct[k], ag[k]);
-        const float hn = ht[k];
-        vals[k] = gn * x;                     // dBc
-        vals[K + k] = gy * hn;                // dCc
-        s1 = fmaf(gn, Bn, s1);
-        const float gha = gn * fmaf(-x, Bn, hn);   // g (a_t h_{t-1})
-        s2 = fmaf(gha, Af[k], s2);
-        dA[k] = fmaf(gha, dd, dA[k]);
-        ag[k] = ex2(dd * A2[k]) * gn;
+      for (int j = 0; j < G; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(s + j * SP::kEntry);
+        s1 += v.x;
+        s2 += v.y;
       }
-#pragma unroll
-      for (int off = 1; off < G; off *= 2) {   // over the channel's lanes
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
-      if (g == 0) {
-        sdu[tt * kChannels + ch] = fmaf(gy, Dd, s1 * dd);
-        sddt[tt * kChannels + ch] = fmaf(s1, uu, s2);
-        dDs = fmaf(gy, uu, dDs);
-      }
-      const float sum = reduce_channels<V, G>(vals, lane);
-      if (cw % kDup == 0) {
-        const int v = cw / kDup;
-        const int j = v < K ? g * K + v : N + g * K + v - K;
-        red[(warp * kT + tt) * 2 * N + j] = sum;
+      const float gy = gyf[p], uv = uf[p];
+      dDs = fmaf(gy, uv, dDs);
+      if (t < tl.steps && blk0 + pc < a.di) {
+        const size_t o = tl.row(t) + pc;
+        store(du + o, fmaf(gy, Dd, s1 * dtf[p]));
+        store(ddt + o, fmaf(s1, uv, s2));
       }
     }
-    __syncthreads();
-    // the chunk's du and ddt, and the block's partials of dBc and dCc
-    for (int i = tid; i < kT * kChannels; i += kThreads) {
-      const int t = t0 + i / kChannels, dd = d0 + i % kChannels;
-      if (t < S && dd < di) {
-        const size_t off = (static_cast<size_t>(b) * S + t) * di + dd;
-        store(du + off, sdu[i]);
-        store(ddt + off, sddt[i]);
-      }
-    }
-    for (int i = tid; i < kT * 2 * N; i += kThreads) {
-      const int tt = i / (2 * N), j = i % (2 * N);
-      if (t0 + tt >= S) continue;
+    // the block's partials of dBc and dCc: the warps' sums added
+    float* part = a.part + ((static_cast<size_t>(blk) * a.B + b) * a.S +
+                            tl.t0) * 2 * N;
+    for (int e = ln.tid; e < tl.steps * 2 * N; e += kThreads) {
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < W; ++w) sum += red[(w * kT + tt) * 2 * N + j];
-      a.part[((static_cast<size_t>(blk) * a.B + b) * S + t0 + tt) * 2 * N +
-             j] = sum;
+      for (int w = 0; w < W; ++w) sum += red[w * kT * 2 * N + e];
+      part[e] = sum;
     }
-    __syncthreads();
   }
-  if (ok) {
+  const size_t o = (static_cast<size_t>(b) * a.nseg + blockIdx.z) * a.di;
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      a.dA_part[(static_cast<size_t>(b) * di + d) * N + g * K + k] = dA[k];
-    if (g == 0) a.dD_part[static_cast<size_t>(b) * di + d] = dDs;
+  for (int e = 0; e < KC; ++e)
+    if (on[e]) store_v<K>(a.dA_part + (o + ln.d0 + e) * N + ln.g * K, dA[e]);
+  // dD: the threads of one column summed in shared memory
+  __syncthreads();
+  sp[ln.tid] = dDs;
+  __syncthreads();
+  if (ln.tid < kChannels && blk0 + ln.tid < a.di) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) sum += sp[w * kChannels + ln.tid];
+    a.dD_part[o + blk0 + ln.tid] = sum;
   }
 }
 
 // dBc and dCc: the partials summed over the blocks; dA and dD over the
-// batch rows
+// (batch row, segment) partials
 template <typename T, int N>
 __global__ void __launch_bounds__(kFinishThreads) finish_kernel(Args a,
                                                                 int nblk) {
@@ -333,6 +708,7 @@ __global__ void __launch_bounds__(kFinishThreads) finish_kernel(Args a,
                    threadIdx.x;
   const size_t n1 = static_cast<size_t>(a.B) * a.S * V;
   const size_t n2 = static_cast<size_t>(a.di) * N;
+  const int rows = a.B * a.nseg;
   if (i < n1) {
     float sum = 0.f;
     for (int w = 0; w < nblk; ++w) sum += a.part[w * n1 + i];
@@ -345,40 +721,53 @@ __global__ void __launch_bounds__(kFinishThreads) finish_kernel(Args a,
   } else if (i < n1 + n2) {
     const size_t k = i - n1;
     float sum = 0.f;
-    for (int b = 0; b < a.B; ++b) sum += a.dA_part[b * n2 + k];
+    for (int r = 0; r < rows; ++r) sum += a.dA_part[r * n2 + k];
     a.dA[k] = sum;
   } else if (i < n1 + n2 + a.di) {
     const size_t k = i - n1 - n2;
     float sum = 0.f;
-    for (int b = 0; b < a.B; ++b)
-      sum += a.dD_part[static_cast<size_t>(b) * a.di + k];
+    for (int r = 0; r < rows; ++r)
+      sum += a.dD_part[static_cast<size_t>(r) * a.di + k];
     a.dD[k] = sum;
   }
 }
 
-template <typename T, int N>
-int launch(const Args& a, cudaStream_t s) {
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int N, bool VEC>
+int launch_passes(const Args& a, cudaStream_t s) {
   using C = Shape<N>;
-  // raise the shared-memory limit once, at the first launch (not again
-  // inside a CUDA-graph capture)
-  static bool limit_set = false;
-  if (!limit_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_bwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(C::kBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit_set = true;
-  }
+  using M = Smem<T, N>;
   const int nblk = (a.di + kChannels - 1) / kChannels;
-  scan_bwd_kernel<T, N><<<dim3(nblk, a.B), 32 * C::W, C::kBytes, s>>>(a);
+  const dim3 grid(nblk, a.B, a.nseg);
+  seg_fwd_kernel<T, N, VEC><<<grid, C::kThreads, M::kFwd, s>>>(a);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seg_bwd_kernel<T, N, VEC><<<grid, C::kThreads, M::kBwd, s>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(a.B) * a.S * 2 * N +
                        static_cast<size_t>(a.di) * (N + 1);
-  const unsigned grid =
+  const unsigned fgrid =
       static_cast<unsigned>((total + kFinishThreads - 1) / kFinishThreads);
-  finish_kernel<T, N><<<grid, kFinishThreads, 0, s>>>(a, nblk);
+  finish_kernel<T, N><<<fgrid, kFinishThreads, 0, s>>>(a, nblk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte staging where the shapes and pointers allow it
+template <typename T, int N>
+int launch(const Args& a, cudaStream_t s) {
+  static_assert(Smem<T, N>::kBwd <= 48 * 1024 &&
+                    Smem<T, N>::kFwd <= 48 * 1024,
+                "no opt-in shared memory");
+  const bool vec = (static_cast<long long>(a.di) * sizeof(T)) % 16 == 0 &&
+                   (static_cast<long long>(a.S) * N * sizeof(T)) % 16 == 0 &&
+                   aligned16(a.u) && aligned16(a.dt) && aligned16(a.dy) &&
+                   aligned16(a.Bc) && aligned16(a.Cc);
+  return vec ? launch_passes<T, N, true>(a, s)
+             : launch_passes<T, N, false>(a, s);
 }
 
 template <typename T>
@@ -398,17 +787,22 @@ int launch_n(const Args& a, int N, cudaStream_t s) {
 extern "C" int repro_mamba_scan_bwd(
     const void* u, const void* dt, const void* A, const void* Bc,
     const void* Cc, const void* D, const void* dy, void* du, void* ddt,
-    void* dA, void* dBc, void* dCc, void* dD, void* ckpt, void* part,
-    void* dA_part, void* dD_part, int B, int S, int di, int N, int chunk,
+    void* dA, void* dBc, void* dCc, void* dD, void* ckpt, void* cumdt,
+    void* hend, void* gsum, void* dtsum, void* part, void* dA_part,
+    void* dD_part, int B, int S, int di, int N, int chunk, int seg_len,
     int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || di <= 0) return 0;
-  if (chunk != kT) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk != kT || seg_len <= 0 || seg_len % kT != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nseg = (S + seg_len - 1) / seg_len;
   const Args a{u, dt, static_cast<const float*>(A), Bc, Cc,
                static_cast<const float*>(D), dy, du, ddt,
                static_cast<float*>(dA), dBc, dCc, static_cast<float*>(dD),
-               static_cast<float*>(ckpt), static_cast<float*>(part),
+               static_cast<float*>(ckpt), static_cast<float*>(cumdt),
+               static_cast<float*>(hend), static_cast<float*>(gsum),
+               static_cast<float*>(dtsum), static_cast<float*>(part),
                static_cast<float*>(dA_part), static_cast<float*>(dD_part), B,
-               S, di};
+               S, di, seg_len, nseg};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_n<__nv_bfloat16>(a, N, s)
                  : launch_n<float>(a, N, s);

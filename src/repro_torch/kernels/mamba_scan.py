@@ -8,8 +8,10 @@ kernel).  ``ops.mamba_scan`` dispatches here for CUDA tensors;
 
 Training: ``mamba_scan_train`` runs the scan from zeros through
 ``_MambaScan``, an autograd Function whose backward is
-``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``); ``ref.mamba_scan_bwd_ref``
-is its plain version.  The scan from a state has no backward.
+``csrc/mamba_scan_bwd.cu`` (``mamba_scan_bwd``), which cuts the sequence
+into segments that run in parallel (``bwd_plan``);
+``ref.mamba_scan_bwd_ref`` is its plain version, segments and all.  The
+scan from a state has no backward.
 """
 from __future__ import annotations
 
@@ -19,7 +21,13 @@ from . import ops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 STATE_SIZES = (1, 2, 4, 8, 16)
-BWD_CHUNK = 16     # steps between the backward's checkpoints (its kT)
+BWD_CHUNK = 8      # steps between the backward's checkpoints (its kT)
+BWD_CHANNELS = 32  # channels of a block of the backward's passes
+# blocks of the backward's pass 2 that the segment count aims at: about
+# six waves of the four blocks an SM holds at N = 16 (128 registers a
+# thread), so hymba's (4, 2048, 3200, 16) runs 8 segments of 256 steps,
+# 3,200 blocks
+BWD_TARGET_BLOCKS = 3200
 
 
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -67,15 +75,46 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, last
 
 
+def bwd_plan(B: int, S: int, di: int, N: int,
+             segment: int | None = None) -> dict:
+    """How ``mamba_scan_bwd`` cuts the sequence, and its scratch.
+
+    The kernel's two passes run one block per (channel block, batch row,
+    segment); the segment count aims at ``BWD_TARGET_BLOCKS`` blocks of
+    pass 2, each segment a whole number of ``BWD_CHUNK``-step chunks, at
+    most one segment per chunk.  ``segment`` (steps, a multiple of
+    ``BWD_CHUNK``) sets the segments' length instead.  Returns ``seg_len``
+    (steps), ``nseg`` and ``shapes``: the f32 scratch tensors by name, in
+    the launcher's order."""
+    chunks = -(-S // BWD_CHUNK)
+    nblk = -(-di // BWD_CHANNELS)
+    if segment is None:
+        want = -(-BWD_TARGET_BLOCKS // (nblk * B))
+        seg_len = -(-chunks // min(chunks, want)) * BWD_CHUNK
+    elif segment > 0 and segment % BWD_CHUNK == 0:
+        seg_len = segment
+    else:
+        raise ValueError(f"a segment of {segment} steps is not a positive "
+                         f"multiple of {BWD_CHUNK}")
+    nseg = -(-S // seg_len)
+    shapes = {"ckpt": (B, chunks, di, N), "cumdt": (B, chunks, di),
+              "hend": (B, nseg, di, N), "gsum": (B, nseg, di, N),
+              "dtsum": (B, nseg, di), "part": (nblk, B, S, 2 * N),
+              "dA_part": (B, nseg, di, N), "dD_part": (B, nseg, di)}
+    return {"seg_len": seg_len, "nseg": nseg, "shapes": shapes}
+
+
 def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
-                   dy: torch.Tensor) -> tuple:
+                   dy: torch.Tensor, *, segment: int | None = None) -> tuple:
     """The gradients (du, ddt, dA, dBc, dCc, dD) of the scan from zeros,
     ``y`` (B, S, di) given ``dy``: inputs as ``mamba_scan`` takes them
     (no ``init_state``), ``dy`` in u's dtype.  du, ddt, dBc and dCc come
     out in u's dtype, dA and dD in f32.  Deterministic: the sums over
-    channels and batch rows run in a fixed order.  Counts as
-    ``mamba_scan_bwd``."""
+    channels, segments and batch rows run in a fixed order.  Counts as
+    ``mamba_scan_bwd``.
+
+    ``segment`` sets the segments' length (``bwd_plan``)."""
     from ._build import load
     if u.dim() != 3 or A.dim() != 2:
         raise ValueError("u must be (B, S, di) and A (di, N)")
@@ -92,21 +131,20 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"state size {N} not in {STATE_SIZES}")
     if S == 0:
         raise ValueError("the sequence must hold at least one step")
+    plan = bwd_plan(B, S, di, N, segment)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in plan["shapes"].values()]
     du, ddt = torch.empty_like(u), torch.empty_like(u)
     dBc, dCc = torch.empty_like(Bc), torch.empty_like(Cc)
     dA = torch.empty((di, N), dtype=torch.float32, device=dev)
     dD = torch.empty((di,), dtype=torch.float32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    ckpt = torch.empty((B, -(-S // BWD_CHUNK), N, di), **f32)
-    part = torch.empty((-(-di // 32), B, S, 2 * N), **f32)
-    dA_part = torch.empty((B, di, N), **f32)
-    dD_part = torch.empty((B, di), **f32)
     with torch.cuda.device(dev):
         err = load("mamba_scan_bwd").repro_mamba_scan_bwd(
             *(t.data_ptr() for t in (u, dt, A, Bc, Cc, D, dy, du, ddt, dA,
-                                     dBc, dCc, dD, ckpt, part, dA_part,
-                                     dD_part)),
-            B, S, di, N, BWD_CHUNK, int(u.dtype == torch.bfloat16),
+                                     dBc, dCc, dD)),
+            *(t.data_ptr() for t in scratch),
+            B, S, di, N, BWD_CHUNK, plan["seg_len"],
+            int(u.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan backward launch failed: CUDA error "

@@ -227,51 +227,89 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mamba_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
-                       dy: torch.Tensor, chunk: int = 16) -> tuple:
+                       dy: torch.Tensor, chunk: int = 8,
+                       segment: int | None = None) -> tuple:
     """The arithmetic of ``csrc/mamba_scan_bwd.cu`` in plain PyTorch, for
     the tests only: the gradients (du, ddt, dA, dBc, dCc, dD) of
-    ``mamba_scan_ref`` from zeros given ``dy``, in f32.  The recurrence runs
-    forward keeping the state at every ``chunk`` boundary; then each chunk,
-    last first, recomputes its states from its checkpoint and walks its
-    steps backwards carrying ``g = dL/dh_t = dy_t C_t + exp(dt_{t+1} A)
-    g_{t+1}``, with ``exp(dt_t A) h_{t-1}`` taken as ``h_t - dt_t u_t
-    B_t``.  du, ddt, dBc, dCc come out in u's dtype, dA and dD in f32."""
+    ``mamba_scan_ref`` from zeros given ``dy``, in f32.
+
+    The sequence is cut into segments of ``segment`` steps (None: one
+    segment, the whole sequence), each into chunks of ``chunk`` steps from
+    its start.  Pass 1 runs every segment from zeros with ``a_t =
+    exp(dt_t A)``, keeping the local state and the dt summed so far at
+    each chunk's start, and the segment's summaries: its local end state
+    ``hend``, its dt summed ``dtsum`` (``exp(A dtsum)`` is the product of
+    its decays) and ``gsum = sum_t (prod_{k<=t} a_k) dy_t C_t``, the carry
+    it sends back when nothing comes from behind it.  The combine folds the
+    summaries in order: a segment's start state from those before it
+    (``h <- exp(A dtsum_j) h + hend_j``), its carry from those after it
+    (``G <- exp(A dtsum_j) G + gsum_j``).  Pass 2 walks each segment's
+    chunks last first: the chunk's start state is its local one plus
+    ``exp(A cumdt)`` times the segment's start state; its states are
+    recomputed, then its steps walked backwards carrying ``a_t g_t`` (G
+    into the segment's last step), ``g_t = dy_t C_t + a_{t+1} g_{t+1}``,
+    ``g_t exp(dt_t A) h_{t-1}`` taken as ``(a_t g_t) h_{t-1}``.  du, ddt,
+    dBc, dCc come out in u's dtype, dA and dD in f32."""
     Bn, S, di = u.shape
+    L = S if segment is None else segment
     uf, dtf, dyf = u.float(), dt.float(), dy.float()
     Bf, Cf = Bc.float(), Cc.float()
     x = dtf * uf                                               # (B, S, di)
+    zero = torch.zeros((Bn, di, A.shape[1]), dtype=torch.float32,
+                       device=u.device)
 
-    def step(h, t):
-        return (torch.exp(dtf[:, t, :, None] * A) * h
-                + x[:, t, :, None] * Bf[:, t, None, :])
-    h = torch.zeros((Bn, di, A.shape[1]), dtype=torch.float32,
-                    device=u.device)
-    starts = list(range(0, S, chunk))
-    ckpt = []
-    for c0 in starts:
-        ckpt.append(h)
-        for t in range(c0, min(c0 + chunk, S)):
-            h = step(h, t)
-    ag = torch.zeros_like(h)
+    def decay(t):
+        return torch.exp(dtf[:, t, :, None] * A)
+
+    def over(s):                      # exp(A * summed dt), (B, di) -> state
+        return torch.exp(s[..., None] * A)
+
+    def xb(t):
+        return x[:, t, :, None] * Bf[:, t, None, :]
+    segs = [(s0, min(s0 + L, S)) for s0 in range(0, S, L)]
+    local, summ = [], []              # pass 1
+    for s0, s1 in segs:
+        h, q, gs = zero, torch.ones_like(zero), zero
+        cum = torch.zeros_like(dtf[:, 0])
+        ck = []
+        for c0 in range(s0, s1, chunk):
+            ck.append((c0, h, cum))
+            for t in range(c0, min(c0 + chunk, s1)):
+                a = decay(t)
+                h = a * h + xb(t)
+                q = q * a
+                gs = gs + q * (dyf[:, t, :, None] * Cf[:, t, None, :])
+                cum = cum + dtf[:, t]
+        local.append(ck)
+        summ.append((h, gs, cum))
     dA = torch.zeros_like(A)
     du, ddt = torch.zeros_like(uf), torch.zeros_like(uf)
     dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
-    for c0, h in reversed(list(zip(starts, ckpt))):
-        hs = []
-        for t in range(c0, min(c0 + chunk, S)):
-            h = step(h, t)
-            hs.append(h)
-        for t in reversed(range(c0, min(c0 + chunk, S))):
-            g = dyf[:, t, :, None] * Cf[:, t, None, :] + ag
-            hn = hs[t - c0]
-            dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hn)
-            dB[:, t] = torch.einsum("bdn,bd->bn", g, x[:, t])
-            s1 = (g * Bf[:, t, None, :]).sum(-1)
-            gha = g * (hn - x[:, t, :, None] * Bf[:, t, None, :])
-            du[:, t] = dyf[:, t] * D + s1 * dtf[:, t]
-            ddt[:, t] = s1 * uf[:, t] + (gha * A).sum(-1)
-            dA = dA + (gha * dtf[:, t, :, None]).sum(0)
-            ag = torch.exp(dtf[:, t, :, None] * A) * g
+    for si, (s0, s1) in enumerate(segs):          # combine, then pass 2
+        h0 = zero
+        for hend, _, dtsum in summ[:si]:
+            h0 = over(dtsum) * h0 + hend
+        ag = zero
+        for _, gsum, dtsum in reversed(summ[si + 1:]):
+            ag = over(dtsum) * ag + gsum
+        for c0, h_loc, cum in reversed(local[si]):
+            h = h_loc + over(cum) * h0
+            steps = range(c0, min(c0 + chunk, s1))
+            hs, decays = [h], []
+            for t in steps:
+                decays.append(decay(t))
+                hs.append(decays[-1] * hs[-1] + xb(t))
+            for t in reversed(steps):
+                i = t - c0
+                g = dyf[:, t, :, None] * Cf[:, t, None, :] + ag
+                dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[i + 1])
+                dB[:, t] = torch.einsum("bdn,bd->bn", g, x[:, t])
+                s1_t = (g * Bf[:, t, None, :]).sum(-1)
+                ag = decays[i] * g
+                gha = ag * hs[i]                  # g_t (a_t h_{t-1})
+                du[:, t] = dyf[:, t] * D + s1_t * dtf[:, t]
+                ddt[:, t] = s1_t * uf[:, t] + (gha * A).sum(-1)
+                dA = dA + (gha * dtf[:, t, :, None]).sum(0)
     dD = (dyf * uf).sum((0, 1))
     return (du.to(u.dtype), ddt.to(u.dtype), dA, dB.to(u.dtype),
             dC.to(u.dtype), dD)

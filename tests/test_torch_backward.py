@@ -4,7 +4,9 @@
 arithmetic of ``csrc/attention_bwd.cu`` and ``csrc/mamba_scan_bwd.cu``;
 here each is held against autograd of the plain forward (``attention_ref``,
 ``mamba_scan_ref``) on inputs drawn with numpy: GQA, causal and not,
-windows, Sq != Sk, several checkpoint chunkings and state sizes.  In f32
+windows, Sq != Sk, several checkpoint chunkings, segmentings and state
+sizes.  ``mamba_scan.bwd_plan``, the scan backward's segment plan and
+scratch, is checked as the launcher computes it.  In f32
 the two agree within 1e-5 of each gradient's largest entry (the same
 arithmetic in another order); bf16 inputs within 2e-2 (the gradients are
 rounded to bf16, 8 bits).
@@ -63,19 +65,28 @@ def test_attention_bwd_ref_matches_autograd(B, Sq, Sk, H, KV, hd, causal,
         assert _gap(g, t.grad) <= tol
 
 
-# (B, S, di, N, chunk): chunks shorter than, equal to and longer than S,
-# not dividing it, and every state size
+# (B, S, di, N, chunk, segment): chunks shorter than, equal to and longer
+# than S, not dividing it, and every state size, in one segment (ids as
+# before segments existed); then segments that do not divide S, of one
+# step, of one chunk, longer than S, and every state size across segments
 SCAN_CASES = [
-    (2, 23, 5, 4, 16), (2, 23, 5, 4, 4), (1, 33, 6, 4, 5), (2, 16, 3, 4, 16),
-    (1, 7, 4, 16, 64), (2, 30, 3, 1, 7), (1, 20, 3, 2, 1), (1, 25, 2, 8, 8),
+    *(pytest.param(*c, None, id="-".join(map(str, c))) for c in (
+        (2, 23, 5, 4, 16), (2, 23, 5, 4, 4), (1, 33, 6, 4, 5),
+        (2, 16, 3, 4, 16), (1, 7, 4, 16, 64), (2, 30, 3, 1, 7),
+        (1, 20, 3, 2, 1), (1, 25, 2, 8, 8))),
+    (2, 23, 5, 4, 4, 8), (1, 33, 6, 4, 5, 10), (1, 70, 6, 16, 16, 32),
+    (2, 9, 3, 4, 16, 1), (1, 40, 5, 16, 8, 8), (2, 7, 4, 4, 16, 32),
+    (2, 30, 3, 1, 7, 14), (1, 20, 3, 2, 4, 8), (1, 25, 2, 8, 8, 16),
+    (1, 37, 4, 16, 16, 16),
 ]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,di,N,chunk", SCAN_CASES)
-def test_mamba_scan_bwd_ref_matches_autograd(B, S, di, N, chunk, dtype, tol):
-    rng = np.random.default_rng(S * 10 + N + chunk)
+@pytest.mark.parametrize("B,S,di,N,chunk,segment", SCAN_CASES)
+def test_mamba_scan_bwd_ref_matches_autograd(B, S, di, N, chunk, segment,
+                                             dtype, tol):
+    rng = np.random.default_rng(S * 10 + N + chunk + (segment or 0))
     u = _t(rng, B, S, di, dtype=dtype).requires_grad_()
     dt = torch.nn.functional.softplus(_t(rng, B, S, di)).to(dtype)
     dt.requires_grad_()
@@ -89,10 +100,39 @@ def test_mamba_scan_bwd_ref_matches_autograd(B, S, di, N, chunk, dtype, tol):
     dy = _t(rng, B, S, di, dtype=dtype)
     y.backward(dy)
     got = ref.mamba_scan_bwd_ref(*(t.detach() for t in (u, dt, A, Bc, Cc, D)),
-                                 dy, chunk=chunk)
+                                 dy, chunk=chunk, segment=segment)
     for g, t in zip(got, (u, dt, A, Bc, Cc, D)):
         assert g.dtype == t.dtype and g.shape == t.shape
         assert _gap(g, t.grad) <= tol
+
+
+@pytest.mark.parametrize("B,S,di,N,segment,seg_len,nseg", [
+    (4, 2048, 3200, 16, None, 256, 8),    # hymba's training shape
+    (4, 2048, 3200, 16, 128, 128, 16),
+    (4, 2048, 3200, 16, 2048, 2048, 1),
+    (2, 37, 70, 4, None, 8, 5),           # one chunk a segment
+    (1, 1, 33, 16, None, 8, 1),
+    (2, 100, 64, 16, 48, 48, 3),
+    (2, 129, 64, 16, 128, 128, 2),        # a last segment of one step
+    (1, 100, 64, 16, None, 8, 13),        # at most a segment a chunk
+])
+def test_scan_bwd_plan(B, S, di, N, segment, seg_len, nseg):
+    """The segment plan and scratch shapes ``mamba_scan_bwd`` launches
+    with: whole chunks a segment, the segments cover S, the scratch in the
+    launcher's order; a segment not a multiple of a chunk raises."""
+    from repro_torch.kernels import mamba_scan as ms
+    plan = ms.bwd_plan(B, S, di, N, segment)
+    assert (plan["seg_len"], plan["nseg"]) == (seg_len, nseg)
+    assert seg_len % ms.BWD_CHUNK == 0
+    assert (nseg - 1) * seg_len < S <= nseg * seg_len
+    with pytest.raises(ValueError, match="multiple"):
+        ms.bwd_plan(B, S, di, N, ms.BWD_CHUNK + 1)
+    chunks, nblk = -(-S // ms.BWD_CHUNK), -(-di // ms.BWD_CHANNELS)
+    assert plan["shapes"] == {
+        "ckpt": (B, chunks, di, N), "cumdt": (B, chunks, di),
+        "hend": (B, nseg, di, N), "gsum": (B, nseg, di, N),
+        "dtsum": (B, nseg, di), "part": (nblk, B, S, 2 * N),
+        "dA_part": (B, nseg, di, N), "dD_part": (B, nseg, di)}
 
 
 @pytest.fixture

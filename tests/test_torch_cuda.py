@@ -961,25 +961,37 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
         assert _grad_gap(t.grad, c) <= tol
 
 
-# (B, S, di, N): ragged chunks and channel blocks, every state size, and
-# hymba's shape
+# (B, S, di, N, segment, dt scale): ragged chunks and channel blocks, every
+# state size, and hymba's shape, on the plan's segments (ids as before
+# segments existed); then S one step over and under a segment, S = 1, S
+# under a chunk, di not a multiple of 32, and dt 40 times larger, where
+# the decays of all but the smallest states underflow to zero
 BWD_SCAN_CASES = [
-    (2, 37, 70, 4), (1, 100, 64, 16), (2, 16, 33, 16),
-    *[(2, 45, 40, n) for n in (1, 2, 8)],
-    (4, 2048, 3200, 16),
+    *(pytest.param(*c, None, 1.0, id="-".join(map(str, c))) for c in (
+        (2, 37, 70, 4), (1, 100, 64, 16), (2, 16, 33, 16),
+        *[(2, 45, 40, n) for n in (1, 2, 8)],
+        (4, 2048, 3200, 16))),
+    (2, 129, 64, 16, 128, 1.0), (2, 127, 64, 16, 128, 1.0),
+    (2, 1, 64, 16, None, 1.0), (2, 9, 40, 8, None, 1.0),
+    (1, 100, 50, 16, 32, 1.0), (2, 70, 70, 2, 32, 1.0),
+    (2, 80, 64, 16, 32, 40.0),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,di,N", BWD_SCAN_CASES)
-def test_scan_bwd_kernel_matches_plain_version(cuda, B, S, di, N, dtype):
-    """The scan's gradients through the autograd Function against autograd
-    of ``mamba_scan_ref``, and the kernel against ``mamba_scan_bwd_ref``;
-    the model's dt (softplus) and A (-1 .. -N)."""
+@pytest.mark.parametrize("B,S,di,N,segment,dt_scale", BWD_SCAN_CASES)
+def test_scan_bwd_kernel_matches_plain_version(cuda, B, S, di, N, segment,
+                                               dt_scale, dtype):
+    """The scan's gradients through the autograd Function (the plan's
+    segments) against autograd of ``mamba_scan_ref``; the kernel on
+    ``segment``-step segments against ``mamba_scan_bwd_ref`` on the same
+    segments, and bit-equal over two calls; the model's dt (softplus,
+    times ``dt_scale``) and A (-1 .. -N)."""
+    from repro_torch.kernels import mamba_scan as ms
     u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di,
                                        "large")
-    dt = (dt / 4).to(dtype)
+    dt = (dt * (dt_scale / 4)).to(dtype)      # softplus(normal) * dt_scale
     dy = torch.randn((B, S, di), device=cuda).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (u, dt, A, Bc, Cc, D)]
     y_ref, _ = ref.mamba_scan_ref(*leaves)
@@ -996,11 +1008,16 @@ def test_scan_bwd_kernel_matches_plain_version(cuda, B, S, di, N, dtype):
     for i, (t, c) in enumerate(zip(leaves, want)):
         assert t.grad.dtype == c.dtype
         assert _grad_gap(t.grad, c) <= tol, (i, _grad_gap(t.grad, c))
-    if S <= 100:
-        from repro_torch.kernels.mamba_scan import mamba_scan_bwd
-        got = mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy)
-        plain = ref.mamba_scan_bwd_ref(u, dt, A, Bc, Cc, D, dy)
+    if S <= 200:
+        got = ms.mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy, segment=segment)
+        again = ms.mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy, segment=segment)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        seg_len = ms.bwd_plan(B, S, di, N, segment)["seg_len"]
+        plain = ref.mamba_scan_bwd_ref(u, dt, A, Bc, Cc, D, dy,
+                                       segment=seg_len)
         for i, (a, b) in enumerate(zip(got, plain)):
+            assert torch.isfinite(a).all()
             assert _grad_gap(a, b) <= tol, (i, _grad_gap(a, b))
 
 

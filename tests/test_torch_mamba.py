@@ -1,9 +1,10 @@
 """The port's plain selective scan (``repro_torch.kernels.ref.mamba_scan_ref``)
 against the JAX package's Pallas ``mamba_scan`` in interpret mode and
 against its jnp reference with an initial state, on the same numpy inputs,
-at the tolerances of ``tests/test_kernels.py``.  The CUDA kernel is held
-against this plain version on the card (``test_torch_cuda.py``,
-``chip_smoke.py``).
+at the tolerances of ``tests/test_kernels.py``; and the plain version of
+the scan's backward kernel, cut into segments, against ``jax.grad`` of the
+jnp reference.  The CUDA kernels are held against these plain versions on
+the card (``test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -115,3 +116,32 @@ def test_scan_in_two_pieces_equals_one():
     torch.testing.assert_close(torch.cat([y1, y2], dim=1), y,
                                rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(h2, last, rtol=1e-6, atol=1e-6)
+
+
+def test_segmented_scan_bwd_ref_matches_jax_grad():
+    """The scan backward's plain version, cut into segments as the kernel
+    cuts it (segments of 24 steps, chunks of 16 inside, S not a multiple
+    of either), against ``jax.grad`` of the JAX package's jnp reference:
+    f32, A = -exp(A_log) as the model takes it, every gradient within 1e-5
+    of its largest entry."""
+    import jax
+    B, S, di, N = 2, 61, 12, 16
+    rng = np.random.default_rng(11)
+
+    def f32(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    a_log = (np.log(np.arange(1, N + 1, dtype=np.float32))[None]
+             + 0.1 * f32(di, N))
+    ins = [f32(B, S, di), np.logaddexp(0, f32(B, S, di) - 1).astype(
+        np.float32), -np.exp(a_log), f32(B, S, N), f32(B, S, N), f32(di)]
+    dy = f32(B, S, di)
+
+    def loss(*xs):
+        return jnp.sum(jref.mamba_scan_reference(*xs)[0] * dy)
+    want = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, ins))
+    got = ref.mamba_scan_bwd_ref(*map(torch.from_numpy, ins),
+                                 torch.from_numpy(dy), chunk=16, segment=24)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
