@@ -14,9 +14,12 @@ the card (``kernels.front_pass.DeviceScheduleWindows``),
 serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths,
 serving ``llama-3.2-vision-11b`` (cross-attention) at full width and
 depth, training ``hymba-1.5b`` at full width and depth through the
-backward kernels (``train.step``), and training ``olmoe-1b-7b`` at full
-width, cut in depth, through the grouped matmul's backward.  Phases,
-in order; any failure propagates and the exit code is nonzero:
+backward kernels (``train.step``), training ``olmoe-1b-7b`` at full
+width, cut in depth, through the grouped matmul's backward, and training
+``deepseek-v3-671b`` at its published widths, cut to its dense MLA layers
+and MTP block, through the attention backward at MLA's head dims (192,
+128).  Phases, in order; any failure propagates and the exit code is
+nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
    print the build time, what ``ptxas`` reports for the find, attention,
@@ -231,9 +234,29 @@ in order; any failure propagates and the exit code is nonzero:
    token's gradient to another expert): losses within 1e-5 relative, each
    leaf within ``GRAD_TOL`` f32, every backward call on ``general``, the
    worst leaf and the choices the plain routers would have flipped
-   reported.
+   reported;
+15. training ``deepseek-v3-671b``.  (a) The attention backward at its
+   training call (4, 2048², 128/128, (hd, hd_v) = (192, 128)), causal,
+   as in 13a: ``tc`` in bf16 from ``prefill_tc``'s LSE (within
+   ``LSE_TOL`` of ``attention_lse_ref``), ``general`` in f32, against
+   ``attention_bwd_ref`` and autograd of ``attention_ref`` (one prompt a
+   call: one prompt's f32 scores are 2.1 GB) within ``GRAD_TOL``, two runs
+   bit-equal, timed beside its bound (five products: S, dQ and dK of 2 hd
+   FLOPs, dP and dV of 2 hd_v), the plain backward and SDPA's pair, with
+   the SDPA backend the default dispatch picks named.  (b) The published
+   widths, depth cut to ``DS_TRAIN_DENSE`` of its 3 dense MLA layers and
+   the MTP block, no MoE layer: five bf16 steps as in 13b, each step's
+   launches exactly as expected (per dense layer 2 ``flash_attention``
+   on ``prefill_tc`` and 1 ``attention_bwd`` on ``tc``; the MTP block,
+   which ``Model._mtp_loss`` does not recompute, 1 and 1), then the split
+   step.  (c) The same cut in f32 at ``DS_GATE_B`` x 2048 tokens without
+   optimizer state (``deepseek_gate``): the loss and every gradient
+   through the kernels and through the plain versions, losses within 1e-5
+   relative, each leaf within ``GRAD_TOL`` f32, every backward call on
+   ``general``; AdamW's state would not fit beside two gradient sets, so
+   no AdamW step is compared.
 
-Launch counts are reset just before each driven run (phases 3-8, 10-14)
+Launch counts are reset just before each driven run (phases 3-8, 10-15)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
@@ -260,9 +283,10 @@ the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
 FM case nearest the path's median count of active blocks, with
 ``path_ms``, its device time per launch in phase 3b's profile.  The
 attention and scan backward kernels (``attention_bwd``,
-``mamba_scan_bwd``) carry the launches of phases 13b and 14b and phase
-13a's times (bf16, the windowed attention call first, the others and
-olmoe's head dim 128 from phase 14a beside it); ``grouped_matmul_bwd``
+``mamba_scan_bwd``) carry the launches of phases 13b, 14b and 15b and
+phase 13a's times (bf16, the windowed attention call first, the others,
+olmoe's head dim 128 from phase 14a and deepseek's (192, 128) from phase
+15a beside it); ``grouped_matmul_bwd``
 carries phase 14b's launches and phase 14a's times (bf16 gate/up at the
 fills, dx and dw apart beside the call; the down product, f32 and every
 row live beside it).  The attention and grouped-matmul backward entries
@@ -2315,6 +2339,9 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
 # products summed in another order (attention), ex2.approx exps in the
 # scan's recurrence -- near f32 accuracy, a few 1e-6 of the largest entry
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# prefill_tc's row log-sum-exp (log2 units) against attention_lse_ref: its
+# f32 sums over bf16 products in another order
+LSE_TOL = 1e-3
 BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
                "attention_bwd_tc", "moe_gmm_bwd_tc")
 # the wgmma kernels of the bf16 backward routes (``tc``), each with the
@@ -2345,49 +2372,80 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 GATE_B = 2
 
 
+def sdpa_backend(q, k, v, mask) -> str:
+    """The SDPA backend that PyTorch's default dispatch picks for these
+    (B, heads, S, head dim) inputs (MATH takes any call)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    pick = torch._fused_sdp_choice(q, k, v, attn_mask=mask,
+                                   is_causal=mask is None, enable_gqa=True)
+    return {int(b): n for n, b in SDPBackend.__members__.items()}[pick]
+
+
 def grad_gap(got, want) -> float:
     """max |got - want| over the largest |want|."""
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
+def check_attention_bwd(case, dtype_name: str, seed: int,
+                        ref_batch: int | None = None) -> dict:
     """The attention backward on its route (``flash_attention.bwd_route``:
-    ``tc`` in bf16, from the forward's LSE, which ``prefill_tc`` writes;
-    ``general`` in f32) against autograd of the plain version at a
-    training shape, two runs bit-equal, the route asserted.  Timed beside
-    its bound (five products per live pair and head with the LSE given,
-    six where ``general`` recomputes it; the six-product figure beside the
-    ``tc`` row's), the plain backward (``attention_bwd_ref``) and SDPA's
-    forward and backward (``library_ms``; its forward alone and its
-    backward alone, the pair less the forward, beside it).  In bf16 also
-    the PR 22 kernel's bf16 instantiation (``attention_bwd.cu``, which
-    the ``general`` route keeps for f32), called directly, as "before";
-    and the forward on ``prefill_tc`` with the LSE written and without it,
-    in turns."""
+    ``tc`` in bf16, from the forward's LSE, which ``prefill_tc`` writes and
+    which must lie within ``LSE_TOL`` of ``attention_lse_ref``; ``general``
+    in f32) against autograd of the plain version at a training shape, two
+    runs bit-equal, the route asserted.  ``case``'s head dim is hd = hd_v
+    or a pair (hd, hd_v).  Timed beside its bound (five products per live
+    pair and head with the LSE given -- S, dQ and dK of 2 hd FLOPs, dP and
+    dV of 2 hd_v -- and S once more where ``general`` recomputes it; the
+    six-product figure beside the ``tc`` row's), the plain backward
+    (``attention_bwd_ref``) and SDPA's forward and backward
+    (``library_ms``; its forward alone and its backward alone, the pair
+    less the forward, beside it; the backend the default dispatch picks,
+    ``sdpa_backend``).
+    The plain versions run ``ref_batch`` batch elements a call (default
+    all): at deepseek's 128 heads one element's f32 scores are 2.1 GB.  In
+    bf16 at hd = hd_v also the earlier backward kernel's bf16
+    instantiation (``attention_bwd.cu``, which the ``general`` route keeps
+    for f32), called directly, as "before"; and the forward on
+    ``prefill_tc`` with the LSE written and without it, in turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     name, B, S, H, KV, hd, window = case
+    hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
-               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
-    do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, KV, hd),
+                             (B, S, KV, hd_v)))
+    do = torch.randn((B, S, H, hd_v), generator=g, device=dev).to(dtype)
     kw = dict(causal=True, window=window)
     scale = hd ** -0.5
-    route = fa.bwd_route(dtype, S, S, hd, hd, window, False)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref.attention_ref(*leaves, **kw).backward(do)
-    want = [t.grad for t in leaves]
-    del leaves
+    route = fa.bwd_route(dtype, S, S, hd, hd_v, window, False)
+    step = ref_batch or B
+    parts = [slice(b, b + step) for b in range(0, B, step)]
+    want = [[], [], []]
+    for sl in parts:
+        leaves = [t[sl].clone().requires_grad_() for t in (q, k, v)]
+        ref.attention_ref(*leaves, **kw).backward(do[sl])
+        for w, t in zip(want, leaves):
+            w.append(t.grad)
+        del leaves
+    want = [torch.cat(w) for w in want]
     lse = None
     with torch.no_grad():
         if route == "tc":
             o, lse = fa.flash_attention(q, k, v, scale=scale,
                                         return_lse=True, **kw)
+            lse_err = max(float((lse[sl] - ref.attention_lse_ref(
+                q[sl], k[sl], scale=scale, **kw)).abs().max())
+                for sl in parts)
+            if not lse_err <= LSE_TOL:
+                raise AssertionError(f"attention {name}: prefill_tc's LSE "
+                                     f"off by {lse_err}")
         else:
             o = ops.attention(q, k, v, **kw)
 
@@ -2395,8 +2453,9 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
         return fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
 
     def plain():
-        return ref.attention_bwd_ref(q, k, v, o, do, scale=scale, lse=lse,
-                                     **kw)
+        return [ref.attention_bwd_ref(
+            q[sl], k[sl], v[sl], o[sl], do[sl], scale=scale,
+            lse=None if lse is None else lse[sl], **kw) for sl in parts]
     ops.reset_launches()
     got, again = run(), run()
     torch.cuda.synchronize()
@@ -2405,28 +2464,31 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
     errs = {n: grad_gap(a, b) for n, a, b in zip("qkv", got, want)}
     tol = GRAD_TOL[dtype_name]
     if (routes[f"attention_{route}"] != 2 or sum(routes.values()) != 2
-            or not repeat or max(errs.values()) > tol):
+            or not repeat or max(errs.values()) > tol
+            or any(a.shape != b.shape for a, b in zip(got, want))):
         raise AssertionError(f"attention backward {name} {dtype_name}: "
                              f"{errs} past {tol}, routes {routes} (want 2 "
-                             f"on {route}), or two runs differ (bit-equal: "
-                             f"{repeat})")
+                             f"on {route}), shapes, or two runs differ "
+                             f"(bit-equal: {repeat})")
     del got, again, want
-    # the bound: per live pair and q head, 2 hd FLOPs for each of S, dP,
-    # dQ, dK and dV, and for S once more where the route recomputes the
-    # LSE; q, k, v, o, do read once, dq, dk, dv written once
+    # the bound: per live pair and q head, 2 hd FLOPs for each of S, dQ
+    # and dK, 2 hd_v for dP and dV, and 2 hd for S once more where the
+    # route recomputes the LSE; q, k, v, o, do read once, dq, dk, dv
+    # written once
     i = torch.arange(S, device=dev)
     keep = i[:, None] >= i[None, :]
     if window:
         keep &= (i[:, None] - i[None, :]) < window
     pairs = B * int(keep.sum())
     products = 5 if route == "tc" else 6
-    nbytes = q.element_size() * (4 * q.numel()
-                                 + 2 * (k.numel() + v.numel()))
+    flop_pair = 2 * (3 * hd + 2 * hd_v) + (0 if route == "tc" else 2 * hd)
+    nbytes = q.element_size() * 2 * (q.numel() + do.numel() + k.numel()
+                                     + v.numel())
     rate = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else \
         F32_TC_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_op = 2 * hd * H * pairs / rate * 1e3      # one product
-    t_ops = products * t_op
+    t_ops = flop_pair * H * pairs / rate * 1e3
+    t_ops6 = (2 * (4 * hd + 2 * hd_v)) * H * pairs / rate * 1e3
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(
         x is not do) for x in (q, k, v, do))
     mask = keep if window else None
@@ -2438,21 +2500,24 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
 
     def library():
         library_fwd().backward(dot)
-    with torch.no_grad():
-        lib_fwd = time_ms(library_fwd, 5)
     row = {"case": name, "dtype": dtype_name, "bwd_route": route,
-           "shape": [B, S, S, H, KV, hd, hd], "window": window,
+           "shape": [B, S, S, H, KV, hd, hd_v], "window": window,
            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
            "bit_equal": repeat, "ms": graph_ms(run, 5, 3),
            "call_ms": time_ms(run, 5), "plain_ms": graph_ms(plain, 1, 2),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "products": products, "bound6_ms": max(6 * t_op, t_bytes),
-           "flops": products * 2 * hd * H * pairs, "bytes": nbytes,
-           "pairs": pairs, "library_ms": time_ms(library, 5),
-           "library_fwd_ms": lib_fwd}
-    row["library_bwd_ms"] = row["library_ms"] - lib_fwd
+           "products": products, "bound6_ms": max(t_ops6, t_bytes),
+           "flops": flop_pair * H * pairs, "bytes": nbytes,
+           "pairs": pairs, "ref_batch": step,
+           "sdpa_backend": sdpa_backend(qt, kt, vt, mask)}
     if route == "tc":
+        row["lse_err"] = lse_err
+    with torch.no_grad():
+        lib_fwd = time_ms(library_fwd, 5)
+    row.update(library_ms=time_ms(library, 5), library_fwd_ms=lib_fwd)
+    row["library_bwd_ms"] = row["library_ms"] - lib_fwd
+    if route == "tc" and hd == hd_v:
         # before: the PR 22 kernel's bf16 instantiation, which recomputes
         # the LSE into its own scratch
         old = _build.load("attention_bwd").repro_attention_bwd
@@ -2463,7 +2528,7 @@ def check_attention_bwd(case, dtype_name: str, seed: int) -> dict:
             err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       do.data_ptr(), *(t.data_ptr() for t in outs),
                       scratch[0].data_ptr(), scratch[1].data_ptr(), B, S, S,
-                      H, KV, hd, 1, window, scale, 1,
+                      H, KV, hd, hd_v, 1, window, scale, 1,
                       torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"attention_bwd.cu bf16: CUDA error {err}")
@@ -2597,14 +2662,22 @@ def expected_train_launches(cfg) -> dict:
     """One training step's launches with remat "full": every layer's
     forward kernels twice (the forward and its recompute in the backward
     pass), one backward kernel each -- an MoE layer's three grouped
-    products twice and one backward call each; nothing else."""
+    products twice and one backward call each; each MTP block (a dense
+    layer with the last segment's attention, GQA or MLA) its forward
+    kernels once, as ``Model._mtp_loss`` runs it without recompute, and
+    one backward kernel each; nothing else."""
     from repro_torch.kernels import ops
+    from repro_torch.models.config import Segment
     want = {c: 0 for c in ops.launches}
-    for seg in cfg.segments:
+    runs = [(seg, 2) for seg in cfg.segments]
+    if cfg.mtp_depth:
+        runs.append((Segment("dense", cfg.mtp_depth,
+                             attn=cfg.segments[-1].attn), 1))
+    for seg, fwd in runs:
         n = seg.n_layers
-        if seg.attn == "gqa":
+        if seg.attn in ("gqa", "mla"):
             want["attention_masked" if seg.sliding_window
-                 else "flash_attention"] += 2 * n
+                 else "flash_attention"] += fwd * n
             want["attention_bwd"] += n
         if seg.kind in ("mamba", "hybrid"):
             want["mamba_scan"] += 2 * n
@@ -2653,11 +2726,12 @@ def train_step_split(ts, state, batch) -> dict:
         ("forward_ms", "backward_ms", "adamw_ms"))}
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    # the wgmma backward kernels (attention_bwd_tc.cu's dq_kernel<HD> and
-    # dkv_kernel<HD>, moe_gmm_bwd_tc.cu's) first: the general routes'
-    # kernels of the same names take (T, HD, ...) template arguments
-    kinds = {"attention_bwd_tc": ("dq_kernel<64>", "dq_kernel<128>",
-                                  "dkv_kernel<64>", "dkv_kernel<128>"),
+    # the wgmma backward kernels (attention_bwd_tc.cu's dq_kernel<HD, HDV>
+    # and dkv_kernel<HD, HDV>, moe_gmm_bwd_tc.cu's) first: the general
+    # routes' kernels of the same names take (T, HD, ...) template
+    # arguments
+    kinds = {"attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in (
+                 "dq", "dkv") for hd in (64, 128, 192)),
              "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
              "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
              "scan_fwd": ("scan_kernel",),
@@ -3236,6 +3310,139 @@ def moe_train_phase() -> dict:
     return out
 
 
+# ---------------------------------------------- 15. training deepseek-v3
+# deepseek-v3-671b at its published widths, cut in depth to DS_TRAIN_DENSE
+# of its 3 dense MLA layers and its MTP block (depth 1): two MLA blocks,
+# 3,141,513,216 parameters by ``param_count`` (about 18 M high: it prices
+# the MTP block's attention as GQA), 50.3 GB of training state at 16 B a
+# parameter.  Its MoE layers hold 11.27 B parameters each (256 experts x 3
+# x 7168 x 2048), 180 GB of state: they train only across cards.  Beside
+# the state a bf16 step holds the main head's and the MTP head's f32
+# logits (4.24 GB each at 4 x 2048 tokens) and ``logits_fn``'s f32 copy of
+# the head for each (3.7 GB); a second dense layer (59.6 GB of state)
+# would leave too little.  The f32 gate takes the same cut at DS_GATE_B x
+# 2048 tokens without AdamW's state: its f32 parameters (12.6 GB), two
+# gradient sets and the plain attention's f32 scores (2.1 GB per prompt
+# and tensor) fit, the state (master, m and v, 37.7 GB more) beside them
+# would not, so no AdamW step is compared there.
+DS_TRAIN_DENSE = 1
+DS_GATE_B = 1
+# deepseek's training attention (B, S, H, KV, (hd, hd_v), window): MLA's
+# call, causal, 128 heads; the plain versions one prompt a call
+DS_BWD_ATTN_CASE = ("deepseek_train", 4, 2048, 128, 128, (192, 128), 0)
+
+
+def deepseek_train_config(dense: int, dtype: str = "bfloat16"):
+    """deepseek-v3-671b with only its depth cut: ``dense`` of its 3 dense
+    MLA layers and no MoE layer; the MTP block as published."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Segment
+    return get_config("deepseek-v3-671b").with_(
+        segments=(Segment("dense", dense, attn="mla"),), dtype=dtype)
+
+
+def deepseek_gate(cfg32, B: int) -> dict:
+    """The f32 model of ``cfg32`` (no optimizer state), one loss and
+    backward through the kernels and one through the plain versions on
+    the same ``B`` x ``TRAIN_S`` tokens: losses within 1e-5 relative,
+    every leaf within ``GRAD_TOL`` f32 of its largest entry (the worst
+    reported), every backward call on ``general``, the launches as
+    ``expected_train_launches`` says, none on the plain path."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import batch_to
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Model(cfg32, device="cuda", generator=gen).requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = batch_to(SyntheticTokenStream(
+        cfg32, DataConfig(B, TRAIN_S, seed=0)).next_batch(), "cuda")
+    gate: dict = {}
+    grads: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    for which in ("cuda", "ref"):
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, met = model.loss(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            gate[f"{which}_s"] = time.perf_counter() - t0
+        finally:
+            ops.force(None)
+        gate[f"{which}_launches"] = {c: n for c, n in ops.launches.items()
+                                     if n}
+        gate[f"{which}_bwd_routes"] = {c: n for c, n in
+                                       ops.bwd_route_launches.items() if n}
+        gate[f"{which}_loss"] = float(met["loss"].detach())
+        grads[which] = {n: p.grad if p.grad is not None
+                        else torch.zeros_like(p) for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        del loss, met
+    gate["peak_B"] = torch.cuda.max_memory_allocated()
+    gaps = {n: grad_gap(grads["cuda"][n], grads["ref"][n]) for n in params}
+    del grads, model, params
+    rel_loss = abs(gate["cuda_loss"] - gate["ref_loss"]) / abs(
+        gate["ref_loss"])
+    worst = max(gaps, key=gaps.get)
+    gate.update(rel_loss=rel_loss, worst_leaf=worst, worst_gap=gaps[worst],
+                leaves=len(gaps), tokens=[B, TRAIN_S],
+                adamw_compared=False)
+    want32 = {c: n for c, n in expected_train_launches(cfg32).items() if n}
+    if gate["cuda_launches"] != want32:
+        raise AssertionError(f"f32 kernel path launched "
+                             f"{gate['cuda_launches']}, expected {want32}")
+    bwd32 = {c: n for c, n in expected_bwd_routes(cfg32).items() if n}
+    if gate["cuda_bwd_routes"] != bwd32 or gate["ref_bwd_routes"]:
+        raise AssertionError(f"f32 backward calls took routes "
+                             f"{gate['cuda_bwd_routes']} (plain path: "
+                             f"{gate['ref_bwd_routes']}), expected {bwd32}")
+    if gate["ref_launches"]:
+        raise AssertionError(f"plain path launched {gate['ref_launches']}")
+    log(f"[15c] f32 {cfg32.name} cut ({cfg32.n_layers} dense MLA layer(s) "
+        f"+ MTP), {B} x {TRAIN_S} tokens, no optimizer state: loss kernels "
+        f"{gate['cuda_loss']!r}, plain {gate['ref_loss']!r} (relative gap "
+        f"{rel_loss:.3g}); worst of {len(gaps)} gradient leaves {worst}: "
+        f"{gaps[worst]:.3g} of its largest |grad|; kernel path "
+        f"{gate['cuda_s']:.3f} s, plain {gate['ref_s']:.3f} s; launches "
+        f"{gate['cuda_launches']}, backward routes "
+        f"{gate['cuda_bwd_routes']}; max_memory_allocated "
+        f"{gate['peak_B']} B")
+    if not rel_loss <= 1e-5:
+        raise AssertionError(f"f32 losses differ by {rel_loss}")
+    if not gaps[worst] <= GRAD_TOL["float32"]:
+        raise AssertionError(f"f32 gradient {worst} off by {gaps[worst]}")
+    torch.cuda.empty_cache()
+    return {k: (sig(v) if isinstance(v, float) else v)
+            for k, v in gate.items()}
+
+
+def deepseek_train_phase() -> dict:
+    """15a, 15b and 15c (see the module docstring)."""
+    import torch
+    from repro_torch.optim.adamw import AdamWConfig
+    out: dict = {"attn_rows": []}
+    # 15a: the attention backward at deepseek's training call, (192, 128)
+    for dt in ("bfloat16", "float32"):
+        out["attn_rows"].append(check_attention_bwd(DS_BWD_ATTN_CASE, dt,
+                                                    900, ref_batch=1))
+        log("    " + json.dumps(out["attn_rows"][-1]))
+        torch.cuda.empty_cache()
+    # 15b: the cut at its published widths, five bf16 steps
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    out.update(train_steps(deepseek_train_config(DS_TRAIN_DENSE), opt,
+                           "15b"))
+    torch.cuda.empty_cache()
+    # 15c: the f32 gate
+    out["gate"] = deepseek_gate(
+        deepseek_train_config(DS_TRAIN_DENSE, "float32"), DS_GATE_B)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3781,6 +3988,18 @@ def main() -> int:
         + ([sig(r["dx_ms"]), sig(r["dw_ms"])] if "dx_ms" in r else [])
         for r in p14["gmm_rows"] + p14["attn_rows"]}
 
+    # ---------------------------------------- 15. training deepseek-v3
+    t15 = time.perf_counter()
+    p15 = deepseek_train_phase()
+    p15["s"] = sig(time.perf_counter() - t15)
+    log(f"[15] phase 15 took {p15['s']:.2f} s")
+    summary["p15"] = {k: v for k, v in p15.items() if k != "attn_rows"}
+    summary["p15"]["bwd"] = {
+        f"{r['case']}/{r['dtype'][:4]}": [
+            sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
+            sig(r["library_ms"]), sig(r["max_abs_err"]), r["sdpa_backend"]]
+        for r in p15["attn_rows"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -3970,9 +4189,10 @@ def main() -> int:
             kernels[-1].update(second("ds_decode_down_fill", row["dtype"],
                                       "deepseek_down"))
     # the backward kernels: the launches of the training steps of phases
-    # 13b and 14b, timed at hymba's training shapes in bf16 (the windowed
-    # attention call, 29 of 32 a step; the global one, f32 and olmoe's head
-    # dim 128 from phase 14a beside it)
+    # 13b, 14b and 15b, timed at hymba's training shapes in bf16 (the
+    # windowed attention call, 29 of 32 a step; the global one, f32,
+    # olmoe's head dim 128 from phase 14a and deepseek's MLA call at (192,
+    # 128) from phase 15a beside it)
     # the attention and grouped-matmul entries carry the bf16 route's
     # (``tc``) kernel and times, the PR 22/23 kernel's bf16 times as
     # "before" and the f32 (``general``) rows beside them
@@ -3991,18 +4211,19 @@ def main() -> int:
                  "source": f"src/repro_torch/kernels/csrc/{src}.cu",
                  "replaces": BWD_REPLACES[name],
                  "launches": (p13["launches"][name]
-                              + p14["launches"][name]),
-                 "launches_from": "phases 13b and 14b, 5 training steps "
-                                  "each",
+                              + p14["launches"][name]
+                              + p15["launches"][name]),
+                 "launches_from": "phases 13b, 14b and 15b, 5 training "
+                                  "steps each",
                  **row_fields(row),
                  "max_abs_err": max(r["max_abs_err"] for r in rows)}
         if general:
             entry.update(
                 general_source=f"src/repro_torch/kernels/csrc/{general}.cu",
                 bwd_route_launches={
-                    k: p13["bwd_routes"].get(k, 0) + p14["bwd_routes"].get(
-                        k, 0) for k in p13["bwd_routes"]
-                    if k.startswith("attention")},
+                    k: sum(p["bwd_routes"].get(k, 0) for p in (p13, p14,
+                                                                p15))
+                    for k in p13["bwd_routes"] if k.startswith("attention")},
                 before_ms=row["before_ms"], bound6_ms=row["bound6_ms"],
                 library_bwd_ms=row["library_bwd_ms"],
                 fwd_lse_ms=row["fwd_lse_ms"])
@@ -4024,6 +4245,13 @@ def main() -> int:
                 tag = "olmoe" + ("_f32" if r["dtype"] == "float32" else "")
                 entry.update(tagged(r, tag))
                 entry[f"{tag}_max_abs_err"] = r["max_abs_err"]
+            for r in p15["attn_rows"]:
+                tag = "deepseek" + ("_f32" if r["dtype"] == "float32"
+                                    else "")
+                entry.update(tagged(r, tag))
+                entry.update({f"{tag}_{k}": r[k] for k in (
+                    "max_abs_err", "shape", "sdpa_backend", "library_fwd_ms",
+                    "library_bwd_ms", "fwd_ms")})
         kernels.append(entry)
     # the grouped matmul's backward: phase 14b's launches (one per call,
     # dx and dw), timed at the bf16 gate/up product at the fills (dx and dw
@@ -4060,13 +4288,14 @@ def main() -> int:
             if k in r:
                 entry[f"{tag}_{k}"] = r[k]
     kernels.append(entry)
-    # the forward kernels' launches in training (phases 13b and 14b)
+    # the forward kernels' launches in training (phases 13b, 14b and 15b)
     # beside the serve runs' counts above
     for k in kernels:
         c = k["name"].split(":")[0]
         if c in ("flash_attention", "attention_masked", "mamba_scan") and \
                 k.get("attn_route", "prefill_tc") == "prefill_tc":
-            k["train_launches"] = p13["launches"][c] + p14["launches"][c]
+            k["train_launches"] = sum(p["launches"][c]
+                                      for p in (p13, p14, p15))
         if k["name"] == "grouped_matmul:gmm_tc":
             k["train_launches"] = p14["launches"]["grouped_matmul"]
     # the largest shape of phase 2, per kernel: the kernel against its bound

@@ -65,10 +65,10 @@ SIGNATURES = {
     "attention_prefill_tc": {
         "repro_attention_prefill_tc": (_P,) * 5 + (_I,) * 9 + (_F, _P),
     },
-    # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd,
+    # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd, hdv,
     #  causal, window, scale, is_bf16, stream)
     "attention_bwd": {
-        "repro_attention_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _I, _P),
+        "repro_attention_bwd": (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
     },
     # (x, w, dy, dx, dw, fills, G, C, D, F, is_bf16, stream); dx or dw
     # null skips its product
@@ -76,9 +76,9 @@ SIGNATURES = {
         "repro_grouped_matmul_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     # (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H,
-    #  KV, hd, causal, window, scale, stream)
+    #  KV, hd, hdv, causal, window, scale, stream)
     "attention_bwd_tc": {
-        "repro_attention_bwd_tc": (_P,) * 11 + (_I,) * 8 + (_F, _P),
+        "repro_attention_bwd_tc": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     },
     # (x, w, dy, dx, dw, fills, G, C, D, F, ctas, stream); dx or dw null
     # skips its product

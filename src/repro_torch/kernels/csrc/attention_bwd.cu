@@ -11,10 +11,12 @@
 // kernel's causal one and the sliding window of ``ops.attention`` (no
 // explicit positions: query i and key j sit at i and j).
 //
-// q, o, do (B, Sq, H, HD), k, v (B, Sk, KV, HD), contiguous and 16-byte
-// aligned, all f32 or all bf16; HD = 64 or 128 (hd = hd_v).  dq (B, Sq, H,
-// HD), dk, dv (B, Sk, KV, HD) come out in the same dtype; lse and delta
-// (B, H, Sq) f32 are scratch.  The kv head of q head h is h / (H / KV).
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq,
+// H, HDV), contiguous and 16-byte aligned, all f32 or all bf16; (HD, HDV)
+// = (64, 64) or (128, 128), and MLA's (192, 128) in f32 only (the bf16
+// calls take attention_bwd_tc.cu).  dq (B, Sq, H, HD), dk (B, Sk, KV, HD),
+// dv (B, Sk, KV, HDV) come out in the same dtype; lse and delta (B, H, Sq)
+// f32 are scratch.  The kv head of q head h is h / (H / KV).
 // Every query row must keep at least one key (the wrapper raises
 // otherwise), so the masked softmax weights are exactly 0.
 //
@@ -28,7 +30,8 @@
 // its own short chain and added on the CUDA cores.
 //
 // Bound on the card: per live (query, key) pair and q head, six products
-// of 2 HD FLOPs (S for the LSE, S again, dP, dQ, dK, dV) against a few
+// (S for the LSE, S again, dQ and dK of 2 HD FLOPs; dP and dV of 2 HDV)
+// against a few
 // bytes per element of q, k, v, o, dO and the three gradients: operations
 // bound it, at 989 TFLOP/s in bf16 and 165 TFLOP/s in 3xTF32.  This kernel
 // also recomputes S and dP in the dK/dV pass (eight products per pair).
@@ -260,25 +263,26 @@ __device__ __forceinline__ void pa(float (&acc)[HD / 8][4],
 }
 
 // ---------------------------------------------------------------- dq
-// BK keys per tile
-template <typename T, int HD, int BK>
+// BK keys per tile; rows of HD (q, k) and HDV (v, o, do) elements
+template <typename T, int HD, int HDV, int BK>
 struct DqCfg {
-  static constexpr int S = HD + Elem<T>::kPad;   // row stride
+  static constexpr int S = HD + Elem<T>::kPad;    // q and k row stride
+  static constexpr int SV = HDV + Elem<T>::kPad;  // v and do row stride
   static constexpr size_t kBytes =
-      sizeof(T) * static_cast<size_t>(2 * kRows * S + 4 * BK * S) +
+      sizeof(T) * static_cast<size_t>((kRows + 2 * BK) * (S + SV)) +
       sizeof(float) * kRows;
 };
 
-template <typename T, int HD, int BK>
+template <typename T, int HD, int HDV, int BK>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  using C = DqCfg<T, HD, BK>;
-  constexpr int S = C::S;
+  using C = DqCfg<T, HD, HDV, BK>;
+  constexpr int S = C::S, SV = C::SV;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);          // [kRows][S]
-  T* dOs = Qs + kRows * S;                     // [kRows][S]
-  T* Ks = dOs + kRows * S;                     // [2][BK][S]
-  T* Vs = Ks + 2 * BK * S;                     // [2][BK][S]
-  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BK * S);   // [kRows]
+  T* dOs = Qs + kRows * S;                     // [kRows][SV]
+  T* Ks = dOs + kRows * SV;                    // [2][BK][S]
+  T* Vs = Ks + 2 * BK * S;                     // [2][BK][SV]
+  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BK * SV);  // [kRows]
 
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int kv = h / (a.H / a.KV);
@@ -286,16 +290,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
   const size_t row_step = static_cast<size_t>(a.H) * HD;
+  const size_t row_step_v = static_cast<size_t>(a.H) * HDV;
   const size_t key_step = static_cast<size_t>(a.KV) * HD;
-  const size_t qoff = ((static_cast<size_t>(b) * a.Sq + q0) * a.H + h) * HD;
-  const T* k_b = static_cast<const T*>(a.k) +
-                 (static_cast<size_t>(b) * a.Sk * a.KV + kv) * HD;
-  const T* v_b = static_cast<const T*>(a.v) +
-                 (static_cast<size_t>(b) * a.Sk * a.KV + kv) * HD;
+  const size_t key_step_v = static_cast<size_t>(a.KV) * HDV;
+  const size_t qrow = (static_cast<size_t>(b) * a.Sq + q0) * a.H + h;
+  const size_t qoff = qrow * HD, ooff = qrow * HDV;
+  const size_t krow = static_cast<size_t>(b) * a.Sk * a.KV + kv;
+  const T* k_b = static_cast<const T*>(a.k) + krow * HD;
+  const T* v_b = static_cast<const T*>(a.v) + krow * HDV;
   load_tile<T, kRows, HD>(Qs, S, static_cast<const T*>(a.q) + qoff, row_step,
                           a.Sq - q0);
-  load_tile<T, kRows, HD>(dOs, S, static_cast<const T*>(a.dout) + qoff,
-                          row_step, a.Sq - q0);
+  load_tile<T, kRows, HDV>(dOs, SV, static_cast<const T*>(a.dout) + ooff,
+                           row_step_v, a.Sq - q0);
   tc::cp_async_commit();
 
   // the key tiles the block's queries reach
@@ -363,10 +369,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
     const int r = threadIdx.x / 2, half = threadIdx.x % 2;
     float sum = 0.f;
     if (q0 + r < a.Sq) {
-      const T* orow = static_cast<const T*>(a.o) + qoff + r * row_step;
-      const T* drow = dOs + r * S;
+      const T* orow = static_cast<const T*>(a.o) + ooff + r * row_step_v;
+      const T* drow = dOs + r * SV;
 #pragma unroll 8
-      for (int c = half * (HD / 2); c < (half + 1) * (HD / 2); ++c)
+      for (int c = half * (HDV / 2); c < (half + 1) * (HDV / 2); ++c)
         sum += to_f32(drow[c]) * to_f32(orow[c]);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -393,9 +399,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
     load_tile<T, BK, HD>(Ks + st * BK * S, S,
                          k_b + static_cast<size_t>(k0) * key_step, key_step,
                          a.Sk - k0);
-    load_tile<T, BK, HD>(Vs + st * BK * S, S,
-                         v_b + static_cast<size_t>(k0) * key_step, key_step,
-                         a.Sk - k0);
+    load_tile<T, BK, HDV>(Vs + st * BK * SV, SV,
+                          v_b + static_cast<size_t>(k0) * key_step_v,
+                          key_step_v, a.Sk - k0);
   };
   if (t_begin < t_end) {
     issue(t_begin, 0);
@@ -414,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
     const T* Kt = Ks + st * BK * S;
     float s[BK / 8][4], dp[BK / 8][4];
     nt<HD, BK, S, S>(s, Qs + wr * S, Kt, lane);
-    nt<HD, BK, S, S>(dp, dOs + wr * S, Vs + st * BK * S, lane);
+    nt<HDV, BK, SV, SV>(dp, dOs + wr * SV, Vs + st * BK * SV, lane);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -442,25 +448,26 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 }
 
 // --------------------------------------------------------------- dk, dv
-// BQ queries per tile
-template <typename T, int HD, int BQ>
+// BQ queries per tile; rows of HD (q, k) and HDV (v, do) elements
+template <typename T, int HD, int HDV, int BQ>
 struct DkvCfg {
   static constexpr int S = HD + Elem<T>::kPad;
+  static constexpr int SV = HDV + Elem<T>::kPad;
   static constexpr size_t kBytes =
-      sizeof(T) * static_cast<size_t>(2 * kRows * S + 4 * BQ * S) +
+      sizeof(T) * static_cast<size_t>((kRows + 2 * BQ) * (S + SV)) +
       sizeof(float) * 4 * BQ;
 };
 
-template <typename T, int HD, int BQ>
+template <typename T, int HD, int HDV, int BQ>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
-  using C = DkvCfg<T, HD, BQ>;
-  constexpr int S = C::S;
+  using C = DkvCfg<T, HD, HDV, BQ>;
+  constexpr int S = C::S, SV = C::SV;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);          // [kRows][S]
-  T* Vs = Ks + kRows * S;                      // [kRows][S]
-  T* Qs = Vs + kRows * S;                      // [2][BQ][S]
-  T* dOs = Qs + 2 * BQ * S;                    // [2][BQ][S]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * S);   // [2][BQ]
+  T* Vs = Ks + kRows * S;                      // [kRows][SV]
+  T* Qs = Vs + kRows * SV;                     // [2][BQ][S]
+  T* dOs = Qs + 2 * BQ * S;                    // [2][BQ][SV]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * SV);  // [2][BQ]
   float* dl_s = lse_s + 2 * BQ;                                 // [2][BQ]
 
   const int k0 = blockIdx.x * kRows, kv = blockIdx.y, b = blockIdx.z;
@@ -469,12 +476,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   const int g = lane / 4, t = lane % 4;
   const int wk = warp * 16;
   const size_t row_step = static_cast<size_t>(a.H) * HD;
+  const size_t row_step_v = static_cast<size_t>(a.H) * HDV;
   const size_t key_step = static_cast<size_t>(a.KV) * HD;
-  const size_t koff = ((static_cast<size_t>(b) * a.Sk + k0) * a.KV + kv) * HD;
+  const size_t key_step_v = static_cast<size_t>(a.KV) * HDV;
+  const size_t krow = (static_cast<size_t>(b) * a.Sk + k0) * a.KV + kv;
+  const size_t koff = krow * HD, voff = krow * HDV;
   load_tile<T, kRows, HD>(Ks, S, static_cast<const T*>(a.k) + koff, key_step,
                           a.Sk - k0);
-  load_tile<T, kRows, HD>(Vs, S, static_cast<const T*>(a.v) + koff, key_step,
-                          a.Sk - k0);
+  load_tile<T, kRows, HDV>(Vs, SV, static_cast<const T*>(a.v) + voff,
+                           key_step_v, a.Sk - k0);
   tc::cp_async_commit();
 
   // the query tiles that reach the block's keys, for each of the G heads
@@ -487,13 +497,13 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   const int n = G * n_qt;
   auto issue = [&](int i, int st) {
     const int h = kv * G + i / n_qt, q0 = (qt0 + i % n_qt) * BQ;
-    const size_t off = ((static_cast<size_t>(b) * a.Sq + q0) * a.H + h) * HD;
+    const size_t row = (static_cast<size_t>(b) * a.Sq + q0) * a.H + h;
     load_tile<T, BQ, HD>(Qs + st * BQ * S, S,
-                         static_cast<const T*>(a.q) + off, row_step,
+                         static_cast<const T*>(a.q) + row * HD, row_step,
                          a.Sq - q0);
-    load_tile<T, BQ, HD>(dOs + st * BQ * S, S,
-                         static_cast<const T*>(a.dout) + off, row_step,
-                         a.Sq - q0);
+    load_tile<T, BQ, HDV>(dOs + st * BQ * SV, SV,
+                          static_cast<const T*>(a.dout) + row * HDV,
+                          row_step_v, a.Sq - q0);
     const size_t rs = (static_cast<size_t>(b) * a.H + h) * a.Sq;
     if (threadIdx.x < 2 * BQ) {
       const int c = threadIdx.x % BQ, qi = q0 + c;
@@ -502,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
       tc::cp_async4(dst, src + rs + min(qi, a.Sq - 1), qi < a.Sq);
     }
   };
-  float dK[HD / 8][4], dV[HD / 8][4];
+  float dK[HD / 8][4], dV[HDV / 8][4];
   zero(dK);
   zero(dV);
   const float sl2 = a.scale * kLog2e;
@@ -522,12 +532,12 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
     __syncthreads();
     const int q0 = (qt0 + i % n_qt) * BQ;
     const T* Qt = Qs + st * BQ * S;
-    const T* dOt = dOs + st * BQ * S;
+    const T* dOt = dOs + st * BQ * SV;
     const float* lt = lse_s + st * BQ;
     const float* dlt = dl_s + st * BQ;
     float s[BQ / 8][4], dp[BQ / 8][4];
     nt<HD, BQ, S, S>(s, Ks + wk * S, Qt, lane);      // S^T: keys x queries
-    nt<HD, BQ, S, S>(dp, Vs + wk * S, dOt, lane);    // dP^T
+    nt<HDV, BQ, SV, SV>(dp, Vs + wk * SV, dOt, lane);  // dP^T
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -538,7 +548,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - dlt[c]);
       }
-    pa<HD, BQ, S>(dV, s, dOt, lane);     // dV += P^T dO
+    pa<HDV, BQ, SV>(dV, s, dOt, lane);   // dV += P^T dO
     pa<HD, BQ, S>(dK, dp, Qt, lane);     // dK += dS^T Q
     __syncthreads();
   }
@@ -547,14 +557,17 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kj[r] >= a.Sk) continue;
-    const size_t off = koff + (wk + g + 8 * r) * key_step;
-    T* ok_ = static_cast<T*>(a.dk) + off;
-    T* ov = static_cast<T*>(a.dv) + off;
+    T* ok_ = static_cast<T*>(a.dk) + koff + (wk + g + 8 * r) * key_step;
+    T* ov = static_cast<T*>(a.dv) + voff + (wk + g + 8 * r) * key_step_v;
 #pragma unroll
     for (int nn = 0; nn < HD / 8; ++nn) {
       const int c = nn * 8 + 2 * t;
       store(ok_ + c, dK[nn][2 * r] * a.scale);
       store(ok_ + c + 1, dK[nn][2 * r + 1] * a.scale);
+    }
+#pragma unroll
+    for (int nn = 0; nn < HDV / 8; ++nn) {
+      const int c = nn * 8 + 2 * t;
       store(ov + c, dV[nn][2 * r]);
       store(ov + c + 1, dV[nn][2 * r + 1]);
     }
@@ -574,31 +587,40 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
 }
 
 // tiles: bf16 64 keys (dq) and 64 or 32 queries (dkv, HD 64 or 128); f32
-// 32 keys and 32 or 16 queries -- what the registers of one thread hold
-template <typename T, int HD>
+// 32 keys and 32 or 16 queries (HD 64, or 128 and 192: a warp's dK and dV
+// take 32 + 32, 64 + 64 or 96 + 64 registers a thread, and a tile of 16
+// queries about 36 more for S^T, dP^T and the 3xTF32 fragments) -- what
+// the registers of one thread hold
+template <typename T, int HD, int HDV>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int BK = kBf16 ? 64 : 32;
   constexpr int BQ = kBf16 ? (HD == 64 ? 64 : 32) : (HD == 64 ? 32 : 16);
-  using Q = DqCfg<T, HD, BK>;
-  using KVc = DkvCfg<T, HD, BQ>;
+  using Q = DqCfg<T, HD, HDV, BK>;
+  using KVc = DkvCfg<T, HD, HDV, BQ>;
   static bool dq_ok = false, dkv_ok = false;
-  cudaError_t err = allow_smem(dq_kernel<T, HD, BK>, Q::kBytes, dq_ok);
+  cudaError_t err = allow_smem(dq_kernel<T, HD, HDV, BK>, Q::kBytes, dq_ok);
   if (err == cudaSuccess)
-    err = allow_smem(dkv_kernel<T, HD, BQ>, KVc::kBytes, dkv_ok);
+    err = allow_smem(dkv_kernel<T, HD, HDV, BQ>, KVc::kBytes, dkv_ok);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g1((a.Sq + kRows - 1) / kRows, a.H, a.B);
-  dq_kernel<T, HD, BK><<<g1, kThreads, Q::kBytes, stream>>>(a);
+  dq_kernel<T, HD, HDV, BK><<<g1, kThreads, Q::kBytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g2((a.Sk + kRows - 1) / kRows, a.KV, a.B);
-  dkv_kernel<T, HD, BQ><<<g2, kThreads, KVc::kBytes, stream>>>(a);
+  dkv_kernel<T, HD, HDV, BQ><<<g2, kThreads, KVc::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// (hd, hd_v) = (64, 64), (128, 128), and (192, 128) in f32
 template <typename T>
-int dispatch(const Args& a, int hd, cudaStream_t s) {
-  return hd == 64 ? launch<T, 64>(a, s) : launch<T, 128>(a, s);
+int dispatch(const Args& a, int hd, int hd_v, cudaStream_t s) {
+  if (hd == 64 && hd_v == 64) return launch<T, 64, 64>(a, s);
+  if (hd == 128 && hd_v == 128) return launch<T, 128, 128>(a, s);
+  if constexpr (sizeof(T) == 4) {
+    if (hd == 192 && hd_v == 128) return launch<T, 192, 128>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -608,10 +630,10 @@ extern "C" int repro_attention_bwd(const void* q, const void* k,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* lse, void* delta, int B,
                                    int Sq, int Sk, int H, int KV, int hd,
-                                   int causal, int window, float scale,
-                                   int is_bf16, void* stream) {
+                                   int hd_v, int causal, int window,
+                                   float scale, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (hd != 64 && hd != 128))
+  if (KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
                         static_cast<const void*>(dk),
@@ -622,6 +644,6 @@ extern "C" int repro_attention_bwd(const void* q, const void* k,
                static_cast<float*>(delta), B, Sq, Sk, H, KV, causal, window,
                scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(a, hd, s)
-                 : dispatch<float>(a, hd, s);
+  return is_bf16 ? dispatch<__nv_bfloat16>(a, hd, hd_v, s)
+                 : dispatch<float>(a, hd, hd_v, s);
 }

@@ -12,12 +12,13 @@
 // ``ops.attention`` (no explicit positions: query i and key j sit at i and
 // j).
 //
-// q, o, do (B, Sq, H, HD), k, v (B, Sk, KV, HD), contiguous bf16, 16-byte
-// aligned, HD = 64 or 128 (hd = hd_v); lse (B, H, Sq) f32, the forward's
-// row log-sum-exp of the masked scores times scale, in log2 units (what
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq,
+// H, HDV), contiguous bf16, 16-byte aligned, (HD, HDV) = (64, 64), (128,
+// 128) or MLA's (192, 128); lse (B, H, Sq) f32, the forward's row
+// log-sum-exp of the masked scores times scale, in log2 units (what
 // attention_prefill_tc.cu writes: m + log2(l) with m the row's largest
-// score * scale * log2(e)).  dq (B, Sq, H, HD), dk, dv (B, Sk, KV, HD) come
-// out in bf16; lse_pad and delta_pad (B * H * Sq_pad f32, Sq_pad = Sq
+// score * scale * log2(e)).  dq (B, Sq, H, HD), dk (B, Sk, KV, HD), dv (B,
+// Sk, KV, HDV) come out in bf16; lse_pad and delta_pad (B * H * Sq_pad f32, Sq_pad = Sq
 // rounded up to 128) are scratch.  The kv head of q head h is h / (H / KV).
 // Every query row keeps at least one key (the wrapper raises otherwise).
 //
@@ -29,16 +30,17 @@
 // sums); dS takes the rounded P.
 //
 // Bound on the card: per live (query, key) pair and q head, five products
-// of 2 HD FLOPs (S, dP, dQ, dK, dV; the LSE comes from the forward) against
-// a few bytes per element of q, k, v, o, dO and the three gradients:
-// operations bound it, at 989 TFLOP/s.  This kernel forms S and dP twice
-// (seven products a pair), so that no gradient needs atomics.
+// (S, dQ and dK of 2 HD FLOPs, dP and dV of 2 HDV; the LSE comes from the
+// forward) against a few bytes per element of q, k, v, o, dO and the three
+// gradients: operations bound it, at 989 TFLOP/s.  This kernel forms S and
+// dP twice (seven products a pair), so that no gradient needs atomics.
 //
 // Design, two kernels on the caller's stream, no atomics on the gradients:
 // each gradient element is summed by one warpgroup in a fixed order, so
 // two runs give equal bits.  Both are two warpgroups (256 threads) and no producer warp:
 // ptxas budgets a block of 288 threads as 384, 168 registers a thread, and
-// at HD 128 dK and dV alone take 128 of them; 256 threads have 255.  Tiles
+// at HD 128 dK and dV alone take 128 of them (160 at (192, 128)); 256
+// threads have 255.  Tiles
 // come in by TMA (4-D tensor maps over (head dim, heads, S, B), 64-column
 // boxes with 128-byte swizzle, rows past Sq or Sk zero-filled) into rings
 // of three stages with a "full" mbarrier each.  Thread 0 issues the first
@@ -48,7 +50,10 @@
 // for both to free a stage held them in step, and was slower).  A block
 // holds 128 rows, 64 a warpgroup, and streams tiles of N rows: N = 128 at
 // HD 64, 64 at HD 128 (where S^T and dP^T of 64 x 128 would not fit beside
-// dK and dV).
+// dK and dV); at (192, 128) dq_kernel streams 64 keys and dkv_kernel 32
+// queries (``Layout``).  At (192, 128) S (S^T) sums over 192 columns in
+// three boxes, dP (dP^T) and delta over 128 in two; dQ and dK are wgmmas
+// of N = 192 (m64n192k16), dV of N = 128.
 //  * dq_kernel, per (batch, q head, 128 queries).  Q and dO arrive once;
 //    each warpgroup computes delta for its rows from O and dO in device
 //    memory, and writes delta and the LSE, padded, for dkv_kernel.  Key
@@ -174,6 +179,24 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// D (64 x 32, f32) = or += A (64 x 16) * B (16 x 32), both bf16 in shared
+// memory, K-major, 128-byte swizzle; ``accumulate`` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a,
+                                             uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 64, f32) = or += A (64 x 16) * B (16 x 64), both bf16 in shared
 // memory, K-major, 128-byte swizzle; ``accumulate`` 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
@@ -286,30 +309,77 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// D (64 x HD) += A (64 x 16, registers) * B (16 x HD, MN-major)
-template <int HD>
+// D (64 x 192, f32) += A (64 x 16, bf16 in registers) * B (16 x 192, bf16
+// in shared memory, MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x N) += A (64 x 16, registers) * B (16 x N, MN-major)
+template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t desc_b) {
-  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
-  if constexpr (HD == 64) {
+  static_assert(N == 64 || N == 128 || N == 192, "widths 64, 128 or 192");
+  if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n192(d, a, desc_b);
   }
 }
 
-// D (64 x N) = A (64 x HD) B^T (N x HD), both K-major in boxes of 64
+// D (64 x N) = A (64 x K) B^T (N x K), both K-major in boxes of 64
 // columns: A's boxes ``a_box`` bytes apart, B's ``b_box``
-template <int HD, int N>
+template <int K, int N>
 __device__ __forceinline__ void wgmma_nt(float* d, uint32_t a, int a_box,
                                          uint32_t b, int b_box) {
-  static_assert(N == 64 || N == 128, "tiles of 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128, "tiles of 32, 64 or 128");
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
+  for (int ks = 0; ks < K / 16; ++ks) {
     const uint32_t off = (ks % 4) * 32;   // 32 bytes along a swizzled row
     const uint64_t da = smem_desc(a + (ks / 4) * a_box + off, 16, 1024);
     const uint64_t db = smem_desc(b + (ks / 4) * b_box + off, 16, 1024);
-    if constexpr (N == 64) {
+    if constexpr (N == 32) {
+      wgmma_ss_n32(d, da, db, ks > 0);
+    } else if constexpr (N == 64) {
       wgmma_ss_n64(d, da, db, ks > 0);
     } else {
       wgmma_ss_n128(d, da, db, ks > 0);
@@ -338,27 +408,41 @@ __device__ __forceinline__ bool live(int qi, int kj, int causal, int window) {
   return (!causal || qi >= kj) && (window <= 0 || qi - kj < window);
 }
 
-// The tiles of head dim HD: a block holds kBig rows (two warpgroups of 64)
-// and streams tiles of kN rows: 128 at HD 64, 64 at HD 128, where dK and dV
-// of a warpgroup take 128 registers a thread and S^T and dP^T of 64 x 128
-// would not fit beside them.
-template <int HD>
+// The tiles of head dims (HD, HDV): q, k, dq and dk rows are HD wide
+// (HD / 64 boxes), v, o, dO and dv rows HDV (HDV / 64 boxes).  A block
+// holds kBig rows (two warpgroups of 64) and streams tiles of N rows: dq
+// kN_q keys, dkv kN_kv queries.  128 at (64, 64); 64 at (128, 128), where
+// dK and dV of a warpgroup take 128 registers a thread and S^T and dP^T
+// of 64 x 128 would not fit beside them; at (192, 128) dq streams 64 keys
+// (dQ 96 registers, S and dP 32 each) and dkv 32 queries: dK and dV take
+// 96 + 64 registers a thread, S^T and dP^T of 64 x 32 16 each, the peak
+// of (128, 128) at 64.
+template <int HD, int HDV>
 struct Layout {
-  static constexpr int kN = HD == 64 ? 128 : 64;
+  static_assert((HD == 64 && HDV == 64) || (HD == 128 && HDV == 128) ||
+                    (HD == 192 && HDV == 128),
+                "head dims (64, 64), (128, 128) or (192, 128)");
+  static constexpr int kNq = HD == 64 ? 128 : 64;
+  static constexpr int kNkv = HD == 64 ? 128 : HD == 128 ? 64 : 32;
   static constexpr int kChunks = HD / kBox;               // boxes per row
+  static constexpr int kChunksV = HDV / kBox;
   static constexpr int kBigBox = kBig * kBoxBytes;        // 16 KB
-  static constexpr int kNBox = kN * kBoxBytes;
-  static constexpr int kBigBytes = kChunks * kBigBox;     // a 128-row tile
-  static constexpr int kNBytes = kChunks * kNBox;         // a kN-row tile
-  // dq: Q and dO, then stages of K and V
-  static constexpr int kDqSmem = 1024 + 2 * kBigBytes + kStages * 2 *
-                                 kNBytes;
-  // dkv: K and V, then stages of Q, dO, lse and delta, each stage on a
-  // 1024-byte line (the swizzle's period)
-  static constexpr int kDkvBytes = 2 * kNBytes + 2 * kN * 4;
-  static constexpr int kDkvStage = 2 * kNBytes + 1024;
-  static constexpr int kDkvSmem = 1024 + 2 * kBigBytes + kStages * kDkvStage;
-  static_assert(2 * kN * 4 <= 1024, "lse and delta in a stage's line");
+  static constexpr int kBigQ = kChunks * kBigBox;         // 128 rows of HD
+  static constexpr int kBigV = kChunksV * kBigBox;        // 128 rows of HDV
+  // dq: Q and dO, then stages of K and V (kN_q rows)
+  static constexpr int kQBox = kNq * kBoxBytes;
+  static constexpr int kQK = kChunks * kQBox;             // the stage's K
+  static constexpr int kDqStage = (kChunks + kChunksV) * kQBox;
+  static constexpr int kDqSmem = 1024 + kBigQ + kBigV + kStages * kDqStage;
+  // dkv: K and V, then stages of Q, dO (kN_kv rows), lse and delta, each
+  // stage on a 1024-byte line (the swizzle's period)
+  static constexpr int kKvBox = kNkv * kBoxBytes;
+  static constexpr int kKvQ = kChunks * kKvBox;           // the stage's Q
+  static constexpr int kKvTiles = (kChunks + kChunksV) * kKvBox;
+  static constexpr int kDkvBytes = kKvTiles + 2 * kNkv * 4;
+  static constexpr int kDkvStage = kKvTiles + 1024;
+  static constexpr int kDkvSmem = 1024 + kBigQ + kBigV + kStages * kDkvStage;
+  static_assert(2 * kNkv * 4 <= 1024, "lse and delta in a stage's line");
   static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
                 "over a block's shared memory");
 };
@@ -366,7 +450,7 @@ struct Layout {
 // ------------------------------------------------------------ dq kernel
 
 // grid (H * B, query tiles of 128); causal: the heaviest tiles first
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_do,
@@ -378,17 +462,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           float* __restrict__ lse_pad, float* __restrict__ delta_pad,
           int Sq, int Sk, int H, int KV, int causal, int window,
           float scale_log2, float scale) {
-  using L = Layout<HD>;
-  constexpr int kN = L::kN;
+  using L = Layout<HD, HDV>;
+  constexpr int kN = L::kNq;
   extern __shared__ uint8_t smem_raw[];
   // Q and dO; per stage "full", and the count of its releases
   __shared__ __align__(8) uint64_t bars[1 + kStages];
   __shared__ int released[kStages];
 
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base, do_s = base + L::kBigBytes;
-  const uint32_t kv_s = base + 2 * L::kBigBytes;   // stage s: K then V
-  auto k_stage = [&](int s) { return kv_s + s * 2 * L::kNBytes; };
+  const uint32_t q_s = base, do_s = base + L::kBigQ;
+  const uint32_t kv_s = do_s + L::kBigV;   // stage s: K then V
+  auto k_stage = [&](int s) { return kv_s + s * L::kDqStage; };
 
   const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -406,15 +490,16 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   // then by whichever warpgroup frees the stage last
   auto load_kv = [&](int t, int i) {
     const int s = i % kStages;
-    mbar_expect_tx(bar_full(s), 2 * L::kNBytes);
-    const uint32_t k_dst = k_stage(s), v_dst = k_dst + L::kNBytes;
+    mbar_expect_tx(bar_full(s), L::kDqStage);
+    const uint32_t k_dst = k_stage(s), v_dst = k_dst + L::kQK;
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
-      tma_load(k_dst + c * L::kNBox, &tm_k, bar_full(s), c * kBox, kvh,
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load(k_dst + c * L::kQBox, &tm_k, bar_full(s), c * kBox, kvh,
                t * kN, b);
-      tma_load(v_dst + c * L::kNBox, &tm_v, bar_full(s), c * kBox, kvh,
+#pragma unroll
+    for (int c = 0; c < L::kChunksV; ++c)
+      tma_load(v_dst + c * L::kQBox, &tm_v, bar_full(s), c * kBox, kvh,
                t * kN, b);
-    }
   };
 
   if (tid == 0) {
@@ -427,12 +512,13 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_q, 2 * L::kBigBytes);
+    mbar_expect_tx(bar_q, L::kBigQ + L::kBigV);
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
+    for (int c = 0; c < L::kChunks; ++c)
       tma_load(q_s + c * L::kBigBox, &tm_q, bar_q, c * kBox, h, q0, b);
+#pragma unroll
+    for (int c = 0; c < L::kChunksV; ++c)
       tma_load(do_s + c * L::kBigBox, &tm_do, bar_q, c * kBox, h, q0, b);
-    }
     for (int j = 0; j < kStages && t_lo + j < t_hi; ++j)
       load_kv(t_lo + j, j);
   }
@@ -447,18 +533,18 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const size_t bh = static_cast<size_t>(b) * H + h;
   const int Sq_pad = (Sq + kPad - 1) / kPad * kPad;
 
-  // delta = rowsum(dO o O) of rows r0 and r1: lane ``quad`` of the row's
-  // quad sums a quarter of the columns, 16 bytes at a time
+  // delta = rowsum(dO o O) of rows r0 and r1 (HDV wide): lane ``quad`` of
+  // the row's quad sums a quarter of the columns, 16 bytes at a time
   float dl[2], ls[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = e ? r1 : r0;
     float sum = 0.f;
     if (r < Sq) {
-      const size_t row = ((static_cast<size_t>(b) * Sq + r) * H + h) * HD;
+      const size_t row = ((static_cast<size_t>(b) * Sq + r) * H + h) * HDV;
 #pragma unroll
-      for (int p = 0; p < HD / 32; ++p) {
-        const int col = quad * (HD / 4) + 8 * p;
+      for (int p = 0; p < HDV / 32; ++p) {
+        const int col = quad * (HDV / 4) + 8 * p;
         const uint4 ov = *reinterpret_cast<const uint4*>(o + row + col);
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + row + col);
         const uint32_t* oa = reinterpret_cast<const uint32_t*>(&ov);
@@ -496,13 +582,13 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
     const int s = i % kStages;
     mbar_wait(bar_full(s), (i / kStages) & 1);
-    const uint32_t k_s = k_stage(s), v_s = k_s + L::kNBytes;
+    const uint32_t k_s = k_stage(s), v_s = k_s + L::kQK;
 
     float sc[kN / 2], dp[kN / 2];
     wgmma_fence();
-    wgmma_nt<HD, kN>(sc, q_wg, L::kBigBox, k_s, L::kNBox);
+    wgmma_nt<HD, kN>(sc, q_wg, L::kBigBox, k_s, L::kQBox);
     wgmma_commit();
-    wgmma_nt<HD, kN>(dp, do_wg, L::kBigBox, v_s, L::kNBox);
+    wgmma_nt<HDV, kN>(dp, do_wg, L::kBigBox, v_s, L::kQBox);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs<kN / 2>(sc);
@@ -542,7 +628,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
       wgmma_rs<HD>(acc, ds[kk], smem_desc(k_s + kk * 16 * kBoxBytes,
-                                          L::kNBox, 1024));
+                                          L::kQBox, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<HD / 2>(acc);
@@ -571,7 +657,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // grid (KV * B, key tiles of 128): every (batch, kv head)'s first key tile
 // (the heaviest when causal) in the first wave
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
@@ -582,16 +668,16 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
            int Sq, int Sk, int H, int KV, int causal, int window,
            float scale_log2, float scale) {
-  using L = Layout<HD>;
-  constexpr int kN = L::kN;
+  using L = Layout<HD, HDV>;
+  constexpr int kN = L::kNkv;
   extern __shared__ uint8_t smem_raw[];
   // K and V; per stage "full", and the count of its releases
   __shared__ __align__(8) uint64_t bars[1 + kStages];
   __shared__ int released[kStages];
 
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t k_s = base, v_s = base + L::kBigBytes;
-  const uint32_t st_s = base + 2 * L::kBigBytes;
+  const uint32_t k_s = base, v_s = base + L::kBigQ;
+  const uint32_t st_s = v_s + L::kBigV;
   // stage s: Q, dO, then kN floats of lse and kN of delta
   auto q_stage = [&](int s) { return st_s + s * L::kDkvStage; };
   const uint8_t* st_generic = smem_raw + (st_s - smem_u32(smem_raw));
@@ -618,15 +704,16 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
     const int qq = (qt_lo + i % per_head) * kN;
     const int s = i % kStages;
     mbar_expect_tx(bar_full(s), L::kDkvBytes);
-    const uint32_t q_dst = q_stage(s), do_dst = q_dst + L::kNBytes;
+    const uint32_t q_dst = q_stage(s), do_dst = q_dst + L::kKvQ;
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
-      tma_load(q_dst + c * L::kNBox, &tm_q, bar_full(s), c * kBox, h, qq, b);
-      tma_load(do_dst + c * L::kNBox, &tm_do, bar_full(s), c * kBox, h, qq,
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load(q_dst + c * L::kKvBox, &tm_q, bar_full(s), c * kBox, h, qq, b);
+#pragma unroll
+    for (int c = 0; c < L::kChunksV; ++c)
+      tma_load(do_dst + c * L::kKvBox, &tm_do, bar_full(s), c * kBox, h, qq,
                b);
-    }
     const size_t row = (static_cast<size_t>(b) * H + h) * Sq_pad + qq;
-    const uint32_t ld_dst = do_dst + L::kNBytes;
+    const uint32_t ld_dst = q_dst + L::kKvTiles;
     bulk_load(ld_dst, lse_pad + row, kN * 4, bar_full(s));
     bulk_load(ld_dst + kN * 4, delta_pad + row, kN * 4, bar_full(s));
   };
@@ -641,12 +728,13 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_kv, 2 * L::kBigBytes);
+    mbar_expect_tx(bar_kv, L::kBigQ + L::kBigV);
 #pragma unroll
-    for (int c = 0; c < L::kChunks; ++c) {
+    for (int c = 0; c < L::kChunks; ++c)
       tma_load(k_s + c * L::kBigBox, &tm_k, bar_kv, c * kBox, kvh, k0, b);
+#pragma unroll
+    for (int c = 0; c < L::kChunksV; ++c)
       tma_load(v_s + c * L::kBigBox, &tm_v, bar_kv, c * kBox, kvh, k0, b);
-    }
     for (int j = 0; j < kStages && j < n_it; ++j) load_q(j);
   }
 
@@ -658,9 +746,11 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int kw0 = k0 + wg * kWG, kw_last = kw0 + kWG - 1;
   const int kr0 = kw0 + warp * 16 + lane / 4, kr1 = kr0 + 8;
 
-  float dk_acc[HD / 2], dv_acc[HD / 2];
+  float dk_acc[HD / 2], dv_acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HDV / 2; ++i) dv_acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
   const uint32_t k_wg = k_s + wg * kWG * kBoxBytes;
@@ -673,16 +763,16 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
     const int q0 = (qt_lo + i % per_head) * kN;
     const int s = i % kStages;
     mbar_wait(bar_full(s), (i / kStages) & 1);
-    const uint32_t q_st = q_stage(s), do_st = q_st + L::kNBytes;
+    const uint32_t q_st = q_stage(s), do_st = q_st + L::kKvQ;
     const float* ld = reinterpret_cast<const float*>(
-        st_generic + s * L::kDkvStage + 2 * L::kNBytes);
+        st_generic + s * L::kDkvStage + L::kKvTiles);
 
     // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
     float sc[kN / 2], dp[kN / 2];
     wgmma_fence();
-    wgmma_nt<HD, kN>(sc, k_wg, L::kBigBox, q_st, L::kNBox);
+    wgmma_nt<HD, kN>(sc, k_wg, L::kBigBox, q_st, L::kKvBox);
     wgmma_commit();
-    wgmma_nt<HD, kN>(dp, v_wg, L::kBigBox, do_st, L::kNBox);
+    wgmma_nt<HDV, kN>(dp, v_wg, L::kBigBox, do_st, L::kKvBox);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs<kN / 2>(sc);
@@ -729,15 +819,15 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
-      wgmma_rs<HD>(dv_acc, pf[kk], smem_desc(do_st + kk * 16 * kBoxBytes,
-                                             L::kNBox, 1024));
+      wgmma_rs<HDV>(dv_acc, pf[kk], smem_desc(do_st + kk * 16 * kBoxBytes,
+                                              L::kKvBox, 1024));
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
       wgmma_rs<HD>(dk_acc, ds[kk], smem_desc(q_st + kk * 16 * kBoxBytes,
-                                             L::kNBox, 1024));
+                                             L::kKvBox, 1024));
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(dv_acc);
+    fence_regs<HDV / 2>(dv_acc);
     fence_regs<HD / 2>(dk_acc);
     // the second warpgroup to free the stage fills it with tile i + 3
     if (tid % 128 == 0 && atomicAdd(&released[s], 1) % 2 == 1 &&
@@ -746,19 +836,19 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int col = 8 * j + c_lane;
+  for (int e = 0; e < 4; e += 2) {
+    const int kr = e ? kr1 : kr0;
+    if (kr >= Sk) continue;
+    const size_t row = (static_cast<size_t>(b) * Sk + kr) * KV + kvh;
 #pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int kr = e ? kr1 : kr0;
-      if (kr >= Sk) continue;
-      const size_t at = ((static_cast<size_t>(b) * Sk + kr) * KV + kvh) * HD
-                        + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-          dk_acc[4 * j + e] * scale, dk_acc[4 * j + e + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * HD + 8 * j + c_lane) =
+          __floats2bfloat162_rn(dk_acc[4 * j + e] * scale,
+                                dk_acc[4 * j + e + 1] * scale);
+#pragma unroll
+    for (int j = 0; j < HDV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * HDV + 8 * j + c_lane) =
           __floats2bfloat162_rn(dv_acc[4 * j + e], dv_acc[4 * j + e + 1]);
-    }
   }
 }
 
@@ -812,32 +902,32 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* lse_pad, float* delta_pad, int B, int Sq, int Sk, int H,
            int KV, int causal, int window, float scale, cudaStream_t stream) {
-  using L = Layout<HD>;
+  using L = Layout<HD, HDV>;
   CUtensorMap tq_big, tdo_big, tk_small, tv_small;   // dq_kernel's
   CUtensorMap tk_big, tv_big, tq_small, tdo_small;   // dkv_kernel's
   if (!make_map(&tq_big, q, B, Sq, H, HD, kBig) ||
-      !make_map(&tdo_big, dout, B, Sq, H, HD, kBig) ||
-      !make_map(&tk_small, k, B, Sk, KV, HD, L::kN) ||
-      !make_map(&tv_small, v, B, Sk, KV, HD, L::kN) ||
+      !make_map(&tdo_big, dout, B, Sq, H, HDV, kBig) ||
+      !make_map(&tk_small, k, B, Sk, KV, HD, L::kNq) ||
+      !make_map(&tv_small, v, B, Sk, KV, HDV, L::kNq) ||
       !make_map(&tk_big, k, B, Sk, KV, HD, kBig) ||
-      !make_map(&tv_big, v, B, Sk, KV, HD, kBig) ||
-      !make_map(&tq_small, q, B, Sq, H, HD, L::kN) ||
-      !make_map(&tdo_small, dout, B, Sq, H, HD, L::kN))
+      !make_map(&tv_big, v, B, Sk, KV, HDV, kBig) ||
+      !make_map(&tq_small, q, B, Sq, H, HD, L::kNkv) ||
+      !make_map(&tdo_small, dout, B, Sq, H, HDV, L::kNkv))
     return static_cast<int>(cudaErrorInvalidValue);
   // raise the shared-memory limits once, at the first launch: not again
   // inside a CUDA-graph capture
   static bool limit_set = false;
   if (!limit_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dq_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         L::kDqSmem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dkv_kernel<HD>,
+      err = cudaFuncSetAttribute(dkv_kernel<HD, HDV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  L::kDkvSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -845,7 +935,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   const float scale_log2 = scale * kLog2e;
   const dim3 grid_q(H * B, (Sq + kBig - 1) / kBig);
-  dq_kernel<HD><<<grid_q, kThreads, L::kDqSmem, stream>>>(
+  dq_kernel<HD, HDV><<<grid_q, kThreads, L::kDqSmem, stream>>>(
       tq_big, tdo_big, tk_small, tv_small,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse,
@@ -854,7 +944,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(KV * B, (Sk + kBig - 1) / kBig);
-  dkv_kernel<HD><<<grid_kv, kThreads, L::kDkvSmem, stream>>>(
+  dkv_kernel<HD, HDV><<<grid_kv, kThreads, L::kDkvSmem, stream>>>(
       tk_big, tv_big, tq_small, tdo_small, lse_pad, delta_pad,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
       Sk, H, KV, causal, window, scale_log2, scale);
@@ -864,16 +954,17 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H, KV,
-// hd, causal, window, scale, stream); lse_pad and delta_pad hold B * H *
-// Sq_pad floats, Sq_pad = Sq rounded up to 128
+// hd, hd_v, causal, window, scale, stream); (hd, hd_v) (64, 64), (128,
+// 128) or (192, 128); lse_pad and delta_pad hold B * H * Sq_pad floats,
+// Sq_pad = Sq rounded up to 128
 extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
                                       void* dq, void* dk, void* dv,
                                       void* lse_pad, void* delta_pad, int B,
                                       int Sq, int Sk, int H, int KV, int hd,
-                                      int causal, int window, float scale,
-                                      void* stream) {
+                                      int hd_v, int causal, int window,
+                                      float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   uintptr_t align = 0;
   for (const void* p : {q, k, v, o, dout, lse, static_cast<const void*>(dq),
@@ -888,11 +979,14 @@ extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* lp = static_cast<float*>(lse_pad);
   float* dp = static_cast<float*>(delta_pad);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk, H,
-                      KV, causal, window, scale, s);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk, H,
-                       KV, causal, window, scale, s);
+  if (hd == 64 && hd_v == 64)
+    return launch<64, 64>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk,
+                          H, KV, causal, window, scale, s);
+  if (hd == 128 && hd_v == 128)
+    return launch<128, 128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq,
+                            Sk, H, KV, causal, window, scale, s);
+  if (hd == 192 && hd_v == 128)
+    return launch<192, 128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq,
+                            Sk, H, KV, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

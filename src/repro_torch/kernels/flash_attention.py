@@ -25,8 +25,9 @@ another or to the plain version.
 
 Training: ``attention_train`` runs the forward above through
 ``_Attention``, an autograd Function whose backward is ``attention_bwd``,
-for the calls the training path makes -- no explicit positions, hd = hd_v
-in ``BWD_HEAD_DIMS``, f32 or bf16, causal or not, any window -- and raises
+for the calls the training path makes -- no explicit positions, (hd,
+hd_v) in ``BWD_HEAD_DIMS`` (hymba's and olmoe's (64, 64) and (128, 128),
+MLA's (192, 128)), f32 or bf16, causal or not, any window -- and raises
 for any other call that needs a gradient.  Backward routes, chosen by
 ``bwd_route`` from the dtype and the shapes alone:
 
@@ -53,7 +54,8 @@ MAX_HEAD_DIM = 256
 DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
 TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (hd, hd_v)
 MAX_SPLITS = 64         # the decode kernel's combine holds this many
-BWD_HEAD_DIMS = (64, 128)   # hd = hd_v of the backward kernels
+# the backward's (hd, hd_v): the tc route takes the LSE from prefill_tc
+BWD_HEAD_DIMS = TC_HEAD_DIMS
 _BWD_TC_PAD = 128           # the tc backward's scratch rows: Sq rounded up
 
 
@@ -195,15 +197,15 @@ def bwd_route(dtype, Sq: int, Sk: int, hd: int, hd_v: int, window: int,
     """The backward kernel an attention call of these shapes goes to (see
     the module docstring): ``"tc"`` for bf16, ``"general"`` for f32; a pure
     function of the dtype and the shapes.  Raises for a call that neither
-    takes: explicit positions, hd != hd_v or not in ``BWD_HEAD_DIMS``,
+    takes: explicit positions, (hd, hd_v) not in ``BWD_HEAD_DIMS``,
     another dtype, or a window that leaves query rows past ``Sk + window
     - 1`` without a key."""
     if has_positions:
         raise RuntimeError("attention with explicit positions has no "
                            "backward kernel")
-    if hd != hd_v or hd not in BWD_HEAD_DIMS:
+    if (hd, hd_v) not in BWD_HEAD_DIMS:
         raise RuntimeError(f"attention head dims ({hd}, {hd_v}) have no "
-                           f"backward kernel: it takes hd = hd_v in "
+                           f"backward kernel: it takes (hd, hd_v) in "
                            f"{BWD_HEAD_DIMS}")
     if dtype not in _DTYPES:
         raise RuntimeError(f"attention in {dtype} has no backward kernel")
@@ -229,12 +231,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, do: torch.Tensor, *, causal: bool,
                   window: int, scale: float, lse: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of attention without positions: q, o, do (B, Sq, H,
-    hd), k, v (B, Sk, KV, hd), contiguous and 16-byte aligned on one CUDA
-    device, all f32 or all bf16, hd in ``BWD_HEAD_DIMS``; o the forward's
-    output; ``lse`` the forward's (B, H, Sq) f32 row log-sum-exp (log2
-    units), which the ``tc`` route (bf16) requires and ``general`` (f32,
-    which recomputes it) does not take.  The gradients come out in q's
+    """(dq, dk, dv) of attention without positions: q (B, Sq, H, hd), k
+    (B, Sk, KV, hd), v (B, Sk, KV, hd_v), o, do (B, Sq, H, hd_v),
+    contiguous and 16-byte aligned on one CUDA device, all f32 or all
+    bf16, (hd, hd_v) in ``BWD_HEAD_DIMS``; o the forward's output;
+    ``lse`` the forward's (B, H, Sq) f32 row log-sum-exp (log2 units),
+    which the ``tc`` route (bf16) requires and ``general`` (f32, which
+    recomputes it) does not take.  The gradients come out in q's
     dtype.  Counts as ``attention_bwd`` and once in
     ``ops.bwd_route_launches`` under its route."""
     which = _check_bwd(q, k, v, window, False)
@@ -254,13 +257,13 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
     """Check the tensors and launch route ``which``'s backward kernel."""
     from ._build import load
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     ops.check("q", q, (B, Sq, H, hd), _DTYPES, dev)
-    for name, t in (("k", k), ("v", v)):
-        ops.check(name, t, (B, Sk, KV, hd), (q.dtype,), dev)
+    ops.check("k", k, (B, Sk, KV, hd), (q.dtype,), dev)
+    ops.check("v", v, (B, Sk, KV, hd_v), (q.dtype,), dev)
     for name, t in (("o", o), ("do", do)):
-        ops.check(name, t, (B, Sq, H, hd), (q.dtype,), dev)
+        ops.check(name, t, (B, Sq, H, hd_v), (q.dtype,), dev)
     if lse is not None:
         ops.check("lse", lse, (B, H, Sq), (torch.float32,), dev)
     if KV == 0 or H % KV:
@@ -280,8 +283,8 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), scratch.data_ptr(), scratch[pad:].data_ptr(),
-                B, Sq, Sk, H, KV, hd, int(causal), int(window), float(scale),
-                stream)
+                B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
+                float(scale), stream)
         else:
             lse_s = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
             delta = torch.empty_like(lse_s)
@@ -289,7 +292,7 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 lse_s.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
-                int(causal), int(window), float(scale), 0, stream)
+                hd_v, int(causal), int(window), float(scale), 0, stream)
     if err:
         raise RuntimeError(f"attention backward ({which}) launch failed: "
                            f"CUDA error {err}")

@@ -4,9 +4,10 @@
 arithmetic of ``csrc/attention_bwd.cu`` and ``csrc/mamba_scan_bwd.cu``;
 here each is held against autograd of the plain forward (``attention_ref``,
 ``mamba_scan_ref``) on inputs drawn with numpy: GQA, causal and not,
-windows, Sq != Sk, several checkpoint chunkings, segmentings and state
-sizes.  ``mamba_scan.bwd_plan``, the scan backward's segment plan and
-scratch, is checked as the launcher computes it.  In f32
+windows, Sq != Sk, MLA's head dims (192, 128), several checkpoint
+chunkings, segmentings and state sizes.  ``mamba_scan.bwd_plan``, the
+scan backward's segment plan and scratch, is checked as the launcher
+computes it.  In f32
 the two agree within 1e-5 of each gradient's largest entry (the same
 arithmetic in another order); bf16 inputs within 2e-2 (the gradients are
 rounded to bf16, 8 bits).
@@ -35,7 +36,8 @@ def _gap(got, want) -> float:
                  / want.float().abs().max())
 
 
-# (B, Sq, Sk, H, KV, hd, causal, window)
+# (B, Sq, Sk, H, KV, hd, causal, window); hd a pair (hd, hd_v) for
+# MLA's call, (192, 128)
 ATTN_CASES = [
     (2, 13, 13, 6, 2, 8, True, 0),
     (2, 13, 13, 6, 2, 8, True, 5),
@@ -43,6 +45,9 @@ ATTN_CASES = [
     (2, 12, 12, 5, 1, 8, False, 4),
     (1, 10, 12, 6, 3, 8, True, 3),
     (1, 20, 20, 2, 1, 64, True, 7),
+    (2, 13, 13, 4, 4, (192, 128), True, 0),
+    (1, 12, 12, 4, 2, (192, 128), True, 5),
+    (1, 7, 10, 2, 1, (192, 128), False, 0),
 ]
 
 
@@ -51,10 +56,11 @@ ATTN_CASES = [
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", ATTN_CASES)
 def test_attention_bwd_ref_matches_autograd(B, Sq, Sk, H, KV, hd, causal,
                                             window, dtype, tol):
+    hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     rng = np.random.default_rng(Sq * 100 + H + window)
-    q, k, v = (_t(rng, B, S, h, hd, dtype=dtype).requires_grad_()
-               for S, h in ((Sq, H), (Sk, KV), (Sk, KV)))
-    do = _t(rng, B, Sq, H, hd, dtype=dtype)
+    q, k, v = (_t(rng, B, S, h, d, dtype=dtype).requires_grad_()
+               for S, h, d in ((Sq, H, hd), (Sk, KV, hd), (Sk, KV, hd_v)))
+    do = _t(rng, B, Sq, H, hd_v, dtype=dtype)
     o = ref.attention_ref(q, k, v, causal=causal, window=window)
     o.backward(do)
     got = ref.attention_bwd_ref(q.detach(), k.detach(), v.detach(),
@@ -154,6 +160,9 @@ def test_guard_raises_for_kernels_without_backward(forced_cuda):
         ops.attention(q16, _t(rng, 1, 8, 1, 16), _t(rng, 1, 8, 1, 16))
     with pytest.raises(RuntimeError, match="without a key"):
         ops.attention(_t(rng, 1, 30, 2, 64).requires_grad_(), k, k, window=4)
+    q192 = _t(rng, 1, 8, 2, 192).requires_grad_()
+    with pytest.raises(RuntimeError, match="head dims"):     # (192, 192)
+        ops.attention(q192, _t(rng, 1, 8, 1, 192), _t(rng, 1, 8, 1, 192))
     u, dt = _t(rng, 1, 8, 6).requires_grad_(), _t(rng, 1, 8, 6)
     A, D = -torch.ones(6, 4), torch.ones(6)
     Bc, Cc, h0 = _t(rng, 1, 8, 4), _t(rng, 1, 8, 4), torch.zeros(1, 6, 4)
@@ -175,6 +184,9 @@ def test_guard_lets_calls_the_backward_takes_reach_the_kernel(forced_cuda):
     k = _t(rng, 1, 8, 1, 64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.attention(q, k, k, window=4)
+    with pytest.raises(ValueError, match="CUDA tensor"):     # MLA's dims
+        ops.attention(_t(rng, 1, 8, 2, 192).requires_grad_(),
+                      _t(rng, 1, 8, 2, 192), _t(rng, 1, 8, 2, 128))
     u = _t(rng, 1, 8, 6).requires_grad_()
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.mamba_scan(u, _t(rng, 1, 8, 6), -torch.ones(6, 4),

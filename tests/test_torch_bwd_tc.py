@@ -8,7 +8,8 @@ units; here it is held to a numpy log-sum-exp of the masked scores (GQA,
 causal and not, windows, Sq != Sk) within 1e-6, and
 ``ref.attention_bwd_ref`` given it to the same function recomputing it
 and to ``jax.grad`` of the JAX package's ``attention_reference``, within
-1e-5 in f32.  ``bwd_route`` of both modules is held case by case.  Under
+1e-5 in f32, also at MLA's head dims (hd, hd_v) = (192, 128).
+``bwd_route`` of both modules is held case by case.  Under
 ``ops.force("cuda")``, with the forward kernels and the backward launches
 monkeypatched to their plain versions on CPU tensors, ``_Attention`` must
 hand the forward's LSE to the ``tc`` backward (and none to ``general``),
@@ -41,7 +42,8 @@ def _gap(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-# (B, Sq, Sk, H, KV, hd, causal, window)
+# (B, Sq, Sk, H, KV, hd, causal, window); hd a pair (hd, hd_v) for
+# MLA's (192, 128): causal, windowed, GQA, non-causal with Sq != Sk
 ATTN_CASES = [
     (2, 13, 13, 6, 2, 8, True, 0),
     (2, 13, 13, 6, 2, 8, True, 5),
@@ -50,7 +52,16 @@ ATTN_CASES = [
     (1, 10, 12, 6, 3, 8, True, 3),
     (1, 20, 20, 2, 1, 64, True, 7),
     (1, 7, 15, 4, 2, 16, False, 6),
+    (2, 13, 13, 4, 4, (192, 128), True, 0),
+    (1, 20, 20, 4, 2, (192, 128), True, 7),
+    (1, 9, 12, 2, 1, (192, 128), False, 0),
+    (2, 17, 17, 6, 3, (192, 128), True, 5),
 ]
+
+
+def _dims(hd) -> tuple[int, int]:
+    """(hd, hd_v) of a case's head dim: an int (hd = hd_v) or a pair."""
+    return hd if isinstance(hd, tuple) else (hd, hd)
 
 
 def _masked_scores(q, k, causal, window, scale):
@@ -72,6 +83,7 @@ def _masked_scores(q, k, causal, window, scale):
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", ATTN_CASES)
 def test_attention_lse_ref_matches_numpy(B, Sq, Sk, H, KV, hd, causal,
                                          window):
+    hd = _dims(hd)[0]
     rng = np.random.default_rng(Sq * 31 + H + window)
     q, k = _np(rng, B, Sq, H, hd), _np(rng, B, Sk, KV, hd)
     scale = hd ** -0.5
@@ -90,10 +102,12 @@ def test_attention_lse_ref_matches_numpy(B, Sq, Sk, H, KV, hd, causal,
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", ATTN_CASES)
 def test_attention_bwd_ref_with_lse_matches_jax_grad(B, Sq, Sk, H, KV, hd,
                                                      causal, window):
+    hd, hd_v = _dims(hd)
     rng = np.random.default_rng(Sq * 17 + H + hd + window)
-    q, k, v = (_np(rng, B, S, h, hd) for S, h in ((Sq, H), (Sk, KV),
-                                                  (Sk, KV)))
-    do = _np(rng, B, Sq, H, hd)
+    q, k, v = (_np(rng, B, S, h, d) for S, h, d in ((Sq, H, hd),
+                                                    (Sk, KV, hd),
+                                                    (Sk, KV, hd_v)))
+    do = _np(rng, B, Sq, H, hd_v)
     scale = hd ** -0.5
     kw = dict(causal=causal, window=window)
 
@@ -111,6 +125,7 @@ def test_attention_bwd_ref_with_lse_matches_jax_grad(B, Sq, Sk, H, KV, hd,
                                        **kw)
     for name, a, b, c in zip("qkv", given, recomputed, want):
         c = torch.from_numpy(np.array(c))
+        assert a.shape == c.shape, name
         assert _gap(a, b) <= 1e-5, (name, _gap(a, b))
         assert _gap(a, c) <= 1e-5, name
         assert _gap(b, c) <= 1e-5, name
@@ -124,7 +139,11 @@ ATTN_ROUTES = [
     (torch.float32, 2048, 2048, 64, 64, 1024, False, "general"),
     (torch.float32, 77, 130, 128, 128, 0, False, "general"),
     (torch.bfloat16, 64, 64, 64, 64, 0, True, "explicit positions"),
-    (torch.bfloat16, 64, 64, 192, 128, 0, False, "head dims"),
+    (torch.bfloat16, 64, 64, 192, 128, 0, False, "tc"),
+    (torch.float32, 2048, 2048, 192, 128, 0, False, "general"),
+    (torch.bfloat16, 30, 30, 192, 128, 16, False, "tc"),
+    (torch.bfloat16, 64, 64, 192, 192, 0, False, "head dims"),
+    (torch.float32, 64, 64, 128, 64, 0, False, "head dims"),
     (torch.float32, 64, 64, 32, 32, 0, False, "head dims"),
     (torch.float16, 64, 64, 64, 64, 0, False, "no backward kernel"),
     (torch.bfloat16, 30, 8, 64, 64, 4, False, "without a key"),
@@ -215,13 +234,17 @@ def plain_kernels(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
-    (2, 13, 13, 6, 2, 64, True, 5), (1, 9, 12, 4, 4, 128, False, 0)])
+    (2, 13, 13, 6, 2, 64, True, 5), (1, 9, 12, 4, 4, 128, False, 0),
+    (2, 11, 11, 4, 4, (192, 128), True, 0),
+    (1, 14, 14, 4, 2, (192, 128), True, 5),
+    (1, 9, 12, 2, 1, (192, 128), False, 0)])
 def test_attention_function_hands_lse_to_its_backward(
         plain_kernels, B, Sq, Sk, H, KV, hd, causal, window, dtype):
+    hd, hd_v = _dims(hd)
     rng = np.random.default_rng(hd + Sq + window)
-    ins = [torch.from_numpy(_np(rng, B, S, h, hd)).to(dtype)
-           for S, h in ((Sq, H), (Sk, KV), (Sk, KV))]
-    do = torch.from_numpy(_np(rng, B, Sq, H, hd)).to(dtype)
+    ins = [torch.from_numpy(_np(rng, B, S, h, d)).to(dtype)
+           for S, h, d in ((Sq, H, hd), (Sk, KV, hd), (Sk, KV, hd_v))]
+    do = torch.from_numpy(_np(rng, B, Sq, H, hd_v)).to(dtype)
     kw = dict(causal=causal, window=window)
     leaves = [t.clone().requires_grad_() for t in ins]
     ops.attention(*leaves, **kw).backward(do)
@@ -240,7 +263,7 @@ def test_attention_function_hands_lse_to_its_backward(
         assert lse is None
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, plain):
-        assert a.dtype == dtype
+        assert a.dtype == dtype and a.shape == b.shape
         assert _gap(a, b.grad) <= tol
     assert ops.launches["attention_bwd"] == 1
     assert ops.bwd_route_launches == {

@@ -886,8 +886,9 @@ def _grad_gap(got, want) -> float:
 
 # (B, Sq, Sk, H, KV, hd, causal, window): ragged tiles, GQA, windows that
 # end inside a tile, non-causal with Sq != Sk, Sq and Sk off the tc
-# kernels' 128- and 64-row tiles (190, 333), and hymba's and olmoe's
-# training shapes
+# kernels' 128-, 64- and 32-row tiles (190, 333), and hymba's and olmoe's
+# training shapes; hd a pair (hd, hd_v) for MLA's (192, 128), the same
+# kinds of case and deepseek's training call with 16 of its 128 heads
 BWD_ATTN_CASES = [
     (2, 100, 100, 6, 2, 64, True, 0),
     (2, 150, 150, 5, 1, 64, True, 40),
@@ -900,6 +901,12 @@ BWD_ATTN_CASES = [
     (4, 2048, 2048, 25, 5, 64, True, 0),
     (4, 2048, 2048, 25, 5, 64, True, 1024),
     (4, 2048, 2048, 16, 16, 128, True, 0),
+    (2, 100, 100, 4, 4, (192, 128), True, 0),
+    (1, 150, 150, 6, 2, (192, 128), True, 40),
+    (1, 77, 130, 4, 4, (192, 128), False, 0),
+    (2, 333, 333, 4, 1, (192, 128), True, 100),
+    (1, 190, 333, 2, 1, (192, 128), False, 70),
+    (1, 2048, 2048, 16, 16, (192, 128), True, 0),
 ]
 
 
@@ -916,14 +923,15 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
     usual route, ``prefill_tc`` with the LSE in bf16) against autograd of
     the plain version."""
     from repro_torch.kernels import flash_attention as fa
+    hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     g = torch.Generator(device=cuda).manual_seed(Sq + H + hd)
     q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
-    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
-    do = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd_v), generator=g, device=cuda).to(dtype)
+    do = torch.randn((B, Sq, H, hd_v), generator=g, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window)
     scale = hd ** -0.5
-    route = fa.bwd_route(dtype, Sq, Sk, hd, hd, window, False)
+    route = fa.bwd_route(dtype, Sq, Sk, hd, hd_v, window, False)
     assert route == ("tc" if dtype == torch.bfloat16 else "general")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o_ref = ref.attention_ref(*leaves, **kw)

@@ -14,8 +14,14 @@ backward pass), AdamW within 1e-6 of the largest entry of each state leaf
 (one bf16 unit in the last place where a leaf is bf16: the same f32 value
 on either side of a rounding boundary), three train steps' losses within
 1e-4.  The JAX ``Trainer`` is not used (ROADMAP Queue 3 b); the port's
-trainer tests mirror ``tests/test_substrate.py``'s.  Last, reference fault
-g: ``jax.grad`` cannot differentiate the JAX package's Pallas kernels.
+trainer tests mirror ``tests/test_substrate.py``'s.  deepseek-v3's
+training cut on the card (its dense MLA layer and the MTP block) runs at
+reduced width but MLA's head dims, so every attention call is (hd, hd_v)
+= (192, 128), through the attention Function (``ops.force("cuda")``, the
+kernels' launches on their plain versions): the loss, every gradient
+leaf and two AdamW steps against JAX, each call's backward route and the
+step's launches as the smoke run expects them.  Last, reference fault g:
+``jax.grad`` cannot differentiate the JAX package's Pallas kernels.
 """
 import dataclasses
 import pathlib
@@ -45,6 +51,8 @@ from repro_torch.convert import (model_state_from_jax,  # noqa: E402
                                  train_state_from_jax)
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenStream  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -289,6 +297,139 @@ def test_three_steps_from_a_jax_state_track_jax(arch):
         np.testing.assert_allclose(float(met["loss"]), float(jloss),
                                    rtol=1e-4)
     assert int(state["opt"]["step"]) == 5
+
+
+# ------------------------------------ MLA training: the card's depth cut
+def _mla_cut_pair(remat: str = "full"):
+    """deepseek-v3-671b cut as the smoke run trains it -- one dense MLA
+    layer and the MTP block, no MoE layer -- at reduced width with MLA's
+    head dims (nope 128, rope 64, v 128), f32, in both packages: the
+    configs, the JAX model and its params (numpy leaves)."""
+    from repro.models.config import Segment as JSegment
+    from repro_torch.models.config import Segment
+    dims = dict(dtype="float32", remat=remat, qk_nope_head_dim=128,
+                qk_rope_head_dim=64, v_head_dim=128)
+    jcfg = jreduce_config(jget_config("deepseek-v3-671b")).with_(
+        segments=(JSegment("dense", 1, attn="mla"),), **dims)
+    cfg = reduce_config(get_config("deepseek-v3-671b")).with_(
+        segments=(Segment("dense", 1, attn="mla"),), **dims)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.mtp_depth == 1
+    jm = JModel(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    return cfg, jm, params
+
+
+@pytest.fixture
+def plain_attention(monkeypatch):
+    """``ops.force("cuda")`` with the attention forward and backward
+    launches on their plain versions (CPU tensors): the attention Function
+    and its routes run as on the card, and the forward counts as the
+    kernel's wrapper does.  Records each backward launch's route, head
+    dims and whether it was handed the forward's LSE."""
+    seen = []
+
+    def forward(q, k, v, *, causal, window, scale, return_lse=False,
+                q_pos=None, k_pos=None):
+        assert q_pos is None and k_pos is None
+        B, Sq, H, hd = q.shape
+        which = fa.route(q.dtype, B, Sq, k.shape[1], H, k.shape[2], hd,
+                         v.shape[3], window, False, return_lse)
+        ops.launches["attention_masked" if window else
+                     "flash_attention"] += 1
+        ops.route_launches[which] += 1
+        o = ref.attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale)
+        if return_lse:
+            return o, ref.attention_lse_ref(q, k, causal=causal,
+                                            window=window, scale=scale)
+        return o
+
+    def bwd_launch(which, q, k, v, o, do, lse, causal, window, scale):
+        seen.append((which, tuple(q.shape[-1:]) + tuple(v.shape[-1:]),
+                     lse is not None))
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                     window=window, scale=scale, lse=lse)
+
+    monkeypatch.setattr(fa, "flash_attention", forward)
+    monkeypatch.setattr(fa, "_bwd_launch", bwd_launch)
+    ops.force("cuda")
+    ops.reset_launches()
+    yield seen
+    ops.force(None)
+    ops.reset_launches()
+
+
+def test_mla_training_cut_loss_and_gradients_match_jax(plain_attention):
+    """The loss (with its MTP term) and every gradient leaf of the cut,
+    remat "full", against ``jax.grad``; per step 3 attention forwards (the
+    dense layer's and its recompute, the MTP block's, which is not
+    recomputed) and 2 backward calls, both at (192, 128) on ``general``
+    (f32), no LSE handed."""
+    cfg, jm, params = _mla_cut_pair()
+    batch = _batches(cfg, 1, seed=5)[0]
+    jb = jax.tree.map(jnp.asarray, batch)
+    jloss, jmet = jax.jit(jm.loss)(params, jb)
+    jgrads = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))(params, jb)
+    want = model_state_from_jax(cfg, jax.tree.map(np.asarray, jgrads))
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(model_state_from_jax(cfg, params), strict=True)
+    model.requires_grad_(True)
+    loss, met = model.loss(batch_to(batch, "cpu"))
+    loss.backward()
+    assert set(met) == set(jmet) and "mtp_ce" in met
+    for k in met:
+        np.testing.assert_allclose(float(met[k].detach()), float(jmet[k]),
+                                   rtol=1e-5, atol=1e-6)
+    got = dict(model.named_parameters())
+    assert set(got) == set(want)
+    for name, g in want.items():
+        assert got[name].grad is not None, name
+        assert _gap(_np(got[name].grad), g.numpy()) <= 1e-4, name
+    assert plain_attention == [("general", (192, 128), False)] * 2
+    assert {c: n for c, n in ops.launches.items() if n} == {
+        "flash_attention": 3, "attention_bwd": 2}
+    assert {c: n for c, n in ops.route_launches.items() if n} == {
+        "general": 3}
+    assert {c: n for c, n in ops.bwd_route_launches.items() if n} == {
+        "attention_general": 2}
+
+
+def test_mla_training_cut_two_adamw_steps_track_jax(plain_attention):
+    """Two AdamW steps of the cut through ``train.step`` from the JAX
+    model's initial state, against JAX's on the same batches: each step's
+    loss (1e-4 relative), the parameters after both (at most 1e-3 of them
+    more than lr / 10 apart: a first AdamW step moves each parameter by
+    about lr times its gradient's sign, which the two packages share but
+    where a gradient is near 0), and a third batch's loss at them."""
+    cfg, jm, params = _mla_cut_pair()
+    ocfg = dict(lr=3e-3, warmup_steps=1, total_steps=10)
+    jcfg = jadamw.AdamWConfig(**ocfg)
+    step = _jax_step(jm, jcfg)
+    jp = jax.tree.map(jnp.asarray, params)
+    opt = jadamw.init_state(jcfg, jp)
+    state = train_state_from_jax(cfg, params,
+                                 jax.tree.map(np.asarray, opt))
+    ts = build_train_step(cfg, adamw.AdamWConfig(**ocfg), device="cpu")
+    batches = _batches(cfg, 3, seed=2)
+    for b in batches[:2]:
+        jp, opt, jloss = step(jp, opt, jax.tree.map(jnp.asarray, b))
+        state, met = ts.step_fn(state, batch_to(b, "cpu"))
+        np.testing.assert_allclose(float(met["loss"]), float(jloss),
+                                   rtol=1e-4)
+    assert int(state["opt"]["step"]) == 2
+    want = model_state_from_jax(cfg, jax.tree.map(np.asarray, jp))
+    off = total = 0
+    for name, w in want.items():
+        d = np.abs(_np(state["params"][name]) - w.numpy())
+        off += int((d > ocfg["lr"] / 10).sum())
+        total += d.size
+    assert off <= 1e-3 * total, (off, total)
+    jloss, _ = jax.jit(jm.loss)(jp, jax.tree.map(jnp.asarray, batches[2]))
+    with torch.no_grad():
+        loss, _ = ts.model.loss(batch_to(batches[2], "cpu"))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
+    assert [s[0] for s in plain_attention] == ["general"] * 4
 
 
 # ------------------------------------------------------------------ data
