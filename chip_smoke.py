@@ -15,11 +15,12 @@ serving ``deepseek-v3-671b`` (MLA and MoE) at its published widths,
 serving ``llama-3.2-vision-11b`` (cross-attention) at full width and
 depth, training ``hymba-1.5b`` at full width and depth through the
 backward kernels (``train.step``), training ``olmoe-1b-7b`` at full
-width, cut in depth, through the grouped matmul's backward, and training
+width, cut in depth, through the grouped matmul's backward, training
 ``deepseek-v3-671b`` at its published widths, cut to its dense MLA layers
 and MTP block, through the attention backward at MLA's head dims (192,
-128).  Phases, in order; any failure propagates and the exit code is
-nonzero:
+128), and training ``hubert-xlarge`` at full width and depth through the
+attention kernels at its head dims (80, 80).  Phases, in order; any
+failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
    print the build time, what ``ptxas`` reports for the find, attention,
@@ -27,10 +28,11 @@ nonzero:
    tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of every
    instantiation of the general routes' kernels (``cuobjdump -sass``; each
    must have some), the wgmma instructions (``HGMMA``) of the bf16
-   backward routes' kernels (``attention_bwd_tc.cu``,
-   ``moe_gmm_bwd_tc.cu``; each must have some, and ptxas must report no
-   spills) and the card's name, power limit, maximum SM clock and SM
-   count;
+   prefill and backward routes' kernels (``attention_prefill_tc.cu``,
+   ``attention_bwd_tc.cu``, ``moe_gmm_bwd_tc.cu``; each must have some,
+   and ptxas must report no spills), the wgmma shapes in the SASS of the
+   (80, 80) instantiations, and the card's name, power limit, maximum SM
+   clock and SM count;
 2. hold each kernel against its plain PyTorch version on the card and
    time both: the min-cover kernel at the shapes the per-front path gives
    it, and the device pass's fused find (``front_find``) at phase 3's
@@ -51,7 +53,9 @@ nonzero:
    (t, d, n), the exps split between the special-function unit and an
    emulation on the FMA pipe so that both pipes finish together
    (``scan_bound``); the decode step is timed beside an empty launch on
-   its grid.  Each attention row names its route
+   its grid; at hubert's call (bf16 on ``prefill_tc``) the general
+   kernel's bf16 instantiation, the route it took before, called directly
+   as "before".  Each attention row names its route
    (``flash_attention.route``: ``prefill_tc``, ``decode_split`` or
    ``general``) and asserts that the call took it, as each grouped-matmul
    row does with ``moe_gmm.route`` (``gmm_tc``, ``gmv``, ``general``).
@@ -123,9 +127,11 @@ nonzero:
 10. ``hubert-xlarge``'s encoder at full width and depth (48 non-causal
    layers, d_model 1280, bf16, seeded weights) over 8 clips of 1500
    frames (30 s at 50 frames/s) drawn with numpy: one forward's launches
-   (48 attention calls, all on the general route, nothing else), the
-   median of 3 timed forwards after it, peak memory and the attention
-   calls' share (phase 2's device time); the f32 model's kernel path
+   (48 attention calls, all on ``prefill_tc``, nothing else), the median
+   of 3 timed forwards after it, in turns with 3 whose attention takes
+   the general route, as it did before ``prefill_tc`` took head dim 80
+   (``bf16_prefill_on_general``), peak memory and the attention calls'
+   share (phase 2's device time); the f32 model's kernel path
    against its plain path within ``F32_LOGIT_TOL``, and the bf16 paths'
    distances from the f32 plain path at the bf16 weights as in phase 6;
 11. serve ``deepseek-v3-671b`` at its published widths (d_model 7168, 128
@@ -254,20 +260,38 @@ nonzero:
    through the kernels and through the plain versions, losses within 1e-5
    relative, each leaf within ``GRAD_TOL`` f32, every backward call on
    ``general``; AdamW's state would not fit beside two gradient sets, so
-   no AdamW step is compared.
+   no AdamW step is compared;
+16. training ``hubert-xlarge`` (frame classification, 48 non-causal
+   layers, 16 heads of 80).  (a) The attention backward at its training
+   call (8, 1500², 16/16, (80, 80)), non-causal, as in 15a: ``tc`` in
+   bf16 from ``prefill_tc``'s LSE, ``general`` in f32, against
+   ``attention_bwd_ref`` and autograd of ``attention_ref``, its bound over
+   every (query, key) pair.  (b) Full width and depth: five bf16 steps as
+   in 13b on 8 clips of 1500 frames and their labels drawn with numpy
+   (``FrameStream``: the data pipeline draws tokens only), each step's
+   launches exactly as expected (48 layers x 2 ``flash_attention`` on
+   ``prefill_tc`` and 1 ``attention_bwd`` on ``tc``), frames a second,
+   then the split step.  (c) The f32 model at full depth, 2 clips, as 13c
+   (``adamw_gate``): the loss and every gradient through the kernels and
+   the plain versions, every backward call on ``general``, then one AdamW
+   step from each.
 
-Launch counts are reset just before each driven run (phases 3-8, 10-15)
+Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
 phases 6, 7, 11 and 12, summed, for the model kernels.  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
-one entry per (count, route) the serve runs took, plus one for the
-``general`` route with the launches of phase 6's f32 kernel path and of
-phase 10 (the bf16 serve runs never take it), timed at hubert's call
-with hymba's, olmoe's, MLA's, deepseek's and llama-vision's f32 prefill
-beside it (the ``prefill_tc`` entry has hymba's, olmoe's, deepseek's,
+one entry per (count, route) the serve runs took, one for hubert's bf16
+forward on ``prefill_tc`` at (80, 80) with phase 10's launches and phase
+16b's training launches (the general kernel's bf16 at its call beside it
+as "before", and phase 10's forward seconds on either route), plus one
+for the ``general`` route with the launches of the f32 kernel paths of
+phases 6, 7, 10, 11 and 12 (no bf16 call of a path takes it), timed at
+hubert's f32 call with hymba's, olmoe's, MLA's, deepseek's and
+llama-vision's f32 prefill beside it (the ``prefill_tc`` entry has
+hymba's, olmoe's, deepseek's,
 MLA's 16-head and llama-vision's cross bf16 shapes beside its
 commonest); the grouped matmul likewise has one entry
 per route of the serve runs (``gmm_tc``, ``gmv``) timed at its
@@ -283,10 +307,11 @@ the min-cover kernel's apply role: ``also_replaces``) at phase 2's P = 8
 FM case nearest the path's median count of active blocks, with
 ``path_ms``, its device time per launch in phase 3b's profile.  The
 attention and scan backward kernels (``attention_bwd``,
-``mamba_scan_bwd``) carry the launches of phases 13b, 14b and 15b and
-phase 13a's times (bf16, the windowed attention call first, the others,
-olmoe's head dim 128 from phase 14a and deepseek's (192, 128) from phase
-15a beside it); ``grouped_matmul_bwd``
+``mamba_scan_bwd``) carry the launches of phases 13b, 14b, 15b and 16b
+and phase 13a's times (bf16, the windowed attention call first, the
+others, olmoe's head dim 128 from phase 14a, deepseek's (192, 128) from
+phase 15a and hubert's (80, 80) from phase 16a beside it);
+``grouped_matmul_bwd``
 carries phase 14b's launches and phase 14a's times (bf16 gate/up at the
 fills, dx and dw apart beside the call; the down product, f32 and every
 row live beside it).  The attention and grouped-matmul backward entries
@@ -302,6 +327,7 @@ exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -733,6 +759,11 @@ GMM_CASES = [
     ("ds_decode_down_fill", 256, 1, 2048, 7168, True, 4),
 ]
 GMM_TOP_K = 8
+# cases whose bf16 call took the general route until ``prefill_tc`` took
+# their head dims (hubert's (80, 80)): ``check_attention`` also times the
+# general kernel's bf16 instantiation there, called directly, as
+# "before"
+GENERAL_BEFORE = ("hubert",)
 
 
 def attn_key(q, k, v, window: int) -> tuple:
@@ -839,6 +870,28 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
                 is_causal=causal and mask is None, enable_gqa=True)
         row.update(call_ms=time_ms(run, 10), plain_ms=graph_ms(plain, 2, 2),
                    library_ms=graph_ms(library, 10, 5))
+    if name in GENERAL_BEFORE and route == "prefill_tc":
+        from repro_torch.kernels import _build
+        launch = _build.load("flash_attention").repro_flash_attention
+        old = torch.empty_like(got)
+
+        def before():
+            err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         old.data_ptr(), None, None, B, Sq, Sk, H, KV, hd,
+                         hdv, int(causal), int(window), hd ** -0.5, 1,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"flash_attention.cu bf16: CUDA error "
+                                   f"{err}")
+        before()
+        torch.cuda.synchronize()
+        ok, err_b = rel_ok(old, want, tol)
+        if not ok:
+            raise AssertionError(f"attention {name}: the general kernel's "
+                                 f"bf16 != plain within {tol} ({err_b})")
+        row.update(before_ms=graph_ms(before, 10, 5),
+                   before_call_ms=time_ms(before, 10),
+                   before_max_abs_err=err_b, before_route="general")
     return row
 
 
@@ -1093,24 +1146,43 @@ def kernel_name(mangled: str) -> str:
     return name + rest[:40]
 
 
-def tc_instructions(lib: Path, pattern: str = r"\bHG?MMA\.") -> dict:
-    """Tensor-core instructions (``HMMA``, ``HGMMA``; ``pattern`` picks
-    which) per kernel in the SASS of a built library, as ``cuobjdump
-    -sass`` lists it, keyed by the kernel's name with its template
-    arguments (``kernel_name``)."""
+def sass_lines(lib: Path):
+    """(kernel, line) for each SASS line of a built library, as ``cuobjdump
+    -sass`` lists it, the kernel named with its template arguments
+    (``kernel_name``); (kernel, None) opens each kernel."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
+    name = None
     for line in out.splitlines():
         m = re.search(r"Function : _Z(\w+)", line)
         if m:
             name = kernel_name(m.group(1))
-            counts[name] = 0
-        elif name and re.search(pattern, line):
-            counts[name] += 1
+            yield name, None
+        elif name:
+            yield name, line
+
+
+def tc_instructions(lib: Path, pattern: str = r"\bHG?MMA\.") -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``; ``pattern`` picks
+    which) per kernel in the SASS of a built library."""
+    counts: dict = {}
+    for name, line in sass_lines(lib):
+        counts[name] = counts.get(name, 0) + int(
+            line is not None and re.search(pattern, line) is not None)
     return counts
+
+
+def hgmma_shapes(lib: Path) -> dict:
+    """The wgmma shapes in the SASS of a built library, per kernel: e.g.
+    {"64x80x16": n}, counted."""
+    shapes: dict = {}
+    for name, line in sass_lines(lib):
+        m = line and re.search(r"\bHGMMA\.(\d+x\d+x\d+)", line)
+        if m:
+            shapes.setdefault(name, Counter())[m.group(1)] += 1
+    return {n: dict(c) for n, c in shapes.items()}
 
 
 def ptxas_summary(log: str) -> list:
@@ -1914,13 +1986,35 @@ def hubert_inputs(B: int, S: int) -> tuple:
     return cfg, frames, make_model(cfg, device="cuda", seed=0)
 
 
+@contextlib.contextmanager
+def bf16_prefill_on_general():
+    """``flash_attention.route`` sending the calls it gives ``prefill_tc``
+    without an LSE to ``general``: the route hubert's bf16 forward took
+    before ``prefill_tc`` took head dim 80, timed in phase 10 beside the
+    route it takes now."""
+    from repro_torch.kernels import flash_attention as fa
+    route = fa.route
+
+    def on_general(*args, **kw):
+        which = route(*args, **kw)
+        with_lse = kw.get("with_lse", len(args) > 10 and args[10])
+        return "general" if which == "prefill_tc" and not with_lse else which
+    fa.route = on_general
+    try:
+        yield
+    finally:
+        fa.route = route
+
+
 def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
     """Phase 10: hubert-xlarge's encoder at full width and depth (48
     non-causal layers of 16 heads of 80, d_model 1280, bf16, seeded
     weights) over ``B`` clips of ``S`` frames drawn with numpy (the feature
     extractor is a stub, as in the JAX package).  One forward's launches
-    (every attention call on the general route, nothing else), its time
-    (the median of ``reps`` forwards after that one), the f32 model's
+    (every attention call on ``prefill_tc``, nothing else), its time (the
+    median of ``reps`` forwards after that one) beside ``reps`` forwards
+    with the attention on the general route it took before (in turns,
+    ``bf16_prefill_on_general``), the f32 model's
     kernel path against its plain path within ``F32_LOGIT_TOL`` of the
     largest logit, and the bf16 paths' distances from the f32 plain path
     at the bf16 weights."""
@@ -1936,20 +2030,33 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
     kern16 = encoder_logits(model, frames, "cuda")     # also the warm-up
     launches = {c: k for c, k in ops.launches.items() if k}
     routes = dict(ops.route_launches)
-    if (routes != {r: n if r == "general" else 0 for r in routes}
+    if (routes != {r: n if r == "prefill_tc" else 0 for r in routes}
             or launches != {"flash_attention": n}
             or any(ops.gmm_route_launches.values())):
         raise AssertionError(f"hubert forward: launches {launches}, "
                              f"attention routes {routes}, expected {n} on "
-                             "general")
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
+                             "prefill_tc")
+    with bf16_prefill_on_general():         # the general route's warm-up
         encoder_logits(model, frames, "cuda")
-        times.append(time.perf_counter() - t0)
-    # the general route's launches of the bf16 forwards, the counted one
-    # and the timed ones
-    general16 = ops.route_launches["general"]
+    ops.reset_launches()
+    times, times_before = [], []
+    for _ in range(reps):                   # in turns: now, then before
+        for on_general, out in ((False, times), (True, times_before)):
+            t0 = time.perf_counter()
+            if on_general:
+                with bf16_prefill_on_general():
+                    encoder_logits(model, frames, "cuda")
+            else:
+                encoder_logits(model, frames, "cuda")
+            out.append(time.perf_counter() - t0)
+    # the launches of the timed bf16 forwards by route, and the counted
+    # forward's on prefill_tc
+    timed_routes = dict(ops.route_launches)
+    if timed_routes != {"decode_split": 0, "prefill_tc": n * reps,
+                        "general": n * reps}:
+        raise AssertionError(f"hubert timed forwards: routes "
+                             f"{timed_routes}")
+    prefill16 = n + timed_routes["prefill_tc"]
     peak = torch.cuda.max_memory_allocated()
     plain16 = encoder_logits(model, frames, "ref")
     # the f32 model (its own draw) through the kernels and the plain
@@ -1976,11 +2083,14 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
     del model32, model, kern16, plain16, ref32
     torch.cuda.empty_cache()
     med = sorted(times)[len(times) // 2]
+    med_before = sorted(times_before)[len(times_before) // 2]
     log(f"[10] {cfg.name} encoder ({n} layers, d_model {cfg.d_model}, "
         f"{n_params} parameters, bf16): {B} clips x {S} frames; forward + "
         f"logits {med:.6g} s (median of {reps}: "
-        f"{[round(t, 6) for t in times]}), max_memory_allocated {peak} B; "
-        f"launches {launches}; attention routes {routes}")
+        f"{[round(t, 6) for t in times]}); with the attention on the "
+        f"general route, as before: {med_before:.6g} s "
+        f"({[round(t, 6) for t in times_before]}); max_memory_allocated "
+        f"{peak} B; launches {launches}; attention routes {routes}")
     log(f"[10] f32 kernel path vs plain path: max |diff| {gap:.6g} of max "
         f"|logit| {scale:.6g} (ratio {gap / scale:.6g}); bf16 paths against "
         f"the f32 plain path at the bf16 weights (same draw: {same_draw}): "
@@ -1988,9 +2098,11 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
         f"(ratio {errs['bf16_err_ratio']}); kernel vs plain in bf16 "
         f"{errs['bf16_gap']}")
     return {"B": B, "S": S, "params": n_params, "forward_s": sig(med),
-            "forward_runs_s": [sig(t) for t in times], "peak_B": peak,
-            "launches": launches, "routes": routes, "f32_routes": routes32,
-            "general_launches_bf16": general16,
+            "forward_runs_s": [sig(t) for t in times],
+            "forward_before_s": sig(med_before),
+            "forward_before_runs_s": [sig(t) for t in times_before],
+            "peak_B": peak, "launches": launches, "routes": routes,
+            "f32_routes": routes32, "prefill_tc_launches_bf16": prefill16,
             "f32_gap": sig(gap / scale), **errs, "same_draw": same_draw}
 
 
@@ -2344,19 +2456,27 @@ GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-3
 BWD_KERNELS = ("attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
                "attention_bwd_tc", "moe_gmm_bwd_tc")
-# the wgmma kernels of the bf16 backward routes (``tc``), each with the
-# prefix of its kernels' names: phase 1 holds their SASS to HGMMA
-# instructions and their ptxas report to no spills
-BWD_TC_SOURCES = {"attention_bwd_tc": ("dq_kernel", "dkv_kernel"),
-                  "moe_gmm_bwd_tc": ("gmm_bwd_tc_kernel",)}
+# the wgmma kernels of the bf16 backward routes (``tc``) and of the
+# attention prefill that writes their LSE, each with the prefix of its
+# kernels' names: phase 1 holds their SASS to HGMMA instructions and their
+# ptxas report to no spills
+WGMMA_SOURCES = {"attention_prefill_tc": ("prefill_tc_kernel",),
+                 "attention_bwd_tc": ("dq_kernel", "dkv_kernel"),
+                 "moe_gmm_bwd_tc": ("gmm_bwd_tc_kernel",)}
+# the head dims whose wgmma shapes phase 1 reports from the SASS: hubert's
+# (80, 80), whose P V, dQ, dK and dV products are 80 columns wide
+SASS_SHAPES_OF = "ILi80ELi80E"     # template arguments <80, 80>, mangled
 # what each backward kernel stands for: the gradient of the Pallas kernel,
 # which the JAX package cannot differentiate (ROADMAP Queue 3 g)
 BWD_REPLACES = {"attention_bwd": "src/repro/kernels/flash_attention.py:25",
                 "mamba_scan_bwd": "src/repro/kernels/mamba_scan.py:24",
                 "grouped_matmul_bwd": "src/repro/kernels/moe_gmm.py:23"}
-# (name, B, S, H, KV, hd, window): hymba's training attention, causal
-BWD_ATTN_CASES = [("train_global", 4, 2048, 25, 5, 64, 0),
-                  ("train_window", 4, 2048, 25, 5, 64, 1024)]
+# (name, B, S, H, KV, hd, window, causal): hymba's training attention
+BWD_ATTN_CASES = [("train_global", 4, 2048, 25, 5, 64, 0, True),
+                  ("train_window", 4, 2048, 25, 5, 64, 1024, True)]
+# the head dims at which attention_bwd.cu (``general``) has a bf16
+# instantiation, timed as the ``tc`` route's "before"
+BWD_GENERAL_BF16_HD = (64, 128)
 BWD_SCAN_CASE = (4, 2048, 3200, 16)
 # per (t, d, n) of the scan's backward at the least: one forward
 # recurrence for the states (dt * A, x * B, the state's FMA) and the
@@ -2372,13 +2492,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 GATE_B = 2
 
 
-def sdpa_backend(q, k, v, mask) -> str:
+def sdpa_backend(q, k, v, mask, causal: bool = True) -> str:
     """The SDPA backend that PyTorch's default dispatch picks for these
     (B, heads, S, head dim) inputs (MATH takes any call)."""
     import torch
     from torch.nn.attention import SDPBackend
     pick = torch._fused_sdp_choice(q, k, v, attn_mask=mask,
-                                   is_causal=mask is None, enable_gqa=True)
+                                   is_causal=causal and mask is None,
+                                   enable_gqa=True)
     return {int(b): n for n, b in SDPBackend.__members__.items()}[pick]
 
 
@@ -2394,8 +2515,9 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
     ``tc`` in bf16, from the forward's LSE, which ``prefill_tc`` writes and
     which must lie within ``LSE_TOL`` of ``attention_lse_ref``; ``general``
     in f32) against autograd of the plain version at a training shape, two
-    runs bit-equal, the route asserted.  ``case``'s head dim is hd = hd_v
-    or a pair (hd, hd_v).  Timed beside its bound (five products per live
+    runs bit-equal, the route asserted.  ``case`` is (name, B, S, H, KV,
+    hd, window, causal), its head dim hd = hd_v or a pair (hd, hd_v).
+    Timed beside its bound (five products per live
     pair and head with the LSE given -- S, dQ and dK of 2 hd FLOPs, dP and
     dV of 2 hd_v -- and S once more where ``general`` recomputes it; the
     six-product figure beside the ``tc`` row's), the plain backward
@@ -2405,15 +2527,16 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
     ``sdpa_backend``).
     The plain versions run ``ref_batch`` batch elements a call (default
     all): at deepseek's 128 heads one element's f32 scores are 2.1 GB.  In
-    bf16 at hd = hd_v also the earlier backward kernel's bf16
-    instantiation (``attention_bwd.cu``, which the ``general`` route keeps
-    for f32), called directly, as "before"; and the forward on
+    bf16 at hd = hd_v in ``BWD_GENERAL_BF16_HD`` also the earlier backward
+    kernel's bf16 instantiation (``attention_bwd.cu``, which the
+    ``general`` route keeps for f32), called directly, as "before"; and
+    the forward on
     ``prefill_tc`` with the LSE written and without it, in turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
-    name, B, S, H, KV, hd, window = case
+    name, B, S, H, KV, hd, window, causal = case
     hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -2422,7 +2545,7 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
                for shape in ((B, S, H, hd), (B, S, KV, hd),
                              (B, S, KV, hd_v)))
     do = torch.randn((B, S, H, hd_v), generator=g, device=dev).to(dtype)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     scale = hd ** -0.5
     route = fa.bwd_route(dtype, S, S, hd, hd_v, window, False)
     step = ref_batch or B
@@ -2476,7 +2599,9 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
     # route recomputes the LSE; q, k, v, o, do read once, dq, dk, dv
     # written once
     i = torch.arange(S, device=dev)
-    keep = i[:, None] >= i[None, :]
+    keep = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= i[:, None] >= i[None, :]
     if window:
         keep &= (i[:, None] - i[None, :]) < window
     pairs = B * int(keep.sum())
@@ -2495,13 +2620,14 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
 
     def library_fwd():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
 
     def library():
         library_fwd().backward(dot)
     row = {"case": name, "dtype": dtype_name, "bwd_route": route,
            "shape": [B, S, S, H, KV, hd, hd_v], "window": window,
+           "causal": causal,
            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
            "bit_equal": repeat, "ms": graph_ms(run, 5, 3),
            "call_ms": time_ms(run, 5), "plain_ms": graph_ms(plain, 1, 2),
@@ -2510,14 +2636,14 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
            "products": products, "bound6_ms": max(t_ops6, t_bytes),
            "flops": flop_pair * H * pairs, "bytes": nbytes,
            "pairs": pairs, "ref_batch": step,
-           "sdpa_backend": sdpa_backend(qt, kt, vt, mask)}
+           "sdpa_backend": sdpa_backend(qt, kt, vt, mask, causal)}
     if route == "tc":
         row["lse_err"] = lse_err
     with torch.no_grad():
         lib_fwd = time_ms(library_fwd, 5)
     row.update(library_ms=time_ms(library, 5), library_fwd_ms=lib_fwd)
     row["library_bwd_ms"] = row["library_ms"] - lib_fwd
-    if route == "tc" and hd == hd_v:
+    if route == "tc" and hd == hd_v and hd in BWD_GENERAL_BF16_HD:
         # before: the PR 22 kernel's bf16 instantiation, which recomputes
         # the LSE into its own scratch
         old = _build.load("attention_bwd").repro_attention_bwd
@@ -2528,7 +2654,7 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
             err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       do.data_ptr(), *(t.data_ptr() for t in outs),
                       scratch[0].data_ptr(), scratch[1].data_ptr(), B, S, S,
-                      H, KV, hd, hd_v, 1, window, scale, 1,
+                      H, KV, hd, hd_v, int(causal), window, scale, 1,
                       torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"attention_bwd.cu bf16: CUDA error {err}")
@@ -2718,6 +2844,9 @@ def train_step_split(ts, state, batch) -> dict:
         loss, _ = ts.model.loss(batch)
         ev[1].record()
         loss.backward()
+        for p in params.values():       # as ``TrainStep.grads`` leaves
+            if p.grad is None:          # them: a frame model's embed
+                p.grad = torch.zeros_like(p)
         ev[2].record()
         ts.update(state, params)
         ev[3].record()
@@ -2731,7 +2860,7 @@ def train_step_split(ts, state, batch) -> dict:
     # routes' kernels of the same names take (T, HD, ...) template
     # arguments
     kinds = {"attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in (
-                 "dq", "dkv") for hd in (64, 128, 192)),
+                 "dq", "dkv") for hd in (64, 80, 128, 192)),
              "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
              "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
              "scan_fwd": ("scan_kernel",),
@@ -2739,7 +2868,8 @@ def train_step_split(ts, state, batch) -> dict:
              "scan_bwd": tuple(SCAN_BWD_PASSES.values()),
              "gmm_fwd": ("gmm_tc_kernel", "gmm_kernel", "gmv_kernel"),
              "gmm_bwd": ("dx_kernel", "dw_kernel"),
-             "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_")}
+             "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+                      "nvjet")}     # cuBLAS's Hopper GEMMs: nvjet_tst_*
     by = {k: 0.0 for k in kinds}
     by["other"] = 0.0
     for e in kern:
@@ -2762,11 +2892,31 @@ def train_step_split(ts, state, batch) -> dict:
                     for e in top]}
 
 
-def train_steps(cfg, opt, tag: str) -> dict:
-    """``TRAIN_STEPS`` bf16 training steps of ``cfg`` at ``TRAIN_B`` x
-    ``TRAIN_S`` tokens from ``SyntheticTokenStream(seed=0)``, the step run
-    directly (not through ``Trainer.run``'s retries): losses (finite),
-    seconds per step, peak memory, each step's launches exactly as
+class FrameStream:
+    """Batches of ``B`` clips of ``S`` frames (B, S, d_model) f32 and
+    their frame labels (B, S) int32, drawn with numpy from ``seed``: the
+    data pipeline draws tokens only (the JAX package's does the same,
+    ROADMAP Queue 3 h), so a frame-input model's training run draws its
+    own, as phase 10 does."""
+
+    def __init__(self, cfg, B: int, S: int, seed: int):
+        self.cfg, self.B, self.S = cfg, B, S
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self) -> dict:
+        return {"frames": self.rng.standard_normal(
+                    (self.B, self.S, self.cfg.d_model)).astype(np.float32),
+                "labels": self.rng.integers(0, self.cfg.vocab, (
+                    self.B, self.S)).astype(np.int32)}
+
+
+def train_steps(cfg, opt, tag: str, stream=None) -> dict:
+    """``TRAIN_STEPS`` bf16 training steps of ``cfg`` on the batches of
+    ``stream`` (default ``TRAIN_B`` x ``TRAIN_S`` tokens from
+    ``SyntheticTokenStream(seed=0)``; a ``FrameStream`` for a frame-input
+    model), the step run directly (not through ``Trainer.run``'s
+    retries): losses (finite), seconds per step, tokens (frames) a second,
+    peak memory, each step's launches exactly as
     ``expected_train_launches`` says (all attention on ``prefill_tc``, all
     grouped products on ``gmm_tc``); then one more step split
     (``train_step_split``).  Each step's MoE routers are recorded on the
@@ -2782,7 +2932,9 @@ def train_steps(cfg, opt, tag: str) -> dict:
     ts = build_train_step(cfg, opt, device="cuda")
     state = ts.init_state(0)
     n_params = sum(p.numel() for p in state["params"].values())
-    stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    if stream is None:
+        stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S,
+                                                      seed=0))
     want = expected_train_launches(cfg)
     want_bwd = {c: TRAIN_STEPS * n
                 for c, n in expected_bwd_routes(cfg).items()}
@@ -2795,6 +2947,7 @@ def train_steps(cfg, opt, tag: str) -> dict:
     for step in range(TRAIN_STEPS):
         before = dict(ops.launches)
         batch = batch_to(stream.next_batch(), "cuda")
+        B, S = batch["labels"].shape
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with log_r:
@@ -2835,12 +2988,13 @@ def train_steps(cfg, opt, tag: str) -> dict:
         raise AssertionError(f"bf16 training's backward calls took routes "
                              f"{bwd_routes}, expected {want_bwd}")
     med = float(np.median(seconds[1:]))
+    unit = "frames" if cfg.frame_input else "tokens"
     log(f"[{tag}] train {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {n_params} parameters, bf16, remat "
-        f"{cfg.remat}): {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
-        f"tokens, losses {losses}, seconds {seconds}; median of steps 2-"
-        f"{TRAIN_STEPS} {med:.6g} s/step, {TRAIN_B * TRAIN_S / med:.6g} "
-        f"tokens/s; max_memory_allocated {peak} B; launches per step "
+        f"{cfg.remat}): {TRAIN_STEPS} steps of {B} x {S} {unit}, losses "
+        f"{losses}, seconds {seconds}; median of steps 2-{TRAIN_STEPS} "
+        f"{med:.6g} s/step, {B * S / med:.6g} {unit}/s; "
+        f"max_memory_allocated {peak} B; launches per step "
         f"{per_step[0]}; routes {routes}, grouped products {gmm_routes}, "
         f"backward calls {bwd_routes}")
     batch = batch_to(stream.next_batch(), "cuda")
@@ -2848,7 +3002,7 @@ def train_steps(cfg, opt, tag: str) -> dict:
     log(f"[{tag}] one more step, split: {json.dumps(split)}")
     out = dict(losses=[sig(x) for x in losses],
                step_s=[sig(x) for x in seconds], median_step_s=sig(med),
-               tokens_per_s=sig(TRAIN_B * TRAIN_S / med), peak_B=peak,
+               tokens_per_s=sig(B * S / med), batch=[B, S], peak_B=peak,
                n_params=n_params, launches=launches,
                per_step_launches=per_step[0], routes=routes,
                gmm_routes=gmm_routes, bwd_routes=bwd_routes, split=split)
@@ -2862,9 +3016,8 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
-    from repro_torch.kernels import ops
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.step import batch_to, build_train_step
+    from repro_torch.train.step import batch_to
     out: dict = {"attn_rows": [], "scan_rows": []}
     # 13a: the backward kernels at hymba's training shapes
     for i, case in enumerate(BWD_ATTN_CASES):
@@ -2884,14 +3037,31 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     torch.cuda.empty_cache()
 
     # 13c: the f32 model, one backward through the kernels and one through
-    # the plain versions, then one AdamW step from each (the start and the
-    # kernel path's result kept on the host)
+    # the plain versions, then one AdamW step from each
     cfg32 = cfg.with_(dtype="float32")
+    out["gate"] = adamw_gate(cfg32, opt, batch_to(SyntheticTokenStream(
+        cfg32, DataConfig(GATE_B, TRAIN_S, seed=0)).next_batch(), "cuda"),
+        "13c")
+    return out
+
+
+def adamw_gate(cfg32, opt, batch: dict, tag: str) -> dict:
+    """The f32 model of ``cfg32`` from seed 0: one loss and backward on
+    ``batch`` through the kernels and one through the plain versions, then
+    one AdamW step from each (the start and the kernel path's result kept
+    on the host): losses within 1e-5 relative, every leaf within
+    ``GRAD_TOL`` f32 of its largest entry (the worst reported), every
+    backward call on ``general``, the launches as
+    ``expected_train_launches`` says and none on the plain path, and at
+    most 1e-5 of the parameters more than lr / 10 apart after the step
+    (phases 13c and 16c)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import build_train_step
     ts = build_train_step(cfg32, opt, device="cuda")
     state = ts.init_state(0)
-    batch = batch_to(SyntheticTokenStream(
-        cfg32, DataConfig(GATE_B, TRAIN_S, seed=0)).next_batch(), "cuda")
-    start = {n: p.detach().cpu() for n, p in state["params"].items()}
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in state["params"].items()}
     gate: dict = {}
     for which in ("cuda", "ref"):
         ops.force(which)
@@ -2916,7 +3086,8 @@ def train_phase(clock_hz: float, sms: int) -> dict:
             del grads_k
         ts.update(state, params)
         if which == "cuda":
-            after_k = {n: p.detach().cpu() for n, p in params.items()}
+            after_k = {n: p.detach().to("cpu", copy=True)
+                       for n, p in params.items()}
             o = state["opt"]
             with torch.no_grad():        # back to the same start
                 o["step"].zero_()
@@ -2948,7 +3119,9 @@ def train_phase(clock_hz: float, sms: int) -> dict:
                              f"{gate['ref_bwd_routes']}), expected {bwd32}")
     if gate["ref_launches"]:
         raise AssertionError(f"plain path launched {gate['ref_launches']}")
-    log(f"[13c] f32 {cfg.name}, {GATE_B} x {TRAIN_S} tokens: loss kernels "
+    B, S = batch["labels"].shape
+    unit = "frames" if cfg32.frame_input else "tokens"
+    log(f"[{tag}] f32 {cfg32.name}, {B} x {S} {unit}: loss kernels "
         f"{gate['cuda_loss']!r}, plain {gate['ref_loss']!r} (relative gap "
         f"{rel_loss:.3g}); worst gradient leaf {worst}: {gaps[worst]:.3g} "
         f"of its largest |grad|; after one AdamW step {off} of {total} "
@@ -2961,11 +3134,10 @@ def train_phase(clock_hz: float, sms: int) -> dict:
         raise AssertionError(f"f32 gradient {worst} off by {gaps[worst]}")
     if not off <= 1e-5 * total:
         raise AssertionError(f"{off} of {total} parameters off after AdamW")
-    out["gate"] = {k: (sig(v) if isinstance(v, float) else v)
-                   for k, v in gate.items()}
     del ts, state, params, start, after_k
     torch.cuda.empty_cache()
-    return out
+    return {k: (sig(v) if isinstance(v, float) else v)
+            for k, v in gate.items()}
 
 
 # ------------------------------------------------ 14. training olmoe
@@ -2989,7 +3161,7 @@ BWD_GMM_CASES = [
 ]
 # olmoe's training attention (B, S, H, KV, hd, window): causal, 16 heads
 # of 128, no GQA
-OLMOE_BWD_ATTN_CASE = ("olmoe_train", 4, 2048, 16, 16, 128, 0)
+OLMOE_BWD_ATTN_CASE = ("olmoe_train", 4, 2048, 16, 16, 128, 0, True)
 
 
 def olmoe_config(layers: int, dtype: str = "bfloat16"):
@@ -3329,7 +3501,8 @@ DS_TRAIN_DENSE = 1
 DS_GATE_B = 1
 # deepseek's training attention (B, S, H, KV, (hd, hd_v), window): MLA's
 # call, causal, 128 heads; the plain versions one prompt a call
-DS_BWD_ATTN_CASE = ("deepseek_train", 4, 2048, 128, 128, (192, 128), 0)
+DS_BWD_ATTN_CASE = ("deepseek_train", 4, 2048, 128, 128, (192, 128), 0,
+                    True)
 
 
 def deepseek_train_config(dense: int, dtype: str = "bfloat16"):
@@ -3443,6 +3616,47 @@ def deepseek_train_phase() -> dict:
     return out
 
 
+# ------------------------------------------- 16. training hubert-xlarge
+# hubert-xlarge (arXiv:2106.07447) at full width and depth: 48 non-causal
+# layers of 16 heads of 80, d_model 1280, d_ff 5120, 504 frame classes;
+# 1,259,705,600 parameters, 20.2 GB of training state at 16 B a parameter.
+# A step takes phase 10's traffic, 8 clips of 1500 frames (30 s at 50
+# frames/s) and their frame labels, drawn with numpy (``FrameStream``);
+# the f32 gate 2 clips (5.0 GB of f32 parameters, AdamW's state beside)
+HUBERT_TRAIN_B, HUBERT_TRAIN_S = 8, 1500
+HUBERT_GATE_B = 2
+# hubert's training attention: 8 clips of 1500 frames, 16/16 heads of 80,
+# non-causal, every (query, key) pair live
+HUBERT_BWD_ATTN_CASE = ("hubert_train", 8, 1500, 16, 16, 80, 0, False)
+
+
+def hubert_train_phase() -> dict:
+    """16a, 16b and 16c (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to
+    out: dict = {"attn_rows": []}
+    # 16a: the attention backward at hubert's training call, (80, 80)
+    for dt in ("bfloat16", "float32"):
+        out["attn_rows"].append(check_attention_bwd(HUBERT_BWD_ATTN_CASE, dt,
+                                                    1000))
+        log("    " + json.dumps(out["attn_rows"][-1]))
+        torch.cuda.empty_cache()
+    # 16b: full width and depth, five bf16 steps
+    cfg = get_config("hubert-xlarge")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    out.update(train_steps(cfg, opt, "16b", FrameStream(
+        cfg, HUBERT_TRAIN_B, HUBERT_TRAIN_S, seed=16)))
+    torch.cuda.empty_cache()
+    # 16c: the f32 gate at full depth
+    cfg32 = cfg.with_(dtype="float32")
+    out["gate"] = adamw_gate(cfg32, opt, batch_to(FrameStream(
+        cfg32, HUBERT_GATE_B, HUBERT_TRAIN_S, seed=17).next_batch(), "cuda"),
+        "16c")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3485,9 +3699,11 @@ def main() -> int:
             raise AssertionError(f"{lib}: an instantiation without tensor-"
                                  f"core instructions: {counts}")
         summary["p1_tc_sass"].update(counts)
-    # the bf16 backward routes run on wgmma: HGMMA in every kernel's SASS,
-    # and no spills in ptxas's report
-    for lib, prefixes in BWD_TC_SOURCES.items():
+    # the bf16 prefill and backward routes run on wgmma: HGMMA in every
+    # kernel's SASS, and no spills in ptxas's report; the wgmma shapes of
+    # the (80, 80) instantiations reported
+    summary["p1_hgmma_80"] = {}
+    for lib, prefixes in WGMMA_SOURCES.items():
         counts = {n: c for n, c in tc_instructions(
             _build._lib_path(lib), r"\bHGMMA\.").items()
             if n.startswith(prefixes)}
@@ -3496,6 +3712,12 @@ def main() -> int:
             raise AssertionError(f"{lib}: a kernel without HGMMA "
                                  f"instructions: {counts}")
         summary["p1_tc_sass"].update(counts)
+        shapes80 = {n: c for n, c in hgmma_shapes(
+            _build._lib_path(lib)).items() if SASS_SHAPES_OF in n}
+        if shapes80:
+            log(f"[1] wgmma shapes of {lib}'s (80, 80) instantiations: "
+                f"{shapes80}")
+            summary["p1_hgmma_80"].update(shapes80)
         report = _build.build_log.get(lib)
         if report is None:
             log(f"[1] {lib} was loaded from an earlier build: no ptxas "
@@ -4000,6 +4222,19 @@ def main() -> int:
             sig(r["library_ms"]), sig(r["max_abs_err"]), r["sdpa_backend"]]
         for r in p15["attn_rows"]}
 
+    # ------------------------------------- 16. training hubert-xlarge
+    t16 = time.perf_counter()
+    p16 = hubert_train_phase()
+    p16["s"] = sig(time.perf_counter() - t16)
+    log(f"[16] phase 16 took {p16['s']:.2f} s")
+    summary["p16"] = {k: v for k, v in p16.items() if k != "attn_rows"}
+    summary["p16"]["bwd"] = {
+        f"{r['case']}/{r['dtype'][:4]}": [
+            sig(r["ms"]), sig(r["bound_ms"]), sig(r["plain_ms"]),
+            sig(r["library_ms"]), sig(r["max_abs_err"]), r["sdpa_backend"]]
+        for r in p16["attn_rows"]}
+    train_phases = (p13, p14, p15, p16)
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -4106,34 +4341,50 @@ def main() -> int:
                                       "olmoe"))
             kernels[-1].update(second("decode_window", row["dtype"],
                                       "hymba"))
-    # the general route, one entry per dtype, each timed at hubert's call:
-    # its commonest shape in either dtype (48 calls a forward; the f32
-    # paths of phases 6, 7, 11 and 12 make 32, 16, 2 and 80 in all)
+    # hubert's bf16 forward on prefill_tc at (80, 80): phase 10's counted
+    # and timed forwards, phase 16b's training launches beside; the
+    # general kernel's bf16 at its call, the route it took before, as
+    # "before" (phase 2), and phase 10's forwards on either route
     p10 = summary["p10"]
-    for dt, launched, where, seconds in (
-            ("bfloat16", p10["general_launches_bf16"],
-             "phase 10, the bf16 forwards (counted and timed)", ()),
-            ("float32", r6_f32["general"] + r7_f32["general"]
-             + p10["f32_routes"]["general"] + p11["f32_routes"]["general"]
-             + p12["f32_routes"]["general"],
-             "the f32 kernel paths of phases 6, 7, 10, 11 and 12",
-             (("prefill", "hymba"), ("olmoe_prefill", "olmoe"),
-              ("hd192_v128", "hd192_v128"),
-              ("deepseek_prefill", "deepseek"),
-              ("vision_prefill", "vision"),
-              ("vision_cross_prefill", "vision_cross")))):
-        row = next(r for r in model_rows if r["case"] == "hubert"
-                   and r["dtype"] == dt)
-        kernels.append({
-            "name": "attention:general" + ("" if dt == "bfloat16"
-                                           else ":f32"),
-            "route": "cuda", "attn_route": "general",
-            "source": f"src/repro_torch/kernels/csrc/"
-                      f"{ATTN_SOURCES['general']}.cu",
-            "replaces": REPLACES["flash_attention"], "launches": launched,
-            "launches_from": where, **row_fields(row)})
-        for case, prefix in seconds:
-            kernels[-1].update(second(case, dt, prefix))
+    row = next(r for r in model_rows if r["case"] == "hubert"
+               and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention:prefill_tc:hubert", "route": "cuda",
+        "attn_route": "prefill_tc",
+        "source": f"src/repro_torch/kernels/csrc/"
+                  f"{ATTN_SOURCES['prefill_tc']}.cu",
+        "replaces": REPLACES["flash_attention"],
+        "launches": p10["prefill_tc_launches_bf16"],
+        "launches_from": "phase 10, the bf16 forwards (counted and timed)",
+        "train_launches": p16["launches"]["flash_attention"],
+        **row_fields(row),
+        **{k: row[k] for k in ("before_ms", "before_call_ms",
+                               "before_max_abs_err", "before_route")},
+        "forward_s": p10["forward_s"],
+        "forward_before_s": p10["forward_before_s"]})
+    # the general route, timed at hubert's f32 call: its commonest shape
+    # (48 calls a forward; the f32 paths of phases 6, 7, 11 and 12 make
+    # 32, 16, 2 and 80 in all); no bf16 call of a path takes it
+    row = next(r for r in model_rows if r["case"] == "hubert"
+               and r["dtype"] == "float32")
+    kernels.append({
+        "name": "attention:general:f32", "route": "cuda",
+        "attn_route": "general",
+        "source": f"src/repro_torch/kernels/csrc/"
+                  f"{ATTN_SOURCES['general']}.cu",
+        "replaces": REPLACES["flash_attention"],
+        "launches": (r6_f32["general"] + r7_f32["general"]
+                     + p10["f32_routes"]["general"]
+                     + p11["f32_routes"]["general"]
+                     + p12["f32_routes"]["general"]),
+        "launches_from": "the f32 kernel paths of phases 6, 7, 10, 11 and "
+                         "12", **row_fields(row)})
+    for case, prefix in (("prefill", "hymba"), ("olmoe_prefill", "olmoe"),
+                         ("hd192_v128", "hd192_v128"),
+                         ("deepseek_prefill", "deepseek"),
+                         ("vision_prefill", "vision"),
+                         ("vision_cross_prefill", "vision_cross")):
+        kernels[-1].update(second(case, "float32", prefix))
     for name in ("mamba_scan", "mamba_step"):
         key, dt = commonest(shapes_model, name)
         row = timed_row(name, key, dt)
@@ -4189,10 +4440,11 @@ def main() -> int:
             kernels[-1].update(second("ds_decode_down_fill", row["dtype"],
                                       "deepseek_down"))
     # the backward kernels: the launches of the training steps of phases
-    # 13b, 14b and 15b, timed at hymba's training shapes in bf16 (the
+    # 13b, 14b, 15b and 16b, timed at hymba's training shapes in bf16 (the
     # windowed attention call, 29 of 32 a step; the global one, f32,
-    # olmoe's head dim 128 from phase 14a and deepseek's MLA call at (192,
-    # 128) from phase 15a beside it)
+    # olmoe's head dim 128 from phase 14a, deepseek's MLA call at (192,
+    # 128) from phase 15a and hubert's non-causal call at (80, 80) from
+    # phase 16a beside it)
     # the attention and grouped-matmul entries carry the bf16 route's
     # (``tc``) kernel and times, the PR 22/23 kernel's bf16 times as
     # "before" and the f32 (``general``) rows beside them
@@ -4210,19 +4462,17 @@ def main() -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}.cu",
                  "replaces": BWD_REPLACES[name],
-                 "launches": (p13["launches"][name]
-                              + p14["launches"][name]
-                              + p15["launches"][name]),
-                 "launches_from": "phases 13b, 14b and 15b, 5 training "
-                                  "steps each",
+                 "launches": sum(p["launches"][name]
+                                 for p in train_phases),
+                 "launches_from": "phases 13b, 14b, 15b and 16b, 5 "
+                                  "training steps each",
                  **row_fields(row),
                  "max_abs_err": max(r["max_abs_err"] for r in rows)}
         if general:
             entry.update(
                 general_source=f"src/repro_torch/kernels/csrc/{general}.cu",
                 bwd_route_launches={
-                    k: sum(p["bwd_routes"].get(k, 0) for p in (p13, p14,
-                                                                p15))
+                    k: sum(p["bwd_routes"].get(k, 0) for p in train_phases)
                     for k in p13["bwd_routes"] if k.startswith("attention")},
                 before_ms=row["before_ms"], bound6_ms=row["bound6_ms"],
                 library_bwd_ms=row["library_bwd_ms"],
@@ -4245,13 +4495,14 @@ def main() -> int:
                 tag = "olmoe" + ("_f32" if r["dtype"] == "float32" else "")
                 entry.update(tagged(r, tag))
                 entry[f"{tag}_max_abs_err"] = r["max_abs_err"]
-            for r in p15["attn_rows"]:
-                tag = "deepseek" + ("_f32" if r["dtype"] == "float32"
-                                    else "")
-                entry.update(tagged(r, tag))
-                entry.update({f"{tag}_{k}": r[k] for k in (
-                    "max_abs_err", "shape", "sdpa_backend", "library_fwd_ms",
-                    "library_bwd_ms", "fwd_ms")})
+            for model, p in (("deepseek", p15), ("hubert", p16)):
+                for r in p["attn_rows"]:
+                    tag = model + ("_f32" if r["dtype"] == "float32"
+                                   else "")
+                    entry.update(tagged(r, tag))
+                    entry.update({f"{tag}_{k}": r[k] for k in (
+                        "max_abs_err", "shape", "causal", "sdpa_backend",
+                        "library_fwd_ms", "library_bwd_ms", "fwd_ms")})
         kernels.append(entry)
     # the grouped matmul's backward: phase 14b's launches (one per call,
     # dx and dw), timed at the bf16 gate/up product at the fills (dx and dw
@@ -4288,12 +4539,13 @@ def main() -> int:
             if k in r:
                 entry[f"{tag}_{k}"] = r[k]
     kernels.append(entry)
-    # the forward kernels' launches in training (phases 13b, 14b and 15b)
-    # beside the serve runs' counts above
+    # the forward kernels' launches in training (phases 13b, 14b and 15b;
+    # 16b's on hubert's entry) beside the serve runs' counts above
     for k in kernels:
         c = k["name"].split(":")[0]
         if c in ("flash_attention", "attention_masked", "mamba_scan") and \
-                k.get("attn_route", "prefill_tc") == "prefill_tc":
+                k.get("attn_route", "prefill_tc") == "prefill_tc" and \
+                "train_launches" not in k:
             k["train_launches"] = sum(p["launches"][c]
                                       for p in (p13, p14, p15))
         if k["name"] == "grouped_matmul:gmm_tc":

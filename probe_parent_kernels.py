@@ -22,7 +22,10 @@ parent's (``chip_smoke.graph_ms``: device time per call in CUDA-graph
 replay).  With ``general`` among the routes, so does hubert-xlarge's
 encoder forward as phase 10 sets it up (``chip_smoke.hubert_inputs``: 8
 clips of 1500 frames, bf16, seeded weights; ``Model.forward`` then
-``logits_fn``: the median of 3 forwards after a warm-up, host clock).
+``logits_fn``: the median of 3 forwards after a warm-up, host clock),
+its attention kept on the general route
+(``chip_smoke.bf16_prefill_on_general``; its bf16 calls take
+``prefill_tc`` otherwise).
 Each kernel's result is held against the plain version
 (``chip_smoke.MODEL_TOL``: a miss is reported, not raised), and the two
 kernels' hubert logits against each other (their largest difference, a
@@ -142,12 +145,13 @@ def main() -> int:
     logits = {}
     for w in order:
         use["which"] = w
-        logits[w] = cs.encoder_logits(model, frames, "cuda")   # warm-up
-        runs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            cs.encoder_logits(model, frames, "cuda")
-            runs.append(time.perf_counter() - t0)
+        with cs.bf16_prefill_on_general():
+            logits[w] = cs.encoder_logits(model, frames, "cuda")  # warm-up
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                cs.encoder_logits(model, frames, "cuda")
+                runs.append(time.perf_counter() - t0)
         fw[w].append(sorted(runs)[1])
     gap = float((logits["mine"] - logits["parent"]).abs().max())
     scale = float(logits["parent"].abs().max())

@@ -11,12 +11,12 @@
 // kernel's causal one and the sliding window of ``ops.attention`` (no
 // explicit positions: query i and key j sit at i and j).
 //
-// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq,
-// H, HDV), contiguous and 16-byte aligned, all f32 or all bf16; (HD, HDV)
-// = (64, 64) or (128, 128), and MLA's (192, 128) in f32 only (the bf16
-// calls take attention_bwd_tc.cu).  dq (B, Sq, H, HD), dk (B, Sk, KV, HD),
-// dv (B, Sk, KV, HDV) come out in the same dtype; lse and delta (B, H, Sq)
-// f32 are scratch.  The kv head of q head h is h / (H / KV).
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq, H,
+// HDV), contiguous and 16-byte aligned, all f32 or all bf16; (HD, HDV) = (64,
+// 64) or (128, 128), and hubert's (80, 80) and MLA's (192, 128) in f32 only
+// (the bf16 calls take attention_bwd_tc.cu).  dq (B, Sq, H, HD), dk (B, Sk,
+// KV, HD), dv (B, Sk, KV, HDV) come out in the same dtype; lse and delta (B,
+// H, Sq) f32 are scratch.  The kv head of q head h is h / (H / KV).
 // Every query row must keep at least one key (the wrapper raises
 // otherwise), so the masked softmax weights are exactly 0.
 //
@@ -587,10 +587,12 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
 }
 
 // tiles: bf16 64 keys (dq) and 64 or 32 queries (dkv, HD 64 or 128); f32
-// 32 keys and 32 or 16 queries (HD 64, or 128 and 192: a warp's dK and dV
-// take 32 + 32, 64 + 64 or 96 + 64 registers a thread, and a tile of 16
-// queries about 36 more for S^T, dP^T and the 3xTF32 fragments) -- what
-// the registers of one thread hold
+// 32 keys and 32 or 16 queries (HD 64, or 80, 128 and 192: a warp's dK and
+// dV take 32 + 32, 40 + 40, 64 + 64 or 96 + 64 registers a thread, and a
+// tile of 16 queries about 36 more for S^T, dP^T and the 3xTF32
+// fragments) -- what the registers of one thread hold.  Rows of 80 are 20
+// pieces of 16 bytes, 84 floats apart in shared memory: the fragments'
+// reads stay on distinct banks, as at 68 and 132.
 template <typename T, int HD, int HDV>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -612,12 +614,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// (hd, hd_v) = (64, 64), (128, 128), and (192, 128) in f32
+// (hd, hd_v) = (64, 64), (128, 128), and (80, 80) and (192, 128) in f32
 template <typename T>
 int dispatch(const Args& a, int hd, int hd_v, cudaStream_t s) {
   if (hd == 64 && hd_v == 64) return launch<T, 64, 64>(a, s);
   if (hd == 128 && hd_v == 128) return launch<T, 128, 128>(a, s);
   if constexpr (sizeof(T) == 4) {
+    if (hd == 80 && hd_v == 80) return launch<T, 80, 80>(a, s);
     if (hd == 192 && hd_v == 128) return launch<T, 192, 128>(a, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -12,14 +12,14 @@
 // ``ops.attention`` (no explicit positions: query i and key j sit at i and
 // j).
 //
-// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq,
-// H, HDV), contiguous bf16, 16-byte aligned, (HD, HDV) = (64, 64), (128,
-// 128) or MLA's (192, 128); lse (B, H, Sq) f32, the forward's row
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq, H,
+// HDV), contiguous bf16, 16-byte aligned, (HD, HDV) = (64, 64), hubert's (80,
+// 80), (128, 128) or MLA's (192, 128); lse (B, H, Sq) f32, the forward's row
 // log-sum-exp of the masked scores times scale, in log2 units (what
-// attention_prefill_tc.cu writes: m + log2(l) with m the row's largest
-// score * scale * log2(e)).  dq (B, Sq, H, HD), dk (B, Sk, KV, HD), dv (B,
-// Sk, KV, HDV) come out in bf16; lse_pad and delta_pad (B * H * Sq_pad f32, Sq_pad = Sq
-// rounded up to 128) are scratch.  The kv head of q head h is h / (H / KV).
+// attention_prefill_tc.cu writes: m + log2(l) with m the row's largest score *
+// scale * log2(e)).  dq (B, Sq, H, HD), dk (B, Sk, KV, HD), dv (B, Sk, KV,
+// HDV) come out in bf16; lse_pad and delta_pad (B * H * Sq_pad f32, Sq_pad =
+// Sq rounded up to 128) are scratch.  The kv head of q head h is h / (H / KV).
 // Every query row keeps at least one key (the wrapper raises otherwise).
 //
 // Arithmetic (FlashAttention's backward): P = exp2(S * scale * log2(e) -
@@ -49,11 +49,16 @@
 // neither warpgroup waits for the other (a thread-0 producer that waited
 // for both to free a stage held them in step, and was slower).  A block
 // holds 128 rows, 64 a warpgroup, and streams tiles of N rows: N = 128 at
-// HD 64, 64 at HD 128 (where S^T and dP^T of 64 x 128 would not fit beside
-// dK and dV); at (192, 128) dq_kernel streams 64 keys and dkv_kernel 32
-// queries (``Layout``).  At (192, 128) S (S^T) sums over 192 columns in
-// three boxes, dP (dP^T) and delta over 128 in two; dQ and dK are wgmmas
-// of N = 192 (m64n192k16), dV of N = 128.
+// HD 64, 64 at HD 80 and 128 (where S^T and dP^T of 64 x 128 would not
+// fit beside dK and dV); at (192, 128) dq_kernel streams 64 keys and
+// dkv_kernel 32 queries (``Layout``).  At (192, 128) S (S^T) sums over 192
+// columns in three boxes, dP (dP^T) and delta over 128 in two; dQ and dK
+// are wgmmas of N = 192 (m64n192k16), dV of N = 128.  At hubert's (80, 80)
+// a row is two boxes, the second zero-filled by TMA past column 80 (the
+// tensor map's inner dimension), so every tile keeps the 128-byte swizzle
+// and the descriptors of the other head dims: S and dP stop after five k16
+// steps, and dQ, dK and dV are wgmmas of N = 80 (m64n80k16), their B
+// operand a swizzle atom and 16 columns of the next.
 //  * dq_kernel, per (batch, q head, 128 queries).  Q and dO arrive once;
 //    each warpgroup computes delta for its rows from O and dO in device
 //    memory, and writes delta and the LSE, padded, for dkv_kernel.  Key
@@ -352,13 +357,42 @@ __device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 in registers) * B (16 x 80, bf16 in
+// shared memory, MN-major, 128-byte swizzle: a swizzle atom and 16 columns
+// of the next, ``lbo`` bytes on).
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D (64 x N) += A (64 x 16, registers) * B (16 x N, MN-major)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t desc_b) {
-  static_assert(N == 64 || N == 128 || N == 192, "widths 64, 128 or 192");
+  static_assert(N == 64 || N == 80 || N == 128 || N == 192,
+                "widths 64, 80, 128 or 192");
   if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n80(d, a, desc_b);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, desc_b);
   } else {
@@ -367,11 +401,13 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
 }
 
 // D (64 x N) = A (64 x K) B^T (N x K), both K-major in boxes of 64
-// columns: A's boxes ``a_box`` bytes apart, B's ``b_box``
+// columns: A's boxes ``a_box`` bytes apart, B's ``b_box``; K in k16 steps
+// (80: four in the first box, one in the second)
 template <int K, int N>
 __device__ __forceinline__ void wgmma_nt(float* d, uint32_t a, int a_box,
                                          uint32_t b, int b_box) {
   static_assert(N == 32 || N == 64 || N == 128, "tiles of 32, 64 or 128");
+  static_assert(K % 16 == 0, "k16 steps");
 #pragma unroll
   for (int ks = 0; ks < K / 16; ++ks) {
     const uint32_t off = (ks % 4) * 32;   // 32 bytes along a swizzled row
@@ -409,23 +445,25 @@ __device__ __forceinline__ bool live(int qi, int kj, int causal, int window) {
 }
 
 // The tiles of head dims (HD, HDV): q, k, dq and dk rows are HD wide
-// (HD / 64 boxes), v, o, dO and dv rows HDV (HDV / 64 boxes).  A block
-// holds kBig rows (two warpgroups of 64) and streams tiles of N rows: dq
-// kN_q keys, dkv kN_kv queries.  128 at (64, 64); 64 at (128, 128), where
-// dK and dV of a warpgroup take 128 registers a thread and S^T and dP^T
-// of 64 x 128 would not fit beside them; at (192, 128) dq streams 64 keys
-// (dQ 96 registers, S and dP 32 each) and dkv 32 queries: dK and dV take
-// 96 + 64 registers a thread, S^T and dP^T of 64 x 32 16 each, the peak
-// of (128, 128) at 64.
+// (HD / 64 boxes, rounded up: the last zero-filled past HD), v, o, dO and
+// dv rows HDV.  A block holds kBig rows (two warpgroups of 64) and streams
+// tiles of N rows: dq kN_q keys, dkv kN_kv queries.  128 at (64, 64); 64 at
+// (128, 128), where dK and dV of a warpgroup take 128 registers a thread
+// and S^T and dP^T of 64 x 128 would not fit beside them; 64 at (80, 80),
+// whose two-box rows would need 256 KB of shared memory for three stages
+// of 128-row tiles (dK and dV take 80 registers, S^T and dP^T 32 each); at
+// (192, 128) dq streams 64 keys (dQ 96 registers, S and dP 32 each) and
+// dkv 32 queries: dK and dV take 96 + 64 registers a thread, S^T and dP^T
+// of 64 x 32 16 each, the peak of (128, 128) at 64.
 template <int HD, int HDV>
 struct Layout {
-  static_assert((HD == 64 && HDV == 64) || (HD == 128 && HDV == 128) ||
-                    (HD == 192 && HDV == 128),
-                "head dims (64, 64), (128, 128) or (192, 128)");
+  static_assert((HD == 64 && HDV == 64) || (HD == 80 && HDV == 80) ||
+                    (HD == 128 && HDV == 128) || (HD == 192 && HDV == 128),
+                "head dims (64, 64), (80, 80), (128, 128) or (192, 128)");
   static constexpr int kNq = HD == 64 ? 128 : 64;
-  static constexpr int kNkv = HD == 64 ? 128 : HD == 128 ? 64 : 32;
-  static constexpr int kChunks = HD / kBox;               // boxes per row
-  static constexpr int kChunksV = HDV / kBox;
+  static constexpr int kNkv = HD == 64 ? 128 : HD <= 128 ? 64 : 32;
+  static constexpr int kChunks = (HD + kBox - 1) / kBox;  // boxes per row
+  static constexpr int kChunksV = (HDV + kBox - 1) / kBox;
   static constexpr int kBigBox = kBig * kBoxBytes;        // 16 KB
   static constexpr int kBigQ = kChunks * kBigBox;         // 128 rows of HD
   static constexpr int kBigV = kChunksV * kBigBox;        // 128 rows of HDV
@@ -533,8 +571,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const size_t bh = static_cast<size_t>(b) * H + h;
   const int Sq_pad = (Sq + kPad - 1) / kPad * kPad;
 
-  // delta = rowsum(dO o O) of rows r0 and r1 (HDV wide): lane ``quad`` of
-  // the row's quad sums a quarter of the columns, 16 bytes at a time
+  // delta = rowsum(dO o O) of rows r0 and r1 (HDV wide): the row's quad
+  // reads it in 16-byte pieces, lane ``quad`` the pieces quad, quad + 4, ..
+  // (80 columns: 10 pieces, 3 for lanes 0 and 1, 2 for the others)
+  constexpr int kPieces = HDV / 8;
   float dl[2], ls[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -543,8 +583,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (r < Sq) {
       const size_t row = ((static_cast<size_t>(b) * Sq + r) * H + h) * HDV;
 #pragma unroll
-      for (int p = 0; p < HDV / 32; ++p) {
-        const int col = quad * (HDV / 4) + 8 * p;
+      for (int p = 0; p < (kPieces + 3) / 4; ++p) {
+        if (kPieces % 4 && quad + 4 * p >= kPieces) continue;
+        const int col = 8 * (quad + 4 * p);
         const uint4 ov = *reinterpret_cast<const uint4*>(o + row + col);
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + row + col);
         const uint32_t* oa = reinterpret_cast<const uint32_t*>(&ov);
@@ -954,8 +995,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H, KV,
-// hd, hd_v, causal, window, scale, stream); (hd, hd_v) (64, 64), (128,
-// 128) or (192, 128); lse_pad and delta_pad hold B * H * Sq_pad floats,
+// hd, hd_v, causal, window, scale, stream); (hd, hd_v) (64, 64), (80, 80),
+// (128, 128) or (192, 128); lse_pad and delta_pad hold B * H * Sq_pad floats,
 // Sq_pad = Sq rounded up to 128
 extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
                                       const void* v, const void* o,
@@ -981,6 +1022,9 @@ extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
   float* dp = static_cast<float*>(delta_pad);
   if (hd == 64 && hd_v == 64)
     return launch<64, 64>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk,
+                          H, KV, causal, window, scale, s);
+  if (hd == 80 && hd_v == 80)
+    return launch<80, 80>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk,
                           H, KV, causal, window, scale, s);
   if (hd == 128 && hd_v == 128)
     return launch<128, 128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq,

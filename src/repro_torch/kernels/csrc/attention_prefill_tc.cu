@@ -10,14 +10,14 @@
 // arange(Sq) and arange(Sk): ``causal`` keeps q >= k, ``window > 0`` keeps
 // q - k < window.  Explicit positions go to the other routes.
 //
-// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o (B, Sq, H,
-// HDV), contiguous bf16, 16-byte aligned, (HD, HDV) one of (64, 64),
-// (128, 128) and MLA's (192, 128); the kv head of q head h is h / (H /
+// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o (B, Sq, H, HDV),
+// contiguous bf16, 16-byte aligned, (HD, HDV) one of (64, 64), hubert's (80,
+// 80), (128, 128) and MLA's (192, 128); the kv head of q head h is h / (H /
 // KV).  Any Sq, Sk >= 1.  ``lse`` null, or (B, H, Sq) f32: each row's
-// log-sum-exp of its masked scores times scale, in log2 units (m + log2(l)
-// of the online softmax below), which the training path's backward
-// (attention_bwd_tc.cu) takes instead of recomputing it; serving passes
-// null and does the same work as without it.
+// log-sum-exp of its masked scores times scale, in log2 units (m + log2(l) of
+// the online softmax below), which the training path's backward
+// (attention_bwd_tc.cu) takes instead of recomputing it; serving passes null
+// and does the same work as without it.
 //
 // Bound on the card: Sq = Sk = 2048 does 2 * (HD + HDV) FLOPs per live
 // (query, key, head) against 2 bytes per element of q, k, v and o read or
@@ -43,6 +43,16 @@
 //    a block may have: two take 209 KB and keep 128-key tiles, so both
 //    products keep the shapes of the other instantiations (n128 scores,
 //    one wgmma per 16 keys of V).
+//  * hubert's head dim 80 (a 160-byte row): two 64-column boxes, the
+//    second at column 64 of a tensor map whose inner dimension is 80, so
+//    TMA fills its columns 80-127 with zeros.  The 128-byte swizzle, the
+//    descriptors and the tile walk stay those of the other head dims; S =
+//    Q K^T stops after five k16 steps (the fifth in the second box), and
+//    O += P V is one m64n80k16 per 16 keys, its B operand the first box
+//    and 16 columns of the second (one box apart, as at 128).  The zeros
+//    cost shared-memory writes, no device-memory reads; three stages take
+//    225 KB.  (The other layout, a 16-column box with 32-byte swizzle,
+//    would need a second descriptor kind and its own k step.)
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 //    (K-major).  The online softmax runs in registers on the accumulator
 //    layout (each thread holds two rows; a row spans a quad), with f32
@@ -258,13 +268,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// O (64 x 80, f32) += A (64 x 16, bf16 in registers: the P fragment)
+// * B (16 x 80, bf16 in shared memory, MN-major, 128-byte swizzle: a whole
+// swizzle atom and 16 columns of the next, ``lbo`` bytes on).
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // O += P V for a v head dim of HDV columns
 template <int HDV>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
                                          uint64_t desc_b) {
-  static_assert(HDV == 64 || HDV == 128, "v head dim 64 or 128");
+  static_assert(HDV == 64 || HDV == 80 || HDV == 128,
+                "v head dim 64, 80 or 128");
   if constexpr (HDV == 64) {
     wgmma_rs_n64(d, a, desc_b);
+  } else if constexpr (HDV == 80) {
+    wgmma_rs_n80(d, a, desc_b);
   } else {
     wgmma_rs_n128(d, a, desc_b);
   }
@@ -281,11 +320,16 @@ __device__ __forceinline__ bool live(int qi, int kj, int causal, int window) {
 
 // ------------------------------------------------------------------ kernel
 
-// the shared-memory plan of q/k head dim HD and v head dim HDV
+// the shared-memory plan of q/k head dim HD and v head dim HDV: a row in
+// 64-column boxes, the last one zero-filled past the row's end (HD 80)
 template <int HD, int HDV>
 struct Layout {
-  static constexpr int kChunks = HD / kBox;                 // boxes per row
-  static constexpr int kVChunks = HDV / kBox;
+  static_assert(HD % 16 == 0 && HDV % 16 == 0 && HD <= 192 && HDV <= 128,
+                "q/k head dims in k16 steps up to 192, v up to 128");
+  static constexpr int kChunks = (HD + kBox - 1) / kBox;    // boxes per row
+  static constexpr int kVChunks = (HDV + kBox - 1) / kBox;
+  static_assert(kChunks * kBox >= HD && kVChunks * kBox >= HDV,
+                "the boxes cover a row");
   static constexpr int kQChunk = kBQ * kBoxBytes;           // 16 KB
   static constexpr int kKVChunk = kBK * kBoxBytes;          // 16 KB
   static constexpr int kQBytes = kChunks * kQChunk;
@@ -607,6 +651,9 @@ extern "C" int repro_attention_prefill_tc(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   if (hd == 64 && hdv == 64)
     return launch<64, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
+                          window, scale, s);
+  if (hd == 80 && hdv == 80)
+    return launch<80, 80>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
                           window, scale, s);
   if (hd == 128 && hdv == 128)
     return launch<128, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,

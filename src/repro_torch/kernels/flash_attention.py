@@ -13,8 +13,9 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
   split-K over the cache, ``plan_splits`` blocks per (batch, kv head),
   then a log-sum-exp combine;
 - ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, (hd, hd_v) in
-  ``TC_HEAD_DIMS`` -- (64, 64), (128, 128) and MLA's (192, 128) -- no
-  explicit positions -- wgmma on the tensor cores, K/V by TMA;
+  ``TC_HEAD_DIMS`` -- (64, 64), hubert's (80, 80), (128, 128) and MLA's
+  (192, 128) -- no explicit positions -- wgmma on the tensor cores, K/V by
+  TMA;
 - ``general`` (``csrc/flash_attention.cu``): everything else -- f32
   prefill, other head dims (any up to ``MAX_HEAD_DIM``, hd and hd_v
   unequal), positions with many rows -- on the tensor cores (mma.sync:
@@ -27,7 +28,8 @@ Training: ``attention_train`` runs the forward above through
 ``_Attention``, an autograd Function whose backward is ``attention_bwd``,
 for the calls the training path makes -- no explicit positions, (hd,
 hd_v) in ``BWD_HEAD_DIMS`` (hymba's and olmoe's (64, 64) and (128, 128),
-MLA's (192, 128)), f32 or bf16, causal or not, any window -- and raises
+hubert's (80, 80), MLA's (192, 128)), f32 or bf16, causal or not, any
+window -- and raises
 for any other call that needs a gradient.  Backward routes, chosen by
 ``bwd_route`` from the dtype and the shapes alone:
 
@@ -52,7 +54,7 @@ from . import ops
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 DECODE_ROWS = 16        # (query, head) rows per (batch, kv head)
-TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (hd, hd_v)
+TC_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))  # (hd, hd_v)
 MAX_SPLITS = 64         # the decode kernel's combine holds this many
 # the backward's (hd, hd_v): the tc route takes the LSE from prefill_tc
 BWD_HEAD_DIMS = TC_HEAD_DIMS

@@ -74,15 +74,22 @@ def test_route_of_other_shapes(shape, dtype, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hubert_encoder_takes_the_general_route(dtype):
     """hubert-xlarge's full-size encoder call (8 clips of 30 s at 50
-    frames/s, 16 heads of 80, non-causal) has head dims that the
-    tensor-core prefill does not take: every one of its layers runs on the
-    general route, in both dtypes."""
+    frames/s, 16 heads of 80, non-causal) takes the general route in f32
+    only: in bf16, serving and training alike, its head dims (80, 80) go to
+    the tensor-core prefill, which also writes the training forward's LSE.
+    Its backward goes to ``tc`` in bf16 and ``general`` in f32."""
     cfg = get_config("hubert-xlarge")
     H, KV, hd, windows = _attn_shapes("hubert-xlarge")
     assert (H, KV, hd, windows) == (16, 16, 80, [0])
     assert not cfg.segments[0].causal
+    want = "prefill_tc" if dtype == torch.bfloat16 else "general"
     assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0,
-                    False) == "general"
+                    False) == want
+    if dtype == torch.bfloat16:
+        assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0, False,
+                        with_lse=True) == "prefill_tc"
+    assert fa.bwd_route(dtype, 1500, 1500, hd, hd, 0, False) == (
+        "tc" if dtype == torch.bfloat16 else "general")
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "prefill_tc"),

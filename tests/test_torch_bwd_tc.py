@@ -8,7 +8,8 @@ units; here it is held to a numpy log-sum-exp of the masked scores (GQA,
 causal and not, windows, Sq != Sk) within 1e-6, and
 ``ref.attention_bwd_ref`` given it to the same function recomputing it
 and to ``jax.grad`` of the JAX package's ``attention_reference``, within
-1e-5 in f32, also at MLA's head dims (hd, hd_v) = (192, 128).
+1e-5 in f32, also at MLA's head dims (hd, hd_v) = (192, 128) and hubert's
+(80, 80) (non-causal, Sq != Sk, and a window).
 ``bwd_route`` of both modules is held case by case.  Under
 ``ops.force("cuda")``, with the forward kernels and the backward launches
 monkeypatched to their plain versions on CPU tensors, ``_Attention`` must
@@ -56,6 +57,9 @@ ATTN_CASES = [
     (1, 20, 20, 4, 2, (192, 128), True, 7),
     (1, 9, 12, 2, 1, (192, 128), False, 0),
     (2, 17, 17, 6, 3, (192, 128), True, 5),
+    (1, 9, 12, 4, 4, 80, False, 0),
+    (2, 14, 10, 4, 2, 80, False, 6),
+    (1, 13, 13, 2, 2, 80, True, 4),
 ]
 
 
@@ -142,6 +146,9 @@ ATTN_ROUTES = [
     (torch.bfloat16, 64, 64, 192, 128, 0, False, "tc"),
     (torch.float32, 2048, 2048, 192, 128, 0, False, "general"),
     (torch.bfloat16, 30, 30, 192, 128, 16, False, "tc"),
+    (torch.bfloat16, 1500, 1500, 80, 80, 0, False, "tc"),     # hubert
+    (torch.float32, 1500, 1500, 80, 80, 0, False, "general"),
+    (torch.bfloat16, 64, 64, 80, 64, 0, False, "head dims"),
     (torch.bfloat16, 64, 64, 192, 192, 0, False, "head dims"),
     (torch.float32, 64, 64, 128, 64, 0, False, "head dims"),
     (torch.float32, 64, 64, 32, 32, 0, False, "head dims"),
@@ -237,7 +244,8 @@ def plain_kernels(monkeypatch):
     (2, 13, 13, 6, 2, 64, True, 5), (1, 9, 12, 4, 4, 128, False, 0),
     (2, 11, 11, 4, 4, (192, 128), True, 0),
     (1, 14, 14, 4, 2, (192, 128), True, 5),
-    (1, 9, 12, 2, 1, (192, 128), False, 0)])
+    (1, 9, 12, 2, 1, (192, 128), False, 0),
+    (1, 9, 12, 4, 4, 80, False, 0), (2, 13, 11, 4, 2, 80, False, 5)])
 def test_attention_function_hands_lse_to_its_backward(
         plain_kernels, B, Sq, Sk, H, KV, hd, causal, window, dtype):
     hd, hd_v = _dims(hd)

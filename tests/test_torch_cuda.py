@@ -255,13 +255,14 @@ ATTN_CASES = [
      ("decode_split", "decode_split")),
     # the general route on the tensor cores: hd 40 and 20 (not a multiple
     # of 16; 20 loads element by element in bf16), 18 (element by element
-    # in f32 too), hubert's 80 (non-causal, and with a window), 256, MLA's
-    # 192/128 non-causal, ragged Sq and Sk
+    # in f32 too), hubert's 80 (non-causal, and with a window; bf16 on the
+    # tensor-core prefill, two boxes a row), 256, MLA's 192/128
+    # non-causal, ragged Sq and Sk
     (2, 37, 70, 4, 2, 40, 40, True, 0, None, ("general", "general")),
     (1, 50, 50, 2, 2, 20, 20, True, 0, None, ("general", "general")),
     (1, 33, 40, 2, 1, 18, 18, False, 0, None, ("general", "general")),
-    (1, 100, 150, 4, 4, 80, 80, False, 0, None, ("general", "general")),
-    (2, 90, 90, 6, 2, 80, 80, True, 33, None, ("general", "general")),
+    (1, 100, 150, 4, 4, 80, 80, False, 0, None, ("general", "prefill_tc")),
+    (2, 90, 90, 6, 2, 80, 80, True, 33, None, ("general", "prefill_tc")),
     (1, 70, 130, 2, 1, 256, 256, True, 0, None, ("general", "general")),
     (1, 65, 65, 4, 4, 192, 128, False, 0, None, ("general", "prefill_tc")),
     # positions with more than 16 rows per (batch, kv head): a chunk of
@@ -271,7 +272,8 @@ ATTN_CASES = [
     # grids of at least 2 x 132 blocks of 128 rows, where the general
     # kernel takes two m tiles per warp: hubert's dims with ragged keys,
     # GQA with a window edge, MLA's dims, positions
-    (4, 640, 700, 16, 16, 80, 80, False, 0, None, ("general", "general")),
+    (4, 640, 700, 16, 16, 80, 80, False, 0, None,
+     ("general", "prefill_tc")),
     (3, 600, 600, 20, 4, 48, 48, True, 200, None, ("general", "general")),
     (2, 1100, 1100, 16, 16, 192, 128, True, 0, None,
      ("general", "prefill_tc")),
@@ -888,7 +890,9 @@ def _grad_gap(got, want) -> float:
 # end inside a tile, non-causal with Sq != Sk, Sq and Sk off the tc
 # kernels' 128-, 64- and 32-row tiles (190, 333), and hymba's and olmoe's
 # training shapes; hd a pair (hd, hd_v) for MLA's (192, 128), the same
-# kinds of case and deepseek's training call with 16 of its 128 heads
+# kinds of case and deepseek's training call with 16 of its 128 heads;
+# hubert's (80, 80): non-causal with ragged Sq != Sk, non-causal with a
+# window, causal with a window, and its training call at 2 of 8 clips
 BWD_ATTN_CASES = [
     (2, 100, 100, 6, 2, 64, True, 0),
     (2, 150, 150, 5, 1, 64, True, 40),
@@ -907,6 +911,10 @@ BWD_ATTN_CASES = [
     (2, 333, 333, 4, 1, (192, 128), True, 100),
     (1, 190, 333, 2, 1, (192, 128), False, 70),
     (1, 2048, 2048, 16, 16, (192, 128), True, 0),
+    (1, 190, 333, 4, 4, 80, False, 0),
+    (2, 150, 130, 6, 2, 80, False, 40),
+    (1, 333, 333, 4, 1, 80, True, 100),
+    (2, 1500, 1500, 16, 16, 80, False, 0),
 ]
 
 
@@ -1212,3 +1220,57 @@ def test_train_step_kernel_path_matches_plain_path(cuda, no_tf32, arch):
               for n, p in params["ref"].items())
     total = sum(p.numel() for p in params["ref"].values())
     assert off <= 5, (off, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hubert_train_step_kernel_path_matches_plain_path(cuda, no_tf32,
+                                                          dtype):
+    """Reduced hubert-xlarge (frame input, non-causal) at its head dim 80,
+    2 layers, frames and labels drawn with numpy: the loss and every
+    gradient leaf through the kernels and through the plain versions from
+    the same weights, within GRAD_TOL of each leaf's largest entry (bf16:
+    the loss within 2e-2 relative), and the launches -- per layer two
+    forwards (the forward and its recompute) on ``prefill_tc`` in bf16 and
+    ``general`` in f32, one backward on ``tc`` or ``general``."""
+    from repro_torch.train.step import batch_to, build_train_step
+    cfg = reduce_config(get_config("hubert-xlarge"), 2).with_(
+        dtype=dtype, head_dim=80, remat="full")
+    rng = np.random.default_rng(6)
+    batch = batch_to({
+        "frames": rng.standard_normal((2, 300, cfg.d_model)).astype(
+            np.float32),
+        "labels": rng.integers(0, cfg.vocab, (2, 300)).astype(np.int32)},
+        cuda)
+    grads, losses = {}, {}
+    for which in ("cuda", "ref"):
+        ts = build_train_step(cfg, device=cuda)
+        st = ts.init_state(5)
+        ops.force(which)
+        ops.reset_launches()
+        try:
+            loss, _ = ts.model.loss(batch)
+            loss.backward()
+        finally:
+            ops.force(None)
+        losses[which] = float(loss.detach())
+        grads[which] = {n: p.grad for n, p in st["params"].items()
+                        if p.grad is not None}
+        if which == "cuda":
+            n = cfg.n_layers
+            bf16 = dtype == "bfloat16"
+            assert {c: k for c, k in ops.launches.items() if k} == {
+                "flash_attention": 2 * n, "attention_bwd": n}
+            assert ops.route_launches == {
+                "decode_split": 0, "prefill_tc": 2 * n * bf16,
+                "general": 2 * n * (not bf16)}
+            assert ops.bwd_route_launches == {
+                "attention_tc": n * bf16, "attention_general": n * (not bf16),
+                "gmm_tc": 0, "gmm_general": 0}
+    tol = GRAD_TOL[getattr(torch, dtype)]
+    assert abs(losses["cuda"] - losses["ref"]) <= (
+        1e-5 if dtype == "float32" else 2e-2) * abs(losses["ref"])
+    assert grads["cuda"].keys() == grads["ref"].keys()
+    for n, g in grads["ref"].items():
+        assert torch.isfinite(grads["cuda"][n]).all(), n
+        assert _grad_gap(grads["cuda"][n], g) <= tol, n

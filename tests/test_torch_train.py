@@ -14,7 +14,11 @@ backward pass), AdamW within 1e-6 of the largest entry of each state leaf
 (one bf16 unit in the last place where a leaf is bf16: the same f32 value
 on either side of a rounding boundary), three train steps' losses within
 1e-4.  The JAX ``Trainer`` is not used (ROADMAP Queue 3 b); the port's
-trainer tests mirror ``tests/test_substrate.py``'s.  deepseek-v3's
+trainer tests mirror ``tests/test_substrate.py``'s.  hubert-xlarge
+(frame classification, non-causal) runs at reduced width but its head dim
+80, the one the card trains it at, on frames and labels drawn with numpy
+(neither package's stream draws frames, reference fault h): its gradients
+and three steps from a JAX state.  deepseek-v3's
 training cut on the card (its dense MLA layer and the MTP block) runs at
 reduced width but MLA's head dims, so every attention call is (hd, hd_v)
 = (192, 128), through the attention Function (``ops.force("cuda")``, the
@@ -102,6 +106,21 @@ def _gap(got, want) -> float:
                  / scale)
 
 
+# hubert's head dim, which the card's attention kernels take at (80, 80)
+HUBERT_HD = 80
+
+
+def _frame_batches(cfg, n: int, B: int = 2, S: int = 16, seed: int = 4):
+    """``n`` batches of frames (B, S, d_model) f32 and labels (B, S) int32
+    drawn with numpy: the pipelines of both packages cannot draw frames
+    (reference fault h)."""
+    rng = np.random.default_rng(seed)
+    return [{"frames": rng.standard_normal((B, S, cfg.d_model)).astype(
+                 np.float32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+            for _ in range(n)]
+
+
 def _one_device_mesh():
     sharding.set_active_mesh(jax.make_mesh(
         (1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))
@@ -117,11 +136,7 @@ def test_model_loss_matches_jax(arch):
     mesh) and the MTP term (deepseek)."""
     cfg, jm, params, model = _pair(arch)
     if cfg.frame_input:     # the pipeline cannot draw frames (fault h)
-        rng = np.random.default_rng(4)
-        batch = {"frames": rng.standard_normal((2, 16, cfg.d_model)).astype(
-                     np.float32),
-                 "labels": rng.integers(0, cfg.vocab, (2, 16)).astype(
-                     np.int32)}
+        batch = _frame_batches(cfg, 1)[0]
     else:
         batch = _batches(cfg, 1)[0]
     moe = bool(cfg.n_experts)
@@ -148,14 +163,20 @@ MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + ["hubert-xlarge"])
 def test_gradients_match_jax(arch, remat):
     """Every gradient leaf against ``jax.grad`` of the JAX loss, with the
     layers recomputed in the backward pass or not; the MoE models through
     the slot path (the grouped matmul's gradient), which JAX runs under a
-    one-device mesh."""
-    cfg, jm, params, model = _pair(arch, remat)
-    batch = _batches(cfg, 1, seed=3)[0]
+    one-device mesh; hubert (frame classification, non-causal) at head dim
+    80 on numpy-drawn frames."""
+    if arch == "hubert-xlarge":
+        cfg, jm, params, model = _pair(arch, remat, head_dim=HUBERT_HD)
+        assert cfg.hd == HUBERT_HD and cfg.frame_input
+        batch = _frame_batches(cfg, 1, seed=3)[0]
+    else:
+        cfg, jm, params, model = _pair(arch, remat)
+        batch = _batches(cfg, 1, seed=3)[0]
     if cfg.n_experts:
         _one_device_mesh()
     try:
@@ -169,7 +190,10 @@ def test_gradients_match_jax(arch, remat):
     got = dict(model.named_parameters())
     assert set(got) == set(want)
     for name, g in want.items():
-        assert got[name].grad is not None, name
+        if got[name].grad is None:    # unread by the loss: hubert's embed
+            assert cfg.frame_input and name == "embed", name
+            assert not g.numpy().any(), name
+            continue
         assert _gap(_np(got[name].grad), g.numpy()) <= 1e-4, name
 
 
@@ -267,13 +291,16 @@ def _jax_step(jm, jcfg):
     return jax.jit(step)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["olmoe-1b-7b", "hubert-xlarge"])
 def test_three_steps_from_a_jax_state_track_jax(arch):
     """JAX trains two steps; its state (parameters and AdamW's step,
     master, m, v) crosses over with ``train_state_from_jax``, and both
     packages take three more steps on the same batches (olmoe's JAX steps
-    under a one-device mesh, as its slot path needs)."""
-    cfg, jm, params, _ = _pair(arch)
+    under a one-device mesh, as its slot path needs; hubert at head dim
+    80 on the same numpy-drawn frames, which neither stream draws)."""
+    frames = arch == "hubert-xlarge"
+    cfg, jm, params, _ = _pair(arch, **(
+        {"head_dim": HUBERT_HD} if frames else {}))
     if cfg.n_experts:
         _one_device_mesh()
     ocfg = dict(lr=3e-3, warmup_steps=2, total_steps=10)
@@ -281,7 +308,8 @@ def test_three_steps_from_a_jax_state_track_jax(arch):
     step = _jax_step(jm, jcfg)
     jp = jax.tree.map(jnp.asarray, params)
     opt = jadamw.init_state(jcfg, jp)
-    batches = _batches(cfg, 5, seed=1)
+    batches = (_frame_batches(cfg, 5, seed=1) if frames
+               else _batches(cfg, 5, seed=1))
     for b in batches[:2]:
         jp, opt, _ = step(jp, opt, jax.tree.map(jnp.asarray, b))
     state = train_state_from_jax(cfg, jax.tree.map(np.asarray, jp),
@@ -291,7 +319,7 @@ def test_three_steps_from_a_jax_state_track_jax(arch):
     port_stream = SyntheticTokenStream(cfg, DataConfig(2, 16, 1), step=2)
     for b in batches[2:]:
         jp, opt, jloss = step(jp, opt, jax.tree.map(jnp.asarray, b))
-        pb = port_stream.next_batch()
+        pb = b if frames else port_stream.next_batch()
         assert all(np.array_equal(pb[k], b[k]) for k in b)
         state, met = ts.step_fn(state, batch_to(pb, "cpu"))
         np.testing.assert_allclose(float(met["loss"]), float(jloss),
