@@ -195,8 +195,11 @@ failure propagates and the exit code is nonzero:
    all attention on ``prefill_tc``, every attention backward call on
    ``tc`` (``ops.bwd_route_launches``), nothing else); then one more step
    split by CUDA events (forward, backward with the recompute, AdamW) and
-   by kernel under ``torch.profiler``.  (c) The f32 model at full width
-   and depth, 2 x 2048 tokens: the loss and every gradient through the
+   by kernel under ``torch.profiler``.  (c) The f32 model at full width,
+   depth cut to one layer of each of its five segments
+   (``hymba_gate_config``: its three global-attention layers and two
+   windowed ones; phase 17's time came out of this gate's plain
+   backward), 2 x 2048 tokens: the loss and every gradient through the
    kernels and through the plain versions (losses within 1e-5 relative,
    each leaf within ``GRAD_TOL`` f32 of its largest entry, the worst
    reported; every backward call on ``general``), then one AdamW step
@@ -204,7 +207,7 @@ failure propagates and the exit code is nonzero:
    (at most 1e-5 of them more than lr / 10 apart: a first AdamW step
    moves each parameter by about lr times its gradient's sign, which the
    two paths share except where a gradient is near 0; an H100 read 2,998
-   of 1.66e9);
+   of 1.66e9 at full depth);
 14. training ``olmoe-1b-7b``.  (a) The grouped matmul's backward on its
    route (``tc``, ``moe_gmm_bwd_tc.cu``, in bf16; ``general``,
    ``moe_gmm_bwd.cu``, in f32; asserted), dx and dw, against the plain
@@ -274,7 +277,30 @@ failure propagates and the exit code is nonzero:
    then the split step.  (c) The f32 model at full depth, 2 clips, as 13c
    (``adamw_gate``): the loss and every gradient through the kernels and
    the plain versions, every backward call on ``general``, then one AdamW
-   step from each.
+   step from each;
+17. the planning tools against the card.  The dry runs
+   (``launch.dryrun.run_cell`` on the meta device: 13b-16b's cells as
+   trained, and hymba's and hubert's under remat "dots" and "none") run
+   in a spawned process on the CPU from the end of the build on, beside
+   phases 1-16.
+   (a) Each training cell's dry run holds the parameters and the bytes of
+   training state (parameters, f32 master, m, v) that the card trained,
+   exactly; its predicted peak beside the measured
+   ``max_memory_allocated`` and its counted FLOPs beside ``step_cost``'s
+   are printed as ratios.  (b) Every training step (13b-16b) and serving
+   run (6, 7, 11, 12; hubert's forward in 10) beside ``step_cost``'s
+   compute and memory seconds at dp = tp = 1 on the H100's constants
+   (``roofline.roofline_terms``): the bottleneck, ``mfu`` (model FLOPs
+   over 989 TFLOP/s times the measured seconds) and the roofline
+   fraction.  (c) hymba-1.5b and hubert-xlarge train five bf16 steps
+   under remat "dots" on 13b's and 16b's batches: each step's launches
+   and backward routes those of "full", losses finite, step 1's loss
+   equal to "full"'s, one step's gradients within ``GRAD_TOL`` of
+   "full"'s on the same weights (bit-equality reported); seconds a step,
+   tokens (frames) a second and peak beside "full"'s, ``plan_remat``'s
+   decision for the card's 80 GB less the state, and the dry run's peak
+   under each policy; remat "none" trains only where the dry run
+   predicts a peak under 72 GB (hubert), else the prediction is printed.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
@@ -2492,6 +2518,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
 GATE_B = 2
 
 
+def hymba_gate_config(cfg):
+    """13c's cut of ``cfg`` (hymba-1.5b): one layer of each segment, so
+    both attention kinds (global and windowed) and the scan stay."""
+    import dataclasses
+    return cfg.with_(segments=tuple(dataclasses.replace(s, n_layers=1)
+                                    for s in cfg.segments))
+
+
 def sdpa_backend(q, k, v, mask, causal: bool = True) -> str:
     """The SDPA backend that PyTorch's default dispatch picks for these
     (B, heads, S, head dim) inputs (MATH takes any call)."""
@@ -2785,17 +2819,19 @@ def scan_bwd_pass_ms(fn, reps: int) -> dict:
 
 
 def expected_train_launches(cfg) -> dict:
-    """One training step's launches with remat "full": every layer's
-    forward kernels twice (the forward and its recompute in the backward
-    pass), one backward kernel each -- an MoE layer's three grouped
-    products twice and one backward call each; each MTP block (a dense
-    layer with the last segment's attention, GQA or MLA) its forward
-    kernels once, as ``Model._mtp_loss`` runs it without recompute, and
-    one backward kernel each; nothing else."""
+    """One training step's launches with remat "full" or "dots": every
+    layer's forward kernels twice (the forward and its recompute in the
+    backward pass: "dots" saves the matrix products' outputs, not the
+    kernels'), one backward kernel each -- an MoE layer's three grouped
+    products twice and one backward call each; with remat "none" the
+    forward kernels once; each MTP block (a dense layer with the last
+    segment's attention, GQA or MLA) its forward kernels once, as
+    ``Model._mtp_loss`` runs it without recompute, and one backward kernel
+    each; nothing else."""
     from repro_torch.kernels import ops
     from repro_torch.models.config import Segment
     want = {c: 0 for c in ops.launches}
-    runs = [(seg, 2) for seg in cfg.segments]
+    runs = [(seg, 1 if cfg.remat == "none" else 2) for seg in cfg.segments]
     if cfg.mtp_depth:
         runs.append((Segment("dense", cfg.mtp_depth,
                              attn=cfg.segments[-1].attn), 1))
@@ -2806,10 +2842,10 @@ def expected_train_launches(cfg) -> dict:
                  else "flash_attention"] += fwd * n
             want["attention_bwd"] += n
         if seg.kind in ("mamba", "hybrid"):
-            want["mamba_scan"] += 2 * n
+            want["mamba_scan"] += fwd * n
             want["mamba_scan_bwd"] += n
         if seg.kind == "moe":
-            want["grouped_matmul"] += 6 * n
+            want["grouped_matmul"] += 3 * fwd * n
             want["grouped_matmul_bwd"] += 3 * n
     return want
 
@@ -2920,11 +2956,13 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
     ``expected_train_launches`` says (all attention on ``prefill_tc``, all
     grouped products on ``gmm_tc``); then one more step split
     (``train_step_split``).  Each step's MoE routers are recorded on the
-    card, and the recompute of every MoE layer (remat "full") must route
-    as its forward did: ``torch.utils.checkpoint`` compares only the
-    recomputed tensors' shapes.  A model with experts also returns the
-    first step's routing (``routing``: each MoE layer's (T, k) experts,
-    on the card)."""
+    card, and the recompute of every MoE layer (remat "full" or "dots")
+    must route as its forward did: ``torch.utils.checkpoint`` compares
+    only the recomputed tensors' shapes.  A model with experts also
+    returns the first step's routing (``routing``: each MoE layer's (T, k)
+    experts, on the card).  Also returned: the training state's bytes
+    (``state_B``: parameters, f32 master, m and v) and step 1's loss
+    unrounded (``loss0``)."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
     from repro_torch.kernels import ops
@@ -2932,6 +2970,9 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
     ts = build_train_step(cfg, opt, device="cuda")
     state = ts.init_state(0)
     n_params = sum(p.numel() for p in state["params"].values())
+    state_B = sum(t.numel() * t.element_size() for part in (
+        state["params"], state["opt"]["master"], state["opt"]["m"],
+        state["opt"]["v"]) for t in part.values())
     if stream is None:
         stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S,
                                                       seed=0))
@@ -2939,6 +2980,7 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
     want_bwd = {c: TRAIN_STEPS * n
                 for c, n in expected_bwd_routes(cfg).items()}
     n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
+    n_route = n_moe if cfg.remat == "none" else 2 * n_moe
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, seconds, per_step = [], [], []
@@ -2960,7 +3002,7 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
         calls, log_r.calls = log_r.calls, []
         if step == 0:
             routing = calls[:n_moe]
-        if len(calls) != 2 * n_moe or any(
+        if len(calls) != n_route or n_route > n_moe and any(
                 not torch.equal(calls[i], calls[-1 - i])
                 for i in range(n_moe)):
             raise AssertionError(f"train step {step}: the recompute routed "
@@ -3003,7 +3045,8 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
     out = dict(losses=[sig(x) for x in losses],
                step_s=[sig(x) for x in seconds], median_step_s=sig(med),
                tokens_per_s=sig(B * S / med), batch=[B, S], peak_B=peak,
-               n_params=n_params, launches=launches,
+               n_params=n_params, state_B=state_B, loss0=losses[0],
+               launches=launches,
                per_step_launches=per_step[0], routes=routes,
                gmm_routes=gmm_routes, bwd_routes=bwd_routes, split=split)
     if n_moe:
@@ -3036,9 +3079,9 @@ def train_phase(clock_hz: float, sms: int) -> dict:
     out.update(train_steps(cfg, opt, "13b"))
     torch.cuda.empty_cache()
 
-    # 13c: the f32 model, one backward through the kernels and one through
-    # the plain versions, then one AdamW step from each
-    cfg32 = cfg.with_(dtype="float32")
+    # 13c: the f32 model cut in depth, one backward through the kernels
+    # and one through the plain versions, then one AdamW step from each
+    cfg32 = hymba_gate_config(cfg).with_(dtype="float32")
     out["gate"] = adamw_gate(cfg32, opt, batch_to(SyntheticTokenStream(
         cfg32, DataConfig(GATE_B, TRAIN_S, seed=0)).next_batch(), "cuda"),
         "13c")
@@ -3657,13 +3700,283 @@ def hubert_train_phase() -> dict:
     return out
 
 
+# ----------------------------------------------------------- 17. tools
+# the card's memory less the margin under which 17c trains a config with
+# remat "none" (its dry-run peak must be below it)
+NONE_PEAK_LIMIT_B = 72e9
+CARD_MEMORY_B = 80e9
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def dryrun_cells() -> dict:
+    """The dry runs of phase 17 by key (arch, remat): the four training
+    cells of 13b-16b at their shapes (remat "full", as trained), and
+    hymba's and hubert's under "dots" and "none" (17c); each
+    ``launch.dryrun.run_cell``'s dict.  Runs in a spawned process on the
+    CPU alone, beside the card's phases."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    for arch, B, S, overrides in dryrun_train_cells():
+        for remat in REMAT_POLICIES:
+            if remat != "full" and arch not in ("hymba-1.5b",
+                                                "hubert-xlarge"):
+                continue
+            shape = Shape(f"smoke_train_{B}x{S}", S, B, "train")
+            out[f"{arch}/{remat}"] = run_cell(
+                arch, shape, overrides={**overrides, "remat": remat})
+    return out
+
+
+def dryrun_train_cells() -> list:
+    """(arch, B, S, config overrides) of the training runs of 13b-16b."""
+    return [("hymba-1.5b", TRAIN_B, TRAIN_S, {}),
+            ("olmoe-1b-7b", TRAIN_B, TRAIN_S,
+             {"segments": olmoe_config(OLMOE_TRAIN_LAYERS).segments}),
+            ("deepseek-v3-671b", TRAIN_B, TRAIN_S,
+             {"segments": deepseek_train_config(DS_TRAIN_DENSE).segments}),
+            ("hubert-xlarge", HUBERT_TRAIN_B, HUBERT_TRAIN_S, {})]
+
+
+def _cpu_only() -> None:
+    """The dry-run process's initializer: no card for it."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def dryrun_phase(dry: dict, trained: dict) -> dict:
+    """17a: the dry run of each training cell of 13b-16b against the card:
+    its parameters (the model's leaves) and its training state's bytes
+    (parameters, f32 master, m, v) equal to the live state's exactly (a
+    gate); its predicted peak beside the measured ``max_memory_allocated``
+    and its counted FLOPs (PyTorch's products and the kernels' bounds)
+    beside ``step_cost``'s, as ratios."""
+    rows = {}
+    for arch, B, S, _ in dryrun_train_cells():
+        r, live = dry[f"{arch}/full"], trained[arch]
+        if r["status"] != "ok":
+            raise AssertionError(f"17a {arch}: dry run {r['status']}: "
+                                 f"{r.get('error', r.get('reason'))}")
+        if (r["leaves"], r["state_bytes"]) != (live["n_params"],
+                                               live["state_B"]):
+            raise AssertionError(
+                f"17a {arch}: dry run {r['leaves']} parameters, "
+                f"{r['state_bytes']} B of state; the card trained "
+                f"{live['n_params']}, {live['state_B']} B")
+        row = {"B": B, "S": S, "leaves": r["leaves"],
+               "state_B": r["state_bytes"],
+               "peak_pred_B": r["memory"]["peak_bytes"],
+               "peak_B": live["peak_B"],
+               "peak_ratio": sig(r["memory"]["peak_bytes"] / live["peak_B"]),
+               "flops": r["cost"]["flops"],
+               "kernel_flops": r["kernel_flops"],
+               "step_cost_flops": r["step_cost"]["flops"],
+               "flops_ratio": sig(r["cost"]["flops"]
+                                  / r["step_cost"]["flops"]),
+               "kernel_calls": r["kernel_calls"],
+               "dry_s": r["seconds"]}
+        log(f"[17a] {arch} ({B} x {S}, remat full): dry run on meta in "
+            f"{r['seconds']} s: {r['leaves']} parameters and "
+            f"{r['state_bytes']} B of state, equal to the card's; peak "
+            f"predicted {row['peak_pred_B']} B, measured {live['peak_B']} "
+            f"B (ratio {row['peak_ratio']}); counted FLOPs "
+            f"{row['flops']:.6g} ({row['kernel_flops']:.6g} in the "
+            f"kernels), step_cost's {row['step_cost_flops']:.6g} (ratio "
+            f"{row['flops_ratio']}); kernel calls {r['kernel_calls']}")
+        rows[arch] = row
+    return rows
+
+
+def roofline_row(tag: str, cfg, B: int, S: int, K: int, kind: str,
+                 seconds: float) -> dict:
+    """``step_cost``'s roofline terms at dp = tp = 1 on the H100's
+    constants beside the measured ``seconds`` of a step, prefill, forward
+    or decode step: ``mfu`` = model FLOPs / (peak x seconds),
+    ``roofline_fraction`` as ``roofline_terms`` gives it (the model FLOP
+    rate at the bottleneck's time over the peak) and ``of_bound`` = the
+    larger of the compute and memory seconds over the measured ones."""
+    from repro_torch.roofline import PEAK_FLOPS, roofline_terms
+    t = roofline_terms(cfg, B, S, K, 1, 1, kind)
+    row = {"B": B, "S": S, "K": K, "kind": kind,
+           "compute_s": sig(t["compute_s"]), "memory_s": sig(t["memory_s"]),
+           "bottleneck": t["bottleneck"], "seconds": seconds,
+           "model_flops": t["model_flops"],
+           "mfu": sig(t["model_flops"] / (PEAK_FLOPS * seconds)),
+           "roofline_fraction": sig(t["roofline_fraction"]),
+           "of_bound": sig(max(t["compute_s"], t["memory_s"]) / seconds)}
+    log(f"[17b] {tag} {cfg.name} {kind} {B} x {S} (K {K}): compute "
+        f"{row['compute_s']} s, memory {row['memory_s']} s, bottleneck "
+        f"{row['bottleneck']}; measured {seconds} s; mfu {row['mfu']}, "
+        f"roofline fraction {row['roofline_fraction']}, bound over "
+        f"measured {row['of_bound']}")
+    return row
+
+
+def roofline_phase(summary: dict, trained: dict) -> dict:
+    """17b: every training step (13b-16b) and serving run (6, 7, 11, 12;
+    hubert's forward in 10) against ``step_cost``'s roofline."""
+    from repro_torch.configs import get_config
+    cfgs = {"hymba-1.5b": get_config("hymba-1.5b"),
+            "olmoe-1b-7b": olmoe_config(OLMOE_TRAIN_LAYERS),
+            "deepseek-v3-671b": deepseek_train_config(DS_TRAIN_DENSE),
+            "hubert-xlarge": get_config("hubert-xlarge")}
+    rows = {}
+    for arch, B, S, _ in dryrun_train_cells():
+        rows[f"train/{arch}"] = roofline_row(
+            "train", cfgs[arch], B, S, S, "train",
+            trained[arch]["median_step_s"])
+    G = 32
+    for tag, cfg in (("p6", get_config("hymba-1.5b")),
+                     ("p7", get_config("olmoe-1b-7b")),
+                     ("p11", deepseek_config(*DS_SERVE_DEPTH)),
+                     ("p12", get_config("llama-3.2-vision-11b"))):
+        run = summary[tag]
+        rows[f"{tag}/prefill"] = roofline_row(tag, cfg, 4, 2048, 2048,
+                                              "prefill", run["prefill_s"])
+        rows[f"{tag}/decode"] = roofline_row(
+            tag, cfg, 4, 1, 2048 + G, "decode",
+            sig(run["ms_per_token"] / 1e3))
+    p10 = summary["p10"]
+    rows["p10/forward"] = roofline_row("p10", cfgs["hubert-xlarge"],
+                                       p10["B"], p10["S"], p10["S"],
+                                       "prefill", p10["forward_s"])
+    return rows
+
+
+def grads_full_vs_dots(cfg, batch: dict) -> dict:
+    """One step's gradients of ``cfg``'s bf16 model from seed 0 on
+    ``batch``, remat "dots" then "full" on the same weights: every leaf
+    within ``GRAD_TOL`` bf16 of "full"'s largest entry (the worst
+    reported), the losses equal, and whether every leaf came out
+    bit-equal."""
+    import torch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import build_train_step
+    ts = build_train_step(cfg.with_(remat="dots"), AdamWConfig(),
+                          device="cuda")
+    state = ts.init_state(0)
+    params, met = ts.grads(state, batch)
+    dots = {n: p.grad.clone() for n, p in params.items()}
+    loss_dots = float(met["loss"])
+    ts.model.cfg = ts.cfg = cfg.with_(remat="full")
+    params, met = ts.grads(state, batch)
+    gaps = {n: grad_gap(dots[n], p.grad) for n, p in params.items()}
+    equal = all(torch.equal(dots[n], p.grad) for n, p in params.items())
+    worst = max(gaps, key=gaps.get)
+    out = {"loss_dots": loss_dots, "loss_full": float(met["loss"]),
+           "worst_leaf": worst, "worst_gap": gaps[worst],
+           "bit_equal": equal}
+    del ts, state, params, dots
+    torch.cuda.empty_cache()
+    if out["loss_dots"] != out["loss_full"]:
+        raise AssertionError(f"remat dots vs full: losses {out}")
+    if not gaps[worst] <= GRAD_TOL["bfloat16"]:
+        raise AssertionError(f"remat dots vs full: gradient {worst} off "
+                             f"by {gaps[worst]}")
+    return out
+
+
+def remat_phase(dry: dict, trained: dict) -> dict:
+    """17c: hymba-1.5b and hubert-xlarge train ``TRAIN_STEPS`` bf16 steps
+    each under remat "dots" (``train_steps``) on 13b's and 16b's batches:
+    the launches of each step and the backward routes equal "full"'s (the
+    recompute re-launches the forward kernels), losses finite, step 1's
+    loss equal to "full"'s (the forward is unchanged), and one step's
+    gradients within ``GRAD_TOL`` of "full"'s (``grads_full_vs_dots``);
+    seconds, tokens (frames) a second and peak beside "full"'s,
+    ``plan_remat``'s decision for a budget of the card's memory less the
+    state, and the dry run's peak under each policy.  remat "none" trains
+    only where its dry-run peak is below ``NONE_PEAK_LIMIT_B``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import plan_remat
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    out = {}
+    for arch, B, S, _ in dryrun_train_cells():
+        if arch not in ("hymba-1.5b", "hubert-xlarge"):
+            continue
+        cfg = get_config(arch)
+
+        def stream(c):
+            if c.frame_input:
+                return FrameStream(c, B, S, seed=16)
+            return SyntheticTokenStream(c, DataConfig(B, S, seed=0))
+        full = trained[arch]
+        pred = {r: dry[f"{arch}/{r}"]["memory"]["peak_bytes"]
+                for r in REMAT_POLICIES}
+        plan = plan_remat(cfg, B, S, 1, 1,
+                          hbm_budget_bytes=CARD_MEMORY_B - full["state_B"])
+        row = {"predicted_peak_B": pred, "plan_remat": {
+            "policy": plan.policy, "recompute_s": sig(plan.recompute_seconds),
+            "save_s": sig(plan.save_seconds), "save_B": plan.save_bytes,
+            "fits_budget": plan.fits_budget},
+            "full": {k: full[k] for k in ("median_step_s", "tokens_per_s",
+                                          "peak_B")}}
+        for remat in ("dots", "none"):
+            if remat == "none" and pred["none"] >= NONE_PEAK_LIMIT_B:
+                row["none"] = "not run: predicted peak " \
+                    f"{pred['none']} B >= {NONE_PEAK_LIMIT_B:.0f} B"
+                log(f"[17c] {arch} remat none {row['none']}")
+                continue
+            c = cfg.with_(remat=remat)
+            r = train_steps(c, opt, f"17c {arch} {remat}", stream(c))
+            torch.cuda.empty_cache()
+            if remat == "dots" and (
+                    r["per_step_launches"] != full["per_step_launches"]
+                    or r["bwd_routes"] != full["bwd_routes"]):
+                raise AssertionError(
+                    f"17c {arch} dots launched {r['per_step_launches']}, "
+                    f"backward {r['bwd_routes']}; full "
+                    f"{full['per_step_launches']}, {full['bwd_routes']}")
+            if r["loss0"] != full["loss0"]:
+                raise AssertionError(f"17c {arch} {remat}: step 1's loss "
+                                     f"{r['loss0']!r}, full's "
+                                     f"{full['loss0']!r}")
+            row[remat] = {k: r[k] for k in ("median_step_s", "tokens_per_s",
+                                            "peak_B", "losses",
+                                            "per_step_launches")}
+            row[remat]["split"] = {k: v for k, v in r["split"].items()
+                                   if k != "top"}
+        row["grads"] = grads_full_vs_dots(cfg, batch_to(
+            stream(cfg).next_batch(), "cuda"))
+        log(f"[17c] {arch}: remat dots {row['dots']['median_step_s']} s a "
+            f"step ({row['dots']['tokens_per_s']} a second), peak "
+            f"{row['dots']['peak_B']} B; full {full['median_step_s']} s, "
+            f"peak {full['peak_B']} B; dry-run peaks {pred}; plan_remat "
+            f"(budget {CARD_MEMORY_B:.0f} B less {full['state_B']} B of "
+            f"state): {row['plan_remat']}; gradients dots vs full: "
+            f"{row['grads']}")
+        out[arch] = row
+    return out
+
+
 def main() -> int:
+    """Check for a card and a checkout, and run the phases (``phases``)
+    beside a spawned process for phase 17's dry runs, stopped at the
+    end."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401 -- raises outside a checkout
+    with ProcessPoolExecutor(1, multiprocessing.get_context("spawn"),
+                             initializer=_cpu_only) as dry_pool:
+        return phases(dry_pool)
+
+
+def phases(dry_pool) -> int:
+    """Phases 1-17 (see the module docstring); phase 17's dry runs
+    (``dryrun_cells``) run in ``dry_pool`` from the end of the build
+    on."""
+    import torch
     from repro_torch.core.partition.cost import capacity
     from repro_torch.core.partition.heuristic import (
         fm_refine, greedy_initial, partition_with_replication,
@@ -3678,6 +3991,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
+    dry_future = dry_pool.submit(dryrun_cells)
     log(f"[1] built and loaded "
         f"{', '.join(_build._lib_path(n).name for n in libs)} in "
         f"{build_s:.2f} s")
@@ -4234,6 +4548,19 @@ def main() -> int:
             sig(r["library_ms"]), sig(r["max_abs_err"]), r["sdpa_backend"]]
         for r in p16["attn_rows"]}
     train_phases = (p13, p14, p15, p16)
+
+    # ------------------------------------------------------ 17. tools
+    t17 = time.perf_counter()
+    trained = dict(zip([c[0] for c in dryrun_train_cells()], train_phases))
+    dry = dry_future.result()
+    log(f"[17] dry runs ready {time.perf_counter() - t17:.2f} s after "
+        f"phase 16")
+    p17 = {"a": dryrun_phase(dry, trained),
+           "b": roofline_phase(summary, trained),
+           "c": remat_phase(dry, trained)}
+    p17["s"] = sig(time.perf_counter() - t17)
+    log(f"[17] phase 17 took {p17['s']:.2f} s")
+    summary["p17"] = p17
 
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}

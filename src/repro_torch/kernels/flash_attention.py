@@ -42,11 +42,18 @@ for any other call that needs a gradient.  Backward routes, chosen by
 
 ``ref.attention_bwd_ref`` is their plain version, ``ref.attention_lse_ref``
 the log-sum-exp's.
+
+On meta tensors (``ops``: the dry run) ``flash_attention`` and
+``attention_bwd`` check the call, choose its route and allocate its
+outputs (the LSE too where asked; the backward's scratch), launch nothing,
+and count the FLOPs and bytes of its bound (``attention_cost``,
+``attention_bwd_cost``) in ``ops.meta_cost``.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import ops
@@ -113,6 +120,45 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one batch row that the mask keeps, query i
+    and key j at positions i and j: ``i >= j`` if ``causal``, ``i - j <
+    window`` if ``window``."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_cost(esize: int, B: int, Sq: int, Sk: int, H: int, KV: int,
+                   hd: int, hd_v: int, causal: bool, window: int,
+                   n_positions: int = 0, with_lse: bool = False
+                   ) -> tuple[int, int]:
+    """(FLOPs, bytes) of the forward's bound: 2 (hd + hd_v) FLOPs per live
+    pair and q head; q, k, v (and the ``n_positions`` int32 positions)
+    read once, the output (and the f32 LSE) written once.  With positions
+    the live pairs are not known from the shapes: every pair counts."""
+    pairs = B * (Sq * Sk if n_positions else live_pairs(Sq, Sk, causal,
+                                                         window))
+    flops = 2 * H * pairs * (hd + hd_v)
+    nbytes = esize * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
+    nbytes += 4 * n_positions + (4 * B * H * Sq if with_lse else 0)
+    return flops, nbytes
+
+
+def attention_bwd_cost(which: str, esize: int, B: int, Sq: int, Sk: int,
+                       H: int, KV: int, hd: int, hd_v: int, causal: bool,
+                       window: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of the backward's bound on route ``which``: per live
+    pair and q head 2 hd FLOPs for each of S, dQ and dK, 2 hd_v for dP and
+    dV, and 2 hd for S once more where the route (``general``) recomputes
+    the LSE; q, k, v, o, do read once and dq, dk, dv written once."""
+    pairs = B * live_pairs(Sq, Sk, causal, window)
+    flop_pair = 2 * (3 * hd + 2 * hd_v) + (0 if which == "tc" else 2 * hd)
+    nbytes = esize * 2 * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
+    return flop_pair * H * pairs, nbytes
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """The SM count of CUDA device ``index``, read once."""
@@ -161,6 +207,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
+    plain = window == 0 and q_pos is None and k_pos is None
+    if dev.type == "meta":
+        n_pos = sum(t.numel() for t in (q_pos, k_pos) if t is not None)
+        ops.add_meta_cost(
+            "flash_attention" if plain else "attention_masked",
+            *attention_cost(q.element_size(), B, Sq, Sk, H, KV, hd, hd_v,
+                            causal, window, n_pos, return_lse))
+        return (out, lse) if return_lse else out
     qp = None if q_pos is None else q_pos.data_ptr()
     kp = None if k_pos is None else k_pos.data_ptr()
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -188,7 +242,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"attention ({which}) launch failed: CUDA error "
                            f"{err}")
-    plain = window == 0 and q_pos is None and k_pos is None
     ops.launches["flash_attention" if plain else "attention_masked"] += 1
     ops.route_launches[which] += 1
     return (out, lse) if return_lse else out
@@ -249,6 +302,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "recomputes it: pass lse exactly for bf16")
     dq, dk, dv = _bwd_launch(which, q, k, v, o, do, lse, causal, window,
                              scale)
+    if q.is_meta:
+        B, Sq, H, hd = q.shape
+        Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
+        ops.add_meta_cost("attention_bwd", *attention_bwd_cost(
+            which, q.element_size(), B, Sq, Sk, H, KV, hd, hd_v, causal,
+            window))
+        return dq, dk, dv
     ops.launches["attention_bwd"] += 1
     ops.bwd_route_launches[f"attention_{which}"] += 1
     return dq, dk, dv
@@ -276,11 +336,17 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    if which == "tc":
+        pad = B * H * _cdiv(Sq, _BWD_TC_PAD) * _BWD_TC_PAD
+        scratch = torch.empty(2 * pad, dtype=torch.float32, device=dev)
+    else:
+        lse_s = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse_s)
+    if dev.type == "meta":
+        return dq, dk, dv
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if which == "tc":
-            pad = B * H * _cdiv(Sq, _BWD_TC_PAD) * _BWD_TC_PAD
-            scratch = torch.empty(2 * pad, dtype=torch.float32, device=dev)
             err = load("attention_bwd_tc").repro_attention_bwd_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -288,8 +354,6 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
                 B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
                 float(scale), stream)
         else:
-            lse_s = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-            delta = torch.empty_like(lse_s)
             err = load("attention_bwd").repro_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -12,6 +12,11 @@ Training: ``mamba_scan_train`` runs the scan from zeros through
 into segments that run in parallel (``bwd_plan``);
 ``ref.mamba_scan_bwd_ref`` is its plain version, segments and all.  The
 scan from a state has no backward.
+
+On meta tensors (``ops``: the dry run) ``mamba_scan`` and
+``mamba_scan_bwd`` check the call and allocate its outputs (and the
+backward's scratch), launch nothing, and count the FLOPs and bytes of its
+bound (``scan_cost``) in ``ops.meta_cost``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,29 @@ BWD_CHANNELS = 32  # channels of a block of the backward's passes
 # thread), so hymba's (4, 2048, 3200, 16) runs 8 segments of 256 steps,
 # 3,200 blocks
 BWD_TARGET_BLOCKS = 3200
+# the bound's arithmetic per (t, d, n): FMA-pipe instructions and exps of
+# the forward (dt * A, dt * u * B, the state's FMA, its product with C) and
+# of the backward (a forward recurrence for the states and the reverse
+# walk); an FMA counts as 2 FLOPs, an exp as 1
+SCAN_FMA, SCAN_EXP = 4, 1
+SCAN_BWD_FMA, SCAN_BWD_EXP = 13, 2
+
+
+def scan_cost(esize: int, B: int, S: int, di: int, N: int, state: bool,
+              backward: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of the scan's bound.  Forward: u, dt and y once, Bc
+    and Cc once, A, D and the state(s) once (f32).  Backward: u, dt, dy,
+    du and ddt once, Bc, Cc, dBc and dCc once, A, dA, D and dD once."""
+    elems = B * S * di * N
+    if backward:
+        flops = (2 * SCAN_BWD_FMA + SCAN_BWD_EXP) * elems
+        nbytes = (esize * (5 * B * S * di + 4 * B * S * N)
+                  + 4 * (2 * di * N + 2 * di))
+    else:
+        flops = (2 * SCAN_FMA + SCAN_EXP) * elems
+        nbytes = (esize * (3 * B * S * di + 2 * B * S * N)
+                  + 4 * (di * N + di + B * di * N * (2 if state else 1)))
+    return flops, nbytes
 
 
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -61,6 +89,12 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("the sequence must hold at least one step")
     y = torch.empty((B, S, di), dtype=u.dtype, device=dev)
     last = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        ops.add_meta_cost("mamba_scan" if init_state is None
+                          else "mamba_step",
+                          *scan_cost(u.element_size(), B, S, di, N,
+                                     init_state is not None))
+        return y, last
     fn = load("mamba_scan").repro_mamba_scan
     with torch.cuda.device(dev):
         err = fn(u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
@@ -138,6 +172,10 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dBc, dCc = torch.empty_like(Bc), torch.empty_like(Cc)
     dA = torch.empty((di, N), dtype=torch.float32, device=dev)
     dD = torch.empty((di,), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        ops.add_meta_cost("mamba_scan_bwd", *scan_cost(
+            u.element_size(), B, S, di, N, False, backward=True))
+        return du, ddt, dA, dBc, dCc, dD
     with torch.cuda.device(dev):
         err = load("mamba_scan_bwd").repro_mamba_scan_bwd(
             *(t.data_ptr() for t in (u, dt, A, Bc, Cc, D, dy, du, ddt, dA,

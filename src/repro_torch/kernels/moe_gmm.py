@@ -37,6 +37,12 @@ the shapes alone:
 - ``general`` (``csrc/moe_gmm_bwd.cu``): f32 -- mma.sync in 3xTF32.
 
 ``ref.grouped_matmul_aligned_bwd_ref`` is their plain version.
+
+On meta tensors (``ops``: the dry run) ``grouped_matmul`` and
+``grouped_matmul_bwd`` check the call, choose its route and allocate its
+outputs, launch nothing, and count the FLOPs and bytes of its bound
+(``gmm_cost``) in ``ops.meta_cost``.  The fills lie on the device, so on
+meta every row counts as live: the most the call could need.
 """
 from __future__ import annotations
 
@@ -66,6 +72,21 @@ def route(dtype, C: int, D: int, F: int) -> str:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def gmm_cost(esize: int, G: int, C: int, D: int, F: int, fills: bool,
+             part: str = "fwd") -> tuple[int, int]:
+    """(FLOPs, bytes) of the bound of one grouped product (``part`` "fwd")
+    or of one of its gradients ("dx", "dw"), every row live: 2 C D F FLOPs
+    a group; the forward reads x and w and writes y once, dX reads dy and
+    w and writes dx once, dW reads x and dy and writes dw once; the int32
+    fills once where given."""
+    rows = G * C
+    flops = 2 * rows * D * F
+    nbytes = {"fwd": rows * D + G * D * F + rows * F,
+              "dx": rows * F + G * D * F + rows * D,
+              "dw": rows * (D + F) + G * D * F}[part] * esize
+    return flops, nbytes + (4 * G if fills else 0)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
@@ -101,6 +122,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, capacity: int,
             raise ValueError(f"{G} groups of capacity {C}: over the grid "
                              "limit")
     out = torch.empty((G * C, F), dtype=x.dtype, device=dev)
+    if dev.type == "meta":
+        ops.add_meta_cost("grouped_matmul", *gmm_cost(
+            x.element_size(), G, C, D, F, fills is not None))
+        return out
     fp = None if fills is None else fills.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -157,6 +182,15 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     which = _check_bwd(x, w)
     dx, dw = _bwd_launch(which, x, w, dy, int(capacity), fills, need_dx,
                          need_dw)
+    if x.is_meta:
+        G, D, F = w.shape
+        costs = [gmm_cost(x.element_size(), G, int(capacity), D, F,
+                          fills is not None, part)
+                 for part, need in (("dx", need_dx), ("dw", need_dw))
+                 if need]
+        ops.add_meta_cost("grouped_matmul_bwd", sum(c[0] for c in costs),
+                          sum(c[1] for c in costs))
+        return dx, dw
     ops.launches["grouped_matmul_bwd"] += 1
     ops.bwd_route_launches[f"gmm_{which}"] += 1
     return dx, dw
@@ -182,6 +216,8 @@ def _bwd_launch(which: str, x, w, dy, C: int, fills, need_dx: bool,
                          "x, w and dy")
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
+    if dev.type == "meta":
+        return dx, dw
     ptrs = (x.data_ptr(), w.data_ptr(), dy.data_ptr(),
             None if dx is None else dx.data_ptr(),
             None if dw is None else dw.data_ptr(),

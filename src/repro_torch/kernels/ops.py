@@ -46,6 +46,18 @@ gradient raises (``no_backward``) before its inputs are checked: its
 launcher writes outputs that autograd cannot see, which would silently
 send no gradient into its inputs.  The plain versions are differentiated
 by autograd as they stand.
+
+The meta device (``launch/dryrun.py``): a meta tensor takes the kernel
+path -- its wrapper, and each autograd Function's forward and backward --
+which checks the shapes, allocates on the meta device exactly the outputs,
+saved tensors and scratch that the CUDA launcher would, and launches
+nothing.  Instead of a launch count each such call adds one to
+``meta_calls`` under its counter's name and the FLOPs and bytes of its
+kernel's bound (the formulas of PERF.md's kernel table: ``attention_cost``,
+``scan_cost``, ``gmm_cost`` in the kernels' modules) to ``meta_cost``;
+``reset_meta_cost`` zeroes both.  A meta tensor never reaches a plain
+version, a CUDA tensor never reaches one either, a CPU tensor always does,
+and a tensor on any other device raises.
 """
 from __future__ import annotations
 
@@ -69,6 +81,14 @@ bwd_route_launches: dict[str, int] = {"attention_tc": 0,
                                       "gmm_general": 0}
 
 
+# the dry run's counts of the kernel calls made on meta tensors
+meta_calls: dict[str, int] = {name: 0 for name in (
+    "flash_attention", "attention_masked", "mamba_scan", "mamba_step",
+    "grouped_matmul", "attention_bwd", "mamba_scan_bwd",
+    "grouped_matmul_bwd")}
+meta_cost: dict[str, float] = {"flops": 0.0, "bytes": 0.0}
+
+
 def force(which: str | None) -> None:
     if which not in (None, "cuda", "ref"):
         raise ValueError(f"force({which!r}): expected None, 'cuda' or 'ref'")
@@ -77,9 +97,30 @@ def force(which: str | None) -> None:
 
 
 def use_kernel(t: torch.Tensor) -> bool:
+    """The kernel path for a CUDA or meta tensor, the plain version for a
+    CPU one (``force`` aside); raises for any other device."""
     if _FORCE is not None:
         return _FORCE == "cuda"
-    return t.is_cuda
+    if t.is_cuda or t.is_meta:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version takes a tensor on "
+                     f"{t.device}")
+
+
+def add_meta_cost(name: str, flops: float, nbytes: float) -> None:
+    """Count one kernel call ``name`` made on meta tensors, and its
+    FLOPs and bytes."""
+    meta_calls[name] += 1
+    meta_cost["flops"] += flops
+    meta_cost["bytes"] += nbytes
+
+
+def reset_meta_cost() -> None:
+    for name in meta_calls:
+        meta_calls[name] = 0
+    meta_cost.update(flops=0.0, bytes=0.0)
 
 
 def reset_launches() -> None:
@@ -108,8 +149,9 @@ def no_backward(name: str, *tensors) -> None:
 
 def check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with
-    one of ``dtypes`` and the given shape: what a kernel's launcher takes."""
-    if not t.is_cuda or t.device != device:
+    one of ``dtypes`` and the given shape: what a kernel's launcher takes
+    (or a meta tensor, where ``device`` is the meta device)."""
+    if not (t.is_cuda or t.is_meta) or t.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, "
                          f"got {t.device}")
     if t.dtype not in dtypes:
@@ -128,7 +170,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               k_pos: torch.Tensor | None = None,
               scale: float | None = None) -> torch.Tensor:
     """GQA attention, (B, Sq, H, hd) x (B, Sk, KV, hd[_v]) -> (B, Sq, H,
-    hd_v): the CUDA kernel for a CUDA ``q``, else ``ref.attention_ref``;
+    hd_v): the CUDA kernel for a CUDA (or meta) ``q``, else
+    ``ref.attention_ref``;
     where a gradient is needed, the kernel's autograd Function."""
     if use_kernel(q):
         from . import flash_attention as fa  # imports ops
@@ -143,8 +186,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def mamba_scan(u, dt, A, Bc, Cc, D, init_state=None):
     """Mamba-1 selective scan -> (y, last state): the CUDA kernel for a
-    CUDA ``u``, else ``ref.mamba_scan_ref``; where a gradient is needed
-    (from zeros only), the kernel's autograd Function."""
+    CUDA (or meta) ``u``, else ``ref.mamba_scan_ref``; where a gradient
+    is needed (from zeros only), the kernel's autograd Function."""
     if use_kernel(u):
         from . import mamba_scan as ms  # imports ops
         if needs_grad(u, dt, A, Bc, Cc, D, init_state):
@@ -166,7 +209,8 @@ def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
                            capacity: int,
                            fills: torch.Tensor | None = None) -> torch.Tensor:
     """Block-aligned groups, x (G * capacity, D) x w (G, D, F): the CUDA
-    kernel for a CUDA ``x``, else ``ref.grouped_matmul_aligned_ref``;
+    kernel for a CUDA (or meta) ``x``, else
+    ``ref.grouped_matmul_aligned_ref``;
     where a gradient is needed, the kernel's autograd Function.  ``fills``
     (G,) int32: rows at or past ``fills[g]`` of group g come out as exact
     zeros (and the kernel skips their work)."""

@@ -1,0 +1,266 @@
+"""Dry run of one step on the meta device: does a cell fit one card, and
+what does its step cost?
+
+For each (arch x shape) cell this builds the port's model on the ``meta``
+device (shapes and dtypes, no memory, no numbers) and runs the real step
+on the meta inputs of ``configs.input_specs``: a training step
+(``TrainStep.grads`` then ``update``, the model's ``remat`` as configured),
+``Model.prefill``, or one ``Model.decode_step`` against ``init_cache``.
+While it runs it holds
+
+- ``torch.utils.flop_counter.FlopCounterMode`` for the FLOPs of PyTorch's
+  own operations (the matrix products, the recompute included);
+- ``kernels.ops.meta_cost`` for the hand-written kernels, which on meta
+  tensors allocate their outputs and count the FLOPs and bytes of their
+  bounds instead of launching;
+- ``MetaMemory``, which follows every storage alive on the meta device
+  from the step's arguments on, for the peak, and sums the bytes that
+  each PyTorch operation reads and writes;
+- ``roofline.hlo.CollectiveCounter`` (0 on one card).
+
+and writes the JAX package's cell keys (``cell``, ``status``, ``arch``,
+``shape``, ``mesh``, ``chips``, ``seconds``, ``memory``, ``cost``,
+``collectives``, ``params``, ``active_params``) plus the port's own:
+``leaves`` (the model's parameters, counted), ``state_bytes`` (the
+training state: parameters, f32 master, m and v), ``kernel_calls`` and
+``step_cost`` (``roofline.model`` at dp = tp = 1, for comparison).  The
+predicted peak leaves out the CUDA allocator's rounding and the decode
+kernel's few-kilobyte workspace.
+
+Usage (no card needed):
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
+        --shape train_4k [--all] [--tag T] [--out DIR]
+
+Output: ``<out>/<cell>.json``, ``out`` defaulting to ``dryrun_out/`` at
+the root of the checkout (listed in ``.gitignore``).  One card only:
+``--multi-pod`` and ``--both-meshes`` raise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import (SHAPES, cell_is_applicable, get_config, input_specs,
+                       list_archs)
+from ..configs.shapes import Shape
+from ..kernels import ops
+from ..models.model import Model
+from ..roofline.hlo import CollectiveCounter, summarize_cost
+from ..roofline.model import step_cost
+from ..train.step import batch_to, build_train_step
+
+RESULTS = pathlib.Path(__file__).resolve().parents[3] / "dryrun_out"
+
+
+def _tensors(tree) -> list:
+    """The tensors of a (nested) dict, list or tuple."""
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class MetaMemory(TorchDispatchMode):
+    """The bytes of live meta storage while held, and their peak.
+
+    ``hold(tree)`` counts the storages of the tensors in ``tree`` (a dict,
+    list or tensor) as live from then on, until they die; each operation's
+    outputs whose storage is new count from the operation on, until the
+    storage dies (a finalizer on the storage: the meta device frees
+    nothing else).  ``live`` and ``peak`` are bytes.  ``accessed`` sums,
+    over every operation that is not a view and does not only allocate
+    (``empty``), the bytes of its tensor inputs and outputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self.accessed = 0
+        self._held: dict[int, int] = {}
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._held:
+            return
+        n = st.nbytes()
+        self._held[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key)
+
+    def hold(self, tree) -> int:
+        """Count the storages of ``tree`` as live; returns their bytes."""
+        before = self.live
+        for t in _tensors(tree):
+            self._track(t)
+        return self.live - before
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view and not func.__name__.startswith(
+                ("empty", "new_empty")):
+            self.accessed += sum(_nbytes(t) for t in _tensors(
+                (args, kwargs, out)))
+        for t in _tensors(out):
+            if t.device.type == "meta":
+                self._track(t)
+        return out
+
+
+def _state_bytes(state: dict) -> int:
+    """Bytes of the training state: parameters, f32 master, m and v."""
+    return sum(_nbytes(t) for part in (state["params"],
+                                       state["opt"]["master"],
+                                       state["opt"]["m"], state["opt"]["v"])
+               for t in part.values())
+
+
+def run_cell(arch: str, shape: str | Shape, tag: str = "",
+             overrides: dict | None = None) -> dict:
+    """The dry run of ``arch`` (with ``overrides``, a dict of config
+    fields) at ``shape`` (a name of ``SHAPES`` or a ``Shape``) on one card,
+    the experts (if any) in the model's one-shard round robin: the cell's
+    dict (see the module docstring), or a ``skipped`` one where the cell
+    does not apply."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    if not isinstance(shape, Shape):
+        shape = SHAPES[shape]
+    ok, why = cell_is_applicable(cfg, shape)
+    cell = f"{arch}__{shape.name}__gpu1{tag}"
+    if not ok:
+        return {"cell": cell, "status": "skipped", "reason": why}
+    t0 = time.time()
+    batch = batch_to(input_specs(cfg, shape), "meta")   # ids as int64
+    ops.reset_meta_cost()
+    mem = MetaMemory()
+    flops = FlopCounterMode(display=False)
+    coll = CollectiveCounter()
+    state_bytes = None
+    if shape.kind == "train":
+        ts = build_train_step(cfg, device="meta")
+        state = ts.init_state(0)
+        model = ts.model
+        state_bytes = _state_bytes(state)
+        with flops, mem, coll:
+            arg_bytes = mem.hold((state, batch))
+            params, _ = ts.grads(state, batch)
+            ts.update(state, params)
+            out = None
+    else:
+        model = Model(cfg, device="meta")
+        with torch.no_grad(), flops, mem, coll:
+            if shape.kind == "prefill":
+                arg_bytes = mem.hold((dict(model.named_parameters()), batch))
+                out = model.prefill(batch, shape.seq_len)
+            else:
+                caches = model.init_cache(shape.global_batch, shape.seq_len)
+                arg_bytes = mem.hold((dict(model.named_parameters()), batch,
+                                      caches))
+                out = model.decode_step(batch["tokens"], caches,
+                                        shape.seq_len - 1)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        c = step_cost(cfg, B, 1, S, 1, 1, "decode")
+    else:
+        c = step_cost(cfg, B, S, S, 1, 1, shape.kind)
+    counted = {"flops": float(flops.get_total_flops()
+                              + ops.meta_cost["flops"]),
+               "bytes accessed": float(mem.accessed
+                                       + ops.meta_cost["bytes"]),
+               "bytes accessed kernels": float(ops.meta_cost["bytes"])}
+    leaves = sum(p.numel() for p in model.parameters())
+    result = {
+        "cell": cell,
+        "status": "ok",
+        "arch": arch,
+        "shape": shape.name,
+        "mesh": {"data": 1, "model": 1},
+        "chips": 1,
+        "seconds": round(time.time() - t0, 1),
+        "memory": {
+            "argument_bytes": arg_bytes,
+            "output_bytes": sum(_nbytes(t) for t in _tensors(out)),
+            "temp_bytes": mem.peak - arg_bytes,
+            "peak_bytes": mem.peak,
+        },
+        "cost": summarize_cost(counted),
+        "collectives": coll.result(),
+        "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(),
+        "leaves": leaves,
+        "state_bytes": state_bytes,
+        "kernel_calls": {k: n for k, n in ops.meta_calls.items() if n},
+        "kernel_flops": float(ops.meta_cost["flops"]),
+        "step_cost": {k: float(v) for k, v in c.items()},
+    }
+    return result
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--out", default=str(RESULTS))
+    args = ap.parse_args(argv)
+    if args.multi_pod or args.both_meshes:
+        raise NotImplementedError(
+            f"{'--multi-pod' if args.multi_pod else '--both-meshes'}: "
+            "several cards or pods: ROADMAP Queue 1, \"Distribution\"; "
+            "the dry run covers one card")
+
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    archs = list_archs() if args.all or not args.arch else [args.arch]
+    shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
+
+    failures = 0
+    for arch in archs:
+        for shape in shapes:
+            cell = f"{arch}__{shape}__gpu1{args.tag}"
+            path = out_dir / f"{cell}.json"
+            if args.skip_existing and path.exists():
+                print(f"[dryrun] {cell}: cached", flush=True)
+                continue
+            try:
+                out = run_cell(arch, shape, tag=args.tag)
+            except Exception as e:  # noqa: BLE001 -- recorded per cell
+                out = {"cell": cell, "status": "error",
+                       "error": f"{type(e).__name__}: {e}",
+                       "trace": traceback.format_exc()[-2000:]}
+                failures += 1
+            path.write_text(json.dumps(out, indent=1))
+            status = out["status"]
+            extra = (f" flops={out['cost'].get('flops', 0):.3g}"
+                     f" coll={out['collectives'].get('total_bytes', 0):.3g}B"
+                     f" peak={out['memory']['peak_bytes']}"
+                     if status == "ok" else
+                     out.get("reason", out.get("error", "")))
+            print(f"[dryrun] {cell}: {status} {extra} -> {path}", flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -241,8 +241,10 @@ class Model(nn.Module):
                  *, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         """``generator`` draws every weight, on ``device`` (default: seed 0
-        there); a CUDA ``device`` raises without a CUDA device.  ``plan``
-        places the experts (default: ``round_robin_plan(E, 1)``)."""
+        there); a CUDA ``device`` raises without a CUDA device.  On the
+        meta device (the dry run) the draws allocate nothing and take no
+        generator (the meta device has none).  ``plan`` places the experts
+        (default: ``round_robin_plan(E, 1)``)."""
         super().__init__()
         _check_supported(cfg)
         self.plan = plan
@@ -256,8 +258,9 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.dtype = getattr(torch, cfg.dtype)
-        gen = (generator if generator is not None
-               else torch.Generator(device=dev).manual_seed(0))
+        gen = generator
+        if gen is None and dev.type != "meta":
+            gen = torch.Generator(device=dev).manual_seed(0)
         ini = _Init(cfg, gen, dev, self.dtype)
         D, V = cfg.d_model, cfg.vocab
         self.embed = nn.Parameter(ini.normal((V, D), D), requires_grad=False)

@@ -45,9 +45,11 @@ class TrainStep:
 
     def init_state(self, seed: int = 0) -> dict:
         """A fresh model drawn from ``torch.Generator(device)`` seeded with
-        ``seed``, gradients on, and AdamW's initial state."""
+        ``seed`` (none on the meta device, whose draws make no numbers),
+        gradients on, and AdamW's initial state."""
         self.model = None     # the old weights go before the new are drawn
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (None if self.device.type == "meta"
+               else torch.Generator(device=self.device).manual_seed(seed))
         self.model = Model(self.cfg, device=self.device,
                            generator=gen).requires_grad_(True)
         params = dict(self.model.named_parameters())

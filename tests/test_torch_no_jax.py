@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "core.schedule.replication", "core.schedule.multilevel",
                  "core.frontier.schedule_front", "datagen.dags",
                  "optim.adamw", "data.pipeline", "checkpoint.checkpointer",
-                 "train.step", "runtime.trainer", "launch.train"):
+                 "train.step", "runtime.trainer", "launch.train",
+                 "configs.shapes", "roofline.model", "roofline.hlo",
+                 "core.placement.remat_policy", "launch.dryrun"):
         assert f"repro_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 26          # every module was imported
     assert got["bad"] == [], f"the port pulled in {got['bad']}"
