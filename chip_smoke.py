@@ -300,13 +300,46 @@ failure propagates and the exit code is nonzero:
    tokens (frames) a second and peak beside "full"'s, ``plan_remat``'s
    decision for the card's 80 GB less the state, and the dry run's peak
    under each policy; remat "none" trains only where the dry run
-   predicts a peak under 72 GB (hubert), else the prediction is printed.
+   predicts a peak under 72 GB (hubert), else the prediction is printed;
+18. distribution (``mesh_phase``), each world in processes of its own
+   (``launch.mesh.run_ranks``), the transport an explicit argument that
+   the phase prints.  (a) One rank of a (1, 1) mesh over NCCL: olmoe-1b-7b
+   served as in phase 7 (4 x 2048 prompts, 32 new tokens) without a mesh
+   and through the mesh path, the tokens and the prefill's f32 logits
+   bit-equal; the f32 model at ``MESH_GATE_LAYERS`` layers, logits of the
+   prefill and ``MESH_FORCED`` teacher-forced decode steps bit-equal (and
+   two runs without a mesh bit-equal); three bf16 training steps at those
+   layers, losses bit-equal; every collective over a group of one
+   (counted).  (b) Two ranks of a (1, 2)
+   mesh sharing the card over gloo (NCCL puts no two ranks on one card):
+   olmoe-1b-7b at full width and depth in bf16, the replicated placement
+   planned for two shards from the router trace (each rank plans; the
+   plans must agree) and adopted at ``MESH_SERVE_CF``, prefill on
+   ``moe_a2a`` and decode on ``moe_tp``, every rank's attention and
+   grouped products on the kernels' routes (counted as expected); per
+   rank its weights' bytes, its peak, the all_to_all bytes of a prefill
+   layer, prefill seconds and decode ms a token (gloo's path through the
+   host, not NVLink), the share of tokens equal to the one card's run at
+   the same capacity factor and the largest prefill logit gap as a share
+   of the largest logit; then the f32 model at ``MESH_GATE_LAYERS`` layers
+   under the replicated plan and under the round robin, prefill and
+   decode logits within ``F32_LOGIT_TOL`` of the one card's, each plan's
+   all_to_all bytes a layer (``models.moe.a2a_bytes``, checked against
+   ``CollectiveCounter``) and local fraction: the paper's communication
+   saving on the running system.  (c) Elastic training of the f32 model
+   at ``ELASTIC_LAYERS`` layer (``Trainer``, ``ELASTIC_B`` x
+   ``ELASTIC_S`` tokens, the round robin at ``MESH_TRAIN_CF``, under which
+   no choice is dropped): two ranks of (1, 2) train 4 steps and
+   checkpoint; two ranks of (2, 1) and one of (1, 1) each restore it and
+   train to step 6; both resume at step 4 and every loss is within
+   ``ELASTIC_TOL`` (relative) of an uninterrupted run on one card.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
-phases 6, 7, 11 and 12, summed, for the model kernels.  The
+phases 6, 7, 11 and 12, summed, for the model kernels, and beside them
+each rank's of phase 18b (``mesh_launches_per_rank``).  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, one for hubert's bf16
@@ -1579,8 +1612,8 @@ class RouterLog:
         from repro_torch.models import moe
         self._real = moe.router_topk
 
-        def topk(router_w, x, cfg):
-            w, idx, aux = self._real(router_w, x, cfg)
+        def topk(router_w, x, cfg, axes=()):
+            w, idx, aux = self._real(router_w, x, cfg, axes)
             own = idx
             if self.replay is not None:
                 idx = self.replay.calls[len(self.calls)]
@@ -3954,6 +3987,378 @@ def remat_phase(dry: dict, trained: dict) -> dict:
     return out
 
 
+# phase 18: distribution.  The plans' capacity factors: serving's (both
+# plans of the f32 gate and the bf16 run) leaves the replicated plan's
+# buffers room for every choice in practice; training's, at two shards of
+# olmoe (64 experts, top 8) under the round robin, makes every buffer as
+# large as the most it can receive (cap_send = k T_loc, cap_local = cap_in
+# = T_loc), so the meshes' losses are the one card's
+MESH_SERVE_CF = 8.0
+MESH_TRAIN_CF = 4.0
+MESH_GATE_LAYERS = 2
+MESH_FORCED = 3                  # teacher-forced decode steps of the gates
+# 18c trains one layer: it writes the f32 state three times (the writer's
+# checkpoint and each resume's last), 50 GB at two layers (16.7 GB each),
+# 30 GB at one
+ELASTIC_LAYERS = 1
+ELASTIC_B, ELASTIC_S = 2, 512
+ELASTIC_STEPS = (4, 6)           # the writer's steps, the resumes' end
+ELASTIC_TOL = 1e-4               # tests/test_torch_train.py's three steps
+MESH_TIMEOUT = 900
+# the kernels of phase 18b's path, by kernel-line entry, and their routes
+MESH_KERNELS = {"flash_attention:prefill_tc": "prefill_tc",
+                "flash_attention:decode_split": "decode_split",
+                "grouped_matmul:gmm_tc": "gmm_tc",
+                "grouped_matmul:gmv": "gmv"}
+
+
+def gate_logits(model, prompts, forced, max_len: int):
+    """Prefill logits and those of the teacher-forced decode steps, on the
+    kernels, and the collectives of the prefill
+    (``roofline.hlo.CollectiveCounter``)."""
+    import torch
+    from repro_torch.roofline.hlo import CollectiveCounter
+    S = prompts.shape[1]
+    cc = CollectiveCounter()
+    with torch.inference_mode():
+        with cc:
+            logits, caches = model.prefill({"tokens": prompts}, max_len)
+        out = [logits]
+        for i in range(forced.shape[1]):
+            logits, caches = model.decode_step(forced[:, i:i + 1], caches,
+                                               S + i)
+            out.append(logits)
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), cc.result()
+
+
+def mesh_rank_18a(rank: int, B: int, S: int, G: int) -> dict:
+    """18a, the one rank of a (1, 1) mesh over NCCL: olmoe-1b-7b served
+    (B x S prompts, G new tokens) and three bf16 training steps at
+    MESH_GATE_LAYERS layers, and the f32 model at those layers' logits,
+    each without a mesh and through the mesh path; every collective of the
+    mesh runs goes to a group of one.  The f32 logits without a mesh are
+    taken twice, to show that the path repeats itself bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.hlo import CollectiveCounter
+    from repro_torch.train.step import batch_to, build_train_step
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    cfg = get_config("olmoe-1b-7b")
+    runs: dict = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        cc = CollectiveCounter()
+        with shd.use_mesh(m), cc:
+            r = serve(cfg, B, S, G, device="cuda", seed=0)
+        runs[name] = (r.tokens, r.prefill_logits, cc.result()["counts"])
+        torch.cuda.empty_cache()
+    out = {"serve_tokens_equal": bool(np.array_equal(runs["plain"][0],
+                                                     runs["mesh"][0])),
+           "serve_prefill_equal": bool(np.array_equal(runs["plain"][1],
+                                                      runs["mesh"][1])),
+           "serve_collectives": runs["mesh"][2]}
+    prompts = torch.from_numpy(make_prompts(cfg, B, S)).cuda()
+    forced = torch.from_numpy(runs["plain"][0][:, :MESH_FORCED]).cuda()
+    cfg32 = olmoe_config(MESH_GATE_LAYERS, "float32")
+    lg = {}
+    for name, m in (("plain", None), ("again", None), ("mesh", mesh)):
+        with shd.use_mesh(m):
+            model = make_model(cfg32, device="cuda", seed=0)
+            if m is not None:
+                model.gather_dense_()
+                model.place_slots_(model.plan)
+            lg[name] = gate_logits(model, prompts, forced,
+                                   S + MESH_FORCED + 1)[0]
+        del model
+        torch.cuda.empty_cache()
+    out["f32_equal"] = bool(torch.equal(lg["plain"], lg["mesh"]))
+    out["f32_repeats"] = bool(torch.equal(lg["plain"], lg["again"]))
+    cfg16 = olmoe_config(MESH_GATE_LAYERS)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3)
+    losses = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        ts = build_train_step(cfg16, opt, mesh=m, device="cuda")
+        state = ts.init_state(0)
+        stream = SyntheticTokenStream(cfg16, DataConfig(TRAIN_B, TRAIN_S))
+        cc = CollectiveCounter()
+        with cc:
+            losses[name] = [float(ts.step_fn(state, ts.local_batch(batch_to(
+                stream.next_batch(), "cuda")))[1]["loss"]) for _ in range(3)]
+        if m is not None:
+            out["train_collectives"] = cc.result()["counts"]
+        del ts, state
+        torch.cuda.empty_cache()
+    out["losses"] = losses["mesh"]
+    out["losses_equal"] = losses["plain"] == losses["mesh"]
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_rank_18b(rank: int, B: int, S: int, G: int, ref: dict) -> dict:
+    """18b, one of two ranks of a (1, 2) mesh sharing the card over gloo:
+    olmoe-1b-7b at full width and depth in bf16, the replicated placement
+    planned for two shards from the router trace and adopted (prefill on
+    ``moe_a2a``, decode on ``moe_tp``); then the f32 model at
+    MESH_GATE_LAYERS layers under the replicated plan and under the round
+    robin against the one card's logits (``ref``), with the all_to_all
+    bytes of each plan's prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+    cfg = get_config("olmoe-1b-7b")
+    torch.cuda.reset_peak_memory_stats()
+    with shd.use_mesh(mesh):
+        r = serve(cfg, B, S, G, device="cuda", seed=0,
+                  placement="replicated", capacity_factor=MESH_SERVE_CF)
+    out = {"peak_B": torch.cuda.max_memory_allocated(),
+           "weight_B": r.weight_bytes, "prefill_s": r.prefill_s,
+           "ms_per_token": r.ms_per_token, "launches": r.launches,
+           "attn_routes": dict(ops.route_launches),
+           "gmm_routes": dict(ops.gmm_route_launches),
+           "a2a_B_per_layer": r.a2a_bytes,
+           "placement_s": r.placement["seconds"],
+           "local_fraction": r.placement["local_fraction_repl"],
+           "slot_experts": r.placement["plan"].slot_expert,
+           "tokens_equal_share": float((r.tokens == ref["tokens"]).mean()),
+           "bf16_logit_gap": float(np.abs(r.prefill_logits
+                                          - ref["logits"]).max()
+                                   / np.abs(ref["logits"]).max())}
+    torch.cuda.empty_cache()
+    cfg32 = olmoe_config(MESH_GATE_LAYERS, "float32")
+    prompts = torch.from_numpy(make_prompts(cfg, B, S)).cuda()
+    forced = torch.from_numpy(ref["tokens"][:, :MESH_FORCED]).cuda()
+    want = torch.from_numpy(ref["f32"]).cuda()
+    plans = {"replicated": dataclasses.replace(
+        r.placement["plan"], capacity_factor=MESH_SERVE_CF),
+        "round_robin": moe.round_robin_plan(cfg.n_experts, 2,
+                                            MESH_SERVE_CF)}
+    T_loc = B * S // 2
+    for name, plan in plans.items():
+        with shd.use_mesh(mesh):
+            model = make_model(cfg32, device="cuda", seed=0)
+            model.gather_dense_()
+            model.place_slots_(plan)
+            lg, coll = gate_logits(model, prompts, forced,
+                                   S + MESH_FORCED + 1)
+        del model
+        torch.cuda.empty_cache()
+        gap, scale = (float((lg - want).abs().max()),
+                      float(want.abs().max()))
+        a2a = moe.a2a_bytes(plan, T_loc, cfg.top_k, cfg.d_model, 4)
+        # gloo's CUDA all-gathers (the MoE output along the sequence) run
+        # as all_to_alls: then the counter's all-to-all bytes hold them too
+        gathered = (0 if coll["counts"]["all-gather"]
+                    else B * S * cfg.d_model * 4)
+        counted = coll["per_kind_bytes"]["all-to-all"] / MESH_GATE_LAYERS
+        out[name] = {"f32_gap": gap / scale, "f32_ok": gap <= F32_LOGIT_TOL
+                     * scale, "local_fraction": plan.local_fraction,
+                     "a2a_B_per_layer": a2a,
+                     "a2a_counted_B_per_layer": counted,
+                     "a2a_counted_ok": counted == a2a["sent"]
+                     + a2a["returned"] + gathered,
+                     "collectives": coll["counts"]}
+    return out
+
+
+def elastic_rank(rank: int, shape: tuple, steps: int, ckpt_dir: str
+                 ) -> dict:
+    """18c: one rank of a ``shape`` mesh training the f32 olmoe-1b-7b at
+    ELASTIC_LAYERS layers (``Trainer``: restored from ``ckpt_dir``'s
+    latest checkpoint, if any, and checkpointing at step 4 and at its
+    end)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    mesh = make_mesh(shape, ("data", "model"), device="cuda")
+    tr = Trainer(olmoe_config(ELASTIC_LAYERS, "float32"),
+                 DataConfig(ELASTIC_B, ELASTIC_S),
+                 TrainerConfig(steps=steps, ckpt_every=ELASTIC_STEPS[0],
+                               ckpt_dir=ckpt_dir, keep=1, log_every=100),
+                 AdamWConfig(lr=3e-4, warmup_steps=1,
+                             total_steps=ELASTIC_STEPS[1]),
+                 device="cuda", mesh=mesh, capacity_factor=MESH_TRAIN_CF)
+    t0 = time.perf_counter()
+    _, hist = tr.run()
+    return {"hist": [(h["step"], h["loss"], h["seconds"]) for h in hist],
+            "s": time.perf_counter() - t0,
+            "peak_B": torch.cuda.max_memory_allocated()}
+
+
+def elastic_reference() -> list:
+    """18c's uninterrupted run: ELASTIC_STEPS[1] steps on one card without
+    a mesh, the Trainer's batches and state."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    cfg = olmoe_config(ELASTIC_LAYERS, "float32")
+    ts = build_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                           total_steps=ELASTIC_STEPS[1]),
+                          plan=moe.round_robin_plan(cfg.n_experts, 1,
+                                                    MESH_TRAIN_CF),
+                          device="cuda")
+    state = ts.init_state(0)
+    stream = SyntheticTokenStream(cfg, DataConfig(ELASTIC_B, ELASTIC_S))
+    losses = []
+    for _ in range(ELASTIC_STEPS[1]):
+        state, m = ts.step_fn(state, batch_to(stream.next_batch(), "cuda"))
+        losses.append(float(m["loss"]))
+    del ts, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def mesh_phase(B: int, S: int, G: int) -> dict:
+    """Phase 18: 18a, 18b and 18c (see the module docstring), each world
+    in processes of its own (``launch.mesh.run_ranks``), at phase 7's
+    serve run (B prompts of S tokens, G new each)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    from repro_torch.models import moe
+    out: dict = {"transport": {"18a": "nccl", "18b": "gloo",
+                               "18c": "gloo (one rank: nccl)"}}
+    torch.cuda.empty_cache()
+    # 18a
+    t = time.perf_counter()
+    (a,) = run_ranks(mesh_rank_18a, 1, B, S, G, backend="nccl",
+                     device="cuda", timeout=MESH_TIMEOUT)
+    log(f"[18a] one rank, mesh (1, 1) over nccl: serve {B} x {S} + {G}: "
+        f"tokens equal {a['serve_tokens_equal']}, prefill logits bit-equal "
+        f"{a['serve_prefill_equal']}; f32 at {MESH_GATE_LAYERS} layers, "
+        f"prefill + {MESH_FORCED} decode steps: logits bit-equal "
+        f"{a['f32_equal']} (the path without a mesh repeats itself "
+        f"{a['f32_repeats']}); 3 bf16 training steps: losses "
+        f"{a['losses']} bit-equal {a['losses_equal']}; collectives (each "
+        f"over a group of one): serve {a['serve_collectives']}, train "
+        f"{a['train_collectives']}; {time.perf_counter() - t:.1f} s")
+    if not (a["serve_tokens_equal"] and a["serve_prefill_equal"]
+            and a["f32_equal"] and a["f32_repeats"] and a["losses_equal"]):
+        raise AssertionError(f"18a: the (1, 1) mesh path is not the "
+                             f"one-device path: {a}")
+    out["a"] = {k: v for k, v in a.items()}
+    # the one card's run at MESH_SERVE_CF (18b's bf16 reference) and its
+    # f32 logits at MESH_GATE_LAYERS layers
+    cfg = get_config("olmoe-1b-7b")
+    one = serve(cfg, B, S, G, device="cuda", seed=0,
+                capacity_factor=MESH_SERVE_CF)
+    torch.cuda.empty_cache()
+    cfg32 = olmoe_config(MESH_GATE_LAYERS, "float32")
+    model = make_model(cfg32, device="cuda", seed=0)
+    model.plan = moe.round_robin_plan(cfg.n_experts, 1, MESH_SERVE_CF)
+    prompts = torch.from_numpy(make_prompts(cfg, B, S)).cuda()
+    forced = torch.from_numpy(one.tokens[:, :MESH_FORCED]).cuda()
+    ref32 = gate_logits(model, prompts, forced,
+                        S + MESH_FORCED + 1)[0].cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    # 18b
+    t = time.perf_counter()
+    ref = {"tokens": one.tokens, "logits": one.prefill_logits, "f32": ref32}
+    ranks = run_ranks(mesh_rank_18b, 2, B, S, G, ref, backend="gloo",
+                      device="cuda", timeout=MESH_TIMEOUT)
+    if ranks[0]["slot_experts"] != ranks[1]["slot_experts"]:
+        raise AssertionError("18b: the ranks planned different placements")
+    n_moe = sum(sg.n_layers for sg in cfg.segments if sg.kind == "moe")
+    want_gmm = {"gmm_tc": 2 * 3 * n_moe, "gmv": 3 * n_moe * (G - 1),
+                "general": 0}
+    want_attn = {"prefill_tc": n_moe, "decode_split": n_moe * (G - 1),
+                 "general": 0}
+    for i, rk in enumerate(ranks):
+        log(f"[18b] rank {i} of (1, 2) over gloo, two ranks on one card: "
+            f"weights {rk['weight_B']} B, peak {rk['peak_B']} B, placement "
+            f"{rk['placement_s']:.2f} s (local fraction "
+            f"{rk['local_fraction']:.4f}), prefill {rk['prefill_s']:.3f} s, "
+            f"decode {rk['ms_per_token']:.2f} ms/token (gloo through the "
+            f"host, not NVLink); grouped matmul {rk['gmm_routes']}, "
+            f"attention {rk['attn_routes']}; all_to_all a prefill layer "
+            f"{rk['a2a_B_per_layer']}; tokens equal to one card's "
+            f"{rk['tokens_equal_share']:.4f}, prefill logit gap "
+            f"{rk['bf16_logit_gap']:.4g} of the largest")
+        for name in ("replicated", "round_robin"):
+            g = rk[name]
+            log(f"[18b] rank {i} f32 {name}: gap {g['f32_gap']:.3g} of the "
+                f"largest logit, local fraction {g['local_fraction']:.4f}, "
+                f"all_to_all a layer {g['a2a_B_per_layer']} (counted "
+                f"{g['a2a_counted_B_per_layer']:.0f} with the gathers: "
+                f"{g['a2a_counted_ok']}), collectives {g['collectives']}")
+            if not (g["f32_ok"] and g["a2a_counted_ok"]):
+                raise AssertionError(f"18b rank {i} {name}: {g}")
+        if rk["gmm_routes"] != want_gmm or rk["attn_routes"] != want_attn:
+            raise AssertionError(f"18b rank {i}: routes {rk['gmm_routes']}"
+                                 f" {rk['attn_routes']}, expected "
+                                 f"{want_gmm} {want_attn}")
+    log(f"[18b] took {time.perf_counter() - t:.1f} s")
+    out["b"] = [{k: v for k, v in rk.items() if k != "slot_experts"}
+                for rk in ranks]
+    # 18c: the writer's world beside the uninterrupted run, then both
+    # resumes at once (each world spends its first step's ≈ 12 s warming
+    # up, and each resume writes its last checkpoint)
+    t = time.perf_counter()
+    base = ROOT / "build" / "smoke_elastic"
+    shutil.rmtree(base, ignore_errors=True)
+    write = base / "write"
+    step4 = f"step_{ELASTIC_STEPS[0]:08d}"
+
+    def resume(shape):
+        d = base / f"resume_{shape[0]}x{shape[1]}"
+        d.mkdir(parents=True)
+        (d / step4).symlink_to(write / step4)    # the writer's checkpoint
+        return run_ranks(
+            elastic_rank, shape[0] * shape[1], shape, ELASTIC_STEPS[1],
+            str(d), backend="gloo" if shape[0] * shape[1] > 1 else "nccl",
+            device="cuda", timeout=MESH_TIMEOUT)
+
+    with ThreadPoolExecutor(2) as pool:
+        wf = pool.submit(run_ranks, elastic_rank, 2, (1, 2),
+                         ELASTIC_STEPS[0], str(write), backend="gloo",
+                         device="cuda", timeout=MESH_TIMEOUT)
+        whole = elastic_reference()
+        w = wf.result()
+        futures = {shape: pool.submit(resume, shape)
+                   for shape in ((2, 1), (1, 1))}
+        resumes = {shape: f.result() for shape, f in futures.items()}
+    shutil.rmtree(base, ignore_errors=True)
+    want_steps = list(range(ELASTIC_STEPS[0], ELASTIC_STEPS[1]))
+    for label, runs, steps in ((("1, 2", w, list(range(ELASTIC_STEPS[0]))),)
+                               + tuple((f"{s[0]}, {s[1]}", r, want_steps)
+                                       for s, r in resumes.items())):
+        for i, rk in enumerate(runs):
+            got = [h[0] for h in rk["hist"]]
+            losses = [h[1] for h in rk["hist"]]
+            wanted = [whole[s] for s in steps]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(losses, wanted))
+            log(f"[18c] ({label}) rank {i}: steps {got}, losses {losses} "
+                f"(uninterrupted {wanted}, largest relative gap {rel:.3g}),"
+                f" {rk['s']:.1f} s, peak {rk['peak_B']} B")
+            if got != steps or not rel <= ELASTIC_TOL:
+                raise AssertionError(f"18c ({label}) rank {i}: steps {got},"
+                                     f" losses {losses} vs {wanted}")
+    log(f"[18c] took {time.perf_counter() - t:.1f} s")
+    out["c"] = {"uninterrupted": whole, "write": [rk["hist"] for rk in w],
+                **{f"resume_{s[0]}x{s[1]}": [rk["hist"] for rk in r]
+                   for s, r in resumes.items()},
+                "s": time.perf_counter() - t}
+    return out
+
+
 def main() -> int:
     """Check for a card and a checkout, and run the phases (``phases``)
     beside a spawned process for phase 17's dry runs, stopped at the
@@ -3973,7 +4378,7 @@ def main() -> int:
 
 
 def phases(dry_pool) -> int:
-    """Phases 1-17 (see the module docstring); phase 17's dry runs
+    """Phases 1-18 (see the module docstring); phase 17's dry runs
     (``dryrun_cells``) run in ``dry_pool`` from the end of the build
     on."""
     import torch
@@ -4562,6 +4967,14 @@ def phases(dry_pool) -> int:
     log(f"[17] phase 17 took {p17['s']:.2f} s")
     summary["p17"] = p17
 
+    # ---------------------------------------------- 18. distribution
+    t18 = time.perf_counter()
+    p18 = mesh_phase(B7, S7, G7)
+    p18["s"] = sig(time.perf_counter() - t18)
+    log(f"[18] phase 18 took {p18['s']:.2f} s")
+    summary["p18"] = {"a": p18["a"], "b": p18["b"], "s": p18["s"],
+                      "c": {k: v for k, v in p18["c"].items()}}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -4877,6 +5290,19 @@ def phases(dry_pool) -> int:
                                       for p in (p13, p14, p15))
         if k["name"] == "grouped_matmul:gmm_tc":
             k["train_launches"] = p14["launches"]["grouped_matmul"]
+    # the distribution path's launches, per rank of phase 18b (each of its
+    # kernels launched on both ranks)
+    for k in kernels:
+        route = MESH_KERNELS.get(k["name"])
+        if route is None:
+            continue
+        table = "gmm_routes" if route in GMM_PATH else "attn_routes"
+        k["mesh_launches_per_rank"] = [rk[table][route] for rk in p18["b"]]
+        k["mesh_launches_from"] = ("phase 18b, olmoe-1b-7b served by two "
+                                   "ranks of a (1, 2) mesh")
+        if min(k["mesh_launches_per_rank"]) < 1:
+            raise AssertionError(f"18b: {k['name']} was not launched on "
+                                 f"every rank: {k['mesh_launches_per_rank']}")
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -17,6 +17,12 @@ optimizer updates the state in place, so a writer thread that read the
 device tensors later would save a later step -- and writes the files on a
 worker thread.  ``restore`` loads onto the device and dtype of each leaf
 of a tree of the same structure.
+
+Under a mesh the layout stays the same, one full tensor per leaf: given
+the state's tree of ``parallel.sharding.Sharding`` (``shardings``), every
+rank gathers each leaf whole and rank 0 writes it; ``restore`` cuts each
+full leaf to this rank's block under the shardings it is given, which may
+be another mesh's (an elastic restart).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _leaf_name(path: str) -> str:
@@ -104,17 +111,36 @@ class Checkpointer:
         self._gc()
         return final
 
-    def save(self, step: int, tree, extra: dict | None = None
-             ) -> pathlib.Path:
-        self.wait()
-        return self._write(step, [(n, _to_host(t)) for n, t in
-                                  _flatten(tree)], extra)
+    @staticmethod
+    def _host_leaves(tree, shardings) -> list | None:
+        """[(path, host copy of the full leaf)], or None on a rank that
+        does not write (every rank takes part in the gathers)."""
+        if shardings is None:
+            return [(n, _to_host(t)) for n, t in _flatten(tree)]
+        by_path = dict(_flatten(shardings))
+        out = []
+        for n, t in _flatten(tree):
+            sh = by_path[n]
+            full = t if sh is None else sh.full(t.detach())
+            out.append((n, _to_host(full)))
+        return out if dist.get_rank() == 0 else None
 
-    def save_async(self, step: int, tree, extra: dict | None = None) -> None:
-        """Copy every leaf to the host now, write the files on a worker
-        thread (``wait`` joins it)."""
+    def save(self, step: int, tree, extra: dict | None = None,
+             shardings=None) -> pathlib.Path | None:
+        """Write step ``step`` (under a mesh: rank 0, the leaves gathered
+        by ``shardings``, a tree like ``tree``)."""
         self.wait()
-        host = [(n, _to_host(t)) for n, t in _flatten(tree)]
+        host = self._host_leaves(tree, shardings)
+        return None if host is None else self._write(step, host, extra)
+
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   shardings=None) -> None:
+        """Copy every leaf to the host now (gathered, under a mesh), write
+        the files on a worker thread (``wait`` joins it)."""
+        self.wait()
+        host = self._host_leaves(tree, shardings)
+        if host is None:
+            return
         self._async_thread = threading.Thread(
             target=self._write, args=(step, host, extra), daemon=True)
         self._async_thread.start()
@@ -130,17 +156,22 @@ class Checkpointer:
                        if not p.name.endswith(".tmp"))
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """Load step ``step`` into the structure of ``like`` (a tree of
-        tensors), each leaf on its ``like`` leaf's device and dtype;
-        returns (tree, extra)."""
+        tensors), each leaf on its ``like`` leaf's device and dtype, cut to
+        this rank's block where ``shardings`` (a tree like ``like``) has
+        one; returns (tree, extra)."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
+        shs = dict(_flatten(shardings)) if shardings is not None else {}
         out = []
         for name, ref in _flatten(like):
             meta = by_path[name]
             t = _from_numpy(np.load(d / meta["file"]), meta["dtype"])
+            sh = shs.get(name)
+            if sh is not None:
+                t = sh.local(t)
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)}"
                                  f" != {tuple(ref.shape)}")

@@ -36,7 +36,8 @@
 //  * softmax: one warp per row updates the running max m and sum l (f32)
 //    and turns the scores into weights;
 //  * PV: a thread owns one 16-byte piece of hdv for a slot of keys and
-//    accumulates f32 for all rows; slots meet in shared memory at the end.
+//    accumulates f32 for all rows; slots meet in shared memory at the end,
+//    the warps adding theirs in a fixed order.
 // Each block writes its f32 partials (m, l, acc[hdv]) per row to a
 // workspace the wrapper allocates; a second launch from the same entry
 // point combines them (log-sum-exp weights, denominator clamped at 1e-30),
@@ -314,15 +315,19 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
       for (int e = 0; e < VEC; ++e)
         acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
   }
-  if (lane < Lv) {
+  // the warps add theirs in warp order, not by atomics: a fixed order of
+  // f32 sums, so that a call repeats bit for bit
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w && lane < Lv) {
 #pragma unroll
-    for (int r = 0; r < RQ; ++r)
-      if (r < R)
+      for (int r = 0; r < RQ; ++r)
+        if (r < R)
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          atomicAdd(&red[r * a.hdv + dv * VEC + e], acc[r][e]);
+          for (int e = 0; e < VEC; ++e)
+            red[r * a.hdv + dv * VEC + e] += acc[r][e];
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const size_t part = (static_cast<size_t>(b) * a.KV + kv) * a.splits + split;
   for (int i = tid; i < R * a.hdv; i += kThreads)

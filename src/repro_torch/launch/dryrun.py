@@ -16,7 +16,8 @@ While it runs it holds
 - ``MetaMemory``, which follows every storage alive on the meta device
   from the step's arguments on, for the peak, and sums the bytes that
   each PyTorch operation reads and writes;
-- ``roofline.hlo.CollectiveCounter`` (0 on one card).
+- ``roofline.hlo.CollectiveCounter`` (0 on one card), the collective
+  bytes by kind.
 
 and writes the JAX package's cell keys (``cell``, ``status``, ``arch``,
 ``shape``, ``mesh``, ``chips``, ``seconds``, ``memory``, ``cost``,
@@ -32,8 +33,18 @@ Usage (no card needed):
         --shape train_4k [--all] [--tag T] [--out DIR]
 
 Output: ``<out>/<cell>.json``, ``out`` defaulting to ``dryrun_out/`` at
-the root of the checkout (listed in ``.gitignore``).  One card only:
-``--multi-pod`` and ``--both-meshes`` raise.
+the root of the checkout (listed in ``.gitignore``).
+
+``--multi-pod`` prices a cell as rank 0 of the (2, 16, 16) production
+mesh, ``--both-meshes`` of (16, 16) and of (2, 16, 16) (cells
+``...__gpu256``, ``...__gpu512``): the process is rank 0 of a fake
+process group of that size (``torch.testing``'s ``FakeStore``, backend
+``"fake"``), the model holds rank 0's blocks on the meta device, the batch
+is rank 0's rows (a cell whose batch does not split over the data axes is
+skipped), serving holds its dense leaves whole and its experts in the
+round robin over the model axis, and ``MetaCollectives`` answers the
+collectives with meta tensors of their results' shapes.  Parameters,
+state bytes, the peak, FLOPs and collective bytes are rank 0's.
 """
 from __future__ import annotations
 
@@ -55,6 +66,8 @@ from ..configs import (SHAPES, cell_is_applicable, get_config, input_specs,
 from ..configs.shapes import Shape
 from ..kernels import ops
 from ..models.model import Model
+from ..launch.mesh import make_production_mesh
+from ..parallel import sharding as shd
 from ..roofline.hlo import CollectiveCounter, summarize_cost
 from ..roofline.model import step_cost
 from ..train.step import batch_to, build_train_step
@@ -123,6 +136,43 @@ class MetaMemory(TorchDispatchMode):
         return out
 
 
+class MetaCollectives(TorchDispatchMode):
+    """The functional collectives on meta tensors: a meta tensor of each
+    result's shape (a fake process group moves nothing)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace != "_c10d_functional" or not args[0].is_meta:
+            return func(*args, **kwargs)
+        x, name = args[0], func._opname
+        rest = tuple(x.shape[1:])
+        if name == "wait_tensor":
+            return x
+        if name == "all_reduce":
+            return torch.empty_like(x)
+        if name == "all_gather_into_tensor":
+            return x.new_empty((x.shape[0] * args[1],) + rest)
+        if name == "reduce_scatter_tensor":
+            return x.new_empty((x.shape[0] // args[2],) + rest)
+        if name == "all_to_all_single":
+            return x.new_empty((sum(args[1]),) + rest)
+        raise NotImplementedError(f"{func} on meta tensors")
+
+
+def production_mesh(multi_pod: bool):
+    """Rank 0 of the (16, 16) or (2, 16, 16) production mesh over a fake
+    process group (started here once per size; ``main`` ends it)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = 512 if multi_pod else 256
+    if dist.is_initialized() and dist.get_world_size() != n:
+        dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return make_production_mesh(multi_pod=multi_pod, device="cpu")
+
+
 def _state_bytes(state: dict) -> int:
     """Bytes of the training state: parameters, f32 master, m and v."""
     return sum(_nbytes(t) for part in (state["params"],
@@ -132,30 +182,45 @@ def _state_bytes(state: dict) -> int:
 
 
 def run_cell(arch: str, shape: str | Shape, tag: str = "",
-             overrides: dict | None = None) -> dict:
+             overrides: dict | None = None, mesh=None) -> dict:
     """The dry run of ``arch`` (with ``overrides``, a dict of config
     fields) at ``shape`` (a name of ``SHAPES`` or a ``Shape``) on one card,
-    the experts (if any) in the model's one-shard round robin: the cell's
-    dict (see the module docstring), or a ``skipped`` one where the cell
-    does not apply."""
+    the experts (if any) in the model's one-shard round robin, or as rank
+    0 of ``mesh`` (``production_mesh``): the cell's dict (see the module
+    docstring), or a ``skipped`` one where the cell does not apply."""
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.with_(**overrides)
     if not isinstance(shape, Shape):
         shape = SHAPES[shape]
     ok, why = cell_is_applicable(cfg, shape)
-    cell = f"{arch}__{shape.name}__gpu1{tag}"
+    chips = 1 if mesh is None else mesh.size()
+    cell = f"{arch}__{shape.name}__gpu{chips}{tag}"
+    sizes = {"data": 1, "model": 1} if mesh is None else shd.axis_sizes(mesh)
+    dp = chips // sizes["model"]
+    if ok and shape.global_batch % dp:
+        ok, why = False, (f"a batch of {shape.global_batch} does not split "
+                          f"over {dp} data ranks")
     if not ok:
         return {"cell": cell, "status": "skipped", "reason": why}
+    with shd.use_mesh(mesh), MetaCollectives():
+        return _run_cell(cfg, arch, shape, cell, mesh, sizes, dp)
+
+
+def _run_cell(cfg, arch: str, shape: Shape, cell: str, mesh, sizes: dict,
+              dp: int) -> dict:
     t0 = time.time()
     batch = batch_to(input_specs(cfg, shape), "meta")   # ids as int64
+    if mesh is not None:     # rank 0's rows
+        rows = shd.Sharding(mesh, (shd.batch_entry(),))
+        batch = {k: rows.local(v) for k, v in batch.items()}
     ops.reset_meta_cost()
     mem = MetaMemory()
     flops = FlopCounterMode(display=False)
     coll = CollectiveCounter()
     state_bytes = None
     if shape.kind == "train":
-        ts = build_train_step(cfg, device="meta")
+        ts = build_train_step(cfg, device="meta", mesh=mesh)
         state = ts.init_state(0)
         model = ts.model
         state_bytes = _state_bytes(state)
@@ -165,22 +230,27 @@ def run_cell(arch: str, shape: str | Shape, tag: str = "",
             ts.update(state, params)
             out = None
     else:
-        model = Model(cfg, device="meta")
+        model = Model(cfg, n_ep_shards=sizes["model"], device="meta")
+        if mesh is not None:      # as launch.serve holds them
+            model.gather_dense_()
+            if model.plan is not None:
+                model.place_slots_(model.plan)
         with torch.no_grad(), flops, mem, coll:
             if shape.kind == "prefill":
                 arg_bytes = mem.hold((dict(model.named_parameters()), batch))
                 out = model.prefill(batch, shape.seq_len)
             else:
-                caches = model.init_cache(shape.global_batch, shape.seq_len)
+                caches = model.init_cache(batch["tokens"].shape[0],
+                                         shape.seq_len)
                 arg_bytes = mem.hold((dict(model.named_parameters()), batch,
                                       caches))
                 out = model.decode_step(batch["tokens"], caches,
                                         shape.seq_len - 1)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
-        c = step_cost(cfg, B, 1, S, 1, 1, "decode")
+        c = step_cost(cfg, B, 1, S, dp, sizes["model"], "decode")
     else:
-        c = step_cost(cfg, B, S, S, 1, 1, shape.kind)
+        c = step_cost(cfg, B, S, S, dp, sizes["model"], shape.kind)
     counted = {"flops": float(flops.get_total_flops()
                               + ops.meta_cost["flops"]),
                "bytes accessed": float(mem.accessed
@@ -192,8 +262,8 @@ def run_cell(arch: str, shape: str | Shape, tag: str = "",
         "status": "ok",
         "arch": arch,
         "shape": shape.name,
-        "mesh": {"data": 1, "model": 1},
-        "chips": 1,
+        "mesh": sizes,
+        "chips": dp * sizes["model"],
         "seconds": round(time.time() - t0, 1),
         "memory": {
             "argument_bytes": arg_bytes,
@@ -225,40 +295,48 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--out", default=str(RESULTS))
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        raise NotImplementedError(
-            f"{'--multi-pod' if args.multi_pod else '--both-meshes'}: "
-            "several cards or pods: ROADMAP Queue 1, \"Distribution\"; "
-            "the dry run covers one card")
+    pods = ([False, True] if args.both_meshes else [True] if args.multi_pod
+            else [None])
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = list_archs() if args.all or not args.arch else [args.arch]
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
 
+    try:
+        return _cells(args, pods, archs, shapes, out_dir)
+    finally:
+        import torch.distributed as dist
+        if pods != [None] and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _cells(args, pods, archs, shapes, out_dir) -> int:
     failures = 0
-    for arch in archs:
-        for shape in shapes:
-            cell = f"{arch}__{shape}__gpu1{args.tag}"
-            path = out_dir / f"{cell}.json"
-            if args.skip_existing and path.exists():
-                print(f"[dryrun] {cell}: cached", flush=True)
-                continue
-            try:
-                out = run_cell(arch, shape, tag=args.tag)
-            except Exception as e:  # noqa: BLE001 -- recorded per cell
-                out = {"cell": cell, "status": "error",
-                       "error": f"{type(e).__name__}: {e}",
-                       "trace": traceback.format_exc()[-2000:]}
-                failures += 1
-            path.write_text(json.dumps(out, indent=1))
-            status = out["status"]
-            extra = (f" flops={out['cost'].get('flops', 0):.3g}"
-                     f" coll={out['collectives'].get('total_bytes', 0):.3g}B"
-                     f" peak={out['memory']['peak_bytes']}"
-                     if status == "ok" else
-                     out.get("reason", out.get("error", "")))
-            print(f"[dryrun] {cell}: {status} {extra} -> {path}", flush=True)
+    for multi_pod, arch, shape in ((p, a, s) for p in pods for a in archs
+                                   for s in shapes):
+        mesh = None if multi_pod is None else production_mesh(multi_pod)
+        chips = 1 if mesh is None else mesh.size()
+        cell = f"{arch}__{shape}__gpu{chips}{args.tag}"
+        path = out_dir / f"{cell}.json"
+        if args.skip_existing and path.exists():
+            print(f"[dryrun] {cell}: cached", flush=True)
+            continue
+        try:
+            out = run_cell(arch, shape, tag=args.tag, mesh=mesh)
+        except Exception as e:  # noqa: BLE001 -- recorded per cell
+            out = {"cell": cell, "status": "error",
+                   "error": f"{type(e).__name__}: {e}",
+                   "trace": traceback.format_exc()[-2000:]}
+            failures += 1
+        path.write_text(json.dumps(out, indent=1))
+        status = out["status"]
+        extra = (f" flops={out['cost'].get('flops', 0):.3g}"
+                 f" coll={out['collectives'].get('total_bytes', 0):.3g}B"
+                 f" peak={out['memory']['peak_bytes']}"
+                 if status == "ok" else
+                 out.get("reason", out.get("error", "")))
+        print(f"[dryrun] {cell}: {status} {extra} -> {path}", flush=True)
     return 1 if failures else 0
 
 

@@ -1,11 +1,12 @@
-"""Batched serving launcher: one prefill, then greedy decode, on one device.
+"""Batched serving launcher: one prefill, then greedy decode, on one device
+or over a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --requests 4 --prompt-len 2048 --gen 32 [--reduced --layers N] \\
-        [--device cpu] [--replicated-placement | --online-placement \\
-        --epochs E]
+        [--device cpu] [--mesh DxM [--backend gloo|nccl]] \\
+        [--replicated-placement | --online-placement --epochs E]
 
-The twin of the JAX package's ``launch/serve.py`` on a one-device mesh.
+The twin of the JAX package's ``launch/serve.py``.
 Weights come from a seeded ``torch.Generator`` and prompts from a seeded
 numpy generator, as the JAX launcher serves from seeded random init; a
 vision model (``llama-3.2-vision-11b``) also gets the launcher's stub
@@ -15,16 +16,24 @@ image embeddings, drawn from the same generator right after the prompts
 ``decode_step``s, one host read per token -- and returns the tokens, the
 timings and the kernel launch counts of the run.
 
+Under a mesh (``--mesh DxM``: D data ranks by M model ranks, spawned one
+process each; or ``serve`` under ``parallel.sharding.use_mesh``) each data
+rank serves its rows of the requests, the model axis holds the experts
+(``n_shards`` = M): the model gathers its dense leaves once and keeps its
+slot weights (``Model.gather_dense_``, ``place_slots_``).
+
 For an MoE model the placement flags plan where the experts go, as the
 JAX launcher does: ``--replicated-placement`` profiles the router on the
-prompts (``Model.route_trace``) and plans a replicated placement with
-hypergraph partitioning; ``--online-placement`` feeds ``--epochs`` epochs
-of router traffic to the ``OnlineController``.  Both plan for two shards
-(the JAX launcher's ``max(n_shards, 2)``) and report the plan's costs;
-with one card (a model axis under 2) serving keeps the one-shard round
-robin, as there.  The controller prices a migration at 1 MiB per expert,
-the JAX launcher's figure (it reads a config field that does not exist:
-ROADMAP Queue 3 d).
+prompts (``Model.route_trace``, every rank on all of them, so that every
+rank plans the same) and plans a replicated placement with hypergraph
+partitioning; ``--online-placement`` feeds ``--epochs`` epochs of router
+traffic to the ``OnlineController``.  Both plan for ``max(M, 2)`` shards
+and report the plan's costs; serving adopts the plan once the model axis
+reaches 2, and keeps the round robin over M shards below, as the JAX
+launcher does.  The report gives the all_to_all bytes of one prefill
+layer under the adopted plan (``models.moe.a2a_bytes``).  The controller
+prices a migration at 1 MiB per expert, the JAX launcher's figure (it
+reads a config field that does not exist: ROADMAP Queue 3 d).
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ from ..core.placement import OnlineController, plan_expert_placement
 from ..kernels import ops
 from ..models.config import ModelConfig
 from ..models.model import Model
+from ..models.moe import a2a_bytes
+from ..parallel import sharding as shd
+from .mesh import default_backend, make_mesh, run_ranks
 
 
 @dataclasses.dataclass
@@ -49,6 +61,9 @@ class ServeResult:
     decode_s: float              # the G - 1 decode steps
     launches: dict               # kernel launches of the run, per counter
     placement: dict | None = None  # what the placement flag planned
+    a2a_bytes: dict | None = None  # one prefill MoE layer's, this rank's
+    weight_bytes: int = 0        # the model's parameters as served
+    prefill_logits: np.ndarray | None = None   # (B, 1, V) f32
 
     @property
     def ms_per_token(self) -> float:
@@ -62,12 +77,13 @@ class ServeResult:
 
 def make_model(cfg: ModelConfig, *, device: str | torch.device = "cuda",
                seed: int = 0) -> Model:
-    """The model with weights drawn from ``seed`` on ``device``."""
+    """The model with weights drawn from ``seed`` on ``device``; under the
+    active mesh, this rank's part (the experts over the model axis)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serving on 'cuda', but no CUDA device is "
                            "available; pass device='cpu'")
-    return Model(cfg, device=dev,
+    return Model(cfg, n_ep_shards=_n_shards(), device=dev,
                  generator=torch.Generator(device=dev).manual_seed(seed))
 
 
@@ -94,7 +110,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-_N_SHARDS = 1   # the model axis: one card
+def _n_shards() -> int:
+    """The active mesh's model axis (1 without a mesh)."""
+    mesh = shd.active_mesh()
+    return 1 if mesh is None else shd.axis_sizes(mesh).get("model", 1)
 
 
 def _replicated_placement(model: Model, tokens: torch.Tensor) -> dict:
@@ -104,9 +123,10 @@ def _replicated_placement(model: Model, tokens: torch.Tensor) -> dict:
     trace = model.route_trace({"tokens": tokens})[0].reshape(
         -1, cfg.top_k).cpu().numpy()
     res = plan_expert_placement(
-        np.sort(trace, axis=1), cfg.n_experts, max(_N_SHARDS, 2),
+        np.sort(trace, axis=1), cfg.n_experts, max(_n_shards(), 2),
         kappa0=min(1000, 8 * len(trace)), device=model.device)
     return {"kind": "replicated", "n_shards": res.plan.n_shards,
+            "plan": res.plan,
             "lambda_cost_no_repl": res.lambda_cost_no_repl,
             "lambda_cost_repl": res.lambda_cost_repl,
             "local_fraction_no_repl": res.local_fraction_no_repl,
@@ -118,7 +138,7 @@ def _online_placement(model: Model, rng: np.random.Generator, B: int,
     """Feed ``epochs`` epochs of router traffic (fresh prompts each) to
     the online controller, as the JAX launcher does."""
     cfg = model.cfg
-    n_sh = max(_N_SHARDS, 2)
+    n_sh = max(_n_shards(), 2)
     slots = cfg.n_experts // n_sh + max(2, cfg.n_experts // (4 * n_sh))
     ctrl = OnlineController(cfg.n_experts, n_sh, slots,
                             kappa0=min(1000, 8 * B * S), warmup_epochs=2,
@@ -138,45 +158,75 @@ def _online_placement(model: Model, rng: np.random.Generator, B: int,
                         "committed": rep.committed,
                         "migration_bytes": rep.migration_bytes})
     return {"kind": "online", "n_shards": n_sh, "epochs": reports,
+            "plan": ctrl.plan,
             "commits": ctrl.n_commits,
             "migration_bytes": ctrl.total_migration_bytes}
+
+
+def _local_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch (over the mesh's batch axes)."""
+    mesh = shd.active_mesh()
+    return t if mesh is None else shd.Sharding(
+        mesh, (shd.batch_entry(),)).local(t)
 
 
 @torch.inference_mode()
 def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
           device: str | torch.device = "cuda", seed: int = 0,
-          placement: str | None = None, epochs: int = 6) -> ServeResult:
+          placement: str | None = None, epochs: int = 6,
+          capacity_factor: float | None = None) -> ServeResult:
     """Serve ``B`` random prompts of ``S`` tokens, ``G`` new tokens each
-    (greedy), from weights and prompts drawn from ``seed``.
+    (greedy), from weights and prompts drawn from ``seed``; under the
+    active mesh, as this rank (its rows of the requests; the tokens are
+    those rows').
 
     ``placement`` (an MoE model): ``None``, ``"replicated"`` or
     ``"online"`` (``epochs`` epochs of traffic); it is planned before the
     prefill, and its report, with the kernel launches the planning made,
-    is the result's ``placement``.  The launch counts are reset just
-    before the prefill, so the result's are the served run's."""
+    is the result's ``placement``.  ``capacity_factor`` replaces the
+    served plan's.  The launch counts are reset just before the prefill,
+    so the result's are the served run's."""
     if placement not in (None, "replicated", "online"):
         raise ValueError(f"placement must be None, 'replicated' or "
                          f"'online', got {placement!r}")
+    mesh = shd.active_mesh()
     model = make_model(cfg, device=device, seed=seed)
+    if mesh is not None:
+        model.gather_dense_()
     dev = model.device
     rng = np.random.default_rng(seed)
     batch = {name: torch.from_numpy(a).to(dev)
              for name, a in draw_batch(cfg, rng, B, S).items()}
-    tokens = batch["tokens"]
     report = None
     if placement is not None and cfg.n_experts:
         ops.reset_launches()
         t0 = time.perf_counter()
         if placement == "replicated":
-            report = _replicated_placement(model, tokens)
+            report = _replicated_placement(model, batch["tokens"])
         else:
             report = _online_placement(model, rng, B, S, epochs)
         report["seconds"] = time.perf_counter() - t0
         report["launches"] = dict(ops.launches)
+    plan = model.plan
+    if report is not None and _n_shards() >= 2 and report["plan"] is not None:
+        plan = report["plan"]
+    if plan is not None and capacity_factor is not None:
+        plan = dataclasses.replace(plan, capacity_factor=capacity_factor)
+    a2a = None
+    if mesh is not None and plan is not None:
+        model.place_slots_(plan)
+        B_loc = B // int(np.prod([shd.axis_size(a)
+                                  for a in shd.batch_axes()]))
+        a2a = a2a_bytes(plan, B_loc * S // plan.n_shards, cfg.top_k,
+                        cfg.d_model, model.dtype.itemsize)
+    elif plan is not None:
+        model.plan = plan
+    batch = {name: _local_rows(t) for name, t in batch.items()}
     ops.reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
     logits, caches = model.prefill(batch, max_len=S + G)
+    first = logits
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     out = [tok.cpu()]
     t1 = time.perf_counter()
@@ -187,10 +237,23 @@ def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
     t2 = time.perf_counter()
     return ServeResult(tokens=torch.cat(out, dim=1).numpy(),
                        prefill_s=t1 - t0, decode_s=t2 - t1,
-                       launches=dict(ops.launches), placement=report)
+                       launches=dict(ops.launches), placement=report,
+                       a2a_bytes=a2a, weight_bytes=sum(
+                           p.numel() * p.element_size()
+                           for p in model.parameters()),
+                       prefill_logits=first.float().cpu().numpy())
 
 
-def main() -> None:
+def _serve_rank(rank: int, mesh_shape: tuple, device: str, cfg, B, S, G,
+                placement, epochs) -> ServeResult:
+    """One rank of ``main``'s ``--mesh`` run."""
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=device)
+    with shd.use_mesh(mesh):
+        return serve(cfg, B, S, G, device=device, placement=placement,
+                     epochs=epochs)
+
+
+def main(argv: list[str] | None = None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
@@ -199,13 +262,19 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve over D x M ranks ('data', 'model'), one "
+                         "process each")
+    ap.add_argument("--backend", default=None,
+                    help="the ranks' transport (default: nccl on CUDA with "
+                         "a card per rank, else gloo)")
     ap.add_argument("--replicated-placement", action="store_true")
     ap.add_argument("--online-placement", action="store_true",
                     help="drift-aware epoch controller instead of a "
                          "one-shot warmup plan")
     ap.add_argument("--epochs", type=int, default=6,
                     help="router-traffic epochs for --online-placement")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -213,8 +282,17 @@ def main() -> None:
     B, S, G = args.requests, args.prompt_len, args.gen
     placement = ("online" if args.online_placement else
                  "replicated" if args.replicated_placement else None)
-    res = serve(cfg, B, S, G, device=args.device, placement=placement,
-                epochs=args.epochs)
+    if args.mesh:
+        shape = tuple(int(n) for n in args.mesh.lower().split("x"))
+        world = shape[0] * shape[1]
+        backend = args.backend or default_backend(args.device, world)
+        print(f"[serve] mesh {shape} ('data', 'model') over {backend}")
+        res = run_ranks(_serve_rank, world, shape, args.device, cfg, B, S,
+                        G, placement, args.epochs, backend=backend,
+                        device=args.device, timeout=3600)[0]
+    else:
+        res = serve(cfg, B, S, G, device=args.device, placement=placement,
+                    epochs=args.epochs)
     rep = res.placement
     if rep is not None and rep["kind"] == "replicated":
         print(f"[serve] placement: lambda-cost "
@@ -235,8 +313,12 @@ def main() -> None:
     print(f"[serve] {B} requests, prompt {S}, generated {G} tokens each "
           f"on {args.device}: prefill {res.prefill_s:.3f}s, decode "
           f"{res.ms_per_token:.2f} ms/token ({res.tokens_per_s:.1f} tok/s)")
+    if res.a2a_bytes is not None:
+        print(f"[serve] all_to_all bytes a prefill MoE layer, rank 0: "
+              f"{res.a2a_bytes}")
     print(f"[serve] kernel launches: {res.launches}")
     print(f"[serve] sample continuation ids: {res.tokens[0][:12].tolist()}")
+    return res
 
 
 if __name__ == "__main__":

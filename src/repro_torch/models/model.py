@@ -41,10 +41,22 @@ of its matrix products (selective checkpointing), ``"none"`` keeps every
 activation.
 
 MoE layers route through the model's ``PlacementPlan`` (default: the
-one-shard round robin).  The FFN's ``mode`` follows the JAX package's
-serve path on a one-device mesh: ``prefill`` and ``forward`` run the a2a
-slot path, ``decode_step`` the tp slot path, and ``route_trace`` the dense
-reference (``models.moe``).
+round robin over ``n_ep_shards`` shards).  The FFN's ``mode`` follows the
+JAX package's serve path on a mesh: ``prefill`` and ``forward`` run the
+a2a slot path, ``decode_step`` the tp slot path, and ``route_trace`` the
+dense reference (``models.moe``).
+
+Under a mesh (``parallel.sharding.set_active_mesh``, before the model is
+built) the model is one rank's part of the whole, in explicit SPMD.  The
+weights are drawn whole, as on one device, and each leaf that
+``param_spec`` shards keeps only this rank's block; reading it
+(``Params[name]``, ``Model._w``) gathers the blocks through an autograd
+Function (an ``all_gather``, whose backward is a ``reduce_scatter``), so
+training gathers each leaf where a layer uses it and recomputes the
+gather under remat.  Serving gathers the dense leaves once
+(``gather_dense_``) and keeps of the experts only this rank's slots
+(``place_slots_``).  The residual stream stays whole on every rank of the
+model axis; the MoE layers split the sequence (``moe_a2a``).
 """
 from __future__ import annotations
 
@@ -58,7 +70,9 @@ from torch.utils import checkpoint as ckpt
 
 from . import layers as L
 from .config import ModelConfig, Segment
-from .moe import PlacementPlan, moe_apply, round_robin_plan, router_topk
+from ..parallel import sharding as shd
+from .moe import (PlacementPlan, materialize_slots, moe_apply,
+                  round_robin_plan, router_topk)
 
 _KINDS = ("dense", "hybrid", "mamba", "moe", "vision_group")
 
@@ -85,6 +99,7 @@ class Params(nn.Module):
 
     def __init__(self, tensors: dict):
         super().__init__()
+        self._shardings = {}   # name -> parallel.sharding.Sharding
         for name, t in tensors.items():
             if isinstance(t, dict):
                 self.add_module(name, Params(t))
@@ -95,10 +110,19 @@ class Params(nn.Module):
                     name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        """The named leaf, whole (its blocks gathered under a mesh), or
+        the named child group."""
+        t = getattr(self, name)
+        sh = self._shardings.get(name)
+        return t if sh is None else sh.full(t)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def held(self, name: str):
+        """The named leaf as this rank holds it, and its ``Sharding`` (None
+        where whole)."""
+        return getattr(self, name), self._shardings.get(name)
 
 
 class _Init:
@@ -238,18 +262,21 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, plan: PlacementPlan | None = None,
-                 *, device: str | torch.device = "cuda",
+                 *, n_ep_shards: int = 1, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         """``generator`` draws every weight, on ``device`` (default: seed 0
         there); a CUDA ``device`` raises without a CUDA device.  On the
         meta device (the dry run) the draws allocate nothing and take no
         generator (the meta device has none).  ``plan`` places the experts
-        (default: ``round_robin_plan(E, 1)``)."""
+        (default: ``round_robin_plan(E, n_ep_shards)``); under a mesh it
+        has one shard per rank of the model axis.  Under the active mesh
+        each leaf keeps this rank's block."""
         super().__init__()
         _check_supported(cfg)
+        self._shardings = {}
         self.plan = plan
         if cfg.n_experts and plan is None:
-            self.plan = round_robin_plan(cfg.n_experts, 1)
+            self.plan = round_robin_plan(cfg.n_experts, n_ep_shards)
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -274,6 +301,71 @@ class Model(nn.Module):
         if cfg.mtp_depth:
             self.mtp = nn.ModuleList(Params(ini.mtp())
                                      for _ in range(cfg.mtp_depth))
+        self.mesh = shd.active_mesh()
+        if self.mesh is not None:
+            self._shard(self.mesh)
+
+    # ------------------------------------------------------------ sharding
+    def _shard(self, mesh) -> None:
+        """Keep of each leaf that ``param_spec`` shards this rank's block,
+        and note its ``Sharding`` where the leaf is read."""
+        n_model = shd.axis_sizes(mesh).get("model", 1)
+        if self.plan is not None and self.plan.n_shards != n_model:
+            raise ValueError(f"a plan over {self.plan.n_shards} shards on "
+                             f"a model axis of {n_model} rank(s)")
+        shardings = shd.tree_shardings(dict(self.named_parameters()), mesh,
+                                       self.cfg.strategy)
+        for prefix, mod in self.named_modules():
+            for name, prm in mod.named_parameters(recurse=False):
+                sh = shardings[f"{prefix}.{name}" if prefix else name]
+                if sh.axes():
+                    prm.data = sh.local(prm.data).clone()
+                    mod._shardings[name] = sh
+
+    def shardings(self) -> dict:
+        """{parameter name: its ``Sharding``, or None where whole}."""
+        out = {}
+        for prefix, mod in self.named_modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                path = f"{prefix}.{name}" if prefix else name
+                out[path] = getattr(mod, "_shardings", {}).get(name)
+        return out
+
+    def _w(self, name: str) -> torch.Tensor:
+        """A top-level leaf (``embed``, ``lm_head``), whole."""
+        t = getattr(self, name)
+        sh = self._shardings.get(name)
+        return t if sh is None else sh.full(t)
+
+    @torch.no_grad()
+    def gather_dense_(self) -> None:
+        """Serving under a mesh: hold every leaf but the experts' whole,
+        gathered once here instead of at every read."""
+        for mod in self.modules():
+            for name, sh in list(getattr(mod, "_shardings", {}).items()):
+                if name not in ("e_gate", "e_up", "e_down"):
+                    prm = getattr(mod, name)
+                    prm.data = sh.full(prm.data)
+                    del mod._shardings[name]
+
+    @torch.no_grad()
+    def place_slots_(self, plan: PlacementPlan) -> None:
+        """Serving: adopt ``plan`` and keep of each MoE layer's experts
+        only this rank's slot weights (``e_*_slots``), gathered once per
+        layer; the logical expert leaves go."""
+        self.plan = plan
+        for seg, layers in zip(self.cfg.segments, self.segments):
+            if seg.kind != "moe":
+                continue
+            for lp in layers:
+                mp = lp["moe"]
+                slots = materialize_slots(mp, plan)
+                for name in ("e_gate", "e_up", "e_down"):
+                    t = slots[f"{name}_slots"]
+                    del mp._parameters[name]
+                    mp._shardings.pop(name, None)
+                    mp.register_parameter(f"{name}_slots", nn.Parameter(
+                        t.contiguous(), requires_grad=False))
 
     # ------------------------------------------------------------ forward
     def _mixer(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
@@ -334,7 +426,7 @@ class Model(nn.Module):
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         if self.cfg.frame_input:
             return batch["frames"].to(self.dtype)
-        return F.embedding(batch["tokens"], self.embed)
+        return F.embedding(batch["tokens"], self._w("embed"))
 
     def _image_embeds(self, batch: dict) -> torch.Tensor | None:
         img = batch.get("image_embeds")
@@ -346,7 +438,8 @@ class Model(nn.Module):
     def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head, accumulated in f32 (B, S, V)."""
         x = L.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        head = (self._w("embed").T if self.cfg.tie_embeddings
+                else self._w("lm_head"))
         return x.float() @ head.float()
 
     def forward(self, batch: dict, mode: str = "a2a"
@@ -416,7 +509,7 @@ class Model(nn.Module):
         seg = _mtp_segment(cfg)
         h = x
         for d, mp in enumerate(self.mtp):
-            nxt = F.embedding(tokens[:, d + 1:], self.embed)
+            nxt = F.embedding(tokens[:, d + 1:], self._w("embed"))
             hcat = torch.cat([L.rmsnorm(h[:, :nxt.shape[1]], mp["ln"],
                                         cfg.norm_eps), nxt], dim=-1)
             hm, _ = self._block(mp["block"], hcat @ mp["proj"], seg, "a2a")
@@ -522,7 +615,7 @@ class Model(nn.Module):
         if self.cfg.frame_input:
             x = token.to(self.dtype)
         else:
-            x = F.embedding(token, self.embed)
+            x = F.embedding(token, self._w("embed"))
         new_caches = []
         for seg, layers, seg_cache in zip(self.cfg.segments, self.segments,
                                           caches):

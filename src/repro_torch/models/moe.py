@@ -21,20 +21,31 @@ dispatch uses no ``nonzero`` or boolean-mask indexing.
 
 Execution modes of ``moe_apply``: ``"dense"`` is the single-device
 reference (every expert on every token, gated); ``"tp"`` (decode) and
-``"a2a"`` (prefill) are the slot paths.  The JAX package runs those two
-under ``shard_map`` over the mesh's ``model`` axis; the port serves on one
-card, as the JAX launcher does on a one-device mesh, so only a plan with
-one shard is taken.  Several shards wait for ROADMAP Queue 1, "Distribution".
+``"a2a"`` (prefill and training) are the slot paths.  The JAX package runs
+those two under ``shard_map`` over the mesh's ``model`` axis; the port
+runs them in explicit SPMD (``parallel.sharding``): each rank of the
+active mesh's ``model`` axis is one shard of the plan and holds its
+``slots_per_shard`` slot weights, and without a mesh the plan has one
+shard.  ``moe_a2a`` takes the rank's block of the sequence, serves its
+local replicas in place and sends the rest through two ``all_to_all``s
+(the rows and their slot ids), the results coming back through a third;
+``moe_tp`` sees every token and sums the shards' outputs with a psum, each
+choice computed by one shard only (the first that holds its expert).  The
+JAX package's ``moe_tp`` computes a choice on every shard that holds its
+expert, so a replicated expert adds its output once per replica (ROADMAP
+Queue 3 i); the port's does not copy that.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import swiglu
 
@@ -148,21 +159,49 @@ def a2a_capacities(plan: PlacementPlan, T_loc: int, top_k: int):
     return cap_local, cap_send, cap_in
 
 
+def a2a_bytes(plan: PlacementPlan, T_loc: int, top_k: int, d_model: int,
+              itemsize: int) -> dict:
+    """Bytes of the all_to_all result buffers of one rank in one ``moe_a2a``
+    call, as ``roofline.hlo.CollectiveCounter`` counts them: ``sent``, the
+    rows and their int64 slot ids, and ``returned``, the rows that come
+    back (each a block per shard, the rank's own block included)."""
+    if plan.n_shards == 1:
+        return {"sent": 0, "returned": 0}
+    _, cap_send, _ = a2a_capacities(plan, T_loc, top_k)
+    rows = plan.n_shards * cap_send
+    return {"sent": rows * (d_model * itemsize + 8),
+            "returned": rows * d_model * itemsize}
+
+
 # ------------------------------------------------------------------ routing
 
-def router_topk(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+def router_topk(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+                axes: tuple = ()):
     """x (T, D) -> weights (T, k) in x's dtype, experts (T, k) int64, and
     the load-balancing aux loss (f32 scalar).  Logits are f32 (x times the
     f32 router).  The top k come from a stable descending sort, so equal
-    probabilities keep the lower expert first, as ``lax.top_k`` does."""
+    probabilities keep the lower expert first, as ``lax.top_k`` does.
+
+    The aux loss is E times the dot product of the mean router
+    probability and the mean choice count per expert, over the tokens of
+    every rank of ``axes`` (the mesh axes the tokens are split over): each
+    rank's sums are summed over those axes first, so the loss is that of
+    the whole batch on one device, whatever the mesh.  (The JAX package
+    averages per-shard aux losses instead, which makes its loss depend on
+    the mesh.)"""
     logits = x.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = srt[:, :cfg.top_k], order[:, :cfg.top_k]
     w = w / w.sum(dim=-1, keepdim=True)
     E = cfg.n_experts
-    me = probs.mean(dim=0)
-    ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    stats = torch.stack([probs.sum(dim=0),
+                         F.one_hot(idx, E).float().sum(dim=(0, 1))])
+    n = float(x.shape[0])
+    if axes:
+        stats = shd.psum(stats, axes)
+        n *= int(np.prod([shd.axis_size(a) for a in axes]))
+    me, ce = stats[0] / n, stats[1] / n
     aux = E * (me * ce).sum()
     return w.to(x.dtype), idx, aux
 
@@ -252,52 +291,83 @@ def _expert_ffn(e_gate: torch.Tensor, e_up: torch.Tensor,
 
 def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig):
     """Single-device reference: dense top-k MoE, every expert on every
-    token, gated by the router."""
+    token, gated by the router.  Under a mesh whose model axis holds the
+    experts in blocks (``_expert_blocks``), each rank runs its block of
+    experts on every token and a psum over 'model' adds them: the same
+    sum, without gathering the experts."""
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     w, idx, aux = router_topk(p["router"], xt, cfg)
-    g = torch.einsum("td,edf->tef", xt, p["e_gate"])
-    u = torch.einsum("td,edf->tef", xt, p["e_up"])
-    y = torch.einsum("tef,efd->ted", F.silu(g) * u, p["e_down"])
+    blocks = _expert_blocks(p) if _spmd() else None
+    e = blocks or {name: p[name] for name in _EXPERTS}
+    g = torch.einsum("td,edf->tef", xt, e["e_gate"])
+    u = torch.einsum("td,edf->tef", xt, e["e_up"])
+    y = torch.einsum("tef,efd->ted", F.silu(g) * u, e["e_down"])
     oh = F.one_hot(idx, cfg.n_experts).to(x.dtype)
     gates = torch.einsum("tk,tke->te", w, oh)
+    if blocks is not None:
+        per = y.shape[1]
+        gates = gates.narrow(1, shd.axis_index("model") * per, per)
     out = torch.einsum("ted,te->td", y, gates)
+    if blocks is not None:
+        out = shd.psum(out, "model")
     if "w_gate" in p:
         out = out + swiglu(p, x).reshape(-1, D)
     return out.reshape(B, S, D), aux
 
 
-def _one_shard(plan: PlacementPlan) -> None:
-    """The slot paths take one shard, which holds every expert once, in
-    expert order (both plan builders fill slots by ascending expert): the
-    slot of expert e is e and every choice is local."""
-    if plan.n_shards != 1:
-        raise NotImplementedError(
-            f"a plan over {plan.n_shards} shards: the multi-shard slot "
-            "paths (experts over several cards): ROADMAP Queue 1, "
-            "\"Distribution\"")
-    if plan.local_slot[0] != tuple(range(plan.n_experts)):
-        raise ValueError("a one-shard plan must hold expert e in slot e")
+@functools.lru_cache(maxsize=64)
+def _tables(plan: PlacementPlan, device: torch.device) -> dict:
+    """The plan's lookup tables on ``device``, built once per plan:
+    ``local_slot``, ``home_shard``, ``home_slot`` (n_shards, E) and
+    ``owner`` (E,), the first shard that holds each expert."""
+    local = np.array(plan.local_slot, np.int64)
+    out = {"local_slot": local, "owner": np.argmax(local >= 0, axis=0),
+           "home_shard": np.array(plan.home_shard, np.int64),
+           "home_slot": np.array(plan.home_slot, np.int64)}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _spmd() -> bool:
+    """Whether the slot paths run over the active mesh's model axis."""
+    mesh = shd.active_mesh()
+    return mesh is not None and "model" in mesh.mesh_dim_names
+
+
+def _shard_of(plan: PlacementPlan) -> int:
+    """This rank's shard: its index on the active mesh's model axis, or 0
+    without one; the plan must have one shard per rank of that axis."""
+    n = shd.axis_size("model") if _spmd() else 1
+    if plan.n_shards != n:
+        raise ValueError(f"a plan over {plan.n_shards} shards on a model "
+                         f"axis of {n} rank(s)")
+    return shd.axis_index("model") if n > 1 else 0
 
 
 def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
-    """Decode: every shard sees every token and computes its slots; the
-    JAX package sums the shards' outputs with a psum, which over one shard
-    is the output itself."""
-    _one_shard(plan)
+    """Decode: every shard sees every token (x is the rank's batch, whole
+    over the model axis) and computes the choices whose expert's first
+    holder it is; a psum over the model axis adds the shards' outputs, so
+    each choice counts once.  The aux loss is over the global batch."""
+    m = _shard_of(plan)
     B, S, D = x.shape
     T_loc = B * S
     cap = max(1, int(np.ceil(T_loc * cfg.top_k / plan.total_slots
                              * plan.capacity_factor * plan.n_shards)))
+    tab = _tables(plan, x.device)
     xt = x.reshape(-1, D)
-    w, idx, aux = router_topk(p["router"], xt, cfg)
-    keep = torch.ones_like(idx, dtype=torch.bool)       # slot = expert
+    w, idx, aux = router_topk(p["router"], xt, cfg,
+                              shd.batch_axes() if _spmd() else ())
+    slots = tab["local_slot"][m][idx]
+    keep = tab["owner"][idx] == m
     n_slots = plan.slots_per_shard
-    xin, buf_of = sort_dispatch(xt, idx, keep, n_slots, cap)
-    fills = slot_fills(idx, keep, n_slots, cap)
+    xin, buf_of = sort_dispatch(xt, slots.clamp(min=0), keep, n_slots, cap)
+    fills = slot_fills(slots.clamp(min=0), keep, n_slots, cap)
     yout = _expert_ffn(p["e_gate_slots"], p["e_up_slots"],
                        p["e_down_slots"], xin, fills)
     y = combine_from_buffers(yout.reshape(-1, D), buf_of, w)
+    if _spmd():
+        y = shd.psum(y, "model")
     y = y.reshape(B, S, D)
     if "w_gate" in p:
         y = y + swiglu(p, x)
@@ -305,25 +375,65 @@ def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
 
 
 def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
-    """Prefill: sequence-sharded tokens, local replicas served in place
-    and the rest sent through a static-capacity all_to_all.  Over one
-    shard every choice is local: the remote branch dispatches nothing and
-    its combine weight ``w * ~is_local`` is zero, so it adds exact zeros
-    and only the local branch runs here."""
-    _one_shard(plan)
+    """Prefill and training: the rank takes its block of the sequence
+    (the reference's ``in_specs`` ``P(dp, "model", None)``), serves the
+    choices of its local replicas in place and sends the rest to their
+    home shards through a static-capacity ``all_to_all``, with each row's
+    slot id beside it; the home shard's results come back through the
+    return ``all_to_all``, and the blocks are gathered along the sequence
+    again.  The plan's local fraction sizes the buffers
+    (``a2a_capacities``): replication shrinks them.  Over one shard every
+    choice is local, and the remote branch, which would dispatch nothing,
+    is not run.  The aux loss is over the global batch."""
+    m = _shard_of(plan)
+    n_sh = plan.n_shards
     B, S, D = x.shape
-    T_loc = B * S
-    cap_local, _, _ = a2a_capacities(plan, T_loc, cfg.top_k)
-    xt = x.reshape(-1, D)
-    w, idx, aux = router_topk(p["router"], xt, cfg)
-    is_local = torch.ones_like(idx, dtype=torch.bool)   # slot = expert
+    if S % n_sh:
+        raise ValueError(f"a sequence of {S} over {n_sh} shards")
+    S_loc = S // n_sh
+    xl = x.narrow(1, m * S_loc, S_loc) if n_sh > 1 else x
+    T_loc = B * S_loc
+    cap_local, cap_send, cap_in = a2a_capacities(plan, T_loc, cfg.top_k)
+    tab = _tables(plan, x.device)
+    xt = xl.reshape(-1, D)
+    w, idx, aux = router_topk(p["router"], xt, cfg,
+                              shd.batch_axes() + ("model",) if _spmd() else ())
+    my_local = tab["local_slot"][m][idx]
+    is_local = my_local >= 0
     n_slots = plan.slots_per_shard
-    xin_l, buf_l = sort_dispatch(xt, idx, is_local, n_slots, cap_local)
-    fills = slot_fills(idx, is_local, n_slots, cap_local)
-    yout_l = _expert_ffn(p["e_gate_slots"], p["e_up_slots"],
-                         p["e_down_slots"], xin_l, fills)
-    y = combine_from_buffers(yout_l.reshape(-1, D), buf_l, w)
-    y = y.reshape(B, S, D)
+    slots = my_local.clamp(min=0)
+    # ---- local replicas: no communication (the replication win) ----
+    xin_l, buf_l = sort_dispatch(xt, slots, is_local, n_slots, cap_local)
+    fills_l = slot_fills(slots, is_local, n_slots, cap_local)
+    e = (p["e_gate_slots"], p["e_up_slots"], p["e_down_slots"])
+    yout_l = _expert_ffn(*e, xin_l, fills_l)
+    y = combine_from_buffers(yout_l.reshape(-1, D), buf_l, w * is_local)
+    if n_sh > 1:
+        # ---- remote dispatch through all_to_all ----
+        dest = tab["home_shard"][m][idx]
+        dslot = tab["home_slot"][m][idx]
+        send_x, buf_r = sort_dispatch(xt, dest, ~is_local, n_sh, cap_send)
+        # each row's target slot id travels beside it (-1: an empty row)
+        rows = n_sh * cap_send
+        payload = torch.full((rows + 1,), -1, dtype=torch.int64,
+                             device=x.device)
+        payload.scatter_(0, torch.where(buf_r >= 0, buf_r, rows).reshape(-1),
+                         dslot.reshape(-1))
+        rx = shd.all_to_all(send_x.reshape(rows, D), "model")
+        rslot = shd.all_to_all(payload[:rows], "model")
+        keep_r = (rslot >= 0)[:, None]
+        rs = rslot.clamp(min=0)[:, None]
+        xin_r, buf_in = sort_dispatch(rx, rs, keep_r, n_slots, cap_in)
+        fills_r = slot_fills(rs, keep_r, n_slots, cap_in)
+        yout_r = _expert_ffn(*e, xin_r, fills_r)
+        # ---- combine: remote results through the return all_to_all ----
+        ret = combine_from_buffers(yout_r.reshape(-1, D), buf_in,
+                                   torch.ones_like(buf_in, dtype=x.dtype))
+        ret = shd.all_to_all(ret, "model")
+        y = y + combine_from_buffers(ret, buf_r, w * ~is_local)
+    y = y.reshape(B, S_loc, D)
+    if _spmd():
+        y = shd.all_gather(y, "model", 1)
     if "w_gate" in p:
         y = y + swiglu(p, x)
     return y, aux
@@ -344,21 +454,103 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan,
 
 
 _SHARED = ("router", "w_gate", "w_up", "w_down")
+_EXPERTS = ("e_gate", "e_up", "e_down")
+
+
+def slot_experts(plan: PlacementPlan, shard: int | None = None
+                 ) -> np.ndarray:
+    """The expert of each slot (an empty slot: expert 0), over every shard
+    or of ``shard`` only."""
+    se = np.array(plan.slot_expert, np.int64)
+    se = se.reshape(-1) if shard is None else se[shard]
+    return np.maximum(se, 0)
+
+
+def _expert_blocks(p):
+    """Where ``p`` (the model's ``Params``) holds its expert leaves as this
+    rank's contiguous block of experts over 'model' and nothing else:
+    {name: local block}; else None (the leaves are read whole)."""
+    held = getattr(p, "held", None)
+    if held is None:
+        return None
+    out = {}
+    for name in _EXPERTS:
+        local, sh = held(name)
+        if sh is None or sh.spec != ("model", None, None):
+            return None
+        out[name] = local
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _exchange(plan: PlacementPlan, shard: int) -> tuple:
+    """The static plan of the slot exchange of ``shard``, whose experts
+    are stored in contiguous blocks of E / n_shards: (send, take, K).
+    ``send`` (n_shards, K): the local indices of the experts this shard
+    sends each shard (the experts of that shard's slots that this one
+    stores; padded with 0), ``take`` (slots_per_shard,): each slot's row
+    in [this shard's block; the received (n_shards * K) experts], K the
+    largest count any shard sends any other (0: nothing to exchange)."""
+    n, E = plan.n_shards, plan.n_experts
+    per = E // n
+    needs = [[sorted({int(e) for e in slot_experts(plan, j)
+                      if e // per == i}) if i != j else []
+              for i in range(n)] for j in range(n)]   # needs[j][i]
+    K = max(len(x) for row in needs for x in row)
+    send = np.zeros((n, max(K, 1)), np.int64)
+    for j in range(n):
+        for k, e in enumerate(needs[j][shard]):
+            send[j, k] = e - shard * per
+    take = []
+    for e in slot_experts(plan, shard):
+        e, i = int(e), int(e) // per
+        take.append(e - shard * per if i == shard
+                    else per + i * K + needs[shard][i].index(e))
+    return send, np.array(take, np.int64), K
+
+
+def _slot_weights(w: torch.Tensor, plan: PlacementPlan,
+                  shard: int) -> torch.Tensor:
+    """This shard's slot weights from its block ``w`` (E / n_shards, ...)
+    of an expert leaf: its own experts read in place, the others' through
+    one all_to_all of the experts each shard's slots need (differentiable:
+    the backward returns each slot's gradient to the expert's block)."""
+    send, take, K = _exchange(plan, shard)
+    dev = w.device
+    if not K and np.array_equal(take, np.arange(len(w))):
+        return w                        # the block is the slots
+    if K:
+        out = w.index_select(0, torch.from_numpy(send.reshape(-1)).to(dev))
+        recv = shd.all_to_all(out, "model")
+        w = torch.cat([w, recv])
+    return w.index_select(0, torch.from_numpy(take).to(dev))
 
 
 def materialize_slots(p, plan: PlacementPlan) -> dict:
     """Gather logical expert weights (E, D, F) into the physical slot
-    layout (n_shards * slots_per_shard, D, F).  Where every slot holds
-    the expert of its own index (one shard) the gather is the identity,
-    and the slot weights are the logical ones, not a copy."""
+    layout: this rank's (slots_per_shard, D, F) under a mesh, all n_shards
+    * slots_per_shard slots without one.  Under a mesh whose model axis
+    splits the expert leaves into contiguous blocks of experts
+    (``param_spec``), each rank reads its own experts in place and gets
+    the others its slots hold through one exchange per leaf
+    (``_slot_weights``); expert leaves held otherwise are read whole.
+    Where every slot holds the expert of its own index (one shard) the
+    gather is the identity, and the slot weights are the logical ones, not
+    a copy.  Differentiable: gradients of replicated slots sum back into
+    the logical expert."""
     if "e_gate_slots" in p:
         return p
     out = {name: p[name] for name in _SHARED if name in p}
-    gather = np.maximum(np.array(plan.slot_expert, np.int64).reshape(-1), 0)
+    shard = _shard_of(plan) if _spmd() else None
+    blocks = _expert_blocks(p) if shard is not None else None
+    if blocks is not None:
+        for name in _EXPERTS:
+            out[f"{name}_slots"] = _slot_weights(blocks[name], plan, shard)
+        return out
+    gather = slot_experts(plan, shard)
     identity = np.array_equal(gather, np.arange(plan.n_experts))
-    index = None if identity else torch.from_numpy(gather).to(
-        p["e_gate"].device)
-    for name in ("e_gate", "e_up", "e_down"):
-        out[f"{name}_slots"] = (p[name] if index is None
-                                else p[name].index_select(0, index))
+    for name in _EXPERTS:
+        w = p[name]
+        out[f"{name}_slots"] = w if identity else w.index_select(
+            0, torch.from_numpy(gather).to(w.device))
     return out

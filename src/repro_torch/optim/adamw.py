@@ -9,8 +9,9 @@ the parameters.  ``apply_updates`` follows the reference's formula exactly
 parameters cast from the master -- in f32 on the device, one parameter at
 a time (so the f32 temporaries are one parameter's size).  Not
 ``torch.optim.AdamW``, whose update differs (it decays the parameter, not
-an f32 master, and clips nothing).  ``zero_partition`` sharding waits for
-the distributed path.
+an f32 master, and clips nothing).  Under a mesh ``train.step`` hands it
+each rank's blocks (under ZeRO their data slices) and the global gradient
+norm.
 """
 from __future__ import annotations
 
@@ -60,15 +61,18 @@ def init_state(cfg: AdamWConfig, params: dict) -> dict:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, state: dict, grads: dict,
-                  params: dict) -> dict:
+                  params: dict, gnorm: torch.Tensor | None = None) -> dict:
     """One AdamW step from ``grads`` (a dict keyed like ``params``): the
     state's step, master and moments and the parameters are updated in
-    place.  Returns {"grad_norm", "lr"} (f32 scalars, unclipped norm)."""
+    place.  ``gnorm``, the global gradient norm, defaults to that of
+    ``grads``.  Returns {"grad_norm", "lr"} (f32 scalars, unclipped
+    norm)."""
     state["step"].add_(1)
     step = state["step"]
-    gnorm = torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(grads[n], dtype=torch.float32)
-        for n in params]))
+    if gnorm is None:
+        gnorm = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(grads[n], dtype=torch.float32)
+            for n in params]))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     sf = step.float()

@@ -1,0 +1,346 @@
+"""The active mesh, the parameter sharding rules and the collectives of
+the port's explicit SPMD: the JAX package's ``parallel/sharding.py``.
+
+The JAX package compiles one global program and lets ``shard_map`` hand
+each device its block.  The port runs one process per rank, each on its
+own local tensors, and moves data between ranks only through the
+functional collectives of ``torch.distributed`` (``torch.ops.
+_c10d_functional``), which ``roofline.hlo.CollectiveCounter`` counts.  A
+mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named axes
+(``launch.mesh``), or, where only its names and sizes are read (the
+sharding rules, the dry run's planning), an ``AbstractMesh``.
+
+Parameters carry logical axes implied by their names; ``param_spec`` maps
+them to mesh axes with the reference's rules and divisibility guard, rule
+for rule: a dimension is sharded on ``model`` only when the axis divides
+it, else replicated (8 KV heads on a 16-way model axis stay whole).  A
+spec is a tuple with one entry per tensor dimension: ``None``
+(replicated), an axis name, or a tuple of axis names (the major one
+first).  ``Sharding`` cuts a full tensor into a rank's block and gathers
+the blocks back.
+
+The JAX package's ``constrain`` has no counterpart: in explicit SPMD a
+tensor's layout is where the code puts it.  The residual stream stays
+whole on every rank of the model axis, and the only split is the sequence
+split at the MoE boundary (``models.moe.moe_a2a``).
+
+The collectives here are autograd Functions whose backward is the
+adjoint collective, so that one backward pass over every rank's loss
+(each rank's share: ``train.step``) gives the gradient of their sum:
+``all_gather``'s backward is a ``reduce_scatter``, ``all_to_all``'s the
+reverse ``all_to_all``, ``psum``'s a ``psum``.  None of them stages data
+through the host: the transport is the process group's (NCCL, or gloo,
+which takes CUDA tensors as they are).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
+
+import numpy as np
+import torch
+
+_C = torch.ops._c10d_functional
+
+_ACTIVE_MESH = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes without a process group (the JAX
+    package's ``jax.sharding.AbstractMesh``): what the sharding rules and
+    the dry run's planning read."""
+    shape: tuple
+    mesh_dim_names: tuple
+
+
+def set_active_mesh(mesh) -> None:
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """``with use_mesh(mesh):`` holds ``mesh`` active and restores the mesh
+    that was active before, also when the block raises."""
+    before = _ACTIVE_MESH
+    set_active_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_active_mesh(before)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or ``AbstractMesh``."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def batch_axes(mesh=None) -> tuple:
+    """Mesh axes the global batch is sharded over."""
+    mesh = _ACTIVE_MESH if mesh is None else mesh
+    if mesh is None:
+        return ()
+    names = mesh.mesh_dim_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_entry(mesh=None):
+    """The batch axes as one spec entry: None, a lone axis by its name, or
+    a tuple of them."""
+    dp = batch_axes(mesh)
+    return None if not dp else dp[0] if len(dp) == 1 else dp
+
+
+def axis_size_of(mesh, axis) -> int:
+    """The ranks of a spec entry: 1 for None, an axis's size, or the
+    product of a tuple of axes'."""
+    if axis is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    if isinstance(axis, tuple):
+        return int(np.prod([sizes[a] for a in axis]))
+    return sizes[axis]
+
+
+def _guard(mesh, shape: tuple, spec: list) -> tuple:
+    """Drop mesh axes that don't divide the corresponding dim."""
+    out = []
+    for dim, axis in zip(shape, spec):
+        if axis is None:
+            out.append(None)
+        elif dim % axis_size_of(mesh, axis) == 0:
+            out.append(axis)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+# path-pattern -> which dim gets the 'model' axis (negative = from the end)
+_MODEL_DIM_RULES: list[tuple[str, int]] = [
+    (r"embed$", 0),            # (vocab, d) -> shard vocab
+    (r"lm_head$", -1),         # (d, vocab) -> shard vocab
+    (r"\bwq$", -1), (r"\bwk$", -1), (r"\bwv$", -1),   # (.., d, H*hd)
+    (r"\bwo$", -2),            # (.., H*hd, d)
+    (r"\bw_gate$", -1), (r"\bw_up$", -1),             # (.., d, f)
+    (r"\bw_down$", -2),        # (.., f, d)
+    (r"\be_gate$", -3), (r"\be_up$", -3), (r"\be_down$", -3),  # (L,E,..,..)
+    (r"\brouter$", -1),
+    (r"\bwq_b$", -1), (r"\bwkv_b$", -1),              # MLA head projections
+    (r"\bmla_wo$", -2),
+    (r"\bin_proj$", -1),       # mamba (d, 2*di)
+    (r"\bconv_w$", -2), (r"\bA_log$", -2), (r"\bssm_D$", -1),
+    (r"\bx_proj$", -2), (r"\bdt_proj$", -1), (r"\bout_proj$", -2),
+    (r"\bcross_wq$", -1), (r"\bcross_wk$", -1), (r"\bcross_wv$", -1),
+    (r"\bcross_wo$", -2),
+]
+
+
+def param_spec(path: str, shape: tuple, strategy: str = "tp",
+               mesh=None) -> tuple:
+    """The spec of a parameter named ``path`` (the port's dotted names or
+    the reference's ``/`` paths) under ``mesh`` (default: the active one);
+    all ``None`` without a mesh, under ``dp_seq``, or where no rule
+    matches."""
+    mesh = _ACTIVE_MESH if mesh is None else mesh
+    replicated = (None,) * len(shape)
+    if mesh is None or strategy == "dp_seq" \
+            or "model" not in mesh.mesh_dim_names:
+        return replicated
+    for pat, dim in _MODEL_DIM_RULES:
+        if re.search(pat, path):
+            spec = [None] * len(shape)
+            spec[dim if dim >= 0 else len(shape) + dim] = "model"
+            # 'tp+ep_data': expert FFN weights additionally sharded over
+            # the data axis on dim -2 (persistent storage / dp; gathered
+            # per layer at the slot boundary)
+            if ("ep_data" in strategy and "data" in mesh.mesh_dim_names
+                    and re.search(r"\be_(gate|up|down)$", path)):
+                spec[len(shape) - 2] = "data"
+            return _guard(mesh, shape, spec)
+    return replicated
+
+
+def tree_param_specs(shapes: dict, strategy: str = "tp", mesh=None) -> dict:
+    """{name: spec} for {name: tensor or shape}."""
+    return {name: param_spec(name, tuple(getattr(s, "shape", s)), strategy,
+                             mesh)
+            for name, s in shapes.items()}
+
+
+def tree_shardings(shapes: dict, mesh, strategy: str = "tp") -> dict:
+    """{name: Sharding} of {name: tensor or shape} under ``mesh``."""
+    return {name: Sharding(mesh, spec) for name, spec in
+            tree_param_specs(shapes, strategy, mesh).items()}
+
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on a mesh (the JAX package's ``NamedSharding``): which block
+    of a full tensor each rank holds."""
+    mesh: object
+    spec: tuple
+
+    def axes(self) -> tuple:
+        """Every mesh axis the tensor is split over."""
+        return tuple(a for e in self.spec for a in _axes_of(e))
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a view)."""
+        out = full
+        for dim, e in enumerate(self.spec):
+            n = axis_size_of(self.mesh, e)
+            if n == 1:
+                continue
+            idx = 0
+            for a in _axes_of(e):        # the major axis first
+                idx = idx * axis_size(a, self.mesh) + axis_index(a,
+                                                                 self.mesh)
+            step = out.shape[dim] // n
+            out = out.narrow(dim, idx * step, step)
+        return out
+
+    def full(self, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block (differentiable:
+        ``all_gather`` per sharded axis, the minor axis first)."""
+        out = local
+        for dim, e in enumerate(self.spec):
+            for a in reversed(_axes_of(e)):
+                out = all_gather(out, a, dim, self.mesh)
+        return out
+
+
+# ------------------------------------------------------------ collectives
+def _mesh(mesh):
+    mesh = _ACTIVE_MESH if mesh is None else mesh
+    if mesh is None:
+        raise RuntimeError("a collective needs an active mesh")
+    return mesh
+
+
+def axis_size(axis: str, mesh=None) -> int:
+    return axis_sizes(_mesh(mesh))[axis]
+
+
+def axis_index(axis: str, mesh=None) -> int:
+    """This rank's coordinate on ``axis`` (``jax.lax.axis_index``)."""
+    return _mesh(mesh).get_local_rank(axis)
+
+
+def _group(axis: str, mesh) -> tuple[int, str]:
+    mesh = _mesh(mesh)
+    return axis_size(axis, mesh), mesh.get_group(axis).group_name
+
+
+def _gloo_cuda(x: torch.Tensor, axis: str, mesh) -> bool:
+    return x.is_cuda and torch.distributed.get_backend(
+        _mesh(mesh).get_group(axis)) == "gloo"
+
+
+def _all_reduce(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+    _, name = _group(axis, mesh)
+    return _C.wait_tensor(_C.all_reduce(x.contiguous(), "sum", name))
+
+
+def _all_gather(x: torch.Tensor, axis: str, dim: int, mesh) -> torch.Tensor:
+    n, name = _group(axis, mesh)
+    x0 = x.movedim(dim, 0).contiguous()
+    if _gloo_cuda(x, axis, mesh):
+        # gloo's functional all-gather of CUDA tensors crashes the process
+        # (torch 2.11); an all_to_all of n copies moves the same blocks
+        out = _all_to_all(x0.expand(n, *x0.shape).reshape(-1, *x0.shape[1:]),
+                          axis, mesh)
+    else:
+        out = _C.wait_tensor(_C.all_gather_into_tensor(x0, n, name))
+    # in x's layout: a product on a transposed view takes another GEMM
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, axis: str, dim: int,
+                    mesh) -> torch.Tensor:
+    n, name = _group(axis, mesh)
+    out = _C.wait_tensor(_C.reduce_scatter_tensor(
+        x.movedim(dim, 0).contiguous(), "sum", n, name))
+    return out.movedim(0, dim).contiguous()
+
+
+def _all_to_all(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+    """Block i of dim 0 goes to rank i; block j of the result came from
+    rank j."""
+    n, name = _group(axis, mesh)
+    split = [x.shape[0] // n] * n
+    return _C.wait_tensor(_C.all_to_all_single(x.contiguous(), split, split,
+                                               name))
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        for a in axes:
+            x = _all_reduce(x, a, mesh)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = _all_reduce(g, a, ctx.mesh)
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.args = (axis, dim, mesh)
+        return _all_gather(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.args = (axis, mesh)
+        return _all_to_all(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None
+
+
+def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
+    names), on every one of them (``jax.lax.psum``)."""
+    axes = _axes_of(axes)
+    return _PSum.apply(x, axes, _mesh(mesh)) if axes else x
+
+
+def pmean(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    axes = _axes_of(axes)
+    n = int(np.prod([axis_size(a, mesh) for a in axes])) if axes else 1
+    return psum(x, axes, mesh) / n
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int = 0,
+               mesh=None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in axis order."""
+    return _AllGather.apply(x, axis, dim, _mesh(mesh))
+
+
+def all_to_all(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, 0, 0)``: dim 0 holds one block per
+    rank of ``axis``; block i goes to rank i."""
+    return _AllToAll.apply(x, axis, _mesh(mesh))

@@ -14,9 +14,12 @@ all-to-all, and the point-to-point receives (``irecv``,
 ``batch_p2p_ops``) as collective-permute; the ``_coalesced`` forms count
 once with all their results.  ``wait_tensor`` moves nothing.
 
-A step on one card makes no collective (the port's distributed path is
-ROADMAP Queue 1, "Distribution"), so every count of a one-card dry run is
-0.
+The port's distributed path (``parallel.sharding``) calls exactly these
+functional collectives, so under a mesh the counter sees every byte a
+rank moves: the all-gathers of sharded leaves (and their backward
+reduce-scatters), the MoE layers' all_to_alls and psums, the gradient
+all-reduces.  A step without a mesh, or over a mesh of one rank whose
+collectives go to groups of one, counts what it calls all the same.
 
 ``summarize_cost`` is the JAX package's, key for key: the dry run hands
 it its counts under XLA's names (``flops``, ``bytes accessed``).

@@ -1,5 +1,5 @@
-"""Fault-tolerant training driver on one device: the JAX package's
-``runtime/trainer.py`` without a mesh.
+"""Fault-tolerant training loop: the JAX package's
+``runtime/trainer.py``, on one device or as one rank of a mesh.
 
   * checkpoint/restart: atomic checkpoints every ``ckpt_every`` steps (the
     state copied to the host, the files written on a worker thread); on
@@ -9,7 +9,11 @@
     at most ``max_failures`` times (``failure_hook(step)`` injects
     failures);
   * straggler watchdog: a step slower than ``straggler_factor`` times the
-    trailing median is logged and counted.
+    trailing median is logged and counted;
+  * elastic re-scaling: under a mesh every rank draws the same global
+    batch and takes its rows; checkpoints hold full leaves (rank 0 writes
+    them gathered), so a run restores under another mesh.  The trainer
+    holds its mesh active while it runs and clears it when it is done.
 """
 from __future__ import annotations
 
@@ -20,11 +24,14 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.checkpointer import Checkpointer
 from ..data.pipeline import DataConfig, SyntheticTokenStream
 from ..models.config import ModelConfig
+from ..models.moe import round_robin_plan
 from ..optim import adamw
+from ..parallel import sharding as shd
 from ..train import step as step_lib
 
 # checkpoints go under the checkout's ignored build directory by default
@@ -46,15 +53,24 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, data_cfg: DataConfig,
                  tcfg: TrainerConfig, opt_cfg: adamw.AdamWConfig | None = None,
-                 *, device: str | torch.device = "cuda", failure_hook=None):
+                 *, device: str | torch.device = "cuda", failure_hook=None,
+                 mesh=None, capacity_factor: float | None = None):
+        """``mesh``: train as this process's rank of it.  ``capacity_factor``
+        (an MoE model): the round-robin plan's, over the model axis."""
         self.cfg = cfg
+        self.mesh = mesh
         self.tcfg = tcfg
         self.data = SyntheticTokenStream(cfg, data_cfg)
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
         self.failure_hook = failure_hook or (lambda step: None)
         self.step_times: list[float] = []
         self.stragglers = 0
-        self.ts = step_lib.build_train_step(cfg, opt_cfg, device=device)
+        plan = None
+        if cfg.n_experts and capacity_factor is not None:
+            n_ep = 1 if mesh is None else shd.axis_sizes(mesh).get("model", 1)
+            plan = round_robin_plan(cfg.n_experts, n_ep, capacity_factor)
+        self.ts = step_lib.build_train_step(cfg, opt_cfg, mesh=mesh,
+                                            plan=plan, device=device)
         self.opt_cfg = self.ts.opt_cfg
 
     # ------------------------------------------------------------- state
@@ -65,12 +81,20 @@ class Trainer:
         last = self.ckpt.latest_step()
         if last is None:
             return state, 0
-        restored, extra = self.ckpt.restore(last, state)
+        restored, extra = self.ckpt.restore(last, state,
+                                            self.ts.state_shardings())
         self.data.restore(extra["data"])
         return restored, int(extra["step"])
 
     # -------------------------------------------------------------- loop
     def run(self, state: dict | None = None, seed: int = 0):
+        with shd.use_mesh(self.mesh):
+            out = self._run(state, seed)
+        if self.mesh is not None:
+            dist.barrier()     # rank 0's last checkpoint is on disk
+        return out
+
+    def _run(self, state: dict | None, seed: int):
         state = state if state is not None else self.fresh_state(seed)
         state, start = self.try_restore(state)
         step = start
@@ -81,7 +105,8 @@ class Trainer:
                 batch_np = self.data.next_batch()
                 self.failure_hook(step)  # test injection point
                 t0 = time.monotonic()
-                batch = step_lib.batch_to(batch_np, self.ts.device)
+                batch = self.ts.local_batch(
+                    step_lib.batch_to(batch_np, self.ts.device))
                 state, metrics = self.ts.step_fn(state, batch)
                 loss = float(metrics["loss"])
                 dt = time.monotonic() - t0
@@ -94,7 +119,8 @@ class Trainer:
                 if step % self.tcfg.ckpt_every == 0 or step == self.tcfg.steps:
                     self.ckpt.save_async(
                         step, state,
-                        extra={"step": step, "data": self.data.state()})
+                        extra={"step": step, "data": self.data.state()},
+                        shardings=self.ts.state_shardings())
                 if step % self.tcfg.log_every == 0:
                     print(f"[train] step {step} loss {loss:.4f} "
                           f"({dt*1e3:.0f} ms)", flush=True)

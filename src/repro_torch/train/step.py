@@ -1,7 +1,7 @@
-"""The training step on one device: loss, gradients and the AdamW update.
+"""The training step: loss, gradients and the AdamW update, on one device
+or as one rank of a mesh.
 
-The twin of the JAX package's ``train/step.py::build_train_step`` without
-its meshes and shardings (the distributed path comes later).  The model
+The twin of the JAX package's ``train/step.py``.  The model
 (``models.model.Model``) holds the parameters; the training state is
 ``{"params": {name: parameter}, "opt": adamw state}``, ``params`` being
 the model's own parameters, which the step updates in place.  A state
@@ -11,6 +11,22 @@ across from the JAX package) is copied into the model at the next step.
 On a CUDA device the forward passes run the attention and scan kernels and
 the backward passes their backward kernels (``kernels.ops``); the model's
 ``remat`` recomputes each layer in the backward pass.
+
+Under a mesh (``build_train_step(..., mesh=...)``) the step is explicit
+SPMD.  The placements are the reference's (``batch_specs``,
+``state_shardings``): the batch is split over ('pod', 'data') (each rank
+takes its rows of the global batch, ``local_batch``), the parameters hold
+the blocks that ``param_spec`` gives them, and under ``zero_opt_state`` the
+f32 master and the moments are split over 'data' too.  Each rank's
+backward pass starts from its loss times its share, 1 / (ranks), so that
+the collectives' adjoints (``parallel.sharding``) and a psum of every
+gradient over the axes its leaf is whole on give each rank the gradient of
+the mean loss over the global batch.  The global gradient norm sums every
+leaf's blocks once.  Each rank then runs AdamW on its blocks -- under ZeRO
+on its data slice, whose new parameters an all_gather over 'data' puts
+together.  The sequence split of ``dp_seq`` (``batch_specs`` puts the
+model axis on the sequence) is not applied: the residual stream stays
+whole on every rank of the model axis (ROADMAP).
 """
 from __future__ import annotations
 
@@ -21,7 +37,9 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.model import Model
+from ..models.moe import PlacementPlan
 from ..optim import adamw
+from ..parallel import sharding as shd
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -36,25 +54,173 @@ def batch_to(batch: dict, device) -> dict:
     return out
 
 
+def batch_specs(cfg: ModelConfig, mesh, shapes: dict) -> dict:
+    """The reference's specs of the input batch ({name: shape}): the batch
+    over ('pod', 'data'); under ``dp_seq`` also the sequence over 'model'
+    where it divides (not a decode step's single token)."""
+    dp = shd.batch_entry(mesh)
+    seq_axis = "model" if cfg.strategy == "dp_seq" else None
+    out = {}
+    for k, shape in shapes.items():
+        shape = tuple(getattr(shape, "shape", shape))
+        if k in ("tokens", "labels", "frames"):
+            spec = [dp, seq_axis] + [None] * (len(shape) - 2)
+            if shape[1] == 1 or (seq_axis and shape[1]
+                                 % shd.axis_sizes(mesh)["model"]):
+                spec[1] = None
+        else:  # image_embeds etc: batch-sharded only
+            spec = [dp] + [None] * (len(shape) - 1)
+        out[k] = tuple(spec)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh, caches: list) -> list:
+    """The reference's cache specs, leaf for leaf of ``Model.init_cache``:
+    the batch over the data axes where it divides, the longest remaining
+    dimension of 1024 or more over 'model' where that divides.  The
+    reference decides on its caches stacked over layers (and a vision
+    group's sub-layers); each leaf here is decided with those leading
+    dimensions put back, which are then dropped."""
+    dp = shd.batch_axes(mesh)
+    sizes = shd.axis_sizes(mesh)
+    dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    model_size = sizes.get("model", 1)
+    dp_spec = shd.batch_entry(mesh)
+
+    def spec_for(shape):
+        spec = [None] * len(shape)
+        batch_dim = None
+        for i in range(1, len(shape)):
+            if shape[i] % dp_size == 0 and shape[i] >= dp_size:
+                spec[i] = dp_spec
+                batch_dim = i
+                break
+        order = sorted((i for i in range(1, len(shape)) if i != batch_dim),
+                       key=lambda i: -shape[i])
+        for i in order:
+            if shape[i] >= model_size and shape[i] % model_size == 0 \
+                    and shape[i] >= 1024:
+                spec[i] = "model"
+                break
+        return tuple(spec)
+
+    def walk(tree, lead):
+        if isinstance(tree, dict):
+            return {k: walk(v, lead) for k, v in tree.items()}
+        if isinstance(tree, list):   # a vision group's sub-layers
+            return [walk(v, lead + (len(tree),)) for v in tree]
+        return spec_for(lead + tuple(tree.shape))[len(lead):]
+
+    return [[walk(c, (len(seg),)) for c in seg] for seg in caches]
+
+
+def state_shardings(cfg: ModelConfig, mesh, shapes: dict) -> dict:
+    """The reference's specs of the training state for parameters
+    {name: shape}: ``params`` by ``param_spec``; the optimizer's ``master``,
+    ``m`` and ``v`` the same, and under ``zero_opt_state`` (where the
+    parameter is not data-sharded already) 'data' on the largest dimension
+    left whole that it divides; ``step`` whole."""
+    sizes = shd.axis_sizes(mesh)
+    pspecs = shd.tree_param_specs(shapes, cfg.strategy, mesh)
+
+    def opt_spec(name):
+        spec = list(pspecs[name])
+        shape = tuple(getattr(shapes[name], "shape", shapes[name]))
+        if "data" in spec:
+            return tuple(spec)
+        if cfg.zero_opt_state and "data" in sizes:
+            for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+                if spec[i] is None and shape[i] % sizes["data"] == 0 \
+                        and shape[i] >= sizes["data"]:
+                    spec[i] = "data"
+                    break
+        return tuple(spec)
+
+    opt = {name: opt_spec(name) for name in shapes}
+    return {"params": pspecs,
+            "opt": {"step": (), "master": opt, "m": dict(opt),
+                    "v": dict(opt)}}
+
+
 @dataclasses.dataclass
 class TrainStep:
     cfg: ModelConfig
     opt_cfg: adamw.AdamWConfig
     device: torch.device
     model: Model | None = None
+    mesh: object = None
+    plan: PlacementPlan | None = None
+    _specs: dict | None = dataclasses.field(default=None, repr=False)
 
     def init_state(self, seed: int = 0) -> dict:
         """A fresh model drawn from ``torch.Generator(device)`` seeded with
         ``seed`` (none on the meta device, whose draws make no numbers),
-        gradients on, and AdamW's initial state."""
+        gradients on, and AdamW's initial state; under a mesh, this rank's
+        blocks of both."""
         self.model = None     # the old weights go before the new are drawn
         gen = (None if self.device.type == "meta"
                else torch.Generator(device=self.device).manual_seed(seed))
-        self.model = Model(self.cfg, device=self.device,
-                           generator=gen).requires_grad_(True)
+        n_ep = (1 if self.mesh is None
+                else shd.axis_sizes(self.mesh).get("model", 1))
+        with shd.use_mesh(self.mesh):
+            self.model = Model(self.cfg, self.plan, n_ep_shards=n_ep,
+                               device=self.device,
+                               generator=gen).requires_grad_(True)
         params = dict(self.model.named_parameters())
-        return {"params": params, "opt": adamw.init_state(self.opt_cfg,
-                                                          params)}
+        self._specs = None
+        if self.mesh is not None:     # the reference's, on the full shapes
+            full = {}
+            for n, sh in self.model.shardings().items():
+                shape = tuple(params[n].shape)
+                full[n] = shape if sh is None else tuple(
+                    k * shd.axis_size_of(self.mesh, e)
+                    for k, e in zip(shape, sh.spec))
+            self._specs = state_shardings(self.cfg, self.mesh, full)
+        return {"params": params,
+                "opt": adamw.init_state(self.opt_cfg, self._opt_view(params))}
+
+    def _zero_dim(self, name: str) -> int | None:
+        """The dimension ZeRO splits over 'data' beyond the parameter's own
+        spec, or None."""
+        if self._specs is None:
+            return None
+        pspec, ospec = (self._specs["params"][name],
+                        self._specs["opt"]["master"][name])
+        for i, (a, b) in enumerate(zip(pspec, ospec)):
+            if a != b:
+                return i
+        return None
+
+    def _opt_view(self, tree: dict) -> dict:
+        """Each leaf as the optimizer holds it: its ZeRO slice over 'data'
+        where there is one (a view), else itself."""
+        out = {}
+        for n, t in tree.items():
+            d = self._zero_dim(n)
+            if d is not None:
+                k = t.shape[d] // shd.axis_size("data", self.mesh)
+                t = t.narrow(d, shd.axis_index("data", self.mesh) * k, k)
+            out[n] = t
+        return out
+
+    def state_shardings(self) -> dict:
+        """The training state's tree of ``parallel.sharding.Sharding``
+        (None without a mesh): what the checkpointer gathers and cuts."""
+        if self._specs is None:
+            return None
+        opt = {k: {n: shd.Sharding(self.mesh, s) for n, s in v.items()}
+               for k, v in self._specs["opt"].items() if k != "step"}
+        return {"params": {n: shd.Sharding(self.mesh, s) for n, s in
+                           self._specs["params"].items()},
+                "opt": {"step": shd.Sharding(self.mesh, ()), **opt}}
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (``batch_to`` form): the
+        batch over ('pod', 'data'), whole over 'model'."""
+        if self.mesh is None:
+            return batch
+        rows = shd.Sharding(self.mesh, (shd.batch_entry(self.mesh),))
+        return {k: rows.local(v) for k, v in batch.items()}
 
     def _bind(self, params: dict) -> dict:
         """The model's parameters, holding ``params``' values."""
@@ -71,25 +237,74 @@ class TrainStep:
         return own
 
     def grads(self, state: dict, batch: dict) -> tuple[dict, dict]:
-        """The loss and its gradients on ``batch`` (``batch_to`` form):
-        returns (the model's parameters, each ``.grad`` set -- zeros where
-        the loss does not reach it -- and the loss metrics)."""
+        """The loss and its gradients on ``batch`` (``batch_to`` form; under
+        a mesh this rank's rows, ``local_batch``): returns (the model's
+        parameters, each ``.grad`` set -- zeros where the loss does not
+        reach it; under a mesh, the gradient of the mean loss over the
+        global batch -- and the loss metrics, over the global batch)."""
         params = self._bind(state["params"])
         for p in params.values():
             p.grad = None
-        loss, metrics = self.model.loss(batch)
-        loss.backward()
+        with shd.use_mesh(self.mesh):
+            loss, metrics = self.model.loss(batch)
+            if self.mesh is None:
+                loss.backward()
+            else:
+                (loss / self.mesh.size()).backward()
+                metrics = {k: shd.pmean(v.detach(), shd.batch_axes())
+                           for k, v in metrics.items()}
         for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            self._reduce_grads(params)
         return params, {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def _reduce_grads(self, params: dict) -> None:
+        """Sum each gradient over the axes its leaf is whole on."""
+        names = self.mesh.mesh_dim_names
+        shardings = self.model.shardings()
+        for n, p in params.items():
+            sh = shardings[n]
+            axes = tuple(a for a in names
+                         if a not in (sh.axes() if sh else ()))
+            p.grad = shd.psum(p.grad, axes, self.mesh)
+
+    @torch.no_grad()
+    def _global_norm(self, params: dict) -> torch.Tensor:
+        """The gradient norm over every leaf whole: each leaf's norm from
+        the squares of its blocks, summed over the axes it is split on."""
+        norms = []
+        shardings = self.model.shardings()
+        for n, p in params.items():
+            nl = torch.linalg.vector_norm(p.grad, dtype=torch.float32)
+            sh = shardings[n]
+            if sh is not None:
+                nl = torch.sqrt(shd.psum(nl * nl, sh.axes(), self.mesh))
+            norms.append(nl)
+        return torch.linalg.vector_norm(torch.stack(norms))
 
     def update(self, state: dict, params: dict) -> dict:
         """AdamW from the parameters' ``.grad`` (then dropped), in place;
-        returns its metrics."""
-        out = adamw.apply_updates(self.opt_cfg, state["opt"],
-                                  {n: p.grad for n, p in params.items()},
-                                  params)
+        returns its metrics.  Under a mesh each rank updates its blocks
+        (under ZeRO its data slice, then gathered over 'data')."""
+        grads = {n: p.grad for n, p in params.items()}
+        if self.mesh is None:
+            out = adamw.apply_updates(self.opt_cfg, state["opt"], grads,
+                                      params)
+        else:
+            gnorm = self._global_norm(params)
+            views = self._opt_view({n: p.data for n, p in params.items()})
+            out = adamw.apply_updates(self.opt_cfg, state["opt"],
+                                      self._opt_view(grads), views,
+                                      gnorm=gnorm)
+            with torch.no_grad():
+                for n, p in params.items():
+                    d = self._zero_dim(n)
+                    if d is not None:
+                        p.copy_(shd.all_gather(views[n], "data", d,
+                                               self.mesh))
         for p in params.values():
             p.grad = None
         return out
@@ -105,13 +320,16 @@ class TrainStep:
 
 def build_train_step(cfg: ModelConfig,
                      opt_cfg: adamw.AdamWConfig | None = None, *,
+                     mesh=None, plan: PlacementPlan | None = None,
                      device: str | torch.device = "cuda") -> TrainStep:
     """The step of ``cfg`` on ``device`` (default CUDA, which raises
-    without a card); its model is drawn by ``init_state`` (or seed 0 at the
-    first step)."""
+    without a card), as one rank of ``mesh`` where given; its model is
+    drawn by ``init_state`` (or seed 0 at the first step).  ``plan`` places
+    the experts (default: the round robin over the model axis)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_train_step on device 'cuda', but no CUDA "
                            "device is available; pass device='cpu' for the "
                            "plain PyTorch versions")
-    return TrainStep(cfg, opt_cfg or adamw.AdamWConfig(), dev)
+    return TrainStep(cfg, opt_cfg or adamw.AdamWConfig(), dev, mesh=mesh,
+                     plan=plan)

@@ -367,6 +367,29 @@ def test_prefill_tc_takes_mla_head_dims(cuda, no_tf32):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_repeats_bit_for_bit(cuda, dtype, hd):
+    """Two calls on the same inputs give the same bits: the warps of a
+    block add their key slots' sums in a fixed order (olmoe's decode shape
+    at hd 128: 16 heads, 2052 cached keys, positions)."""
+    B, Sk, H, KV = 4, 2052, 16, 16
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    qp = torch.full((B, 1), Sk - 1, dtype=torch.int32, device=cuda)
+    kp = torch.arange(Sk, dtype=torch.int32, device=cuda).repeat(B, 1)
+    ops.reset_launches()
+    outs = [ops.attention(q, k, v, causal=True, q_pos=qp, k_pos=kp)
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    assert ops.route_launches["decode_split"] == 8
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_split_fully_masked_rows_are_zero(cuda, dtype):
     """A (batch, kv head) whose keys are all padding reads no split and

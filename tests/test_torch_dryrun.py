@@ -350,6 +350,23 @@ def test_cli_writes_outside_benchmarks(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
 def test_cli_refuses_several_cards(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match='"Distribution"'):
-        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
-                     flag, "--out", str(tmp_path)])
+    """The production meshes, which the dry run once refused, are priced:
+    rank 0 of (2, 16, 16), and with ``--both-meshes`` of (16, 16) too,
+    over a fake process group that ``main`` ends."""
+    import torch.distributed as dist
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                        flag, "--out", str(tmp_path)]) == 0
+    assert not dist.is_initialized()
+    chips = [512] if flag == "--multi-pod" else [256, 512]
+    got = sorted(tmp_path.glob("*.json"))
+    assert [p.stem for p in got] == [
+        f"smollm-135m__decode_32k__gpu{n}" for n in chips]
+    for n, path in zip(chips, got):
+        r = json.loads(path.read_text())
+        assert r["status"] == "ok" and r["chips"] == n
+        assert r["mesh"] == ({"data": 16, "model": 16} if n == 256 else
+                             {"pod": 2, "data": 16, "model": 16})
+        one = dryrun.run_cell("smollm-135m", "decode_32k")
+        # dp_seq: the parameters stay whole; the batch is 1 / data ranks
+        assert r["leaves"] == one["leaves"]
+        assert r["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]

@@ -31,7 +31,9 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.parallel import sharding  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels import moe_gmm, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, run_ranks  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.parallel import sharding as sharding_torch  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -442,15 +444,31 @@ def test_slot_paths_same_with_and_without_fills(monkeypatch, mode, S):
 
 
 def test_multi_shard_plans_wait_for_item_10():
+    """Item 10 (distribution) is in: a plan over two shards runs over two
+    gloo ranks of a mesh's model axis, both slot paths equal to the dense
+    reference; without a mesh (a model axis of one) it is refused."""
     cfg, _ = _cfgs()
     rng = np.random.default_rng(19)
     tp, _ = _moe_params(cfg, rng, "float32")
-    x = torch.zeros((1, 2, cfg.d_model))
+    x = torch.from_numpy(rng.normal(size=(2, 4, cfg.d_model)).astype(
+        np.float32))
     for mode in ("tp", "a2a"):
-        with pytest.raises(NotImplementedError, match="Distribution"):
+        with pytest.raises(ValueError, match="model axis of 1"):
             moe.moe_apply(tp, x, cfg, moe.round_robin_plan(8, 2), mode)
     with pytest.raises(ValueError, match="mode"):
         moe.moe_apply(tp, x, cfg, moe.round_robin_plan(8, 1), "ep")
+    want, _ = moe.moe_dense_ref(tp, x, cfg)
+    for y in run_ranks(_two_shard_rank, 2, cfg, tp, x, timeout=120):
+        for mode in ("tp", "a2a"):
+            torch.testing.assert_close(y[mode], want, rtol=0, atol=1e-5)
+
+
+def _two_shard_rank(rank, cfg, p, x):
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    plan = moe.round_robin_plan(cfg.n_experts, 2, capacity_factor=8.0)
+    with sharding_torch.use_mesh(mesh):
+        return {mode: moe.moe_apply(p, x, cfg, plan, mode)[0]
+                for mode in ("tp", "a2a")}
 
 
 def test_one_shard_slots_alias_the_expert_weights():

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "optim.adamw", "data.pipeline", "checkpoint.checkpointer",
                  "train.step", "runtime.trainer", "launch.train",
                  "configs.shapes", "roofline.model", "roofline.hlo",
-                 "core.placement.remat_policy", "launch.dryrun"):
+                 "core.placement.remat_policy", "launch.dryrun",
+                 "parallel", "parallel.sharding", "launch.mesh"):
         assert f"repro_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 26          # every module was imported
     assert got["bad"] == [], f"the port pulled in {got['bad']}"
