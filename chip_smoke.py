@@ -332,14 +332,38 @@ failure propagates and the exit code is nonzero:
    no choice is dropped): two ranks of (1, 2) train 4 steps and
    checkpoint; two ranks of (2, 1) and one of (1, 1) each restore it and
    train to step 6; both resume at step 4 and every loss is within
-   ``ELASTIC_TOL`` (relative) of an uninterrupted run on one card.
+   ``ELASTIC_TOL`` (relative) of an uninterrupted run on one card.  olmoe's
+   attention, embedding and head run tensor-parallel there (phase 19).
+19. tensor-parallel products (``tp_phase``): deepseek-7b, the dense kind,
+   at full width cut to ``DS7_LAYERS`` of its 30 layers (at 16 B a
+   parameter its state does not fit one card at full depth).  (a) One
+   card, no mesh: ``TRAIN_STEPS`` bf16 steps of ``DS7_B`` x ``DS7_S``
+   tokens under remat "full" (``train_steps``: seconds a step, tokens a
+   second, peak memory, each attention route's launches; then one step
+   split).  (b) Two ranks of a (1, 2) mesh sharing the card over gloo
+   train the same steps from the same weights and batches, every family
+   on route ``tp`` (``parallel.sharding.tp_split``): per rank the
+   parameter bytes it holds (equal to the dry run's at (1, 2), phase 17's
+   process, and about half of (a)'s), its peak, its routes, step 1's
+   collectives (``CollectiveCounter``: no all-gather; the all-reduces,
+   the stream's psums among them, beside ``step_cost``'s collective term
+   at tp = 2), seconds a step (gloo's path through the host, not NVLink)
+   and its attention launches at 16 local heads on ``prefill_tc`` and
+   ``tc``; the losses within ``TP_LOSS_TOL`` (relative) of (a)'s.  (c) In
+   the same ranks, the f32 model at ``MESH_GATE_LAYERS`` layers, one step
+   of ``DS7_GATE_B`` x ``DS7_S`` tokens: rank 0 takes one card's
+   gradients first, and each gathered gradient of the (1, 2) step is
+   within ``GRAD_TOL`` f32 of its leaf's largest entry, the loss within
+   ``ELASTIC_TOL``, and the replicated leaves' gradients bit-equal on
+   both ranks.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
 phases 6, 7, 11 and 12, summed, for the model kernels, and beside them
-each rank's of phase 18b (``mesh_launches_per_rank``).  The
+each rank's of phase 18b (``mesh_launches_per_rank``) and of phase 19b
+(``tp_launches_per_rank``, on the entries of its routes).  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, one for hubert's bf16
@@ -3759,7 +3783,23 @@ def dryrun_cells() -> dict:
             shape = Shape(f"smoke_train_{B}x{S}", S, B, "train")
             out[f"{arch}/{remat}"] = run_cell(
                 arch, shape, overrides={**overrides, "remat": remat})
+    out["deepseek-7b/tp"] = tp_dryrun_cell()
     return out
+
+
+def tp_dryrun_cell() -> dict:
+    """Phase 19b's training step as rank 0 of a (1, 2) mesh on the meta
+    device (``launch.dryrun``, over a fake process group of two)."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.dryrun import fake_mesh, run_cell
+    try:
+        return run_cell("deepseek-7b", Shape(
+            f"smoke_train_{DS7_B}x{DS7_S}", DS7_S, DS7_B, "train"),
+            overrides={"segments": ds7_config(DS7_LAYERS).segments},
+            mesh=fake_mesh((1, 2)))
+    finally:
+        dist.destroy_process_group()
 
 
 def dryrun_train_cells() -> list:
@@ -4357,6 +4397,222 @@ def mesh_phase(B: int, S: int, G: int) -> dict:
                    for s, r in resumes.items()},
                 "s": time.perf_counter() - t}
     return out
+
+
+# phase 19: tensor-parallel products.  deepseek-7b at full width, 8 of
+# its 30 layers; the (1, 2) ranks' bf16 losses within the bf16 tolerance
+# of one card's (a row-parallel product's partial sums are rounded to
+# bf16 before the psum adds them)
+DS7_LAYERS = 8
+DS7_B, DS7_S = 2, 2048
+DS7_GATE_B = 1
+TP_LOSS_TOL = GRAD_TOL["bfloat16"]
+TP_TIMEOUT = 600
+# the kernels of phase 19b's path, by kernel-line entry: (launch counter,
+# route table, route)
+TP_KERNELS = {"flash_attention:prefill_tc": ("attn_routes", "prefill_tc"),
+              "attention_bwd": ("bwd_routes", "attention_tc")}
+
+
+def ds7_config(layers: int, dtype: str = "bfloat16"):
+    """deepseek-7b at its published widths, cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Segment
+    return get_config("deepseek-7b").with_(
+        segments=(Segment("dense", layers),), dtype=dtype)
+
+
+def ds7_stream(cfg, B: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(cfg, DataConfig(B, DS7_S, seed=0))
+
+
+def tp_rank(rank: int) -> dict:
+    """19b and 19c, one of two ranks of a (1, 2) mesh over gloo on one
+    card (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.hlo import CollectiveCounter
+    from repro_torch.train.step import batch_to, build_train_step
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+    # 19b
+    cfg = ds7_config(DS7_LAYERS)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ts = build_train_step(cfg, opt, mesh=mesh, device="cuda")
+    state = ts.init_state(0)
+    held_B = sum(p.numel() * p.element_size()
+                 for p in state["params"].values())
+    stream = ds7_stream(cfg, DS7_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    shd.reset_tp_routes()
+    losses, seconds, coll = [], [], None
+    for step in range(TRAIN_STEPS):
+        batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # step 1's collectives counted (the counter sees every operation:
+        # the timed steps 2-5 run without it)
+        with CollectiveCounter() if step == 0 else \
+                contextlib.nullcontext() as cc:
+            state, met = ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        if step == 0:
+            coll = cc.result()
+    out = {"held_B": held_B, "peak_B": torch.cuda.max_memory_allocated(),
+           "losses": losses, "seconds": seconds, "collectives": coll,
+           "routes": {k: dict(v) for k, v in shd.tp_route_launches.items()},
+           "launches": dict(ops.launches),
+           "attn_routes": dict(ops.route_launches),
+           "bwd_routes": dict(ops.bwd_route_launches),
+           "replicated": sorted(n for n, sh in ts.model.shardings().items()
+                                if sh is None)}
+    del ts, state
+    torch.cuda.empty_cache()
+    # 19c
+    cfg32 = ds7_config(MESH_GATE_LAYERS, "float32")
+    batch = batch_to(ds7_stream(cfg32, DS7_GATE_B).next_batch(), "cuda")
+    ref = None
+    if rank == 0:                   # one card's gradients
+        one = build_train_step(cfg32, opt, device="cuda")
+        params, met = one.grads(one.init_state(0), batch)
+        ref = {n: p.grad for n, p in params.items()}
+        ref_loss = float(met["loss"])
+        del one, params
+        torch.cuda.empty_cache()
+    ts = build_train_step(cfg32, opt, mesh=mesh, device="cuda")
+    params, met = ts.grads(ts.init_state(0), ts.local_batch(batch))
+    held = ts.model.shardings()
+    gaps, replicated = {}, {}
+    with shd.use_mesh(mesh):
+        for n, p in params.items():
+            g = p.grad if held[n] is None else held[n].full(p.grad)
+            if held[n] is None:
+                replicated[n] = g.cpu().numpy()
+            if ref is not None:
+                gaps[n] = float((g - ref[n]).abs().max()
+                                / ref[n].abs().max().clamp_min(1e-30))
+            del g
+    out["f32"] = {"loss": float(met["loss"]), "replicated": replicated}
+    if ref is not None:
+        out["f32"].update(ref_loss=ref_loss, gaps=gaps)
+    return out
+
+
+def tp_phase(dry: dict) -> dict:
+    """Phase 19: 19a on this process's card, then 19b and 19c in two
+    ranks of their own (``tp_rank``); checks and prints."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.model import step_cost
+    cfg = ds7_config(DS7_LAYERS)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    a = train_steps(cfg, opt, "19a", ds7_stream(cfg, DS7_B))
+    torch.cuda.empty_cache()
+    log(f"[19a] took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ranks = run_ranks(tp_rank, 2, backend="gloo", device="cuda",
+                      timeout=TP_TIMEOUT)
+    log(f"[19b] [19c] two ranks took {time.perf_counter() - t:.1f} s")
+    L, D, T = DS7_LAYERS, cfg.d_model, DS7_B * DS7_S
+    cell = dry["deepseek-7b/tp"]
+    if cell["status"] != "ok":
+        raise AssertionError(f"19: the dry run at (1, 2): {cell['status']}"
+                             f": {cell.get('error', cell.get('reason'))}")
+    cost = step_cost(cfg, DS7_B, DS7_S, DS7_S, 1, 2, "train")["coll_bytes"]
+    stream_B = T * D * 2                  # one bf16 psum of the stream
+    want_attn = {"prefill_tc": 2 * L * TRAIN_STEPS, "decode_split": 0,
+                 "general": 0}
+    b_rows = []
+    for i, rk in enumerate(ranks):
+        med = float(np.median(rk["seconds"][1:]))
+        c = rk["collectives"]
+        # the all-reduces that are not the stream's: the replicated
+        # leaves' gradients over 'model', the split leaves' squared norms
+        # in one, the cross-entropy's max and its psum of two and back
+        n_split = 7 * L + 2
+        xent = DS7_B * (DS7_S - 1) * 4
+        small = len(rk["replicated"]) * D * 4 + n_split * 4 + 5 * xent
+        n_stream = (c["per_kind_bytes"]["all-reduce"] - small) / stream_B
+        rel = max(abs(x - y) / abs(y) for x, y in zip(rk["losses"],
+                                                      a["losses"]))
+        row = {"held_B": rk["held_B"], "dry_param_B": cell["param_bytes"],
+               "half_of_19a": rk["held_B"] / (2 * a["n_params"]),
+               "peak_B": rk["peak_B"], "dry_peak_B":
+               cell["memory"]["peak_bytes"], "losses": rk["losses"],
+               "loss_rel_gap": rel, "step_s": rk["seconds"],
+               "median_step_s": med, "tokens_per_s": T / med,
+               "routes": rk["routes"], "collectives": c,
+               "stream_allreduces": n_stream,
+               "stream_allreduces_per_layer": (n_stream - 2) / L,
+               "step_cost_coll_B": cost,
+               "counted_over_step_cost": c["per_kind_bytes"]["all-reduce"]
+               / cost, "dry_collectives": cell["collectives"],
+               "attn_routes": rk["attn_routes"],
+               "bwd_routes": rk["bwd_routes"], "launches": rk["launches"]}
+        log(f"[19b] rank {i} of (1, 2) over gloo, two ranks on one card: "
+            f"parameters held {rk['held_B']} B (the dry run's "
+            f"{cell['param_bytes']}; {row['half_of_19a']:.4f} of 19a's "
+            f"bf16 bytes), peak {rk['peak_B']} B (the dry run's "
+            f"{cell['memory']['peak_bytes']}), routes {rk['routes']}; "
+            f"losses {rk['losses']} (19a's {a['losses']}, largest relative "
+            f"gap {rel:.3g}); seconds {rk['seconds']}, median of steps "
+            f"2-{TRAIN_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
+            f"(gloo through the host, not NVLink); step 1's collectives "
+            f"{c} -- {n_stream:g} all-reduces of the stream ({stream_B} B "
+            f"each), {row['stream_allreduces_per_layer']:g} a layer; "
+            f"step_cost's collective term at tp = 2 {cost:.6g} B, counted "
+            f"{row['counted_over_step_cost']:.4f} of it; the dry run's "
+            f"{cell['collectives']}; attention {rk['attn_routes']}, "
+            f"backward {rk['bwd_routes']}")
+        if c["counts"]["all-gather"] or c["counts"]["reduce-scatter"] \
+                or c["counts"]["all-to-all"]:
+            raise AssertionError(f"19b rank {i}: a tp step gathered: {c}")
+        if any(r["gathered"] for r in rk["routes"].values()) or \
+                set(rk["routes"]) != {"embed", "gqa", "mlp", "head"}:
+            raise AssertionError(f"19b rank {i}: routes {rk['routes']}")
+        if rk["held_B"] != cell["param_bytes"]:
+            raise AssertionError(f"19b rank {i}: holds {rk['held_B']} B, "
+                                 f"the dry run {cell['param_bytes']}")
+        if not rel <= TP_LOSS_TOL:
+            raise AssertionError(f"19b rank {i}: losses {rk['losses']} vs "
+                                 f"19a's {a['losses']}")
+        if rk["attn_routes"] != want_attn or \
+                rk["bwd_routes"]["attention_tc"] != L * TRAIN_STEPS:
+            raise AssertionError(f"19b rank {i}: attention "
+                                 f"{rk['attn_routes']}, backward "
+                                 f"{rk['bwd_routes']}")
+        b_rows.append(row)
+    f0, f1 = ranks[0]["f32"], ranks[1]["f32"]
+    worst = max(f0["gaps"].values())
+    rel32 = abs(f0["loss"] - f0["ref_loss"]) / abs(f0["ref_loss"])
+    same = all(np.array_equal(f0["replicated"][n], f1["replicated"][n])
+               for n in f0["replicated"])
+    log(f"[19c] f32 at {MESH_GATE_LAYERS} layers, {DS7_GATE_B} x {DS7_S} "
+        f"tokens: loss {f0['loss']} and {f1['loss']} vs one card's "
+        f"{f0['ref_loss']} (relative gap {rel32:.3g}); gathered gradients' "
+        f"largest gap {worst:.3g} of a leaf's largest entry "
+        f"({max(f0['gaps'], key=f0['gaps'].get)}); "
+        f"{len(f0['replicated'])} replicated leaves' gradients bit-equal "
+        f"on both ranks: {same}")
+    if not (worst <= GRAD_TOL["float32"] and rel32 <= ELASTIC_TOL and same
+            and f1["loss"] == f0["loss"]):
+        raise AssertionError(f"19c: gradients {worst}, loss {rel32}, "
+                             f"replicated equal {same}")
+    return {"a": {k: v for k, v in a.items() if k != "launches"},
+            "b": b_rows,
+            "c": {"loss": f0["loss"], "ref_loss": f0["ref_loss"],
+                  "loss_rel_gap": rel32, "worst_grad_gap": worst,
+                  "replicated_equal": same}}
 
 
 def main() -> int:
@@ -4975,6 +5231,20 @@ def phases(dry_pool) -> int:
     summary["p18"] = {"a": p18["a"], "b": p18["b"], "s": p18["s"],
                       "c": {k: v for k, v in p18["c"].items()}}
 
+    # -------------------------------------- 19. tensor-parallel products
+    t19 = time.perf_counter()
+    p19 = tp_phase(dry)
+    p19["s"] = sig(time.perf_counter() - t19)
+    log(f"[19] phase 19 took {p19['s']:.2f} s")
+    summary["p19"] = {"a": {k: p19["a"][k] for k in (
+        "losses", "median_step_s", "tokens_per_s", "peak_B", "n_params",
+        "routes", "bwd_routes", "split")},
+        "b": [{k: r[k] for k in ("held_B", "peak_B", "losses",
+                                 "median_step_s", "tokens_per_s",
+                                 "stream_allreduces", "collectives",
+                                 "counted_over_step_cost")}
+              for r in p19["b"]], "c": p19["c"], "s": p19["s"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -5303,6 +5573,18 @@ def phases(dry_pool) -> int:
         if min(k["mesh_launches_per_rank"]) < 1:
             raise AssertionError(f"18b: {k['name']} was not launched on "
                                  f"every rank: {k['mesh_launches_per_rank']}")
+    # the tensor-parallel path's launches, per rank of phase 19b
+    for k in kernels:
+        if k["name"] not in TP_KERNELS:
+            continue
+        table, route = TP_KERNELS[k["name"]]
+        k["tp_launches_per_rank"] = [r[table][route] for r in p19["b"]]
+        k["tp_launches_from"] = (f"phase 19b, deepseek-7b ({DS7_LAYERS} "
+                                 f"layers) trained by two ranks of a (1, 2) "
+                                 f"mesh, {TRAIN_STEPS} steps")
+        if min(k["tp_launches_per_rank"]) < 1:
+            raise AssertionError(f"19b: {k['name']} was not launched on "
+                                 f"every rank: {k['tp_launches_per_rank']}")
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -22,8 +22,9 @@ While it runs it holds
 and writes the JAX package's cell keys (``cell``, ``status``, ``arch``,
 ``shape``, ``mesh``, ``chips``, ``seconds``, ``memory``, ``cost``,
 ``collectives``, ``params``, ``active_params``) plus the port's own:
-``leaves`` (the model's parameters, counted), ``state_bytes`` (the
-training state: parameters, f32 master, m and v), ``kernel_calls`` and
+``leaves`` (the model's parameters, counted), ``param_bytes`` (theirs),
+``state_bytes`` (the training state: parameters, f32 master, m and v),
+``kernel_calls`` and
 ``step_cost`` (``roofline.model`` at dp = tp = 1, for comparison).  The
 predicted peak leaves out the CUDA allocator's rounding and the decode
 kernel's few-kilobyte workspace.
@@ -37,14 +38,18 @@ the root of the checkout (listed in ``.gitignore``).
 
 ``--multi-pod`` prices a cell as rank 0 of the (2, 16, 16) production
 mesh, ``--both-meshes`` of (16, 16) and of (2, 16, 16) (cells
-``...__gpu256``, ``...__gpu512``): the process is rank 0 of a fake
-process group of that size (``torch.testing``'s ``FakeStore``, backend
-``"fake"``), the model holds rank 0's blocks on the meta device, the batch
-is rank 0's rows (a cell whose batch does not split over the data axes is
-skipped), serving holds its dense leaves whole and its experts in the
-round robin over the model axis, and ``MetaCollectives`` answers the
-collectives with meta tensors of their results' shapes.  Parameters,
-state bytes, the peak, FLOPs and collective bytes are rank 0's.
+``...__gpu256``, ``...__gpu512``), and ``run_cell(..., mesh=fake_mesh(
+shape))`` of any mesh: the process is rank 0 of a fake process group of
+that size (``torch.testing``'s ``FakeStore``, backend ``"fake"``), the model
+holds rank 0's blocks on the meta device, the batch is rank 0's rows (a
+cell whose batch does not split over the data axes is skipped), serving
+holds its dense leaves whole and its experts in the round robin over the
+model axis, and ``MetaCollectives`` answers the collectives with meta
+tensors of their results' shapes.  A training step takes the families'
+routes on the model axis (``parallel.sharding.tp_split``): a ``tp``
+family holds its blocks and its products' psums count as all-reduces,
+a ``gathered`` one its all-gathers.  Parameters, state bytes, the peak,
+FLOPs and collective bytes are rank 0's.
 """
 from __future__ import annotations
 
@@ -66,7 +71,7 @@ from ..configs import (SHAPES, cell_is_applicable, get_config, input_specs,
 from ..configs.shapes import Shape
 from ..kernels import ops
 from ..models.model import Model
-from ..launch.mesh import make_production_mesh
+from ..launch.mesh import make_mesh
 from ..parallel import sharding as shd
 from ..roofline.hlo import CollectiveCounter, summarize_cost
 from ..roofline.model import step_cost
@@ -159,18 +164,19 @@ class MetaCollectives(TorchDispatchMode):
         raise NotImplementedError(f"{func} on meta tensors")
 
 
-def production_mesh(multi_pod: bool):
-    """Rank 0 of the (16, 16) or (2, 16, 16) production mesh over a fake
+def fake_mesh(shape: tuple, axes: tuple = ("data", "model")):
+    """Rank 0 of a ``shape`` mesh with axis names ``axes`` over a fake
     process group (started here once per size; ``main`` ends it)."""
+    import math
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    n = 512 if multi_pod else 256
+    n = math.prod(shape)
     if dist.is_initialized() and dist.get_world_size() != n:
         dist.destroy_process_group()
     if not dist.is_initialized():
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=n)
-    return make_production_mesh(multi_pod=multi_pod, device="cpu")
+    return make_mesh(shape, axes, device="cpu")
 
 
 def _state_bytes(state: dict) -> int:
@@ -186,7 +192,7 @@ def run_cell(arch: str, shape: str | Shape, tag: str = "",
     """The dry run of ``arch`` (with ``overrides``, a dict of config
     fields) at ``shape`` (a name of ``SHAPES`` or a ``Shape``) on one card,
     the experts (if any) in the model's one-shard round robin, or as rank
-    0 of ``mesh`` (``production_mesh``): the cell's dict (see the module
+    0 of ``mesh`` (``fake_mesh``): the cell's dict (see the module
     docstring), or a ``skipped`` one where the cell does not apply."""
     cfg = get_config(arch)
     if overrides:
@@ -257,6 +263,7 @@ def _run_cell(cfg, arch: str, shape: Shape, cell: str, mesh, sizes: dict,
                                        + ops.meta_cost["bytes"]),
                "bytes accessed kernels": float(ops.meta_cost["bytes"])}
     leaves = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(_nbytes(p) for p in model.parameters())
     result = {
         "cell": cell,
         "status": "ok",
@@ -276,6 +283,7 @@ def _run_cell(cfg, arch: str, shape: Shape, cell: str, mesh, sizes: dict,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "leaves": leaves,
+        "param_bytes": param_bytes,
         "state_bytes": state_bytes,
         "kernel_calls": {k: n for k, n in ops.meta_calls.items() if n},
         "kernel_flops": float(ops.meta_cost["flops"]),
@@ -295,8 +303,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--out", default=str(RESULTS))
     args = ap.parse_args(argv)
-    pods = ([False, True] if args.both_meshes else [True] if args.multi_pod
-            else [None])
+    # each cell's mesh shape (None: one card, no mesh)
+    meshes = ([(16, 16), (2, 16, 16)] if args.both_meshes
+              else [(2, 16, 16)] if args.multi_pod else [None])
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -304,18 +313,20 @@ def main(argv: list[str] | None = None) -> int:
     shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
 
     try:
-        return _cells(args, pods, archs, shapes, out_dir)
+        return _cells(args, meshes, archs, shapes, out_dir)
     finally:
         import torch.distributed as dist
-        if pods != [None] and dist.is_initialized():
+        if meshes != [None] and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _cells(args, pods, archs, shapes, out_dir) -> int:
+def _cells(args, meshes, archs, shapes, out_dir) -> int:
     failures = 0
-    for multi_pod, arch, shape in ((p, a, s) for p in pods for a in archs
+    for mesh_shape, arch, shape in ((m, a, s) for m in meshes for a in archs
                                    for s in shapes):
-        mesh = None if multi_pod is None else production_mesh(multi_pod)
+        mesh = None if mesh_shape is None else fake_mesh(
+            mesh_shape, ("pod", "data", "model") if len(mesh_shape) == 3
+            else ("data", "model"))
         chips = 1 if mesh is None else mesh.size()
         cell = f"{arch}__{shape}__gpu{chips}{args.tag}"
         path = out_dir / f"{cell}.json"

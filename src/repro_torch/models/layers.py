@@ -9,6 +9,14 @@ working dtype at the same places.  Prefill attention and the scan go through
 CPU ones); MLA's decode step is plain PyTorch, as the JAX package's is jnp
 outside its attention op.  Caches are functional: each call returns new
 tensors and leaves the old ones as they were.
+
+Tensor parallelism (``parallel.sharding.tp_split``): the attention layers
+and ``swiglu`` take their head and channel counts from the weights they
+are given, so they run alike on whole leaves and on one rank's blocks
+(column blocks of the input products, row blocks of the output one).
+Given ``tp`` (the mesh axis the blocks are over, 'model'), the output
+product's partial sums are added over that axis (``psum``) and a padded
+model's head mask is cut to the rank's heads.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import sharding as shd
 from .config import ModelConfig, Segment
 
 
@@ -39,9 +48,15 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _reduce(y: torch.Tensor, tp: str | None) -> torch.Tensor:
+    """A row-parallel product's output: its partial sums added over the
+    mesh axis ``tp`` (None: whole already)."""
+    return y if tp is None else shd.psum(y, tp)
+
+
+def swiglu(p: dict, x: torch.Tensor, tp: str | None = None) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return _reduce(h @ p["w_down"], tp)
 
 
 # ---------------------------------------------------------------- attention
@@ -67,31 +82,39 @@ def head_mask(cfg: ModelConfig, dtype, device=None) -> torch.Tensor | None:
 
 
 def gqa_project(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """q (B, S, Hq, hd), k and v (B, S, KV, hd): the heads of the columns
+    given (every head, or one rank's block of them)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, n_q_heads(cfg), hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
     return q, k, v
 
 
-def _attend_out(p: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    B, S = out.shape[:2]
+def _attend_out(p: dict, out: torch.Tensor, cfg: ModelConfig,
+                tp: str | None = None) -> torch.Tensor:
+    B, S, Hq, hd = out.shape
     hm = head_mask(cfg, out.dtype, out.device)
     if hm is not None:
+        if tp is not None:     # the rank's heads of the padded ones
+            hm = hm.narrow(2, shd.axis_index(tp) * Hq, Hq)
         out = out * hm
-    return out.reshape(B, S, n_q_heads(cfg) * cfg.hd) @ p["wo"]
+    return _reduce(out.reshape(B, S, Hq * hd) @ p["wo"], tp)
 
 
-def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, seg: Segment):
-    """Full-sequence attention (prefill)."""
+def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
+                  tp: str | None = None):
+    """Full-sequence attention (prefill): on every head, or under ``tp``
+    on the rank's heads (its blocks of wq, wk, wv and wo), the output
+    summed over ``tp``."""
     B, S, _ = x.shape
     q, k, v = gqa_project(p, x, cfg)
     pos = _positions(B, S, x.device)
     q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=seg.causal,
                         window=seg.sliding_window)
-    return _attend_out(p, out, cfg)
+    return _attend_out(p, out, cfg, tp)
 
 
 def gqa_init_cache(cfg: ModelConfig, seg: Segment, B: int, max_len: int,
@@ -160,7 +183,7 @@ def mla_project_q(p: dict, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     _, _, nope, rp, _ = _mla_dims(cfg)
     ql = rmsnorm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
-    q = (ql @ p["wq_b"]).reshape(B, S, cfg.n_heads, nope + rp)
+    q = (ql @ p["wq_b"]).reshape(B, S, -1, nope + rp)
     return q[..., :nope], q[..., nope:]
 
 
@@ -174,15 +197,17 @@ def mla_latent(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                  seg: Segment) -> torch.Tensor:
+                  seg: Segment, tp: str | None = None) -> torch.Tensor:
     """Full-sequence MLA (prefill): the latent expanded to per-head keys
     (nope part, plus the one rope key shared by every head) and values,
     then one attention call at head dims (nope + rope, v) with the scale
     of the q/k head dim.  q, k and v are made contiguous, as the kernels
-    take them."""
+    take them.  Under ``tp`` the heads are the rank's (its column blocks
+    of wq_b and wkv_b, its row block of mla_wo; wq_a, wkv_a and the norms
+    whole) and the output is summed over ``tp``."""
     B, S, _ = x.shape
     _, _, nope, rp, vh = _mla_dims(cfg)
-    H = cfg.n_heads
+    H = p["wkv_b"].shape[-1] // (nope + vh)
     q_nope, q_rope = mla_project_q(p, x, cfg)
     ckv, k_rope = mla_latent(p, x, cfg)
     pos = _positions(B, S, x.device)
@@ -194,7 +219,7 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     v = kv[..., nope:].contiguous()
     out = ops.attention(q, k, v, causal=seg.causal,
                         scale=(nope + rp) ** -0.5)
-    return out.reshape(B, S, H * vh) @ p["mla_wo"]
+    return _reduce(out.reshape(B, S, H * vh) @ p["mla_wo"], tp)
 
 
 def mla_init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
@@ -266,32 +291,33 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def cross_kv(p: dict, img: torch.Tensor, cfg: ModelConfig):
     """The keys and values of the (stub) image embeddings img (B, N, D):
-    each (B, N, KV, hd), without rope; the decode cache of a vision
-    group's cross-attention."""
+    each (B, N, KV, hd) -- the KV heads of the columns given -- without
+    rope; the decode cache of a vision group's cross-attention."""
     B, N, _ = img.shape
-    k = (img @ p["cross_wk"]).reshape(B, N, cfg.n_kv_heads, cfg.hd)
-    v = (img @ p["cross_wv"]).reshape(B, N, cfg.n_kv_heads, cfg.hd)
+    k = (img @ p["cross_wk"]).reshape(B, N, -1, cfg.hd)
+    v = (img @ p["cross_wv"]).reshape(B, N, -1, cfg.hd)
     return k, v
 
 
 def cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, tp: str | None = None) -> torch.Tensor:
     """Text queries x (B, S, D) against image keys and values, no mask and
-    no positions (the ``n_heads`` query heads: no head mask); the output
-    scaled by ``tanh(gate)`` in x's dtype."""
+    no positions (the ``n_heads`` query heads, or under ``tp`` the rank's:
+    no head mask); the output, summed over ``tp``, scaled by
+    ``tanh(gate)`` in x's dtype."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["cross_wq"]).reshape(B, S, cfg.n_heads, hd)
+    q = (x @ p["cross_wq"]).reshape(B, S, -1, hd)
     out = ops.attention(q, k, v, causal=False)
-    out = out.reshape(B, S, cfg.n_heads * hd) @ p["cross_wo"]
+    out = _reduce(out.reshape(B, S, q.shape[2] * hd) @ p["cross_wo"], tp)
     return torch.tanh(p["gate"]).to(out.dtype) * out
 
 
 def cross_attention(p: dict, x: torch.Tensor, img: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, tp: str | None = None) -> torch.Tensor:
     """Text queries attend to (stub) image embeddings; tanh-gated
     residual."""
-    return cross_attend(p, x, *cross_kv(p, img, cfg), cfg)
+    return cross_attend(p, x, *cross_kv(p, img, cfg), cfg, tp)
 
 
 # --------------------------------------------------------------------- mamba

@@ -49,14 +49,28 @@ dense reference (``models.moe``).
 Under a mesh (``parallel.sharding.set_active_mesh``, before the model is
 built) the model is one rank's part of the whole, in explicit SPMD.  The
 weights are drawn whole, as on one device, and each leaf that
-``param_spec`` shards keeps only this rank's block; reading it
-(``Params[name]``, ``Model._w``) gathers the blocks through an autograd
-Function (an ``all_gather``, whose backward is a ``reduce_scatter``), so
-training gathers each leaf where a layer uses it and recomputes the
-gather under remat.  Serving gathers the dense leaves once
-(``gather_dense_``) and keeps of the experts only this rank's slots
-(``place_slots_``).  The residual stream stays whole on every rank of the
-model axis; the MoE layers split the sequence (``moe_a2a``).
+``param_spec`` shards keeps only this rank's block.  Each family of a
+layer then takes the route ``parallel.sharding.tp_split`` gives it on the
+model axis, from the config alone:
+
+* ``tp``: its products run on the blocks as held (``Params.tp_blocks``):
+  the attention on the rank's heads, the MLP on its channels, each output
+  summed by one psum over 'model'; the embedding looks up the rank's
+  vocabulary rows (``_vocab_embed``), the head gives the rank's vocabulary
+  slice of the logits, and the cross-entropy is vocab-parallel
+  (``_xent``).  No weight moves between ranks;
+* ``gathered``: reading a leaf (``Params[name]``, ``Model._w``) gathers
+  its blocks through an autograd Function (an ``all_gather``, whose
+  backward is a ``reduce_scatter``), where a layer uses it, again under
+  remat: the Mamba mixer, the MoE router, and any family whose heads the
+  axis does not divide.
+
+Serving gathers the dense leaves once (``gather_dense_``, which also
+drops the ``tp`` routes: the reference serves with whole parameters) and
+keeps of the experts only this rank's slots (``place_slots_``);
+``prefill`` and ``decode_step`` refuse a model still split for training.
+The residual stream stays whole on every rank of the model axis; the MoE
+layers split the sequence (``moe_a2a``).
 """
 from __future__ import annotations
 
@@ -123,6 +137,37 @@ class Params(nn.Module):
         """The named leaf as this rank holds it, and its ``Sharding`` (None
         where whole)."""
         return getattr(self, name), self._shardings.get(name)
+
+    def tp_block(self, name: str, dim: int) -> torch.Tensor:
+        """The named leaf as this rank's block over 'model' on ``dim``
+        (raises where it is held otherwise)."""
+        return _tp_block(name, *self.held(name), dim)
+
+    def tp_blocks(self, dims: dict) -> dict:
+        """Every leaf of this group as this rank holds it: those of
+        ``dims`` ({name: dim}) as their blocks (``tp_block``), the others
+        whole (raises where one is split)."""
+        out = {}
+        for name in self._parameters:
+            if name in dims:
+                out[name] = self.tp_block(name, dims[name])
+            elif self._shardings.get(name) is not None:
+                raise RuntimeError(f"{name} is split, but the products of "
+                                   f"its family do not read it so")
+            else:
+                out[name] = getattr(self, name)
+        return out
+
+
+def _tp_block(name: str, t: torch.Tensor, sh, dim: int) -> torch.Tensor:
+    """``t`` (leaf ``name``, held with ``Sharding`` ``sh``), which a
+    tensor-parallel product reads as this rank's block over 'model' on
+    ``dim``: raises where it is held otherwise."""
+    if sh is None or sh.spec != shd.tp_spec(t.dim(), dim):
+        raise RuntimeError(f"{name}: a tensor-parallel product needs its "
+                           f"block over 'model' on dim {dim}; held as "
+                           f"{None if sh is None else sh.spec}")
+    return t
 
 
 class _Init:
@@ -255,9 +300,37 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          tp: str | None = None) -> torch.Tensor:
+    """The mean cross-entropy of ``logits`` (f32) against ``targets``.
+    Under ``tp`` the logits are this rank's slice of the vocabulary: the
+    log-sum-exp and the target's logit come from two all-reduces over
+    ``tp`` (the max, which takes no gradient, then the exps' sum and the
+    target's shifted logit in one psum).  On an axis of one rank the slice
+    is the whole vocabulary, and this is the plain cross-entropy."""
+    if tp is None or shd.axis_size(tp) == 1:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+    V = logits.shape[-1]
+    t = targets.long() - shd.axis_index(tp) * V
+    mine = (t >= 0) & (t < V)
+    z = logits.float() - shd.pmax(logits.amax(dim=-1, keepdim=True), tp)
+    zt = z.gather(-1, t.clamp(0, V - 1)[..., None])[..., 0]
+    sums = shd.psum(torch.stack([z.exp().sum(dim=-1),
+                                 torch.where(mine, zt, 0.0)]), tp)
+    return (torch.log(sums[0]) - sums[1]).mean()
+
+
+def _vocab_embed(tokens: torch.Tensor, rows: torch.Tensor,
+                 tp: str) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's block of vocabulary
+    rows: the tokens of other ranks' rows come out as zeros, and a psum
+    over ``tp`` puts every token's row together."""
+    V = rows.shape[0]
+    t = tokens - shd.axis_index(tp) * V
+    mine = ((t >= 0) & (t < V))[..., None]
+    x = F.embedding(t.clamp(0, V - 1), rows)
+    return shd.psum(torch.where(mine, x, 0), tp)
 
 
 class Model(nn.Module):
@@ -302,6 +375,9 @@ class Model(nn.Module):
             self.mtp = nn.ModuleList(Params(ini.mtp())
                                      for _ in range(cfg.mtp_depth))
         self.mesh = shd.active_mesh()
+        # the model axis the families are routed over (tp_split), None
+        # without one or once gather_dense_ holds the leaves whole
+        self._n_model = None
         if self.mesh is not None:
             self._shard(self.mesh)
 
@@ -321,6 +397,31 @@ class Model(nn.Module):
                 if sh.axes():
                     prm.data = sh.local(prm.data).clone()
                     mod._shardings[name] = sh
+        if "model" in mesh.mesh_dim_names:
+            self._n_model = n_model
+
+    def _route(self, seg: Segment | None, family: str) -> str | None:
+        """The axis ('model') that ``family`` of ``seg`` (None: the
+        embedding and head) runs its products over (``tp_split``), or None
+        where it reads its leaves whole."""
+        if self._n_model is None:
+            return None
+        route = shd.tp_split(self.cfg, seg, self._n_model)[family]
+        return "model" if route == "tp" else None
+
+    def _tp(self, seg: Segment | None, family: str) -> str | None:
+        """``_route``, counted in ``parallel.sharding.tp_route_launches``
+        under a mesh."""
+        tp = self._route(seg, family)
+        if self._n_model is not None:
+            shd.count_tp_route(family, "tp" if tp else "gathered")
+        return tp
+
+    @staticmethod
+    def _weights(p: "Params", family: str, tp: str | None):
+        """A family's leaves: the blocks as held where ``tp``, else ``p``
+        (whose reads gather)."""
+        return p if tp is None else p.tp_blocks(shd.TP_DIMS[family])
 
     def shardings(self) -> dict:
         """{parameter name: its ``Sharding``, or None where whole}."""
@@ -347,6 +448,7 @@ class Model(nn.Module):
                     prm = getattr(mod, name)
                     prm.data = sh.full(prm.data)
                     del mod._shardings[name]
+        self._n_model = None
 
     @torch.no_grad()
     def place_slots_(self, plan: PlacementPlan) -> None:
@@ -373,11 +475,14 @@ class Model(nn.Module):
         cfg = self.cfg
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         parts = []
-        if seg.attn == "mla":
-            parts.append(L.mla_attention(lp["attn"], h, cfg, seg))
-        elif seg.attn == "gqa":
-            parts.append(L.gqa_attention(lp["attn"], h, cfg, seg))
+        if seg.attn in ("mla", "gqa"):
+            tp = self._tp(seg, seg.attn)
+            attend = (L.mla_attention if seg.attn == "mla"
+                      else L.gqa_attention)
+            parts.append(attend(self._weights(lp["attn"], seg.attn, tp), h,
+                                cfg, seg, tp))
         if seg.kind in ("mamba", "hybrid"):
+            self._tp(seg, "mamba")
             parts.append(L.mamba_mixer(lp["mamba"], h, cfg)[0])
         out = parts[0]
         for extra in parts[1:]:
@@ -388,8 +493,15 @@ class Model(nn.Module):
         """The FFN part of one layer and its aux loss (None but for MoE)."""
         h = L.rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
         if seg.kind == "moe":
-            return moe_apply(lp["moe"], h, self.cfg, self.plan, mode)
-        return L.swiglu(lp["mlp"], h), None
+            self._tp(seg, "router")
+            tp = self._tp(seg, "mlp") if self.cfg.n_shared_experts else None
+            return moe_apply(lp["moe"], h, self.cfg, self.plan, mode, tp)
+        return self._swiglu(lp["mlp"], h, seg), None
+
+    def _swiglu(self, p: "Params", h: torch.Tensor,
+                seg: Segment) -> torch.Tensor:
+        tp = self._tp(seg, "mlp")
+        return L.swiglu(self._weights(p, "mlp", tp), h, tp)
 
     def _block(self, lp, x: torch.Tensor, seg: Segment, mode: str,
                img: torch.Tensor | None = None):
@@ -398,9 +510,10 @@ class Model(nn.Module):
         loss or None)."""
         if seg.kind == "mamba":
             h = L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps)
+            self._tp(seg, "mamba")
             return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0], None
         if seg.kind == "vision_group":
-            x = self._cross_block(lp["cross"], x, img=img)
+            x = self._cross_block(lp["cross"], x, seg, img=img)
             sub = _self_segment(seg)
             for sp in lp["self"]:
                 x, _ = self._block(sp, x, sub, mode)
@@ -409,24 +522,39 @@ class Model(nn.Module):
         y, aux = self._ffn(lp, x, seg, mode)
         return x + y, aux
 
-    def _cross_block(self, cp, x: torch.Tensor, *,
+    def _cross_block(self, cp, x: torch.Tensor, seg: Segment, *,
                      img: torch.Tensor | None = None,
                      kv: tuple | None = None) -> torch.Tensor:
-        """A vision group's cross-attention sub-layer against the image
-        embeddings ``img``, or their keys and values ``kv``, then its
+        """A vision group's (``seg``) cross-attention sub-layer against the
+        image embeddings ``img``, or their keys and values ``kv``, then its
         MLP."""
         cfg = self.cfg
         h = L.rmsnorm(x, cp["ln1"], cfg.norm_eps)
+        tp = self._tp(seg, "cross")
+        w = self._weights(cp, "cross", tp)
         if kv is None:
-            x = x + L.cross_attention(cp, h, img, cfg)
+            x = x + L.cross_attention(w, h, img, cfg, tp)
         else:
-            x = x + L.cross_attend(cp, h, *kv, cfg)
-        return x + L.swiglu(cp["mlp"], L.rmsnorm(x, cp["ln2"], cfg.norm_eps))
+            x = x + L.cross_attend(w, h, *kv, cfg, tp)
+        return x + self._swiglu(cp["mlp"], L.rmsnorm(x, cp["ln2"],
+                                                     cfg.norm_eps), seg)
 
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         if self.cfg.frame_input:
             return batch["frames"].to(self.dtype)
-        return F.embedding(batch["tokens"], self._w("embed"))
+        return self._embed(batch["tokens"])
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        tp = self._tp(None, "embed")
+        if tp is None:
+            return F.embedding(tokens, self._w("embed"))
+        return _vocab_embed(tokens, self._vocab_rows("embed"), tp)
+
+    def _vocab_rows(self, name: str) -> torch.Tensor:
+        """``embed`` or ``lm_head`` as this rank's block of the vocabulary."""
+        family = "embed" if name == "embed" else "head"
+        return _tp_block(name, getattr(self, name),
+                         self._shardings.get(name), shd.TP_DIMS[family][name])
 
     def _image_embeds(self, batch: dict) -> torch.Tensor | None:
         img = batch.get("image_embeds")
@@ -436,10 +564,16 @@ class Model(nn.Module):
         return None if img is None else img.to(self.dtype)
 
     def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and head, accumulated in f32 (B, S, V)."""
+        """Final norm and head, accumulated in f32 (B, S, V); where the
+        head runs tensor-parallel, this rank's slice of the vocabulary
+        (B, S, V / ranks), which ``_xent`` takes with its ``tp``."""
         x = L.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
-        head = (self._w("embed").T if self.cfg.tie_embeddings
-                else self._w("lm_head"))
+        tie = self.cfg.tie_embeddings
+        if self._tp(None, "head") is None:
+            head = self._w("embed").T if tie else self._w("lm_head")
+        else:
+            head = (self._vocab_rows("embed").T if tie
+                    else self._vocab_rows("lm_head"))
         return x.float() @ head.float()
 
     def forward(self, batch: dict, mode: str = "a2a"
@@ -488,7 +622,7 @@ class Model(nn.Module):
             tgt, lg = labels, logits
         else:
             tgt, lg = labels[:, 1:], logits[:, :-1]
-        ce = _xent(lg, tgt)
+        ce = _xent(lg, tgt, self._route(None, "head"))
         total = ce + cfg.router_aux_coef * aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth:
@@ -509,12 +643,13 @@ class Model(nn.Module):
         seg = _mtp_segment(cfg)
         h = x
         for d, mp in enumerate(self.mtp):
-            nxt = F.embedding(tokens[:, d + 1:], self._w("embed"))
+            nxt = self._embed(tokens[:, d + 1:])
             hcat = torch.cat([L.rmsnorm(h[:, :nxt.shape[1]], mp["ln"],
                                         cfg.norm_eps), nxt], dim=-1)
             hm, _ = self._block(mp["block"], hcat @ mp["proj"], seg, "a2a")
             lg = self.logits_fn(hm)
-            total = total + _xent(lg[:, :-1], labels[:, d + 1:][:, 1:])
+            total = total + _xent(lg[:, :-1], labels[:, d + 1:][:, 1:],
+                                  self._route(None, "head"))
             h = hm
         return total / cfg.mtp_depth
 
@@ -541,6 +676,14 @@ class Model(nn.Module):
         return traces
 
     # -------------------------------------------------------------- serve
+    def _whole_leaves(self) -> None:
+        """Serving reads whole leaves and whole logits: raise where the
+        model is still split for training (``tp`` routes)."""
+        if self._n_model is not None:
+            raise RuntimeError("serving under a mesh reads whole leaves: "
+                               "call gather_dense_() first, as "
+                               "launch.serve does")
+
     def init_cache(self, B: int, max_len: int) -> list:
         cfg, dt, dev = self.cfg, self.dtype, self.device
         caches = []
@@ -570,6 +713,7 @@ class Model(nn.Module):
         second pass over its input (``_prefill_layer_cache``), so the SSM
         mixer runs twice per layer and a vision group's every sub-layer
         twice."""
+        self._whole_leaves()
         x = self._embed_inputs(batch)
         img = self._image_embeds(batch)
         caches = []
@@ -592,7 +736,7 @@ class Model(nn.Module):
             # a replay of the group up to it
             cp, sub = lp["cross"], _self_segment(seg)
             ck, cv = L.cross_kv(cp, img, cfg)
-            x = self._cross_block(cp, x_in, kv=(ck, cv))
+            x = self._cross_block(cp, x_in, seg, kv=(ck, cv))
             self_caches = []
             for sp in lp["self"]:
                 self_caches.append(self._prefill_layer_cache(sp, x, sub,
@@ -612,6 +756,7 @@ class Model(nn.Module):
     def decode_step(self, token: torch.Tensor, caches: list, pos: int):
         """One token (B, 1) for the whole batch at position ``pos`` (a
         Python int); returns (logits (B, 1, V) f32, new caches)."""
+        self._whole_leaves()
         if self.cfg.frame_input:
             x = token.to(self.dtype)
         else:
@@ -633,7 +778,8 @@ class Model(nn.Module):
             # the cross query against the cached image keys and values,
             # which stay as they are
             cc = cache["cross"]
-            x = self._cross_block(lp["cross"], x, kv=(cc["ck"], cc["cv"]))
+            x = self._cross_block(lp["cross"], x, seg,
+                                  kv=(cc["ck"], cc["cv"]))
             sub, self_caches = _self_segment(seg), []
             for sp, c in zip(lp["self"], cache["self"]):
                 x, c = self._decode_block(sp, x, sub, c, pos)

@@ -34,6 +34,12 @@ choice computed by one shard only (the first that holds its expert).  The
 JAX package's ``moe_tp`` computes a choice on every shard that holds its
 expert, so a replicated expert adds its output once per replica (ROADMAP
 Queue 3 i); the port's does not copy that.
+
+The shared experts (deepseek-v3's) run on every token beside the routed
+ones.  Given ``tp`` (``parallel.sharding.tp_split`` routes them ``tp``),
+each rank runs its column blocks of ``w_gate``/``w_up`` and its row block
+of ``w_down``, and a psum over ``tp`` adds them; else they are read whole.
+The router is read whole in every case.
 """
 from __future__ import annotations
 
@@ -289,7 +295,17 @@ def _expert_ffn(e_gate: torch.Tensor, e_up: torch.Tensor,
 
 # ---------------------------------------------------------------- execution
 
-def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig):
+def _shared(p, tp: str | None) -> dict:
+    """The shared experts' leaves of ``p``: under ``tp`` this rank's blocks
+    (``Params.tp_block``), else whole."""
+    if tp is None:
+        return {name: p[name] for name in _SHARED_FFN}
+    return {name: p.tp_block(name, dim)
+            for name, dim in shd.TP_DIMS["mlp"].items()}
+
+
+def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig,
+                  tp: str | None = None):
     """Single-device reference: dense top-k MoE, every expert on every
     token, gated by the router.  Under a mesh whose model axis holds the
     experts in blocks (``_expert_blocks``), each rank runs its block of
@@ -312,7 +328,7 @@ def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig):
     if blocks is not None:
         out = shd.psum(out, "model")
     if "w_gate" in p:
-        out = out + swiglu(p, x).reshape(-1, D)
+        out = out + swiglu(_shared(p, tp), x, tp).reshape(-1, D)
     return out.reshape(B, S, D), aux
 
 
@@ -344,7 +360,8 @@ def _shard_of(plan: PlacementPlan) -> int:
     return shd.axis_index("model") if n > 1 else 0
 
 
-def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
+def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan,
+           tp: str | None = None):
     """Decode: every shard sees every token (x is the rank's batch, whole
     over the model axis) and computes the choices whose expert's first
     holder it is; a psum over the model axis adds the shards' outputs, so
@@ -370,11 +387,12 @@ def moe_tp(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
         y = shd.psum(y, "model")
     y = y.reshape(B, S, D)
     if "w_gate" in p:
-        y = y + swiglu(p, x)
+        y = y + swiglu(p, x, tp)
     return y, aux
 
 
-def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
+def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan,
+            tp: str | None = None):
     """Prefill and training: the rank takes its block of the sequence
     (the reference's ``in_specs`` ``P(dp, "model", None)``), serves the
     choices of its local replicas in place and sends the rest to their
@@ -435,25 +453,26 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan):
     if _spmd():
         y = shd.all_gather(y, "model", 1)
     if "w_gate" in p:
-        y = y + swiglu(p, x)
+        y = y + swiglu(p, x, tp)
     return y, aux
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, plan: PlacementPlan,
-              mode: str):
+              mode: str, tp: str | None = None):
     """mode: ``"a2a"`` (prefill), ``"tp"`` (decode), ``"dense"`` (the
-    reference, and the route trace)."""
+    reference, and the route trace); ``tp``: the axis the shared experts'
+    blocks are over, or None (read whole)."""
     if mode == "dense":
-        return moe_dense_ref(p, x, cfg)
+        return moe_dense_ref(p, x, cfg, tp)
     if mode not in ("tp", "a2a"):
         raise ValueError(f"unknown MoE mode {mode!r}")
-    p = materialize_slots(p, plan)
+    p = materialize_slots(p, plan, tp)
     if mode == "tp":
-        return moe_tp(p, x, cfg, plan)
-    return moe_a2a(p, x, cfg, plan)
+        return moe_tp(p, x, cfg, plan, tp)
+    return moe_a2a(p, x, cfg, plan, tp)
 
 
-_SHARED = ("router", "w_gate", "w_up", "w_down")
+_SHARED_FFN = ("w_gate", "w_up", "w_down")
 _EXPERTS = ("e_gate", "e_up", "e_down")
 
 
@@ -526,7 +545,7 @@ def _slot_weights(w: torch.Tensor, plan: PlacementPlan,
     return w.index_select(0, torch.from_numpy(take).to(dev))
 
 
-def materialize_slots(p, plan: PlacementPlan) -> dict:
+def materialize_slots(p, plan: PlacementPlan, tp: str | None = None) -> dict:
     """Gather logical expert weights (E, D, F) into the physical slot
     layout: this rank's (slots_per_shard, D, F) under a mesh, all n_shards
     * slots_per_shard slots without one.  Under a mesh whose model axis
@@ -537,10 +556,13 @@ def materialize_slots(p, plan: PlacementPlan) -> dict:
     Where every slot holds the expert of its own index (one shard) the
     gather is the identity, and the slot weights are the logical ones, not
     a copy.  Differentiable: gradients of replicated slots sum back into
-    the logical expert."""
+    the logical expert.  The router is read whole, the shared experts as
+    ``_shared`` reads them under ``tp``."""
     if "e_gate_slots" in p:
         return p
-    out = {name: p[name] for name in _SHARED if name in p}
+    out = {"router": p["router"]}
+    if "w_gate" in p:
+        out.update(_shared(p, tp))
     shard = _shard_of(plan) if _spmd() else None
     blocks = _expert_blocks(p) if shard is not None else None
     if blocks is not None:

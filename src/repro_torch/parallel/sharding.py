@@ -21,16 +21,36 @@ the blocks back.
 
 The JAX package's ``constrain`` has no counterpart: in explicit SPMD a
 tensor's layout is where the code puts it.  The residual stream stays
-whole on every rank of the model axis, and the only split is the sequence
-split at the MoE boundary (``models.moe.moe_a2a``).
+whole on every rank of the model axis.  What is split is the work on it:
+
+* tensor-parallel products (``tp_split``): where the model axis divides
+  a family's heads (or channels, or the vocabulary), its column-parallel
+  products (wq/wk/wv, w_gate/w_up, wq_b/wkv_b, cross_w{q,k,v}, the head)
+  run on the rank's column blocks, its row-parallel ones (wo, w_down,
+  mla_wo, cross_wo) on its row blocks, and one ``psum`` over 'model' adds
+  the partial outputs, as the reference's partitioner runs them on the
+  blocks that ``param_spec`` gives.  The embedding is a lookup of the
+  rank's rows, then a psum; the cross-entropy a vocab-parallel one.  A
+  family the condition fails reads its leaves whole (route
+  ``gathered``: ``Sharding.full``, an ``all_gather`` per leaf);
+* the sequence at the MoE boundary (``models.moe.moe_a2a``).
 
 The collectives here are autograd Functions whose backward is the
 adjoint collective, so that one backward pass over every rank's loss
 (each rank's share: ``train.step``) gives the gradient of their sum:
 ``all_gather``'s backward is a ``reduce_scatter``, ``all_to_all``'s the
-reverse ``all_to_all``, ``psum``'s a ``psum``.  None of them stages data
-through the host: the transport is the process group's (NCCL, or gloo,
-which takes CUDA tensors as they are).
+reverse ``all_to_all``, ``psum``'s a ``psum``.  Under that convention a
+replicated tensor's gradient on each rank is a share, and the shares sum
+to its gradient: so the replicated input of a column-parallel product
+needs no collective of its own (its conjugate is the identity both ways,
+where Megatron's ``f`` all-reduces in the backward because each of its
+ranks starts from the whole loss), the row-parallel output's psum
+backward turns the shares into the whole cotangent on every rank, and
+the step's psum of each replicated leaf's gradient over 'model' adds the
+shares once (``train.step``).  ``pmax`` (the cross-entropy's shift) has
+no gradient.  None of them stages data through the host: the transport is
+the process group's (NCCL, or gloo, which takes CUDA tensors as they
+are).
 """
 from __future__ import annotations
 
@@ -166,6 +186,88 @@ def param_spec(path: str, shape: tuple, strategy: str = "tp",
     return replicated
 
 
+# ------------------------------------------------- tensor-parallel routes
+# the leaves of each family whose products run on blocks, and the
+# dimension ``param_spec`` splits over 'model' (column-parallel: the last;
+# row-parallel: the one before; the embedding's vocabulary rows)
+TP_DIMS = {"gqa": {"wq": -1, "wk": -1, "wv": -1, "wo": -2},
+           "mla": {"wq_b": -1, "wkv_b": -1, "mla_wo": -2},
+           "cross": {"cross_wq": -1, "cross_wk": -1, "cross_wv": -1,
+                     "cross_wo": -2},
+           "mlp": {"w_gate": -1, "w_up": -1, "w_down": -2},
+           "embed": {"embed": 0},
+           "head": {"lm_head": -1}}
+ROUTES = ("tp", "gathered")
+# the families' routes, counted each time a family runs under a mesh
+# (a remat replay counts again), as ``kernels.ops.route_launches`` counts
+# the attention calls
+tp_route_launches: dict[str, dict[str, int]] = {}
+
+
+def reset_tp_routes() -> None:
+    tp_route_launches.clear()
+
+
+def count_tp_route(family: str, route: str) -> None:
+    counts = tp_route_launches.setdefault(family, dict.fromkeys(ROUTES, 0))
+    counts[route] += 1
+
+
+def tp_split(cfg, seg, n_model: int) -> dict:
+    """{family: ``"tp"`` or ``"gathered"``} of segment ``seg`` of ``cfg``
+    (``seg`` None: the model's embedding and head) on a model axis of
+    ``n_model`` ranks, from the config alone (never from a rank's shapes,
+    so every rank takes the same collectives).  The condition is the
+    reference cost model's (``roofline.model``): GQA and cross-attention
+    split where ``n_model`` divides the (physical) query heads and the KV
+    heads, MLA where it divides the heads, the SwiGLU MLP (a MoE layer's
+    shared experts) its hidden width, the embedding and head the
+    vocabulary.  ``param_spec`` shards columns, so a head count that
+    ``n_model`` does not divide (hymba's 25 heads at 2) is split in the
+    middle of a head: the family reads its leaves whole.  The Mamba mixer
+    (its ``in_proj`` blocks are x | z halves, its ``conv_w`` split over
+    taps, not channels) and the MoE router (top-k needs every expert's
+    logit) are always ``gathered``; under ``dp_seq`` every leaf is whole
+    and every family reads it so."""
+    whole = cfg.strategy == "dp_seq"
+
+    def route(ok: bool) -> str:
+        return "tp" if ok and not whole else "gathered"
+
+    n = n_model
+    if seg is None:
+        out = {"head": route(cfg.vocab % n == 0)}
+        if not cfg.frame_input:
+            out["embed"] = route(cfg.vocab % n == 0)
+        return out
+    heads = (cfg.n_heads_padded or cfg.n_heads) % n == 0
+    out = {}
+    if seg.attn == "gqa" and seg.kind != "mamba":
+        out["gqa"] = route(heads and cfg.n_kv_heads % n == 0)
+    elif seg.attn == "mla":
+        out["mla"] = route(cfg.n_heads % n == 0)
+    if seg.kind in ("mamba", "hybrid"):
+        out["mamba"] = "gathered"
+    if seg.kind == "vision_group":
+        out["cross"] = route(cfg.n_heads % n == 0
+                             and cfg.n_kv_heads % n == 0)
+    if seg.kind == "moe":
+        out["router"] = "gathered"
+        if cfg.n_shared_experts:
+            out["mlp"] = route(cfg.n_shared_experts * cfg.moe_d_ff % n == 0)
+    elif seg.kind != "mamba" and cfg.d_ff:
+        out["mlp"] = route(cfg.d_ff % n == 0)
+    return out
+
+
+def tp_spec(ndim: int, dim: int) -> tuple:
+    """The spec of a leaf of ``ndim`` dimensions held as this rank's block
+    over 'model' on ``dim``."""
+    spec = [None] * ndim
+    spec[dim] = "model"
+    return tuple(spec)
+
+
 def tree_param_specs(shapes: dict, strategy: str = "tp", mesh=None) -> dict:
     """{name: spec} for {name: tensor or shape}."""
     return {name: param_spec(name, tuple(getattr(s, "shape", s)), strategy,
@@ -248,9 +350,10 @@ def _gloo_cuda(x: torch.Tensor, axis: str, mesh) -> bool:
         _mesh(mesh).get_group(axis)) == "gloo"
 
 
-def _all_reduce(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, axis: str, mesh,
+                op: str = "sum") -> torch.Tensor:
     _, name = _group(axis, mesh)
-    return _C.wait_tensor(_C.all_reduce(x.contiguous(), "sum", name))
+    return _C.wait_tensor(_C.all_reduce(x.contiguous(), op, name))
 
 
 def _all_gather(x: torch.Tensor, axis: str, dim: int, mesh) -> torch.Tensor:
@@ -323,9 +426,24 @@ class _AllToAll(torch.autograd.Function):
 
 def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
-    names), on every one of them (``jax.lax.psum``)."""
-    axes = _axes_of(axes)
-    return _PSum.apply(x, axes, _mesh(mesh)) if axes else x
+    names), on every one of them (``jax.lax.psum``).  An axis of one rank
+    is skipped: the sum over it is ``x``, and nothing is called."""
+    if not _axes_of(axes):
+        return x
+    mesh = _mesh(mesh)
+    axes = tuple(a for a in _axes_of(axes) if axis_size(a, mesh) > 1)
+    return _PSum.apply(x, axes, mesh) if axes else x
+
+
+def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axes``, on
+    every one of them (``jax.lax.pmax``); no gradient."""
+    mesh = _mesh(mesh)
+    x = x.detach()
+    for a in _axes_of(axes):
+        if axis_size(a, mesh) > 1:
+            x = _all_reduce(x, a, mesh, "max")
+    return x
 
 
 def pmean(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:

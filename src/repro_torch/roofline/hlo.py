@@ -16,10 +16,13 @@ once with all their results.  ``wait_tensor`` moves nothing.
 
 The port's distributed path (``parallel.sharding``) calls exactly these
 functional collectives, so under a mesh the counter sees every byte a
-rank moves: the all-gathers of sharded leaves (and their backward
-reduce-scatters), the MoE layers' all_to_alls and psums, the gradient
-all-reduces.  A step without a mesh, or over a mesh of one rank whose
-collectives go to groups of one, counts what it calls all the same.
+rank moves: the psums of the tensor-parallel products and their
+backwards (all-reduces of the activations), the all-gathers of the
+leaves a family reads whole (and their backward reduce-scatters), the
+MoE layers' all_to_alls and psums, the gradient all-reduces.  A psum
+over an axis of one rank calls nothing, so counts nothing; an all-gather
+over a group of one is called, and counted.  On the meta device (the
+dry run) the same calls are counted at their results' sizes.
 
 ``summarize_cost`` is the JAX package's, key for key: the dry run hands
 it its counts under XLA's names (``flops``, ``bytes accessed``).

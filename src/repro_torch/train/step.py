@@ -17,16 +17,31 @@ SPMD.  The placements are the reference's (``batch_specs``,
 ``state_shardings``): the batch is split over ('pod', 'data') (each rank
 takes its rows of the global batch, ``local_batch``), the parameters hold
 the blocks that ``param_spec`` gives them, and under ``zero_opt_state`` the
-f32 master and the moments are split over 'data' too.  Each rank's
-backward pass starts from its loss times its share, 1 / (ranks), so that
-the collectives' adjoints (``parallel.sharding``) and a psum of every
-gradient over the axes its leaf is whole on give each rank the gradient of
-the mean loss over the global batch.  The global gradient norm sums every
-leaf's blocks once.  Each rank then runs AdamW on its blocks -- under ZeRO
-on its data slice, whose new parameters an all_gather over 'data' puts
-together.  The sequence split of ``dp_seq`` (``batch_specs`` puts the
-model axis on the sequence) is not applied: the residual stream stays
-whole on every rank of the model axis (ROADMAP).
+f32 master and the moments are split over 'data' too.  The model runs
+each family on the model axis by its route (``parallel.sharding.
+tp_split``): a ``tp`` family multiplies on its blocks and adds the partial
+outputs with a psum, a ``gathered`` one gathers its leaves where it reads
+them (``models.model``).
+
+Each rank's backward pass starts from its loss times its share,
+1 / (ranks).  The collectives' adjoints then carry shares: a psum's
+backward (a row-parallel product's, the vocab-parallel embedding's and
+cross-entropy's) adds the model ranks' shares into the whole cotangent,
+so a tp block's gradient comes out whole on its rank, as an all_gather's
+reduce_scatter makes a gathered leaf's; the replicated input of a
+column-parallel product takes no collective, its gradient on each rank
+being a share.  A psum of every gradient over the axes its leaf is whole
+on (over 'model' for a replicated leaf -- the norms, MLA's wq_a and
+wkv_a, the MTP projection -- which adds its shares once, leaving the
+same sum on every model rank; over the batch axes for all) then gives each rank the gradient of the mean loss over the
+global batch.  The global gradient norm sums every leaf's blocks once.
+Each rank then runs AdamW on its blocks -- under ZeRO on its data slice,
+whose new parameters an all_gather over 'data' puts together.  The
+stored blocks are ``param_spec``'s, with or without tensor parallelism,
+so checkpoints and elastic restores do not depend on the routes.  The
+sequence split of ``dp_seq`` (``batch_specs`` puts the model axis on the
+sequence) is not applied: the residual stream stays whole on every rank
+of the model axis (ROADMAP).
 """
 from __future__ import annotations
 
@@ -274,15 +289,20 @@ class TrainStep:
     @torch.no_grad()
     def _global_norm(self, params: dict) -> torch.Tensor:
         """The gradient norm over every leaf whole: each leaf's norm from
-        the squares of its blocks, summed over the axes it is split on."""
-        norms = []
+        the squares of its blocks, summed over the axes it is split on (one
+        psum for all the leaves split on the same axes)."""
+        norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32)
+                 for p in params.values()]
         shardings = self.model.shardings()
-        for n, p in params.items():
-            nl = torch.linalg.vector_norm(p.grad, dtype=torch.float32)
-            sh = shardings[n]
-            if sh is not None:
-                nl = torch.sqrt(shd.psum(nl * nl, sh.axes(), self.mesh))
-            norms.append(nl)
+        split: dict[tuple, list] = {}
+        for i, n in enumerate(params):
+            if shardings[n] is not None:
+                split.setdefault(shardings[n].axes(), []).append(i)
+        for axes, idx in split.items():
+            sq = torch.stack([norms[i] for i in idx])
+            sq = torch.sqrt(shd.psum(sq * sq, axes, self.mesh))
+            for j, i in enumerate(idx):
+                norms[i] = sq[j]
         return torch.linalg.vector_norm(torch.stack(norms))
 
     def update(self, state: dict, params: dict) -> dict:
