@@ -356,14 +356,51 @@ failure propagates and the exit code is nonzero:
    within ``GRAD_TOL`` f32 of its leaf's largest entry, the loss within
    ``ELASTIC_TOL``, and the replicated leaves' gradients bit-equal on
    both ranks.
+20. the sequence split (``seq_phase``): smollm-135m, the registry's
+   ``dp_seq`` config, at its published widths and depth (30 layers, d
+   576, 9/3 heads of 64, vocabulary 49152, tied).  (k) The four attention
+   kernels at rank 1's call of (b), ``SEQ_KERNEL_CASE``: 8 x 2048 queries
+   at positions 2048-4095 (``q_off`` 2048) against 4096 keys, causal --
+   ``prefill_tc`` with its LSE and the ``tc`` backward in bf16,
+   ``general``'s forward and backward in f32 -- each against its plain
+   version (``MODEL_TOL``, ``GRAD_TOL``), timed beside the bound of the
+   live pairs with the offset (``flash_attention.live_pairs``), the plain
+   version and SDPA with the explicit boolean mask (forward, and forward
+   and backward); at ``q_off`` 0 (rank 0's call) the launch bit-equal to
+   the call without the argument, and timed.  (a) One card, no mesh:
+   ``TRAIN_STEPS`` bf16 steps of ``SEQ_B`` x ``SEQ_S`` tokens under remat
+   "full" (``train_steps``).  (b) Two ranks of a (1, 2) mesh sharing the
+   card over gloo train the same steps from the same weights and
+   batches, each on its block of 8 x 2048 tokens (its labels with the
+   next block's first one): every GQA layer on sequence route ``seq``
+   (``parallel.sharding.seq_split``), rank 1's attention at ``q_off``
+   2048; per rank its losses (within ``TP_LOSS_TOL`` of (a)'s), the
+   parameters' digest after every step (equal on both ranks), its peak,
+   seconds a step, step 1's collectives (the K/V gathers, which gloo on
+   CUDA runs as all-to-alls, with the remat replays; their
+   reduce-scatters; the gradients' all-reduces over 'model') beside the
+   dry run at (1, 2) (phase 17's process, ``seq_dryrun_cell``), and one
+   more step's attention device time under ``torch.profiler``: the
+   contiguous split's imbalance.  (c) In the same ranks, the f32 model at
+   ``MESH_GATE_LAYERS`` layers, one step of ``SEQ_GATE_B`` x ``SEQ_S``
+   tokens against rank 0's one-card step: each gradient within
+   ``GRAD_TOL`` f32 of its leaf's largest entry, the loss within
+   ``ELASTIC_TOL``, the whole leaves' gradients bit-equal on both ranks.
+   (d) The same for deepseek-7b at ``MESH_GATE_LAYERS`` layers, ``SP_GATE_B``
+   x ``SP_GATE_S`` tokens, with ``seq_shard_activations`` on: every family
+   on sequence route ``gathered``, step 1's all-gathers and
+   reduce-scatters in place of the stream's psums, beside the same step
+   without the flag (19c's).
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
 flat ``partition_with_replication`` runs) for the gain kernels, with phase
 8's beside them (``vcycle_launches``), and those of the serve runs of
 phases 6, 7, 11 and 12, summed, for the model kernels, and beside them
-each rank's of phase 18b (``mesh_launches_per_rank``) and of phase 19b
-(``tp_launches_per_rank``, on the entries of its routes).  The
+each rank's of phase 18b (``mesh_launches_per_rank``), of phase 19b
+(``tp_launches_per_rank``, on the entries of its routes) and of phase 20b
+(``seq_launches_per_rank``, with phase 20k's rows at rank 1's call as
+``seq_*``: ``prefill_tc``, ``general`` f32 and ``attention_bwd``).  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, one for hubert's bf16
@@ -961,7 +998,7 @@ def check_attention(case, dtype_name: str, seed: int) -> dict:
         def before():
             err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          old.data_ptr(), None, None, B, Sq, Sk, H, KV, hd,
-                         hdv, int(causal), int(window), hd ** -0.5, 1,
+                         hdv, int(causal), int(window), 0, hd ** -0.5, 1,
                          torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"flash_attention.cu bf16: CUDA error "
@@ -2745,7 +2782,7 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
             err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       do.data_ptr(), *(t.data_ptr() for t in outs),
                       scratch[0].data_ptr(), scratch[1].data_ptr(), B, S, S,
-                      H, KV, hd, hd_v, int(causal), window, scale, 1,
+                      H, KV, hd, hd_v, int(causal), window, 0, scale, 1,
                       torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"attention_bwd.cu bf16: CUDA error {err}")
@@ -3784,6 +3821,7 @@ def dryrun_cells() -> dict:
             out[f"{arch}/{remat}"] = run_cell(
                 arch, shape, overrides={**overrides, "remat": remat})
     out["deepseek-7b/tp"] = tp_dryrun_cell()
+    out["smollm-135m/seq"] = seq_dryrun_cell()
     return out
 
 
@@ -3797,6 +3835,21 @@ def tp_dryrun_cell() -> dict:
         return run_cell("deepseek-7b", Shape(
             f"smoke_train_{DS7_B}x{DS7_S}", DS7_S, DS7_B, "train"),
             overrides={"segments": ds7_config(DS7_LAYERS).segments},
+            mesh=fake_mesh((1, 2)))
+    finally:
+        dist.destroy_process_group()
+
+
+def seq_dryrun_cell() -> dict:
+    """Phase 20b's training step as rank 0 of a (1, 2) mesh on the meta
+    device: smollm-135m's ``dp_seq`` step on its block of the sequence
+    (``launch.dryrun --mesh 1x2``)."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.dryrun import fake_mesh, run_cell
+    try:
+        return run_cell("smollm-135m", Shape(
+            f"smoke_train_{SEQ_B}x{SEQ_S}", SEQ_S, SEQ_B, "train"),
             mesh=fake_mesh((1, 2)))
     finally:
         dist.destroy_process_group()
@@ -4615,6 +4668,440 @@ def tp_phase(dry: dict) -> dict:
                   "replicated_equal": same}}
 
 
+# --------------------------------------------- 20. the sequence split
+# smollm-135m (the registry's one ``dp_seq`` config) at its published
+# widths and depth; 20b splits each 4096-token sequence over the two model
+# ranks of a (1, 2) mesh
+SEQ_B, SEQ_S = 8, 4096
+SEQ_GATE_B = 2                  # 20c: f32 at MESH_GATE_LAYERS layers
+SP_GATE_B, SP_GATE_S = 1, 2048  # 20d: deepseek-7b, seq_shard_activations
+SEQ_TIMEOUT = 600
+# 20k: rank 1's attention call of 20b, (B, Sq, Sk, H, KV, hd, q_off):
+# its 2048 queries at positions 2048-4095 against the 4096 gathered keys;
+# rank 0's (q_off 0) beside it for the split's imbalance
+SEQ_KERNEL_CASE = (SEQ_B, SEQ_S // 2, SEQ_S, 9, 3, 64, SEQ_S // 2)
+# the kernels of phase 20b's path, by kernel-line entry: (route table,
+# route)
+SEQ_KERNELS = {"flash_attention:prefill_tc": ("attn_routes", "prefill_tc"),
+               "attention_bwd": ("bwd_routes", "attention_tc")}
+
+
+def smollm_config(layers: int = 0, dtype: str = "bfloat16"):
+    """smollm-135m at its published widths, cut to ``layers`` layers (0:
+    its 30)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Segment
+    cfg = get_config("smollm-135m").with_(dtype=dtype)
+    return cfg.with_(segments=(Segment("dense", layers),)) if layers else cfg
+
+
+def smollm_stream(cfg, B: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(cfg, DataConfig(B, SEQ_S, seed=0))
+
+
+def seq_kernel_rows() -> list:
+    """20k: the four attention kernels at rank 1's call of 20b (causal,
+    the queries at ``q_off`` 2048 on): ``prefill_tc`` with its LSE and the
+    ``tc`` backward in bf16, ``general``'s forward and backward in f32,
+    each against its plain version (``MODEL_TOL``, ``GRAD_TOL``; the LSE
+    within ``LSE_TOL``), timed beside its bound (``live_pairs`` with the
+    offset: 3/4 of the pairs of a whole 4096-token call, 3/8 of the block
+    against every key), the plain version and SDPA with the explicit
+    boolean mask (forward, and forward and backward); at ``q_off`` 0
+    (rank 0's call) the same launch as a call without the argument,
+    bit-equal, and timed: the split's imbalance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    B, Sq, Sk, H, KV, hd, q_off = SEQ_KERNEL_CASE
+    dev = torch.device("cuda")
+    rows = []
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(20)
+        q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, Sk, KV, hd), generator=g,
+                            device=dev).to(dtype) for _ in range(2))
+        do = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+        scale = hd ** -0.5
+        kw = dict(causal=True, window=0, scale=scale)
+        bf16 = dtype_name == "bfloat16"
+        route, bwd = ("prefill_tc", "tc") if bf16 else ("general", "general")
+        ops.reset_launches()
+        with torch.no_grad():
+            if bf16:
+                o, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                            q_off=q_off, **kw)
+            else:
+                o, lse = fa.flash_attention(q, k, v, q_off=q_off, **kw), None
+            # rank 0's call: q_off 0 is the call without the argument
+            o0 = fa.flash_attention(q, k, v, q_off=0, **kw)
+            same0 = torch.equal(o0, fa.flash_attention(q, k, v, **kw))
+            want = ref.attention_ref(q, k, v, q_off=q_off, **kw)
+        torch.cuda.synchronize()
+        if ops.route_launches[route] != 3 or not same0:
+            raise AssertionError(f"20k {dtype_name}: routes "
+                                 f"{ops.route_launches}, q_off 0 bit-equal "
+                                 f"to no offset: {same0}")
+        tol = MODEL_TOL[("attn", dtype_name)]
+        ok, err = rel_ok(o, want, tol)
+        lse_err = (float((lse - ref.attention_lse_ref(
+            q, k, q_off=q_off, **kw)).abs().max()) if bf16 else 0.0)
+        if not ok or lse_err > LSE_TOL:
+            raise AssertionError(f"20k {dtype_name}: forward with q_off "
+                                 f"{q_off} off by {err} (tol {tol}), LSE "
+                                 f"by {lse_err}")
+        del want
+        ops.reset_launches()
+        got = fa.attention_bwd(q, k, v, o, do, lse=lse, q_off=q_off, **kw)
+        plain = ref.attention_bwd_ref(q, k, v, o, do, lse=lse, q_off=q_off,
+                                      **kw)
+        torch.cuda.synchronize()
+        errs = {n: grad_gap(a, b) for n, a, b in zip("qkv", got, plain)}
+        if ops.bwd_route_launches[f"attention_{bwd}"] != 1 or \
+                max(errs.values()) > GRAD_TOL[dtype_name]:
+            raise AssertionError(f"20k {dtype_name}: backward with q_off "
+                                 f"{q_off}: {errs} past "
+                                 f"{GRAD_TOL[dtype_name]}, routes "
+                                 f"{ops.bwd_route_launches}")
+        del got, plain
+        rate = BF16_FLOPS_PER_S if bf16 else F32_TC_FLOPS_PER_S
+        es = q.element_size()
+
+        def bound(flops, nbytes):
+            t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                         else "bytes")
+        f_b = bound(*fa.attention_cost(es, B, Sq, Sk, H, KV, hd, hd, True,
+                                       0, 0, bf16, q_off))
+        b_b = bound(*fa.attention_bwd_cost(bwd, es, B, Sq, Sk, H, KV, hd,
+                                           hd, True, 0, q_off))
+        mask = (torch.arange(Sq, device=dev)[:, None] + q_off
+                >= torch.arange(Sk, device=dev)[None, :])
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_(
+            x is not do) for x in (q, k, v, do))
+
+        def fwd(off=q_off):
+            return fa.flash_attention(q, k, v, return_lse=bf16, q_off=off,
+                                      **kw)
+
+        def bwd_run():
+            return fa.attention_bwd(q, k, v, o, do, lse=lse, q_off=q_off,
+                                    **kw)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def lib_both():
+            lib_fwd().backward(dot)
+        with torch.no_grad():
+            t_fwd = [graph_ms(fwd, 5, 3), graph_ms(lambda: fwd(0), 5, 3)]
+            plain_fwd = graph_ms(lambda: ref.attention_ref(
+                q, k, v, q_off=q_off, **kw), 1, 2)
+            lib_f = time_ms(lib_fwd, 5)
+        t_bwd = graph_ms(bwd_run, 5, 3)
+        plain_bwd = graph_ms(lambda: ref.attention_bwd_ref(
+            q, k, v, o, do, lse=lse, q_off=q_off, **kw), 1, 2)
+        lib_b = time_ms(lib_both, 5)
+        pairs = B * fa.live_pairs(Sq, Sk, True, 0, q_off)
+        pairs0 = B * fa.live_pairs(Sq, Sk, True, 0, 0)
+        rows.append({
+            "case": "seq_rank1", "dtype": dtype_name, "route": route,
+            "bwd_route": bwd, "q_off": q_off,
+            "shape": [B, Sq, Sk, H, KV, hd, hd], "pairs": pairs,
+            "pairs_rank0": pairs0, "max_abs_err": err, "lse_err": lse_err,
+            "bwd_errs": errs, "bwd_max_err": max(errs.values()),
+            "q_off0_bit_equal": same0,
+            "ms": t_fwd[0], "rank0_ms": t_fwd[1],
+            "bound_ms": f_b[0], "bound_by": f_b[1], "plain_ms": plain_fwd,
+            "library_ms": lib_f, "bwd_ms": t_bwd, "bwd_bound_ms": b_b[0],
+            "bwd_bound_by": b_b[1], "bwd_plain_ms": plain_bwd,
+            "library_fwd_bwd_ms": lib_b,
+            "sdpa_backend": sdpa_backend(qt, kt, vt, mask)})
+        log(f"[20k] {dtype_name} rank 1's call {[B, Sq, Sk, H, KV, hd]} at "
+            f"q_off {q_off}: forward on {route} {t_fwd[0]:.4f} ms (bound "
+            f"{f_b[0]:.4f} ms by {f_b[1]}, {pairs} live pairs; rank 0's "
+            f"call at q_off 0, {pairs0} pairs, {t_fwd[1]:.4f} ms, its "
+            f"launch bit-equal to no offset: {same0}), plain "
+            f"{plain_fwd:.3f} ms, SDPA with the mask {lib_f:.4f} ms "
+            f"({rows[-1]['sdpa_backend']}); max abs error {err:.3g} (tol "
+            f"{tol}), LSE {lse_err:.3g}; backward on {bwd} {t_bwd:.4f} ms "
+            f"(bound {b_b[0]:.4f} ms by {b_b[1]}), plain {plain_bwd:.3f} "
+            f"ms, SDPA forward and backward {lib_b:.4f} ms; gradient gaps "
+            f"{errs}")
+        del q, k, v, o, do, qt, kt, vt, dot, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def param_digest(params) -> int:
+    """A checksum of the parameters' bits (each leaf's 16- or 32-bit words
+    weighted by their index): two ranks whose digests differ hold
+    different parameters."""
+    import torch
+    total = 0
+    for p in params:
+        w = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32).long()
+        idx = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        total += int((w * idx).sum())
+    return total
+
+
+def seq_rank(rank: int) -> dict:
+    """20b, 20c and 20d, one of two ranks of a (1, 2) mesh over gloo on
+    one card (see the module docstring)."""
+    import dataclasses
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.hlo import CollectiveCounter
+    from repro_torch.train.step import batch_to, build_train_step
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+    # 20b
+    cfg = smollm_config()
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ts = build_train_step(cfg, opt, mesh=mesh, device="cuda")
+    state = ts.init_state(0)
+    stream = smollm_stream(cfg, SEQ_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    shd.reset_seq_routes()
+    losses, seconds, digests, coll, split = [], [], [], None, None
+    for step in range(TRAIN_STEPS):
+        batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
+        split = batch["seq_split"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCounter() if step == 0 else \
+                contextlib.nullcontext() as cc:
+            state, met = ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        digests.append(param_digest(state["params"].values()))
+        if step == 0:
+            coll = cc.result()
+    out = {"peak_B": torch.cuda.max_memory_allocated(), "losses": losses,
+           "seconds": seconds, "digests": digests, "collectives": coll,
+           "q_off": split.offset, "block": split.block,
+           "tokens": list(batch["tokens"].shape),
+           "labels": list(batch["labels"].shape),
+           "routes": {k: dict(v) for k, v in shd.seq_route_launches.items()},
+           "launches": dict(ops.launches),
+           "attn_routes": dict(ops.route_launches),
+           "bwd_routes": dict(ops.bwd_route_launches),
+           "held_B": sum(p.numel() * p.element_size()
+                         for p in state["params"].values())}
+    # one more step under the profiler: this rank's attention device time
+    batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+    attn = {"fwd": ("prefill_tc_kernel",), "bwd": ("dq_kernel",
+                                                   "dkv_kernel")}
+    out["attn_device_ms"] = {
+        k: sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(x in e.key for x in keys)) / 1e3
+        for k, keys in attn.items()}
+    del ts, state
+    torch.cuda.empty_cache()
+
+    def gate(cfg32, batch, tag):
+        """One f32 step's gradients at (1, 2) against rank 0's one-card
+        step: gaps, losses, digests of the whole leaves, collectives."""
+        ref = None
+        if rank == 0:
+            one = build_train_step(cfg32, opt, device="cuda")
+            params, met = one.grads(one.init_state(0), batch)
+            ref = {n: p.grad for n, p in params.items()}
+            ref_loss = float(met["loss"])
+            del one, params
+            torch.cuda.empty_cache()
+        ts = build_train_step(cfg32, opt, mesh=mesh, device="cuda")
+        cc = CollectiveCounter()
+        with cc:
+            params, met = ts.grads(ts.init_state(0), ts.local_batch(batch))
+        held = ts.model.shardings()
+        gaps, whole = {}, []
+        with shd.use_mesh(mesh):
+            for n, p in params.items():
+                g = p.grad if held[n] is None else held[n].full(p.grad)
+                if held[n] is None:
+                    whole.append(p.grad)
+                if ref is not None:
+                    gaps[n] = float((g - ref[n]).abs().max()
+                                    / ref[n].abs().max().clamp_min(1e-30))
+                del g
+        res = {"loss": float(met["loss"]), "collectives": cc.result(),
+               "whole_digest": param_digest(whole), "n_whole": len(whole)}
+        if ref is not None:
+            res.update(ref_loss=ref_loss, gaps=gaps)
+        del ts, params, ref, whole
+        torch.cuda.empty_cache()
+        return res
+    # 20c
+    cfg32 = smollm_config(MESH_GATE_LAYERS, "float32")
+    out["f32"] = gate(cfg32, batch_to(smollm_stream(
+        cfg32, SEQ_GATE_B).next_batch(), "cuda"), "20c")
+    # 20d: seq_shard_activations, and 19c's step without it beside
+    cfg32 = dataclasses.replace(ds7_config(MESH_GATE_LAYERS, "float32"),
+                                seq_shard_activations=True)
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    batch = batch_to(SyntheticTokenStream(cfg32, DataConfig(
+        SP_GATE_B, SP_GATE_S, seed=0)).next_batch(), "cuda")
+    shd.reset_seq_routes()
+    out["sp"] = gate(cfg32, batch, "20d")
+    out["sp"]["routes"] = {k: dict(v)
+                           for k, v in shd.seq_route_launches.items()}
+    base = build_train_step(dataclasses.replace(
+        cfg32, seq_shard_activations=False), opt, mesh=mesh, device="cuda")
+    cc = CollectiveCounter()
+    with cc:
+        base.grads(base.init_state(0), base.local_batch(batch))
+    out["sp"]["baseline_collectives"] = cc.result()
+    return out
+
+
+def seq_phase(dry: dict) -> dict:
+    """Phase 20: 20k and 20a on this process's card, then 20b, 20c and
+    20d in two ranks of their own (``seq_rank``); checks and prints."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim.adamw import AdamWConfig
+    t = time.perf_counter()
+    k_rows = seq_kernel_rows()
+    log(f"[20k] took {time.perf_counter() - t:.1f} s")
+    cfg = smollm_config()
+    L, T = cfg.n_layers, SEQ_B * SEQ_S
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    t = time.perf_counter()
+    a = train_steps(cfg, opt, "20a", smollm_stream(cfg, SEQ_B))
+    torch.cuda.empty_cache()
+    log(f"[20a] took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ranks = run_ranks(seq_rank, 2, backend="gloo", device="cuda",
+                      timeout=SEQ_TIMEOUT)
+    log(f"[20b] [20c] [20d] two ranks took {time.perf_counter() - t:.1f} s")
+    cell = dry["smollm-135m/seq"]
+    if cell["status"] != "ok":
+        raise AssertionError(f"20: the dry run at (1, 2): {cell['status']}"
+                             f": {cell.get('error', cell.get('reason'))}")
+    want_attn = {"prefill_tc": 2 * L * TRAIN_STEPS, "decode_split": 0,
+                 "general": 0}
+    want_routes = {"embed": {"seq": 0, "token": TRAIN_STEPS, "gathered": 0},
+                   "gqa": {"seq": 2 * L * TRAIN_STEPS, "token": 0,
+                           "gathered": 0},
+                   "mlp": {"seq": 0, "token": 2 * L * TRAIN_STEPS,
+                           "gathered": 0},
+                   "head": {"seq": 0, "token": TRAIN_STEPS, "gathered": 0}}
+    b_rows = []
+    for i, rk in enumerate(ranks):
+        med = float(np.median(rk["seconds"][1:]))
+        rel = max(abs(x - y) / abs(y) for x, y in zip(rk["losses"],
+                                                      a["losses"]))
+        c = rk["collectives"]
+        row = {"q_off": rk["q_off"], "block": rk["block"],
+               "tokens": rk["tokens"], "labels": rk["labels"],
+               "held_B": rk["held_B"], "peak_B": rk["peak_B"],
+               "peak_over_20a": rk["peak_B"] / a["peak_B"],
+               "dry_peak_B": cell["memory"]["peak_bytes"],
+               "losses": rk["losses"], "loss_rel_gap": rel,
+               "step_s": rk["seconds"], "median_step_s": med,
+               "tokens_per_s": T / med, "routes": rk["routes"],
+               "collectives": c, "dry_collectives": cell["collectives"],
+               "attn_routes": rk["attn_routes"],
+               "bwd_routes": rk["bwd_routes"], "launches": rk["launches"],
+               "attn_device_ms": rk["attn_device_ms"]}
+        log(f"[20b] rank {i} of (1, 2) over gloo, two ranks on one card: "
+            f"q_off {rk['q_off']}, tokens {rk['tokens']}, labels "
+            f"{rk['labels']}; parameters held {rk['held_B']} B (whole); "
+            f"peak {rk['peak_B']} B ({row['peak_over_20a']:.4f} of 20a's; "
+            f"the dry run's {cell['memory']['peak_bytes']}); routes "
+            f"{rk['routes']}; losses {rk['losses']} (20a's {a['losses']}, "
+            f"largest relative gap {rel:.3g}); seconds {rk['seconds']}, "
+            f"median of steps 2-{TRAIN_STEPS} {med:.4f} s/step, "
+            f"{T / med:.6g} tokens/s (gloo through the host, not NVLink); "
+            f"step 1's collectives {c} (the dry run's "
+            f"{cell['collectives']}); attention {rk['attn_routes']}, "
+            f"backward {rk['bwd_routes']}; one more step's attention "
+            f"device ms {rk['attn_device_ms']}")
+        if rk["attn_routes"] != want_attn or \
+                rk["bwd_routes"]["attention_tc"] != L * TRAIN_STEPS:
+            raise AssertionError(f"20b rank {i}: attention "
+                                 f"{rk['attn_routes']}, backward "
+                                 f"{rk['bwd_routes']}")
+        if rk["routes"] != want_routes:
+            raise AssertionError(f"20b rank {i}: routes {rk['routes']}")
+        if rk["q_off"] != i * SEQ_S // 2 or rk["tokens"] != [SEQ_B,
+                                                            SEQ_S // 2]:
+            raise AssertionError(f"20b rank {i}: block at {rk['q_off']}, "
+                                 f"tokens {rk['tokens']}")
+        if not rel <= TP_LOSS_TOL:
+            raise AssertionError(f"20b rank {i}: losses {rk['losses']} vs "
+                                 f"20a's {a['losses']}")
+        b_rows.append(row)
+    if ranks[0]["digests"] != ranks[1]["digests"]:
+        raise AssertionError(f"20b: the ranks' parameters differ after a "
+                             f"step: {ranks[0]['digests']} vs "
+                             f"{ranks[1]['digests']}")
+    att = [sum(r["attn_device_ms"].values()) for r in ranks]
+    imbalance = att[1] / att[0] if att[0] else "not measured"
+    log(f"[20b] parameters bit-equal on both ranks after every step "
+        f"(digests {ranks[0]['digests']}); attention device ms a step by "
+        f"rank {att}: rank 1 / rank 0 {imbalance}")
+    gates = {}
+    for tag, key in (("20c", "f32"), ("20d", "sp")):
+        f0, f1 = ranks[0][key], ranks[1][key]
+        worst = max(f0["gaps"].values())
+        rel32 = abs(f0["loss"] - f0["ref_loss"]) / abs(f0["ref_loss"])
+        same = f0["whole_digest"] == f1["whole_digest"]
+        extra = ""
+        if key == "sp":
+            extra = (f"; routes {f0['routes']}; step 1's collectives "
+                     f"{f0['collectives']}, without the flag "
+                     f"{f0['baseline_collectives']}")
+        log(f"[{tag}] f32 at {MESH_GATE_LAYERS} layers: loss {f0['loss']} "
+            f"and {f1['loss']} vs one card's {f0['ref_loss']} (relative "
+            f"gap {rel32:.3g}); gathered gradients' largest gap {worst:.3g} "
+            f"of a leaf's largest entry "
+            f"({max(f0['gaps'], key=f0['gaps'].get)}); {f0['n_whole']} "
+            f"whole leaves' gradients bit-equal on both ranks: {same}"
+            f"{extra}")
+        if not (worst <= GRAD_TOL["float32"] and rel32 <= ELASTIC_TOL
+                and same and f1["loss"] == f0["loss"]):
+            raise AssertionError(f"{tag}: gradients {worst}, loss {rel32}, "
+                                 f"whole leaves equal {same}")
+        gates[tag] = {"loss": f0["loss"], "ref_loss": f0["ref_loss"],
+                      "loss_rel_gap": rel32, "worst_grad_gap": worst,
+                      "whole_equal": same,
+                      "collectives": f0["collectives"]}
+    # every layer's families on ``gathered``, twice with the remat replay
+    runs = MESH_GATE_LAYERS * (1 if ds7_config(1).remat == "none" else 2)
+    sp = ranks[0]["sp"]
+    c, base = sp["collectives"]["counts"], sp["baseline_collectives"]["counts"]
+    if c["all-reduce"] >= base["all-reduce"] or not c["reduce-scatter"] \
+            or sp["routes"]["gqa"]["gathered"] != runs \
+            or sp["routes"]["mlp"]["gathered"] != runs:
+        raise AssertionError(f"20d: collectives {c} vs without the flag "
+                             f"{base}, routes {sp['routes']}")
+    gates["20d"].update(baseline_collectives=sp["baseline_collectives"],
+                        routes=sp["routes"])
+    return {"k": k_rows,
+            "a": {k: v for k, v in a.items() if k != "launches"},
+            "b": b_rows, "attn_ms_by_rank": att, "imbalance": imbalance,
+            "c": gates["20c"], "d": gates["20d"]}
+
+
 def main() -> int:
     """Check for a card and a checkout, and run the phases (``phases``)
     beside a spawned process for phase 17's dry runs, stopped at the
@@ -4634,7 +5121,7 @@ def main() -> int:
 
 
 def phases(dry_pool) -> int:
-    """Phases 1-18 (see the module docstring); phase 17's dry runs
+    """Phases 1-20 (see the module docstring); phase 17's dry runs
     (``dryrun_cells``) run in ``dry_pool`` from the end of the build
     on."""
     import torch
@@ -5245,6 +5732,27 @@ def phases(dry_pool) -> int:
                                  "counted_over_step_cost")}
               for r in p19["b"]], "c": p19["c"], "s": p19["s"]}
 
+    # -------------------------------------------- 20. the sequence split
+    t20 = time.perf_counter()
+    p20 = seq_phase(dry)
+    p20["s"] = sig(time.perf_counter() - t20)
+    log(f"[20] phase 20 took {p20['s']:.2f} s")
+    summary["p20"] = {
+        "k": [{k: r[k] for k in (
+            "dtype", "q_off", "ms", "rank0_ms", "bound_ms", "plain_ms",
+            "library_ms", "bwd_ms", "bwd_bound_ms", "bwd_plain_ms",
+            "library_fwd_bwd_ms", "max_abs_err", "bwd_max_err")}
+            for r in p20["k"]],
+        "a": {k: p20["a"][k] for k in (
+            "losses", "median_step_s", "tokens_per_s", "peak_B",
+            "n_params", "routes", "bwd_routes")},
+        "b": [{k: r[k] for k in ("q_off", "peak_B", "losses",
+                                 "median_step_s", "tokens_per_s",
+                                 "collectives", "attn_device_ms")}
+              for r in p20["b"]],
+        "imbalance": p20["imbalance"], "c": p20["c"], "d": p20["d"],
+        "s": p20["s"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -5585,6 +6093,37 @@ def phases(dry_pool) -> int:
         if min(k["tp_launches_per_rank"]) < 1:
             raise AssertionError(f"19b: {k['name']} was not launched on "
                                  f"every rank: {k['tp_launches_per_rank']}")
+    # the sequence split's launches, per rank of phase 20b, and phase
+    # 20k's rows at rank 1's call (q_off 2048): prefill_tc and the tc
+    # backward in bf16, general's forward and backward in f32
+    k20 = {r["dtype"]: r for r in p20["k"]}
+
+    def seq_fields(r, tag, which):
+        keys = {"fwd": ("ms", "bound_ms", "plain_ms", "library_ms",
+                        "max_abs_err", "rank0_ms"),
+                "bwd": ("bwd_ms", "bwd_bound_ms", "bwd_plain_ms",
+                        "library_fwd_bwd_ms", "bwd_max_err")}[which]
+        return {f"{tag}_{k}": r[k] for k in keys} | {
+            f"{tag}_q_off": r["q_off"], f"{tag}_shape": r["shape"]}
+    for k in kernels:
+        if k["name"] in SEQ_KERNELS:
+            table, route = SEQ_KERNELS[k["name"]]
+            k["seq_launches_per_rank"] = [r[table][route] for r in p20["b"]]
+            k["seq_launches_from"] = (
+                f"phase 20b, smollm-135m trained by two ranks of a (1, 2) "
+                f"mesh on their blocks of {SEQ_S} tokens, {TRAIN_STEPS} "
+                f"steps")
+            if min(k["seq_launches_per_rank"]) < 1:
+                raise AssertionError(f"20b: {k['name']} was not launched on "
+                                     f"every rank: "
+                                     f"{k['seq_launches_per_rank']}")
+        if k["name"] == "flash_attention:prefill_tc":
+            k.update(seq_fields(k20["bfloat16"], "seq", "fwd"))
+        elif k["name"] == "attention:general:f32":
+            k.update(seq_fields(k20["float32"], "seq", "fwd"))
+        elif k["name"] == "attention_bwd":
+            k.update(seq_fields(k20["bfloat16"], "seq", "bwd"))
+            k.update(seq_fields(k20["float32"], "seq_f32", "bwd"))
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -41,10 +41,10 @@ SIGNATURES = {
         "repro_empty_launch": (_I, _I, _I, _P),
     },
     # (q, k, v, o, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal, window,
-    #  scale, is_bf16, stream)
+    #  q_off, scale, is_bf16, stream)
     "flash_attention": {
         "repro_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _I, _P),
+                                  _I, _I, _I, _I, _I, _F, _I, _P),
     },
     # (u, dt, A, Bc, Cc, D, init, y, last, B, S, di, N, is_bf16, stream)
     "mamba_scan": {
@@ -60,15 +60,15 @@ SIGNATURES = {
     "moe_gmm_tc": {
         "repro_grouped_matmul_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
-    # (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale,
-    #  stream); lse null or (B, H, Sq) f32
+    # (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, q_off,
+    #  scale, stream); lse null or (B, H, Sq) f32
     "attention_prefill_tc": {
-        "repro_attention_prefill_tc": (_P,) * 5 + (_I,) * 9 + (_F, _P),
+        "repro_attention_prefill_tc": (_P,) * 5 + (_I,) * 10 + (_F, _P),
     },
     # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd, hdv,
-    #  causal, window, scale, is_bf16, stream)
+    #  causal, window, q_off, scale, is_bf16, stream)
     "attention_bwd": {
-        "repro_attention_bwd": (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
+        "repro_attention_bwd": (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),
     },
     # (x, w, dy, dx, dw, fills, G, C, D, F, is_bf16, stream); dx or dw
     # null skips its product
@@ -76,9 +76,9 @@ SIGNATURES = {
         "repro_grouped_matmul_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     },
     # (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H,
-    #  KV, hd, hdv, causal, window, scale, stream)
+    #  KV, hd, hdv, causal, window, q_off, scale, stream)
     "attention_bwd_tc": {
-        "repro_attention_bwd_tc": (_P,) * 11 + (_I,) * 9 + (_F, _P),
+        "repro_attention_bwd_tc": (_P,) * 11 + (_I,) * 10 + (_F, _P),
     },
     # (x, w, dy, dx, dw, fills, G, C, D, F, ctas, stream); dx or dw null
     # skips its product

@@ -9,7 +9,9 @@
 // the jnp reference; this is what a backward of the Pallas kernel computes:
 // dq, dk and dv of softmax(q k^T * scale + mask) v, the mask being the
 // kernel's causal one and the sliding window of ``ops.attention`` (no
-// explicit positions: query i and key j sit at i and j).
+// explicit positions: query i and key j sit at i + q_off and j; ``q_off``
+// >= 0 is a rank's first position in a sequence split over ranks, 0 for a
+// whole sequence).
 //
 // q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq, H,
 // HDV), contiguous and 16-byte aligned, all f32 or all bf16; (HD, HDV) = (64,
@@ -49,7 +51,8 @@
 //   window: up to the last key plus the window), Q, dO, lse and delta by
 //   cp.async in two stages; S^T = K Q^T and dP^T = V dO^T are formed per
 //   tile, so P^T and dS^T are A fragments in registers as they stand.
-// A tile the block's rows cannot reach is never loaded; inside the tiles
+// A tile the block's rows cannot reach is never loaded (a key block that
+// no query reaches still writes its dK and dV: zeros); inside the tiles
 // that are, every element is masked on its own.  Launches never
 // synchronise; the launcher returns cudaGetLastError().
 
@@ -103,13 +106,15 @@ struct Args {
   void* dv;
   float* lse;     // (B, H, Sq), log2 units
   float* delta;   // (B, H, Sq)
-  int B, Sq, Sk, H, KV, causal, window;
+  int B, Sq, Sk, H, KV, causal, window, q_off;
   float scale;
 };
 
+// query row qi (at position qi + q_off) and key kj
 __device__ __forceinline__ bool live(int qi, int kj, const Args& a) {
-  return qi < a.Sq && kj < a.Sk && (!a.causal || qi >= kj) &&
-         (a.window <= 0 || qi - kj < a.window);
+  const int qp = qi + a.q_off;
+  return qi < a.Sq && kj < a.Sk && (!a.causal || qp >= kj) &&
+         (a.window <= 0 || qp - kj < a.window);
 }
 
 // N rows of HD elements into shared rows of ``stride``, 16-byte pieces by
@@ -306,8 +311,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 
   // the key tiles the block's queries reach
   const int q_last = min(q0 + kRows, a.Sq) - 1;
-  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int k_hi = a.causal ? min(a.Sk - 1, q_last) : a.Sk - 1;
+  const int k_lo = a.window > 0 ? max(0, q0 + a.q_off - a.window + 1) : 0;
+  const int k_hi = a.causal ? min(a.Sk - 1, q_last + a.q_off) : a.Sk - 1;
   const int t_begin = k_lo / BK, t_end = k_hi < k_lo ? t_begin : k_hi / BK + 1;
   const float sl2 = a.scale * kLog2e;
   int qi[2] = {q0 + wr + g, q0 + wr + g + 8};
@@ -489,9 +494,12 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
 
   // the query tiles that reach the block's keys, for each of the G heads
   const int k_last = min(k0 + kRows, a.Sk) - 1;
-  const int q_lo = a.causal ? k0 : 0;
-  const int q_hi =
-      a.window > 0 ? min(a.Sq - 1, k_last + a.window - 1) : a.Sq - 1;
+  // (rows: positions less q_off; none past the last row or before the
+  // first, and then no tile runs and dK, dV come out zero)
+  const int q_lo = a.causal ? max(0, k0 - a.q_off) : 0;
+  const int q_hi = a.window > 0
+                       ? min(a.Sq - 1, k_last + a.window - 1 - a.q_off)
+                       : a.Sq - 1;
   const int qt0 = q_lo / BQ;
   const int n_qt = q_hi < q_lo ? 0 : q_hi / BQ - qt0 + 1;
   const int n = G * n_qt;
@@ -634,9 +642,10 @@ extern "C" int repro_attention_bwd(const void* q, const void* k,
                                    void* dv, void* lse, void* delta, int B,
                                    int Sq, int Sk, int H, int KV, int hd,
                                    int hd_v, int causal, int window,
-                                   float scale, int is_bf16, void* stream) {
+                                   int q_off, float scale, int is_bf16,
+                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (KV <= 0 || H % KV != 0)
+  if (KV <= 0 || H % KV != 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
                         static_cast<const void*>(dk),
@@ -645,7 +654,7 @@ extern "C" int repro_attention_bwd(const void* q, const void* k,
       return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(lse),
                static_cast<float*>(delta), B, Sq, Sk, H, KV, causal, window,
-               scale};
+               q_off, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(a, hd, hd_v, s)
                  : dispatch<float>(a, hd, hd_v, s);

@@ -9,8 +9,9 @@
 // which the JAX package cannot differentiate (jax.grad does not go through
 // its pallas_call): dq, dk and dv of softmax(q k^T * scale + mask) v, the
 // mask being the kernel's causal one and the sliding window of
-// ``ops.attention`` (no explicit positions: query i and key j sit at i and
-// j).
+// ``ops.attention`` (no explicit positions: query i and key j sit at
+// i + q_off and j; ``q_off`` >= 0 is a rank's first position in a sequence
+// split over ranks, 0 for a whole sequence).
 //
 // q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o, do (B, Sq, H,
 // HDV), contiguous bf16, 16-byte aligned, (HD, HDV) = (64, 64), hubert's (80,
@@ -75,9 +76,11 @@
 //    the two rows of f32) into the stages.  S^T = K Q^T and dP^T = V dO^T
 //    are shared-memory wgmmas, so P^T and dS^T are register A fragments as
 //    they stand; dV += P^T dO and dK += dS^T Q read dO and Q MN-major.
-// A tile that no unmasked pair reaches is never loaded.  Tiles that cross
-// the causal diagonal, the window's edge, Sq or Sk are masked element by
-// element; the others run unmasked.  The launcher returns a cudaError_t
+// A tile that no unmasked pair reaches is never loaded, and a key block
+// that no query reaches (causal: keys past q_off + Sq - 1) still writes
+// its dK and dV: zeros.  Tiles that cross the causal diagonal, the
+// window's edge, Sq or Sk are masked element by element; the others run
+// unmasked.  The launcher returns a cudaError_t
 // (cudaErrorInvalidValue when the driver's tensor-map encoder is missing or
 // refuses a map).
 
@@ -498,7 +501,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __nv_bfloat16* __restrict__ dout,
           const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
           float* __restrict__ lse_pad, float* __restrict__ delta_pad,
-          int Sq, int Sk, int H, int KV, int causal, int window,
+          int Sq, int Sk, int H, int KV, int causal, int window, int q_off,
           float scale_log2, float scale) {
   using L = Layout<HD, HDV>;
   constexpr int kN = L::kNq;
@@ -518,8 +521,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * kBig;
   const int q_last = min(q0 + kBig, Sq) - 1;
   const int n_tiles = (Sk + kN - 1) / kN;
-  const int t_hi = causal ? min(n_tiles, q_last / kN + 1) : n_tiles;
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kN : 0;
+  // the key tiles the block's query positions q0 + q_off .. reach
+  const int t_hi = causal ? min(n_tiles, (q_last + q_off) / kN + 1)
+                          : n_tiles;
+  const int t_lo = window > 0 ? max(0, q0 + q_off - window + 1) / kN : 0;
 
   const int tid = threadIdx.x;
   const uint32_t bar_q = smem_u32(&bars[0]);
@@ -568,6 +573,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int quad = lane % 4, c_lane = 2 * quad;
   const int r0 = q0 + wg * kWG + warp * 16 + lane / 4, r1 = r0 + 8;
   const int wg_first = q0 + wg * kWG, wg_last = wg_first + kWG - 1;
+  // the positions of the warpgroup's first and last rows
+  const int pw_first = wg_first + q_off, pw_last = wg_last + q_off;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const int Sq_pad = (Sq + kPad - 1) / kPad * kPad;
 
@@ -637,8 +644,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     // P = exp2(S * scale log2(e) - lse), 0 where masked
     const int k0 = t * kN;
     const bool masked = k0 + kN > Sk || wg_last >= Sq ||
-                        (causal && k0 + kN - 1 > wg_first) ||
-                        (window > 0 && wg_last - k0 >= window);
+                        (causal && k0 + kN - 1 > pw_first) ||
+                        (window > 0 && pw_last - k0 >= window);
 #pragma unroll
     for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
@@ -647,7 +654,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         float p = exp2_fast(sc[4 * j + e] * scale_log2 - ls[e / 2]);
         if (masked) {
           const int kj = k0 + 8 * j + c_lane + e % 2;
-          if (kj >= Sk || r >= Sq || !live(r, kj, causal, window)) p = 0.f;
+          if (kj >= Sk || r >= Sq || !live(r + q_off, kj, causal, window))
+            p = 0.f;
         }
         sc[4 * j + e] = p;
       }
@@ -707,7 +715,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
            const float* __restrict__ lse_pad,
            const float* __restrict__ delta_pad,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-           int Sq, int Sk, int H, int KV, int causal, int window,
+           int Sq, int Sk, int H, int KV, int causal, int window, int q_off,
            float scale_log2, float scale) {
   using L = Layout<HD, HDV>;
   constexpr int kN = L::kNkv;
@@ -728,9 +736,13 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int k0 = blockIdx.y * kBig;
   const int k_last = min(k0 + kBig, Sk) - 1;
   const int n_qt = (Sq + kN - 1) / kN;
-  const int qt_lo = causal ? k0 / kN : 0;
-  const int qt_hi = window > 0 ? min(n_qt, (k_last + window - 1) / kN + 1)
-                               : n_qt;
+  // the query tiles whose positions (row + q_off) reach the block's keys;
+  // none past the last query (causal) or before the first (window): the
+  // loop below then runs no tile and dK, dV come out zero
+  const int qt_lo = causal ? max(0, k0 - q_off) / kN : 0;
+  const int q_reach = k_last + window - 1 - q_off;   // the last row, window
+  const int qt_hi = window <= 0 ? n_qt
+                    : q_reach < 0 ? 0 : min(n_qt, q_reach / kN + 1);
   const int per_head = max(qt_hi - qt_lo, 0);
   const int n_it = G * per_head;
   const int Sq_pad = (Sq + kPad - 1) / kPad * kPad;
@@ -820,8 +832,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
 
     // P^T, rounded to bf16: the A fragments of dV += P^T dO
     const bool masked = kw_last >= Sk || q0 + kN > Sq ||
-                        (causal && q0 < kw_last) ||
-                        (window > 0 && q0 + kN - 1 - kw0 >= window);
+                        (causal && q0 + q_off < kw_last) ||
+                        (window > 0 && q0 + q_off + kN - 1 - kw0 >= window);
     uint32_t pf[kN / 16][4];
 #pragma unroll
     for (int j = 0; j < kN / 8; ++j) {
@@ -834,7 +846,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
         if (masked) {
           const int qi = q0 + 8 * j + c_lane + e % 2;
           const int kj = e < 2 ? kr0 : kr1;
-          if (kj >= Sk || qi >= Sq || !live(qi, kj, causal, window))
+          if (kj >= Sk || qi >= Sq || !live(qi + q_off, kj, causal, window))
             p[e] = 0.f;
         }
       }
@@ -947,7 +959,8 @@ template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* lse_pad, float* delta_pad, int B, int Sq, int Sk, int H,
-           int KV, int causal, int window, float scale, cudaStream_t stream) {
+           int KV, int causal, int window, int q_off, float scale,
+           cudaStream_t stream) {
   using L = Layout<HD, HDV>;
   CUtensorMap tq_big, tdo_big, tk_small, tv_small;   // dq_kernel's
   CUtensorMap tk_big, tv_big, tq_small, tdo_small;   // dkv_kernel's
@@ -981,23 +994,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse,
       static_cast<__nv_bfloat16*>(dq), lse_pad, delta_pad, Sq, Sk, H, KV,
-      causal, window, scale_log2, scale);
+      causal, window, q_off, scale_log2, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(KV * B, (Sk + kBig - 1) / kBig);
   dkv_kernel<HD, HDV><<<grid_kv, kThreads, L::kDkvSmem, stream>>>(
       tk_big, tv_big, tq_small, tdo_small, lse_pad, delta_pad,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
-      Sk, H, KV, causal, window, scale_log2, scale);
+      Sk, H, KV, causal, window, q_off, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // (q, k, v, o, do, lse, dq, dk, dv, lse_pad, delta_pad, B, Sq, Sk, H, KV,
-// hd, hd_v, causal, window, scale, stream); (hd, hd_v) (64, 64), (80, 80),
-// (128, 128) or (192, 128); lse_pad and delta_pad hold B * H * Sq_pad floats,
-// Sq_pad = Sq rounded up to 128
+// hd, hd_v, causal, window, q_off, scale, stream); q_off >= 0; (hd, hd_v)
+// (64, 64), (80, 80), (128, 128) or (192, 128); lse_pad and delta_pad hold
+// B * H * Sq_pad floats, Sq_pad = Sq rounded up to 128
 extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -1005,7 +1018,7 @@ extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
                                       void* lse_pad, void* delta_pad, int B,
                                       int Sq, int Sk, int H, int KV, int hd,
                                       int hd_v, int causal, int window,
-                                      float scale, void* stream) {
+                                      int q_off, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   uintptr_t align = 0;
   for (const void* p : {q, k, v, o, dout, lse, static_cast<const void*>(dq),
@@ -1014,7 +1027,7 @@ extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
                         static_cast<const void*>(lse_pad),
                         static_cast<const void*>(delta_pad)})
     align |= reinterpret_cast<uintptr_t>(p);
-  if (KV <= 0 || H % KV != 0 || (align & 15) != 0)
+  if (KV <= 0 || H % KV != 0 || q_off < 0 || (align & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1022,15 +1035,15 @@ extern "C" int repro_attention_bwd_tc(const void* q, const void* k,
   float* dp = static_cast<float*>(delta_pad);
   if (hd == 64 && hd_v == 64)
     return launch<64, 64>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk,
-                          H, KV, causal, window, scale, s);
+                          H, KV, causal, window, q_off, scale, s);
   if (hd == 80 && hd_v == 80)
     return launch<80, 80>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq, Sk,
-                          H, KV, causal, window, scale, s);
+                          H, KV, causal, window, q_off, scale, s);
   if (hd == 128 && hd_v == 128)
     return launch<128, 128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq,
-                            Sk, H, KV, causal, window, scale, s);
+                            Sk, H, KV, causal, window, q_off, scale, s);
   if (hd == 192 && hd_v == 128)
     return launch<192, 128>(q, k, v, o, dout, l, dq, dk, dv, lp, dp, B, Sq,
-                            Sk, H, KV, causal, window, scale, s);
+                            Sk, H, KV, causal, window, q_off, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

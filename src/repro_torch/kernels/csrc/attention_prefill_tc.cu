@@ -7,8 +7,11 @@
 // Pallas TPU kernel behind ``flash_attention``), and the sliding window
 // that the JAX package's ``ops.attention`` sends to its jnp reference
 // (src/repro/kernels/ref.py::attention_reference) with positions
-// arange(Sq) and arange(Sk): ``causal`` keeps q >= k, ``window > 0`` keeps
-// q - k < window.  Explicit positions go to the other routes.
+// q_off + arange(Sq) and arange(Sk): ``causal`` keeps q >= k, ``window > 0``
+// keeps q - k < window.  ``q_off`` (>= 0) places query row i at position
+// i + q_off: a block of a sequence split over ranks (the rank's queries
+// against every key before them), 0 for a whole sequence.  Explicit
+// positions go to the other routes.
 //
 // q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o (B, Sq, H, HDV),
 // contiguous bf16, 16-byte aligned, (HD, HDV) one of (64, 64), hubert's (80,
@@ -60,9 +63,9 @@
 //    where the accumulator layout of S is the A-fragment layout of the
 //    next product, and O += P V is wgmma with A from registers and V from
 //    shared memory (MN-major B).
-//  * Masks: tiles that no live (query, key) pair reaches are never loaded
-//    (causal: keys past the block's last query; window: keys before its
-//    first query's window), so a 128-query tile of window 1024 reads at
+//  * Masks, on the queries' positions (row + q_off): tiles that no live
+//    (query, key) pair reaches are never loaded (causal: keys past the
+//    block's last query; window: keys before its first query's window), so a 128-query tile of window 1024 reads at
 //    most 9 key tiles.  Only tiles that cross the causal diagonal, the
 //    window's left edge or Sk evaluate the mask; the others run unmasked.
 //    Masked scores inside Sk are -1e30 and keys past Sk -inf (weight
@@ -349,7 +352,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   int Sq, int Sk, int H, int KV, int causal, int window,
-                  float scale_log2) {
+                  int q_off, float scale_log2) {
   using L = Layout<HD, HDV>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
   constexpr int kSN = kBK / 8;     // n8 column blocks of S
@@ -369,8 +372,10 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * kBQ;
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int n_tiles = (Sk + kBK - 1) / kBK;
-  const int t_hi = causal ? min(n_tiles, q_last / kBK + 1) : n_tiles;
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  // the key tiles the block's query positions q0 + q_off .. reach
+  const int t_hi = causal ? min(n_tiles, (q_last + q_off) / kBK + 1)
+                          : n_tiles;
+  const int t_lo = window > 0 ? max(0, q0 + q_off - window + 1) / kBK : 0;
 
   const int tid = threadIdx.x;
   const uint32_t bar_q = smem_u32(&bars[0]);
@@ -416,7 +421,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
   const int r1 = r0 + 8;
   const int c_lane = 2 * (lane % 4);          // column within an n8 block
-  const int wg_first = q0 + wg * 64, wg_last = wg_first + 63;
+  // the positions of rows r0, r1 and of the warpgroup's first and last
+  const int p0 = r0 + q_off, p1 = r1 + q_off;
+  const int wg_first = q0 + q_off + wg * 64, wg_last = wg_first + 63;
 
   float acc[HDV / 2];
 #pragma unroll
@@ -472,8 +479,8 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (kj >= Sk) {
             x0 = x1 = -INFINITY;            // past the end: weight 0
           } else {
-            if (!live(r0, kj, causal, window)) x0 = kMasked;
-            if (!live(r1, kj, causal, window)) x1 = kMasked;
+            if (!live(p0, kj, causal, window)) x0 = kMasked;
+            if (!live(p1, kj, causal, window)) x1 = kMasked;
           }
         }
         sc[4 * j + e] = x0;
@@ -605,7 +612,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Sk, int H, int KV, int causal, int window,
-           float scale, cudaStream_t stream) {
+           int q_off, float scale, cudaStream_t stream) {
   using L = Layout<HD, HDV>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, H, HD, kBQ) ||
@@ -625,41 +632,42 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   prefill_tc_kernel<HD, HDV><<<grid, kThreads, L::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV, causal,
-      window, scale * kLog2e);
+      window, q_off, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, scale,
-// stream); ``lse`` null or (B, H, Sq) f32
+// (q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hdv, causal, window, q_off,
+// scale, stream); ``lse`` null or (B, H, Sq) f32; q_off >= 0
 extern "C" int repro_attention_prefill_tc(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
                                           int B, int Sq, int Sk, int H,
                                           int KV, int hd, int hdv,
                                           int causal, int window,
-                                          float scale, void* stream) {
+                                          int q_off, float scale,
+                                          void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
                           reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(lse);
-  if (KV <= 0 || H % KV != 0 || (align & 15) != 0)
+  if (KV <= 0 || H % KV != 0 || q_off < 0 || (align & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (hd == 64 && hdv == 64)
     return launch<64, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
-                          window, scale, s);
+                          window, q_off, scale, s);
   if (hd == 80 && hdv == 80)
     return launch<80, 80>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
-                          window, scale, s);
+                          window, q_off, scale, s);
   if (hd == 128 && hdv == 128)
     return launch<128, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
-                            window, scale, s);
+                            window, q_off, scale, s);
   if (hd == 192 && hdv == 128)
     return launch<192, 128>(q, k, v, o, l, B, Sq, Sk, H, KV, causal,
-                            window, scale, s);
+                            window, q_off, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

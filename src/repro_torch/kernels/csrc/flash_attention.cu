@@ -9,8 +9,10 @@
 // (src/repro/kernels/ref.py::attention_reference): optional absolute
 // positions q_pos (B, Sq) and k_pos (B, Sk), where k_pos < 0 is padding,
 // ``causal`` keeps q_pos >= k_pos and ``window > 0`` keeps
-// q_pos - k_pos < window.  Without positions they are arange(Sq) and
-// arange(Sk), the Pallas kernel's causal mask.
+// q_pos - k_pos < window.  Without positions they are q_off + arange(Sq)
+// and arange(Sk): with q_off 0 the Pallas kernel's causal mask, with
+// q_off > 0 a rank's block of queries in a sequence split over ranks,
+// against every key.
 //
 // q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hdv), contiguous, all
 // f32 or all bf16; o (B, Sq, H, hdv) in q's dtype.  hd, hdv <= 256.  The kv
@@ -104,9 +106,9 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  const int* q_pos;   // (B, Sq) or null: arange(Sq)
+  const int* q_pos;   // (B, Sq) or null: q_off + arange(Sq)
   const int* k_pos;   // (B, Sk) or null: arange(Sk)
-  int B, Sq, Sk, H, KV, hd, hdv, causal, window;
+  int B, Sq, Sk, H, KV, hd, hdv, causal, window, q_off;
   float scale;
 };
 
@@ -377,7 +379,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a, int vec) {
     int qp = 0;
     if (row < rows) {
       const int qi = row / G;
-      qp = a.q_pos ? a.q_pos[static_cast<size_t>(b) * a.Sq + qi] : qi;
+      qp = a.q_pos ? a.q_pos[static_cast<size_t>(b) * a.Sq + qi]
+                   : qi + a.q_off;
       atomicMin(&q_lo, qp);
       atomicMax(&q_hi, qp);
     }
@@ -669,14 +672,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* q_pos, const void* k_pos,
                                      int B, int Sq, int Sk, int H, int KV,
                                      int hd, int hdv, int causal, int window,
-                                     float scale, int is_bf16, void* stream) {
+                                     int q_off, float scale, int is_bf16,
+                                     void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || hd <= 0 || hd > kMaxDim || hdv <= 0 ||
-      hdv > kMaxDim)
+      hdv > kMaxDim || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, static_cast<const int*>(q_pos),
                static_cast<const int*>(k_pos), B, Sq, Sk, H, KV, hd, hdv,
-               causal, window, scale};
+               causal, window, q_off, scale};
   // 16-byte pieces: whole pieces per row and 16-byte aligned tensors
   const int piece = is_bf16 ? 8 : 4;
   const int vec = hd % piece == 0 && hdv % piece == 0 &&

@@ -14,8 +14,8 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
   then a log-sum-exp combine;
 - ``prefill_tc`` (``csrc/attention_prefill_tc.cu``): bf16, (hd, hd_v) in
   ``TC_HEAD_DIMS`` -- (64, 64), hubert's (80, 80), (128, 128) and MLA's
-  (192, 128) -- no explicit positions -- wgmma on the tensor cores, K/V by
-  TMA;
+  (192, 128) -- no explicit positions (a query offset is not one) --
+  wgmma on the tensor cores, K/V by TMA;
 - ``general`` (``csrc/flash_attention.cu``): everything else -- f32
   prefill, other head dims (any up to ``MAX_HEAD_DIM``, hd and hd_v
   unequal), positions with many rows -- on the tensor cores (mma.sync:
@@ -24,10 +24,17 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
 
+A query offset ``q_off`` (>= 0, no explicit positions) places query row i
+at position i + q_off and key j at j: a rank's block of queries in a
+sequence split over ranks (``models.layers.gqa_attention``), against the
+keys of the whole sequence.  ``prefill_tc``, ``general`` and both backward
+kernels take it; ``decode_split`` does not, so a call with an offset goes
+to one of the other two.
+
 Training: ``attention_train`` runs the forward above through
 ``_Attention``, an autograd Function whose backward is ``attention_bwd``,
-for the calls the training path makes -- no explicit positions, (hd,
-hd_v) in ``BWD_HEAD_DIMS`` (hymba's and olmoe's (64, 64) and (128, 128),
+for the calls the training path makes -- no explicit positions (a query
+offset is not one), (hd, hd_v) in ``BWD_HEAD_DIMS`` (hymba's and olmoe's (64, 64) and (128, 128),
 hubert's (80, 80), MLA's (192, 128)), f32 or bf16, causal or not, any
 window -- and raises
 for any other call that needs a gradient.  Backward routes, chosen by
@@ -78,14 +85,15 @@ def _pieces_ok(dim: int, itemsize: int) -> bool:
 
 def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
           hd_v: int, window: int, has_positions: bool,
-          with_lse: bool = False) -> str:
+          with_lse: bool = False, q_off: int = 0) -> str:
     """The kernel an attention call of these shapes goes to (see the module
     docstring); a pure function of the shapes.  ``with_lse``: the call
     also wants the row log-sum-exp, which only ``prefill_tc`` writes (a
     training forward: any number of rows goes there); raises where that
-    route does not take the call."""
+    route does not take the call.  A query offset (``q_off`` > 0) keeps
+    the call off ``decode_split``."""
     itemsize = dtype.itemsize
-    if (not with_lse and Sq * (H // KV) <= DECODE_ROWS
+    if (not with_lse and not q_off and Sq * (H // KV) <= DECODE_ROWS
             and _pieces_ok(hd, itemsize) and _pieces_ok(hd_v, itemsize)):
         return "decode_split"
     if (dtype == torch.bfloat16 and (hd, hd_v) in TC_HEAD_DIMS
@@ -120,11 +128,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int,
+               q_off: int = 0) -> int:
     """(query, key) pairs of one batch row that the mask keeps, query i
-    and key j at positions i and j: ``i >= j`` if ``causal``, ``i - j <
-    window`` if ``window``."""
-    i = np.arange(Sq, dtype=np.int64)
+    and key j at positions i + ``q_off`` and j: ``i + q_off >= j`` if
+    ``causal``, ``i + q_off - j < window`` if ``window``."""
+    i = np.arange(Sq, dtype=np.int64) + q_off
     hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(i - window + 1, 0) if window else 0
     return int(np.clip(hi - lo + 1, 0, None).sum())
@@ -132,14 +141,15 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 def attention_cost(esize: int, B: int, Sq: int, Sk: int, H: int, KV: int,
                    hd: int, hd_v: int, causal: bool, window: int,
-                   n_positions: int = 0, with_lse: bool = False
-                   ) -> tuple[int, int]:
+                   n_positions: int = 0, with_lse: bool = False,
+                   q_off: int = 0) -> tuple[int, int]:
     """(FLOPs, bytes) of the forward's bound: 2 (hd + hd_v) FLOPs per live
-    pair and q head; q, k, v (and the ``n_positions`` int32 positions)
-    read once, the output (and the f32 LSE) written once.  With positions
-    the live pairs are not known from the shapes: every pair counts."""
+    pair and q head (the queries at ``q_off`` on); q, k, v (and the
+    ``n_positions`` int32 positions) read once, the output (and the f32
+    LSE) written once.  With positions the live pairs are not known from
+    the shapes: every pair counts."""
     pairs = B * (Sq * Sk if n_positions else live_pairs(Sq, Sk, causal,
-                                                         window))
+                                                         window, q_off))
     flops = 2 * H * pairs * (hd + hd_v)
     nbytes = esize * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
     nbytes += 4 * n_positions + (4 * B * H * Sq if with_lse else 0)
@@ -148,12 +158,13 @@ def attention_cost(esize: int, B: int, Sq: int, Sk: int, H: int, KV: int,
 
 def attention_bwd_cost(which: str, esize: int, B: int, Sq: int, Sk: int,
                        H: int, KV: int, hd: int, hd_v: int, causal: bool,
-                       window: int) -> tuple[int, int]:
+                       window: int, q_off: int = 0) -> tuple[int, int]:
     """(FLOPs, bytes) of the backward's bound on route ``which``: per live
     pair and q head 2 hd FLOPs for each of S, dQ and dK, 2 hd_v for dP and
     dV, and 2 hd for S once more where the route (``general``) recomputes
-    the LSE; q, k, v, o, do read once and dq, dk, dv written once."""
-    pairs = B * live_pairs(Sq, Sk, causal, window)
+    the LSE; q, k, v, o, do read once and dq, dk, dv written once; the
+    queries at ``q_off`` on."""
+    pairs = B * live_pairs(Sq, Sk, causal, window, q_off)
     flop_pair = 2 * (3 * hd + 2 * hd_v) + (0 if which == "tc" else 2 * hd)
     nbytes = esize * 2 * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
     return flop_pair * H * pairs, nbytes
@@ -169,10 +180,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_pos: torch.Tensor | None = None,
                     k_pos: torch.Tensor | None = None,
-                    scale: float | None = None, return_lse: bool = False):
+                    scale: float | None = None, return_lse: bool = False,
+                    q_off: int = 0):
     """q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) on one
     CUDA device, contiguous, all f32 or all bf16; ``q_pos``/``k_pos``
-    (B, Sq)/(B, Sk) int32.  Returns (B, Sq, H, hd_v) in q's dtype; with
+    (B, Sq)/(B, Sk) int32, or without ``q_pos`` the queries at ``q_off``
+    (>= 0) on.  Returns (B, Sq, H, hd_v) in q's dtype; with
     ``return_lse``, (that, the (B, H, Sq) f32 row log-sum-exp in log2
     units, as ``ref.attention_lse_ref``), from ``prefill_tc`` alone.
 
@@ -195,13 +208,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{MAX_HEAD_DIM}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    _check_q_off(q_off, q_pos)
     if q_pos is not None:
         ops.check("q_pos", q_pos, (B, Sq), (torch.int32,), dev)
     if k_pos is not None:
         ops.check("k_pos", k_pos, (B, Sk), (torch.int32,), dev)
     scale = scale if scale is not None else hd ** -0.5
     which = route(q.dtype, B, Sq, Sk, H, KV, hd, hd_v, window,
-                  q_pos is not None or k_pos is not None, return_lse)
+                  q_pos is not None or k_pos is not None, return_lse, q_off)
     if which != "general" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"route {which} needs 16-byte aligned q, k and v")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev)
@@ -213,7 +227,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ops.add_meta_cost(
             "flash_attention" if plain else "attention_masked",
             *attention_cost(q.element_size(), B, Sq, Sk, H, KV, hd, hd_v,
-                            causal, window, n_pos, return_lse))
+                            causal, window, n_pos, return_lse, q_off))
         return (out, lse) if return_lse else out
     qp = None if q_pos is None else q_pos.data_ptr()
     kp = None if k_pos is None else k_pos.data_ptr()
@@ -233,12 +247,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = load("attention_prefill_tc").repro_attention_prefill_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV,
-                hd, hd_v, int(causal), int(window), float(scale), stream)
+                hd, hd_v, int(causal), int(window), int(q_off), float(scale),
+                stream)
         else:
             err = load("flash_attention").repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,
                 kp, B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
-                float(scale), is_bf16, stream)
+                int(q_off), float(scale), is_bf16, stream)
     if err:
         raise RuntimeError(f"attention ({which}) launch failed: CUDA error "
                            f"{err}")
@@ -248,13 +263,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def bwd_route(dtype, Sq: int, Sk: int, hd: int, hd_v: int, window: int,
-              has_positions: bool) -> str:
+              has_positions: bool, q_off: int = 0) -> str:
     """The backward kernel an attention call of these shapes goes to (see
     the module docstring): ``"tc"`` for bf16, ``"general"`` for f32; a pure
     function of the dtype and the shapes.  Raises for a call that neither
     takes: explicit positions, (hd, hd_v) not in ``BWD_HEAD_DIMS``,
-    another dtype, or a window that leaves query rows past ``Sk + window
-    - 1`` without a key."""
+    another dtype, or a window that leaves query positions (rows +
+    ``q_off``) past ``Sk + window - 1`` without a key."""
     if has_positions:
         raise RuntimeError("attention with explicit positions has no "
                            "backward kernel")
@@ -266,27 +281,37 @@ def bwd_route(dtype, Sq: int, Sk: int, hd: int, hd_v: int, window: int,
         raise RuntimeError(f"attention in {dtype} has no backward kernel")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if window and Sq - window >= Sk:
-        raise RuntimeError(f"window {window} leaves query rows past "
+    if window and Sq + q_off - window >= Sk:
+        raise RuntimeError(f"window {window} leaves query positions past "
                            f"{Sk + window - 1} without a key")
     return "tc" if dtype == torch.bfloat16 else "general"
 
 
+def _check_q_off(q_off: int, q_pos) -> None:
+    if q_off < 0:
+        raise ValueError(f"q_off must be >= 0, got {q_off}")
+    if q_off and q_pos is not None:
+        raise ValueError("q_off and q_pos both place the queries: pass one")
+
+
 def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               window: int, has_positions: bool) -> str:
+               window: int, has_positions: bool, q_off: int = 0) -> str:
     """``bwd_route`` of a call of these tensors (raising where no backward
     kernel takes it)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, S, heads, head_dim)")
     return bwd_route(q.dtype, q.shape[1], k.shape[1], q.shape[-1],
-                     v.shape[-1], window, has_positions)
+                     v.shape[-1], window, has_positions, q_off)
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, do: torch.Tensor, *, causal: bool,
-                  window: int, scale: float, lse: torch.Tensor | None = None
+                  window: int, scale: float, lse: torch.Tensor | None = None,
+                  q_off: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of attention without positions: q (B, Sq, H, hd), k
+    """(dq, dk, dv) of attention without positions (the queries at
+    ``q_off`` >= 0 on; a key that no query reaches gets zeros): q (B, Sq,
+    H, hd), k
     (B, Sk, KV, hd), v (B, Sk, KV, hd_v), o, do (B, Sq, H, hd_v),
     contiguous and 16-byte aligned on one CUDA device, all f32 or all
     bf16, (hd, hd_v) in ``BWD_HEAD_DIMS``; o the forward's output;
@@ -295,19 +320,20 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     recomputes it) does not take.  The gradients come out in q's
     dtype.  Counts as ``attention_bwd`` and once in
     ``ops.bwd_route_launches`` under its route."""
-    which = _check_bwd(q, k, v, window, False)
+    _check_q_off(q_off, None)
+    which = _check_bwd(q, k, v, window, False, q_off)
     if (which == "tc") != (lse is not None):
         raise ValueError("the tc attention backward (bf16) needs the "
                          "forward's log-sum-exp, and general (f32) "
                          "recomputes it: pass lse exactly for bf16")
     dq, dk, dv = _bwd_launch(which, q, k, v, o, do, lse, causal, window,
-                             scale)
+                             scale, q_off)
     if q.is_meta:
         B, Sq, H, hd = q.shape
         Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
         ops.add_meta_cost("attention_bwd", *attention_bwd_cost(
             which, q.element_size(), B, Sq, Sk, H, KV, hd, hd_v, causal,
-            window))
+            window, q_off))
         return dq, dk, dv
     ops.launches["attention_bwd"] += 1
     ops.bwd_route_launches[f"attention_{which}"] += 1
@@ -315,7 +341,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
-                scale: float):
+                scale: float, q_off: int):
     """Check the tensors and launch route ``which``'s backward kernel."""
     from ._build import load
     B, Sq, H, hd = q.shape
@@ -352,13 +378,14 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), scratch.data_ptr(), scratch[pad:].data_ptr(),
                 B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
-                float(scale), stream)
+                int(q_off), float(scale), stream)
         else:
             err = load("attention_bwd").repro_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 lse_s.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
-                hd_v, int(causal), int(window), float(scale), 0, stream)
+                hd_v, int(causal), int(window), int(q_off), float(scale), 0,
+                stream)
     if err:
         raise RuntimeError(f"attention backward ({which}) launch failed: "
                            f"CUDA error {err}")
@@ -372,10 +399,11 @@ class _Attention(torch.autograd.Function):
     it; otherwise on its usual route)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        kw = dict(causal=causal, window=window, scale=scale)
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float,
+                q_off: int):
+        kw = dict(causal=causal, window=window, scale=scale, q_off=q_off)
         lse = None
-        if _check_bwd(q, k, v, window, False) == "tc":
+        if _check_bwd(q, k, v, window, False, q_off) == "tc":
             o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         else:
             o = flash_attention(q, k, v, **kw)
@@ -388,16 +416,19 @@ class _Attention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, o, do.contiguous(), lse=lse,
                                    **ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_pos: torch.Tensor | None = None,
                     k_pos: torch.Tensor | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    q_off: int = 0) -> torch.Tensor:
     """``flash_attention`` with a gradient: raises before anything runs
     where the backward kernel does not take the call (``_check_bwd``)."""
-    _check_bwd(q, k, v, window, q_pos is not None or k_pos is not None)
+    _check_q_off(q_off, q_pos)
+    _check_bwd(q, k, v, window, q_pos is not None or k_pos is not None,
+               q_off)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _Attention.apply(q, k, v, causal, window, scale)
+    return _Attention.apply(q, k, v, causal, window, scale, q_off)

@@ -168,20 +168,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               q_pos: torch.Tensor | None = None,
               k_pos: torch.Tensor | None = None,
-              scale: float | None = None) -> torch.Tensor:
+              scale: float | None = None, q_off: int = 0) -> torch.Tensor:
     """GQA attention, (B, Sq, H, hd) x (B, Sk, KV, hd[_v]) -> (B, Sq, H,
     hd_v): the CUDA kernel for a CUDA (or meta) ``q``, else
     ``ref.attention_ref``;
-    where a gradient is needed, the kernel's autograd Function."""
+    where a gradient is needed, the kernel's autograd Function.  Without
+    ``q_pos`` the queries sit at ``q_off`` (>= 0) on, the keys at 0 on."""
+    kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos,
+              scale=scale, q_off=q_off)
     if use_kernel(q):
         from . import flash_attention as fa  # imports ops
         if needs_grad(q, k, v):
-            return fa.attention_train(q, k, v, causal=causal, window=window,
-                                      q_pos=q_pos, k_pos=k_pos, scale=scale)
-        return fa.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_pos=q_pos, k_pos=k_pos, scale=scale)
-    return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             q_pos=q_pos, k_pos=k_pos, scale=scale)
+            return fa.attention_train(q, k, v, **kw)
+        return fa.flash_attention(q, k, v, **kw)
+    return ref.attention_ref(q, k, v, **kw)
 
 
 def mamba_scan(u, dt, A, Bc, Cc, D, init_state=None):

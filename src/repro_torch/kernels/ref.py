@@ -39,12 +39,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   q_pos: torch.Tensor | None = None,
                   k_pos: torch.Tensor | None = None,
-                  scale: float | None = None) -> torch.Tensor:
+                  scale: float | None = None,
+                  q_off: int = 0) -> torch.Tensor:
     """GQA attention: q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV,
     hd_v) -> (B, Sq, H, hd_v) in q's dtype.
 
     ``q_pos``/``k_pos`` are (B, Sq)/(B, Sk) absolute positions (default
-    ``arange``); ``k_pos < 0`` is padding, ``causal`` keeps
+    ``q_off + arange`` and ``arange``: ``q_off`` places a block of queries
+    of a longer sequence); ``k_pos < 0`` is padding, ``causal`` keeps
     ``q_pos >= k_pos`` and ``window > 0`` keeps ``q_pos - k_pos < window``.
     Masked scores are -1e30, the softmax is f32, and ``p`` is cast to v's
     dtype before the PV product, as in the JAX reference."""
@@ -53,7 +55,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     scale = scale if scale is not None else hd ** -0.5
     if q_pos is None:
-        q_pos = torch.arange(Sq, device=q.device).expand(B, Sq)
+        q_pos = (torch.arange(Sq, device=q.device) + q_off).expand(B, Sq)
+    elif q_off:
+        raise ValueError("q_off and q_pos both place the queries: pass one")
     if k_pos is None:
         k_pos = torch.arange(Sk, device=q.device).expand(B, Sk)
     qf = q.reshape(B, Sq, KV, G, hd).float()
@@ -156,10 +160,10 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _live(Sq: int, Sk: int, causal: bool, window: int,
-          device) -> torch.Tensor:
+          device, q_off: int = 0) -> torch.Tensor:
     """(Sq, Sk) bool: the (query, key) pairs that attention without
-    positions keeps."""
-    qp = torch.arange(Sq, device=device)[:, None]
+    positions keeps, query i at position i + ``q_off``."""
+    qp = torch.arange(Sq, device=device)[:, None] + q_off
     kp = torch.arange(Sk, device=device)[None, :]
     live = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -170,19 +174,21 @@ def _live(Sq: int, Sk: int, causal: bool, window: int,
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
-                      window: int, scale: float) -> torch.Tensor:
+                      window: int, scale: float,
+                      q_off: int = 0) -> torch.Tensor:
     """The row log-sum-exp that ``csrc/attention_prefill_tc.cu`` writes
     beside its output and ``csrc/attention_bwd_tc.cu`` takes, for the tests
     only: (B, H, Sq) f32, ``log2(sum_k 2^(s_qk * scale * log2(e)))`` over
     the unmasked keys of each row -- the natural log-sum-exp of the scaled
     scores times log2(e), **in log2 units**, so that ``P = 2^(S * scale *
-    log2(e) - lse)``.  q (B, Sq, H, hd), k (B, Sk, KV, hd), no positions;
-    masked scores are -1e30, as in ``attention_ref``."""
+    log2(e) - lse)``.  q (B, Sq, H, hd), k (B, Sk, KV, hd), no positions
+    (the queries at ``q_off`` on); masked scores are -1e30, as in
+    ``attention_ref``."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qf = q.reshape(B, Sq, KV, H // KV, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float()) * scale
-    s = torch.where(_live(Sq, Sk, causal, window, q.device), s,
+    s = torch.where(_live(Sq, Sk, causal, window, q.device, q_off), s,
                     torch.full_like(s, -1e30))
     return (torch.logsumexp(s, dim=-1) * _LOG2E).reshape(B, H, Sq)
 
@@ -190,12 +196,13 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *, causal: bool,
                       window: int, scale: float,
-                      lse: torch.Tensor | None = None
+                      lse: torch.Tensor | None = None, q_off: int = 0
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The arithmetic of the attention backward kernels
     (``csrc/attention_bwd.cu``, ``csrc/attention_bwd_tc.cu``) in plain
     PyTorch, for the tests only: (dq, dk, dv) of ``attention_ref`` without
-    positions, from its output ``o`` and the output's gradient ``do``.  In
+    positions (the queries at ``q_off`` on: a key that no query reaches
+    gets zeros), from its output ``o`` and the output's gradient ``do``.  In
     f32: ``P = exp(S - lse)`` (masked pairs exactly 0), the row
     log-sum-exp of the masked scores recomputed, or ``lse`` (B, H, Sq) as
     ``attention_lse_ref`` gives it (log2 units) where given; ``delta =
@@ -208,7 +215,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.reshape(B, Sq, KV, G, -1).float()
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf) * scale
-    live = _live(Sq, Sk, causal, window, q.device)
+    live = _live(Sq, Sk, causal, window, q.device, q_off)
     s = torch.where(live, s, -torch.inf)
     if lse is None:
         p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))

@@ -31,25 +31,29 @@ kernel's few-kilobyte workspace.
 
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b \\
-        --shape train_4k [--all] [--tag T] [--out DIR]
+        --shape train_4k [--all] [--tag T] [--out DIR] [--mesh DxM]
 
 Output: ``<out>/<cell>.json``, ``out`` defaulting to ``dryrun_out/`` at
 the root of the checkout (listed in ``.gitignore``).
 
 ``--multi-pod`` prices a cell as rank 0 of the (2, 16, 16) production
 mesh, ``--both-meshes`` of (16, 16) and of (2, 16, 16) (cells
-``...__gpu256``, ``...__gpu512``), and ``run_cell(..., mesh=fake_mesh(
-shape))`` of any mesh: the process is rank 0 of a fake process group of
-that size (``torch.testing``'s ``FakeStore``, backend ``"fake"``), the model
-holds rank 0's blocks on the meta device, the batch is rank 0's rows (a
+``...__gpu256``, ``...__gpu512``), ``--mesh DxM`` of a (D, M) mesh
+('data', 'model'), and ``run_cell(..., mesh=fake_mesh(shape))`` of any
+mesh: the process is rank 0 of a fake process group of that size (``torch.testing``'s ``FakeStore``, backend ``"fake"``), the model
+holds rank 0's blocks on the meta device, the batch is rank 0's part (``TrainStep.local_batch``
+for training: its rows, and under ``dp_seq`` its block of the sequence; a
 cell whose batch does not split over the data axes is skipped), serving
 holds its dense leaves whole and its experts in the round robin over the
 model axis, and ``MetaCollectives`` answers the collectives with meta
 tensors of their results' shapes.  A training step takes the families'
 routes on the model axis (``parallel.sharding.tp_split``): a ``tp``
 family holds its blocks and its products' psums count as all-reduces,
-a ``gathered`` one its all-gathers.  Parameters, state bytes, the peak,
-FLOPs and collective bytes are rank 0's.
+a ``gathered`` one its all-gathers; on a split sequence each family
+takes its sequence route (``parallel.sharding.seq_split``: the K/V
+gathers of the GQA layers and their reduce-scatters, the attention
+kernels' costs at rank 0's query offset).  Parameters, state bytes, the
+peak, FLOPs and collective bytes are rank 0's.
 """
 from __future__ import annotations
 
@@ -217,7 +221,7 @@ def _run_cell(cfg, arch: str, shape: Shape, cell: str, mesh, sizes: dict,
               dp: int) -> dict:
     t0 = time.time()
     batch = batch_to(input_specs(cfg, shape), "meta")   # ids as int64
-    if mesh is not None:     # rank 0's rows
+    if mesh is not None and shape.kind != "train":     # rank 0's rows
         rows = shd.Sharding(mesh, (shd.batch_entry(),))
         batch = {k: rows.local(v) for k, v in batch.items()}
     ops.reset_meta_cost()
@@ -227,6 +231,7 @@ def _run_cell(cfg, arch: str, shape: Shape, cell: str, mesh, sizes: dict,
     state_bytes = None
     if shape.kind == "train":
         ts = build_train_step(cfg, device="meta", mesh=mesh)
+        batch = ts.local_batch(batch)
         state = ts.init_state(0)
         model = ts.model
         state_bytes = _state_bytes(state)
@@ -298,6 +303,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="price the cells as rank 0 of a (D, M) mesh "
+                         "('data', 'model')")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--skip-existing", action="store_true")
@@ -305,7 +313,9 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     # each cell's mesh shape (None: one card, no mesh)
     meshes = ([(16, 16), (2, 16, 16)] if args.both_meshes
-              else [(2, 16, 16)] if args.multi_pod else [None])
+              else [(2, 16, 16)] if args.multi_pod
+              else [tuple(int(n) for n in args.mesh.lower().split("x"))]
+              if args.mesh else [None])
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)

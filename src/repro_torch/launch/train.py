@@ -18,7 +18,9 @@ PyTorch versions (use ``--reduced`` there).
 ``torchrun`` the process group comes from its environment and the mesh
 is ``--mesh`` or, as the JAX launcher's default, ``make_host_mesh`` with a
 model axis of 2 once there are two ranks.  Without either, one device and
-no mesh.
+no mesh.  A ``dp_seq`` config (smollm-135m) splits each sequence over the
+model axis: ``--arch smollm-135m --mesh 1x2`` trains each rank on its half
+of every sequence (``TrainStep.local_batch``).
 """
 from __future__ import annotations
 

@@ -73,7 +73,10 @@ class ModelConfig:
     n_heads_padded: int = 0      # pad q heads per kv group so H divides tp
     remat: str = "full"          # 'none' | 'full' | 'dots'
     zero_opt_state: bool = False # shard Adam moments over the data axis too
-    seq_shard_activations: bool = False  # sequence parallelism on residual stream
+    # under a mesh, each model rank holds its block of the residual stream's
+    # sequence between sub-layers: the tp families gather their input and
+    # reduce-scatter their output (models.model, parallel.sharding.seq_split)
+    seq_shard_activations: bool = False
 
     # expert placement plan (paper technique); set via with_placement()
     expert_placement: tuple | None = None  # tuple of tuples: replicas per expert

@@ -15,8 +15,15 @@ and ``swiglu`` take their head and channel counts from the weights they
 are given, so they run alike on whole leaves and on one rank's blocks
 (column blocks of the input products, row blocks of the output one).
 Given ``tp`` (the mesh axis the blocks are over, 'model'), the output
-product's partial sums are added over that axis (``psum``) and a padded
-model's head mask is cut to the rank's heads.
+product's partial sums are added over that axis (``psum``), or with
+``scatter`` reduce-scattered along the sequence (each rank keeps its block
+of the positions: ``seq_shard_activations``), and a padded model's head
+mask is cut to the rank's heads.
+
+The sequence split (``parallel.sharding.seq_split``): given ``seq`` (a
+``SeqSplit``), ``gqa_attention`` runs on the rank's block of the sequence,
+its rope at the block's positions, against the keys and values gathered
+over the split's axis, through the attention kernels' query offset.
 """
 from __future__ import annotations
 
@@ -48,21 +55,28 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _reduce(y: torch.Tensor, tp: str | None) -> torch.Tensor:
-    """A row-parallel product's output: its partial sums added over the
-    mesh axis ``tp`` (None: whole already)."""
-    return y if tp is None else shd.psum(y, tp)
+def _reduce(y: torch.Tensor, tp: str | None,
+            scatter: bool = False) -> torch.Tensor:
+    """A row-parallel product's output (B, S, D): its partial sums added
+    over the mesh axis ``tp`` (None: whole already), on every rank, or with
+    ``scatter`` only for the rank's block of the sequence."""
+    if tp is None:
+        return y
+    return shd.reduce_scatter(y, tp, 1) if scatter else shd.psum(y, tp)
 
 
-def swiglu(p: dict, x: torch.Tensor, tp: str | None = None) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, tp: str | None = None,
+           scatter: bool = False) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return _reduce(h @ p["w_down"], tp)
+    return _reduce(h @ p["w_down"], tp, scatter)
 
 
 # ---------------------------------------------------------------- attention
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+def _positions(B: int, S: int, device, offset: int = 0) -> torch.Tensor:
+    """(B, S) int32 positions ``offset`` .. ``offset + S - 1``."""
+    return (torch.arange(S, dtype=torch.int32, device=device)
+            + offset).expand(B, S)
 
 
 def n_q_heads(cfg: ModelConfig) -> int:
@@ -93,28 +107,37 @@ def gqa_project(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _attend_out(p: dict, out: torch.Tensor, cfg: ModelConfig,
-                tp: str | None = None) -> torch.Tensor:
+                tp: str | None = None, scatter: bool = False
+                ) -> torch.Tensor:
     B, S, Hq, hd = out.shape
     hm = head_mask(cfg, out.dtype, out.device)
     if hm is not None:
         if tp is not None:     # the rank's heads of the padded ones
             hm = hm.narrow(2, shd.axis_index(tp) * Hq, Hq)
         out = out * hm
-    return _reduce(out.reshape(B, S, Hq * hd) @ p["wo"], tp)
+    return _reduce(out.reshape(B, S, Hq * hd) @ p["wo"], tp, scatter)
 
 
 def gqa_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
-                  tp: str | None = None):
+                  tp: str | None = None, seq: "shd.SeqSplit | None" = None,
+                  scatter: bool = False):
     """Full-sequence attention (prefill): on every head, or under ``tp``
     on the rank's heads (its blocks of wq, wk, wv and wo), the output
-    summed over ``tp``."""
+    summed over ``tp`` (``scatter``: reduce-scattered along the sequence).
+    Under ``seq`` ``x`` is the rank's block of the sequence: its queries,
+    roped at the block's positions, attend to the roped keys and the
+    values gathered over ``seq.axis`` from every block, the queries at
+    ``seq.offset`` (the kernels' ``q_off``)."""
     B, S, _ = x.shape
     q, k, v = gqa_project(p, x, cfg)
-    pos = _positions(B, S, x.device)
+    off = 0 if seq is None else seq.offset
+    pos = _positions(B, S, x.device, off)
     q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    if seq is not None:
+        k, v = seq.gather(k), seq.gather(v)
     out = ops.attention(q, k, v, causal=seg.causal,
-                        window=seg.sliding_window)
-    return _attend_out(p, out, cfg, tp)
+                        window=seg.sliding_window, q_off=off)
+    return _attend_out(p, out, cfg, tp, scatter)
 
 
 def gqa_init_cache(cfg: ModelConfig, seg: Segment, B: int, max_len: int,
@@ -197,14 +220,16 @@ def mla_latent(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                  seg: Segment, tp: str | None = None) -> torch.Tensor:
+                  seg: Segment, tp: str | None = None,
+                  scatter: bool = False) -> torch.Tensor:
     """Full-sequence MLA (prefill): the latent expanded to per-head keys
     (nope part, plus the one rope key shared by every head) and values,
     then one attention call at head dims (nope + rope, v) with the scale
     of the q/k head dim.  q, k and v are made contiguous, as the kernels
     take them.  Under ``tp`` the heads are the rank's (its column blocks
     of wq_b and wkv_b, its row block of mla_wo; wq_a, wkv_a and the norms
-    whole) and the output is summed over ``tp``."""
+    whole) and the output is summed over ``tp`` (``scatter``:
+    reduce-scattered along the sequence)."""
     B, S, _ = x.shape
     _, _, nope, rp, vh = _mla_dims(cfg)
     H = p["wkv_b"].shape[-1] // (nope + vh)
@@ -219,7 +244,7 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     v = kv[..., nope:].contiguous()
     out = ops.attention(q, k, v, causal=seg.causal,
                         scale=(nope + rp) ** -0.5)
-    return _reduce(out.reshape(B, S, H * vh) @ p["mla_wo"], tp)
+    return _reduce(out.reshape(B, S, H * vh) @ p["mla_wo"], tp, scatter)
 
 
 def mla_init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
@@ -300,24 +325,28 @@ def cross_kv(p: dict, img: torch.Tensor, cfg: ModelConfig):
 
 
 def cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 cfg: ModelConfig, tp: str | None = None) -> torch.Tensor:
+                 cfg: ModelConfig, tp: str | None = None,
+                 scatter: bool = False) -> torch.Tensor:
     """Text queries x (B, S, D) against image keys and values, no mask and
     no positions (the ``n_heads`` query heads, or under ``tp`` the rank's:
-    no head mask); the output, summed over ``tp``, scaled by
-    ``tanh(gate)`` in x's dtype."""
+    no head mask); the output, summed over ``tp`` (``scatter``:
+    reduce-scattered along the sequence), scaled by ``tanh(gate)`` in x's
+    dtype."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = (x @ p["cross_wq"]).reshape(B, S, -1, hd)
     out = ops.attention(q, k, v, causal=False)
-    out = _reduce(out.reshape(B, S, q.shape[2] * hd) @ p["cross_wo"], tp)
+    out = _reduce(out.reshape(B, S, q.shape[2] * hd) @ p["cross_wo"], tp,
+                  scatter)
     return torch.tanh(p["gate"]).to(out.dtype) * out
 
 
 def cross_attention(p: dict, x: torch.Tensor, img: torch.Tensor,
-                    cfg: ModelConfig, tp: str | None = None) -> torch.Tensor:
+                    cfg: ModelConfig, tp: str | None = None,
+                    scatter: bool = False) -> torch.Tensor:
     """Text queries attend to (stub) image embeddings; tanh-gated
     residual."""
-    return cross_attend(p, x, *cross_kv(p, img, cfg), cfg, tp)
+    return cross_attend(p, x, *cross_kv(p, img, cfg), cfg, tp, scatter)
 
 
 # --------------------------------------------------------------------- mamba

@@ -69,8 +69,27 @@ Serving gathers the dense leaves once (``gather_dense_``, which also
 drops the ``tp`` routes: the reference serves with whole parameters) and
 keeps of the experts only this rank's slots (``place_slots_``);
 ``prefill`` and ``decode_step`` refuse a model still split for training.
-The residual stream stays whole on every rank of the model axis; the MoE
-layers split the sequence (``moe_a2a``).
+
+The residual stream stays whole on every rank of the model axis (the MoE
+layers split the sequence inside, ``moe_a2a``), except under a sequence
+split (``parallel.sharding.seq_split_of``), where each rank holds its
+block of the positions between the sub-layers and each family runs on it
+by its route (``parallel.sharding.seq_split``: ``seq``, ``token`` or
+``gathered``):
+
+* ``dp_seq``: the batch holds the rank's block already
+  (``train.step.TrainStep.local_batch``, which also hands it its labels
+  with the next block's first label, and ``batch["seq_split"]``).  The
+  GQA layers attend from the block to the keys and values gathered over
+  the sequence; the other families that mix positions gather their
+  input.  The loss is each rank's sum of cross-entropy terms, added over
+  the model axis and divided by the global count of terms;
+* ``seq_shard_activations`` (with the weights' ``tp`` routes): the
+  sequence is whole at the input; the embedding reduce-scatters it into
+  the blocks, every ``tp`` family gathers its input over the sequence and
+  reduce-scatters its output (in place of the psum), the per-token ones
+  run on the block, and ``forward`` gathers the stream again before the
+  head, as the reference's ``_constrain_residual`` lays it out.
 """
 from __future__ import annotations
 
@@ -301,16 +320,18 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor,
-          tp: str | None = None) -> torch.Tensor:
-    """The mean cross-entropy of ``logits`` (f32) against ``targets``.
-    Under ``tp`` the logits are this rank's slice of the vocabulary: the
-    log-sum-exp and the target's logit come from two all-reduces over
-    ``tp`` (the max, which takes no gradient, then the exps' sum and the
-    target's shifted logit in one psum).  On an axis of one rank the slice
-    is the whole vocabulary, and this is the plain cross-entropy."""
+          tp: str | None = None, total: bool = False) -> torch.Tensor:
+    """The mean cross-entropy of ``logits`` (f32) against ``targets``
+    (``total``: the sum of its terms; without ``tp``).  Under ``tp`` the
+    logits are this rank's slice of the vocabulary: the log-sum-exp and
+    the target's logit come from two all-reduces over ``tp`` (the max,
+    which takes no gradient, then the exps' sum and the target's shifted
+    logit in one psum).  On an axis of one rank the slice is the whole
+    vocabulary, and this is the plain cross-entropy."""
     if tp is None or shd.axis_size(tp) == 1:
         logp = torch.log_softmax(logits.float(), dim=-1)
-        return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+        terms = -logp.gather(-1, targets[..., None].long())[..., 0]
+        return terms.sum() if total else terms.mean()
     V = logits.shape[-1]
     t = targets.long() - shd.axis_index(tp) * V
     mine = (t >= 0) & (t < V)
@@ -322,15 +343,23 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _vocab_embed(tokens: torch.Tensor, rows: torch.Tensor,
-                 tp: str) -> torch.Tensor:
+                 tp: str, scatter: bool = False) -> torch.Tensor:
     """The embedding of ``tokens`` from this rank's block of vocabulary
     rows: the tokens of other ranks' rows come out as zeros, and a psum
-    over ``tp`` puts every token's row together."""
+    over ``tp`` puts every token's row together (``scatter``: a
+    reduce_scatter along the sequence, each rank its block of it)."""
     V = rows.shape[0]
     t = tokens - shd.axis_index(tp) * V
     mine = ((t >= 0) & (t < V))[..., None]
-    x = F.embedding(t.clamp(0, V - 1), rows)
-    return shd.psum(torch.where(mine, x, 0), tp)
+    x = torch.where(mine, F.embedding(t.clamp(0, V - 1), rows), 0)
+    return shd.reduce_scatter(x, tp, 1) if scatter else shd.psum(x, tp)
+
+
+def causal_lm(cfg: ModelConfig) -> bool:
+    """The loss pairs position t's logits with label t + 1 (a causal
+    token model); else each position with its own label (frames, or
+    attention that is not causal)."""
+    return not cfg.frame_input and all(s.causal for s in cfg.segments)
 
 
 class Model(nn.Module):
@@ -417,6 +446,41 @@ class Model(nn.Module):
             shd.count_tp_route(family, "tp" if tp else "gathered")
         return tp
 
+    def _seq(self, batch: dict) -> "shd.SeqSplit | None":
+        """The sequence split of a forward on ``batch``: under ``dp_seq``
+        the one ``local_batch`` cut the batch by (``batch["seq_split"]``),
+        under ``seq_shard_activations`` that of the input's length
+        (``seq_split_of``); None without one, and always when serving."""
+        if self._n_model is None:
+            return None
+        if self.cfg.strategy == "dp_seq":
+            return batch.get("seq_split")
+        x = batch["frames" if self.cfg.frame_input else "tokens"]
+        return shd.seq_split_of(self.cfg, x.shape[1], self.mesh)
+
+    def _seq_route(self, seg: Segment | None, family: str,
+                   seq: "shd.SeqSplit | None") -> str | None:
+        """``family``'s route on the split sequence ``seq``
+        (``parallel.sharding.seq_split``), counted in
+        ``seq_route_launches``; None without a split."""
+        if seq is None:
+            return None
+        route = shd.seq_split(self.cfg, seg, self._n_model)[family]
+        shd.count_seq_route(family, route)
+        return route
+
+    @staticmethod
+    def _whole(seq: "shd.SeqSplit | None", tp: str | None, fn,
+               h: torch.Tensor) -> torch.Tensor:
+        """``fn(h, scatter)`` on the whole sequence (route ``gathered``):
+        under ``seq`` the block ``h`` is gathered over the sequence first
+        and the rank keeps its block of the output -- a ``tp`` family's by
+        the reduce_scatter that ``scatter`` asks for, another's as a view."""
+        if seq is None:
+            return fn(h, False)
+        out = fn(seq.gather(h), tp is not None)
+        return out if tp is not None else seq.local(out)
+
     @staticmethod
     def _weights(p: "Params", family: str, tp: str | None):
         """A family's leaves: the blocks as held where ``tp``, else ``p``
@@ -470,61 +534,83 @@ class Model(nn.Module):
                         t.contiguous(), requires_grad=False))
 
     # ------------------------------------------------------------ forward
-    def _mixer(self, lp, x: torch.Tensor, seg: Segment) -> torch.Tensor:
-        """Attention and/or SSM part of one layer (full sequence)."""
+    def _mixer(self, lp, x: torch.Tensor, seg: Segment,
+               seq: "shd.SeqSplit | None" = None) -> torch.Tensor:
+        """Attention and/or SSM part of one layer (full sequence, or the
+        rank's block of a split one)."""
         cfg = self.cfg
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         parts = []
         if seg.attn in ("mla", "gqa"):
             tp = self._tp(seg, seg.attn)
-            attend = (L.mla_attention if seg.attn == "mla"
-                      else L.gqa_attention)
-            parts.append(attend(self._weights(lp["attn"], seg.attn, tp), h,
-                                cfg, seg, tp))
+            w = self._weights(lp["attn"], seg.attn, tp)
+            if self._seq_route(seg, seg.attn, seq) == "seq":
+                parts.append(L.gqa_attention(w, h, cfg, seg, seq=seq))
+            else:
+                attend = (L.mla_attention if seg.attn == "mla"
+                          else L.gqa_attention)
+                parts.append(self._whole(seq, tp, lambda hh, sc: attend(
+                    w, hh, cfg, seg, tp, scatter=sc), h))
         if seg.kind in ("mamba", "hybrid"):
-            self._tp(seg, "mamba")
-            parts.append(L.mamba_mixer(lp["mamba"], h, cfg)[0])
+            parts.append(self._mamba(lp, h, seg, seq))
         out = parts[0]
         for extra in parts[1:]:
             out = out + extra
         return out
 
-    def _ffn(self, lp, x: torch.Tensor, seg: Segment, mode: str):
+    def _mamba(self, lp, h: torch.Tensor, seg: Segment,
+               seq: "shd.SeqSplit | None") -> torch.Tensor:
+        self._tp(seg, "mamba")
+        self._seq_route(seg, "mamba", seq)
+        return self._whole(seq, None, lambda hh, _: L.mamba_mixer(
+            lp["mamba"], hh, self.cfg)[0], h)
+
+    def _ffn(self, lp, x: torch.Tensor, seg: Segment, mode: str,
+             seq: "shd.SeqSplit | None" = None):
         """The FFN part of one layer and its aux loss (None but for MoE)."""
         h = L.rmsnorm(x, lp["ln2"], self.cfg.norm_eps)
         if seg.kind == "moe":
             self._tp(seg, "router")
             tp = self._tp(seg, "mlp") if self.cfg.n_shared_experts else None
-            return moe_apply(lp["moe"], h, self.cfg, self.plan, mode, tp)
-        return self._swiglu(lp["mlp"], h, seg), None
+            if self._seq_route(seg, "moe", seq) is None:
+                return moe_apply(lp["moe"], h, self.cfg, self.plan, mode, tp)
+            y, aux = moe_apply(lp["moe"], seq.gather(h), self.cfg,
+                               self.plan, mode, tp)
+            return seq.local(y), aux
+        return self._swiglu(lp["mlp"], h, seg, seq), None
 
-    def _swiglu(self, p: "Params", h: torch.Tensor,
-                seg: Segment) -> torch.Tensor:
+    def _swiglu(self, p: "Params", h: torch.Tensor, seg: Segment,
+                seq: "shd.SeqSplit | None" = None) -> torch.Tensor:
         tp = self._tp(seg, "mlp")
-        return L.swiglu(self._weights(p, "mlp", tp), h, tp)
+        w = self._weights(p, "mlp", tp)
+        if self._seq_route(seg, "mlp", seq) == "gathered":
+            return L.swiglu(w, seq.gather(h), tp, scatter=True)
+        return L.swiglu(w, h, tp)
 
     def _block(self, lp, x: torch.Tensor, seg: Segment, mode: str,
-               img: torch.Tensor | None = None):
+               img: torch.Tensor | None = None,
+               seq: "shd.SeqSplit | None" = None):
         """One layer, or one vision group (its cross sub-layer against the
         image embeddings ``img``, then its self sub-layers): (output, aux
-        loss or None)."""
+        loss or None); under ``seq`` on the rank's block of the
+        sequence."""
         if seg.kind == "mamba":
             h = L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps)
-            self._tp(seg, "mamba")
-            return x + L.mamba_mixer(lp["mamba"], h, self.cfg)[0], None
+            return x + self._mamba(lp, h, seg, seq), None
         if seg.kind == "vision_group":
-            x = self._cross_block(lp["cross"], x, seg, img=img)
+            x = self._cross_block(lp["cross"], x, seg, img=img, seq=seq)
             sub = _self_segment(seg)
             for sp in lp["self"]:
-                x, _ = self._block(sp, x, sub, mode)
+                x, _ = self._block(sp, x, sub, mode, seq=seq)
             return x, None
-        x = x + self._mixer(lp, x, seg)
-        y, aux = self._ffn(lp, x, seg, mode)
+        x = x + self._mixer(lp, x, seg, seq)
+        y, aux = self._ffn(lp, x, seg, mode, seq)
         return x + y, aux
 
     def _cross_block(self, cp, x: torch.Tensor, seg: Segment, *,
                      img: torch.Tensor | None = None,
-                     kv: tuple | None = None) -> torch.Tensor:
+                     kv: tuple | None = None,
+                     seq: "shd.SeqSplit | None" = None) -> torch.Tensor:
         """A vision group's (``seg``) cross-attention sub-layer against the
         image embeddings ``img``, or their keys and values ``kv``, then its
         MLP."""
@@ -532,23 +618,39 @@ class Model(nn.Module):
         h = L.rmsnorm(x, cp["ln1"], cfg.norm_eps)
         tp = self._tp(seg, "cross")
         w = self._weights(cp, "cross", tp)
-        if kv is None:
-            x = x + L.cross_attention(w, h, img, cfg, tp)
+
+        def attend(hh, scatter):
+            if kv is None:
+                return L.cross_attention(w, hh, img, cfg, tp, scatter)
+            return L.cross_attend(w, hh, *kv, cfg, tp, scatter)
+        if self._seq_route(seg, "cross", seq) == "gathered":
+            x = x + attend(seq.gather(h), True)
         else:
-            x = x + L.cross_attend(w, h, *kv, cfg, tp)
+            x = x + attend(h, False)
         return x + self._swiglu(cp["mlp"], L.rmsnorm(x, cp["ln2"],
-                                                     cfg.norm_eps), seg)
+                                                     cfg.norm_eps), seg, seq)
 
-    def _embed_inputs(self, batch: dict) -> torch.Tensor:
+    def _embed_inputs(self, batch: dict,
+                      seq: "shd.SeqSplit | None" = None) -> torch.Tensor:
+        """The input embeddings: of the whole sequence, or under ``seq``
+        of the rank's block (the batch's block under ``dp_seq``; cut from
+        the whole input under ``seq_shard_activations``, a ``tp``
+        embedding by its reduce_scatter)."""
+        cut = seq is not None and self.cfg.strategy != "dp_seq"
         if self.cfg.frame_input:
-            return batch["frames"].to(self.dtype)
-        return self._embed(batch["tokens"])
+            x = batch["frames"].to(self.dtype)
+            return seq.local(x) if cut else x
+        tokens = batch["tokens"]
+        if self._seq_route(None, "embed", seq) == "gathered":
+            return self._embed(tokens, scatter=True)
+        return self._embed(seq.local(tokens) if cut else tokens)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               scatter: bool = False) -> torch.Tensor:
         tp = self._tp(None, "embed")
         if tp is None:
             return F.embedding(tokens, self._w("embed"))
-        return _vocab_embed(tokens, self._vocab_rows("embed"), tp)
+        return _vocab_embed(tokens, self._vocab_rows("embed"), tp, scatter)
 
     def _vocab_rows(self, name: str) -> torch.Tensor:
         """``embed`` or ``lm_head`` as this rank's block of the vocabulary."""
@@ -578,24 +680,29 @@ class Model(nn.Module):
 
     def forward(self, batch: dict, mode: str = "a2a"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence hidden states and the summed auxiliary (router
+        """Full-sequence hidden states (under ``dp_seq`` with a split
+        sequence the rank's block of them) and the summed auxiliary (router
         load-balancing) loss of the MoE layers."""
-        x = self._embed_inputs(batch)
+        seq = self._seq(batch)
+        x = self._embed_inputs(batch, seq)
         img = self._image_embeds(batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat != "none" and torch.is_grad_enabled()
         for seg, layers in zip(self.cfg.segments, self.segments):
             for lp in layers:
                 if remat and any(p.requires_grad for p in lp.parameters()):
-                    x, aux = self._remat_block(lp, x, seg, mode, img)
+                    x, aux = self._remat_block(lp, x, seg, mode, img, seq)
                 else:
-                    x, aux = self._block(lp, x, seg, mode, img)
+                    x, aux = self._block(lp, x, seg, mode, img, seq)
                 if aux is not None:
                     aux_total = aux_total + aux
+        if seq is not None and self.cfg.strategy != "dp_seq":
+            x = seq.gather(x)        # whole before the (vocab-parallel) head
         return x, aux_total
 
     def _remat_block(self, lp, x: torch.Tensor, seg: Segment, mode: str,
-                     img: torch.Tensor | None):
+                     img: torch.Tensor | None,
+                     seq: "shd.SeqSplit | None" = None):
         """``_block`` recomputed in the backward pass: all of it
         (``remat="full"``) or all but its matrix products (``"dots"``)."""
         kw = {}
@@ -604,7 +711,7 @@ class Model(nn.Module):
                 ckpt.create_selective_checkpoint_contexts, _save_dots)
         elif self.cfg.remat != "full":
             raise ValueError(f"unknown remat {self.cfg.remat!r}")
-        return ckpt.checkpoint(self._block, lp, x, seg, mode, img,
+        return ckpt.checkpoint(self._block, lp, x, seg, mode, img, seq,
                                use_reentrant=False, **kw)
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -613,32 +720,51 @@ class Model(nn.Module):
         they stand for a frame-input or non-causal model), plus
         ``router_aux_coef`` times the MoE layers' load-balancing loss, plus
         ``mtp_loss_weight`` times the multi-token prediction loss.  Returns
-        (total, metrics: ``ce``, ``aux``, ``mtp_ce`` with MTP, ``loss``)."""
+        (total, metrics: ``ce``, ``aux``, ``mtp_ce`` with MTP, ``loss``).
+
+        Under ``dp_seq`` with a split sequence the batch is the rank's
+        block, its labels with the next block's first label
+        (``TrainStep.local_batch``): the cross-entropy is the rank's sum of
+        terms, added over the model axis and divided by the global count
+        of terms, so that the loss (and each metric) is the one-device
+        value on every rank."""
         cfg = self.cfg
+        seq = self._seq(batch)
         x, aux = self.forward(batch, mode="a2a")
         logits = self.logits_fn(x)
         labels = batch["labels"]
-        if cfg.frame_input or not all(s.causal for s in cfg.segments):
-            tgt, lg = labels, logits
+        causal = causal_lm(cfg)
+        tgt = labels[:, 1:] if causal else labels
+        if self._seq_route(None, "head", seq) == "token":    # dp_seq's block
+            n_terms = labels.shape[0] * (seq.length - int(causal))
+            ce = shd.psum(_xent(logits[:, :tgt.shape[1]], tgt, total=True),
+                          seq.axis) / n_terms
         else:
-            tgt, lg = labels[:, 1:], logits[:, :-1]
-        ce = _xent(lg, tgt, self._route(None, "head"))
+            ce = _xent(logits[:, :-1] if causal else logits, tgt,
+                       self._route(None, "head"))
         total = ce + cfg.router_aux_coef * aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth:
-            mtp_ce = self._mtp_loss(x, batch)
+            mtp_ce = self._mtp_loss(x, batch, seq)
             total = total + cfg.mtp_loss_weight * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         metrics["loss"] = total
         return total, metrics
 
-    def _mtp_loss(self, x: torch.Tensor, batch: dict) -> torch.Tensor:
+    def _mtp_loss(self, x: torch.Tensor, batch: dict,
+                  seq: "shd.SeqSplit | None" = None) -> torch.Tensor:
         """DeepSeek-V3 multi-token prediction: each depth d predicts token
         t + 2 + d from (h_t, embed(token_{t+1+d})); the mean over depths of
         its cross-entropy (f32).  ``x``: the final hidden states of
-        ``forward``."""
+        ``forward``.  On a split sequence (route ``gathered``) the block
+        runs whole on every rank: under ``dp_seq`` the hidden states,
+        tokens and labels are gathered over the sequence first."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
+        if self._seq_route(None, "mtp", seq) and \
+                cfg.strategy == "dp_seq":
+            x, tokens = seq.gather(x), seq.gather(tokens)
+            labels = seq.gather(labels[:, :seq.block])
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         seg = _mtp_segment(cfg)
         h = x

@@ -20,8 +20,9 @@ first).  ``Sharding`` cuts a full tensor into a rank's block and gathers
 the blocks back.
 
 The JAX package's ``constrain`` has no counterpart: in explicit SPMD a
-tensor's layout is where the code puts it.  The residual stream stays
-whole on every rank of the model axis.  What is split is the work on it:
+tensor's layout is where the code puts it.  Without a sequence split the
+residual stream stays whole on every rank of the model axis, and what is
+split is the work on it:
 
 * tensor-parallel products (``tp_split``): where the model axis divides
   a family's heads (or channels, or the vocabulary), its column-parallel
@@ -35,11 +36,25 @@ whole on every rank of the model axis.  What is split is the work on it:
   ``gathered``: ``Sharding.full``, an ``all_gather`` per leaf);
 * the sequence at the MoE boundary (``models.moe.moe_a2a``).
 
+The sequence split (``seq_split_of``): under ``dp_seq`` (the batch's
+sequence over 'model', ``train.step.batch_specs``) and under
+``seq_shard_activations`` (the reference's ``_constrain_residual``) each
+rank of the model axis holds its block of the sequence (``SeqSplit``)
+between the sub-layers, and each family runs on it by the route
+``seq_split`` gives it from the config alone: ``seq`` (GQA self-attention
+with whole weights: the rank's queries against the keys and values
+gathered over the sequence, the queries at the block's offset), ``token``
+(per-token work on the block, no collective), or ``gathered`` (the
+family's input gathered over the sequence and the family run whole; the
+rank keeps its block of the output, a ``tp`` family by a
+``reduce_scatter`` along the sequence in place of its psum).
+
 The collectives here are autograd Functions whose backward is the
 adjoint collective, so that one backward pass over every rank's loss
 (each rank's share: ``train.step``) gives the gradient of their sum:
-``all_gather``'s backward is a ``reduce_scatter``, ``all_to_all``'s the
-reverse ``all_to_all``, ``psum``'s a ``psum``.  Under that convention a
+``all_gather``'s backward is a ``reduce_scatter`` and ``reduce_scatter``'s
+an ``all_gather``, ``all_to_all``'s the reverse ``all_to_all``, ``psum``'s
+a ``psum``.  Under that convention a
 replicated tensor's gradient on each rank is a share, and the shares sum
 to its gradient: so the replicated input of a column-parallel product
 needs no collective of its own (its conjugate is the identity both ways,
@@ -227,8 +242,9 @@ def tp_split(cfg, seg, n_model: int) -> dict:
     middle of a head: the family reads its leaves whole.  The Mamba mixer
     (its ``in_proj`` blocks are x | z halves, its ``conv_w`` split over
     taps, not channels) and the MoE router (top-k needs every expert's
-    logit) are always ``gathered``; under ``dp_seq`` every leaf is whole
-    and every family reads it so."""
+    logit) are always ``gathered``.  Under ``dp_seq`` every leaf is whole
+    and every family reads it so: what the model axis splits there is the
+    sequence (``seq_split``)."""
     whole = cfg.strategy == "dp_seq"
 
     def route(ok: bool) -> str:
@@ -258,6 +274,116 @@ def tp_split(cfg, seg, n_model: int) -> dict:
     elif seg.kind != "mamba" and cfg.d_ff:
         out["mlp"] = route(cfg.d_ff % n == 0)
     return out
+
+
+# ----------------------------------------------------- the sequence split
+SEQ_ROUTES = ("seq", "token", "gathered")
+# the families' sequence routes, counted each time a family runs on a
+# split sequence (a remat replay counts again)
+seq_route_launches: dict[str, dict[str, int]] = {}
+
+
+def reset_seq_routes() -> None:
+    seq_route_launches.clear()
+
+
+def count_seq_route(family: str, route: str) -> None:
+    counts = seq_route_launches.setdefault(family,
+                                           dict.fromkeys(SEQ_ROUTES, 0))
+    counts[route] += 1
+
+
+def seq_split(cfg, seg, n_model: int) -> dict:
+    """{family: ``"seq"``, ``"token"`` or ``"gathered"``} of segment
+    ``seg`` of ``cfg`` (``seg`` None: the embedding, the head and the MTP
+    block) on a sequence split over a model axis of ``n_model`` ranks,
+    from the config alone (never from a rank's shapes), beside the weight
+    routes of ``tp_split``:
+
+    * GQA self-attention whose weights are whole: ``seq``, the rank's
+      queries against the keys and values gathered over the sequence;
+    * the families that mix positions -- the Mamba mixer, MLA, a MoE layer
+      (its capacity depends on the whole token set), the MTP block, and a
+      ``tp`` GQA (its column-parallel products want every position) --
+      and every ``tp`` family under ``seq_shard_activations``:
+      ``gathered``, the input gathered over the sequence, the family run
+      whole, the rank's block kept (a ``tp`` family's output
+      reduce-scattered along the sequence in place of its psum);
+    * per-token work with whole weights -- the dense MLP, cross-attention
+      (text queries against the image, which no text position shares),
+      the embedding, and the head under ``dp_seq`` (its cross-entropy
+      terms summed per rank, then over the model axis): ``token``.
+
+    The norms and rope are per-token too and take no route."""
+    tp = tp_split(cfg, seg, n_model)
+
+    def per_token(family: str) -> str:
+        return "gathered" if tp.get(family) == "tp" else "token"
+
+    if seg is None:
+        out = {"head": ("token" if cfg.strategy == "dp_seq"
+                        else "gathered")}
+        if not cfg.frame_input:
+            out["embed"] = per_token("embed")
+        if cfg.mtp_depth:
+            out["mtp"] = "gathered"
+        return out
+    out = {}
+    for family in tp:
+        if family == "gqa":
+            out["gqa"] = "gathered" if tp["gqa"] == "tp" else "seq"
+        elif family in ("mlp", "cross"):
+            if seg.kind != "moe":           # a MoE layer's shared experts
+                out[family] = per_token(family)
+        elif family == "router":
+            out["moe"] = "gathered"
+        else:                               # mla, mamba
+            out[family] = "gathered"
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """This rank's block of a sequence of ``n * block`` positions split
+    over the mesh axis ``axis`` of ``n`` ranks: positions ``offset`` to
+    ``offset + block - 1`` (``index``: the rank's coordinate)."""
+    axis: str
+    index: int
+    n: int
+    block: int
+
+    @property
+    def offset(self) -> int:
+        return self.index * self.block
+
+    @property
+    def length(self) -> int:
+        return self.n * self.block
+
+    def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of the whole ``x`` along ``dim`` (a view)."""
+        return x.narrow(dim, self.offset, self.block)
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole sequence from every rank's block (``all_gather``)."""
+        return all_gather(x, self.axis, dim)
+
+
+def seq_split_of(cfg, S: int, mesh=None) -> SeqSplit | None:
+    """The split of a sequence of ``S`` positions over 'model' under
+    ``mesh`` (default: the active one), or None: none without a model axis
+    of two or more ranks, outside ``dp_seq`` and ``seq_shard_activations``,
+    or where the axis does not divide ``S`` (``train.step.batch_specs``,
+    the reference's ``_constrain_residual``)."""
+    mesh = _ACTIVE_MESH if mesh is None else mesh
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    if cfg.strategy != "dp_seq" and not cfg.seq_shard_activations:
+        return None
+    n = axis_sizes(mesh)["model"]
+    if n < 2 or S < 2 or S % n:
+        return None
+    return SeqSplit("model", axis_index("model", mesh), n, S // n)
 
 
 def tp_spec(ndim: int, dim: int) -> tuple:
@@ -413,6 +539,17 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, *ctx.args), None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.args = (axis, dim, mesh)
+        return _reduce_scatter(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, mesh):
@@ -456,6 +593,13 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0,
                mesh=None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in axis order."""
     return _AllGather.apply(x, axis, dim, _mesh(mesh))
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int = 0,
+                   mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, of which each keeps its
+    block along ``dim`` in axis order (the adjoint of ``all_gather``)."""
+    return _ReduceScatter.apply(x, axis, dim, _mesh(mesh))
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

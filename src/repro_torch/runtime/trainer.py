@@ -11,9 +11,11 @@
   * straggler watchdog: a step slower than ``straggler_factor`` times the
     trailing median is logged and counted;
   * elastic re-scaling: under a mesh every rank draws the same global
-    batch and takes its rows; checkpoints hold full leaves (rank 0 writes
-    them gathered), so a run restores under another mesh.  The trainer
-    holds its mesh active while it runs and clears it when it is done.
+    batch and takes its part (``TrainStep.local_batch``: its rows, and
+    under ``dp_seq`` its block of the sequence); checkpoints hold full
+    leaves (rank 0 writes them gathered), so a run restores under another
+    mesh.  The trainer holds its mesh active while it runs and clears it
+    when it is done.
 """
 from __future__ import annotations
 

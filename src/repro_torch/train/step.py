@@ -38,10 +38,21 @@ global batch.  The global gradient norm sums every leaf's blocks once.
 Each rank then runs AdamW on its blocks -- under ZeRO on its data slice,
 whose new parameters an all_gather over 'data' puts together.  The
 stored blocks are ``param_spec``'s, with or without tensor parallelism,
-so checkpoints and elastic restores do not depend on the routes.  The
-sequence split of ``dp_seq`` (``batch_specs`` puts the model axis on the
-sequence) is not applied: the residual stream stays whole on every rank
-of the model axis (ROADMAP).
+so checkpoints and elastic restores do not depend on the routes.
+
+The sequence split of ``dp_seq`` (``batch_specs`` puts the model axis on
+the sequence where it divides it): ``local_batch`` hands each rank its
+block of the sequence -- its tokens (or frames), and its labels with the
+next block's first label, which the causal loss pairs with the block's
+last position -- and ``batch["seq_split"]`` (a
+``parallel.sharding.SeqSplit``).  The model runs each family on the block
+by its sequence route (``parallel.sharding.seq_split``), and its loss is
+the rank's sum of cross-entropy terms, added over 'model' and divided by
+the global count, so the 1 / ranks share above gives the gradient of the
+one-device mean loss here too.  Every leaf is whole under ``dp_seq``, and
+its gradient is summed over every axis.  ``seq_shard_activations`` splits
+the residual stream inside the model (``models.model``); its batch is
+whole over 'model'.
 """
 from __future__ import annotations
 
@@ -51,7 +62,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.model import Model
+from ..models.model import Model, causal_lm
 from ..models.moe import PlacementPlan
 from ..optim import adamw
 from ..parallel import sharding as shd
@@ -230,12 +241,28 @@ class TrainStep:
                 "opt": {"step": shd.Sharding(self.mesh, ()), **opt}}
 
     def local_batch(self, batch: dict) -> dict:
-        """This rank's rows of a global batch (``batch_to`` form): the
-        batch over ('pod', 'data'), whole over 'model'."""
+        """This rank's part of a global batch (``batch_to`` form): its rows
+        (the batch over ('pod', 'data')), and under ``dp_seq`` its block of
+        the sequence where 'model' divides it (``batch_specs``): the
+        tokens, frames and labels of its positions, the labels with the
+        next block's first one where the loss is causal, and the split as
+        ``"seq_split"``; else whole over 'model'."""
         if self.mesh is None:
             return batch
         rows = shd.Sharding(self.mesh, (shd.batch_entry(self.mesh),))
-        return {k: rows.local(v) for k, v in batch.items()}
+        out = {k: rows.local(v) for k, v in batch.items()}
+        x = out["frames" if self.cfg.frame_input else "tokens"]
+        seq = (shd.seq_split_of(self.cfg, x.shape[1], self.mesh)
+               if self.cfg.strategy == "dp_seq" else None)
+        if seq is None:
+            return out
+        for k in ("tokens", "frames", "labels"):
+            if k in out:
+                n = seq.block + int(k == "labels" and causal_lm(self.cfg))
+                out[k] = out[k].narrow(1, seq.offset, min(
+                    n, seq.length - seq.offset))
+        out["seq_split"] = seq
+        return out
 
     def _bind(self, params: dict) -> dict:
         """The model's parameters, holding ``params``' values."""

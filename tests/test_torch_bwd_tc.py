@@ -208,18 +208,21 @@ def plain_kernels(monkeypatch):
     seen = {"attn": [], "gmm": []}
 
     def forward(q, k, v, *, causal, window, scale, return_lse=False,
-                q_pos=None, k_pos=None):
+                q_pos=None, k_pos=None, q_off=0):
         o = ref.attention_ref(q, k, v, causal=causal, window=window,
-                              scale=scale)
+                              scale=scale, q_off=q_off)
         if return_lse:
             return o, ref.attention_lse_ref(q, k, causal=causal,
-                                            window=window, scale=scale)
+                                            window=window, scale=scale,
+                                            q_off=q_off)
         return o
 
-    def attn_launch(which, q, k, v, o, do, lse, causal, window, scale):
+    def attn_launch(which, q, k, v, o, do, lse, causal, window, scale,
+                    q_off=0):
         seen["attn"].append((which, lse))
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                     window=window, scale=scale, lse=lse)
+                                     window=window, scale=scale, lse=lse,
+                                     q_off=q_off)
 
     def gmm_launch(which, x, w, dy, C, fills, need_dx, need_dw):
         seen["gmm"].append((which, need_dx, need_dw))

@@ -1000,6 +1000,66 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
         assert _grad_gap(t.grad, c) <= tol
 
 
+# a rank's block of a sequence split over ranks: (B, Sq, H, KV, hd, window)
+# with the queries at q_off on, against Sq + q_off keys and 192 more that
+# no query reaches (whole key tiles of every kernel past the last query)
+OFF_CASES = [(2, 256, 9, 3, 64, 0), (1, 200, 4, 2, 128, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_off", [0, 64, 2048])
+@pytest.mark.parametrize("B,Sq,H,KV,hd,window", OFF_CASES)
+def test_attention_kernels_take_a_query_offset(cuda, no_tf32, B, Sq, H, KV,
+                                               hd, window, q_off, dtype):
+    """The forward (``prefill_tc`` with its LSE in bf16, ``general`` in
+    f32) and the backward (``tc``, ``general``) with a query offset
+    against their plain versions; the keys past the last query get exact
+    zeros in dK and dV (the allocator handed NaNs first)."""
+    from repro_torch.kernels import flash_attention as fa
+    Sk = q_off + Sq + 192
+    g = torch.Generator(device=cuda).manual_seed(q_off + Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda).to(dtype)
+    do = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    scale = hd ** -0.5
+    kw = dict(causal=True, window=window, scale=scale, q_off=q_off)
+    bf16 = dtype == torch.bfloat16
+    ops.reset_launches()
+    o = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.route_launches["prefill_tc" if bf16 else "general"] == 1
+    tol = _ATOL[dtype]["attn"]
+    torch.testing.assert_close(o.float(), ref.attention_ref(
+        q, k, v, **kw).float(), rtol=tol, atol=tol)
+    if q_off == 0:      # the offset's default: the same launch, bit-equal
+        assert torch.equal(o, ops.attention(q, k, v, causal=True,
+                                            window=window, scale=scale))
+    lse = None
+    if bf16:
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        assert float((lse - ref.attention_lse_ref(q, k, **kw)).abs()
+                     .max()) <= 1e-3
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.attention_ref(*leaves, **kw).backward(do)
+    want = [t.grad for t in leaves]
+    junk = torch.full((4 * k.numel(),), float("nan"), device=cuda)
+    del junk
+    ops.reset_launches()
+    got = fa.attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    route = "tc" if bf16 else "general"
+    assert ops.bwd_route_launches[f"attention_{route}"] == 1
+    plain = ref.attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    for name, a, b, c in zip("qkv", got, plain, want):
+        assert _grad_gap(a, b) <= GRAD_TOL[dtype], (name, _grad_gap(a, b))
+        assert _grad_gap(a, c) <= GRAD_TOL[dtype], (name, _grad_gap(a, c))
+    for t in got[1:]:
+        assert not t[:, q_off + Sq:].any()          # exact zeros, no NaN
+        assert torch.isfinite(t).all()
+
+
 # (B, S, di, N, segment, dt scale): ragged chunks and channel blocks, every
 # state size, and hymba's shape, on the plan's segments (ids as before
 # segments existed); then S one step over and under a segment, S = 1, S

@@ -348,6 +348,43 @@ def test_cli_writes_outside_benchmarks(tmp_path, monkeypatch):
     assert dryrun.RESULTS.name == "dryrun_out"
 
 
+def test_cli_mesh_prices_the_sequence_split(tmp_path, monkeypatch):
+    """``--mesh 1x2`` prices smollm-135m's ``dp_seq`` step as rank 0 of
+    (1, 2): its block of 2048 of the 4096 positions, the K and V of each
+    layer gathered over the sequence (and again in the remat replay), the
+    gathers' reduce-scatters in the backward, each leaf's gradient summed
+    over 'model'; the attention kernels priced at rank 0's offset (0): its
+    live pairs are a quarter of the whole sequence's."""
+    import torch.distributed as dist
+    launches = _forbid_plain(monkeypatch)
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                        "--mesh", "1x2", "--out", str(tmp_path)]) == 0
+    assert not dist.is_initialized()
+    (path,) = tmp_path.glob("*.json")
+    r = json.loads(path.read_text())
+    assert r["cell"] == "smollm-135m__train_4k__gpu2" == path.stem
+    assert r["status"] == "ok" and r["mesh"] == {"data": 1, "model": 2}
+    cfg = get_config("smollm-135m")
+    L, S, Bn = cfg.n_layers, 4096, 256
+    kv = Bn * S * cfg.n_kv_heads * cfg.hd * 2       # a gathered K or V
+    c = r["collectives"]
+    assert c["counts"]["all-gather"] == 2 * 2 * L     # fwd and replay
+    assert c["counts"]["reduce-scatter"] == 2 * L
+    assert c["per_kind_bytes"]["all-gather"] == 4 * L * kv
+    leaves = 2 + 9 * L
+    assert c["counts"]["all-reduce"] == 2 + leaves    # the loss, the grads
+    assert r["kernel_calls"] == {"flash_attention": 2 * L,
+                                 "attention_bwd": L}
+    one = dryrun.run_cell("smollm-135m", "train_4k")
+    assert r["leaves"] == one["leaves"]               # whole on every rank
+    # rank 0's attention: a quarter of the pairs (its 2048 queries against
+    # the keys before them), the bound's FLOPs with them
+    assert r["kernel_flops"] == pytest.approx(
+        one["kernel_flops"] * fa.live_pairs(2048, 4096, True, 0)
+        / fa.live_pairs(4096, 4096, True, 0), rel=1e-12)
+    assert ops.launches == launches
+
+
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
 def test_cli_refuses_several_cards(flag, tmp_path):
     """The production meshes, which the dry run once refused, are priced:

@@ -358,26 +358,29 @@ def plain_attention(monkeypatch):
     seen = []
 
     def forward(q, k, v, *, causal, window, scale, return_lse=False,
-                q_pos=None, k_pos=None):
+                q_pos=None, k_pos=None, q_off=0):
         assert q_pos is None and k_pos is None
         B, Sq, H, hd = q.shape
         which = fa.route(q.dtype, B, Sq, k.shape[1], H, k.shape[2], hd,
-                         v.shape[3], window, False, return_lse)
+                         v.shape[3], window, False, return_lse, q_off)
         ops.launches["attention_masked" if window else
                      "flash_attention"] += 1
         ops.route_launches[which] += 1
         o = ref.attention_ref(q, k, v, causal=causal, window=window,
-                              scale=scale)
+                              scale=scale, q_off=q_off)
         if return_lse:
             return o, ref.attention_lse_ref(q, k, causal=causal,
-                                            window=window, scale=scale)
+                                            window=window, scale=scale,
+                                            q_off=q_off)
         return o
 
-    def bwd_launch(which, q, k, v, o, do, lse, causal, window, scale):
+    def bwd_launch(which, q, k, v, o, do, lse, causal, window, scale,
+                    q_off=0):
         seen.append((which, tuple(q.shape[-1:]) + tuple(v.shape[-1:]),
                      lse is not None))
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                     window=window, scale=scale, lse=lse)
+                                     window=window, scale=scale, lse=lse,
+                                     q_off=q_off)
 
     monkeypatch.setattr(fa, "flash_attention", forward)
     monkeypatch.setattr(fa, "_bwd_launch", bwd_launch)
