@@ -18,8 +18,10 @@ backward kernels (``train.step``), training ``olmoe-1b-7b`` at full
 width, cut in depth, through the grouped matmul's backward, training
 ``deepseek-v3-671b`` at its published widths, cut to its dense MLA layers
 and MTP block, through the attention backward at MLA's head dims (192,
-128), and training ``hubert-xlarge`` at full width and depth through the
-attention kernels at its head dims (80, 80).  Phases, in order; any
+128), training ``hubert-xlarge`` at full width and depth through the
+attention kernels at its head dims (80, 80), the distributed paths on two
+ranks that share the card, and ``falcon-mamba-7b`` served at full size and
+trained with its Mamba mixers on their channel blocks.  Phases, in order; any
 failure propagates and the exit code is nonzero:
 
 1. build the kernels, one ``nvcc`` per source, all started together;
@@ -391,6 +393,43 @@ failure propagates and the exit code is nonzero:
    on sequence route ``gathered``, step 1's all-gathers and
    reduce-scatters in place of the stream's psums, beside the same step
    without the flag (19c's).
+21. the Mamba mixer on its channel blocks (``falcon_phase``):
+   falcon-mamba-7b, the registry's ``ssm`` config (arXiv:2410.05355; 64
+   Mamba layers, d 4096, d_inner 8192, state 16, vocabulary 65024).  (k)
+   The scan kernels at its widths, each against its plain version
+   (``MODEL_TOL``, ``GRAD_TOL``) in bf16 and f32, timed beside its bound
+   (``scan_bound``, with ``scan_cost``'s bytes and FLOPs) and the plain
+   version: the forward at (4, 2048, 8192, 16), the step at (4, 1, 8192,
+   16), the backward at a step's (2, 2048, 8192, 16) and a rank's (2,
+   2048, 4096, 16), both cut by ``bwd_plan`` into segments whose last is
+   shorter than the rest (7 of 296 steps, the last 272; 13 of 160, the
+   last 128).  (s) Served at full width and depth through
+   ``launch.serve.serve`` (phase 6's prompts: 4 x 2048, 32 new tokens;
+   128 ``mamba_scan`` and 1,984 ``mamba_step`` launches), prefill s,
+   decode ms a token, peak; the bf16 kernel path against the bf16 plain
+   path over the prefill and three teacher-forced decode steps, a share
+   of the largest logit; the f32 model at ``FM_SERVE_GATE_LAYERS``
+   layers, kernels against plain within ``F32_LOGIT_TOL``.  (a) One card:
+   ``FM_TRAIN_LAYERS`` of its layers, ``TRAIN_STEPS`` bf16 steps of
+   ``FM_B`` x ``FM_S`` tokens under remat "full" (``train_steps``: 32
+   ``mamba_scan`` and 16 ``mamba_scan_bwd`` launches a step), its state
+   equal to the dry run's (phase 17's process, ``falcon_dryrun_cells``),
+   its peak and FLOPs beside the dry run's, ``mfu`` (``roofline_row``).
+   (b) Two ranks of a (1, 2) mesh sharing the card over gloo train the
+   same steps: every mixer on route ``tp`` (``parallel.sharding.
+   tp_split``, 160 a rank), each rank holding half of every mixer leaf
+   but ``conv_b``, ``dt_bias`` and the norms (``held_specs``: ``in_proj``
+   as its ``[x | z]`` channel blocks, ``conv_w`` on its channels); its
+   parameter bytes and step 1's collectives (no gather; the mixer's two
+   psums a pass, the ``x_proj`` one replayed) equal to the dry run's at
+   (1, 2) by kind, count and bytes; losses within ``FM_LOSS_TOL`` of
+   (a)'s; the replicated leaves' digest equal on both ranks after every
+   step; peak, seconds a step, and one more step's scan device time
+   under ``torch.profiler`` against (a)'s.  (c) In the same ranks, the
+   f32 model at ``MESH_GATE_LAYERS`` layers, one step of ``FM_GATE_B`` x
+   ``FM_S`` tokens against rank 0's one-card step: each gradient,
+   gathered whole through ``Sharding.full``, within ``FM_GRAD_TOL`` of
+   its leaf's largest entry, the loss within ``FM_GATE_LOSS_TOL``.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
@@ -400,7 +439,12 @@ phases 6, 7, 11 and 12, summed, for the model kernels, and beside them
 each rank's of phase 18b (``mesh_launches_per_rank``), of phase 19b
 (``tp_launches_per_rank``, on the entries of its routes) and of phase 20b
 (``seq_launches_per_rank``, with phase 20k's rows at rank 1's call as
-``seq_*``: ``prefill_tc``, ``general`` f32 and ``attention_bwd``).  The
+``seq_*``: ``prefill_tc``, ``general`` f32 and ``attention_bwd``); the
+scan entries (``mamba_scan``, ``mamba_step``, ``mamba_scan_bwd``) carry
+phase 21's launches (``falcon_launches``, 21s; ``falcon_train_launches``,
+21a; ``falcon_tp_launches_per_rank``, 21b) and 21k's rows at falcon's
+widths (``falcon_*``, ``falcon_f32_*``, the backward's ``falcon_rank_*``
+at a rank's channels).  The
 attention kernels count ``flash_attention`` (no window, no positions: the
 Pallas kernel's role) apart from ``attention_masked``, and the line has
 one entry per (count, route) the serve runs took, one for hubert's bf16
@@ -2801,13 +2845,14 @@ def check_attention_bwd(case, dtype_name: str, seed: int,
     return row
 
 
-def scan_bwd_inputs(dtype_name: str, seed: int) -> tuple:
-    """The scan backward's inputs at ``BWD_SCAN_CASE`` on the card, from
-    ``seed``: ((u, dt, A, Bc, Cc, D), dy); A is -(1 .. N) on every
-    channel, as Mamba initialises it."""
+def scan_bwd_inputs(dtype_name: str, seed: int,
+                    case: tuple = BWD_SCAN_CASE) -> tuple:
+    """The scan backward's inputs at ``case`` (B, S, di, N; default
+    ``BWD_SCAN_CASE``) on the card, from ``seed``: ((u, dt, A, Bc, Cc, D),
+    dy); A is -(1 .. N) on every channel, as Mamba initialises it."""
     import torch
     import torch.nn.functional as F
-    B, S, di, N = BWD_SCAN_CASE
+    B, S, di, N = case
     dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2824,17 +2869,19 @@ def scan_bwd_inputs(dtype_name: str, seed: int) -> tuple:
 
 
 def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
-                   sms: int) -> dict:
+                   sms: int, case: tuple = BWD_SCAN_CASE,
+                   name: str = "train") -> dict:
     """The scan's backward kernel against autograd of the plain version at
-    hymba's training shape, two runs bit-equal, timed beside its bound and
-    the plain version's backward (``mamba_scan_bwd_ref`` on the kernel's
-    segments); no library call computes it.  Beside: its segment count
-    and each pass's device time (``scan_bwd_pass_ms``)."""
+    ``case`` (default hymba's training shape), two runs bit-equal, timed
+    beside its bound and the plain version's backward
+    (``mamba_scan_bwd_ref`` on the kernel's segments); no library call
+    computes it.  Beside: its segments (the last one's steps too) and
+    each pass's device time (``scan_bwd_pass_ms``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import mamba_scan as ms
-    B, S, di, N = BWD_SCAN_CASE
-    ins, dy = scan_bwd_inputs(dtype_name, seed)
+    B, S, di, N = case
+    ins, dy = scan_bwd_inputs(dtype_name, seed, case)
     u = ins[0]
     leaves = [t.clone().requires_grad_() for t in ins]
     ref.mamba_scan_ref(*leaves)[0].backward(dy)
@@ -2865,11 +2912,12 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
     bound = scan_bound(B, S, di, N, esize, False, clock_hz, sms,
                        fma_per_elem=SCAN_BWD_FMA_PER_ELEM,
                        exp_per_elem=SCAN_BWD_EXP_PER_ELEM, nbytes=nbytes)
-    row = {"case": "train", "dtype": dtype_name, "shape": [B, S, di, N],
+    row = {"case": name, "dtype": dtype_name, "shape": [B, S, di, N],
            "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
            "bit_equal": True, "segments": plan["nseg"],
-           "segment_steps": plan["seg_len"], "ms": graph_ms(run, 3, 3),
-           "call_ms": time_ms(run, 3)}
+           "segment_steps": plan["seg_len"],
+           "last_segment_steps": S - (plan["nseg"] - 1) * plan["seg_len"],
+           "ms": graph_ms(run, 3, 3), "call_ms": time_ms(run, 3)}
     row["pass_ms"] = scan_bwd_pass_ms(run, 10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3822,6 +3870,7 @@ def dryrun_cells() -> dict:
                 arch, shape, overrides={**overrides, "remat": remat})
     out["deepseek-7b/tp"] = tp_dryrun_cell()
     out["smollm-135m/seq"] = seq_dryrun_cell()
+    out.update(falcon_dryrun_cells())
     return out
 
 
@@ -5102,6 +5151,433 @@ def seq_phase(dry: dict) -> dict:
             "c": gates["20c"], "d": gates["20d"]}
 
 
+# ------------------------------------------- 21. the Mamba mixer's blocks
+# falcon-mamba-7b (the ``ssm`` kind, arXiv:2410.05355) at the registry's
+# widths: served at full depth (21s, phase 6's traffic), trained at 16 of
+# its 64 layers on one card (21a) and tensor-parallel on two gloo ranks of
+# a (1, 2) mesh, every mixer on its channel blocks (21b), with an f32
+# gate at 2 layers (21c); 21k holds the scan kernels at its widths
+FM_TRAIN_LAYERS = 16
+FM_B, FM_S = 2, 2048
+FM_SERVE_GATE_LAYERS = 8         # 21s's f32 gate
+FM_GATE_B = 1                    # 21c: f32 at MESH_GATE_LAYERS layers
+FM_LOSS_TOL = 5e-3               # 21b's losses against 21a's, relative
+# 21c: the gradients within GRAD_TOL's f32 bound, as 19c and 20c hold
+# theirs (the full-width step's f32 sums in another order moved the
+# embedding's gradient by 1.4e-5 of its largest entry), the loss within
+# 1e-6
+FM_GRAD_TOL, FM_GATE_LOSS_TOL = GRAD_TOL["float32"], 1e-6
+FM_TIMEOUT = 600
+# 21k: the forward and the step at falcon's d_inner ((name, counter, B, S,
+# di, N, with a state, on the path), as ``SCAN_CASES``), the backward at a
+# step's (B, S, di, N) on one card and at a rank's half of the channels
+FM_SCAN_CASES = [
+    ("falcon_prefill", "mamba_scan", 4, 2048, 8192, 16, False, True),
+    ("falcon_decode", "mamba_step", 4, 1, 8192, 16, True, True),
+]
+FM_BWD_SCAN_CASES = [("falcon_train", (FM_B, FM_S, 8192, 16)),
+                     ("falcon_rank", (FM_B, FM_S, 4096, 16))]
+# the mixer's leaves held as channel blocks on route ``tp``
+FM_SPLIT = ("in_proj", "conv_w", "A_log", "ssm_D", "x_proj", "dt_proj",
+            "out_proj")
+
+
+def falcon_config(layers: int = 0, dtype: str = "bfloat16"):
+    """falcon-mamba-7b at its published widths, cut to ``layers`` Mamba
+    layers (0: all 64)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("falcon-mamba-7b").with_(dtype=dtype)
+    if not layers:
+        return cfg
+    return cfg.with_(segments=(dataclasses.replace(cfg.segments[0],
+                                                   n_layers=layers),))
+
+
+def falcon_stream(cfg, B: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(cfg, DataConfig(B, FM_S, seed=0))
+
+
+def falcon_dryrun_cells() -> dict:
+    """21a's and 21b's training steps on the meta device: one card, and
+    rank 0 of a (1, 2) mesh over a fake process group of two."""
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.dryrun import fake_mesh, run_cell
+    shape = Shape(f"smoke_train_{FM_B}x{FM_S}", FM_S, FM_B, "train")
+    over = {"segments": falcon_config(FM_TRAIN_LAYERS).segments}
+    out = {"falcon-mamba-7b/one": run_cell("falcon-mamba-7b", shape,
+                                           overrides=over)}
+    try:
+        out["falcon-mamba-7b/tp"] = run_cell(
+            "falcon-mamba-7b", shape, overrides=over, mesh=fake_mesh((1, 2)))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def falcon_kernel_rows(clock_hz: float, sms: int) -> list:
+    """21k: the scan forward and step at falcon's d_inner, and the
+    backward at a step's shape and a rank's, each segmented by
+    ``bwd_plan`` with a last segment shorter than the rest, in bf16 and
+    f32, against their plain versions; each bound beside ``scan_cost``'s
+    bytes and FLOPs (what the dry run counts)."""
+    from repro_torch.kernels import mamba_scan as ms
+    rows = []
+    for case in FM_SCAN_CASES:
+        name, _, B, S, di, N, state, _ = case
+        for dt in ("bfloat16", "float32"):
+            r = check_scan(case, dt, 2100, clock_hz, sms)
+            r["scan_cost"] = ms.scan_cost(4 if dt == "float32" else 2, B, S,
+                                          di, N, state)
+            rows.append(r)
+            log(f"[21k] {name} {dt} {r['shape']}: kernel {r['ms']:.6g} ms, "
+                f"call {r['call_ms']:.6g}, bound {r['bound_ms']:.6g} "
+                f"({r['bound_by']}; scan_cost {r['scan_cost']}), plain "
+                f"{r['plain_ms']:.6g}; max abs err {r['max_abs_err']:.3g}")
+    for name, case in FM_BWD_SCAN_CASES:
+        B, S, di, N = case
+        for dt in ("bfloat16", "float32"):
+            r = check_scan_bwd(dt, 2100, clock_hz, sms, case=case,
+                               name=name)
+            r["scan_cost"] = ms.scan_cost(4 if dt == "float32" else 2, B, S,
+                                          di, N, False, backward=True)
+            if not 0 < r["last_segment_steps"] < r["segment_steps"]:
+                raise AssertionError(f"21k {name}: segments of "
+                                     f"{r['segment_steps']} steps, the last "
+                                     f"{r['last_segment_steps']}")
+            rows.append(r)
+            log(f"[21k] {name} backward {dt} {r['shape']}: "
+                f"{r['segments']} segments of {r['segment_steps']} steps, "
+                f"the last {r['last_segment_steps']}; kernel {r['ms']:.6g} "
+                f"ms, call {r['call_ms']:.6g}, bound {r['bound_ms']:.6g} "
+                f"({r['bound_by']}; scan_cost {r['scan_cost']}), plain "
+                f"{r['plain_ms']:.6g}; passes {r['pass_ms']}; gaps "
+                f"{r['errs']}, two runs bit-equal")
+    return rows
+
+
+def falcon_serve(B: int, S: int, G: int) -> dict:
+    """21s: falcon-mamba-7b served at full width and depth through
+    ``launch.serve.serve`` (phase 6's prompts), its launches as
+    ``expected_serve_launches`` says.  Then at ``FM_SERVE_GATE_LAYERS``
+    layers, over the prefill and three teacher-forced decode steps, as
+    phase 6 holds hymba: the f32 kernel path against the f32 plain path
+    within ``F32_LOGIT_TOL``, and the bf16 kernel and plain paths against
+    the f32 plain path at the bf16 weights (``bf16_errors``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_model, make_prompts, serve
+    cfg = falcon_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, B, S, G, device="cuda", seed=0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {c: res.launches[c] for c in MODEL_COUNTERS}
+    want = expected_serve_launches(cfg, G)
+    if launches != want:
+        raise AssertionError(f"21s: serve launched {launches}, expected "
+                             f"{want}")
+    if any(ops.route_launches.values()) or any(
+            ops.gmm_route_launches.values()):
+        raise AssertionError(f"21s: attention {ops.route_launches}, "
+                             f"grouped products {ops.gmm_route_launches}")
+    if res.tokens.shape != (B, G) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab)).all():
+        raise AssertionError(f"21s: bad tokens {res.tokens.shape}")
+    weight_B = res.weight_bytes
+    prompts = torch.from_numpy(make_prompts(cfg, B, S, 0)).cuda()
+    forced = torch.from_numpy(make_prompts(cfg, B, 3, 1)).cuda()
+    cut = falcon_config(FM_SERVE_GATE_LAYERS)
+    model32 = make_model(cut.with_(dtype="float32"), device="cuda", seed=0)
+    kern32 = logits_through(model32, prompts, forced, "cuda", S + G)
+    plain32 = logits_through(model32, prompts, forced, "ref", S + G)
+    model = make_model(cut, device="cuda", seed=0)
+    same_draw = round_weights(model32, model)
+    ref32 = logits_through(model32, prompts, forced, "ref", S + G)
+    del model32
+    kern16 = logits_through(model, prompts, forced, "cuda", S + G)
+    plain16 = logits_through(model, prompts, forced, "ref", S + G)
+    del model
+    torch.cuda.empty_cache()
+    for name, kern in (("float32", kern32), ("bfloat16", kern16)):
+        if not (torch.isfinite(kern).all()
+                and kern.shape == (B, 4, cfg.vocab)):
+            raise AssertionError(f"21s: {name} logits not finite or "
+                                 f"misshapen: {tuple(kern.shape)}")
+    gap32, scale32 = (float((kern32 - plain32).abs().max()),
+                      float(plain32.abs().max()))
+    if not gap32 <= F32_LOGIT_TOL * scale32:
+        raise AssertionError(f"21s: f32 kernel path off the plain path by "
+                             f"{gap32} > {F32_LOGIT_TOL} x {scale32}")
+    errs = bf16_errors(kern16, plain16, ref32)
+    out = {"prefill_s": sig(res.prefill_s),
+           "ms_per_token": sig(res.ms_per_token),
+           "tok_s": sig(res.tokens_per_s), "peak_B": peak,
+           "weight_B": weight_B, "launches": launches, **errs,
+           "same_draw": same_draw, "f32_gap": sig(gap32 / scale32),
+           "gate_layers": FM_SERVE_GATE_LAYERS}
+    log(f"[21s] serve {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {weight_B} B of bf16 "
+        f"weights): {B} prompts x {S} tokens, {G} new each; prefill "
+        f"{res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} ms/token, "
+        f"{res.tokens_per_s:.2f} tok/s, max_memory_allocated {peak} B; "
+        f"launches {launches}; sample {res.tokens[0][:8].tolist()}")
+    log(f"[21s] at {FM_SERVE_GATE_LAYERS} layers, prefill + 3 decode "
+        f"steps: f32 kernel vs plain path {gap32:.6g} of {scale32:.6g} "
+        f"({gap32 / scale32:.6g}); bf16 paths against the f32 plain path "
+        f"at the bf16 weights (same draw: {same_draw}), shares of its "
+        f"largest |logit|: kernel {errs['bf16_kernel_err']}, plain "
+        f"{errs['bf16_plain_err']} (ratio {errs['bf16_err_ratio']}); "
+        f"kernel vs plain in bf16 {errs['bf16_gap']}")
+    return out
+
+
+def falcon_rank(rank: int) -> dict:
+    """21b and 21c, one of two ranks of a (1, 2) mesh over gloo on one
+    card (see the module docstring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.hlo import CollectiveCounter
+    from repro_torch.train.step import batch_to, build_train_step
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+    # 21b
+    cfg = falcon_config(FM_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    ts = build_train_step(cfg, opt, mesh=mesh, device="cuda")
+    state = ts.init_state(0)
+    held = ts.model.shardings()
+    params = state["params"]
+    held_B = sum(p.numel() * p.element_size() for p in params.values())
+    # each mixer leaf's share of its whole tensor held here
+    shares = {}
+    for n, p in params.items():
+        if ".mamba." in n or n.endswith("ln1"):
+            leaf = n.split(".")[-1]
+            whole = (p.numel() if held[n] is None else
+                     held[n].full(p.detach()).numel())
+            shares.setdefault(leaf, set()).add(p.numel() / whole)
+    replicated = [n for n, sh in held.items() if sh is None]
+    stream = falcon_stream(cfg, FM_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    shd.reset_tp_routes()
+    losses, seconds, digests, coll = [], [], [], None
+    for step in range(TRAIN_STEPS):
+        batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCounter() if step == 0 else \
+                contextlib.nullcontext() as cc:
+            state, met = ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        digests.append(param_digest(state["params"][n] for n in replicated))
+        if step == 0:
+            coll = cc.result()
+    out = {"held_B": held_B, "peak_B": torch.cuda.max_memory_allocated(),
+           "losses": losses, "seconds": seconds, "collectives": coll,
+           "digests": digests,
+           "shares": {k: sorted(v) for k, v in shares.items()},
+           "routes": {k: dict(v) for k, v in shd.tp_route_launches.items()},
+           "launches": dict(ops.launches)}
+    # one more step under the profiler: this rank's scan device time, the
+    # forward's and the backward's kernels (``train_step_split``'s kinds)
+    batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ts.step_fn(state, batch)
+        torch.cuda.synchronize()
+    names = ("scan_kernel",) + tuple(SCAN_BWD_PASSES.values())
+    out["scan_device_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and any(x in e.key for x in names)) / 1e3
+    del ts, state, params
+    torch.cuda.empty_cache()
+    # 21c
+    cfg32 = falcon_config(MESH_GATE_LAYERS, "float32")
+    batch = batch_to(falcon_stream(cfg32, FM_GATE_B).next_batch(), "cuda")
+    ref = None
+    if rank == 0:                   # one card's gradients
+        one = build_train_step(cfg32, opt, device="cuda")
+        params, met = one.grads(one.init_state(0), batch)
+        ref = {n: p.grad for n, p in params.items()}
+        ref_loss = float(met["loss"])
+        del one, params
+        torch.cuda.empty_cache()
+    ts = build_train_step(cfg32, opt, mesh=mesh, device="cuda")
+    params, met = ts.grads(ts.init_state(0), ts.local_batch(batch))
+    held = ts.model.shardings()
+    gaps, whole = {}, []
+    with shd.use_mesh(mesh):
+        for n, p in params.items():
+            g = p.grad if held[n] is None else held[n].full(p.grad)
+            if held[n] is None:
+                whole.append(p.grad)
+            if ref is not None:
+                gaps[n] = float((g - ref[n]).abs().max()
+                                / ref[n].abs().max().clamp_min(1e-30))
+            del g
+    out["f32"] = {"loss": float(met["loss"]),
+                  "whole_digest": param_digest(whole), "n_whole": len(whole)}
+    if ref is not None:
+        out["f32"].update(ref_loss=ref_loss, gaps=gaps)
+    return out
+
+
+def falcon_phase(dry: dict, clock_hz: float, sms: int) -> dict:
+    """Phase 21: 21k, 21s and 21a on this process's card, then 21b and 21c
+    in two ranks of their own (``falcon_rank``); checks and prints."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.model import step_cost
+    t = time.perf_counter()
+    k_rows = falcon_kernel_rows(clock_hz, sms)
+    log(f"[21k] took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    s = falcon_serve(4, 2048, 32)
+    log(f"[21s] took {time.perf_counter() - t:.1f} s")
+    cfg = falcon_config(FM_TRAIN_LAYERS)
+    L, T = FM_TRAIN_LAYERS, FM_B * FM_S
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    t = time.perf_counter()
+    a = train_steps(cfg, opt, "21a", falcon_stream(cfg, FM_B))
+    torch.cuda.empty_cache()
+    log(f"[21a] took {time.perf_counter() - t:.1f} s")
+    one, cell = dry["falcon-mamba-7b/one"], dry["falcon-mamba-7b/tp"]
+    for c in (one, cell):
+        if c["status"] != "ok":
+            raise AssertionError(f"21: a dry run: {c['status']}: "
+                                 f"{c.get('error', c.get('reason'))}")
+    if (one["leaves"], one["state_bytes"]) != (a["n_params"], a["state_B"]):
+        raise AssertionError(f"21a: dry run {one['leaves']} parameters, "
+                             f"{one['state_bytes']} B of state; the card "
+                             f"trained {a['n_params']}, {a['state_B']} B")
+    a_scan_ms = (a["split"]["device_ms"]["scan_fwd"]
+                 + a["split"]["device_ms"]["scan_bwd"])
+    a["dry"] = {"peak_pred_B": one["memory"]["peak_bytes"],
+                "peak_ratio": sig(one["memory"]["peak_bytes"] / a["peak_B"]),
+                "flops": one["cost"]["flops"],
+                "kernel_flops": one["kernel_flops"],
+                "step_cost_flops": one["step_cost"]["flops"],
+                "flops_ratio": sig(one["cost"]["flops"]
+                                   / one["step_cost"]["flops"])}
+    a["roofline"] = roofline_row("21a", cfg, FM_B, FM_S, FM_S, "train",
+                                 a["median_step_s"])
+    a["scan_device_ms"] = a_scan_ms
+    log(f"[21a] dry run: peak predicted {one['memory']['peak_bytes']} B, "
+        f"measured {a['peak_B']} B (ratio {a['dry']['peak_ratio']}); "
+        f"counted FLOPs {one['cost']['flops']:.6g} (kernels "
+        f"{one['kernel_flops']:.6g}), step_cost's "
+        f"{one['step_cost']['flops']:.6g} (ratio {a['dry']['flops_ratio']});"
+        f" the scan's device ms in the split step {a_scan_ms:.6g}")
+    t = time.perf_counter()
+    ranks = run_ranks(falcon_rank, 2, backend="gloo", device="cuda",
+                      timeout=FM_TIMEOUT)
+    log(f"[21b] [21c] two ranks took {time.perf_counter() - t:.1f} s")
+    cost = step_cost(cfg, FM_B, FM_S, FM_S, 1, 2, "train")["coll_bytes"]
+    want_routes = {"embed": {"tp": TRAIN_STEPS, "gathered": 0},
+                   "mamba": {"tp": 2 * L * TRAIN_STEPS, "gathered": 0},
+                   "head": {"tp": TRAIN_STEPS, "gathered": 0}}
+    want_l = {c: TRAIN_STEPS * n
+              for c, n in expected_train_launches(cfg).items()}
+    b_rows = []
+    for i, rk in enumerate(ranks):
+        med = float(np.median(rk["seconds"][1:]))
+        c = rk["collectives"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(rk["losses"],
+                                                      a["losses"]))
+        row = {"held_B": rk["held_B"], "dry_param_B": cell["param_bytes"],
+               "half_of_21a": rk["held_B"] / (2 * a["n_params"]),
+               "shares": rk["shares"], "peak_B": rk["peak_B"],
+               "dry_peak_B": cell["memory"]["peak_bytes"],
+               "peak_over_21a": rk["peak_B"] / a["peak_B"],
+               "losses": rk["losses"], "loss_rel_gap": rel,
+               "step_s": rk["seconds"], "median_step_s": med,
+               "tokens_per_s": T / med, "routes": rk["routes"],
+               "collectives": c, "dry_collectives": cell["collectives"],
+               "step_cost_coll_B": cost,
+               "counted_over_step_cost": c["total_bytes"] / cost,
+               "launches": rk["launches"],
+               "scan_device_ms": rk["scan_device_ms"],
+               "scan_over_21a": rk["scan_device_ms"] / a_scan_ms}
+        log(f"[21b] rank {i} of (1, 2) over gloo, two ranks on one card: "
+            f"parameters held {rk['held_B']} B (the dry run's "
+            f"{cell['param_bytes']}; {row['half_of_21a']:.4f} of 21a's "
+            f"bf16 bytes), shares of each leaf held {rk['shares']}; peak "
+            f"{rk['peak_B']} B ({row['peak_over_21a']:.4f} of 21a's; the dry"
+            f" run's {cell['memory']['peak_bytes']}); routes {rk['routes']};"
+            f" losses {rk['losses']} (21a's {a['losses']}, largest relative"
+            f" gap {rel:.3g}); seconds {rk['seconds']}, median of steps "
+            f"2-{TRAIN_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
+            f"(gloo through the host, not NVLink); step 1's collectives {c}"
+            f" (the dry run's {cell['collectives']}; step_cost's collective "
+            f"term at tp = 2 {cost:.6g} B, counted "
+            f"{row['counted_over_step_cost']:.4f} of it); launches "
+            f"{rk['launches']}; one more step's scan device ms "
+            f"{rk['scan_device_ms']:.6g} ({row['scan_over_21a']:.4f} of "
+            f"21a's)")
+        if rk["held_B"] != cell["param_bytes"]:
+            raise AssertionError(f"21b rank {i}: holds {rk['held_B']} B, "
+                                 f"the dry run {cell['param_bytes']}")
+        if any(rk["shares"][k] != [0.5] for k in FM_SPLIT) or any(
+                rk["shares"][k] != [1.0] for k in ("conv_b", "dt_bias",
+                                                   "ln1")):
+            raise AssertionError(f"21b rank {i}: shares {rk['shares']}")
+        if (c["counts"], c["per_kind_bytes"]) != (
+                cell["collectives"]["counts"],
+                cell["collectives"]["per_kind_bytes"]):
+            raise AssertionError(f"21b rank {i}: step 1's collectives {c}, "
+                                 f"the dry run's {cell['collectives']}")
+        if c["counts"]["all-gather"] or c["counts"]["reduce-scatter"] \
+                or c["counts"]["all-to-all"]:
+            raise AssertionError(f"21b rank {i}: a tp step gathered: {c}")
+        if rk["routes"] != want_routes:
+            raise AssertionError(f"21b rank {i}: routes {rk['routes']}")
+        if rk["launches"] != want_l:
+            raise AssertionError(f"21b rank {i}: launches {rk['launches']},"
+                                 f" expected {want_l}")
+        if not rel <= FM_LOSS_TOL:
+            raise AssertionError(f"21b rank {i}: losses {rk['losses']} vs "
+                                 f"21a's {a['losses']}")
+        b_rows.append(row)
+    if ranks[0]["digests"] != ranks[1]["digests"]:
+        raise AssertionError(f"21b: the ranks' replicated leaves differ: "
+                             f"{ranks[0]['digests']} vs "
+                             f"{ranks[1]['digests']}")
+    f0, f1 = ranks[0]["f32"], ranks[1]["f32"]
+    worst = max(f0["gaps"].values())
+    rel32 = abs(f0["loss"] - f0["ref_loss"]) / abs(f0["ref_loss"])
+    same = f0["whole_digest"] == f1["whole_digest"]
+    log(f"[21b] replicated leaves bit-equal on both ranks after every step "
+        f"(digests {ranks[0]['digests']})")
+    log(f"[21c] f32 at {MESH_GATE_LAYERS} layers, {FM_GATE_B} x {FM_S} "
+        f"tokens: loss {f0['loss']} and {f1['loss']} vs one card's "
+        f"{f0['ref_loss']} (relative gap {rel32:.3g}); gathered gradients' "
+        f"largest gap {worst:.3g} of a leaf's largest entry "
+        f"({max(f0['gaps'], key=f0['gaps'].get)}); {f0['n_whole']} whole "
+        f"leaves' gradients bit-equal on both ranks: {same}")
+    top = sorted(f0["gaps"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"[21c] the largest gaps by leaf: {top}")
+    if not (worst <= FM_GRAD_TOL and rel32 <= FM_GATE_LOSS_TOL and same
+            and f1["loss"] == f0["loss"]):
+        raise AssertionError(f"21c: gradients {worst}, loss {rel32}, "
+                             f"whole leaves equal {same}")
+    return {"k": k_rows, "serve": s, "a": a, "b": b_rows,
+            "c": {"loss": f0["loss"], "ref_loss": f0["ref_loss"],
+                  "loss_rel_gap": rel32, "worst_grad_gap": worst,
+                  "largest_gaps": top, "whole_equal": same}}
+
+
 def main() -> int:
     """Check for a card and a checkout, and run the phases (``phases``)
     beside a spawned process for phase 17's dry runs, stopped at the
@@ -5121,7 +5597,7 @@ def main() -> int:
 
 
 def phases(dry_pool) -> int:
-    """Phases 1-20 (see the module docstring); phase 17's dry runs
+    """Phases 1-21 (see the module docstring); phase 17's dry runs
     (``dryrun_cells``) run in ``dry_pool`` from the end of the build
     on."""
     import torch
@@ -5753,6 +6229,28 @@ def phases(dry_pool) -> int:
         "imbalance": p20["imbalance"], "c": p20["c"], "d": p20["d"],
         "s": p20["s"]}
 
+    # --------------------------------------- 21. the Mamba mixer's blocks
+    t21 = time.perf_counter()
+    p21 = falcon_phase(dry, clock_hz, sms)
+    p21["s"] = sig(time.perf_counter() - t21)
+    log(f"[21] phase 21 took {p21['s']:.2f} s")
+    summary["p21"] = {
+        "k": [{k: r.get(k) for k in (
+            "case", "dtype", "shape", "ms", "call_ms", "bound_ms",
+            "bound_by", "plain_ms", "max_abs_err", "segments",
+            "segment_steps", "last_segment_steps", "pass_ms", "scan_cost")}
+            for r in p21["k"]],
+        "serve": p21["serve"],
+        "a": {k: p21["a"][k] for k in (
+            "losses", "median_step_s", "tokens_per_s", "peak_B", "n_params",
+            "per_step_launches", "dry", "roofline", "scan_device_ms",
+            "split")},
+        "b": [{k: r[k] for k in ("held_B", "peak_B", "losses",
+                                 "median_step_s", "tokens_per_s",
+                                 "collectives", "counted_over_step_cost",
+                                 "scan_device_ms", "scan_over_21a")}
+              for r in p21["b"]], "c": p21["c"], "s": p21["s"]}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -6124,6 +6622,49 @@ def phases(dry_pool) -> int:
         elif k["name"] == "attention_bwd":
             k.update(seq_fields(k20["bfloat16"], "seq", "bwd"))
             k.update(seq_fields(k20["float32"], "seq_f32", "bwd"))
+    # the scan kernels on phase 21's path: 21s's serve run, 21a's and each
+    # rank of 21b's training steps, and 21k's rows at falcon's widths
+    fk = {(r["case"], r["dtype"]): r for r in p21["k"]}
+
+    def falcon_fields(case, dtype, tag):
+        r = fk[(case, dtype)]
+        out = {f"{tag}_{k}": r[k] for k in (
+            "ms", "call_ms", "bound_ms", "bound_by", "plain_ms",
+            "max_abs_err", "shape")}
+        if "segments" in r:
+            out.update({f"{tag}_{k}": r[k] for k in (
+                "segments", "segment_steps", "last_segment_steps",
+                "pass_ms")})
+        return out
+    for k in kernels:
+        if k["name"] not in ("mamba_scan", "mamba_step", "mamba_scan_bwd"):
+            continue
+        k["falcon_train_launches"] = p21["a"]["launches"][k["name"]]
+        k["falcon_tp_launches_per_rank"] = [r["launches"][k["name"]]
+                                            for r in p21["b"]]
+        k["falcon_launches_from"] = (
+            f"phase 21: 21s serves falcon-mamba-7b (64 layers), 21a trains "
+            f"{FM_TRAIN_LAYERS} of its layers on one card and 21b on two "
+            f"ranks of a (1, 2) mesh, {TRAIN_STEPS} steps each")
+        if k["name"] == "mamba_scan_bwd":
+            for case, tag in (("falcon_train", "falcon"),
+                              ("falcon_rank", "falcon_rank")):
+                k.update(falcon_fields(case, "bfloat16", tag))
+                k.update(falcon_fields(case, "float32", f"{tag}_f32"))
+        else:
+            k["falcon_launches"] = p21["serve"]["launches"][k["name"]]
+            case = ("falcon_prefill" if k["name"] == "mamba_scan"
+                    else "falcon_decode")
+            k.update(falcon_fields(case, "bfloat16", "falcon"))
+            k.update(falcon_fields(case, "float32", "falcon_f32"))
+        # training takes no step kernel, serving no backward
+        run = ([k["falcon_launches"]] if k["name"] == "mamba_step" else
+               [k["falcon_train_launches"], *k["falcon_tp_launches_per_rank"]]
+               + ([k["falcon_launches"]] if k["name"] == "mamba_scan"
+                  else []))
+        if min(run) < 1:
+            raise AssertionError(f"21: {k['name']} was not launched on "
+                                 f"every run of phase 21: {run}")
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -13,7 +13,8 @@ tensors and leaves the old ones as they were.
 Tensor parallelism (``parallel.sharding.tp_split``): the attention layers
 and ``swiglu`` take their head and channel counts from the weights they
 are given, so they run alike on whole leaves and on one rank's blocks
-(column blocks of the input products, row blocks of the output one).
+(column blocks of the input products, row blocks of the output one); so
+does the Mamba mixer, whose ``x_proj`` product is row-parallel too.
 Given ``tp`` (the mesh axis the blocks are over, 'model'), the output
 product's partial sums are added over that axis (``psum``), or with
 ``scatter`` reduce-scattered along the sequence (each rank keeps its block
@@ -352,13 +353,33 @@ def cross_attention(p: dict, x: torch.Tensor, img: torch.Tensor,
 # --------------------------------------------------------------------- mamba
 
 def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                state: dict | None = None):
+                state: dict | None = None, tp: str | None = None,
+                scatter: bool = False):
     """Mamba-1 mixer.  x: (B, S, D).  state: {'conv': (B, d_conv-1, di),
-    'ssm': (B, di, N)} for stepwise decode (S == 1)."""
+    'ssm': (B, di, N)} for stepwise decode (S == 1).
+
+    Under ``tp`` (the mesh axis, 'model') the leaves are this rank's
+    blocks of di / n channels (``parallel.sharding.held_specs``):
+    ``in_proj`` column-parallel as ``[x block | z block]`` on the
+    replicated input; the conv, SiLU, dt's projection and softplus, the
+    scan (its A, D and state rows) and the gate on the rank's channels;
+    ``x_proj`` row-parallel, its partial (B, S, r + 2N) summed by one psum
+    over ``tp`` before dt's input, B and C are cut from it; ``out_proj``
+    row-parallel, its output summed over ``tp`` (``scatter``:
+    reduce-scattered along the sequence).  ``conv_b`` and ``dt_bias`` are
+    held whole, as the reference has them, and narrowed here to the
+    rank's channels: each rank's gradient of them is its channels' part,
+    zero elsewhere, which the step's psum of replicated leaves over
+    'model' (``train.step``) puts together."""
     B, S, _ = x.shape
-    di, N, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    N, r = cfg.ssm_state, cfg.dt_rank_
     xz = x @ p["in_proj"]
+    di = xz.shape[-1] // 2                 # every channel, or the rank's
     u, z = xz[..., :di], xz[..., di:]
+    conv_b, dt_bias = p["conv_b"], p["dt_bias"]
+    if tp is not None:
+        conv_b = conv_b.narrow(0, shd.axis_index(tp) * di, di)
+        dt_bias = dt_bias.narrow(0, shd.axis_index(tp) * di, di)
     # depthwise causal conv along S: the JAX window-gather einsum, as a sum
     # of shifted slices with f32 products and sums, rounded once
     if state is None:
@@ -371,10 +392,12 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     acc = u_pad[:, 0:S].float() * w[0]
     for j in range(1, cfg.d_conv):
         acc = acc + u_pad[:, j:j + S].float() * w[j]
-    u_conv = F.silu(acc.to(x.dtype) + p["conv_b"])
+    u_conv = F.silu(acc.to(x.dtype) + conv_b)
     # input-dependent SSM parameters
     xproj = u_conv @ p["x_proj"]
-    dt = F.softplus(xproj[..., :r] @ p["dt_proj"] + p["dt_bias"])
+    if tp is not None:
+        xproj = shd.psum(xproj, tp)
+    dt = F.softplus(xproj[..., :r] @ p["dt_proj"] + dt_bias)
     Bc = xproj[..., r:r + N].contiguous()
     Cc = xproj[..., r + N:].contiguous()
     A = -torch.exp(p["A_log"].float())
@@ -382,7 +405,7 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, last = ops.mamba_scan(u_conv, dt, A, Bc, Cc, p["ssm_D"],
                              init_state=init)
     y = y * F.silu(z)
-    out = y @ p["out_proj"]
+    out = _reduce(y @ p["out_proj"], tp, scatter)
     new_conv = None if new_conv is None else new_conv.contiguous()
     return out, {"conv": new_conv, "ssm": last}
 

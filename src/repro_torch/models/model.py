@@ -49,20 +49,24 @@ dense reference (``models.moe``).
 Under a mesh (``parallel.sharding.set_active_mesh``, before the model is
 built) the model is one rank's part of the whole, in explicit SPMD.  The
 weights are drawn whole, as on one device, and each leaf that
-``param_spec`` shards keeps only this rank's block.  Each family of a
-layer then takes the route ``parallel.sharding.tp_split`` gives it on the
-model axis, from the config alone:
+``parallel.sharding.held_specs`` shards (``param_spec``'s rules, the
+Mamba mixer's leaves as channel blocks) keeps only this rank's block.
+Each family of a layer then takes the route
+``parallel.sharding.tp_split`` gives it on the model axis, from the
+config alone:
 
 * ``tp``: its products run on the blocks as held (``Params.tp_blocks``):
-  the attention on the rank's heads, the MLP on its channels, each output
-  summed by one psum over 'model'; the embedding looks up the rank's
+  the attention on the rank's heads, the MLP and the Mamba mixer on its
+  channels (the mixer's ``in_proj`` and ``conv_w`` in the port's own
+  channel blocks, ``parallel.sharding.held_specs``), each output summed by
+  one psum over 'model'; the embedding looks up the rank's
   vocabulary rows (``_vocab_embed``), the head gives the rank's vocabulary
   slice of the logits, and the cross-entropy is vocab-parallel
   (``_xent``).  No weight moves between ranks;
 * ``gathered``: reading a leaf (``Params[name]``, ``Model._w``) gathers
   its blocks through an autograd Function (an ``all_gather``, whose
   backward is a ``reduce_scatter``), where a layer uses it, again under
-  remat: the Mamba mixer, the MoE router, and any family whose heads the
+  remat: the MoE router, and any family whose heads (or channels) the
   axis does not divide.
 
 Serving gathers the dense leaves once (``gather_dense_``, which also
@@ -182,7 +186,8 @@ def _tp_block(name: str, t: torch.Tensor, sh, dim: int) -> torch.Tensor:
     """``t`` (leaf ``name``, held with ``Sharding`` ``sh``), which a
     tensor-parallel product reads as this rank's block over 'model' on
     ``dim``: raises where it is held otherwise."""
-    if sh is None or sh.spec != shd.tp_spec(t.dim(), dim):
+    if sh is None or sh.spec != shd.tp_spec(t.dim(), dim,
+                                            shd.TP_GROUPS.get(name, 1)):
         raise RuntimeError(f"{name}: a tensor-parallel product needs its "
                            f"block over 'model' on dim {dim}; held as "
                            f"{None if sh is None else sh.spec}")
@@ -412,14 +417,14 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ sharding
     def _shard(self, mesh) -> None:
-        """Keep of each leaf that ``param_spec`` shards this rank's block,
+        """Keep of each leaf that ``held_specs`` shards this rank's block,
         and note its ``Sharding`` where the leaf is read."""
         n_model = shd.axis_sizes(mesh).get("model", 1)
         if self.plan is not None and self.plan.n_shards != n_model:
             raise ValueError(f"a plan over {self.plan.n_shards} shards on "
                              f"a model axis of {n_model} rank(s)")
         shardings = shd.tree_shardings(dict(self.named_parameters()), mesh,
-                                       self.cfg.strategy)
+                                       self.cfg)
         for prefix, mod in self.named_modules():
             for name, prm in mod.named_parameters(recurse=False):
                 sh = shardings[f"{prefix}.{name}" if prefix else name]
@@ -560,10 +565,15 @@ class Model(nn.Module):
 
     def _mamba(self, lp, h: torch.Tensor, seg: Segment,
                seq: "shd.SeqSplit | None") -> torch.Tensor:
-        self._tp(seg, "mamba")
+        """The Mamba mixer: on the rank's channel blocks where its route is
+        ``tp`` (its output summed over 'model', or under ``seq``
+        reduce-scattered along the sequence), else on its leaves read
+        whole."""
+        tp = self._tp(seg, "mamba")
         self._seq_route(seg, "mamba", seq)
-        return self._whole(seq, None, lambda hh, _: L.mamba_mixer(
-            lp["mamba"], hh, self.cfg)[0], h)
+        w = self._weights(lp["mamba"], "mamba", tp)
+        return self._whole(seq, tp, lambda hh, sc: L.mamba_mixer(
+            w, hh, self.cfg, tp=tp, scatter=sc)[0], h)
 
     def _ffn(self, lp, x: torch.Tensor, seg: Segment, mode: str,
              seq: "shd.SeqSplit | None" = None):

@@ -36,6 +36,18 @@ split is the work on it:
   ``gathered``: ``Sharding.full``, an ``all_gather`` per leaf);
 * the sequence at the MoE boundary (``models.moe.moe_a2a``).
 
+The Mamba mixer is the one family whose ``tp`` blocks are not
+``param_spec``'s: the reference's rules split ``in_proj`` (D, 2·di) on its
+last dimension (at n = 2 one rank holds all of x, the other all of z) and
+``conv_w`` (d_conv, di) over its taps.  Where the mixer runs
+tensor-parallel, the port holds them as channel blocks of its own
+(``held_specs``): ``in_proj`` as the rank's ``[x block | z block]`` (a
+``Blocks`` entry: the last dimension in two groups, each split over
+'model') and ``conv_w`` on its channels.  ``Sharding.local`` and ``full``
+cut and gather these as any other block, so a checkpoint (the leaves
+gathered whole) keeps the reference's layout, and a restore onto
+another mesh cuts the blocks anew.
+
 The sequence split (``seq_split_of``): under ``dp_seq`` (the batch's
 sequence over 'model', ``train.step.batch_specs``) and under
 ``seq_shard_activations`` (the reference's ``_constrain_residual``) each
@@ -132,11 +144,23 @@ def batch_entry(mesh=None):
     return None if not dp else dp[0] if len(dp) == 1 else dp
 
 
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """A spec entry: the dimension is ``groups`` equal groups, each split
+    into blocks over the mesh axis ``axis``; a rank holds its block of
+    every group, in group order (the Mamba mixer's ``in_proj`` (D, 2·di)
+    as the rank's ``[x block | z block]``: ``Blocks("model", 2)``)."""
+    axis: str
+    groups: int
+
+
 def axis_size_of(mesh, axis) -> int:
     """The ranks of a spec entry: 1 for None, an axis's size, or the
     product of a tuple of axes'."""
     if axis is None:
         return 1
+    if isinstance(axis, Blocks):
+        axis = axis.axis
     sizes = axis_sizes(mesh)
     if isinstance(axis, tuple):
         return int(np.prod([sizes[a] for a in axis]))
@@ -203,15 +227,21 @@ def param_spec(path: str, shape: tuple, strategy: str = "tp",
 
 # ------------------------------------------------- tensor-parallel routes
 # the leaves of each family whose products run on blocks, and the
-# dimension ``param_spec`` splits over 'model' (column-parallel: the last;
-# row-parallel: the one before; the embedding's vocabulary rows)
+# dimension each is held split over 'model' on (column-parallel: the last;
+# row-parallel: the one before; the embedding's vocabulary rows):
+# ``param_spec``'s, and for the Mamba mixer ``held_specs``'
 TP_DIMS = {"gqa": {"wq": -1, "wk": -1, "wv": -1, "wo": -2},
+           "mamba": {"in_proj": -1, "conv_w": -1, "A_log": -2,
+                     "ssm_D": -1, "x_proj": -2, "dt_proj": -1,
+                     "out_proj": -2},
            "mla": {"wq_b": -1, "wkv_b": -1, "mla_wo": -2},
            "cross": {"cross_wq": -1, "cross_wk": -1, "cross_wv": -1,
                      "cross_wo": -2},
            "mlp": {"w_gate": -1, "w_up": -1, "w_down": -2},
            "embed": {"embed": 0},
            "head": {"lm_head": -1}}
+# the leaves held in groups of blocks (``Blocks``): {name: groups}
+TP_GROUPS = {"in_proj": 2}
 ROUTES = ("tp", "gathered")
 # the families' routes, counted each time a family runs under a mesh
 # (a remat replay counts again), as ``kernels.ops.route_launches`` counts
@@ -240,11 +270,12 @@ def tp_split(cfg, seg, n_model: int) -> dict:
     vocabulary.  ``param_spec`` shards columns, so a head count that
     ``n_model`` does not divide (hymba's 25 heads at 2) is split in the
     middle of a head: the family reads its leaves whole.  The Mamba mixer
-    (its ``in_proj`` blocks are x | z halves, its ``conv_w`` split over
-    taps, not channels) and the MoE router (top-k needs every expert's
-    logit) are always ``gathered``.  Under ``dp_seq`` every leaf is whole
-    and every family reads it so: what the model axis splits there is the
-    sequence (``seq_split``)."""
+    splits where ``n_model`` divides its channels (``d_inner``), the
+    cost model's ``di / tp``, on the channel blocks that ``held_specs``
+    gives it.  The MoE router (top-k needs every expert's logit) is always
+    ``gathered``.  Under ``dp_seq`` every leaf is whole and every family
+    reads it so: what the model axis splits there is the sequence
+    (``seq_split``)."""
     whole = cfg.strategy == "dp_seq"
 
     def route(ok: bool) -> str:
@@ -263,7 +294,7 @@ def tp_split(cfg, seg, n_model: int) -> dict:
     elif seg.attn == "mla":
         out["mla"] = route(cfg.n_heads % n == 0)
     if seg.kind in ("mamba", "hybrid"):
-        out["mamba"] = "gathered"
+        out["mamba"] = route(cfg.d_inner % n == 0)
     if seg.kind == "vision_group":
         out["cross"] = route(cfg.n_heads % n == 0
                              and cfg.n_kv_heads % n == 0)
@@ -386,11 +417,11 @@ def seq_split_of(cfg, S: int, mesh=None) -> SeqSplit | None:
     return SeqSplit("model", axis_index("model", mesh), n, S // n)
 
 
-def tp_spec(ndim: int, dim: int) -> tuple:
+def tp_spec(ndim: int, dim: int, groups: int = 1) -> tuple:
     """The spec of a leaf of ``ndim`` dimensions held as this rank's block
-    over 'model' on ``dim``."""
+    over 'model' on ``dim`` (of each of ``groups`` groups: ``Blocks``)."""
     spec = [None] * ndim
-    spec[dim] = "model"
+    spec[dim] = "model" if groups == 1 else Blocks("model", groups)
     return tuple(spec)
 
 
@@ -401,15 +432,46 @@ def tree_param_specs(shapes: dict, strategy: str = "tp", mesh=None) -> dict:
             for name, s in shapes.items()}
 
 
-def tree_shardings(shapes: dict, mesh, strategy: str = "tp") -> dict:
-    """{name: Sharding} of {name: tensor or shape} under ``mesh``."""
+def held_specs(shapes: dict, cfg, mesh=None) -> dict:
+    """{name: spec} of the layout the port holds {name: tensor or shape}
+    of ``cfg`` in under ``mesh`` (default: the active one):
+    ``param_spec``'s, but where the Mamba mixer runs tensor-parallel
+    (``tp_split``) each of its leaves is held as the rank's block of
+    channels that its product reads (``TP_DIMS``, ``TP_GROUPS``):
+    ``in_proj`` as ``[x block | z block]`` and ``conv_w`` on its channels
+    where the reference's rules split them otherwise.  ``conv_b`` and
+    ``dt_bias`` stay whole, as the reference has them."""
+    mesh = _ACTIVE_MESH if mesh is None else mesh
+    specs = tree_param_specs(shapes, cfg.strategy, mesh)
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return specs
+    seg = next((s for s in cfg.segments if s.kind in ("mamba", "hybrid")),
+               None)
+    if seg is None or tp_split(cfg, seg, axis_sizes(mesh)["model"])[
+            "mamba"] != "tp":
+        return specs
+    dims = TP_DIMS["mamba"]
+    for name, s in shapes.items():
+        parts = name.split(".")
+        if len(parts) >= 2 and parts[-2] == "mamba" and parts[-1] in dims:
+            specs[name] = tp_spec(len(getattr(s, "shape", s)),
+                                  dims[parts[-1]],
+                                  TP_GROUPS.get(parts[-1], 1))
+    return specs
+
+
+def tree_shardings(shapes: dict, mesh, cfg) -> dict:
+    """{name: Sharding} of {name: tensor or shape} of ``cfg`` under
+    ``mesh``, as the port holds them (``held_specs``)."""
     return {name: Sharding(mesh, spec) for name, spec in
-            tree_param_specs(shapes, strategy, mesh).items()}
+            held_specs(shapes, cfg, mesh).items()}
 
 
 def _axes_of(entry) -> tuple:
     if entry is None:
         return ()
+    if isinstance(entry, Blocks):
+        return (entry.axis,)
     return entry if isinstance(entry, tuple) else (entry,)
 
 
@@ -425,7 +487,8 @@ class Sharding:
         return tuple(a for e in self.spec for a in _axes_of(e))
 
     def local(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's block of ``full`` (a view)."""
+        """This rank's block of ``full`` (a view, but of a ``Blocks``
+        entry's groups, which are put together in a copy)."""
         out = full
         for dim, e in enumerate(self.spec):
             n = axis_size_of(self.mesh, e)
@@ -435,15 +498,27 @@ class Sharding:
             for a in _axes_of(e):        # the major axis first
                 idx = idx * axis_size(a, self.mesh) + axis_index(a,
                                                                  self.mesh)
+            if isinstance(e, Blocks):
+                g = out.unflatten(dim, (e.groups, -1))
+                step = g.shape[dim + 1] // n
+                out = g.narrow(dim + 1, idx * step, step).flatten(dim,
+                                                                  dim + 1)
+                continue
             step = out.shape[dim] // n
             out = out.narrow(dim, idx * step, step)
         return out
 
     def full(self, local: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's block (differentiable:
-        ``all_gather`` per sharded axis, the minor axis first)."""
+        ``all_gather`` per sharded axis, the minor axis first; a
+        ``Blocks`` entry's within each group)."""
         out = local
         for dim, e in enumerate(self.spec):
+            if isinstance(e, Blocks):
+                g = out.unflatten(dim, (e.groups, -1))
+                out = all_gather(g, e.axis, dim + 1,
+                                 self.mesh).flatten(dim, dim + 1)
+                continue
             for a in reversed(_axes_of(e)):
                 out = all_gather(out, a, dim, self.mesh)
         return out

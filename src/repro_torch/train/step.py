@@ -32,13 +32,17 @@ reduce_scatter makes a gathered leaf's; the replicated input of a
 column-parallel product takes no collective, its gradient on each rank
 being a share.  A psum of every gradient over the axes its leaf is whole
 on (over 'model' for a replicated leaf -- the norms, MLA's wq_a and
-wkv_a, the MTP projection -- which adds its shares once, leaving the
-same sum on every model rank; over the batch axes for all) then gives each rank the gradient of the mean loss over the
-global batch.  The global gradient norm sums every leaf's blocks once.
+wkv_a, the MTP projection, and the tp Mamba mixer's conv_b and dt_bias,
+whose gradient on each rank is its channels' part -- which adds its
+shares once, leaving the same sum on every model rank; over the batch
+axes for all) then gives each rank the gradient of the mean loss over
+the global batch.  The global gradient norm sums every leaf's blocks once.
 Each rank then runs AdamW on its blocks -- under ZeRO on its data slice,
 whose new parameters an all_gather over 'data' puts together.  The
-stored blocks are ``param_spec``'s, with or without tensor parallelism,
-so checkpoints and elastic restores do not depend on the routes.
+stored blocks are ``param_spec``'s (the Mamba mixer's channel blocks
+where it runs tensor-parallel, ``parallel.sharding.held_specs``), and a
+checkpoint holds every leaf whole, so checkpoints and elastic restores
+do not depend on the routes.
 
 The sequence split of ``dp_seq`` (``batch_specs`` puts the model axis on
 the sequence where it divides it): ``local_batch`` hands each rank its
@@ -140,14 +144,19 @@ def cache_specs(cfg: ModelConfig, mesh, caches: list) -> list:
     return [[walk(c, (len(seg),)) for c in seg] for seg in caches]
 
 
-def state_shardings(cfg: ModelConfig, mesh, shapes: dict) -> dict:
+def state_shardings(cfg: ModelConfig, mesh, shapes: dict,
+                    held: bool = False) -> dict:
     """The reference's specs of the training state for parameters
-    {name: shape}: ``params`` by ``param_spec``; the optimizer's ``master``,
-    ``m`` and ``v`` the same, and under ``zero_opt_state`` (where the
-    parameter is not data-sharded already) 'data' on the largest dimension
-    left whole that it divides; ``step`` whole."""
+    {name: shape}: ``params`` by ``param_spec`` (``held``: as the port
+    holds them, ``parallel.sharding.held_specs``, the Mamba mixer's
+    leaves in channel blocks where it runs tensor-parallel); the
+    optimizer's ``master``, ``m`` and ``v`` the same, and under
+    ``zero_opt_state`` (where the parameter is not data-sharded already)
+    'data' on the largest dimension left whole that it divides; ``step``
+    whole."""
     sizes = shd.axis_sizes(mesh)
-    pspecs = shd.tree_param_specs(shapes, cfg.strategy, mesh)
+    pspecs = (shd.held_specs(shapes, cfg, mesh) if held
+              else shd.tree_param_specs(shapes, cfg.strategy, mesh))
 
     def opt_spec(name):
         spec = list(pspecs[name])
@@ -201,7 +210,8 @@ class TrainStep:
                 full[n] = shape if sh is None else tuple(
                     k * shd.axis_size_of(self.mesh, e)
                     for k, e in zip(shape, sh.spec))
-            self._specs = state_shardings(self.cfg, self.mesh, full)
+            self._specs = state_shardings(self.cfg, self.mesh, full,
+                                          held=True)
         return {"params": params,
                 "opt": adamw.init_state(self.opt_cfg, self._opt_view(params))}
 

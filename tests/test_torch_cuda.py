@@ -459,6 +459,15 @@ SCAN_CASES = [
     (1, 100, 192, 8, True, "small"),
     # the decode step at hymba's shape
     (4, 1, 3200, 16, True, "large"),
+    # falcon-mamba-7b's d_inner: the prefill and the decode step.  The
+    # prefill takes "small" dt, as the long sequences above: with "large"
+    # dt over 2048 steps (|y| up to ~600) the f32 plain version itself is
+    # 6.4e-5 off the recurrence in f64 (23 elements past 1e-5 + 1e-5 |y|),
+    # and the kernel 6.7e-5 (16), at hymba's width as at falcon's
+    # (``probe_scan_f64.py``)
+    (4, 2048, 8192, 16, False, "small"), (4, 1, 8192, 16, True, "large"),
+    # and a rank's half of its channels on a (1, 2) mesh
+    (2, 2048, 4096, 16, False, "small"), (2, 1, 4096, 16, True, "large"),
 ]
 
 
@@ -1060,6 +1069,12 @@ def test_attention_kernels_take_a_query_offset(cuda, no_tf32, B, Sq, H, KV,
         assert torch.isfinite(t).all()
 
 
+# falcon-mamba-7b's training step (2 x 2048 tokens) on one card and a
+# rank's half of its channels on a (1, 2) mesh: ``bwd_plan`` cuts both
+# into segments whose last is shorter than the rest
+FALCON_BWD_CASES = [(2, 2048, 8192, 16), (2, 2048, 4096, 16)]
+
+
 # (B, S, di, N, segment, dt scale): ragged chunks and channel blocks, every
 # state size, and hymba's shape, on the plan's segments (ids as before
 # segments existed); then S one step over and under a segment, S = 1, S
@@ -1069,7 +1084,7 @@ BWD_SCAN_CASES = [
     *(pytest.param(*c, None, 1.0, id="-".join(map(str, c))) for c in (
         (2, 37, 70, 4), (1, 100, 64, 16), (2, 16, 33, 16),
         *[(2, 45, 40, n) for n in (1, 2, 8)],
-        (4, 2048, 3200, 16))),
+        (4, 2048, 3200, 16), *FALCON_BWD_CASES)),
     (2, 129, 64, 16, 128, 1.0), (2, 127, 64, 16, 128, 1.0),
     (2, 1, 64, 16, None, 1.0), (2, 9, 40, 8, None, 1.0),
     (1, 100, 50, 16, 32, 1.0), (2, 70, 70, 2, 32, 1.0),
@@ -1118,6 +1133,33 @@ def test_scan_bwd_kernel_matches_plain_version(cuda, B, S, di, N, segment,
         for i, (a, b) in enumerate(zip(got, plain)):
             assert torch.isfinite(a).all()
             assert _grad_gap(a, b) <= tol, (i, _grad_gap(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N", FALCON_BWD_CASES)
+def test_scan_bwd_kernel_on_uneven_segments(cuda, B, S, di, N, dtype):
+    """At falcon's widths: the plan's last segment shorter than the rest;
+    the kernel against ``mamba_scan_bwd_ref`` on the same segments, and
+    bit-equal over two calls."""
+    from repro_torch.kernels import mamba_scan as ms
+    plan = ms.bwd_plan(B, S, di, N)
+    assert 0 < S - (plan["nseg"] - 1) * plan["seg_len"] < plan["seg_len"]
+    u, dt, A, Bc, Cc, D = _scan_inputs(B, S, di, N, dtype, cuda, S + di,
+                                       "large")
+    dt = (dt / 4).to(dtype)                   # softplus(normal)
+    dy = torch.randn((B, S, di), device=cuda).to(dtype)
+    ops.reset_launches()
+    got = ms.mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy)
+    again = ms.mamba_scan_bwd(u, dt, A, Bc, Cc, D, dy)
+    torch.cuda.synchronize()
+    assert ops.launches["mamba_scan_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = ref.mamba_scan_bwd_ref(u, dt, A, Bc, Cc, D, dy,
+                                   segment=plan["seg_len"])
+    for i, (a, b) in enumerate(zip(got, plain)):
+        assert torch.isfinite(a).all()
+        assert _grad_gap(a, b) <= GRAD_TOL[dtype], (i, _grad_gap(a, b))
 
 
 @pytest.mark.cuda

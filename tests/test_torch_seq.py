@@ -98,6 +98,10 @@ ROUTE_CASES = [
      {"embed": T_, "head": T_}, [{"mamba": G_}]),
     ("deepseek-7b", {"seq_shard_activations": True}, 2,
      {"embed": G_, "head": G_}, [{"gqa": G_, "mlp": G_}]),
+    # the mixer on its channel blocks (tp), its input gathered over the
+    # sequence and its output reduce-scattered
+    ("falcon-mamba-7b", {"seq_shard_activations": True}, 2,
+     {"embed": G_, "head": G_}, [{"mamba": G_}]),
     # hymba's 25 heads do not split over 2: its GQA reads whole weights
     ("hymba-1.5b", {"seq_shard_activations": True}, 2,
      {"embed": T_, "head": G_}, [{"gqa": S_, "mamba": G_, "mlp": G_}] * 5),

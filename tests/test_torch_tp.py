@@ -3,9 +3,12 @@ on the CPU.
 
 * ``tp_split`` as a table on the registry's full configs: the route of
   each family by the reference cost model's condition (hymba's 25 / 5
-  heads at n = 2 and yi-34b's 56 / 8 at n = 16 stay gathered), and for
-  every config at n = 2, 4 and 16 the leaves of each ``tp`` family held as
-  the blocks its products read (``param_spec`` on an ``AbstractMesh``).
+  heads at n = 2 and yi-34b's 56 / 8 at n = 16 stay gathered; a Mamba
+  mixer splits where n divides d_inner, hymba's 3200 not at n = 3), and
+  for every config at n = 2, 4 and 16 the leaves of each ``tp`` family
+  held as the blocks its products read (``held_specs`` on an
+  ``AbstractMesh``: ``param_spec``'s, the Mamba mixer's in channel
+  blocks).
 * One training step's loss and gradients of the reduced dense
   (deepseek-7b, two layers), MoE (olmoe-1b-7b: GQA attention beside the
   experts), MLA (deepseek-v3: MLA, the shared experts and the MTP block)
@@ -87,7 +90,9 @@ G, T = "gathered", "tp"
 ROUTE_CASES = [
     # (arch, n, routes of the embedding and head, of each segment)
     ("hymba-1.5b", 2, {"embed": G, "head": G},        # vocab 32001
-     [{"gqa": G, "mamba": G, "mlp": T}] * 5),
+     [{"gqa": G, "mamba": T, "mlp": T}] * 5),         # d_inner 3200
+    ("hymba-1.5b", 3, {"embed": T, "head": T},        # 3 divides 32001,
+     [{"gqa": G, "mamba": G, "mlp": G}] * 5),         # not 3200 or 5504
     ("deepseek-7b", 2, {"embed": T, "head": T}, [{"gqa": T, "mlp": T}]),
     ("olmoe-1b-7b", 2, {"embed": T, "head": T},
      [{"gqa": T, "router": G}]),
@@ -96,7 +101,8 @@ ROUTE_CASES = [
      [{"mla": T, "mlp": T}, {"mla": T, "router": G, "mlp": T}]),
     ("llama-3.2-vision-11b", 16, {"embed": T, "head": T},
      [{"gqa": G, "cross": G, "mlp": T}]),
-    ("falcon-mamba-7b", 2, {"embed": T, "head": T}, [{"mamba": G}]),
+    ("falcon-mamba-7b", 2, {"embed": T, "head": T}, [{"mamba": T}]),
+    ("falcon-mamba-7b", 16, {"embed": T, "head": T}, [{"mamba": T}]),
     ("hubert-xlarge", 2, {"head": T}, [{"gqa": T, "mlp": T}]),
     ("smollm-135m", 2, {"embed": G, "head": G},       # dp_seq: whole
      [{"gqa": G, "mlp": G}]),
@@ -121,23 +127,25 @@ def _shapes(arch: str) -> dict:
 @pytest.mark.parametrize("arch", list_archs())
 def test_tp_families_hold_their_blocks(arch, n):
     """Each leaf of a ``tp`` family is held as its block over 'model' on
-    the dimension its product reads (``TP_DIMS``), on the full config."""
+    the dimension its product reads (``TP_DIMS``, in groups where
+    ``TP_GROUPS`` says), on the full config."""
     cfg = get_config(arch)
     mesh = shd.AbstractMesh((1, n), ("data", "model"))
     shapes = _shapes(arch)
-    specs = shd.tree_param_specs(shapes, cfg.strategy, mesh)
+    specs = shd.held_specs(shapes, cfg, mesh)
 
     def check(prefix, family):
         for leaf, dim in shd.TP_DIMS[family].items():
             name = prefix + leaf
-            assert specs[name] == shd.tp_spec(len(shapes[name]), dim), name
+            assert specs[name] == shd.tp_spec(
+                len(shapes[name]), dim, shd.TP_GROUPS.get(leaf, 1)), name
 
     for family, route in shd.tp_split(cfg, None, n).items():
         if route == T:
             check("", family)
     for i, seg in enumerate(cfg.segments):
         prefix = {"gqa": "attn.", "mla": "attn.", "mlp": "mlp.",
-                  "cross": "cross."}
+                  "cross": "cross.", "mamba": "mamba."}
         if seg.kind == "moe":
             prefix["mlp"] = "moe."
         if seg.kind == "vision_group":

@@ -14,7 +14,11 @@ backward pass), AdamW within 1e-6 of the largest entry of each state leaf
 (one bf16 unit in the last place where a leaf is bf16: the same f32 value
 on either side of a rounding boundary), three train steps' losses within
 1e-4.  The JAX ``Trainer`` is not used (ROADMAP Queue 3 b); the port's
-trainer tests mirror ``tests/test_substrate.py``'s.  hubert-xlarge
+trainer tests mirror ``tests/test_substrate.py``'s.  Reduced
+falcon-mamba-7b (the ``ssm`` kind, Mamba layers alone): its loss, every
+gradient leaf (remat none/full/dots) and three steps from a JAX state
+(AdamW's two JAX steps carried over by ``train_state_from_jax``).
+hubert-xlarge
 (frame classification, non-causal) runs at reduced width but its head dim
 80, the one the card trains it at, on frames and labels drawn with numpy
 (neither package's stream draws frames, reference fault h): its gradients
@@ -64,6 +68,9 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.step import batch_to, build_train_step  # noqa: E402
 
 ARCHS = ["hymba-1.5b", "smollm-135m"]
+# the ``ssm`` kind: Mamba layers alone (the oracle's scan is its jnp path,
+# which ``jax.grad`` differentiates; Queue 3 g)
+SSM = "falcon-mamba-7b"
 
 
 @pytest.fixture(autouse=True)
@@ -128,7 +135,7 @@ def _one_device_mesh():
 
 # ------------------------------------------------------------------ loss
 @pytest.mark.parametrize("arch", ARCHS + ["hubert-xlarge", "olmoe-1b-7b",
-                                          "deepseek-v3-671b"])
+                                          "deepseek-v3-671b", SSM])
 def test_model_loss_matches_jax(arch):
     """The loss and its metrics: next-token cross-entropy (hymba, smollm),
     frame classification (hubert, non-causal), the router aux term
@@ -163,7 +170,8 @@ MOE_ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + ["hubert-xlarge"])
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + ["hubert-xlarge",
+                                                     SSM])
 def test_gradients_match_jax(arch, remat):
     """Every gradient leaf against ``jax.grad`` of the JAX loss, with the
     layers recomputed in the backward pass or not; the MoE models through
@@ -291,7 +299,8 @@ def _jax_step(jm, jcfg):
     return jax.jit(step)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["olmoe-1b-7b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ARCHS + ["olmoe-1b-7b", "hubert-xlarge",
+                                          SSM])
 def test_three_steps_from_a_jax_state_track_jax(arch):
     """JAX trains two steps; its state (parameters and AdamW's step,
     master, m, v) crosses over with ``train_state_from_jax``, and both
