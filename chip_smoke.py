@@ -77,24 +77,34 @@ failure propagates and the exit code is nonzero:
    on CUDA, with its time, costs, counters (one find launch and one read
    per find), the queue and active blocks per find and peak device memory;
 6. serve ``hymba-1.5b`` at full width and depth: 4 prompts of 2048
-   tokens, 32 new tokens each, in bf16; prefill seconds, decode ms per
-   token, tokens/s, peak memory, launches per counter (each of the four
-   model kernels must launch) and per attention route (bf16 serving runs
-   ``prefill_tc`` and ``decode_split`` only), and the scan's share of the
-   prefill.  Then prefill and three teacher-forced decode steps (seeded
+   tokens, 32 new tokens each, in bf16, the decode a captured step
+   (``ServeResult.decode == "graph"``: one eager step, the capture, 30
+   replays; ``served_decode``); prefill seconds, decode ms per token,
+   the capture's seconds, tokens/s, peak memory, launches per counter
+   (each of the four model kernels must launch; a replay counts the
+   launches its capture recorded) and per attention route (bf16 serving
+   runs ``prefill_tc`` and ``decode_split`` only), and the scan's share
+   of the prefill.  Then prefill and three teacher-forced decode steps (seeded
    tokens, the same in every run): of the f32 model through the kernels
    (prefill on ``general``, decode on ``decode_split``) and through the
    plain versions (``ops.force("ref")``), within ``F32_LOGIT_TOL`` of the
    largest logit; of the bf16 model through both; and of the bf16 model's
    weights, cast to f32, through the plain versions, from which each bf16
-   path's distance is reported (weight rounding left out);
+   path's distance is reported (weight rounding left out).  (b) The
+   decode profile (``decode_profile``): 6 greedy steps of the bf16 model
+   from one prefill, captured and eager (``GreedyStep(graph=False)``,
+   what the CPU and a mesh run), each from copies of the same caches:
+   ms a step, device busy ms and share, device activities a step, copies
+   host->device (0 captured) and device->host (1) a step; tokens equal,
+   logits bit-equal or within ``F32_LOGIT_TOL``;
 7. serve ``olmoe-1b-7b`` at full width and depth with
    ``placement="replicated"`` (4 prompts of 2048 tokens, 32 new tokens
    each, bf16): the placement's lambda-costs and min-cover launches,
    prefill seconds, decode ms per token, tokens/s, peak memory, launches
    per counter (exactly as expected: three grouped products per MoE layer
    and call, prefill on ``gmm_tc`` and decode on ``gmv``, never
-   ``general``) and one device->host copy per profiled decode step.  Then
+   ``general``), the decode captured as in phase 6, and its decode
+   profile (7b) as 6b's.  Then
    the f32 model: each layer's MoE block on the same input through the
    kernel and the plain version within ``MODEL_TOL`` (the routing is then
    identical, so this isolates the kernel), and prefill plus three
@@ -144,8 +154,10 @@ failure propagates and the exit code is nonzero:
    prefill seconds, decode ms per token, tokens/s, peak memory, launches
    exactly as expected (5 prefill attention calls on ``prefill_tc``, none
    in MLA decode, which is plain PyTorch as in the JAX package; 192
-   grouped products, prefill on ``gmm_tc`` and decode on ``gmv``) and a
-   decode profile.  Then at 1 dense + 1 MoE layer over one prompt (the
+   grouped products, prefill on ``gmm_tc`` and decode on ``gmv``), the
+   decode captured (its head bf16 by bf16 into f32, as the JAX package's:
+   no f32 copy of the 129,280 x 7,168 head a step) and a decode profile
+   (11b) as 6b's.  Then at 1 dense + 1 MoE layer over one prompt (the
    plain attention's f32 scores of four would not fit beside 58.5 GB of
    f32 weights): the bf16 model through both paths (logits kept on the
    host; the two models do not fit together), the f32 model's kernel
@@ -163,7 +175,8 @@ failure propagates and the exit code is nonzero:
    as expected (80 prefill calls on ``prefill_tc``: every sub-layer
    twice, block and cache pass; 1,240 decode calls on ``decode_split``,
    the 248 cross ones unmasked without positions, so counted as
-   ``flash_attention``) and a decode profile.  Then the f32 model (39.1
+   ``flash_attention``), the decode captured, and a decode profile (12b)
+   as 6b's.  Then the f32 model (39.1
    GB, built after the bf16 one is freed) through the kernels and the
    plain versions, prefill and three teacher-forced decode steps of all
    four prompts, within ``F32_LOGIT_TOL``, and the bf16 paths' distances
@@ -405,9 +418,11 @@ failure propagates and the exit code is nonzero:
    shorter than the rest (7 of 296 steps, the last 272; 13 of 160, the
    last 128).  (s) Served at full width and depth through
    ``launch.serve.serve`` (phase 6's prompts: 4 x 2048, 32 new tokens;
-   128 ``mamba_scan`` and 1,984 ``mamba_step`` launches), prefill s,
-   decode ms a token, peak; the bf16 kernel path against the bf16 plain
-   path over the prefill and three teacher-forced decode steps, a share
+   128 ``mamba_scan`` and 1,984 ``mamba_step`` launches), the decode
+   captured, prefill s, decode ms a token, peak, and a decode profile
+   (21sb) as 6b's of a model drawn again; the bf16 kernel path against
+   the bf16 plain path over the prefill and three teacher-forced decode
+   steps, a share
    of the largest logit; the f32 model at ``FM_SERVE_GATE_LAYERS``
    layers, kernels against plain within ``F32_LOGIT_TOL``.  (a) One card:
    ``FM_TRAIN_LAYERS`` of its layers, ``TRAIN_STEPS`` bf16 steps of
@@ -494,6 +509,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1248,45 +1264,70 @@ class ModelShapes:
     """Counts the model kernels' launches of a driven run by (counter,
     shape key, dtype), to time each counter at its commonest shape, and
     the attention and grouped-matmul calls by (counter, route, shape key,
-    dtype) in ``routes``."""
+    dtype) in ``routes``.  A captured decode step's calls are counted once
+    a replay, as ``ops.launches`` counts them: those made while
+    ``GreedyStep.capture`` records go to the step, which adds them at
+    each replay."""
 
     def __init__(self) -> None:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import mamba_scan as ms
         from repro_torch.kernels import moe_gmm as mg
+        from repro_torch.launch.serve import GreedyStep
         self.shapes: Counter = Counter()
         self.routes: Counter = Counter()
+        self._capturing: tuple | None = None
         real_fa, real_ms, real_mg = (fa.flash_attention, ms.mamba_scan,
                                      mg.grouped_matmul)
+        real_capture, real_call = GreedyStep.capture, GreedyStep.__call__
+
+        def counters() -> tuple:
+            return self._capturing or (self.shapes, self.routes)
 
         def attention(q, k, v, *, window=0, q_pos=None, k_pos=None, **kw):
+            shapes, routes = counters()
             plain = window == 0 and q_pos is None and k_pos is None
             counter = "flash_attention" if plain else "attention_masked"
             key, dt = attn_key(q, k, v, window), str(q.dtype)
-            self.shapes[(counter, key, dt)] += 1
+            shapes[(counter, key, dt)] += 1
             B, Sq, H, hd = q.shape
             route = fa.route(q.dtype, B, Sq, k.shape[1], H, k.shape[2], hd,
                              v.shape[3], window,
                              q_pos is not None or k_pos is not None)
-            self.routes[(counter, route, key, dt)] += 1
+            routes[(counter, route, key, dt)] += 1
             return real_fa(q, k, v, window=window, q_pos=q_pos,
                            k_pos=k_pos, **kw)
 
         def scan(u, dt, A, Bc, Cc, D, init_state=None):
-            self.shapes[("mamba_scan" if init_state is None else
-                         "mamba_step", (tuple(u.shape), A.shape[1]),
-                         str(u.dtype))] += 1
+            counters()[0][("mamba_scan" if init_state is None else
+                           "mamba_step", (tuple(u.shape), A.shape[1]),
+                           str(u.dtype))] += 1
             return real_ms(u, dt, A, Bc, Cc, D, init_state=init_state)
 
         def gmm(x, w, capacity, fills=None):
+            shapes, routes = counters()
             key = (w.shape[0], capacity) + tuple(w.shape[1:])
-            self.shapes[("grouped_matmul", key, str(x.dtype))] += 1
+            shapes[("grouped_matmul", key, str(x.dtype))] += 1
             route = mg.route(x.dtype, capacity, *w.shape[1:])
-            self.routes[("grouped_matmul", route, key, str(x.dtype))] += 1
+            routes[("grouped_matmul", route, key, str(x.dtype))] += 1
             return real_mg(x, w, capacity, fills)
+
+        def capture(step) -> None:
+            self._capturing = (Counter(), Counter())
+            try:
+                real_capture(step)
+            finally:
+                step.shape_counts, self._capturing = self._capturing, None
+
+        def call(step) -> None:
+            real_call(step)
+            if step.graph is not None:
+                self.shapes.update(step.shape_counts[0])
+                self.routes.update(step.shape_counts[1])
 
         fa.flash_attention, ms.mamba_scan = attention, scan
         mg.grouped_matmul = gmm
+        GreedyStep.capture, GreedyStep.__call__ = capture, call
 
 
 def commonest(shapes: Counter, counter: str) -> tuple:
@@ -1456,57 +1497,183 @@ def bf16_errors(kern16, plain16, plain32) -> dict:
             "bf16_err_ratio": sig(err_k / err_p), "bf16_gap": sig(gap)}
 
 
-def decode_profile(model, prompts, forced, max_len: int,
-                   tag: str = "6b", images=None) -> dict:
-    """Where a decode step's time goes: after an unprofiled prefill, the
-    ``forced`` decode steps run plain (wall time) and again under
-    ``torch.profiler`` (device activity only): device busy time by kernel
-    name and its share of the wall time, and the copies between host and
-    device per step.  Each step reads its greedy token on the host, as the
-    serve loop does (its one device->host copy)."""
+def clone_tree(tree):
+    """A copy of nested lists and dicts of tensors (a model's caches)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return [clone_tree(v) for v in tree]
+
+
+def served_decode(res, tag: str) -> dict:
+    """A one-card serve run's decode: it must have replayed a captured
+    step (``ServeResult.decode``); its capture seconds."""
+    if res.decode != "graph":
+        raise AssertionError(f"[{tag}] serve decoded {res.decode!r} on one "
+                             f"card, not 'graph'")
+    return {"decode": res.decode, "capture_s": sig(res.capture_s)}
+
+
+def step_activities(prof) -> list:
+    """The device activities (kernels and copies) of each whole decode
+    step in a ``torch.profiler`` window whose steps each end with their
+    token's device->host copy; the window's first step, which tracing may
+    cut short, is left out."""
+    from torch.autograd import DeviceType
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    counts, n = [], 0
+    for e in events:
+        n += 1
+        if e.key.startswith("Memcpy DtoH"):
+            counts.append(n)
+            n = 0
+    return counts[1:]
+
+
+def decode_profile(model, prompts, max_len: int, tag: str = "6b",
+                   images=None, steps: int = 6) -> dict:
+    """Where a decode step's time goes, captured and eager, on one model
+    from one unprofiled prefill: ``steps`` greedy steps of
+    ``launch.serve.GreedyStep`` on copies of the prefill's caches, as
+    ``serve`` runs them on one card (``graph``: one eager step, the
+    capture, then replays) and as it runs them on the CPU and under a mesh
+    (``eager``: the same in-place step).  Each path runs its steps three
+    times from the prefill's state (``GreedyStep.load``, outside the
+    timed runs): once timed on the host's clock, then twice under
+    ``torch.profiler`` (device activity only): a warm-up cycle, whose
+    events are dropped, keeping its logits and tokens, and the window
+    read.
+    Each step reads its token on the host, as the serve loop does (its one
+    device->host copy).  Per path: ms a step, device busy ms a step and
+    its share of the wall time, device activities (kernels and copies) a
+    step -- over the window, and the median over its whole steps
+    (``step_activities``) -- copies host->device and device->host a step.
+    The paths' tokens must be equal, the captured step must make no
+    host->device copy and one device->host read a step, and as many
+    activities a step as the eager one;
+    the logits' max |diff| is reported (bit-equal expected) and must be
+    within ``F32_LOGIT_TOL`` of the largest."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.launch.serve import GreedyStep
     S = prompts.shape[1]
+    out, kept, by_key, per_step = {}, {}, {}, {}
+
+    def run(step, keep=None) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+            tok = step.token.cpu()
+            if keep is not None:
+                keep.append((step.logits.clone(), tok))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     with torch.inference_mode():
-        _, caches0 = model.prefill(prompt_batch(prompts, images), max_len)
-
-        def steps():
-            caches = caches0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(forced.shape[1]):
-                logits, caches = model.decode_step(forced[:, i:i + 1],
-                                                   caches, S + i)
-                logits[:, -1].argmax(dim=-1).cpu()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-
-        steps()
-        wall = steps()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            steps()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e6
-    n = forced.shape[1]
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
-    h2d = sum(e.count for e in kern if e.key.startswith("Memcpy HtoD"))
-    log(f"[{tag}] {n} decode steps: {1e3 * wall / n:.4f} ms/step wall; "
-        f"device busy {1e3 * busy / n:.4f} ms/step = {busy / wall:.4f} of "
-        f"it; launches/step {sum(e.count for e in kern) / n:.1f}; "
-        f"device->host copies/step {d2h / n:.2f}, host->device "
-        f"{h2d / n:.2f}; by kernel (name: count, ms): " + "; ".join(
-            f"{e.key[:50]}: {e.count}, {e.self_device_time_total / 1e3:.3f}"
-            for e in top))
-    if busy == 0:
-        return {"ms_per_step": sig(1e3 * wall / n), "busy": "not measured"}
-    return {"ms_per_step": sig(1e3 * wall / n),
-            "busy_ms_per_step": sig(1e3 * busy / n),
-            "busy_share": sig(busy / wall),
-            "launches_per_step": sig(sum(e.count for e in kern) / n),
-            "d2h_per_step": sig(d2h / n), "h2d_per_step": sig(h2d / n)}
+        logits, caches0 = model.prefill(prompt_batch(prompts, images),
+                                        max_len)
+        tok0 = logits[:, -1].argmax(dim=-1, keepdim=True)
+        for mode in ("graph", "eager"):
+            step = GreedyStep(model, tok0, clone_tree(caches0), S,
+                              graph=mode == "graph")
+            capture_s = None
+            if mode == "graph":
+                step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step.capture()
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+            step.load(tok0, caches0, S)
+            wall = run(step)
+            # a traced window's first launches can go missing while tracing
+            # starts: a warm-up cycle of the same steps (which keeps their
+            # logits and tokens), whose events are dropped, comes before
+            # the window kept
+            kept[mode] = []
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                step.load(tok0, caches0, S)
+                run(step, kept[mode])
+                step.load(tok0, caches0, S)
+                torch.cuda.synchronize()
+                prof.step()
+                run(step)
+                prof.step()
+            del step
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kern) / 1e6
+            acts = sum(e.count for e in kern)
+            per_step[mode] = step_activities(prof)
+            d2h = sum(e.count for e in kern
+                      if e.key.startswith("Memcpy DtoH"))
+            h2d = sum(e.count for e in kern
+                      if e.key.startswith("Memcpy HtoD"))
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+            by_key[mode] = Counter({e.key: e.count for e in kern})
+            log(f"[{tag}] {mode} decode, {steps} steps: "
+                f"{1e3 * wall / steps:.4f} ms/step wall; device busy "
+                f"{1e3 * busy / steps:.4f} ms/step = "
+                f"{busy / wall if wall else 0:.4f} of it; activities/step "
+                f"{acts / steps:.1f}; device->host copies/step "
+                f"{d2h / steps:.2f}, host->device {h2d / steps:.2f}"
+                + ("" if capture_s is None else
+                   f"; capture {capture_s:.4f} s")
+                + "; by kernel (name: count, ms): " + "; ".join(
+                    f"{e.key[:50]}: {e.count}, "
+                    f"{e.self_device_time_total / 1e3:.3f}" for e in top))
+            out[mode] = {"ms_per_step": sig(1e3 * wall / steps)}
+            if busy:
+                out[mode].update(
+                    busy_ms_per_step=sig(1e3 * busy / steps),
+                    busy_share=sig(busy / wall),
+                    launches_per_step=sig(acts / steps),
+                    step_activities=statistics.median(per_step[mode]),
+                    whole_step_activities=per_step[mode],
+                    d2h_per_step=sig(d2h / steps),
+                    h2d_per_step=sig(h2d / steps))
+            else:
+                out[mode]["busy"] = "not measured"
+            if capture_s is not None:
+                out[mode]["capture_s"] = sig(capture_s)
+    lg = {m: torch.cat([x for x, _ in kept[m]], dim=1) for m in kept}
+    tk = {m: torch.cat([t for _, t in kept[m]], dim=1) for m in kept}
+    diff = float((lg["graph"] - lg["eager"]).abs().max())
+    scale = float(lg["eager"].abs().max())
+    out.update(logit_max_diff=sig(diff), logit_scale=sig(scale),
+               bit_equal=bool(torch.equal(lg["graph"], lg["eager"])),
+               tokens_equal=bool(torch.equal(tk["graph"], tk["eager"])),
+               steps=steps)
+    apart = {k: (by_key["graph"][k], by_key["eager"][k])
+             for k in by_key["graph"] | by_key["eager"]
+             if by_key["graph"][k] != by_key["eager"][k]}
+    log(f"[{tag}] captured vs eager: logits max |diff| {diff:.6g} of max "
+        f"|logit| {scale:.6g} (bit-equal: {out['bit_equal']}); tokens "
+        f"equal: {out['tokens_equal']}; device activities whose counts "
+        f"differ (captured, eager): {apart}")
+    g, e = out["graph"], out["eager"]
+    if not out["tokens_equal"] or not diff <= F32_LOGIT_TOL * scale:
+        raise AssertionError(f"[{tag}] the captured step parts from the "
+                             f"eager one: {out}")
+    if "busy" in g or "busy" in e:
+        raise AssertionError(f"[{tag}] the profiler saw no device time: "
+                             f"{out}")
+    # a step's activities: the median over the window's whole steps
+    # (tracing has dropped, or misplaced, some of a window's first events
+    # in either path)
+    if (g["h2d_per_step"] != 0 or g["d2h_per_step"] != 1
+            or g["step_activities"] != e["step_activities"]):
+        raise AssertionError(f"[{tag}] a captured step's copies or "
+                             f"activities: {out}")
+    return out
 
 
 class Recorder:
@@ -2317,6 +2484,7 @@ def deepseek_phase(shapes: "ModelShapes", B: int, S: int, G: int,
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, B, S, G, device="cuda", seed=0)
     peak = torch.cuda.max_memory_allocated()
+    dec = served_decode(res, "11")
     routes = dict(ops.route_launches)
     gmm = dict(ops.gmm_route_launches)
     shapes11, routes11 = Counter(shapes.shapes), Counter(shapes.routes)
@@ -2334,20 +2502,21 @@ def deepseek_phase(shapes: "ModelShapes", B: int, S: int, G: int,
         f"{cfg.n_heads} heads, {cfg.n_experts} experts top-{cfg.top_k} + "
         f"{cfg.n_shared_experts} shared, bf16): {B} prompts x {S} tokens, "
         f"{G} new each; prefill {res.prefill_s:.4f} s, decode "
-        f"{res.ms_per_token:.4f} ms/token, {res.tokens_per_s:.2f} tok/s, "
+        f"{res.ms_per_token:.4f} ms/token ({res.decode}, capture "
+        f"{res.capture_s:.4f} s), {res.tokens_per_s:.2f} tok/s, "
         f"max_memory_allocated {peak} B; launches {launches}; attention "
         f"routes {routes}; grouped-matmul routes {gmm}; sample "
         f"{res.tokens[0][:8].tolist()}")
     served = {"prefill_s": sig(res.prefill_s),
               "ms_per_token": sig(res.ms_per_token),
-              "tok_s": sig(res.tokens_per_s)}
+              "tok_s": sig(res.tokens_per_s), **dec}
     del res
     prompts = torch.from_numpy(make_prompts(cfg, B, S, 0)).cuda()
     forced = torch.from_numpy(make_prompts(cfg, B, 3, 1)).cuda()
     torch.cuda.empty_cache()
     model = make_model(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    profile = decode_profile(model, prompts, forced, S + G, tag="11b")
+    profile = decode_profile(model, prompts, S + G, tag="11b")
     del model
     torch.cuda.empty_cache()
 
@@ -2504,6 +2673,7 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
     with GatedModels(gates):
         res = serve(cfg, B, S, G, device="cuda", seed=0)
     peak = torch.cuda.max_memory_allocated()
+    dec = served_decode(res, "12")
     routes = dict(ops.route_launches)
     gmm = dict(ops.gmm_route_launches)
     shapes12, routes12 = Counter(shapes.shapes), Counter(shapes.routes)
@@ -2528,13 +2698,14 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
         f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
         f"{cfg.hd}, {cfg.n_image_tokens} image tokens, bf16): {B} prompts x "
         f"{S} tokens, {G} new each; prefill {res.prefill_s:.4f} s, decode "
-        f"{res.ms_per_token:.4f} ms/token, {res.tokens_per_s:.2f} tok/s, "
+        f"{res.ms_per_token:.4f} ms/token ({res.decode}, capture "
+        f"{res.capture_s:.4f} s), {res.tokens_per_s:.2f} tok/s, "
         f"max_memory_allocated {peak} B; launches {launches}; attention "
         f"routes {routes}, {cross_decode} of the decode calls unmasked "
         f"(cross); sample {res.tokens[0][:8].tolist()}")
     served = {"prefill_s": sig(res.prefill_s),
               "ms_per_token": sig(res.ms_per_token),
-              "tok_s": sig(res.tokens_per_s)}
+              "tok_s": sig(res.tokens_per_s), **dec}
     del res
     batch = draw_batch(cfg, np.random.default_rng(0), B, S)  # serve's draw
     prompts = torch.from_numpy(batch["tokens"]).cuda()
@@ -2546,7 +2717,7 @@ def vision_phase(shapes: "ModelShapes", B: int, S: int, G: int) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != VISION_PARAMS:
         raise AssertionError(f"{n_params} parameters, not {VISION_PARAMS}")
-    profile = decode_profile(model, prompts, forced, S + G, tag="12b",
+    profile = decode_profile(model, prompts, S + G, tag="12b",
                              images=images)
     kern16 = logits_through(model, prompts, forced, "cuda", S + G,
                             images).cpu()
@@ -5274,6 +5445,7 @@ def falcon_serve(B: int, S: int, G: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, B, S, G, device="cuda", seed=0)
     peak = torch.cuda.max_memory_allocated()
+    dec = served_decode(res, "21s")
     launches = {c: res.launches[c] for c in MODEL_COUNTERS}
     want = expected_serve_launches(cfg, G)
     if launches != want:
@@ -5289,6 +5461,10 @@ def falcon_serve(B: int, S: int, G: int) -> dict:
     weight_B = res.weight_bytes
     prompts = torch.from_numpy(make_prompts(cfg, B, S, 0)).cuda()
     forced = torch.from_numpy(make_prompts(cfg, B, 3, 1)).cuda()
+    model = make_model(cfg, device="cuda", seed=0)
+    profile = decode_profile(model, prompts, S + G, tag="21sb")
+    del model
+    torch.cuda.empty_cache()
     cut = falcon_config(FM_SERVE_GATE_LAYERS)
     model32 = make_model(cut.with_(dtype="float32"), device="cuda", seed=0)
     kern32 = logits_through(model32, prompts, forced, "cuda", S + G)
@@ -5314,14 +5490,16 @@ def falcon_serve(B: int, S: int, G: int) -> dict:
     errs = bf16_errors(kern16, plain16, ref32)
     out = {"prefill_s": sig(res.prefill_s),
            "ms_per_token": sig(res.ms_per_token),
-           "tok_s": sig(res.tokens_per_s), "peak_B": peak,
+           "tok_s": sig(res.tokens_per_s), "peak_B": peak, **dec,
+           "profile": profile,
            "weight_B": weight_B, "launches": launches, **errs,
            "same_draw": same_draw, "f32_gap": sig(gap32 / scale32),
            "gate_layers": FM_SERVE_GATE_LAYERS}
     log(f"[21s] serve {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, d_inner {cfg.d_inner}, {weight_B} B of bf16 "
         f"weights): {B} prompts x {S} tokens, {G} new each; prefill "
-        f"{res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} ms/token, "
+        f"{res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} ms/token "
+        f"({res.decode}, capture {res.capture_s:.4f} s), "
         f"{res.tokens_per_s:.2f} tok/s, max_memory_allocated {peak} B; "
         f"launches {launches}; sample {res.tokens[0][:8].tolist()}")
     log(f"[21s] at {FM_SERVE_GATE_LAYERS} layers, prefill + 3 decode "
@@ -5847,6 +6025,7 @@ def phases(dry_pool) -> int:
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, B6, S6, G6, device="cuda", seed=0)
     peak6 = torch.cuda.max_memory_allocated()
+    dec6 = served_decode(res, "6")
     r6 = dict(ops.route_launches)
     if any(ops.gmm_route_launches.values()):
         raise AssertionError(f"hymba ran grouped products: "
@@ -5866,7 +6045,8 @@ def phases(dry_pool) -> int:
     log(f"[6] serve {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, bf16): {B6} prompts x {S6} tokens, {G6} new each; "
         f"prefill {res.prefill_s:.4f} s, decode {res.ms_per_token:.4f} "
-        f"ms/token, {res.tokens_per_s:.2f} tok/s, max_memory_allocated "
+        f"ms/token ({res.decode}, capture {res.capture_s:.4f} s), "
+        f"{res.tokens_per_s:.2f} tok/s, max_memory_allocated "
         f"{peak6} B; launches {l6}; attention routes {r6}; sample "
         f"{res.tokens[0][:8].tolist()}")
     # the scan's share of the prefill: its launches at phase 2's device time
@@ -5901,7 +6081,7 @@ def phases(dry_pool) -> int:
     torch.cuda.empty_cache()
     kern16 = logits_through(model, prompts6, forced, "cuda", S6 + G6)
     plain16 = logits_through(model, prompts6, forced, "ref", S6 + G6)
-    summary["p6b"] = decode_profile(model, prompts6, forced, S6 + G6)
+    summary["p6b"] = decode_profile(model, prompts6, S6 + G6)
     del model
     torch.cuda.empty_cache()
     for name, kern in (("float32", kern32), ("bfloat16", kern16)):
@@ -5927,7 +6107,7 @@ def phases(dry_pool) -> int:
     summary["p6"] = {
         "prefill_s": sig(res.prefill_s), "ms_per_token": sig(
             res.ms_per_token), "tok_s": sig(res.tokens_per_s),
-        "peak_B": peak6, "launches": l6, "routes": r6,
+        "peak_B": peak6, "launches": l6, "routes": r6, **dec6,
         "f32_routes": r6_f32, "f32_gap": sig(gap32 / scale32), **errs6,
         "same_draw": same_draw, "scan_prefill_ms": sig(scan_ms)}
 
@@ -5943,6 +6123,7 @@ def phases(dry_pool) -> int:
     res7 = serve(cfg7, B7, S7, G7, device="cuda", seed=0,
                  placement="replicated")
     peak7 = torch.cuda.max_memory_allocated()
+    dec7 = served_decode(res7, "7")
     r7 = dict(ops.route_launches)
     g7 = dict(ops.gmm_route_launches)
     shapes7, routes7 = Counter(shapes.shapes), Counter(shapes.routes)
@@ -5966,7 +6147,8 @@ def phases(dry_pool) -> int:
     log(f"[7] serve {cfg7.name} ({cfg7.n_layers} layers, d_model "
         f"{cfg7.d_model}, {cfg7.n_experts} experts top-{cfg7.top_k}, bf16): "
         f"{B7} prompts x {S7} tokens, {G7} new each; prefill "
-        f"{res7.prefill_s:.4f} s, decode {res7.ms_per_token:.4f} ms/token, "
+        f"{res7.prefill_s:.4f} s, decode {res7.ms_per_token:.4f} ms/token "
+        f"({res7.decode}, capture {res7.capture_s:.4f} s), "
         f"{res7.tokens_per_s:.2f} tok/s, max_memory_allocated {peak7} B; "
         f"launches {l7}; attention routes {r7}; grouped-matmul routes "
         f"{g7}; sample {res7.tokens[0][:8].tolist()}")
@@ -6005,11 +6187,7 @@ def phases(dry_pool) -> int:
     ref32 = logits_through(model32, prompts7, forced7, "ref", S7 + G7)
     del model32
     torch.cuda.empty_cache()
-    summary["p7b"] = decode_profile(model, prompts7, forced7, S7 + G7,
-                                    tag="7b")
-    if summary["p7b"].get("d2h_per_step") != 1:
-        raise AssertionError(f"decode is not one device->host copy a step: "
-                             f"{summary['p7b']}")
+    summary["p7b"] = decode_profile(model, prompts7, S7 + G7, tag="7b")
     kern16 = logits_through(model, prompts7, forced7, "cuda", S7 + G7)
     plain16 = logits_through(model, prompts7, forced7, "ref", S7 + G7)
     del model
@@ -6051,6 +6229,7 @@ def phases(dry_pool) -> int:
         "prefill_s": sig(res7.prefill_s), "ms_per_token": sig(
             res7.ms_per_token), "tok_s": sig(res7.tokens_per_s),
         "peak_B": peak7, "launches": l7, "routes": r7, "gmm_routes": g7,
+        **dec7,
         "f32_gmm_routes": g7_f32, "f32_routes": r7_f32,
         "lam_cost": [pl["lambda_cost_no_repl"], pl["lambda_cost_repl"]],
         "plan_launches": pl["launches"]["min_cover_lambdas"],

@@ -8,8 +8,12 @@ to the plain version.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with ``reset_launches`` and reads them afterwards to show
-which kernels its path went through.  ``front_find`` counts the device
-pass's finds (``front_find.cu``, the queued applies folded in) and
+which kernels its path went through.  A CUDA graph's replay runs no
+wrapper: whoever replays one books the launches its capture counted, once
+a replay (``launch_counts``, ``launch_delta``, ``set_launch_counts``,
+``add_launch_counts``; ``launch.serve.GreedyStep`` does).
+``front_find`` counts the device pass's finds (``front_find.cu``, the
+queued applies folded in) and
 ``front_apply`` that kernel's launches that only apply the queue
 (``DevicePartitionPass.flush``, off the partitioning path);
 ``min_cover_lambdas`` the min-cover kernel's, which price a front.  A
@@ -123,11 +127,39 @@ def reset_meta_cost() -> None:
     meta_cost.update(flops=0.0, bytes=0.0)
 
 
+# every launch counter: ``launches`` and the route tables
+_COUNTERS = (launches, route_launches, gmm_route_launches,
+             bwd_route_launches)
+
+
 def reset_launches() -> None:
-    for counts in (launches, route_launches, gmm_route_launches,
-                   bwd_route_launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+
+
+def launch_counts() -> tuple:
+    """A copy of every launch counter, in ``_COUNTERS``' order."""
+    return tuple(dict(counts) for counts in _COUNTERS)
+
+
+def launch_delta(before: tuple) -> tuple:
+    """The launches counted since ``before`` (a ``launch_counts``)."""
+    return tuple({name: counts[name] - was[name] for name in counts}
+                 for counts, was in zip(_COUNTERS, before))
+
+
+def set_launch_counts(counts: tuple) -> None:
+    """Set every launch counter to ``counts`` (a ``launch_counts``)."""
+    for mine, saved in zip(_COUNTERS, counts):
+        mine.update(saved)
+
+
+def add_launch_counts(delta: tuple, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a ``launch_delta``) to the counters."""
+    for mine, more in zip(_COUNTERS, delta):
+        for name, n in more.items():
+            mine[name] += times * n
 
 
 def needs_grad(*tensors) -> bool:

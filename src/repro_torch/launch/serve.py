@@ -13,14 +13,26 @@ vision model (``llama-3.2-vision-11b``) also gets the launcher's stub
 image embeddings, drawn from the same generator right after the prompts
 (``draw_batch``).
 ``serve`` runs the loop -- one ``prefill``, then ``G - 1`` greedy
-``decode_step``s, one host read per token -- and returns the tokens, the
+decode steps, one host read per token -- and returns the tokens, the
 timings and the kernel launch counts of the run.
+
+A decode step is ``GreedyStep``: the embedding of a static token buffer,
+every layer (the caches written in place), the head, the argmax into the
+same buffer and ``pos += 1``, all on the device -- the JAX launcher's
+jitted ``decode_step`` with its traced ``pos``.  On one card (CUDA, no
+mesh) the first step runs eagerly, then one step is captured in a
+``torch.cuda.CUDAGraph`` and replayed for the other ``G - 2``
+(``ServeResult.decode == "graph"``); on the CPU and under a mesh (gloo's
+collectives go through the host) every step runs eagerly (``"eager"``).
+A capture that fails raises.
 
 Under a mesh (``--mesh DxM``: D data ranks by M model ranks, spawned one
 process each; or ``serve`` under ``parallel.sharding.use_mesh``) each data
 rank serves its rows of the requests, the model axis holds the experts
 (``n_shards`` = M): the model gathers its dense leaves once and keeps its
-slot weights (``Model.gather_dense_``, ``place_slots_``).
+slot weights (``Model.gather_dense_``, ``place_slots_``).  On one device
+the plan's slot weights are placed once too (for the round robin they
+are the experts' own tensors).
 
 For an MoE model the placement flags plan where the experts go, as the
 JAX launcher does: ``--replicated-placement`` profiles the router on the
@@ -64,6 +76,8 @@ class ServeResult:
     a2a_bytes: dict | None = None  # one prefill MoE layer's, this rank's
     weight_bytes: int = 0        # the model's parameters as served
     prefill_logits: np.ndarray | None = None   # (B, 1, V) f32
+    decode: str = "eager"        # "graph": replays of a captured step
+    capture_s: float = 0.0       # the capture, not in decode_s
 
     @property
     def ms_per_token(self) -> float:
@@ -163,6 +177,89 @@ def _online_placement(model: Model, rng: np.random.Generator, B: int,
             "migration_bytes": ctrl.total_migration_bytes}
 
 
+class GreedyStep:
+    """One greedy decode step of ``model`` over static state: ``token``
+    (B, 1) int64, ``caches`` (written in place) and ``pos``, a 0-d int32
+    tensor on the device.  A step embeds ``token``, runs every layer and
+    the serving head (``logits``, (B, 1, V) f32), writes the argmax into
+    ``token`` and adds one to ``pos``, all on the device; the caller reads
+    ``token`` after it.
+
+    Called, it runs the step: eagerly, or once ``capture`` has recorded
+    it, as a replay of that ``torch.cuda.CUDAGraph`` (no host work but the
+    launch).  With ``graph`` the eager steps run on the stream the capture
+    uses, so that every lazy set-up (libraries, workspaces, the caches of
+    plan tables) is done before it.  The launches counted while capturing
+    are taken back and booked once a replay.  A capture that fails
+    raises: nothing falls back to eager steps."""
+
+    def __init__(self, model: Model, token: torch.Tensor, caches: list,
+                 pos: int, graph: bool = False):
+        dev = token.device
+        if graph and dev.type != "cuda":
+            raise ValueError(f"a captured step runs on CUDA, not {dev}")
+        self.model, self.caches = model, caches
+        self.token = token.to(torch.int64).clone()
+        self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
+        self.logits: torch.Tensor | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._replay_launches = None
+        self._stream = torch.cuda.Stream(dev) if graph else None
+
+    def _step(self) -> None:
+        logits, _ = self.model.decode_step(self.token, self.caches, self.pos)
+        self.token.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
+        self.pos.add_(1)
+        self.logits = logits
+
+    def __call__(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            ops.add_launch_counts(self._replay_launches)
+        elif self._stream is None:
+            self._step()
+        else:
+            here = torch.cuda.current_stream(self.token.device)
+            self._stream.wait_stream(here)
+            with torch.cuda.stream(self._stream):
+                self._step()
+            here.wait_stream(self._stream)
+
+    def capture(self) -> None:
+        """Record one step (it does not run) for the later calls."""
+        if self._stream is None:
+            raise RuntimeError("GreedyStep(graph=True) captures")
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._step()
+        self._replay_launches = ops.launch_delta(before)
+        ops.set_launch_counts(before)
+        self.graph = graph
+
+    def load(self, token: torch.Tensor, caches: list, pos: int) -> None:
+        """Set the state to copies of ``token``, ``caches`` (of the same
+        layout) and ``pos``, in place: a captured step keeps its
+        buffers."""
+        self.token.copy_(token)
+        for mine, theirs in zip(_tensors(self.caches), _tensors(caches),
+                                strict=True):
+            mine.copy_(theirs)
+        self.pos.fill_(pos)
+
+
+def _tensors(tree):
+    """The tensors of nested lists and dicts, dicts in key order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for name in sorted(tree):
+            yield from _tensors(tree[name])
+    else:
+        for item in tree:
+            yield from _tensors(item)
+
+
 def _local_rows(t: torch.Tensor) -> torch.Tensor:
     """This rank's rows of a global batch (over the mesh's batch axes)."""
     mesh = shd.active_mesh()
@@ -213,35 +310,45 @@ def serve(cfg: ModelConfig, B: int, S: int, G: int, *,
     if plan is not None and capacity_factor is not None:
         plan = dataclasses.replace(plan, capacity_factor=capacity_factor)
     a2a = None
-    if mesh is not None and plan is not None:
+    if plan is not None:
+        # the slot weights, gathered once (the identity's are the experts')
         model.place_slots_(plan)
+    if mesh is not None and plan is not None:
         B_loc = B // int(np.prod([shd.axis_size(a)
                                   for a in shd.batch_axes()]))
         a2a = a2a_bytes(plan, B_loc * S // plan.n_shards, cfg.top_k,
                         cfg.d_model, model.dtype.itemsize)
-    elif plan is not None:
-        model.plan = plan
     batch = {name: _local_rows(t) for name, t in batch.items()}
+    graph = dev.type == "cuda" and mesh is None
     ops.reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
     logits, caches = model.prefill(batch, max_len=S + G)
-    first = logits
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     out = [tok.cpu()]
     t1 = time.perf_counter()
-    for i in range(G - 1):
-        logits, caches = model.decode_step(tok, caches, S + i)
-        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
-        out.append(tok.cpu())
+    capture_s = 0.0
+    if G > 1:
+        step = GreedyStep(model, tok, caches, S, graph=graph)
+        step()
+        out.append(step.token.to("cpu", copy=True))
+        if graph:
+            tc = time.perf_counter()
+            step.capture()
+            capture_s = time.perf_counter() - tc
+        for _ in range(G - 2):
+            step()
+            out.append(step.token.to("cpu", copy=True))
     t2 = time.perf_counter()
     return ServeResult(tokens=torch.cat(out, dim=1).numpy(),
-                       prefill_s=t1 - t0, decode_s=t2 - t1,
+                       prefill_s=t1 - t0, decode_s=t2 - t1 - capture_s,
                        launches=dict(ops.launches), placement=report,
                        a2a_bytes=a2a, weight_bytes=sum(
                            p.numel() * p.element_size()
                            for p in model.parameters()),
-                       prefill_logits=first.float().cpu().numpy())
+                       prefill_logits=logits.float().cpu().numpy(),
+                       decode="graph" if graph else "eager",
+                       capture_s=capture_s)
 
 
 def _serve_rank(rank: int, mesh_shape: tuple, device: str, cfg, B, S, G,
@@ -312,7 +419,8 @@ def main(argv: list[str] | None = None) -> ServeResult:
                           if ep["committed"] else "kept placement"))
     print(f"[serve] {B} requests, prompt {S}, generated {G} tokens each "
           f"on {args.device}: prefill {res.prefill_s:.3f}s, decode "
-          f"{res.ms_per_token:.2f} ms/token ({res.tokens_per_s:.1f} tok/s)")
+          f"{res.ms_per_token:.2f} ms/token ({res.tokens_per_s:.1f} tok/s; "
+          f"{res.decode} decode, capture {res.capture_s:.3f}s)")
     if res.a2a_bytes is not None:
         print(f"[serve] all_to_all bytes a prefill MoE layer, rank 0: "
               f"{res.a2a_bytes}")

@@ -7,8 +7,18 @@ with its numerics: norms and rotary embeddings in f32, cast back to the
 working dtype at the same places.  Prefill attention and the scan go through
 ``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain versions for
 CPU ones); MLA's decode step is plain PyTorch, as the JAX package's is jnp
-outside its attention op.  Caches are functional: each call returns new
-tensors and leaves the old ones as they were.
+outside its attention op.
+
+Decode writes its caches in place, as XLA does the JAX package's
+``dynamic_update_slice`` under ``jit``: a step's position comes from the
+device (``StepPos``), never from a Python int that would reach a kernel's
+arguments or a shape, so one step can be captured in a CUDA graph and
+replayed (``launch.serve.GreedyStep``).  A linear cache holds position i
+at row i.  A sliding window's cache is a ring of W rows holding position
+p at row p mod W; its keys' positions are those of the JAX package's
+shifted window, ``pos - W + 1 + j``, negative for the rows a short
+prompt left zero, so the attention sees the same keys at the same
+positions (visited in ring order: f32 sums may differ in the last bits).
 
 Tensor parallelism (``parallel.sharding.tp_split``): the attention layers
 and ``swiglu`` take their head and channel counts from the weights they
@@ -151,9 +161,11 @@ def gqa_init_cache(cfg: ModelConfig, seg: Segment, B: int, max_len: int,
 
 def gqa_prefill_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
                       seg: Segment, max_len: int) -> dict:
-    """The decode cache of a prefilled sequence: a ring of the last W keys
-    (left-padded with zeros while shorter) for a sliding window, else a
-    linear cache where position i lives at index i."""
+    """The decode cache of a prefilled sequence: for a sliding window the
+    ring of the last W keys, position p at row p mod W (the JAX package's
+    shifted window -- the last W, left-padded with zeros while shorter --
+    rolled by S mod W), else a linear cache where position i lives at
+    index i."""
     B, S, _ = x.shape
     _, k, v = gqa_project(p, x, cfg)
     k = rope(k, _positions(B, S, x.device), cfg.rope_theta)
@@ -161,37 +173,86 @@ def gqa_prefill_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
         W = min(seg.sliding_window, max_len)
 
         def fit(t):
-            return (t[:, -W:] if S >= W
-                    else F.pad(t, (0, 0, 0, 0, W - S, 0)))
+            t = (t[:, -W:] if S >= W
+                 else F.pad(t, (0, 0, 0, 0, W - S, 0)))
+            return torch.roll(t, S % W, dims=1)
     else:
         def fit(t):
             return F.pad(t, (0, 0, 0, 0, 0, max_len - S))
     return {"k": fit(k).contiguous(), "v": fit(v).contiguous()}
 
 
+class StepPos:
+    """The position of a decode step's new token, on the device -- the JAX
+    package's traced ``pos`` -- and what the layers derive from it, each
+    made once a step: ``at`` (B, 1) int32, rope's and the attention's
+    query positions; ``index`` (1,) int64, the row a linear cache writes;
+    ``keys(L)``, a linear cache's key positions, and ``ring(W)``, a
+    window's row and key positions.  ``pos``: a 0-d (or (1,)) int32
+    tensor on ``device``, which is read in place (a captured step that
+    adds one to it moves every later replay on), or a Python int, filled
+    in on the device (no upload)."""
+
+    def __init__(self, pos, B: int, device):
+        if isinstance(pos, torch.Tensor):
+            value = pos.reshape(1).to(device=device, dtype=torch.int32)
+        else:
+            value = torch.full((1,), int(pos), dtype=torch.int32,
+                               device=device)
+        self.value = value                             # (1,) int32
+        self.at = value.expand(B, 1).contiguous()
+        self.index = value.long()
+        self._B, self._device = B, device
+        self._keys: dict = {}
+        self._rings: dict = {}
+
+    def keys(self, L: int) -> torch.Tensor:
+        """(B, L) int32 ``0 .. L - 1``: a linear cache's key positions."""
+        if L not in self._keys:
+            self._keys[L] = torch.arange(
+                L, dtype=torch.int32, device=self._device).expand(
+                    self._B, L).contiguous()
+        return self._keys[L]
+
+    def ring(self, W: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """A ring of W rows: the row the new token writes, (1,) int64
+        ``pos mod W``, and the (B, W) int32 key positions, row r holding
+        ``pos - ((pos - r) mod W)``: the JAX package's window ``pos - W +
+        1 .. pos``, negative for rows no token has written."""
+        if W not in self._rings:
+            rows = torch.arange(W, dtype=torch.int32, device=self._device)
+            k_pos = self.value - torch.remainder(self.value - rows, W)
+            self._rings[W] = (torch.remainder(self.index, W),
+                              k_pos.expand(self._B, W).contiguous())
+        return self._rings[W]
+
+
+def step_pos(pos, B: int, device) -> StepPos:
+    """``pos`` as a ``StepPos`` (one given is returned as it is)."""
+    return pos if isinstance(pos, StepPos) else StepPos(pos, B, device)
+
+
 def gqa_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                         seg: Segment, cache: dict, pos: int):
-    """x: (B, 1, D); ``pos`` (a Python int, never read from the device):
-    the index of the new token."""
+                         seg: Segment, cache: dict, pos):
+    """x: (B, 1, D); ``pos`` the new token's position (``StepPos``, or
+    what it takes).  Writes the new key and value into ``cache`` in place
+    -- a linear cache at row ``pos``, a window's ring at ``pos mod W`` --
+    and attends over the whole cache; returns (output, ``cache``)."""
     B = x.shape[0]
+    pos = step_pos(pos, B, x.device)
     q, k_new, v_new = gqa_project(p, x, cfg)
-    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = rope(q, pos_b, cfg.rope_theta)
-    k_new = rope(k_new, pos_b, cfg.rope_theta)
+    q = rope(q, pos.at, cfg.rope_theta)
+    k_new = rope(k_new, pos.at, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
     if seg.sliding_window:
-        W = cache["k"].shape[1]
-        k = torch.cat([cache["k"][:, 1:], k_new], dim=1)
-        v = torch.cat([cache["v"][:, 1:], v_new], dim=1)
-        k_pos = torch.arange(pos - W + 1, pos + 1, dtype=torch.int32,
-                             device=x.device)
+        row, k_pos = pos.ring(k.shape[1])
     else:
-        k = cache["k"].slice_scatter(k_new, dim=1, start=pos, end=pos + 1)
-        v = cache["v"].slice_scatter(v_new, dim=1, start=pos, end=pos + 1)
-        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-    k_pos = k_pos.expand(B, -1).contiguous()
-    out = ops.attention(q, k, v, causal=True, window=0, q_pos=pos_b,
+        row, k_pos = pos.index, pos.keys(k.shape[1])
+    k.index_copy_(1, row, k_new)
+    v.index_copy_(1, row, v_new)
+    out = ops.attention(q, k, v, causal=True, window=0, q_pos=pos.at,
                         k_pos=k_pos)
-    return _attend_out(p, out, cfg), {"k": k, "v": v}
+    return _attend_out(p, out, cfg), cache
 
 
 # ---------------------------------------------------------------------- MLA
@@ -270,25 +331,28 @@ def mla_prefill_cache(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mla_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                         cache: dict, pos: int, absorb: bool = True):
-    """x: (B, 1, D); ``pos`` (a Python int): the index of the new token.
-    The cache is written out of place, as ``gqa_attention_decode`` does.
-    Scores are f32 (bf16 products, f32 sums), the softmax weights go back
-    to x's dtype before the value product.  ``absorb`` folds the key
-    up-projection into the query and attends in the latent space; else
-    every cached latent is expanded to full keys and values."""
+                         cache: dict, pos, absorb: bool = True):
+    """x: (B, 1, D); ``pos`` the new token's position (``StepPos``, or
+    what it takes).  Writes the latent and the rope key into ``cache`` in
+    place at row ``pos``, as ``gqa_attention_decode`` does; returns
+    (output, ``cache``).  Scores are f32 (bf16 products, f32 sums), the
+    softmax weights go back to x's dtype before the value product.
+    ``absorb`` folds the key up-projection into the query and attends in
+    the latent space; else every cached latent is expanded to full keys
+    and values."""
     B = x.shape[0]
     _, kvr, nope, rp, vh = _mla_dims(cfg)
     H = cfg.n_heads
+    pos = step_pos(pos, B, x.device)
     q_nope, q_rope = mla_project_q(p, x, cfg)                  # (B, 1, H, *)
-    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_rope = rope(q_rope, pos_b, cfg.rope_theta)
+    q_rope = rope(q_rope, pos.at, cfg.rope_theta)
     ckv_new, kr_new = mla_latent(p, x, cfg)
-    kr_new = rope(kr_new[:, :, None, :], pos_b, cfg.rope_theta)[:, :, 0, :]
-    ckv = cache["ckv"].slice_scatter(ckv_new, dim=1, start=pos, end=pos + 1)
-    kr = cache["kr"].slice_scatter(kr_new, dim=1, start=pos, end=pos + 1)
+    kr_new = rope(kr_new[:, :, None, :], pos.at, cfg.rope_theta)[:, :, 0, :]
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv.index_copy_(1, pos.index, ckv_new)
+    kr.index_copy_(1, pos.index, kr_new)
     Sk = ckv.shape[1]
-    live = torch.arange(Sk, device=x.device) <= pos
+    live = torch.arange(Sk, device=x.device) <= pos.value
     scale = (nope + rp) ** -0.5
     wkv_b = p["wkv_b"].reshape(kvr, H, nope + vh)
     w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
@@ -310,7 +374,7 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
         pattn = torch.softmax(s, dim=-1).to(x.dtype)
         out = torch.einsum("bhqs,bshv->bqhv", pattn, kv[..., nope:])
     out = out.reshape(B, 1, H * vh)
-    return out @ p["mla_wo"], {"ckv": ckv, "kr": kr}
+    return out @ p["mla_wo"], cache
 
 
 # ---------------------------------------------------------------- cross-attn
@@ -356,7 +420,8 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 state: dict | None = None, tp: str | None = None,
                 scatter: bool = False):
     """Mamba-1 mixer.  x: (B, S, D).  state: {'conv': (B, d_conv-1, di),
-    'ssm': (B, di, N)} for stepwise decode (S == 1).
+    'ssm': (B, di, N)} for stepwise decode (S == 1), written in place
+    with the new state and returned; without it a new state is returned.
 
     Under ``tp`` (the mesh axis, 'model') the leaves are this rank's
     blocks of di / n channels (``parallel.sharding.held_specs``):
@@ -406,6 +471,10 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                              init_state=init)
     y = y * F.silu(z)
     out = _reduce(y @ p["out_proj"], tp, scatter)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(last)
+        return out, state
     new_conv = None if new_conv is None else new_conv.contiguous()
     return out, {"conv": new_conv, "ssm": last}
 

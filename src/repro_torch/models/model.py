@@ -26,7 +26,12 @@ rope head dim) for MLA, and ``mamba`` = {``conv``: (B, d_conv-1, di),
 ``self``: one linear ``k``/``v`` cache per sub-layer}.  The image
 embeddings (``batch["image_embeds"]``, (B, N, D), cast to the model dtype)
 enter ``forward`` and ``prefill``; decode reads their cached keys and
-values.
+values.  A sliding window's ``k``/``v`` is a ring (``models.layers``).
+``decode_step`` writes the caches in place, at a position held on the
+device, so that one step can be captured in a CUDA graph and replayed
+(``launch.serve.GreedyStep``); its head, and prefill's, multiply as the
+JAX package's does, bf16 by bf16 into f32 on the card (``logits_fn``'s
+``serve``).
 
 The multi-token prediction module (``mtp``, one entry per depth: ``proj``,
 ``ln`` and a one-layer dense ``block`` with the last segment's attention)
@@ -675,10 +680,17 @@ class Model(nn.Module):
                              "batch['image_embeds'], (B, N, d_model)")
         return None if img is None else img.to(self.dtype)
 
-    def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
+    def logits_fn(self, x: torch.Tensor, serve: bool = False
+                  ) -> torch.Tensor:
         """Final norm and head, accumulated in f32 (B, S, V); where the
         head runs tensor-parallel, this rank's slice of the vocabulary
-        (B, S, V / ranks), which ``_xent`` takes with its ``tp``."""
+        (B, S, V / ranks), which ``_xent`` takes with its ``tp``.  The
+        product is f32 by f32; with ``serve`` (prefill's last token and
+        the decode step) off the CPU, a bf16 or f16 model multiplies its
+        own dtypes into f32 (``torch.mm``'s ``out_dtype``), as the JAX
+        package's ``preferred_element_type`` does, with no f32 copy of
+        the head: products of bf16 values are exact in f32, so only the
+        order of the sums differs."""
         x = L.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
         tie = self.cfg.tie_embeddings
         if self._tp(None, "head") is None:
@@ -686,6 +698,10 @@ class Model(nn.Module):
         else:
             head = (self._vocab_rows("embed").T if tie
                     else self._vocab_rows("lm_head"))
+        if serve and x.device.type != "cpu" and x.dtype != torch.float32:
+            B, S, D = x.shape
+            return torch.mm(x.reshape(B * S, D), head,
+                            out_dtype=torch.float32).reshape(B, S, -1)
         return x.float() @ head.float()
 
     def forward(self, batch: dict, mode: str = "a2a"
@@ -845,7 +861,8 @@ class Model(nn.Module):
 
     def prefill(self, batch: dict, max_len: int):
         """Run the full prompt; return (last-token logits (B, 1, V) f32,
-        caches).  As in the JAX package, each layer's cache is built by a
+        from the serving head, ``logits_fn``'s ``serve``; caches).  As in
+        the JAX package, each layer's cache is built by a
         second pass over its input (``_prefill_layer_cache``), so the SSM
         mixer runs twice per layer and a vision group's every sub-layer
         twice."""
@@ -861,7 +878,7 @@ class Model(nn.Module):
                                                             max_len, img))
                 x = y
             caches.append(seg_caches)
-        return self.logits_fn(x[:, -1:]), caches
+        return self.logits_fn(x[:, -1:], serve=True), caches
 
     def _prefill_layer_cache(self, lp, x_in: torch.Tensor, seg: Segment,
                              max_len: int,
@@ -889,26 +906,29 @@ class Model(nn.Module):
             c["mamba"] = L.mamba_mixer(lp["mamba"], h, cfg)[1]
         return c
 
-    def decode_step(self, token: torch.Tensor, caches: list, pos: int):
-        """One token (B, 1) for the whole batch at position ``pos`` (a
-        Python int); returns (logits (B, 1, V) f32, new caches)."""
+    def decode_step(self, token: torch.Tensor, caches: list, pos):
+        """One token (B, 1) for the whole batch at position ``pos``: a 0-d
+        int32 tensor on the model's device, the JAX package's traced
+        ``pos`` (``launch.serve.GreedyStep`` holds one and adds one to it
+        on the device), or a Python int.  Writes every layer's cache in
+        ``caches`` (this model's, from ``prefill`` or ``init_cache``) in
+        place; returns (logits (B, 1, V) f32 from the serving head,
+        ``caches``: the same list)."""
         self._whole_leaves()
         if self.cfg.frame_input:
             x = token.to(self.dtype)
         else:
             x = F.embedding(token, self._w("embed"))
-        new_caches = []
+        pos = L.StepPos(pos, token.shape[0], x.device)
         for seg, layers, seg_cache in zip(self.cfg.segments, self.segments,
                                           caches):
-            nc = []
             for lp, c in zip(layers, seg_cache):
-                x, c = self._decode_block(lp, x, seg, c, pos)
-                nc.append(c)
-            new_caches.append(nc)
-        return self.logits_fn(x), new_caches
+                x = self._decode_block(lp, x, seg, c, pos)
+        return self.logits_fn(x, serve=True), caches
 
     def _decode_block(self, lp, x: torch.Tensor, seg: Segment, cache: dict,
-                      pos: int):
+                      pos: "L.StepPos") -> torch.Tensor:
+        """One layer's decode step, its cache written in place."""
         cfg = self.cfg
         if seg.kind == "vision_group":
             # the cross query against the cached image keys and values,
@@ -916,34 +936,27 @@ class Model(nn.Module):
             cc = cache["cross"]
             x = self._cross_block(lp["cross"], x, seg,
                                   kv=(cc["ck"], cc["cv"]))
-            sub, self_caches = _self_segment(seg), []
+            sub = _self_segment(seg)
             for sp, c in zip(lp["self"], cache["self"]):
-                x, c = self._decode_block(sp, x, sub, c, pos)
-                self_caches.append(c)
-            return x, {"cross": cache["cross"], "self": self_caches}
+                x = self._decode_block(sp, x, sub, c, pos)
+            return x
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if seg.kind == "mamba":
-            y, st = L.mamba_mixer(lp["mamba"], h, cfg, state=cache["mamba"])
-            return x + y, {"mamba": st}
-        new_cache = dict(cache)
+            return x + L.mamba_mixer(lp["mamba"], h, cfg,
+                                     state=cache["mamba"])[0]
         parts = []
         if seg.attn == "mla":
-            y, nc = L.mla_attention_decode(lp["attn"], h, cfg, cache, pos,
-                                           absorb=cfg.mla_absorb)
-            new_cache.update(nc)
-            parts.append(y)
+            parts.append(L.mla_attention_decode(lp["attn"], h, cfg, cache,
+                                                pos, absorb=cfg.mla_absorb)[0])
         elif seg.attn == "gqa":
-            y, nc = L.gqa_attention_decode(lp["attn"], h, cfg, seg, cache, pos)
-            new_cache.update(nc)
-            parts.append(y)
+            parts.append(L.gqa_attention_decode(lp["attn"], h, cfg, seg,
+                                                cache, pos)[0])
         if seg.kind == "hybrid":
-            y, st = L.mamba_mixer(lp["mamba"], h, cfg, state=cache["mamba"])
-            new_cache["mamba"] = st
-            parts.append(y)
+            parts.append(L.mamba_mixer(lp["mamba"], h, cfg,
+                                       state=cache["mamba"])[0])
         out = parts[0]
         for extra in parts[1:]:
             out = out + extra
         x = x + out
         y, _ = self._ffn(lp, x, seg, "tp")
-        return x + y, new_cache
-
+        return x + y

@@ -332,11 +332,12 @@ def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig,
     return out.reshape(B, S, D), aux
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _tables(plan: PlacementPlan, device: torch.device) -> dict:
-    """The plan's lookup tables on ``device``, built once per plan:
-    ``local_slot``, ``home_shard``, ``home_slot`` (n_shards, E) and
-    ``owner`` (E,), the first shard that holds each expert."""
+    """The plan's lookup tables on ``device``, built once per plan (and
+    kept: a captured decode step reads them at every replay, so they must
+    outlive it): ``local_slot``, ``home_shard``, ``home_slot`` (n_shards,
+    E) and ``owner`` (E,), the first shard that holds each expert."""
     local = np.array(plan.local_slot, np.int64)
     out = {"local_slot": local, "owner": np.argmax(local >= 0, axis=0),
            "home_shard": np.array(plan.home_shard, np.int64),
@@ -569,10 +570,21 @@ def materialize_slots(p, plan: PlacementPlan, tp: str | None = None) -> dict:
         for name in _EXPERTS:
             out[f"{name}_slots"] = _slot_weights(blocks[name], plan, shard)
         return out
-    gather = slot_experts(plan, shard)
-    identity = np.array_equal(gather, np.arange(plan.n_experts))
     for name in _EXPERTS:
         w = p[name]
-        out[f"{name}_slots"] = w if identity else w.index_select(
-            0, torch.from_numpy(gather).to(w.device))
+        gather = _slot_gather(plan, shard, w.device)
+        out[f"{name}_slots"] = w if gather is None else w.index_select(
+            0, gather)
     return out
+
+
+@functools.cache
+def _slot_gather(plan: PlacementPlan, shard: int | None,
+                 device: torch.device) -> torch.Tensor | None:
+    """The expert of each slot (``slot_experts``) on ``device``, uploaded
+    once per plan; None where every slot holds the expert of its own
+    index."""
+    gather = slot_experts(plan, shard)
+    if np.array_equal(gather, np.arange(plan.n_experts)):
+        return None
+    return torch.from_numpy(gather).to(device)

@@ -19,7 +19,10 @@ from repro_torch.datagen import large_row_net  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels import (front_find, front_pass,  # noqa: E402
                                  gain, moe_gmm, ops, ref)
-from repro_torch.launch.serve import make_model, serve  # noqa: E402
+from repro_torch.launch.serve import (GreedyStep, make_model,  # noqa: E402
+                                      serve)
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 
 
 @pytest.fixture
@@ -807,6 +810,134 @@ def test_serve_olmoe_on_cuda_with_placement(cuda):
     assert res.launches["attention_masked"] == 2
     assert res.placement["lambda_cost_repl"] <= \
         res.placement["lambda_cost_no_repl"]
+
+
+# ------------------------------------------------ the captured decode step
+GRAPH_KINDS = ["hymba-1.5b", "falcon-mamba-7b", "olmoe-1b-7b",
+               "deepseek-v3-671b", "llama-3.2-vision-11b"]
+
+
+def _served_small(arch: str, cuda):
+    """A reduced bf16 model of each served kind and its prefill batch (2
+    prompts of 20): hymba's 16-row windows, olmoe on a plan whose slots
+    are not the identity (the slot gather runs in every step), deepseek
+    at MLA's head dims, llama-vision at the full model's head dim with
+    nonzero gates."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    plan = None
+    if arch == "deepseek-v3-671b":
+        cfg = _deepseek_small(True, "bfloat16")
+    elif arch == "llama-3.2-vision-11b":
+        cfg = _vision_small("bfloat16", wide_heads=True)
+    else:
+        cfg = reduce_config(get_config(arch)).with_(dtype="bfloat16")
+    if cfg.n_experts:
+        E = cfg.n_experts
+        plan = moe._finalize_plan([[(3 * s + 1) % E for s in range(E)]], E,
+                                  1, None, 1.25)
+    model = Model(cfg, plan=plan, device=cuda, generator=gen)
+    if cfg.n_image_tokens:
+        _set_gates(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 20), device=cuda,
+                                     generator=gen)}
+    if cfg.n_image_tokens:
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.n_image_tokens, cfg.d_model), device=cuda, generator=gen)
+    return model, batch
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return [_clone(v) for v in tree]
+
+
+def _ptrs(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree.data_ptr()]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [p for item in items for p in _ptrs(item)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_KINDS)
+def test_captured_decode_matches_eager_in_place(cuda, arch):
+    """From one prefill, 7 greedy steps of the in-place step run eagerly,
+    and again as one eager step, a capture and 6 replays: bit-equal logits
+    and equal tokens, the same launches counted, the caches' storage kept
+    across replays, and no host->device copy in a replay (one
+    device->host read a step, the token's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, batch = _served_small(arch, cuda)
+    runs = {}
+    with torch.inference_mode():
+        logits, caches0 = model.prefill(batch, 30)
+        tok0 = logits[:, -1].argmax(dim=-1, keepdim=True)
+        for graph in (False, True):
+            caches = _clone(caches0)
+            ptrs = _ptrs(caches)
+            step = GreedyStep(model, tok0, caches, 20, graph=graph)
+            ops.reset_launches()
+            lg, tk = [], []
+            for i in range(7):
+                if graph and i == 1:
+                    step.capture()
+                if graph and i == 4:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            step()
+                            tk.append(step.token.cpu())
+                            lg.append(step.logits.clone())
+                        torch.cuda.synchronize()
+                    break
+                step()
+                tk.append(step.token.cpu())
+                lg.append(step.logits.clone())
+                assert _ptrs(caches) == ptrs
+            runs[graph] = (torch.cat(lg, dim=1), torch.cat(tk, dim=1),
+                           ops.launch_counts())
+    assert step.graph is not None and _ptrs(caches) == ptrs
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert torch.equal(runs[True][0], runs[False][0])
+    assert runs[True][2] == runs[False][2]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kern) > 3            # the replays traced
+    assert not any(e.key.startswith("Memcpy HtoD") for e in kern)
+    assert sum(e.count for e in kern
+               if e.key.startswith("Memcpy DtoH")) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b"])
+def test_serving_head_multiplies_bf16_into_f32(cuda, no_tf32, arch):
+    """The serving head (bf16 by bf16 into f32, tied or not) against the
+    f32 product of the same values: the products are exact in f32, only
+    the order of the sums differs."""
+    cfg = reduce_config(get_config(arch)).with_(d_model=2048, vocab=32768,
+                                                dtype="bfloat16")
+    model = make_model(cfg, device=cuda, seed=5)
+    x = torch.randn((3, 2, cfg.d_model), device=cuda).bfloat16()
+    with torch.inference_mode():
+        got = model.logits_fn(x, serve=True)
+        want = model.logits_fn(x)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (3, 2, cfg.vocab)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_serve_on_cuda_decodes_as_a_graph(cuda):
+    """One card: the first step eagerly, then a capture and G - 2
+    replays; the launches counted as the eager loop's."""
+    res = serve(reduce_config(get_config("hymba-1.5b")), 2, 20, 6,
+                device=cuda, seed=0)
+    assert res.decode == "graph" and res.capture_s > 0
+    assert res.launches["mamba_step"] == 5 * 5
+    assert res.launches["attention_masked"] == 2 + 5 * 5
 
 
 # ------------------------------------------- the V-cycle and the pool

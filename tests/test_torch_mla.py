@@ -158,7 +158,8 @@ def test_mla_attention_decode_matches_jax(absorb, dtype):
     _close(got, want, dtype)
     for name in ("ckv", "kr"):
         _close(new[name], jnew[name], dtype)
-        assert torch.equal(cache[name], before[name])  # written out of place
+        assert new[name] is cache[name]                 # written in place
+        assert torch.equal(cache[name][:, :S], before[name][:, :S])
 
 
 def _one_device_mesh():

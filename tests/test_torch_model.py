@@ -79,7 +79,15 @@ def _close(got, want, tol):
     np.testing.assert_allclose(_np(got), _to_np(want), rtol=tol, atol=tol)
 
 
-def _check_caches(tcaches, jcaches, cfg, tol):
+def _window_order(ring: torch.Tensor, last: int) -> torch.Tensor:
+    """A sliding window's ring (position p at row p mod W, ``last`` the
+    newest) in the JAX package's shifted order (the newest last)."""
+    return torch.roll(ring, -((last + 1) % ring.shape[1]), dims=1)
+
+
+def _check_caches(tcaches, jcaches, cfg, tol, last=None):
+    """``last``: the newest position written, which orders a window's
+    ring as the JAX package's shifted window."""
     assert len(tcaches) == len(jcaches) == len(cfg.segments)
     for seg, tseg, jseg in zip(cfg.segments, tcaches, jcaches):
         assert len(tseg) == seg.n_layers
@@ -90,6 +98,8 @@ def _check_caches(tcaches, jcaches, cfg, tol):
                 if name == "mamba":
                     for part in ("conv", "ssm"):
                         _close(tc["mamba"][part], jseg["mamba"][part][j], tol)
+                elif seg.sliding_window:
+                    _close(_window_order(tc[name], last), jseg[name][j], tol)
                 else:
                     _close(tc[name], jseg[name][j], tol)
 
@@ -122,16 +132,17 @@ def test_prefill_and_decode_match_jax(arch, S, dtype):
     assert logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.float32
     _check_logits(logits, jlogits, dtype)
     if dtype == "float32":
-        _check_caches(caches, jcaches, cfg, 1e-5)
+        _check_caches(caches, jcaches, cfg, 1e-5, last=S - 1)
 
     jstep, jnew = jax.jit(lambda p, t, c: jm.decode_step(
         p, t, c, jnp.int32(S)))(params, jnp.asarray(tokens[:, S:]), jcaches)
     with torch.no_grad():
         step, new = model.decode_step(torch.from_numpy(tokens[:, S:]),
                                       caches, S)
+    assert new is caches                       # written in place
     _check_logits(step, jstep, dtype)
     if dtype == "float32":
-        _check_caches(new, jnew, cfg, 1e-5)
+        _check_caches(new, jnew, cfg, 1e-5, last=S)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -36,6 +36,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import draw_batch, serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from torch.utils._pytree import tree_map  # noqa: E402
 
 ARCH = "llama-3.2-vision-11b"
 DTYPES = ["float32", "bfloat16"]
@@ -186,6 +187,11 @@ def test_forward_matches_jax(dtype):
     _close(got, want, dtype)
 
 
+def _clone(caches):
+    """A copy of the caches as they stand (decode writes them in place)."""
+    return tree_map(torch.clone, caches)
+
+
 def _check_caches(tcaches, jcaches, cfg, dtype):
     (seg,) = cfg.segments
     (tseg,), (jseg,) = tcaches, jcaches
@@ -224,14 +230,18 @@ def test_prefill_and_decode_match_jax(dtype):
         logits, caches = model.prefill(
             {"tokens": torch.from_numpy(tokens[:, :S]),
              "image_embeds": torch.from_numpy(img)}, max_len)
-        steps, seen = [logits], [caches]
+        steps, seen = [logits], [_clone(caches)]
+        cross = caches[0][0]["cross"]
         for i in range(3):
-            logits, caches = model.decode_step(
+            logits, new = model.decode_step(
                 torch.from_numpy(tokens[:, S + i:S + i + 1]), caches, S + i)
+            assert new is caches                       # written in place
             steps.append(logits)
-            seen.append(caches)
+            seen.append(_clone(caches))
             # the image keys and values are carried, not rewritten
-            assert caches[0][0]["cross"] is seen[0][0][0]["cross"]
+            assert caches[0][0]["cross"] is cross
+            for name in ("ck", "cv"):
+                assert torch.equal(cross[name], seen[0][0][0]["cross"][name])
     for got, want in zip(steps, jsteps):
         assert got.shape == (B, 1, cfg.vocab) and got.dtype == torch.float32
         _close(got, want, dtype)
