@@ -72,8 +72,9 @@ failure propagates and the exit code is nonzero:
    ``torch.profiler`` (where the time goes: one device->host read per
    find, no PyTorch index, gather or scatter kernel);
 4. the per-front path on an MoE expert-placement instance (float weights,
-   128 experts): ``partition_with_replication`` on CUDA against numpy;
-5. full size: ``partition_with_replication(large_row_net(32768))``, P = 8,
+   128 experts): ``partition_with_replication`` on CUDA against numpy
+   (run beside it in the dry-run pool's process, which sees no card);
+5. full size: ``partition_with_replication(large_row_net(16384))``, P = 8,
    on CUDA, with its time, costs, counters (one find launch and one read
    per find), the queue and active blocks per find and peak device memory;
 6. serve ``hymba-1.5b`` at full width and depth: 4 prompts of 2048
@@ -116,9 +117,10 @@ failure propagates and the exit code is nonzero:
    Last, the serving benchmark's SMOKE drift replay through the online
    controller on CUDA and on the host path: equal totals, commits and
    migration bytes;
-8. the V-cycle: ``partition_with_replication(large_row_net(16384),
+8. the V-cycle: ``partition_with_replication(large_row_net(8192),
    multilevel=True, workers=None)``, P = 8, with ``frontier="torch"`` on
-   CUDA and ``frontier="numpy"``: equal base and replicated masks and
+   CUDA and ``frontier="numpy"`` (beside it, as in phase 4): equal base
+   and replicated masks and
    costs; per level on the card (levels of at least ``DEVICE_MIN_NODES``
    nodes) commits, finds, reads and find launches, reads = finds =
    launches, each pass released; ``min_cover_lambdas`` launched on the
@@ -203,15 +205,23 @@ failure propagates and the exit code is nonzero:
    Five training steps at full width and depth, bf16, remat "full", 4 x
    2048 tokens from ``SyntheticTokenStream(seed=0)``, AdamW as
    ``launch/train.py`` sets it (lr 3e-4, one warm-up step, 5 steps), the
-   step run directly (not through ``Trainer.run``'s retries): losses
-   (finite), seconds per step (median of steps 2-5), tokens/s, peak
-   memory, and each step's launches exactly as expected (every forward
-   kernel twice -- forward and recompute -- one backward kernel each,
-   all attention on ``prefill_tc``, every attention backward call on
-   ``tc`` (``ops.bwd_route_launches``), nothing else); then one more step
-   split by CUDA events (forward, backward with the recompute, AdamW) and
-   by kernel under ``torch.profiler``.  (c) The f32 model at full width,
-   depth cut to one layer of each of its five segments
+   step run directly (not through ``Trainer.run``'s retries) and captured
+   as ``train.step`` runs it on one card (``train_steps``): step 1 eager
+   on the capture's stream, then recorded in a CUDA graph; steps 2-5
+   replays.  Losses (finite), the eager first step's and the capture's
+   seconds, the graph pool, seconds per step (median of the replayed
+   steps 2-5), tokens/s, peak memory, and each step's launches exactly
+   as expected (every forward kernel twice -- forward and recompute --
+   one backward kernel each, the fused AdamW once a leaf, all attention
+   on ``prefill_tc``, every attention backward call on ``tc``
+   (``ops.bwd_route_launches``), nothing else; a replay books its
+   capture's); then the graph dropped and one more step, eager, split by
+   CUDA events (forward, backward with the recompute, AdamW) and by
+   kernel under ``torch.profiler``, the "other" kind's device time by the
+   aten op that launched it; and the loss head's three products timed
+   bf16 into f32 against the f32 copies they replaced (``head_times``).
+   (c) The f32 model at full width, depth cut to one layer of each of
+   its five segments
    (``hymba_gate_config``: its three global-attention layers and two
    windowed ones; phase 17's time came out of this gate's plain
    backward), 2 x 2048 tokens: the loss and every gradient through the
@@ -315,7 +325,10 @@ failure propagates and the exit code is nonzero:
    tokens (frames) a second and peak beside "full"'s, ``plan_remat``'s
    decision for the card's 80 GB less the state, and the dry run's peak
    under each policy; remat "none" trains only where the dry run
-   predicts a peak under 72 GB (hubert), else the prediction is printed;
+   predicts a peak under 72 GB (hubert), else the prediction is printed.
+   Every policy's steps are captured, so "dots" decides what to save once,
+   at the capture, and a replay is the device's own time: no eager split
+   follows;
 18. distribution (``mesh_phase``), each world in processes of its own
    (``launch.mesh.run_ranks``), the transport an explicit argument that
    the phase prints.  (a) One rank of a (1, 1) mesh over NCCL: olmoe-1b-7b
@@ -349,6 +362,8 @@ failure propagates and the exit code is nonzero:
    train to step 6; both resume at step 4 and every loss is within
    ``ELASTIC_TOL`` (relative) of an uninterrupted run on one card.  olmoe's
    attention, embedding and head run tensor-parallel there (phase 19).
+   (a) runs beside (c)'s writer and uninterrupted run: its results are
+   bit-equalities, which sharing the card and the host cannot change;
 19. tensor-parallel products (``tp_phase``): deepseek-7b, the dense kind,
    at full width cut to ``DS7_LAYERS`` of its 30 layers (at 16 B a
    parameter its state does not fit one card at full depth).  (a) One
@@ -356,7 +371,8 @@ failure propagates and the exit code is nonzero:
    tokens under remat "full" (``train_steps``: seconds a step, tokens a
    second, peak memory, each attention route's launches; then one step
    split).  (b) Two ranks of a (1, 2) mesh sharing the card over gloo
-   train the same steps from the same weights and batches, every family
+   train the first ``MESH_STEPS`` of those steps from the same weights
+   and batches, every family
    on route ``tp`` (``parallel.sharding.tp_split``): per rank the
    parameter bytes it holds (equal to the dry run's at (1, 2), phase 17's
    process, and about half of (a)'s), its peak, its routes, step 1's
@@ -385,7 +401,8 @@ failure propagates and the exit code is nonzero:
    the call without the argument, and timed.  (a) One card, no mesh:
    ``TRAIN_STEPS`` bf16 steps of ``SEQ_B`` x ``SEQ_S`` tokens under remat
    "full" (``train_steps``).  (b) Two ranks of a (1, 2) mesh sharing the
-   card over gloo train the same steps from the same weights and
+   card over gloo train the first ``MESH_STEPS`` of those steps from the
+   same weights and
    batches, each on its block of 8 x 2048 tokens (its labels with the
    next block's first one): every GQA layer on sequence route ``seq``
    (``parallel.sharding.seq_split``), rank 1's attention at ``q_off``
@@ -431,10 +448,11 @@ failure propagates and the exit code is nonzero:
    equal to the dry run's (phase 17's process, ``falcon_dryrun_cells``),
    its peak and FLOPs beside the dry run's, ``mfu`` (``roofline_row``).
    (b) Two ranks of a (1, 2) mesh sharing the card over gloo train the
-   same steps: every mixer on route ``tp`` (``parallel.sharding.
-   tp_split``, 160 a rank), each rank holding half of every mixer leaf
-   but ``conv_b``, ``dt_bias`` and the norms (``held_specs``: ``in_proj``
-   as its ``[x | z]`` channel blocks, ``conv_w`` on its channels); its
+   first ``MESH_STEPS`` of those steps: every mixer on route ``tp``
+   (``parallel.sharding.tp_split``, 96 a rank), each rank holding half
+   of every mixer leaf but ``conv_b``, ``dt_bias`` and the norms
+   (``held_specs``: ``in_proj`` as its ``[x | z]`` channel blocks,
+   ``conv_w`` on its channels); its
    parameter bytes and step 1's collectives (no gather; the mixer's two
    psums a pass, the ``x_proj`` one replayed) equal to the dry run's at
    (1, 2) by kind, count and bytes; losses within ``FM_LOSS_TOL`` of
@@ -444,7 +462,27 @@ failure propagates and the exit code is nonzero:
    f32 model at ``MESH_GATE_LAYERS`` layers, one step of ``FM_GATE_B`` x
    ``FM_S`` tokens against rank 0's one-card step: each gradient,
    gathered whole through ``Sharding.full``, within ``FM_GRAD_TOL`` of
-   its leaf's largest entry, the loss within ``FM_GATE_LOSS_TOL``.
+   its leaf's largest entry, the loss within ``FM_GATE_LOSS_TOL``;
+22. training as one captured step (``graph_phase``); every training run
+   on one card above (13b-16b, 17c, 19a, 20a, 21a) is captured and must
+   report the form "graph".  (a) The fused AdamW kernel
+   (``csrc/adamw.cu``) over hymba-1.5b's leaves, from random gradients,
+   moments and masters: one step through the kernel and one through its
+   plain version from copies of one state, m, v and the master within
+   ``ADAMW_TOL`` of each leaf's largest entry (bit-equality reported),
+   then timed: device ms (every leaf's launch in one CUDA graph), call
+   ms, plain ms, its bound (bytes over 3.35 TB/s) and the library's time
+   (``torch._fused_adamw_`` on the masters with f32 gradients, then the
+   parameters copied from them: the same update).  (b) hymba-1.5b at
+   ``GRAPH_HYMBA_LAYERS`` and olmoe-1b-7b at ``GRAPH_OLMOE_LAYERS``
+   layers, ``GRAPH_STEPS`` bf16 steps of 4 x 2048 tokens eagerly and
+   captured from the same weights: losses and every parameter, master, m
+   and v bit-equal.  (c)
+   deepseek-7b at ``DS7_LAYERS`` layers, one loss and backward on 2 x
+   2048 tokens with the head bf16 by bf16 into f32 and one through f32
+   copies of x and the head (``F32Head``, the path before): the loss
+   within ``HEAD_LOSS_TOL`` relative, every gradient leaf within
+   ``GRAD_TOL`` bf16 of its largest entry.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
@@ -498,7 +536,11 @@ name the bf16 route's wgmma source (``tc``) and time it, with the PR
 22/23 kernel's bf16 times ("before") and the f32 ``general`` rows (the
 same source, ``general_source``) beside; the forward kernels also carry
 their training
-launches (``train_launches``).  A
+launches (``train_launches``).  The fused AdamW (``adamw``, no TPU
+counterpart: the reference's update is jnp that XLA fuses) carries the
+launches of every training run on one card (one a leaf a step) and
+phase 22a's times over hymba-1.5b's leaves (``ms`` a whole step's
+launches, ``library_ms`` ``torch._fused_adamw_``'s).  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -507,6 +549,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import statistics
@@ -1321,7 +1364,7 @@ class ModelShapes:
 
         def call(step) -> None:
             real_call(step)
-            if step.graph is not None:
+            if step.graph is not None and step.graph.graph is not None:
                 self.shapes.update(step.shape_counts[0])
                 self.routes.update(step.shape_counts[1])
 
@@ -1351,22 +1394,25 @@ def kernel_name(mangled: str) -> str:
     return name + rest[:40]
 
 
-def sass_lines(lib: Path):
+@functools.cache
+def sass_lines(lib: Path) -> tuple:
     """(kernel, line) for each SASS line of a built library, as ``cuobjdump
     -sass`` lists it, the kernel named with its template arguments
-    (``kernel_name``); (kernel, None) opens each kernel."""
+    (``kernel_name``); (kernel, None) opens each kernel.  Dumped once a
+    library."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    name = None
+    rows, name = [], None
     for line in out.splitlines():
         m = re.search(r"Function : _Z(\w+)", line)
         if m:
             name = kernel_name(m.group(1))
-            yield name, None
+            rows.append((name, None))
         elif name:
-            yield name, line
+            rows.append((name, line))
+    return tuple(rows)
 
 
 def tc_instructions(lib: Path, pattern: str = r"\bHG?MMA\.") -> dict:
@@ -1553,8 +1599,9 @@ def decode_profile(model, prompts, max_len: int, tag: str = "6b",
     step -- over the window, and the median over its whole steps
     (``step_activities``) -- copies host->device and device->host a step.
     The paths' tokens must be equal, the captured step must make no
-    host->device copy and one device->host read a step, and as many
-    activities a step as the eager one;
+    host->device copy and one device->host read a step (the window one
+    fewer where tracing cut its first step short), and as many activities
+    a step as the eager one;
     the logits' max |diff| is reported (bit-equal expected) and must be
     within ``F32_LOGIT_TOL`` of the largest."""
     import torch
@@ -1668,8 +1715,13 @@ def decode_profile(model, prompts, max_len: int, tag: str = "6b",
                              f"{out}")
     # a step's activities: the median over the window's whole steps
     # (tracing has dropped, or misplaced, some of a window's first events
-    # in either path)
-    if (g["h2d_per_step"] != 0 or g["d2h_per_step"] != 1
+    # in either path); one device->host read a step, and one fewer in the
+    # window only where tracing cut its first step short (the window then
+    # holds fewer activities than its steps' whole count)
+    cut = g["launches_per_step"] < g["step_activities"]
+    d2h = round(g["d2h_per_step"] * steps)
+    if (g["h2d_per_step"] != 0 or d2h not in ((steps - 1, steps) if cut
+                                              else (steps,))
             or g["step_activities"] != e["step_activities"]):
         raise AssertionError(f"[{tag}] a captured step's copies or "
                              f"activities: {out}")
@@ -1868,7 +1920,8 @@ class RouterLog:
     """While active, records the top-k experts of every router call of the
     MoE slot paths (``models.moe.router_topk``), on the device (no read
     that would stall the host): the routing of a run, to count where two
-    runs route apart.  With
+    runs route apart.  A call recorded into a CUDA graph is not kept (a
+    replay runs no Python: only an eager step's routing is seen).  With
     ``replay`` (another run's log), call i routes to that log's call i
     instead, weighted by this call's own probabilities (the router's
     arithmetic, ``moe.router_topk``, with the experts given), while its
@@ -1894,7 +1947,8 @@ class RouterLog:
                 w = (w / w.sum(dim=-1, keepdim=True)).to(x.dtype)
                 ce = F.one_hot(idx, cfg.n_experts).float().sum(1).mean(0)
                 aux = cfg.n_experts * (probs.mean(dim=0) * ce).sum()
-            self.calls.append(own.clone())
+            if not torch.cuda.is_current_stream_capturing():
+                self.calls.append(own.clone())
             return w, idx, aux
         moe.router_topk = topk
         return self
@@ -1985,14 +2039,40 @@ def check_levels(passes, level_finds: Counter, launches: dict) -> dict:
     return levels
 
 
-def vcycle_phase(rec: Recorder, P: int, eps: float, n: int,
+# phase 8's instance: large_row_net(8192), cut from 16,384 nodes (PRs
+# 18-33) to keep the smoke inside its time limit; its top two levels (of
+# at least DEVICE_MIN_NODES = 4096 nodes) still run the device pass
+VCYCLE_N = 8192
+
+
+def host_partition(instance: tuple, P: int, eps: float, **kw) -> tuple:
+    """The host path's ``partition_with_replication(..., frontier="numpy",
+    **kw)`` for phases 4 and 8, run in the dry-run pool's process (which
+    sees no card) beside the card's run in this one: on moe8's layer 0
+    (``("moe8",)``) or ``large_row_net(n, seed=n)`` (``("row", n)``).
+    Returns (base, replicated, seconds)."""
+    from repro_torch.core.partition.heuristic import (
+        partition_with_replication)
+    from repro_torch.datagen import large_row_net, moe_dataset
+    hg = (large_row_net(instance[1], seed=instance[1])
+          if instance[0] == "row" else moe_dataset(
+              "moe8", n_layers=1, kappa0=50_000, n_experts=128)[0])
+    t0 = time.perf_counter()
+    base, rep = partition_with_replication(hg, P, eps, frontier="numpy",
+                                           **kw)
+    return base, rep, time.perf_counter() - t0
+
+
+def vcycle_phase(rec: Recorder, P: int, eps: float, n: int, host_pool,
                  device: str = "cuda") -> dict:
     """Phase 8: ``partition_with_replication(large_row_net(n), multilevel=
     True, workers=None)`` with ``frontier="torch"`` on the card and with
-    ``frontier="numpy"``: equal base and replicated masks and costs; on
-    the card, per level, one find launch and one read per find, and the
-    min-cover kernel on the coarse levels.  Then the pool forks after the
-    card is up: sharded heavy-pin matching byte-identical to serial."""
+    ``frontier="numpy"`` beside it in ``host_pool``'s process, which sees
+    no card (``host_partition``): equal base and replicated masks and
+    costs; on the card, per level, one find launch and one read per find,
+    and the min-cover kernel on the coarse levels.  Then the pool forks
+    after the card is up: sharded heavy-pin matching byte-identical to
+    serial."""
     import torch
     from repro_torch.core.partition import multilevel as ml
     from repro_torch.core.partition.heuristic import (
@@ -2010,33 +2090,29 @@ def vcycle_phase(rec: Recorder, P: int, eps: float, n: int,
         sizes.append([lv.n for lv in out[0]])
         return out
 
-    runs = {}
+    host = host_pool.submit(host_partition, ("row", n), P, eps,
+                            multilevel=True, workers=None)
     ml.build_levels = build
     try:
-        for frontier in ("torch", "numpy"):
-            rec.reset()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            base, rep = partition_with_replication(
-                hg, P, eps, multilevel=True, workers=None, frontier=frontier,
-                device=device)
-            torch.cuda.synchronize()
-            runs[frontier] = {
-                "base": base, "rep": rep, "s": time.perf_counter() - t0,
-                "launches": dict(ops.launches), "passes": list(rec.passes),
-                "level_finds": Counter(rec.level_finds),
-                "peak_B": torch.cuda.max_memory_allocated()}
+        rec.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        base, rep = partition_with_replication(
+            hg, P, eps, multilevel=True, workers=None, frontier="torch",
+            device=device)
+        torch.cuda.synchronize()
+        t = {"base": base, "rep": rep, "s": time.perf_counter() - t0,
+             "launches": dict(ops.launches), "passes": list(rec.passes),
+             "level_finds": Counter(rec.level_finds),
+             "peak_B": torch.cuda.max_memory_allocated()}
     finally:
         ml.build_levels = real_build
-    t, h = runs["torch"], runs["numpy"]
+    h = dict(zip(("base", "rep", "s"), host.result()))
     for a, b in ((t["base"], h["base"]), (t["rep"], h["rep"])):
         if not (np.array_equal(a.masks, b.masks) and a.cost == b.cost):
             raise AssertionError("the V-cycle on the card differs from the "
                                  "host path")
-    if h["passes"] or any(h["launches"].values()):
-        raise AssertionError(f"the numpy V-cycle used the card: "
-                             f"{h['launches']}")
     for res in (t["base"], t["rep"]):
         check_result(hg, P, eps, res)
     if not t["rep"].cost <= t["base"].cost:
@@ -2053,7 +2129,7 @@ def vcycle_phase(rec: Recorder, P: int, eps: float, n: int,
     log(f"[8] V-cycle on large_row_net({n}) P={P}: levels {sizes[0]}, "
         f"refined at n {[sizes[0][i] for i in stops]}; base cost "
         f"{t['base'].cost}, replicated {t['rep'].cost}, equal on cuda "
-        f"({t['s']:.2f} s) and numpy ({h['s']:.2f} s); launches "
+        f"({t['s']:.2f} s) and numpy ({h['s']:.2f} s, beside it); launches "
         f"{t['launches']}; per level on the card (n: counts) "
         + "; ".join(f"{lv}: {dict(row)}" for lv, row in sorted(levels.items(),
                                                               reverse=True))
@@ -2824,6 +2900,10 @@ SCAN_BWD_EXP_PER_ELEM = 2
 SCAN_BWD_PASSES = {"pass1": "seg_fwd_kernel", "pass2": "seg_bwd_kernel",
                    "finish": "finish_kernel"}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5
+# the two-rank worlds (19b, 20b, 21b) train the first MESH_STEPS of one
+# card's steps: their steps over gloo take 2-6 s each, and the first
+# (its collectives counted) 17-24 s
+MESH_STEPS = 3
 GATE_B = 2
 
 
@@ -2833,6 +2913,16 @@ def hymba_gate_config(cfg):
     import dataclasses
     return cfg.with_(segments=tuple(dataclasses.replace(s, n_layers=1)
                                     for s in cfg.segments))
+
+
+def hymba_layers_config(layers: int):
+    """hymba-1.5b cut to ``layers`` layers: its first, global-attention
+    layer and ``layers - 1`` of the windowed ones after it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    segs = get_config("hymba-1.5b").segments
+    return get_config("hymba-1.5b").with_(segments=(
+        segs[0], dataclasses.replace(segs[1], n_layers=layers - 1)))
 
 
 def sdpa_backend(q, k, v, mask, causal: bool = True) -> str:
@@ -3131,8 +3221,9 @@ def scan_bwd_pass_ms(fn, reps: int) -> dict:
             for k in SCAN_BWD_PASSES}
 
 
-def expected_train_launches(cfg) -> dict:
-    """One training step's launches with remat "full" or "dots": every
+def expected_train_launches(cfg, leaves: int = 0) -> dict:
+    """One training step's launches with remat "full" or "dots" (with
+    ``leaves``, the fused AdamW's too, one a leaf): every
     layer's forward kernels twice (the forward and its recompute in the
     backward pass: "dots" saves the matrix products' outputs, not the
     kernels'), one backward kernel each -- an MoE layer's three grouped
@@ -3160,6 +3251,7 @@ def expected_train_launches(cfg) -> dict:
         if seg.kind == "moe":
             want["grouped_matmul"] += 3 * fwd * n
             want["grouped_matmul_bwd"] += 3 * n
+    want["adamw"] = leaves
     return want
 
 
@@ -3178,15 +3270,20 @@ def expected_bwd_routes(cfg) -> dict:
 
 
 def train_step_split(ts, state, batch) -> dict:
-    """One more step, its phases timed with CUDA events (the loss's
-    forward, the backward pass with its recompute, AdamW) and its kernels
-    under ``torch.profiler``: device time by kind."""
+    """One more step, run eagerly (the captured step is one replay, with
+    no host between its parts): its phases timed with CUDA events (the
+    loss's forward, the backward pass with its recompute, AdamW) and its
+    kernels under ``torch.profiler``: device time by kind, and the
+    "other" kind's by the aten op that launched each kernel (the innermost
+    ``aten::`` op around its launch; ``other_by_op``, the largest first),
+    which says what ROADMAP item 13's fusions would take."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     params = ts._bind(state["params"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA,
+                             ProfilerActivity.CPU]) as prof:
         for p in params.values():
             p.grad = None
         ev[0].record()
@@ -3204,41 +3301,104 @@ def train_step_split(ts, state, batch) -> dict:
         ("forward_ms", "backward_ms", "adamw_ms"))}
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    # the wgmma backward kernels (attention_bwd_tc.cu's dq_kernel<HD, HDV>
-    # and dkv_kernel<HD, HDV>, moe_gmm_bwd_tc.cu's) first: the general
-    # routes' kernels of the same names take (T, HD, ...) template
-    # arguments
-    kinds = {"attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in (
-                 "dq", "dkv") for hd in (64, 80, 128, 192)),
-             "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
-             "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
-             "scan_fwd": ("scan_kernel",),
-             "attention_bwd": ("dq_kernel", "dkv_kernel"),
-             "scan_bwd": tuple(SCAN_BWD_PASSES.values()),
-             "gmm_fwd": ("gmm_tc_kernel", "gmm_kernel", "gmv_kernel"),
-             "gmm_bwd": ("dx_kernel", "dw_kernel"),
-             "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_",
-                      "nvjet")}     # cuBLAS's Hopper GEMMs: nvjet_tst_*
-    by = {k: 0.0 for k in kinds}
+    by = {k: 0.0 for k in TRAIN_KINDS}
     by["other"] = 0.0
     for e in kern:
-        for k, keys in kinds.items():
-            if k in ("attention_fwd", "scan_fwd") and "bwd" in e.key:
-                continue
-            if any(x in e.key for x in keys):
-                by[k] += e.self_device_time_total / 1e3
-                break
-        else:
-            by["other"] += e.self_device_time_total / 1e3
+        by[train_kind(e.key)] += e.self_device_time_total / 1e3
+    other: Counter = Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        op = e
+        while op is not None and not op.name.startswith("aten::"):
+            op = op.cpu_parent
+        name = e.name if op is None else op.name
+        for k in e.kernels:
+            if train_kind(k.name) == "other":
+                other[name] += k.duration / 1e3
     busy = sum(by.values())
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    return {**{k: sig(v) for k, v in phases.items()},
+    return {"form": "eager", **{k: sig(v) for k, v in phases.items()},
             "device_ms": {k: sig(v) for k, v in by.items()},
             "busy_ms": sig(busy),
             "busy_share": sig(busy / sum(phases.values())) if busy else
             "not measured",
+            "other_by_op": [[k, sig(v)] for k, v in other.most_common(12)],
+            "other_by_op_total_ms": sig(sum(other.values())),
             "top": [[e.key[:60], e.count, sig(e.self_device_time_total / 1e3)]
                     for e in top]}
+
+
+# a training step's device kernels by kind (``train_kind``), by name:
+# the wgmma backward kernels (attention_bwd_tc.cu's dq_kernel<HD, HDV>
+# and dkv_kernel<HD, HDV>, moe_gmm_bwd_tc.cu's) first: the general
+# routes' kernels of the same names take (T, HD, ...) template arguments
+TRAIN_KINDS = {
+    "attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in ("dq", "dkv")
+                              for hd in (64, 80, 128, 192)),
+    "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
+    "attention_fwd": ("prefill_tc_kernel", "flash_kernel"),
+    "scan_fwd": ("scan_kernel",),
+    "attention_bwd": ("dq_kernel", "dkv_kernel"),
+    "scan_bwd": tuple(SCAN_BWD_PASSES.values()),
+    "gmm_fwd": ("gmm_tc_kernel", "gmm_kernel", "gmv_kernel"),
+    "gmm_bwd": ("dx_kernel", "dw_kernel"),
+    "adamw": ("adamw_kernel",),
+    "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+             "nvjet")}     # cuBLAS's Hopper GEMMs: nvjet_tst_*
+
+
+def train_kind(name: str) -> str:
+    """The kind of a training step's device kernel (``TRAIN_KINDS``), or
+    "other": elementwise, reduction, gather and copy kernels."""
+    for k, keys in TRAIN_KINDS.items():
+        if k in ("attention_fwd", "scan_fwd") and "bwd" in name:
+            continue
+        if any(x in name for x in keys):
+            return k
+    return "other"
+
+
+def head_times(T: int, D: int, V: int) -> dict:
+    """The loss head's product (T, D) x (D, V), forward and backward (dX
+    and dHead) from an f32 cotangent, device ms by CUDA events: as the
+    step runs it for a bf16 model (``models.model._HeadProduct``: bf16
+    operands into f32) and as it ran before, through f32 copies of x and
+    the head; the bound of the three products at 989 TFLOP/s bf16 (the f32
+    path's at 67 TFLOP/s beside it)."""
+    import torch
+    from repro_torch.models.model import _HeadProduct
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = (torch.randn((T, D), generator=gen, device="cuda") * 0.5
+         ).bfloat16().requires_grad_(True)
+    w = (torch.randn((D, V), generator=gen, device="cuda") * 0.02
+         ).bfloat16().requires_grad_(True)
+    g = torch.randn((T, V), generator=gen, device="cuda")
+
+    def bf16():
+        _HeadProduct.apply(x, w).backward(g)
+
+    def f32():
+        (x.float() @ w.float()).backward(g)
+    out = {"shape": [T, D, V]}
+    for name, fn in (("bf16", bf16), ("f32", f32)):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(2):
+            x.grad = w.grad = None
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = sig(ev[0].elapsed_time(ev[1]) / 2)
+    x.grad = w.grad = None
+    flops = 3 * 2 * T * D * V
+    out["bound_ms"] = sig(1e3 * flops / BF16_FLOPS_PER_S)
+    out["f32_bound_ms"] = sig(1e3 * flops / F32_FLOPS_PER_S)
+    del x, w, g
+    torch.cuda.empty_cache()
+    return out
 
 
 class FrameStream:
@@ -3259,29 +3419,40 @@ class FrameStream:
                     self.B, self.S)).astype(np.int32)}
 
 
-def train_steps(cfg, opt, tag: str, stream=None) -> dict:
+def train_steps(cfg, opt, tag: str, stream=None, split: bool = True
+                ) -> dict:
     """``TRAIN_STEPS`` bf16 training steps of ``cfg`` on the batches of
     ``stream`` (default ``TRAIN_B`` x ``TRAIN_S`` tokens from
     ``SyntheticTokenStream(seed=0)``; a ``FrameStream`` for a frame-input
-    model), the step run directly (not through ``Trainer.run``'s
-    retries): losses (finite), seconds per step, tokens (frames) a second,
-    peak memory, each step's launches exactly as
-    ``expected_train_launches`` says (all attention on ``prefill_tc``, all
-    grouped products on ``gmm_tc``); then one more step split
-    (``train_step_split``).  Each step's MoE routers are recorded on the
-    card, and the recompute of every MoE layer (remat "full" or "dots")
-    must route as its forward did: ``torch.utils.checkpoint`` compares
-    only the recomputed tensors' shapes.  A model with experts also
-    returns the first step's routing (``routing``: each MoE layer's (T, k)
-    experts, on the card).  Also returned: the training state's bytes
-    (``state_B``: parameters, f32 master, m and v) and step 1's loss
-    unrounded (``loss0``)."""
+    model), the step run directly (not through ``Trainer.run``'s retries)
+    and captured (``TrainStep.mode`` "graph"): step 1 runs
+    eagerly on the capture's stream and records the CUDA graph, steps 2-5
+    replay it.  Returned and logged: the losses (finite), the eager first
+    step's seconds (its call less the capture's), the capture's seconds
+    and the graph pool's bytes, seconds per step (the median of the
+    replayed steps 2-5), tokens (frames) a second, peak memory
+    (``max_memory_allocated`` over the run), and each step's launches
+    exactly as ``expected_train_launches`` says with the fused AdamW's
+    (one a leaf; a replay books its capture's), all attention on
+    ``prefill_tc``, all grouped products on ``gmm_tc``; then, with
+    ``split``, the graph is dropped, one more step is split, eagerly
+    (``train_step_split``), and the loss head's product is timed
+    (``head_times``).  The MoE routers
+    are recorded where Python runs the step, in the eager first step (a
+    replay runs none), whose recompute of every MoE layer (remat "full"
+    or "dots") must route as its forward did: ``torch.utils.checkpoint``
+    compares only the recomputed tensors' shapes.  A model with experts
+    also returns that step's routing (``routing``: each MoE layer's (T,
+    k) experts, on the card).  Also returned: the training state's bytes
+    (``state_B``: parameters, f32 master, m and v), its leaves and step
+    1's loss unrounded (``loss0``)."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
     from repro_torch.kernels import ops
     from repro_torch.train.step import batch_to, build_train_step
     ts = build_train_step(cfg, opt, device="cuda")
     state = ts.init_state(0)
+    leaves = len(state["params"])
     n_params = sum(p.numel() for p in state["params"].values())
     state_B = sum(t.numel() * t.element_size() for part in (
         state["params"], state["opt"]["master"], state["opt"]["m"],
@@ -3289,14 +3460,15 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
     if stream is None:
         stream = SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S,
                                                       seed=0))
-    want = expected_train_launches(cfg)
+    want = expected_train_launches(cfg, leaves)
     want_bwd = {c: TRAIN_STEPS * n
                 for c, n in expected_bwd_routes(cfg).items()}
+    want_kinds = ["capture"] + ["replay"] * (TRAIN_STEPS - 1)
     n_moe = sum(s.n_layers for s in cfg.segments if s.kind == "moe")
     n_route = n_moe if cfg.remat == "none" else 2 * n_moe
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, seconds, per_step = [], [], []
+    losses, seconds, per_step, kinds = [], [], [], []
     log_r = RouterLog()
     ops.reset_launches()
     for step in range(TRAIN_STEPS):
@@ -3309,23 +3481,29 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
             state, met = ts.step_fn(state, batch)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        kinds.append(ts.last_kind)
         losses.append(float(met["loss"]))
         per_step.append({c: ops.launches[c] - before[c] for c in before})
         # the forward's layers 0..L-1, then the recompute's L-1..0
         calls, log_r.calls = log_r.calls, []
         if step == 0:
             routing = calls[:n_moe]
-        if len(calls) != n_route or n_route > n_moe and any(
-                not torch.equal(calls[i], calls[-1 - i])
-                for i in range(n_moe)):
-            raise AssertionError(f"train step {step}: the recompute routed "
-                                 f"apart from the forward ({len(calls)} "
-                                 f"router calls)")
+        if len(calls) != (0 if ts.last_kind == "replay" else n_route) or \
+                n_route > n_moe and calls and any(
+                    not torch.equal(calls[i], calls[-1 - i])
+                    for i in range(n_moe)):
+            raise AssertionError(f"train step {step} ({ts.last_kind}): the "
+                                 f"recompute routed apart from the forward "
+                                 f"({len(calls)} router calls)")
+    del met
     launches = dict(ops.launches)
     routes = dict(ops.route_launches)
     gmm_routes = dict(ops.gmm_route_launches)
     bwd_routes = dict(ops.bwd_route_launches)
     peak = torch.cuda.max_memory_allocated()
+    if kinds != want_kinds:
+        raise AssertionError(f"{tag}: the steps ran as {kinds}, expected "
+                             f"{want_kinds}")
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"train step {i} launched {got}, expected "
@@ -3343,25 +3521,47 @@ def train_steps(cfg, opt, tag: str, stream=None) -> dict:
         raise AssertionError(f"bf16 training's backward calls took routes "
                              f"{bwd_routes}, expected {want_bwd}")
     med = float(np.median(seconds[1:]))
+    capture_s = ts.capture_s
+    first_s = seconds[0] - capture_s
     unit = "frames" if cfg.frame_input else "tokens"
     log(f"[{tag}] train {cfg.name} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params} parameters, bf16, remat "
-        f"{cfg.remat}): {TRAIN_STEPS} steps of {B} x {S} {unit}, losses "
-        f"{losses}, seconds {seconds}; median of steps 2-{TRAIN_STEPS} "
-        f"{med:.6g} s/step, {B * S / med:.6g} {unit}/s; "
+        f"{cfg.d_model}, {n_params} parameters in {leaves} leaves, bf16, "
+        f"remat {cfg.remat}, step {ts.mode}): {TRAIN_STEPS} steps of {B} x "
+        f"{S} {unit} ({kinds}), losses {losses}, seconds {seconds}; the "
+        f"eager first step {first_s:.6g} s, the capture {capture_s:.6g} s "
+        f"(graph pool {ts.graph_pool_B} B); median of steps "
+        f"2-{TRAIN_STEPS} {med:.6g} s/step, {B * S / med:.6g} {unit}/s; "
         f"max_memory_allocated {peak} B; launches per step "
         f"{per_step[0]}; routes {routes}, grouped products {gmm_routes}, "
         f"backward calls {bwd_routes}")
-    batch = batch_to(stream.next_batch(), "cuda")
-    split = train_step_split(ts, state, batch)
-    log(f"[{tag}] one more step, split: {json.dumps(split)}")
+    mode, pool_B = ts.mode, ts.graph_pool_B
+    ts.drop_graph()
+    torch.cuda.empty_cache()
+    parts = {}
+    if split:
+        batch = batch_to(stream.next_batch(), "cuda")
+        parts["split"] = train_step_split(ts, state, batch)
+        log(f"[{tag}] one more step, eager, split: "
+            f"{json.dumps(parts['split'])}")
+        del batch
+    del ts, state
+    torch.cuda.empty_cache()
+    if split:
+        head = parts["head"] = head_times(B * S, cfg.d_model, cfg.vocab)
+        log(f"[{tag}] the loss head (x {head['shape'][:2]} @ head "
+            f"{head['shape'][1:]}, forward and backward, "
+            f"{1 + cfg.mtp_depth} a step): bf16 into f32 {head['bf16_ms']} "
+            f"ms, the f32 copies' {head['f32_ms']} ms; bound "
+            f"{head['bound_ms']} ms (bf16), {head['f32_bound_ms']} ms (f32)")
     out = dict(losses=[sig(x) for x in losses],
                step_s=[sig(x) for x in seconds], median_step_s=sig(med),
                tokens_per_s=sig(B * S / med), batch=[B, S], peak_B=peak,
-               n_params=n_params, state_B=state_B, loss0=losses[0],
-               launches=launches,
+               n_params=n_params, leaves=leaves, state_B=state_B,
+               loss0=losses[0], launches=launches, mode=mode,
+               first_step_s=sig(first_s), capture_s=sig(capture_s),
+               graph_pool_B=pool_B,
                per_step_launches=per_step[0], routes=routes,
-               gmm_routes=gmm_routes, bwd_routes=bwd_routes, split=split)
+               gmm_routes=gmm_routes, bwd_routes=bwd_routes, **parts)
     if n_moe:
         out["routing"] = routing
     return out
@@ -4269,7 +4469,8 @@ def remat_phase(dry: dict, trained: dict) -> dict:
                 log(f"[17c] {arch} remat none {row['none']}")
                 continue
             c = cfg.with_(remat=remat)
-            r = train_steps(c, opt, f"17c {arch} {remat}", stream(c))
+            r = train_steps(c, opt, f"17c {arch} {remat}", stream(c),
+                            split=False)
             torch.cuda.empty_cache()
             if remat == "dots" and (
                     r["per_step_launches"] != full["per_step_launches"]
@@ -4285,8 +4486,6 @@ def remat_phase(dry: dict, trained: dict) -> dict:
             row[remat] = {k: r[k] for k in ("median_step_s", "tokens_per_s",
                                             "peak_B", "losses",
                                             "per_step_launches")}
-            row[remat]["split"] = {k: v for k, v in r["split"].items()
-                                   if k != "top"}
         row["grads"] = grads_full_vs_dots(cfg, batch_to(
             stream(cfg).next_batch(), "cuda"))
         log(f"[17c] {arch}: remat dots {row['dots']['median_step_s']} s a "
@@ -4549,10 +4748,39 @@ def mesh_phase(B: int, S: int, G: int) -> dict:
     out: dict = {"transport": {"18a": "nccl", "18b": "gloo",
                                "18c": "gloo (one rank: nccl)"}}
     torch.cuda.empty_cache()
-    # 18a
+    # 18a beside 18c's writer and the uninterrupted run, then 18c's two
+    # resumes at once (each world spends its first step's ≈ 12 s warming
+    # up, and each resume writes its last checkpoint).  18a's results are
+    # bit-equalities, which the overlap cannot change; the three worlds
+    # hold ≈ 60 GB of the card together
     t = time.perf_counter()
-    (a,) = run_ranks(mesh_rank_18a, 1, B, S, G, backend="nccl",
-                     device="cuda", timeout=MESH_TIMEOUT)
+    base = ROOT / "build" / "smoke_elastic"
+    shutil.rmtree(base, ignore_errors=True)
+    write = base / "write"
+    step4 = f"step_{ELASTIC_STEPS[0]:08d}"
+
+    def resume(shape):
+        d = base / f"resume_{shape[0]}x{shape[1]}"
+        d.mkdir(parents=True)
+        (d / step4).symlink_to(write / step4)    # the writer's checkpoint
+        return run_ranks(
+            elastic_rank, shape[0] * shape[1], shape, ELASTIC_STEPS[1],
+            str(d), backend="gloo" if shape[0] * shape[1] > 1 else "nccl",
+            device="cuda", timeout=MESH_TIMEOUT)
+
+    with ThreadPoolExecutor(3) as pool:
+        af = pool.submit(run_ranks, mesh_rank_18a, 1, B, S, G,
+                         backend="nccl", device="cuda", timeout=MESH_TIMEOUT)
+        wf = pool.submit(run_ranks, elastic_rank, 2, (1, 2),
+                         ELASTIC_STEPS[0], str(write), backend="gloo",
+                         device="cuda", timeout=MESH_TIMEOUT)
+        whole = elastic_reference()
+        w = wf.result()
+        (a,) = af.result()
+        futures = {shape: pool.submit(resume, shape)
+                   for shape in ((2, 1), (1, 1))}
+        resumes = {shape: f.result() for shape, f in futures.items()}
+    shutil.rmtree(base, ignore_errors=True)
     log(f"[18a] one rank, mesh (1, 1) over nccl: serve {B} x {S} + {G}: "
         f"tokens equal {a['serve_tokens_equal']}, prefill logits bit-equal "
         f"{a['serve_prefill_equal']}; f32 at {MESH_GATE_LAYERS} layers, "
@@ -4561,12 +4789,33 @@ def mesh_phase(B: int, S: int, G: int) -> dict:
         f"{a['f32_repeats']}); 3 bf16 training steps: losses "
         f"{a['losses']} bit-equal {a['losses_equal']}; collectives (each "
         f"over a group of one): serve {a['serve_collectives']}, train "
-        f"{a['train_collectives']}; {time.perf_counter() - t:.1f} s")
+        f"{a['train_collectives']}; {a['s']:.1f} s in the rank, beside "
+        f"18c's writer")
     if not (a["serve_tokens_equal"] and a["serve_prefill_equal"]
             and a["f32_equal"] and a["f32_repeats"] and a["losses_equal"]):
         raise AssertionError(f"18a: the (1, 1) mesh path is not the "
                              f"one-device path: {a}")
     out["a"] = {k: v for k, v in a.items()}
+    want_steps = list(range(ELASTIC_STEPS[0], ELASTIC_STEPS[1]))
+    for label, runs, steps in ((("1, 2", w, list(range(ELASTIC_STEPS[0]))),)
+                               + tuple((f"{s[0]}, {s[1]}", r, want_steps)
+                                       for s, r in resumes.items())):
+        for i, rk in enumerate(runs):
+            got = [h[0] for h in rk["hist"]]
+            losses = [h[1] for h in rk["hist"]]
+            wanted = [whole[s] for s in steps]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(losses, wanted))
+            log(f"[18c] ({label}) rank {i}: steps {got}, losses {losses} "
+                f"(uninterrupted {wanted}, largest relative gap {rel:.3g}),"
+                f" {rk['s']:.1f} s, peak {rk['peak_B']} B")
+            if got != steps or not rel <= ELASTIC_TOL:
+                raise AssertionError(f"18c ({label}) rank {i}: steps {got},"
+                                     f" losses {losses} vs {wanted}")
+    log(f"[18a] [18c] took {time.perf_counter() - t:.1f} s")
+    out["c"] = {"uninterrupted": whole, "write": [rk["hist"] for rk in w],
+                **{f"resume_{s[0]}x{s[1]}": [rk["hist"] for rk in r]
+                   for s, r in resumes.items()},
+                "s": time.perf_counter() - t}
     # the one card's run at MESH_SERVE_CF (18b's bf16 reference) and its
     # f32 logits at MESH_GATE_LAYERS layers
     cfg = get_config("olmoe-1b-7b")
@@ -4621,54 +4870,6 @@ def mesh_phase(B: int, S: int, G: int) -> dict:
     log(f"[18b] took {time.perf_counter() - t:.1f} s")
     out["b"] = [{k: v for k, v in rk.items() if k != "slot_experts"}
                 for rk in ranks]
-    # 18c: the writer's world beside the uninterrupted run, then both
-    # resumes at once (each world spends its first step's ≈ 12 s warming
-    # up, and each resume writes its last checkpoint)
-    t = time.perf_counter()
-    base = ROOT / "build" / "smoke_elastic"
-    shutil.rmtree(base, ignore_errors=True)
-    write = base / "write"
-    step4 = f"step_{ELASTIC_STEPS[0]:08d}"
-
-    def resume(shape):
-        d = base / f"resume_{shape[0]}x{shape[1]}"
-        d.mkdir(parents=True)
-        (d / step4).symlink_to(write / step4)    # the writer's checkpoint
-        return run_ranks(
-            elastic_rank, shape[0] * shape[1], shape, ELASTIC_STEPS[1],
-            str(d), backend="gloo" if shape[0] * shape[1] > 1 else "nccl",
-            device="cuda", timeout=MESH_TIMEOUT)
-
-    with ThreadPoolExecutor(2) as pool:
-        wf = pool.submit(run_ranks, elastic_rank, 2, (1, 2),
-                         ELASTIC_STEPS[0], str(write), backend="gloo",
-                         device="cuda", timeout=MESH_TIMEOUT)
-        whole = elastic_reference()
-        w = wf.result()
-        futures = {shape: pool.submit(resume, shape)
-                   for shape in ((2, 1), (1, 1))}
-        resumes = {shape: f.result() for shape, f in futures.items()}
-    shutil.rmtree(base, ignore_errors=True)
-    want_steps = list(range(ELASTIC_STEPS[0], ELASTIC_STEPS[1]))
-    for label, runs, steps in ((("1, 2", w, list(range(ELASTIC_STEPS[0]))),)
-                               + tuple((f"{s[0]}, {s[1]}", r, want_steps)
-                                       for s, r in resumes.items())):
-        for i, rk in enumerate(runs):
-            got = [h[0] for h in rk["hist"]]
-            losses = [h[1] for h in rk["hist"]]
-            wanted = [whole[s] for s in steps]
-            rel = max(abs(x - y) / abs(y) for x, y in zip(losses, wanted))
-            log(f"[18c] ({label}) rank {i}: steps {got}, losses {losses} "
-                f"(uninterrupted {wanted}, largest relative gap {rel:.3g}),"
-                f" {rk['s']:.1f} s, peak {rk['peak_B']} B")
-            if got != steps or not rel <= ELASTIC_TOL:
-                raise AssertionError(f"18c ({label}) rank {i}: steps {got},"
-                                     f" losses {losses} vs {wanted}")
-    log(f"[18c] took {time.perf_counter() - t:.1f} s")
-    out["c"] = {"uninterrupted": whole, "write": [rk["hist"] for rk in w],
-                **{f"resume_{s[0]}x{s[1]}": [rk["hist"] for rk in r]
-                   for s, r in resumes.items()},
-                "s": time.perf_counter() - t}
     return out
 
 
@@ -4724,12 +4925,12 @@ def tp_rank(rank: int) -> dict:
     ops.reset_launches()
     shd.reset_tp_routes()
     losses, seconds, coll = [], [], None
-    for step in range(TRAIN_STEPS):
+    for step in range(MESH_STEPS):
         batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         # step 1's collectives counted (the counter sees every operation:
-        # the timed steps 2-5 run without it)
+        # the timed steps after it run without it)
         with CollectiveCounter() if step == 0 else \
                 contextlib.nullcontext() as cc:
             state, met = ts.step_fn(state, batch)
@@ -4803,7 +5004,7 @@ def tp_phase(dry: dict) -> dict:
                              f": {cell.get('error', cell.get('reason'))}")
     cost = step_cost(cfg, DS7_B, DS7_S, DS7_S, 1, 2, "train")["coll_bytes"]
     stream_B = T * D * 2                  # one bf16 psum of the stream
-    want_attn = {"prefill_tc": 2 * L * TRAIN_STEPS, "decode_split": 0,
+    want_attn = {"prefill_tc": 2 * L * MESH_STEPS, "decode_split": 0,
                  "general": 0}
     b_rows = []
     for i, rk in enumerate(ranks):
@@ -4839,7 +5040,7 @@ def tp_phase(dry: dict) -> dict:
             f"{cell['memory']['peak_bytes']}), routes {rk['routes']}; "
             f"losses {rk['losses']} (19a's {a['losses']}, largest relative "
             f"gap {rel:.3g}); seconds {rk['seconds']}, median of steps "
-            f"2-{TRAIN_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
+            f"2-{MESH_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
             f"(gloo through the host, not NVLink); step 1's collectives "
             f"{c} -- {n_stream:g} all-reduces of the stream ({stream_B} B "
             f"each), {row['stream_allreduces_per_layer']:g} a layer; "
@@ -4860,7 +5061,7 @@ def tp_phase(dry: dict) -> dict:
             raise AssertionError(f"19b rank {i}: losses {rk['losses']} vs "
                                  f"19a's {a['losses']}")
         if rk["attn_routes"] != want_attn or \
-                rk["bwd_routes"]["attention_tc"] != L * TRAIN_STEPS:
+                rk["bwd_routes"]["attention_tc"] != L * MESH_STEPS:
             raise AssertionError(f"19b rank {i}: attention "
                                  f"{rk['attn_routes']}, backward "
                                  f"{rk['bwd_routes']}")
@@ -4881,8 +5082,7 @@ def tp_phase(dry: dict) -> dict:
             and f1["loss"] == f0["loss"]):
         raise AssertionError(f"19c: gradients {worst}, loss {rel32}, "
                              f"replicated equal {same}")
-    return {"a": {k: v for k, v in a.items() if k != "launches"},
-            "b": b_rows,
+    return {"a": a, "b": b_rows,
             "c": {"loss": f0["loss"], "ref_loss": f0["ref_loss"],
                   "loss_rel_gap": rel32, "worst_grad_gap": worst,
                   "replicated_equal": same}}
@@ -5096,7 +5296,7 @@ def seq_rank(rank: int) -> dict:
     ops.reset_launches()
     shd.reset_seq_routes()
     losses, seconds, digests, coll, split = [], [], [], None, None
-    for step in range(TRAIN_STEPS):
+    for step in range(MESH_STEPS):
         batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
         split = batch["seq_split"]
         torch.cuda.synchronize()
@@ -5216,14 +5416,14 @@ def seq_phase(dry: dict) -> dict:
     if cell["status"] != "ok":
         raise AssertionError(f"20: the dry run at (1, 2): {cell['status']}"
                              f": {cell.get('error', cell.get('reason'))}")
-    want_attn = {"prefill_tc": 2 * L * TRAIN_STEPS, "decode_split": 0,
+    want_attn = {"prefill_tc": 2 * L * MESH_STEPS, "decode_split": 0,
                  "general": 0}
-    want_routes = {"embed": {"seq": 0, "token": TRAIN_STEPS, "gathered": 0},
-                   "gqa": {"seq": 2 * L * TRAIN_STEPS, "token": 0,
+    want_routes = {"embed": {"seq": 0, "token": MESH_STEPS, "gathered": 0},
+                   "gqa": {"seq": 2 * L * MESH_STEPS, "token": 0,
                            "gathered": 0},
-                   "mlp": {"seq": 0, "token": 2 * L * TRAIN_STEPS,
+                   "mlp": {"seq": 0, "token": 2 * L * MESH_STEPS,
                            "gathered": 0},
-                   "head": {"seq": 0, "token": TRAIN_STEPS, "gathered": 0}}
+                   "head": {"seq": 0, "token": MESH_STEPS, "gathered": 0}}
     b_rows = []
     for i, rk in enumerate(ranks):
         med = float(np.median(rk["seconds"][1:]))
@@ -5249,14 +5449,14 @@ def seq_phase(dry: dict) -> dict:
             f"the dry run's {cell['memory']['peak_bytes']}); routes "
             f"{rk['routes']}; losses {rk['losses']} (20a's {a['losses']}, "
             f"largest relative gap {rel:.3g}); seconds {rk['seconds']}, "
-            f"median of steps 2-{TRAIN_STEPS} {med:.4f} s/step, "
+            f"median of steps 2-{MESH_STEPS} {med:.4f} s/step, "
             f"{T / med:.6g} tokens/s (gloo through the host, not NVLink); "
             f"step 1's collectives {c} (the dry run's "
             f"{cell['collectives']}); attention {rk['attn_routes']}, "
             f"backward {rk['bwd_routes']}; one more step's attention "
             f"device ms {rk['attn_device_ms']}")
         if rk["attn_routes"] != want_attn or \
-                rk["bwd_routes"]["attention_tc"] != L * TRAIN_STEPS:
+                rk["bwd_routes"]["attention_tc"] != L * MESH_STEPS:
             raise AssertionError(f"20b rank {i}: attention "
                                  f"{rk['attn_routes']}, backward "
                                  f"{rk['bwd_routes']}")
@@ -5317,8 +5517,7 @@ def seq_phase(dry: dict) -> dict:
     gates["20d"].update(baseline_collectives=sp["baseline_collectives"],
                         routes=sp["routes"])
     return {"k": k_rows,
-            "a": {k: v for k, v in a.items() if k != "launches"},
-            "b": b_rows, "attn_ms_by_rank": att, "imbalance": imbalance,
+            "a": a, "b": b_rows, "attn_ms_by_rank": att, "imbalance": imbalance,
             "c": gates["20c"], "d": gates["20d"]}
 
 
@@ -5548,7 +5747,7 @@ def falcon_rank(rank: int) -> dict:
     ops.reset_launches()
     shd.reset_tp_routes()
     losses, seconds, digests, coll = [], [], [], None
-    for step in range(TRAIN_STEPS):
+    for step in range(MESH_STEPS):
         batch = ts.local_batch(batch_to(stream.next_batch(), "cuda"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5663,11 +5862,11 @@ def falcon_phase(dry: dict, clock_hz: float, sms: int) -> dict:
                       timeout=FM_TIMEOUT)
     log(f"[21b] [21c] two ranks took {time.perf_counter() - t:.1f} s")
     cost = step_cost(cfg, FM_B, FM_S, FM_S, 1, 2, "train")["coll_bytes"]
-    want_routes = {"embed": {"tp": TRAIN_STEPS, "gathered": 0},
-                   "mamba": {"tp": 2 * L * TRAIN_STEPS, "gathered": 0},
-                   "head": {"tp": TRAIN_STEPS, "gathered": 0}}
-    want_l = {c: TRAIN_STEPS * n
-              for c, n in expected_train_launches(cfg).items()}
+    want_routes = {"embed": {"tp": MESH_STEPS, "gathered": 0},
+                   "mamba": {"tp": 2 * L * MESH_STEPS, "gathered": 0},
+                   "head": {"tp": MESH_STEPS, "gathered": 0}}
+    want_l = {c: MESH_STEPS * n
+              for c, n in expected_train_launches(cfg, a["leaves"]).items()}
     b_rows = []
     for i, rk in enumerate(ranks):
         med = float(np.median(rk["seconds"][1:]))
@@ -5696,7 +5895,7 @@ def falcon_phase(dry: dict, clock_hz: float, sms: int) -> dict:
             f" run's {cell['memory']['peak_bytes']}); routes {rk['routes']};"
             f" losses {rk['losses']} (21a's {a['losses']}, largest relative"
             f" gap {rel:.3g}); seconds {rk['seconds']}, median of steps "
-            f"2-{TRAIN_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
+            f"2-{MESH_STEPS} {med:.4f} s/step, {T / med:.6g} tokens/s "
             f"(gloo through the host, not NVLink); step 1's collectives {c}"
             f" (the dry run's {cell['collectives']}; step_cost's collective "
             f"term at tp = 2 {cost:.6g} B, counted "
@@ -5756,6 +5955,282 @@ def falcon_phase(dry: dict, clock_hz: float, sms: int) -> dict:
                   "largest_gaps": top, "whole_equal": same}}
 
 
+# ------------------------------------ 22. training as one captured step
+GRAPH_HYMBA_LAYERS = 4          # 22b: hymba-1.5b at 4 of its 32 layers
+GRAPH_OLMOE_LAYERS = 2          # 22b: olmoe-1b-7b at 2 of its 16 layers
+GRAPH_STEPS = 3
+ADAMW_TOL = 1e-6                # 22a: kernel against plain, each leaf
+# 22c: the bf16 head's loss against the f32 head's, relative (the logits
+# differ only in the order of f32 sums), and each gradient leaf within
+# the bf16 backward's GRAD_TOL of its largest entry (the cotangent of the
+# head's products rounded to bf16 once)
+HEAD_LOSS_TOL = 1e-4
+ADAMW_REPLACES = ("src/repro/optim/adamw.py:62 (jnp, fused by XLA; no "
+                  "Pallas kernel)")
+
+
+def adamw_phase() -> dict:
+    """22a: the fused AdamW kernel (``kernels.adamw``) over hymba-1.5b's
+    leaves (their shapes and dtypes: bf16, the norms f32), from random
+    gradients (bf16 or f32 as the leaf), moments and masters: one step
+    through the kernel and one through its plain version
+    (``optim.adamw.update_leaf``) from copies of one state, m, v and the
+    master within ``ADAMW_TOL`` of each leaf's largest entry (bit-equality
+    reported), the parameter the master cast; then timed: device ms (the
+    launches of every leaf in one CUDA graph, replayed), call ms (the
+    eager loop), plain ms (the plain loop, CUDA events), the bound (each
+    array read or written once, over 3.35 TB/s), and the library's time:
+    ``torch._fused_adamw_`` (its multi-tensor AdamW, decoupled decay) over
+    the f32 masters with the gradients cast to f32 beforehand (not
+    timed), the lr a device tensor and the clip as ``grad_scale`` = 1 /
+    scale, then the parameters copied from the masters
+    (``torch._foreach_copy_``): the same update, CUDA events."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    cfg = get_config("hymba-1.5b")
+    opt = adamw.AdamWConfig()
+    shapes = {n: (tuple(p.shape), p.dtype) for n, p in
+              Model(cfg, device="meta").named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    leaves = {}
+    for n, (shape, dt) in shapes.items():
+        master = rand(shape, 0.02)
+        leaves[n] = {"g": rand(shape, 1e-3).to(dt), "m": rand(shape, 1e-4),
+                     "v": rand(shape, 1e-3).square_(), "master": master,
+                     "p": master.to(dt, copy=True)}
+    plain = {n: {k: t.clone() for k, t in d.items() if k != "g"}
+             for n, d in leaves.items()}
+    sc = torch.tensor([0.5, 3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3],
+                      device="cuda")
+    consts = (opt.b1, opt.b2, opt.eps, opt.weight_decay)
+
+    def kernel():
+        for d in leaves.values():
+            kadamw.fused_update(d["g"], d["m"], d["v"], d["master"],
+                                d["p"], sc, *consts)
+
+    def plain_loop():
+        for n, d in plain.items():
+            adamw.update_leaf(opt, leaves[n]["g"], d["m"], d["v"],
+                              d["master"], d["p"], *sc.unbind())
+    ops.reset_launches()
+    kernel()
+    plain_loop()
+    torch.cuda.synchronize()
+    launches = ops.launches["adamw"]
+    gaps, equal, n_el, nbytes, abs_err = {}, True, 0, 0, 0.0
+    for n, d in leaves.items():
+        for k in ("m", "v", "master", "p"):
+            a, b = d[k].float(), plain[n][k].float()
+            err = float((a - b).abs().max())
+            abs_err = max(abs_err, err)
+            gaps[f"{n}/{k}"] = err / max(float(b.abs().max()), 1e-30)
+            equal = equal and torch.equal(d[k], plain[n][k])
+        if not torch.equal(d["p"], d["master"].to(d["p"].dtype)):
+            raise AssertionError(f"22a {n}: the parameter is not the "
+                                 f"master cast")
+        n_el += d["p"].numel()
+        nbytes += kadamw.adamw_cost(d["g"], d["m"], d["p"])[1]
+    worst = max(gaps, key=gaps.get)
+    del plain
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        kernel()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3 / 3
+    dev_ms = graph_ms(kernel, launches=1, replays=5)
+    plain = {n: {k: t.clone() for k, t in d.items() if k != "g"}
+             for n, d in leaves.items()}
+    plain_ms = time_ms(plain_loop, iters=2)
+    del plain
+    torch.cuda.empty_cache()
+    lib = {k: [d[k] for d in leaves.values()] for k in ("master", "m", "v",
+                                                         "p")}
+    g32 = [d["g"].float() for d in leaves.values()]
+    steps = [torch.full((), 3.0, device="cuda") for _ in leaves]
+    unscale = 1 / sc[0]
+
+    def library():
+        torch._fused_adamw_(lib["master"], g32, lib["m"], lib["v"], [],
+                            steps, lr=sc[1], beta1=opt.b1, beta2=opt.b2,
+                            weight_decay=opt.weight_decay, eps=opt.eps,
+                            amsgrad=False, maximize=False,
+                            grad_scale=unscale)
+        torch._foreach_copy_(lib["p"], lib["master"])
+    library_ms = time_ms(library, iters=2)
+    del leaves, lib, g32
+    torch.cuda.empty_cache()
+    row = {"name": "adamw", "leaves": len(shapes), "elements": n_el,
+           "launches_a_step": launches, "max_abs_err": abs_err,
+           "max_rel_err": gaps[worst],
+           "worst": worst, "bit_equal": equal, "ms": dev_ms,
+           "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "bytes": nbytes, "library_ms": library_ms}
+    log(f"[22a] the fused AdamW over hymba-1.5b's {len(shapes)} leaves "
+        f"({n_el} elements, {nbytes} B moved): {launches} launches a step;"
+        f" kernel against plain: worst {worst} {gaps[worst]:.3g} of its "
+        f"largest entry, every leaf bit-equal: {equal}; device "
+        f"{dev_ms:.6g} ms (one graph of every launch), call "
+        f"{call_ms:.6g} ms, plain {plain_ms:.6g} ms, bound "
+        f"{row['bound_ms']:.6g} ms (bytes); library (torch._fused_adamw_ "
+        f"on f32 gradients, then the parameters' copy) {library_ms:.6g} ms")
+    if launches != len(shapes) or not gaps[worst] <= ADAMW_TOL:
+        raise AssertionError(f"22a: {launches} launches, worst gap "
+                             f"{gaps[worst]} ({worst})")
+    return {k: sig(v) if isinstance(v, float) else v for k, v in row.items()}
+
+
+def captured_vs_eager(cfg, stream, tag: str) -> dict:
+    """22b: ``GRAPH_STEPS`` bf16 steps of ``cfg`` eagerly, then captured,
+    from seed 0 on the batches ``stream()`` draws: the losses and every
+    parameter and optimizer leaf after the steps bit-equal; each run's
+    seconds a step, the capture's seconds and its pool."""
+    import torch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    runs = {}
+    for graph in (False, True):
+        ts = build_train_step(cfg, opt, device="cuda", graph=graph)
+        state = ts.init_state(0)
+        src = stream()
+        losses, seconds, kinds = [], [], []
+        for _ in range(GRAPH_STEPS):
+            batch = batch_to(src.next_batch(), "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = ts.step_fn(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            kinds.append(ts.last_kind)
+            losses.append(met["loss"].clone())
+        leaves = {f"{part}/{n}": t for part, tree in (
+            ("params", state["params"]), ("master", state["opt"]["master"]),
+            ("m", state["opt"]["m"]), ("v", state["opt"]["v"]))
+            for n, t in tree.items()}
+        if graph:
+            equal = all(torch.equal(t, runs[False]["leaves"][k])
+                        for k, t in leaves.items())
+            same_loss = torch.equal(torch.stack(losses),
+                                    runs[False]["losses"])
+        runs[graph] = {"losses": torch.stack(losses),
+                       "leaves": {k: t.clone() for k, t in leaves.items()}
+                       if not graph else None,
+                       "kinds": kinds, "seconds": seconds,
+                       "capture_s": ts.capture_s,
+                       "graph_pool_B": ts.graph_pool_B}
+        del ts, state, leaves, met
+        torch.cuda.empty_cache()
+    cap, eager = runs[True], runs[False]
+    out = {"layers": cfg.n_layers, "losses": eager["losses"].tolist(),
+           "bit_equal_losses": same_loss, "bit_equal_state": equal,
+           "kinds": cap["kinds"], "eager_s": [sig(x) for x in
+                                                 eager["seconds"]],
+           "captured_s": [sig(x) for x in cap["seconds"]],
+           "capture_s": sig(cap["capture_s"]),
+           "graph_pool_B": cap["graph_pool_B"]}
+    log(f"[22b] {tag} ({cfg.n_layers} layers): {GRAPH_STEPS} steps eager "
+        f"{out['eager_s']} s and captured {out['captured_s']} s "
+        f"({cap['kinds']}; capture {out['capture_s']} s, graph pool "
+        f"{cap['graph_pool_B']} B); losses {out['losses']}, bit-equal: "
+        f"{same_loss}; every parameter, master, m and v bit-equal: {equal}")
+    if not (same_loss and equal):
+        raise AssertionError(f"22b {tag}: captured steps differ from eager "
+                             f"ones: {out}")
+    return out
+
+
+class F32Head:
+    """While active, the loss head multiplies through f32 copies of x and
+    the head (``x.float() @ head.float()``), as it did before the bf16
+    product (22c's yardstick; never the path)."""
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+
+        class _F32:
+            @staticmethod
+            def apply(x, head):
+                return x.float() @ head.float()
+        self._real = model_mod._HeadProduct
+        model_mod._HeadProduct = _F32
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import model as model_mod
+        model_mod._HeadProduct = self._real
+
+
+def head_phase() -> dict:
+    """22c: deepseek-7b's bf16 model at ``DS7_LAYERS`` layers from seed 0,
+    one loss and backward on a ``DS7_B`` x ``DS7_S`` batch with the head
+    multiplied bf16 by bf16 into f32 (the path) and one through f32
+    copies of x and the head (``F32Head``, as before): the loss gap
+    (relative, within ``HEAD_LOSS_TOL``) and every leaf's gradient gap as
+    a share of its largest entry (within ``GRAD_TOL`` bf16)."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import batch_to
+    cfg = ds7_config(DS7_LAYERS)
+    model = Model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)).requires_grad_(True)
+    batch = batch_to(ds7_stream(cfg, DS7_B).next_batch(), "cuda")
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = model.loss(batch)
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+    loss16, g16 = grads()
+    with F32Head():
+        loss32, g32 = grads()
+    gaps = {n: grad_gap(g16[n], g) for n, g in g32.items()}
+    del g16, g32, model
+    torch.cuda.empty_cache()
+    rel = abs(loss16 - loss32) / abs(loss32)
+    worst = max(gaps, key=gaps.get)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    out = {"layers": cfg.n_layers, "loss_bf16": loss16, "loss_f32": loss32,
+           "loss_rel_gap": rel, "worst_leaf": worst,
+           "worst_gap": gaps[worst], "head_gap": gaps[head],
+           "gaps": {n: sig(v) for n, v in gaps.items()}}
+    log(f"[22c] {cfg.name} ({cfg.n_layers} layers, {DS7_B} x {DS7_S} "
+        f"tokens): loss with the bf16 head {loss16!r}, with the f32 head "
+        f"{loss32!r} (relative gap {rel:.3g}); gradients, shares of each "
+        f"leaf's largest entry: worst {worst} {gaps[worst]:.3g}, the head "
+        f"{gaps[head]:.3g}; every leaf {out['gaps']}")
+    if not rel <= HEAD_LOSS_TOL or not gaps[worst] <= GRAD_TOL["bfloat16"]:
+        raise AssertionError(f"22c: the bf16 head's loss off by {rel}, "
+                             f"gradient {worst} off by {gaps[worst]}")
+    return {k: sig(v) if isinstance(v, float) else v for k, v in out.items()}
+
+
+def graph_phase() -> dict:
+    """Phase 22: 22a, 22b and 22c (see the module docstring)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    out = {"a": adamw_phase()}
+    hymba = hymba_layers_config(GRAPH_HYMBA_LAYERS)
+    olmoe = olmoe_config(GRAPH_OLMOE_LAYERS)
+    out["b"] = {name: captured_vs_eager(cfg, lambda cfg=cfg: (
+        SyntheticTokenStream(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))),
+        name) for name, cfg in (("hymba-1.5b", hymba),
+                                ("olmoe-1b-7b", olmoe))}
+    out["c"] = head_phase()
+    return out
+
+
 def main() -> int:
     """Check for a card and a checkout, and run the phases (``phases``)
     beside a spawned process for phase 17's dry runs, stopped at the
@@ -5775,7 +6250,7 @@ def main() -> int:
 
 
 def phases(dry_pool) -> int:
-    """Phases 1-21 (see the module docstring); phase 17's dry runs
+    """Phases 1-22 (see the module docstring); phase 17's dry runs
     (``dryrun_cells``) run in ``dry_pool`` from the end of the build
     on."""
     import torch
@@ -5789,7 +6264,8 @@ def phases(dry_pool) -> int:
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
     libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values())
-                  | set(GMM_SOURCES.values()) | set(BWD_KERNELS))
+                  | set(GMM_SOURCES.values()) | set(BWD_KERNELS)
+                  | {"adamw"})
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
@@ -5803,7 +6279,11 @@ def phases(dry_pool) -> int:
             log(f"[1] ptxas {n}: {line}")
     summary: dict = {"build_s": sig(build_s)}
     # the general routes' kernels run on the tensor cores: every
-    # instantiation's SASS holds HMMA instructions (bf16 and 3xTF32)
+    # instantiation's SASS holds HMMA instructions (bf16 and 3xTF32); the
+    # libraries' SASS dumped side by side (cuobjdump runs outside the GIL)
+    with ThreadPoolExecutor(len(WGMMA_SOURCES) + 2) as pool:
+        list(pool.map(sass_lines, [_build._lib_path(n) for n in (
+            "flash_attention", "moe_gmm", *WGMMA_SOURCES)]))
     summary["p1_tc_sass"] = {}
     for lib, prefix in (("flash_attention", "flash_kernel"),
                         ("moe_gmm", "gmm_kernel")):
@@ -5957,6 +6437,7 @@ def phases(dry_pool) -> int:
     log(f"[4] moe8 layer 0: n={hgm.n} experts, {len(hgm.edges)} edges, "
         f"{len(hgm.pins)} pins, integer mu: "
         f"{bool(np.all(hgm.mu == np.rint(hgm.mu)))}")
+    host4 = dry_pool.submit(host_partition, ("moe8",), P, eps)
     rec.reset()
     rec.shapes.clear()
     t0 = time.perf_counter()
@@ -5967,9 +6448,7 @@ def phases(dry_pool) -> int:
     l4 = dict(ops.launches)
     if rec.passes:
         raise AssertionError("float-mu instance attached the device pass")
-    t0 = time.perf_counter()
-    bm_n, rm_n = partition_with_replication(hgm, P, eps, frontier="numpy")
-    s4n = time.perf_counter() - t0
+    bm_n, rm_n, s4n = host4.result()
     if not (np.array_equal(bm_t.masks, bm_n.masks) and bm_t.cost == bm_n.cost
             and np.array_equal(rm_t.masks, rm_n.masks)
             and rm_t.cost == rm_n.cost):
@@ -5980,13 +6459,15 @@ def phases(dry_pool) -> int:
     shapes4 = Counter(rec.shapes)
     max_rows = max(r for (_, r, _) in shapes4)
     log(f"[4] cost {bm_t.cost} -> {rm_t.cost} (replicated), equal on cuda "
-        f"({s4:.2f} s) and numpy ({s4n:.2f} s); launches {l4}; "
+        f"({s4:.2f} s) and numpy ({s4n:.2f} s, beside it); launches {l4}; "
         f"front rows: max {max_rows}")
     summary["p4"] = {"cuda_s": sig(s4), "numpy_s": sig(s4n),
                      "base": bm_t.cost, "rep": rm_t.cost, "max_rows": max_rows}
 
     # --------------------------------------------------- 5. full size
-    n5 = 32768
+    # 32,768 nodes until PR 33; halved in PR 34 to keep the smoke inside
+    # its time limit (phase 5 is host-bound: 59-267 s at 32,768)
+    n5 = 16384
     hg5 = large_row_net(n5, seed=n5)
     rec.reset()
     rec.shapes.clear()
@@ -6239,7 +6720,7 @@ def phases(dry_pool) -> int:
 
     # ------------------------------------------------ 8. the V-cycle
     t8 = time.perf_counter()
-    summary["p8"] = vcycle_phase(rec, P, eps, n=16384)
+    summary["p8"] = vcycle_phase(rec, P, eps, VCYCLE_N, dry_pool)
     log(f"[8] phase 8 took {time.perf_counter() - t8:.2f} s")
     torch.cuda.empty_cache()
 
@@ -6429,6 +6910,25 @@ def phases(dry_pool) -> int:
                                  "collectives", "counted_over_step_cost",
                                  "scan_device_ms", "scan_over_21a")}
               for r in p21["b"]], "c": p21["c"], "s": p21["s"]}
+
+    # ------------------------------ 22. training as one captured step
+    t22 = time.perf_counter()
+    p22 = graph_phase()
+    p22["s"] = sig(time.perf_counter() - t22)
+    log(f"[22] phase 22 took {p22['s']:.2f} s")
+    summary["p22"] = {"a": p22["a"], "b": p22["b"],
+                      "c": {k: v for k, v in p22["c"].items()
+                            if k != "gaps"}, "s": p22["s"]}
+    summary["train_graph"] = {
+        tag: {k: p[k] for k in ("mode", "first_step_s", "capture_s",
+                                "graph_pool_B", "median_step_s", "peak_B",
+                                "head")}
+        for tag, p in (("13b", p13), ("14b", p14), ("15b", p15),
+                       ("16b", p16), ("19a", p19["a"]), ("20a", p20["a"]),
+                       ("21a", p21["a"]))}
+    for tag, row in summary["train_graph"].items():
+        if row["mode"] != "graph":
+            raise AssertionError(f"{tag} trained {row['mode']}")
 
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
@@ -6844,6 +7344,30 @@ def phases(dry_pool) -> int:
         if min(run) < 1:
             raise AssertionError(f"21: {k['name']} was not launched on "
                                  f"every run of phase 21: {run}")
+    # the fused AdamW (no TPU counterpart): the launches of every training
+    # step of phases 13b-16b, 19a, 20a and 21a (one a leaf), timed over
+    # hymba-1.5b's leaves in 22a (every leaf's launch: ms is a step's)
+    adamw_runs = (p13, p14, p15, p16, p19["a"], p20["a"], p21["a"])
+    a22 = p22["a"]
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": ADAMW_REPLACES,
+        "launches": sum(p["launches"]["adamw"] for p in adamw_runs),
+        "launches_from": "phases 13b-16b, 19a, 20a and 21a, 5 training "
+                         "steps each",
+        "max_abs_err": a22["max_abs_err"],
+        "max_rel_err": a22["max_rel_err"], "ms": a22["ms"],
+        "plain_ms": a22["plain_ms"],
+        "bound_ms": a22["bound_ms"], "bound_by": "bytes",
+        "library_ms": a22["library_ms"],
+        "library": "torch._fused_adamw_ on f32 gradients + "
+                   "torch._foreach_copy_ of the parameters",
+        "call_ms": a22["call_ms"],
+        "timed_at": "hymba-1.5b's leaves, one step's launches",
+        "launches_in_ms": a22["launches_a_step"]})
+    if min(p["launches"]["adamw"] for p in adamw_runs) < 1:
+        raise AssertionError("adamw was not launched in every training run")
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

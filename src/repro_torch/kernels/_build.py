@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures of the launchers, per source; each returns cudaError_t as int
 SIGNATURES = {
     # (rows, pc, out, R, M, stream)
@@ -92,6 +93,11 @@ SIGNATURES = {
     "mamba_scan_bwd": {
         "repro_mamba_scan_bwd": (_P,) * 21 + (_I,) * 7 + (_P,),
     },
+    # (g, m, v, master, p, scalars, n, g_bf16, m_bf16, p_bf16, b1, 1 - b1,
+    #  b2, 1 - b2, eps, weight_decay, stream); scalars 4 f32 on the device
+    "adamw": {
+        "repro_adamw": (_P,) * 6 + (_LL, _I, _I, _I) + (_F,) * 6 + (_P,),
+    },
     # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
     #  window, scale, is_bf16, splits, chunk, stream)
     "attention_decode": {
@@ -105,7 +111,7 @@ SIGNATURES = {
 PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
                 "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan",
                 "attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
-                "attention_bwd_tc", "moe_gmm_bwd_tc")
+                "attention_bwd_tc", "moe_gmm_bwd_tc", "adamw")
 build_log: dict[str, str] = {}
 
 

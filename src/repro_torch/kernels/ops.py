@@ -9,9 +9,11 @@ to the plain version.
 ``launches`` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with ``reset_launches`` and reads them afterwards to show
 which kernels its path went through.  A CUDA graph's replay runs no
-wrapper: whoever replays one books the launches its capture counted, once
-a replay (``launch_counts``, ``launch_delta``, ``set_launch_counts``,
-``add_launch_counts``; ``launch.serve.GreedyStep`` does).
+wrapper: ``Captured``, which records the port's captured steps
+(``launch.serve.GreedyStep``, ``train.step.TrainStep``), takes back the
+launches counted while recording and books them once a replay
+(``launch_counts``, ``launch_delta``, ``set_launch_counts``,
+``add_launch_counts``).
 ``front_find`` counts the device pass's finds (``front_find.cu``, the
 queued applies folded in) and
 ``front_apply`` that kernel's launches that only apply the queue
@@ -33,7 +35,9 @@ products it launches); ``bwd_route_launches`` counts the attention and
 grouped-matmul backward calls again by the route that took them
 (``flash_attention.bwd_route``, ``moe_gmm.bwd_route``):
 ``attention_tc``/``gmm_tc`` the bf16 wgmma kernels,
-``attention_general``/``gmm_general`` the f32 ones.
+``attention_general``/``gmm_general`` the f32 ones.  ``adamw`` counts
+the fused optimizer update's launches (``kernels.adamw``, one a leaf a
+step), a kernel with no TPU counterpart.
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
@@ -76,7 +80,7 @@ launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0,
                              "attention_bwd": 0, "mamba_scan_bwd": 0,
-                             "grouped_matmul_bwd": 0}
+                             "grouped_matmul_bwd": 0, "adamw": 0}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "general": 0}
 gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
@@ -89,7 +93,7 @@ bwd_route_launches: dict[str, int] = {"attention_tc": 0,
 meta_calls: dict[str, int] = {name: 0 for name in (
     "flash_attention", "attention_masked", "mamba_scan", "mamba_step",
     "grouped_matmul", "attention_bwd", "mamba_scan_bwd",
-    "grouped_matmul_bwd")}
+    "grouped_matmul_bwd", "adamw")}
 meta_cost: dict[str, float] = {"flops": 0.0, "bytes": 0.0}
 
 
@@ -160,6 +164,52 @@ def add_launch_counts(delta: tuple, times: int = 1) -> None:
     for mine, more in zip(_COUNTERS, delta):
         for name, n in more.items():
             mine[name] += times * n
+
+
+class Captured:
+    """A step recorded in a ``torch.cuda.CUDAGraph`` on a side stream of
+    its own (``device``'s).  ``warm(fn)`` runs ``fn`` eagerly on that
+    stream, so that every lazy set-up (the kernels' builds, cuBLAS's
+    workspaces, cached tables) is done before the capture; ``record(fn)``
+    records ``fn`` without running it and returns what it returned (the
+    graph's static outputs), takes back the launches counted meanwhile and
+    leaves the bytes the allocator reserved for the graph's private pool in
+    ``pool_B``; a call replays the graph and books those launches once.  A
+    capture that fails raises."""
+
+    def __init__(self, device) -> None:
+        self.stream = torch.cuda.Stream(device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.pool_B: int | None = None
+        self._launches: tuple | None = None
+
+    def warm(self, fn):
+        here = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        here.wait_stream(self.stream)
+        return out
+
+    def record(self, fn):
+        dev = self.stream.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()      # the eager steps' cache, for the pool
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            out = fn()
+        torch.cuda.synchronize(dev)
+        self.pool_B = torch.cuda.memory_reserved(dev) - reserved
+        self._launches = launch_delta(before)
+        set_launch_counts(before)
+        self.graph = graph
+        return out
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        add_launch_counts(self._launches)
 
 
 def needs_grad(*tensors) -> bool:

@@ -12,7 +12,9 @@ While it runs it holds
   own operations (the matrix products, the recompute included);
 - ``kernels.ops.meta_cost`` for the hand-written kernels, which on meta
   tensors allocate their outputs and count the FLOPs and bytes of their
-  bounds instead of launching;
+  bounds instead of launching (the fused AdamW update's bytes among them,
+  one call a leaf; the loss head's bf16 product is PyTorch's, counted
+  above, with no f32 copy of the head);
 - ``MetaMemory``, which follows every storage alive on the meta device
   from the step's arguments on, for the peak, and sums the bytes that
   each PyTorch operation reads and writes;

@@ -187,11 +187,12 @@ class GreedyStep:
 
     Called, it runs the step: eagerly, or once ``capture`` has recorded
     it, as a replay of that ``torch.cuda.CUDAGraph`` (no host work but the
-    launch).  With ``graph`` the eager steps run on the stream the capture
-    uses, so that every lazy set-up (libraries, workspaces, the caches of
-    plan tables) is done before it.  The launches counted while capturing
-    are taken back and booked once a replay.  A capture that fails
-    raises: nothing falls back to eager steps."""
+    launch).  With ``graph`` the step is held by a ``kernels.ops.Captured``
+    (``graph``), whose stream the eager steps run on, so that every lazy
+    set-up (libraries, workspaces, the caches of plan tables) is done
+    before the capture, and which books the capture's launches once a
+    replay.  A capture that fails raises: nothing falls back to eager
+    steps."""
 
     def __init__(self, model: Model, token: torch.Tensor, caches: list,
                  pos: int, graph: bool = False):
@@ -202,9 +203,7 @@ class GreedyStep:
         self.token = token.to(torch.int64).clone()
         self.pos = torch.full((), pos, dtype=torch.int32, device=dev)
         self.logits: torch.Tensor | None = None
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self._replay_launches = None
-        self._stream = torch.cuda.Stream(dev) if graph else None
+        self.graph = ops.Captured(dev) if graph else None
 
     def _step(self) -> None:
         logits, _ = self.model.decode_step(self.token, self.caches, self.pos)
@@ -213,29 +212,18 @@ class GreedyStep:
         self.logits = logits
 
     def __call__(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-            ops.add_launch_counts(self._replay_launches)
-        elif self._stream is None:
+        if self.graph is None:
             self._step()
+        elif self.graph.graph is None:
+            self.graph.warm(self._step)
         else:
-            here = torch.cuda.current_stream(self.token.device)
-            self._stream.wait_stream(here)
-            with torch.cuda.stream(self._stream):
-                self._step()
-            here.wait_stream(self._stream)
+            self.graph()
 
     def capture(self) -> None:
         """Record one step (it does not run) for the later calls."""
-        if self._stream is None:
+        if self.graph is None:
             raise RuntimeError("GreedyStep(graph=True) captures")
-        before = ops.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
-            self._step()
-        self._replay_launches = ops.launch_delta(before)
-        ops.set_launch_counts(before)
-        self.graph = graph
+        self.graph.record(self._step)
 
     def load(self, token: torch.Tensor, caches: list, pos: int) -> None:
         """Set the state to copies of ``token``, ``caches`` (of the same

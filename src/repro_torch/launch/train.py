@@ -10,7 +10,10 @@ The twin of the JAX package's ``launch/train.py``: seeded weights,
 warm-up, the fault-tolerant ``Trainer`` (checkpoints, restart from the
 latest one in ``--ckpt-dir``, under any mesh).  The default device is
 CUDA, which raises without a card; ``--device cpu`` runs the plain
-PyTorch versions (use ``--reduced`` there).
+PyTorch versions (use ``--reduced`` there).  On one card the step is
+captured in a CUDA graph at the first step and replayed (``train.step``);
+the launcher prints the form and the capture's seconds.  On the CPU and
+over a mesh it runs eagerly.
 
 ``--mesh DxM`` trains over D data ranks by M model ranks ('data',
 'model'), spawned one process each (gloo on the CPU, e.g. ``--mesh 1x2
@@ -90,7 +93,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          backend=backend, device=args.device,
                          timeout=24 * 3600)[0]
     else:
-        _, hist = Trainer(*targs, device=args.device).run()
+        trainer = Trainer(*targs, device=args.device)
+        _, hist = trainer.run()
+        ts = trainer.ts
+        print(f"[train] step form {ts.mode}"
+              + (f", capture {ts.capture_s:.3f} s (graph pool "
+                 f"{ts.graph_pool_B} B)" if ts.capture_s is not None
+                 else ""))
     if hist:
         print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
               f"{hist[-1]['loss']:.4f} over {len(hist)} steps")

@@ -29,9 +29,9 @@ enter ``forward`` and ``prefill``; decode reads their cached keys and
 values.  A sliding window's ``k``/``v`` is a ring (``models.layers``).
 ``decode_step`` writes the caches in place, at a position held on the
 device, so that one step can be captured in a CUDA graph and replayed
-(``launch.serve.GreedyStep``); its head, and prefill's, multiply as the
-JAX package's does, bf16 by bf16 into f32 on the card (``logits_fn``'s
-``serve``).
+(``launch.serve.GreedyStep``).  The head of a bf16 model multiplies as
+the JAX package's does, bf16 by bf16 into f32, in the loss and in serving
+alike (``logits_fn``, ``_HeadProduct``).
 
 The multi-token prediction module (``mtp``, one entry per depth: ``proj``,
 ``ln`` and a one-layer dense ``block`` with the last segment's attention)
@@ -327,6 +327,53 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 def _save_dots(ctx, op, *args, **kwargs):
     return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 (or f16) matrices, accumulated and returned
+    in f32: ``torch.mm``'s ``out_dtype`` off the CPU (no f32 copy of
+    either operand), the same values upcast on the CPU, which has no such
+    product.  Products of bf16 values are exact in f32, so the two differ
+    only in the order of the sums."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _HeadProduct(torch.autograd.Function):
+    """The head of a bf16 (or f16) model, x (T, D) @ head (D, V) -> f32
+    logits, as the JAX package multiplies it: ``jnp.einsum(...,
+    preferred_element_type=jnp.float32)`` of the model's own dtypes.
+
+    The backward follows what JAX does with that einsum.  Its transpose
+    rule (``_dot_general_transpose_lhs`` and ``_rhs`` in
+    ``jax/_src/lax/lax.py``) multiplies the f32 cotangent by the other,
+    bf16 operand into f32 and casts the result to the operand's dtype;
+    at default precision the TPU multiplies f32 operands in one bf16
+    pass, so the cotangent enters that product rounded to bf16.  Here the
+    cotangent from the cross-entropy is rounded to the model's dtype once,
+    dX = dL · headᵀ and dHead = xᵀ · dL are bf16 products accumulated in
+    f32 (``_mm_f32``), and each is cast to its operand's dtype.  Against
+    the f32 product that an f32 copy of the head would give, the one
+    difference that is not the order of sums is that rounding of the
+    cotangent.  Nothing of the head is copied in f32: the saved tensors
+    are x and the head themselves."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, head)
+        return _mm_f32(x, head)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, head = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dhead = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, head.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dhead = _mm_f32(x.t(), g).to(head.dtype)
+        return dx, dhead
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor,
@@ -680,17 +727,14 @@ class Model(nn.Module):
                              "batch['image_embeds'], (B, N, d_model)")
         return None if img is None else img.to(self.dtype)
 
-    def logits_fn(self, x: torch.Tensor, serve: bool = False
-                  ) -> torch.Tensor:
+    def logits_fn(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head, accumulated in f32 (B, S, V); where the
         head runs tensor-parallel, this rank's slice of the vocabulary
-        (B, S, V / ranks), which ``_xent`` takes with its ``tp``.  The
-        product is f32 by f32; with ``serve`` (prefill's last token and
-        the decode step) off the CPU, a bf16 or f16 model multiplies its
-        own dtypes into f32 (``torch.mm``'s ``out_dtype``), as the JAX
-        package's ``preferred_element_type`` does, with no f32 copy of
-        the head: products of bf16 values are exact in f32, so only the
-        order of the sums differs."""
+        (B, S, V / ranks), which ``_xent`` takes with its ``tp``.  An f32
+        model multiplies f32 by f32; a bf16 or f16 model multiplies its
+        own dtypes into f32 (``_HeadProduct``, in the loss, prefill and
+        the decode step alike), as the JAX package's
+        ``preferred_element_type`` does, with no f32 copy of the head."""
         x = L.rmsnorm(x, self.final_ln, self.cfg.norm_eps)
         tie = self.cfg.tie_embeddings
         if self._tp(None, "head") is None:
@@ -698,11 +742,11 @@ class Model(nn.Module):
         else:
             head = (self._vocab_rows("embed").T if tie
                     else self._vocab_rows("lm_head"))
-        if serve and x.device.type != "cpu" and x.dtype != torch.float32:
-            B, S, D = x.shape
-            return torch.mm(x.reshape(B * S, D), head,
-                            out_dtype=torch.float32).reshape(B, S, -1)
-        return x.float() @ head.float()
+        if x.dtype == torch.float32:
+            return x.float() @ head.float()
+        B, S, D = x.shape
+        return _HeadProduct.apply(x.reshape(B * S, D), head).reshape(B, S,
+                                                                     -1)
 
     def forward(self, batch: dict, mode: str = "a2a"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -738,7 +782,8 @@ class Model(nn.Module):
         elif self.cfg.remat != "full":
             raise ValueError(f"unknown remat {self.cfg.remat!r}")
         return ckpt.checkpoint(self._block, lp, x, seg, mode, img, seq,
-                               use_reentrant=False, **kw)
+                               use_reentrant=False, preserve_rng_state=False,
+                               **kw)
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """The JAX package's training loss: the mean next-token
@@ -861,7 +906,7 @@ class Model(nn.Module):
 
     def prefill(self, batch: dict, max_len: int):
         """Run the full prompt; return (last-token logits (B, 1, V) f32,
-        from the serving head, ``logits_fn``'s ``serve``; caches).  As in
+        from ``logits_fn``; caches).  As in
         the JAX package, each layer's cache is built by a
         second pass over its input (``_prefill_layer_cache``), so the SSM
         mixer runs twice per layer and a vision group's every sub-layer
@@ -878,7 +923,7 @@ class Model(nn.Module):
                                                             max_len, img))
                 x = y
             caches.append(seg_caches)
-        return self.logits_fn(x[:, -1:], serve=True), caches
+        return self.logits_fn(x[:, -1:]), caches
 
     def _prefill_layer_cache(self, lp, x_in: torch.Tensor, seg: Segment,
                              max_len: int,
@@ -912,7 +957,7 @@ class Model(nn.Module):
         ``pos`` (``launch.serve.GreedyStep`` holds one and adds one to it
         on the device), or a Python int.  Writes every layer's cache in
         ``caches`` (this model's, from ``prefill`` or ``init_cache``) in
-        place; returns (logits (B, 1, V) f32 from the serving head,
+        place; returns (logits (B, 1, V) f32 from ``logits_fn``,
         ``caches``: the same list)."""
         self._whole_leaves()
         if self.cfg.frame_input:
@@ -924,7 +969,7 @@ class Model(nn.Module):
                                           caches):
             for lp, c in zip(layers, seg_cache):
                 x = self._decode_block(lp, x, seg, c, pos)
-        return self.logits_fn(x, serve=True), caches
+        return self.logits_fn(x), caches
 
     def _decode_block(self, lp, x: torch.Tensor, seg: Segment, cache: dict,
                       pos: "L.StepPos") -> torch.Tensor:

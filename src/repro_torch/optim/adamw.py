@@ -6,12 +6,15 @@ f32 master copy of every parameter and the moments ``m`` (bf16 with
 ``compress_moments``, else f32) and ``v`` (f32), each a dict keyed like
 the parameters.  ``apply_updates`` follows the reference's formula exactly
 -- clip by the global norm, decoupled weight decay on the master, the
-parameters cast from the master -- in f32 on the device, one parameter at
-a time (so the f32 temporaries are one parameter's size).  Not
-``torch.optim.AdamW``, whose update differs (it decays the parameter, not
-an f32 master, and clips nothing).  Under a mesh ``train.step`` hands it
-each rank's blocks (under ZeRO their data slices) and the global gradient
-norm.
+parameters cast from the master -- in f32 on the device: the norm, the
+clip scale and the schedule as tensors on the device, then each leaf's
+update, on the card one launch of the fused kernel a leaf
+(``kernels.adamw``, whose scalars it reads from the device), on the CPU
+``update_leaf``, its plain version (a leaf's f32 temporaries at a time).
+Not ``torch.optim.AdamW``, whose update differs (it decays the parameter,
+not an f32 master, and clips nothing).  Under a mesh ``train.step`` hands
+it each rank's blocks (under ZeRO their data slices) and the global
+gradient norm.
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import dataclasses
 import math
 
 import torch
+
+from ..kernels import adamw as fused
+from ..kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +52,14 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(cfg: AdamWConfig, params: dict) -> dict:
     """Step 0, the f32 master copy and zero moments of ``params`` (a dict
-    of tensors), on their devices."""
+    of tensors), on their devices, each contiguous."""
     mdt = torch.bfloat16 if cfg.compress_moments else torch.float32
     dev = next(iter(params.values())).device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
-        "master": {n: p.detach().float().clone() for n, p in params.items()},
+        "master": {n: p.detach().float().clone(
+            memory_format=torch.contiguous_format)
+            for n, p in params.items()},
         "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
               for n, p in params.items()},
         "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -60,13 +68,32 @@ def init_state(cfg: AdamWConfig, params: dict) -> dict:
 
 
 @torch.no_grad()
+def update_leaf(cfg: AdamWConfig, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, master: torch.Tensor, p: torch.Tensor,
+                scale: torch.Tensor, lr: torch.Tensor, b1c: torch.Tensor,
+                b2c: torch.Tensor) -> None:
+    """One leaf's update in place, eager elementwise operations: the
+    fused kernel's plain version (``kernels.adamw``), in its order."""
+    g = g.float() * scale
+    # m.float() is m itself in f32: updated in place either way
+    m_new = m.float().mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    if m_new is not m:
+        m.copy_(m_new)               # bf16 moment, rounded once
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    delta = (m_new / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+        + cfg.weight_decay * master
+    master.sub_(lr * delta)
+    p.copy_(master)
+
+
+@torch.no_grad()
 def apply_updates(cfg: AdamWConfig, state: dict, grads: dict,
                   params: dict, gnorm: torch.Tensor | None = None) -> dict:
     """One AdamW step from ``grads`` (a dict keyed like ``params``): the
     state's step, master and moments and the parameters are updated in
-    place.  ``gnorm``, the global gradient norm, defaults to that of
-    ``grads``.  Returns {"grad_norm", "lr"} (f32 scalars, unclipped
-    norm)."""
+    place, with no read back to the host.  ``gnorm``, the global gradient
+    norm, defaults to that of ``grads``.  Returns {"grad_norm", "lr"} (f32
+    scalars on the device, unclipped norm)."""
     state["step"].add_(1)
     step = state["step"]
     if gnorm is None:
@@ -78,16 +105,14 @@ def apply_updates(cfg: AdamWConfig, state: dict, grads: dict,
     sf = step.float()
     b1c = 1 - torch.pow(cfg.b1, sf)
     b2c = 1 - torch.pow(cfg.b2, sf)
+    scalars = None
     for n, p in params.items():
-        g = grads[n].float() * scale
         m, v, master = state["m"][n], state["v"][n], state["master"][n]
-        # m.float() is m itself in f32: updated in place either way
-        m_new = m.float().mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        if m_new is not m:
-            m.copy_(m_new)               # bf16 moment, rounded once
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        delta = (m_new / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * master
-        master.sub_(lr * delta)
-        p.copy_(master)
+        if not ops.use_kernel(p):
+            update_leaf(cfg, grads[n], m, v, master, p, scale, lr, b1c, b2c)
+            continue
+        if scalars is None:
+            scalars = torch.stack([scale, lr, b1c, b2c])
+        fused.fused_update(grads[n], m, v, master, p, scalars, cfg.b1,
+                           cfg.b2, cfg.eps, cfg.weight_decay)
     return {"grad_norm": gnorm, "lr": lr}

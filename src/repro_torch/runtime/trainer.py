@@ -9,7 +9,10 @@
     at most ``max_failures`` times (``failure_hook(step)`` injects
     failures);
   * straggler watchdog: a step slower than ``straggler_factor`` times the
-    trailing median is logged and counted;
+    trailing median is logged and counted.  On one card the step is
+    captured (``train.step``): the step that captures -- the first after a
+    start or a restart, which runs eagerly and then records the graph --
+    is booked apart (``capture_times``), not against the replays' median;
   * elastic re-scaling: under a mesh every rank draws the same global
     batch and takes its part (``TrainStep.local_batch``: its rows, and
     under ``dp_seq`` its block of the sequence); checkpoints hold full
@@ -58,7 +61,9 @@ class Trainer:
                  *, device: str | torch.device = "cuda", failure_hook=None,
                  mesh=None, capacity_factor: float | None = None):
         """``mesh``: train as this process's rank of it.  ``capacity_factor``
-        (an MoE model): the round-robin plan's, over the model axis."""
+        (an MoE model): the round-robin plan's, over the model axis.  On
+        one card without a mesh the step is captured
+        (``build_train_step``'s default)."""
         self.cfg = cfg
         self.mesh = mesh
         self.tcfg = tcfg
@@ -66,6 +71,7 @@ class Trainer:
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
         self.failure_hook = failure_hook or (lambda step: None)
         self.step_times: list[float] = []
+        self.capture_times: list[float] = []
         self.stragglers = 0
         plan = None
         if cfg.n_experts and capacity_factor is not None:
@@ -112,11 +118,15 @@ class Trainer:
                 state, metrics = self.ts.step_fn(state, batch)
                 loss = float(metrics["loss"])
                 dt = time.monotonic() - t0
-                self._watch_straggler(dt, step)
+                kind = self.ts.last_kind
+                if kind == "capture":
+                    self.capture_times.append(dt)
+                else:
+                    self._watch_straggler(dt, step)
                 if not math.isfinite(loss):
                     raise FloatingPointError(f"non-finite loss at {step}")
                 metrics_hist.append({"step": step, "loss": loss,
-                                     "seconds": dt})
+                                     "seconds": dt, "kind": kind})
                 step += 1
                 if step % self.tcfg.ckpt_every == 0 or step == self.tcfg.steps:
                     self.ckpt.save_async(

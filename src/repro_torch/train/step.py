@@ -10,7 +10,28 @@ across from the JAX package) is copied into the model at the next step.
 
 On a CUDA device the forward passes run the attention and scan kernels and
 the backward passes their backward kernels (``kernels.ops``); the model's
-``remat`` recomputes each layer in the backward pass.
+``remat`` recomputes each layer in the backward pass; AdamW runs as one
+fused kernel a leaf (``kernels.adamw``).
+
+On one card without a mesh the step is captured, the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``: the first
+``step_fn`` runs eagerly on a side stream (the kernels built, the
+workspaces allocated), then one step is recorded in a
+``torch.cuda.CUDAGraph`` without running, and every later call copies its
+batch into the graph's static buffers and replays it.  The graph owns the
+state it was captured on -- the model's parameters and the optimizer's
+step, master, m and v -- as the donated state of the reference: a state
+of other tensors (a checkpoint restored, a state carried across from the
+JAX package) is copied into them in place, and the state returned is
+always the graph's.  The metrics are the graph's static tensors, which
+the next replay overwrites.  The capture is a ``kernels.ops.Captured``,
+as serving's ``launch.serve.GreedyStep`` is: the launches counted while
+recording are taken back and booked once a replay.  ``init_state``
+builds a new model and drops the graph, so the next step captures again;
+a batch of another shape raises; a capture that fails raises, and nothing
+falls back to eager steps.  On the CPU, on the
+meta device and under a mesh (whose collectives go through the host over
+gloo) the step runs eagerly (``TrainStep.mode``).
 
 Under a mesh (``build_train_step(..., mesh=...)``) the step is explicit
 SPMD.  The placements are the reference's (``batch_specs``,
@@ -61,10 +82,12 @@ whole over 'model'.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..models.config import ModelConfig
 from ..models.model import Model, causal_lm
 from ..models.moe import PlacementPlan
@@ -179,19 +202,43 @@ def state_shardings(cfg: ModelConfig, mesh, shapes: dict,
 
 @dataclasses.dataclass
 class TrainStep:
+    """One training step of ``cfg`` (``step_fn``).  ``graph``: captured
+    once in a CUDA graph and replayed (one card, no mesh; see the module
+    docstring), else eager.  After each ``step_fn``, ``last_kind`` says
+    how it ran -- ``"eager"``, ``"capture"`` (eagerly, then recorded) or
+    ``"replay"`` -- and a capture leaves its seconds in ``capture_s`` and
+    the bytes the allocator reserved for the graph's private pool while
+    recording it (the pool's peak, rounded up to the allocator's segments)
+    in ``graph_pool_B``."""
     cfg: ModelConfig
     opt_cfg: adamw.AdamWConfig
     device: torch.device
     model: Model | None = None
     mesh: object = None
     plan: PlacementPlan | None = None
+    graph: bool = False
+    last_kind: str | None = None
+    capture_s: float | None = None
+    graph_pool_B: int | None = None
     _specs: dict | None = dataclasses.field(default=None, repr=False)
+    _graph: ops.Captured | None = dataclasses.field(default=None,
+                                                    repr=False)
+    _batch: dict | None = dataclasses.field(default=None, repr=False)
+    _state: dict | None = dataclasses.field(default=None, repr=False)
+    _metrics: dict | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def mode(self) -> str:
+        """``"graph"`` (captured and replayed) or ``"eager"``."""
+        return "graph" if self.graph else "eager"
 
     def init_state(self, seed: int = 0) -> dict:
         """A fresh model drawn from ``torch.Generator(device)`` seeded with
         ``seed`` (none on the meta device, whose draws make no numbers),
         gradients on, and AdamW's initial state; under a mesh, this rank's
-        blocks of both."""
+        blocks of both.  Drops a captured step: the next one captures
+        again, on the new model."""
+        self.drop_graph()
         self.model = None     # the old weights go before the new are drawn
         gen = (None if self.device.type == "meta"
                else torch.Generator(device=self.device).manual_seed(seed))
@@ -369,24 +416,103 @@ class TrainStep:
     def step_fn(self, state: dict, batch: dict) -> tuple[dict, dict]:
         """One step on ``batch``: ``grads`` then ``update``.  Returns (the
         state, updated in place, and the metrics: ``loss``, ``ce``,
-        ``aux``, ``grad_norm``, ``lr``, as 0-d tensors)."""
+        ``aux``, ``grad_norm``, ``lr``, as 0-d tensors on the device).
+        Captured (``graph``): the first call runs eagerly and records the
+        step, later calls replay it on the graph's own state and static
+        batch, into which ``state`` and ``batch`` are copied where they
+        are other tensors."""
+        if not self.graph:
+            self.last_kind = "eager"
+            return self._eager_step(state, batch)
+        if self._graph is None:
+            return self._capture(state, batch)
+        self._load(state, batch)
+        self._graph()
+        self.last_kind = "replay"
+        return self._state, self._metrics
+
+    def _eager_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
         params, metrics = self.grads(state, batch)
         metrics.update(self.update(state, params))
         return {"params": params, "opt": state["opt"]}, metrics
+
+    def _capture(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        """The first captured step: one step eagerly on the static batch, a
+        copy of ``batch``, on the capture's stream (``ops.Captured.warm``),
+        then the step recorded, not run, on the state it left."""
+        if self.model is None:
+            self.init_state(0)
+        self._batch = {k: v.clone() for k, v in batch.items()}
+        graph = ops.Captured(self.device)
+        state, metrics = graph.warm(
+            lambda: self._eager_step(state, self._batch))
+        self._state = state
+        t0 = time.perf_counter()
+        self._metrics = graph.record(
+            lambda: self._eager_step(state, self._batch)[1])
+        self.capture_s = time.perf_counter() - t0
+        self.graph_pool_B = graph.pool_B
+        self._graph = graph
+        self.last_kind = "capture"
+        return state, metrics
+
+    def _load(self, state: dict, batch: dict) -> None:
+        """Copy ``batch`` into the static batch (same keys, shapes and
+        dtypes, else raise) and ``state`` into the graph's own tensors
+        where it holds others."""
+        mine = self._batch
+        if batch.keys() != mine.keys() or any(
+                batch[k].shape != mine[k].shape
+                or batch[k].dtype != mine[k].dtype for k in mine):
+            raise ValueError(
+                "the captured step takes batches of its first batch's "
+                f"keys, shapes and dtypes: "
+                f"{ {k: tuple(v.shape) for k, v in mine.items()} }, got "
+                f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+        for k, v in batch.items():
+            if v is not mine[k]:
+                mine[k].copy_(v)
+        self._bind(state["params"])
+        own, theirs = self._state["opt"], state["opt"]
+        if theirs is own:
+            return
+        with torch.no_grad():
+            if theirs["step"] is not own["step"]:
+                own["step"].copy_(theirs["step"])
+            for part in ("master", "m", "v"):
+                for n, t in own[part].items():
+                    if theirs[part][n] is not t:
+                        t.copy_(theirs[part][n])
+
+    def drop_graph(self) -> None:
+        """Drop the captured step, its graph and its private pool (freed
+        once nothing holds its metrics): the next step captures again."""
+        self._graph = self._batch = self._state = self._metrics = None
 
 
 def build_train_step(cfg: ModelConfig,
                      opt_cfg: adamw.AdamWConfig | None = None, *,
                      mesh=None, plan: PlacementPlan | None = None,
-                     device: str | torch.device = "cuda") -> TrainStep:
+                     device: str | torch.device = "cuda",
+                     graph: bool | None = None) -> TrainStep:
     """The step of ``cfg`` on ``device`` (default CUDA, which raises
     without a card), as one rank of ``mesh`` where given; its model is
     drawn by ``init_state`` (or seed 0 at the first step).  ``plan`` places
-    the experts (default: the round robin over the model axis)."""
+    the experts (default: the round robin over the model axis).  ``graph``
+    (default: on one CUDA card without a mesh) captures the step once and
+    replays it; ``graph=True`` anywhere else raises, ``graph=False`` runs
+    it eagerly."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_train_step on device 'cuda', but no CUDA "
                            "device is available; pass device='cpu' for the "
                            "plain PyTorch versions")
+    on_card = dev.type == "cuda" and mesh is None
+    if graph is None:
+        graph = on_card
+    elif graph and not on_card:
+        raise ValueError(f"a captured step runs on one CUDA card without a "
+                         f"mesh, not on {dev}"
+                         + (" under a mesh" if mesh is not None else ""))
     return TrainStep(cfg, opt_cfg or adamw.AdamWConfig(), dev, mesh=mesh,
-                     plan=plan)
+                     plan=plan, graph=graph)

@@ -914,16 +914,19 @@ def test_captured_decode_matches_eager_in_place(cuda, arch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b"])
 def test_serving_head_multiplies_bf16_into_f32(cuda, no_tf32, arch):
-    """The serving head (bf16 by bf16 into f32, tied or not) against the
-    f32 product of the same values: the products are exact in f32, only
-    the order of the sums differs."""
+    """The head of a bf16 model (bf16 by bf16 into f32, tied or not)
+    against the f32 product of the same values: the products are exact in
+    f32, only the order of the sums differs."""
+    from repro_torch.models import layers as L
     cfg = reduce_config(get_config(arch)).with_(d_model=2048, vocab=32768,
                                                 dtype="bfloat16")
     model = make_model(cfg, device=cuda, seed=5)
     x = torch.randn((3, 2, cfg.d_model), device=cuda).bfloat16()
     with torch.inference_mode():
-        got = model.logits_fn(x, serve=True)
-        want = model.logits_fn(x)
+        got = model.logits_fn(x)
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        want = L.rmsnorm(x, model.final_ln, cfg.norm_eps).float() \
+            @ head.float()
     assert got.dtype == want.dtype == torch.float32
     assert got.shape == want.shape == (3, 2, cfg.vocab)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
@@ -1530,3 +1533,144 @@ def test_hubert_train_step_kernel_path_matches_plain_path(cuda, no_tf32,
     for n, g in grads["ref"].items():
         assert torch.isfinite(grads["cuda"][n]).all(), n
         assert _grad_gap(grads["cuda"][n], g) <= tol, n
+
+
+# ---------------------------------------- the fused AdamW update, captured
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 2 ** 20 + 3])
+@pytest.mark.parametrize("m_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_matches_plain_version(cuda, p_dtype, m_dtype, n, view):
+    """``csrc/adamw.cu`` against the plain per-leaf update on the card,
+    two steps from random moments: within 1e-6 of each state leaf's
+    largest entry, the parameter the master cast.  ``view``: every array
+    one element into a larger buffer, which takes the scalar path."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    g = torch.Generator(device=cuda).manual_seed(n)
+
+    def make(dtype, scale=1.0, positive=False):
+        t = torch.randn(n + int(view), generator=g, device=cuda) * scale
+        t = (t.abs() if positive else t).to(dtype)
+        return t[1:] if view else t
+
+    master = make(torch.float32)
+    mine = {"m": make(m_dtype, 0.1), "v": make(torch.float32, 0.01, True),
+            "master": master, "p": master.to(p_dtype, copy=True)}
+    if view:
+        mine["p"] = make(p_dtype)
+        mine["p"].copy_(master)
+    plain = {k: t.clone() for k, t in mine.items()}
+    ops.reset_launches()
+    for step in (1, 2):
+        grad = make(p_dtype, 3.0)
+        sc = torch.tensor([0.7, 1e-2 * step / 2, 1 - 0.9 ** step,
+                           1 - 0.95 ** step], device=cuda)
+        kadamw.fused_update(grad, mine["m"], mine["v"], mine["master"],
+                            mine["p"], sc, cfg.b1, cfg.b2, cfg.eps,
+                            cfg.weight_decay)
+        adamw.update_leaf(cfg, grad, plain["m"], plain["v"],
+                          plain["master"], plain["p"], *sc.unbind())
+    torch.cuda.synchronize()
+    assert ops.launches["adamw"] == 2
+    for k in ("m", "v", "master"):
+        assert _grad_gap(mine[k], plain[k]) <= 1e-6, k
+    assert torch.equal(mine["p"], mine["master"].to(p_dtype))
+
+
+def _captured_and_eager(cuda, arch: str, steps: int = 3):
+    """``steps`` bf16 steps of reduced ``arch`` captured and eagerly, from
+    the same weights and batches: each run's losses, final state and
+    launch counts."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import batch_to, build_train_step
+    cfg = _train_small(arch, "bfloat16")
+    out = {}
+    for graph in (True, False):
+        stream = SyntheticTokenStream(cfg, DataConfig(2, 128, seed=3))
+        ts = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                              device=cuda, graph=graph)
+        state = ts.init_state(5)
+        ops.reset_launches()
+        losses, kinds, ptrs = [], [], set()
+        for _ in range(steps):
+            state, met = ts.step_fn(state, batch_to(stream.next_batch(),
+                                                    cuda))
+            losses.append(met["loss"].clone())
+            kinds.append(ts.last_kind)
+            ptrs.add(state["opt"]["master"]["final_ln"].data_ptr())
+        torch.cuda.synchronize()
+        out[graph] = dict(ts=ts, losses=torch.stack(losses), kinds=kinds,
+                          ptrs=ptrs, launches=ops.launch_counts(),
+                          state={f"{part}/{n}": t for part, tree in (
+                              ("params", state["params"]),
+                              ("master", state["opt"]["master"]),
+                              ("m", state["opt"]["m"]),
+                              ("v", state["opt"]["v"])) for n, t in
+                              tree.items()})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "olmoe-1b-7b"])
+def test_captured_train_steps_equal_eager_steps(cuda, arch):
+    """Three captured steps (the first eager on the capture's stream, then
+    two replays) against three eager steps: losses and every state leaf
+    bit-equal, the graph's state kept in place, the launches booked as
+    the eager steps count them (the fused AdamW's among them)."""
+    runs = _captured_and_eager(cuda, arch)
+    cap, eager = runs[True], runs[False]
+    assert cap["ts"].mode == "graph" and eager["ts"].mode == "eager"
+    assert cap["kinds"] == ["capture", "replay", "replay"]
+    assert cap["ts"].capture_s > 0 and cap["ts"].graph_pool_B > 0
+    assert len(cap["ptrs"]) == 1
+    assert torch.equal(cap["losses"], eager["losses"])
+    for k, t in eager["state"].items():
+        assert torch.equal(cap["state"][k], t), k
+    assert cap["launches"] == eager["launches"]
+    leaves = len(dict(eager["ts"].model.named_parameters()))
+    assert cap["launches"][0]["adamw"] == 3 * leaves
+
+
+@pytest.mark.cuda
+def test_trainer_restarts_a_captured_step_on_cuda(cuda, tmp_path):
+    """The trainer on one card, captured: a failure injected at step 5
+    restores step 3's checkpoint into a new model and captures again; the
+    losses and the final state equal an uninterrupted run's bit for bit,
+    and each capture is booked apart from the replays."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    boom = {"armed": True}
+
+    def failure_hook(step):
+        if step == 5 and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("injected chip failure")
+
+    def run(d, hook=None):
+        tr = Trainer(_train_small("smollm-135m", "bfloat16"),
+                     DataConfig(2, 128), TrainerConfig(
+                         steps=8, ckpt_every=3, ckpt_dir=str(d),
+                         log_every=100),
+                     AdamWConfig(lr=1e-3, total_steps=8), device=cuda,
+                     failure_hook=hook)
+        state, hist = tr.run()
+        assert tr.ts.mode == "graph"
+        return tr, state, hist
+    tr_a, whole, hist_a = run(tmp_path / "a")
+    tr_b, state, hist_b = run(tmp_path / "b", failure_hook)
+    assert not boom["armed"]
+    assert [h["kind"] for h in hist_a] == ["capture"] + ["replay"] * 7
+    assert [h["step"] for h in hist_b] == [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
+    assert len(tr_a.capture_times) == 1 and len(tr_b.capture_times) == 2
+    assert [h["loss"] for h in hist_b[5:]] == [h["loss"]
+                                               for h in hist_a[3:]]
+    for part in ("params", "master", "m", "v"):
+        mine = whole["params"] if part == "params" else whole["opt"][part]
+        theirs = state["params"] if part == "params" else state["opt"][part]
+        for n, t in mine.items():
+            assert torch.equal(t, theirs[n]), (part, n)

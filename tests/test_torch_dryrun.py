@@ -287,7 +287,9 @@ def test_run_cell_reduced(arch, kind, monkeypatch):
     assert r["status"] == "ok" and r["chips"] == 1
     assert r["leaves"] == leaves == r["params"]
     assert r["state_bytes"] == (state if kind == "train" else None)
-    assert r["kernel_calls"] == calls
+    # a training step also makes the fused AdamW's call, one a leaf
+    assert r["kernel_calls"] == (dict(calls, adamw=len(params))
+                                 if kind == "train" else calls)
     assert r["cost"]["flops"] / r["step_cost"]["flops"] == pytest.approx(
         ratio, rel=1e-6)
     assert r["collectives"]["total_bytes"] == 0
@@ -314,6 +316,35 @@ def test_run_cell_remat_dots_recomputes_the_kernels(arch, ratio):
     # than "none"
     peaks = {k: c["memory"]["peak_bytes"] for k, c in cells.items()}
     assert peaks["full"] < peaks["dots"] < peaks["none"]
+
+
+def test_head_product_on_meta_keeps_no_f32_copy():
+    """The bf16 head of the loss on meta (``models.model._HeadProduct``):
+    its forward and backward count the FLOPs of the three products that
+    the f32 head's did (2 T D V each), and its peak holds no f32 copy of x
+    or of the head (T D 4 + D V 4 bytes), only the cotangent rounded to
+    bf16 (T V 2): below the f32 head's at tokens = d_model, as in
+    training's steps (8192 and 7168 for the deepseek-v3 cut)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models.model import _HeadProduct
+    T, D, V = 64, 64, 256
+    results = {}
+    for name, fn in (("bf16", _HeadProduct.apply),
+                     ("f32", lambda x, h: x.float() @ h.float())):
+        x = torch.empty(T, D, dtype=torch.bfloat16, device=META,
+                        requires_grad=True)
+        h = torch.empty(D, V, dtype=torch.bfloat16, device=META,
+                        requires_grad=True)
+        flops = FlopCounterMode(display=False)
+        with dryrun.MetaMemory() as mem, flops:
+            mem.hold((x, h))
+            y = fn(x, h)
+            assert y.dtype == torch.float32 and y.shape == (T, V)
+            y.backward(torch.empty(T, V, device=META))
+        assert x.grad.dtype == h.grad.dtype == torch.bfloat16
+        results[name] = (flops.get_total_flops(), mem.peak)
+    assert results["bf16"][0] == results["f32"][0] == 3 * 2 * T * D * V
+    assert results["bf16"][1] < results["f32"][1]
 
 
 def test_meta_memory_by_hand():
@@ -374,7 +405,7 @@ def test_cli_mesh_prices_the_sequence_split(tmp_path, monkeypatch):
     leaves = 2 + 9 * L
     assert c["counts"]["all-reduce"] == 2 + leaves    # the loss, the grads
     assert r["kernel_calls"] == {"flash_attention": 2 * L,
-                                 "attention_bwd": L}
+                                 "attention_bwd": L, "adamw": leaves}
     one = dryrun.run_cell("smollm-135m", "train_4k")
     assert r["leaves"] == one["leaves"]               # whole on every rank
     # rank 0's attention: a quarter of the pairs (its 2048 queries against

@@ -26,10 +26,11 @@ and three steps from a JAX state.  deepseek-v3's
 training cut on the card (its dense MLA layer and the MTP block) runs at
 reduced width but MLA's head dims, so every attention call is (hd, hd_v)
 = (192, 128), through the attention Function (``ops.force("cuda")``, the
-kernels' launches on their plain versions): the loss, every gradient
-leaf and two AdamW steps against JAX, each call's backward route and the
-step's launches as the smoke run expects them.  Last, reference fault g:
-``jax.grad`` cannot differentiate the JAX package's Pallas kernels.
+kernels' launches, the fused AdamW's too, on their plain versions): the
+loss, every gradient leaf and two AdamW steps against JAX, each call's
+backward route and the step's launches as the smoke run expects them.
+Last, reference fault g: ``jax.grad`` cannot differentiate the JAX
+package's Pallas kernels.
 """
 import dataclasses
 import pathlib
@@ -59,6 +60,7 @@ from repro_torch.convert import (model_state_from_jax,  # noqa: E402
                                  train_state_from_jax)
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenStream  # noqa: E402
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -357,13 +359,24 @@ def _mla_cut_pair(remat: str = "full"):
     return cfg, jm, params
 
 
+def plain_adamw_launch(g, m, v, master, p, scalars, consts) -> None:
+    """The fused AdamW kernel's launch as its plain version: the per-leaf
+    update of ``optim.adamw`` with the wrapper's constants and the step's
+    scalars read from their device tensor."""
+    b1, _, b2, _, eps, wd = consts
+    adamw.update_leaf(adamw.AdamWConfig(b1=b1, b2=b2, eps=eps,
+                                        weight_decay=wd),
+                      g, m, v, master, p, *scalars.unbind())
+
+
 @pytest.fixture
 def plain_attention(monkeypatch):
     """``ops.force("cuda")`` with the attention forward and backward
-    launches on their plain versions (CPU tensors): the attention Function
-    and its routes run as on the card, and the forward counts as the
-    kernel's wrapper does.  Records each backward launch's route, head
-    dims and whether it was handed the forward's LSE."""
+    launches and the fused AdamW launch on their plain versions (CPU
+    tensors): the attention Function and its routes and the optimizer's
+    wrapper run as on the card, and the forward counts as the kernel's
+    wrapper does.  Records each backward launch's route, head dims and
+    whether it was handed the forward's LSE."""
     seen = []
 
     def forward(q, k, v, *, causal, window, scale, return_lse=False,
@@ -393,6 +406,7 @@ def plain_attention(monkeypatch):
 
     monkeypatch.setattr(fa, "flash_attention", forward)
     monkeypatch.setattr(fa, "_bwd_launch", bwd_launch)
+    monkeypatch.setattr(kadamw, "_launch", plain_adamw_launch)
     ops.force("cuda")
     ops.reset_launches()
     yield seen
@@ -470,6 +484,7 @@ def test_mla_training_cut_two_adamw_steps_track_jax(plain_attention):
         loss, _ = ts.model.loss(batch_to(batches[2], "cpu"))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
     assert [s[0] for s in plain_attention] == ["general"] * 4
+    assert ops.launches["adamw"] == 2 * len(state["params"])
 
 
 # ------------------------------------------------------------------ data
