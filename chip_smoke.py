@@ -482,7 +482,29 @@ failure propagates and the exit code is nonzero:
    2048 tokens with the head bf16 by bf16 into f32 and one through f32
    copies of x and the head (``F32Head``, the path before): the loss
    within ``HEAD_LOSS_TOL`` relative, every gradient leaf within
-   ``GRAD_TOL`` bf16 of its largest entry.
+   ``GRAD_TOL`` bf16 of its largest entry;
+23. the fused elementwise kernels (``fused_phase``, ``csrc/fused.cu``:
+   rmsnorm, rope, the Mamba conv with its bias and SiLU, the SiLU gate,
+   each a forward and a backward; no TPU counterpart, the reference's jnp
+   that XLA fuses): every case of ``FUSED_CASES`` (hymba's, hubert's,
+   smollm's, falcon's and olmoe's path shapes and the decode step's; the
+   conv and the mixer's gate on column slices of ``in_proj``'s output) in
+   bf16 and f32, the forward against its plain version within
+   ``MODEL_TOL`` (bit-equality reported), the backward against the
+   written-out plain backward within ``GRAD_TOL``; each timed: device ms
+   (a graph replay), call ms, the plain forward's and backward's ms, a
+   forward and backward through the op's Function and through the eager
+   chain's autograd, the bound (bytes over 3.35 TB/s) and the library's
+   call where one computes the same (``F.rms_norm``, forward and
+   backward; ``F.conv1d`` with groups = di, ``F.silu``'s ms beside).
+   Then 13b's and 16b's steps split by layer op (``fused_split``): each
+   op's calls a step times its plain chain's and its kernels' ms at the
+   step's shapes, beside the kernels' device ms in the step's eager
+   split and its remaining "other".  Every eager split of a training run
+   (13b-16b, 19a-21a) must show no kernel under ``aten::rsqrt``,
+   ``aten::silu`` or ``aten::sin``, and one under ``aten::cos`` (the
+   learning rate's), and the training runs' launches a step include the
+   fused kernels' as ``expected_train_launches`` counts them.
 
 Launch counts are reset just before each driven run (phases 3-8, 10-16)
 and read just after; the kernel line reports those of phases 4 and 5 (the
@@ -540,7 +562,10 @@ launches (``train_launches``).  The fused AdamW (``adamw``, no TPU
 counterpart: the reference's update is jnp that XLA fuses) carries the
 launches of every training run on one card (one a leaf a step) and
 phase 22a's times over hymba-1.5b's leaves (``ms`` a whole step's
-launches, ``library_ms`` ``torch._fused_adamw_``'s).  A
+launches, ``library_ms`` ``torch._fused_adamw_``'s); the fused
+elementwise kernels (``rmsnorm``, ``rope``, ``causal_conv``,
+``silu_gate`` and their ``*_bwd``) likewise carry the training runs'
+launches and phase 23's rows at each op's commonest path shape.  A
 ``summary`` line near the end holds every number the run reports, so the
 last 2 KB of the output carry them.  The last line is the JSON verdict.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -632,7 +657,8 @@ MODEL_COUNTERS = ("flash_attention", "attention_masked", "mamba_scan",
 # 2e-6 to 1e-5 for the summation order on the card
 MODEL_TOL = {("attn", "float32"): 1e-5, ("attn", "bfloat16"): 2e-2,
              ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2,
-             ("gmm", "float32"): 1e-5, ("gmm", "bfloat16"): 3e-2}
+             ("gmm", "float32"): 1e-5, ("gmm", "bfloat16"): 3e-2,
+             ("fused", "float32"): 1e-5, ("fused", "bfloat16"): 2e-2}
 # phase 6: the f32 kernel path against the f32 plain path, as a share of
 # the largest |logit|
 F32_LOGIT_TOL = 1e-3
@@ -2418,9 +2444,11 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
     non-causal layers of 16 heads of 80, d_model 1280, bf16, seeded
     weights) over ``B`` clips of ``S`` frames drawn with numpy (the feature
     extractor is a stub, as in the JAX package).  One forward's launches
-    (every attention call on ``prefill_tc``, nothing else), its time (the
-    median of ``reps`` forwards after that one) beside ``reps`` forwards
-    with the attention on the general route it took before (in turns,
+    (every attention call on ``prefill_tc``; the fused kernels' two norms,
+    two ropes and one gate a layer and the final norm; nothing else), its
+    time (the median of ``reps`` forwards after that one) beside ``reps``
+    forwards with the attention on the general route it took before (in
+    turns,
     ``bf16_prefill_on_general``), the f32 model's
     kernel path against its plain path within ``F32_LOGIT_TOL`` of the
     largest logit, and the bf16 paths' distances from the f32 plain path
@@ -2438,7 +2466,8 @@ def hubert_phase(B: int, S: int, reps: int = 3) -> dict:
     launches = {c: k for c, k in ops.launches.items() if k}
     routes = dict(ops.route_launches)
     if (routes != {r: n if r == "prefill_tc" else 0 for r in routes}
-            or launches != {"flash_attention": n}
+            or launches != {"flash_attention": n, "rmsnorm": 2 * n + 1,
+                             "rope": 2 * n, "silu_gate": n}
             or any(ops.gmm_route_launches.values())):
         raise AssertionError(f"hubert forward: launches {launches}, "
                              f"attention routes {routes}, expected {n} on "
@@ -3231,7 +3260,12 @@ def expected_train_launches(cfg, leaves: int = 0) -> dict:
     forward kernels once; each MTP block (a dense layer with the last
     segment's attention, GQA or MLA) its forward kernels once, as
     ``Model._mtp_loss`` runs it without recompute, and one backward kernel
-    each; nothing else."""
+    each; nothing else.  The fused elementwise kernels likewise: a layer's
+    norms (one before each sub-layer, MLA's ``q_ln`` and ``kv_ln`` too),
+    two ropes an attention layer, one conv a Mamba mixer, one gate an MLP,
+    a mixer and an MoE layer's experts (one shard: the local branch) and
+    shared experts; the final norm before each head (the model's, each MTP
+    block's) and each MTP block's input norm once."""
     from repro_torch.kernels import ops
     from repro_torch.models.config import Segment
     want = {c: 0 for c in ops.launches}
@@ -3251,6 +3285,19 @@ def expected_train_launches(cfg, leaves: int = 0) -> dict:
         if seg.kind == "moe":
             want["grouped_matmul"] += 3 * fwd * n
             want["grouped_matmul_bwd"] += 3 * n
+        mixer = seg.kind in ("mamba", "hybrid")
+        per = {"rmsnorm": (1 if seg.kind == "mamba" else 2)
+               + 2 * (seg.attn == "mla"),
+               "rope": 2 * (seg.attn in ("gqa", "mla")
+                            and seg.kind != "mamba"),
+               "causal_conv": int(mixer),
+               "silu_gate": int(mixer) + int(seg.kind != "mamba")
+               + int(seg.kind == "moe" and bool(cfg.n_shared_experts))}
+        for c, k in per.items():
+            want[c] += fwd * k * n
+            want[f"{c}_bwd"] += k * n
+    want["rmsnorm"] += 1 + 2 * cfg.mtp_depth
+    want["rmsnorm_bwd"] += 1 + 2 * cfg.mtp_depth
     want["adamw"] = leaves
     return want
 
@@ -3317,6 +3364,21 @@ def train_step_split(ts, state, batch) -> dict:
             if train_kind(k.name) == "other":
                 other[name] += k.duration / 1e3
     busy = sum(by.values())
+    # the four fused ops' eager chains are gone: no kernel under rsqrt,
+    # silu (forward or backward) or sin, and cos only for the learning
+    # rate's one scalar (``optim.adamw.schedule``)
+    chains: Counter = Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        op = e
+        while op is not None and not op.name.startswith("aten::"):
+            op = op.cpu_parent
+        if op is not None and op.name in CHAINS_GONE:
+            chains[op.name] += len(e.kernels)
+    if any(n > (name == "aten::cos") for name, n in chains.items()):
+        raise AssertionError(f"an eager step still launches the fused ops' "
+                             f"chains: {dict(chains)}")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     return {"form": "eager", **{k: sig(v) for k, v in phases.items()},
             "device_ms": {k: sig(v) for k, v in by.items()},
@@ -3325,8 +3387,16 @@ def train_step_split(ts, state, batch) -> dict:
             "not measured",
             "other_by_op": [[k, sig(v)] for k, v in other.most_common(12)],
             "other_by_op_total_ms": sig(sum(other.values())),
+            "chain_kernels": dict(chains),
             "top": [[e.key[:60], e.count, sig(e.self_device_time_total / 1e3)]
                     for e in top]}
+
+
+# the aten ops of the four fused ops' eager chains (rmsnorm's rsqrt, the
+# SiLUs, rope's cos and sin): ``train_step_split`` finds none of their
+# kernels in a step but the schedule's cos
+CHAINS_GONE = ("aten::rsqrt", "aten::silu", "aten::silu_backward",
+               "aten::cos", "aten::sin")
 
 
 # a training step's device kernels by kind (``train_kind``), by name:
@@ -3334,6 +3404,10 @@ def train_step_split(ts, state, batch) -> dict:
 # and dkv_kernel<HD, HDV>, moe_gmm_bwd_tc.cu's) first: the general
 # routes' kernels of the same names take (T, HD, ...) template arguments
 TRAIN_KINDS = {
+    # the fused elementwise kernels (``csrc/fused.cu``), first: the
+    # rmsnorm backward's ``fused_rmsnorm_dw_kernel`` holds "dw_kernel"
+    "rmsnorm": ("fused_rmsnorm",), "rope": ("fused_rope",),
+    "conv": ("fused_conv",), "gate": ("fused_gate",),
     "attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in ("dq", "dkv")
                               for hd in (64, 80, 128, 192)),
     "gmm_bwd_tc": ("gmm_bwd_tc_kernel",),
@@ -6231,6 +6305,278 @@ def graph_phase() -> dict:
     return out
 
 
+# ------------------------------------ 23. the fused elementwise kernels
+# file:line of the reference's jnp that each fused op stands for (XLA
+# fuses it; no Pallas kernel)
+FUSED_REPLACES = {
+    "rmsnorm": "src/repro/models/layers.py:23",
+    "rope": "src/repro/models/layers.py:29",
+    "causal_conv": "src/repro/models/layers.py:287",
+    "silu_gate": "src/repro/models/layers.py:45"}
+FUSED_NOTE = " (jnp, fused by XLA; no Pallas kernel)"
+FUSED_OPS = tuple(FUSED_REPLACES)
+# (op, tag, shape), the first of each op its commonest path shape: rmsnorm
+# (rows, D), rope (B, S, H, hd), the conv (B, S, di) on a column slice of
+# in_proj's output ("decode": S = 1 from a state), the gate (rows, D) or
+# (B, S, di) with the mixer's z a slice of in_proj's output
+FUSED_CASES = [
+    ("rmsnorm", "hymba", (TRAIN_B * TRAIN_S, 1600)),
+    ("rmsnorm", "hubert", (12000, 1280)),
+    ("rmsnorm", "smollm", (32768, 576)),
+    ("rmsnorm", "decode", (4, 1600)),
+    ("rope", "hymba_q", (TRAIN_B, TRAIN_S, 25, 64)),
+    ("rope", "hymba_k", (TRAIN_B, TRAIN_S, 5, 64)),
+    ("rope", "hubert", (8, 1500, 16, 80)),
+    ("rope", "decode", (4, 1, 25, 64)),
+    ("causal_conv", "hymba", (TRAIN_B, TRAIN_S, 3200)),
+    ("causal_conv", "falcon", (2, TRAIN_S, 8192)),
+    ("causal_conv", "decode", (4, 1, 3200)),
+    ("silu_gate", "hymba", (TRAIN_B * TRAIN_S, 5504)),
+    ("silu_gate", "hymba_mixer", (TRAIN_B, TRAIN_S, 3200)),
+    ("silu_gate", "hubert", (12000, 5120)),
+    ("silu_gate", "olmoe", (64 * 2560, 1024)),
+    ("silu_gate", "falcon_mixer", (2, TRAIN_S, 8192)),
+    ("silu_gate", "decode", (4, 5504)),
+]
+# a training step's calls of each op by case tag, as shares of
+# ``expected_train_launches``' counts (phase 23's split of 13b's and 16b's
+# steps by layer op): hymba's ropes half on its 25 query heads, half on
+# its 5 key heads; its gates half the MLP's, half the mixer's
+FUSED_SPLIT = {
+    "hymba-1.5b": {"rmsnorm": {"hymba": 1.0},
+                   "rope": {"hymba_q": 0.5, "hymba_k": 0.5},
+                   "causal_conv": {"hymba": 1.0},
+                   "silu_gate": {"hymba": 0.5, "hymba_mixer": 0.5}},
+    "hubert-xlarge": {"rmsnorm": {"hubert": 1.0}, "rope": {"hubert": 1.0},
+                      "silu_gate": {"hubert": 1.0}}}
+
+
+def fused_case(op: str, tag: str, shape: tuple, dtype_name: str,
+               seed: int) -> dict:
+    """One case's inputs on the card and its callables: the kernel's
+    forward and backward wrappers (``fwd``, ``bwd``; no backward from a
+    state), the plain forward and written-out backward (``plain``,
+    ``plain_bwd``), the op's autograd Function and its plain chain with the
+    differentiated inputs (``train``, ``chain``, ``leaves``), the
+    library's call (``library``) and the bytes of each bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused, ops, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*s, scale=1.0, dtype=dt):
+        return (torch.randn(s, generator=gen, device="cuda") * scale).to(
+            dtype)
+    case = {"library": None}
+    if op == "rmsnorm":
+        x, w = t(*shape, scale=2), 1 + t(shape[-1], scale=0.25,
+                                         dtype=torch.float32)
+        wl = w.to(dt)
+        args = (x, w)
+        case.update(
+            fwd=lambda: fused.rmsnorm(x, w, 1e-5),
+            plain=lambda: ref.rmsnorm_ref(x, w, 1e-5),
+            bwd=lambda dy: fused.rmsnorm_bwd(x, w, dy, 1e-5),
+            plain_bwd=lambda dy: ref.rmsnorm_bwd_ref(x, w, dy, 1e-5),
+            train=lambda a, b: ops.rmsnorm(a, b, 1e-5),
+            chain=lambda a, b: ref.rmsnorm_ref(a, b, 1e-5),
+            library=lambda a=x: F.rms_norm(a, (shape[-1],), wl, 1e-5),
+            library_train=lambda a, b: F.rms_norm(a, (shape[-1],),
+                                                  b.to(dt), 1e-5),
+            cost=(fused.rmsnorm_cost(x, w)[1],
+                  fused.rmsnorm_cost(x, w, backward=True)[1]))
+    elif op == "rope":
+        B, S, H, hd = shape
+        x = t(B, S, H, hd)
+        pos = (torch.arange(S, dtype=torch.int32, device="cuda")
+               + (TRAIN_S - 1 if S == 1 else 0)).expand(B, S)
+        args = (x,)
+        case.update(
+            fwd=lambda: fused.rope(x, pos, 1e4),
+            plain=lambda: ref.rope_ref(x, pos, 1e4),
+            bwd=lambda dy: fused.rope(dy, pos, 1e4, negate=True),
+            plain_bwd=lambda dy: ref.rope_bwd_ref(dy, pos, 1e4),
+            train=lambda a: ops.rope(a, pos, 1e4),
+            chain=lambda a: ref.rope_ref(a, pos, 1e4),
+            cost=(fused.rope_cost(x, pos)[1], fused.rope_cost(x, pos)[1]))
+    elif op == "causal_conv":
+        B, S, di = shape
+        u = t(B, S, 2 * di)[..., :di]
+        w, b = t(4, di, scale=0.5), t(di, scale=0.25)
+        args = (u, w, b)
+        ut = u.transpose(1, 2).contiguous()       # conv1d's (B, di, S)
+        wc = w.t().contiguous()[:, None, :]       # (di, 1, K)
+        case.update(library=lambda: F.conv1d(ut, wc, b, padding=3,
+                                             groups=di)[..., :S])
+        if tag == "decode":
+            state = t(B, 3, di)
+            held = state.clone()
+            case.update(
+                fwd=lambda: fused.causal_conv(u, w, b, held)[0],
+                plain=lambda: ref.causal_conv_ref(u, w, b, state)[0],
+                bwd=None, cost=(fused.conv_cost(u, w, True)[1], None))
+        else:
+            case.update(
+                fwd=lambda: fused.causal_conv(u, w, b)[0],
+                plain=lambda: ref.causal_conv_ref(u, w, b)[0],
+                bwd=lambda dy: fused.causal_conv_bwd(u, w, b, dy),
+                plain_bwd=lambda dy: ref.causal_conv_bwd_ref(u, w, b, dy),
+                train=lambda a, c, d: ops.causal_conv(a, c, d)[0],
+                chain=lambda a, c, d: ref.causal_conv_ref(a, c, d)[0],
+                cost=(fused.conv_cost(u, w, False)[1],
+                      fused.conv_cost(u, w, False, backward=True)[1]))
+    else:
+        if len(shape) == 3:
+            B, S, di = shape
+            g, u = t(B, S, 2 * di, scale=3)[..., di:], t(B, S, di)
+        else:
+            g, u = t(*shape, scale=3), t(*shape)
+        args = (g, u)
+        case.update(
+            fwd=lambda: fused.silu_gate(g, u),
+            plain=lambda: ref.silu_gate_ref(g, u),
+            bwd=None if tag == "decode" else (
+                lambda dy: fused.silu_gate_bwd(g, u, dy)),
+            plain_bwd=lambda dy: ref.silu_gate_bwd_ref(g, u, dy),
+            train=ops.silu_gate, chain=ref.silu_gate_ref,
+            cost=(fused.gate_cost(g)[1], fused.gate_cost(g, True)[1]))
+    case["args"] = args
+    case["dy"] = t(*args[0].shape)
+    return case
+
+
+def _tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_fused(op: str, tag: str, shape: tuple, dtype_name: str,
+                seed: int) -> dict:
+    """23: one case of a fused kernel against its plain version: the
+    forward within ``MODEL_TOL`` (bit-equality reported), the backward
+    within ``GRAD_TOL`` of the written-out backward, each launch counted
+    once; then timed: device ms (launches captured in a CUDA graph), call
+    ms (eager), the plain forward's ms (the eager chain), the bound (bytes
+    over 3.35 TB/s), the library's call where one computes the same
+    (``F.rms_norm``; ``F.conv1d`` with groups = di on a (B, di, S) copy of
+    u, SiLU not in it: ``library_silu_ms`` beside it), and for the
+    backward its device ms, the written-out plain backward's, a forward
+    and backward through the op's autograd Function and through the plain
+    chain's autograd (``torch.autograd.grad``), and ``F.rms_norm``'s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    c = fused_case(op, tag, shape, dtype_name, seed)
+    ops.reset_launches()
+    got = c["fwd"]()
+    torch.cuda.synchronize()
+    want = c["plain"]()
+    ok, err = rel_ok(got, want, MODEL_TOL[("fused", dtype_name)])
+    row = {"op": op, "case": tag, "dtype": dtype_name, "shape": list(shape),
+           "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
+           "bound_ms": 1e3 * c["cost"][0] / HBM_BYTES_PER_S,
+           "bound_by": "bytes", "bytes": c["cost"][0]}
+    del got, want
+    if not ok:
+        raise AssertionError(f"23 {op} {tag} {dtype_name}: the forward off "
+                             f"its plain version by {err}")
+    want_l = {op: 1}
+    if c["bwd"] is not None:
+        got_b = _tuple(c["bwd"](c["dy"]))
+        torch.cuda.synchronize()
+        gaps = [grad_gap(a, b) for a, b in zip(
+            got_b, _tuple(c["plain_bwd"](c["dy"])), strict=True)]
+        row["bwd_max_rel_err"] = max(gaps)
+        row["bwd_bound_ms"] = 1e3 * c["cost"][1] / HBM_BYTES_PER_S
+        want_l[f"{op}_bwd"] = 1
+        del got_b
+        if not max(gaps) <= GRAD_TOL[dtype_name]:
+            raise AssertionError(f"23 {op} {tag} {dtype_name}: the "
+                                 f"backward off its plain version by "
+                                 f"{gaps}")
+    if {k: n for k, n in ops.launches.items() if n} != want_l:
+        raise AssertionError(f"23 {op} {tag}: launched {ops.launches}")
+    row["ms"] = graph_ms(c["fwd"], launches=10, replays=3)
+    row["call_ms"] = time_ms(c["fwd"], iters=10)
+    row["plain_ms"] = time_ms(c["plain"], iters=5)
+    row["library_ms"] = (None if c["library"] is None
+                         else time_ms(c["library"], iters=10))
+    if op == "causal_conv":
+        out = c["library"]()
+        row["library_silu_ms"] = time_ms(lambda: F.silu(out), iters=10)
+        del out
+    if c["bwd"] is not None:
+        dy = c["dy"]
+        row["bwd_ms"] = graph_ms(lambda: c["bwd"](dy), launches=10,
+                                 replays=3)
+        row["bwd_plain_ms"] = time_ms(lambda: c["plain_bwd"](dy), iters=5)
+        leaves = [a.detach().requires_grad_() for a in c["args"]]
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*leaves), leaves, dy)
+        row["fwd_bwd_ms"] = time_ms(fwd_bwd(c["train"]), iters=5)
+        row["chain_fwd_bwd_ms"] = time_ms(fwd_bwd(c["chain"]), iters=5)
+        if op == "rmsnorm":
+            row["library_fwd_bwd_ms"] = time_ms(fwd_bwd(c["library_train"]),
+                                                iters=5)
+        del leaves
+    del c
+    torch.cuda.empty_cache()
+    return {k: sig(v) if isinstance(v, float) else v for k, v in row.items()}
+
+
+def fused_split(rows: list, trained: dict) -> dict:
+    """23's split of 13b's (hymba-1.5b) and 16b's (hubert-xlarge) steps by
+    layer op: each op's calls a step (``expected_train_launches``, remat
+    "full": forwards twice, one backward) times the bf16 rows' times at
+    the step's shapes (``FUSED_SPLIT``), through the plain chains as the
+    eager step ran them before (forward ms, and the chain's forward and
+    backward less its forward) and through the kernels; beside them the
+    kernels' device ms in the step's eager split and its remaining "other"
+    ms (the elementwise work these four ops do not take)."""
+    from repro_torch.configs import get_config
+    by = {(r["op"], r["case"]): r for r in rows if r["dtype"] == "bfloat16"}
+    out = {}
+    for model, ops_ in FUSED_SPLIT.items():
+        cfg = get_config(model)
+        want = expected_train_launches(cfg)
+        split = trained[model]["split"]["device_ms"]
+        ops_ms = {}
+        for op, shares in ops_.items():
+            fwd, bwd = want[op], want[f"{op}_bwd"]
+            plain = kern = 0.0
+            for tag, share in shares.items():
+                r = by[(op, tag)]
+                plain += share * (fwd * r["plain_ms"] + bwd * (
+                    r["chain_fwd_bwd_ms"] - r["plain_ms"]))
+                kern += share * (fwd * r["ms"] + bwd * r["bwd_ms"])
+            ops_ms[op] = {"calls": [fwd, bwd], "plain_ms": sig(plain),
+                          "kernel_ms": sig(kern)}
+        out[model] = {
+            "ops": ops_ms,
+            "plain_total_ms": sig(sum(v["plain_ms"] for v in ops_ms.values())),
+            "kernel_total_ms": sig(sum(v["kernel_ms"]
+                                       for v in ops_ms.values())),
+            "step_fused_ms": {k: split[k] for k in ("rmsnorm", "rope",
+                                                    "conv", "gate")},
+            "step_other_ms": split["other"]}
+    return out
+
+
+def fused_phase(trained: dict) -> dict:
+    """Phase 23: every case of ``FUSED_CASES`` in bf16 and f32
+    (``check_fused``), and the split of 13b's and 16b's steps by layer op
+    (``fused_split``)."""
+    rows = [check_fused(op, tag, shape, dt, seed=i)
+            for i, (op, tag, shape) in enumerate(FUSED_CASES)
+            for dt in ("bfloat16", "float32")]
+    for r in rows:
+        log("[23] " + json.dumps(r))
+    split = fused_split(rows, trained)
+    log(f"[23] eager steps by layer op: {json.dumps(split)}")
+    return {"rows": rows, "split": split}
+
+
 def main() -> int:
     """Check for a card and a checkout, and run the phases (``phases``)
     beside a spawned process for phase 17's dry runs, stopped at the
@@ -6250,7 +6596,7 @@ def main() -> int:
 
 
 def phases(dry_pool) -> int:
-    """Phases 1-22 (see the module docstring); phase 17's dry runs
+    """Phases 1-23 (see the module docstring); phase 17's dry runs
     (``dryrun_cells``) run in ``dry_pool`` from the end of the build
     on."""
     import torch
@@ -6265,7 +6611,7 @@ def phases(dry_pool) -> int:
     t0 = time.perf_counter()
     libs = sorted(set(SOURCES.values()) | set(ATTN_SOURCES.values())
                   | set(GMM_SOURCES.values()) | set(BWD_KERNELS)
-                  | {"adamw"})
+                  | {"adamw", "fused"})
     with ThreadPoolExecutor(len(libs)) as pool:   # nvcc runs outside the GIL
         list(pool.map(_build.load, libs))
     build_s = time.perf_counter() - t0
@@ -6930,6 +7276,23 @@ def phases(dry_pool) -> int:
         if row["mode"] != "graph":
             raise AssertionError(f"{tag} trained {row['mode']}")
 
+    # --------------------------------- 23. the fused elementwise kernels
+    t23 = time.perf_counter()
+    p23 = fused_phase({"hymba-1.5b": p13, "hubert-xlarge": p16})
+    p23["s"] = sig(time.perf_counter() - t23)
+    log(f"[23] phase 23 took {p23['s']:.2f} s")
+    summary["p23"] = {"rows": [{k: r.get(k) for k in (
+        "op", "case", "dtype", "max_abs_err", "bit_equal", "bwd_max_rel_err",
+        "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "bwd_ms",
+        "bwd_plain_ms", "bwd_bound_ms", "fwd_bwd_ms", "chain_fwd_bwd_ms")}
+        for r in p23["rows"]], "split": p23["split"], "s": p23["s"]}
+    summary["train_split_fused"] = {
+        tag: {k: p["split"]["device_ms"][k] for k in (
+            "rmsnorm", "rope", "conv", "gate", "other")}
+        for tag, p in (("13b", p13), ("14b", p14), ("15b", p15),
+                       ("16b", p16), ("19a", p19["a"]), ("20a", p20["a"]),
+                       ("21a", p21["a"])) if "split" in p}
+
     # ----------------------------------------------------- kernel line
     launches = {k: l4[k] + l5[k] for k in l4}
     shapes_all = shapes4 + shapes5
@@ -7368,6 +7731,54 @@ def phases(dry_pool) -> int:
         "launches_in_ms": a22["launches_a_step"]})
     if min(p["launches"]["adamw"] for p in adamw_runs) < 1:
         raise AssertionError("adamw was not launched in every training run")
+    # the fused elementwise kernels (no TPU counterpart either): the
+    # launches of the same training runs, phase 23's rows at each op's
+    # commonest path shape in bf16 (the other cases and f32 beside)
+    for op in FUSED_OPS:
+        rows = [r for r in p23["rows"] if r["op"] == op]
+        row = rows[0]
+        for name, fields in ((op, ("ms", "call_ms", "plain_ms",
+                                   "bound_ms", "library_ms")),
+                             (f"{op}_bwd", ("bwd_ms", "fwd_bwd_ms",
+                                            "bwd_plain_ms", "bwd_bound_ms",
+                                            None))):
+            ms, call, plain, bound, lib = (row.get(f) if f else None
+                                           for f in fields)
+            entry = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/fused.cu",
+                "replaces": FUSED_REPLACES[op] + FUSED_NOTE,
+                "launches": sum(p["launches"][name] for p in adamw_runs),
+                "launches_from": "phases 13b-16b, 19a, 20a and 21a, 5 "
+                                 "training steps each",
+                "max_abs_err": max(r["max_abs_err"] for r in rows)
+                if name == op else max(r["bwd_max_rel_err"] for r in rows
+                                       if "bwd_max_rel_err" in r),
+                "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": lib,
+                "shape": row["shape"], "dtype": row["dtype"]}
+            if name == op:
+                entry["call_ms"] = call
+                entry["bit_equal"] = [r["case"] + ":" + r["dtype"]
+                                      for r in rows if r["bit_equal"]]
+            else:
+                entry["max_abs_err_is"] = "relative to the largest entry"
+                entry["fwd_bwd_ms"] = call
+                entry["chain_fwd_bwd_ms"] = row["chain_fwd_bwd_ms"]
+                if "library_fwd_bwd_ms" in row:
+                    entry["library_fwd_bwd_ms"] = row["library_fwd_bwd_ms"]
+            if "library_silu_ms" in row and name == op:
+                entry["library_silu_ms"] = row["library_silu_ms"]
+            for r in rows[1:]:
+                if r["dtype"] != "bfloat16":
+                    continue
+                key = "bwd_ms" if name != op else "ms"
+                if r.get(key) is not None:
+                    entry[f"{r['case']}_ms"] = r[key]
+            kernels.append(entry)
+            if entry["launches"] < 1:
+                raise AssertionError(f"{name} was not launched in the "
+                                     f"training runs")
     # the largest shape of phase 2, per kernel: the kernel against its bound
     # where launch latency no longer hides it
     summary["p2_largest"] = {

@@ -98,6 +98,25 @@ SIGNATURES = {
     "adamw": {
         "repro_adamw": (_P,) * 6 + (_LL, _I, _I, _I) + (_F,) * 6 + (_P,),
     },
+    # the fused elementwise kernels: rmsnorm (x, w, y, R, D, sx, eps,
+    # x_bf16, w_bf16, stream), its backward (x, w, dy, dx, dw, rstd, part,
+    # R, D, sx, rows_per, eps, x_bf16, w_bf16, stream); rope (x, pos,
+    # freqs, out, B, S, H, half, sxb, sxs, sxh, spb, sps, negate, is_bf16,
+    # stream); the conv (u, w, b, state_in, y, state_out, B, S, di, K, sub,
+    # sus, chunk, is_bf16, stream), its backward (u, w, b, dy, du, dw, db,
+    # part, B, S, di, K, sub, sus, chunk, is_bf16, stream); the gate (g, u,
+    # y, R, D, sg, su, is_bf16, stream), its backward (g, u, dy, dg, du, R,
+    # D, sg, su, is_bf16, stream)
+    "fused": {
+        "repro_rmsnorm": (_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _P),
+        "repro_rmsnorm_bwd": (_P,) * 7 + (_LL, _I, _LL, _I, _F, _I, _I, _P),
+        "repro_rope": (_P,) * 4 + (_I,) * 4 + (_LL,) * 5 + (_I, _I, _P),
+        "repro_causal_conv": (_P,) * 6 + (_I,) * 4 + (_LL, _LL, _I, _I, _P),
+        "repro_causal_conv_bwd": (_P,) * 8 + (_I,) * 4 + (_LL, _LL, _I, _I,
+                                                          _P),
+        "repro_silu_gate": (_P, _P, _P, _LL, _I, _LL, _LL, _I, _P),
+        "repro_silu_gate_bwd": (_P,) * 5 + (_LL, _I, _LL, _LL, _I, _P),
+    },
     # (q, k, v, o, q_pos, k_pos, ws, B, Sq, Sk, H, KV, hd, hdv, causal,
     #  window, scale, is_bf16, splits, chunk, stream)
     "attention_decode": {
@@ -111,7 +130,7 @@ SIGNATURES = {
 PTXAS_REPORT = ("flash_attention", "attention_prefill_tc", "attention_decode",
                 "moe_gmm_tc", "moe_gmm", "front_find", "mamba_scan",
                 "attention_bwd", "mamba_scan_bwd", "moe_gmm_bwd",
-                "attention_bwd_tc", "moe_gmm_bwd_tc", "adamw")
+                "attention_bwd_tc", "moe_gmm_bwd_tc", "adamw", "fused")
 build_log: dict[str, str] = {}
 
 

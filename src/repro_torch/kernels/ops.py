@@ -37,20 +37,27 @@ grouped-matmul backward calls again by the route that took them
 ``attention_tc``/``gmm_tc`` the bf16 wgmma kernels,
 ``attention_general``/``gmm_general`` the f32 ones.  ``adamw`` counts
 the fused optimizer update's launches (``kernels.adamw``, one a leaf a
-step), a kernel with no TPU counterpart.
+step), a kernel with no TPU counterpart.  ``rmsnorm``, ``rope``,
+``causal_conv`` and ``silu_gate`` count the layers' fused elementwise
+kernels (``kernels.fused``: XLA's fusions of the JAX package's jnp, no
+TPU counterpart either), ``rmsnorm_bwd``, ``rope_bwd``,
+``causal_conv_bwd`` and ``silu_gate_bwd`` their backward kernels.
 
 ``attention``, ``mamba_scan`` and ``grouped_matmul_aligned`` are the
 model's entry points to the three model kernels, with the signatures of
 the JAX package's ``ops``; ``grouped_matmul`` (ragged groups) is always
-the plain version, as there.
+the plain version, as there.  ``rmsnorm``, ``rope``, ``causal_conv`` and
+``silu_gate`` are the layers' entry points to the fused elementwise
+kernels, with the signatures of the JAX package's layer functions.
 
 Gradients: a kernel call that needs one (grad mode on and an input that
 requires grad) goes through the autograd Function of its kernel, whose
 backward is a kernel too: attention without explicit positions
 (``flash_attention.attention_train``), the scan from zeros
-(``mamba_scan.mamba_scan_train``) and the block-aligned grouped matmul
-(``moe_gmm.grouped_matmul_train``).  Every other kernel call that needs a
-gradient raises (``no_backward``) before its inputs are checked: its
+(``mamba_scan.mamba_scan_train``), the block-aligned grouped matmul
+(``moe_gmm.grouped_matmul_train``) and the four fused elementwise ops
+(``fused.*_train``; the conv from zeros).  Every other kernel call that
+needs a gradient raises (``no_backward``) before its inputs are checked: its
 launcher writes outputs that autograd cannot see, which would silently
 send no gradient into its inputs.  The plain versions are differentiated
 by autograd as they stand.
@@ -62,7 +69,8 @@ saved tensors and scratch that the CUDA launcher would, and launches
 nothing.  Instead of a launch count each such call adds one to
 ``meta_calls`` under its counter's name and the FLOPs and bytes of its
 kernel's bound (the formulas of PERF.md's kernel table: ``attention_cost``,
-``scan_cost``, ``gmm_cost`` in the kernels' modules) to ``meta_cost``;
+``scan_cost``, ``gmm_cost``, ``fused``'s ``*_cost`` in the kernels'
+modules) to ``meta_cost``;
 ``reset_meta_cost`` zeroes both.  A meta tensor never reaches a plain
 version, a CUDA tensor never reaches one either, a CPU tensor always does,
 and a tensor on any other device raises.
@@ -74,13 +82,17 @@ import torch
 from . import ref
 
 _FORCE: str | None = None  # None = by device, 'cuda' | 'ref'
+# the fused elementwise kernels' counters: each forward, then its backward
+FUSED = ("rmsnorm", "rmsnorm_bwd", "rope", "rope_bwd", "causal_conv",
+         "causal_conv_bwd", "silu_gate", "silu_gate_bwd")
 
 launches: dict[str, int] = {"front_find": 0, "front_apply": 0,
                              "min_cover_lambdas": 0, "flash_attention": 0,
                              "attention_masked": 0, "mamba_scan": 0,
                              "mamba_step": 0, "grouped_matmul": 0,
                              "attention_bwd": 0, "mamba_scan_bwd": 0,
-                             "grouped_matmul_bwd": 0, "adamw": 0}
+                             "grouped_matmul_bwd": 0, "adamw": 0,
+                             **{name: 0 for name in FUSED}}
 route_launches: dict[str, int] = {"decode_split": 0, "prefill_tc": 0,
                                   "general": 0}
 gmm_route_launches: dict[str, int] = {"gmv": 0, "gmm_tc": 0, "general": 0}
@@ -93,7 +105,7 @@ bwd_route_launches: dict[str, int] = {"attention_tc": 0,
 meta_calls: dict[str, int] = {name: 0 for name in (
     "flash_attention", "attention_masked", "mamba_scan", "mamba_step",
     "grouped_matmul", "attention_bwd", "mamba_scan_bwd",
-    "grouped_matmul_bwd", "adamw")}
+    "grouped_matmul_bwd", "adamw") + FUSED}
 meta_cost: dict[str, float] = {"flops": 0.0, "bytes": 0.0}
 
 
@@ -302,3 +314,66 @@ def grouped_matmul_aligned(x: torch.Tensor, w: torch.Tensor,
             return moe_gmm.grouped_matmul_train(x, w, capacity, fills)
         return moe_gmm.grouped_matmul(x, w, capacity, fills)
     return ref.grouped_matmul_aligned_ref(x, w, capacity, fills)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """x (..., D) normed by its rows' root mean square, times w (D,), in
+    f32, rounded to x's dtype: the fused kernel for a CUDA (or meta) ``x``,
+    else ``ref.rmsnorm_ref``; where a gradient is needed, its autograd
+    Function."""
+    if use_kernel(x):
+        from . import fused  # imports ops
+        if needs_grad(x, w):
+            return fused.rmsnorm_train(x, w, eps)
+        return fused.rmsnorm(x, w, eps)
+    return ref.rmsnorm_ref(x, w, eps)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, hd) at positions ``pos`` (B, S)
+    int32: the fused kernel for a CUDA (or meta) ``x``, else
+    ``ref.rope_ref``; where a gradient is needed, its autograd
+    Function."""
+    if use_kernel(x):
+        from . import fused  # imports ops
+        if needs_grad(x):
+            return fused.rope_train(x, pos, theta)
+        return fused.rope(x, pos, theta)
+    return ref.rope_ref(x, pos, theta)
+
+
+def causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The Mamba mixer's causal depthwise conv, bias and SiLU -> (u_conv,
+    the new state): the fused kernel for a CUDA (or meta) ``u``, else
+    ``ref.causal_conv_ref``.  ``state`` (B, d_conv - 1, di), the inputs
+    before u (decode), is written in place with the new state and
+    returned; without it the new state is a new tensor (a view on the plain
+    path; None there for d_conv 1).  Where a gradient is needed (from
+    zeros only), the kernel's autograd Function."""
+    if use_kernel(u):
+        from . import fused  # imports ops
+        if needs_grad(u, conv_w, conv_b, state):
+            if state is not None:
+                no_backward("causal_conv from a state", u, conv_w, conv_b,
+                            state)
+            return fused.causal_conv_train(u, conv_w, conv_b)
+        return fused.causal_conv(u, conv_w, conv_b, state)
+    y, new = ref.causal_conv_ref(u, conv_w, conv_b, state)
+    if state is not None:
+        state.copy_(new)
+        new = state
+    return y, new
+
+
+def silu_gate(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``silu(g) * u``: the fused kernel for a CUDA (or meta) ``g``, else
+    ``ref.silu_gate_ref``; where a gradient is needed, its autograd
+    Function."""
+    if use_kernel(g):
+        from . import fused  # imports ops
+        if needs_grad(g, u):
+            return fused.silu_gate_train(g, u)
+        return fused.silu_gate(g, u)
+    return ref.silu_gate_ref(g, u)

@@ -11,10 +11,17 @@ the twins of the JAX package's jnp references, argument for argument.
 arithmetic for the tests, ``attention_lse_ref`` the row log-sum-exp the
 attention forward hands its backward (no path runs them: the plain
 versions' gradients come from autograd).
+
+``rmsnorm_ref``, ``rope_ref``, ``causal_conv_ref`` and ``silu_gate_ref``
+are the layers' elementwise ops (``kernels/fused.py``), moved here as they
+stood in ``models/layers.py``: the JAX package's jnp, which XLA fuses.
+Their ``*_bwd_ref`` write the fused backward kernels' arithmetic out, in
+f32 with one rounding at each output.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _NO_COVER = 127  # > any popcount for P <= 12; also pc[0], the empty subset
 _LOG2E = 1.4426950408889634   # the LSE the attention kernels exchange: log2
@@ -376,3 +383,123 @@ def grouped_matmul_aligned_bwd_ref(x: torch.Tensor, w: torch.Tensor,
     dx = torch.einsum("scf,sdf->scd", dys, w.float())
     dw = torch.einsum("scd,scf->sdf", xs, dys)
     return dx.reshape(G * capacity, D).to(x.dtype), dw.to(x.dtype)
+
+
+# ------------------------------------------------- the fused elementwise ops
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                    eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``rmsnorm_ref`` given ``dy``: with ``r = rsqrt(mean(x^2)
+    + eps)`` per row, ``dx = r (w dy) - x r^3 mean(x w dy)`` and ``dw`` the
+    sum over rows of ``dy x r``, in f32, rounded to x's and w's dtypes."""
+    xf, dyf, wf = x.float(), dy.float(), w.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    wdy = wf * dyf
+    dot = (xf * wdy).mean(dim=-1, keepdim=True)
+    dx = r * wdy - xf * (r * r * r * dot)
+    dw = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def rope_freqs(half: int, theta: float, device=None) -> torch.Tensor:
+    """(half,) f32 ``1 / theta^(i / half)``: rope's frequencies."""
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_ref(x: torch.Tensor, pos: torch.Tensor, theta: float,
+             negate: bool = False) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, hd); pos: (B, S) absolute positions.
+    ``negate`` rotates by the negated angles: rope's backward, ``dy`` in
+    place of ``x``."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(half, theta, x.device)
+    ang = pos[..., None].float() * freqs                  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    if negate:
+        sin = -sin
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_bwd_ref(dy: torch.Tensor, pos: torch.Tensor,
+                 theta: float) -> torch.Tensor:
+    """dx of ``rope_ref`` given ``dy``: the rotation by the negated
+    angles."""
+    return rope_ref(dy, pos, theta, negate=True)
+
+
+def causal_conv_ref(u: torch.Tensor, conv_w: torch.Tensor,
+                    conv_b: torch.Tensor, state: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The Mamba mixer's depthwise causal conv along S, its bias and SiLU:
+    u (B, S, di), conv_w (d_conv, di), conv_b (di,), ``state`` (B, d_conv -
+    1, di) the inputs before u (decode) or zeros.  The JAX window-gather
+    einsum, as a sum of shifted slices with f32 products and sums, rounded
+    once; returns (u_conv, the new state: the last d_conv - 1 inputs, a
+    view; None for d_conv 1 without a state)."""
+    K, S = conv_w.shape[0], u.shape[1]
+    if state is None:
+        u_pad = F.pad(u, (0, 0, K - 1, 0))
+        new_conv = u_pad[:, -(K - 1):] if K > 1 else None
+    else:
+        u_pad = torch.cat([state, u], dim=1)
+        new_conv = u_pad[:, -(K - 1):]
+    w = conv_w.float()
+    acc = u_pad[:, 0:S].float() * w[0]
+    for j in range(1, K):
+        acc = acc + u_pad[:, j:j + S].float() * w[j]
+    return F.silu(acc.to(u.dtype) + conv_b), new_conv
+
+
+def causal_conv_bwd_ref(u: torch.Tensor, conv_w: torch.Tensor,
+                        conv_b: torch.Tensor, dy: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(du, dw, db) of ``causal_conv_ref`` from zeros given ``dy``: SiLU's
+    derivative at its input ``v`` as the forward rounds it, ``dv = dy
+    silu'(v)``; ``db`` its sum over (B, S), ``dw[j]`` the sum of ``dv``
+    times tap j's inputs, ``du`` the correlation of ``dv`` with the flipped
+    taps; in f32, rounded to each input's dtype."""
+    K, (B, S, di) = conv_w.shape[0], u.shape
+    u_pad = F.pad(u, (0, 0, K - 1, 0)).float()
+    w = conv_w.float()
+    acc = u_pad[:, 0:S] * w[0]
+    for j in range(1, K):
+        acc = acc + u_pad[:, j:j + S] * w[j]
+    v = (acc.to(u.dtype) + conv_b).float()
+    s = torch.sigmoid(v)
+    dv = dy.float() * (s * (1 + v * (1 - s)))
+    db = dv.sum((0, 1))
+    dw = torch.stack([(dv * u_pad[:, j:j + S]).sum((0, 1))
+                      for j in range(K)])
+    du_pad = torch.zeros((B, S + K - 1, di), dtype=torch.float32,
+                         device=u.device)
+    for j in range(K):
+        du_pad[:, j:j + S] += dv * w[j]
+    return (du_pad[:, K - 1:].to(u.dtype), dw.to(conv_w.dtype),
+            db.to(conv_b.dtype))
+
+
+def silu_gate_ref(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``silu(g) * u``: SwiGLU's gate, the experts' and Mamba's."""
+    return F.silu(g) * u
+
+
+def silu_gate_bwd_ref(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dg, du) of ``silu_gate_ref`` given ``dy``: ``du = dy silu(g)``,
+    ``dg = dy u silu'(g)``, in f32, rounded to g's and u's dtypes."""
+    gf, dyf = g.float(), dy.float()
+    s = torch.sigmoid(gf)
+    du = dyf * (gf * s)
+    dg = dyf * u.float() * (s * (1 + gf * (1 - s)))
+    return dg.to(g.dtype), du.to(u.dtype)

@@ -4,10 +4,15 @@ parameter dictionaries (name -> tensor, one layer's worth).
 The twins of the JAX package's ``models/layers.py`` for GQA attention,
 multi-head latent attention (MLA), cross-attention and the Mamba-1 mixer,
 with its numerics: norms and rotary embeddings in f32, cast back to the
-working dtype at the same places.  Prefill attention and the scan go through
-``kernels.ops`` (the CUDA kernels for CUDA tensors, the plain versions for
-CPU ones); MLA's decode step is plain PyTorch, as the JAX package's is jnp
-outside its attention op.
+working dtype at the same places.  Prefill attention, the scan and the
+elementwise ops that XLA fuses in the reference's jitted steps -- rmsnorm,
+rope, the mixer's causal conv with its bias and SiLU, and the SiLU gate of
+SwiGLU and of the mixer -- go through ``kernels.ops`` (the CUDA kernels for
+CUDA tensors, the plain versions for CPU ones); their numerics live in the
+plain versions, ``kernels/ref.py`` (``rmsnorm_ref``, ``rope_ref``,
+``causal_conv_ref``, ``silu_gate_ref``), which the fused kernels of
+``kernels/csrc/fused.cu`` repeat.  MLA's decode step is plain PyTorch, as
+the JAX package's is jnp outside its attention op.
 
 Decode writes its caches in place, as XLA does the JAX package's
 ``dynamic_update_slice`` under ``jit``: a step's position comes from the
@@ -46,24 +51,8 @@ from ..parallel import sharding as shd
 from .config import ModelConfig, Segment
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * w).to(x.dtype)
-
-
-def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (B, S, H, hd); pos: (B, S) absolute positions."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=x.device) / half))
-    ang = pos[..., None].float() * freqs                  # (B, S, half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+rmsnorm = ops.rmsnorm
+rope = ops.rope
 
 
 def _reduce(y: torch.Tensor, tp: str | None,
@@ -78,7 +67,7 @@ def _reduce(y: torch.Tensor, tp: str | None,
 
 def swiglu(p: dict, x: torch.Tensor, tp: str | None = None,
            scatter: bool = False) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = ops.silu_gate(x @ p["w_gate"], x @ p["w_up"])
     return _reduce(h @ p["w_down"], tp, scatter)
 
 
@@ -436,7 +425,6 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rank's channels: each rank's gradient of them is its channels' part,
     zero elsewhere, which the step's psum of replicated leaves over
     'model' (``train.step``) puts together."""
-    B, S, _ = x.shape
     N, r = cfg.ssm_state, cfg.dt_rank_
     xz = x @ p["in_proj"]
     di = xz.shape[-1] // 2                 # every channel, or the rank's
@@ -445,19 +433,10 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if tp is not None:
         conv_b = conv_b.narrow(0, shd.axis_index(tp) * di, di)
         dt_bias = dt_bias.narrow(0, shd.axis_index(tp) * di, di)
-    # depthwise causal conv along S: the JAX window-gather einsum, as a sum
-    # of shifted slices with f32 products and sums, rounded once
-    if state is None:
-        u_pad = F.pad(u, (0, 0, cfg.d_conv - 1, 0))
-        new_conv = u_pad[:, -(cfg.d_conv - 1):] if cfg.d_conv > 1 else None
-    else:
-        u_pad = torch.cat([state["conv"], u], dim=1)
-        new_conv = u_pad[:, -(cfg.d_conv - 1):]
-    w = p["conv_w"].float()
-    acc = u_pad[:, 0:S].float() * w[0]
-    for j in range(1, cfg.d_conv):
-        acc = acc + u_pad[:, j:j + S].float() * w[j]
-    u_conv = F.silu(acc.to(x.dtype) + conv_b)
+    # depthwise causal conv along S, its bias and SiLU (a state is written
+    # in place with the new one)
+    u_conv, new_conv = ops.causal_conv(
+        u, p["conv_w"], conv_b, None if state is None else state["conv"])
     # input-dependent SSM parameters
     xproj = u_conv @ p["x_proj"]
     if tp is not None:
@@ -469,10 +448,9 @@ def mamba_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     init = state["ssm"] if state is not None else None
     y, last = ops.mamba_scan(u_conv, dt, A, Bc, Cc, p["ssm_D"],
                              init_state=init)
-    y = y * F.silu(z)
+    y = ops.silu_gate(z, y)
     out = _reduce(y @ p["out_proj"], tp, scatter)
     if state is not None:
-        state["conv"].copy_(new_conv)
         state["ssm"].copy_(last)
         return out, state
     new_conv = None if new_conv is None else new_conv.contiguous()

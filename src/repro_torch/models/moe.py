@@ -289,7 +289,7 @@ def _expert_ffn(e_gate: torch.Tensor, e_up: torch.Tensor,
     x2 = xin.reshape(S * C, D)
     g = ops.grouped_matmul_aligned(x2, e_gate, C, fills)
     u = ops.grouped_matmul_aligned(x2, e_up, C, fills)
-    y = ops.grouped_matmul_aligned(F.silu(g) * u, e_down, C, fills)
+    y = ops.grouped_matmul_aligned(ops.silu_gate(g, u), e_down, C, fills)
     return y.reshape(S, C, D)
 
 
@@ -318,7 +318,7 @@ def moe_dense_ref(p, x: torch.Tensor, cfg: ModelConfig,
     e = blocks or {name: p[name] for name in _EXPERTS}
     g = torch.einsum("td,edf->tef", xt, e["e_gate"])
     u = torch.einsum("td,edf->tef", xt, e["e_up"])
-    y = torch.einsum("tef,efd->ted", F.silu(g) * u, e["e_down"])
+    y = torch.einsum("tef,efd->ted", ops.silu_gate(g, u), e["e_down"])
     oh = F.one_hot(idx, cfg.n_experts).to(x.dtype)
     gates = torch.einsum("tk,tke->te", w, oh)
     if blocks is not None:

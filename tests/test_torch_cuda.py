@@ -1491,7 +1491,9 @@ def test_hubert_train_step_kernel_path_matches_plain_path(cuda, no_tf32,
     the same weights, within GRAD_TOL of each leaf's largest entry (bf16:
     the loss within 2e-2 relative), and the launches -- per layer two
     forwards (the forward and its recompute) on ``prefill_tc`` in bf16 and
-    ``general`` in f32, one backward on ``tc`` or ``general``."""
+    ``general`` in f32, one backward on ``tc`` or ``general``; the fused
+    elementwise kernels' likewise (two norms, two ropes and a gate a layer,
+    the final norm once)."""
     from repro_torch.train.step import batch_to, build_train_step
     cfg = reduce_config(get_config("hubert-xlarge"), 2).with_(
         dtype=dtype, head_dim=80, remat="full")
@@ -1519,7 +1521,10 @@ def test_hubert_train_step_kernel_path_matches_plain_path(cuda, no_tf32,
             n = cfg.n_layers
             bf16 = dtype == "bfloat16"
             assert {c: k for c, k in ops.launches.items() if k} == {
-                "flash_attention": 2 * n, "attention_bwd": n}
+                "flash_attention": 2 * n, "attention_bwd": n,
+                "rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
+                "rope": 4 * n, "rope_bwd": 2 * n, "silu_gate": 2 * n,
+                "silu_gate_bwd": n}
             assert ops.route_launches == {
                 "decode_split": 0, "prefill_tc": 2 * n * bf16,
                 "general": 2 * n * (not bf16)}
@@ -1674,3 +1679,152 @@ def test_trainer_restarts_a_captured_step_on_cuda(cuda, tmp_path):
         theirs = state["params"] if part == "params" else state["opt"][part]
         for n, t in mine.items():
             assert torch.equal(t, theirs[n]), (part, n)
+
+
+# ---------------------------------------- the fused elementwise kernels
+# path shapes: hymba's norm and gate rows, rope's 25 query heads at 64, the
+# conv's (4, 2048, 3200) as a slice of in_proj's output, hubert's heads at
+# 80, MLA's rope part of a wider head, the decode step's four rows
+FUSED_CASES = [
+    ("rmsnorm", (8192, 1600)), ("rmsnorm", (4, 1, 7168)),
+    ("rmsnorm_strided", (4096, 512)),
+    ("rope", (4, 2048, 25, 64)), ("rope", (8, 1500, 16, 80)),
+    ("rope_strided", (2, 512, 16, 64)), ("rope", (4, 1, 25, 64)),
+    ("causal_conv", (4, 2048, 3200)), ("causal_conv", (2, 100, 8192)),
+    ("causal_conv_state", (4, 1, 3200)),
+    ("silu_gate", (8192, 5504)), ("silu_gate_strided", (4, 2048, 3200)),
+    # widths off a multiple of four: the kernels' one-element paths
+    ("rmsnorm", (37, 1001)), ("causal_conv", (2, 70, 1001)),
+    ("silu_gate", (37, 1001)),
+]
+FUSED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _fused_case(name: str, shape: tuple, dtype, seed: int):
+    """(kernel forward, plain forward, kernel backward or None, plain
+    backward, inputs, cotangent) of one case on the card."""
+    from repro_torch.kernels import fused
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*s, scale=1.0, dt=dtype):
+        return (torch.randn(s, generator=gen, device="cuda") * scale).to(dt)
+    op = name.split("_strided")[0].removesuffix("_state")
+    if op == "rmsnorm":
+        R, D = shape[0] * (shape[1] if len(shape) == 3 else 1), shape[-1]
+        x = t(R, D + 64, scale=2)[:, :D] if "strided" in name else t(R, D)
+        ins = [x, 1 + t(D, scale=0.25, dt=torch.float32)]
+        fwd = (lambda x, w: fused.rmsnorm(x, w, 1e-5),
+               lambda x, w: ref.rmsnorm_ref(x, w, 1e-5))
+        bwd = (lambda x, w, dy: fused.rmsnorm_bwd(x, w, dy, 1e-5),
+               lambda x, w, dy: ref.rmsnorm_bwd_ref(x, w, dy, 1e-5))
+        out_shape = x.shape
+    elif op == "rope":
+        B, S, H, hd = shape
+        x = t(B, S, H, hd + 128)[..., 128:] if "strided" in name \
+            else t(B, S, H, hd)
+        off = 2047 if S == 1 else 0
+        pos = (torch.arange(S, dtype=torch.int32, device="cuda")
+               + off).expand(B, S)
+        ins = [x, pos]
+        fwd = (lambda x, p: fused.rope(x, p, 1e4),
+               lambda x, p: ref.rope_ref(x, p, 1e4))
+        bwd = (lambda x, p, dy: fused.rope(dy, p, 1e4, negate=True),
+               lambda x, p, dy: ref.rope_bwd_ref(dy, p, 1e4))
+        out_shape = x.shape
+    elif op == "causal_conv":
+        B, S, di = shape
+        u = t(B, S, 2 * di)[..., :di]
+        ins = [u, t(4, di, scale=0.5), t(di, scale=0.25)]
+        if "state" in name:
+            st = t(B, 3, di)
+            ins.append(st)
+            fwd = (lambda u, w, b, s: fused.causal_conv(u, w, b,
+                                                        s.clone())[0],
+                   lambda u, w, b, s: ref.causal_conv_ref(u, w, b, s)[0])
+            bwd = None
+        else:
+            fwd = (lambda u, w, b: fused.causal_conv(u, w, b)[0],
+                   lambda u, w, b: ref.causal_conv_ref(u, w, b)[0])
+            bwd = (lambda u, w, b, dy: fused.causal_conv_bwd(u, w, b, dy),
+                   lambda u, w, b, dy: ref.causal_conv_bwd_ref(u, w, b, dy))
+        out_shape = u.shape
+    else:
+        if "strided" in name:
+            B, S, di = shape
+            g, u = t(B, S, 2 * di, scale=3)[..., di:], t(B, S, di)
+        else:
+            g, u = t(*shape, scale=3), t(*shape)
+        ins = [g, u]
+        fwd = (fused.silu_gate, ref.silu_gate_ref)
+        bwd = (fused.silu_gate_bwd, ref.silu_gate_bwd_ref)
+        out_shape = g.shape
+    dy = t(*out_shape)
+    return fwd, bwd, ins, dy
+
+
+def _tup(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", FUSED_CASES)
+def test_fused_kernel_matches_plain_version(cuda, name, shape, dtype):
+    """Each fused kernel, forward and backward, against its plain version
+    on the same inputs at a path shape: the forward within the model
+    kernels' tolerance (1e-5 f32, 2e-2 bf16, of the largest entry), the
+    backward within the gradients' (1e-4 f32, 2e-2 bf16); one launch
+    counted each."""
+    fwd, bwd, ins, dy = _fused_case(name, shape, dtype, seed=len(name))
+    op = name.split("_strided")[0].removesuffix("_state")
+    ops.reset_launches()
+    got = fwd[0](*ins)
+    torch.cuda.synchronize()
+    want = fwd[1](*ins)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    assert _rel(got, want) <= FUSED_TOL[dtype][0]
+    want_l = {op: 1}
+    if bwd is not None:
+        got_b = _tup(bwd[0](*ins, dy))
+        torch.cuda.synchronize()
+        for g, w in zip(got_b, _tup(bwd[1](*ins, dy)), strict=True):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert _rel(g, w) <= FUSED_TOL[dtype][1]
+        want_l[f"{op}_bwd"] = 1
+    assert {c: n for c, n in ops.launches.items() if n} == want_l
+
+
+@pytest.mark.cuda
+def test_fused_conv_writes_its_state_in_place(cuda):
+    """The decode step's conv: the new state written into the state
+    handed in, equal to the plain version's."""
+    from repro_torch.kernels import fused
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16):
+        u = torch.randn((4, 1, 6400), generator=gen, device="cuda").to(dt)
+        u = u[..., :3200]
+        w = torch.randn((4, 3200), generator=gen, device="cuda").to(dt)
+        b = torch.randn((3200,), generator=gen, device="cuda").to(dt)
+        st = torch.randn((4, 3, 3200), generator=gen, device="cuda").to(dt)
+        held = st.clone()
+        _, new = fused.causal_conv(u, w, b, held)
+        _, want = ref.causal_conv_ref(u, w, b, st)
+        assert new is held and torch.equal(held, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [c for c in FUSED_CASES
+                                        if "state" not in c[0]])
+def test_fused_backward_repeats_bit_for_bit(cuda, name, shape):
+    """Two calls of each backward kernel on the same inputs: the same
+    bits (the weight reductions run in a fixed order, no atomics)."""
+    fwd, bwd, ins, dy = _fused_case(name, shape, torch.bfloat16, seed=7)
+    one, two = _tup(bwd[0](*ins, dy)), _tup(bwd[0](*ins, dy))
+    for a, b in zip(one, two, strict=True):
+        assert torch.equal(a, b)

@@ -47,7 +47,10 @@ from repro_torch.models.model import Model  # noqa: E402
 META = torch.device("meta")
 _PLAIN = ("attention_ref", "mamba_scan_ref", "grouped_matmul_ref",
           "grouped_matmul_aligned_ref", "attention_bwd_ref",
-          "mamba_scan_bwd_ref", "grouped_matmul_aligned_bwd_ref")
+          "mamba_scan_bwd_ref", "grouped_matmul_aligned_bwd_ref",
+          "rmsnorm_ref", "rope_ref", "causal_conv_ref", "silu_gate_ref",
+          "rmsnorm_bwd_ref", "rope_bwd_ref", "causal_conv_bwd_ref",
+          "silu_gate_bwd_ref")
 
 
 def _forbid_plain(monkeypatch) -> dict:
@@ -258,18 +261,27 @@ def _fields(cfg) -> dict:
 
 # the counted FLOPs over step_cost's, per family and kind (remat "full"
 # in training), as found; and the kernel calls of the step
+# the fused elementwise kernels of one layer: a training step's (remat
+# "full": the layer's two norms, two ropes and gate twice, one backward
+# each; the final norm once), prefill's (the cache pass's norm and key
+# rope again) and decode's
+FUSED_TRAIN = {"rmsnorm": 5, "rmsnorm_bwd": 3, "rope": 4, "rope_bwd": 2,
+               "silu_gate": 2, "silu_gate_bwd": 1}
+FUSED_PREFILL = {"rmsnorm": 4, "rope": 3, "silu_gate": 1}
+FUSED_DECODE = {"rmsnorm": 3, "rope": 2, "silu_gate": 1}
 RATIOS = {("deepseek-7b", "train"): (0.988502358490566, {
-              "flash_attention": 2, "attention_bwd": 1}),
+              "flash_attention": 2, "attention_bwd": 1, **FUSED_TRAIN}),
           ("deepseek-7b", "prefill"): (1.3808962264150944, {
-              "flash_attention": 1}),
-          ("deepseek-7b", "decode"): (1.0, {"attention_masked": 1}),
+              "flash_attention": 1, **FUSED_PREFILL}),
+          ("deepseek-7b", "decode"): (1.0, {"attention_masked": 1,
+                                           **FUSED_DECODE}),
           ("olmoe-1b-7b", "train"): (1.0, {
               "flash_attention": 2, "grouped_matmul": 6, "attention_bwd": 1,
-              "grouped_matmul_bwd": 3}),
+              "grouped_matmul_bwd": 3, **FUSED_TRAIN}),
           ("olmoe-1b-7b", "prefill"): (1.337539432176656, {
-              "flash_attention": 1, "grouped_matmul": 3}),
+              "flash_attention": 1, "grouped_matmul": 3, **FUSED_PREFILL}),
           ("olmoe-1b-7b", "decode"): (1.0009727626459144, {
-              "attention_masked": 1, "grouped_matmul": 3})}
+              "attention_masked": 1, "grouped_matmul": 3, **FUSED_DECODE})}
 
 
 @pytest.mark.parametrize("arch,kind", list(RATIOS))
@@ -313,8 +325,17 @@ def test_run_cell_remat_dots_recomputes_the_kernels(arch, ratio):
     assert dots["cost"]["flops"] / dots["step_cost"]["flops"] == \
         pytest.approx(ratio, rel=1e-6)
     # "dots" keeps the products' outputs: more than "full" holds, less
-    # than "none"
-    peaks = {k: c["memory"]["peak_bytes"] for k, c in cells.items()}
+    # than "none", at two layers: at one, "full"'s recompute of the layer
+    # in the backward holds what "none" kept (the fused ops' Functions save
+    # only their inputs), and the two peaks are one
+    peaks = {}
+    for remat in cells:
+        cfg = _cfg(arch, remat=remat)
+        cfg = cfg.with_(segments=tuple(dataclasses.replace(s, n_layers=2)
+                                       for s in cfg.segments))
+        peaks[remat] = dryrun.run_cell(
+            arch, Shape("r_train", 64, 2, "train"),
+            overrides=_fields(cfg))["memory"]["peak_bytes"]
     assert peaks["full"] < peaks["dots"] < peaks["none"]
 
 
@@ -405,7 +426,11 @@ def test_cli_mesh_prices_the_sequence_split(tmp_path, monkeypatch):
     leaves = 2 + 9 * L
     assert c["counts"]["all-reduce"] == 2 + leaves    # the loss, the grads
     assert r["kernel_calls"] == {"flash_attention": 2 * L,
-                                 "attention_bwd": L, "adamw": leaves}
+                                 "attention_bwd": L, "adamw": leaves,
+                                 "rmsnorm": 4 * L + 1,
+                                 "rmsnorm_bwd": 2 * L + 1,
+                                 "rope": 4 * L, "rope_bwd": 2 * L,
+                                 "silu_gate": 2 * L, "silu_gate_bwd": L}
     one = dryrun.run_cell("smollm-135m", "train_4k")
     assert r["leaves"] == one["leaves"]               # whole on every rank
     # rank 0's attention: a quarter of the pairs (its 2048 queries against

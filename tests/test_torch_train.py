@@ -62,6 +62,7 @@ from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokenStream  # noqa: E402
 from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -369,11 +370,40 @@ def plain_adamw_launch(g, m, v, master, p, scalars, consts) -> None:
                       g, m, v, master, p, *scalars.unbind())
 
 
+def _outs(outs, values) -> None:
+    for out, value in zip(outs, values):
+        out.copy_(value)
+
+
+def _plain_conv_launch(u, w, b, state_in, y, state_out, chunk):
+    got, new = ref.causal_conv_ref(u, w, b, state_in)
+    _outs((y, state_out), (got, new))
+
+
+# the fused elementwise kernels' launches as their plain versions, each
+# writing the outputs the wrapper allocated
+PLAIN_FUSED = {
+    "_launch_rmsnorm": lambda x2, w, y2, eps: y2.copy_(
+        ref.rmsnorm_ref(x2, w, eps)),
+    "_launch_rmsnorm_bwd": lambda x2, w, dy2, dx2, dw, rstd, part, eps:
+        _outs((dx2, dw), ref.rmsnorm_bwd_ref(x2, w, dy2, eps)),
+    "_launch_rope": lambda x, pos, theta, out, negate: out.copy_(
+        ref.rope_ref(x, pos, theta, negate)),
+    "_launch_conv": _plain_conv_launch,
+    "_launch_conv_bwd": lambda u, w, b, dy, du, dw, db, part, chunk:
+        _outs((du, dw, db), ref.causal_conv_bwd_ref(u, w, b, dy)),
+    "_launch_gate": lambda g2, u2, y2: y2.copy_(ref.silu_gate_ref(g2, u2)),
+    "_launch_gate_bwd": lambda g2, u2, dy2, dg2, du2:
+        _outs((dg2, du2), ref.silu_gate_bwd_ref(g2, u2, dy2)),
+}
+
+
 @pytest.fixture
 def plain_attention(monkeypatch):
     """``ops.force("cuda")`` with the attention forward and backward
-    launches and the fused AdamW launch on their plain versions (CPU
-    tensors): the attention Function and its routes and the optimizer's
+    launches, the fused elementwise kernels' launches and the fused AdamW
+    launch on their plain versions (CPU tensors): the attention Function
+    and its routes, the elementwise ops' Functions and the optimizer's
     wrapper run as on the card, and the forward counts as the kernel's
     wrapper does.  Records each backward launch's route, head dims and
     whether it was handed the forward's LSE."""
@@ -407,6 +437,8 @@ def plain_attention(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention", forward)
     monkeypatch.setattr(fa, "_bwd_launch", bwd_launch)
     monkeypatch.setattr(kadamw, "_launch", plain_adamw_launch)
+    for name, launch in PLAIN_FUSED.items():
+        monkeypatch.setattr(fused, name, launch)
     ops.force("cuda")
     ops.reset_launches()
     yield seen
@@ -419,7 +451,7 @@ def test_mla_training_cut_loss_and_gradients_match_jax(plain_attention):
     remat "full", against ``jax.grad``; per step 3 attention forwards (the
     dense layer's and its recompute, the MTP block's, which is not
     recomputed) and 2 backward calls, both at (192, 128) on ``general``
-    (f32), no LSE handed."""
+    (f32), no LSE handed; the fused elementwise kernels' calls likewise."""
     cfg, jm, params = _mla_cut_pair()
     batch = _batches(cfg, 1, seed=5)[0]
     jb = jax.tree.map(jnp.asarray, batch)
@@ -441,8 +473,14 @@ def test_mla_training_cut_loss_and_gradients_match_jax(plain_attention):
         assert got[name].grad is not None, name
         assert _gap(_np(got[name].grad), g.numpy()) <= 1e-4, name
     assert plain_attention == [("general", (192, 128), False)] * 2
+    # the fused elementwise kernels: the dense layer's four norms (two of
+    # them MLA's q_ln and kv_ln), two ropes and gate twice, the MTP
+    # block's once with its own norm, the final norm before each head; one
+    # backward each
     assert {c: n for c, n in ops.launches.items() if n} == {
-        "flash_attention": 3, "attention_bwd": 2}
+        "flash_attention": 3, "attention_bwd": 2, "rmsnorm": 15,
+        "rmsnorm_bwd": 11, "rope": 6, "rope_bwd": 4, "silu_gate": 3,
+        "silu_gate_bwd": 2}
     assert {c: n for c, n in ops.route_launches.items() if n} == {
         "general": 3}
     assert {c: n for c, n in ops.bwd_route_launches.items() if n} == {
