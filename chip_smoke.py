@@ -487,8 +487,9 @@ failure propagates and the exit code is nonzero:
    rmsnorm, rope, the Mamba conv with its bias and SiLU, the SiLU gate,
    each a forward and a backward; no TPU counterpart, the reference's jnp
    that XLA fuses): every case of ``FUSED_CASES`` (hymba's, hubert's,
-   smollm's, falcon's and olmoe's path shapes and the decode step's; the
-   conv and the mixer's gate on column slices of ``in_proj``'s output) in
+   smollm's, deepseek-v3's, falcon's and olmoe's path shapes and the
+   decode step's; the conv and the mixer's gate on column slices of
+   ``in_proj``'s output) in
    bf16 and f32, the forward against its plain version within
    ``MODEL_TOL`` (bit-equality reported), the backward against the
    written-out plain backward within ``GRAD_TOL``; each timed: device ms
@@ -496,11 +497,17 @@ failure propagates and the exit code is nonzero:
    forward and backward through the op's Function and through the eager
    chain's autograd, the bound (bytes over 3.35 TB/s) and the library's
    call where one computes the same (``F.rms_norm``, forward and
-   backward; ``F.conv1d`` with groups = di, ``F.silu``'s ms beside).
-   Then 13b's and 16b's steps split by layer op (``fused_split``): each
-   op's calls a step times its plain chain's and its kernels' ms at the
-   step's shapes, beside the kernels' device ms in the step's eager
-   split and its remaining "other".  Every eager split of a training run
+   backward; ``F.conv1d`` with groups = di, ``F.silu``'s ms beside, and
+   the two forward and backward as a yardstick); rmsnorm's and the conv's
+   backward also split by launch under ``torch.profiler``
+   (``kernel_split_ms``), their first designs' times beside them as
+   "before" (``FUSED_BWD_BEFORE``, from PERF.md), and their forward and
+   backward through autograd captured in a CUDA graph beside the
+   library's, device ms.  Then 13b's and 16b's
+   steps split by layer op (``fused_split``): each op's calls a step
+   times its plain chain's and its kernels' ms at the step's shapes,
+   beside the kernels' device ms in the step's eager split and its
+   remaining "other".  Every eager split of a training run
    (13b-16b, 19a-21a) must show no kernel under ``aten::rsqrt``,
    ``aten::silu`` or ``aten::sin``, and one under ``aten::cos`` (the
    learning rate's), and the training runs' launches a step include the
@@ -3166,7 +3173,7 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
     beside its bound and the plain version's backward
     (``mamba_scan_bwd_ref`` on the kernel's segments); no library call
     computes it.  Beside: its segments (the last one's steps too) and
-    each pass's device time (``scan_bwd_pass_ms``)."""
+    each pass's device time (``kernel_split_ms``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import mamba_scan as ms
@@ -3208,7 +3215,7 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
            "segment_steps": plan["seg_len"],
            "last_segment_steps": S - (plan["nseg"] - 1) * plan["seg_len"],
            "ms": graph_ms(run, 3, 3), "call_ms": time_ms(run, 3)}
-    row["pass_ms"] = scan_bwd_pass_ms(run, 10)
+    row["pass_ms"] = kernel_split_ms(run, SCAN_BWD_PASSES, 10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain()
@@ -3217,21 +3224,21 @@ def check_scan_bwd(dtype_name: str, seed: int, clock_hz: float,
             "library_ms": None, **bound}
 
 
-def scan_bwd_pass_ms(fn, reps: int) -> dict:
-    """Each pass of the scan's backward (``SCAN_BWD_PASSES``): its device
-    time per call, from ``reps`` whole calls of ``fn`` under
-    ``torch.profiler``, keyed by kernel name.  Each pass launches one
-    kernel a call, so its time is the mean over the launches the trace
-    holds: the trace can miss some (on the H100 it kept none of a
-    profile's first launches after other work had run), and a pass still
-    missing after three profiles is "not measured"."""
+def kernel_split_ms(fn, kernels: dict, reps: int) -> dict:
+    """Each kernel of ``kernels`` (key: a part of its name) that ``fn``
+    launches once a call: its device time per call, from ``reps`` whole
+    calls of ``fn`` under ``torch.profiler``, keyed by kernel name.  Its
+    time is the mean over the launches the trace holds: the trace can miss
+    some (on the H100 it kept none of a profile's first launches after
+    other work had run), and a kernel still missing after three profiles
+    is "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    us = {k: 0.0 for k in SCAN_BWD_PASSES}
-    n = {k: 0 for k in SCAN_BWD_PASSES}
+    us = {k: 0.0 for k in kernels}
+    n = {k: 0 for k in kernels}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -3240,14 +3247,14 @@ def scan_bwd_pass_ms(fn, reps: int) -> dict:
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            for k, name in SCAN_BWD_PASSES.items():
+            for k, name in kernels.items():
                 if name in e.key:
                     us[k] += e.self_device_time_total
                     n[k] += e.count
         if all(n.values()):
             break
     return {k: sig(us[k] / 1e3 / n[k]) if n[k] else "not measured"
-            for k in SCAN_BWD_PASSES}
+            for k in kernels}
 
 
 def expected_train_launches(cfg, leaves: int = 0) -> dict:
@@ -3404,8 +3411,8 @@ CHAINS_GONE = ("aten::rsqrt", "aten::silu", "aten::silu_backward",
 # and dkv_kernel<HD, HDV>, moe_gmm_bwd_tc.cu's) first: the general
 # routes' kernels of the same names take (T, HD, ...) template arguments
 TRAIN_KINDS = {
-    # the fused elementwise kernels (``csrc/fused.cu``), first: the
-    # rmsnorm backward's ``fused_rmsnorm_dw_kernel`` holds "dw_kernel"
+    # the fused elementwise kernels (``csrc/fused.cu``), first: their
+    # names may hold later kinds' keys
     "rmsnorm": ("fused_rmsnorm",), "rope": ("fused_rope",),
     "conv": ("fused_conv",), "gate": ("fused_gate",),
     "attention_bwd_tc": tuple(f"{k}_kernel<{hd}," for k in ("dq", "dkv")
@@ -6323,6 +6330,7 @@ FUSED_CASES = [
     ("rmsnorm", "hymba", (TRAIN_B * TRAIN_S, 1600)),
     ("rmsnorm", "hubert", (12000, 1280)),
     ("rmsnorm", "smollm", (32768, 576)),
+    ("rmsnorm", "deepseek", (TRAIN_B * TRAIN_S, 7168)),
     ("rmsnorm", "decode", (4, 1600)),
     ("rope", "hymba_q", (TRAIN_B, TRAIN_S, 25, 64)),
     ("rope", "hymba_k", (TRAIN_B, TRAIN_S, 5, 64)),
@@ -6338,6 +6346,23 @@ FUSED_CASES = [
     ("silu_gate", "falcon_mixer", (2, TRAIN_S, 8192)),
     ("silu_gate", "decode", (4, 5504)),
 ]
+# rmsnorm's and the conv's backward, in their second designs: each
+# launch's kernel (a part of its name) for ``kernel_split_ms``, and the
+# first designs' device ms at the same cases (PERF.md's table; H100 80GB
+# HBM3 at 700 W), "before"
+FUSED_BWD_SPLIT = {
+    "rmsnorm": {"band": "fused_rmsnorm_bwd_kernel",
+                "dwsum": "fused_rmsnorm_dwsum_kernel"},
+    "causal_conv": {"main": "fused_conv_bwd_kernel",
+                    "dwsum": "fused_conv_dwsum_kernel"}}
+FUSED_BWD_BEFORE = {
+    ("rmsnorm", "hymba", "bfloat16"): 0.0706923,
+    ("rmsnorm", "hymba", "float32"): 0.125131,
+    ("rmsnorm", "hubert", "bfloat16"): 0.0739573,
+    ("rmsnorm", "smollm", "bfloat16"): 0.0982368,
+    ("causal_conv", "hymba", "bfloat16"): 0.177806,
+    ("causal_conv", "hymba", "float32"): 0.182565,
+    ("causal_conv", "falcon", "bfloat16"): 0.182956}
 # a training step's calls of each op by case tag, as shares of
 # ``expected_train_launches``' counts (phase 23's split of 13b's and 16b's
 # steps by layer op): hymba's ropes half on its 25 query heads, half on
@@ -6408,7 +6433,11 @@ def fused_case(op: str, tag: str, shape: tuple, dtype_name: str,
         ut = u.transpose(1, 2).contiguous()       # conv1d's (B, di, S)
         wc = w.t().contiguous()[:, None, :]       # (di, 1, K)
         case.update(library=lambda: F.conv1d(ut, wc, b, padding=3,
-                                             groups=di)[..., :S])
+                                             groups=di)[..., :S],
+                    library_train=lambda a, c_, d: F.silu(F.conv1d(
+                        a, c_, d, padding=3, groups=di)[..., :S]),
+                    library_args=(ut, wc, b),
+                    library_dy=lambda dy: dy.transpose(1, 2).contiguous())
         if tag == "decode":
             state = t(B, 3, di)
             held = state.clone()
@@ -6462,7 +6491,14 @@ def check_fused(op: str, tag: str, shape: tuple, dtype_name: str,
     u, SiLU not in it: ``library_silu_ms`` beside it), and for the
     backward its device ms, the written-out plain backward's, a forward
     and backward through the op's autograd Function and through the plain
-    chain's autograd (``torch.autograd.grad``), and ``F.rms_norm``'s."""
+    chain's autograd (``torch.autograd.grad``), and the library's
+    (``F.rms_norm``; ``F.conv1d`` with groups = di and ``F.silu`` on the
+    (B, di, S) copy).  For rmsnorm's and the conv's backward also each
+    launch's device ms (``kernel_split_ms``), the first design's ms at the
+    case where PERF.md has it (``FUSED_BWD_BEFORE``, "before"), and the
+    device ms of the forward and backward through autograd captured in a
+    CUDA graph, the op's Function's and the library's
+    (``fwd_bwd_graph_ms``, ``library_fwd_bwd_graph_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -6516,9 +6552,28 @@ def check_fused(op: str, tag: str, shape: tuple, dtype_name: str,
             return lambda: torch.autograd.grad(fn(*leaves), leaves, dy)
         row["fwd_bwd_ms"] = time_ms(fwd_bwd(c["train"]), iters=5)
         row["chain_fwd_bwd_ms"] = time_ms(fwd_bwd(c["chain"]), iters=5)
-        if op == "rmsnorm":
-            row["library_fwd_bwd_ms"] = time_ms(fwd_bwd(c["library_train"]),
-                                                iters=5)
+        split = op in FUSED_BWD_SPLIT
+        if split:   # the pair's device time, captured with its autograd
+            row["fwd_bwd_graph_ms"] = graph_ms(fwd_bwd(c["train"]),
+                                               launches=5, replays=3)
+        if "library_train" in c:
+            lleaves = [a.detach().requires_grad_()
+                       for a in c.get("library_args", c["args"])]
+            ldy = c.get("library_dy", lambda d: d)(dy)
+
+            def lib_pair():
+                return torch.autograd.grad(c["library_train"](*lleaves),
+                                           lleaves, ldy)
+            row["library_fwd_bwd_ms"] = time_ms(lib_pair, iters=5)
+            if split:
+                row["library_fwd_bwd_graph_ms"] = graph_ms(
+                    lib_pair, launches=5, replays=3)
+            del lleaves, ldy
+        if split:
+            row["bwd_split_ms"] = kernel_split_ms(
+                lambda: c["bwd"](dy), FUSED_BWD_SPLIT[op], 10)
+            row["bwd_before_ms"] = FUSED_BWD_BEFORE.get(
+                (op, tag, dtype_name), "not measured")
         del leaves
     del c
     torch.cuda.empty_cache()
@@ -7284,7 +7339,9 @@ def phases(dry_pool) -> int:
     summary["p23"] = {"rows": [{k: r.get(k) for k in (
         "op", "case", "dtype", "max_abs_err", "bit_equal", "bwd_max_rel_err",
         "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "bwd_ms",
-        "bwd_plain_ms", "bwd_bound_ms", "fwd_bwd_ms", "chain_fwd_bwd_ms")}
+        "bwd_plain_ms", "bwd_bound_ms", "fwd_bwd_ms", "chain_fwd_bwd_ms",
+        "library_fwd_bwd_ms", "bwd_split_ms", "bwd_before_ms",
+        "fwd_bwd_graph_ms", "library_fwd_bwd_graph_ms")}
         for r in p23["rows"]], "split": p23["split"], "s": p23["s"]}
     summary["train_split_fused"] = {
         tag: {k: p["split"]["device_ms"][k] for k in (
@@ -7767,6 +7824,8 @@ def phases(dry_pool) -> int:
                 entry["chain_fwd_bwd_ms"] = row["chain_fwd_bwd_ms"]
                 if "library_fwd_bwd_ms" in row:
                     entry["library_fwd_bwd_ms"] = row["library_fwd_bwd_ms"]
+                if "bwd_split_ms" in row:
+                    entry["split_ms"] = row["bwd_split_ms"]
             if "library_silu_ms" in row and name == op:
                 entry["library_silu_ms"] = row["library_silu_ms"]
             for r in rows[1:]:

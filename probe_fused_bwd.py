@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Where the fused backwards' time goes: rmsnorm's and the Mamba conv's
+backward kernels of ``csrc/fused.cu`` timed launch by launch, beside
+another source of the same kernels, on one GPU, in one process.
+
+    mkdir -p build/other
+    git show <commit>:src/repro_torch/kernels/csrc/fused.cu \\
+        > build/other/fused.cu
+    python3 probe_fused_bwd.py --other build/other [--abi first] \\
+        [--ops causal_conv]
+
+``--abi`` says how the other source's backward launchers are called:
+``checkout`` (the default) as the checkout's are (``_build.SIGNATURES``,
+at the checkout's plans), ``first`` as the first design's were (rmsnorm
+with an ``rstd`` scratch and 64 rows a part, the conv with 64-step
+chunks, each chunk a part; kernels ``fused_rmsnorm_bwd_kernel``,
+``fused_rmsnorm_dw_kernel``, ``fused_rmsnorm_dwsum_kernel``,
+``fused_conv_bwd_kernel``, ``fused_conv_dwsum_kernel``).
+
+The cases are phase 23's (``chip_smoke.FUSED_CASES``' rmsnorm and conv
+shapes but decode's, ``chip_smoke.fused_case``'s inputs), bf16 and f32.
+Each backward is held against its written-out plain version
+(``chip_smoke.GRAD_TOL``: a miss is reported, not raised), timed in
+CUDA-graph replay (``chip_smoke.graph_ms``) in turns (other, checkout,
+checkout, other) and split by launch under ``torch.profiler``
+(``chip_smoke.kernel_split_ms``).  Both sources build with ``-Xptxas
+-v``, whose report of each backward kernel (registers, spills) is
+printed.  Prints the card's name and power limit, a JSON line a case,
+then one JSON line of them all.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+# the first design's launchers: rmsnorm's backward (x, w, dy, dx, dw,
+# rstd, part, R, D, sx, rows_per, eps, x_bf16, w_bf16, stream), the conv's
+# (u, w, b, dy, du, dw, db, part, B, S, di, K, sub, sus, chunk, is_bf16,
+# stream); its kernels by launch
+FIRST = {
+    "repro_rmsnorm_bwd": (_P,) * 7 + (_LL, _I, _LL, _I, _F, _I, _I, _P),
+    "repro_causal_conv_bwd": (_P,) * 8 + (_I,) * 4 + (_LL, _LL, _I, _I, _P),
+}
+FIRST_SPLIT = {"rmsnorm": {"row": "fused_rmsnorm_bwd_kernel",
+                           "dw": "fused_rmsnorm_dw_kernel",
+                           "dwsum": "fused_rmsnorm_dwsum_kernel"},
+               "causal_conv": {"main": "fused_conv_bwd_kernel",
+                               "dwsum": "fused_conv_dwsum_kernel"}}
+
+
+def build(src: Path, tag: str) -> tuple[ctypes.CDLL, str]:
+    """``src`` built with the checkout's nvcc flags and ``-Xptxas -v``
+    (the checkout's headers on the include path): the library and
+    ptxas's report."""
+    from repro_torch.kernels import _build
+    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"libfused_{tag}_{key}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                           "-v", f"-I{_build.CSRC}", "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("probe: no CUDA device", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", type=Path, required=True,
+                    help="directory with the other source's fused.cu")
+    ap.add_argument("--abi", choices=("checkout", "first"),
+                    default="checkout")
+    ap.add_argument("--ops", nargs="+", default=["rmsnorm", "causal_conv"],
+                    help="the ops whose backwards to probe")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, fused
+
+    print(cs.card_line(), flush=True)
+    _build.load("fused")   # built with -Xptxas -v (``PTXAS_REPORT``)
+    other, other_log = build(args.other / "fused.cu", "other")
+    first = args.abi == "first"
+    sigs = FIRST if first else _build.SIGNATURES["fused"]
+    for fn in ("repro_rmsnorm_bwd", "repro_causal_conv_bwd"):
+        getattr(other, fn).argtypes = list(sigs[fn])
+        getattr(other, fn).restype = ctypes.c_int
+    out: dict = {"card": cs.card_line(), "abi": args.abi, "ptxas": {
+        name: [s for s in cs.ptxas_summary(log)
+               if any(k in s for k in ("bwd", "dwsum", "dw_kernel"))]
+        for name, log in (("checkout", _build.build_log.get("fused", "")),
+                          ("other", other_log))}, "rows": []}
+    for k, lines in out["ptxas"].items():
+        for line in lines:
+            print(f"ptxas {k}: {line}", flush=True)
+
+    def stream() -> int:
+        return torch.cuda.current_stream().cuda_stream
+
+    def bf(t) -> int:
+        return int(t.dtype == torch.bfloat16)
+
+    def launch(fn: str, *a) -> None:
+        err = getattr(other, fn)(*a, stream())
+        assert err == 0, f"{fn}: error {err}"
+
+    cases = [(op, tag, shape) for op, tag, shape in cs.FUSED_CASES
+             if op in args.ops and tag != "decode"]
+    for i, (op, tag, shape) in enumerate(cases):
+        for dt in ("bfloat16", "float32"):
+            c = cs.fused_case(op, tag, shape, dt, seed=i)
+            dy = c["dy"]
+            want = c["plain_bwd"](dy)
+            row = {"op": op, "case": tag, "dtype": dt, "shape": list(shape)}
+            if op == "rmsnorm":
+                x, w = c["args"]
+                R, D = x.shape
+                plan = fused.norm_bwd_plan(R, D, x.element_size())
+                parts = min(-(-R // 64), 1024) if first else plan["parts"]
+                rstd = torch.empty(R, device="cuda")
+                part = torch.empty((parts, D), device="cuda")
+                outs = (torch.empty_like(x), torch.empty_like(w))
+                tail = (-(-R // parts),) if first else (
+                    plan["threads_x"], plan["groups"], plan["band"])
+
+                def theirs(x=x, w=w, dy=dy, part=part, rstd=rstd, o=outs,
+                           R=R, D=D, tail=tail):
+                    launch("repro_rmsnorm_bwd", x.data_ptr(), w.data_ptr(),
+                           dy.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
+                           *((rstd.data_ptr(),) if first else ()),
+                           part.data_ptr(), R, D, x.stride(0), *tail, 1e-5,
+                           bf(x), bf(w))
+                    return o
+            else:
+                u, w, b = c["args"]
+                B, S, di = u.shape
+                K = w.shape[0]
+                plan = fused.conv_bwd_plan(B, S, u.element_size())
+                parts = B * -(-S // 64) if first else plan["parts"]
+                part = torch.empty((parts, K + 1, di), device="cuda")
+                outs = (torch.empty(u.shape, dtype=u.dtype, device="cuda"),
+                        torch.empty_like(w), torch.empty_like(b))
+                tail = (64,) if first else (plan["steps"], plan["parts"])
+
+                def theirs(u=u, w=w, b=b, dy=dy, part=part, o=outs, B=B,
+                           S=S, di=di, K=K, tail=tail):
+                    launch("repro_causal_conv_bwd", u.data_ptr(),
+                           w.data_ptr(), b.data_ptr(), dy.data_ptr(),
+                           o[0].data_ptr(), o[1].data_ptr(), o[2].data_ptr(),
+                           part.data_ptr(), B, S, di, K, u.stride(0),
+                           u.stride(1), *tail, bf(u))
+                    return o
+
+            def mine(bwd=c["bwd"], dy=dy):
+                return bwd(dy)
+            for key, f in (("err_other", theirs), ("err", mine)):
+                gap = max(cs.grad_gap(a, b) for a, b in zip(f(), want))
+                if not gap <= cs.GRAD_TOL[dt]:
+                    print(f"MISS {op} {tag} {dt} {key}: {gap}", flush=True)
+                row[key] = cs.sig(gap)
+            one = [t.clone() for t in mine()]
+            row["repeats_bits"] = all(torch.equal(a, b)
+                                      for a, b in zip(one, mine()))
+            turns = [cs.graph_ms(f, launches=10, replays=5)
+                     for f in (theirs, mine, mine, theirs)]
+            row["other_ms"] = [cs.sig(turns[0]), cs.sig(turns[3])]
+            row["ms"] = [cs.sig(turns[1]), cs.sig(turns[2])]
+            row["split_other_ms"] = cs.kernel_split_ms(
+                theirs, (FIRST_SPLIT if first else cs.FUSED_BWD_SPLIT)[op], 10)
+            row["split_ms"] = cs.kernel_split_ms(mine, cs.FUSED_BWD_SPLIT[op],
+                                                 10)
+            row["bound_ms"] = cs.sig(1e3 * c["cost"][1] / cs.HBM_BYTES_PER_S)
+            print(json.dumps(row), flush=True)
+            out["rows"].append(row)
+            del c, want, one
+            torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,7 @@ wrong: they exist only here, never on the training path.  At
 ``chip_smoke.BWD_SCAN_CASE`` with ``check_scan_bwd``'s inputs, in bf16
 and f32, each build's call is timed in CUDA-graph replay
 (``chip_smoke.graph_ms``) and split by pass under ``torch.profiler``
-(``chip_smoke.scan_bwd_pass_ms``); the checkout's own build runs first
+(``chip_smoke.kernel_split_ms``); the checkout's own build runs first
 and last, and once at each segment length of ``SEGMENTS`` beside the
 plan's.  A cut that no longer matches the source raises.  Prints the
 card's name and power limit, then one JSON line of the times.
@@ -122,7 +122,8 @@ def main() -> int:
         for w in ("mine", *PROBES, "mine_again"):
             use["which"] = "mine" if w == "mine_again" else w
             out[w] = {"ms": cs.sig(cs.graph_ms(run, 3, 3)),
-                      "pass_ms": cs.scan_bwd_pass_ms(run, 10)}
+                      "pass_ms": cs.kernel_split_ms(run, cs.SCAN_BWD_PASSES,
+                                                    10)}
             print(dname, w, out[w], flush=True)
         use["which"] = "mine"
         out["segment_ms"] = {L: cs.sig(cs.graph_ms(

@@ -99,21 +99,22 @@ SIGNATURES = {
         "repro_adamw": (_P,) * 6 + (_LL, _I, _I, _I) + (_F,) * 6 + (_P,),
     },
     # the fused elementwise kernels: rmsnorm (x, w, y, R, D, sx, eps,
-    # x_bf16, w_bf16, stream), its backward (x, w, dy, dx, dw, rstd, part,
-    # R, D, sx, rows_per, eps, x_bf16, w_bf16, stream); rope (x, pos,
+    # x_bf16, w_bf16, stream), its backward (x, w, dy, dx, dw, part, R, D,
+    # sx, tx, ty, band, eps, x_bf16, w_bf16, stream); rope (x, pos,
     # freqs, out, B, S, H, half, sxb, sxs, sxh, spb, sps, negate, is_bf16,
     # stream); the conv (u, w, b, state_in, y, state_out, B, S, di, K, sub,
     # sus, chunk, is_bf16, stream), its backward (u, w, b, dy, du, dw, db,
-    # part, B, S, di, K, sub, sus, chunk, is_bf16, stream); the gate (g, u,
-    # y, R, D, sg, su, is_bf16, stream), its backward (g, u, dy, dg, du, R,
-    # D, sg, su, is_bf16, stream)
+    # part, B, S, di, K, sub, sus, steps, parts, is_bf16, stream); the gate
+    # (g, u, y, R, D, sg, su, is_bf16, stream), its backward (g, u, dy, dg,
+    # du, R, D, sg, su, is_bf16, stream)
     "fused": {
         "repro_rmsnorm": (_P, _P, _P, _LL, _I, _LL, _F, _I, _I, _P),
-        "repro_rmsnorm_bwd": (_P,) * 7 + (_LL, _I, _LL, _I, _F, _I, _I, _P),
+        "repro_rmsnorm_bwd": (_P,) * 6 + (_LL, _I, _LL, _I, _I, _I, _F, _I,
+                                          _I, _P),
         "repro_rope": (_P,) * 4 + (_I,) * 4 + (_LL,) * 5 + (_I, _I, _P),
         "repro_causal_conv": (_P,) * 6 + (_I,) * 4 + (_LL, _LL, _I, _I, _P),
         "repro_causal_conv_bwd": (_P,) * 8 + (_I,) * 4 + (_LL, _LL, _I, _I,
-                                                          _P),
+                                                          _I, _P),
         "repro_silu_gate": (_P, _P, _P, _LL, _I, _LL, _LL, _I, _P),
         "repro_silu_gate_bwd": (_P,) * 5 + (_LL, _I, _LL, _LL, _I, _P),
     },

@@ -18,25 +18,30 @@
 // x / (1 + expf(-x))) and the gate's forward (SiLU rounded, then the
 // product) repeat the plain versions' operations; rmsnorm's row sums run
 // in another order than torch's reduction.  The backwards compute in f32
-// and round once at each output.
+// and round once at each output; the conv's recomputes v exactly as the
+// forward rounds it, then, in bf16, takes SiLU's derivative with the fast
+// exp and division and adds with FMAs (in f32 every operation rounded on
+// its own).
 //
 // Bound on the card: bytes.  Each forward reads its inputs once and writes
 // its output once (rmsnorm's second read of a row comes from L1/L2); each
 // backward reads its inputs and the cotangent once and writes the input
 // gradients, plus, where there is a weight, a reduction over rows.  None
-// does more than a few FLOPs a byte.
+// does more than a few FLOPs a byte (the conv's backward about ten a
+// byte: its instructions come close to the bytes' time).
 //
 // Determinism: no atomics.  rmsnorm's dw and the conv's dw and db are sums
 // over rows in two passes: per-part partial sums (a fixed set of rows per
-// part, added in order), then one thread per column adding the parts in
-// order.  Warp sums are xor butterflies, whose every lane ends with the
-// same bits.  Two runs repeat bit for bit.
+// part, added in order), then a dwsum kernel adding the parts in order
+// (``colsum``).  Warp sums are xor butterflies, whose every lane ends with
+// the same bits.  Two runs repeat bit for bit.
 //
-// Design, simple first:
+// Design:
 //  * rmsnorm: one warp a row, eight rows a 256-thread block, four elements
 //    a lane an access where D and the row stride allow; the row's sum of
-//    squares in f32, then the output pass.  The backward's row pass
-//    recomputes r and writes it (R,) f32 for the dw pass.
+//    squares in f32, then the output pass.  Its backward reads x and dy
+//    once: a block a band of rows, a row's elements held in registers by a
+//    group of threads, dw's partials in shared memory (see the kernel).
 //  * rope: one thread per (b, s, i < hd / 2), which computes cos and sin
 //    of its angle once and rotates the pair (i, i + hd / 2) of every head.
 //    x may be a strided view (MLA's rope part of a wider row).
@@ -45,7 +50,11 @@
 //    d_conv inputs in registers and walks its chunk; u may
 //    be a column slice of in_proj's output (its row stride given).  From a
 //    state (decode) one chunk covers the sequence, so the thread that reads
-//    a channel's state is the one that writes it, in place.
+//    a channel's state is the one that writes it, in place.  Its backward
+//    stages u and dy in shared memory by 16-byte cp.async, a block a tile
+//    of eight chunks, a warp a chunk walked from shared memory; the
+//    chunks' first dv shared so that only a tile's last chunk recomputes
+//    past its end, and dw and db reduced in the block (see the kernel).
 //  * the gate: four consecutive elements a thread (one 8- or 16-byte
 //    access each where aligned), a 256-thread block a 1024-element chunk
 //    of a row.
@@ -54,6 +63,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "tc_mma.cuh"
 
 namespace {
 
@@ -99,6 +110,23 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, const float o[4]) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
+// two consecutive elements by one 8-byte (f32) or 4-byte (bf16) access
+__device__ __forceinline__ void ld2(const float* p, float o[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  o[0] = v.x; o[1] = v.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float o[2]) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  o[0] = __low2float(v); o[1] = __high2float(v);
+}
+__device__ __forceinline__ void st2(float* p, const float o[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, const float o[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(
+      __float2bfloat16_rn(o[0]), __float2bfloat16_rn(o[1]));
+}
+
 // every lane ends with the same bits: lane i and lane i ^ o add the same
 // two values at each level
 __device__ __forceinline__ float warp_sum(float v) {
@@ -111,11 +139,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // SiLU as torch's kernel computes it: x / (1 + exp(-x)), in f32
 __device__ __forceinline__ float silu_f(float v) {
   return __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
-}
-// SiLU's derivative s (1 + v (1 - s)), s = sigmoid(v)
-__device__ __forceinline__ float dsilu_f(float v) {
-  const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
-  return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(v, __fsub_rn(1.f, s))));
 }
 
 constexpr int NORM_WARPS = 8;   // rows of a 256-thread rmsnorm block
@@ -168,100 +191,215 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// dx = r (w dy) - x r^3 mean(x w dy); r per row into rstd
+// ---------------------------------------------------- rmsnorm's backward
+// dx = r (w dy) - x r^3 mean(x w dy), dw = the sum over rows of dy x r, in
+// one pass over x and dy.  A block owns a band of consecutive rows (the
+// wrapper's plan, ``fused.norm_bwd_plan``: it depends on (R, D) and the
+// dtype alone, never on the card, so dw's summation order does too).
+// Its threads form row groups of tx threads (tx / 32 warps), ty of them a
+// block (the plan's too); group g takes the band's rows g, g + ty, ...  A
+// thread holds NORM_H elements of a row -- units of four (one access each)
+// where VEC, else single elements, unit k of thread t at t + tx k -- and
+// w's at the same columns, bf16 still packed two to a register
+// (``NormRow``), so that many rows are in flight on an SM.  A row's two
+// sums reduce over the warp by butterfly and over the group's warps
+// through shared memory in warp order; dx is written from the registers;
+// dy x r is added into the group's own f32 row of dw partials in shared
+// memory (a thread touches only its own columns).  At the end the groups'
+// rows add in group order into the band's row of part (P, D);
+// ``fused_rmsnorm_dwsum_kernel`` adds the bands in order.
+constexpr int NORM_H = 16;         // elements of a row a thread holds
+constexpr int NORM_MAX_TX = 512;   // threads of a block at most
+
+// the row sums' exchange (two buffers of ty x warps float2) and the
+// groups' dw partials (ty x D f32)
+inline size_t norm_smem(int D, int tx, int ty) {
+  return sizeof(float) * (4 * (size_t)ty * (tx / 32) + (size_t)ty * D);
+}
+
+template <int E, typename T>
+__device__ __forceinline__ void lde(const T* p, float* o) {
+  if constexpr (E == 4)
+    ld4(p, o);
+  else
+    o[0] = to_f(p[0]);
+}
+template <int E, typename T>
+__device__ __forceinline__ void ste(T* p, const float* o) {
+  if constexpr (E == 4)
+    st4(p, o);
+  else
+    p[0] = from_f<T>(o[0]);
+}
+
+// NORM_H elements of a row as a thread holds them: G units of E; bf16
+// units of four packed two to a 32-bit word, the rest one f32 a word
+template <typename T, int E>
+struct NormRow {
+  static constexpr bool PACK = sizeof(T) == 2 && E == 4;
+  static constexpr int G = NORM_H / E, N = PACK ? NORM_H / 2 : NORM_H;
+  static constexpr int WPU = N / G;   // words a unit
+  uint32_t r[N];
+  __device__ __forceinline__ void zero(int k) {
+#pragma unroll
+    for (int j = 0; j < WPU; ++j) r[k * WPU + j] = 0u;
+  }
+  __device__ __forceinline__ void load(const T* p, int k) {
+    if constexpr (PACK) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      r[2 * k] = v.x;
+      r[2 * k + 1] = v.y;
+    } else {
+      float o[E];
+      lde<E>(p, o);
+#pragma unroll
+      for (int e = 0; e < E; ++e) r[k * E + e] = __float_as_uint(o[e]);
+    }
+  }
+  // element h = k E + e
+  __device__ __forceinline__ float at(int h) const {
+    if constexpr (PACK) {
+      const uint32_t w = r[h >> 1];
+      return __uint_as_float((h & 1) ? (w & 0xffff0000u) : (w << 16));
+    } else {
+      return __uint_as_float(r[h]);
+    }
+  }
+};
+
 template <typename T, typename W, bool VEC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(NORM_MAX_TX, sizeof(T) == 2 ? 2 : 1)
     fused_rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
                              const T* __restrict__ dy, T* __restrict__ dx,
-                             float* __restrict__ rstd, int64_t R, int D,
-                             int64_t sx, float inv_d, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int64_t row = (int64_t)blockIdx.x * NORM_WARPS + threadIdx.x / 32;
-  if (row >= R) return;
-  const T* xr = x + row * sx;
-  const T* gr = dy + row * (int64_t)D;
-  T* out = dx + row * (int64_t)D;
-  float ss = 0.f, dot = 0.f;
-  if (VEC) {
-#pragma unroll 2
-    for (int d = 4 * lane; d < D; d += 128) {
-      float v[4], wv[4], g[4];
-      ld4(xr + d, v);
-      ld4(w + d, wv);
-      ld4(gr + d, g);
+                             float* __restrict__ part, int64_t R, int D,
+                             int64_t sx, int band, int TX, float inv_d,
+                             float eps) {
+  constexpr int E = VEC ? 4 : 1, G = NORM_H / E;
+  extern __shared__ float smem[];
+  const int TY = blockDim.x / TX;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int wpr = TX / 32, wx = tx / 32, lane = threadIdx.x % 32;
+  float* sums = smem + 4 * TY * wpr;   // [TY][D]
+  float* mine = sums + ty * D;
+  const int64_t r0 = (int64_t)blockIdx.x * band;
+  const int64_t r1 = r0 + band < R ? r0 + band : R;
+  NormRow<W, E> wr;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        ss = __fadd_rn(ss, __fmul_rn(v[k], v[k]));
-        dot = __fadd_rn(dot, __fmul_rn(v[k], __fmul_rn(wv[k], g[k])));
+  for (int k = 0; k < G; ++k) {
+    const int d = (tx + TX * k) * E;
+    if (d < D) {
+      wr.load(w + d, k);
+#pragma unroll
+      for (int e = 0; e < E; ++e) mine[d + e] = 0.f;
+    } else {
+      wr.zero(k);
+    }
+  }
+  const int iters = (band + TY - 1) / TY;
+  for (int i = 0; i < iters; ++i) {
+    const int64_t row = r0 + ty + (int64_t)i * TY;
+    const bool live = row < r1;
+    NormRow<T, E> xr, gr;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int d = (tx + TX * k) * E;
+      if (live && d < D) {
+        xr.load(x + row * sx + d, k);
+        gr.load(dy + row * (int64_t)D + d, k);
+      } else {
+        xr.zero(k);
+        gr.zero(k);
       }
     }
-  } else {
-#pragma unroll 4
-    for (int d = lane; d < D; d += 32) {
-      const float v = to_f(xr[d]);
-      ss = __fadd_rn(ss, __fmul_rn(v, v));
-      dot = __fadd_rn(dot, __fmul_rn(v, __fmul_rn(to_f(w[d]),
-                                                  to_f(gr[d]))));
-    }
-  }
-  ss = warp_sum(ss);
-  dot = warp_sum(dot);
-  const float r = rsqrtf(__fadd_rn(__fmul_rn(ss, inv_d), eps));
-  const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
-                            __fmul_rn(dot, inv_d));
-  if (lane == 0) rstd[row] = r;
-  if (VEC) {
-#pragma unroll 2
-    for (int d = 4 * lane; d < D; d += 128) {
-      float v[4], wv[4], g[4];
-      ld4(xr + d, v);
-      ld4(w + d, wv);
-      ld4(gr + d, g);
+    float ss = 0.f, dot = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        v[k] = __fsub_rn(__fmul_rn(r, __fmul_rn(wv[k], g[k])),
-                         __fmul_rn(v[k], c));
-      st4(out + d, v);
+    for (int h = 0; h < NORM_H; ++h) {
+      const float xv = xr.at(h);
+      ss = __fadd_rn(ss, __fmul_rn(xv, xv));
+      dot = __fadd_rn(dot, __fmul_rn(xv, __fmul_rn(wr.at(h), gr.at(h))));
     }
-  } else {
-#pragma unroll 4
-    for (int d = lane; d < D; d += 32) {
-      const float wdy = __fmul_rn(to_f(w[d]), to_f(gr[d]));
-      out[d] = from_f<T>(__fsub_rn(__fmul_rn(r, wdy),
-                                   __fmul_rn(to_f(xr[d]), c)));
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (wpr > 1) {   // the group's warps in order; two buffers, one barrier
+      float* rb = smem + 2 * ((i & 1) * TY + ty) * wpr;
+      if (lane == 0) {
+        rb[2 * wx] = ss;
+        rb[2 * wx + 1] = dot;
+      }
+      __syncthreads();
+      ss = rb[0];
+      dot = rb[1];
+      for (int j = 1; j < wpr; ++j) {
+        ss = __fadd_rn(ss, rb[2 * j]);
+        dot = __fadd_rn(dot, rb[2 * j + 1]);
+      }
     }
+    if (!live) continue;
+    const float r = rsqrtf(__fadd_rn(__fmul_rn(ss, inv_d), eps));
+    const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r),
+                              __fmul_rn(dot, inv_d));
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int d = (tx + TX * k) * E;
+      if (d < D) {
+        float o[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int h = k * E + e;
+          const float xv = xr.at(h), gv = gr.at(h);
+          o[e] = __fsub_rn(__fmul_rn(r, __fmul_rn(wr.at(h), gv)),
+                           __fmul_rn(xv, c));
+          mine[d + e] = __fadd_rn(mine[d + e],
+                                  __fmul_rn(__fmul_rn(gv, xv), r));
+        }
+        ste<E>(dx + row * (int64_t)D + d, o);
+      }
+    }
+  }
+  __syncthreads();
+  float* out = part + (int64_t)blockIdx.x * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float v = sums[d];
+    for (int g = 1; g < TY; ++g) v = __fadd_rn(v, sums[g * D + d]);
+    out[d] = v;
   }
 }
 
-// part[p, d] = sum over rows p * rows_per .. of dy x r, in row order
-template <typename T>
-__global__ void __launch_bounds__(256)
-    fused_rmsnorm_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                            const float* __restrict__ rstd,
-                            float* __restrict__ part, int64_t R, int D,
-                            int64_t sx, int rows_per) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  const int64_t r0 = (int64_t)blockIdx.y * rows_per;
-  const int64_t r1 = r0 + rows_per < R ? r0 + rows_per : R;
+// out = the sum of part (P, N) f32 over its P rows in a fixed order: a
+// 256-thread block takes 32 columns, its warp j adds rows [P j / 8,
+// P (j + 1) / 8) in order, then the eight warps' sums add in warp order.
+// Columns below n0 go to out0, the rest to out1 (the conv's dw, then db).
+template <typename O>
+__device__ __forceinline__ void colsum(const float* __restrict__ part, int P,
+                                       int64_t N, O* __restrict__ out0,
+                                       int64_t n0, O* __restrict__ out1) {
+  __shared__ float red[8][32];
+  const int lane = threadIdx.x % 32, wp = threadIdx.x / 32;
+  const int64_t c = (int64_t)blockIdx.x * 32 + lane;
+  const int p0 = (int)((int64_t)P * wp / 8);
+  const int p1 = (int)((int64_t)P * (wp + 1) / 8);
   float acc = 0.f;
-#pragma unroll 4
-  for (int64_t row = r0; row < r1; ++row)
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(to_f(dy[row * D + d]),
-                                             to_f(x[row * sx + d])),
-                                   rstd[row]));
-  part[(int64_t)blockIdx.y * D + d] = acc;
+  if (c < N) {
+#pragma unroll 8
+    for (int p = p0; p < p1; ++p)
+      acc = __fadd_rn(acc, part[(int64_t)p * N + c]);
+  }
+  red[wp][lane] = acc;
+  __syncthreads();
+  if (wp || c >= N) return;
+  for (int j = 1; j < 8; ++j) acc = __fadd_rn(acc, red[j][lane]);
+  if (c < n0)
+    out0[c] = from_f<O>(acc);
+  else
+    out1[c - n0] = from_f<O>(acc);
 }
 
+// dw (D,): rmsnorm's bands added in order
 template <typename W>
 __global__ void __launch_bounds__(256)
-    fused_rmsnorm_dwsum_kernel(const float* __restrict__ part,
-                               W* __restrict__ dw, int P, int D) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  float acc = 0.f;
-  for (int p = 0; p < P; ++p) acc = __fadd_rn(acc, part[(int64_t)p * D + d]);
-  dw[d] = from_f<W>(acc);
+    fused_rmsnorm_dwsum_kernel(const float* __restrict__ part, int P, int D,
+                               W* __restrict__ dw) {
+  colsum<W>(part, P, D, dw, D, nullptr);
 }
 
 // ------------------------------------------------------------------- rope
@@ -302,6 +440,8 @@ template <int CV, typename T>
 __device__ __forceinline__ void ldv(const T* p, float o[CV]) {
   if constexpr (CV == 4)
     ld4(p, o);
+  else if constexpr (CV == 2)
+    ld2(p, o);
   else
     o[0] = to_f(p[0]);
 }
@@ -309,6 +449,8 @@ template <int CV, typename T>
 __device__ __forceinline__ void stv(T* p, const float o[CV]) {
   if constexpr (CV == 4)
     st4(p, o);
+  else if constexpr (CV == 2)
+    st2(p, o);
   else
     p[0] = from_f<T>(o[0]);
 }
@@ -390,103 +532,298 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// du (B, S, di) contiguous; part ((B * nchunk), K + 1, di): each chunk's
-// sums of dv * tap j's input (j < K) and of dv (j = K) over its steps
-template <typename T, int K, int CV>
-__global__ void __launch_bounds__(256)
+// SiLU's derivative s (1 + v (1 - s)), s = sigmoid(v).  FAST (bf16): the
+// fast exponential and division, a gradient's factor with bf16's
+// precision to spare; else every operation rounded on its own.
+template <bool FAST>
+__device__ __forceinline__ float dsilu(float v) {
+  if constexpr (FAST) {
+    const float s = __fdividef(1.f, 1.f + __expf(-v));
+    return s * (1.f + v * (1.f - s));
+  } else {
+    const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+    return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(v, __fsub_rn(1.f, s))));
+  }
+}
+// acc + a b: one FMA (FAST), else the product and the sum rounded each
+template <bool FAST>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  if constexpr (FAST)
+    return fmaf(a, b, acc);
+  else
+    return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// The conv's backward in tiles staged in shared memory.  A 256-thread
+// block takes CONV_CW channels of one sequence (a lane CONV_CV adjacent
+// ones) and CONV_CY consecutive chunks of L steps, a warp a chunk.  A warp
+// stages its chunk's u and dy rows (CONV_CW channels each) into a ring of
+// CONV_NS slots of conv_sub<T>() rows, one slot ahead of its walk: by
+// 16-byte cp.async where di, the strides and the pointers are aligned for
+// it (VEC), else one element at a time; zeros outside the sequence and
+// past di.  The K - 1 inputs before the chunk, and u and dy of the K - 1
+// steps after it, are staged with the first slot.  A lane then walks its
+// channels down the chunk from shared memory (``ConvWalk``): it keeps the
+// last K inputs, recomputes v as the forward rounds it (``conv_v``), dv =
+// dy silu'(v), adds dv and dv times each tap's input into its partials of
+// db and dw, and writes du[t] once dv(t + K - 1) is in (du[t] = sum_j
+// dv(t + K - 1 - j) w[j]).  The first K - 1 dv of each chunk go to shared
+// memory (``xch``), where the chunk before takes them for its last K - 1
+// du after one barrier; only the tile's last chunk, and the sequence's,
+// walk on past their end (zeros past S).  The CONV_CY chunks' partials
+// then add in shared memory in chunk order into the tile's row of part
+// ((B * tiles), K + 1, di), which ``fused_conv_dwsum_kernel`` adds in
+// tile order: no atomics.
+constexpr int CONV_CY = 8;                  // chunks of a block: its warps
+constexpr int CONV_CV = 2;                  // channels of a lane
+constexpr int CONV_CW = 32 * CONV_CV;       // channels of a block
+constexpr int CONV_NS = 2;                  // slots of a warp's ring
+constexpr int CONV_HALO = 3;                // K - 1 rows, K up to 4
+// rows of a slot: 2 KB of u and 2 KB of dy
+template <typename T>
+__host__ __device__ constexpr int conv_sub() {
+  return 2048 / (CONV_CW * (int)sizeof(T));
+}
+// elements a warp stages: its ring (u and dy a slot), u before its chunk,
+// u and dy after it
+template <typename T>
+__host__ __device__ constexpr int conv_warp_elems() {
+  return (CONV_NS * 2 * conv_sub<T>() + 3 * CONV_HALO) * CONV_CW;
+}
+// a block's dynamic shared memory: the warps' stages, then ``xch``
+// (CONV_CY, CONV_HALO, CONV_CW) f32; the partials' sum (CONV_CY, K + 1,
+// CONV_CW) f32 reuses the stages after the walk
+template <typename T>
+constexpr size_t conv_smem() {
+  return CONV_CY * (conv_warp_elems<T>() * sizeof(T) +
+                    CONV_HALO * CONV_CW * sizeof(float));
+}
+static_assert(CONV_CY * 5 * CONV_CW * sizeof(float) <=
+                  CONV_CY * conv_warp_elems<__nv_bfloat16>() * 2,
+              "the partials' sum fits in the stages");
+
+// rows t0 .. t0 + n - 1 of an operand whose row t starts at g + t * rs,
+// channels c0 .. c0 + CONV_CW - 1, into n rows of CONV_CW at dst; zeros
+// outside [0, S) x [0, di)
+template <typename T, bool VEC>
+__device__ __forceinline__ void conv_stage(T* dst, const T* g, int64_t rs,
+                                           int t0, int n, int S, int c0,
+                                           int di, int lane) {
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T), C = CONV_CW / E;
+    for (int e = lane; e < n * C; e += 32) {
+      const int r = e / C, k = (e % C) * E, t = t0 + r;
+      const bool ok = t >= 0 && t < S && c0 + k < di;
+      tc::cp_async16(dst + r * CONV_CW + k, ok ? g + t * rs + c0 + k : g,
+                     ok);
+    }
+  } else {
+    for (int e = lane; e < n * CONV_CW; e += 32) {
+      const int r = e / CONV_CW, k = e % CONV_CW, t = t0 + r;
+      dst[r * CONV_CW + k] = t >= 0 && t < S && c0 + k < di
+                                 ? g[t * rs + c0 + k]
+                                 : from_f<T>(0.f);
+    }
+  }
+}
+
+// du's row at a lane's channels c, c + 1 (those before di)
+template <typename T, bool VEC>
+__device__ __forceinline__ void conv_store(T* row, int c, int di,
+                                           const float (&o)[CONV_CV]) {
+  if constexpr (VEC) {
+    if (c < di) st2(row + c, o);
+  } else {
+#pragma unroll
+    for (int q = 0; q < CONV_CV; ++q)
+      if (c + q < di) row[c + q] = from_f<T>(o[q]);
+  }
+}
+
+// one lane's walk down its channels: the taps, the last K inputs and dv,
+// the partials of dw and db
+template <typename T, int K>
+struct ConvWalk {
+  static constexpr bool FAST = sizeof(T) == 2;
+  float wf[CONV_CV][K], win[CONV_CV][K], dvw[CONV_CV][K], dwp[CONV_CV][K];
+  float bf[CONV_CV], dbp[CONV_CV];
+
+  // one step from u and dy at it (own: its dv goes into dw and db); o =
+  // du at the step K - 1 back
+  __device__ __forceinline__ void step(const float (&uv)[CONV_CV],
+                                       const float (&gv)[CONV_CV], bool own,
+                                       float (&o)[CONV_CV]) {
+#pragma unroll
+    for (int q = 0; q < CONV_CV; ++q) {
+      win[q][K - 1] = uv[q];            // win[q][j] = u(s - K + 1 + j)
+      const float d = dsilu<FAST>(conv_v<T, K>(win[q], wf[q], bf[q]));
+      const float dv = FAST ? gv[q] * d : __fmul_rn(gv[q], d);
+      if (own) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          dwp[q][j] = mac<FAST>(dv, win[q][j], dwp[q][j]);
+        dbp[q] = FAST ? dbp[q] + dv : __fadd_rn(dbp[q], dv);
+      }
+#pragma unroll
+      for (int j = 0; j < K - 1; ++j) win[q][j] = win[q][j + 1];
+      push(q, dv, o);
+    }
+  }
+  // dv(s) in: o[q] = du(s - K + 1)
+  __device__ __forceinline__ void push(int q, float dv, float (&o)[CONV_CV]) {
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) dvw[q][j] = dvw[q][j + 1];
+    dvw[q][K - 1] = dv;                 // dvw[q][K - 1 - j] = dv(s - j)
+    float a = FAST ? dvw[q][K - 1] * wf[q][0]
+                   : __fmul_rn(dvw[q][K - 1], wf[q][0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) a = mac<FAST>(dvw[q][K - 1 - j], wf[q][j], a);
+    o[q] = a;
+  }
+};
+
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(32 * CONV_CY, 2)
     fused_conv_bwd_kernel(const T* __restrict__ u, const T* __restrict__ w,
                           const T* __restrict__ bias,
                           const T* __restrict__ dy, T* __restrict__ du,
-                          float* __restrict__ part, int B, int S, int di,
-                          int64_t sub, int64_t sus, int chunk, int nchunk) {
-  const int ncv = di / CV;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)B * nchunk * ncv) return;
-  const int c = (int)(t % ncv) * CV;
-  const int64_t bc = t / ncv;
-  const int ch = (int)(bc % nchunk), bb = (int)(bc / nchunk);
-  const int s0 = ch * chunk, s1 = s0 + chunk < S ? s0 + chunk : S;
-  float wf[CV][K], win[CV][K], dvw[CV][K], dwp[CV][K], bf[CV], dbp[CV];
-  float tmp[CV], g[CV];
+                          float* __restrict__ part, int S, int di,
+                          int64_t sub, int64_t sus, int L) {
+  constexpr int CV = CONV_CV, CW = CONV_CW, SUB = conv_sub<T>();
+  constexpr int NS = CONV_NS, H = CONV_HALO;
+  extern __shared__ __align__(16) unsigned char conv_raw[];
+  const int lane = threadIdx.x % 32, y = threadIdx.x / 32;
+  T* ring = reinterpret_cast<T*>(conv_raw) + y * conv_warp_elems<T>();
+  T* pre = ring + NS * 2 * SUB * CW;   // (H, CW): u before the chunk
+  T* post = pre + H * CW;              // (2, H, CW): u, dy after it
+  float* xch = reinterpret_cast<float*>(
+      conv_raw + CONV_CY * conv_warp_elems<T>() * sizeof(T));
+  float* red = reinterpret_cast<float*>(conv_raw);
+  const int c0 = blockIdx.x * CW, cl = lane * CV, c = c0 + cl;
+  const int bb = blockIdx.z, s0 = (blockIdx.y * CONV_CY + y) * L;
+  const bool run = s0 < S;
+  // the tile's last chunk, and the sequence's, walk K - 1 steps on
+  const bool tail = y == CONV_CY - 1 || s0 + L >= S;
+  const bool guard = s0 + L > S;       // du's steps may pass S
+  const T* ub = u + bb * sub;
+  const T* gb = dy + (int64_t)bb * S * di;
+  T* dub = du + (int64_t)bb * S * di;
+  ConvWalk<T, K> wk;
+  float uv[CV], gv[CV], o[CV];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    ldv<CV>(w + (int64_t)j * di + c, tmp);
+  for (int q = 0; q < CV; ++q) {
+    wk.dbp[q] = wk.bf[q] = 0.f;
 #pragma unroll
-    for (int q = 0; q < CV; ++q) {
-      wf[q][j] = tmp[q];
-      dvw[q][j] = 0.f;
-      dwp[q][j] = 0.f;
-    }
-  }
-  ldv<CV>(bias + c, bf);
-#pragma unroll
-  for (int q = 0; q < CV; ++q) dbp[q] = 0.f;
-#pragma unroll
-  for (int j = 0; j < K - 1; ++j) {
-    conv_in<T, K, CV>(u, nullptr, bb, s0 - (K - 1) + j, c, di, sub, sus,
-                      tmp);
-#pragma unroll
-    for (int q = 0; q < CV; ++q) win[q][j] = tmp[q];
-  }
-  // dv at steps s0 .. s1 + K - 2 (0 past S); du[s] once dv(s + K - 1) is in
-  for (int s = s0; s < s1 + K - 1; ++s) {
-    const bool live = s < S;
-    if (live) {
-      ldv<CV>(u + bb * sub + s * sus + c, tmp);
-      ldv<CV>(dy + ((int64_t)bb * S + s) * di + c, g);
-    }
-#pragma unroll
-    for (int q = 0; q < CV; ++q) {
-      float dv = 0.f;
-      if (live) {
-        win[q][K - 1] = tmp[q];
-        dv = __fmul_rn(g[q], dsilu_f(conv_v<T, K>(win[q], wf[q], bf[q])));
-        if (s < s1) {
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            dwp[q][j] = __fadd_rn(dwp[q][j], __fmul_rn(dv, win[q][j]));
-          dbp[q] = __fadd_rn(dbp[q], dv);
-        }
-#pragma unroll
-        for (int j = 0; j < K - 1; ++j) win[q][j] = win[q][j + 1];
-      }
-#pragma unroll
-      for (int j = 0; j < K - 1; ++j) dvw[q][j] = dvw[q][j + 1];
-      dvw[q][K - 1] = dv;               // dvw[q][K - 1 - j] = dv(s - j)
-      float acc = 0.f;
+    for (int j = 0; j < K; ++j)
+      wk.wf[q][j] = wk.win[q][j] = wk.dvw[q][j] = wk.dwp[q][j] = 0.f;
+    if (c + q < di) {
 #pragma unroll
       for (int j = 0; j < K; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(dvw[q][K - 1 - j], wf[q][j]));
-      g[q] = acc;
+        wk.wf[q][j] = to_f(w[(int64_t)j * di + c + q]);
+      wk.bf[q] = to_f(bias[c + q]);
     }
-    const int so = s - (K - 1);
-    if (so >= s0 && so < S) stv<CV>(du + ((int64_t)bb * S + so) * di + c, g);
   }
-  float* pp = part + (bc * (K + 1)) * di + c;
+  if (run) {
+    const int n = L / SUB;
+    conv_stage<T, VEC>(pre, ub, sus, s0 - (K - 1), K - 1, S, c0, di, lane);
+    if (tail) {
+      conv_stage<T, VEC>(post, ub, sus, s0 + L, K - 1, S, c0, di, lane);
+      conv_stage<T, VEC>(post + H * CW, gb, di, s0 + L, K - 1, S, c0, di,
+                         lane);
+    }
+    // slot i % NS: rows s0 + i SUB .. of u, then of dy
+    auto stage = [&](int i) {
+      T* sl = ring + (i % NS) * 2 * SUB * CW;
+      conv_stage<T, VEC>(sl, ub, sus, s0 + i * SUB, SUB, S, c0, di, lane);
+      conv_stage<T, VEC>(sl + SUB * CW, gb, di, s0 + i * SUB, SUB, S, c0,
+                         di, lane);
+    };
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
+    for (int i = 0; i < NS - 1; ++i) {
+      if (i < n) stage(i);
+      tc::cp_async_commit();
+    }
+    for (int i = 0; i < n; ++i) {
+      if (i + NS - 1 < n) stage(i + NS - 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<NS - 1>();
+      __syncwarp();
+      if (i == 0) {
 #pragma unroll
-    for (int q = 0; q < CV; ++q) tmp[q] = dwp[q][j];
-    stv<CV>(pp + (int64_t)j * di, tmp);
+        for (int j = 0; j < K - 1; ++j)
+#pragma unroll
+          for (int q = 0; q < CV; ++q)
+            wk.win[q][j] = to_f(pre[j * CW + cl + q]);
+      }
+      const T* su = ring + (i % NS) * 2 * SUB * CW + cl;
+      const int t0 = s0 + i * SUB - (K - 1);   // du's step at row 0
+#pragma unroll
+      for (int r = 0; r < SUB; ++r) {
+        ldv<CV>(su + r * CW, uv);
+        ldv<CV>(su + (SUB + r) * CW, gv);
+        wk.step(uv, gv, true, o);
+        if (i == 0 && r == K - 2) {   // dv(s0) .. dv(s0 + K - 2)
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j)
+#pragma unroll
+            for (int q = 0; q < CV; ++q)
+              xch[(y * H + j) * CW + cl + q] = wk.dvw[q][j + 1];
+        }
+        if ((i > 0 || r >= K - 1) && (!guard || t0 + r < S))
+          conv_store<T, VEC>(dub + (int64_t)(t0 + r) * di, c, di, o);
+      }
+      __syncwarp();
+    }
+    if (tail) {   // dv on to s0 + L + K - 2: the chunk's last K - 1 du
+#pragma unroll
+      for (int r = 0; r < K - 1; ++r) {
+        ldv<CV>(post + r * CW + cl, uv);
+        ldv<CV>(post + (H + r) * CW + cl, gv);
+        wk.step(uv, gv, false, o);
+        const int t = s0 + L - (K - 1) + r;
+        if (!guard || t < S)
+          conv_store<T, VEC>(dub + (int64_t)t * di, c, di, o);
+      }
+    }
   }
-  stv<CV>(pp + (int64_t)K * di, dbp);
+  __syncthreads();
+  if (run && !tail) {   // the last K - 1 du from the next chunk's first dv
+#pragma unroll
+    for (int i = 0; i < K - 1; ++i) {
+#pragma unroll
+      for (int q = 0; q < CV; ++q)
+        wk.push(q, xch[((y + 1) * H + i) * CW + cl + q], o);
+      conv_store<T, VEC>(dub + (int64_t)(s0 + L - (K - 1) + i) * di, c, di,
+                         o);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < CV; ++q) {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      red[(y * (K + 1) + j) * CW + cl + q] = wk.dwp[q][j];
+    red[(y * (K + 1) + K) * CW + cl + q] = wk.dbp[q];
+  }
+  __syncthreads();
+  const int64_t prow =
+      ((int64_t)bb * gridDim.y + blockIdx.y) * (K + 1) * (int64_t)di;
+  for (int e = threadIdx.x; e < (K + 1) * CW; e += blockDim.x) {
+    const int j = e / CW, col = e % CW;
+    if (c0 + col >= di) continue;
+    float v = red[j * CW + col];
+#pragma unroll
+    for (int g = 1; g < CONV_CY; ++g)
+      v = __fadd_rn(v, red[(g * (K + 1) + j) * CW + col]);
+    part[prow + (int64_t)j * di + c0 + col] = v;
+  }
 }
 
-// dw (K, di) and db (di,): the parts added in order, one thread a column
+// dw (K, di) and db (di,): the conv's tiles added in order
 template <typename T>
 __global__ void __launch_bounds__(256)
-    fused_conv_dwsum_kernel(const float* __restrict__ part,
-                            T* __restrict__ dw, T* __restrict__ db, int P,
-                            int K, int di) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)(K + 1) * di) return;
-  float acc = 0.f;
-  for (int p = 0; p < P; ++p)
-    acc = __fadd_rn(acc, part[(int64_t)p * (K + 1) * di + t]);
-  if (t < (int64_t)K * di)
-    dw[t] = from_f<T>(acc);
-  else
-    db[t - (int64_t)K * di] = from_f<T>(acc);
+    fused_conv_dwsum_kernel(const float* __restrict__ part, int P, int K,
+                            int di, T* __restrict__ dw, T* __restrict__ db) {
+  colsum<T>(part, P, (int64_t)(K + 1) * di, dw, (int64_t)K * di, db);
 }
 
 // ---------------------------------------------------------------- the gate
@@ -593,43 +930,42 @@ int rmsnorm_launch(const void* x, const void* w, void* y, int64_t R, int D,
 
 template <typename T, typename W>
 int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy,
-                       void* dx, void* dw, void* rstd, void* part, int64_t R,
-                       int D, int64_t sx, int rows_per, float eps,
+                       void* dx, void* dw, void* part, int64_t R, int D,
+                       int64_t sx, int tx, int ty, int band, float eps,
                        cudaStream_t s) {
-  const int64_t blocks = (R + NORM_WARPS - 1) / NORM_WARPS;
+  // the plan's groups must hold a row (NORM_H elements a thread) and fit
+  // a block
+  if (tx < 32 || tx % 32 || ty < 1 || tx * ty > NORM_MAX_TX ||
+      (int64_t)tx * NORM_H < D || band < 1)
+    return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && sx % 4 == 0 && al4<T>(x) && al4<W>(w) &&
                    al4<T>(dy) && al4<T>(dx);
+  const int64_t P = (R + band - 1) / band;
+  const size_t smem = norm_smem(D, tx, ty);
   if (vec)
-    fused_rmsnorm_bwd_kernel<T, W, true><<<(unsigned)blocks, 256, 0, s>>>(
+    fused_rmsnorm_bwd_kernel<T, W, true><<<(unsigned)P, tx * ty, smem, s>>>(
         static_cast<const T*>(x), static_cast<const W*>(w),
         static_cast<const T*>(dy), static_cast<T*>(dx),
-        static_cast<float*>(rstd), R, D, sx, 1.f / (float)D, eps);
+        static_cast<float*>(part), R, D, sx, band, tx, 1.f / (float)D, eps);
   else
-    fused_rmsnorm_bwd_kernel<T, W, false><<<(unsigned)blocks, 256, 0, s>>>(
+    fused_rmsnorm_bwd_kernel<T, W, false><<<(unsigned)P, tx * ty, smem, s>>>(
         static_cast<const T*>(x), static_cast<const W*>(w),
         static_cast<const T*>(dy), static_cast<T*>(dx),
-        static_cast<float*>(rstd), R, D, sx, 1.f / (float)D, eps);
-  int err = (int)cudaGetLastError();
+        static_cast<float*>(part), R, D, sx, band, tx, 1.f / (float)D, eps);
+  const int err = (int)cudaGetLastError();
   if (err) return err;
-  const int P = (int)((R + rows_per - 1) / rows_per);
-  fused_rmsnorm_dw_kernel<T><<<dim3(blocks_for(D), P), 256, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const float*>(rstd), static_cast<float*>(part), R, D, sx,
-      rows_per);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  fused_rmsnorm_dwsum_kernel<W><<<blocks_for(D), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<W*>(dw), P, D);
+  fused_rmsnorm_dwsum_kernel<W><<<(D + 31) / 32, 256, 0, s>>>(
+      static_cast<const float*>(part), (int)P, D, static_cast<W*>(dw));
   return (int)cudaGetLastError();
 }
 
-// four channels a thread where di, u's strides and every pointer allow
-template <typename T>
+// CV channels a thread where di, u's strides and every pointer allow
+template <typename T, int CV = 4>
 bool conv_vec(int di, int64_t sub, int64_t sus,
               std::initializer_list<const void*> ptrs) {
-  if (di % 4 || sub % 4 || sus % 4) return false;
+  if (di % CV || sub % CV || sus % CV) return false;
   for (const void* p : ptrs)
-    if (p && !al4<T>(p)) return false;
+    if (p && reinterpret_cast<uintptr_t>(p) % (CV * sizeof(T))) return false;
   return true;
 }
 
@@ -655,31 +991,48 @@ int conv_launch_k(const void* u, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
+// the staged kernel of one alignment, its shared memory allowed at its
+// first launch: not again inside a CUDA-graph capture
+template <typename T, int K, bool VEC>
+int conv_bwd_main(const void* u, const void* w, const void* b,
+                  const void* dy, void* du, void* part, dim3 grid, int S,
+                  int di, int64_t sub, int64_t sus, int L, cudaStream_t s) {
+  static bool limit_set = false;
+  if (!limit_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_conv_bwd_kernel<T, K, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)conv_smem<T>());
+    if (err != cudaSuccess) return (int)err;
+    limit_set = true;
+  }
+  fused_conv_bwd_kernel<T, K, VEC><<<grid, 32 * CONV_CY, conv_smem<T>(), s>>>(
+      static_cast<const T*>(u), static_cast<const T*>(w),
+      static_cast<const T*>(b), static_cast<const T*>(dy),
+      static_cast<T*>(du), static_cast<float*>(part), S, di, sub, sus, L);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int K>
 int conv_bwd_launch_k(const void* u, const void* w, const void* b,
                       const void* dy, void* du, void* dw, void* db,
                       void* part, int B, int S, int di, int64_t sub,
-                      int64_t sus, int chunk, cudaStream_t s) {
-  const int nchunk = (S + chunk - 1) / chunk;
-  const int64_t lanes = (int64_t)B * nchunk * di;
-  if (conv_vec<T>(di, sub, sus, {u, w, b, dy, du}) && al4<float>(part))
-    fused_conv_bwd_kernel<T, K, 4><<<blocks_for(lanes / 4), 256, 0, s>>>(
-        static_cast<const T*>(u), static_cast<const T*>(w),
-        static_cast<const T*>(b), static_cast<const T*>(dy),
-        static_cast<T*>(du), static_cast<float*>(part), B, S, di, sub, sus,
-        chunk, nchunk);
-  else
-    fused_conv_bwd_kernel<T, K, 1><<<blocks_for(lanes), 256, 0, s>>>(
-        static_cast<const T*>(u), static_cast<const T*>(w),
-        static_cast<const T*>(b), static_cast<const T*>(dy),
-        static_cast<T*>(du), static_cast<float*>(part), B, S, di, sub, sus,
-        chunk, nchunk);
-  int err = (int)cudaGetLastError();
+                      int64_t sus, int L, int parts, cudaStream_t s) {
+  // the plan's chunks: whole slots of the ring; its parts: one a tile
+  if (L < conv_sub<T>() || L % conv_sub<T>()) return (int)cudaErrorInvalidValue;
+  const int tiles = ((S + L - 1) / L + CONV_CY - 1) / CONV_CY;
+  if (parts != B * tiles) return (int)cudaErrorInvalidValue;
+  const dim3 grid((di + CONV_CW - 1) / CONV_CW, tiles, B);
+  const int err =
+      conv_vec<T, (int)(16 / sizeof(T))>(di, sub, sus, {u, dy, du})
+          ? conv_bwd_main<T, K, true>(u, w, b, dy, du, part, grid, S, di,
+                                      sub, sus, L, s)
+          : conv_bwd_main<T, K, false>(u, w, b, dy, du, part, grid, S, di,
+                                       sub, sus, L, s);
   if (err) return err;
-  fused_conv_dwsum_kernel<T><<<blocks_for((int64_t)(K + 1) * di), 256, 0,
-                               s>>>(
-      static_cast<const float*>(part), static_cast<T*>(dw),
-      static_cast<T*>(db), B * nchunk, K, di);
+  const int64_t N = (int64_t)(K + 1) * di;
+  fused_conv_dwsum_kernel<T><<<(unsigned)((N + 31) / 32), 256, 0, s>>>(
+      static_cast<const float*>(part), parts, K, di, static_cast<T*>(dw),
+      static_cast<T*>(db));
   return (int)cudaGetLastError();
 }
 
@@ -739,27 +1092,30 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* y,
                 : rmsnorm_launch<float, float>(x, w, y, R, D, sx, eps, s);
 }
 
-// (x, w, dy, dx, dw, rstd, part, R, D, x row stride, rows_per, eps, x_bf16,
-//  w_bf16, stream); dy, dx (R, D) contiguous, rstd (R,) and part
-//  (ceil(R / rows_per), D) f32 scratch
+// (x, w, dy, dx, dw, part, R, D, x row stride, tx, ty, band, eps, x_bf16,
+//  w_bf16, stream); dy, dx (R, D) contiguous; the plan (``norm_bwd_plan``):
+//  row groups of tx threads (a multiple of 32, NORM_H elements a thread: D
+//  up to 8192), ty of them a block, bands of ``band`` rows; part
+//  (ceil(R / band), D) f32 scratch
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* w, const void* dy,
-                                 void* dx, void* dw, void* rstd, void* part,
-                                 long long R, int D, long long sx,
-                                 int rows_per, float eps, int x_bf16,
-                                 int w_bf16, void* stream) {
+                                 void* dx, void* dw, void* part, long long R,
+                                 int D, long long sx, int tx, int ty,
+                                 int band, float eps, int x_bf16, int w_bf16,
+                                 void* stream) {
   if (R <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return w_bf16
-               ? rmsnorm_bwd_launch<__nv_bfloat16, __nv_bfloat16>(
-                     x, w, dy, dx, dw, rstd, part, R, D, sx, rows_per, eps, s)
-               : rmsnorm_bwd_launch<__nv_bfloat16, float>(
-                     x, w, dy, dx, dw, rstd, part, R, D, sx, rows_per, eps, s);
+    return w_bf16 ? rmsnorm_bwd_launch<__nv_bfloat16, __nv_bfloat16>(
+                        x, w, dy, dx, dw, part, R, D, sx, tx, ty, band, eps,
+                        s)
+                  : rmsnorm_bwd_launch<__nv_bfloat16, float>(
+                        x, w, dy, dx, dw, part, R, D, sx, tx, ty, band, eps,
+                        s);
   return w_bf16 ? rmsnorm_bwd_launch<float, __nv_bfloat16>(
-                      x, w, dy, dx, dw, rstd, part, R, D, sx, rows_per, eps, s)
-                : rmsnorm_bwd_launch<float, float>(x, w, dy, dx, dw, rstd,
-                                                   part, R, D, sx, rows_per,
-                                                   eps, s);
+                      x, w, dy, dx, dw, part, R, D, sx, tx, ty, band, eps, s)
+                : rmsnorm_bwd_launch<float, float>(x, w, dy, dx, dw, part, R,
+                                                   D, sx, tx, ty, band, eps,
+                                                   s);
 }
 
 // (x, pos, freqs, out, B, S, H, half, x strides b/s/h, pos strides b/s,
@@ -816,20 +1172,22 @@ extern "C" int repro_causal_conv(const void* u, const void* w, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// (u, w, b, dy, du, dw, db, part, B, S, di, K, u strides b/s, chunk,
-//  is_bf16, stream); dy, du (B, S, di) contiguous; part (B * ceil(S /
-//  chunk), K + 1, di) f32 scratch
+// (u, w, b, dy, du, dw, db, part, B, S, di, K, u strides b/s, steps,
+//  parts, is_bf16, stream); dy, du (B, S, di) contiguous; the plan
+//  (``conv_bwd_plan``): chunks of ``steps`` steps (a multiple of
+//  conv_sub<T>()), ``parts`` = B ceil(ceil(S / steps) / CONV_CY) tiles;
+//  part (parts, K + 1, di) f32 scratch
 extern "C" int repro_causal_conv_bwd(const void* u, const void* w,
                                      const void* b, const void* dy, void* du,
                                      void* dw, void* db, void* part, int B,
                                      int S, int di, int K, long long sub,
-                                     long long sus, int chunk, int is_bf16,
-                                     void* stream) {
+                                     long long sus, int steps, int parts,
+                                     int is_bf16, void* stream) {
   if ((int64_t)B * S * di <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_CONV_BWD(T, KK)                                                \
   return conv_bwd_launch_k<T, KK>(u, w, b, dy, du, dw, db, part, B, S, di,  \
-                                  sub, sus, chunk, s)
+                                  sub, sus, steps, parts, s)
   if (is_bf16) {
     switch (K) {
       case 2: REPRO_CONV_BWD(__nv_bfloat16, 2);

@@ -28,15 +28,28 @@ no tensor-core work) in ``ops.meta_cost``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import ops, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-CONV_CHUNK = 64        # steps a thread of the conv walks
+CONV_CHUNK = 64        # steps a thread of the conv's forward walks
 CONV_TAPS = (2, 3, 4)  # the conv widths the kernels are built for
-NORM_ROWS = 64         # rows of one partial sum of rmsnorm's dw
-NORM_PARTS = 1024      # at most this many partial sums (the grid's y)
+# the conv's backward (``conv_bwd_plan``): a tile of CONV_CY chunks of
+# CONV_STEPS steps (csrc/fused.cu's CONV_CY; its launcher refuses a plan
+# whose parts do not match)
+CONV_STEPS = 32        # steps a warp walks: a chunk
+CONV_CY = 8            # chunks a block
+CONV_CW = 64           # channels a block
+# rmsnorm's backward (``norm_bwd_plan``; csrc/fused.cu's launcher refuses
+# a plan whose groups do not hold a row or fit a block)
+NORM_H = 16            # elements of a row a thread holds
+NORM_MAX_TX = 512      # threads a block at most: D up to 8192
+NORM_BLOCK = {2: 512, 4: 256}   # threads a block of narrower rows, by
+#                                 x's element bytes
+NORM_BANDS = 256       # about this many bands of rows (dw's partial sums)
 
 # rope's frequencies, as the plain expression computes them, per (half,
 # theta, device): made once, outside any captured step's first call
@@ -123,6 +136,49 @@ def gate_cost(g: torch.Tensor, backward: bool = False) -> tuple[int, int]:
     return 0, (5 if backward else 3) * g.numel() * g.element_size()
 
 
+# ----------------------------------------------------------------- plans
+@functools.lru_cache(maxsize=None)
+def norm_bwd_plan(R: int, D: int, elem: int = 2) -> dict:
+    """How ``rmsnorm_bwd`` cuts (R, D) rows of ``elem``-byte elements: a
+    row group of ``threads_x`` threads (a multiple of 32, each holding
+    ``NORM_H`` elements of a row), ``groups`` of them a block (about
+    ``NORM_BLOCK`` threads); a block a band of ``band`` consecutive rows,
+    ``parts`` bands (dw's partial sums, the rows of the f32 scratch
+    ``part``); ``shared_bytes`` of shared memory a block.  It depends on
+    the shape and the dtype alone (whether a thread's elements go four an
+    access or one does not change it), never on the card, so dw's
+    summation order does not either.  Cached: callers read it only."""
+    tx = 32 * -(-D // (32 * NORM_H))
+    if tx > NORM_MAX_TX:
+        raise ValueError(f"rmsnorm's backward takes D up to "
+                         f"{NORM_MAX_TX * NORM_H}, got {D}")
+    ty = 1 if tx >= NORM_BLOCK[elem] else NORM_BLOCK[elem] // tx
+    rows = max(1, -(-R // NORM_BANDS))
+    band = ty * -(-rows // ty)
+    return {"threads_x": tx, "groups": ty, "threads": tx * ty,
+            "band": band, "parts": max(1, -(-R // band)),
+            "shared_bytes": 4 * (4 * ty * (tx // 32) + ty * D)}
+
+
+@functools.lru_cache(maxsize=None)
+def conv_bwd_plan(B: int, S: int, elem: int = 2) -> dict:
+    """How ``causal_conv_bwd`` cuts B sequences of S steps of
+    ``elem``-byte elements: a warp a chunk of ``steps`` steps, a block
+    ``CONV_CY`` consecutive chunks (a tile of ``tile_steps`` steps) of
+    ``CONV_CW`` channels; ``tiles`` tiles a sequence, ``parts`` = B tiles
+    partial sums of dw and db (the rows of the f32 scratch ``part``,
+    (parts, K + 1, di)); ``shared_bytes`` of shared memory a block (the
+    warps' rings of two 2 KB slots of u and of dy, three rows of u before
+    and of u and dy after each chunk, and three f32 rows of dv a chunk, as
+    ``csrc/fused.cu``'s ``conv_smem`` counts them).  It depends on the
+    shape and the dtype alone.  Cached: callers read it only."""
+    tiles = -(-(-(-S // CONV_STEPS)) // CONV_CY)
+    rows = 2 * 2 * (2048 // (CONV_CW * elem)) + 9
+    return {"steps": CONV_STEPS, "tile_steps": CONV_CY * CONV_STEPS,
+            "tiles": tiles, "parts": max(1, B * tiles),
+            "shared_bytes": CONV_CY * CONV_CW * (rows * elem + 3 * 4)}
+
+
 # --------------------------------------------------------------- rmsnorm
 def _launch_rmsnorm(x2, w, y2, eps: float) -> None:
     R, D = x2.shape
@@ -130,13 +186,13 @@ def _launch_rmsnorm(x2, w, y2, eps: float) -> None:
           y2.data_ptr(), R, D, x2.stride(0), eps, _bf16(x2), _bf16(w))
 
 
-def _launch_rmsnorm_bwd(x2, w, dy2, dx2, dw, rstd, part, eps: float) -> None:
+def _launch_rmsnorm_bwd(x2, w, dy2, dx2, dw, part, plan: dict,
+                        eps: float) -> None:
     R, D = x2.shape
-    rows_per = -(-R // part.shape[0])
     _call("repro_rmsnorm_bwd", x2.device, x2.data_ptr(), w.data_ptr(),
-          dy2.data_ptr(), dx2.data_ptr(), dw.data_ptr(), rstd.data_ptr(),
-          part.data_ptr(), R, D, x2.stride(0), rows_per, eps, _bf16(x2),
-          _bf16(w))
+          dy2.data_ptr(), dx2.data_ptr(), dw.data_ptr(), part.data_ptr(), R,
+          D, x2.stride(0), plan["threads_x"], plan["groups"], plan["band"],
+          eps, _bf16(x2), _bf16(w))
 
 
 def _check_norm(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -167,9 +223,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dx, dw) of ``rmsnorm`` given ``dy`` (x's shape and dtype): r
-    recomputed from x; dw summed over rows in two passes in a fixed order.
-    Counts as ``rmsnorm_bwd``."""
+    """(dx, dw) of ``rmsnorm`` given ``dy`` (x's shape and dtype; D up to
+    8192) in one pass over x and dy: r recomputed from x, dw summed
+    within each band of ``norm_bwd_plan`` and then over the bands, in a
+    fixed order.  Counts as ``rmsnorm_bwd``."""
     _check_norm(x, w)
     _on("dy", dy, x.device, (x.dtype,))
     if dy.shape != x.shape:
@@ -179,13 +236,13 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dy2 = dy.reshape(R, D).contiguous()
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dw = torch.empty_like(w)
-    parts = max(1, min(-(-R // NORM_ROWS), NORM_PARTS))
-    rstd = torch.empty((R,), dtype=torch.float32, device=x.device)
-    part = torch.empty((parts, D), dtype=torch.float32, device=x.device)
+    plan = norm_bwd_plan(R, D, x.element_size())
+    part = torch.empty((plan["parts"], D), dtype=torch.float32,
+                       device=x.device)
     if x.is_meta:
         ops.add_meta_cost("rmsnorm_bwd", *rmsnorm_cost(x, w, backward=True))
         return dx, dw
-    _launch_rmsnorm_bwd(x2, w, dy2, dx.view(R, D), dw, rstd, part, eps)
+    _launch_rmsnorm_bwd(x2, w, dy2, dx.view(R, D), dw, part, plan, eps)
     ops.launches["rmsnorm_bwd"] += 1
     return dx, dw
 
@@ -286,12 +343,12 @@ def _launch_conv(u, conv_w, conv_b, state_in, y, state_out,
 
 
 def _launch_conv_bwd(u, conv_w, conv_b, dy, du, dw, db, part,
-                     chunk: int) -> None:
+                     plan: dict) -> None:
     B, S, di = u.shape
     _call("repro_causal_conv_bwd", u.device, u.data_ptr(), conv_w.data_ptr(),
           conv_b.data_ptr(), dy.data_ptr(), du.data_ptr(), dw.data_ptr(),
           db.data_ptr(), part.data_ptr(), B, S, di, conv_w.shape[0],
-          u.stride(0), u.stride(1), chunk, _bf16(u))
+          u.stride(0), u.stride(1), plan["steps"], plan["parts"], _bf16(u))
 
 
 def _check_conv(u: torch.Tensor, conv_w: torch.Tensor,
@@ -352,8 +409,9 @@ def causal_conv_bwd(u: torch.Tensor, conv_w: torch.Tensor,
                     conv_b: torch.Tensor, dy: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(du, dw, db) of ``causal_conv`` from zeros given ``dy`` (B, S, di):
-    du contiguous, dw and db summed over (B, S) in two passes in a fixed
-    order.  Counts as ``causal_conv_bwd``."""
+    du contiguous, dw and db summed within each tile of
+    ``conv_bwd_plan`` and then over the tiles, in a fixed order.  Counts
+    as ``causal_conv_bwd``."""
     u = _check_conv(u, conv_w, conv_b)
     B, S, di = u.shape
     K = conv_w.shape[0]
@@ -363,14 +421,14 @@ def causal_conv_bwd(u: torch.Tensor, conv_w: torch.Tensor,
     dy = dy.contiguous()
     du = torch.empty((B, S, di), dtype=u.dtype, device=u.device)
     dw, db = torch.empty_like(conv_w), torch.empty_like(conv_b)
-    nchunk = -(-S // CONV_CHUNK)
-    part = torch.empty((B * nchunk, K + 1, di), dtype=torch.float32,
+    plan = conv_bwd_plan(B, S, u.element_size())
+    part = torch.empty((plan["parts"], K + 1, di), dtype=torch.float32,
                        device=u.device)
     if u.is_meta:
         ops.add_meta_cost("causal_conv_bwd",
                           *conv_cost(u, conv_w, False, backward=True))
         return du, dw, db
-    _launch_conv_bwd(u, conv_w, conv_b, dy, du, dw, db, part, CONV_CHUNK)
+    _launch_conv_bwd(u, conv_w, conv_b, dy, du, dw, db, part, plan)
     ops.launches["causal_conv_bwd"] += 1
     return du, dw, db
 

@@ -1696,6 +1696,16 @@ FUSED_CASES = [
     # widths off a multiple of four: the kernels' one-element paths
     ("rmsnorm", (37, 1001)), ("causal_conv", (2, 70, 1001)),
     ("silu_gate", (37, 1001)),
+    # the backwards' plans at every norm width of the path at training
+    # rows (8191: the last band short), MLA's kv_ln at training rows;
+    # falcon's conv, a sequence off the conv's 256-step tile, S < d_conv,
+    # and a di off the 64-channel tile
+    ("rmsnorm", (32768, 576)), ("rmsnorm", (12000, 1280)),
+    ("rmsnorm", (8192, 1536)), ("rmsnorm", (8191, 2048)),
+    ("rmsnorm", (4096, 4096)), ("rmsnorm", (8192, 7168)),
+    ("rmsnorm_strided", (8192, 512)),
+    ("causal_conv", (2, 2048, 8192)), ("causal_conv", (4, 1000, 3200)),
+    ("causal_conv", (2, 2, 3200)), ("causal_conv", (2, 300, 1000)),
 ]
 FUSED_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
@@ -1816,6 +1826,25 @@ def test_fused_conv_writes_its_state_in_place(cuda):
         _, new = fused.causal_conv(u, w, b, held)
         _, want = ref.causal_conv_ref(u, w, b, st)
         assert new is held and torch.equal(held, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", [
+    c for c in FUSED_CASES if c[0].split("_strided")[0] in (
+        "rmsnorm", "causal_conv")])
+def test_fused_backwards_repeat_bit_for_bit(cuda, name, shape, dtype):
+    """rmsnorm's and the conv's backward, two calls on the same inputs
+    with a call at another shape between them (its scratch then holds
+    other sums): dx or du, dw and db with the same bits."""
+    fwd, bwd, ins, dy = _fused_case(name, shape, dtype, seed=11)
+    one = [t.clone() for t in _tup(bwd[0](*ins, dy))]
+    _, obwd, oins, ody = _fused_case(name, tuple(
+        n + 1 if i == 0 else n for i, n in enumerate(shape)), dtype, seed=12)
+    obwd[0](*oins, ody)
+    two = _tup(bwd[0](*ins, dy))
+    for a, b in zip(one, two, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ frameworks' bf16 roundings (ROADMAP, known divergences); the whole
 slice's loss and gradients 1e-5 too.
 """
 import dataclasses
+import itertools
 import zlib
 
 import numpy as np
@@ -230,8 +231,14 @@ def _autograd(fn, args, dy, grad=None):
     return [_np(a.grad) if a.requires_grad else None for a in leaves]
 
 
+# the path's norm widths (MLA's kv_ln 512, smollm 576, hubert 1280, MLA's
+# q_ln 1536, hymba 1600, olmoe 2048, deepseek-7b and llama-vision 4096,
+# deepseek-v3 7168) and one off a multiple of four
+NORM_WIDTHS = [512, 576, 1001, 1280, 1536, 1600, 2048, 4096, 7168]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [64, 1600])
+@pytest.mark.parametrize("D", [64, *NORM_WIDTHS])
 def test_rmsnorm_backward_plain(D, dtype):
     rng = _rng("norm_bwd", D, dtype)
     x, jx = _pair(rng.standard_normal((3, 4, D)) * 2, dtype)
@@ -281,6 +288,25 @@ def test_conv_backward_plain(S, K, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,di", [(9, 3200), (300, 1000), (3, 8192),
+                                  (2, 4096), (40, 1001)])
+def test_conv_backward_plain_path_widths(S, di, dtype):
+    """The conv's backward at the path's channel counts (hymba's 3200,
+    falcon's 8192 and a tp rank's 4096), a sequence longer than a tile of
+    the kernel's plan, S shorter than the taps, and widths off the
+    kernel's 64-channel tile and off a multiple of four; against
+    ``jax.vjp`` of the mixer's conv."""
+    rng = _rng("conv_bwd_w", S, di, dtype)
+    (u, w, b), (ju, jw, jb) = _conv_inputs(rng, 2, S, di, 4, dtype)
+    dy, jdy = _pair(rng.standard_normal((2, S, di)), dtype)
+    got = ref.causal_conv_bwd_ref(u, w, b, dy)
+    want = _vjp(lambda a, c, d: _jax_conv(a, c, d)[0], (ju, jw, jb), jdy)
+    for g, jg in zip(got, want):
+        assert g.dtype == u.dtype
+        assert _gap(_np(g), jg) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(3, 7, 24), (4, 1600)])
 def test_silu_gate_backward_plain(shape, dtype):
     rng = _rng("gate_bwd", shape, dtype)
@@ -294,6 +320,99 @@ def test_silu_gate_backward_plain(shape, dtype):
         assert x.dtype == g.dtype
         assert _gap(_np(x), jx) <= TOL[dtype]
         assert _gap(_np(x), px) <= TOL[dtype]
+
+
+# ------------------------------------------- the backwards' plans
+SMEM_MAX = 232448      # shared memory a block may have on the H100 (227 KB)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("R", [1, 4, 37, 255, 256, 257, 8191, 8192, 12000,
+                               32768, 65536])
+@pytest.mark.parametrize("D", [*NORM_WIDTHS, 4, 8192])
+def test_norm_bwd_plan_covers_every_row_once(D, R, elem):
+    """rmsnorm's backward plan at the path's widths (and the one-element
+    path's, the narrowest and the widest): threads a row a multiple of 32
+    holding every element, at most ``NORM_MAX_TX`` a block; shared memory
+    within the card's; the bands cover the rows once, each a whole number
+    of the block's row groups but the last; the same plan on every call."""
+    plan = fused.norm_bwd_plan(R, D, elem)
+    assert plan == fused.norm_bwd_plan(R, D, elem)
+    tx, ty = plan["threads_x"], plan["groups"]
+    assert tx % 32 == 0 and tx * fused.NORM_H >= D
+    assert tx * fused.NORM_H < D + 32 * fused.NORM_H
+    assert plan["threads"] == tx * ty <= fused.NORM_MAX_TX
+    assert plan["threads"] <= max(tx, fused.NORM_BLOCK[elem])
+    assert plan["shared_bytes"] <= SMEM_MAX
+    band, parts = plan["band"], plan["parts"]
+    assert band % ty == 0 and parts <= max(fused.NORM_BANDS, 1)
+    seen = np.zeros(R, dtype=np.int64)
+    for p in range(parts):
+        seen[p * band:min((p + 1) * band, R)] += 1
+    assert (seen == 1).all()
+
+
+def test_norm_bwd_plan_refuses_rows_wider_than_8192():
+    fused.norm_bwd_plan(8, 8192)
+    for elem in (2, 4):
+        with pytest.raises(ValueError, match="8192"):
+            fused.norm_bwd_plan(8, 8193, elem)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("B,S", [
+    (4, 2048), (2, 2048), (4, 1), (2, 2), (4, 1000), (2, 300), (2, 70),
+    (3, 9), (2, 5), (1, 255), (1, 256), (1, 257), (1, 512), (8, 1500),
+    (1, 4096)])
+def test_conv_bwd_plan_covers_every_step_once(B, S, elem):
+    """The conv's backward plan: its chunks of ``steps`` (at least the
+    taps' K - 1, whole slots of 2 KB of a 64-channel row: 16 bf16 or 8 f32
+    steps) in tiles of ``CONV_CY`` cover every step of a sequence once;
+    ``parts`` one a (sequence, tile); shared memory within the card's
+    with two blocks an SM; the same plan on every call."""
+    plan = fused.conv_bwd_plan(B, S, elem)
+    assert plan == fused.conv_bwd_plan(B, S, elem)
+    steps = plan["steps"]
+    assert steps >= max(fused.CONV_TAPS) - 1
+    assert steps % (2048 // (fused.CONV_CW * elem)) == 0
+    assert plan["tile_steps"] == fused.CONV_CY * steps
+    assert 2 * plan["shared_bytes"] <= SMEM_MAX
+    tiles = plan["tiles"]
+    assert plan["parts"] == B * tiles
+    seen = np.zeros(S, dtype=np.int64)
+    for t in range(tiles):
+        for y in range(fused.CONV_CY):
+            s0 = (t * fused.CONV_CY + y) * steps
+            seen[s0:min(s0 + steps, S)] += 1
+    assert (seen == 1).all()
+
+
+def test_backward_scratch_follows_the_plans(monkeypatch):
+    """The wrappers hand their launches scratch of the plans' sizes and the
+    plans: part (parts, D) for rmsnorm (row-aligned strided x too), part
+    (parts, K + 1, di) for the conv."""
+    seen = {}
+    monkeypatch.setattr(fused, "_launch_rmsnorm_bwd", lambda *a: seen.update(
+        norm=(a[5].shape, a[6])))
+    monkeypatch.setattr(fused, "_launch_conv_bwd", lambda *a: seen.update(
+        conv=(a[7].shape, a[8])))
+    for (R, D), dt in itertools.product(
+            ((8192, 1600), (37, 1001), (4096, 512)),
+            (torch.float32, torch.bfloat16)):
+        x = torch.zeros((R, D + 64), dtype=dt)[:, :D]
+        fused.rmsnorm_bwd(x, torch.ones(D), torch.zeros((R, D), dtype=dt),
+                          EPS)
+        plan = fused.norm_bwd_plan(R, D, x.element_size())
+        assert seen["norm"] == ((plan["parts"], D), plan)
+    for (B, S, di), dt in itertools.product(
+            ((4, 2048, 3200), (2, 70, 1001)),
+            (torch.float32, torch.bfloat16)):
+        u = torch.zeros((B, S, 2 * di), dtype=dt)[..., :di]
+        fused.causal_conv_bwd(u, torch.zeros((4, di), dtype=dt),
+                              torch.zeros(di, dtype=dt),
+                              torch.zeros((B, S, di), dtype=dt))
+        plan = fused.conv_bwd_plan(B, S, u.element_size())
+        assert seen["conv"] == ((plan["parts"], 5, di), plan)
 
 
 # ------------------------------------ the Functions, launches on plain
@@ -312,12 +431,12 @@ def _plain_conv_launch(u, w, b, state_in, y, state_out, chunk):
 PLAIN_FUSED = {
     "_launch_rmsnorm": lambda x2, w, y2, eps: y2.copy_(
         ref.rmsnorm_ref(x2, w, eps)),
-    "_launch_rmsnorm_bwd": lambda x2, w, dy2, dx2, dw, rstd, part, eps:
+    "_launch_rmsnorm_bwd": lambda x2, w, dy2, dx2, dw, part, plan, eps:
         _outs((dx2, dw), ref.rmsnorm_bwd_ref(x2, w, dy2, eps)),
     "_launch_rope": lambda x, pos, theta, out, negate: out.copy_(
         ref.rope_ref(x, pos, theta, negate)),
     "_launch_conv": _plain_conv_launch,
-    "_launch_conv_bwd": lambda u, w, b, dy, du, dw, db, part, chunk:
+    "_launch_conv_bwd": lambda u, w, b, dy, du, dw, db, part, plan:
         _outs((du, dw, db), ref.causal_conv_bwd_ref(u, w, b, dy)),
     "_launch_gate": lambda g2, u2, y2: y2.copy_(ref.silu_gate_ref(g2, u2)),
     "_launch_gate_bwd": lambda g2, u2, dy2, dg2, du2:

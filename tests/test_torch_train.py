@@ -385,12 +385,12 @@ def _plain_conv_launch(u, w, b, state_in, y, state_out, chunk):
 PLAIN_FUSED = {
     "_launch_rmsnorm": lambda x2, w, y2, eps: y2.copy_(
         ref.rmsnorm_ref(x2, w, eps)),
-    "_launch_rmsnorm_bwd": lambda x2, w, dy2, dx2, dw, rstd, part, eps:
+    "_launch_rmsnorm_bwd": lambda x2, w, dy2, dx2, dw, part, plan, eps:
         _outs((dx2, dw), ref.rmsnorm_bwd_ref(x2, w, dy2, eps)),
     "_launch_rope": lambda x, pos, theta, out, negate: out.copy_(
         ref.rope_ref(x, pos, theta, negate)),
     "_launch_conv": _plain_conv_launch,
-    "_launch_conv_bwd": lambda u, w, b, dy, du, dw, db, part, chunk:
+    "_launch_conv_bwd": lambda u, w, b, dy, du, dw, db, part, plan:
         _outs((du, dw, db), ref.causal_conv_bwd_ref(u, w, b, dy)),
     "_launch_gate": lambda g2, u2, y2: y2.copy_(ref.silu_gate_ref(g2, u2)),
     "_launch_gate_bwd": lambda g2, u2, dy2, dg2, du2:
