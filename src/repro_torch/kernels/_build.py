@@ -41,11 +41,10 @@ SIGNATURES = {
         "repro_front_find_grid": (_I, _I),
         "repro_empty_launch": (_I, _I, _I, _P),
     },
-    # (q, k, v, o, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal, window,
-    #  q_off, scale, is_bf16, stream)
+    # (q, k, v, o, lse, q_pos, k_pos, B, Sq, Sk, H, KV, hd, hdv, causal,
+    #  window, q_off, scale, is_bf16, stream); lse null or (B, H, Sq) f32
     "flash_attention": {
-        "repro_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _I, _P),
+        "repro_flash_attention": (_P,) * 7 + (_I,) * 10 + (_F, _I, _P),
     },
     # (u, dt, A, Bc, Cc, D, init, y, last, B, S, di, N, is_bf16, stream)
     "mamba_scan": {
@@ -66,10 +65,12 @@ SIGNATURES = {
     "attention_prefill_tc": {
         "repro_attention_prefill_tc": (_P,) * 5 + (_I,) * 10 + (_F, _P),
     },
-    # (q, k, v, o, do, dq, dk, dv, lse, delta, B, Sq, Sk, H, KV, hd, hdv,
-    #  causal, window, q_off, scale, is_bf16, stream)
+    # (q, k, v, o, do, lse, dq, dk, dv, delta, B, Sq, Sk, H, KV, hd, hdv,
+    #  causal, window, q_off, scale, stream), f32; the report of (hd, hdv)'s
+    #  kernels: (hd, hdv, out[9] int32)
     "attention_bwd": {
-        "repro_attention_bwd": (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),
+        "repro_attention_bwd": (_P,) * 10 + (_I,) * 10 + (_F, _P),
+        "repro_attention_bwd_report": (_I, _I, _P),
     },
     # (x, w, dy, dx, dw, fills, G, C, D, F, is_bf16, stream); dx or dw
     # null skips its product

@@ -17,6 +17,10 @@
 // q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hdv), contiguous, all
 // f32 or all bf16; o (B, Sq, H, hdv) in q's dtype.  hd, hdv <= 256.  The kv
 // head of q head h is h / (H / KV); K and V are never copied per head.
+// lse, where not null, (B, H, Sq) f32: each row's log-sum-exp of its
+// scaled scores in log2 units (m + log2(l) of the online softmax), as
+// ``attention_prefill_tc.cu`` writes it -- what the f32 backward
+// (attention_bwd.cu) takes from a training forward.
 //
 // Numerics follow the Pallas kernel: scores and the running max, sum and
 // accumulator are f32; masked scores are -1e30 (not -inf), keys past the
@@ -106,6 +110,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // (B, H, Sq) or null
   const int* q_pos;   // (B, Sq) or null: q_off + arange(Sq)
   const int* k_pos;   // (B, Sk) or null: arange(Sk)
   int B, Sq, Sk, H, KV, hd, hdv, causal, window, q_off;
@@ -587,6 +592,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a, int vec) {
       const int row = r0 + wr + mi * 16 + g + 8 * h;
       if (row >= rows) continue;
       const int qi = row / G, hh = kv * G + row % G;
+      if (a.lse && t == 0)
+        a.lse[(static_cast<size_t>(b) * a.H + hh) * a.Sq + qi] =
+            m[mi][h] + log2f(d);
       T* out = o + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + hh) * hdv;
 #pragma unroll
       for (int n = 0; n < HDV / 8; ++n) {
@@ -668,7 +676,7 @@ int dispatch(const Args& a, int vec, cudaStream_t s) {
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o,
+                                     const void* v, void* o, void* lse,
                                      const void* q_pos, const void* k_pos,
                                      int B, int Sq, int Sk, int H, int KV,
                                      int hd, int hdv, int causal, int window,
@@ -678,7 +686,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (KV <= 0 || H % KV != 0 || hd <= 0 || hd > kMaxDim || hdv <= 0 ||
       hdv > kMaxDim || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, static_cast<const int*>(q_pos),
+  const Args a{q, k, v, o, static_cast<float*>(lse),
+               static_cast<const int*>(q_pos),
                static_cast<const int*>(k_pos), B, Sq, Sk, H, KV, hd, hdv,
                causal, window, q_off, scale};
   // 16-byte pieces: whole pieces per row and 16-byte aligned tensors

@@ -45,14 +45,16 @@
 //  * rope: one thread per (b, s, i < hd / 2), which computes cos and sin
 //    of its angle once and rotates the pair (i, i + hd / 2) of every head.
 //    x may be a strided view (MLA's rope part of a wider row).
-//  * the conv: one thread per (b, chunk of CHUNK steps, four adjacent
-//    channels -- one where they are not aligned), which keeps the last
-//    d_conv inputs in registers and walks its chunk; u may
-//    be a column slice of in_proj's output (its row stride given).  From a
-//    state (decode) one chunk covers the sequence, so the thread that reads
-//    a channel's state is the one that writes it, in place.  Its backward
-//    stages u and dy in shared memory by 16-byte cp.async, a block a tile
-//    of eight chunks, a warp a chunk walked from shared memory; the
+//  * the conv: from zeros (a training step, prefill), u staged in shared
+//    memory by 16-byte cp.async, a block a tile of eight chunks of 16
+//    steps and 64 channels, a warp a chunk walked from shared memory
+//    (``fused_conv_tile_kernel``); u may be a column slice of in_proj's
+//    output (its row stride given).  From a state (decode) one thread per
+//    (b, four adjacent channels -- one where they are not aligned) walks
+//    the whole sequence with the last d_conv inputs in registers, so the
+//    thread that reads a channel's state is the one that writes it, in
+//    place (``fused_conv_kernel``).  Its backward stages u and dy the
+//    same way, a block a tile of eight chunks, a warp a chunk; the
 //    chunks' first dv shared so that only a tile's last chunk recomputes
 //    past its end, and dw and db reduced in the block (see the kernel).
 //  * the gate: four consecutive elements a thread (one 8- or 16-byte
@@ -433,9 +435,10 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------------------------------------- the conv
 // u (B, S, di) at u[b * sub + s * sus + c]; w (K, di); b (di,); state
-// (B, K - 1, di) contiguous; y (B, S, di) contiguous.  A thread takes CV
-// adjacent channels: 4 (one access each) where di, u's strides and the
-// pointers are aligned for it, else 1.
+// (B, K - 1, di) contiguous; y (B, S, di) contiguous.  From a state
+// (decode, launch-bound: a step or a few), a thread takes CV adjacent
+// channels of a sequence: 4 (one access each) where di, u's strides and
+// the pointers are aligned for it, else 1.
 template <int CV, typename T>
 __device__ __forceinline__ void ldv(const T* p, float o[CV]) {
   if constexpr (CV == 4)
@@ -455,22 +458,6 @@ __device__ __forceinline__ void stv(T* p, const float o[CV]) {
     p[0] = from_f<T>(o[0]);
 }
 
-// the input at step t (< 0: the state's row, or zeros)
-template <typename T, int K, int CV>
-__device__ __forceinline__ void conv_in(const T* __restrict__ u,
-                                        const T* state, int bb, int t, int c,
-                                        int di, int64_t sub, int64_t sus,
-                                        float o[CV]) {
-  if (t >= 0) {
-    ldv<CV>(u + bb * sub + t * sus + c, o);
-  } else if (state) {
-    ldv<CV>(state + ((int64_t)bb * (K - 1) + (K - 1 + t)) * di + c, o);
-  } else {
-#pragma unroll
-    for (int q = 0; q < CV; ++q) o[q] = 0.f;
-  }
-}
-
 // the taps' products and sums in order, rounded once, the bias added in
 // T, rounded: SiLU's input
 template <typename T, int K>
@@ -482,19 +469,18 @@ __device__ __forceinline__ float conv_v(const float (&win)[K],
   return round_to<T>(__fadd_rn(round_to<T>(acc), bf));
 }
 
+// from a state: a thread CV channels of one sequence, every step, the
+// state read before it is written (in place)
 template <typename T, int K, int CV>
 __global__ void __launch_bounds__(256)
     fused_conv_kernel(const T* __restrict__ u, const T* __restrict__ w,
                       const T* __restrict__ bias, const T* state_in,
                       T* __restrict__ y, T* state_out, int B, int S, int di,
-                      int64_t sub, int64_t sus, int chunk, int nchunk) {
+                      int64_t sub, int64_t sus) {
   const int ncv = di / CV;
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)B * nchunk * ncv) return;
-  const int c = (int)(t % ncv) * CV;
-  const int64_t bc = t / ncv;
-  const int ch = (int)(bc % nchunk), bb = (int)(bc / nchunk);
-  const int s0 = ch * chunk, s1 = s0 + chunk < S ? s0 + chunk : S;
+  if (t >= (int64_t)B * ncv) return;
+  const int c = (int)(t % ncv) * CV, bb = (int)(t / ncv);
   float wf[CV][K], win[CV][K], bf[CV], tmp[CV];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -504,13 +490,12 @@ __global__ void __launch_bounds__(256)
   }
   ldv<CV>(bias + c, bf);
 #pragma unroll
-  for (int j = 0; j < K - 1; ++j) {
-    conv_in<T, K, CV>(u, state_in, bb, s0 - (K - 1) + j, c, di, sub, sus,
-                      tmp);
+  for (int j = 0; j < K - 1; ++j) {   // the inputs before u
+    ldv<CV>(state_in + ((int64_t)bb * (K - 1) + j) * di + c, tmp);
 #pragma unroll
     for (int q = 0; q < CV; ++q) win[q][j] = tmp[q];
   }
-  for (int s = s0; s < s1; ++s) {
+  for (int s = 0; s < S; ++s) {
     ldv<CV>(u + bb * sub + s * sus + c, tmp);
 #pragma unroll
     for (int q = 0; q < CV; ++q) {
@@ -522,13 +507,11 @@ __global__ void __launch_bounds__(256)
     stv<CV>(y + ((int64_t)bb * S + s) * di + c, tmp);
   }
   // the last K - 1 inputs of the padded sequence: the new state
-  if (state_out && ch == nchunk - 1) {
 #pragma unroll
-    for (int j = 0; j < K - 1; ++j) {
+  for (int j = 0; j < K - 1; ++j) {
 #pragma unroll
-      for (int q = 0; q < CV; ++q) tmp[q] = win[q][j];
-      stv<CV>(state_out + ((int64_t)bb * (K - 1) + j) * di + c, tmp);
-    }
+    for (int q = 0; q < CV; ++q) tmp[q] = win[q][j];
+    stv<CV>(state_out + ((int64_t)bb * (K - 1) + j) * di + c, tmp);
   }
 }
 
@@ -637,6 +620,129 @@ __device__ __forceinline__ void conv_store(T* row, int c, int di,
 #pragma unroll
     for (int q = 0; q < CONV_CV; ++q)
       if (c + q < di) row[c + q] = from_f<T>(o[q]);
+  }
+}
+
+// The conv's forward from zeros in tiles staged in shared memory, as the
+// backward stages them.  A 256-thread block takes CONV_CW channels of one
+// sequence (a lane CONV_CV adjacent ones) and CONV_CY consecutive chunks
+// of L steps (``fused.conv_fwd_plan``: 16), a warp a chunk.  A warp stages its chunk's u rows into a
+// ring of CONV_NS slots of conv_sub<T>() rows (2 KB), one slot ahead of
+// its walk, the K - 1 rows before the chunk with the first slot; by
+// 16-byte cp.async where di, the strides and the pointers are aligned for
+// it (VEC), else one element at a time; zeros outside the sequence and
+// past di.  A lane then walks its channels down the chunk from shared
+// memory with the last K inputs in registers, as ``conv_v`` and
+// ``silu_f`` round them, and stores y a row at a time (a warp's row one
+// 128- or 256-byte store).  The warp that walks the sequence's last step
+// writes the new state: the last K - 1 inputs (zeros before the
+// sequence).  What it fixes: the one-thread-a-chunk walk issued one 8-byte
+// load a step and a thread, about 6 KB in flight an SM against the ~20 KB
+// that the memory's latency asks; here each warp's loads leave as 2 KB of
+// 16-byte copies that hold no registers.  What is left is the walk's ~35
+// instructions an element (SiLU's expf and IEEE division, two roundings
+// to the dtype), about the bytes' time at full issue: five blocks an SM
+// (48 registers, a few bytes spilled) and chunks of 16 steps hide more of
+// its latency than four blocks and 32 steps did (probe_fused_bwd.py
+// --fwd).
+template <typename T>
+__host__ __device__ constexpr int conv_fwd_warp_elems() {
+  return (CONV_NS * conv_sub<T>() + CONV_HALO) * CONV_CW;
+}
+template <typename T>
+constexpr size_t conv_fwd_smem() {
+  return CONV_CY * conv_fwd_warp_elems<T>() * sizeof(T);
+}
+
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(32 * CONV_CY, 5)
+    fused_conv_tile_kernel(const T* __restrict__ u, const T* __restrict__ w,
+                           const T* __restrict__ bias, T* __restrict__ y,
+                           T* __restrict__ state_out, int S, int di,
+                           int64_t sub, int64_t sus, int L) {
+  constexpr int CV = CONV_CV, CW = CONV_CW, SUB = conv_sub<T>();
+  constexpr int NS = CONV_NS;
+  extern __shared__ __align__(16) unsigned char conv_raw[];
+  const int lane = threadIdx.x % 32, wy = threadIdx.x / 32;
+  T* ring = reinterpret_cast<T*>(conv_raw) + wy * conv_fwd_warp_elems<T>();
+  T* pre = ring + NS * SUB * CW;       // (K - 1, CW): u before the chunk
+  const int c0 = blockIdx.x * CW, cl = lane * CV, c = c0 + cl;
+  const int bb = blockIdx.z, s0 = (blockIdx.y * CONV_CY + wy) * L;
+  if (s0 >= S) return;
+  const T* ub = u + bb * sub;
+  T* yb = y + (int64_t)bb * S * di;
+  float wf[CV][K], win[CV][K], bf[CV], uv[CV], o[CV];
+#pragma unroll
+  for (int q = 0; q < CV; ++q) {
+    bf[q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) wf[q][j] = win[q][j] = 0.f;
+    if (c + q < di) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) wf[q][j] = to_f(w[(int64_t)j * di + c + q]);
+      bf[q] = to_f(bias[c + q]);
+    }
+  }
+  // the slots that hold steps before S
+  const int n = ((S - s0 < L ? S - s0 : L) + SUB - 1) / SUB;
+  conv_stage<T, VEC>(pre, ub, sus, s0 - (K - 1), K - 1, S, c0, di, lane);
+  auto stage = [&](int i) {
+    conv_stage<T, VEC>(ring + (i % NS) * SUB * CW, ub, sus, s0 + i * SUB,
+                       SUB, S, c0, di, lane);
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n) stage(i);
+    tc::cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    if (i + NS - 1 < n) stage(i + NS - 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<NS - 1>();
+    __syncwarp();
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < K - 1; ++j)
+#pragma unroll
+        for (int q = 0; q < CV; ++q) win[q][j] = to_f(pre[j * CW + cl + q]);
+    }
+    const T* su = ring + (i % NS) * SUB * CW + cl;
+    const int t0 = s0 + i * SUB;
+    // row r: y at step t0 + r into o
+    auto row = [&](int r) {
+      ldv<CV>(su + r * CW, uv);
+#pragma unroll
+      for (int q = 0; q < CV; ++q) {
+        win[q][K - 1] = uv[q];          // win[q][j] = u(t - K + 1 + j)
+        o[q] = silu_f(conv_v<T, K>(win[q], wf[q], bf[q]));
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j) win[q][j] = win[q][j + 1];
+      }
+    };
+    if (t0 + SUB < S) {                // the slot ends before S - 1
+#pragma unroll
+      for (int r = 0; r < SUB; ++r) {
+        row(r);
+        conv_store<T, VEC>(yb + (int64_t)(t0 + r) * di, c, di, o);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < SUB; ++r) {
+        const int t = t0 + r;
+        row(r);
+        if (t < S) conv_store<T, VEC>(yb + (int64_t)t * di, c, di, o);
+        if (t == S - 1 && state_out) {   // the last K - 1 inputs
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j) {
+#pragma unroll
+            for (int q = 0; q < CV; ++q) o[q] = win[q][j];
+            conv_store<T, VEC>(state_out + ((int64_t)bb * (K - 1) + j) * di,
+                               c, di, o);
+          }
+        }
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -969,25 +1075,44 @@ bool conv_vec(int di, int64_t sub, int64_t sus,
   return true;
 }
 
+// from zeros (state_in null): the staged tiles, ``chunk`` the plan's
+// steps a warp (whole slots); from a state: a thread a channel group over
+// the whole sequence (``chunk`` unused)
 template <typename T, int K>
 int conv_launch_k(const void* u, const void* w, const void* b,
                   const void* state_in, void* y, void* state_out, int B,
                   int S, int di, int64_t sub, int64_t sus, int chunk,
                   cudaStream_t s) {
-  const int nchunk = (S + chunk - 1) / chunk;
-  const int64_t lanes = (int64_t)B * nchunk * di;
+  if (!state_in) {
+    if (chunk < conv_sub<T>() || chunk % conv_sub<T>())
+      return (int)cudaErrorInvalidValue;
+    const int tiles = ((S + chunk - 1) / chunk + CONV_CY - 1) / CONV_CY;
+    const dim3 grid((di + CONV_CW - 1) / CONV_CW, tiles, B);
+#define REPRO_CONV_TILE(VEC)                                                 \
+  fused_conv_tile_kernel<T, K, VEC>                                          \
+      <<<grid, 32 * CONV_CY, conv_fwd_smem<T>(), s>>>(                       \
+          static_cast<const T*>(u), static_cast<const T*>(w),                \
+          static_cast<const T*>(b), static_cast<T*>(y),                      \
+          static_cast<T*>(state_out), S, di, sub, sus, chunk)
+    if (conv_vec<T, (int)(16 / sizeof(T))>(di, sub, sus, {u, y, state_out}))
+      REPRO_CONV_TILE(true);
+    else
+      REPRO_CONV_TILE(false);
+#undef REPRO_CONV_TILE
+    return (int)cudaGetLastError();
+  }
+  if (!state_out) return (int)cudaErrorInvalidValue;
+  const int64_t lanes = (int64_t)B * di;
   if (conv_vec<T>(di, sub, sus, {u, w, b, state_in, y, state_out}))
     fused_conv_kernel<T, K, 4><<<blocks_for(lanes / 4), 256, 0, s>>>(
         static_cast<const T*>(u), static_cast<const T*>(w),
         static_cast<const T*>(b), static_cast<const T*>(state_in),
-        static_cast<T*>(y), static_cast<T*>(state_out), B, S, di, sub, sus,
-        chunk, nchunk);
+        static_cast<T*>(y), static_cast<T*>(state_out), B, S, di, sub, sus);
   else
     fused_conv_kernel<T, K, 1><<<blocks_for(lanes), 256, 0, s>>>(
         static_cast<const T*>(u), static_cast<const T*>(w),
         static_cast<const T*>(b), static_cast<const T*>(state_in),
-        static_cast<T*>(y), static_cast<T*>(state_out), B, S, di, sub, sus,
-        chunk, nchunk);
+        static_cast<T*>(y), static_cast<T*>(state_out), B, S, di, sub, sus);
   return (int)cudaGetLastError();
 }
 
@@ -1143,8 +1268,10 @@ extern "C" int repro_rope(const void* x, const void* pos, const void* freqs,
 }
 
 // (u, w, b, state_in, y, state_out, B, S, di, K, u strides b/s, chunk,
-//  is_bf16, stream); state_in null: zeros before u; state_out null: no new
-//  state; state_in == state_out (in place) needs chunk >= S
+//  is_bf16, stream); state_in null: zeros before u, staged tiles whose
+//  chunk is ``fused.conv_fwd_plan``'s steps, state_out null: no new
+//  state; else the state before u, state_out (state_in itself: in place)
+//  the new one
 extern "C" int repro_causal_conv(const void* u, const void* w, const void* b,
                                  const void* state_in, void* y,
                                  void* state_out, int B, int S, int di, int K,

@@ -21,6 +21,10 @@ is the plain version.  Routes, chosen by ``route`` from the shapes alone:
   unequal), positions with many rows -- on the tensor cores (mma.sync:
   bf16, or 3xTF32 for f32, near f32 accuracy), K/V tiles by cp.async.
 
+``prefill_tc`` and ``general`` write the row log-sum-exp beside the
+output where asked (``return_lse``); ``decode_split`` does not, so a call
+that asks for it never goes there.
+
 A kernel that fails to build or launch raises; no route falls back to
 another or to the plain version.
 
@@ -41,11 +45,12 @@ for any other call that needs a gradient.  Backward routes, chosen by
 ``bwd_route`` from the dtype and the shapes alone:
 
 - ``tc`` (``csrc/attention_bwd_tc.cu``): bf16 -- wgmma on the tensor cores,
-  tiles by TMA, from the forward's row log-sum-exp, which the forward's
-  ``prefill_tc`` writes beside its output (``flash_attention(...,
-  return_lse=True)``; ``_Attention`` saves it);
-- ``general`` (``csrc/attention_bwd.cu``): f32 -- mma.sync in 3xTF32; it
-  recomputes the log-sum-exp.
+  tiles by TMA;
+- ``general`` (``csrc/attention_bwd.cu``): f32 -- mma.sync in 3xTF32.
+
+Both take the forward's row log-sum-exp, which the forward writes beside
+its output (``flash_attention(..., return_lse=True)``: ``prefill_tc`` in
+bf16, ``general`` in f32; ``_Attention`` saves it).
 
 ``ref.attention_bwd_ref`` is their plain version, ``ref.attention_lse_ref``
 the log-sum-exp's.
@@ -88,9 +93,9 @@ def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
           with_lse: bool = False, q_off: int = 0) -> str:
     """The kernel an attention call of these shapes goes to (see the module
     docstring); a pure function of the shapes.  ``with_lse``: the call
-    also wants the row log-sum-exp, which only ``prefill_tc`` writes (a
-    training forward: any number of rows goes there); raises where that
-    route does not take the call.  A query offset (``q_off`` > 0) keeps
+    also wants the row log-sum-exp, which ``prefill_tc`` and ``general``
+    write and ``decode_split`` does not (a training forward: any number of
+    rows goes to one of the two).  A query offset (``q_off`` > 0) keeps
     the call off ``decode_split``."""
     itemsize = dtype.itemsize
     if (not with_lse and not q_off and Sq * (H // KV) <= DECODE_ROWS
@@ -99,10 +104,6 @@ def route(dtype, B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
     if (dtype == torch.bfloat16 and (hd, hd_v) in TC_HEAD_DIMS
             and not has_positions):
         return "prefill_tc"
-    if with_lse:
-        raise ValueError("only the prefill_tc route writes the log-sum-exp: "
-                         "bf16, no positions, (hd, hd_v) in "
-                         f"{TC_HEAD_DIMS}")
     return "general"
 
 
@@ -156,16 +157,15 @@ def attention_cost(esize: int, B: int, Sq: int, Sk: int, H: int, KV: int,
     return flops, nbytes
 
 
-def attention_bwd_cost(which: str, esize: int, B: int, Sq: int, Sk: int,
-                       H: int, KV: int, hd: int, hd_v: int, causal: bool,
+def attention_bwd_cost(esize: int, B: int, Sq: int, Sk: int, H: int,
+                       KV: int, hd: int, hd_v: int, causal: bool,
                        window: int, q_off: int = 0) -> tuple[int, int]:
-    """(FLOPs, bytes) of the backward's bound on route ``which``: per live
-    pair and q head 2 hd FLOPs for each of S, dQ and dK, 2 hd_v for dP and
-    dV, and 2 hd for S once more where the route (``general``) recomputes
-    the LSE; q, k, v, o, do read once and dq, dk, dv written once; the
-    queries at ``q_off`` on."""
+    """(FLOPs, bytes) of the backward's bound, on either route (both take
+    the forward's LSE): per live pair and q head 2 hd FLOPs for each of S,
+    dQ and dK, 2 hd_v for dP and dV; q, k, v, o, do read once and dq, dk,
+    dv written once; the queries at ``q_off`` on."""
     pairs = B * live_pairs(Sq, Sk, causal, window, q_off)
-    flop_pair = 2 * (3 * hd + 2 * hd_v) + (0 if which == "tc" else 2 * hd)
+    flop_pair = 2 * (3 * hd + 2 * hd_v)
     nbytes = esize * 2 * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
     return flop_pair * H * pairs, nbytes
 
@@ -187,7 +187,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq)/(B, Sk) int32, or without ``q_pos`` the queries at ``q_off``
     (>= 0) on.  Returns (B, Sq, H, hd_v) in q's dtype; with
     ``return_lse``, (that, the (B, H, Sq) f32 row log-sum-exp in log2
-    units, as ``ref.attention_lse_ref``), from ``prefill_tc`` alone.
+    units, as ``ref.attention_lse_ref``), from ``prefill_tc`` or
+    ``general``.
 
     Counts as ``flash_attention`` without a window and positions (the
     Pallas kernel's role), else as ``attention_masked``; and once in
@@ -251,9 +252,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 stream)
         else:
             err = load("flash_attention").repro_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qp,
-                kp, B, Sq, Sk, H, KV, hd, hd_v, int(causal), int(window),
-                int(q_off), float(scale), is_bf16, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), qp, kp, B, Sq, Sk,
+                H, KV, hd, hd_v, int(causal), int(window), int(q_off),
+                float(scale), is_bf16, stream)
     if err:
         raise RuntimeError(f"attention ({which}) launch failed: CUDA error "
                            f"{err}")
@@ -316,23 +318,22 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous and 16-byte aligned on one CUDA device, all f32 or all
     bf16, (hd, hd_v) in ``BWD_HEAD_DIMS``; o the forward's output;
     ``lse`` the forward's (B, H, Sq) f32 row log-sum-exp (log2 units),
-    which the ``tc`` route (bf16) requires and ``general`` (f32, which
-    recomputes it) does not take.  The gradients come out in q's
-    dtype.  Counts as ``attention_bwd`` and once in
-    ``ops.bwd_route_launches`` under its route."""
+    which both routes require.  The gradients come out in q's dtype.
+    Counts as ``attention_bwd`` and once in ``ops.bwd_route_launches``
+    under its route."""
     _check_q_off(q_off, None)
     which = _check_bwd(q, k, v, window, False, q_off)
-    if (which == "tc") != (lse is not None):
-        raise ValueError("the tc attention backward (bf16) needs the "
-                         "forward's log-sum-exp, and general (f32) "
-                         "recomputes it: pass lse exactly for bf16")
+    if lse is None:
+        raise ValueError("the attention backward needs the forward's "
+                         "log-sum-exp: flash_attention(..., "
+                         "return_lse=True)")
     dq, dk, dv = _bwd_launch(which, q, k, v, o, do, lse, causal, window,
                              scale, q_off)
     if q.is_meta:
         B, Sq, H, hd = q.shape
         Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
         ops.add_meta_cost("attention_bwd", *attention_bwd_cost(
-            which, q.element_size(), B, Sq, Sk, H, KV, hd, hd_v, causal,
+            q.element_size(), B, Sq, Sk, H, KV, hd, hd_v, causal,
             window, q_off))
         return dq, dk, dv
     ops.launches["attention_bwd"] += 1
@@ -352,8 +353,7 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
     ops.check("v", v, (B, Sk, KV, hd_v), (q.dtype,), dev)
     for name, t in (("o", o), ("do", do)):
         ops.check(name, t, (B, Sq, H, hd_v), (q.dtype,), dev)
-    if lse is not None:
-        ops.check("lse", lse, (B, H, Sq), (torch.float32,), dev)
+    ops.check("lse", lse, (B, H, Sq), (torch.float32,), dev)
     if KV == 0 or H % KV:
         raise ValueError(f"{H} q heads do not split over {KV} kv heads")
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
@@ -366,8 +366,7 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
         pad = B * H * _cdiv(Sq, _BWD_TC_PAD) * _BWD_TC_PAD
         scratch = torch.empty(2 * pad, dtype=torch.float32, device=dev)
     else:
-        lse_s = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-        delta = torch.empty_like(lse_s)
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     if dev.type == "meta":
         return dq, dk, dv
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -382,10 +381,9 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
         else:
             err = load("attention_bwd").repro_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse_s.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd,
-                hd_v, int(causal), int(window), int(q_off), float(scale), 0,
-                stream)
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
+                int(causal), int(window), int(q_off), float(scale), stream)
     if err:
         raise RuntimeError(f"attention backward ({which}) launch failed: "
                            f"CUDA error {err}")
@@ -394,19 +392,14 @@ def _bwd_launch(which: str, q, k, v, o, do, lse, causal: bool, window: int,
 
 class _Attention(torch.autograd.Function):
     """``flash_attention`` forward, ``attention_bwd`` backward; saves q, k,
-    v, the output and, where the backward's route is ``tc``, the forward's
-    row log-sum-exp (the forward then runs on ``prefill_tc``, which writes
-    it; otherwise on its usual route)."""
+    v, the output and the forward's row log-sum-exp (the forward runs on
+    ``prefill_tc`` in bf16 and ``general`` in f32, which write it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float,
                 q_off: int):
         kw = dict(causal=causal, window=window, scale=scale, q_off=q_off)
-        lse = None
-        if _check_bwd(q, k, v, window, False, q_off) == "tc":
-            o, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        else:
-            o = flash_attention(q, k, v, **kw)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = kw
         return o

@@ -35,12 +35,14 @@ import torch
 from . import ops, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-CONV_CHUNK = 64        # steps a thread of the conv's forward walks
 CONV_TAPS = (2, 3, 4)  # the conv widths the kernels are built for
-# the conv's backward (``conv_bwd_plan``): a tile of CONV_CY chunks of
-# CONV_STEPS steps (csrc/fused.cu's CONV_CY; its launcher refuses a plan
-# whose parts do not match)
-CONV_STEPS = 32        # steps a warp walks: a chunk
+# the conv from zeros and its backward (``conv_fwd_plan``,
+# ``conv_bwd_plan``): a tile of CONV_CY chunks of CONV_FWD_STEPS or
+# CONV_STEPS steps (csrc/fused.cu's CONV_CY; its launchers refuse a chunk
+# that is not whole slots, and the backward's a plan whose parts do not
+# match)
+CONV_FWD_STEPS = 16    # steps a warp of the forward walks: a chunk
+CONV_STEPS = 32        # steps a warp of the backward walks
 CONV_CY = 8            # chunks a block
 CONV_CW = 64           # channels a block
 # rmsnorm's backward (``norm_bwd_plan``; csrc/fused.cu's launcher refuses
@@ -158,6 +160,27 @@ def norm_bwd_plan(R: int, D: int, elem: int = 2) -> dict:
     return {"threads_x": tx, "groups": ty, "threads": tx * ty,
             "band": band, "parts": max(1, -(-R // band)),
             "shared_bytes": 4 * (4 * ty * (tx // 32) + ty * D)}
+
+
+@functools.lru_cache(maxsize=None)
+def conv_fwd_plan(B: int, S: int, elem: int = 2) -> dict:
+    """How ``causal_conv`` from zeros cuts B sequences of S steps of
+    ``elem``-byte elements: a warp a chunk of ``steps`` steps (whole 2 KB
+    slots of a ``CONV_CW``-channel row: 16 bf16 or 8 f32 steps a slot), a
+    block ``CONV_CY`` consecutive chunks (a tile of ``tile_steps``
+    steps), ``tiles`` tiles a sequence; ``shared_bytes`` of shared memory
+    a block (the warps' rings of two slots of u and three rows of u
+    before each chunk, as ``csrc/fused.cu``'s ``conv_fwd_smem`` counts
+    them).  16 steps: at hymba's and falcon's shapes the probe
+    (``probe_fused_bwd.py --fwd``) found 16-step chunks faster than 32
+    with five blocks an SM.  It depends on the shape and the dtype alone;
+    from a state (decode) the conv walks the sequence a thread a channel
+    group instead.  Cached: callers read it only."""
+    slot = 2048 // (CONV_CW * elem)
+    tiles = -(-(-(-S // CONV_FWD_STEPS)) // CONV_CY)
+    return {"steps": CONV_FWD_STEPS, "tile_steps": CONV_CY * CONV_FWD_STEPS,
+            "tiles": tiles,
+            "shared_bytes": CONV_CY * CONV_CW * (2 * slot + 3) * elem}
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,9 +420,10 @@ def causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
         ops.add_meta_cost("causal_conv",
                           *conv_cost(u, conv_w, state is not None))
         return y, new
-    # from a state one thread walks every step of its channel: the thread
-    # that reads the state writes it
-    chunk = CONV_CHUNK if state is None else max(S, 1)
+    # from a state one thread walks every step of its channels (the thread
+    # that reads the state writes it): no chunk
+    chunk = (conv_fwd_plan(B, S, u.element_size())["steps"] if state is None
+             else 0)
     _launch_conv(u, conv_w, conv_b, state, y, new, chunk)
     ops.launches["causal_conv"] += 1
     return y, new

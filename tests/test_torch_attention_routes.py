@@ -76,7 +76,7 @@ def test_hubert_encoder_takes_the_general_route(dtype):
     """hubert-xlarge's full-size encoder call (8 clips of 30 s at 50
     frames/s, 16 heads of 80, non-causal) takes the general route in f32
     only: in bf16, serving and training alike, its head dims (80, 80) go to
-    the tensor-core prefill, which also writes the training forward's LSE.
+    the tensor-core prefill; either route writes the training forward's LSE.
     Its backward goes to ``tc`` in bf16 and ``general`` in f32."""
     cfg = get_config("hubert-xlarge")
     H, KV, hd, windows = _attn_shapes("hubert-xlarge")
@@ -85,9 +85,9 @@ def test_hubert_encoder_takes_the_general_route(dtype):
     want = "prefill_tc" if dtype == torch.bfloat16 else "general"
     assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0,
                     False) == want
-    if dtype == torch.bfloat16:
-        assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0, False,
-                        with_lse=True) == "prefill_tc"
+    # a training forward writes the LSE on its usual route
+    assert fa.route(dtype, 8, 1500, 1500, H, KV, hd, hd, 0, False,
+                    with_lse=True) == want
     assert fa.bwd_route(dtype, 1500, 1500, hd, hd, 0, False) == (
         "tc" if dtype == torch.bfloat16 else "general")
 

@@ -2,8 +2,9 @@
 attention forward hands its backward, the routes' choice, and the
 autograd Functions' plumbing.
 
-``ref.attention_lse_ref`` is the LSE that ``prefill_tc`` writes and the
-``tc`` attention backward (``csrc/attention_bwd_tc.cu``) takes, in log2
+``ref.attention_lse_ref`` is the LSE that the prefill routes write
+(``prefill_tc``, and ``general`` in f32) and both attention backwards
+(``csrc/attention_bwd_tc.cu``, ``csrc/attention_bwd.cu``) take, in log2
 units; here it is held to a numpy log-sum-exp of the masked scores (GQA,
 causal and not, windows, Sq != Sk) within 1e-6, and
 ``ref.attention_bwd_ref`` given it to the same function recomputing it
@@ -13,8 +14,9 @@ and to ``jax.grad`` of the JAX package's ``attention_reference``, within
 ``bwd_route`` of both modules is held case by case.  Under
 ``ops.force("cuda")``, with the forward kernels and the backward launches
 monkeypatched to their plain versions on CPU tensors, ``_Attention`` must
-hand the forward's LSE to the ``tc`` backward (and none to ``general``),
-both Functions' gradients must equal autograd of the plain versions
+hand the forward's LSE to both backward routes (the f32 Function's
+gradients held to ``jax.grad`` at (192, 128) and (80, 80) too), both
+Functions' gradients must equal autograd of the plain versions
 (``_GroupedMatmul``'s with fills and NaN past them), and each call counts
 once under its route in ``ops.bwd_route_launches``.
 """
@@ -188,15 +190,23 @@ def test_grouped_matmul_bwd_route(dtype, D, F, want):
 
 
 def test_attention_lse_only_from_prefill_tc():
-    """The LSE comes from ``prefill_tc`` alone: a training forward with it
-    goes there even at decode's row count, and no other route writes it."""
+    """The LSE comes from the prefill routes alone, ``prefill_tc`` in bf16
+    and ``general`` in f32 (and wherever else ``general`` takes the call):
+    a training forward with it goes to one of them even at decode's row
+    count, and ``decode_split`` never writes it."""
     assert fa.route(torch.bfloat16, 1, 2, 2, 4, 2, 64, 64, 0, False) == \
         "decode_split"
     assert fa.route(torch.bfloat16, 1, 2, 2, 4, 2, 64, 64, 0, False,
                     with_lse=True) == "prefill_tc"
-    with pytest.raises(ValueError, match="log-sum-exp"):
-        fa.route(torch.float32, 1, 64, 64, 4, 2, 64, 64, 0, False,
-                 with_lse=True)
+    assert fa.route(torch.float32, 1, 2, 2, 4, 2, 64, 64, 0, False) == \
+        "decode_split"
+    for dt in (torch.float32, torch.bfloat16):
+        assert fa.route(dt, 1, 2, 2, 4, 2, 64, 32, 0, False,
+                        with_lse=True) == "general"
+    assert fa.route(torch.float32, 1, 2, 2, 4, 2, 64, 64, 0, False,
+                    with_lse=True) == "general"
+    assert fa.route(torch.float32, 1, 64, 64, 4, 2, 192, 128, 0, False,
+                    with_lse=True) == "general"
 
 
 @pytest.fixture
@@ -267,11 +277,10 @@ def test_attention_function_hands_lse_to_its_backward(
     which = "tc" if dtype == torch.bfloat16 else "general"
     (seen_route, lse), = plain_kernels["attn"]
     assert seen_route == which
-    if which == "tc":
-        want = ref.attention_lse_ref(*ins[:2], scale=hd ** -0.5, **kw)
-        assert lse is not None and torch.equal(lse, want)
-    else:
-        assert lse is None
+    # both routes take the forward's LSE (``general`` no longer recomputes
+    # it)
+    want = ref.attention_lse_ref(*ins[:2], scale=hd ** -0.5, **kw)
+    assert lse is not None and torch.equal(lse, want)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, plain):
         assert a.dtype == dtype and a.shape == b.shape
@@ -283,14 +292,54 @@ def test_attention_function_hands_lse_to_its_backward(
         "gmm_tc": 0, "gmm_general": 0}
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (2, 13, 13, 4, 4, (192, 128), True, 0),
+    (1, 20, 20, 4, 2, (192, 128), True, 7),
+    (1, 9, 12, 4, 4, 80, False, 0),
+    (2, 14, 10, 4, 2, 80, False, 6)])
+def test_f32_attention_function_takes_the_forward_lse(
+        plain_kernels, B, Sq, Sk, H, KV, hd, causal, window):
+    """The f32 ``_Attention`` Function saves the forward's LSE and hands
+    it to ``general``; its gradients within 1e-5 of ``jax.grad`` of the
+    JAX package's ``attention_reference`` (f32, the largest entry's
+    scale) at MLA's (192, 128) and hubert's (80, 80)."""
+    hd, hd_v = _dims(hd)
+    rng = np.random.default_rng(Sq * 13 + H + hd + window)
+    q, k, v = (_np(rng, B, S, h, d) for S, h, d in ((Sq, H, hd),
+                                                    (Sk, KV, hd),
+                                                    (Sk, KV, hd_v)))
+    do = _np(rng, B, Sq, H, hd_v)
+    kw = dict(causal=causal, window=window)
+
+    def loss(qj, kj, vj):
+        return jnp.sum(attention_reference(qj, kj, vj, scale=hd ** -0.5,
+                                           **kw) * do)
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    ops.attention(*leaves, **kw).backward(torch.from_numpy(do))
+    (which, lse), = plain_kernels["attn"]
+    assert which == "general"
+    assert torch.equal(lse, ref.attention_lse_ref(
+        *(t.detach() for t in leaves[:2]), scale=hd ** -0.5, **kw))
+    for name, t, c in zip("qkv", leaves, want):
+        assert _gap(t.grad, torch.from_numpy(np.array(c))) <= 1e-5, name
+    assert ops.bwd_route_launches["attention_general"] == 1
+
+
 def test_attention_backward_requires_lse_exactly_for_tc():
+    """Both routes need the forward's LSE: without it ``tc`` (bf16) and
+    ``general`` (f32) raise before any launch; with it the call goes on
+    to the tensors' checks."""
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
     kw = dict(causal=True, window=0, scale=0.125)
     with pytest.raises(ValueError, match="log-sum-exp"):
         fa.attention_bwd(q, k, k, q, q, **kw)
-    lse = torch.zeros((1, 2, 8))
     with pytest.raises(ValueError, match="log-sum-exp"):
+        fa.attention_bwd(q.float(), k.float(), k.float(), q.float(),
+                         q.float(), **kw)
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
         fa.attention_bwd(q.float(), k.float(), k.float(), q.float(),
                          q.float(), lse=lse, **kw)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -1090,12 +1090,12 @@ BWD_ATTN_CASES = [
 def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
                                                     H, KV, hd, causal,
                                                     window, dtype):
-    """The kernel's (dq, dk, dv) on its route (``tc`` in bf16, from the
-    forward's LSE; ``general`` in f32) against ``attention_bwd_ref`` on the
-    same o and do, and against autograd of ``attention_ref``, bit-equal
-    over two runs; and the autograd Function's gradients (forward on its
-    usual route, ``prefill_tc`` with the LSE in bf16) against autograd of
-    the plain version."""
+    """The kernel's (dq, dk, dv) on its route (``tc`` in bf16, ``general``
+    in f32; both from the forward's LSE, which ``prefill_tc`` and
+    ``general`` write) against ``attention_bwd_ref`` on the same o and do,
+    and against autograd of ``attention_ref``, bit-equal over two runs;
+    and the autograd Function's gradients (forward on its usual route,
+    with the LSE) against autograd of the plain version."""
     from repro_torch.kernels import flash_attention as fa
     hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     g = torch.Generator(device=cuda).manual_seed(Sq + H + hd)
@@ -1111,15 +1111,11 @@ def test_attention_bwd_kernel_matches_plain_version(cuda, no_tf32, B, Sq, Sk,
     o_ref = ref.attention_ref(*leaves, **kw)
     o_ref.backward(do)
     want = [t.grad for t in leaves]
-    lse = None
-    if route == "tc":
-        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-        # writing the LSE leaves prefill_tc's output as it was
-        assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
-        lse_want = ref.attention_lse_ref(q, k, scale=scale, **kw)
-        assert float((lse - lse_want).abs().max()) <= 1e-3
-    else:
-        o = ops.attention(q, k, v, **kw)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    # writing the LSE leaves the forward's output as it was
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    lse_want = ref.attention_lse_ref(q, k, scale=scale, **kw)
+    assert float((lse - lse_want).abs().max()) <= 1e-3
     ops.reset_launches()
     got = fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
     again = fa.attention_bwd(q, k, v, o, do, scale=scale, lse=lse, **kw)
@@ -1155,10 +1151,11 @@ OFF_CASES = [(2, 256, 9, 3, 64, 0), (1, 200, 4, 2, 128, 100)]
 @pytest.mark.parametrize("B,Sq,H,KV,hd,window", OFF_CASES)
 def test_attention_kernels_take_a_query_offset(cuda, no_tf32, B, Sq, H, KV,
                                                hd, window, q_off, dtype):
-    """The forward (``prefill_tc`` with its LSE in bf16, ``general`` in
-    f32) and the backward (``tc``, ``general``) with a query offset
-    against their plain versions; the keys past the last query get exact
-    zeros in dK and dV (the allocator handed NaNs first)."""
+    """The forward (``prefill_tc`` in bf16, ``general`` in f32, each with
+    its LSE) and the backward (``tc``, ``general``) with a query offset
+    against their plain versions, the backward bit-equal over two runs;
+    the keys past the last query get exact zeros in dK and dV (the
+    allocator handed NaNs first)."""
     from repro_torch.kernels import flash_attention as fa
     Sk = q_off + Sq + 192
     g = torch.Generator(device=cuda).manual_seed(q_off + Sq + hd)
@@ -1179,11 +1176,9 @@ def test_attention_kernels_take_a_query_offset(cuda, no_tf32, B, Sq, H, KV,
     if q_off == 0:      # the offset's default: the same launch, bit-equal
         assert torch.equal(o, ops.attention(q, k, v, causal=True,
                                             window=window, scale=scale))
-    lse = None
-    if bf16:
-        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-        assert float((lse - ref.attention_lse_ref(q, k, **kw)).abs()
-                     .max()) <= 1e-3
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert float((lse - ref.attention_lse_ref(q, k, **kw)).abs()
+                 .max()) <= 1e-3
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref.attention_ref(*leaves, **kw).backward(do)
     want = [t.grad for t in leaves]
@@ -1191,9 +1186,11 @@ def test_attention_kernels_take_a_query_offset(cuda, no_tf32, B, Sq, H, KV,
     del junk
     ops.reset_launches()
     got = fa.attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    again = fa.attention_bwd(q, k, v, o, do, lse=lse, **kw)
     torch.cuda.synchronize()
     route = "tc" if bf16 else "general"
-    assert ops.bwd_route_launches[f"attention_{route}"] == 1
+    assert ops.bwd_route_launches[f"attention_{route}"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     plain = ref.attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
     for name, a, b, c in zip("qkv", got, plain, want):
         assert _grad_gap(a, b) <= GRAD_TOL[dtype], (name, _grad_gap(a, b))
@@ -1808,6 +1805,47 @@ def test_fused_kernel_matches_plain_version(cuda, name, shape, dtype):
             assert _rel(g, w) <= FUSED_TOL[dtype][1]
         want_l[f"{op}_bwd"] = 1
     assert {c: n for c, n in ops.launches.items() if n} == want_l
+
+
+# the conv's forward from zeros (staged tiles) and from a state (a thread
+# a channel group): (B, S, di, u's extra columns, from a state) -- a
+# column slice of in_proj's output, S off the 256-step tile and the
+# 32-step chunk, S under the taps, di off the 64-channel tile and not a
+# multiple of the 16-byte pieces (one element at a time), u contiguous,
+# and decode and a short prefill from a state
+CONV_FWD_CASES = [
+    (4, 2048, 3200, 3200, False), (2, 2048, 8192, 8192, False),
+    (3, 1001, 1000, 1000, False), (2, 300, 1001, 7, False),
+    (2, 5, 3200, 0, False), (1, 1, 64, 64, False), (2, 2, 1003, 0, False),
+    (1, 33, 200, 3, False), (4, 1, 3200, 3200, True),
+    (2, 7, 1000, 0, True), (2, 3, 1001, 5, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,extra,state", CONV_FWD_CASES)
+def test_fused_conv_forward_bit_equal(cuda, B, S, di, extra, state, dtype):
+    """The conv's forward, bias and SiLU bit for bit equal to its plain
+    version, the new state too (from a state: written in place), at
+    aligned, unaligned, odd and from-state shapes; one launch."""
+    from repro_torch.kernels import fused
+    gen = torch.Generator(device="cuda").manual_seed(B * S + di + extra)
+
+    def t(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device="cuda")
+                * scale).to(dtype)
+    u = t(B, S, di + extra)[..., :di]
+    w, b = t(4, di, scale=0.5), t(di, scale=0.25)
+    st = t(B, 3, di) if state else None
+    held = None if st is None else st.clone()
+    ops.reset_launches()
+    got, new = fused.causal_conv(u, w, b, held)
+    torch.cuda.synchronize()
+    want, want_new = ref.causal_conv_ref(u, w, b, st)
+    assert torch.equal(got, want) and torch.equal(new, want_new)
+    assert held is None or new is held
+    assert {c: n for c, n in ops.launches.items() if n} == {
+        "causal_conv": 1}
 
 
 @pytest.mark.cuda

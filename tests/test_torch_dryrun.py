@@ -146,14 +146,19 @@ def test_attention_function_on_meta(case, monkeypatch):
     for m, c in ((qm, q), (km, k), (vm, v)):
         assert _same(m.grad, c.grad)
     route = fa.bwd_route(dt, S, S, hd, hdv, window, False)
+    assert route == ("tc" if dt == torch.bfloat16 else "general")
     counter = "attention_masked" if window else "flash_attention"
     assert {c: n for c, n in ops.meta_calls.items() if n} == {
         counter: 1, "attention_bwd": 1}
+    # both backward routes take the forward's LSE: the forward writes it
     f_fwd, b_fwd = fa.attention_cost(dt.itemsize, B, S, S, H, KV, hd, hdv,
-                                     causal, window,
-                                     with_lse=route == "tc")
-    f_bwd, b_bwd = fa.attention_bwd_cost(route, dt.itemsize, B, S, S, H, KV,
-                                         hd, hdv, causal, window)
+                                     causal, window, with_lse=True)
+    f_bwd, b_bwd = fa.attention_bwd_cost(dt.itemsize, B, S, S, H, KV, hd,
+                                         hdv, causal, window)
+    # five products a live pair and q head: S, dQ, dK of 2 hd FLOPs, dP
+    # and dV of 2 hd_v
+    assert f_bwd == 2 * (3 * hd + 2 * hdv) * H * B * fa.live_pairs(
+        S, S, causal, window)
     assert ops.meta_cost == {"flops": f_fwd + f_bwd, "bytes": b_fwd + b_bwd}
     assert ops.launches == launches
 

@@ -387,6 +387,57 @@ def test_conv_bwd_plan_covers_every_step_once(B, S, elem):
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("B,S", [
+    (4, 2048), (2, 2048), (4, 1), (2, 2), (3, 1001), (2, 300), (1, 255),
+    (1, 257), (8, 1500), (1, 4096)])
+def test_conv_fwd_plan_covers_every_step_once(B, S, elem):
+    """The conv's forward plan from zeros (hymba's (4, 2048) and
+    falcon's (2, 2048) training shapes, decode's S = 1, odd S): chunks of
+    ``steps``, whole slots of 2 KB of a 64-channel row (16 bf16 or 8 f32
+    steps) and at least the taps' K - 1, in tiles of ``CONV_CY``
+    cover every step once; shared memory as the kernel counts it (a ring
+    of two slots and three rows before the chunk, each warp), under the
+    48 KB a block takes without raising its limit; the same plan on every
+    call."""
+    plan = fused.conv_fwd_plan(B, S, elem)
+    assert plan == fused.conv_fwd_plan(B, S, elem)
+    slot = 2048 // (fused.CONV_CW * elem)
+    steps = plan["steps"]
+    assert steps >= max(slot, max(fused.CONV_TAPS) - 1)
+    assert steps % slot == 0
+    assert plan["tile_steps"] == fused.CONV_CY * steps
+    assert plan["shared_bytes"] == (fused.CONV_CY * fused.CONV_CW
+                                    * (2 * slot + 3) * elem)
+    assert plan["shared_bytes"] <= 48 * 1024
+    seen = np.zeros(S, dtype=np.int64)
+    for t in range(plan["tiles"]):
+        for y in range(fused.CONV_CY):
+            s0 = (t * fused.CONV_CY + y) * steps
+            seen[s0:min(s0 + steps, S)] += 1
+    assert (seen == 1).all()
+    assert (plan["tiles"] - 1) * plan["tile_steps"] < S
+
+
+def test_conv_forward_launch_follows_its_plan(monkeypatch):
+    """``causal_conv`` from zeros hands its launch the plan's chunk;
+    from a state (decode, in place) none: one thread walks the whole
+    sequence."""
+    seen = []
+    monkeypatch.setattr(fused, "_launch_conv",
+                        lambda *a: seen.append((a[3] is None, a[6])))
+    for (B, S, di), dt in itertools.product(
+            ((4, 2048, 3200), (2, 2048, 8192), (3, 1001, 1000), (4, 1, 3200)),
+            (torch.float32, torch.bfloat16)):
+        u = torch.zeros((B, S, 2 * di), dtype=dt)[..., :di]
+        w, b = torch.zeros((4, di), dtype=dt), torch.zeros(di, dtype=dt)
+        fused.causal_conv(u, w, b)
+        assert seen.pop() == (
+            True, fused.conv_fwd_plan(B, S, u.element_size())["steps"])
+        fused.causal_conv(u, w, b, torch.zeros((B, 3, di), dtype=dt))
+        assert seen.pop() == (False, 0)
+
+
 def test_backward_scratch_follows_the_plans(monkeypatch):
     """The wrappers hand their launches scratch of the plans' sizes and the
     plans: part (parts, D) for rmsnorm (row-aligned strided x too), part

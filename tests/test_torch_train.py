@@ -451,7 +451,8 @@ def test_mla_training_cut_loss_and_gradients_match_jax(plain_attention):
     remat "full", against ``jax.grad``; per step 3 attention forwards (the
     dense layer's and its recompute, the MTP block's, which is not
     recomputed) and 2 backward calls, both at (192, 128) on ``general``
-    (f32), no LSE handed; the fused elementwise kernels' calls likewise."""
+    (f32), each handed the forward's LSE; the fused elementwise kernels'
+    calls likewise."""
     cfg, jm, params = _mla_cut_pair()
     batch = _batches(cfg, 1, seed=5)[0]
     jb = jax.tree.map(jnp.asarray, batch)
@@ -472,7 +473,7 @@ def test_mla_training_cut_loss_and_gradients_match_jax(plain_attention):
     for name, g in want.items():
         assert got[name].grad is not None, name
         assert _gap(_np(got[name].grad), g.numpy()) <= 1e-4, name
-    assert plain_attention == [("general", (192, 128), False)] * 2
+    assert plain_attention == [("general", (192, 128), True)] * 2
     # the fused elementwise kernels: the dense layer's four norms (two of
     # them MLA's q_ln and kv_ln), two ropes and gate twice, the MTP
     # block's once with its own norm, the final norm before each head; one
